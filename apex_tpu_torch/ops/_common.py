@@ -1,0 +1,73 @@
+"""Shared kernel-layer plumbing (counterpart of apex_tpu/ops/_common.py).
+
+Dispatch follows the tensor's device, with no environment switch: a
+CPU tensor runs a kernel's plain PyTorch version, a CUDA tensor runs
+the hand-written kernel or the call raises.  Entry points resolve their
+device with `resolve_device`, which defaults to the card and refuses to
+carry on without one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: the card unless the caller
+    asks for another.  Raises when CUDA is asked for (explicitly or by
+    default) and absent — an entry point never slides onto the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: apex_tpu_torch entry points run "
+                "on the GPU by default; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU")
+        if dev.index is None:      # "cuda" → the current card, by index
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_kernel_device(*tensors: torch.Tensor) -> bool:
+    """True when the kernel must run (every tensor on one CUDA device),
+    False when the plain version must (every tensor on the CPU).
+    Anything else — mixed devices, another backend — raises."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(
+        "kernel inputs must all lie on the CPU (plain version) or all on "
+        f"one CUDA device (kernel); got {sorted(str(t.device) for t in tensors)}")
+
+
+def strict_matmul_numerics() -> None:
+    """The GEMM numerics the JAX package gets from
+    `preferred_element_type=float32`: bf16 products reduce in fp32
+    (no reduced-precision split-K reduction), and fp32 matmuls run in
+    full fp32 (no TF32 — prefill attention is an fp32 einsum).  Process
+    wide, as PyTorch's switches are."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def row_block(rows: int, hidden: int, bytes_per_elt: int = 4,
+              vmem_budget: int = 2 * 1024 * 1024, align: int = 8,
+              cap: int = 1024) -> int:
+    """Row-block size so a (block, hidden) fp32 tile fits the budget;
+    aligned to 8 rows (the JAX package's heuristic, kept for the
+    kernels that tile rows)."""
+    b = max(align, vmem_budget // max(1, hidden * bytes_per_elt))
+    b = min(b, cap, round_up(rows, align))
+    return round_up(b, align) if b % align else b
