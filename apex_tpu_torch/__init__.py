@@ -13,17 +13,23 @@ Importing the package builds nothing: kernels are compiled from the
 sources in the checkout at their first launch.
 
 Subpackages (lazily importable):
-  ops         — LayerNorm/RMSNorm (Triton) and paged flash-decode (CUDA)
+  ops         — LayerNorm/RMSNorm forward and backward and flat Adam
+                (Triton), paged flash-decode and flash attention
+                forward and backward (CUDA)
   serve       — paged KV cache + continuous-batching decode engine
-  models      — GPT config, seeded init and the JAX-params converter
+  models      — GPT: config, seeded init, the JAX-params converter and
+                the training forward
+  optimizers  — flat buffers and FusedAdam
+  transformer — the single-device training step and the
+                tensor-parallel layers and cross entropy at tp=1
   checkpoint  — the serving fail points (chaos)
   monitor     — the recompile sentry
 """
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = {"ops", "serve", "models", "checkpoint", "monitor",
-                    "csrc"}
+_LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
+                    "checkpoint", "monitor", "csrc"}
 
 
 def __getattr__(name):

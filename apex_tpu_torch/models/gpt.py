@@ -1,5 +1,5 @@
-"""GPT configuration, seeded init and the JAX-params converter
-(counterpart of the config and `GPT.init` half of apex_tpu/models/gpt.py).
+"""GPT — configuration, seeded init, the JAX-params converter and the
+training forward at tp=1 (counterpart of apex_tpu/models/gpt.py).
 
 Parameters are a plain nested dict of tensors in the JAX package's
 layout and key names, so a checkpoint of either package maps onto the
@@ -15,8 +15,12 @@ other one name for one name:
   final_ln                weight, bias    (H,)
 
 Linear weights stay (in, out), so every product reads `x @ w` exactly
-as the JAX package's `_dot` does.  The training forward (`GPT.apply`,
-flash attention, cross entropy) waits for the training slice.
+as the JAX package's `_dot` does.
+
+`GPT` is the training forward of the JAX package's `GPT` on one device
+(tp=1): activations are (S, B, H), attention is the flash kernel
+(causal), the MLP is fc1 → tanh-gelu → fc2, the LM head is the tied
+embedding and the loss is the mean vocab-parallel cross entropy.
 """
 
 from __future__ import annotations
@@ -27,8 +31,20 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
+from apex_tpu_torch.transformer.tensor_parallel.layers import (
+    ColumnParallelLinear,
+    RowParallelLinear,
+    VocabParallelEmbedding,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +57,11 @@ class GPTConfig:
     ffn_mult: int = 4
     dropout: float = 0.0
     dtype: torch.dtype = torch.float32
+    # LM-head logits dtype: None keeps fp32 logits; bf16 halves the
+    # (S, B, V) traffic (the cross entropy upcasts inside either way)
+    logits_dtype: Optional[torch.dtype] = None
+    use_flash_attention: bool = False
+    remat: bool = False            # activation checkpointing: not yet
 
     @property
     def head_dim(self):
@@ -115,3 +136,91 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
         return t.to(dev)
 
     return convert(tree)
+
+
+class GPT:
+    """The GPT LM's training forward on one device ≡ the JAX package's
+    `GPT` at tp=1, over the nested parameter dict of `init_gpt_params` /
+    `params_from_jax`.
+
+    Dropout is not applied: the JAX package's `loss` applies it only
+    when given a key, and its train step passes none.  `remat=True`
+    (activation checkpointing) and the non-flash attention path (the
+    `ops/softmax.py` kernel) are not ported yet and raise."""
+
+    def __init__(self, config: GPTConfig):
+        c = config
+        if c.hidden % c.num_heads:
+            raise ValueError(f"num_heads={c.num_heads} must divide "
+                             f"hidden={c.hidden}")
+        if c.remat:
+            raise NotImplementedError(
+                "GPTConfig.remat (activation checkpointing and the "
+                "remat_policy dials) is not ported yet")
+        if not c.use_flash_attention:
+            raise NotImplementedError(
+                "the non-flash attention path needs the scaled masked "
+                "softmax kernel (apex_tpu/ops/softmax.py), which is not "
+                "ported yet: set use_flash_attention=True")
+        self.c = c
+        h, f = c.hidden, c.ffn_mult * c.hidden
+        self.embed = VocabParallelEmbedding(c.vocab_size, h)
+        self.blocks = [(ColumnParallelLinear(h, 3 * h),
+                        RowParallelLinear(h, h),
+                        ColumnParallelLinear(h, f),
+                        RowParallelLinear(f, h))
+                       for _ in range(c.num_layers)]
+
+    def init(self, seed: int = 0, device=None) -> dict:
+        return init_gpt_params(self.c, seed, device)
+
+    def _ln(self, p, x):
+        return fused_layer_norm(x, p["weight"], p["bias"])
+
+    def _attention(self, bp, qkv_mod, proj_mod, x):
+        """x: (S, B, H) → attention output (S, B, H)."""
+        c = self.c
+        s, b, _ = x.shape
+        qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
+        q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
+        ctx = flash_attention(q, k, v, causal=True,
+                              softmax_scale=1.0 / math.sqrt(c.head_dim))
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
+        return proj_mod.apply(bp["proj"], ctx)
+
+    def _block(self, i, params, x):
+        """ln1 → qkv → split heads → flash → proj → residual, then
+        ln2 → fc1 → tanh-gelu → fc2 → residual."""
+        qkv_mod, proj_mod, fc1, fc2 = self.blocks[i]
+        h = self._ln(params["ln1"], x)
+        x = x + self._attention(params, qkv_mod, proj_mod, h)
+        h = self._ln(params["ln2"], x)
+        m = fc1.apply(params["fc1"], h)
+        m = F.gelu(m, approximate="tanh")
+        m = fc2.apply(params["fc2"], m)
+        return x + m
+
+    def apply(self, params, tokens):
+        """tokens: (B, S) int ids → final hidden states (S, B, H)."""
+        h = self.embed.apply(params["embed"], tokens.T)    # (S, B, H)
+        pos = params["pos_embed"][:tokens.shape[1]][:, None, :]
+        h = h + pos.to(h.dtype)
+        for i in range(self.c.num_layers):
+            h = self._block(i, params[f"block{i}"], h)
+        return self._ln(params["final_ln"], h)
+
+    def logits_local(self, params, h):
+        """Tied-embedding LM head: (S, B, V) logits, the fp32-accumulated
+        product rounded once to `logits_dtype` (fp32 when None)."""
+        w = params["embed"]["weight"]
+        out_dtype = self.c.logits_dtype or torch.float32
+        if out_dtype == h.dtype:
+            return torch.matmul(h, w.t())
+        return torch.matmul(h.float(), w.float().t()).to(out_dtype)
+
+    def loss(self, params, tokens, labels):
+        """Mean LM loss; tokens/labels (B, S)."""
+        h = self.apply(params, tokens)
+        logits = self.logits_local(params, h)              # (S, B, V)
+        loss = vocab_parallel_cross_entropy(logits, labels.T)
+        return torch.mean(loss)

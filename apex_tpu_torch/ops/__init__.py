@@ -1,13 +1,17 @@
 """apex_tpu_torch.ops — kernels for Hopper, each beside its plain
 PyTorch version (the CPU path and the on-card reference).
 
-Mirrors `apex_tpu.ops`; only the modules of the ported slice exist so
-far (layer_norm, flash_decode).
+Mirrors `apex_tpu.ops`; only the modules of the ported slices exist so
+far (layer_norm, flash_decode, flash_attention, optimizer_kernels,
+fused_dense).
 """
 
 _LAZY = {
     "layer_norm": "apex_tpu_torch.ops.layer_norm",
     "flash_decode": "apex_tpu_torch.ops.flash_decode",
+    "flash_attention": "apex_tpu_torch.ops.flash_attention",
+    "optimizer_kernels": "apex_tpu_torch.ops.optimizer_kernels",
+    "fused_dense": "apex_tpu_torch.ops.fused_dense",
 }
 
 _SYMBOLS = {

@@ -1,0 +1,13 @@
+"""apex_tpu_torch.optimizers — flat-buffer optimizers (counterpart of
+apex_tpu.optimizers; FusedAdam and the flat mapping so far)."""
+
+from apex_tpu_torch.optimizers.flat import (  # noqa: F401
+    FlatSpec,
+    flatten,
+    make_spec,
+    unflatten,
+)
+from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
+    FusedAdam,
+    FusedAdamState,
+)

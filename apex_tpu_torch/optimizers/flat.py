@@ -1,0 +1,128 @@
+"""Parameter tree <-> flat 1-D buffer mapping (counterpart of
+apex_tpu/optimizers/flat.py).
+
+The training step keeps every parameter in one flat buffer that the
+fused optimizer kernel updates in a single pass; the model reads its
+weights as views into that buffer.
+
+Leaf order is the JAX package's: `jax.tree_util` visits dict keys in
+sorted order, so `block10` comes before `block2`, `fc1` before `qkv`
+and `bias` before `weight`.  The same tree therefore flattens to the
+same buffer in both packages, element for element, and a spec carries
+the key path of each leaf so `unflatten` can rebuild the nested dict.
+Trees are nested dicts of tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSpec:
+    """Static description of the tree's layout inside the flat buffer.
+
+    `paths` holds each leaf's key path (a tuple of dict keys) in leaf
+    order.  With ``align > 1`` every leaf's segment is
+    rounded up to a multiple of `align` elements (zero-filled tail)."""
+
+    paths: Tuple[Tuple[Any, ...], ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    sizes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    total: int
+    align: int = 1
+
+
+def tree_leaves_with_paths(tree, prefix=()):
+    """(path, leaf) pairs in the JAX package's leaf order: dict keys
+    sorted."""
+    if isinstance(tree, Mapping):
+        out = []
+        for key in sorted(tree):
+            out += tree_leaves_with_paths(tree[key], prefix + (key,))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree):
+    return [leaf for _, leaf in tree_leaves_with_paths(tree)]
+
+
+def make_spec(tree, align: int = 1) -> FlatSpec:
+    pairs = tree_leaves_with_paths(tree)
+    shapes = tuple(tuple(leaf.shape) for _, leaf in pairs)
+    sizes = tuple(int(leaf.numel()) for _, leaf in pairs)
+    padded = [-(-s // align) * align for s in sizes]
+    offsets, off = [], 0
+    for p in padded:
+        offsets.append(off)
+        off += p
+    return FlatSpec(paths=tuple(path for path, _ in pairs), shapes=shapes,
+                    dtypes=tuple(leaf.dtype for _, leaf in pairs),
+                    sizes=sizes, offsets=tuple(offsets), total=off,
+                    align=align)
+
+
+def flatten(tree, dtype=torch.float32, pad_to: int = 1, align: int = 1):
+    """Concatenate all leaves (cast to `dtype`) into one 1-D buffer: one
+    `torch.cat` (a list of tensors is taken as leaves in its order).
+    `align` zero-pads every leaf's segment to a multiple
+    (it must match the spec's align); `pad_to` rounds the buffer length
+    up to a multiple, so the optimizer kernel sees whole tiles and
+    updates in place.  `unflatten` ignores all padding."""
+    leaves = list(tree) if isinstance(tree, list) else tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((0,), dtype=dtype)
+    parts = []
+    for leaf in leaves:
+        part = leaf.reshape(-1).to(dtype)
+        pad = (-part.numel()) % align
+        if pad:
+            part = torch.cat([part, part.new_zeros(pad)])
+        parts.append(part)
+    n = sum(p.numel() for p in parts)
+    pad = (-n) % pad_to
+    if pad:
+        parts.append(parts[0].new_zeros(pad))
+    return torch.cat(parts)
+
+
+def unflatten_leaves(flat, spec: FlatSpec, cast_to_leaf_dtype: bool = True):
+    """The leaves of `spec` read out of a flat buffer, in leaf order.
+    Where a leaf's dtype is the buffer's (or `cast_to_leaf_dtype` is
+    False) the leaf is a VIEW into the buffer, so an in-place optimizer
+    update is seen by the model with no copy; otherwise it is a cast
+    copy."""
+    leaves = []
+    for shape, dt, size, off in zip(spec.shapes, spec.dtypes, spec.sizes,
+                                    spec.offsets):
+        leaf = flat[off:off + size].view(shape)
+        if cast_to_leaf_dtype and dt != flat.dtype:
+            leaf = leaf.to(dt)
+        leaves.append(leaf)
+    return leaves
+
+
+def tree_from_leaves(spec: FlatSpec, leaves):
+    """The nested tree of `spec`'s key paths holding `leaves`."""
+    if len(spec.paths) == 1 and not spec.paths[0]:
+        return leaves[0]
+    tree = {}
+    for path, leaf in zip(spec.paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def unflatten(flat, spec: FlatSpec, cast_to_leaf_dtype: bool = True):
+    """Rebuild the nested tree from a flat buffer (leaves are views where
+    the dtypes agree, see `unflatten_leaves`)."""
+    return tree_from_leaves(spec, unflatten_leaves(flat, spec,
+                                                   cast_to_leaf_dtype))

@@ -1,0 +1,111 @@
+"""FusedAdam — one kernel pass of Adam/AdamW over a flat buffer
+(counterpart of apex_tpu/optimizers/fused_adam.py).
+
+All parameters live in one flat buffer (`flat.flatten`, padded to
+`FLAT_TILE`), and one launch of the Adam kernel updates params and both
+moments.  The update is IN PLACE on the flat buffers: the state that
+`step` returns holds the same tensors, updated, which is the port's
+answer to JAX's buffer donation (no second copy of the state is ever
+alive).  `lr`, `step`, `inv_scale` and `found_inf` may be device
+tensors: the overflow skip is folded into the kernel's scalars, so
+there is no host sync.
+
+`master_dtype` is the flat buffers' dtype: fp32 (the master copy), or
+bf16 for params and moments at 6 bytes per parameter.
+
+Per-leaf weight decay and lr scales (`wd_mask`, `lr_scales`) need the
+segmented kernel `adam_flat_seg` (apex_tpu/ops/optimizer_kernels.py
+`_adam_seg_kernel`), which is not ported yet: they raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from apex_tpu_torch.ops import optimizer_kernels as K
+from apex_tpu_torch.optimizers import flat as F
+
+
+class FusedAdamState(NamedTuple):
+    step: torch.Tensor        # int32 scalar on the buffers' device
+    params: torch.Tensor      # flat (master) param buffer
+    exp_avg: torch.Tensor     # flat m
+    exp_avg_sq: torch.Tensor  # flat v
+
+
+class FusedAdam:
+    """opt = FusedAdam(lr=...); state = opt.init(params);
+    params, state = opt.step(state, grads[, lr=, inv_scale=, found_inf=]).
+    """
+
+    def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
+                 eps=1e-8, adam_w_mode=True, weight_decay=0.0,
+                 amsgrad=False, master_dtype=torch.float32, wd_mask=None,
+                 lr_scales=None):
+        if amsgrad:
+            raise RuntimeError(
+                "FusedAdam does not support the AMSGrad variant.")
+        if wd_mask is not None or lr_scales is not None:
+            raise NotImplementedError(
+                "per-leaf wd_mask / lr_scales need the segmented Adam "
+                "kernel (adam_flat_seg, apex_tpu/ops/optimizer_kernels.py "
+                "_adam_seg_kernel), which is not ported yet")
+        self.lr = lr
+        self.bias_correction = bias_correction
+        self.beta1, self.beta2 = betas
+        self.eps = eps
+        self.adam_w_mode = adam_w_mode
+        self.weight_decay = weight_decay
+        self.master_dtype = master_dtype
+        self.spec: Optional[F.FlatSpec] = None
+
+    def init(self, params) -> FusedAdamState:
+        """Flat state for `params` (a nested dict of tensors), on the
+        params' device: a fresh copy of the params in `master_dtype` and
+        two distinct zero moment buffers."""
+        self.spec = F.make_spec(params)
+        flat = F.flatten(params, self.master_dtype, pad_to=K.FLAT_TILE)
+        return FusedAdamState(
+            step=torch.zeros((), dtype=torch.int32, device=flat.device),
+            params=flat, exp_avg=torch.zeros_like(flat),
+            exp_avg_sq=torch.zeros_like(flat))
+
+    def step(self, state: FusedAdamState, grads, lr=None, inv_scale=1.0,
+             found_inf=False):
+        """One fused step from a grad tree.  Returns (params_tree,
+        new_state); the grads are flattened in their own dtype (one
+        float dtype) and the kernel upcasts per element."""
+        if self.spec is None:
+            raise RuntimeError("call init(params) before step()")
+        gdts = {g.dtype for g in F.tree_leaves(grads)}
+        gdt = gdts.pop() if len(gdts) == 1 else torch.float32
+        g_flat = F.flatten(grads, gdt, pad_to=K.FLAT_TILE,
+                           align=self.spec.align)
+        return self.step_flat(state, g_flat, lr=lr, inv_scale=inv_scale,
+                              found_inf=found_inf)
+
+    def step_flat(self, state: FusedAdamState, g_flat, lr=None,
+                  inv_scale=1.0, found_inf=False):
+        """One fused step from a flat grad buffer (any float dtype, the
+        length of `state.params`).  The step count advances only when
+        `found_inf` is false; on an overflow p, m and v are kept."""
+        if self.spec is None:
+            raise RuntimeError("call init(params) before step_flat()")
+        if g_flat.shape != state.params.shape:
+            raise ValueError(f"flat grads {tuple(g_flat.shape)} must match "
+                             f"the params buffer {tuple(state.params.shape)}")
+        found = K.device_scalar(found_inf, torch.bool, state.params.device)
+        step_next = state.step + (~found).to(torch.int32)
+        p, m, v = K.adam_flat(
+            state.params, state.exp_avg, state.exp_avg_sq, g_flat,
+            lr=self.lr if lr is None else lr, step=step_next,
+            beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+            weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
+            bias_correction=self.bias_correction, inv_scale=inv_scale,
+            found_inf=found)
+        new_state = FusedAdamState(step=step_next, params=p, exp_avg=m,
+                                   exp_avg_sq=v)
+        return F.unflatten(p, self.spec), new_state

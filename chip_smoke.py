@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  them; the kernels are built from this checkout's
                  sources (nvcc for the CUDA C++, Triton's JIT).
   2. kernels     each hand-written kernel against its plain PyTorch
-                 version on the card, at the serving path's shapes.
+                 version on the card, at the shapes the serving and
+                 training paths give it, plus ragged cases.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -20,7 +21,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  model equal, bitwise, the same 8 decoded one at a time;
                  one decode step with the kernels agrees with the same
                  step through the plain versions.
-  5. table       the kernels' times on the card (CUDA events) beside
+  5. train       the training step at full width: GPT-350M in bf16
+                 (seed-0 weights), batch 12 x seq 1024, bf16 logits,
+                 FusedAdam(lr=1e-4, master_dtype=bf16), 5 steps on one
+                 seeded batch; the loss is finite and falls, the launch
+                 counters prove every step ran 24 flash forwards and
+                 backwards, 49 LayerNorm forwards and backwards and one
+                 Adam; tokens/s, peak memory and one profiled step.  One
+                 step through the kernels agrees with the same step
+                 through the plain versions (full width, 2 layers,
+                 batch 2).
+  6. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -36,9 +47,11 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM, dense bf16 tensor cores
 
 
 class SmokeFailure(AssertionError):
@@ -143,15 +156,131 @@ def check_layer_norm(torch, ln, rng, rows, hidden, dtype, rms=False):
     if dtype == torch.float32:
         tol = 1e-5 + 1e-5 * yr.abs()
     else:
-        # at most one bf16 ulp of the plain value
-        tol = torch.ldexp(torch.ones_like(err),
-                          torch.frexp(yr.float().abs()).exponent - 8)
+        # at most one bf16 ulp of the plain value, plus 1e-6 of the
+        # largest |y|: where b cancels xhat * w the result is ~1e-7 and
+        # fp32 rounding of the operands (~3e-8) is many ulps of it
+        tol = (torch.ldexp(torch.ones_like(err),
+                           torch.frexp(yr.float().abs()).exponent - 8)
+               + 1e-6 * yr.float().abs().max())
     check(bool((err <= tol).all()),
           f"layer_norm {dtype} ({rows},{hidden}) max err {err.max().item():.3e}")
     for a, r, what in ((mean, meanr, "mean"), (rstd, rstdr, "rstd")):
         check(bool(((a - r).abs() <= 1e-5 + 1e-5 * r.abs()).all()),
               f"layer_norm {what} ({rows},{hidden}) {dtype}")
     return err.max().item()
+
+def ulp(torch, ref, dtype):
+    """One ulp of `dtype` at |ref| (bf16: 8 significand bits, fp32: 24)."""
+    bits = 8 if dtype == torch.bfloat16 else 24
+    return torch.ldexp(torch.ones_like(ref),
+                       torch.frexp(ref.abs()).exponent - bits)
+
+
+def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
+                          packed=False):
+    """Both flash kernels against the plain version (`attention_reference`
+    and autograd through it) on one bf16 input.  packed=True lays q, k, v
+    out as the training path does: strided views of one (S, B, 3H)
+    tensor.  Tolerance: 1e-2 of each output's largest magnitude (the
+    kernels round p and ds to bf16 before their products, as the TPU
+    kernels do; the plain version keeps them fp32); lse 1e-4."""
+    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+    dev, bf16 = "cuda", torch.bfloat16
+    if packed:
+        qkv = torch.randn((s, b, 3 * h * d), generator=rng,
+                          device=dev).to(bf16)
+        q, k, v = qkv_split_heads(qkv, h, d)
+        do = torch.randn((s, b, h, d), generator=rng,
+                         device=dev).to(bf16).permute(1, 2, 0, 3)
+    else:
+        q, k, v, do = (torch.randn((b, h, s, d), generator=rng,
+                                   device=dev).to(bf16) for _ in range(4))
+    sc = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, causal)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_ref = fa.attention_reference(qr, kr, vr, causal=causal,
+                                   softmax_scale=sc)
+    o_ref.backward(do)
+    with torch.no_grad():
+        sco = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sc
+        if causal:
+            sco = sco.masked_fill(torch.ones(
+                (s, s), dtype=torch.bool, device=dev).triu(1), -1e30)
+        lse_ref = torch.logsumexp(sco, dim=-1)
+        del sco
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in (("o", o, o_ref), ("dq", dq, qr.grad),
+                           ("dk", dk, kr.grad), ("dv", dv, vr.grad)):
+        check(got.shape == ref.shape and got.dtype == bf16,
+              f"flash {name} shape/dtype {tuple(got.shape)} {got.dtype}")
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        check(math.isfinite(err) and err <= 1e-2 * scale,
+              f"flash {name} ({b},{h},{s},{d}) causal={causal}: max err "
+              f"{err:.3e} of max {scale:.3e}")
+        errs[name] = err
+    errs["lse"] = (lse - lse_ref).abs().max().item()
+    check(errs["lse"] <= 1e-4, f"flash lse max err {errs['lse']:.3e}")
+    return errs
+
+
+def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype):
+    """The backward kernel against `norm_bwd_reference` on the forward
+    kernel's mean/rstd.  Tolerance: dx one ulp of its dtype plus 1e-5 of
+    its largest magnitude (fp32 sums in another order before the one
+    rounding); dw, db (fp32 sums over rows) 1e-5 of their largest."""
+    dev = "cuda"
+    x = (torch.randn((rows, hidden), generator=rng, device=dev) * 2
+         + 0.5).to(dtype)
+    w = (torch.randn((hidden,), generator=rng, device=dev) * 0.5
+         + 1).to(dtype)
+    b = (torch.randn((hidden,), generator=rng, device=dev) * 0.1).to(dtype)
+    gy = torch.randn((rows, hidden), generator=rng, device=dev).to(dtype)
+    _, mean, rstd = ln.norm_fwd_triton(x, w, b, 1e-5, False)
+    dx, dw, db = ln.norm_bwd_triton(gy, x, mean, rstd, w, False)
+    dxr, dwr, dbr = ln.norm_bwd_reference(gy, x, mean, rstd, w, False)
+    torch.cuda.synchronize()
+    check(dx.dtype == dtype and dw.dtype == db.dtype == torch.float32,
+          "layer_norm bwd dtypes")
+    err = (dx.float() - dxr.float()).abs()
+    tol = ulp(torch, dxr.float(), dtype) + 1e-5 * dxr.float().abs().max()
+    check(bool((err <= tol).all()),
+          f"layer_norm bwd dx ({rows},{hidden}) {dtype}: max err "
+          f"{err.max().item():.3e}")
+    for name, got, ref in (("dw", dw, dwr), ("db", db, dbr)):
+        e = (got - ref).abs().max().item()
+        check(e <= 1e-5 * ref.abs().max().item(),
+              f"layer_norm bwd {name} ({rows},{hidden}): max err {e:.3e}")
+    return err.max().item()
+
+
+def check_adam(torch, ok, rng, n, dtype, weight_decay):
+    """The Adam kernel against `_adam_reference` on one step of seeded
+    state (step 3, bf16 grads).  Tolerance: one ulp of the state dtype
+    plus 1e-7 (the kernel may contract a multiply-add into one fma)."""
+    dev = "cuda"
+    p = torch.randn((n,), generator=rng, device=dev).to(dtype)
+    m = (torch.randn((n,), generator=rng, device=dev) * 0.1).to(dtype)
+    v = (torch.randn((n,), generator=rng, device=dev).abs()
+         * 0.01).to(dtype)
+    g = torch.randn((n,), generator=rng, device=dev).to(torch.bfloat16)
+    sc = ok._adam_fold_scalars(1e-4, 3, 0.9, 0.999, True, 1.0, False,
+                               device=dev)
+    refs = ok._adam_reference(p, m, v, g, sc, 1e-8, weight_decay, True)
+    got = ok.adam_flat_triton(p.clone(), m.clone(), v.clone(), g, sc, 1e-8,
+                              weight_decay, True)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, r in zip("pmv", got, refs):
+        err = (a.float() - r.float()).abs()
+        check(bool((err <= ulp(torch, r.float(), dtype) + 1e-7).all()),
+              f"adam {name} n={n} {dtype}: max err {err.max().item():.3e}")
+        worst = max(worst, err.max().item())
+    del refs, got
+    return worst
 
 
 def profile_decode(torch, np, build_flagship_engine, params, steps=4):
@@ -195,6 +324,364 @@ def profile_decode(torch, np, build_flagship_engine, params, steps=4):
                                         for k, v in top}}
 
 
+def kernel_counts(fa, ln, ok):
+    return {"flash_attention_fwd": fa.flash_fwd_cuda.launches,
+            "flash_attention_bwd": fa.flash_bwd_cuda.launches,
+            "layer_norm_fwd": ln.norm_fwd_triton.launches,
+            "layer_norm_bwd": ln.norm_bwd_triton.launches,
+            "adam": ok.adam_flat_triton.launches}
+
+
+def reset_kernel_counts(fa, ln, ok):
+    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_cuda, ln.norm_fwd_triton,
+               ln.norm_bwd_triton, ok.adam_flat_triton):
+        fn.launches = 0
+
+
+def device_time_by_kernel(torch, prof):
+    """Device time (us) summed by kernel name from a torch.profiler run
+    (device-side events only: CPU ops carry their kernels' time too)."""
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
+    return kernels
+
+
+def train_phase(torch, fa, ln, ok, steps=5):
+    """The training step at full width (module docstring, phase 5).
+    Returns the measurements and the per-step launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    batch, seq = 12, 1024
+    cfg = gpt_mod.GPTConfig(
+        vocab_size=50304, seq_len=seq, hidden=1024, num_layers=24,
+        num_heads=16, dropout=0.0, dtype=bf16, logits_dtype=bf16,
+        use_flash_attention=True)
+    model = gpt_mod.GPT(cfg)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, model.init(seed=0))
+    n_params = sum(opt.spec.sizes)
+    step = make_tp_dp_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    losses = []
+    t_first = time.perf_counter()
+    state, loss = step(state, tokens, labels)          # builds the kernels
+    losses.append(loss)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t_first
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = step(state, tokens, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    counts = kernel_counts(fa, ln, ok)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    log(f"train losses {losses}")
+    check(all(math.isfinite(x) for x in losses), "a training loss is not "
+          "finite")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    check(int(state.step) == steps, f"optimizer step {int(state.step)}")
+    per_step = {"flash_attention_fwd": cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers,
+                "layer_norm_fwd": 2 * cfg.num_layers + 1,
+                "layer_norm_bwd": 2 * cfg.num_layers + 1, "adam": 1}
+    for name, n in per_step.items():
+        check(counts[name] == n * steps,
+              f"{name}: {counts[name]} launches in {steps} steps, want "
+              f"{n} per step")
+
+    # one step in which no call may synchronize the host with the card
+    # (torch's sync debug mode warns on each one it detects)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, loss = step(state, tokens, labels)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"the training step synchronized with the card at "
+          f"{syncs}")
+
+    # one profiled step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, loss = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    kernels = device_time_by_kernel(torch, prof)
+    busy = sum(kernels.values())
+    check(busy > 0, "the profiled training step shows no device time")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "adam": lambda k: k == "_adam_kernel"}
+    ours = {name: sum(t for k, t in kernels.items() if match(k)) / 1e3
+            for name, match in names.items()}
+    def is_gemm(k):
+        return any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                            "cutlass"))
+
+    gemm = sum(t for k, t in kernels.items() if is_gemm(k)) / 1e3
+    aten = sum(t for k, t in kernels.items()
+               if "at::native" in k and not is_gemm(k)) / 1e3
+    # the ATen ops whose own kernels take the most device time
+    ops = sorted(((e.key, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    profile_line = {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+                    "device_busy_share": busy / wall_us,
+                    "gemm_ms": gemm, "aten_elementwise_reduce_copy_ms": aten,
+                    "kernels_ms": ours,
+                    "other_ms": busy / 1e3 - gemm - aten - sum(ours.values()),
+                    "top_kernels_ms": {k[:90]: v / 1e3 for k, v in top},
+                    "top_aten_ops_ms": {k: v / 1e3 for k, v in ops[:15]}}
+    del state, opt, step, loss, prof
+    torch.cuda.empty_cache()
+    result = {
+        "config": "GPT-350M bf16, batch 12 x seq 1024, bf16 logits, "
+                  "FusedAdam(lr=1e-4, master bf16)",
+        "params": n_params, "steps": steps, "losses": losses,
+        "first_step_s": first_s,
+        "step_ms": 1e3 * window_s / (steps - 1),
+        "tokens_per_s": batch * seq * (steps - 1) / window_s,
+        "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
+        "launches": counts,
+        "launches_per_step": per_step, "profile": profile_line}
+    return result, compare_train_step(torch, fa, ln, ok, gpt_mod, cfg,
+                                      tokens[:2], labels[:2])
+
+
+def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
+    """One full-width step of a 2-layer model at batch 2 through the
+    kernels and through their plain versions (swapped in for the run),
+    from the same seed-0 weights.  Compares the loss, each leaf's
+    gradient (relative L2 error) and the updated flat params."""
+    import dataclasses
+
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model = gpt_mod.GPT(cfg2)
+    params = model.init(seed=0)
+
+    def plain_flash(q, k, v, *, causal, softmax_scale):
+        return fa.attention_reference(q, k, v, causal=causal,
+                                      softmax_scale=softmax_scale)
+
+    def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
+        for buf, new in zip((p, m, v), ok._adam_reference(
+                p, m, v, g, scalars, eps, weight_decay, adam_w_mode)):
+            buf.copy_(new)
+        return p, m, v
+
+    def run(plain):
+        opt = FusedAdam(lr=1e-4, master_dtype=cfg.dtype)
+        state = init_sharded_optimizer(opt, model, params)
+        seen = {}
+        step_flat = opt.step_flat
+
+        def capture(st, g_flat, **kw):
+            seen["g"] = g_flat.clone()
+            return step_flat(st, g_flat, **kw)
+
+        opt.step_flat = capture
+        step = make_tp_dp_train_step(model, opt)
+        saved = (gpt_mod.flash_attention, gpt_mod.fused_layer_norm,
+                 ok.adam_flat_triton)
+        if plain:
+            gpt_mod.flash_attention = plain_flash
+            gpt_mod.fused_layer_norm = ln.layer_norm_reference
+            ok.adam_flat_triton = plain_adam
+        try:
+            state, loss = step(state, tokens, labels)
+        finally:
+            (gpt_mod.flash_attention, gpt_mod.fused_layer_norm,
+             ok.adam_flat_triton) = saved
+        return float(loss), seen["g"], state.params, opt.spec
+
+    before = kernel_counts(fa, ln, ok)
+    loss_p, g_p, p_p, spec = run(plain=True)
+    check(kernel_counts(fa, ln, ok) == before,
+          "the plain step launched a kernel")
+    loss_k, g_k, p_k, _ = run(plain=False)
+    torch.cuda.synchronize()
+    grad_rel = {}
+    for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
+        a = g_k[off:off + size].float()
+        r = g_p[off:off + size].float()
+        grad_rel["/".join(path)] = ((a - r).norm()
+                                    / r.norm().clamp_min(1e-30)).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    dp = (p_k.float() - p_p.float()).abs()
+    line = {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
+            "grad_rel_l2_median": sorted(grad_rel.values())[
+                len(grad_rel) // 2],
+            "param_max_abs_diff": dp.max().item(),
+            "param_frac_differ": (dp > 0).float().mean().item()}
+    log("train step, kernels vs plain versions " + json.dumps(line))
+    # bf16 roundings in other places (p and ds in the flash kernels, the
+    # order of fp32 sums) move the loss by ~1e-5 and each leaf's gradient
+    # by <1 % (H100, seed 0); the limits are 100x and ~4x that.  One Adam
+    # step moves a weight by at most ~lr, so the two updated buffers may
+    # differ by 2 lr plus one bf16 ulp of a weight
+    check(line["loss_rel_diff"] <= 1e-3, "train step loss: kernels vs plain")
+    check(line["grad_rel_l2_max"] <= 3e-2,
+          f"train step grads: kernels vs plain ({worst})")
+    check(line["param_max_abs_diff"] <= 2 * 1e-4 + 2 ** -9,
+          "train step params: kernels vs plain")
+    return line
+
+
+def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
+    """Phase 6 rows of the training path's kernels, at the step's shapes
+    and layouts, warm L2 (every operand set but the LayerNorm's is larger
+    than the 50 MB L2).  Bounds count what this data needs: each input
+    read once and each output written once, and for causal attention
+    only the score pairs at or below the diagonal."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+
+    bf16 = torch.bfloat16
+    dev = "cuda"
+    rows = []
+
+    def row(name, route, source, replaces, ms, plain_ms, library_ms,
+            library, bytes_, ops, shape):
+        by_bytes = bytes_ / HBM_BYTES_PER_S
+        by_ops = ops / (BF16_FLOPS if name.startswith("flash")
+                        else FP32_FLOPS)
+        rows.append({
+            "name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "launches_per_train_step": per_step[name],
+            "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms, "library": library, "shape": shape,
+            "l2": "warm"})
+
+    # flash attention: q, k, v strided views of the packed qkv, do a
+    # permuted view, as the step gives them
+    b, h, s, d = 12, 16, 1024, 64
+    sc = 1.0 / math.sqrt(d)
+    qkv = torch.randn((s, b, 3 * h * d), generator=rng, device=dev).to(bf16)
+    q, k, v = qkv_split_heads(qkv, h, d)
+    do = torch.randn((s, b, h, d), generator=rng,
+                     device=dev).to(bf16).permute(1, 2, 0, 3)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    pairs = b * h * s * (s + 1) // 2                 # causal score pairs
+    el = 2
+    io = b * h * s * d * el
+    fwd_ms = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, sc, True))
+    fwd_plain = time_ms(torch, lambda: fa.attention_reference(
+        q, k, v, causal=True, softmax_scale=sc), n=10)
+    fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc))
+    shape = "q,k,v (12,16,1024,64) bf16 views of qkv (1024,12,3072), causal"
+    row("flash_attention_fwd", "cuda", "apex_tpu_torch/csrc/flash_attention.cu",
+        "apex_tpu/ops/flash_attention.py:289", fwd_ms, fwd_plain, fwd_lib,
+        "scaled_dot_product_attention(is_causal=True)",
+        4 * io + b * h * s * 4, 4 * pairs * d, shape)
+    bwd_ms = time_ms(torch, lambda: fa.flash_bwd_cuda(
+        q, k, v, do, lse, delta, sc, True))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fa.attention_reference(qg, kg, vg, causal=True, softmax_scale=sc)
+    bwd_plain = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), n=10)
+    del out
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         scale=sc)
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del out, qg, kg, vg
+    row("flash_attention_bwd", "cuda",
+        "apex_tpu_torch/csrc/flash_attention.cu",
+        "apex_tpu/ops/flash_attention.py:564", bwd_ms, bwd_plain, bwd_lib,
+        "scaled_dot_product_attention backward (autograd)",
+        7 * io + 2 * b * h * s * 4, 10 * pairs * d,
+        shape + ", do a permuted view; delta outside the kernel")
+    del qkv, q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+    # LayerNorm backward at the step's rows (batch 12 x seq 1024)
+    rows_, hid = 12288, 1024
+    x = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
+    w = torch.randn((hid,), generator=rng, device=dev).to(bf16)
+    bb = torch.randn((hid,), generator=rng, device=dev).to(bf16)
+    gy = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
+    _, mean, rstd = ln.norm_fwd_triton(x, w, bb, 1e-5, False)
+    lnb_ms = time_ms(torch, lambda: ln.norm_bwd_triton(
+        gy, x, mean, rstd, w, False))
+    lnb_plain = time_ms(torch, lambda: ln.norm_bwd_reference(
+        gy, x, mean, rstd, w, False))
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, bb))
+    out = F.layer_norm(xg, (hid,), wg, bg, 1e-5)
+    lnb_lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (xg, wg, bg), gy, retain_graph=True))
+    del out, xg, wg, bg
+    row("layer_norm_bwd", "triton", "apex_tpu_torch/ops/layer_norm.py",
+        "apex_tpu/ops/layer_norm.py:79", lnb_ms, lnb_plain, lnb_lib,
+        "torch.nn.functional.layer_norm backward (autograd)",
+        3 * x.numel() * el + 2 * rows_ * 4 + hid * el + 2 * hid * 4,
+        12 * x.numel(), "g, x (12288,1024) bf16; dw, db fp32")
+    del x, w, bb, gy, mean, rstd
+
+    # Adam over the flat GPT-350M buffers (bf16 state and grads)
+    n = 354_877_440
+    p = torch.randn((n,), generator=rng, device=dev).to(bf16)
+    m = (torch.randn((n,), generator=rng, device=dev) * 0.1).to(bf16)
+    vv = (torch.randn((n,), generator=rng, device=dev).abs()
+          * 0.01).to(bf16)
+    g = torch.randn((n,), generator=rng, device=dev).to(bf16)
+    scal = ok._adam_fold_scalars(1e-4, 3, 0.9, 0.999, True, 1.0, False,
+                                 device=dev)
+    adam_ms = time_ms(torch, lambda: ok.adam_flat_triton(
+        p, m, vv, g, scal, 1e-8, 0.0, True), n=20)
+    adam_plain = time_ms(torch, lambda: ok._adam_reference(
+        p, m, vv, g, scal, 1e-8, 0.0, True), n=10)
+    step_t = torch.tensor(3.0, device=dev)
+    adam_lib = time_ms(torch, lambda: torch._fused_adamw_(
+        [p], [g], [m], [vv], [], [step_t], lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), n=20)
+    row("adam", "triton", "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:103", adam_ms, adam_plain,
+        adam_lib, "torch._fused_adamw_ on the same flat buffers",
+        7 * n * el, 15 * n, "p, m, v, g (354877440,) bf16")
+    del p, m, vv, g
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -205,8 +692,10 @@ def main():
         return 2
 
     from apex_tpu_torch import csrc
+    from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import flash_decode as fd
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import optimizer_kernels as ok
     from apex_tpu_torch.ops._common import strict_matmul_numerics
     from apex_tpu_torch.serve import engine as engine_mod
     from apex_tpu_torch.serve import build_flagship_engine, measure_decode
@@ -223,13 +712,16 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    csrc.build(["flash_decode"])
+    sources = ["flash_decode", "flash_attention"]
+    csrc.build(sources)                 # one nvcc per source, in parallel
     log(f"nvcc build {time.perf_counter() - t0:.1f}s")
-    if os.path.exists(csrc.log_path("flash_decode")):
-        with open(csrc.log_path("flash_decode")) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("ptxas: " + line.strip())
+    for name in sources:
+        if os.path.exists(csrc.log_path(name)):
+            with open(csrc.log_path(name)) as f:
+                for line in f:
+                    if ("registers" in line or "spill" in line
+                            or "Compiling entry" in line):
+                        log(f"ptxas {name}: " + line.strip()[:160])
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -263,7 +755,8 @@ def main():
     log(f"flash_decode GQA G=8 q_len=2 page=8 float32: max err {e:.3e}")
     log(f"flash_decode main shape bf16: max err {errs['flash_decode']:.3e}")
     ln_errs = []
-    for rows, hidden in ((64, 1024), (128, 1024), (5, 1000)):
+    # (12288, 1024): the training step's rows (batch 12 x seq 1024)
+    for rows, hidden in ((64, 1024), (128, 1024), (5, 1000), (12288, 1024)):
         for dtype in (f32, bf16):
             e = check_layer_norm(torch, ln, rng, rows, hidden, dtype)
             log(f"layer_norm ({rows},{hidden}) {dtype}: max err {e:.3e}")
@@ -271,6 +764,32 @@ def main():
                 errs["layer_norm"] = e
             ln_errs.append(e)
     check_layer_norm(torch, ln, rng, 64, 1024, f32, rms=True)
+    # the training path: flash attention at the step's shape (q, k, v
+    # strided views of the packed qkv, do a permuted view), then ragged
+    # sequences and head_dim 128
+    e = check_flash_attention(torch, fa, rng, b=12, h=16, s=1024, d=64,
+                              causal=True, packed=True)
+    errs["flash_attention_fwd"] = e["o"]
+    errs["flash_attention_bwd"] = max(e["dq"], e["dk"], e["dv"])
+    log(f"flash_attention (12,16,1024,64) causal, packed: {e}")
+    for b_, h_, s_, d_, causal in ((2, 3, 200, 64, True),
+                                   (2, 3, 200, 64, False),
+                                   (1, 2, 129, 128, True),
+                                   (1, 2, 77, 128, False)):
+        e = check_flash_attention(torch, fa, rng, b=b_, h=h_, s=s_, d=d_,
+                                  causal=causal)
+        log(f"flash_attention ({b_},{h_},{s_},{d_}) causal={causal}: {e}")
+    errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
+                                                  1024, bf16)
+    for rows, hidden, dtype in ((77, 1000, f32), (5, 1024, bf16)):
+        e = check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype)
+        log(f"layer_norm bwd ({rows},{hidden}) {dtype}: max dx err {e:.3e}")
+    n_flat = 354_877_440             # GPT-350M, FLAT_TILE-padded
+    errs["adam"] = check_adam(torch, ok, rng, n_flat, bf16, 0.0)
+    e = check_adam(torch, ok, rng, 1_000_003, f32, 0.01)
+    log(f"adam ({n_flat},) bf16: max err {errs['adam']:.3e}; "
+        f"(1000003,) fp32 AdamW: {e:.3e}")
+    torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------
     eng = build_flagship_engine()
@@ -379,8 +898,15 @@ def main():
         f"{agree:.2f}")
     check(math.isfinite(step_err) and step_err <= 0.05 * scale,
           "decode step through the kernels disagrees with the plain step")
+    del step_eng, churn_eng, solo_eng, params, logits_k, logits_p
+    torch.cuda.empty_cache()
 
-    # ---- 5. kernel table ---------------------------------------------
+    # ---- 5. the training step at full width --------------------------
+    train, train_vs_plain = train_phase(torch, fa, ln, ok)
+    log("train " + json.dumps(train))
+    torch.cuda.empty_cache()
+
+    # ---- 6. kernel table ---------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -432,12 +958,20 @@ def main():
     w = torch.randn((1024,), generator=rng, device="cuda").to(bf16)
     b = torch.randn((1024,), generator=rng, device="cuda").to(bf16)
     ln_ms = time_ms(torch, lambda: ln.norm_fwd_triton(x, w, b, 1e-5, False))
+    xt = torch.randn((12288, 1024), generator=rng, device="cuda").to(bf16)
+    ln_ms_train = time_ms(torch, lambda: ln.norm_fwd_triton(
+        xt, w, b, 1e-5, False))
+    del xt
     ln_plain = time_ms(torch, lambda: ln.norm_fwd_reference(x, w, b, 1e-5))
     ln_lib = time_ms(torch, lambda: torch.nn.functional.layer_norm(
         x, (1024,), w, b, 1e-5))
     ln_bytes = 2 * x.numel() * 2 + 2 * 1024 * 2 + 2 * 64 * 4
     ln_ops = 8 * x.numel()
     ln_bound = 1e3 * max(ln_bytes / HBM_BYTES_PER_S, ln_ops / FP32_FLOPS)
+
+    train_rows = table_train_kernels(torch, fa, ln, ok, rng, errs,
+                                     train["launches"],
+                                     train["launches_per_step"])
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -459,14 +993,17 @@ def main():
          "launches_per_decode_step": n_ln,
          "max_abs_err": errs["layer_norm"],
          "ms": ln_ms, "kernel_ms": ln_ms, "plain_ms": ln_plain,
+         "launches_train": train["launches"]["layer_norm_fwd"],
+         "ms_at_train_shape": ln_ms_train,
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ]}
+    ] + train_rows}
     check(all(math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
           "a timing is not finite")
     log(f"total {time.perf_counter() - t_start:.1f}s")
+    log("train step, kernels vs plain " + json.dumps(train_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ gets.  The same seeded numpy inputs go to both.  Tolerances: fp32 atol
 1e-5; bf16 at most one bf16 ulp of the JAX value (both compute fp32
 statistics and round once, but sum in different orders)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +109,76 @@ def test_kernel_dispatch_refuses_other_devices():
     with pytest.raises(ValueError, match="CPU"):
         tln.fused_layer_norm(torch.ones(2, 8),
                              torch.ones(8, device="meta"))
+
+
+def _ulp_close(got, want, slack):
+    """|got - want| <= one bf16 ulp of want + slack (fp32 differences
+    from summing in another order, before the one rounding to bf16)."""
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    _, e = np.frexp(np.abs(want))
+    ulp = np.ldexp(np.ones_like(want), e - 8)
+    assert np.all(np.abs(got - want) <= ulp + slack), np.max(
+        np.abs(got - want) - ulp)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_backward_matches_jax_pallas(kind, dtype):
+    """dx, dw (and db) through torch.autograd against jax.vjp of the JAX
+    package's norm with its Pallas backward kernel in interpret mode.
+    Tolerances: fp32 dx atol 1e-5, dw/db rtol 1e-5 over sums of 37
+    rows; bf16 one bf16 ulp plus 1e-5 of slack for the fp32 sums."""
+    rows, hidden = 37, 256
+    x, w, b = _inputs(rows, hidden, seed=5)
+    g = np.random.RandomState(6).randn(rows, hidden).astype(np.float32)
+    jdt, tdt = _DTYPES[dtype]
+    jx, jw, jb, jg = (jnp.asarray(a).astype(jdt) for a in (x, w, b, g))
+    tx, tw, tb = (torch.tensor(a).to(tdt).requires_grad_(True)
+                  for a in (x, w, b))
+    if kind == "layer":
+        _, vjp = jax.vjp(lambda x_, w_, b_: jax_layer_norm(
+            x_, w_, b_, use_pallas_override=True), jx, jw, jb)
+        want = vjp(jg)
+        tln.fused_layer_norm(tx, tw, tb).backward(torch.tensor(g).to(tdt))
+        got = (tx.grad, tw.grad, tb.grad)
+    else:
+        _, vjp = jax.vjp(lambda x_, w_: jax_rms_norm(
+            x_, w_, use_pallas_override=True), jx, jw)
+        want = vjp(jg)
+        tln.fused_rms_norm(tx, tw).backward(torch.tensor(g).to(tdt))
+        got = (tx.grad, tw.grad)
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        assert gt.dtype == tdt
+        if dtype == "bf16":
+            _ulp_close(gt, wt, 1e-5 * float(jnp.max(jnp.abs(
+                wt.astype(jnp.float32)))))
+        elif i == 0:
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                       atol=1e-5, rtol=0)
+        else:
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rms", [False, True])
+def test_bwd_reference_is_the_gradient(rms):
+    """`norm_bwd_reference` (the plain version the CUDA kernel is held
+    against) is the gradient autograd takes through the plain forward:
+    fp32, atol 1e-5; dw/db fp32 whatever the input dtype."""
+    x, w, b = _inputs(19, 64, seed=8)
+    g = torch.tensor(np.random.RandomState(9).randn(19, 64)
+                     .astype(np.float32))
+    tx, tw, tb = (torch.tensor(a).requires_grad_(True) for a in (x, w, b))
+    y, mean, rstd = tln.norm_fwd_reference(tx, tw, None if rms else tb,
+                                           rms=rms)
+    y.backward(g)
+    dx, dw, db = tln.norm_bwd_reference(g, tx.detach(), mean.detach(),
+                                        rstd.detach(), tw.detach(), rms)
+    torch.testing.assert_close(dx, tx.grad, atol=1e-5, rtol=0)
+    torch.testing.assert_close(dw, tw.grad, atol=1e-5, rtol=1e-6)
+    if not rms:
+        torch.testing.assert_close(db, tb.grad, atol=1e-5, rtol=1e-6)
+    _, dw_none, db_none = tln.norm_bwd_reference(g, tx.detach(), mean,
+                                                 rstd, None, rms)
+    assert dw_none is None and db_none is None
