@@ -13,15 +13,17 @@ Importing the package builds nothing: kernels are compiled from the
 sources in the checkout at their first launch.
 
 Subpackages (lazily importable):
-  ops         — LayerNorm/RMSNorm forward and backward and flat Adam
-                (Triton), paged flash-decode and flash attention
-                forward and backward (CUDA)
+  ops         — LayerNorm/RMSNorm forward and backward, flat Adam and
+                the LAMB phases and per-tensor norms (Triton), paged
+                flash-decode and flash attention forward and backward,
+                with segment ids (CUDA)
   serve       — paged KV cache + continuous-batching decode engine
-  models      — GPT: config, seeded init, the JAX-params converter and
-                the training forward
-  optimizers  — flat buffers and FusedAdam
-  transformer — the single-device training step and the
-                tensor-parallel layers and cross entropy at tp=1
+  models      — GPT and BERT: configs, seeded inits, the JAX-params
+                converter and the training forwards
+  optimizers  — flat buffers, FusedAdam and FusedLAMB
+  transformer — the single-device training step, the tensor-parallel
+                layers and cross entropy at tp=1, and the weight-decay
+                grouping of pipeline_parallel.common
   checkpoint  — the serving fail points (chaos)
   monitor     — the recompile sentry
 """

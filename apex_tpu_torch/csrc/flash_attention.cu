@@ -1,6 +1,7 @@
 // Flash attention forward and backward for Hopper (sm_90a), plain C
 // interface.  Layout (b, h, s, d), bf16, head_dim 64 or 128, causal or
-// not; no bias, no segment ids, no dropout (the training step's surface).
+// not, with or without segment ids; no bias, no dropout (the training
+// steps' surface).
 //
 // Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _fwd_impl) and :_bwd_fused_kernel (launched by _bwd_impl).  Same
@@ -46,6 +47,25 @@
 //     fragment loads (no faster than 32-bit loads from the padded tiles).
 // Rows past sq and keys past sk are zero-filled on load and masked, so any
 // sequence length works.  wgmma and TMA are for a later version.
+//
+// Segment ids (the SEG instantiations; BERT's padding mask): query i sees
+// key j only where q_seg[i] == kv_seg[j], the mask applied before the
+// causal one, as _mask_bias orders them.  A masked score is the JAX
+// package's finite _NEG_INF (-1e30), not -inf, so a query row whose keys
+// are all masked comes out as attention_reference gives it: uniform
+// weights over the sk keys, o = mean(v), no NaN.  For that row to see all
+// sk keys, the SEG kernels visit every key block even when causal (the
+// blocks above the diagonal are then fully masked: twice the work of the
+// causal kernel, a combination no training path of the port runs).  The
+// backward recomputes masked entries explicitly: p = 1/sk where the row
+// is fully masked (its lse is about -1e30), else 0, and ds = 0, as the
+// gradient of a masked_fill is.  Each block loads its key block's ids
+// (forward) or its q block's ids (backward) next to the tiles; passing
+// null ids launches the unsegmented kernels, whose code is unchanged.
+// A warp whose 16 rows and 64 keys all carry one id, in a tile that does
+// not cross the diagonal, takes the unsegmented masking (a warp vote per
+// tile): the per-score compares cost the backward half its time again,
+// and in BERT's batches most tiles are one segment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +82,11 @@ constexpr int kThreads = 128;  // 4 warps, 16 rows (or keys) each
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// the JAX package's finite _NEG_INF (-1e30) in the kernels' log2 units
+constexpr float kMaskedLog2 = -1.0e30f * kLog2e;
+// an lse (log2 units) below this belongs to a row whose keys are all
+// masked: real scores are nowhere near -1e29
+constexpr float kDeadLse = -1.0e29f;
 
 // a (64, D) bf16 tile in shared memory, rows padded by 8 elements
 template <int D>
@@ -101,6 +126,13 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
     const bf16* src = ok ? g + (long long)(row0 + r) * rs + col : g;
     cp_async16(s + r * Tile<D>::kStride + col, src, ok);
   }
+}
+
+// true in every lane when `same` holds in every lane of the warp: with
+// `same` = "my ids equal the tile's first id", the warp's tile is one
+// segment
+__device__ __forceinline__ bool warp_one_segment(bool same) {
+  return __all_sync(kFull, same);
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
@@ -168,24 +200,29 @@ __device__ __forceinline__ void mma_tile_b(float (*acc)[4],
 
 // ------------------------------------------------------------ forward ----
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t fwd_smem() {
-  return size_t(5) * Tile<D>::kElems * sizeof(bf16);  // Q, K[2], V[2]
+  // Q, K[2], V[2], and with SEG the key ids [2][64]
+  return size_t(5) * Tile<D>::kElems * sizeof(bf16) +
+         (SEG ? 2 * kBc * sizeof(int) : 0);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, int h, int sq, int sk, float scale_log2, int causal) {
+    long long v_ss, int h, int sq, int sk, float scale_log2, int causal,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+    long long q_seg_sb, long long kv_seg_sb) {
   constexpr int S = Tile<D>::kStride;
   constexpr int E = Tile<D>::kElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + E;      // two stages
   bf16* v_s = k_s + 2 * E;  // two stages
+  int* kid_s = reinterpret_cast<int*>(v_s + 2 * E);  // SEG: two stages
 
   const int nq = (sq + kBr - 1) / kBr;
   const int jq = nq - 1 - blockIdx.x;  // causal: the longest rows first
@@ -196,12 +233,21 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const bf16* vg = v + b * v_sb + hh * v_sh;
   const int q0 = jq * kBr;
   int n_kv = (sk + kBc - 1) / kBc;
-  if (causal) n_kv = min(n_kv, (min(q0 + kBr, sq) - 1) / kBc + 1);
+  if (causal && !SEG) n_kv = min(n_kv, (min(q0 + kBr, sq) - 1) / kBc + 1);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
   const int row_b = row_a + 8;
+  const int* kidg = SEG ? kv_seg + b * kv_seg_sb : nullptr;
+  int qid_a = 0, qid_b = 0;
+  if (SEG) {
+    const int* qidg = q_seg + b * q_seg_sb;
+    if (row_a < sq) qid_a = qidg[row_a];
+    if (row_b < sq) qid_b = qidg[row_b];
+    const int t = threadIdx.x;
+    if (t < kBc) kid_s[t] = t < sk ? kidg[t] : 0;
+  }
 
   load_tile<D>(q_s, qg, q_ss, q0, sq);
   load_tile<D>(k_s, kg, k_ss, 0, sk);
@@ -221,6 +267,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     if (it + 1 < n_kv) {  // the next K/V block flies while this one is used
       load_tile<D>(k_s + (st ^ 1) * E, kg, k_ss, (it + 1) * kBc, sk);
       load_tile<D>(v_s + (st ^ 1) * E, vg, v_ss, (it + 1) * kBc, sk);
+      const int t = threadIdx.x;
+      if (SEG && t < kBc) {
+        const int key = (it + 1) * kBc + t;
+        kid_s[(st ^ 1) * kBc + t] = key < sk ? kidg[key] : 0;
+      }
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -251,19 +302,47 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     // scale into log2 units; mask only blocks that cross the diagonal or
     // the ragged end of the keys (warp-uniform test)
     const int k0 = it * kBc;
-    const bool edge =
-        (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
+    bool per_score = false;  // SEG: this warp's tile needs the id compares
+    if (SEG) {
+      const int* kid = kid_s + st * kBc;
+      const int c = kid[0];
+      per_score = !warp_one_segment(kid[lane] == c && kid[lane + 32] == c &&
+                                    qid_a == c && qid_b == c) ||
+                  (causal && k0 + kBc - 1 > q0 + warp * 16);
+    }
+    if (per_score) {  // every score: the segment compare, then the causal one
+      const int* kid = kid_s + st * kBc;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+        for (int e = 0; e < 4; ++e) {
+          const int kc = n * 8 + 2 * t4 + (e & 1);
+          const int key = k0 + kc;
           const int row = e < 2 ? row_a : row_b;
-          if (key >= sk || (causal && key > row)) x = -INFINITY;
+          float x = s[n][e] * scale_log2;
+          if (key >= sk)
+            x = -INFINITY;  // not a key: no weight, even in a masked row
+          else if (kid[kc] != (e < 2 ? qid_a : qid_b) ||
+                   (causal && key > row))
+            x = kMaskedLog2;
+          s[n][e] = x;
         }
-        s[n][e] = x;
+      }
+    } else {
+      const bool edge =
+          (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge) {
+            const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            if (key >= sk || (causal && key > row)) x = -INFINITY;
+          }
+          s[n][e] = x;
+        }
       }
     }
 
@@ -345,14 +424,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 constexpr int kDsStride = kBr + 8;  // ds tile: 64 keys x 64 queries, padded
 
-template <int D>
+template <int D, bool SEG>
 constexpr size_t bwd_smem() {
-  // K, V, Q[2], dO[2], dS, lse[2], delta[2]
+  // K, V, Q[2], dO[2], dS, lse[2], delta[2], and with SEG the q ids [2]
   return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
-         size_t(kBc) * kDsStride * sizeof(bf16) + 4 * kBr * sizeof(float);
+         size_t(kBc) * kDsStride * sizeof(bf16) + 4 * kBr * sizeof(float) +
+         (SEG ? 2 * kBr * sizeof(int) : 0);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -361,7 +441,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, int h,
-    int sq, int sk, float scale, float scale_log2, int causal) {
+    int sq, int sk, float scale, float scale_log2, int causal,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
+    long long q_seg_sb, long long kv_seg_sb) {
   constexpr int S = Tile<D>::kStride;
   constexpr int E = Tile<D>::kElems;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -372,6 +454,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   bf16* ds_s = do_s + 2 * E;
   float* lse_s = reinterpret_cast<float*>(ds_s + kBc * kDsStride);  // [2][64]
   float* dl_s = lse_s + 2 * kBr;                                    // [2][64]
+  int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kBr);  // SEG: [2][64]
 
   const int tk = blockIdx.x;  // causal: low key blocks have the most work
   const int bh = blockIdx.y;
@@ -384,13 +467,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   const float* dlg = delta + (long long)bh * sq;
   const int k0 = tk * kBc;
   const int nq = (sq + kBr - 1) / kBr;
-  const int j0 = causal ? k0 / kBr : 0;  // first q block that sees a key here
+  // first q block that sees a key here (SEG: every q block, see the top)
+  const int j0 = causal && !SEG ? k0 / kBr : 0;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int key_a = k0 + warp * 16 + g;  // this thread's two keys
   const int key_b = key_a + 8;
+  const int* qidg = SEG ? q_seg + b * q_seg_sb : nullptr;
+  int kid_a = 0, kid_b = 0;
+  if (SEG) {
+    const int* kidg = kv_seg + b * kv_seg_sb;
+    if (key_a < sk) kid_a = kidg[key_a];
+    if (key_b < sk) kid_b = kidg[key_b];
+  }
+  const float inv_sk = 1.f / sk;  // a fully masked row's weight per key
 
   auto load_step = [&](int j, int st) {
     load_tile<D>(q_s + st * E, qg, q_ss, j * kBr, sq);
@@ -399,6 +491,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
       const int r = j * kBr + tid;
       lse_s[st * kBr + tid] = r < sq ? lseg[r] * kLog2e : 0.f;
       dl_s[st * kBr + tid] = r < sq ? dlg[r] : 0.f;
+      if (SEG) qid_s[st * kBr + tid] = r < sq ? qidg[r] : 0;
     }
   };
 
@@ -443,20 +536,53 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     }
 
     // p^T = exp(scale s - lse), zero where masked (warp-uniform test)
-    const bool edge = (k0 + kBc > sk) || (q0 + kBr > sq) ||
-                      (causal && k0 + warp * 16 + 15 > q0);
+    uint32_t masked = 0;  // SEG: bit 4n+e set where ds must be 0
+    bool per_score = false;  // SEG: this warp's tile needs the id compares
+    if (SEG) {
+      const int* qid = qid_s + st * kBr;
+      const int c = qid[0];
+      per_score = !warp_one_segment(qid[lane] == c && qid[lane + 32] == c &&
+                                    kid_a == c && kid_b == c) ||
+                  (causal && k0 + warp * 16 + 15 > q0);
+    }
+    if (per_score) {
+      const int* qid = qid_s + st * kBr;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t4 + (e & 1);
-        float p = exp2f(s[n][e] * scale_log2 - ls[qc]);
-        if (edge) {
+        for (int e = 0; e < 4; ++e) {
+          const int qc = n * 8 + 2 * t4 + (e & 1);
           const int key = e < 2 ? key_a : key_b;
-          if (key >= sk || q0 + qc >= sq || (causal && key > q0 + qc))
+          float p;
+          if (key >= sk || q0 + qc >= sq) {
             p = 0.f;
+            masked |= 1u << (4 * n + e);
+          } else if ((e < 2 ? kid_a : kid_b) != qid[qc] ||
+                     (causal && key > q0 + qc)) {
+            p = ls[qc] < kDeadLse ? inv_sk : 0.f;
+            masked |= 1u << (4 * n + e);
+          } else {
+            p = exp2f(s[n][e] * scale_log2 - ls[qc]);
+          }
+          s[n][e] = p;
         }
-        s[n][e] = p;
+      }
+    } else {
+      const bool edge = (k0 + kBc > sk) || (q0 + kBr > sq) ||
+                        (causal && k0 + warp * 16 + 15 > q0);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = n * 8 + 2 * t4 + (e & 1);
+          float p = exp2f(s[n][e] * scale_log2 - ls[qc]);
+          if (edge) {
+            const int key = e < 2 ? key_a : key_b;
+            if (key >= sk || q0 + qc >= sq || (causal && key > q0 + qc))
+              p = 0.f;
+          }
+          s[n][e] = p;
+        }
       }
     }
 
@@ -487,12 +613,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
       }
     }
 
-    // dS^T = P (dP - delta), fp32 p
+    // dS^T = P (dP - delta), fp32 p; 0 where masked
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dp[n][e] = s[n][e] * (dp[n][e] - dls[n * 8 + 2 * t4 + (e & 1)]);
+        dp[n][e] = SEG && (masked >> (4 * n + e)) & 1u
+                       ? 0.f
+                       : s[n][e] * (dp[n][e] - dls[n * 8 + 2 * t4 + (e & 1)]);
 
     // dK += dS^T Q (ds rounded to bf16; scale applied at the end)
 #pragma unroll
@@ -578,42 +706,51 @@ cudaError_t opt_in(K kernel, size_t smem, bool& done) {
   return e;
 }
 
-template <int D>
+// the segment ids of one call: both null (no segments) or both set
+struct Seg {
+  const int* q;
+  const int* kv;
+  long long q_sb, kv_sb;
+};
+
+template <int D, bool SEG>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, const long long* st, int b, int h, int sq,
-                       int sk, float scale, int causal, cudaStream_t stream) {
+                       int sk, float scale, int causal, Seg seg,
+                       cudaStream_t stream) {
   static bool opted = false;
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t e = opt_in(flash_fwd_kernel<D>, smem, opted);
+  constexpr size_t smem = fwd_smem<D, SEG>();
+  cudaError_t e = opt_in(flash_fwd_kernel<D, SEG>, smem, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid((sq + kBr - 1) / kBr, b * h);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], h, sq, sk, scale * kLog2e, causal);
+      st[6], st[7], st[8], h, sq, sk, scale * kLog2e, causal, seg.q, seg.kv,
+      seg.q_sb, seg.kv_sb);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool SEG>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq_acc, void* dk, void* dv, const long long* st,
                        int b, int h, int sq, int sk, float scale, int causal,
-                       cudaStream_t stream) {
+                       Seg seg, cudaStream_t stream) {
   static bool opted = false;
-  constexpr size_t smem = bwd_smem<D>();
-  cudaError_t e = opt_in(flash_bwd_kernel<D>, smem, opted);
+  constexpr size_t smem = bwd_smem<D, SEG>();
+  cudaError_t e = opt_in(flash_bwd_kernel<D, SEG>, smem, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid((sk + kBc - 1) / kBc, b * h);
-  flash_bwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
-      causal);
+      causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
   return cudaGetLastError();
 }
 
@@ -622,19 +759,34 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // q, k, v: bf16 (b, h, s, d) with d contiguous, every row 16-byte aligned;
 // `strides` holds (batch, head, seq) strides in elements for q, k, v (9
 // values).  o (b, h, sq, d) bf16 and lse (b, h, sq) fp32 are contiguous.
+// q_seg (b, sq) and kv_seg (b, sk): int32 segment ids, contiguous along the
+// sequence, with batch strides q_seg_sb / kv_seg_sb; both null for none.
 // Launches on `stream`; returns the CUDA error of the launch (0 = launched).
 extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const long long* strides, int b, int h,
                                    int sq, int sk, float scale, int causal,
+                                   const void* q_seg, const void* kv_seg,
+                                   long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Seg seg{static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg), q_seg_sb, kv_seg_sb};
+  if ((q_seg == nullptr) != (kv_seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool has_seg = q_seg != nullptr;
   if (head_dim == 64)
-    return static_cast<int>(launch_fwd<64>(q, k, v, o, lse, strides, b, h, sq,
-                                           sk, scale, causal, s));
+    return static_cast<int>(
+        has_seg ? launch_fwd<64, true>(q, k, v, o, lse, strides, b, h, sq, sk,
+                                       scale, causal, seg, s)
+                : launch_fwd<64, false>(q, k, v, o, lse, strides, b, h, sq,
+                                        sk, scale, causal, seg, s));
   if (head_dim == 128)
-    return static_cast<int>(launch_fwd<128>(q, k, v, o, lse, strides, b, h,
-                                            sq, sk, scale, causal, s));
+    return static_cast<int>(
+        has_seg ? launch_fwd<128, true>(q, k, v, o, lse, strides, b, h, sq,
+                                        sk, scale, causal, seg, s)
+                : launch_fwd<128, false>(q, k, v, o, lse, strides, b, h, sq,
+                                         sk, scale, causal, seg, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -648,15 +800,30 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    void* dq_acc, void* dk, void* dv,
                                    const long long* strides, int b, int h,
                                    int sq, int sk, float scale, int causal,
+                                   const void* q_seg, const void* kv_seg,
+                                   long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Seg seg{static_cast<const int*>(q_seg),
+                static_cast<const int*>(kv_seg), q_seg_sb, kv_seg_sb};
+  if ((q_seg == nullptr) != (kv_seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool has_seg = q_seg != nullptr;
   if (head_dim == 64)
-    return static_cast<int>(launch_bwd<64>(q, k, v, dout, lse, delta, dq_acc,
-                                           dk, dv, strides, b, h, sq, sk,
-                                           scale, causal, s));
+    return static_cast<int>(
+        has_seg ? launch_bwd<64, true>(q, k, v, dout, lse, delta, dq_acc, dk,
+                                       dv, strides, b, h, sq, sk, scale,
+                                       causal, seg, s)
+                : launch_bwd<64, false>(q, k, v, dout, lse, delta, dq_acc, dk,
+                                        dv, strides, b, h, sq, sk, scale,
+                                        causal, seg, s));
   if (head_dim == 128)
-    return static_cast<int>(launch_bwd<128>(q, k, v, dout, lse, delta, dq_acc,
-                                            dk, dv, strides, b, h, sq, sk,
-                                            scale, causal, s));
+    return static_cast<int>(
+        has_seg ? launch_bwd<128, true>(q, k, v, dout, lse, delta, dq_acc, dk,
+                                        dv, strides, b, h, sq, sk, scale,
+                                        causal, seg, s)
+                : launch_bwd<128, false>(q, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, strides, b, h, sq, sk, scale,
+                                         causal, seg, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

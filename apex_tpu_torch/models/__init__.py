@@ -1,6 +1,6 @@
-"""apex_tpu_torch.models — so far GPT (`models.gpt`): its config, seeded
-init, the converter from the JAX package's parameters and the training
-forward."""
+"""apex_tpu_torch.models — so far GPT (`models.gpt`) and BERT
+(`models.bert`): their configs, seeded inits, the converter from the JAX
+package's parameters and the training forwards."""
 
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
@@ -8,4 +8,10 @@ from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPTConfig,
     init_gpt_params,
     params_from_jax,
+)
+from apex_tpu_torch.models.bert import (  # noqa: F401
+    Bert,
+    BertConfig,
+    bert_large,
+    init_bert_params,
 )

@@ -16,10 +16,10 @@ Two implementations live here:
     `torch.autograd.Function` that saves o and the fp32 lse (b, h, sq).
     Its source note says what bounds them and how.
 
-On CUDA the kernels take the surface the training step uses: causal or
-not, bf16, head_dim 64 or 128, no bias, no segment ids, no dropout.
-Everything else raises NotImplementedError on CUDA; on the CPU the plain
-version serves all of it.
+On CUDA the kernels take the surface the training steps use: causal or
+not, segment ids or not (BERT's padding mask), bf16, head_dim 64 or 128,
+no bias, no dropout.  Everything else raises NotImplementedError on
+CUDA; on the CPU the plain version serves all of it.
 """
 
 from __future__ import annotations
@@ -78,14 +78,16 @@ _LIB = None
 def _bind(lib):
     """Declare the C interface of a loaded flash_attention library."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    i64p = ctypes.POINTER(ctypes.c_longlong)
+    i64, i64p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
+    seg = [vp, vp, i64, i64]           # q_seg, kv_seg and their batch strides
     lib.apex_flash_attn_fwd.restype = i32
     lib.apex_flash_attn_fwd.argtypes = [
-        i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32, vp]
+        i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
+        *seg, vp]
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
-        f32, i32, vp]
+        f32, i32, *seg, vp]
     return lib
 
 
@@ -136,21 +138,44 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_fwd_cuda(q, k, v, scale, causal):
-    """Launch the forward kernel on the current stream.  Returns
-    (o (b, h, sq, d) bf16, lse (b, h, sq) fp32).
+def _seg_args(q_seg, kv_seg, b, sq, sk):
+    """The C interface's [q_seg, kv_seg, q_seg_sb, kv_seg_sb] (int32 ids
+    contiguous along the sequence, a copy only where they are not; or
+    nulls) and the id tensors they point into.  The ids are never read
+    on the host."""
+    if q_seg is None and kv_seg is None:
+        return [None, None, 0, 0], ()
+    if q_seg is None or kv_seg is None:
+        raise ValueError("q_seg and kv_seg go together")
+    out = []
+    for name, t, s in (("q_seg", q_seg, sq), ("kv_seg", kv_seg, sk)):
+        if tuple(t.shape) != (b, s):
+            raise ValueError(f"{name} must be ({b}, {s}), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.int32 or t.stride(1) != 1:
+            t = t.to(torch.int32).contiguous()
+        out.append(t)
+    return [out[0].data_ptr(), out[1].data_ptr(), out[0].stride(0),
+            out[1].stride(0)], out
+
+
+def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
+    """Launch the forward kernel on the current stream; `q_seg` (b, sq)
+    and `kv_seg` (b, sk) are optional integer segment ids (both or
+    neither).  Returns (o (b, h, sq, d) bf16, lse (b, h, sq) fp32).
     `flash_fwd_cuda.launches` counts launches."""
     _check_kernel_inputs(q, k, v)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    seg, _keep = _seg_args(q_seg, kv_seg, b, sq, sk)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_fwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
-        int(bool(causal)), stream)
+        int(bool(causal)), *seg, stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {err}")
@@ -161,16 +186,18 @@ def flash_fwd_cuda(q, k, v, scale, causal):
 flash_fwd_cuda.launches = 0
 
 
-def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal):
+def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
+                   kv_seg=None):
     """Launch the backward kernel on the current stream: dq, dk, dv from
     q, k, v, the output gradient `do`, the forward's fp32 `lse` and
-    `delta = sum(do * o, -1)` in fp32.  dq is summed across key blocks
-    in an fp32 scratch buffer and cast once.
-    `flash_bwd_cuda.launches` counts launches."""
+    `delta = sum(do * o, -1)` in fp32, with the forward's segment ids.
+    dq is summed across key blocks in an fp32 scratch buffer and cast
+    once.  `flash_bwd_cuda.launches` counts launches."""
     _check_kernel_inputs(q, k, v)
     q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    seg, _keep = _seg_args(q_seg, kv_seg, b, sq, sk)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
@@ -188,7 +215,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal):
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), stream)
+        int(bool(causal)), *seg, stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")
@@ -205,19 +232,19 @@ class _FlashFn(torch.autograd.Function):
     does) and runs the single-pass backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_fwd_cuda(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg):
+        o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
         ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
         delta = torch.sum(do.float() * o.float(), dim=-1)
         dq, dk, dv = flash_bwd_cuda(q, k, v, do, lse, delta, ctx.scale,
-                                    ctx.causal)
-        return dq, dk, dv, None, None
+                                    ctx.causal, q_seg, kv_seg)
+        return dq, dk, dv, None, None, None, None
 
 
 # --------------------------------- public API -------------------------------
@@ -238,7 +265,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     package's `flash_attention` (same arguments and checks).  CPU tensors
     run the plain version (which takes every argument; `dropout_key` is
     a `torch.Generator` there); CUDA tensors run the kernels or raise:
-    bias, segment ids and dropout raise NotImplementedError on CUDA.
+    bias and dropout raise NotImplementedError on CUDA.  Segment ids go
+    to the segment-masked kernels as they are, never read on the host;
+    a masked score is -1e30, so a query row with every key masked gets
+    uniform weights over the keys, as the plain version gives it.
 
     block_q / block_k: the TPU kernel's tile knobs; the CUDA kernels
     tile by 64 x 64 and do not take them yet.  heads_per_step: accepted
@@ -283,11 +313,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
             dropout_rate=dropout_rate, dropout_key=dropout_key)
     unsupported = [name for name, on in (
         ("bias", bias is not None),
-        ("segment ids", q_segment_ids is not None),
         ("dropout", dropout_rate > 0.0)) if on]
     if unsupported:
         raise NotImplementedError(
             f"flash attention on CUDA does not take {', '.join(unsupported)} "
-            "yet (the training step's surface is causal or not, no bias, "
-            "no segments, no dropout)")
-    return _FlashFn.apply(q, k, v, float(scale), bool(causal))
+            "yet (the training steps' surface is causal or not, segment "
+            "ids or not, no bias, no dropout)")
+    return _FlashFn.apply(q, k, v, float(scale), bool(causal),
+                          q_segment_ids, kv_segment_ids)

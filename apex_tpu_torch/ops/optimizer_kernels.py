@@ -1,6 +1,7 @@
 """Fused optimizer kernels over flat 1-D buffers (counterpart of
-apex_tpu/ops/optimizer_kernels.py; only the uniform Adam/AdamW update
-is ported so far).
+apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update and the
+two LAMB phases with their per-tensor norms are ported so far — the
+LAMB half is described at its section below).
 
 `adam_flat` applies one Adam/AdamW step to flat param / exp_avg /
 exp_avg_sq buffers IN PLACE (the port's answer to JAX's donation), from
@@ -32,12 +33,15 @@ arithmetic.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from apex_tpu_torch.ops._common import check_kernel_device
 
-# triton.language, bound by `_adam_kernel_jit` at the first launch: the
-# kernel is compiled only on a machine with a card, and importing this
+# triton.language, bound by `_jit` at the first launch: the
+# kernels are compiled only on a machine with a card, and importing this
 # module must not need triton
 tl = None
 
@@ -148,18 +152,18 @@ def _adam_kernel(P, M, V, G, S, n, eps, weight_decay,
                                 fp_downcast_rounding="rtne"), mask=mask)
 
 
-_JIT = None
+_JIT = {}
 
 
-def _adam_kernel_jit():
-    global tl, _JIT
-    if _JIT is None:
+def _jit(fn):
+    global tl
+    if fn.__name__ not in _JIT:
         import triton
         import triton.language
 
         tl = triton.language
-        _JIT = triton.jit(_adam_kernel)
-    return _JIT
+        _JIT[fn.__name__] = triton.jit(fn)
+    return _JIT[fn.__name__]
 
 
 _STATE_DTYPES = (torch.float32, torch.bfloat16)
@@ -183,7 +187,7 @@ def adam_flat_triton(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
     if n == 0:
         return p, m, v
     grid = (-(-n // _BLOCK),)
-    _adam_kernel_jit()[grid](
+    _jit(_adam_kernel)[grid](
         p, m, v, g, scalars, n, float(eps), float(weight_decay),
         WD_MODE=0 if weight_decay == 0.0 else (2 if adam_w_mode else 1),
         BLOCK=_BLOCK, num_warps=8)
@@ -215,3 +219,457 @@ def adam_flat(p, m, v, g, lr, step, *, beta1=0.9, beta2=0.999, eps=1e-8,
         return p, m, v
     return adam_flat_triton(p, m, v, g, scalars, eps, weight_decay,
                             adam_w_mode)
+
+
+# ------------------------------ LAMB (two-phase) -----------------------------
+#
+# FusedLAMB's step is five passes over the flat buffers (counterpart of
+# the JAX package's `lamb_phase1_flat` / `lamb_phase1_seg`,
+# `per_tensor_l2norm_aligned` and `lamb_phase2_seg`):
+#
+#   phase 1   m, v updated IN PLACE; u = m̂ / (√v̂ + eps) + wd · p written to
+#             a new buffer in p's dtype.  Global-norm clipping, inv_scale,
+#             the overflow skip and bias correction are folded into eight
+#             scalars by `_lamb_fold_scalars` (a device tensor: no sync).
+#   norms     ‖p‖ and ‖u‖ per tensor (`per_tensor_l2norm_aligned`).
+#   phase 2   p -= lr · ratio[tensor] · u, IN PLACE, with the per-tensor
+#             trust ratio.
+#
+# The buffers are laid out by a lane-aligned spec (`make_spec(align=128)`):
+# every tensor owns whole rows of 128 elements, so a tensor is a run of
+# rows.  `segment_tables(spec, n_rows)` turns the spec into the lookups
+# the kernels read, built once per spec and kept on the card: an int32
+# tensor id per row (tail-padding rows get the dummy id n_tensors, whose
+# wd and ratio are 0), and the row ranges of the norm pass's work items.
+#
+# Kernel notes.  Replace apex_tpu/ops/optimizer_kernels.py
+# `_lamb_phase1_kernel` and `_lamb_phase1_seg_kernel` (this module's
+# `_lamb_phase1_kernel`, specialised by SEGMENTED), `_lamb_phase2_seg_kernel`
+# and `_rows_sumsq_seg_kernel` (this module's `_sumsq_items_kernel` plus
+# `_sumsq_segments_kernel`).  What bounds them on an H100: bytes.  Phase 1
+# reads m, v, g, p and writes m, v, u (14 bytes an element with bf16 state
+# and grads) for ~20 flops; phase 2 reads p, u and writes p; a norm reads
+# its buffer once.  Design:
+#   * The TPU kernels rebuild each block's segment membership with a
+#     one-hot product on the MXU.  Here a program of 32 rows reads their 32
+#     tensor ids (4 bytes per 128 elements) and gathers the per-tensor wd or
+#     ratio from a table of n_tensors + 1 values, then broadcasts it along
+#     the row: no per-element wd or ratio vector ever exists in memory.
+#   * The scalars are read once per program.  fp32 math with the IEEE
+#     square root and divide (`sqrt_rn`, `div_rn`), stores rounded to
+#     nearest-even, and fp-contraction off: each kernel evaluates the plain
+#     version's operations one by one, so the two agree bit for bit.
+#   * The per-tensor sums of squares are deterministic: no atomics.  The
+#     TPU kernel carries one accumulator across its sequential grid; blocks
+#     on the card run in any order, so the rows are cut into work items, a
+#     run of at most 256 rows inside one tensor each (the 31.3M-element word
+#     embedding of BERT-Large is 954 items, a 1024-wide LayerNorm vector one
+#     item of 8 rows).  `_sumsq_items_kernel` writes one fp32 partial per
+#     item, and `_sumsq_segments_kernel` sums each tensor's partials in
+#     item order.
+
+_ROWS = 32                 # rows of 128 per program in the phase kernels
+_ITEM_ROWS = 256           # rows per work item of the norm pass
+_ITEM_TILE = 32            # rows per loop step inside a work item
+
+
+def _lamb_fold_scalars(clip_ratio, step, beta1, beta2, bias_correction,
+                       grad_averaging, inv_scale, found_inf, device=None):
+    """The eight folded phase-1 scalars [g_scale, b1e, c1, b2e, c2, rbc1,
+    rbc2, found] as an fp32 device tensor (≡ the JAX package's
+    `_lamb_fold_scalars`): g_scale = clip_ratio · inv_scale; found_inf
+    sets b*e = 1 and c* = 0 so the moments are kept, and the clamp keeps
+    1/bc finite when found_inf skips the very first step."""
+    f32 = torch.float32
+
+    def t(x):
+        return device_scalar(x, f32, device)
+
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    step = t(step)
+    keep = device_scalar(found_inf, torch.bool, device)
+    bc1 = torch.clamp_min(1.0 - torch.pow(t(beta1), step), 1e-20)
+    bc2 = torch.clamp_min(1.0 - torch.pow(t(beta2), step), 1e-20)
+    one, zero = t(1.0), t(0.0)
+    return torch.stack([
+        t(clip_ratio) * t(inv_scale),                # g_scale
+        torch.where(keep, one, t(beta1)),            # b1e
+        torch.where(keep, zero, t(beta3)),           # c1
+        torch.where(keep, one, t(beta2)),            # b2e
+        torch.where(keep, zero, 1.0 - t(beta2)),     # c2
+        one / bc1 if bias_correction else one,       # rbc1
+        one / bc2 if bias_correction else one,       # rbc2
+        keep.to(f32),                                # found
+    ])
+
+
+def _row_segment_ids(spec):
+    """Tensor id of every row of the spec's (lane-aligned) buffer."""
+    if spec.align % _LANES:
+        raise ValueError(f"LAMB needs a lane-aligned spec (align a multiple "
+                         f"of {_LANES}), got align={spec.align}")
+    bounds = list(spec.offsets) + [spec.total]
+    rows = [(bounds[i + 1] - bounds[i]) // _LANES
+            for i in range(len(spec.offsets))]
+    return np.repeat(np.arange(len(rows), dtype=np.int32), rows)
+
+
+def _seg_row_bounds(spec):
+    """Per-tensor [start, end) row bounds, as numpy int32 arrays."""
+    bounds = np.asarray(list(spec.offsets) + [spec.total], np.int64) // _LANES
+    return bounds[:-1].astype(np.int32), bounds[1:].astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def segment_tables(spec, n_rows: int, device):
+    """The kernels' lookups for a buffer of `n_rows` rows laid out by
+    `spec`, on `device` (built once per spec and buffer; the first call
+    copies them to the card):
+
+      seg         int32 (n_rows,)  tensor id per row; padding rows get
+                                   the dummy id len(spec.sizes)
+      item_lo/hi  int32 (n_items,) row range of each norm work item
+      item_ptr    int32 (n_tensors + 1,) each tensor's first item
+    """
+    n_seg = len(spec.sizes)
+    base = _row_segment_ids(spec)
+    if n_rows < base.shape[0]:
+        raise ValueError(f"buffer of {n_rows} rows is shorter than the "
+                         f"spec's {base.shape[0]}")
+    seg = np.concatenate([base, np.full((n_rows - base.shape[0],), n_seg,
+                                        np.int32)])
+    lo, hi = _seg_row_bounds(spec)
+    counts = -(-(hi - lo) // _ITEM_ROWS)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    first = np.repeat(lo, counts)
+    k = np.arange(int(ptr[-1])) - np.repeat(ptr[:-1], counts)
+    item_lo = (first + k * _ITEM_ROWS).astype(np.int32)
+    item_hi = np.minimum(item_lo + _ITEM_ROWS,
+                         np.repeat(hi, counts)).astype(np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {"seg": dev(seg), "item_lo": dev(item_lo),
+            "item_hi": dev(item_hi), "item_ptr": dev(ptr)}
+
+
+def _table(values, device):
+    """Per-tensor fp32 values plus the dummy 0 of the padding rows."""
+    vals = (values.to(device=device, dtype=torch.float32)
+            if isinstance(values, torch.Tensor)
+            else torch.as_tensor(np.asarray(values, np.float32),
+                                 device=device))
+    return torch.cat([vals.reshape(-1), vals.new_zeros(1)])
+
+
+# --------------------------- plain PyTorch versions --------------------------
+
+def _lamb_phase1_reference(m, v, g, p, scalars, eps, wd_rows=None,
+                           weight_decay=0.0):
+    """Phase 1 in plain PyTorch; returns (m, v, u) new, in m's, v's and
+    p's dtypes.  `wd_rows` (fp32, one value per row of 128) is the
+    segmented variant's weight decay, else the uniform `weight_decay`."""
+    g_scale, b1e, c1, b2e, c2, rbc1, rbc2, found = scalars.unbind(0)
+    g32 = torch.where(found > 0.5, 0.0, g.float() * g_scale)
+    p32 = p.float()
+    m_new = b1e * m.float() + c1 * g32
+    v_new = b2e * v.float() + c2 * (g32 * g32)
+    u = (m_new * rbc1) / (torch.sqrt(v_new * rbc2) + eps)
+    if wd_rows is not None:
+        u = (u.view(-1, _LANES) + wd_rows[:, None] * p32.view(-1, _LANES)
+             ).view(-1)
+    elif weight_decay:
+        u = u + weight_decay * p32
+    return m_new.to(m.dtype), v_new.to(v.dtype), u.to(p.dtype)
+
+
+def _lamb_phase2_reference(p, u, ratio_rows, lr):
+    """Phase 2 in plain PyTorch: p - (lr · ratio[row]) · u, new."""
+    r = (lr * ratio_rows)[:, None]
+    return (p.float().view(-1, _LANES) - r * u.float().view(-1, _LANES)
+            ).view(-1).to(p.dtype)
+
+
+def _rows_sumsq_reference(x, spec):
+    """Per-tensor sums of squares in plain PyTorch: fp32 sums of each row
+    of 128, then a scatter-add by tensor id in fp64, rounded once to
+    fp32.  (An fp32 scatter-add sums a tensor's rows one after another:
+    over the 244,224 rows of BERT-Large's word embedding that drifts by
+    ~1e-5 relative, more than the kernel's tree of partial sums.)"""
+    rows = spec.total // _LANES
+    x2 = x[:spec.total].view(rows, _LANES).float()
+    seg = torch.from_numpy(_row_segment_ids(spec)).to(x.device).long()
+    out = torch.zeros(len(spec.sizes), dtype=torch.float64, device=x.device)
+    return out.index_add_(0, seg, torch.sum(x2 * x2, dim=1).double()).float()
+
+
+# ------------------------------- Triton kernels ------------------------------
+
+def _lamb_phase1_kernel(M, V, G, P, U, S, SEG, WDT, n, eps, weight_decay,
+                        SEGMENTED: tl.constexpr, WD: tl.constexpr,
+                        ROWS: tl.constexpr, LANES: tl.constexpr):
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+    offs = rows.to(tl.int64)[:, None] * LANES + tl.arange(0, LANES)[None, :]
+    mask = offs < n
+    g_scale = tl.load(S + 0)
+    b1e = tl.load(S + 1)
+    c1 = tl.load(S + 2)
+    b2e = tl.load(S + 3)
+    c2 = tl.load(S + 4)
+    rbc1 = tl.load(S + 5)
+    rbc2 = tl.load(S + 6)
+    found = tl.load(S + 7)
+    g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    m = tl.load(M + offs, mask=mask, other=0.0).to(tl.float32)
+    v = tl.load(V + offs, mask=mask, other=0.0).to(tl.float32)
+    # the one select: inf/nan grads would poison m/v through 0 * inf
+    g = tl.where(found > 0.5, 0.0, g * g_scale)
+    m_new = b1e * m + c1 * g
+    v_new = b2e * v + c2 * (g * g)
+    u = tl.div_rn(m_new * rbc1, tl.sqrt_rn(v_new * rbc2) + eps)
+    if SEGMENTED:
+        seg = tl.load(SEG + rows, mask=rows * LANES < n, other=0)
+        u = u + tl.load(WDT + seg)[:, None] * p
+    elif WD:
+        u = u + weight_decay * p
+    tl.store(M + offs, m_new.to(M.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    tl.store(V + offs, v_new.to(V.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    tl.store(U + offs, u.to(U.dtype.element_ty,
+                            fp_downcast_rounding="rtne"), mask=mask)
+
+
+def _lamb_phase2_seg_kernel(P, U, SEG, RT, LR, n, ROWS: tl.constexpr,
+                            LANES: tl.constexpr):
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+    offs = rows.to(tl.int64)[:, None] * LANES + tl.arange(0, LANES)[None, :]
+    mask = offs < n
+    seg = tl.load(SEG + rows, mask=rows * LANES < n, other=0)
+    step = tl.load(LR) * tl.load(RT + seg)             # lr · ratio, per row
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    u = tl.load(U + offs, mask=mask, other=0.0).to(tl.float32)
+    p_new = p - step[:, None] * u
+    tl.store(P + offs, p_new.to(P.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+
+
+def _sumsq_items_kernel(X, LO, HI, OUT, TR: tl.constexpr,
+                        LANES: tl.constexpr):
+    i = tl.program_id(0)
+    lo = tl.load(LO + i)
+    hi = tl.load(HI + i)
+    acc = tl.zeros((TR, LANES), dtype=tl.float32)
+    for r0 in range(lo, hi, TR):
+        rows = r0 + tl.arange(0, TR)
+        offs = (rows.to(tl.int64)[:, None] * LANES
+                + tl.arange(0, LANES)[None, :])
+        x = tl.load(X + offs, mask=(rows < hi)[:, None],
+                    other=0.0).to(tl.float32)
+        acc += x * x
+    tl.store(OUT + i, tl.sum(tl.sum(acc, axis=1), axis=0))
+
+
+def _sumsq_segments_kernel(PART, PTR, OUT, BLOCK: tl.constexpr):
+    s = tl.program_id(0)
+    lo = tl.load(PTR + s)
+    hi = tl.load(PTR + s + 1)
+    acc = tl.zeros((BLOCK,), dtype=tl.float32)
+    for i0 in range(lo, hi, BLOCK):
+        idx = i0 + tl.arange(0, BLOCK)
+        acc += tl.load(PART + idx, mask=idx < hi, other=0.0)
+    tl.store(OUT + s, tl.sum(acc, axis=0))
+
+
+def _check_flat(who, n_mult, **bufs):
+    n = next(iter(bufs.values())).numel()
+    for name, t in bufs.items():
+        if t.ndim != 1 or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"{who} needs contiguous 1-D buffers of one "
+                             f"length; {name} is {tuple(t.shape)}")
+        if name != "g" and t.dtype not in _STATE_DTYPES:
+            raise TypeError(f"{who} state is fp32 or bf16, {name} is "
+                            f"{t.dtype}")
+    if "g" in bufs and not bufs["g"].dtype.is_floating_point:
+        raise TypeError(f"{who} grads must be float, got {bufs['g'].dtype}")
+    if n % n_mult:
+        raise ValueError(f"{who} needs a length that is a multiple of "
+                         f"{n_mult}, got {n}")
+    return n
+
+
+def _check_scalars(who, scalars, n):
+    if scalars.dtype != torch.float32 or tuple(scalars.shape) != (n,):
+        raise ValueError(f"{who} scalars must be fp32 ({n},)")
+
+
+def _launch_phase1(m, v, g, p, scalars, eps, weight_decay, seg=None,
+                   wdt=None):
+    n = p.numel()
+    u = torch.empty_like(p)
+    segmented = seg is not None
+    if not segmented:
+        seg = wdt = p                  # pointers the kernel never reads
+    if n:
+        grid = (-(-n // (_ROWS * _LANES)),)
+        _jit(_lamb_phase1_kernel)[grid](
+            m, v, g, p, u, scalars, seg, wdt, n, float(eps),
+            float(weight_decay), SEGMENTED=segmented,
+            WD=weight_decay != 0.0, ROWS=_ROWS, LANES=_LANES, num_warps=8,
+            enable_fp_fusion=False)
+    return m, v, u
+
+
+def lamb_phase1_triton(m, v, g, p, scalars, eps, weight_decay):
+    """Launch phase 1 with one uniform weight decay over CUDA flat
+    buffers: m, v in place, u returned new in p's dtype.
+    `lamb_phase1_triton.launches` counts launches."""
+    _check_flat("lamb phase 1", 1, m=m, v=v, g=g, p=p)
+    _check_scalars("lamb phase 1", scalars, 8)
+    out = _launch_phase1(m, v, g, p, scalars, eps, weight_decay)
+    lamb_phase1_triton.launches += 1
+    return out
+
+
+lamb_phase1_triton.launches = 0
+
+
+def lamb_phase1_seg_triton(m, v, g, p, scalars, eps, seg, wdt):
+    """Launch phase 1 with per-tensor weight decay: `seg` the int32 tensor
+    id per row, `wdt` the fp32 wd table (dummy 0 last).
+    `lamb_phase1_seg_triton.launches` counts launches."""
+    n = _check_flat("lamb phase 1", _LANES, m=m, v=v, g=g, p=p)
+    _check_scalars("lamb phase 1", scalars, 8)
+    if seg.dtype != torch.int32 or seg.numel() != n // _LANES:
+        raise ValueError("lamb phase 1 needs an int32 tensor id per row")
+    out = _launch_phase1(m, v, g, p, scalars, eps, 0.0, seg, wdt)
+    lamb_phase1_seg_triton.launches += 1
+    return out
+
+
+lamb_phase1_seg_triton.launches = 0
+
+
+def lamb_phase2_seg_triton(p, u, seg, ratio_table, lr):
+    """Launch phase 2 over CUDA flat buffers, p in place: `seg` the int32
+    tensor id per row, `ratio_table` the fp32 trust ratios (dummy 0
+    last), `lr` a 0-d fp32 device tensor.
+    `lamb_phase2_seg_triton.launches` counts launches."""
+    n = _check_flat("lamb phase 2", _LANES, p=p, u=u)
+    if seg.dtype != torch.int32 or seg.numel() != n // _LANES:
+        raise ValueError("lamb phase 2 needs an int32 tensor id per row")
+    if n:
+        grid = (-(-n // (_ROWS * _LANES)),)
+        _jit(_lamb_phase2_seg_kernel)[grid](
+            p, u, seg, ratio_table, lr, n, ROWS=_ROWS, LANES=_LANES,
+            num_warps=4, enable_fp_fusion=False)
+    lamb_phase2_seg_triton.launches += 1
+    return p
+
+
+lamb_phase2_seg_triton.launches = 0
+
+
+def rows_sumsq_seg_triton(x, spec):
+    """Per-tensor fp32 sums of squares over a CUDA flat buffer laid out
+    by a lane-aligned `spec`: the item pass and the per-tensor pass, two
+    launches; `rows_sumsq_seg_triton.launches` counts calls."""
+    n = _check_flat("per-tensor norms", _LANES, x=x)
+    tabs = segment_tables(spec, n // _LANES, x.device)
+    n_items = tabs["item_lo"].numel()
+    n_seg = len(spec.sizes)
+    part = torch.empty(n_items, dtype=torch.float32, device=x.device)
+    out = torch.empty(n_seg, dtype=torch.float32, device=x.device)
+    if n_items:
+        _jit(_sumsq_items_kernel)[(n_items,)](
+            x, tabs["item_lo"], tabs["item_hi"], part, TR=_ITEM_TILE,
+            LANES=_LANES, num_warps=4)
+    if n_seg:
+        _jit(_sumsq_segments_kernel)[(n_seg,)](
+            part, tabs["item_ptr"], out, BLOCK=1024, num_warps=4)
+    rows_sumsq_seg_triton.launches += 1
+    return out
+
+
+rows_sumsq_seg_triton.launches = 0
+
+
+# --------------------------------- public API -------------------------------
+
+def lamb_phase1_flat(m, v, g, p, clip_ratio, step, *, beta1, beta2, eps,
+                     weight_decay, bias_correction=True, grad_averaging=True,
+                     inv_scale=1.0, found_inf=False):
+    """LAMB phase 1 with one uniform weight decay (≡ the JAX package's
+    `lamb_phase1_flat`): m and v updated IN PLACE, u returned new in p's
+    dtype.  `g` may ride in its own (bf16) dtype; `clip_ratio`, `step`,
+    `inv_scale` and `found_inf` may be device tensors.  Returns (m, v, u).
+    CPU tensors run the plain version; CUDA tensors run the kernel or
+    raise."""
+    scalars = _lamb_fold_scalars(clip_ratio, step, beta1, beta2,
+                                 bias_correction, grad_averaging, inv_scale,
+                                 found_inf, device=p.device)
+    if not check_kernel_device(m, v, g, p):
+        mn, vn, u = _lamb_phase1_reference(m, v, g, p, scalars, eps,
+                                           weight_decay=weight_decay)
+        m.copy_(mn)
+        v.copy_(vn)
+        return m, v, u
+    return lamb_phase1_triton(m, v, g, p, scalars, eps, weight_decay)
+
+
+def lamb_phase1_seg(m, v, g, p, clip_ratio, step, *, wd_values, spec, beta1,
+                    beta2, eps, bias_correction=True, grad_averaging=True,
+                    inv_scale=1.0, found_inf=False):
+    """`lamb_phase1_flat` with per-tensor weight decay `wd_values`
+    ((n_tensors,), a device tensor or an array), looked up per row from
+    the lane-aligned `spec` (≡ the JAX package's `lamb_phase1_seg`)."""
+    scalars = _lamb_fold_scalars(clip_ratio, step, beta1, beta2,
+                                 bias_correction, grad_averaging, inv_scale,
+                                 found_inf, device=p.device)
+    wdt = _table(wd_values, p.device)
+    if wdt.numel() != len(spec.sizes) + 1:
+        raise ValueError(f"{wdt.numel() - 1} wd values for "
+                         f"{len(spec.sizes)} tensors")
+    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    if not check_kernel_device(m, v, g, p):
+        mn, vn, u = _lamb_phase1_reference(m, v, g, p, scalars, eps,
+                                           wd_rows=wdt[seg.long()])
+        m.copy_(mn)
+        v.copy_(vn)
+        return m, v, u
+    return lamb_phase1_seg_triton(m, v, g, p, scalars, eps, seg, wdt)
+
+
+def lamb_phase2_seg(p, u, ratio_values, spec, lr):
+    """p -= lr · trust_ratio[tensor] · u, IN PLACE, with the per-tensor
+    `ratio_values` ((n_tensors,)) looked up per row from the lane-aligned
+    `spec`; tail-padding rows get ratio 0 and stay untouched (≡ the JAX
+    package's `lamb_phase2_seg`).  `lr` may be a device tensor.  Returns
+    p."""
+    rt = _table(ratio_values, p.device)
+    if rt.numel() != len(spec.sizes) + 1:
+        raise ValueError(f"{rt.numel() - 1} ratios for "
+                         f"{len(spec.sizes)} tensors")
+    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    lr_t = device_scalar(lr, torch.float32, p.device)
+    if not check_kernel_device(p, u):
+        return p.copy_(_lamb_phase2_reference(p, u, rt[seg.long()], lr_t))
+    return lamb_phase2_seg_triton(p, u, seg, rt, lr_t)
+
+
+def l2norm_flat(flat):
+    """Global L2 norm in fp32 (≡ the JAX package's `l2norm_flat`, a plain
+    reduction there too): the reduction upcasts as it reads, no fp32 copy
+    of the buffer is made."""
+    return torch.linalg.vector_norm(flat, dtype=torch.float32)
+
+
+def per_tensor_l2norm_aligned(flat, spec):
+    """Per-tensor L2 norms over a flat buffer laid out by a lane-aligned
+    `spec` (≡ the JAX package's `per_tensor_l2norm_aligned`).  CPU tensors
+    run the plain version; CUDA tensors the kernels or raise."""
+    if not check_kernel_device(flat):
+        return torch.sqrt(_rows_sumsq_reference(flat, spec))
+    return torch.sqrt(rows_sumsq_seg_triton(flat, spec))

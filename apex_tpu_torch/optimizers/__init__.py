@@ -1,5 +1,6 @@
 """apex_tpu_torch.optimizers — flat-buffer optimizers (counterpart of
-apex_tpu.optimizers; FusedAdam and the flat mapping so far)."""
+apex_tpu.optimizers; FusedAdam, FusedLAMB and the flat mapping so
+far)."""
 
 from apex_tpu_torch.optimizers.flat import (  # noqa: F401
     FlatSpec,
@@ -10,4 +11,9 @@ from apex_tpu_torch.optimizers.flat import (  # noqa: F401
 from apex_tpu_torch.optimizers.fused_adam import (  # noqa: F401
     FusedAdam,
     FusedAdamState,
+)
+from apex_tpu_torch.optimizers.fused_lamb import (  # noqa: F401
+    FusedLAMB,
+    FusedLAMBState,
+    FusedMixedPrecisionLamb,
 )

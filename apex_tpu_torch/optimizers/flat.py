@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Tuple
 
+import numpy as np
 import torch
 
 
@@ -126,3 +127,34 @@ def unflatten(flat, spec: FlatSpec, cast_to_leaf_dtype: bool = True):
     the dtypes agree, see `unflatten_leaves`)."""
     return tree_from_leaves(spec, unflatten_leaves(flat, spec,
                                                    cast_to_leaf_dtype))
+
+
+def per_leaf_scalars(tree, params, who: str) -> np.ndarray:
+    """A per-leaf scalar tree (bools or floats: the wd_mask of
+    `get_params_for_weight_decay_optimization`, per-leaf lr multipliers)
+    as an (n_leaves,) fp32 vector in the params' leaf order.  The tree's
+    key paths must be the params' exactly: a tree with the same number
+    of leaves under other keys would hand hyperparameters to the wrong
+    tensors."""
+    got = tree_leaves_with_paths(tree)
+    want = [path for path, _ in tree_leaves_with_paths(params)]
+    if [path for path, _ in got] != want:
+        raise ValueError(
+            f"{who}: per-leaf tree structure/leaves do not match the params "
+            f"tree ({[p for p, _ in got]} vs {want}): build it over the same "
+            "params tree")
+    return np.asarray([float(x) for _, x in got], np.float32)
+
+
+def resolve_per_leaf(wd_mask, lr_scales, weight_decay: float, params,
+                     who: str):
+    """(seg_wd, seg_lrs), fp32 vectors in leaf order: wd_mask leaves
+    multiply `weight_decay` (bool → 0/1), lr_scales leaves multiply the
+    learning rate; an absent tree gives the uniform value."""
+    n = len(tree_leaves(params))
+    seg_wd = (weight_decay * per_leaf_scalars(wd_mask, params, who)
+              if wd_mask is not None
+              else np.full((n,), weight_decay, np.float32))
+    seg_lrs = (per_leaf_scalars(lr_scales, params, who)
+               if lr_scales is not None else np.ones((n,), np.float32))
+    return seg_wd, seg_lrs

@@ -11,7 +11,7 @@ optimizer pass (`step_flat`) that updates the buffers in place.  No
 comes back as a device tensor.
 
 Data parallelism (dp-mean of the grads), tensor/pipeline parallelism
-and the mesh come with ROADMAP slices 3 and 4.
+and the mesh come with later ROADMAP slices.
 """
 
 from __future__ import annotations
@@ -25,6 +25,16 @@ from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
 from apex_tpu_torch.optimizers import flat as F
 
 
+def _to_device(tree, dev):
+    """A labels tree (a tensor, or tuples and lists of tensors) moved to
+    `dev`, as the JAX step takes a pytree of labels."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_device(t, dev) for t in tree)
+    return tree
+
+
 def init_sharded_optimizer(optimizer, model, params):
     """Optimizer state over the parameters (one device: nothing is
     sharded).  The state holds its own copy of `params`."""
@@ -35,9 +45,11 @@ def make_tp_dp_train_step(model, optimizer, *,
                           loss_fn: Optional[Callable] = None, device=None):
     """Returns step(opt_state, tokens, labels) -> (opt_state, loss).
 
-    `loss_fn(params, tokens, labels)` defaults to `model.loss`.  The
-    step runs on `device`: the card unless the caller asks for the CPU
-    (`device="cpu"`, the plain versions of the kernels)."""
+    `loss_fn(params, tokens, labels)` defaults to `model.loss`; `labels`
+    may be a tensor or a tuple or list of tensors (BERT passes
+    (mlm_labels, loss_mask, nsp_labels)), moved to the device as it is.
+    The step runs on `device`: the card unless the caller asks for the
+    CPU (`device="cpu"`, the plain versions of the kernels)."""
     dev = resolve_device(device)
     lf = loss_fn or model.loss
 
@@ -52,8 +64,11 @@ def make_tp_dp_train_step(model, optimizer, *,
         leaves = [leaf.detach().requires_grad_(True)
                   for leaf in F.unflatten_leaves(opt_state.params, spec)]
         params = F.tree_from_leaves(spec, leaves)
-        loss = lf(params, tokens.to(dev), labels.to(dev))
-        grads = torch.autograd.grad(loss, leaves)
+        loss = lf(params, tokens.to(dev), _to_device(labels, dev))
+        # a leaf the loss does not read (BERT's token types when none
+        # are given) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         dtypes = {g.dtype for g in grads}
         gdt = dtypes.pop() if len(dtypes) == 1 else torch.float32
         g_flat = F.flatten(list(grads), gdt, pad_to=FLAT_TILE,

@@ -10,7 +10,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  sources (nvcc for the CUDA C++, Triton's JIT).
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
-                 training paths give it, plus ragged cases.
+                 training paths give it, plus ragged cases: the
+                 segment-masked flash kernels at BERT's (32, 16, 512, 64)
+                 with ragged padding, causal, and whole masked rows; the
+                 LAMB kernels over the BERT-Large flat buffer in bf16 and
+                 fp32, with a found_inf step and per-tensor lr scales.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -31,7 +35,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  step through the kernels agrees with the same step
                  through the plain versions (full width, 2 layers,
                  batch 2).
-  6. table       the kernels' times on the card (CUDA events) beside
+  6. bert        the BERT-Large pretraining step at full width: bf16
+                 (seed-0 weights), batch 32 x seq 512, fp32 MLM logits,
+                 MLM + NSP, FusedLAMB(lr=1e-4, wd 0.01, master bf16) with
+                 the no-decay wd_mask, 5 steps on the bench's seeded
+                 batch; the loss is finite and falls, the launch counters
+                 prove every step ran 24 flash forwards and backwards,
+                 50 LayerNorm forwards and backwards, one LAMB phase 1,
+                 two per-tensor norms and one phase 2, with no host
+                 sync; sequences/s, peak memory and one profiled step;
+                 two steps of FusedLAMB without a mask (its phase 1
+                 without segments).  One step through the kernels agrees
+                 with the same step through the plain versions (full
+                 width, 2 layers, batch 2, ragged padding).
+  7. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -176,14 +193,25 @@ def ulp(torch, ref, dtype):
                        torch.frexp(ref.abs()).exponent - bits)
 
 
+def pad_segments(torch, b, s, lengths):
+    """BERT's segment ids for rows of `lengths` real tokens (cycled over
+    the batch): 1 for real tokens, 0 for pads."""
+    n = torch.tensor([lengths[i % len(lengths)] for i in range(b)],
+                     device="cuda")
+    return (torch.arange(s, device="cuda")[None, :] < n[:, None]).to(
+        torch.int32)
+
+
 def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
-                          packed=False):
+                          packed=False, q_seg=None, kv_seg=None):
     """Both flash kernels against the plain version (`attention_reference`
     and autograd through it) on one bf16 input.  packed=True lays q, k, v
     out as the training path does: strided views of one (S, B, 3H)
-    tensor.  Tolerance: 1e-2 of each output's largest magnitude (the
-    kernels round p and ds to bf16 before their products, as the TPU
-    kernels do; the plain version keeps them fp32); lse 1e-4."""
+    tensor.  q_seg / kv_seg: segment ids, (b, s) int32.  Tolerance: 1e-2
+    of each output's largest magnitude (the kernels round p and ds to
+    bf16 before their products, as the TPU kernels do; the plain version
+    keeps them fp32), and no NaN; lse 1e-4 on rows that see a key, and
+    below -1e29 on rows whose keys are all masked."""
     from apex_tpu_torch.ops.fused_dense import qkv_split_heads
     dev, bf16 = "cuda", torch.bfloat16
     if packed:
@@ -196,20 +224,27 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
         q, k, v, do = (torch.randn((b, h, s, d), generator=rng,
                                    device=dev).to(bf16) for _ in range(4))
     sc = 1.0 / math.sqrt(d)
-    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, q_seg, kv_seg)
     delta = torch.sum(do.float() * o.float(), dim=-1)
-    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, causal)
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, causal,
+                                   q_seg, kv_seg)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     o_ref = fa.attention_reference(qr, kr, vr, causal=causal,
-                                   softmax_scale=sc)
+                                   softmax_scale=sc, q_segment_ids=q_seg,
+                                   kv_segment_ids=kv_seg)
     o_ref.backward(do)
     with torch.no_grad():
         sco = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sc
+        keep = torch.ones((1, 1, s, s), dtype=torch.bool, device=dev)
+        if q_seg is not None:
+            keep = keep & (q_seg[:, None, :, None] == kv_seg[:, None, None, :])
         if causal:
-            sco = sco.masked_fill(torch.ones(
-                (s, s), dtype=torch.bool, device=dev).triu(1), -1e30)
+            keep = keep & torch.ones((s, s), dtype=torch.bool,
+                                     device=dev).tril()
+        sco = sco.masked_fill(~keep, -1e30)
         lse_ref = torch.logsumexp(sco, dim=-1)
-        del sco
+        live = keep.any(dim=-1).expand_as(lse_ref)      # rows that see a key
+        del sco, keep
     torch.cuda.synchronize()
     errs = {}
     for name, got, ref in (("o", o, o_ref), ("dq", dq, qr.grad),
@@ -222,8 +257,10 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
               f"flash {name} ({b},{h},{s},{d}) causal={causal}: max err "
               f"{err:.3e} of max {scale:.3e}")
         errs[name] = err
-    errs["lse"] = (lse - lse_ref).abs().max().item()
+    errs["lse"] = (lse - lse_ref).abs()[live].max().item()
     check(errs["lse"] <= 1e-4, f"flash lse max err {errs['lse']:.3e}")
+    check(bool((lse[~live] < -1e29).all()), "flash lse of a fully masked row")
+    errs["dead_rows"] = int((~live).sum().item())
     return errs
 
 
@@ -255,6 +292,113 @@ def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype):
         check(e <= 1e-5 * ref.abs().max().item(),
               f"layer_norm bwd {name} ({rows},{hidden}): max err {e:.3e}")
     return err.max().item()
+
+
+def bert_large_layout(torch):
+    """The BERT-Large flat layout as FusedLAMB lays it out (lane-aligned
+    spec, FLAT_TILE-padded length) and the no-decay recipe's per-tensor
+    weight decay, from the seed-0 model."""
+    from apex_tpu_torch.models.bert import BertConfig, init_bert_params
+    from apex_tpu_torch.ops import optimizer_kernels as ok
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+
+    params = init_bert_params(BertConfig(dtype=torch.bfloat16,
+                                         use_flash_attention=True))
+    spec = F.make_spec(params, align=128)
+    n = -(-spec.total // ok.FLAT_TILE) * ok.FLAT_TILE
+    seg_wd, _ = F.resolve_per_leaf(
+        get_params_for_weight_decay_optimization(params), None, 0.01,
+        params, "chip_smoke")
+    check((len(spec.sizes), sum(spec.sizes), n, int((seg_wd > 0).sum()))
+          == (301, 336_201_730, 336_265_216, 102),
+          "BERT-Large flat layout drifted")
+    return spec, n, seg_wd
+
+
+def check_lamb(torch, ok, rng, spec, n, seg_wd, dtype):
+    """The four LAMB kernels against their plain versions on one
+    BERT-Large flat buffer in `dtype` (zero padding, as FusedLAMB lays it
+    out; bf16 grads): phase 1 with per-tensor wd, then a found_inf step
+    (an inf grad: m and v kept bit for bit); phase 1 with one wd; the
+    per-tensor sums of squares of p and u; phase 2 with the trust ratios
+    of this p and u times per-tensor lr scales.  Tolerance: one ulp of
+    `dtype` (the kernels evaluate the plain versions' operations one by
+    one, without fma contraction); the sums rtol 1e-5.  Returns the
+    largest errors by kernel."""
+    dev = "cuda"
+    real = torch.zeros(n, dtype=torch.bool, device=dev)
+    for off, size in zip(spec.offsets, spec.sizes):
+        real[off:off + size] = True
+
+    def buf(scale, dt=dtype, absval=False):
+        x = torch.randn((n,), generator=rng, device=dev) * scale
+        return torch.where(real, x.abs() if absval else x, 0.0).to(dt)
+
+    p, m, v = buf(0.05), buf(0.01), buf(1e-4, absval=True)
+    g = buf(1.0, torch.bfloat16)
+    del real
+    seg = ok.segment_tables(spec, n // 128, dev)["seg"]
+    wdt = ok._table(seg_wd, dev)
+    errs = {}
+
+    def close(name, got, ref):
+        err = (got.float() - ref.float()).abs()
+        check(bool((err <= ulp(torch, ref.float(), dtype)).all()),
+              f"{name} {dtype}: max err {err.max().item():.3e}")
+        errs[name] = max(errs.get(name, 0.0), err.max().item())
+
+    for found in (False, True):
+        gg = g.clone()
+        if found:
+            gg[12345] = float("inf")
+        sc = ok._lamb_fold_scalars(0.8, 3, 0.9, 0.999, True, True, 1.0,
+                                   found, device=dev)
+        ref = ok._lamb_phase1_reference(m, v, gg, p, sc, 1e-6,
+                                        wd_rows=wdt[seg.long()])
+        got = ok.lamb_phase1_seg_triton(m.clone(), v.clone(), gg, p, sc,
+                                        1e-6, seg, wdt)
+        torch.cuda.synchronize()
+        for a, r in zip(got, ref):
+            close("lamb_phase1_seg", a, r)
+        if found:
+            check(torch.equal(got[0], m) and torch.equal(got[1], v),
+                  "lamb phase 1: a found_inf step moved m or v")
+        del gg, ref, got
+    sc = ok._lamb_fold_scalars(1.0, 7, 0.9, 0.999, True, False, 0.5, False,
+                               device=dev)
+    ref = ok._lamb_phase1_reference(m, v, g, p, sc, 1e-6, weight_decay=0.01)
+    got = ok.lamb_phase1_triton(m.clone(), v.clone(), g, p, sc, 1e-6, 0.01)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        close("lamb_phase1", a, r)
+    u = got[2]
+    del ref, got, m, v, g
+    sums = []
+    for x in (p, u):
+        got = ok.rows_sumsq_seg_triton(x, spec)
+        ref = ok._rows_sumsq_reference(x, spec)
+        torch.cuda.synchronize()
+        rel = ((got - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+        check(rel <= 1e-5, f"rows_sumsq_seg {dtype}: max rel err {rel:.3e}")
+        errs["rows_sumsq_seg"] = max(errs.get("rows_sumsq_seg", 0.0),
+                                     (got - ref).abs().max().item())
+        errs["rows_sumsq_seg_rel"] = max(
+            errs.get("rows_sumsq_seg_rel", 0.0), rel)
+        sums.append(got)
+    wn, un = torch.sqrt(sums[0]), torch.sqrt(sums[1])
+    scales = 0.5 + torch.rand(wn.shape, generator=rng, device=dev)
+    ratio = torch.where((wn > 0) & (un > 0), wn / un.clamp_min(1e-12),
+                        1.0) * scales
+    rt = ok._table(ratio, dev)
+    lr = torch.full((), 1e-2, device=dev)
+    ref = ok._lamb_phase2_reference(p, u, rt[seg.long()], lr)
+    got = ok.lamb_phase2_seg_triton(p.clone(), u, seg, rt, lr)
+    torch.cuda.synchronize()
+    close("lamb_phase2_seg", got, ref)
+    check(bool((got[spec.total:] == 0).all()), "lamb phase 2 moved padding")
+    return errs
 
 
 def check_adam(torch, ok, rng, n, dtype, weight_decay):
@@ -324,17 +468,25 @@ def profile_decode(torch, np, build_flagship_engine, params, steps=4):
                                         for k, v in top}}
 
 
+def training_kernels(fa, ln, ok):
+    return {"flash_attention_fwd": fa.flash_fwd_cuda,
+            "flash_attention_bwd": fa.flash_bwd_cuda,
+            "layer_norm_fwd": ln.norm_fwd_triton,
+            "layer_norm_bwd": ln.norm_bwd_triton,
+            "adam": ok.adam_flat_triton,
+            "lamb_phase1": ok.lamb_phase1_triton,
+            "lamb_phase1_seg": ok.lamb_phase1_seg_triton,
+            "rows_sumsq_seg": ok.rows_sumsq_seg_triton,
+            "lamb_phase2_seg": ok.lamb_phase2_seg_triton}
+
+
 def kernel_counts(fa, ln, ok):
-    return {"flash_attention_fwd": fa.flash_fwd_cuda.launches,
-            "flash_attention_bwd": fa.flash_bwd_cuda.launches,
-            "layer_norm_fwd": ln.norm_fwd_triton.launches,
-            "layer_norm_bwd": ln.norm_bwd_triton.launches,
-            "adam": ok.adam_flat_triton.launches}
+    return {name: fn.launches
+            for name, fn in training_kernels(fa, ln, ok).items()}
 
 
 def reset_kernel_counts(fa, ln, ok):
-    for fn in (fa.flash_fwd_cuda, fa.flash_bwd_cuda, ln.norm_fwd_triton,
-               ln.norm_bwd_triton, ok.adam_flat_triton):
+    for fn in training_kernels(fa, ln, ok).values():
         fn.launches = 0
 
 
@@ -348,11 +500,72 @@ def device_time_by_kernel(torch, prof):
     return kernels
 
 
+def step_without_sync(torch, step, state, *args):
+    """One training step in which no call may synchronize the host with
+    the card (torch's sync debug mode warns on each one it detects).
+    Returns the new state and the places that synchronized (none, or
+    the phase fails)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = step(state, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchronizing CUDA operation" in str(w.message)]
+    check(not syncs, f"the training step synchronized with the card at "
+          f"{syncs}")
+    return state, syncs
+
+
+def profile_step(torch, step, state, args, names):
+    """One training step under torch.profiler: wall and device time, the
+    busy share, the GEMMs, the ATen glue, the port's kernels (`names`
+    maps a row name to a match on the profiler's kernel names), the top
+    kernels and ATen ops.  Returns the new state and that line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, _ = step(state, *args)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t1)
+    kernels = device_time_by_kernel(torch, prof)
+    busy = sum(kernels.values())
+    check(busy > 0, "the profiled training step shows no device time")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    ours = {name: sum(t for k, t in kernels.items() if match(k)) / 1e3
+            for name, match in names.items()}
+
+    def is_gemm(k):
+        return any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
+                                            "cutlass"))
+
+    gemm = sum(t for k, t in kernels.items() if is_gemm(k)) / 1e3
+    aten = sum(t for k, t in kernels.items()
+               if "at::native" in k and not is_gemm(k)) / 1e3
+    # the ATen ops whose own kernels take the most device time
+    ops = sorted(((e.key, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::")
+                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    return state, {
+        "wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+        "device_busy_share": busy / wall_us,
+        "gemm_ms": gemm, "aten_elementwise_reduce_copy_ms": aten,
+        "kernels_ms": ours,
+        "other_ms": busy / 1e3 - gemm - aten - sum(ours.values()),
+        "top_kernels_ms": {k[:90]: v / 1e3 for k, v in top},
+        "top_aten_ops_ms": {k: v / 1e3 for k, v in ops[:15]}}
+
+
 def train_phase(torch, fa, ln, ok, steps=5):
     """The training step at full width (module docstring, phase 5).
     Returns the measurements and the per-step launch counts."""
-    from torch.profiler import ProfilerActivity, profile
-
     from apex_tpu_torch.models import gpt as gpt_mod
     from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.transformer.training import (
@@ -405,61 +618,16 @@ def train_phase(torch, fa, ln, ok, steps=5):
               f"{name}: {counts[name]} launches in {steps} steps, want "
               f"{n} per step")
 
-    # one step in which no call may synchronize the host with the card
-    # (torch's sync debug mode warns on each one it detects)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state, loss = step(state, tokens, labels)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-             if "synchronizing CUDA operation" in str(w.message)]
-    check(not syncs, f"the training step synchronized with the card at "
-          f"{syncs}")
-
-    # one profiled step
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        state, loss = step(state, tokens, labels)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t1)
-    kernels = device_time_by_kernel(torch, prof)
-    busy = sum(kernels.values())
-    check(busy > 0, "the profiled training step shows no device time")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
              "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
                                                "_bwd_finish_kernel"),
              "adam": lambda k: k == "_adam_kernel"}
-    ours = {name: sum(t for k, t in kernels.items() if match(k)) / 1e3
-            for name, match in names.items()}
-    def is_gemm(k):
-        return any(w in k.lower() for w in ("gemm", "nvjet", "xmma",
-                                            "cutlass"))
-
-    gemm = sum(t for k, t in kernels.items() if is_gemm(k)) / 1e3
-    aten = sum(t for k, t in kernels.items()
-               if "at::native" in k and not is_gemm(k)) / 1e3
-    # the ATen ops whose own kernels take the most device time
-    ops = sorted(((e.key, e.self_device_time_total)
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CPU
-                  and e.key.startswith("aten::")
-                  and e.self_device_time_total > 0), key=lambda kv: -kv[1])
-    profile_line = {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
-                    "device_busy_share": busy / wall_us,
-                    "gemm_ms": gemm, "aten_elementwise_reduce_copy_ms": aten,
-                    "kernels_ms": ours,
-                    "other_ms": busy / 1e3 - gemm - aten - sum(ours.values()),
-                    "top_kernels_ms": {k[:90]: v / 1e3 for k, v in top},
-                    "top_aten_ops_ms": {k: v / 1e3 for k, v in ops[:15]}}
-    del state, opt, step, loss, prof
+    state, profile_line = profile_step(torch, step, state, (tokens, labels),
+                                       names)
+    del state, opt, step
     torch.cuda.empty_cache()
     result = {
         "config": "GPT-350M bf16, batch 12 x seq 1024, bf16 logits, "
@@ -560,6 +728,395 @@ def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
     return line
 
 
+BERT_BATCH, BERT_SEQ = 32, 512
+
+
+def bert_data(torch, cfg, batch):
+    """The bench's BERT batch (`bench.py:319-324`), each part from its own
+    seeded generator: random tokens, MLM labels = tokens rolled by -1, a
+    Bernoulli(0.15) loss mask, random NSP labels."""
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.seq_len),
+                           generator=gen(1), device="cuda",
+                           dtype=torch.int32)
+    mlm = torch.roll(tokens, -1, dims=1)
+    mask = torch.rand((batch, cfg.seq_len), generator=gen(2),
+                      device="cuda") < 0.15
+    nsp = torch.randint(0, 2, (batch,), generator=gen(3), device="cuda",
+                        dtype=torch.int32)
+    return tokens, (mlm, mask, nsp)
+
+
+def bert_phase(torch, fa, ln, ok, steps=5):
+    """The BERT-Large pretraining step at full width (module docstring,
+    phase 6), then two steps of the same model with FusedLAMB without a
+    wd_mask (the optimizer's unmasked path).  Returns the measurements,
+    the per-step launch counts and the kernel-vs-plain comparison."""
+    from apex_tpu_torch.models import bert as bert_mod
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16,
+                              use_flash_attention=True)
+    check((cfg.vocab_size, cfg.hidden, cfg.num_layers, cfg.num_heads,
+           cfg.logits_dtype) == (30528, 1024, 24, 16, None),
+          "BERT-Large configuration drifted")
+    model = bert_mod.Bert(cfg)
+
+    def loss_fn(p, t, lab):
+        return model.loss(p, t, lab[0], lab[1], lab[2])
+
+    params = model.init(seed=0)
+    opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16,
+                    wd_mask=get_params_for_weight_decay_optimization(params))
+    state = init_sharded_optimizer(opt, model, params)
+    del params
+    n_params = sum(opt.spec.sizes)
+    step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+    tokens, labels = bert_data(torch, cfg, BERT_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    losses = []
+    t_first = time.perf_counter()
+    state, loss = step(state, tokens, labels)     # builds the LAMB kernels
+    losses.append(loss)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t_first
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = step(state, tokens, labels)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    counts = kernel_counts(fa, ln, ok)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    log(f"bert losses {losses}")
+    check(all(math.isfinite(x) for x in losses), "a BERT loss is not finite")
+    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    check(int(state.step) == steps, f"LAMB step {int(state.step)}")
+    per_step = {"flash_attention_fwd": cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers,
+                "layer_norm_fwd": 2 * cfg.num_layers + 2,
+                "layer_norm_bwd": 2 * cfg.num_layers + 2,
+                "adam": 0, "lamb_phase1": 0, "lamb_phase1_seg": 1,
+                "rows_sumsq_seg": 2, "lamb_phase2_seg": 1}
+    for name, k in per_step.items():
+        check(counts[name] == k * steps,
+              f"bert {name}: {counts[name]} launches in {steps} steps, "
+              f"want {k} per step")
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "lamb_phase1_seg": lambda k: k == "_lamb_phase1_kernel",
+             "rows_sumsq_seg": lambda k: k in ("_sumsq_items_kernel",
+                                               "_sumsq_segments_kernel"),
+             "lamb_phase2_seg": lambda k: k == "_lamb_phase2_seg_kernel"}
+    state, profile_line = profile_step(torch, step, state, (tokens, labels),
+                                       names)
+    del state, opt, step
+
+    # the unmasked optimizer path: FusedLAMB without wd_mask, two steps
+    opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, model.init(seed=0))
+    step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+    reset_kernel_counts(fa, ln, ok)
+    for _ in range(2):
+        state, loss = step(state, tokens, labels)
+    torch.cuda.synchronize()
+    unmasked = kernel_counts(fa, ln, ok)
+    check(unmasked["lamb_phase1"] == 2 and unmasked["lamb_phase1_seg"] == 0
+          and unmasked["rows_sumsq_seg"] == 4
+          and unmasked["lamb_phase2_seg"] == 2,
+          f"unmasked FusedLAMB launches {unmasked}")
+    check(math.isfinite(float(loss)), "unmasked LAMB loss is not finite")
+    del state, opt, step, loss
+    torch.cuda.empty_cache()
+    result = {
+        "config": "BERT-Large bf16 (V 30528, H 1024, L 24, 16 heads), "
+                  "batch 32 x seq 512, fp32 MLM logits, MLM + NSP, "
+                  "FusedLAMB(lr=1e-4, wd 0.01, master bf16, no-decay "
+                  "wd_mask)",
+        "params": n_params, "steps": steps, "losses": losses,
+        "first_step_s": first_s,
+        "step_ms": 1e3 * window_s / (steps - 1),
+        "seq_per_s": BERT_BATCH * (steps - 1) / window_s,
+        "tokens_per_s": BERT_BATCH * BERT_SEQ * (steps - 1) / window_s,
+        "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
+        "launches": counts, "launches_per_step": per_step,
+        "unmasked_lamb_launches_2_steps": unmasked,
+        "profile": profile_line}
+    return result, compare_bert_step(torch, fa, ln, ok, bert_mod, cfg,
+                                     tokens[:2], tuple(t[:2] for t in labels))
+
+
+def compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, tokens, labels):
+    """One full-width BERT step of a 2-layer model at batch 2 with a
+    ragged padding mask (512 and 300 real tokens), through the kernels
+    and through their plain versions (swapped in for the run), from the
+    same seed-0 weights and FusedLAMB with the no-decay mask.  Compares
+    the loss, each leaf's gradient (relative L2 error) and the updated
+    flat params."""
+    import dataclasses
+
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    model = bert_mod.Bert(cfg2)
+    params = model.init(seed=0)
+    pad = pad_segments(torch, 2, cfg.seq_len, [cfg.seq_len, 300]) == 0
+
+    def loss_fn(p, t, lab):
+        return model.loss(p, t, lab[0], lab[1], lab[2], pad_mask=pad)
+
+    def plain_flash(q, k, v, *, softmax_scale, segment_ids):
+        return fa.attention_reference(q, k, v, softmax_scale=softmax_scale,
+                                      q_segment_ids=segment_ids,
+                                      kv_segment_ids=segment_ids)
+
+    def plain_phase1_seg(m, v, g, p, scalars, eps, seg, wdt):
+        mn, vn, u = ok._lamb_phase1_reference(m, v, g, p, scalars, eps,
+                                              wd_rows=wdt[seg.long()])
+        m.copy_(mn)
+        v.copy_(vn)
+        return m, v, u
+
+    def plain_phase2_seg(p, u, seg, rt, lr):
+        return p.copy_(ok._lamb_phase2_reference(p, u, rt[seg.long()], lr))
+
+    swaps = [(bert_mod, "flash_attention", plain_flash),
+             (bert_mod, "fused_layer_norm", ln.layer_norm_reference),
+             (ok, "lamb_phase1_seg_triton", plain_phase1_seg),
+             (ok, "rows_sumsq_seg_triton", ok._rows_sumsq_reference),
+             (ok, "lamb_phase2_seg_triton", plain_phase2_seg)]
+
+    def run(plain):
+        opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=cfg.dtype,
+                        wd_mask=get_params_for_weight_decay_optimization(
+                            params))
+        state = init_sharded_optimizer(opt, model, params)
+        seen = {}
+        step_flat = opt.step_flat
+
+        def capture(st, g_flat, **kw):
+            seen["g"] = g_flat.clone()
+            return step_flat(st, g_flat, **kw)
+
+        opt.step_flat = capture
+        step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        if plain:
+            for mod, name, fn in swaps:
+                setattr(mod, name, fn)
+        try:
+            state, loss = step(state, tokens, labels)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        return float(loss), seen["g"], state.params, opt.spec
+
+    before = kernel_counts(fa, ln, ok)
+    loss_p, g_p, p_p, spec = run(plain=True)
+    check(kernel_counts(fa, ln, ok) == before,
+          "the plain BERT step launched a kernel")
+    loss_k, g_k, p_k, _ = run(plain=False)
+    torch.cuda.synchronize()
+    grad_rel = {}
+    for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
+        a = g_k[off:off + size].float()
+        r = g_p[off:off + size].float()
+        if r.norm().item() > 0:        # token types: unused, zero grads
+            grad_rel["/".join(path)] = ((a - r).norm() / r.norm()).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    dp = (p_k.float() - p_p.float()).abs()
+    line = {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
+            "grad_rel_l2_median": sorted(grad_rel.values())[
+                len(grad_rel) // 2],
+            "param_max_abs_diff": dp.max().item(),
+            "param_frac_differ": (dp > 0).float().mean().item()}
+    log("bert step, kernels vs plain versions " + json.dumps(line))
+    # as for the GPT step (phase 5): bf16 roundings in other places move
+    # the loss by ~1e-5 and each gradient by < 1 %; one LAMB step moves a
+    # weight by about lr x its tensor's RMS (lr itself for a zero bias),
+    # so the two updated buffers may differ by 2 lr plus one bf16 ulp
+    check(line["loss_rel_diff"] <= 1e-3, "bert step loss: kernels vs plain")
+    check(line["grad_rel_l2_max"] <= 3e-2,
+          f"bert step grads: kernels vs plain ({worst})")
+    check(line["param_max_abs_diff"] <= 2 * 1e-4 + 2 ** -9,
+          "bert step params: kernels vs plain")
+    return line
+
+
+def table_row(name, launches, per_step, err, route, source, replaces, ms,
+              plain_ms, library_ms, library, bytes_, ops, shape):
+    """One row of the kernel table.  The bound is the larger of the bytes
+    at the card's memory rate and the operations at its peak for their
+    type (bf16 tensor cores for flash attention, fp32 otherwise)."""
+    by_bytes = bytes_ / HBM_BYTES_PER_S
+    by_ops = ops / (BF16_FLOPS if name.startswith("flash") else FP32_FLOPS)
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_per_train_step": per_step, "max_abs_err": err,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms, "library": library, "shape": shape,
+            "l2": "warm"}
+
+
+def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
+    """Phase 7 rows of the BERT step's new kernels at the step's shapes:
+    the segment-masked flash kernels at (32, 16, 512, 64) on q, k, v
+    views of the packed qkv with BERT's ragged padding (512, 300, 129
+    and 1 real tokens, cycled), and the LAMB kernels over the BERT-Large
+    flat buffer in bf16.  Launches: the BERT phase's five steps, and for
+    `lamb_phase1` the two unmasked FusedLAMB steps.  Flash bounds count
+    the score pairs the segments leave (a query and a key of one
+    segment); the LAMB phases have no single library call (null)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+
+    bf16, dev = torch.bfloat16, "cuda"
+    launches, per_step = bert["launches"], bert["launches_per_step"]
+    launches = dict(launches, lamb_phase1=bert[
+        "unmasked_lamb_launches_2_steps"]["lamb_phase1"])
+    per_step = dict(per_step, lamb_phase1=1)
+    rows = []
+
+    def row(name, kernel, *args):
+        rows.append(table_row(name, launches[kernel], per_step[kernel],
+                              errs[name], *args))
+
+    b, h, s, d = BERT_BATCH, 16, BERT_SEQ, 64
+    lengths = [512, 300, 129, 1]
+    sc = 1.0 / math.sqrt(d)
+    qkv = torch.randn((s, b, 3 * h * d), generator=rng, device=dev).to(bf16)
+    q, k, v = qkv_split_heads(qkv, h, d)
+    do = torch.randn((s, b, h, d), generator=rng,
+                     device=dev).to(bf16).permute(1, 2, 0, 3)
+    seg = pad_segments(torch, b, s, lengths)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, False, seg, seg)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    n_real = seg.sum(dim=1).long()
+    pairs = h * int((n_real ** 2 + (s - n_real) ** 2).sum().item())
+    io, el = b * h * s * d * 2, 2
+    mask = seg[:, None, :, None] == seg[:, None, None, :]
+    shape = ("q,k,v (32,16,512,64) bf16 views of qkv (512,32,3072), "
+             "segment ids (32,512): 512/300/129/1 real tokens")
+    fwd_ms = time_ms(torch, lambda: fa.flash_fwd_cuda(q, k, v, sc, False,
+                                                      seg, seg))
+    fwd_plain = time_ms(torch, lambda: fa.attention_reference(
+        q, k, v, softmax_scale=sc, q_segment_ids=seg, kv_segment_ids=seg),
+        n=10)
+    fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sc))
+    row("flash_attention_fwd_seg", "flash_attention_fwd", "cuda",
+        "apex_tpu_torch/csrc/flash_attention.cu",
+        "apex_tpu/ops/flash_attention.py:289", fwd_ms, fwd_plain, fwd_lib,
+        "scaled_dot_product_attention(attn_mask=boolean segment mask)",
+        4 * io + b * h * s * 4 + 2 * b * s * 4, 4 * pairs * d, shape)
+    bwd_ms = time_ms(torch, lambda: fa.flash_bwd_cuda(
+        q, k, v, do, lse, delta, sc, False, seg, seg))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fa.attention_reference(qg, kg, vg, softmax_scale=sc,
+                                 q_segment_ids=seg, kv_segment_ids=seg)
+    bwd_plain = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), n=10)
+    del out
+    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                         scale=sc)
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del out, qg, kg, vg
+    row("flash_attention_bwd_seg", "flash_attention_bwd", "cuda",
+        "apex_tpu_torch/csrc/flash_attention.cu",
+        "apex_tpu/ops/flash_attention.py:564", bwd_ms, bwd_plain, bwd_lib,
+        "scaled_dot_product_attention backward (autograd), boolean mask",
+        7 * io + 2 * b * h * s * 4 + 2 * b * s * 4, 10 * pairs * d,
+        shape + ", do a permuted view; delta outside the kernel")
+    del qkv, q, k, v, do, o, lse, delta, mask
+    torch.cuda.empty_cache()
+
+    spec, n, seg_wd = layout
+    tabs = ok.segment_tables(spec, n // 128, dev)
+    segr, wdt = tabs["seg"], ok._table(seg_wd, dev)
+    p = (torch.randn((n,), generator=rng, device=dev) * 0.05).to(bf16)
+    m = (torch.randn((n,), generator=rng, device=dev) * 0.01).to(bf16)
+    vv = (torch.randn((n,), generator=rng, device=dev).abs()
+          * 1e-4).to(bf16)
+    g = torch.randn((n,), generator=rng, device=dev).to(bf16)
+    scal = ok._lamb_fold_scalars(0.8, 3, 0.9, 0.999, True, True, 1.0, False,
+                                 device=dev)
+    shape = f"m, v, g, p ({n},) bf16: the BERT-Large flat buffer"
+    tables = segr.numel() * 4 + wdt.numel() * 4 + 8 * 4
+    p1s_ms = time_ms(torch, lambda: ok.lamb_phase1_seg_triton(
+        m, vv, g, p, scal, 1e-6, segr, wdt), n=20)
+    p1s_plain = time_ms(torch, lambda: ok._lamb_phase1_reference(
+        m, vv, g, p, scal, 1e-6, wd_rows=wdt[segr.long()]), n=10)
+    row("lamb_phase1_seg", "lamb_phase1_seg", "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:530", p1s_ms, p1s_plain, None,
+        None, 14 * n + tables, 16 * n,
+        shape + "; per-tensor wd by row (no-decay mask)")
+    p1_ms = time_ms(torch, lambda: ok.lamb_phase1_triton(
+        m, vv, g, p, scal, 1e-6, 0.01), n=20)
+    p1_plain = time_ms(torch, lambda: ok._lamb_phase1_reference(
+        m, vv, g, p, scal, 1e-6, weight_decay=0.01), n=10)
+    row("lamb_phase1", "lamb_phase1", "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:510", p1_ms, p1_plain, None,
+        None, 14 * n + 8 * 4, 15 * n, shape + "; one wd 0.01")
+    u = ok.lamb_phase1_triton(m, vv, g, p, scal, 1e-6, 0.01)[2]
+    del m, vv, g
+    views = [p[off:off + size] for off, size in zip(spec.offsets,
+                                                    spec.sizes)]
+    items = tabs["item_lo"].numel()
+    ss_ms = time_ms(torch, lambda: ok.rows_sumsq_seg_triton(p, spec))
+    ss_plain = time_ms(torch, lambda: ok._rows_sumsq_reference(p, spec),
+                       n=10)
+    ss_lib = time_ms(torch, lambda: torch._foreach_norm(views))
+    row("rows_sumsq_seg", "rows_sumsq_seg", "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:887", ss_ms, ss_plain, ss_lib,
+        "torch._foreach_norm over the 301 leaf views",
+        2 * n + 8 * items + 4 * (len(spec.sizes) + 1)
+        + 4 * len(spec.sizes), 2 * n,
+        f"x ({n},) bf16 -> (301,) fp32; {items} work items")
+    rows[-1]["max_rel_err"] = errs["rows_sumsq_seg_rel"]
+    ratio = ok._table(torch.rand(len(spec.sizes), generator=rng,
+                                 device=dev) + 0.5, dev)
+    lr = torch.full((), 1e-6, device=dev)
+    p2_ms = time_ms(torch, lambda: ok.lamb_phase2_seg_triton(
+        p, u, segr, ratio, lr), n=20)
+    p2_plain = time_ms(torch, lambda: ok._lamb_phase2_reference(
+        p, u, ratio[segr.long()], lr), n=10)
+    row("lamb_phase2_seg", "lamb_phase2_seg", "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:695", p2_ms, p2_plain, None,
+        None, 6 * n + segr.numel() * 4 + ratio.numel() * 4 + 4, 3 * n,
+        f"p, u ({n},) bf16; per-tensor ratio by row")
+    del p, u, views
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
     """Phase 6 rows of the training path's kernels, at the step's shapes
     and layouts, warm L2 (every operand set but the LayerNorm's is larger
@@ -574,20 +1131,9 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
     dev = "cuda"
     rows = []
 
-    def row(name, route, source, replaces, ms, plain_ms, library_ms,
-            library, bytes_, ops, shape):
-        by_bytes = bytes_ / HBM_BYTES_PER_S
-        by_ops = ops / (BF16_FLOPS if name.startswith("flash")
-                        else FP32_FLOPS)
-        rows.append({
-            "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_per_train_step": per_step[name],
-            "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": 1e3 * max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms, "library": library, "shape": shape,
-            "l2": "warm"})
+    def row(name, *args):
+        rows.append(table_row(name, launches[name], per_step[name],
+                              errs[name], *args))
 
     # flash attention: q, k, v strided views of the packed qkv, do a
     # permuted view, as the step gives them
@@ -790,6 +1336,45 @@ def main():
     log(f"adam ({n_flat},) bf16: max err {errs['adam']:.3e}; "
         f"(1000003,) fp32 AdamW: {e:.3e}")
     torch.cuda.empty_cache()
+    # the BERT path: segment-masked flash at the step's shape (packed
+    # views, ragged padding), causal on top, rows with every key masked,
+    # and small ragged shapes; then the LAMB kernels
+    bseg = pad_segments(torch, BERT_BATCH, BERT_SEQ, [512, 300, 129, 1])
+    e = check_flash_attention(torch, fa, rng, b=BERT_BATCH, h=16,
+                              s=BERT_SEQ, d=64, causal=False, packed=True,
+                              q_seg=bseg, kv_seg=bseg)
+    errs["flash_attention_fwd_seg"] = e["o"]
+    errs["flash_attention_bwd_seg"] = max(e["dq"], e["dk"], e["dv"])
+    log(f"flash_attention segments (32,16,512,64), packed: {e}")
+    e = check_flash_attention(torch, fa, rng, b=BERT_BATCH, h=16,
+                              s=BERT_SEQ, d=64, causal=True, q_seg=bseg,
+                              kv_seg=bseg)
+    log(f"flash_attention segments + causal (32,16,512,64): {e}")
+    gq = torch.Generator(device="cuda").manual_seed(5)
+    qs = torch.randint(0, 4, (BERT_BATCH, BERT_SEQ), generator=gq,
+                       device="cuda", dtype=torch.int32)
+    ks = torch.randint(0, 3, (BERT_BATCH, BERT_SEQ), generator=gq,
+                       device="cuda", dtype=torch.int32)
+    e = check_flash_attention(torch, fa, rng, b=BERT_BATCH, h=16,
+                              s=BERT_SEQ, d=64, causal=False, q_seg=qs,
+                              kv_seg=ks)
+    check(e["dead_rows"] > 0, "no fully masked row in the q/kv id case")
+    log(f"flash_attention q/kv segment ids, whole rows masked: {e}")
+    for b_, s_, d_, causal, lens in ((2, 200, 64, False, [200, 77]),
+                                     (3, 129, 128, True, [129, 64, 1])):
+        sg = pad_segments(torch, b_, s_, lens)
+        e = check_flash_attention(torch, fa, rng, b=b_, h=3, s=s_, d=d_,
+                                  causal=causal, q_seg=sg, kv_seg=sg)
+        log(f"flash_attention segments ({b_},3,{s_},{d_}) causal={causal} "
+            f"lengths {lens}: {e}")
+    del bseg, qs, ks
+    layout = bert_large_layout(torch)
+    for dtype in (bf16, f32):
+        e = check_lamb(torch, ok, rng, *layout, dtype)
+        log(f"lamb ({layout[1]},) {dtype}: max errs {e}")
+        if dtype == bf16:
+            errs.update(e)
+    torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------
     eng = build_flagship_engine()
@@ -906,7 +1491,12 @@ def main():
     log("train " + json.dumps(train))
     torch.cuda.empty_cache()
 
-    # ---- 6. kernel table ---------------------------------------------
+    # ---- 6. the BERT-Large step at full width -------------------------
+    bert, bert_vs_plain = bert_phase(torch, fa, ln, ok)
+    log("bert " + json.dumps(bert))
+    torch.cuda.empty_cache()
+
+    # ---- 7. kernel table ---------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -972,6 +1562,7 @@ def main():
     train_rows = table_train_kernels(torch, fa, ln, ok, rng, errs,
                                      train["launches"],
                                      train["launches_per_step"])
+    bert_rows = table_bert_kernels(torch, fa, ok, rng, errs, bert, layout)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -998,12 +1589,14 @@ def main():
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ] + train_rows}
-    check(all(math.isfinite(r[key]) for r in table["kernels"]
+    ] + train_rows + bert_rows}
+    check(all(r[key] is None and key == "library_ms"
+              or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
           "a timing is not finite")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log("train step, kernels vs plain " + json.dumps(train_vs_plain))
+    log("bert step, kernels vs plain " + json.dumps(bert_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,17 @@ median of 60 CUDA-event timings, every variant twice, in turns.
   float4    lanes t and t^1 trade fragment halves; 4-wide atomics
   none      dq is not written: a wrong result, timing only
 
+Then the segment-masked kernels (BERT's padding mask) at the BERT step's
+shape (b 32, h 16, s 512, d 64, not causal; q, k, v views of the packed
+qkv), forward and backward, with the segment ids of the BERT step's
+batch (every token real) and of a ragged one (512, 300, 129 and 1 real
+tokens), in turns:
+
+  shipped        a warp whose tile is one segment skips the per-score
+                 id compares (the source as it stands)
+  seg_per_score  every tile compares ids per score (the warp vote
+                 replaced by "no")
+
 The card's name and power limit come first, the times last.  Fails
 without CUDA.
 """
@@ -62,6 +73,9 @@ FLOAT4 = """    const bool even = (t4 & 1) == 0;
       if (qrow < sq) atomicAdd(reinterpret_cast<float4*>(dqg + n * 8), val);
     }
 """
+# the warp vote of the segment fast path, and its "never" variant
+VOTE = "  return __all_sync(kFull, same);"
+NO_VOTE = "  return false;"
 NONE = """    float keep = 0.f;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
@@ -88,9 +102,11 @@ def main():
     with open(csrc.source_path("flash_attention")) as f:
         src = f.read()
     i, j = src.index(SHIPPED_BEGIN), src.index(SHIPPED_END)
+    cs.check(src.count(VOTE) == 1, "the segment vote is not in the source")
     variants = {"shipped": src, "scalar": src[:i] + SCALAR + src[j:],
                 "float4": src[:i] + FLOAT4 + src[j:],
-                "none": src[:i] + NONE + src[j:]}
+                "none": src[:i] + NONE + src[j:],
+                "seg_per_score": src.replace(VOTE, NO_VOTE)}
     out = os.path.join(csrc.BUILD_DIR, "ablation")
     os.makedirs(out, exist_ok=True)
     nvcc = csrc._nvcc()
@@ -117,6 +133,12 @@ def main():
         e = cs.check_flash_attention(torch, fa, rng, b=2, h=3, s=200, d=64,
                                      causal=True)
         print(f"{name}: ragged (2,3,200,64) causal vs plain {e}", flush=True)
+        if name in ("shipped", "seg_per_score"):
+            sg = cs.pad_segments(torch, 4, 200, [200, 77, 130, 1])
+            e = cs.check_flash_attention(torch, fa, rng, b=4, h=3, s=200,
+                                         d=64, causal=False, q_seg=sg,
+                                         kv_seg=sg)
+            print(f"{name}: segments (4,3,200,64) vs plain {e}", flush=True)
 
     b, h, s, d = 12, 16, 1024, 64
     bf16 = torch.bfloat16
@@ -138,7 +160,8 @@ def main():
         err = lib.apex_flash_attn_bwd(
             d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), strides, b, h, s, s, sc, 1, stream)
+            dv.data_ptr(), strides, b, h, s, s, sc, 1, None, None, 0, 0,
+            stream)
         cs.check(err == 0, f"launch failed: CUDA error {err}")
 
     times = {name: [] for name in libs}
@@ -149,6 +172,35 @@ def main():
     for name, ts in times.items():
         print(f"{name}: backward {', '.join(f'{1e3 * t:.1f}' for t in ts)} "
               "us", flush=True)
+
+    b, s = 32, 512
+    qkv = torch.randn((s, b, 3 * h * d), generator=rng,
+                      device="cuda").to(bf16)
+    q, k, v = qkv_split_heads(qkv, h, d)
+    do = torch.randn((s, b, h, d), generator=rng,
+                     device="cuda").to(bf16).permute(1, 2, 0, 3)
+    for label, lengths in (("all real", [512]),
+                           ("ragged 512/300/129/1", [512, 300, 129, 1])):
+        seg = cs.pad_segments(torch, b, s, lengths)
+        fa._LIB = libs["shipped"]
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, False, seg, seg)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        times = {}
+        for name in ("shipped", "seg_per_score", "seg_per_score",
+                     "shipped"):
+            fa._LIB = libs[name]
+            fwd = cs.time_ms(torch, lambda: fa.flash_fwd_cuda(
+                q, k, v, sc, False, seg, seg))
+            bwd = cs.time_ms(torch, lambda: fa.flash_bwd_cuda(
+                q, k, v, do, lse, delta, sc, False, seg, seg))
+            times.setdefault(name, []).append((fwd, bwd))
+        for name, ts in times.items():
+            print(f"segments (32,16,512,64) {label}, {name}: forward "
+                  f"{', '.join(f'{1e3 * f:.1f}' for f, _ in ts)} us, "
+                  f"backward (with dq zeroing and cast) "
+                  f"{', '.join(f'{1e3 * bw:.1f}' for _, bw in ts)} us",
+                  flush=True)
+    fa._LIB = libs["shipped"]
     return 0
 
 

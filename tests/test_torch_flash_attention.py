@@ -107,6 +107,82 @@ def test_plain_version_matches_jax_reference_with_bias_and_segments():
                                rtol=0)
 
 
+def _pad_segments(b, s, lengths):
+    """BERT's segment ids from a padding mask: 1 for the first
+    `lengths[i]` tokens of row i, 0 for its pads."""
+    return (np.arange(s)[None, :] < np.asarray(lengths)[:, None]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("causal,dtype", [
+    (False, "f32"), (False, "bf16"), (True, "f32")])
+def test_segment_ids_match_jax_kernel(causal, dtype):
+    """Ragged padding as segment ids (128, 70 and 1 real tokens; causal
+    composes after the segment mask), forward and gradients against the
+    JAX Pallas kernels in interpret mode."""
+    b, h, s, d = 3, 2, 128, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=20 + causal)
+    seg = _pad_segments(b, s, [128, 70, 1])
+    jdt, tdt = _DTYPES[dtype]
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+
+    def jf(q_, k_, v_):
+        return jax_flash(q_, k_, v_, causal=causal, softmax_scale=scale,
+                         segment_ids=jnp.asarray(seg),
+                         use_pallas_override=True)
+
+    jo, vjp = jax.vjp(jf, jq, jk, jv)
+    jdq, jdk, jdv = vjp(jdo)
+    tq, tk, tv = (torch.tensor(x).to(tdt).requires_grad_(True)
+                  for x in (q, k, v))
+    to = tfa.flash_attention(tq, tk, tv, causal=causal, softmax_scale=scale,
+                             segment_ids=torch.tensor(seg))
+    to.backward(torch.tensor(do).to(tdt))
+    _close(to.detach(), jo, dtype, "o")
+    for got, want, what in ((tq.grad, jdq, "dq"), (tk.grad, jdk, "dk"),
+                            (tv.grad, jdv, "dv")):
+        _close(got, want, dtype, what)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fully_masked_rows_match_jax(causal):
+    """q_/kv_segment_ids set apart: queries whose id no key carries are
+    fully masked and get uniform weights over every key (the finite
+    -1e30 mask), with a zero gradient through their scores; forward and
+    gradients, fp32, against the JAX `flash_attention` on the CPU (its
+    reference path), and no NaN."""
+    b, h, s, d = 2, 2, 64, 16
+    q, k, v, do = _inputs(b, h, s, d, seed=30 + causal)
+    rng = np.random.RandomState(31)
+    qseg = rng.randint(0, 4, (b, s)).astype(np.int32)
+    kvseg = rng.randint(0, 3, (b, s)).astype(np.int32)  # id 3: no key
+    assert np.any(qseg == 3)
+
+    def jf(q_, k_, v_):
+        return jax_flash(q_, k_, v_, causal=causal,
+                         q_segment_ids=jnp.asarray(qseg),
+                         kv_segment_ids=jnp.asarray(kvseg))
+
+    jo, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(x).requires_grad_(True) for x in (q, k, v))
+    to = tfa.flash_attention(tq, tk, tv, causal=causal,
+                             q_segment_ids=torch.tensor(qseg),
+                             kv_segment_ids=torch.tensor(kvseg))
+    to.backward(torch.tensor(do))
+    dead = torch.tensor(qseg == 3)[:, None, :, None]
+    want_dead = torch.tensor(v).mean(dim=2, keepdim=True)
+    assert torch.allclose(torch.where(dead, to.detach(), want_dead),
+                          want_dead.expand_as(to), atol=1e-6)
+    for got, want, what in ((to.detach(), jo, "o"), (tq.grad, jgrads[0], "dq"),
+                            (tk.grad, jgrads[1], "dk"),
+                            (tv.grad, jgrads[2], "dv")):
+        assert torch.isfinite(got).all(), what
+        _close(got, want, "f32", what)
+    assert torch.all(tq.grad.masked_select(dead) == 0)
+
+
 def test_kernel_surface_and_dispatch():
     """What the CUDA kernels refuse (checked before any launch, so it is
     testable here), the argument checks shared with the JAX package, and
