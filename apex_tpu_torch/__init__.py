@@ -13,14 +13,20 @@ Importing the package builds nothing: kernels are compiled from the
 sources in the checkout at their first launch.
 
 Subpackages (lazily importable):
-  ops         — LayerNorm/RMSNorm forward and backward, flat Adam and
-                the LAMB phases and per-tensor norms (Triton), paged
-                flash-decode and flash attention forward and backward,
-                with segment ids (CUDA)
+  ops         — LayerNorm/RMSNorm forward and backward, flat Adam, the
+                LAMB phases and per-tensor norms, flat SGD, the
+                label-smoothed cross entropy and the batch-norm channel
+                sums (Triton), paged flash-decode and flash attention
+                forward and backward, with segment ids (CUDA), and the
+                NHWC max pool
   serve       — paged KV cache + continuous-batching decode engine
-  models      — GPT and BERT: configs, seeded inits, the JAX-params
-                converter and the training forwards
-  optimizers  — flat buffers, FusedAdam and FusedLAMB
+  models      — GPT, BERT and ResNet: configs, seeded inits, the
+                JAX-params converters and the training forwards
+  optimizers  — flat buffers, FusedAdam, FusedLAMB and FusedSGD
+  amp         — O0–O3 policies and the dynamic loss scaler
+  parallel    — the single-device train step of `ddp` and the batch
+                norm of `sync_batchnorm`
+  contrib     — the xentropy facade
   transformer — the single-device training step, the tensor-parallel
                 layers and cross entropy at tp=1, and the weight-decay
                 grouping of pipeline_parallel.common
@@ -31,7 +37,8 @@ Subpackages (lazily importable):
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
-                    "checkpoint", "monitor", "csrc"}
+                    "checkpoint", "monitor", "csrc", "amp", "parallel",
+                    "contrib"}
 
 
 def __getattr__(name):

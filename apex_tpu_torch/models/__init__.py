@@ -1,6 +1,7 @@
-"""apex_tpu_torch.models — so far GPT (`models.gpt`) and BERT
-(`models.bert`): their configs, seeded inits, the converter from the JAX
-package's parameters and the training forwards."""
+"""apex_tpu_torch.models — so far GPT (`models.gpt`), BERT
+(`models.bert`) and ResNet (`models.resnet`): their configs, seeded
+inits, the converters from the JAX package's parameters and the
+training forwards."""
 
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
@@ -14,4 +15,9 @@ from apex_tpu_torch.models.bert import (  # noqa: F401
     BertConfig,
     bert_large,
     init_bert_params,
+)
+from apex_tpu_torch.models.resnet import (  # noqa: F401
+    ResNet,
+    resnet18,
+    resnet50,
 )

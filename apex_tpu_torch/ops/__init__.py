@@ -3,7 +3,7 @@ PyTorch version (the CPU path and the on-card reference).
 
 Mirrors `apex_tpu.ops`; only the modules of the ported slices exist so
 far (layer_norm, flash_decode, flash_attention, optimizer_kernels,
-fused_dense).
+fused_dense, xentropy, welford, pooling).
 """
 
 _LAZY = {
@@ -12,6 +12,9 @@ _LAZY = {
     "flash_attention": "apex_tpu_torch.ops.flash_attention",
     "optimizer_kernels": "apex_tpu_torch.ops.optimizer_kernels",
     "fused_dense": "apex_tpu_torch.ops.fused_dense",
+    "xentropy": "apex_tpu_torch.ops.xentropy",
+    "welford": "apex_tpu_torch.ops.welford",
+    "pooling": "apex_tpu_torch.ops.pooling",
 }
 
 _SYMBOLS = {

@@ -1,7 +1,8 @@
 """Fused optimizer kernels over flat 1-D buffers (counterpart of
-apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update and the
-two LAMB phases with their per-tensor norms are ported so far — the
-LAMB half is described at its section below).
+apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update, the
+two LAMB phases with their per-tensor norms and SGD with momentum are
+ported so far — the LAMB and SGD halves are described at their sections
+below).
 
 `adam_flat` applies one Adam/AdamW step to flat param / exp_avg /
 exp_avg_sq buffers IN PLACE (the port's answer to JAX's donation), from
@@ -673,3 +674,139 @@ def per_tensor_l2norm_aligned(flat, spec):
     if not check_kernel_device(flat):
         return torch.sqrt(_rows_sumsq_reference(flat, spec))
     return torch.sqrt(rows_sumsq_seg_triton(flat, spec))
+
+
+# ------------------------------------ SGD -----------------------------------
+#
+# `sgd_flat` (≡ the JAX package's `sgd_flat`, itself ≡
+# amp_C.multi_tensor_sgd) updates flat params and momentum buffer IN
+# PLACE from a flat grad buffer of any float dtype.  Four scalars ride as
+# an fp32 device tensor [lr, inv_scale, found_inf, first], so a loss
+# scale, an overflow flag or a step count that lives on the card causes
+# no host sync.  `first` selects torch's buf-is-None branch (buf := g)
+# inside the kernel, so one pass covers step 0 and the steady state;
+# `first_run` is its static form.  A found_inf step keeps p and buf bit
+# for bit.
+#
+# Kernel note.  Replaces apex_tpu/ops/optimizer_kernels.py:_sgd_kernel
+# (launched by sgd_flat).  What bounds it on an H100: bytes — per element
+# it reads p, buf and g and writes p and buf (18 bytes with fp32 state
+# and bf16 grads) for ~8 flops.  Design: one program per 4096-element
+# block, masked loads so any length works, the four scalars read once per
+# program, fp32 math; momentum, dampening, nesterov, weight decay (and
+# whether it comes before or after momentum) and first_run are
+# compile-time constants, so each configuration compiles only the
+# operations it does.  Stores round to nearest-even and fp-contraction is
+# off, so the kernel evaluates the plain version's operations one by one
+# and the two agree bit for bit.
+
+
+def _sgd_scalars(lr, inv_scale, found_inf, first, device=None):
+    """[lr, inv_scale, found_inf, first] as an fp32 (4,) device tensor."""
+    return torch.stack([device_scalar(x, torch.float32, device)
+                        for x in (lr, inv_scale, found_inf, first)])
+
+
+def _sgd_reference(p, buf, g, scalars, momentum, dampening, nesterov,
+                   weight_decay, wd_after_momentum, first_run):
+    """The SGD update in plain PyTorch (the JAX package's jnp branch of
+    `sgd_flat`); returns (p, buf) new, in their own dtypes."""
+    lr, inv_scale, found, first = scalars.unbind(0)
+    g32 = g.float() * inv_scale
+    p32 = p.float()
+    if weight_decay and not wd_after_momentum:
+        g32 = g32 + weight_decay * p32
+    if momentum != 0.0:
+        if first_run:
+            b_new = g32
+        else:
+            b_new = torch.where(first > 0.5, g32,
+                                momentum * buf.float()
+                                + (1 - dampening) * g32)
+        upd = g32 + momentum * b_new if nesterov else b_new
+    else:
+        b_new, upd = buf.float(), g32
+    if weight_decay and wd_after_momentum:
+        upd = upd + weight_decay * p32
+    p_new = p32 - lr * upd
+    keep = found > 0.5
+    return (torch.where(keep, p32, p_new).to(p.dtype),
+            torch.where(keep, buf.float(), b_new).to(buf.dtype))
+
+
+def _sgd_kernel(P, B, G, S, n, MOMENTUM: tl.constexpr,
+                DAMPENING: tl.constexpr, NESTEROV: tl.constexpr,
+                WEIGHT_DECAY: tl.constexpr, WD_AFTER: tl.constexpr,
+                FIRST_RUN: tl.constexpr, BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    lr = tl.load(S + 0)
+    inv_scale = tl.load(S + 1)
+    keep = tl.load(S + 2) > 0.5
+    first = tl.load(S + 3) > 0.5
+    g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32) * inv_scale
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    if WEIGHT_DECAY != 0.0:
+        if not WD_AFTER:
+            g = g + WEIGHT_DECAY * p
+    if MOMENTUM != 0.0:
+        b = tl.load(B + offs, mask=mask, other=0.0).to(tl.float32)
+        if FIRST_RUN:
+            b_new = g
+        else:
+            b_new = tl.where(first, g, MOMENTUM * b + (1 - DAMPENING) * g)
+        if NESTEROV:
+            upd = g + MOMENTUM * b_new
+        else:
+            upd = b_new
+    else:
+        upd = g
+    if WEIGHT_DECAY != 0.0:
+        if WD_AFTER:
+            upd = upd + WEIGHT_DECAY * p
+    p_new = tl.where(keep, p, p - lr * upd)
+    tl.store(P + offs, p_new.to(P.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    if MOMENTUM != 0.0:
+        b_new = tl.where(keep, b, b_new)
+        tl.store(B + offs, b_new.to(B.dtype.element_ty,
+                                    fp_downcast_rounding="rtne"), mask=mask)
+
+
+def sgd_flat_triton(p, buf, g, scalars, momentum, dampening, nesterov,
+                    weight_decay, wd_after_momentum, first_run):
+    """Launch the Triton SGD kernel over CUDA flat buffers, updating p
+    and buf in place.  `sgd_flat_triton.launches` counts launches."""
+    n = _check_flat("sgd kernel", 1, p=p, buf=buf, g=g)
+    _check_scalars("sgd kernel", scalars, 4)
+    if n:
+        _jit(_sgd_kernel)[(-(-n // _BLOCK),)](
+            p, buf, g, scalars, n, MOMENTUM=float(momentum),
+            DAMPENING=float(dampening), NESTEROV=bool(nesterov),
+            WEIGHT_DECAY=float(weight_decay),
+            WD_AFTER=bool(wd_after_momentum), FIRST_RUN=bool(first_run),
+            BLOCK=_BLOCK, num_warps=8, enable_fp_fusion=False)
+    sgd_flat_triton.launches += 1
+    return p, buf
+
+
+sgd_flat_triton.launches = 0
+
+
+def sgd_flat(p, buf, g, lr, *, momentum=0.0, dampening=0.0, nesterov=False,
+             weight_decay=0.0, wd_after_momentum=False, first_run=False,
+             first=False, inv_scale=1.0, found_inf=False):
+    """One SGD step on flat buffers, IN PLACE (≡ the JAX package's
+    `sgd_flat`, which returns new buffers under donation).  `lr`, `first`,
+    `inv_scale` and `found_inf` may be device tensors.  Returns (p, buf)
+    — the same tensors, updated.  CPU tensors run the plain version;
+    CUDA tensors run the Triton kernel or raise."""
+    scalars = _sgd_scalars(lr, inv_scale, found_inf, first, device=p.device)
+    args = (momentum, dampening, nesterov, weight_decay, wd_after_momentum,
+            first_run)
+    if not check_kernel_device(p, buf, g):
+        pn, bn = _sgd_reference(p, buf, g, scalars, *args)
+        p.copy_(pn)
+        buf.copy_(bn)
+        return p, buf
+    return sgd_flat_triton(p, buf, g, scalars, *args)

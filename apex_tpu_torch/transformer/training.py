@@ -26,12 +26,14 @@ from apex_tpu_torch.optimizers import flat as F
 
 
 def _to_device(tree, dev):
-    """A labels tree (a tensor, or tuples and lists of tensors) moved to
-    `dev`, as the JAX step takes a pytree of labels."""
+    """A tree of tensors (tuples, lists and dicts of them) moved to `dev`,
+    as the JAX steps take a pytree of labels or a batch."""
     if isinstance(tree, torch.Tensor):
         return tree.to(dev)
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_device(t, dev) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree
 
 

@@ -14,7 +14,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  segment-masked flash kernels at BERT's (32, 16, 512, 64)
                  with ragged padding, causal, and whole masked rows; the
                  LAMB kernels over the BERT-Large flat buffer in bf16 and
-                 fp32, with a found_inf step and per-tensor lr scales.
+                 fp32, with a found_inf step and per-tensor lr scales;
+                 the cross-entropy kernels at ResNet's (256, 1000) and a
+                 ragged (64, 50304); SGD over the ResNet-50 flat buffer
+                 (every flag, a first and a found_inf step); the channel
+                 sums at ResNet's largest and smallest batch-norm shapes
+                 against fp64 sums.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -48,7 +53,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  without segments).  One step through the kernels agrees
                  with the same step through the plain versions (full
                  width, 2 layers, batch 2, ragged padding).
-  7. table       the kernels' times on the card (CUDA events) beside
+  7. resnet      the ResNet-50 AMP-O1 training step at full width
+                 (`bench.py:338-391`): seed-0 weights, batch 256 of
+                 224x224x3 seeded images, amp O1, the mean fp32 cross
+                 entropy, FusedSGD(0.1, 0.9, 1e-4), `make_train_step(
+                 with_state=True)`, cuDNN's algorithm search on; two
+                 warm-up and five timed steps on one batch; the loss is
+                 finite and falls, no step overflows, the launch counters
+                 prove every step ran 53 channel sums, one cross-entropy
+                 forward and backward and one SGD, with no host sync;
+                 img/s, peak memory and one profiled step.  One step
+                 through the kernels agrees with the same step through
+                 the plain versions (full width, batch 8).
+  8. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -425,6 +442,110 @@ def check_adam(torch, ok, rng, n, dtype, weight_decay):
         worst = max(worst, err.max().item())
     del refs, got
     return worst
+
+
+def check_xent(torch, xe, rng, rows, v, smoothing, dtype):
+    """Both cross-entropy kernels against their plain versions on one
+    seeded input (logits 3·N(0, 1), uniform labels, N(0, 1) cotangents).
+    Tolerance: loss and lse 1e-5 of |lse| (the kernel's exp is the
+    hardware's ex2.approx, ~2e-6 relative, and it sums in another
+    order); dx one ulp of its dtype plus 1e-5 of its largest magnitude.
+    Returns the largest errors (forward, backward)."""
+    dev = "cuda"
+    x = (torch.randn((rows, v), generator=rng, device=dev) * 3).to(dtype)
+    y = torch.randint(0, v, (rows,), generator=rng, device=dev,
+                      dtype=torch.int32)
+    g = torch.randn((rows,), generator=rng, device=dev)
+    loss, lse = xe.xent_fwd_triton(x, y, smoothing)
+    rloss, rlse = xe.xent_fwd_reference(x, y, smoothing)
+    dx = xe.xent_bwd_triton(g, x, y, rlse, smoothing)
+    rdx = xe.xent_bwd_reference(g, x, y, rlse, smoothing)
+    torch.cuda.synchronize()
+    tol = 1e-5 * rlse.abs() + 1e-6
+    e_fwd = torch.maximum((loss - rloss).abs(), (lse - rlse).abs())
+    check(loss.dtype == lse.dtype == torch.float32 and dx.dtype == dtype,
+          "xentropy dtypes")
+    check(bool((e_fwd <= tol).all()),
+          f"xentropy fwd ({rows},{v}) eps={smoothing} {dtype}: max err "
+          f"{e_fwd.max().item():.3e}")
+    e_dx = (dx.float() - rdx.float()).abs()
+    tol_dx = ulp(torch, rdx.float(), dtype) + 1e-5 * rdx.float().abs().max()
+    check(bool((e_dx <= tol_dx).all()),
+          f"xentropy bwd ({rows},{v}) eps={smoothing} {dtype}: max err "
+          f"{e_dx.max().item():.3e}")
+    return e_fwd.max().item(), e_dx.max().item()
+
+
+RESNET50_FLAT = 25_559_040          # 25,557,032 params, FLAT_TILE-padded
+
+
+def check_sgd(torch, ok, rng, n):
+    """The SGD kernel against `_sgd_reference` over the ResNet-50 flat
+    buffer (fp32 p and buf, bf16 grads, a loss scale of 2^16): the step's
+    flags at a steady and at the first step, nesterov, dampening, weight
+    decay after momentum, and a found_inf step (an inf grad: p and buf
+    kept bit for bit).  Tolerance: one fp32 ulp (the kernel evaluates the
+    plain version's operations one by one, without fma contraction).
+    Returns the largest error and whether every case was bit for bit."""
+    dev = "cuda"
+    p = torch.randn((n,), generator=rng, device=dev) * 0.05
+    b = torch.randn((n,), generator=rng, device=dev) * 0.01
+    g = (torch.randn((n,), generator=rng, device=dev) * 65536).to(
+        torch.bfloat16)
+    worst, exact = 0.0, True
+    # (momentum, dampening, nesterov, weight_decay, wd_after, first)
+    for flags in ((0.9, 0.0, False, 1e-4, False, False),
+                  (0.9, 0.0, False, 1e-4, False, True),
+                  (0.9, 0.0, True, 1e-4, False, False),
+                  (0.9, 0.1, False, 0.0, False, False),
+                  (0.9, 0.0, False, 1e-2, True, False),
+                  (0.0, 0.0, False, 1e-4, False, False)):
+        sc = ok._sgd_scalars(0.1, 2.0 ** -16, False, flags[5], device=dev)
+        args = flags[:5] + (False,)
+        rp, rb = ok._sgd_reference(p, b, g, sc, *args)
+        kp, kb = ok.sgd_flat_triton(p.clone(), b.clone(), g, sc, *args)
+        torch.cuda.synchronize()
+        for name, a, r in (("p", kp, rp), ("buf", kb, rb)):
+            err = (a - r).abs()
+            check(bool((err <= ulp(torch, r, torch.float32)).all()),
+                  f"sgd {name} {flags}: max err {err.max().item():.3e}")
+            worst = max(worst, err.max().item())
+            exact = exact and torch.equal(a, r)
+        del rp, rb, kp, kb
+    gi = g.clone()
+    gi[4321] = float("inf")
+    sc = ok._sgd_scalars(0.1, 2.0 ** -16, True, False, device=dev)
+    kp, kb = ok.sgd_flat_triton(p.clone(), b.clone(), gi, sc, 0.9, 0.0,
+                                False, 1e-4, False, False)
+    torch.cuda.synchronize()
+    check(torch.equal(kp, p) and torch.equal(kb, b),
+          "sgd: a found_inf step moved p or buf")
+    del p, b, g, gi, kp, kb
+    return worst, exact
+
+
+def check_channel_sums(torch, wf, rng, rows, c, dtype):
+    """The per-channel sums kernel against fp64 sums of the same values,
+    and against its plain version.  Tolerance: Σx within 1e-5 of Σ|x|
+    and Σx² within 1e-5 of itself, per channel (fp32 partial sums over
+    runs of rows; the plain version is held to the same bound).  Returns
+    the kernel's largest absolute difference from the plain version."""
+    x = (torch.randn((rows, c), generator=rng, device="cuda") + 0.5).to(
+        dtype)
+    s, q = wf.channel_sums_triton(x)
+    rs, rq = wf.channel_sums_reference(x)
+    x64 = x.double()
+    s64, q64, a64 = x64.sum(0), (x64 * x64).sum(0), x64.abs().sum(0)
+    del x64
+    torch.cuda.synchronize()
+    for name, got, want, scale in (("sum", s, s64, a64), ("sumsq", q, q64,
+                                                           q64),
+                                   ("plain sum", rs, s64, a64),
+                                   ("plain sumsq", rq, q64, q64)):
+        rel = ((got.double() - want).abs() / scale).max().item()
+        check(rel <= 1e-5, f"channel sums {name} ({rows},{c}) {dtype}: "
+              f"{rel:.3e} of the scale")
+    return max((s - rs).abs().max().item(), (q - rq).abs().max().item())
 
 
 def profile_decode(torch, np, build_flagship_engine, params, steps=4):
@@ -963,6 +1084,315 @@ def compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, tokens, labels):
     return line
 
 
+RESNET_BATCH, RESNET_SIZE = 256, 224
+
+
+def resnet_kernels(xe, wf, ok):
+    return {"xent_fwd": xe.xent_fwd_triton, "xent_bwd": xe.xent_bwd_triton,
+            "sgd": ok.sgd_flat_triton, "channel_sums": wf.channel_sums_triton}
+
+
+def resnet_counts(xe, wf, ok):
+    return {name: fn.launches
+            for name, fn in resnet_kernels(xe, wf, ok).items()}
+
+
+def resnet_setup(torch, batch, seed=0):
+    """The bench's ResNet-50 AMP-O1 step (`bench.py:338-391`, its on-chip
+    branch) on the card: seed-`seed` weights, amp O1 (bf16 compute, fp32
+    params, dynamic loss scale from 2^16), the mean of the fp32 cross
+    entropy, FusedSGD(0.1, 0.9, 1e-4) over the fp32 flat buffer and
+    `make_train_step(with_state=True)`; a batch of `batch` 224x224x3
+    N(0, 1) images and uniform labels over 1000 classes, each from its
+    own seeded generator.  Returns (opt, step, carry, (x, y))."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import resnet as rn
+    from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+    from apex_tpu_torch.optimizers import FusedSGD
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.parallel import ddp
+
+    model = rn.resnet50()
+    params, mstate = model.init(seed=seed)
+    amp_state = amp.initialize(opt_level="O1")
+
+    def loss_fn(p, ms, b):
+        x, y = b
+        logits, new_ms = model.apply(p, ms, x, training=True)
+        return torch.mean(softmax_cross_entropy_loss(logits.float(), y)), \
+            new_ms
+
+    opt = FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    state = opt.init(params)
+    del params
+    check((len(opt.spec.sizes), sum(opt.spec.sizes), state.params.numel(),
+           len(F.tree_leaves(mstate))) == (161, 25_557_032, RESNET50_FLAT,
+                                           106),
+          "ResNet-50 layout drifted")
+    step = ddp.make_train_step(loss_fn, opt, amp_state=amp_state,
+                               with_state=True)
+
+    def gen(s):
+        return torch.Generator(device="cuda").manual_seed(s)
+
+    x = torch.randn((batch, RESNET_SIZE, RESNET_SIZE, 3), generator=gen(1),
+                    device="cuda")
+    y = torch.randint(0, 1000, (batch,), generator=gen(2), device="cuda")
+    return opt, step, (state, amp_state.loss_scalers[0], mstate), (x, y)
+
+
+def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
+    """The ResNet-50 AMP-O1 training step at full width (module docstring,
+    phase 7).  Returns the measurements, the kernels-vs-plain line and
+    the flat layout."""
+    opt, step, carry, batch = resnet_setup(torch, RESNET_BATCH)
+
+    def carry_step(c, b):
+        o, sc, ms, loss = step(*c, b)
+        return (o, sc, ms), loss
+
+    bench_was = torch.backends.cudnn.benchmark
+    # cuDNN picks each conv's algorithm by timing them on its first call
+    # (the warm-up steps), as apex's main_amp.py sets it
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in resnet_kernels(xe, wf, ok).values():
+        fn.launches = 0
+    records = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        carry, loss = carry_step(carry, batch)
+        records.append((loss, carry[1].scale, carry[1].found_inf))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        carry, loss = carry_step(carry, batch)
+        records.append((loss, carry[1].scale, carry[1].found_inf))
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    counts = resnet_counts(xe, wf, ok)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(r[0]) for r in records]
+    scales = [float(r[1]) for r in records]
+    overflow = [bool(r[2]) for r in records]
+    n = warmup + steps
+    log(f"resnet losses {losses} loss scale {scales}")
+    check(all(math.isfinite(v) for v in losses), "a ResNet loss is not "
+          "finite")
+    check(losses[-1] < losses[0], f"ResNet loss did not fall: {losses}")
+    check(not any(overflow), f"a ResNet step overflowed: {overflow}")
+    check(int(carry[0].step) == n and scales == [65536.0] * n,
+          f"SGD step {int(carry[0].step)}, loss scales {scales}")
+    per_step = {"xent_fwd": 1, "xent_bwd": 1, "sgd": 1, "channel_sums": 53}
+    for name, k in per_step.items():
+        check(counts[name] == k * n,
+              f"resnet {name}: {counts[name]} launches in {n} steps, want "
+              f"{k} per step")
+    carry, syncs = step_without_sync(torch, carry_step, carry, batch)
+    names = {"xent_fwd": lambda k: k == "_xent_fwd_kernel",
+             "xent_bwd": lambda k: k == "_xent_bwd_kernel",
+             "sgd": lambda k: k == "_sgd_kernel",
+             "channel_sums": lambda k: k in ("_stats_partial_kernel",
+                                             "_stats_finish_kernel")}
+    carry, profile_line = profile_step(torch, carry_step, carry, (batch,),
+                                       names)
+    spec = opt.spec
+    del carry, step, opt
+    torch.cuda.empty_cache()
+    result = {
+        "config": "ResNet-50 (1000 classes, NHWC, conv7 stem), amp O1 "
+                  "(bf16 compute, fp32 params, dynamic loss scale 2^16), "
+                  "batch 256 x 224 x 224 x 3, FusedSGD(lr=0.1, momentum "
+                  "0.9, wd 1e-4)",
+        "cudnn_benchmark": True, "params": 25_557_032,
+        "warmup_steps": warmup, "steps": steps, "losses": losses,
+        "loss_scales": scales, "warmup_s": warm_s,
+        "step_ms": 1e3 * window_s / steps,
+        "img_per_s": RESNET_BATCH * steps / window_s,
+        "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
+        "launches": counts, "launches_per_step": per_step,
+        "profile": profile_line}
+    vs_plain = compare_resnet_step(torch, xe, wf, ok, batch=8)
+    torch.backends.cudnn.benchmark = bench_was
+    return result, vs_plain, spec
+
+
+def compare_resnet_step(torch, xe, wf, ok, batch):
+    """One full-width ResNet-50 O1 step at `batch` through the kernels and
+    through their plain versions (swapped in for the run), from the same
+    seed-0 weights and data.  Compares the loss, each leaf's gradient and
+    param update (relative L2) and the running statistics."""
+    from apex_tpu_torch.optimizers import flat as F
+
+    def plain_sgd(p, buf, g, scalars, *flags):
+        pn, bn = ok._sgd_reference(p, buf, g, scalars, *flags)
+        p.copy_(pn)
+        buf.copy_(bn)
+        return p, buf
+
+    swaps = [(xe, "xent_fwd_triton", xe.xent_fwd_reference),
+             (xe, "xent_bwd_triton", xe.xent_bwd_reference),
+             (wf, "channel_sums_triton", wf.channel_sums_reference),
+             (ok, "sgd_flat_triton", plain_sgd)]
+
+    def run(plain):
+        opt, step, (state, sc, ms), b = resnet_setup(torch, batch)
+        p0 = state.params.clone()
+        seen = {}
+        step_flat = opt.step_flat
+
+        def capture(st, g_flat, **kw):
+            seen["g"] = g_flat.clone()
+            return step_flat(st, g_flat, **kw)
+
+        opt.step_flat = capture
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        if plain:
+            for mod, name, fn in swaps:
+                setattr(mod, name, fn)
+        try:
+            state, sc, ms, loss = step(state, sc, ms, b)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        return (float(loss), seen["g"], state.params - p0, ms, opt.spec)
+
+    before = resnet_counts(xe, wf, ok)
+    loss_p, g_p, u_p, ms_p, spec = run(plain=True)
+    check(resnet_counts(xe, wf, ok) == before,
+          "the plain ResNet step launched a kernel")
+    loss_k, g_k, u_k, ms_k, _ = run(plain=False)
+    torch.cuda.synchronize()
+
+    def rel_l2(a, r):
+        return ((a.float() - r.float()).norm()
+                / r.float().norm().clamp_min(1e-30)).item()
+
+    grad_rel, upd_rel = {}, {}
+    for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
+        key = "/".join(path)
+        grad_rel[key] = rel_l2(g_k[off:off + size], g_p[off:off + size])
+        upd_rel[key] = rel_l2(u_k[off:off + size], u_p[off:off + size])
+    stat_rel = max(rel_l2(a, r) for a, r in zip(F.tree_leaves(ms_k),
+                                                F.tree_leaves(ms_p)))
+    gw = max(grad_rel, key=grad_rel.get)
+    uw = max(upd_rel, key=upd_rel.get)
+    line = {"batch": batch, "loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "grad_rel_l2_max": grad_rel[gw], "grad_rel_l2_worst": gw,
+            "grad_rel_l2_median": sorted(grad_rel.values())[
+                len(grad_rel) // 2],
+            "update_rel_l2_max": upd_rel[uw], "update_rel_l2_worst": uw,
+            "running_stats_rel_l2_max": stat_rel}
+    log("resnet step, kernels vs plain versions " + json.dumps(line))
+    # the kernels differ from the plain versions by fp32 rounding (sums in
+    # another order, the hardware exp): a bf16 activation here and there
+    # rounds the other way, and the batch-norm grads, sums of bf16 terms
+    # that cancel to a few % of their size, carry that furthest
+    check(line["loss_rel_diff"] <= 1e-3, "resnet step loss: kernels vs plain")
+    check(line["grad_rel_l2_median"] <= 1e-2
+          and line["grad_rel_l2_max"] <= 0.25,
+          f"resnet step grads: kernels vs plain ({gw})")
+    check(line["update_rel_l2_max"] <= 0.25,
+          f"resnet step params: kernels vs plain ({uw})")
+    check(stat_rel <= 1e-2, "resnet step running stats: kernels vs plain")
+    return line
+
+
+def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
+    """Phase 8 rows of the ResNet step's kernels at the step's shapes:
+    the cross entropy at (256, 1000) fp32 logits, SGD over the ResNet-50
+    flat buffer (fp32 p and buf, bf16 grads), the channel sums at the
+    stem's (3,211,264, 64) bf16 (and, as `ms_smallest_shape`, the last
+    stage's (12,544, 2048)).  Launches: the ResNet phase's seven steps.
+    `spec`: the ResNet-50 flat layout (the library call's leaf views)."""
+    import torch.nn.functional as F
+
+    dev, bf16 = "cuda", torch.bfloat16
+    launches, per_step = resnet["launches"], resnet["launches_per_step"]
+    rows = []
+
+    def row(name, key, *args):
+        rows.append(table_row(name, launches[key], per_step[key],
+                              errs[name], *args))
+
+    r, v = RESNET_BATCH, 1000
+    x = torch.randn((r, v), generator=rng, device=dev) * 3
+    y = torch.randint(0, v, (r,), generator=rng, device=dev,
+                      dtype=torch.int32)
+    yl = y.long()
+    g = torch.full((r,), 1.0 / r, device=dev)
+    shape = "logits (256, 1000) fp32, int32 labels, smoothing 0"
+    ms = time_ms(torch, lambda: xe.xent_fwd_triton(x, y, 0.0))
+    plain = time_ms(torch, lambda: xe.xent_fwd_reference(x, y, 0.0))
+    lib = time_ms(torch, lambda: F.cross_entropy(x, yl, reduction="none"))
+    row("xent_fwd", "xent_fwd", "triton", "apex_tpu_torch/ops/xentropy.py",
+        "apex_tpu/ops/xentropy.py:39", ms, plain, lib,
+        "torch.nn.functional.cross_entropy(reduction='none')",
+        4 * r * v + 4 * r + 8 * r, 6 * r * v, shape)
+    _, lse = xe.xent_fwd_triton(x, y, 0.0)
+    ms = time_ms(torch, lambda: xe.xent_bwd_triton(g, x, y, lse, 0.0))
+    plain = time_ms(torch, lambda: xe.xent_bwd_reference(g, x, y, lse, 0.0))
+    xg = x.detach().requires_grad_(True)
+    out = F.cross_entropy(xg, yl, reduction="none")
+    lib = time_ms(torch, lambda: torch.autograd.grad(out, xg, g,
+                                                     retain_graph=True))
+    del out, xg
+    row("xent_bwd", "xent_bwd", "triton", "apex_tpu_torch/ops/xentropy.py",
+        "apex_tpu/ops/xentropy.py:53", ms, plain, lib,
+        "torch.nn.functional.cross_entropy backward (autograd)",
+        8 * r * v + 12 * r + 4 * r, 4 * r * v, shape + "; dx fp32")
+
+    n = RESNET50_FLAT
+    p = torch.randn((n,), generator=rng, device=dev) * 0.05
+    b = torch.randn((n,), generator=rng, device=dev) * 0.01
+    gb = (torch.randn((n,), generator=rng, device=dev) * 65536).to(bf16)
+    sc = ok._sgd_scalars(0.1, 2.0 ** -16, False, False, device=dev)
+    ms = time_ms(torch, lambda: ok.sgd_flat_triton(
+        p, b, gb, sc, 0.9, 0.0, False, 1e-4, False, False), n=40)
+    plain = time_ms(torch, lambda: ok._sgd_reference(
+        p, b, gb, sc, 0.9, 0.0, False, 1e-4, False, False), n=20)
+    lib = library = None
+    if hasattr(torch, "_fused_sgd_"):
+        g32 = gb.float()
+        pv, gv, bv = ([t[o:o + k] for o, k in zip(spec.offsets, spec.sizes)]
+                      for t in (p, g32, b))
+        lib = time_ms(torch, lambda: torch._fused_sgd_(
+            pv, gv, bv, weight_decay=1e-4, momentum=0.9, lr=0.1,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False), n=40)
+        library = ("torch._fused_sgd_ over the 161 leaf views (fp32 grads: "
+                   "it takes one dtype)")
+        del g32, pv, gv, bv
+    row("sgd", "sgd", "triton", "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:356", ms, plain, lib, library,
+        18 * n + 16, 8 * n,
+        f"p, buf ({n},) fp32, g bf16; momentum 0.9, wd 1e-4")
+    del p, b, gb
+
+    rr, c = 3_211_264, 64
+    x2 = torch.randn((rr, c), generator=rng, device=dev).to(bf16)
+    ms = time_ms(torch, lambda: wf.channel_sums_triton(x2))
+    plain = time_ms(torch, lambda: wf.channel_sums_reference(x2))
+    lib = time_ms(torch, lambda: torch.var_mean(x2, dim=0, correction=0))
+    row("channel_sums", "channel_sums", "triton",
+        "apex_tpu_torch/ops/welford.py", "apex_tpu/ops/welford.py:27",
+        ms, plain, lib, "torch.var_mean(x2, dim=0, correction=0)",
+        2 * rr * c + 8 * c, 3 * rr * c,
+        "x (3211264, 64) bf16: the stem's batch norm -> fp32 (64,) x 2")
+    rr, c = 12_544, 2048
+    x2 = torch.randn((rr, c), generator=rng, device=dev).to(bf16)
+    rows[-1]["ms_smallest_shape"] = time_ms(
+        torch, lambda: wf.channel_sums_triton(x2))
+    rows[-1]["bound_ms_smallest_shape"] = 1e3 * (2 * rr * c + 8 * c) \
+        / HBM_BYTES_PER_S
+    del x2
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -981,7 +1411,7 @@ def table_row(name, launches, per_step, err, route, source, replaces, ms,
 
 
 def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
-    """Phase 7 rows of the BERT step's new kernels at the step's shapes:
+    """Phase 8 rows of the BERT step's new kernels at the step's shapes:
     the segment-masked flash kernels at (32, 16, 512, 64) on q, k, v
     views of the packed qkv with BERT's ragged padding (512, 300, 129
     and 1 real tokens, cycled), and the LAMB kernels over the BERT-Large
@@ -1118,7 +1548,7 @@ def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
 
 
 def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
-    """Phase 6 rows of the training path's kernels, at the step's shapes
+    """Phase 8 rows of the training path's kernels, at the step's shapes
     and layouts, warm L2 (every operand set but the LayerNorm's is larger
     than the 50 MB L2).  Bounds count what this data needs: each input
     read once and each output written once, and for causal attention
@@ -1242,6 +1672,8 @@ def main():
     from apex_tpu_torch.ops import flash_decode as fd
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import optimizer_kernels as ok
+    from apex_tpu_torch.ops import welford as wf
+    from apex_tpu_torch.ops import xentropy as xe
     from apex_tpu_torch.ops._common import strict_matmul_numerics
     from apex_tpu_torch.serve import engine as engine_mod
     from apex_tpu_torch.serve import build_flagship_engine, measure_decode
@@ -1375,6 +1807,29 @@ def main():
         if dtype == bf16:
             errs.update(e)
     torch.cuda.empty_cache()
+    # the ResNet path: the cross entropy at the step's (256, 1000) fp32
+    # logits with and without smoothing and at a ragged vocabulary, SGD
+    # over the ResNet-50 flat buffer, the channel sums at the step's
+    # largest and smallest batch-norm shapes and a ragged one
+    for rows, v, eps, dtype in ((256, 1000, 0.0, f32), (256, 1000, 0.1, f32),
+                                (64, 50304, 0.0, f32), (64, 50304, 0.1, bf16),
+                                (7, 37, 0.1, f32)):
+        e = check_xent(torch, xe, rng, rows, v, eps, dtype)
+        log(f"xentropy ({rows},{v}) eps={eps} {dtype}: max errs fwd "
+            f"{e[0]:.3e} bwd {e[1]:.3e}")
+        if (rows, v, eps) == (256, 1000, 0.0):
+            errs["xent_fwd"], errs["xent_bwd"] = e
+    errs["sgd"], exact = check_sgd(torch, ok, rng, RESNET50_FLAT)
+    log(f"sgd ({RESNET50_FLAT},) fp32/bf16 grads: max err {errs['sgd']:.3e}, "
+        f"bit for bit {exact}")
+    for rows, c, dtype in ((3_211_264, 64, bf16), (12_544, 2048, bf16),
+                           (37, 16, f32)):
+        e = check_channel_sums(torch, wf, rng, rows, c, dtype)
+        log(f"channel sums ({rows},{c}) {dtype}: max |kernel - plain| "
+            f"{e:.3e}")
+        if rows == 3_211_264:
+            errs["channel_sums"] = e
+    torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------
     eng = build_flagship_engine()
@@ -1496,7 +1951,12 @@ def main():
     log("bert " + json.dumps(bert))
     torch.cuda.empty_cache()
 
-    # ---- 7. kernel table ---------------------------------------------
+    # ---- 7. the ResNet-50 AMP-O1 step at full width -------------------
+    resnet, resnet_vs_plain, resnet_spec = resnet_phase(torch, xe, wf, ok)
+    log("resnet " + json.dumps(resnet))
+    torch.cuda.empty_cache()
+
+    # ---- 8. kernel table ---------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -1563,6 +2023,8 @@ def main():
                                      train["launches"],
                                      train["launches_per_step"])
     bert_rows = table_bert_kernels(torch, fa, ok, rng, errs, bert, layout)
+    resnet_rows = table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet,
+                                       resnet_spec)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -1589,7 +2051,7 @@ def main():
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ] + train_rows + bert_rows}
+    ] + train_rows + bert_rows + resnet_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -1597,6 +2059,7 @@ def main():
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log("train step, kernels vs plain " + json.dumps(train_vs_plain))
     log("bert step, kernels vs plain " + json.dumps(bert_vs_plain))
+    log("resnet step, kernels vs plain " + json.dumps(resnet_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
