@@ -13,12 +13,13 @@ Importing the package builds nothing: kernels are compiled from the
 sources in the checkout at their first launch.
 
 Subpackages (lazily importable):
-  ops         — LayerNorm/RMSNorm forward and backward, flat Adam, the
-                LAMB phases and per-tensor norms, flat SGD, the
-                label-smoothed cross entropy and the batch-norm channel
-                sums (Triton), paged flash-decode and flash attention
-                forward and backward, with segment ids (CUDA), and the
-                NHWC max pool
+  ops         — LayerNorm/RMSNorm forward and backward, the scaled
+                (masked, causal) softmax forward and backward, flat Adam
+                (uniform and per-tensor), the LAMB phases and per-tensor
+                norms, flat SGD, the label-smoothed cross entropy and
+                the batch-norm channel sums (Triton), paged
+                flash-decode and flash attention forward and backward,
+                with segment ids (CUDA), and the NHWC max pool
   serve       — paged KV cache + continuous-batching decode engine
   models      — GPT, BERT and ResNet: configs, seeded inits, the
                 JAX-params converters and the training forwards
@@ -28,8 +29,9 @@ Subpackages (lazily importable):
                 norm of `sync_batchnorm`
   contrib     — the xentropy facade
   transformer — the single-device training step, the tensor-parallel
-                layers and cross entropy at tp=1, and the weight-decay
-                grouping of pipeline_parallel.common
+                layers and cross entropy at tp=1, the weight-decay
+                grouping of pipeline_parallel.common and the attention
+                softmax dispatch of functional (FusedScaleMaskSoftmax)
   checkpoint  — the serving fail points (chaos)
   monitor     — the recompile sentry
 """

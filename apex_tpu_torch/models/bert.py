@@ -16,11 +16,14 @@ layout and key names (`params_from_jax` carries a JAX tree over):
   block{i}.proj                weight (H, H),  bias (H,)
   block{i}.fc1 / fc2           (H, 4H) / (4H, H) with biases
 
-Activations are (S, B, H).  Attention is the flash kernel, non-causal,
-with the padding mask passed as segment ids (real tokens 1, pads 0), so
-padded keys are masked without an S² score matrix.  The MLP is fc1 →
-tanh-gelu → fc2; the MLM head is dense → tanh-gelu → LayerNorm → the
-tied embedding, the pooler a tanh, and the NSP term an fp32
+Activations are (S, B, H).  Attention is non-causal.  With
+`use_flash_attention=True` it is the flash kernel, with the padding mask
+passed as segment ids (real tokens 1, pads 0), so padded keys are masked
+without an S² score matrix.  Otherwise (the default, as in the JAX
+package) it is dense: the S² scores, the masked scaled softmax kernel
+with the (B, 1, 1, S) padding mask, the probabilities times v.  The MLP
+is fc1 → tanh-gelu → fc2; the MLM head is dense → tanh-gelu → LayerNorm
+→ the tied embedding, the pooler a tanh, and the NSP term an fp32
 log-softmax.
 
 The MLM logits are, as in the JAX package, a product of bf16 operands
@@ -45,6 +48,7 @@ from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.ops.softmax import scaled_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -155,19 +159,15 @@ def mlm_logits(x, w, out_dtype):
 class Bert:
     """The BERT encoder and its pretraining loss on one device ≡ the JAX
     package's `Bert` at tp=1, over the nested parameter dict of
-    `init_bert_params` / `params_from_jax`.  The dense attention path
-    (the `ops/softmax.py` kernel) is not ported yet and raises."""
+    `init_bert_params` / `params_from_jax`.  Attention follows
+    `use_flash_attention`: the flash kernel with segment ids, or (the
+    default) the dense path through the masked scaled softmax kernel."""
 
     def __init__(self, config: BertConfig):
         c = config
         if c.hidden % c.num_heads:
             raise ValueError(f"num_heads={c.num_heads} must divide "
                              f"hidden={c.hidden}")
-        if not c.use_flash_attention:
-            raise NotImplementedError(
-                "BERT's dense attention path needs the scaled masked "
-                "softmax kernel (apex_tpu/ops/softmax.py), which is not "
-                "ported yet: set use_flash_attention=True")
         self.c = c
         h, f = c.hidden, c.ffn_mult * c.hidden
         self.embed = VocabParallelEmbedding(c.vocab_size, h)
@@ -183,15 +183,22 @@ class Bert:
     def _ln(self, p, x):
         return fused_layer_norm(x, p["weight"], p["bias"])
 
-    def _attention(self, bp, qkv_mod, proj_mod, x, seg):
-        """x: (S, B, H), seg: (B, S) int32 segment ids → (S, B, H)."""
+    def _attention(self, bp, qkv_mod, proj_mod, x, attn_mask):
+        """x: (S, B, H) → (S, B, H).  attn_mask: the flash path's (B, S)
+        int32 segment ids, or the dense path's (B, 1, 1, S) bool padding
+        mask (True = padded)."""
         c = self.c
         s, b, _ = x.shape
         qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
         q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
-        ctx = flash_attention(q, k, v,
-                              softmax_scale=1.0 / math.sqrt(c.head_dim),
-                              segment_ids=seg)
+        scale = 1.0 / math.sqrt(c.head_dim)
+        if c.use_flash_attention:
+            ctx = flash_attention(q, k, v, softmax_scale=scale,
+                                  segment_ids=attn_mask)
+        else:
+            scores = torch.matmul(q, k.transpose(-2, -1))  # (B, nh, S, S)
+            probs = scaled_masked_softmax(scores, attn_mask, scale)
+            ctx = torch.matmul(probs, v)                   # (B, nh, S, d)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
         return proj_mod.apply(bp["proj"], ctx)
 
@@ -205,14 +212,20 @@ class Bert:
             tt = F.embedding(tokentype_ids.T, params["tokentype_embed"])
             h = h + tt.to(h.dtype)
         h = self._ln(params["embed_ln"], h)
-        # real tokens share one segment id, pads another: cross attention
-        # is masked without an S² score matrix
-        seg = (torch.ones_like(tokens, dtype=torch.int32) if pad_mask is None
-               else torch.logical_not(pad_mask).to(torch.int32))
+        if pad_mask is None:
+            pad_mask = torch.zeros_like(tokens, dtype=torch.bool)
+        if self.c.use_flash_attention:
+            # real tokens share one segment id, pads another: cross
+            # attention is masked without an S² score matrix
+            attn_mask = torch.logical_not(pad_mask).to(torch.int32)
+        else:
+            # (B, 1, 1, S): the softmax kernel reads it through its
+            # broadcast strides
+            attn_mask = pad_mask.to(torch.bool)[:, None, None, :]
         for i, (qkv_mod, proj_mod, fc1, fc2) in enumerate(self.blocks):
             bp = params[f"block{i}"]
             hn = self._ln(bp["ln1"], h)
-            h = h + self._attention(bp, qkv_mod, proj_mod, hn, seg)
+            h = h + self._attention(bp, qkv_mod, proj_mod, hn, attn_mask)
             hn = self._ln(bp["ln2"], h)
             m = F.gelu(fc1.apply(bp["fc1"], hn), approximate="tanh")
             h = h + fc2.apply(bp["fc2"], m)

@@ -18,9 +18,11 @@ Linear weights stay (in, out), so every product reads `x @ w` exactly
 as the JAX package's `_dot` does.
 
 `GPT` is the training forward of the JAX package's `GPT` on one device
-(tp=1): activations are (S, B, H), attention is the flash kernel
-(causal), the MLP is fc1 → tanh-gelu → fc2, the LM head is the tied
-embedding and the loss is the mean vocab-parallel cross entropy.
+(tp=1): activations are (S, B, H), attention is causal (the flash kernel
+with `use_flash_attention=True`, else the dense path: the S² scores,
+the fused causal softmax kernel, the probabilities times v), the MLP is
+fc1 → tanh-gelu → fc2, the LM head is the tied embedding and the loss is
+the mean vocab-parallel cross entropy.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+from apex_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -143,10 +146,12 @@ class GPT:
     `GPT` at tp=1, over the nested parameter dict of `init_gpt_params` /
     `params_from_jax`.
 
-    Dropout is not applied: the JAX package's `loss` applies it only
-    when given a key, and its train step passes none.  `remat=True`
-    (activation checkpointing) and the non-flash attention path (the
-    `ops/softmax.py` kernel) are not ported yet and raise."""
+    Attention follows `use_flash_attention`: the flash kernel, or (the
+    default, as in the JAX package) the dense path through the causal
+    scaled softmax kernel.  Dropout is not applied: the JAX package's
+    `loss` applies it only when given a key, and its train step passes
+    none.  `remat=True` (activation checkpointing) is not ported yet and
+    raises."""
 
     def __init__(self, config: GPTConfig):
         c = config
@@ -157,11 +162,6 @@ class GPT:
             raise NotImplementedError(
                 "GPTConfig.remat (activation checkpointing and the "
                 "remat_policy dials) is not ported yet")
-        if not c.use_flash_attention:
-            raise NotImplementedError(
-                "the non-flash attention path needs the scaled masked "
-                "softmax kernel (apex_tpu/ops/softmax.py), which is not "
-                "ported yet: set use_flash_attention=True")
         self.c = c
         h, f = c.hidden, c.ffn_mult * c.hidden
         self.embed = VocabParallelEmbedding(c.vocab_size, h)
@@ -183,13 +183,21 @@ class GPT:
         s, b, _ = x.shape
         qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
         q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
-        ctx = flash_attention(q, k, v, causal=True,
-                              softmax_scale=1.0 / math.sqrt(c.head_dim))
+        scale = 1.0 / math.sqrt(c.head_dim)
+        if c.use_flash_attention:
+            ctx = flash_attention(q, k, v, causal=True, softmax_scale=scale)
+        else:
+            # the two products stay GEMMs (XLA's einsums in the JAX
+            # package), each rounded once to the compute dtype
+            scores = torch.matmul(q, k.transpose(-2, -1))  # (B, nh, S, S)
+            probs = scaled_upper_triang_masked_softmax(
+                scores.reshape(-1, s, s), scale).reshape(scores.shape)
+            ctx = torch.matmul(probs, v)                   # (B, nh, S, d)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
         return proj_mod.apply(bp["proj"], ctx)
 
     def _block(self, i, params, x):
-        """ln1 → qkv → split heads → flash → proj → residual, then
+        """ln1 → qkv → split heads → attention → proj → residual, then
         ln2 → fc1 → tanh-gelu → fc2 → residual."""
         qkv_mod, proj_mod, fc1, fc2 = self.blocks[i]
         h = self._ln(params["ln1"], x)

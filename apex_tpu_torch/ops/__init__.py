@@ -2,14 +2,15 @@
 PyTorch version (the CPU path and the on-card reference).
 
 Mirrors `apex_tpu.ops`; only the modules of the ported slices exist so
-far (layer_norm, flash_decode, flash_attention, optimizer_kernels,
-fused_dense, xentropy, welford, pooling).
+far (layer_norm, flash_decode, flash_attention, softmax,
+optimizer_kernels, fused_dense, xentropy, welford, pooling).
 """
 
 _LAZY = {
     "layer_norm": "apex_tpu_torch.ops.layer_norm",
     "flash_decode": "apex_tpu_torch.ops.flash_decode",
     "flash_attention": "apex_tpu_torch.ops.flash_attention",
+    "softmax": "apex_tpu_torch.ops.softmax",
     "optimizer_kernels": "apex_tpu_torch.ops.optimizer_kernels",
     "fused_dense": "apex_tpu_torch.ops.fused_dense",
     "xentropy": "apex_tpu_torch.ops.xentropy",

@@ -1,8 +1,8 @@
 """Fused optimizer kernels over flat 1-D buffers (counterpart of
-apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update, the
-two LAMB phases with their per-tensor norms and SGD with momentum are
-ported so far — the LAMB and SGD halves are described at their sections
-below).
+apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update, Adam
+with per-tensor weight decay and lr scales, the two LAMB phases with
+their per-tensor norms and SGD with momentum are ported so far — all but
+the uniform Adam are described at their sections below).
 
 `adam_flat` applies one Adam/AdamW step to flat param / exp_avg /
 exp_avg_sq buffers IN PLACE (the port's answer to JAX's donation), from
@@ -222,6 +222,151 @@ def adam_flat(p, m, v, g, lr, step, *, beta1=0.9, beta2=0.999, eps=1e-8,
                             adam_w_mode)
 
 
+# ------------------------- Adam with per-tensor groups -----------------------
+#
+# `adam_flat_seg` (≡ the JAX package's `adam_flat_seg`) is `adam_flat` with
+# a weight decay and an lr multiplier per tensor: the param groups of
+# apex's FusedAdam (Megatron's no-decay group for biases and norms, or
+# per-layer lr scales) in one pass.  The buffers are laid out by a
+# lane-aligned spec, so a tensor is a run of rows of 128 and the kernel
+# finds a row's values through `segment_tables(spec, n_rows)["seg"]` and
+# the per-tensor tables built by `_table`.  Padding rows get the dummy
+# tensor id, whose weight decay AND lr scale are 0: the zero tail never
+# moves.  L2 mode adds wd·p to the gradient, AdamW mode to the update;
+# p -= (lr_eff · lr_scale) · update.
+#
+# Kernel note.  Replaces apex_tpu/ops/optimizer_kernels.py:_adam_seg_kernel
+# (launched by adam_flat_seg).  What bounds it on an H100: bytes — per
+# element it reads p, m, v, g and writes p, m, v (14 bytes with bf16 state
+# and grads), plus 4 bytes of tensor id per row of 128, for ~17 flops.
+# Design: `_adam_kernel`'s body over programs of 32 rows of 128, with the
+# per-row wd and lr scale gathered from the two tables (the TPU kernel
+# rebuilds them with a one-hot product on the MXU); the nine folded
+# scalars are read once per program from a device tensor, so the step
+# makes no host sync.  fp32 math with the IEEE square root and divide,
+# stores rounded to nearest-even and fp-contraction off: the kernel
+# evaluates the plain version's operations one by one, and the two agree
+# bit for bit.
+
+def _adam_seg_reference(p, m, v, g, scalars, eps, adam_w_mode, wd_rows,
+                        lrs_rows):
+    """The segmented update in plain PyTorch with the per-row (fp32, one
+    value per row of 128) weight decay and lr scale (≡ the JAX package's
+    `_adam_seg_reference`, which takes them per element); returns
+    (p, m, v) new, in their own dtypes."""
+    (lr_eff, inv_scale, b1e, c1, b2e, c2, rbc1, rbc2,
+     found) = scalars.unbind(0)
+    wd = wd_rows[:, None]
+    g = torch.where(found > 0.5, 0.0,
+                    g.float().view(-1, _LANES) * inv_scale)
+    p32 = p.float().view(-1, _LANES)
+    if not adam_w_mode:
+        g = g + wd * p32
+    m_new = b1e * m.float().view(-1, _LANES) + c1 * g
+    v_new = b2e * v.float().view(-1, _LANES) + c2 * (g * g)
+    update = (m_new * rbc1) / (torch.sqrt(v_new * rbc2) + eps)
+    if adam_w_mode:
+        update = update + wd * p32
+    p_new = p32 - (lr_eff * lrs_rows)[:, None] * update
+    return (p_new.view(-1).to(p.dtype), m_new.view(-1).to(m.dtype),
+            v_new.view(-1).to(v.dtype))
+
+
+def _adam_seg_kernel(P, M, V, G, S, SEG, WDT, LRT, n, eps,
+                     ADAM_W: tl.constexpr, ROWS: tl.constexpr,
+                     LANES: tl.constexpr):
+    rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
+    offs = rows.to(tl.int64)[:, None] * LANES + tl.arange(0, LANES)[None, :]
+    mask = offs < n
+    lr_eff = tl.load(S + 0)
+    inv_scale = tl.load(S + 1)
+    b1e = tl.load(S + 2)
+    c1 = tl.load(S + 3)
+    b2e = tl.load(S + 4)
+    c2 = tl.load(S + 5)
+    rbc1 = tl.load(S + 6)
+    rbc2 = tl.load(S + 7)
+    found = tl.load(S + 8)
+    seg = tl.load(SEG + rows, mask=rows * LANES < n, other=0)
+    wd = tl.load(WDT + seg)[:, None]
+    step = (lr_eff * tl.load(LRT + seg))[:, None]      # lr · scale, per row
+    g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    m = tl.load(M + offs, mask=mask, other=0.0).to(tl.float32)
+    v = tl.load(V + offs, mask=mask, other=0.0).to(tl.float32)
+    # the one select: inf/nan grads would poison m/v through 0 * inf
+    g = tl.where(found > 0.5, 0.0, g * inv_scale)
+    if not ADAM_W:
+        g = g + wd * p
+    m_new = b1e * m + c1 * g
+    v_new = b2e * v + c2 * (g * g)
+    update = tl.div_rn(m_new * rbc1, tl.sqrt_rn(v_new * rbc2) + eps)
+    if ADAM_W:
+        update = update + wd * p
+    p_new = p - step * update
+    tl.store(P + offs, p_new.to(P.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    tl.store(M + offs, m_new.to(M.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    tl.store(V + offs, v_new.to(V.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+
+
+def adam_flat_seg_triton(p, m, v, g, scalars, eps, adam_w_mode, seg, wdt,
+                         lrt):
+    """Launch the segmented Adam kernel over CUDA flat buffers, updating
+    p, m and v in place: `seg` the int32 tensor id per row, `wdt` and
+    `lrt` the fp32 per-tensor weight decay and lr scale (dummy 0 last).
+    `adam_flat_seg_triton.launches` counts launches."""
+    n = _check_flat("adam seg kernel", _LANES, p=p, m=m, v=v, g=g)
+    _check_scalars("adam seg kernel", scalars, 9)
+    if seg.dtype != torch.int32 or seg.numel() != n // _LANES:
+        raise ValueError("adam seg kernel needs an int32 tensor id per row")
+    if wdt.numel() != lrt.numel():
+        raise ValueError("adam seg kernel: wd and lr-scale tables differ in "
+                         "length")
+    if n:
+        _jit(_adam_seg_kernel)[(-(-n // (_ROWS * _LANES)),)](
+            p, m, v, g, scalars, seg, wdt, lrt, n, float(eps),
+            ADAM_W=bool(adam_w_mode), ROWS=_ROWS, LANES=_LANES, num_warps=8,
+            enable_fp_fusion=False)
+    adam_flat_seg_triton.launches += 1
+    return p, m, v
+
+
+adam_flat_seg_triton.launches = 0
+
+
+def adam_flat_seg(p, m, v, g, lr, step, *, wd_values, lr_scale_values, spec,
+                  beta1=0.9, beta2=0.999, eps=1e-8, adam_w_mode=True,
+                  bias_correction=True, inv_scale=1.0, found_inf=False):
+    """`adam_flat` with per-tensor weight decay `wd_values` and lr scale
+    `lr_scale_values` ((n_tensors,) each, device tensors or arrays),
+    looked up per row from the lane-aligned `spec` (≡ the JAX package's
+    `adam_flat_seg` on one device), IN PLACE.  Returns (p, m, v) — the
+    same tensors, updated.  CPU tensors run the plain version; CUDA
+    tensors run the Triton kernel or raise."""
+    scalars = _adam_fold_scalars(lr, step, beta1, beta2, bias_correction,
+                                 inv_scale, found_inf, device=p.device)
+    wdt = _table(wd_values, p.device)
+    lrt = _table(lr_scale_values, p.device)
+    for what, t in (("wd values", wdt), ("lr scales", lrt)):
+        if t.numel() != len(spec.sizes) + 1:
+            raise ValueError(f"{t.numel() - 1} {what} for "
+                             f"{len(spec.sizes)} tensors")
+    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    if not check_kernel_device(p, m, v, g):
+        rows = seg.long()
+        pn, mn, vn = _adam_seg_reference(p, m, v, g, scalars, eps,
+                                         adam_w_mode, wdt[rows], lrt[rows])
+        p.copy_(pn)
+        m.copy_(mn)
+        v.copy_(vn)
+        return p, m, v
+    return adam_flat_seg_triton(p, m, v, g, scalars, eps, adam_w_mode, seg,
+                                wdt, lrt)
+
+
 # ------------------------------ LAMB (two-phase) -----------------------------
 #
 # FusedLAMB's step is five passes over the flat buffers (counterpart of
@@ -307,8 +452,9 @@ def _lamb_fold_scalars(clip_ratio, step, beta1, beta2, bias_correction,
 def _row_segment_ids(spec):
     """Tensor id of every row of the spec's (lane-aligned) buffer."""
     if spec.align % _LANES:
-        raise ValueError(f"LAMB needs a lane-aligned spec (align a multiple "
-                         f"of {_LANES}), got align={spec.align}")
+        raise ValueError(f"the segmented kernels need a lane-aligned spec "
+                         f"(align a multiple of {_LANES}), got "
+                         f"align={spec.align}")
     bounds = list(spec.offsets) + [spec.total]
     rows = [(bounds[i + 1] - bounds[i]) // _LANES
             for i in range(len(spec.offsets))]

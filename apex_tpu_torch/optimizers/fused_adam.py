@@ -13,10 +13,12 @@ there is no host sync.
 `master_dtype` is the flat buffers' dtype: fp32 (the master copy), or
 bf16 for params and moments at 6 bytes per parameter.
 
-Per-leaf weight decay and lr scales (`wd_mask`, `lr_scales`) need the
-segmented kernel `adam_flat_seg` (apex_tpu/ops/optimizer_kernels.py
-`_adam_seg_kernel`), which is not ported yet: they raise
-NotImplementedError.
+Per-leaf weight decay and lr scales (`wd_mask`, `lr_scales`) are
+apex's param groups in one pass: with either one, the flat buffers are
+laid out by a lane-aligned spec (every tensor owns whole rows of 128),
+the per-tensor values are resolved once at `init`, and each step is one
+launch of the segmented kernel `adam_flat_seg`.  Without them a step is
+one launch of the uniform kernel `adam_flat`.
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ class FusedAdamState(NamedTuple):
 class FusedAdam:
     """opt = FusedAdam(lr=...); state = opt.init(params);
     params, state = opt.step(state, grads[, lr=, inv_scale=, found_inf=]).
-    """
+
+    wd_mask / lr_scales: optional per-leaf trees of the params'
+    structure; wd_mask leaves (bool or float) multiply `weight_decay` per
+    tensor (pass `get_params_for_weight_decay_optimization(params)` for
+    the no-decay-for-bias/norm groups), lr_scales leaves multiply `lr`
+    per tensor."""
 
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
                  eps=1e-8, adam_w_mode=True, weight_decay=0.0,
@@ -48,11 +55,6 @@ class FusedAdam:
         if amsgrad:
             raise RuntimeError(
                 "FusedAdam does not support the AMSGrad variant.")
-        if wd_mask is not None or lr_scales is not None:
-            raise NotImplementedError(
-                "per-leaf wd_mask / lr_scales need the segmented Adam "
-                "kernel (adam_flat_seg, apex_tpu/ops/optimizer_kernels.py "
-                "_adam_seg_kernel), which is not ported yet")
         self.lr = lr
         self.bias_correction = bias_correction
         self.beta1, self.beta2 = betas
@@ -60,16 +62,36 @@ class FusedAdam:
         self.adam_w_mode = adam_w_mode
         self.weight_decay = weight_decay
         self.master_dtype = master_dtype
+        self.wd_mask = wd_mask
+        self.lr_scales = lr_scales
+        self._seg_wd: Optional[torch.Tensor] = None
+        self._seg_lrs: Optional[torch.Tensor] = None
         self.spec: Optional[F.FlatSpec] = None
+
+    @property
+    def _per_leaf(self) -> bool:
+        return self.wd_mask is not None or self.lr_scales is not None
 
     def init(self, params) -> FusedAdamState:
         """Flat state for `params` (a nested dict of tensors), on the
         params' device: a fresh copy of the params in `master_dtype` and
-        two distinct zero moment buffers."""
-        self.spec = F.make_spec(params)
-        flat = F.flatten(params, self.master_dtype, pad_to=K.FLAT_TILE)
+        two distinct zero moment buffers.  With per-leaf values the
+        layout is lane-aligned and the per-tensor tables the kernel
+        reads are built here, once."""
+        align = K._LANES if self._per_leaf else 1
+        self.spec = F.make_spec(params, align=align)
+        flat = F.flatten(params, self.master_dtype, pad_to=K.FLAT_TILE,
+                         align=align)
+        dev = flat.device
+        if self._per_leaf:
+            seg_wd, seg_lrs = F.resolve_per_leaf(
+                self.wd_mask, self.lr_scales, self.weight_decay, params,
+                type(self).__name__)
+            self._seg_wd = torch.from_numpy(seg_wd).to(dev)
+            self._seg_lrs = torch.from_numpy(seg_lrs).to(dev)
+            K.segment_tables(self.spec, flat.numel() // K._LANES, dev)
         return FusedAdamState(
-            step=torch.zeros((), dtype=torch.int32, device=flat.device),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
             params=flat, exp_avg=torch.zeros_like(flat),
             exp_avg_sq=torch.zeros_like(flat))
 
@@ -99,13 +121,20 @@ class FusedAdam:
                              f"the params buffer {tuple(state.params.shape)}")
         found = K.device_scalar(found_inf, torch.bool, state.params.device)
         step_next = state.step + (~found).to(torch.int32)
-        p, m, v = K.adam_flat(
-            state.params, state.exp_avg, state.exp_avg_sq, g_flat,
-            lr=self.lr if lr is None else lr, step=step_next,
-            beta1=self.beta1, beta2=self.beta2, eps=self.eps,
-            weight_decay=self.weight_decay, adam_w_mode=self.adam_w_mode,
-            bias_correction=self.bias_correction, inv_scale=inv_scale,
-            found_inf=found)
+        kw = dict(lr=self.lr if lr is None else lr, step=step_next,
+                  beta1=self.beta1, beta2=self.beta2, eps=self.eps,
+                  adam_w_mode=self.adam_w_mode,
+                  bias_correction=self.bias_correction, inv_scale=inv_scale,
+                  found_inf=found)
+        if self._per_leaf:
+            p, m, v = K.adam_flat_seg(
+                state.params, state.exp_avg, state.exp_avg_sq, g_flat,
+                wd_values=self._seg_wd, lr_scale_values=self._seg_lrs,
+                spec=self.spec, **kw)
+        else:
+            p, m, v = K.adam_flat(
+                state.params, state.exp_avg, state.exp_avg_sq, g_flat,
+                weight_decay=self.weight_decay, **kw)
         new_state = FusedAdamState(step=step_next, params=p, exp_avg=m,
                                    exp_avg_sq=v)
         return F.unflatten(p, self.spec), new_state

@@ -19,7 +19,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  ragged (64, 50304); SGD over the ResNet-50 flat buffer
                  (every flag, a first and a found_inf step); the channel
                  sums at ResNet's largest and smallest batch-norm shapes
-                 against fp64 sums.
+                 against fp64 sums; the softmax pair at GPT's causal
+                 (192, 1024, 1024) and BERT's (32, 16, 512, 512) with a
+                 ragged (32, 1, 1, 512) padding mask (8 sequences padded
+                 entirely: uniform rows) in bf16, and in fp32 at ragged
+                 widths up to 20000, past the single-block cap; the
+                 segmented Adam over the GPT-350M flat buffer in bf16
+                 and fp32 (the no-decay wd, lr scales, AdamW and L2, a
+                 found_inf step), bit for bit.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -65,7 +72,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  img/s, peak memory and one profiled step.  One step
                  through the kernels agrees with the same step through
                  the plain versions (full width, batch 8).
-  8. table       the kernels' times on the card (CUDA events) beside
+  8. dense       GPT-350M's default dense-attention step at full width
+                 (phase 5's configuration with use_flash_attention=False
+                 and FusedAdam(lr=1e-4, weight_decay=0.01, master bf16)
+                 with the no-decay wd_mask), two warm-up and five timed
+                 steps on one seeded batch; the loss is finite and falls,
+                 the launch counters prove every step ran 24 softmax
+                 forwards and backwards, 49 LayerNorm forwards and
+                 backwards, one segmented Adam and no flash kernel or
+                 uniform Adam, with no host sync; tokens/s, peak memory
+                 and one profiled step.  Then three BERT-Large steps of
+                 phase 6's step with its default dense attention (24
+                 masked softmax forwards and backwards a step, no
+                 flash): sequences/s and peak memory.  A 2-layer step of
+                 each through the kernels agrees with the same step
+                 through the plain versions (full width, batch 2; BERT
+                 with ragged padding).
+  9. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -444,6 +467,185 @@ def check_adam(torch, ok, rng, n, dtype, weight_decay):
     return worst
 
 
+def check_softmax(torch, sm, rng, shape, dtype, scale, *, causal=False,
+                  mask=None):
+    """Both softmax kernels against their plain versions on one seeded
+    input (scores 4·N(0, 1), N(0, 1) cotangents).  Tolerances: fp32 y
+    within 2e-6 relative (the kernel's exp is the hardware `ex2.approx`,
+    the plain version's `expf`; 1e-30 absolute for results that
+    underflow); bf16 y within one bf16 ulp of the plain value.  dx:
+    that, plus scale·|y|·1e-5·Σ|g·y| (Σ g·y is summed in fp32 in another
+    order, and g - Σ cancels).  Returns the largest errors (fwd, bwd)
+    and the number of rows whose every key is masked (they must come out
+    uniform)."""
+    dev = "cuda"
+    x = (torch.randn(shape, generator=rng, device=dev) * 4).to(dtype)
+    g = torch.randn(shape, generator=rng, device=dev).to(dtype)
+    y = sm.softmax_fwd_triton(x, mask, scale, causal)
+    yr = sm.softmax_fwd_reference(x, mask, scale, causal)
+    torch.cuda.synchronize()
+    check(y.dtype == dtype and y.shape == x.shape, "softmax shape/dtype")
+    del x
+    what = (f"softmax {tuple(shape)} {dtype} causal={causal} "
+            f"mask={mask is not None}")
+
+    def tol_of(ref):
+        if dtype == torch.float32:
+            return 2e-6 * ref.abs() + 1e-30
+        return ulp(torch, ref, dtype)
+
+    yr32 = yr.float()
+    err = (y.float() - yr32).abs()
+    check(bool((err <= tol_of(yr32)).all()),
+          f"{what} fwd: max err {err.max().item():.3e}")
+    fwd_err = err.max().item()
+    dead = 0
+    if mask is not None:
+        full = mask.expand(shape).all(dim=-1)
+        dead = int(full.sum().item())
+        if dead:
+            uni = y.float()[full]
+            check(bool((uni == yr32[full]).all())
+                  and bool((uni - 1.0 / shape[-1]).abs().max() <= 1e-7),
+                  f"{what}: a fully masked row is not uniform")
+        del full
+    del err, yr, yr32
+    dx = sm.softmax_bwd_triton(g, y, scale)
+    dxr = sm.softmax_bwd_reference(g, y, scale)
+    torch.cuda.synchronize()
+    check(dx.dtype == dtype and dx.shape == g.shape, "softmax bwd shape")
+    y32 = y.float()
+    slack = (scale * y32.abs() * 1e-5
+             * torch.sum((g.float() * y32).abs(), dim=-1, keepdim=True))
+    dxr32 = dxr.float()
+    err = (dx.float() - dxr32).abs()
+    check(bool((err <= tol_of(dxr32) + slack).all()),
+          f"{what} bwd: max err {err.max().item():.3e}")
+    return fwd_err, err.max().item(), dead
+
+
+def dense_kernel_checks(torch, sm, rng):
+    """Phase 2's softmax cases: GPT's causal (192, 1024, 1024) and BERT's
+    (32, 16, 512, 512) with the ragged (32, 1, 1, 512) padding mask
+    (512/300/129/0 real tokens: 8 sequences padded entirely, whose rows
+    must come out uniform) in bf16; then fp32 at ragged widths (1, 7,
+    1000, and 20000 and 9000 past the single-block cap), masks of
+    (B, 1, S, S) and of leading dims that do not fold into three, and a
+    small causal bf16.  Returns the errors at the main shapes."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    sc = 0.125
+    errs = {}
+    fwd, bwd, _ = check_softmax(torch, sm, rng, (192, 1024, 1024), bf16, sc,
+                                causal=True)
+    errs["softmax_fwd"], errs["softmax_bwd"] = fwd, bwd
+    log(f"softmax (192,1024,1024) causal bf16: max err fwd {fwd:.3e} "
+        f"bwd {bwd:.3e}")
+    pad = pad_segments(torch, BERT_BATCH, BERT_SEQ, [512, 300, 129, 0]) == 0
+    fwd, bwd, dead = check_softmax(torch, sm, rng,
+                                   (BERT_BATCH, 16, BERT_SEQ, BERT_SEQ),
+                                   bf16, sc, mask=pad[:, None, None, :])
+    check(dead == 8 * 16 * BERT_SEQ, f"{dead} fully masked rows")
+    errs["softmax_fwd_bert"], errs["softmax_bwd_bert"] = fwd, bwd
+    log(f"softmax (32,16,512,512) padding mask bf16: max err fwd "
+        f"{fwd:.3e} bwd {bwd:.3e}, {dead} uniform rows")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [((3, 5, 1), None, False), ((4, 3, 7), None, False),
+             ((2, 33, 1000), None, False), ((2, 3, 20000), None, False),
+             ((1, 9000, 9000), None, True),
+             ((2, 1, 3, 20000), (2, 1, 1, 20000), False),
+             ((2, 3, 40, 40), (2, 1, 40, 40), False),
+             ((2, 3, 4, 5, 7), (2, 1, 4, 1, 7), False)]
+    for shape, mshape, causal in cases:
+        mask = (None if mshape is None else
+                torch.rand(mshape, generator=g, device="cuda") < 0.3)
+        fwd, bwd, dead = check_softmax(torch, sm, rng, shape, f32, 0.3,
+                                       causal=causal, mask=mask)
+        log(f"softmax {shape} fp32 causal={causal} mask={mshape}: max err "
+            f"fwd {fwd:.3e} bwd {bwd:.3e}, {dead} uniform rows")
+    fwd, bwd, _ = check_softmax(torch, sm, rng, (3, 77, 77), bf16, sc,
+                                causal=True)
+    log(f"softmax (3,77,77) causal bf16: max err fwd {fwd:.3e} "
+        f"bwd {bwd:.3e}")
+    return errs
+
+
+def gpt350m_layout(torch):
+    """The GPT-350M flat layout as FusedAdam lays it out with a wd_mask
+    (lane-aligned spec, FLAT_TILE-padded length) and the no-decay
+    recipe's per-tensor weight decay (Megatron's 0.01), from the seed-0
+    model."""
+    from apex_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from apex_tpu_torch.ops import optimizer_kernels as ok
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+
+    params = init_gpt_params(GPTConfig(dtype=torch.bfloat16))
+    spec = F.make_spec(params, align=128)
+    n = -(-spec.total // ok.FLAT_TILE) * ok.FLAT_TILE
+    seg_wd, _ = F.resolve_per_leaf(
+        get_params_for_weight_decay_optimization(params), None, 0.01,
+        params, "chip_smoke")
+    check((len(spec.sizes), sum(spec.sizes), n, int((seg_wd > 0).sum()))
+          == (292, 354_871_296, 354_877_440, 98),
+          "GPT-350M flat layout drifted")
+    return spec, n, seg_wd
+
+
+def check_adam_seg(torch, ok, rng, spec, n, seg_wd, dtype):
+    """The segmented Adam kernel against `_adam_seg_reference` on one
+    GPT-350M flat buffer in `dtype` (zero padding, as FusedAdam lays it
+    out; bf16 grads): AdamW with the no-decay wd and unit lr scales, L2
+    mode with lr scales in [0.5, 1.5) per tensor, and a found_inf step
+    (an inf grad: p, m and v kept bit for bit).  Every case bit for bit
+    against the plain version, and the padding tail stays zero.  Returns
+    the largest error (0.0 when every case is exact)."""
+    dev = "cuda"
+    real = torch.zeros(n, dtype=torch.bool, device=dev)
+    for off, size in zip(spec.offsets, spec.sizes):
+        real[off:off + size] = True
+
+    def buf(scale, dt=dtype, absval=False):
+        x = torch.randn((n,), generator=rng, device=dev) * scale
+        return torch.where(real, x.abs() if absval else x, 0.0).to(dt)
+
+    p, m, v = buf(0.05), buf(0.01), buf(1e-4, absval=True)
+    g = buf(1.0, torch.bfloat16)
+    del real
+    seg = ok.segment_tables(spec, n // 128, dev)["seg"]
+    rows = seg.long()
+    wdt = ok._table(seg_wd, dev)
+    ones = ok._table(torch.ones(len(spec.sizes), device=dev), dev)
+    scales = ok._table(0.5 + torch.rand(len(spec.sizes), generator=rng,
+                                        device=dev), dev)
+    worst = 0.0
+    for adam_w, lrt, found in ((True, ones, False), (False, scales, False),
+                               (True, scales, True)):
+        gg = g
+        if found:
+            gg = g.clone()
+            gg[12345] = float("inf")
+        sc = ok._adam_fold_scalars(1e-4, 3, 0.9, 0.999, True, 1.0, found,
+                                   device=dev)
+        ref = ok._adam_seg_reference(p, m, v, gg, sc, 1e-8, adam_w,
+                                     wdt[rows], lrt[rows])
+        got = ok.adam_flat_seg_triton(p.clone(), m.clone(), v.clone(), gg,
+                                      sc, 1e-8, adam_w, seg, wdt, lrt)
+        torch.cuda.synchronize()
+        for name, a, r, before in zip("pmv", got, ref, (p, m, v)):
+            worst = max(worst, (a.float() - r.float()).abs().max().item())
+            check(torch.equal(a, r),
+                  f"adam_flat_seg {name} {dtype} adam_w={adam_w} "
+                  f"found={found}: not bit for bit the plain version")
+            check(bool((a[spec.total:] == 0).all()),
+                  f"adam_flat_seg moved the padding of {name}")
+            if found:
+                check(torch.equal(a, before),
+                      f"adam_flat_seg: a found_inf step moved {name}")
+        del ref, got, gg
+    return worst
+
+
 def check_xent(torch, xe, rng, rows, v, smoothing, dtype):
     """Both cross-entropy kernels against their plain versions on one
     seeded input (logits 3·N(0, 1), uniform labels, N(0, 1) cotangents).
@@ -590,11 +792,16 @@ def profile_decode(torch, np, build_flagship_engine, params, steps=4):
 
 
 def training_kernels(fa, ln, ok):
+    from apex_tpu_torch.ops import softmax as sm
+
     return {"flash_attention_fwd": fa.flash_fwd_cuda,
             "flash_attention_bwd": fa.flash_bwd_cuda,
             "layer_norm_fwd": ln.norm_fwd_triton,
             "layer_norm_bwd": ln.norm_bwd_triton,
+            "softmax_fwd": sm.softmax_fwd_triton,
+            "softmax_bwd": sm.softmax_bwd_triton,
             "adam": ok.adam_flat_triton,
+            "adam_seg": ok.adam_flat_seg_triton,
             "lamb_phase1": ok.lamb_phase1_triton,
             "lamb_phase1_seg": ok.lamb_phase1_seg_triton,
             "rows_sumsq_seg": ok.rows_sumsq_seg_triton,
@@ -684,11 +891,18 @@ def profile_step(torch, step, state, args, names):
         "top_aten_ops_ms": {k: v / 1e3 for k, v in ops[:15]}}
 
 
-def train_phase(torch, fa, ln, ok, steps=5):
-    """The training step at full width (module docstring, phase 5).
-    Returns the measurements and the per-step launch counts."""
+def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
+                    opt_swaps, per_step, names, warmup, steps):
+    """The GPT-350M training step at full width (module docstring,
+    phases 5 and 8): bf16, batch 12 x seq 1024, bf16 logits, seed-0
+    weights, `flash` attention or the dense path, the optimizer of
+    `make_opt(params)` (`opt_desc` says which); `warmup` steps, then
+    `steps` timed ones on one seeded batch.  Checks the losses and the launch counts (`per_step`
+    each step), takes a step with no host sync and a profiled one
+    (`names`: the kernels to sum), and compares a 2-layer step through
+    the kernels with the plain step (`opt_swaps`: the optimizer's plain
+    stand-ins).  Returns the measurements and that comparison."""
     from apex_tpu_torch.models import gpt as gpt_mod
-    from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.transformer.training import (
         init_sharded_optimizer, make_tp_dp_train_step)
 
@@ -697,10 +911,12 @@ def train_phase(torch, fa, ln, ok, steps=5):
     cfg = gpt_mod.GPTConfig(
         vocab_size=50304, seq_len=seq, hidden=1024, num_layers=24,
         num_heads=16, dropout=0.0, dtype=bf16, logits_dtype=bf16,
-        use_flash_attention=True)
+        use_flash_attention=flash)
     model = gpt_mod.GPT(cfg)
-    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
-    state = init_sharded_optimizer(opt, model, model.init(seed=0))
+    params = model.init(seed=0)
+    opt = make_opt(params)
+    state = init_sharded_optimizer(opt, model, params)
+    del params
     n_params = sum(opt.spec.sizes)
     step = make_tp_dp_train_step(model, opt)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -712,12 +928,13 @@ def train_phase(torch, fa, ln, ok, steps=5):
     reset_kernel_counts(fa, ln, ok)
     losses = []
     t_first = time.perf_counter()
-    state, loss = step(state, tokens, labels)          # builds the kernels
-    losses.append(loss)
+    for _ in range(warmup):                        # builds the kernels
+        state, loss = step(state, tokens, labels)
+        losses.append(loss)
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t_first
+    warm_s = time.perf_counter() - t_first
     t0 = time.perf_counter()
-    for _ in range(steps - 1):
+    for _ in range(steps):
         state, loss = step(state, tokens, labels)
         losses.append(loss)
     torch.cuda.synchronize()
@@ -725,63 +942,40 @@ def train_phase(torch, fa, ln, ok, steps=5):
     counts = kernel_counts(fa, ln, ok)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    log(f"train losses {losses}")
-    check(all(math.isfinite(x) for x in losses), "a training loss is not "
+    log(f"{what} losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"a {what} loss is not "
           "finite")
-    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
-    check(int(state.step) == steps, f"optimizer step {int(state.step)}")
-    per_step = {"flash_attention_fwd": cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers,
-                "layer_norm_fwd": 2 * cfg.num_layers + 1,
-                "layer_norm_bwd": 2 * cfg.num_layers + 1, "adam": 1}
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    total = warmup + steps
+    check(int(state.step) == total, f"optimizer step {int(state.step)}")
     for name, n in per_step.items():
-        check(counts[name] == n * steps,
-              f"{name}: {counts[name]} launches in {steps} steps, want "
-              f"{n} per step")
-
+        check(counts[name] == n * total,
+              f"{what} {name}: {counts[name]} launches in {total} steps, "
+              f"want {n} per step")
     state, syncs = step_without_sync(torch, step, state, tokens, labels)
-    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
-             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
-             "adam": lambda k: k == "_adam_kernel"}
     state, profile_line = profile_step(torch, step, state, (tokens, labels),
                                        names)
     del state, opt, step
     torch.cuda.empty_cache()
     result = {
-        "config": "GPT-350M bf16, batch 12 x seq 1024, bf16 logits, "
-                  "FusedAdam(lr=1e-4, master bf16)",
-        "params": n_params, "steps": steps, "losses": losses,
-        "first_step_s": first_s,
-        "step_ms": 1e3 * window_s / (steps - 1),
-        "tokens_per_s": batch * seq * (steps - 1) / window_s,
+        "config": f"GPT-350M bf16, batch 12 x seq 1024, bf16 logits, "
+                  f"{'flash' if flash else 'dense'} attention, {opt_desc}",
+        "params": n_params, "warmup_steps": warmup, "steps": steps,
+        "losses": losses, "warmup_s": warm_s,
+        "step_ms": 1e3 * window_s / steps,
+        "tokens_per_s": batch * seq * steps / window_s,
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
         "launches": counts,
         "launches_per_step": per_step, "profile": profile_line}
-    return result, compare_train_step(torch, fa, ln, ok, gpt_mod, cfg,
-                                      tokens[:2], labels[:2])
+    return result, compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what,
+                                      make_opt, opt_swaps, tokens[:2],
+                                      labels[:2])
 
 
-def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
-    """One full-width step of a 2-layer model at batch 2 through the
-    kernels and through their plain versions (swapped in for the run),
-    from the same seed-0 weights.  Compares the loss, each leaf's
-    gradient (relative L2 error) and the updated flat params."""
-    import dataclasses
-
+def train_phase(torch, fa, ln, ok):
+    """Phase 5: the flash step with FusedAdam(lr=1e-4, master bf16), one
+    warm-up step and four timed ones (five in all, as before)."""
     from apex_tpu_torch.optimizers import FusedAdam
-    from apex_tpu_torch.transformer.training import (
-        init_sharded_optimizer, make_tp_dp_train_step)
-
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    model = gpt_mod.GPT(cfg2)
-    params = model.init(seed=0)
-
-    def plain_flash(q, k, v, *, causal, softmax_scale):
-        return fa.attention_reference(q, k, v, causal=causal,
-                                      softmax_scale=softmax_scale)
 
     def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
         for buf, new in zip((p, m, v), ok._adam_reference(
@@ -789,8 +983,37 @@ def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
             buf.copy_(new)
         return p, m, v
 
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "adam": lambda k: k == "_adam_kernel"}
+    return gpt_train_phase(
+        torch, fa, ln, ok, "train", True,
+        lambda params: FusedAdam(lr=1e-4, master_dtype=torch.bfloat16),
+        "FusedAdam(lr=1e-4, master bf16)",
+        [(ok, "adam_flat_triton", plain_adam)], per_step, names,
+        warmup=1, steps=4)
+
+
+def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
+                          loss_fn, swaps, tokens, labels):
+    """One training step through the kernels and one through their plain
+    versions (`swaps`: (module, name, plain stand-in) set for the plain
+    run), from the same weights (`model.init(seed=0)`) and a fresh
+    optimizer each (`make_opt(params)`).  Compares the loss, each leaf's
+    gradient (relative L2 error) and the updated flat params, with the
+    limits of the flash step's comparison (phase 5)."""
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    params = model.init(seed=0)
+
     def run(plain):
-        opt = FusedAdam(lr=1e-4, master_dtype=cfg.dtype)
+        opt = make_opt(params)
         state = init_sharded_optimizer(opt, model, params)
         seen = {}
         step_flat = opt.step_flat
@@ -800,32 +1023,30 @@ def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
             return step_flat(st, g_flat, **kw)
 
         opt.step_flat = capture
-        step = make_tp_dp_train_step(model, opt)
-        saved = (gpt_mod.flash_attention, gpt_mod.fused_layer_norm,
-                 ok.adam_flat_triton)
+        step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         if plain:
-            gpt_mod.flash_attention = plain_flash
-            gpt_mod.fused_layer_norm = ln.layer_norm_reference
-            ok.adam_flat_triton = plain_adam
+            for mod, name, fn in swaps:
+                setattr(mod, name, fn)
         try:
             state, loss = step(state, tokens, labels)
         finally:
-            (gpt_mod.flash_attention, gpt_mod.fused_layer_norm,
-             ok.adam_flat_triton) = saved
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
         return float(loss), seen["g"], state.params, opt.spec
 
     before = kernel_counts(fa, ln, ok)
     loss_p, g_p, p_p, spec = run(plain=True)
     check(kernel_counts(fa, ln, ok) == before,
-          "the plain step launched a kernel")
+          f"the plain {what} step launched a kernel")
     loss_k, g_k, p_k, _ = run(plain=False)
     torch.cuda.synchronize()
     grad_rel = {}
     for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
         a = g_k[off:off + size].float()
         r = g_p[off:off + size].float()
-        grad_rel["/".join(path)] = ((a - r).norm()
-                                    / r.norm().clamp_min(1e-30)).item()
+        if r.norm().item() > 0:        # token types: unused, zero grads
+            grad_rel["/".join(path)] = ((a - r).norm() / r.norm()).item()
     worst = max(grad_rel, key=grad_rel.get)
     dp = (p_k.float() - p_p.float()).abs()
     line = {"loss_kernels": loss_k, "loss_plain": loss_p,
@@ -835,18 +1056,53 @@ def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, tokens, labels):
                 len(grad_rel) // 2],
             "param_max_abs_diff": dp.max().item(),
             "param_frac_differ": (dp > 0).float().mean().item()}
-    log("train step, kernels vs plain versions " + json.dumps(line))
-    # bf16 roundings in other places (p and ds in the flash kernels, the
-    # order of fp32 sums) move the loss by ~1e-5 and each leaf's gradient
-    # by <1 % (H100, seed 0); the limits are 100x and ~4x that.  One Adam
-    # step moves a weight by at most ~lr, so the two updated buffers may
-    # differ by 2 lr plus one bf16 ulp of a weight
-    check(line["loss_rel_diff"] <= 1e-3, "train step loss: kernels vs plain")
+    log(f"{what} step, kernels vs plain versions " + json.dumps(line))
+    # as for the flash step (phase 5): bf16 roundings in other places move
+    # the loss by ~1e-5 and each gradient by < 1 %; one step moves a
+    # weight by about lr, so the two updated buffers may differ by 2 lr
+    # plus one bf16 ulp
+    check(line["loss_rel_diff"] <= 1e-3, f"{what} step loss: kernels vs plain")
     check(line["grad_rel_l2_max"] <= 3e-2,
-          f"train step grads: kernels vs plain ({worst})")
+          f"{what} step grads: kernels vs plain ({worst})")
     check(line["param_max_abs_diff"] <= 2 * 1e-4 + 2 ** -9,
-          "train step params: kernels vs plain")
+          f"{what} step params: kernels vs plain")
     return line
+
+
+def attention_swaps(mod, fa, cfg):
+    """The plain stand-ins of a model's attention kernels, for
+    `kernels_vs_plain_step`: the flash pair (in `mod`, the model's
+    module) or the softmax pair, as `cfg.use_flash_attention` says."""
+    from apex_tpu_torch.ops import softmax as sm
+
+    if not cfg.use_flash_attention:
+        return [(sm, "softmax_fwd_triton", sm.softmax_fwd_reference),
+                (sm, "softmax_bwd_triton", sm.softmax_bwd_reference)]
+
+    def plain_flash(q, k, v, *, softmax_scale, causal=False,
+                    segment_ids=None):
+        return fa.attention_reference(q, k, v, causal=causal,
+                                      softmax_scale=softmax_scale,
+                                      q_segment_ids=segment_ids,
+                                      kv_segment_ids=segment_ids)
+
+    return [(mod, "flash_attention", plain_flash)]
+
+
+def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what, make_opt,
+                       opt_swaps, tokens, labels):
+    """One full-width GPT step of a 2-layer model at batch 2 through the
+    kernels and through their plain versions (`kernels_vs_plain_step`):
+    the attention kernels of `cfg`, the LayerNorm, and the optimizer's
+    (`opt_swaps`)."""
+    import dataclasses
+
+    return kernels_vs_plain_step(
+        torch, fa, ln, ok, what,
+        gpt_mod.GPT(dataclasses.replace(cfg, num_layers=2)), make_opt, None,
+        attention_swaps(gpt_mod, fa, cfg)
+        + [(gpt_mod, "fused_layer_norm", ln.layer_norm_reference)]
+        + opt_swaps, tokens, labels)
 
 
 BERT_BATCH, BERT_SEQ = 32, 512
@@ -977,37 +1233,33 @@ def bert_phase(torch, fa, ln, ok, steps=5):
         "launches": counts, "launches_per_step": per_step,
         "unmasked_lamb_launches_2_steps": unmasked,
         "profile": profile_line}
-    return result, compare_bert_step(torch, fa, ln, ok, bert_mod, cfg,
+    return result, compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, "bert",
                                      tokens[:2], tuple(t[:2] for t in labels))
 
 
-def compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, tokens, labels):
+def compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, what, tokens,
+                      labels):
     """One full-width BERT step of a 2-layer model at batch 2 with a
-    ragged padding mask (512 and 300 real tokens), through the kernels
-    and through their plain versions (swapped in for the run), from the
-    same seed-0 weights and FusedLAMB with the no-decay mask.  Compares
-    the loss, each leaf's gradient (relative L2 error) and the updated
-    flat params."""
+    ragged padding mask (512 and 300 real tokens) and FusedLAMB with the
+    no-decay mask, through the kernels and through their plain versions
+    (`kernels_vs_plain_step`): the attention kernels of `cfg`, the
+    LayerNorm and the LAMB kernels."""
     import dataclasses
 
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.transformer.pipeline_parallel import (
         get_params_for_weight_decay_optimization)
-    from apex_tpu_torch.transformer.training import (
-        init_sharded_optimizer, make_tp_dp_train_step)
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    model = bert_mod.Bert(cfg2)
-    params = model.init(seed=0)
+    model = bert_mod.Bert(dataclasses.replace(cfg, num_layers=2))
     pad = pad_segments(torch, 2, cfg.seq_len, [cfg.seq_len, 300]) == 0
 
     def loss_fn(p, t, lab):
         return model.loss(p, t, lab[0], lab[1], lab[2], pad_mask=pad)
 
-    def plain_flash(q, k, v, *, softmax_scale, segment_ids):
-        return fa.attention_reference(q, k, v, softmax_scale=softmax_scale,
-                                      q_segment_ids=segment_ids,
-                                      kv_segment_ids=segment_ids)
+    def make_lamb(params):
+        return FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=cfg.dtype,
+                         wd_mask=get_params_for_weight_decay_optimization(
+                             params))
 
     def plain_phase1_seg(m, v, g, p, scalars, eps, seg, wdt):
         mn, vn, u = ok._lamb_phase1_reference(m, v, g, p, scalars, eps,
@@ -1019,69 +1271,14 @@ def compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, tokens, labels):
     def plain_phase2_seg(p, u, seg, rt, lr):
         return p.copy_(ok._lamb_phase2_reference(p, u, rt[seg.long()], lr))
 
-    swaps = [(bert_mod, "flash_attention", plain_flash),
-             (bert_mod, "fused_layer_norm", ln.layer_norm_reference),
-             (ok, "lamb_phase1_seg_triton", plain_phase1_seg),
-             (ok, "rows_sumsq_seg_triton", ok._rows_sumsq_reference),
-             (ok, "lamb_phase2_seg_triton", plain_phase2_seg)]
-
-    def run(plain):
-        opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=cfg.dtype,
-                        wd_mask=get_params_for_weight_decay_optimization(
-                            params))
-        state = init_sharded_optimizer(opt, model, params)
-        seen = {}
-        step_flat = opt.step_flat
-
-        def capture(st, g_flat, **kw):
-            seen["g"] = g_flat.clone()
-            return step_flat(st, g_flat, **kw)
-
-        opt.step_flat = capture
-        step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-        if plain:
-            for mod, name, fn in swaps:
-                setattr(mod, name, fn)
-        try:
-            state, loss = step(state, tokens, labels)
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
-        return float(loss), seen["g"], state.params, opt.spec
-
-    before = kernel_counts(fa, ln, ok)
-    loss_p, g_p, p_p, spec = run(plain=True)
-    check(kernel_counts(fa, ln, ok) == before,
-          "the plain BERT step launched a kernel")
-    loss_k, g_k, p_k, _ = run(plain=False)
-    torch.cuda.synchronize()
-    grad_rel = {}
-    for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
-        a = g_k[off:off + size].float()
-        r = g_p[off:off + size].float()
-        if r.norm().item() > 0:        # token types: unused, zero grads
-            grad_rel["/".join(path)] = ((a - r).norm() / r.norm()).item()
-    worst = max(grad_rel, key=grad_rel.get)
-    dp = (p_k.float() - p_p.float()).abs()
-    line = {"loss_kernels": loss_k, "loss_plain": loss_p,
-            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
-            "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_worst": worst,
-            "grad_rel_l2_median": sorted(grad_rel.values())[
-                len(grad_rel) // 2],
-            "param_max_abs_diff": dp.max().item(),
-            "param_frac_differ": (dp > 0).float().mean().item()}
-    log("bert step, kernels vs plain versions " + json.dumps(line))
-    # as for the GPT step (phase 5): bf16 roundings in other places move
-    # the loss by ~1e-5 and each gradient by < 1 %; one LAMB step moves a
-    # weight by about lr x its tensor's RMS (lr itself for a zero bias),
-    # so the two updated buffers may differ by 2 lr plus one bf16 ulp
-    check(line["loss_rel_diff"] <= 1e-3, "bert step loss: kernels vs plain")
-    check(line["grad_rel_l2_max"] <= 3e-2,
-          f"bert step grads: kernels vs plain ({worst})")
-    check(line["param_max_abs_diff"] <= 2 * 1e-4 + 2 ** -9,
-          "bert step params: kernels vs plain")
-    return line
+    return kernels_vs_plain_step(
+        torch, fa, ln, ok, what, model, make_lamb, loss_fn,
+        attention_swaps(bert_mod, fa, cfg)
+        + [(bert_mod, "fused_layer_norm", ln.layer_norm_reference),
+           (ok, "lamb_phase1_seg_triton", plain_phase1_seg),
+           (ok, "rows_sumsq_seg_triton", ok._rows_sumsq_reference),
+           (ok, "lamb_phase2_seg_triton", plain_phase2_seg)],
+        tokens, labels)
 
 
 RESNET_BATCH, RESNET_SIZE = 256, 224
@@ -1302,7 +1499,7 @@ def compare_resnet_step(torch, xe, wf, ok, batch):
 
 
 def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
-    """Phase 8 rows of the ResNet step's kernels at the step's shapes:
+    """Phase 9 rows of the ResNet step's kernels at the step's shapes:
     the cross entropy at (256, 1000) fp32 logits, SGD over the ResNet-50
     flat buffer (fp32 p and buf, bf16 grads), the channel sums at the
     stem's (3,211,264, 64) bf16 (and, as `ms_smallest_shape`, the last
@@ -1393,6 +1590,125 @@ def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
     return rows
 
 
+def dense_phase(torch, fa, ln, ok):
+    """GPT-350M's default dense-attention step with FusedAdam's no-decay
+    groups, then BERT-Large's dense step (module docstring, phase 8).
+    Returns the measurements and the kernel-vs-plain comparisons."""
+    from apex_tpu_torch.models import bert as bert_mod
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization as wd_mask)
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    check(not gpt_mod.GPTConfig().use_flash_attention, "GPTConfig's "
+          "default attention is no longer the dense path")
+
+    def make_adam(params):      # phase 2 checked its 98 decayed tensors
+        return FusedAdam(lr=1e-4, weight_decay=0.01, master_dtype=bf16,
+                         wd_mask=wd_mask(params))
+
+    def plain_adam_seg(p, m, v, g, scalars, eps, adam_w, seg, wdt, lrt):
+        rows = seg.long()
+        for buf, new in zip((p, m, v), ok._adam_seg_reference(
+                p, m, v, g, scalars, eps, adam_w, wdt[rows], lrt[rows])):
+            buf.copy_(new)
+        return p, m, v
+
+    per_step = {"softmax_fwd": 24, "softmax_bwd": 24, "layer_norm_fwd": 49,
+                "layer_norm_bwd": 49, "adam_seg": 1,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "adam": 0}
+    names = {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
+             "softmax_bwd": lambda k: k == "_softmax_bwd_kernel",
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "adam_seg": lambda k: k == "_adam_seg_kernel"}
+    gpt, gpt_vs_plain = gpt_train_phase(
+        torch, fa, ln, ok, "dense GPT", False, make_adam,
+        "FusedAdam(lr=1e-4, wd 0.01, master bf16, no-decay wd_mask: 98 of "
+        "292 tensors decay)", [(ok, "adam_flat_seg_triton", plain_adam_seg)],
+        per_step, names, warmup=2, steps=5)
+    log("dense GPT " + json.dumps(gpt))
+    torch.cuda.empty_cache()
+
+    # BERT-Large, phase 6's step with its default (dense) attention
+    bcfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16)
+    check(not bcfg.use_flash_attention, "BertConfig's default attention "
+          "is no longer the dense path")
+    bmodel = bert_mod.Bert(bcfg)
+
+    def make_lamb(params):
+        return FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16,
+                         wd_mask=wd_mask(params))
+
+    def loss_fn(p, t, lab):
+        return bmodel.loss(p, t, lab[0], lab[1], lab[2])
+
+    params = bmodel.init(seed=0)
+    opt = make_lamb(params)
+    state = init_sharded_optimizer(opt, bmodel, params)
+    del params
+    step = make_tp_dp_train_step(bmodel, opt, loss_fn=loss_fn)
+    tokens, labels = bert_data(torch, bcfg, BERT_BATCH)
+    bsteps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    blosses = []
+    state, loss = step(state, tokens, labels)
+    blosses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(bsteps - 1):
+        state, loss = step(state, tokens, labels)
+        blosses.append(loss)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    bcounts = kernel_counts(fa, ln, ok)
+    bpeak = torch.cuda.max_memory_allocated()
+    blosses = [float(x) for x in blosses]
+    log(f"dense BERT losses {blosses}")
+    check(all(math.isfinite(x) for x in blosses),
+          "a dense BERT loss is not finite")
+    check(blosses[-1] < blosses[0], f"dense BERT loss did not fall: "
+          f"{blosses}")
+    bper_step = {"softmax_fwd": bcfg.num_layers,
+                 "softmax_bwd": bcfg.num_layers,
+                 "layer_norm_fwd": 2 * bcfg.num_layers + 2,
+                 "layer_norm_bwd": 2 * bcfg.num_layers + 2,
+                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "lamb_phase1_seg": 1, "rows_sumsq_seg": 2,
+                 "lamb_phase2_seg": 1}
+    for name, k in bper_step.items():
+        check(bcounts[name] == k * bsteps,
+              f"dense BERT {name}: {bcounts[name]} launches in {bsteps} "
+              f"steps, want {k} per step")
+    del state, opt, step
+    torch.cuda.empty_cache()
+    bert = {
+        "config": "BERT-Large bf16, batch 32 x seq 512, dense attention "
+                  "(use_flash_attention=False, the default), fp32 MLM "
+                  "logits, MLM + NSP, FusedLAMB(lr=1e-4, wd 0.01, master "
+                  "bf16, no-decay wd_mask)",
+        "steps": bsteps, "losses": blosses,
+        "step_ms": 1e3 * window_s / (bsteps - 1),
+        "seq_per_s": BERT_BATCH * (bsteps - 1) / window_s,
+        "peak_mem_gib": bpeak / 2 ** 30, "launches": bcounts,
+        "launches_per_step": bper_step}
+    log("dense BERT " + json.dumps(bert))
+
+    bert_vs_plain = compare_bert_step(torch, fa, ln, ok, bert_mod, bcfg,
+                                      "dense BERT", tokens[:2],
+                                      tuple(t[:2] for t in labels))
+    del tokens, labels
+    torch.cuda.empty_cache()
+    return gpt, bert, gpt_vs_plain, bert_vs_plain
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -1411,7 +1727,7 @@ def table_row(name, launches, per_step, err, route, source, replaces, ms,
 
 
 def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
-    """Phase 8 rows of the BERT step's new kernels at the step's shapes:
+    """Phase 9 rows of the BERT step's new kernels at the step's shapes:
     the segment-masked flash kernels at (32, 16, 512, 64) on q, k, v
     views of the packed qkv with BERT's ragged padding (512, 300, 129
     and 1 real tokens, cycled), and the LAMB kernels over the BERT-Large
@@ -1547,8 +1863,116 @@ def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
     return rows
 
 
+def table_dense_kernels(torch, sm, ok, rng, errs, gpt, bert, layout):
+    """Table rows of the dense step's kernels at its shapes: the softmax
+    pair at GPT's (192, 1024, 1024) causal bf16 (and, beside it, BERT's
+    (32, 16, 512, 512) bf16 with the (32, 1, 1, 512) padding mask of
+    512/300/129/0 real tokens), and the segmented Adam over the GPT-350M
+    flat buffer in bf16.  Launches: the dense GPT phase's seven steps.
+    Library calls: `torch._masked_softmax` (forward) and
+    `torch._softmax_backward_data` (backward), both without the scale;
+    the segmented Adam has none (null)."""
+    bf16, dev = torch.bfloat16, "cuda"
+    launches, per_step = gpt["launches"], gpt["launches_per_step"]
+    rows = []
+
+    def row(name, *args):
+        rows.append(table_row(name, launches[name], per_step[name],
+                              errs[name], *args))
+
+    sc = 1.0 / math.sqrt(64)
+    src = "apex_tpu_torch/ops/softmax.py"
+    bh, s = 12 * 16, 1024
+    x = torch.randn((bh, s, s), generator=rng, device=dev).to(bf16)
+    g = torch.randn((bh, s, s), generator=rng, device=dev).to(bf16)
+    causal = torch.triu(torch.ones((s, s), dtype=torch.bool, device=dev),
+                        diagonal=1)
+    el = x.numel()
+    fwd_ms = time_ms(torch, lambda: sm.softmax_fwd_triton(x, None, sc, True))
+    fwd_plain = time_ms(torch, lambda: sm.softmax_fwd_reference(
+        x, None, sc, True), n=10)
+    x4 = x.view(12, 16, s, s)
+    fwd_lib = time_ms(torch, lambda: torch._masked_softmax(x4, causal, -1, 0))
+    y = sm.softmax_fwd_triton(x, None, sc, True)
+    bwd_ms = time_ms(torch, lambda: sm.softmax_bwd_triton(g, y, sc))
+    bwd_plain = time_ms(torch, lambda: sm.softmax_bwd_reference(g, y, sc),
+                        n=10)
+    bwd_lib = time_ms(torch, lambda: torch._softmax_backward_data(
+        g, y, -1, bf16))
+    del x4
+
+    # BERT's shape: the masked form, the mask read through its broadcast
+    # strides
+    b, h, sb = BERT_BATCH, 16, BERT_SEQ
+    xb = torch.randn((b, h, sb, sb), generator=rng, device=dev).to(bf16)
+    gb = torch.randn((b, h, sb, sb), generator=rng, device=dev).to(bf16)
+    pad = (pad_segments(torch, b, sb, [512, 300, 129, 0]) == 0)
+    mask = pad[:, None, None, :]
+    elb = xb.numel()
+    bfwd = time_ms(torch, lambda: sm.softmax_fwd_triton(xb, mask, sc, False))
+    bfwd_plain = time_ms(torch, lambda: sm.softmax_fwd_reference(
+        xb, mask, sc, False), n=10)
+    bfwd_lib = time_ms(torch, lambda: torch._masked_softmax(xb, pad, -1, 1))
+    yb = sm.softmax_fwd_triton(xb, mask, sc, False)
+    bbwd = time_ms(torch, lambda: sm.softmax_bwd_triton(gb, yb, sc))
+    bbwd_plain = time_ms(torch, lambda: sm.softmax_bwd_reference(gb, yb, sc),
+                         n=10)
+    bbwd_lib = time_ms(torch, lambda: torch._softmax_backward_data(
+        gb, yb, -1, bf16))
+    del xb, gb, yb
+
+    def bert_cols(ms, plain, lib, bytes_):
+        return {"bert_masked_ms": ms, "bert_masked_plain_ms": plain,
+                "bert_masked_library_ms": lib,
+                "bert_masked_bound_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
+                "bert_masked_shape": "x (32,16,512,512) bf16, mask "
+                                     "(32,1,1,512) of 512/300/129/0 real "
+                                     "tokens",
+                "bert_launches": bert["launches"][rows[-1]["name"]],
+                "bert_launches_per_step": bert["launches_per_step"][
+                    rows[-1]["name"]]}
+
+    row("softmax_fwd", "triton", src, "apex_tpu/ops/softmax.py:57", fwd_ms,
+        fwd_plain, fwd_lib, "torch._masked_softmax (causal (S,S) mask, "
+        "no scale)", 2 * el * 2, 6 * el,
+        "x (192,1024,1024) bf16 (GPT scores (12,16,1024,1024)), causal")
+    rows[-1].update(bert_cols(bfwd, bfwd_plain, bfwd_lib,
+                              2 * elb * 2 + pad.numel()))
+    row("softmax_bwd", "triton", src, "apex_tpu/ops/softmax.py:73", bwd_ms,
+        bwd_plain, bwd_lib, "torch._softmax_backward_data (no scale)",
+        3 * el * 2, 4 * el, "g, y (192,1024,1024) bf16")
+    rows[-1].update(bert_cols(bbwd, bbwd_plain, bbwd_lib, 3 * elb * 2))
+    del x, g, y, causal
+    torch.cuda.empty_cache()
+
+    spec, n, seg_wd = layout
+    segr = ok.segment_tables(spec, n // 128, dev)["seg"]
+    wdt = ok._table(seg_wd, dev)
+    lrt = ok._table(torch.ones(len(spec.sizes), device=dev), dev)
+    p = (torch.randn((n,), generator=rng, device=dev) * 0.05).to(bf16)
+    m = (torch.randn((n,), generator=rng, device=dev) * 0.01).to(bf16)
+    vv = (torch.randn((n,), generator=rng, device=dev).abs()
+          * 1e-4).to(bf16)
+    gg = torch.randn((n,), generator=rng, device=dev).to(bf16)
+    scal = ok._adam_fold_scalars(1e-4, 3, 0.9, 0.999, True, 1.0, False,
+                                 device=dev)
+    rows_ = segr.long()
+    seg_ms = time_ms(torch, lambda: ok.adam_flat_seg_triton(
+        p, m, vv, gg, scal, 1e-8, True, segr, wdt, lrt), n=20)
+    seg_plain = time_ms(torch, lambda: ok._adam_seg_reference(
+        p, m, vv, gg, scal, 1e-8, True, wdt[rows_], lrt[rows_]), n=10)
+    row("adam_seg", "triton", "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:228", seg_ms, seg_plain, None,
+        None, 14 * n + segr.numel() * 4 + 2 * wdt.numel() * 4 + 9 * 4,
+        17 * n, f"p, m, v, g ({n},) bf16: the GPT-350M flat buffer, "
+        "per-tensor wd (no-decay mask) and lr scale by row")
+    del p, m, vv, gg, rows_
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
-    """Phase 8 rows of the training path's kernels, at the step's shapes
+    """Phase 9 rows of the training path's kernels, at the step's shapes
     and layouts, warm L2 (every operand set but the LayerNorm's is larger
     than the 50 MB L2).  Bounds count what this data needs: each input
     read once and each output written once, and for causal attention
@@ -1672,6 +2096,7 @@ def main():
     from apex_tpu_torch.ops import flash_decode as fd
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import optimizer_kernels as ok
+    from apex_tpu_torch.ops import softmax as sm
     from apex_tpu_torch.ops import welford as wf
     from apex_tpu_torch.ops import xentropy as xe
     from apex_tpu_torch.ops._common import strict_matmul_numerics
@@ -1830,6 +2255,15 @@ def main():
         if rows == 3_211_264:
             errs["channel_sums"] = e
     torch.cuda.empty_cache()
+    errs.update(dense_kernel_checks(torch, sm, rng))
+    gpt_layout = gpt350m_layout(torch)
+    for dtype in (bf16, f32):
+        e = check_adam_seg(torch, ok, rng, *gpt_layout, dtype)
+        log(f"adam_flat_seg ({gpt_layout[1]},) {dtype}: bit for bit, max "
+            f"err {e:.3e}")
+        if dtype == bf16:
+            errs["adam_seg"] = e
+    torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------
     eng = build_flagship_engine()
@@ -1956,7 +2390,12 @@ def main():
     log("resnet " + json.dumps(resnet))
     torch.cuda.empty_cache()
 
-    # ---- 8. kernel table ---------------------------------------------
+    # ---- 8. the dense-attention steps at full width ---------------------
+    dense_gpt, dense_bert, dense_gpt_vs_plain, dense_bert_vs_plain = (
+        dense_phase(torch, fa, ln, ok))
+    torch.cuda.empty_cache()
+
+    # ---- 9. kernel table ---------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -2025,6 +2464,8 @@ def main():
     bert_rows = table_bert_kernels(torch, fa, ok, rng, errs, bert, layout)
     resnet_rows = table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet,
                                        resnet_spec)
+    dense_rows = table_dense_kernels(torch, sm, ok, rng, errs, dense_gpt,
+                                     dense_bert, gpt_layout)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -2051,7 +2492,7 @@ def main():
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ] + train_rows + bert_rows + resnet_rows}
+    ] + train_rows + bert_rows + resnet_rows + dense_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -2060,6 +2501,9 @@ def main():
     log("train step, kernels vs plain " + json.dumps(train_vs_plain))
     log("bert step, kernels vs plain " + json.dumps(bert_vs_plain))
     log("resnet step, kernels vs plain " + json.dumps(resnet_vs_plain))
+    log("dense GPT step, kernels vs plain " + json.dumps(dense_gpt_vs_plain))
+    log("dense BERT step, kernels vs plain "
+        + json.dumps(dense_bert_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,13 @@ package's, on the CPU.
 
 The slice as a whole: the bench's CPU shape (`bench.py:304`: hidden
 128, 2 layers, 4 heads, seq 64, batch 2, vocab 30528) in fp32 with flash
-attention (padding-masked: segment ids), weights carried from the JAX
-model by `params_from_jax`.  Tolerances: the loss within 1e-5 relative;
-gradients within 1e-5 of each leaf's largest; after three FusedLAMB
-steps the flat params within rtol 1e-5 / atol 1e-6 (fp32 throughout:
-both packages compute the same formulas in other orders)."""
+attention (padding-masked: segment ids) and, for the loss and grads,
+with the default dense attention (the masked scaled softmax), weights
+carried from the JAX model by `params_from_jax`.  Tolerances: the loss
+within 1e-5 relative; gradients within 1e-5 of each leaf's largest;
+after three FusedLAMB steps the flat params within rtol 1e-5 / atol
+1e-6 (fp32 throughout: both packages compute the same formulas in other
+orders)."""
 
 import jax
 import jax.numpy as jnp
@@ -69,10 +71,11 @@ def _data(seed):
                 pad=np.arange(s)[None, :] >= np.array([[s], [41]]))
 
 
-def _models(seed=0):
-    jmodel = JaxBert(JaxBertConfig(**CPU_BENCH))
+def _models(seed=0, flash=True):
+    cfg = dict(CPU_BENCH, use_flash_attention=flash)
+    jmodel = JaxBert(JaxBertConfig(**cfg))
     jparams = jmodel.init(jax.random.PRNGKey(seed))
-    model = Bert(BertConfig(**CPU_BENCH))
+    model = Bert(BertConfig(**cfg))
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
                              device="cpu")
     return jmodel, jparams, model, params
@@ -81,8 +84,22 @@ def _models(seed=0):
 def test_loss_and_grads_with_nsp_and_ragged_pad_mask_match_jax():
     """MLM + NSP loss with token types and a ragged padding mask, and
     every leaf's gradient, against jax.value_and_grad of `Bert.loss`."""
+    _check_loss_and_grads(flash=True)
+
+
+def test_dense_loss_and_grads_with_ragged_pad_mask_match_jax():
+    """The same with the models' default dense attention
+    (use_flash_attention=False): the (B, 1, 1, S) padding mask into the
+    masked scaled softmax (the JAX model's reference on the CPU).
+    `params_from_jax` carries the weights over unchanged: the dense path
+    reads the same leaves as the flash path."""
+    assert not BertConfig().use_flash_attention     # the default path
+    _check_loss_and_grads(flash=False)
+
+
+def _check_loss_and_grads(flash):
     mesh = _one_device_mesh()
-    jmodel, jparams, model, params = _models()
+    jmodel, jparams, model, params = _models(flash=flash)
     d = _data(1)
 
     def jloss(p, t, lm, m, n, tt, pm):
@@ -173,10 +190,8 @@ def test_three_lamb_steps_match_jax():
 
 
 def test_what_bert_refuses():
-    """The dense attention path is not ported yet and says where it
-    lives; the entry point runs on the card unless asked for the CPU."""
-    with pytest.raises(NotImplementedError, match="softmax"):
-        Bert(BertConfig(**dict(CPU_BENCH, use_flash_attention=False)))
+    """A head count that does not divide the width is refused; the entry
+    point runs on the card unless asked for the CPU."""
     with pytest.raises(ValueError, match="divide"):
         Bert(BertConfig(**dict(CPU_BENCH, num_heads=3)))
     if not torch.cuda.is_available():

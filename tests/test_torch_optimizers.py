@@ -1,8 +1,9 @@
-"""The PyTorch port's flat buffers, Adam kernel contract and FusedAdam
-(apex_tpu_torch.optimizers, apex_tpu_torch.ops.optimizer_kernels)
-against the JAX package's, on the CPU.
+"""The PyTorch port's flat buffers, Adam kernel contracts (uniform and
+per-tensor) and FusedAdam (apex_tpu_torch.optimizers,
+apex_tpu_torch.ops.optimizer_kernels) against the JAX package's, on the
+CPU.
 
-The JAX side runs its Pallas Adam kernel in interpret mode
+The JAX side runs its Pallas Adam kernels in interpret mode
 (`use_pallas_override=True`); the port's side runs its plain PyTorch
 version (what CPU tensors get), in place.  The same seeded numpy inputs
 go to both.  Tolerances: fp32 state rtol 1e-6 / atol 1e-7 (the same
@@ -19,11 +20,16 @@ import torch
 
 from apex_tpu.ops.optimizer_kernels import FLAT_TILE as JAX_FLAT_TILE
 from apex_tpu.ops.optimizer_kernels import adam_flat as jax_adam_flat
+from apex_tpu.ops.optimizer_kernels import adam_flat_seg as jax_adam_flat_seg
 from apex_tpu.optimizers import flat as jax_flat
 from apex_tpu.optimizers.fused_adam import FusedAdam as JaxFusedAdam
+from apex_tpu.transformer.pipeline_parallel.common import (
+    get_params_for_weight_decay_optimization as jax_wd_mask)
 from apex_tpu_torch.ops import optimizer_kernels as K
 from apex_tpu_torch.optimizers import flat as F
 from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.transformer.pipeline_parallel import (
+    get_params_for_weight_decay_optimization)
 
 _DTYPES = {"f32": (jnp.float32, torch.float32),
            "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -203,11 +209,140 @@ def test_flatten_unflatten_round_trip_and_views():
 
 
 def test_fused_adam_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adam_flat_seg"):
-        FusedAdam(wd_mask={"w": True})
-    with pytest.raises(NotImplementedError, match="adam_flat_seg"):
-        FusedAdam(lr_scales={"w": 1.0})
     with pytest.raises(RuntimeError, match="AMSGrad"):
         FusedAdam(amsgrad=True)
     with pytest.raises(RuntimeError, match="init"):
         FusedAdam().step_flat(None, torch.zeros(1))
+
+
+# a tree of mixed leaves: lengths that are and are not multiples of 128,
+# matrices (decayed under the no-decay recipe) and biases / norms (not)
+_SEG_SHAPES = {"block2": {"fc1": {"weight": (8, 16), "bias": (16,)},
+                          "ln1": {"weight": (130,), "bias": (130,)}},
+               "block10": {"qkv": {"weight": (8, 24)}}, "pos": (5, 8),
+               "embed": {"weight": (40, 9)}}
+
+
+def _seg_tree(fn, spec=_SEG_SHAPES):
+    return {k: _seg_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in spec.items()}
+
+
+@pytest.mark.parametrize("dtype,adam_w", [("f32", True), ("f32", False),
+                                          ("bf16", True), ("bf16", False)])
+def test_adam_flat_seg_matches_jax_kernel(dtype, adam_w):
+    """Four steps of the per-tensor update over a lane-aligned flat
+    buffer of one FLAT_TILE (so the JAX side runs its Pallas kernel),
+    with the no-decay weight decay and per-tensor lr scales in
+    [0.5, 1.5); step 3 carries found_inf with an inf in the grads and
+    must leave p, m, v exactly as they were; the padding tail (the
+    lane-alignment rows and the tile's end) never moves from zero."""
+    jdt, tdt = _DTYPES[dtype]
+    rng = np.random.RandomState(13)
+    w = _seg_tree(lambda s: rng.randn(*s).astype(np.float32))
+    jspec = jax_flat.make_spec(jax.tree_util.tree_map(jnp.asarray, w),
+                               align=128)
+    tspec = F.make_spec(jax.tree_util.tree_map(torch.tensor, w), align=128)
+    assert tspec.offsets == tuple(jspec.offsets)
+    assert tspec.total == jspec.total
+    jp = jax_flat.flatten(jax.tree_util.tree_map(jnp.asarray, w), jdt,
+                          pad_to=JAX_FLAT_TILE, align=128)
+    tp = F.flatten(jax.tree_util.tree_map(torch.tensor, w), tdt,
+                   pad_to=K.FLAT_TILE, align=128)
+    n = tp.numel()
+    assert n == jp.shape[0] == JAX_FLAT_TILE
+    real = np.zeros(n, bool)
+    for off, size in zip(tspec.offsets, tspec.sizes):
+        real[off:off + size] = True
+    n_seg = len(tspec.sizes)
+    wd = 0.01 * np.asarray(
+        [float(x) for x in jax.tree_util.tree_leaves(jax_wd_mask(w))],
+        np.float32)
+    assert 0 < int((wd > 0).sum()) < n_seg
+    lrs = (0.5 + rng.rand(n_seg)).astype(np.float32)
+    jm, jv = jnp.zeros(n, jdt), jnp.zeros(n, jdt)
+    tm, tv = torch.zeros(n, dtype=tdt), torch.zeros(n, dtype=tdt)
+    kw = dict(beta1=0.9, beta2=0.999, eps=1e-8, adam_w_mode=adam_w,
+              inv_scale=0.5)
+    step = 0
+    for i in range(4):
+        g = np.where(real, rng.randn(n) * 3, 0.0).astype(np.float32)
+        found = i == 2
+        if found:
+            g[5] = np.inf
+        else:
+            step += 1
+        jp, jm, jv = jax_adam_flat_seg(
+            jp, jm, jv, jnp.asarray(g).astype(jdt), 1e-2, float(step),
+            wd_values=wd, lr_scale_values=lrs, spec=jspec,
+            found_inf=found, use_pallas_override=True, **kw)
+        before = (tp.clone(), tm.clone(), tv.clone())
+        out = K.adam_flat_seg(tp, tm, tv, torch.tensor(g).to(tdt), 1e-2,
+                              step, wd_values=wd, lr_scale_values=lrs,
+                              spec=tspec, found_inf=found, **kw)
+        assert all(a is b for a, b in zip(out, (tp, tm, tv)))  # in place
+        if found:
+            assert all(torch.equal(a, b)
+                       for a, b in zip((tp, tm, tv), before))
+        for got, want, what in ((tp, jp, "p"), (tm, jm, "m"),
+                                (tv, jv, "v")):
+            _assert_state_close(got, want, dtype, f"step {i} {what}")
+            assert not torch.any(got[torch.tensor(~real)] != 0), what
+
+
+def test_adam_flat_seg_refuses_wrong_tables_and_layouts():
+    tree = {"a": torch.zeros(3, 5), "b": torch.zeros(7)}
+    spec = F.make_spec(tree, align=128)
+    buf = F.flatten(tree, pad_to=K.FLAT_TILE, align=128)
+    bufs = [buf.clone() for _ in range(4)]
+    with pytest.raises(ValueError, match="3 wd values for 2 tensors"):
+        K.adam_flat_seg(*bufs, 1e-3, 1, wd_values=[0.0] * 3,
+                        lr_scale_values=[1.0] * 2, spec=spec)
+    with pytest.raises(ValueError, match="1 lr scales for 2 tensors"):
+        K.adam_flat_seg(*bufs, 1e-3, 1, wd_values=[0.0] * 2,
+                        lr_scale_values=[1.0], spec=spec)
+    with pytest.raises(ValueError, match="lane-aligned"):
+        K.adam_flat_seg(*bufs, 1e-3, 1, wd_values=[0.0] * 2,
+                        lr_scale_values=[1.0] * 2,
+                        spec=F.make_spec(tree))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_fused_adam_per_leaf_groups_match_jax(dtype):
+    """FusedAdam(wd_mask=get_params_for_weight_decay_optimization(params),
+    lr_scales=...) against the JAX FusedAdam (Pallas in interpret mode)
+    for three steps from the same weights and grads: the lane-aligned
+    layout, the per-tensor values resolved at init and the state after
+    each step."""
+    jdt, tdt = _DTYPES[dtype]
+    rng = np.random.RandomState(17)
+    w = _seg_tree(lambda s: rng.randn(*s).astype(np.float32))
+    scales = _seg_tree(lambda s: float(0.5 + rng.rand()))
+    jw = jax.tree_util.tree_map(jnp.asarray, w)
+    tw = jax.tree_util.tree_map(torch.tensor, w)
+    jopt = JaxFusedAdam(lr=1e-3, weight_decay=0.01, master_dtype=jdt,
+                        use_pallas=True, wd_mask=jax_wd_mask(jw),
+                        lr_scales=scales)
+    topt = FusedAdam(lr=1e-3, weight_decay=0.01, master_dtype=tdt,
+                     wd_mask=get_params_for_weight_decay_optimization(tw),
+                     lr_scales=scales)
+    jstate = jopt.init(jw)
+    tstate = topt.init(tw)
+    assert topt.spec.align == 128
+    np.testing.assert_array_equal(topt._seg_wd.numpy(),
+                                  np.asarray(jopt._seg_wd))
+    np.testing.assert_array_equal(topt._seg_lrs.numpy(),
+                                  np.asarray(jopt._seg_lrs))
+    assert np.array_equal(_np(jstate.params), tstate.params.float().numpy())
+    for i in range(3):
+        g = _seg_tree(lambda s: rng.randn(*s).astype(np.float32))
+        _, jstate = jopt.step(jstate, jax.tree_util.tree_map(jnp.asarray, g))
+        tparams, tstate = topt.step(tstate,
+                                    jax.tree_util.tree_map(torch.tensor, g))
+        assert int(tstate.step) == int(jstate.step) == i + 1
+        for got, want, what in (
+                (tstate.params, jstate.params, "p"),
+                (tstate.exp_avg, jstate.exp_avg, "m"),
+                (tstate.exp_avg_sq, jstate.exp_avg_sq, "v")):
+            _assert_state_close(got, want, dtype, f"step {i} {what}")
+    assert tparams["block2"]["ln1"]["bias"].shape == (130,)
