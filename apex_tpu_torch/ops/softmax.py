@@ -25,7 +25,10 @@ Two implementations of each direction live here:
 
 Forward kernel note.  Replaces apex_tpu/ops/softmax.py:_fwd_kernel
 (launched by _fwd_pallas).  What bounds it on an H100: bytes — x read
-once and y written once, ~6 flops per element.  Design:
+once where the mask leaves it (a masked element's output does not
+depend on x: the lower triangle of the causal form, the unmasked
+columns of the masked form), the mask, and y written once; ~6 flops per
+element.  This kernel reads all of x.  Design:
   * A row up to `_MAX_BLOCK` (8192) columns sits in registers, so x is
     read once; short rows are packed several to a program (about 4096
     elements each), so a program never idles on a 64-wide row.  Longer

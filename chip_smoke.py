@@ -84,7 +84,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  and one profiled step.  Then three BERT-Large steps of
                  phase 6's step with its default dense attention (24
                  masked softmax forwards and backwards a step, no
-                 flash): sequences/s and peak memory.  A 2-layer step of
+                 flash), with no host sync: sequences/s, peak memory
+                 and one profiled step.  A 2-layer step of
                  each through the kernels agrees with the same step
                  through the plain versions (full width, batch 2; BERT
                  with ragged padding).
@@ -1045,8 +1046,12 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
     for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
         a = g_k[off:off + size].float()
         r = g_p[off:off + size].float()
-        if r.norm().item() > 0:        # token types: unused, zero grads
-            grad_rel["/".join(path)] = ((a - r).norm() / r.norm()).item()
+        name = "/".join(path)
+        if r.norm().item() > 0:
+            grad_rel[name] = ((a - r).norm() / r.norm()).item()
+        else:       # BERT's unused token types: zero through both paths
+            check(a.norm().item() == 0, f"{what} step grads: {name} is 0 "
+                  "through the plain versions but not through the kernels")
     worst = max(grad_rel, key=grad_rel.get)
     dp = (p_k.float() - p_p.float()).abs()
     line = {"loss_kernels": loss_k, "loss_plain": loss_p,
@@ -1126,11 +1131,15 @@ def bert_data(torch, cfg, batch):
     return tokens, (mlm, mask, nsp)
 
 
-def bert_phase(torch, fa, ln, ok, steps=5):
-    """The BERT-Large pretraining step at full width (module docstring,
-    phase 6), then two steps of the same model with FusedLAMB without a
-    wd_mask (the optimizer's unmasked path).  Returns the measurements,
-    the per-step launch counts and the kernel-vs-plain comparison."""
+def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
+    """The BERT-Large pretraining step at full width with `flash` or the
+    dense attention (module docstring, phases 6 and 8): one step that
+    builds the kernels, then `steps` - 1 timed ones on the bench's
+    seeded batch.  Checks the losses and the launch counts each step,
+    takes a step with no host sync and a profiled one.  With flash
+    (phase 6), then two steps of the same model with FusedLAMB without a
+    wd_mask (the optimizer's unmasked path).  Returns the measurements
+    and the kernel-vs-plain comparison."""
     from apex_tpu_torch.models import bert as bert_mod
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.transformer.pipeline_parallel import (
@@ -1139,8 +1148,9 @@ def bert_phase(torch, fa, ln, ok, steps=5):
         init_sharded_optimizer, make_tp_dp_train_step)
 
     bf16 = torch.bfloat16
+    what = "bert" if flash else "dense BERT"
     cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16,
-                              use_flash_attention=True)
+                              use_flash_attention=flash)
     check((cfg.vocab_size, cfg.hidden, cfg.num_layers, cfg.num_heads,
            cfg.logits_dtype) == (30528, 1024, 24, 16, None),
           "BERT-Large configuration drifted")
@@ -1175,55 +1185,48 @@ def bert_phase(torch, fa, ln, ok, steps=5):
     counts = kernel_counts(fa, ln, ok)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    log(f"bert losses {losses}")
-    check(all(math.isfinite(x) for x in losses), "a BERT loss is not finite")
-    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    log(f"{what} losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"a {what} loss is not "
+          "finite")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
     check(int(state.step) == steps, f"LAMB step {int(state.step)}")
-    per_step = {"flash_attention_fwd": cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers,
+    n_flash, n_softmax = (cfg.num_layers, 0) if flash else (0,
+                                                            cfg.num_layers)
+    per_step = {"flash_attention_fwd": n_flash,
+                "flash_attention_bwd": n_flash,
+                "softmax_fwd": n_softmax, "softmax_bwd": n_softmax,
                 "layer_norm_fwd": 2 * cfg.num_layers + 2,
                 "layer_norm_bwd": 2 * cfg.num_layers + 2,
-                "adam": 0, "lamb_phase1": 0, "lamb_phase1_seg": 1,
-                "rows_sumsq_seg": 2, "lamb_phase2_seg": 1}
+                "adam": 0, "adam_seg": 0, "lamb_phase1": 0,
+                "lamb_phase1_seg": 1, "rows_sumsq_seg": 2,
+                "lamb_phase2_seg": 1}
     for name, k in per_step.items():
         check(counts[name] == k * steps,
-              f"bert {name}: {counts[name]} launches in {steps} steps, "
+              f"{what} {name}: {counts[name]} launches in {steps} steps, "
               f"want {k} per step")
     state, syncs = step_without_sync(torch, step, state, tokens, labels)
-    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
-             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
-             "lamb_phase1_seg": lambda k: k == "_lamb_phase1_kernel",
-             "rows_sumsq_seg": lambda k: k in ("_sumsq_items_kernel",
-                                               "_sumsq_segments_kernel"),
-             "lamb_phase2_seg": lambda k: k == "_lamb_phase2_seg_kernel"}
+    attention = ({"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+                  "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k}
+                 if flash else
+                 {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
+                  "softmax_bwd": lambda k: k == "_softmax_bwd_kernel"})
+    names = dict(attention,
+                 layer_norm_fwd=lambda k: k == "_fwd_kernel",
+                 layer_norm_bwd=lambda k: k in ("_bwd_kernel",
+                                                "_bwd_finish_kernel"),
+                 lamb_phase1_seg=lambda k: k == "_lamb_phase1_kernel",
+                 rows_sumsq_seg=lambda k: k in ("_sumsq_items_kernel",
+                                                "_sumsq_segments_kernel"),
+                 lamb_phase2_seg=lambda k: k == "_lamb_phase2_seg_kernel")
     state, profile_line = profile_step(torch, step, state, (tokens, labels),
                                        names)
     del state, opt, step
-
-    # the unmasked optimizer path: FusedLAMB without wd_mask, two steps
-    opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16)
-    state = init_sharded_optimizer(opt, model, model.init(seed=0))
-    step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
-    reset_kernel_counts(fa, ln, ok)
-    for _ in range(2):
-        state, loss = step(state, tokens, labels)
-    torch.cuda.synchronize()
-    unmasked = kernel_counts(fa, ln, ok)
-    check(unmasked["lamb_phase1"] == 2 and unmasked["lamb_phase1_seg"] == 0
-          and unmasked["rows_sumsq_seg"] == 4
-          and unmasked["lamb_phase2_seg"] == 2,
-          f"unmasked FusedLAMB launches {unmasked}")
-    check(math.isfinite(float(loss)), "unmasked LAMB loss is not finite")
-    del state, opt, step, loss
-    torch.cuda.empty_cache()
     result = {
-        "config": "BERT-Large bf16 (V 30528, H 1024, L 24, 16 heads), "
-                  "batch 32 x seq 512, fp32 MLM logits, MLM + NSP, "
-                  "FusedLAMB(lr=1e-4, wd 0.01, master bf16, no-decay "
-                  "wd_mask)",
+        "config": f"BERT-Large bf16 (V 30528, H 1024, L 24, 16 heads), "
+                  f"batch 32 x seq 512, "
+                  f"{'flash' if flash else 'dense'} attention, fp32 MLM "
+                  f"logits, MLM + NSP, FusedLAMB(lr=1e-4, wd 0.01, master "
+                  f"bf16, no-decay wd_mask)",
         "params": n_params, "steps": steps, "losses": losses,
         "first_step_s": first_s,
         "step_ms": 1e3 * window_s / (steps - 1),
@@ -1231,9 +1234,27 @@ def bert_phase(torch, fa, ln, ok, steps=5):
         "tokens_per_s": BERT_BATCH * BERT_SEQ * (steps - 1) / window_s,
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
         "launches": counts, "launches_per_step": per_step,
-        "unmasked_lamb_launches_2_steps": unmasked,
         "profile": profile_line}
-    return result, compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, "bert",
+
+    if flash:   # the unmasked optimizer path: no wd_mask, two steps
+        opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16)
+        state = init_sharded_optimizer(opt, model, model.init(seed=0))
+        step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+        reset_kernel_counts(fa, ln, ok)
+        for _ in range(2):
+            state, loss = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        unmasked = kernel_counts(fa, ln, ok)
+        check(unmasked["lamb_phase1"] == 2
+              and unmasked["lamb_phase1_seg"] == 0
+              and unmasked["rows_sumsq_seg"] == 4
+              and unmasked["lamb_phase2_seg"] == 2,
+              f"unmasked FusedLAMB launches {unmasked}")
+        check(math.isfinite(float(loss)), "unmasked LAMB loss is not finite")
+        result["unmasked_lamb_launches_2_steps"] = unmasked
+        del state, opt, step, loss
+    torch.cuda.empty_cache()
+    return result, compare_bert_step(torch, fa, ln, ok, bert_mod, cfg, what,
                                      tokens[:2], tuple(t[:2] for t in labels))
 
 
@@ -1596,11 +1617,9 @@ def dense_phase(torch, fa, ln, ok):
     Returns the measurements and the kernel-vs-plain comparisons."""
     from apex_tpu_torch.models import bert as bert_mod
     from apex_tpu_torch.models import gpt as gpt_mod
-    from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB
+    from apex_tpu_torch.optimizers import FusedAdam
     from apex_tpu_torch.transformer.pipeline_parallel import (
         get_params_for_weight_decay_optimization as wd_mask)
-    from apex_tpu_torch.transformer.training import (
-        init_sharded_optimizer, make_tp_dp_train_step)
 
     bf16 = torch.bfloat16
     check(not gpt_mod.GPTConfig().use_flash_attention, "GPTConfig's "
@@ -1636,76 +1655,11 @@ def dense_phase(torch, fa, ln, ok):
     torch.cuda.empty_cache()
 
     # BERT-Large, phase 6's step with its default (dense) attention
-    bcfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16)
-    check(not bcfg.use_flash_attention, "BertConfig's default attention "
-          "is no longer the dense path")
-    bmodel = bert_mod.Bert(bcfg)
-
-    def make_lamb(params):
-        return FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16,
-                         wd_mask=wd_mask(params))
-
-    def loss_fn(p, t, lab):
-        return bmodel.loss(p, t, lab[0], lab[1], lab[2])
-
-    params = bmodel.init(seed=0)
-    opt = make_lamb(params)
-    state = init_sharded_optimizer(opt, bmodel, params)
-    del params
-    step = make_tp_dp_train_step(bmodel, opt, loss_fn=loss_fn)
-    tokens, labels = bert_data(torch, bcfg, BERT_BATCH)
-    bsteps = 3
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_kernel_counts(fa, ln, ok)
-    blosses = []
-    state, loss = step(state, tokens, labels)
-    blosses.append(loss)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(bsteps - 1):
-        state, loss = step(state, tokens, labels)
-        blosses.append(loss)
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t0
-    bcounts = kernel_counts(fa, ln, ok)
-    bpeak = torch.cuda.max_memory_allocated()
-    blosses = [float(x) for x in blosses]
-    log(f"dense BERT losses {blosses}")
-    check(all(math.isfinite(x) for x in blosses),
-          "a dense BERT loss is not finite")
-    check(blosses[-1] < blosses[0], f"dense BERT loss did not fall: "
-          f"{blosses}")
-    bper_step = {"softmax_fwd": bcfg.num_layers,
-                 "softmax_bwd": bcfg.num_layers,
-                 "layer_norm_fwd": 2 * bcfg.num_layers + 2,
-                 "layer_norm_bwd": 2 * bcfg.num_layers + 2,
-                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-                 "lamb_phase1_seg": 1, "rows_sumsq_seg": 2,
-                 "lamb_phase2_seg": 1}
-    for name, k in bper_step.items():
-        check(bcounts[name] == k * bsteps,
-              f"dense BERT {name}: {bcounts[name]} launches in {bsteps} "
-              f"steps, want {k} per step")
-    del state, opt, step
-    torch.cuda.empty_cache()
-    bert = {
-        "config": "BERT-Large bf16, batch 32 x seq 512, dense attention "
-                  "(use_flash_attention=False, the default), fp32 MLM "
-                  "logits, MLM + NSP, FusedLAMB(lr=1e-4, wd 0.01, master "
-                  "bf16, no-decay wd_mask)",
-        "steps": bsteps, "losses": blosses,
-        "step_ms": 1e3 * window_s / (bsteps - 1),
-        "seq_per_s": BERT_BATCH * (bsteps - 1) / window_s,
-        "peak_mem_gib": bpeak / 2 ** 30, "launches": bcounts,
-        "launches_per_step": bper_step}
+    check(not bert_mod.BertConfig().use_flash_attention, "BertConfig's "
+          "default attention is no longer the dense path")
+    bert, bert_vs_plain = bert_phase(torch, fa, ln, ok, flash=False,
+                                     steps=3)
     log("dense BERT " + json.dumps(bert))
-
-    bert_vs_plain = compare_bert_step(torch, fa, ln, ok, bert_mod, bcfg,
-                                      "dense BERT", tokens[:2],
-                                      tuple(t[:2] for t in labels))
-    del tokens, labels
-    torch.cuda.empty_cache()
     return gpt, bert, gpt_vs_plain, bert_vs_plain
 
 
@@ -1932,12 +1886,15 @@ def table_dense_kernels(torch, sm, ok, rng, errs, gpt, bert, layout):
                 "bert_launches_per_step": bert["launches_per_step"][
                     rows[-1]["name"]]}
 
+    # the forward's bytes: x only where the mask leaves it (a masked
+    # element's output does not depend on x there), the mask, all of y
     row("softmax_fwd", "triton", src, "apex_tpu/ops/softmax.py:57", fwd_ms,
         fwd_plain, fwd_lib, "torch._masked_softmax (causal (S,S) mask, "
-        "no scale)", 2 * el * 2, 6 * el,
+        "no scale)", bh * s * (s + 1) // 2 * 2 + el * 2, 6 * el,
         "x (192,1024,1024) bf16 (GPT scores (12,16,1024,1024)), causal")
+    n_real = int((~pad).sum().item())
     rows[-1].update(bert_cols(bfwd, bfwd_plain, bfwd_lib,
-                              2 * elb * 2 + pad.numel()))
+                              h * sb * n_real * 2 + pad.numel() + elb * 2))
     row("softmax_bwd", "triton", src, "apex_tpu/ops/softmax.py:73", bwd_ms,
         bwd_plain, bwd_lib, "torch._softmax_backward_data (no scale)",
         3 * el * 2, 4 * el, "g, y (192,1024,1024) bf16")
