@@ -4,18 +4,23 @@
 // steps' surface).
 //
 // Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel (launched by
-// _fwd_impl) and :_bwd_fused_kernel (launched by _bwd_impl).  Same
-// contract: o = softmax(scale * q k^T [causal: key j visible to query i
-// iff j <= i]) v with an fp32 lse = m + log(l) per query row; the
-// backward recomputes p = exp(scale * q k^T - lse) once and takes dv, dk
-// and dq from it, with delta = sum(do * o) computed by the caller in fp32
-// (as _bwd_impl does).
+// _fwd_impl), :_bwd_fused_kernel, :_bwd_dq_kernel and :_bwd_dkv_kernel
+// (launched by _bwd_impl).  Same contract: o = softmax(scale * q k^T
+// [causal: key j visible to query i iff j <= i]) v with an fp32 lse =
+// m + log(l) per query row; the backward recomputes p = exp(scale * q k^T
+// - lse) and takes dv, dk and dq from it, with delta = sum(do * o)
+// computed by the caller in fp32 (as _bwd_impl does).  The caller picks
+// the backward as _bwd_impl does: the fused kernel while sk * d <= 256k,
+// else the split pair (the dq pass, then the dk/dv pass).
 //
 // What bounds them on an H100: at the training shape (b 12, h 16, s 1024,
 // d 64, causal) the forward moves ~101 MB and does ~2.6e10 flop, the
 // backward ~178 MB and ~6.4e10 flop: both sit near the ridge of the
 // card's 989 TF/s bf16 and 3.35 TB/s, so a kernel that is not on the
 // tensor cores is bound by its own arithmetic, long before the bytes.
+// At long context (b 1, h 8, s 32768, d 64, causal) the arithmetic grows
+// with s^2 and the bytes with s: the dq pass does 1.65e12 flop and the
+// dk/dv pass 2.20e12 against ~0.2 GB, bound by operations alone.
 // The design therefore puts every product on the tensor cores and keeps
 // the (s x s) scores out of device memory:
 //   * products are mma.sync m16n8k16 (bf16 in, fp32 accumulate), written
@@ -36,15 +41,28 @@
 //     turned inside out (FlashAttention-2): one block per (batch*head, 64
 //     keys) walks the q blocks at or below the diagonal, keeping dk and dv
 //     in registers.  p_v and ds are rounded to bf16 before their products,
-//     as on the TPU; `scale` multiplies ds for dk and dq.  dq is summed
-//     across key blocks with fp32 atomics into a zeroed scratch buffer
-//     that the caller casts once: the order of those sums changes from run
-//     to run, so dq is not bitwise reproducible (dk, dv are).  Scalar
-//     atomics were ~45 % of the first version's time (measured by removing
-//     them); 2-wide ones (float2, red.global.add.v2.f32) take a third off
-//     the kernel.  Measured and not kept: 4-wide atomics (the lane-pair
-//     shuffle that feeds them costs more than it saves) and ldmatrix
-//     fragment loads (no faster than 32-bit loads from the padded tiles).
+//     as on the TPU; `scale` multiplies ds for dk and dq.  The fused
+//     kernel sums dq across key blocks with fp32 atomics into a zeroed
+//     scratch buffer that the caller casts once: the order of those sums
+//     changes from run to run, so its dq is not bitwise reproducible (dk,
+//     dv are).  Scalar atomics were ~45 % of the first version's time
+//     (measured by removing them); 2-wide ones (float2,
+//     red.global.add.v2.f32) take a third off the kernel.  Measured and
+//     not kept: 4-wide atomics (the lane-pair shuffle that feeds them
+//     costs more than it saves) and ldmatrix fragment loads (no faster
+//     than 32-bit loads from the padded tiles).
+//   * split backward (long context, where the TPU's (sk, d) dk/dv scratch
+//     would not fit VMEM): the dk/dv pass is the fused kernel's body with
+//     its dq part compiled out (the DQ template flag), so its dk and dv
+//     are the fused kernel's bit for bit.  The dq pass has the forward's
+//     shape: one block per (batch*head, 64 query rows) keeps its q and dO
+//     tiles and its rows' lse and delta resident, walks the 64-key blocks
+//     up to the diagonal with K/V double-buffered by cp.async, recomputes
+//     s = q k^T and dp = dO v^T, rounds ds = p (dp - delta) to bf16 and
+//     adds ds k into registers.  Each dq row is written once: no atomics,
+//     no scratch buffer, the same bits from run to run.  It pays the
+//     recomputation of s and dp a second time (3 products a pair in the
+//     dq pass and 4 in the dk/dv pass, against the fused kernel's 5).
 // Rows past sq and keys past sk are zero-filled on load and masked, so any
 // sequence length works.  wgmma and TMA are for a later version.
 //
@@ -59,18 +77,24 @@
 // causal kernel, a combination no training path of the port runs).  The
 // backward recomputes masked entries explicitly: p = 1/sk where the row
 // is fully masked (its lse is about -1e30), else 0, and ds = 0, as the
-// gradient of a masked_fill is.  Each block loads its key block's ids
-// (forward) or its q block's ids (backward) next to the tiles; passing
-// null ids launches the unsegmented kernels, whose code is unchanged.
-// A warp whose 16 rows and 64 keys all carry one id, in a tile that does
-// not cross the diagonal, takes the unsegmented masking (a warp vote per
-// tile): the per-score compares cost the backward half its time again,
-// and in BERT's batches most tiles are one segment.
+// gradient of a masked_fill is.  (The TPU kernels take p = exp(0) = 1 and
+// keep ds there, which attention_reference's gradient does not.)  Since
+// ds = 0 at every masked score, the dq pass stops at the diagonal even
+// with segment ids; the dk/dv pass cannot, because a dead row's uniform p
+// reaches dv for every key.  Each block loads its key block's ids
+// (forward, dq pass) or its q block's ids (dk/dv) next to the tiles;
+// passing null ids launches the unsegmented kernels, whose code is
+// unchanged.  A warp whose 16 rows and 64 keys all carry one id, in a
+// tile that does not cross the diagonal, takes the unsegmented masking (a
+// warp vote per tile): the per-score compares cost the backward half its
+// time again, and in BERT's batches most tiles are one segment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -424,15 +448,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 constexpr int kDsStride = kBr + 8;  // ds tile: 64 keys x 64 queries, padded
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DQ>
 constexpr size_t bwd_smem() {
-  // K, V, Q[2], dO[2], dS, lse[2], delta[2], and with SEG the q ids [2]
+  // K, V, Q[2], dO[2], with DQ dS, lse[2], delta[2], and with SEG the q
+  // ids [2]
   return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
-         size_t(kBc) * kDsStride * sizeof(bf16) + 4 * kBr * sizeof(float) +
-         (SEG ? 2 * kBr * sizeof(int) : 0);
+         (DQ ? size_t(kBc) * kDsStride * sizeof(bf16) : 0) +
+         4 * kBr * sizeof(float) + (SEG ? 2 * kBr * sizeof(int) : 0);
 }
 
-template <int D, bool SEG>
+// DQ: the fused kernel (dq summed by atomics into dq_acc); without it the
+// split route's dk/dv pass (dq_acc unused), whose dk and dv are the same
+// arithmetic
+template <int D, bool SEG, bool DQ>
 __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -451,8 +479,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   bf16* v_s = k_s + E;
   bf16* q_s = v_s + E;       // two stages
   bf16* do_s = q_s + 2 * E;  // two stages
-  bf16* ds_s = do_s + 2 * E;
-  float* lse_s = reinterpret_cast<float*>(ds_s + kBc * kDsStride);  // [2][64]
+  bf16* ds_s = do_s + 2 * E;  // DQ only
+  float* lse_s =
+      reinterpret_cast<float*>(ds_s + (DQ ? kBc * kDsStride : 0));  // [2][64]
   float* dl_s = lse_s + 2 * kBr;                                    // [2][64]
   int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kBr);  // SEG: [2][64]
 
@@ -632,44 +661,49 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
       mma_tile_b<S, D / 16>(dka, da, qs, kk * 16, lane);
     }
 
-    // dS^T to shared memory: dQ needs it with queries as rows
+    if constexpr (DQ) {
+      // dS^T to shared memory: dQ needs it with queries as rows
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = n * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(ds_s + (warp * 16 + g) * kDsStride + c) =
-          pack_bf16(dp[n][0], dp[n][1]);
-      *reinterpret_cast<uint32_t*>(ds_s + (warp * 16 + g + 8) * kDsStride +
-                                   c) = pack_bf16(dp[n][2], dp[n][3]);
-    }
-    __syncthreads();
+      for (int n = 0; n < 8; ++n) {
+        const int c = n * 8 + 2 * t4;
+        bf16* row = ds_s + (warp * 16 + g) * kDsStride + c;
+        *reinterpret_cast<uint32_t*>(row) = pack_bf16(dp[n][0], dp[n][1]);
+        *reinterpret_cast<uint32_t*>(row + 8 * kDsStride) =
+            pack_bf16(dp[n][2], dp[n][3]);
+      }
+      __syncthreads();
 
-    // dQ (this warp's 16 queries) += scale dS K, summed across key blocks
-    // with atomics
-    float dqa[D / 8][4];
+      // dQ (this warp's 16 queries) += scale dS K, summed across key blocks
+      // with atomics
+      float dqa[D / 8][4];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      ldsm_x4_t(a[0], a[1], a[2], a[3],
-                ds_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * kDsStride +
-                    warp * 16 + ((lane >> 3) & 1) * 8);
-      mma_tile_b<S, D / 16>(dqa, a, k_s, kk * 16, lane);
-    }
-    // 2-wide atomics (red.global.add.v2.f32): a lane's two adjacent
-    // columns of each row go in one instruction
-    const int qr_a = q0 + warp * 16 + g, qr_b = qr_a + 8;
-    float* dqg = dq_acc + (long long)bh * sq * D + 2 * t4;
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_t(a[0], a[1], a[2], a[3],
+                  ds_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                             kDsStride +
+                      warp * 16 + ((lane >> 3) & 1) * 8);
+        mma_tile_b<S, D / 16>(dqa, a, k_s, kk * 16, lane);
+      }
+      // 2-wide atomics (red.global.add.v2.f32): a lane's two adjacent
+      // columns of each row go in one instruction
+      const int qr_a = q0 + warp * 16 + g, qr_b = qr_a + 8;
+      float* dqg = dq_acc + (long long)bh * sq * D + 2 * t4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      if (qr_a < sq)
-        atomicAdd(reinterpret_cast<float2*>(dqg + (long long)qr_a * D + n * 8),
-                  make_float2(scale * dqa[n][0], scale * dqa[n][1]));
-      if (qr_b < sq)
-        atomicAdd(reinterpret_cast<float2*>(dqg + (long long)qr_b * D + n * 8),
-                  make_float2(scale * dqa[n][2], scale * dqa[n][3]));
+      for (int n = 0; n < D / 8; ++n) {
+        float* ra = dqg + (long long)qr_a * D + n * 8;
+        float* rb = dqg + (long long)qr_b * D + n * 8;
+        if (qr_a < sq)
+          atomicAdd(reinterpret_cast<float2*>(ra),
+                    make_float2(scale * dqa[n][0], scale * dqa[n][1]));
+        if (qr_b < sq)
+          atomicAdd(reinterpret_cast<float2*>(rb),
+                    make_float2(scale * dqa[n][2], scale * dqa[n][3]));
+      }
     }
     __syncthreads();  // ds_s and this stage are rewritten next iteration
   }
@@ -692,6 +726,177 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
       *reinterpret_cast<uint32_t*>(dvg + (long long)key_b * D + c) =
           pack_bf16(dva[n][2], dva[n][3]);
     }
+  }
+}
+
+// ---------------------------------------------------- backward, dq pass ----
+
+template <int D, bool SEG>
+constexpr size_t bwd_dq_smem() {
+  // Q, dO, K[2], V[2], and with SEG the key ids [2][64]
+  return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
+         (SEG ? 2 * kBc * sizeof(int) : 0);
+}
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, int h, int sq, int sk, float scale, float scale_log2,
+    int causal, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, long long q_seg_sb,
+    long long kv_seg_sb) {
+  constexpr int S = Tile<D>::kStride;
+  constexpr int E = Tile<D>::kElems;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + E;
+  bf16* k_s = do_s + E;     // two stages
+  bf16* v_s = k_s + 2 * E;  // two stages
+  int* kid_s = reinterpret_cast<int*>(v_s + 2 * E);  // SEG: two stages
+
+  const int nq = (sq + kBr - 1) / kBr;
+  const int jq = nq - 1 - blockIdx.x;  // causal: the longest rows first
+  const int bh = blockIdx.y;
+  const int b = bh / h, hh = bh % h;
+  const bf16* qg = q + b * q_sb + hh * q_sh;
+  const bf16* kg = k + b * k_sb + hh * k_sh;
+  const bf16* vg = v + b * v_sb + hh * v_sh;
+  const bf16* dog = dout + b * o_sb + hh * o_sh;
+  const int q0 = jq * kBr;
+  // ds = 0 past the diagonal, segment ids or not (see the top)
+  int n_kv = (sk + kBc - 1) / kBc;
+  if (causal) n_kv = min(n_kv, (min(q0 + kBr, sq) - 1) / kBc + 1);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
+  const int row_b = row_a + 8;
+  const float* lseg = lse + (long long)bh * sq;
+  const float* dlg = delta + (long long)bh * sq;
+  // the rows' lse (log2 units) and delta stay in registers
+  const float lse_a = row_a < sq ? lseg[row_a] * kLog2e : 0.f;
+  const float lse_b = row_b < sq ? lseg[row_b] * kLog2e : 0.f;
+  const float dl_a = row_a < sq ? dlg[row_a] : 0.f;
+  const float dl_b = row_b < sq ? dlg[row_b] : 0.f;
+  const int* kidg = SEG ? kv_seg + b * kv_seg_sb : nullptr;
+  int qid_a = 0, qid_b = 0;
+  if (SEG) {
+    const int* qidg = q_seg + b * q_seg_sb;
+    if (row_a < sq) qid_a = qidg[row_a];
+    if (row_b < sq) qid_b = qidg[row_b];
+    const int t = threadIdx.x;
+    if (t < kBc) kid_s[t] = t < sk ? kidg[t] : 0;
+  }
+
+  load_tile<D>(q_s, qg, q_ss, q0, sq);
+  load_tile<D>(do_s, dog, o_ss, q0, sq);
+  load_tile<D>(k_s, kg, k_ss, 0, sk);
+  load_tile<D>(v_s, vg, v_ss, 0, sk);
+  cp_async_commit();
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_kv) {  // the next K/V block flies while this one is used
+      load_tile<D>(k_s + (st ^ 1) * E, kg, k_ss, (it + 1) * kBc, sk);
+      load_tile<D>(v_s + (st ^ 1) * E, vg, v_ss, (it + 1) * kBc, sk);
+      const int t = threadIdx.x;
+      if (SEG && t < kBc) {
+        const int key = (it + 1) * kBc + t;
+        kid_s[(st ^ 1) * kBc + t] = key < sk ? kidg[key] : 0;
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks = k_s + st * E;
+    const bf16* vs = v_s + st * E;
+
+    // s = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], da[4];
+      load_a<D>(qa, q_s, warp * 16, kk * 16, g, t4);
+      load_a<D>(da, do_s, warp * 16, kk * 16, g, t4);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const bf16* kr = ks + (n * 8 + g) * S + kk * 16 + 2 * t4;
+        const bf16* vr = vs + (n * 8 + g) * S + kk * 16 + 2 * t4;
+        mma16816(s[n], qa, ld32(kr), ld32(kr + 8));
+        mma16816(dp[n], da, ld32(vr), ld32(vr + 8));
+      }
+    }
+
+    // dS = P (dP - delta), fp32 p; 0 where masked.  Only tiles that
+    // cross the diagonal or the ragged end of the keys, or (SEG) hold
+    // more than one id, test each score (warp-uniform test)
+    const int k0 = it * kBc;
+    const int* kid = kid_s + st * kBc;
+    bool edge = (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
+    if (SEG) {
+      const int c = kid[0];
+      edge = edge || !warp_one_segment(kid[lane] == c &&
+                                       kid[lane + 32] == c && qid_a == c &&
+                                       qid_b == c);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool top = e < 2;
+        const float p =
+            exp2f(s[n][e] * scale_log2 - (top ? lse_a : lse_b));
+        float ds = p * (dp[n][e] - (top ? dl_a : dl_b));
+        if (edge) {
+          const int kc = n * 8 + 2 * t4 + (e & 1);
+          const int key = k0 + kc;
+          if (key >= sk || (causal && key > (top ? row_a : row_b)) ||
+              (SEG && kid[kc] != (top ? qid_a : qid_b)))
+            ds = 0.f;
+        }
+        s[n][e] = ds;
+      }
+    }
+
+    // dQ += dS K, ds rounded to bf16 (the ds tile is the A fragment;
+    // scale applied at the end)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      mma_tile_b<S, D / 16>(dqa, pa, ks, kk * 16, lane);
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+  // each row once: no atomics, the same bits on every run
+  bf16* dqg = dq + (long long)bh * sq * D;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + 2 * t4;
+    if (row_a < sq)
+      *reinterpret_cast<uint32_t*>(dqg + (long long)row_a * D + c) =
+          pack_bf16(scale * dqa[n][0], scale * dqa[n][1]);
+    if (row_b < sq)
+      *reinterpret_cast<uint32_t*>(dqg + (long long)row_b * D + c) =
+          pack_bf16(scale * dqa[n][2], scale * dqa[n][3]);
   }
 }
 
@@ -732,18 +937,18 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DQ>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dq_acc, void* dk, void* dv, const long long* st,
                        int b, int h, int sq, int sk, float scale, int causal,
                        Seg seg, cudaStream_t stream) {
   static bool opted = false;
-  constexpr size_t smem = bwd_smem<D, SEG>();
-  cudaError_t e = opt_in(flash_bwd_kernel<D, SEG>, smem, opted);
+  constexpr size_t smem = bwd_smem<D, SEG, DQ>();
+  cudaError_t e = opt_in(flash_bwd_kernel<D, SEG, DQ>, smem, opted);
   if (e != cudaSuccess) return e;
   const dim3 grid((sk + kBc - 1) / kBc, b * h);
-  flash_bwd_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_kernel<D, SEG, DQ><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -752,6 +957,57 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
       causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
   return cudaGetLastError();
+}
+
+template <int D, bool SEG>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dq, const long long* st,
+                          int b, int h, int sq, int sk, float scale,
+                          int causal, Seg seg, cudaStream_t stream) {
+  static bool opted = false;
+  constexpr size_t smem = bwd_dq_smem<D, SEG>();
+  cudaError_t e = opt_in(flash_bwd_dq_kernel<D, SEG>, smem, opted);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sq + kBr - 1) / kBr, b * h);
+  flash_bwd_dq_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale,
+      scale * kLog2e, causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
+  return cudaGetLastError();
+}
+
+template <int D>
+using Dim = std::integral_constant<int, D>;
+template <bool B>
+using Flag = std::integral_constant<bool, B>;
+
+// launch(Dim<head_dim>, Flag<has segment ids>) for one call's head_dim (64
+// or 128) and segment ids (both null or both set); anything else is
+// cudaErrorInvalidValue, with nothing launched
+template <typename F>
+int dispatch(int head_dim, const void* q_seg, const void* kv_seg,
+             F launch) {
+  if ((q_seg == nullptr) != (kv_seg == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool seg = q_seg != nullptr;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (head_dim == 64)
+    e = seg ? launch(Dim<64>{}, Flag<true>{})
+            : launch(Dim<64>{}, Flag<false>{});
+  else if (head_dim == 128)
+    e = seg ? launch(Dim<128>{}, Flag<true>{})
+            : launch(Dim<128>{}, Flag<false>{});
+  return static_cast<int>(e);
+}
+
+Seg make_seg(const void* q_seg, const void* kv_seg, long long q_seg_sb,
+             long long kv_seg_sb) {
+  return Seg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+             q_seg_sb, kv_seg_sb};
 }
 
 }  // namespace
@@ -769,31 +1025,18 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Seg seg{static_cast<const int*>(q_seg),
-                static_cast<const int*>(kv_seg), q_seg_sb, kv_seg_sb};
-  if ((q_seg == nullptr) != (kv_seg == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool has_seg = q_seg != nullptr;
-  if (head_dim == 64)
-    return static_cast<int>(
-        has_seg ? launch_fwd<64, true>(q, k, v, o, lse, strides, b, h, sq, sk,
-                                       scale, causal, seg, s)
-                : launch_fwd<64, false>(q, k, v, o, lse, strides, b, h, sq,
-                                        sk, scale, causal, seg, s));
-  if (head_dim == 128)
-    return static_cast<int>(
-        has_seg ? launch_fwd<128, true>(q, k, v, o, lse, strides, b, h, sq,
-                                        sk, scale, causal, seg, s)
-                : launch_fwd<128, false>(q, k, v, o, lse, strides, b, h, sq,
-                                         sk, scale, causal, seg, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_fwd<decltype(d)::value, decltype(has_seg)::value>(
+        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, seg, s);
+  });
 }
 
-// As above, plus dout (strided like q; its strides follow q, k, v's in
-// `strides`, 12 values), lse and delta (b, h, sq) fp32 contiguous, dq_acc
-// (b, h, sq, d) fp32 contiguous and ZEROED (dq is added into it, scaled),
-// dk and dv (b, h, sk, d) bf16 contiguous.
+// The fused backward: as above, plus dout (strided like q; its strides
+// follow q, k, v's in `strides`, 12 values), lse and delta (b, h, sq) fp32
+// contiguous, dq_acc (b, h, sq, d) fp32 contiguous and ZEROED (dq is added
+// into it, scaled), dk and dv (b, h, sk, d) bf16 contiguous.
 extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -803,27 +1046,52 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Seg seg{static_cast<const int*>(q_seg),
-                static_cast<const int*>(kv_seg), q_seg_sb, kv_seg_sb};
-  if ((q_seg == nullptr) != (kv_seg == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool has_seg = q_seg != nullptr;
-  if (head_dim == 64)
-    return static_cast<int>(
-        has_seg ? launch_bwd<64, true>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                       dv, strides, b, h, sq, sk, scale,
-                                       causal, seg, s)
-                : launch_bwd<64, false>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                        dv, strides, b, h, sq, sk, scale,
-                                        causal, seg, s));
-  if (head_dim == 128)
-    return static_cast<int>(
-        has_seg ? launch_bwd<128, true>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                        dv, strides, b, h, sq, sk, scale,
-                                        causal, seg, s)
-                : launch_bwd<128, false>(q, k, v, dout, lse, delta, dq_acc,
-                                         dk, dv, strides, b, h, sq, sk, scale,
-                                         causal, seg, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, strides, b, h, sq, sk,
+        scale, causal, seg, s);
+  });
+}
+
+// The split backward's dq pass: the fused backward's arguments, with dq
+// (b, h, sq, d) bf16 contiguous, written once (no zeroing), in place of
+// dq_acc, dk and dv.
+extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
+                                      const void* k, const void* v,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dq,
+                                      const long long* strides, int b, int h,
+                                      int sq, int sk, float scale, int causal,
+                                      const void* q_seg, const void* kv_seg,
+                                      long long q_seg_sb, long long kv_seg_sb,
+                                      void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_bwd_dq<decltype(d)::value, decltype(has_seg)::value>(
+        q, k, v, dout, lse, delta, dq, strides, b, h, sq, sk, scale, causal,
+        seg, s);
+  });
+}
+
+// The split backward's dk/dv pass: the fused backward's arguments without
+// dq_acc.
+extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
+                                       const void* k, const void* v,
+                                       const void* dout, const void* lse,
+                                       const void* delta, void* dk, void* dv,
+                                       const long long* strides, int b,
+                                       int h, int sq, int sk, float scale,
+                                       int causal, const void* q_seg,
+                                       const void* kv_seg, long long q_seg_sb,
+                                       long long kv_seg_sb, void* stream) {
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false>(
+        q, k, v, dout, lse, delta, nullptr, dk, dv, strides, b, h, sq, sk,
+        scale, causal, seg, s);
+  });
 }

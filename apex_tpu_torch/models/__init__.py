@@ -5,8 +5,11 @@ training forwards."""
 
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
+    GPT2_1p3B,
     GPT2_350M,
     GPTConfig,
+    gpt_1p3b,
+    gpt_350m,
     init_gpt_params,
     params_from_jax,
 )

@@ -73,6 +73,7 @@ class GPTConfig:
 
 # preset sizes ≡ apex_tpu.models.gpt
 GPT2_350M = dict(hidden=1024, num_layers=24, num_heads=16)
+GPT2_1p3B = dict(hidden=2048, num_layers=24, num_heads=32)
 
 
 def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
@@ -232,3 +233,13 @@ class GPT:
         logits = self.logits_local(params, h)              # (S, B, V)
         loss = vocab_parallel_cross_entropy(logits, labels.T)
         return torch.mean(loss)
+
+
+def gpt_350m(**overrides) -> GPT:
+    """GPT-350M (`GPT2_350M`), with `overrides` of any `GPTConfig` field."""
+    return GPT(GPTConfig(**{**GPT2_350M, **overrides}))
+
+
+def gpt_1p3b(**overrides) -> GPT:
+    """GPT-1.3B (`GPT2_1p3B`), with `overrides` of any `GPTConfig` field."""
+    return GPT(GPTConfig(**{**GPT2_1p3B, **overrides}))

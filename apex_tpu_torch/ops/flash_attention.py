@@ -9,12 +9,20 @@ Two implementations live here:
   * `attention_reference` — the plain PyTorch version: fp32 scores,
     masked scores set to `_NEG_INF` (-1e30), softmax, P.V in fp32.  It
     runs for CPU tensors (autograd gives its gradient), and
-    `chip_smoke.py` holds the kernels against it.
-  * the CUDA C++ kernels in `apex_tpu_torch/csrc/flash_attention.cu`
-    (the ports of `_fwd_kernel` and `_bwd_fused_kernel`), launched by
-    `flash_fwd_cuda` / `flash_bwd_cuda` inside `_FlashFn`, a
-    `torch.autograd.Function` that saves o and the fp32 lse (b, h, sq).
-    Its source note says what bounds them and how.
+    `chip_smoke.py` holds the kernels against it.  Beside it,
+    `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` are the plain
+    versions of the split backward's two passes, from the forward's lse.
+  * the CUDA C++ kernels in `apex_tpu_torch/csrc/flash_attention.cu`,
+    the ports of `_fwd_kernel`, `_bwd_fused_kernel`, `_bwd_dq_kernel`
+    and `_bwd_dkv_kernel`, launched by `flash_fwd_cuda`,
+    `flash_bwd_cuda`, `flash_bwd_dq_cuda` and `flash_bwd_dkv_cuda`
+    inside `_FlashFn`, a `torch.autograd.Function` that saves o and the
+    fp32 lse (b, h, sq).  Its source note says what bounds them and how.
+
+The backward takes the JAX package's route (`backward_route`, its
+`_bwd_impl` rule): the fused kernel while sk * d <= `_FUSED_BWD_CAP`,
+the split pair (the dq pass, then the dk/dv pass) beyond it, e.g. at
+32k keys of 64 or GPT-350M at seq 8192.  Nothing else chooses it.
 
 On CUDA the kernels take the surface the training steps use: causal or
 not, segment ids or not (BERT's padding mask), bf16, head_dim 64 or 128,
@@ -36,6 +44,21 @@ _NEG_INF = -1e30
 
 _KERNEL_DTYPES = (torch.bfloat16,)
 _KERNEL_HEAD_DIMS = (64, 128)
+# the JAX package's fused-backward cap (apex_tpu/ops/flash_attention.py:41),
+# applied as its _bwd_impl applies it (:979): the TPU kernel keeps the
+# whole (sk, d) dk/dv scratch in VMEM, so past the cap it splits
+_FUSED_BWD_CAP = 256 * 1024
+# query rows per step of the split backward's plain versions: bounds
+# their fp32 (rows, sk) temporaries (1 GiB each at 8 heads of 32k keys)
+_REFERENCE_ROWS = 1024
+
+
+def backward_route(sk: int, head_dim: int) -> str:
+    """The backward `_FlashFn` runs for sk keys of `head_dim`: "fused"
+    while sk * head_dim <= `_FUSED_BWD_CAP`, else "split" — the JAX
+    package's `_bwd_impl` rule for the surface CUDA takes (no bias, so no
+    key-only dbias forces the split)."""
+    return "fused" if sk * head_dim <= _FUSED_BWD_CAP else "split"
 
 
 # --------------------------- plain PyTorch version ---------------------------
@@ -70,6 +93,77 @@ def attention_reference(q, k, v, *, causal=False, softmax_scale=None,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
+                      kv_seg, all_keys):
+    """The split backward's score blocks, `_REFERENCE_ROWS` query rows at
+    a time: (r0, r1, nk, p, ds) in fp32 over keys [0, nk).  p = exp(scale
+    q kᵀ − lse) where a key is visible, and where it is masked 1/sk for a
+    row whose keys are all masked (its lse is about -1e30: the uniform
+    weights of `attention_reference`), else 0; ds = p (do vᵀ − delta),
+    0 wherever masked.  Causal without `all_keys` stops at the block's
+    last row (every p and ds past it is 0; not so for a dead row's p)."""
+    sq, sk = q.shape[2], k.shape[2]
+    dev = q.device
+    for r0 in range(0, sq, _REFERENCE_ROWS):
+        r1 = min(sq, r0 + _REFERENCE_ROWS)
+        nk = min(sk, r1) if causal and not all_keys else sk
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
+                         k[:, :, :nk].float()) * scale
+        keep = torch.ones((r1 - r0, nk), dtype=torch.bool, device=dev)
+        if causal:
+            keep = (torch.arange(r0, r1, device=dev)[:, None]
+                    >= torch.arange(nk, device=dev)[None, :])
+        if q_seg is not None:
+            keep = keep & (q_seg[:, None, r0:r1, None]
+                           == kv_seg[:, None, None, :nk])
+        row_lse = lse[:, :, r0:r1, None]
+        masked_p = torch.where(row_lse < -1e29, 1.0 / sk, 0.0)
+        p = torch.where(keep, torch.exp(s - row_lse), masked_p)
+        del s
+        dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, r0:r1].float(),
+                          v[:, :, :nk].float())
+        ds = torch.where(keep, p * (dp - delta[:, :, r0:r1, None]), 0.0)
+        del dp, keep
+        yield r0, r1, nk, p, ds
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
+                           q_seg=None, kv_seg=None):
+    """Plain version of the split backward's dq pass (`_bwd_dq_kernel`),
+    on any device: dq = scale ds k from the forward's fp32 `lse` and
+    `delta = sum(do * o, -1)` in fp32, ds rounded to the inputs' dtype
+    before its product as the kernels round it.  Returns dq in q's
+    dtype."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for r0, r1, nk, _, ds in _split_bwd_blocks(
+            q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg, False):
+        dq[:, :, r0:r1] = (scale * torch.einsum(
+            "bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
+            k[:, :, :nk].float())).to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, causal,
+                            q_seg=None, kv_seg=None):
+    """Plain version of the split backward's dk/dv pass
+    (`_bwd_dkv_kernel`), on any device: dv = pᵀ do and dk = scale dsᵀ q,
+    summed over the query blocks in fp32, p and ds rounded to the
+    inputs' dtype before their products.  Returns (dk, dv) in k's and
+    v's dtypes."""
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for r0, r1, nk, p, ds in _split_bwd_blocks(
+            q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg,
+            q_seg is not None):
+        dv[:, :, :nk] += torch.einsum("bhqk,bhqd->bhkd",
+                                      p.to(q.dtype).float(),
+                                      do[:, :, r0:r1].float())
+        dk[:, :, :nk] += scale * torch.einsum(
+            "bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+            q[:, :, r0:r1].float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------- CUDA kernels -------------------------------
 
 _LIB = None
@@ -88,6 +182,14 @@ def _bind(lib):
     lib.apex_flash_attn_bwd.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
         f32, i32, *seg, vp]
+    lib.apex_flash_attn_bwd_dq.restype = i32
+    lib.apex_flash_attn_bwd_dq.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
+        *seg, vp]
+    lib.apex_flash_attn_bwd_dkv.restype = i32
+    lib.apex_flash_attn_bwd_dkv.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
+        i32, *seg, vp]
     return lib
 
 
@@ -168,7 +270,8 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    seg, _keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    _require_cuda(q, k, v, *keep)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -186,18 +289,24 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
 flash_fwd_cuda.launches = 0
 
 
-def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                   kv_seg=None):
-    """Launch the backward kernel on the current stream: dq, dk, dv from
-    q, k, v, the output gradient `do`, the forward's fp32 `lse` and
-    `delta = sum(do * o, -1)` in fp32, with the forward's segment ids.
-    dq is summed across key blocks in an fp32 scratch buffer and cast
-    once.  `flash_bwd_cuda.launches` counts launches."""
+def _require_cuda(*ts):
+    """The launchers take CUDA tensors only: the plain versions serve the
+    CPU (`flash_attention` dispatches by device)."""
+    if not check_kernel_device(*ts):
+        raise ValueError("the flash attention kernels take CUDA tensors; "
+                         "CPU tensors go to the plain versions")
+
+
+def _bwd_operands(q, k, v, do, lse, delta, q_seg, kv_seg):
+    """The checks every backward launcher makes before it launches (the
+    kernel surface, segment ids, do, lse, delta, the device), and the
+    operands as the kernels read them: (q, k, v, do, seg args, the id
+    tensors they point into)."""
     _check_kernel_inputs(q, k, v)
     q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    seg, _keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
@@ -206,6 +315,21 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous fp32 "
                              f"{(b, h, sq)}, got {tuple(t.shape)} {t.dtype}")
+    _require_cuda(q, k, v, do, lse, delta, *keep)
+    return q, k, v, do, seg, keep
+
+
+def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
+                   kv_seg=None):
+    """Launch the fused backward kernel on the current stream: dq, dk, dv
+    from q, k, v, the output gradient `do`, the forward's fp32 `lse` and
+    `delta = sum(do * o, -1)` in fp32, with the forward's segment ids.
+    dq is summed across key blocks in an fp32 scratch buffer by atomics
+    and cast once.  `flash_bwd_cuda.launches` counts launches."""
+    q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
+                                            kv_seg)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32,
                          device=q.device)
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
@@ -226,10 +350,66 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
 flash_bwd_cuda.launches = 0
 
 
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
+                      kv_seg=None):
+    """Launch the split backward's dq pass on the current stream (the
+    arguments of `flash_bwd_cuda`).  Each dq row is summed over its key
+    blocks in registers and written once, in bf16: no atomics, the same
+    bits on every run.  `flash_bwd_dq_cuda.launches` counts launches."""
+    q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
+                                            kv_seg)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().apex_flash_attn_bwd_dq(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do), b, h, sq, sk, float(scale),
+        int(bool(causal)), *seg, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention dq pass launch failed: CUDA "
+                           f"error {err}")
+    flash_bwd_dq_cuda.launches += 1
+    return dq
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
+                       kv_seg=None):
+    """Launch the split backward's dk/dv pass on the current stream (the
+    arguments of `flash_bwd_cuda`): the fused kernel without its dq
+    part, so dk and dv are the fused kernel's bit for bit.  Returns (dk,
+    dv) in bf16.  `flash_bwd_dkv_cuda.launches` counts launches."""
+    q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
+                                            kv_seg)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().apex_flash_attn_bwd_dkv(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _strides(q, k, v, do), b, h, sq, sk, float(scale),
+        int(bool(causal)), *seg, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention dk/dv pass launch failed: "
+                           f"CUDA error {err}")
+    flash_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
 class _FlashFn(torch.autograd.Function):
     """The kernels as one differentiable op: forward saves o and the fp32
     lse; backward forms delta = sum(do * o) in fp32 (as `_bwd_impl`
-    does) and runs the single-pass backward kernel."""
+    does) and runs the fused backward kernel or the split pair, as
+    `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg):
@@ -242,8 +422,13 @@ class _FlashFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
         delta = torch.sum(do.float() * o.float(), dim=-1)
-        dq, dk, dv = flash_bwd_cuda(q, k, v, do, lse, delta, ctx.scale,
-                                    ctx.causal, q_seg, kv_seg)
+        args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal, q_seg,
+                kv_seg)
+        if backward_route(k.shape[2], q.shape[3]) == "fused":
+            dq, dk, dv = flash_bwd_cuda(*args)
+        else:
+            dq = flash_bwd_dq_cuda(*args)
+            dk, dv = flash_bwd_dkv_cuda(*args)
         return dq, dk, dv, None, None, None, None
 
 
@@ -273,7 +458,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     block_q / block_k: the TPU kernel's tile knobs; the CUDA kernels
     tile by 64 x 64 and do not take them yet.  heads_per_step: accepted
     and ignored — on Hopper head packing is a tile-shape choice inside
-    these kernels, a tuner axis still to come (ROADMAP Queue 2 item 6).
+    these kernels, a tuner axis still to come (ROADMAP Queue 2 items
+    5–6, slice 8).
     """
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)

@@ -9,7 +9,7 @@ fp32 and rounds once to the input dtype under `strict_matmul_numerics`
 
 At tp=1 there are no collectives: the copy/reduce/gather regions of the
 JAX package are identities.  tp>1, sequence parallelism and the chunked
-compute/collective overlap come with ROADMAP slice 4 (Queue 1 item 13).
+compute/collective overlap come with ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations

@@ -89,7 +89,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  each through the kernels agrees with the same step
                  through the plain versions (full width, batch 2; BERT
                  with ragged padding).
-  9. table       the kernels' times on the card (CUDA events) beside
+  9. long        the long-context backward, which takes the split route
+                 (the dq pass, then the dk/dv pass) where sk * d > 256k:
+                 both kernels against their plain versions, against
+                 autograd through `attention_reference` and against the
+                 fused kernel (dk, dv bit for bit) at (1, 8, 8192, 64 and
+                 128), causal and not, and at (4, 8, 4608, 64) with
+                 BERT's ragged padding (one sequence all padding), the dq
+                 pass twice bit for bit; bench.py's `_long_context_32k`
+                 at (1, 8, 32768, 64) bf16 causal through the entry point
+                 and autograd, one warm-up and five timed iterations
+                 (ms, tokens/s, peak memory; one forward, one dq and one
+                 dk/dv launch an iteration, no fused backward; dk, dv
+                 bit for bit with the fused kernel's on the same inputs,
+                 dq within 1e-2 of its largest magnitude); the GPT-350M
+                 step at seq 8192 (`gpt_350m(seq_len=8192)`, batch 1,
+                 bf16 logits, FusedAdam(lr=1e-4, master bf16)), two
+                 warm-up and three timed steps on one seeded batch: the
+                 loss is finite and falls, every step runs 24 flash
+                 forwards, 24 dq and 24 dk/dv passes and no fused
+                 backward, 49 LayerNorm forwards and backwards and one
+                 Adam, with no host sync; tokens/s, peak memory, one
+                 profiled step, and a 2-layer step through the kernels
+                 against the plain step (batch 1, seq 8192).  Then both
+                 routes timed at 32k and at GPT's (12, 16, 1024, 64).
+ 10. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -243,6 +267,18 @@ def pad_segments(torch, b, s, lengths):
         torch.int32)
 
 
+def max_err(torch, what, got, ref, tol=1e-2):
+    """max |got - ref|, checked against `tol` of ref's largest magnitude
+    (the flash kernels' tolerance, `check_flash_attention`)."""
+    check(got.shape == ref.shape, f"{what} shape {tuple(got.shape)} != "
+          f"{tuple(ref.shape)}")
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(math.isfinite(err) and err <= tol * scale,
+          f"{what}: max err {err:.3e} of max {scale:.3e}")
+    return err
+
+
 def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
                           packed=False, q_seg=None, kv_seg=None):
     """Both flash kernels against the plain version (`attention_reference`
@@ -290,14 +326,9 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
     errs = {}
     for name, got, ref in (("o", o, o_ref), ("dq", dq, qr.grad),
                            ("dk", dk, kr.grad), ("dv", dv, vr.grad)):
-        check(got.shape == ref.shape and got.dtype == bf16,
-              f"flash {name} shape/dtype {tuple(got.shape)} {got.dtype}")
-        err = (got.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        check(math.isfinite(err) and err <= 1e-2 * scale,
-              f"flash {name} ({b},{h},{s},{d}) causal={causal}: max err "
-              f"{err:.3e} of max {scale:.3e}")
-        errs[name] = err
+        check(got.dtype == bf16, f"flash {name} dtype {got.dtype}")
+        errs[name] = max_err(torch, f"flash {name} ({b},{h},{s},{d}) "
+                             f"causal={causal}", got, ref)
     errs["lse"] = (lse - lse_ref).abs()[live].max().item()
     check(errs["lse"] <= 1e-4, f"flash lse max err {errs['lse']:.3e}")
     check(bool((lse[~live] < -1e29).all()), "flash lse of a fully masked row")
@@ -797,6 +828,8 @@ def training_kernels(fa, ln, ok):
 
     return {"flash_attention_fwd": fa.flash_fwd_cuda,
             "flash_attention_bwd": fa.flash_bwd_cuda,
+            "flash_attention_bwd_dq": fa.flash_bwd_dq_cuda,
+            "flash_attention_bwd_dkv": fa.flash_bwd_dkv_cuda,
             "layer_norm_fwd": ln.norm_fwd_triton,
             "layer_norm_bwd": ln.norm_bwd_triton,
             "softmax_fwd": sm.softmax_fwd_triton,
@@ -893,27 +926,28 @@ def profile_step(torch, step, state, args, names):
 
 
 def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
-                    opt_swaps, per_step, names, warmup, steps):
+                    opt_swaps, per_step, names, warmup, steps, batch=12,
+                    seq=1024):
     """The GPT-350M training step at full width (module docstring,
-    phases 5 and 8): bf16, batch 12 x seq 1024, bf16 logits, seed-0
-    weights, `flash` attention or the dense path, the optimizer of
-    `make_opt(params)` (`opt_desc` says which); `warmup` steps, then
-    `steps` timed ones on one seeded batch.  Checks the losses and the launch counts (`per_step`
-    each step), takes a step with no host sync and a profiled one
-    (`names`: the kernels to sum), and compares a 2-layer step through
-    the kernels with the plain step (`opt_swaps`: the optimizer's plain
-    stand-ins).  Returns the measurements and that comparison."""
+    phases 5, 8 and 9): `gpt_350m` in bf16, batch x seq (12 x 1024
+    unless asked), bf16 logits, seed-0 weights, `flash` attention or the
+    dense path, the optimizer of `make_opt(params)` (`opt_desc` says
+    which); `warmup` steps, then `steps` timed ones on one seeded batch.
+    Checks the losses and the launch counts (`per_step` each step),
+    takes a step with no host sync and a profiled one (`names`: the
+    kernels to sum), and compares a 2-layer step through the kernels
+    with the plain step (`opt_swaps`: the optimizer's plain stand-ins)
+    at two of the batch's sequences (one when the batch has one).
+    Returns the measurements and that comparison."""
     from apex_tpu_torch.models import gpt as gpt_mod
     from apex_tpu_torch.transformer.training import (
         init_sharded_optimizer, make_tp_dp_train_step)
 
     bf16 = torch.bfloat16
-    batch, seq = 12, 1024
-    cfg = gpt_mod.GPTConfig(
-        vocab_size=50304, seq_len=seq, hidden=1024, num_layers=24,
-        num_heads=16, dropout=0.0, dtype=bf16, logits_dtype=bf16,
-        use_flash_attention=flash)
-    model = gpt_mod.GPT(cfg)
+    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=seq, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=flash)
+    cfg = model.c
     params = model.init(seed=0)
     opt = make_opt(params)
     state = init_sharded_optimizer(opt, model, params)
@@ -959,7 +993,7 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     del state, opt, step
     torch.cuda.empty_cache()
     result = {
-        "config": f"GPT-350M bf16, batch 12 x seq 1024, bf16 logits, "
+        "config": f"GPT-350M bf16, batch {batch} x seq {seq}, bf16 logits, "
                   f"{'flash' if flash else 'dense'} attention, {opt_desc}",
         "params": n_params, "warmup_steps": warmup, "steps": steps,
         "losses": losses, "warmup_s": warm_s,
@@ -973,9 +1007,12 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
                                       labels[:2])
 
 
-def train_phase(torch, fa, ln, ok):
-    """Phase 5: the flash step with FusedAdam(lr=1e-4, master bf16), one
-    warm-up step and four timed ones (five in all, as before)."""
+def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
+                    batch=12, seq=1024):
+    """The flash GPT-350M step with FusedAdam(lr=1e-4, master bf16) at
+    batch x seq (phases 5 and 9).  `backward` is the route every layer's
+    backward must take, "fused" (seq 1024) or "split" (seq 8192): 24
+    launches a step of each of its kernels and none of the other's."""
     from apex_tpu_torch.optimizers import FusedAdam
 
     def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
@@ -984,20 +1021,36 @@ def train_phase(torch, fa, ln, ok):
             buf.copy_(new)
         return p, m, v
 
-    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+    split = backward == "split"
+    per_step = {"flash_attention_fwd": 24,
+                "flash_attention_bwd": 0 if split else 24,
+                "flash_attention_bwd_dq": 24 if split else 0,
+                "flash_attention_bwd_dkv": 24 if split else 0,
                 "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
-             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
              "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
                                                "_bwd_finish_kernel"),
              "adam": lambda k: k == "_adam_kernel"}
+    if split:      # the dk/dv pass is flash_bwd_kernel<D, SEG, false>
+        names.update(
+            flash_attention_bwd_dq=lambda k: "flash_bwd_dq_kernel" in k,
+            flash_attention_bwd_dkv=lambda k: "flash_bwd_kernel" in k)
+    else:
+        names["flash_attention_bwd"] = lambda k: "flash_bwd_kernel" in k
     return gpt_train_phase(
-        torch, fa, ln, ok, "train", True,
+        torch, fa, ln, ok, what, True,
         lambda params: FusedAdam(lr=1e-4, master_dtype=torch.bfloat16),
         "FusedAdam(lr=1e-4, master bf16)",
         [(ok, "adam_flat_triton", plain_adam)], per_step, names,
-        warmup=1, steps=4)
+        warmup=warmup, steps=steps, batch=batch, seq=seq)
+
+
+def train_phase(torch, fa, ln, ok):
+    """Phase 5: the flash step on the fused backward, one warm-up step
+    and four timed ones (five in all, as before)."""
+    return flash_gpt_phase(torch, fa, ln, ok, "train", "fused", warmup=1,
+                           steps=4)
 
 
 def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
@@ -1096,8 +1149,9 @@ def attention_swaps(mod, fa, cfg):
 
 def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what, make_opt,
                        opt_swaps, tokens, labels):
-    """One full-width GPT step of a 2-layer model at batch 2 through the
-    kernels and through their plain versions (`kernels_vs_plain_step`):
+    """One full-width GPT step of a 2-layer model at the batch of `tokens`
+    through the kernels and through their plain versions
+    (`kernels_vs_plain_step`):
     the attention kernels of `cfg`, the LayerNorm, and the optimizer's
     (`opt_swaps`)."""
     import dataclasses
@@ -1194,6 +1248,7 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
                                                             cfg.num_layers)
     per_step = {"flash_attention_fwd": n_flash,
                 "flash_attention_bwd": n_flash,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                 "softmax_fwd": n_softmax, "softmax_bwd": n_softmax,
                 "layer_norm_fwd": 2 * cfg.num_layers + 2,
                 "layer_norm_bwd": 2 * cfg.num_layers + 2,
@@ -1520,7 +1575,7 @@ def compare_resnet_step(torch, xe, wf, ok, batch):
 
 
 def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
-    """Phase 9 rows of the ResNet step's kernels at the step's shapes:
+    """Phase 10 rows of the ResNet step's kernels at the step's shapes:
     the cross entropy at (256, 1000) fp32 logits, SGD over the ResNet-50
     flat buffer (fp32 p and buf, bf16 grads), the channel sums at the
     stem's (3,211,264, 64) bf16 (and, as `ms_smallest_shape`, the last
@@ -1639,6 +1694,7 @@ def dense_phase(torch, fa, ln, ok):
     per_step = {"softmax_fwd": 24, "softmax_bwd": 24, "layer_norm_fwd": 49,
                 "layer_norm_bwd": 49, "adam_seg": 1,
                 "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                 "adam": 0}
     names = {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
              "softmax_bwd": lambda k: k == "_softmax_bwd_kernel",
@@ -1663,6 +1719,263 @@ def dense_phase(torch, fa, ln, ok):
     return gpt, bert, gpt_vs_plain, bert_vs_plain
 
 
+# bench.py:394-417 `_long_context_32k` on its chip branch: (B, H, S, D)
+LONG_SHAPE = (1, 8, 32768, 64)
+
+
+def check_split_backward(torch, fa, rng, *, b, h, s, d, causal, seg=None):
+    """The split backward's two kernels on one bf16 input (module
+    docstring, phase 9): against their plain versions on the same lse and
+    delta, against autograd through `attention_reference`, and against
+    the fused kernel (dk and dv bit for bit, dq within the tolerance);
+    the dq pass twice, bit for bit.  `seg`: (b, s) int32 ids for q and
+    kv.  Tolerance 1e-2 of each output's largest magnitude, as for the
+    fused pair (`check_flash_attention`)."""
+    dev, bf16 = "cuda", torch.bfloat16
+    q, k, v, do = (torch.randn((b, h, s, d), generator=rng,
+                               device=dev).to(bf16) for _ in range(4))
+    sc = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, seg, seg)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, causal, seg, seg)
+    dq = fa.flash_bwd_dq_cuda(*args)
+    dq_again = fa.flash_bwd_dq_cuda(*args)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args)
+    fdq, fdk, fdv = fa.flash_bwd_cuda(*args)
+    pdq = fa.flash_bwd_dq_reference(*args)
+    pdk, pdv = fa.flash_bwd_dkv_reference(*args)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    fa.attention_reference(qr, kr, vr, causal=causal, softmax_scale=sc,
+                           q_segment_ids=seg,
+                           kv_segment_ids=seg).backward(do)
+    torch.cuda.synchronize()
+    case = f"({b},{h},{s},{d}) causal={causal} seg={seg is not None}"
+    check(all(t.dtype == bf16 for t in (dq, dk, dv)), f"split {case} dtype")
+    check(torch.equal(dq, dq_again), f"dq pass {case}: two runs differ")
+    check(torch.equal(dk, fdk) and torch.equal(dv, fdv),
+          f"dk/dv pass {case}: dk, dv differ from the fused kernel's")
+    errs = {}
+    for name, got, refs in (
+            ("dq", dq, {"plain": pdq, "autograd": qr.grad, "fused": fdq}),
+            ("dk", dk, {"plain": pdk, "autograd": kr.grad}),
+            ("dv", dv, {"plain": pdv, "autograd": vr.grad})):
+        for ref_name, ref in refs.items():
+            errs[f"{name}_vs_{ref_name}"] = max_err(
+                torch, f"split {name} {case} vs {ref_name}", got, ref)
+    return errs
+
+
+def long_context_leg(torch, fa, ln, ok, rng, warmup=1, iters=5):
+    """bench.py's `_long_context_32k` at LONG_SHAPE: the gradient of
+    flash_attention(q, k, v, causal=True).float().mean() through the
+    entry point and autograd, `warmup` + `iters` timed iterations.  The
+    counters must show one forward, one dq pass, one dk/dv pass and no
+    fused backward per iteration; the result is held against the fused
+    kernel on the same inputs (dk, dv bit for bit, dq within 1e-2 of its
+    largest magnitude)."""
+    b, h, s, d = LONG_SHAPE
+    bf16 = torch.bfloat16
+    sc = 1.0 / math.sqrt(d)
+    q, k, v = (torch.randn(LONG_SHAPE, generator=rng, device="cuda")
+               .to(bf16).requires_grad_(True) for _ in range(3))
+
+    def grad():
+        loss = fa.flash_attention(q, k, v, causal=True).float().mean()
+        return torch.autograd.grad(loss, (q, k, v))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    for _ in range(warmup):
+        out = grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = grad()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    peak = torch.cuda.max_memory_allocated()
+    counts = kernel_counts(fa, ln, ok)
+    n = warmup + iters
+    per_iter = {"flash_attention_fwd": 1, "flash_attention_bwd": 0,
+                "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    for name, want in per_iter.items():
+        check(counts[name] == want * n, f"32k leg {name}: {counts[name]} "
+              f"launches in {n} iterations, want {want} each")
+    # the fused route on the same inputs: do = d mean / d o = 2^-24
+    with torch.no_grad():
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+        do = torch.full_like(o, 1.0 / o.numel())
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        fdq, fdk, fdv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, True)
+    torch.cuda.synchronize()
+    dq, dk, dv = out
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          "32k leg: a gradient is not finite")
+    check(torch.equal(dk, fdk) and torch.equal(dv, fdv),
+          "32k leg: dk, dv differ from the fused route's")
+    line = {"shape": list(LONG_SHAPE), "causal": True, "warmup": warmup,
+            "iters": iters, "ms": 1e3 * dt, "tokens_per_s": b * s / dt,
+            "peak_mem_gib": peak / 2 ** 30,
+            "launches": {k_: counts[k_] for k_ in per_iter},
+            "launches_per_iter": per_iter,
+            "dk_dv_equal_fused_bitwise": True,
+            "dq_vs_fused_max_err": max_err(torch, "32k leg dq vs fused", dq,
+                                           fdq),
+            "dq_max": fdq.float().abs().max().item()}
+    del q, k, v, out, o, lse, do, delta, fdq, fdk, fdv, dq, dk, dv
+    torch.cuda.empty_cache()
+    return line
+
+
+def route_times(torch, fa, rng):
+    """Both backward routes timed by calling the launchers (CUDA events,
+    warm L2): the fused kernel (with its dq scratch zeroing and cast)
+    against the dq pass plus the dk/dv pass, at LONG_SHAPE and at GPT's
+    (12, 16, 1024, 64), causal: what the card says of the cap."""
+    out = {}
+    for label, shape, n in (("32k", LONG_SHAPE, 10),
+                            ("gpt_1024", (12, 16, 1024, 64), 40)):
+        q, k, v, do = (torch.randn(shape, generator=rng, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        sc = 1.0 / math.sqrt(shape[3])
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q, k, v, do, lse, delta, sc, True)
+        fused = time_ms(torch, lambda: fa.flash_bwd_cuda(*args), n=n)
+        split = time_ms(torch, lambda: (fa.flash_bwd_dq_cuda(*args),
+                                        fa.flash_bwd_dkv_cuda(*args)), n=n)
+        dq_ms = time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*args), n=n)
+        dkv_ms = time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*args), n=n)
+        out[label] = {"shape": list(shape), "route_by_cap":
+                      fa.backward_route(shape[2], shape[3]),
+                      "fused_ms": fused, "split_ms": split, "dq_ms": dq_ms,
+                      "dkv_ms": dkv_ms, "split_over_fused": split / fused}
+        del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_phase(torch, fa, ln, ok, rng):
+    """Phase 9 (module docstring): the split backward's kernel checks,
+    the 32k leg, the GPT-350M step at seq 8192, and both routes' times.
+    Returns the measurements and the GPT step's kernels-vs-plain line."""
+    checks = {}
+    for b, h, s, d, causal in ((1, 8, 8192, 64, True),
+                               (1, 8, 8192, 64, False),
+                               (1, 8, 8192, 128, True),
+                               (1, 8, 8192, 128, False)):
+        e = check_split_backward(torch, fa, rng, b=b, h=h, s=s, d=d,
+                                 causal=causal)
+        checks[f"({b},{h},{s},{d}) causal={causal}"] = e
+        log(f"split backward ({b},{h},{s},{d}) causal={causal}: {e}")
+    # BERT's padding: 4608, 3000 and 1 real tokens and a sequence that is
+    # padding from end to end (its pads see only each other)
+    seg = pad_segments(torch, 4, 4608, [4608, 3000, 1, 0])
+    for causal in (False, True):
+        e = check_split_backward(torch, fa, rng, b=4, h=8, s=4608, d=64,
+                                 causal=causal, seg=seg)
+        checks[f"(4,8,4608,64) causal={causal} padding"] = e
+        log(f"split backward (4,8,4608,64) causal={causal} padding: {e}")
+    del seg
+    torch.cuda.empty_cache()
+    leg = long_context_leg(torch, fa, ln, ok, rng)
+    log("32k leg " + json.dumps(leg))
+    gpt, gpt_vs_plain = flash_gpt_phase(torch, fa, ln, ok, "long GPT",
+                                        "split", warmup=2, steps=3,
+                                        batch=1, seq=8192)
+    log("long GPT " + json.dumps(gpt))
+    torch.cuda.empty_cache()
+    routes = route_times(torch, fa, rng)
+    log("backward routes " + json.dumps(routes))
+    return {"checks": checks, "leg": leg, "gpt": gpt,
+            "routes": routes}, gpt_vs_plain
+
+
+def table_long_kernels(torch, fa, rng, long):
+    """Phase 10 rows of the split backward's kernels at LONG_SHAPE (the
+    32k leg's shape; kernel times from `route_times`), with their times
+    at GPT-350M's seq 8192 (1, 16, 8192, 64), both causal.  Bounds count
+    the score pairs at or below the diagonal: the dq pass does 3
+    products of 2d flop a pair, the dk/dv pass 4.  Launches: the 32k
+    leg's and the seq-8192 GPT phase's.  Library: one SDPA backward
+    (autograd) at the same shape, which computes dq, dk and dv."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    leg, gpt, routes = long["leg"], long["gpt"], long["routes"]["32k"]
+    b, h, s, d = LONG_SHAPE
+    sc = 1.0 / math.sqrt(d)
+    q, k, v, do = (torch.randn(LONG_SHAPE, generator=rng, device="cuda")
+                   .to(bf16) for _ in range(4))
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, True)
+    errs = {"dq": max_err(torch, "32k dq vs plain", fa.flash_bwd_dq_cuda(
+        *args), fa.flash_bwd_dq_reference(*args))}
+    pdk, pdv = fa.flash_bwd_dkv_reference(*args)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args)
+    errs["dkv"] = max(max_err(torch, "32k dk vs plain", dk, pdk),
+                      max_err(torch, "32k dv vs plain", dv, pdv))
+    del pdk, pdv, dk, dv
+    plain = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(*args),
+                           n=3, warm=1),
+             "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+                 *args), n=3, warm=1)}
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         scale=sc)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), n=10)
+    del out, qg, kg, vg, q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    # the same kernels at GPT-350M's seq 8192 (16 heads), as its step runs
+    gshape = (1, 16, 8192, 64)
+    gq, gk, gv, gdo = (torch.randn(gshape, generator=rng, device="cuda")
+                       .to(bf16) for _ in range(4))
+    go, glse = fa.flash_fwd_cuda(gq, gk, gv, sc, True)
+    gdelta = torch.sum(gdo.float() * go.float(), dim=-1)
+    gargs = (gq, gk, gv, gdo, glse, gdelta, sc, True)
+    at_8192 = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*gargs)),
+               "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*gargs))}
+    fused_8192 = time_ms(torch, lambda: fa.flash_bwd_cuda(*gargs))
+    del gq, gk, gv, gdo, go, glse, gdelta, gargs
+    torch.cuda.empty_cache()
+
+    def pairs(bb, hh, ss):
+        return bb * hh * ss * (ss + 1) // 2           # causal score pairs
+
+    el, io = 2, b * h * s * d * 2
+    rows = []
+    for key, name, replaces, products, outs in (
+            ("dq", "flash_attention_bwd_dq",
+             "apex_tpu/ops/flash_attention.py:447", 3, 1),
+            ("dkv", "flash_attention_bwd_dkv",
+             "apex_tpu/ops/flash_attention.py:497", 4, 2)):
+        counter = f"flash_attention_bwd_{key}"
+        launches = leg["launches"][counter] + gpt["launches"][counter]
+        row = table_row(
+            name, launches, gpt["launches_per_step"][counter], errs[key],
+            "cuda", "apex_tpu_torch/csrc/flash_attention.cu", replaces,
+            routes[f"{key}_ms"], plain[key], lib,
+            "scaled_dot_product_attention(is_causal=True) backward "
+            "(autograd: dq, dk and dv)",
+            (4 + outs) * io + 2 * b * h * s * 4,
+            2 * products * d * pairs(b, h, s),
+            f"q, k, v, do {LONG_SHAPE} bf16, causal; lse, delta fp32")
+        row.update({
+            "launches_32k_leg": leg["launches"][counter],
+            "launches_gpt_seq8192": gpt["launches"][counter],
+            "ms_at_gpt_seq8192": at_8192[key],
+            "bound_ms_at_gpt_seq8192": 1e3 * 2 * products * d
+            * pairs(1, 16, 8192) / BF16_FLOPS,
+            "fused_route_ms_32k": routes["fused_ms"],
+            "split_route_ms_32k": routes["split_ms"],
+            "fused_route_ms_gpt_seq8192": fused_8192})
+        rows.append(row)
+    return rows
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -1681,7 +1994,7 @@ def table_row(name, launches, per_step, err, route, source, replaces, ms,
 
 
 def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
-    """Phase 9 rows of the BERT step's new kernels at the step's shapes:
+    """Phase 10 rows of the BERT step's new kernels at the step's shapes:
     the segment-masked flash kernels at (32, 16, 512, 64) on q, k, v
     views of the packed qkv with BERT's ragged padding (512, 300, 129
     and 1 real tokens, cycled), and the LAMB kernels over the BERT-Large
@@ -1929,7 +2242,7 @@ def table_dense_kernels(torch, sm, ok, rng, errs, gpt, bert, layout):
 
 
 def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
-    """Phase 9 rows of the training path's kernels, at the step's shapes
+    """Phase 10 rows of the training path's kernels, at the step's shapes
     and layouts, warm L2 (every operand set but the LayerNorm's is larger
     than the 50 MB L2).  Bounds count what this data needs: each input
     read once and each output written once, and for causal attention
@@ -2352,7 +2665,11 @@ def main():
         dense_phase(torch, fa, ln, ok))
     torch.cuda.empty_cache()
 
-    # ---- 9. kernel table ---------------------------------------------
+    # ---- 9. the long-context step: the split backward -----------------
+    long, long_vs_plain = long_phase(torch, fa, ln, ok, rng)
+    torch.cuda.empty_cache()
+
+    # ---- 10. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -2423,6 +2740,7 @@ def main():
                                        resnet_spec)
     dense_rows = table_dense_kernels(torch, sm, ok, rng, errs, dense_gpt,
                                      dense_bert, gpt_layout)
+    long_rows = table_long_kernels(torch, fa, rng, long)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -2449,7 +2767,7 @@ def main():
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ] + train_rows + bert_rows + resnet_rows + dense_rows}
+    ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -2461,6 +2779,7 @@ def main():
     log("dense GPT step, kernels vs plain " + json.dumps(dense_gpt_vs_plain))
     log("dense BERT step, kernels vs plain "
         + json.dumps(dense_bert_vs_plain))
+    log("long GPT step, kernels vs plain " + json.dumps(long_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,11 @@ both sides compute fp32 scores and softmax, in different orders.  bf16:
 4.6e-3) — the TPU kernel rounds p to bf16 before P.V and ds before its
 products (the port's CUDA kernel does the same), while the plain
 version keeps them fp32, so the two sit one or two bf16 roundings
-apart."""
+apart.
+
+The split backward (the dq pass and the dk/dv pass that the JAX package
+runs past `_FUSED_BWD_CAP`) is held by its plain versions against the
+JAX `_bwd_impl` with the cap shrunk to 1, at the same tolerances."""
 
 import math
 
@@ -23,9 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu.ops import flash_attention as jfa
 from apex_tpu.ops.flash_attention import attention_reference as jax_reference
 from apex_tpu.ops.flash_attention import flash_attention as jax_flash
 from apex_tpu_torch.ops import flash_attention as tfa
+from apex_tpu_torch.ops.flash_attention import attention_reference
 
 _DTYPES = {"f32": (jnp.float32, torch.float32),
            "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -205,3 +211,183 @@ def test_kernel_surface_and_dispatch():
     tfa.flash_attention(x32, x32, x32, causal=True)
     assert (tfa.flash_fwd_cuda.launches,
             tfa.flash_bwd_cuda.launches) == before
+    # the split backward's launchers refuse, before any launch: fp32, a
+    # head_dim of 96, segment ids that do not match, and CPU tensors
+    lse = torch.zeros(1, 2, 8)
+    for fn in (tfa.flash_bwd_dq_cuda, tfa.flash_bwd_dkv_cuda):
+        n = fn.launches
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            fn(x32, x32, x32, x32, lse, lse, 0.125, True)
+        x96 = torch.zeros(1, 2, 8, 96, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            fn(x96, x96, x96, x96, lse, lse, 0.125, True)
+        xb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+        seg = torch.zeros(1, 8, dtype=torch.int32)
+        with pytest.raises(ValueError, match="go together"):
+            fn(xb, xb, xb, xb, lse, lse, 0.125, True, seg, None)
+        with pytest.raises(ValueError, match="kv_seg must be"):
+            fn(xb, xb, xb, xb, lse, lse, 0.125, True, seg,
+               torch.zeros(1, 7, dtype=torch.int32))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(xb, xb, xb, xb, lse, lse, 0.125, True, seg, seg)
+        assert fn.launches == n
+
+
+def test_backward_route_is_the_jax_rule():
+    """The port's cap is the JAX constant, and the route splits exactly
+    where `_bwd_impl` does: past sk * d = 256k."""
+    assert tfa._FUSED_BWD_CAP == jfa._FUSED_BWD_CAP == 256 * 1024
+    for sk, d in ((4096, 64), (2048, 128), (1024, 64), (1, 64)):
+        assert tfa.backward_route(sk, d) == "fused", (sk, d)
+    for sk, d in ((4160, 64), (2112, 128), (32768, 64), (8192, 64)):
+        assert tfa.backward_route(sk, d) == "split", (sk, d)
+
+
+def _jax_split_backward(monkeypatch, q, k, v, do, causal, jdt, seg=None):
+    """The JAX forward (o, lse) and its two-kernel backward (the Pallas
+    `_bwd_dq_kernel` and `_bwd_dkv_kernel` in interpret mode, 64 x 64
+    blocks), forced by shrinking `_FUSED_BWD_CAP`, on numpy inputs."""
+    monkeypatch.setattr(jfa, "_FUSED_BWD_CAP", 1)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jdt) for x in (q, k, v, do))
+    js = None if seg is None else jnp.asarray(seg)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = jfa._fwd_impl(jq, jk, jv, scale, causal, block_q=64,
+                           block_k=64, q_seg=js, kv_seg=js)
+    dq, dk, dv, _ = jfa._bwd_impl(jq, jk, jv, o, lse, jdo, scale, causal,
+                                  block_q=64, block_k=64, q_seg=js,
+                                  kv_seg=js)
+    delta = jnp.sum(jdo.astype(jnp.float32) * o.astype(jnp.float32), -1)
+    return lse, delta, (dq, dk, dv)
+
+
+def _port_split_backward(q, k, v, do, lse, delta, causal, tdt, seg=None):
+    tq, tk, tv, tdo = (torch.tensor(x).to(tdt) for x in (q, k, v, do))
+    tlse, tdelta = (torch.tensor(np.asarray(x)) for x in (lse, delta))
+    ts = None if seg is None else torch.tensor(seg)
+    args = (tq, tk, tv, tdo, tlse, tdelta, 1.0 / math.sqrt(q.shape[-1]),
+            causal, ts, ts)
+    dq = tfa.flash_bwd_dq_reference(*args)
+    dk, dv = tfa.flash_bwd_dkv_reference(*args)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal,dtype,d", [
+    (True, "f32", 64), (False, "f32", 64), (True, "bf16", 64),
+    (False, "bf16", 64), (True, "bf16", 128)])
+def test_split_backward_matches_jax_kernels(monkeypatch, causal, dtype, d):
+    """dq from `flash_bwd_dq_reference` and dk, dv from
+    `flash_bwd_dkv_reference` against the JAX `_bwd_dq_kernel` /
+    `_bwd_dkv_kernel` on the same q, k, v, do and the JAX forward's lse
+    and delta, (1, 2, 256, d): four 64-row blocks each way."""
+    q, k, v, do = _inputs(1, 2, 256, d, seed=40 + causal + d)
+    jdt, tdt = _DTYPES[dtype]
+    lse, delta, want = _jax_split_backward(monkeypatch, q, k, v, do, causal,
+                                           jdt)
+    got = _port_split_backward(q, k, v, do, lse, delta, causal, tdt)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == tdt, what
+        _close(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("causal,dtype", [(False, "f32"), (True, "bf16")])
+def test_split_backward_with_padding_matches_jax_kernels(monkeypatch, causal,
+                                                         dtype):
+    """BERT's padding as segment ids (256, 100 and 0 real tokens: the
+    last sequence is padding from end to end, so its pads see only each
+    other), the two passes against the JAX split kernels."""
+    q, k, v, do = _inputs(3, 2, 256, 64, seed=50 + causal)
+    seg = _pad_segments(3, 256, [256, 100, 0])
+    jdt, tdt = _DTYPES[dtype]
+    lse, delta, want = _jax_split_backward(monkeypatch, q, k, v, do, causal,
+                                           jdt, seg)
+    got = _port_split_backward(q, k, v, do, lse, delta, causal, tdt, seg)
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        _close(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_backward_fully_masked_rows(causal):
+    """Queries whose id no visible key carries: the plain passes give
+    `attention_reference`'s gradient (uniform p = 1/sk into dv, ds = 0,
+    so dq = 0 on those rows), fp32 against autograd through the JAX
+    `attention_reference`.  (The JAX Pallas kernels take p = exp(0) = 1
+    there and keep its ds, which that gradient does not.)"""
+    b, h, s, d = 2, 2, 128, 64
+    q, k, v, do = _inputs(b, h, s, d, seed=60 + causal)
+    rng = np.random.RandomState(61)
+    qseg = rng.randint(0, 4, (b, s)).astype(np.int32)
+    kvseg = rng.randint(0, 3, (b, s)).astype(np.int32)  # id 3: no key
+    scale = 1.0 / math.sqrt(d)
+
+    def jf(q_, k_, v_):
+        return jax_reference(q_, k_, v_, causal=causal, softmax_scale=scale,
+                             q_segment_ids=jnp.asarray(qseg),
+                             kv_segment_ids=jnp.asarray(kvseg))
+
+    jo, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    # the forward's lse as the kernels keep it: -1e30 on dead rows
+    sc = np.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    keep = qseg[:, None, :, None] == kvseg[:, None, None, :]
+    if causal:
+        keep = keep & np.tril(np.ones((s, s), bool))
+    lse = np.asarray(jax.nn.logsumexp(jnp.where(keep, sc, -1e30), -1))
+    dead = ~keep.any(-1)                                   # (b, 1, s)
+    assert dead.any() and (lse[np.broadcast_to(dead, lse.shape)]
+                           < -1e29).all()
+    delta = np.sum(do * np.asarray(jo), -1)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    args = (tq, tk, tv, tdo, torch.tensor(lse), torch.tensor(delta), scale,
+            causal, torch.tensor(qseg), torch.tensor(kvseg))
+    got = (tfa.flash_bwd_dq_reference(*args),
+           *tfa.flash_bwd_dkv_reference(*args))
+    for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g).all(), what
+        _close(g, w, "f32", what)
+    assert torch.all(got[0][torch.tensor(dead)[:, :, :, None]
+                            .expand(b, h, s, d)] == 0)
+
+
+def test_flash_fn_backward_follows_the_route(monkeypatch):
+    """`_FlashFn.backward` runs the fused launcher at sk * d = 256k and
+    the dq and dk/dv launchers one key past it, and nothing else: the
+    launchers are replaced by counting stand-ins that run the plain
+    versions on these CPU tensors."""
+    calls = []
+
+    def fwd(q, k, v, scale, causal, q_seg, kv_seg):
+        sc = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+        return (attention_reference(q, k, v, softmax_scale=scale),
+                torch.logsumexp(sc, -1))
+
+    def dq_pass(*args):
+        calls.append("dq")
+        return tfa.flash_bwd_dq_reference(*args)
+
+    def dkv_pass(*args):
+        calls.append("dkv")
+        return tfa.flash_bwd_dkv_reference(*args)
+
+    def fused(*args):
+        calls.append("fused")
+        return (tfa.flash_bwd_dq_reference(*args),
+                *tfa.flash_bwd_dkv_reference(*args))
+
+    for name, fn in (("flash_fwd_cuda", fwd), ("flash_bwd_cuda", fused),
+                     ("flash_bwd_dq_cuda", dq_pass),
+                     ("flash_bwd_dkv_cuda", dkv_pass)):
+        monkeypatch.setattr(tfa, name, fn)
+    for sk, route in ((4096, ["fused"]), (4160, ["dq", "dkv"])):
+        calls.clear()
+        q, k, v = (torch.randn(1, 1, n, 64, generator=torch.Generator()
+                               .manual_seed(sk + i)).requires_grad_(True)
+                   for i, n in enumerate((64, sk, sk)))
+        out = tfa._FlashFn.apply(q, k, v, 0.125, False, None, None)
+        out.backward(torch.ones_like(out))
+        assert calls == route, (sk, calls)
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        attention_reference(qr, kr, vr, softmax_scale=0.125).backward(
+            torch.ones_like(out))
+        for got, want in ((q.grad, qr.grad), (k.grad, kr.grad),
+                          (v.grad, vr.grad)):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)

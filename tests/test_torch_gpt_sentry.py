@@ -11,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from apex_tpu.models import gpt as jgpt
 from apex_tpu.models.gpt import GPT, GPTConfig
 from apex_tpu.ops import _common as jcommon
 from apex_tpu_torch.models import GPT2_350M
 from apex_tpu_torch.models import GPTConfig as TGPTConfig
+from apex_tpu_torch.models import gpt as tgpt
 from apex_tpu_torch.models import init_gpt_params, params_from_jax
 from apex_tpu_torch.monitor.compile import RecompileSentry
 from apex_tpu_torch.ops import _common as tcommon
@@ -126,3 +128,16 @@ def test_resolve_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tcommon.resolve_device()
+
+
+@pytest.mark.parametrize("build,preset", [("gpt_350m", "GPT2_350M"),
+                                          ("gpt_1p3b", "GPT2_1p3B")])
+def test_presets_match_jax(build, preset):
+    """`gpt_350m()` / `gpt_1p3b()` build the JAX presets' hidden size,
+    depth and heads, and take `GPTConfig` overrides as the JAX ones do."""
+    assert getattr(tgpt, preset) == getattr(jgpt, preset)
+    jm = getattr(jgpt, build)(seq_len=8192)
+    tm = getattr(tgpt, build)(seq_len=8192)
+    for field in ("hidden", "num_layers", "num_heads", "seq_len",
+                  "head_dim"):
+        assert getattr(tm.c, field) == getattr(jm.c, field), field
