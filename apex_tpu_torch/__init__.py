@@ -15,19 +15,24 @@ sources in the checkout at their first launch.
 Subpackages (lazily importable):
   ops         — LayerNorm/RMSNorm forward and backward, the scaled
                 (masked, causal) softmax forward and backward, flat Adam
-                (uniform and per-tensor), the LAMB phases and per-tensor
-                norms, flat SGD, the label-smoothed cross entropy and
-                the batch-norm channel sums (Triton), paged
-                flash-decode and flash attention forward and backward,
-                with segment ids (CUDA), and the NHWC max pool
+                (uniform and per-tensor), the LAMB phases (per tensor
+                and per element) and per-tensor norms, flat SGD and
+                Adagrad, the label-smoothed cross entropy and the
+                batch-norm channel sums (Triton), paged flash-decode,
+                flash attention forward and backward with segment ids,
+                and the fused dense GEMM with its bias and activation
+                epilogue (CUDA), the fused MLP, and the NHWC max pool
   serve       — paged KV cache + continuous-batching decode engine
   models      — GPT, BERT and ResNet: configs, seeded inits, the
                 JAX-params converters and the training forwards
-  optimizers  — flat buffers, FusedAdam, FusedLAMB and FusedSGD
+  optimizers  — flat buffers and their checkpoints, FusedAdam,
+                FusedLAMB, FusedSGD, FusedAdagrad and FusedNovoGrad
   amp         — O0–O3 policies and the dynamic loss scaler
-  parallel    — the single-device train step of `ddp` and the batch
-                norm of `sync_batchnorm`
-  contrib     — the xentropy facade
+  parallel    — the single-device train step of `ddp`, the batch norm
+                of `sync_batchnorm`, LARC and clip_grad
+  contrib     — the xentropy and clip_grad facades
+  multi_tensor_apply — one functor over parallel tensor lists
+  fused_dense, mlp, normalization — the reference's facades over ops
   transformer — the single-device training step, the tensor-parallel
                 layers and cross entropy at tp=1, the weight-decay
                 grouping of pipeline_parallel.common and the attention
@@ -40,7 +45,8 @@ __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
                     "checkpoint", "monitor", "csrc", "amp", "parallel",
-                    "contrib"}
+                    "contrib", "multi_tensor_apply", "fused_dense", "mlp",
+                    "normalization"}
 
 
 def __getattr__(name):

@@ -1,10 +1,10 @@
 """apex_tpu_torch.contrib — optional fused components (counterpart of
-apex_tpu.contrib; so far the xentropy facade)."""
+apex_tpu.contrib; so far the xentropy and clip_grad facades)."""
 
 
 def __getattr__(name):
     import importlib
 
-    if name == "xentropy":
-        return importlib.import_module("apex_tpu_torch.contrib.xentropy")
+    if name in ("xentropy", "clip_grad"):
+        return importlib.import_module(f"apex_tpu_torch.contrib.{name}")
     raise AttributeError(name)

@@ -3,7 +3,7 @@ PyTorch version (the CPU path and the on-card reference).
 
 Mirrors `apex_tpu.ops`; only the modules of the ported slices exist so
 far (layer_norm, flash_decode, flash_attention, softmax,
-optimizer_kernels, fused_dense, xentropy, welford, pooling).
+optimizer_kernels, fused_dense, mlp, xentropy, welford, pooling).
 """
 
 _LAZY = {
@@ -13,6 +13,7 @@ _LAZY = {
     "softmax": "apex_tpu_torch.ops.softmax",
     "optimizer_kernels": "apex_tpu_torch.ops.optimizer_kernels",
     "fused_dense": "apex_tpu_torch.ops.fused_dense",
+    "mlp": "apex_tpu_torch.ops.mlp",
     "xentropy": "apex_tpu_torch.ops.xentropy",
     "welford": "apex_tpu_torch.ops.welford",
     "pooling": "apex_tpu_torch.ops.pooling",

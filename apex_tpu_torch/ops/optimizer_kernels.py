@@ -956,3 +956,228 @@ def sgd_flat(p, buf, g, lr, *, momentum=0.0, dampening=0.0, nesterov=False,
         buf.copy_(bn)
         return p, buf
     return sgd_flat_triton(p, buf, g, scalars, *args)
+
+
+# ---------------------------------- Adagrad ---------------------------------
+#
+# `adagrad_flat` (≡ the JAX package's `adagrad_flat`, itself ≡
+# amp_C.multi_tensor_adagrad) updates flat params p and the sum of
+# squared grads h IN PLACE from a flat grad buffer of any float dtype:
+#
+#   g += wd · p            (L2 mode, adagrad_w_mode=False)
+#   h += g · g
+#   upd = g / (√h + eps)
+#   upd += wd · p          (decoupled mode, adagrad_w_mode=True)
+#   p -= lr · upd
+#
+# `lr` rides as a 0-d fp32 device tensor, so a learning rate that lives on
+# the card causes no host sync.
+#
+# Kernel note.  Replaces apex_tpu/ops/optimizer_kernels.py:_adagrad_kernel
+# (launched by adagrad_flat).  What bounds it on an H100: bytes — per
+# element it reads p, h and g and writes p and h (18 bytes with fp32 state
+# and bf16 grads) for ~7 flops.  Design: `_sgd_kernel`'s shape, one program
+# per 4096-element block with masked loads so any length works; eps, the
+# weight decay and its mode are compile-time constants; fp32 math in the
+# JAX kernel's order with the IEEE square root and divide (`sqrt_rn`,
+# `div_rn`), stores rounded to nearest-even and fp-contraction off, so the
+# kernel evaluates the plain version's operations one by one and the two
+# agree bit for bit.
+
+def _adagrad_reference(p, h, g, lr, eps, weight_decay, adagrad_w_mode):
+    """The Adagrad update in plain PyTorch (the JAX package's jnp branch
+    of `adagrad_flat`); returns (p, h) new, p in its own dtype, h fp32."""
+    g32 = g.float()
+    p32 = p.float()
+    if not adagrad_w_mode and weight_decay:
+        g32 = g32 + weight_decay * p32
+    h_new = h + g32 * g32
+    upd = g32 / (torch.sqrt(h_new) + eps)
+    if adagrad_w_mode and weight_decay:
+        upd = upd + weight_decay * p32
+    return (p32 - lr * upd).to(p.dtype), h_new
+
+
+def _adagrad_kernel(P, H, G, LR, n, EPS: tl.constexpr,
+                    WEIGHT_DECAY: tl.constexpr, W_MODE: tl.constexpr,
+                    BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    lr = tl.load(LR)
+    g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    h = tl.load(H + offs, mask=mask, other=0.0)
+    if WEIGHT_DECAY != 0.0:
+        if not W_MODE:
+            g = g + WEIGHT_DECAY * p
+    h_new = h + g * g
+    upd = tl.div_rn(g, tl.sqrt_rn(h_new) + EPS)
+    if WEIGHT_DECAY != 0.0:
+        if W_MODE:
+            upd = upd + WEIGHT_DECAY * p
+    p_new = p - lr * upd
+    tl.store(P + offs, p_new.to(P.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+    tl.store(H + offs, h_new, mask=mask)
+
+
+def adagrad_flat_triton(p, h, g, lr, eps, weight_decay, adagrad_w_mode):
+    """Launch the Triton Adagrad kernel over CUDA flat buffers, updating p
+    and h (fp32) in place; `lr` a 0-d fp32 device tensor.
+    `adagrad_flat_triton.launches` counts launches."""
+    n = _check_flat("adagrad kernel", 1, p=p, h=h, g=g)
+    if h.dtype != torch.float32:
+        raise TypeError(f"adagrad kernel keeps h in fp32, got {h.dtype}")
+    if lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError("adagrad kernel lr must be a 0-d fp32 tensor")
+    if n:
+        _jit(_adagrad_kernel)[(-(-n // _BLOCK),)](
+            p, h, g, lr, n, EPS=float(eps), WEIGHT_DECAY=float(weight_decay),
+            W_MODE=bool(adagrad_w_mode), BLOCK=_BLOCK, num_warps=8,
+            enable_fp_fusion=False)
+    adagrad_flat_triton.launches += 1
+    return p, h
+
+
+adagrad_flat_triton.launches = 0
+
+
+def adagrad_flat(p, h, g, lr, *, eps=1e-10, weight_decay=0.0,
+                 adagrad_w_mode=False):
+    """One Adagrad step on flat buffers, IN PLACE (≡ the JAX package's
+    `adagrad_flat`, which returns new buffers under donation): p in its
+    dtype, h fp32, g any float dtype; `lr` may be a device tensor.
+    Returns (p, h) — the same tensors, updated.  CPU tensors run the
+    plain version; CUDA tensors run the Triton kernel or raise."""
+    lr_t = device_scalar(lr, torch.float32, p.device)
+    if not check_kernel_device(p, h, g):
+        pn, hn = _adagrad_reference(p, h, g, lr_t, eps, weight_decay,
+                                    adagrad_w_mode)
+        p.copy_(pn)
+        h.copy_(hn)
+        return p, h
+    return adagrad_flat_triton(p, h, g, lr_t, eps, weight_decay,
+                               adagrad_w_mode)
+
+
+# ------------------------- LAMB phase 2, per element ------------------------
+#
+# `lamb_phase2_flat` (≡ the JAX package's `lamb_phase2_flat`, itself ≡
+# multi_tensor_lamb_stage2) is phase 2 with the trust ratio given per
+# ELEMENT: p -= lr · r · u, IN PLACE.  FusedLAMB does not call it: its
+# segmented phase 2 (`lamb_phase2_seg`) reads a tensor id per row and has
+# no cap on the number of tensors, so the JAX package's fallback to this
+# function past 2047 tensors (a limit of the TPU's one-hot product) has no
+# counterpart here.  It stays a public function of its own.
+#
+# Kernel note.  Replaces apex_tpu/ops/optimizer_kernels.py:_lamb_phase2_kernel
+# (launched by lamb_phase2_flat).  What bounds it on an H100: bytes — per
+# element it reads p, u and r and writes p (10 bytes with bf16 p and u and
+# an fp32 r) for 3 flops; the ratio vector it reads is what makes it slower
+# than the segmented phase 2, which reads 4 bytes of tensor id per row of
+# 128.  Design: one program per 4096-element block, masked loads, `lr`
+# read once from a device tensor, fp32 math in the plain version's order,
+# stores rounded to nearest-even, fp-contraction off: bit for bit with the
+# plain version, and with `lamb_phase2_seg` fed the same ratios.
+
+def _lamb_phase2_flat_reference(p, u, r, lr):
+    """Phase 2 with a per-element ratio in plain PyTorch: p - lr · r · u,
+    new, in p's dtype."""
+    return (p.float() - lr * r * u.float()).to(p.dtype)
+
+
+def _lamb_phase2_kernel(P, U, R, LR, n, BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    lr = tl.load(LR)
+    p = tl.load(P + offs, mask=mask, other=0.0).to(tl.float32)
+    u = tl.load(U + offs, mask=mask, other=0.0).to(tl.float32)
+    r = tl.load(R + offs, mask=mask, other=0.0)
+    p_new = p - lr * r * u
+    tl.store(P + offs, p_new.to(P.dtype.element_ty,
+                                fp_downcast_rounding="rtne"), mask=mask)
+
+
+def lamb_phase2_flat_triton(p, u, r, lr):
+    """Launch phase 2 with a per-element fp32 ratio `r` over CUDA flat
+    buffers, p in place; `lr` a 0-d fp32 device tensor.
+    `lamb_phase2_flat_triton.launches` counts launches."""
+    n = _check_flat("lamb phase 2 (flat)", 1, p=p, u=u, r=r)
+    if r.dtype != torch.float32:
+        raise TypeError(f"lamb phase 2 ratios are fp32, got {r.dtype}")
+    if lr.dtype != torch.float32 or lr.numel() != 1:
+        raise ValueError("lamb phase 2 lr must be a 0-d fp32 tensor")
+    if n:
+        _jit(_lamb_phase2_kernel)[(-(-n // _BLOCK),)](
+            p, u, r, lr, n, BLOCK=_BLOCK, num_warps=8,
+            enable_fp_fusion=False)
+    lamb_phase2_flat_triton.launches += 1
+    return p
+
+
+lamb_phase2_flat_triton.launches = 0
+
+
+def lamb_phase2_flat(p, u, ratio_elem, lr):
+    """p -= lr · ratio_elem · u, IN PLACE, with a per-element fp32 trust
+    ratio (≡ the JAX package's `lamb_phase2_flat`); `lr` may be a device
+    tensor.  Returns p.  CPU tensors run the plain version; CUDA tensors
+    run the Triton kernel or raise."""
+    lr_t = device_scalar(lr, torch.float32, p.device)
+    if not check_kernel_device(p, u, ratio_elem):
+        return p.copy_(_lamb_phase2_flat_reference(p, u, ratio_elem, lr_t))
+    return lamb_phase2_flat_triton(p, u, ratio_elem, lr_t)
+
+
+# --------------------------- reductions / utilities -------------------------
+#
+# Plain PyTorch, as the JAX package leaves them to XLA.
+
+def per_tensor_l2norm(flat, sizes):
+    """Per-tensor fp32 L2 norms over a flat buffer of back-to-back
+    segments of `sizes` elements (≡ the JAX package's `per_tensor_l2norm`,
+    multi_tensor_l2norm's per_tensor mode)."""
+    segs = torch.split(flat[:sum(sizes)], list(sizes))
+    return torch.stack([torch.linalg.vector_norm(s, dtype=torch.float32)
+                        for s in segs])
+
+
+@functools.lru_cache(maxsize=8)
+def _repeats(sizes, device):
+    """`sizes` as an int64 tensor on `device`, copied there once."""
+    return torch.as_tensor(sizes, dtype=torch.int64, device=device)
+
+
+def expand_per_tensor(values, sizes, total):
+    """Per-tensor values repeated over their segments of `sizes` elements,
+    `total` long; past sum(sizes) the last value repeats (≡ the JAX
+    package's `expand_per_tensor`, `jnp.repeat` with a total length).
+    No host sync: the output size is known."""
+    n = sum(sizes)
+    elem = torch.repeat_interleave(
+        values, _repeats(tuple(sizes), values.device), output_size=n)
+    if total > n:
+        elem = torch.cat([elem, values[-1:].expand(total - n)])
+    return elem
+
+
+def expand_per_tensor_aligned(values, spec, total):
+    """Per-tensor values broadcast to a per-element vector of `total`
+    (>= spec.total) elements over a lane-aligned `spec`: each tensor's
+    rows, its zero tail included, get its value, and past spec.total the
+    last value repeats (≡ the JAX package's `expand_per_tensor_aligned`)."""
+    rows = segment_tables(spec, spec.total // _LANES, values.device)["seg"]
+    elem = values[rows.long()][:, None].expand(-1, _LANES).reshape(-1)
+    if total > elem.numel():
+        elem = torch.cat([elem, values[-1:].expand(total - elem.numel())])
+    return elem
+
+
+def scale_flat(flat, scale):
+    """fp32 scaled copy (≡ amp_C.multi_tensor_scale)."""
+    return flat.float() * scale
+
+
+def axpby_flat(a, x, b, y):
+    """a·x + b·y in fp32 (≡ amp_C.multi_tensor_axpby)."""
+    return a * x.float() + b * y.float()

@@ -16,7 +16,7 @@ Trees are nested dicts of tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +158,87 @@ def resolve_per_leaf(wd_mask, lr_scales, weight_decay: float, params,
     seg_lrs = (per_leaf_scalars(lr_scales, params, who)
                if lr_scales is not None else np.ones((n,), np.float32))
     return seg_wd, seg_lrs
+
+
+def layout_dict(spec: FlatSpec) -> dict:
+    """The layout fingerprint kept in optimizer state_dicts, so that a
+    checkpoint written under one flat layout cannot be restored into
+    another (buffer lengths often coincide after FLAT_TILE rounding, so
+    a shape check alone cannot tell)."""
+    return {"align": spec.align, "total": spec.total,
+            "n_tensors": len(spec.sizes)}
+
+
+def check_layout(spec: FlatSpec, d: dict, who: str) -> None:
+    """Refuse a state dict `d` whose recorded layout is not `spec`'s.  A
+    dict without a record (written before layouts were recorded) is
+    taken only for an unaligned spec, and only if its params buffer
+    covers spec.total."""
+    lay = d.get("flat_layout")
+    if lay is None:
+        if spec.align != 1:
+            raise ValueError(
+                f"{who}: checkpoint has no flat_layout record but the "
+                f"current spec is align={spec.align}; offsets would not "
+                "match — re-save the checkpoint with this version")
+        arr = d.get("params")
+        shape = tuple(getattr(arr, "shape", ()))
+        if arr is not None and len(shape) == 1 and int(shape[0]) < spec.total:
+            raise ValueError(
+                f"{who}: pre-layout checkpoint buffer has {int(shape[0])} "
+                f"elements < spec total {spec.total} — wrong layout or "
+                "truncated")
+        return
+    want = layout_dict(spec)
+    if {k: int(lay[k]) for k in want} != want:
+        raise ValueError(
+            f"{who}: checkpoint flat layout {lay} does not match the "
+            f"current spec {want}")
+
+
+def _as_tensor(x, device):
+    """A tensor, numpy array (bf16 ones included) or number as a tensor
+    on `device`.  Arrays are copied: the optimizer updates its state in
+    place, and an array (a JAX one read through numpy) is not its to
+    write."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":        # numpy has no bf16 of its own
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+class FlatCheckpointMixin:
+    """Checkpoints of a flat-buffer optimizer (≡ the JAX package's
+    `FlatCheckpointMixin`).  The state is a NamedTuple of tensors (`step`
+    and flat buffers); subclasses set `_STATE`, and `init` sets `spec`
+    and `device`.  `state_dict` embeds the layout fingerprint and holds
+    the state's own tensors, which the next step updates in place (as a
+    torch optimizer's does: save it before stepping on).
+    `load_state_dict` refuses before `init()` (without a spec the layout
+    cannot be checked) and rebuilds the state on the optimizer's device,
+    with `step` as int32.  Tensors and numpy arrays are both taken."""
+
+    _STATE = None
+    spec: Optional[FlatSpec] = None
+    device: Optional[torch.device] = None
+
+    def state_dict(self, state) -> dict:
+        d = dict(state._asdict())
+        d["flat_layout"] = layout_dict(self.spec)
+        return d
+
+    def load_state_dict(self, d: dict):
+        if self.spec is None:
+            raise ValueError(
+                f"{type(self).__name__}.load_state_dict called before "
+                "init(); call init(params) first so the checkpoint's "
+                "flat layout can be validated")
+        check_layout(self.spec, d, type(self).__name__)
+        fields = {k: _as_tensor(v, self.device) for k, v in d.items()
+                  if k != "flat_layout"}
+        if "step" in fields:
+            fields["step"] = fields["step"].to(torch.int32).reshape(())
+        return type(self)._STATE(**fields)

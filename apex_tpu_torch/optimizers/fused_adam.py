@@ -38,7 +38,7 @@ class FusedAdamState(NamedTuple):
     exp_avg_sq: torch.Tensor  # flat v
 
 
-class FusedAdam:
+class FusedAdam(F.FlatCheckpointMixin):
     """opt = FusedAdam(lr=...); state = opt.init(params);
     params, state = opt.step(state, grads[, lr=, inv_scale=, found_inf=]).
 
@@ -47,6 +47,8 @@ class FusedAdam:
     tensor (pass `get_params_for_weight_decay_optimization(params)` for
     the no-decay-for-bias/norm groups), lr_scales leaves multiply `lr`
     per tensor."""
+
+    _STATE = FusedAdamState
 
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
                  eps=1e-8, adam_w_mode=True, weight_decay=0.0,
@@ -67,6 +69,7 @@ class FusedAdam:
         self._seg_wd: Optional[torch.Tensor] = None
         self._seg_lrs: Optional[torch.Tensor] = None
         self.spec: Optional[F.FlatSpec] = None
+        self.device: Optional[torch.device] = None
 
     @property
     def _per_leaf(self) -> bool:
@@ -82,7 +85,7 @@ class FusedAdam:
         self.spec = F.make_spec(params, align=align)
         flat = F.flatten(params, self.master_dtype, pad_to=K.FLAT_TILE,
                          align=align)
-        dev = flat.device
+        dev = self.device = flat.device
         if self._per_leaf:
             seg_wd, seg_lrs = F.resolve_per_leaf(
                 self.wd_mask, self.lr_scales, self.weight_decay, params,

@@ -36,7 +36,7 @@ class FusedLAMBState(NamedTuple):
     exp_avg_sq: torch.Tensor  # flat v
 
 
-class FusedLAMB:
+class FusedLAMB(F.FlatCheckpointMixin):
     """opt = FusedLAMB(lr=...); state = opt.init(params);
     params, state = opt.step(state, grads[, lr=, inv_scale=, found_inf=]).
 
@@ -46,6 +46,8 @@ class FusedLAMB:
     `weight_decay` per tensor (pass
     `get_params_for_weight_decay_optimization(params)` for the BERT
     no-decay recipe), lr_scales leaves multiply the trust ratio."""
+
+    _STATE = FusedLAMBState
 
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
                  eps=1e-6, weight_decay=0.01, amsgrad=False,
@@ -70,6 +72,7 @@ class FusedLAMB:
         self._seg_wd: Optional[torch.Tensor] = None
         self._seg_lrs: Optional[torch.Tensor] = None
         self.spec: Optional[F.FlatSpec] = None
+        self.device: Optional[torch.device] = None
 
     def init(self, params) -> FusedLAMBState:
         """Flat state for `params` (a nested dict of tensors), on the
@@ -79,7 +82,7 @@ class FusedLAMB:
         self.spec = F.make_spec(params, align=K._LANES)
         flat = F.flatten(params, self.master_dtype, pad_to=K.FLAT_TILE,
                          align=K._LANES)
-        dev = flat.device
+        dev = self.device = flat.device
         if self.wd_mask is not None or self.lr_scales is not None:
             seg_wd, seg_lrs = F.resolve_per_leaf(
                 self.wd_mask, self.lr_scales, self.weight_decay, params,

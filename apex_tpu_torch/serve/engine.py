@@ -928,6 +928,20 @@ class DecodeEngine:
             raise ValueError("slo_verdict: engine built telemetry=False")
         return slo.evaluate(self.telemetry)
 
+    def telemetry_report(self) -> Optional[dict]:
+        """The full JSON-safe observatory dict (ledger summary and tail,
+        gauges and peaks, step counters, the engine's `stats()`, the
+        SLO and its verdict when one is attached); None when the engine
+        was built with telemetry=False."""
+        if self.telemetry is None:
+            return None
+        rep = self.telemetry.report()
+        rep["stats"] = self.stats()
+        if self.slo is not None:
+            rep["slo"] = self.slo.to_dict()
+            rep["slo_verdict"] = self.slo_verdict().to_dict()
+        return rep
+
     # ------------------------------------------------------------------
     # snapshot / preemption resume
     # ------------------------------------------------------------------

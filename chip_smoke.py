@@ -26,7 +26,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  widths up to 20000, past the single-block cap; the
                  segmented Adam over the GPT-350M flat buffer in bf16
                  and fp32 (the no-decay wd, lr scales, AdamW and L2, a
-                 found_inf step), bit for bit.
+                 found_inf step), bit for bit; Adagrad over the same
+                 buffer (bf16 and fp32 grads, L2 and decoupled weight
+                 decay, wd 0 and 0.01), bit for bit; the per-element
+                 LAMB phase 2 over the BERT-Large buffer in bf16 and
+                 fp32, bit for bit with its plain version and with the
+                 segmented phase 2 on the same ratios; the fused dense
+                 GEMM in bf16, fp16 and fp32, every activation with and
+                 without a bias, at GPT-350M's MLP shapes, apex's
+                 run_mlp layers and ragged shapes (N = 1 included),
+                 within 1e-2 (16-bit) or 1e-5 (fp32) of the largest
+                 |y|.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -113,7 +123,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  profiled step, and a 2-layer step through the kernels
                  against the plain step (batch 1, seq 8192).  Then both
                  routes timed at 32k and at GPT's (12, 16, 1024, 64).
- 10. table       the kernels' times on the card (CUDA events) beside
+ 10. slice 7     phase 5's flash GPT-350M step with FusedAdagrad(lr=1e-3)
+                 through `make_tp_dp_train_step`, two warm-up and three
+                 timed steps: the loss falls, every step runs 24 flash
+                 forwards and backwards, 49 LayerNorm forwards and
+                 backwards, one Adagrad and no Adam, with no host sync;
+                 tokens/s, peak memory, one profiled step and a 2-layer
+                 kernels-vs-plain step.  Phase 7's ResNet-50 AMP-O1 step
+                 with LARC(FusedSGD(0.1, 0.9, 1e-4), trust 0.02, clip),
+                 two warm-up and three timed steps: one SGD, two
+                 per-tensor norm passes (params and grads), 53 channel
+                 sums and one cross-entropy forward and backward a step,
+                 no host sync, the loss falls; img/s, peak memory.
+                 Phase 6's BERT-Large step with FusedNovoGrad(lr=1e-3,
+                 betas (0.95, 0.98), wd 0.01, grad_averaging), two
+                 warm-up and three timed steps: one per-tensor norm pass
+                 and no LAMB kernel a step, no host sync, the loss
+                 falls; seq/s.  FusedDenseGeluDense(1024, 4096, 1024) in
+                 bf16 over (12288, 1024) tokens and MLP([480, 1024,
+                 1024, 512, 256, 1], relu) at batch 1024 in fp32 and
+                 bf16, forward and backward: two (five) GEMM launches a
+                 forward, loss and grads against the plain version, ms
+                 an iteration.
+ 11. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
 
@@ -678,6 +710,113 @@ def check_adam_seg(torch, ok, rng, spec, n, seg_wd, dtype):
     return worst
 
 
+def check_adagrad(torch, ok, rng, n):
+    """The Adagrad kernel against `_adagrad_reference` over the GPT-350M
+    flat buffer (fp32 p and h, as FusedAdagrad keeps them), with bf16 and
+    fp32 grads, L2 and decoupled weight decay, wd 0 and 0.01: bit for bit
+    (the kernel evaluates the plain version's operations one by one).
+    Returns the largest error (0.0 when every case is exact)."""
+    dev = "cuda"
+    p = torch.randn((n,), generator=rng, device=dev) * 0.05
+    h = torch.randn((n,), generator=rng, device=dev).abs() * 1e-3
+    lr = torch.full((), 1e-3, device=dev)
+    worst = 0.0
+    for gdt in (torch.bfloat16, torch.float32):
+        g = (torch.randn((n,), generator=rng, device=dev) * 0.1).to(gdt)
+        for w_mode in (False, True):
+            for wd in (0.0, 0.01):
+                ref = ok._adagrad_reference(p, h, g, lr, 1e-10, wd, w_mode)
+                got = ok.adagrad_flat_triton(p.clone(), h.clone(), g, lr,
+                                             1e-10, wd, w_mode)
+                torch.cuda.synchronize()
+                for name, a, r in zip("ph", got, ref):
+                    worst = max(worst, (a - r).abs().max().item())
+                    check(torch.equal(a, r),
+                          f"adagrad {name} grads {gdt} w_mode={w_mode} "
+                          f"wd={wd}: not bit for bit the plain version")
+                del ref, got
+        del g
+    return worst
+
+
+def check_lamb_phase2_flat(torch, ok, rng, spec, n, dtype):
+    """`lamb_phase2_flat`'s kernel over the BERT-Large flat buffer in
+    `dtype` with per-tensor trust ratios expanded per element by
+    `expand_per_tensor_aligned`: bit for bit against its plain version
+    and against `lamb_phase2_seg` fed the same per-tensor ratios.  u is
+    zero past each tensor (as phase 1 leaves it); p carries values there,
+    which both routes must leave untouched.  Returns the largest error
+    (0.0 when exact)."""
+    dev = "cuda"
+    real = torch.zeros(n, dtype=torch.bool, device=dev)
+    for off, size in zip(spec.offsets, spec.sizes):
+        real[off:off + size] = True
+    p = (torch.randn((n,), generator=rng, device=dev) * 0.05).to(dtype)
+    u = torch.where(real, torch.randn((n,), generator=rng, device=dev)
+                    * 0.01, 0.0).to(dtype)
+    ratio = 0.5 + torch.rand(len(spec.sizes), generator=rng, device=dev)
+    r = ok.expand_per_tensor_aligned(ratio, spec, n)
+    lr = torch.full((), 1e-2, device=dev)
+    ref = ok._lamb_phase2_flat_reference(p, u, r, lr)
+    got = ok.lamb_phase2_flat_triton(p.clone(), u, r, lr)
+    seg = ok.segment_tables(spec, n // 128, dev)["seg"]
+    by_seg = ok.lamb_phase2_seg_triton(p.clone(), u, seg,
+                                       ok._table(ratio, dev), lr)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    check(torch.equal(got, ref), f"lamb_phase2_flat {dtype}: not bit for "
+          f"bit its plain version (max err {err:.3e})")
+    check(torch.equal(got, by_seg), f"lamb_phase2_flat {dtype}: not bit "
+          "for bit lamb_phase2_seg on the same ratios")
+    check(torch.equal(got[~real], p[~real]),
+          f"lamb_phase2_flat {dtype} moved the padding")
+    check(not torch.equal(got[real], p[real]),
+          f"lamb_phase2_flat {dtype} moved nothing")
+    return err
+
+
+GEMM_ACTS = (None, "relu", "gelu", "sigmoid")
+# (M, K, N): GPT-350M's MLP up and down projections over batch 12 x seq
+# 1024; apex's tests/L0/run_mlp layers (batch 1024, mlp_sizes [480,
+# 1024, 1024, 512, 256, 1]); ragged shapes
+GEMM_SHAPES = ((12288, 1024, 4096), (12288, 4096, 1024),
+               (1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
+               (1024, 512, 256), (1024, 256, 1),
+               (1000, 27, 13), (1000, 27, 1), (129, 70, 50), (1, 5, 3))
+
+
+def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
+    """The fused dense kernel against `linear_bias_reference` at x (m, k)
+    · w (k, n) in `dtype`, for every activation with and without a bias:
+    within 1e-2 of the largest magnitude of the plain result for 16-bit
+    types (one rounding of the output, the products' fp32 sums in
+    another order), 1e-5 for fp32.  x ~ N(0, 1), w ~ N(0, 1/k), b ~
+    N(0, 1).  Returns the largest error relative to that magnitude."""
+    dev = "cuda"
+    x = torch.randn((m, k), generator=rng, device=dev).to(dtype)
+    w = (torch.randn((k, n), generator=rng, device=dev)
+         / math.sqrt(k)).to(dtype)
+    b = torch.randn((n,), generator=rng, device=dev).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    worst = 0.0
+    for act in GEMM_ACTS:
+        for bias in (b, None):
+            got = fdn.linear_bias_cuda(x, w, bias, act)
+            ref = fdn.linear_bias_reference(x, w, bias, act)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == (m, n),
+                  "fused dense output dtype or shape")
+            scale = ref.float().abs().max().item()
+            err = (got.float() - ref.float()).abs().max().item()
+            check(math.isfinite(err) and err <= tol * scale,
+                  f"fused dense ({m},{k})x({k},{n}) {dtype} act={act} "
+                  f"bias={bias is not None}: max err {err:.3e} of "
+                  f"{scale:.3e}")
+            worst = max(worst, err / max(scale, 1e-30))
+            del got, ref
+    return worst
+
+
 def check_xent(torch, xe, rng, rows, v, smoothing, dtype):
     """Both cross-entropy kernels against their plain versions on one
     seeded input (logits 3·N(0, 1), uniform labels, N(0, 1) cotangents).
@@ -839,7 +978,9 @@ def training_kernels(fa, ln, ok):
             "lamb_phase1": ok.lamb_phase1_triton,
             "lamb_phase1_seg": ok.lamb_phase1_seg_triton,
             "rows_sumsq_seg": ok.rows_sumsq_seg_triton,
-            "lamb_phase2_seg": ok.lamb_phase2_seg_triton}
+            "lamb_phase2_seg": ok.lamb_phase2_seg_triton,
+            "lamb_phase2_flat": ok.lamb_phase2_flat_triton,
+            "adagrad": ok.adagrad_flat_triton}
 
 
 def kernel_counts(fa, ln, ok):
@@ -925,9 +1066,50 @@ def profile_step(torch, step, state, args, names):
         "top_aten_ops_ms": {k: v / 1e3 for k, v in ops[:15]}}
 
 
+def train_loop(torch, fa, ln, ok, what, step, state, args, per_step,
+               warmup, steps):
+    """`warmup` then `steps` timed calls of `state, loss = step(state,
+    *args)` from zeroed launch counts: the losses finite and falling, the
+    launch counts `per_step` each step.  Returns the state and the
+    measurements (window seconds, losses, counts, peak memory)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        state, loss = step(state, *args)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = step(state, *args)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    counts = kernel_counts(fa, ln, ok)
+    losses = [float(x) for x in losses]
+    log(f"{what} losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"a {what} loss is not "
+          "finite")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    total = warmup + steps
+    for name, n in per_step.items():
+        check(counts[name] == n * total,
+              f"{what} {name}: {counts[name]} launches in {total} steps, "
+              f"want {n} per step")
+    return state, {"warmup_steps": warmup, "steps": steps, "losses": losses,
+                   "warmup_s": warm_s, "window_s": window_s,
+                   "step_ms": 1e3 * window_s / steps,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated()
+                   / 2 ** 30, "launches": counts,
+                   "launches_per_step": per_step}
+
+
 def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
                     opt_swaps, per_step, names, warmup, steps, batch=12,
-                    seq=1024):
+                    seq=1024, lr=1e-4):
     """The GPT-350M training step at full width (module docstring,
     phases 5, 8 and 9): `gpt_350m` in bf16, batch x seq (12 x 1024
     unless asked), bf16 logits, seed-0 weights, `flash` attention or the
@@ -937,7 +1119,8 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     takes a step with no host sync and a profiled one (`names`: the
     kernels to sum), and compares a 2-layer step through the kernels
     with the plain step (`opt_swaps`: the optimizer's plain stand-ins)
-    at two of the batch's sequences (one when the batch has one).
+    at two of the batch's sequences (one when the batch has one); `lr`
+    is the optimizer's, which bounds how far one step moves a weight.
     Returns the measurements and that comparison."""
     from apex_tpu_torch.models import gpt as gpt_mod
     from apex_tpu_torch.transformer.training import (
@@ -958,53 +1141,24 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda", dtype=torch.int32)
     labels = torch.roll(tokens, -1, dims=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_kernel_counts(fa, ln, ok)
-    losses = []
-    t_first = time.perf_counter()
-    for _ in range(warmup):                        # builds the kernels
-        state, loss = step(state, tokens, labels)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t_first
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state, loss = step(state, tokens, labels)
-        losses.append(loss)
-    torch.cuda.synchronize()
-    window_s = time.perf_counter() - t0
-    counts = kernel_counts(fa, ln, ok)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [float(x) for x in losses]
-    log(f"{what} losses {losses}")
-    check(all(math.isfinite(x) for x in losses), f"a {what} loss is not "
-          "finite")
-    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
-    total = warmup + steps
-    check(int(state.step) == total, f"optimizer step {int(state.step)}")
-    for name, n in per_step.items():
-        check(counts[name] == n * total,
-              f"{what} {name}: {counts[name]} launches in {total} steps, "
-              f"want {n} per step")
+    state, result = train_loop(torch, fa, ln, ok, what, step, state,
+                               (tokens, labels), per_step, warmup, steps)
+    check(int(state.step) == warmup + steps,
+          f"optimizer step {int(state.step)}")
     state, syncs = step_without_sync(torch, step, state, tokens, labels)
     state, profile_line = profile_step(torch, step, state, (tokens, labels),
                                        names)
     del state, opt, step
     torch.cuda.empty_cache()
-    result = {
-        "config": f"GPT-350M bf16, batch {batch} x seq {seq}, bf16 logits, "
-                  f"{'flash' if flash else 'dense'} attention, {opt_desc}",
-        "params": n_params, "warmup_steps": warmup, "steps": steps,
-        "losses": losses, "warmup_s": warm_s,
-        "step_ms": 1e3 * window_s / steps,
-        "tokens_per_s": batch * seq * steps / window_s,
-        "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
-        "launches": counts,
-        "launches_per_step": per_step, "profile": profile_line}
+    result = dict(
+        result, config=f"GPT-350M bf16, batch {batch} x seq {seq}, bf16 "
+        f"logits, {'flash' if flash else 'dense'} attention, {opt_desc}",
+        params=n_params,
+        tokens_per_s=batch * seq * steps / result["window_s"],
+        host_syncs_per_step=len(syncs), profile=profile_line)
     return result, compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what,
                                       make_opt, opt_swaps, tokens[:2],
-                                      labels[:2])
+                                      labels[:2], lr=lr)
 
 
 def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
@@ -1054,7 +1208,7 @@ def train_phase(torch, fa, ln, ok):
 
 
 def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
-                          loss_fn, swaps, tokens, labels):
+                          loss_fn, swaps, tokens, labels, lr=1e-4):
     """One training step through the kernels and one through their plain
     versions (`swaps`: (module, name, plain stand-in) set for the plain
     run), from the same weights (`model.init(seed=0)`) and a fresh
@@ -1122,7 +1276,7 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
     check(line["loss_rel_diff"] <= 1e-3, f"{what} step loss: kernels vs plain")
     check(line["grad_rel_l2_max"] <= 3e-2,
           f"{what} step grads: kernels vs plain ({worst})")
-    check(line["param_max_abs_diff"] <= 2 * 1e-4 + 2 ** -9,
+    check(line["param_max_abs_diff"] <= 2 * lr + 2 ** -9,
           f"{what} step params: kernels vs plain")
     return line
 
@@ -1148,7 +1302,7 @@ def attention_swaps(mod, fa, cfg):
 
 
 def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what, make_opt,
-                       opt_swaps, tokens, labels):
+                       opt_swaps, tokens, labels, lr=1e-4):
     """One full-width GPT step of a 2-layer model at the batch of `tokens`
     through the kernels and through their plain versions
     (`kernels_vs_plain_step`):
@@ -1161,7 +1315,7 @@ def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what, make_opt,
         gpt_mod.GPT(dataclasses.replace(cfg, num_layers=2)), make_opt, None,
         attention_swaps(gpt_mod, fa, cfg)
         + [(gpt_mod, "fused_layer_norm", ln.layer_norm_reference)]
-        + opt_swaps, tokens, labels)
+        + opt_swaps, tokens, labels, lr=lr)
 
 
 BERT_BATCH, BERT_SEQ = 32, 512
@@ -1362,7 +1516,8 @@ RESNET_BATCH, RESNET_SIZE = 256, 224
 
 def resnet_kernels(xe, wf, ok):
     return {"xent_fwd": xe.xent_fwd_triton, "xent_bwd": xe.xent_bwd_triton,
-            "sgd": ok.sgd_flat_triton, "channel_sums": wf.channel_sums_triton}
+            "sgd": ok.sgd_flat_triton, "channel_sums": wf.channel_sums_triton,
+            "rows_sumsq_seg": ok.rows_sumsq_seg_triton}
 
 
 def resnet_counts(xe, wf, ok):
@@ -1370,11 +1525,12 @@ def resnet_counts(xe, wf, ok):
             for name, fn in resnet_kernels(xe, wf, ok).items()}
 
 
-def resnet_setup(torch, batch, seed=0):
+def resnet_setup(torch, batch, seed=0, larc=False):
     """The bench's ResNet-50 AMP-O1 step (`bench.py:338-391`, its on-chip
     branch) on the card: seed-`seed` weights, amp O1 (bf16 compute, fp32
     params, dynamic loss scale from 2^16), the mean of the fp32 cross
-    entropy, FusedSGD(0.1, 0.9, 1e-4) over the fp32 flat buffer and
+    entropy, FusedSGD(0.1, 0.9, 1e-4) over the fp32 flat buffer (inside
+    LARC(trust_coefficient=0.02, clip=True) with `larc`) and
     `make_train_step(with_state=True)`; a batch of `batch` 224x224x3
     N(0, 1) images and uniform labels over 1000 classes, each from its
     own seeded generator.  Returns (opt, step, carry, (x, y))."""
@@ -1396,6 +1552,9 @@ def resnet_setup(torch, batch, seed=0):
             new_ms
 
     opt = FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    if larc:
+        from apex_tpu_torch.parallel.larc import LARC
+        opt = LARC(opt, trust_coefficient=0.02, clip=True)
     state = opt.init(params)
     del params
     check((len(opt.spec.sizes), sum(opt.spec.sizes), state.params.numel(),
@@ -1414,11 +1573,13 @@ def resnet_setup(torch, batch, seed=0):
     return opt, step, (state, amp_state.loss_scalers[0], mstate), (x, y)
 
 
-def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
+def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
     """The ResNet-50 AMP-O1 training step at full width (module docstring,
-    phase 7).  Returns the measurements, the kernels-vs-plain line and
-    the flat layout."""
-    opt, step, carry, batch = resnet_setup(torch, RESNET_BATCH)
+    phase 7; with `larc`, phase 10's LARC leg, which takes no
+    kernels-vs-plain step).  Returns the measurements, the
+    kernels-vs-plain line (None with `larc`) and the flat layout."""
+    what = "LARC resnet" if larc else "resnet"
+    opt, step, carry, batch = resnet_setup(torch, RESNET_BATCH, larc=larc)
 
     def carry_step(c, b):
         o, sc, ms, loss = step(*c, b)
@@ -1451,17 +1612,19 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
     scales = [float(r[1]) for r in records]
     overflow = [bool(r[2]) for r in records]
     n = warmup + steps
-    log(f"resnet losses {losses} loss scale {scales}")
-    check(all(math.isfinite(v) for v in losses), "a ResNet loss is not "
+    log(f"{what} losses {losses} loss scale {scales}")
+    check(all(math.isfinite(v) for v in losses), f"a {what} loss is not "
           "finite")
-    check(losses[-1] < losses[0], f"ResNet loss did not fall: {losses}")
-    check(not any(overflow), f"a ResNet step overflowed: {overflow}")
+    check(losses[-1] < losses[0], f"{what} loss did not fall: {losses}")
+    check(not any(overflow), f"a {what} step overflowed: {overflow}")
     check(int(carry[0].step) == n and scales == [65536.0] * n,
           f"SGD step {int(carry[0].step)}, loss scales {scales}")
-    per_step = {"xent_fwd": 1, "xent_bwd": 1, "sgd": 1, "channel_sums": 53}
+    # LARC: the per-tensor norms of the params and of the grads
+    per_step = {"xent_fwd": 1, "xent_bwd": 1, "sgd": 1, "channel_sums": 53,
+                "rows_sumsq_seg": 2 if larc else 0}
     for name, k in per_step.items():
         check(counts[name] == k * n,
-              f"resnet {name}: {counts[name]} launches in {n} steps, want "
+              f"{what} {name}: {counts[name]} launches in {n} steps, want "
               f"{k} per step")
     carry, syncs = step_without_sync(torch, carry_step, carry, batch)
     names = {"xent_fwd": lambda k: k == "_xent_fwd_kernel",
@@ -1469,6 +1632,9 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
              "sgd": lambda k: k == "_sgd_kernel",
              "channel_sums": lambda k: k in ("_stats_partial_kernel",
                                              "_stats_finish_kernel")}
+    if larc:
+        names["rows_sumsq_seg"] = lambda k: k in ("_sumsq_items_kernel",
+                                                  "_sumsq_segments_kernel")
     carry, profile_line = profile_step(torch, carry_step, carry, (batch,),
                                        names)
     spec = opt.spec
@@ -1477,8 +1643,9 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
     result = {
         "config": "ResNet-50 (1000 classes, NHWC, conv7 stem), amp O1 "
                   "(bf16 compute, fp32 params, dynamic loss scale 2^16), "
-                  "batch 256 x 224 x 224 x 3, FusedSGD(lr=0.1, momentum "
-                  "0.9, wd 1e-4)",
+                  "batch 256 x 224 x 224 x 3, "
+                  + ("LARC(trust 0.02, clip) around " if larc else "")
+                  + "FusedSGD(lr=0.1, momentum 0.9, wd 1e-4)",
         "cudnn_benchmark": True, "params": 25_557_032,
         "warmup_steps": warmup, "steps": steps, "losses": losses,
         "loss_scales": scales, "warmup_s": warm_s,
@@ -1487,7 +1654,8 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2):
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
         "launches": counts, "launches_per_step": per_step,
         "profile": profile_line}
-    vs_plain = compare_resnet_step(torch, xe, wf, ok, batch=8)
+    vs_plain = None if larc else compare_resnet_step(torch, xe, wf, ok,
+                                                     batch=8)
     torch.backends.cudnn.benchmark = bench_was
     return result, vs_plain, spec
 
@@ -1976,13 +2144,281 @@ def table_long_kernels(torch, fa, rng, long):
     return rows
 
 
+# ------------------------------------------------ phase 10: slice 7 ----
+
+def adagrad_phase(torch, fa, ln, ok):
+    """Phase 5's flash GPT-350M step (batch 12 x seq 1024, bf16 logits)
+    with FusedAdagrad(lr=1e-3) through `make_tp_dp_train_step` (module
+    docstring, phase 10): two warm-up and three timed steps, one Adagrad
+    launch a step and no Adam."""
+    from apex_tpu_torch.optimizers import FusedAdagrad
+
+    def plain_adagrad(p, h, g, lr, eps, weight_decay, w_mode):
+        pn, hn = ok._adagrad_reference(p, h, g, lr, eps, weight_decay,
+                                       w_mode)
+        p.copy_(pn)
+        h.copy_(hn)
+        return p, h
+
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adagrad": 1,
+                "adam": 0, "adam_seg": 0}
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "adagrad": lambda k: k == "_adagrad_kernel"}
+    return gpt_train_phase(
+        torch, fa, ln, ok, "adagrad GPT", True,
+        lambda params: FusedAdagrad(lr=1e-3),
+        "FusedAdagrad(lr=1e-3; fp32 params and sum of squares)",
+        [(ok, "adagrad_flat_triton", plain_adagrad)], per_step, names,
+        warmup=2, steps=3, lr=1e-3)
+
+
+def novograd_phase(torch, fa, ln, ok, warmup=2, steps=3):
+    """Phase 6's BERT-Large step (flash attention, batch 32 x seq 512)
+    with FusedNovoGrad(lr=1e-3, betas=(0.95, 0.98), wd 0.01,
+    grad_averaging) (module docstring, phase 10): one per-tensor
+    sums-of-squares launch a step, no LAMB kernel, no host sync."""
+    from apex_tpu_torch.models import bert as bert_mod
+    from apex_tpu_torch.optimizers import FusedNovoGrad
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=torch.bfloat16,
+                              use_flash_attention=True)
+    model = bert_mod.Bert(cfg)
+
+    def loss_fn(p, t, lab):
+        return model.loss(p, t, lab[0], lab[1], lab[2])
+
+    params = model.init(seed=0)
+    opt = FusedNovoGrad(lr=1e-3, betas=(0.95, 0.98), weight_decay=0.01,
+                        grad_averaging=True)
+    state = init_sharded_optimizer(opt, model, params)
+    del params
+    step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+    tokens, labels = bert_data(torch, cfg, BERT_BATCH)
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "layer_norm_fwd": 50, "layer_norm_bwd": 50,
+                "rows_sumsq_seg": 1, "lamb_phase1": 0, "lamb_phase1_seg": 0,
+                "lamb_phase2_seg": 0, "lamb_phase2_flat": 0, "adam": 0,
+                "adam_seg": 0}
+    state, result = train_loop(torch, fa, ln, ok, "novograd BERT", step,
+                               state, (tokens, labels), per_step, warmup,
+                               steps)
+    check(int(state.step) == warmup + steps,
+          f"NovoGrad step {int(state.step)}")
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
+                                               "_bwd_finish_kernel"),
+             "rows_sumsq_seg": lambda k: k in ("_sumsq_items_kernel",
+                                               "_sumsq_segments_kernel")}
+    state, profile_line = profile_step(torch, step, state, (tokens, labels),
+                                       names)
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return dict(result, config=(
+        "BERT-Large bf16, batch 32 x seq 512, flash attention, fp32 MLM "
+        "logits, MLM + NSP, FusedNovoGrad(lr=1e-3, betas (0.95, 0.98), wd "
+        "0.01, grad_averaging; fp32 params)"),
+        seq_per_s=BERT_BATCH * steps / result["window_s"],
+        host_syncs_per_step=len(syncs), profile=profile_line)
+
+
+def dense_fwd_bwd(torch, fn, x, params):
+    """y = fn(x), mean(y²) (a loss that is positive and does not cancel)
+    and its grads of x and `params`."""
+    y = fn(x)
+    loss = torch.mean(torch.square(y.float()))
+    grads = torch.autograd.grad(loss, [x] + params)
+    return y.detach(), loss.detach(), grads
+
+
+def mlp_phase(torch, fdn, iters=5):
+    """FusedDenseGeluDense(1024, 4096, 1024) in bf16 over GPT-350M's
+    (12288, 1024) tokens, and apex's run_mlp MLP([480, 1024, 1024, 512,
+    256, 1], relu) at batch 1024 in fp32 and bf16 (module docstring,
+    phase 10): forward and backward through the kernel, one warm-up and
+    `iters` timed iterations, the launches a forward counted, and the
+    output, loss and grads against the same run with the kernel's
+    launcher swapped for its plain version (`linear_bias_reference`).
+    Limits: the output within 1e-2 (16-bit) or 1e-5 (fp32) of its
+    largest magnitude, the loss within the same relative to itself; the
+    fp32 grads within 1e-5 of each tensor's largest magnitude, the
+    16-bit grads within 3e-2 relative L2 each, as the train steps'
+    kernels-vs-plain comparisons hold them (one-ulp differences in a
+    layer's bf16 output flip the next ReLU where its input is near 0,
+    which moves single elements of the grads below it by their own size
+    but the tensor by < 1 %: the MLP's dx by 4-7 % at its largest
+    element, 0.3 % relative L2, in a CPU simulation of the two
+    roundings).  Returns the measurements."""
+    from apex_tpu_torch.ops.fused_dense import FusedDenseGeluDense
+    from apex_tpu_torch.ops.mlp import MLP
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    cases = [("fused_dense_gelu_dense", lambda dt: FusedDenseGeluDense(
+        1024, 4096, 1024, dtype=dt), (12288, 1024), torch.bfloat16, 2)]
+    for dt in (torch.float32, torch.bfloat16):
+        cases.append((f"mlp_{str(dt)[6:]}", lambda dt: MLP(
+            [480, 1024, 1024, 512, 256, 1], activation="relu", dtype=dt),
+            (1024, 480), dt, 5))
+    for name, make, shape, dt, per_fwd in cases:
+        mod = make(dt)
+        params = list(mod.parameters())
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        x.requires_grad_(True)
+        before = fdn.linear_bias_cuda.launches
+        y, loss, grads = dense_fwd_bwd(torch, mod, x, params)
+        torch.cuda.synchronize()
+        check(fdn.linear_bias_cuda.launches - before == per_fwd,
+              f"{name}: {fdn.linear_bias_cuda.launches - before} GEMM "
+              f"launches a forward, want {per_fwd}")
+        saved = fdn.linear_bias_cuda
+        fdn.linear_bias_cuda = (lambda x2, w, b, act:
+                                fdn.linear_bias_reference(x2, w, b, act))
+        try:
+            y_p, loss_p, grads_p = dense_fwd_bwd(torch, mod, x, params)
+        finally:
+            fdn.linear_bias_cuda = saved
+        torch.cuda.synchronize()
+        check(fdn.linear_bias_cuda.launches - before == per_fwd,
+              f"{name}: the plain run launched the kernel")
+        tol = 1e-5 if dt == torch.float32 else 1e-2
+        y_err = ((y.float() - y_p.float()).abs().max()
+                 / y_p.float().abs().max()).item()
+        loss_rel = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+        grad_max = [((a.float() - r.float()).abs().max()
+                     / r.float().abs().max()).item()
+                    for a, r in zip(grads, grads_p)]
+        grad_l2 = [((a.float() - r.float()).norm()
+                    / r.float().norm()).item()
+                   for a, r in zip(grads, grads_p)]
+        grads_ok = (max(grad_max) <= tol if dt == torch.float32
+                    else max(grad_l2) <= 3e-2)
+        check(y_err <= tol and loss_rel <= tol and grads_ok,
+              f"{name}: kernel vs plain output {y_err:.3e}, loss "
+              f"{loss_rel:.3e} (limit {tol}), grads max {grad_max}, "
+              f"relative L2 {grad_l2}")
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dense_fwd_bwd(torch, mod, x, params)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / iters
+        out[name] = {"shape": list(shape), "dtype": str(dt),
+                     "launches_per_forward": per_fwd, "fwd_bwd_ms": ms,
+                     "out_max_err_vs_plain": y_err,
+                     "loss_rel_diff_vs_plain": loss_rel,
+                     "grad_max_err_vs_plain": max(grad_max),
+                     "grad_rel_l2_vs_plain": max(grad_l2)}
+        del mod, params, x, y, y_p, grads, grads_p
+    out["launches"] = fdn.linear_bias_cuda.launches
+    torch.cuda.empty_cache()
+    return out
+
+
+def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
+                         bert_layout):
+    """Phase 11 rows of this slice's kernels: Adagrad over the GPT-350M
+    flat buffer (fp32 p and h, bf16 grads); the per-element LAMB phase 2
+    over the BERT-Large buffer (bf16 p and u, fp32 r); the fused dense
+    GEMM at GPT-350M's two MLP shapes in bf16 (the up projection with
+    its bias and gelu, the down projection with its bias).  Launches:
+    the Adagrad step's five steps; `lamb_phase2_flat` has no caller on a
+    main path (0); the GEMM's from the MLP leg."""
+    import torch.nn.functional as F
+
+    dev, bf16 = "cuda", torch.bfloat16
+    rows = []
+    n = gpt_n
+    p = torch.randn((n,), generator=rng, device=dev) * 0.05
+    h = torch.randn((n,), generator=rng, device=dev).abs() * 1e-3
+    g = (torch.randn((n,), generator=rng, device=dev) * 0.1).to(bf16)
+    lr = torch.full((), 1e-3, device=dev)
+    ms = time_ms(torch, lambda: ok.adagrad_flat_triton(
+        p, h, g, lr, 1e-10, 0.0, False), n=40)
+    plain = time_ms(torch, lambda: ok._adagrad_reference(
+        p, h, g, lr, 1e-10, 0.0, False), n=20)
+    param = torch.nn.Parameter(p.clone())
+    param.grad = g.float()
+    lib_opt = torch.optim.Adagrad([param], lr=1e-3, foreach=True)
+    lib = time_ms(torch, lib_opt.step, n=40)
+    del param, lib_opt
+    rows.append(table_row(
+        "adagrad", adagrad["launches"]["adagrad"], 1, errs["adagrad"],
+        "triton", "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:455", ms, plain, lib,
+        "torch.optim.Adagrad(foreach=True).step over the one flat fp32 "
+        "param (fp32 grads: it takes the param's dtype)", 18 * n + 4,
+        7 * n, f"p, h ({n},) fp32, g bf16; wd 0"))
+    del p, h, g
+
+    spec, n = bert_layout[0], bert_layout[1]
+    p = (torch.randn((n,), generator=rng, device=dev) * 0.05).to(bf16)
+    u = (torch.randn((n,), generator=rng, device=dev) * 0.01).to(bf16)
+    r = ok.expand_per_tensor_aligned(
+        0.5 + torch.rand(len(spec.sizes), generator=rng, device=dev),
+        spec, n)
+    lr = torch.full((), 1e-2, device=dev)
+    ms = time_ms(torch, lambda: ok.lamb_phase2_flat_triton(p, u, r, lr),
+                 n=40)
+    plain = time_ms(torch, lambda: ok._lamb_phase2_flat_reference(
+        p, u, r, lr), n=20)
+    lib = time_ms(torch, lambda: p.addcmul_(r, u, value=-1e-2), n=40)
+    rows.append(table_row(
+        "lamb_phase2_flat", 0, 0, errs["lamb_phase2_flat"], "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:554", ms, plain, lib,
+        "p.addcmul_(r, u, value=-lr)", 10 * n + 4, 3 * n,
+        f"p, u ({n},) bf16 (the BERT-Large buffer), r fp32"))
+    del p, u, r
+
+    for (m, k, nn), act in (((12288, 1024, 4096), "gelu"),
+                            ((12288, 4096, 1024), None)):
+        x = torch.randn((m, k), generator=rng, device=dev).to(bf16)
+        w = (torch.randn((k, nn), generator=rng, device=dev)
+             / math.sqrt(k)).to(bf16)
+        b = torch.randn((nn,), generator=rng, device=dev).to(bf16)
+        ms = time_ms(torch, lambda: fdn.linear_bias_cuda(x, w, b, act))
+        plain = time_ms(torch, lambda: fdn.linear_bias_reference(
+            x, w, b, act), n=20)
+        if act == "gelu":
+            lib = time_ms(torch, lambda: F.gelu(torch.addmm(b, x, w),
+                                                approximate="tanh"))
+            library = "torch.addmm + F.gelu(approximate='tanh')"
+        else:
+            lib = time_ms(torch, lambda: torch.addmm(b, x, w))
+            library = "torch.addmm"
+        rows.append(table_row(
+            f"fused_dense_{m}x{k}x{nn}", mlp["launches"], 2,
+            errs["fused_dense"], "cuda", "apex_tpu_torch/csrc/fused_dense.cu",
+            "apex_tpu/ops/fused_dense.py:55", ms, plain, lib, library,
+            2 * (m * k + k * nn + m * nn) + 2 * nn, 2 * m * nn * k,
+            f"x ({m},{k}) . w ({k},{nn}) bf16 + b, act {act}",
+            peak=BF16_FLOPS))
+        del x, w, b
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
-              plain_ms, library_ms, library, bytes_, ops, shape):
+              plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
     at the card's memory rate and the operations at its peak for their
-    type (bf16 tensor cores for flash attention, fp32 otherwise)."""
+    type (`peak`; by default bf16 tensor cores for flash attention, fp32
+    otherwise)."""
     by_bytes = bytes_ / HBM_BYTES_PER_S
-    by_ops = ops / (BF16_FLOPS if name.startswith("flash") else FP32_FLOPS)
+    if peak is None:
+        peak = BF16_FLOPS if name.startswith("flash") else FP32_FLOPS
+    by_ops = ops / peak
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
             "launches_per_train_step": per_step, "max_abs_err": err,
@@ -2364,6 +2800,7 @@ def main():
     from apex_tpu_torch import csrc
     from apex_tpu_torch.ops import flash_attention as fa
     from apex_tpu_torch.ops import flash_decode as fd
+    from apex_tpu_torch.ops import fused_dense as fdn
     from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops import optimizer_kernels as ok
     from apex_tpu_torch.ops import softmax as sm
@@ -2385,16 +2822,26 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ["flash_decode", "flash_attention"]
+    sources = ["flash_decode", "flash_attention", "fused_dense"]
     csrc.build(sources)                 # one nvcc per source, in parallel
     log(f"nvcc build {time.perf_counter() - t0:.1f}s")
     for name in sources:
         if os.path.exists(csrc.log_path(name)):
             with open(csrc.log_path(name)) as f:
-                for line in f:
-                    if ("registers" in line or "spill" in line
-                            or "Compiling entry" in line):
-                        log(f"ptxas {name}: " + line.strip()[:160])
+                lines = [ln_.strip() for ln_ in f
+                         if "registers" in ln_ or "spill" in ln_
+                         or "Compiling entry" in ln_]
+            if name == "fused_dense":   # 40 instantiations: a summary
+                regs = [int(ln_.split("Used ")[1].split()[0])
+                        for ln_ in lines if "Used " in ln_]
+                spills = [ln_ for ln_ in lines if "spill" in ln_
+                          and not ln_.startswith("0 bytes stack frame, "
+                                                 "0 bytes spill")]
+                log(f"ptxas {name}: {len(regs)} kernels, registers "
+                    f"{min(regs)}-{max(regs)}, spills: {spills or 'none'}")
+                continue
+            for line in lines:
+                log(f"ptxas {name}: " + line[:160])
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -2533,6 +2980,30 @@ def main():
             f"err {e:.3e}")
         if dtype == bf16:
             errs["adam_seg"] = e
+    # this slice's kernels: Adagrad over the GPT-350M buffer, the
+    # per-element LAMB phase 2 over the BERT-Large buffer, the fused
+    # dense GEMM at GPT-350M's MLP shapes, apex's run_mlp layers and
+    # ragged shapes
+    errs["adagrad"] = check_adagrad(torch, ok, rng, gpt_layout[1])
+    log(f"adagrad ({gpt_layout[1]},) bf16 and fp32 grads, L2 and "
+        f"decoupled wd: bit for bit")
+    for dtype in (bf16, f32):
+        e = check_lamb_phase2_flat(torch, ok, rng, layout[0], layout[1],
+                                   dtype)
+        log(f"lamb_phase2_flat ({layout[1]},) {dtype}: bit for bit with "
+            f"its plain version and lamb_phase2_seg")
+        if dtype == bf16:
+            errs["lamb_phase2_flat"] = e
+    torch.cuda.empty_cache()
+    errs["fused_dense"] = 0.0
+    for m_, k_, n_ in GEMM_SHAPES:
+        for dtype in (bf16, torch.float16, f32):
+            e = check_fused_dense(torch, fdn, rng, m_, k_, n_, dtype)
+            log(f"fused_dense ({m_},{k_})x({k_},{n_}) {dtype}, 4 "
+                f"activations x bias: max err {e:.3e} of the largest "
+                f"|y|")
+            if m_ == 12288 and dtype == bf16:
+                errs["fused_dense"] = max(errs["fused_dense"], e)
     torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------
@@ -2669,7 +3140,20 @@ def main():
     long, long_vs_plain = long_phase(torch, fa, ln, ok, rng)
     torch.cuda.empty_cache()
 
-    # ---- 10. kernel table --------------------------------------------
+    # ---- 10. this slice's legs ---------------------------------------
+    adagrad, adagrad_vs_plain = adagrad_phase(torch, fa, ln, ok)
+    log("adagrad GPT " + json.dumps(adagrad))
+    torch.cuda.empty_cache()
+    larc, _, _ = resnet_phase(torch, xe, wf, ok, steps=3, larc=True)
+    log("LARC resnet " + json.dumps(larc))
+    torch.cuda.empty_cache()
+    novograd = novograd_phase(torch, fa, ln, ok)
+    log("novograd BERT " + json.dumps(novograd))
+    fdn.linear_bias_cuda.launches = 0
+    mlp = mlp_phase(torch, fdn)
+    log("fused dense / MLP " + json.dumps(mlp))
+
+    # ---- 11. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -2741,6 +3225,8 @@ def main():
     dense_rows = table_dense_kernels(torch, sm, ok, rng, errs, dense_gpt,
                                      dense_bert, gpt_layout)
     long_rows = table_long_kernels(torch, fa, rng, long)
+    slice7_rows = table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad,
+                                       mlp, gpt_layout[1], layout)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -2767,7 +3253,8 @@ def main():
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
-    ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows}
+    ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
+        + slice7_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -2780,6 +3267,8 @@ def main():
     log("dense BERT step, kernels vs plain "
         + json.dumps(dense_bert_vs_plain))
     log("long GPT step, kernels vs plain " + json.dumps(long_vs_plain))
+    log("adagrad GPT step, kernels vs plain "
+        + json.dumps(adagrad_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
