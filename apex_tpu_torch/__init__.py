@@ -39,6 +39,8 @@ Subpackages (lazily importable):
                 softmax dispatch of functional (FusedScaleMaskSoftmax)
   checkpoint  — the serving fail points (chaos)
   monitor     — the recompile sentry
+  tune        — the kernel tuner: the JSON config cache the JAX package
+                shares, the lookups, the offline sweep
 """
 
 __version__ = "0.1.0"
@@ -46,7 +48,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
                     "checkpoint", "monitor", "csrc", "amp", "parallel",
                     "contrib", "multi_tensor_apply", "fused_dense", "mlp",
-                    "normalization"}
+                    "normalization", "tune"}
 
 
 def __getattr__(name):

@@ -3,15 +3,18 @@
 // not, with or without segment ids; no bias, no dropout (the training
 // steps' surface).
 //
-// Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel (launched by
-// _fwd_impl), :_bwd_fused_kernel, :_bwd_dq_kernel and :_bwd_dkv_kernel
+// Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel and
+// :_fwd_kernel_packed (launched by _fwd_impl), :_bwd_fused_kernel,
+// :_bwd_fused_kernel_packed, :_bwd_dq_kernel and :_bwd_dkv_kernel
 // (launched by _bwd_impl).  Same contract: o = softmax(scale * q k^T
 // [causal: key j visible to query i iff j <= i]) v with an fp32 lse =
 // m + log(l) per query row; the backward recomputes p = exp(scale * q k^T
 // - lse) and takes dv, dk and dq from it, with delta = sum(do * o)
 // computed by the caller in fp32 (as _bwd_impl does).  The caller picks
 // the backward as _bwd_impl does: the fused kernel while sk * d <= 256k,
-// else the split pair (the dq pass, then the dk/dv pass).
+// else the split pair (the dq pass, then the dk/dv pass); with heads packed
+// (heads_per_step = hp > 1), the packed fused kernel while also
+// hp * sk * d <= 512k.
 //
 // What bounds them on an H100: at the training shape (b 12, h 16, s 1024,
 // d 64, causal) the forward moves ~101 MB and does ~2.6e10 flop, the
@@ -63,6 +66,34 @@
 //     no scratch buffer, the same bits from run to run.  It pays the
 //     recomputation of s and dp a second time (3 products a pair in the
 //     dq pass and 4 in the dk/dv pass, against the fused kernel's 5).
+//   * head packing (_fwd_kernel_packed, _bwd_fused_kernel_packed): the TPU
+//     kernels stack hp heads into one grid step to fill its vregs and the
+//     128-deep MXU that a d=64 head half fills; the per-head math stays
+//     separate and bit-identical.  On the card a head is already a whole
+//     tile of 4 warps, so packing is a choice of what one block walks, not
+//     a second copy of the math: the packed kernels run the unpacked
+//     kernels' per-head bodies (fwd_heads, bwd_heads) for hp heads of one
+//     batch row in turn, in b*h/hp blocks instead of b*h.  Per head, o and
+//     lse (forward) and dk, dv (backward) are the unpacked kernels' bit for
+//     bit; dq is summed by the same atomics.  What a block shares across
+//     its heads: the query ids (forward) or key ids (backward) of its
+//     rows, loaded once; and in the forward the key ids of the whole batch
+//     row, resident in shared memory while sk <= 8192 (32 KB), so they are
+//     read once per key block for the group, not once per head; and the
+//     next head's Q tile and first K/V stage (backward: K/V tiles and
+//     first q step), issued by cp.async before the current head's
+//     epilogue.  nvcc schedules this head loop very differently for small
+//     changes of its form: with the first head's prologue inside the loop
+//     (`p == 0`, as here) the prefetch is the fastest of the three forms
+//     scripts/port_flash_packed_ablation.py times; with it before the
+//     loop, slower than no prefetch at all (PERF.md § 6).  Shared memory
+//     stays the unpacked kernels' (fwd ~46 KB,
+//     fused bwd ~65 KB at d=64, plus the resident ids), so every hp that
+//     the JAX route admits runs: any divisor of h in the forward, and
+//     hp * sk * d <= 512k in the backward.  A block per head and warpgroup
+//     would need hp times that and could not hold the backward past hp=3.
+//     The trade: fewer, longer blocks (GPT's forward has 3072 blocks of 64
+//     rows for 132 SMs, so the card is full either way).
 // Rows past sq and keys past sk are zero-filled on load and masked, so any
 // sequence length works.  wgmma and TMA are for a later version.
 //
@@ -224,37 +255,43 @@ __device__ __forceinline__ void mma_tile_b(float (*acc)[4],
 
 // ------------------------------------------------------------ forward ----
 
+// keys whose segment ids the packed forward keeps resident for its whole
+// head group (32 KB); past it the ids are staged per key block and head
+// as the unpacked kernel stages them
+constexpr int kIdCache = 8192;
+
 template <int D, bool SEG>
-constexpr size_t fwd_smem() {
+__host__ __device__ constexpr size_t fwd_smem() {
   // Q, K[2], V[2], and with SEG the key ids [2][64]
   return size_t(5) * Tile<D>::kElems * sizeof(bf16) +
          (SEG ? 2 * kBc * sizeof(int) : 0);
 }
 
+// One block's forward over the 64 query rows of block `jq` for `hp` heads
+// in turn, flat (batch * head) indices bh0 .. bh0 + hp - 1 of one batch
+// row.  Each head is the unpacked kernel's body, so its o and lse are that
+// kernel's bit for bit.  `kid_res`: the batch row's key ids resident in
+// shared memory (padded to whole key blocks with 0), or null to stage
+// them per key block.  The next head's Q tile and first K/V stage are
+// issued by cp.async before this head's epilogue.
 template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+__device__ __forceinline__ void fwd_heads(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, int h, int sq, int sk, float scale_log2, int causal,
     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-    long long q_seg_sb, long long kv_seg_sb) {
+    long long q_seg_sb, long long kv_seg_sb, int bh0, int hp, int jq,
+    unsigned char* smem_raw, const int* kid_res) {
   constexpr int S = Tile<D>::kStride;
   constexpr int E = Tile<D>::kElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = q_s + E;      // two stages
   bf16* v_s = k_s + 2 * E;  // two stages
   int* kid_s = reinterpret_cast<int*>(v_s + 2 * E);  // SEG: two stages
 
-  const int nq = (sq + kBr - 1) / kBr;
-  const int jq = nq - 1 - blockIdx.x;  // causal: the longest rows first
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const bf16* qg = q + b * q_sb + hh * q_sh;
-  const bf16* kg = k + b * k_sb + hh * k_sh;
-  const bf16* vg = v + b * v_sb + hh * v_sh;
+  const int b = bh0 / h;  // every head of the group is in this batch row
   const int q0 = jq * kBr;
   int n_kv = (sk + kBc - 1) / kBc;
   if (causal && !SEG) n_kv = min(n_kv, (min(q0 + kBr, sq) - 1) / kBc + 1);
@@ -269,179 +306,237 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const int* qidg = q_seg + b * q_seg_sb;
     if (row_a < sq) qid_a = qidg[row_a];
     if (row_b < sq) qid_b = qidg[row_b];
-    const int t = threadIdx.x;
-    if (t < kBc) kid_s[t] = t < sk ? kidg[t] : 0;
   }
 
-  load_tile<D>(q_s, qg, q_ss, q0, sq);
-  load_tile<D>(k_s, kg, k_ss, 0, sk);
-  load_tile<D>(v_s, vg, v_ss, 0, sk);
-  cp_async_commit();
-
-  uint32_t qa[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-
-  for (int it = 0; it < n_kv; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_kv) {  // the next K/V block flies while this one is used
-      load_tile<D>(k_s + (st ^ 1) * E, kg, k_ss, (it + 1) * kBc, sk);
-      load_tile<D>(v_s + (st ^ 1) * E, vg, v_ss, (it + 1) * kBc, sk);
-      const int t = threadIdx.x;
-      if (SEG && t < kBc) {
-        const int key = (it + 1) * kBc + t;
-        kid_s[(st ^ 1) * kBc + t] = key < sk ? kidg[key] : 0;
-      }
-    }
+  // one head's Q tile, first K/V stage and (staged ids) first key ids
+  auto prologue = [&](int bh) {
+    const int hh = bh % h;
+    load_tile<D>(q_s, q + b * q_sb + hh * q_sh, q_ss, q0, sq);
+    load_tile<D>(k_s, k + b * k_sb + hh * k_sh, k_ss, 0, sk);
+    load_tile<D>(v_s, v + b * v_sb + hh * v_sh, v_ss, 0, sk);
+    const int t = threadIdx.x;
+    if (SEG && kid_res == nullptr && t < kBc)
+      kid_s[t] = t < sk ? kidg[t] : 0;
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        load_a<D>(qa[kk], q_s, warp * 16, kk * 16, g, t4);
-    }
-    const bf16* ks = k_s + st * E;
-    const bf16* vs = v_s + st * E;
+  };
+  for (int p = 0; p < hp; ++p) {
+    const int bh = bh0 + p;
+    const int hh = bh % h;
+    if (p == 0) prologue(bh);
+    const bf16* kg = k + b * k_sb + hh * k_sh;
+    const bf16* vg = v + b * v_sb + hh * v_sh;
 
-    // scores: 16 rows x 64 keys per warp, 8 tiles of 8 keys
-    float s[8][4];
+    uint32_t qa[D / 16][4];
+    float acc[D / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* kr = ks + (n * 8 + g) * S + kk * 16 + 2 * t4;
-        mma16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
 
-    // scale into log2 units; mask only blocks that cross the diagonal or
-    // the ragged end of the keys (warp-uniform test)
-    const int k0 = it * kBc;
-    bool per_score = false;  // SEG: this warp's tile needs the id compares
-    if (SEG) {
-      const int* kid = kid_s + st * kBc;
-      const int c = kid[0];
-      per_score = !warp_one_segment(kid[lane] == c && kid[lane + 32] == c &&
-                                    qid_a == c && qid_b == c) ||
-                  (causal && k0 + kBc - 1 > q0 + warp * 16);
-    }
-    if (per_score) {  // every score: the segment compare, then the causal one
-      const int* kid = kid_s + st * kBc;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kc = n * 8 + 2 * t4 + (e & 1);
-          const int key = k0 + kc;
-          const int row = e < 2 ? row_a : row_b;
-          float x = s[n][e] * scale_log2;
-          if (key >= sk)
-            x = -INFINITY;  // not a key: no weight, even in a masked row
-          else if (kid[kc] != (e < 2 ? qid_a : qid_b) ||
-                   (causal && key > row))
-            x = kMaskedLog2;
-          s[n][e] = x;
+    for (int it = 0; it < n_kv; ++it) {
+      const int st = it & 1;
+      if (it + 1 < n_kv) {  // the next K/V block flies while this one is used
+        load_tile<D>(k_s + (st ^ 1) * E, kg, k_ss, (it + 1) * kBc, sk);
+        load_tile<D>(v_s + (st ^ 1) * E, vg, v_ss, (it + 1) * kBc, sk);
+        const int t = threadIdx.x;
+        if (SEG && kid_res == nullptr && t < kBc) {
+          const int key = (it + 1) * kBc + t;
+          kid_s[(st ^ 1) * kBc + t] = key < sk ? kidg[key] : 0;
         }
       }
-    } else {
-      const bool edge =
-          (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      if (it == 0) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+        for (int kk = 0; kk < D / 16; ++kk)
+          load_a<D>(qa[kk], q_s, warp * 16, kk * 16, g, t4);
+      }
+      const bf16* ks = k_s + st * E;
+      const bf16* vs = v_s + st * E;
+
+      // scores: 16 rows x 64 keys per warp, 8 tiles of 8 keys
+      float s[8][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[n][e] * scale_log2;
-          if (edge) {
-            const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const bf16* kr = ks + (n * 8 + g) * S + kk * 16 + 2 * t4;
+          mma16816(s[n], qa[kk], ld32(kr), ld32(kr + 8));
+        }
+      }
+
+      // scale into log2 units; mask only blocks that cross the diagonal or
+      // the ragged end of the keys (warp-uniform test)
+      const int k0 = it * kBc;
+      const int* kid =
+          kid_res != nullptr ? kid_res + k0 : kid_s + st * kBc;
+      bool per_score = false;  // SEG: this warp's tile needs the id compares
+      if (SEG) {
+        const int c = kid[0];
+        per_score = !warp_one_segment(kid[lane] == c && kid[lane + 32] == c &&
+                                      qid_a == c && qid_b == c) ||
+                    (causal && k0 + kBc - 1 > q0 + warp * 16);
+      }
+      if (per_score) {  // every score: the segment compare, then the causal
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = n * 8 + 2 * t4 + (e & 1);
+            const int key = k0 + kc;
             const int row = e < 2 ? row_a : row_b;
-            if (key >= sk || (causal && key > row)) x = -INFINITY;
+            float x = s[n][e] * scale_log2;
+            if (key >= sk)
+              x = -INFINITY;  // not a key: no weight, even in a masked row
+            else if (kid[kc] != (e < 2 ? qid_a : qid_b) ||
+                     (causal && key > row))
+              x = kMaskedLog2;
+            s[n][e] = x;
           }
-          s[n][e] = x;
+        }
+      } else {
+        const bool edge =
+            (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[n][e] * scale_log2;
+            if (edge) {
+              const int key = k0 + n * 8 + 2 * t4 + (e & 1);
+              const int row = e < 2 ? row_a : row_b;
+              if (key >= sk || (causal && key > row)) x = -INFINITY;
+            }
+            s[n][e] = x;
+          }
         }
       }
+
+      // online softmax; a quad of lanes shares each row
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, o_));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, o_));
+      }
+      const float mu_a = mx_a == -INFINITY ? 0.f : mx_a;
+      const float mu_b = mx_b == -INFINITY ? 0.f : mx_b;
+      const float al_a = exp2f(m_a - mu_a), al_b = exp2f(m_b - mu_b);
+      m_a = mx_a;
+      m_b = mx_b;
+      float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[n][0] = exp2f(s[n][0] - mu_a);
+        s[n][1] = exp2f(s[n][1] - mu_a);
+        s[n][2] = exp2f(s[n][2] - mu_b);
+        s[n][3] = exp2f(s[n][3] - mu_b);
+        rs_a += s[n][0] + s[n][1];
+        rs_b += s[n][2] + s[n][3];
+      }
+      l_a = l_a * al_a + rs_a;  // this lane's share; summed over the quad last
+      l_b = l_b * al_b + rs_b;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= al_a;
+        acc[n][1] *= al_a;
+        acc[n][2] *= al_b;
+        acc[n][3] *= al_b;
+      }
+
+      // O += P V, p rounded to bf16 (the score tile is the A fragment)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        mma_tile_b<S, D / 16>(acc, pa, vs, kk * 16, lane);
+      }
+      __syncthreads();  // this stage is refilled by the next iteration
     }
 
-    // online softmax; a quad of lanes shares each row
-    float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-    }
+    // the next head's tiles fly while this head's rows are written
+    if (p + 1 < hp) prologue(bh + 1);
+
 #pragma unroll
     for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, o_));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, o_));
+      l_a += __shfl_xor_sync(kFull, l_a, o_);
+      l_b += __shfl_xor_sync(kFull, l_b, o_);
     }
-    const float mu_a = mx_a == -INFINITY ? 0.f : mx_a;
-    const float mu_b = mx_b == -INFINITY ? 0.f : mx_b;
-    const float al_a = exp2f(m_a - mu_a), al_b = exp2f(m_b - mu_b);
-    m_a = mx_a;
-    m_b = mx_b;
-    float rs_a = 0.f, rs_b = 0.f;
+    const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+    bf16* og = o + (long long)bh * sq * D;
+    if (row_a < sq) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mu_a);
-      s[n][1] = exp2f(s[n][1] - mu_a);
-      s[n][2] = exp2f(s[n][2] - mu_b);
-      s[n][3] = exp2f(s[n][3] - mu_b);
-      rs_a += s[n][0] + s[n][1];
-      rs_b += s[n][2] + s[n][3];
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(og + (long long)row_a * D + n * 8 +
+                                     2 * t4) =
+            pack_bf16(acc[n][0] / la, acc[n][1] / la);
+      if (t4 == 0) lse[(long long)bh * sq + row_a] = (m_a + log2f(la)) * kLn2;
     }
-    l_a = l_a * al_a + rs_a;  // this lane's share; summed over the quad last
-    l_b = l_b * al_b + rs_b;
+    if (row_b < sq) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= al_a;
-      acc[n][1] *= al_a;
-      acc[n][2] *= al_b;
-      acc[n][3] *= al_b;
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(og + (long long)row_b * D + n * 8 +
+                                     2 * t4) =
+            pack_bf16(acc[n][2] / lb, acc[n][3] / lb);
+      if (t4 == 0) lse[(long long)bh * sq + row_b] = (m_b + log2f(lb)) * kLn2;
     }
+  }
+}
 
-    // O += P V, p rounded to bf16 (the score tile is the A fragment)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_tile_b<S, D / 16>(acc, pa, vs, kk * 16, lane);
-    }
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
+#define FWD_PARAMS                                                           \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                   \
+      const bf16 *__restrict__ v, bf16 *__restrict__ o,                     \
+      float *__restrict__ lse, long long q_sb, long long q_sh, long long q_ss, \
+      long long k_sb, long long k_sh, long long k_ss, long long v_sb,       \
+      long long v_sh, long long v_ss, int h, int sq, int sk,                \
+      float scale_log2, int causal, const int *__restrict__ q_seg,          \
+      const int *__restrict__ kv_seg, long long q_seg_sb, long long kv_seg_sb
+#define FWD_ARGS                                                             \
+  q, k, v, o, lse, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, h,  \
+      sq, sk, scale_log2, causal, q_seg, kv_seg, q_seg_sb, kv_seg_sb
 
-#pragma unroll
-  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-    l_a += __shfl_xor_sync(kFull, l_a, o_);
-    l_b += __shfl_xor_sync(kFull, l_b, o_);
+// one block per (64 query rows, batch*head)
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FWD_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nq = (sq + kBr - 1) / kBr;
+  fwd_heads<D, SEG>(FWD_ARGS, blockIdx.y, 1,
+                    nq - 1 - blockIdx.x,  // causal: the longest rows first
+                    smem_raw, nullptr);
+}
+
+// the port of _fwd_kernel_packed: one block per (64 query rows, group of
+// hp heads of one batch row), the heads walked in turn; `res_ids`: the
+// key ids are resident (SEG, sk <= kIdCache), in shared memory after the
+// unpacked kernel's
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_packed_kernel(FWD_PARAMS, int hp, int res_ids) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nq = (sq + kBr - 1) / kBr;
+  int* kid_res = nullptr;
+  if (SEG && res_ids) {
+    kid_res = reinterpret_cast<int*>(smem_raw + fwd_smem<D, SEG>());
+    const int* kidg = kv_seg + (long long)(blockIdx.y * hp / h) * kv_seg_sb;
+    const int n = (sk + kBc - 1) / kBc * kBc;
+    for (int t = threadIdx.x; t < n; t += kThreads)
+      kid_res[t] = t < sk ? kidg[t] : 0;  // read after the first barrier
   }
-  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-  bf16* og = o + (long long)bh * sq * D;
-  if (row_a < sq) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(og + (long long)row_a * D + n * 8 +
-                                   2 * t4) =
-          pack_bf16(acc[n][0] / la, acc[n][1] / la);
-    if (t4 == 0) lse[(long long)bh * sq + row_a] = (m_a + log2f(la)) * kLn2;
-  }
-  if (row_b < sq) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(og + (long long)row_b * D + n * 8 +
-                                   2 * t4) =
-          pack_bf16(acc[n][2] / lb, acc[n][3] / lb);
-    if (t4 == 0) lse[(long long)bh * sq + row_b] = (m_b + log2f(lb)) * kLn2;
-  }
+  fwd_heads<D, SEG>(FWD_ARGS, blockIdx.y * hp, hp, nq - 1 - blockIdx.x,
+                    smem_raw, kid_res);
 }
 
 // ----------------------------------------------------------- backward ----
@@ -449,7 +544,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 constexpr int kDsStride = kBr + 8;  // ds tile: 64 keys x 64 queries, padded
 
 template <int D, bool SEG, bool DQ>
-constexpr size_t bwd_smem() {
+__host__ __device__ constexpr size_t bwd_smem() {
   // K, V, Q[2], dO[2], with DQ dS, lse[2], delta[2], and with SEG the q
   // ids [2]
   return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
@@ -457,11 +552,16 @@ constexpr size_t bwd_smem() {
          4 * kBr * sizeof(float) + (SEG ? 2 * kBr * sizeof(int) : 0);
 }
 
-// DQ: the fused kernel (dq summed by atomics into dq_acc); without it the
-// split route's dk/dv pass (dq_acc unused), whose dk and dv are the same
-// arithmetic
+// One block's backward over the 64 keys of block `tk` for `hp` heads in
+// turn, flat (batch * head) indices bh0 .. bh0 + hp - 1 of one batch row,
+// dk and dv in registers per head.  DQ: the fused kernel (dq summed by
+// atomics into dq_acc); without it the split route's dk/dv pass (dq_acc
+// unused), whose dk and dv are the same arithmetic.  Each head is the
+// unpacked kernel's body, so its dk and dv are that kernel's bit for bit.
+// The next head's K/V tiles and first q step are issued by cp.async before
+// this head's dk and dv are written.
 template <int D, bool SEG, bool DQ>
-__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
+__device__ __forceinline__ void bwd_heads(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -471,10 +571,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, int h,
     int sq, int sk, float scale, float scale_log2, int causal,
     const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-    long long q_seg_sb, long long kv_seg_sb) {
+    long long q_seg_sb, long long kv_seg_sb, int bh0, int hp, int tk,
+    unsigned char* smem_raw) {
   constexpr int S = Tile<D>::kStride;
   constexpr int E = Tile<D>::kElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* v_s = k_s + E;
   bf16* q_s = v_s + E;       // two stages
@@ -485,15 +585,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   float* dl_s = lse_s + 2 * kBr;                                    // [2][64]
   int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kBr);  // SEG: [2][64]
 
-  const int tk = blockIdx.x;  // causal: low key blocks have the most work
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const bf16* qg = q + b * q_sb + hh * q_sh;
-  const bf16* kg = k + b * k_sb + hh * k_sh;
-  const bf16* vg = v + b * v_sb + hh * v_sh;
-  const bf16* dog = dout + b * o_sb + hh * o_sh;
-  const float* lseg = lse + (long long)bh * sq;
-  const float* dlg = delta + (long long)bh * sq;
+  const int b = bh0 / h;  // every head of the group is in this batch row
   const int k0 = tk * kBc;
   const int nq = (sq + kBr - 1) / kBr;
   // first q block that sees a key here (SEG: every q block, see the top)
@@ -513,226 +605,274 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(
   }
   const float inv_sk = 1.f / sk;  // a fully masked row's weight per key
 
-  auto load_step = [&](int j, int st) {
-    load_tile<D>(q_s + st * E, qg, q_ss, j * kBr, sq);
-    load_tile<D>(do_s + st * E, dog, o_ss, j * kBr, sq);
+  // one head's q step j into stage st: Q, dO, the rows' lse, delta, ids
+  auto load_step = [&](int bh, int j, int st) {
+    const int hh = bh % h;
+    load_tile<D>(q_s + st * E, q + b * q_sb + hh * q_sh, q_ss, j * kBr, sq);
+    load_tile<D>(do_s + st * E, dout + b * o_sb + hh * o_sh, o_ss, j * kBr,
+                 sq);
     if (tid < kBr) {
       const int r = j * kBr + tid;
-      lse_s[st * kBr + tid] = r < sq ? lseg[r] * kLog2e : 0.f;
-      dl_s[st * kBr + tid] = r < sq ? dlg[r] : 0.f;
+      lse_s[st * kBr + tid] = r < sq ? lse[(long long)bh * sq + r] * kLog2e
+                                     : 0.f;
+      dl_s[st * kBr + tid] = r < sq ? delta[(long long)bh * sq + r] : 0.f;
       if (SEG) qid_s[st * kBr + tid] = r < sq ? qidg[r] : 0;
     }
   };
-
-  load_tile<D>(k_s, kg, k_ss, k0, sk);
-  load_tile<D>(v_s, vg, v_ss, k0, sk);
-  if (j0 < nq) load_step(j0, 0);
-  cp_async_commit();
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int j = j0; j < nq; ++j) {
-    const int st = (j - j0) & 1;
-    if (j + 1 < nq) load_step(j + 1, st ^ 1);
+  // one head's K and V tiles and its first q step
+  auto prologue = [&](int bh) {
+    const int hh = bh % h;
+    load_tile<D>(k_s, k + b * k_sb + hh * k_sh, k_ss, k0, sk);
+    load_tile<D>(v_s, v + b * v_sb + hh * v_sh, v_ss, k0, sk);
+    if (j0 < nq) load_step(bh, j0, 0);
     cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* qs = q_s + st * E;
-    const bf16* dos = do_s + st * E;
-    const float* ls = lse_s + st * kBr;
-    const float* dls = dl_s + st * kBr;
-    const int q0 = j * kBr;
+  };
+  for (int p = 0; p < hp; ++p) {
+    const int bh = bh0 + p;
+    if (p == 0) prologue(bh);
 
-    // s^T = K Q^T: 16 keys x 64 queries per warp
-    float s[8][4];
+    float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a<D>(a, k_s, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* qr = qs + (n * 8 + g) * S + kk * 16 + 2 * t4;
-        mma16816(s[n], a, ld32(qr), ld32(qr + 8));
-      }
-    }
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-    // p^T = exp(scale s - lse), zero where masked (warp-uniform test)
-    uint32_t masked = 0;  // SEG: bit 4n+e set where ds must be 0
-    bool per_score = false;  // SEG: this warp's tile needs the id compares
-    if (SEG) {
-      const int* qid = qid_s + st * kBr;
-      const int c = qid[0];
-      per_score = !warp_one_segment(qid[lane] == c && qid[lane + 32] == c &&
-                                    kid_a == c && kid_b == c) ||
-                  (causal && k0 + warp * 16 + 15 > q0);
-    }
-    if (per_score) {
-      const int* qid = qid_s + st * kBr;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t4 + (e & 1);
-          const int key = e < 2 ? key_a : key_b;
-          float p;
-          if (key >= sk || q0 + qc >= sq) {
-            p = 0.f;
-            masked |= 1u << (4 * n + e);
-          } else if ((e < 2 ? kid_a : kid_b) != qid[qc] ||
-                     (causal && key > q0 + qc)) {
-            p = ls[qc] < kDeadLse ? inv_sk : 0.f;
-            masked |= 1u << (4 * n + e);
-          } else {
-            p = exp2f(s[n][e] * scale_log2 - ls[qc]);
-          }
-          s[n][e] = p;
-        }
-      }
-    } else {
-      const bool edge = (k0 + kBc > sk) || (q0 + kBr > sq) ||
-                        (causal && k0 + warp * 16 + 15 > q0);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = n * 8 + 2 * t4 + (e & 1);
-          float p = exp2f(s[n][e] * scale_log2 - ls[qc]);
-          if (edge) {
-            const int key = e < 2 ? key_a : key_b;
-            if (key >= sk || q0 + qc >= sq || (causal && key > q0 + qc))
-              p = 0.f;
-          }
-          s[n][e] = p;
-        }
-      }
-    }
-
-    // dV += P^T dO, p rounded to bf16
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_tile_b<S, D / 16>(dva, pa, dos, kk * 16, lane);
-    }
-
-    // dP^T = V dO^T
-    float dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      load_a<D>(a, v_s, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* dr = dos + (n * 8 + g) * S + kk * 16 + 2 * t4;
-        mma16816(dp[n], a, ld32(dr), ld32(dr + 8));
-      }
-    }
-
-    // dS^T = P (dP - delta), fp32 p; 0 where masked
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[n][e] = SEG && (masked >> (4 * n + e)) & 1u
-                       ? 0.f
-                       : s[n][e] * (dp[n][e] - dls[n * 8 + 2 * t4 + (e & 1)]);
-
-    // dK += dS^T Q (ds rounded to bf16; scale applied at the end)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      mma_tile_b<S, D / 16>(dka, da, qs, kk * 16, lane);
-    }
-
-    if constexpr (DQ) {
-      // dS^T to shared memory: dQ needs it with queries as rows
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int c = n * 8 + 2 * t4;
-        bf16* row = ds_s + (warp * 16 + g) * kDsStride + c;
-        *reinterpret_cast<uint32_t*>(row) = pack_bf16(dp[n][0], dp[n][1]);
-        *reinterpret_cast<uint32_t*>(row + 8 * kDsStride) =
-            pack_bf16(dp[n][2], dp[n][3]);
-      }
+    for (int j = j0; j < nq; ++j) {
+      const int st = (j - j0) & 1;
+      if (j + 1 < nq) load_step(bh, j + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
       __syncthreads();
+      const bf16* qs = q_s + st * E;
+      const bf16* dos = do_s + st * E;
+      const float* ls = lse_s + st * kBr;
+      const float* dls = dl_s + st * kBr;
+      const int q0 = j * kBr;
 
-      // dQ (this warp's 16 queries) += scale dS K, summed across key blocks
-      // with atomics
-      float dqa[D / 8][4];
+      // s^T = K Q^T: 16 keys x 64 queries per warp
+      float s[8][4];
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        load_a<D>(a, k_s, warp * 16, kk * 16, g, t4);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const bf16* qr = qs + (n * 8 + g) * S + kk * 16 + 2 * t4;
+          mma16816(s[n], a, ld32(qr), ld32(qr + 8));
+        }
+      }
+
+      // p^T = exp(scale s - lse), zero where masked (warp-uniform test)
+      uint32_t masked = 0;  // SEG: bit 4n+e set where ds must be 0
+      bool per_score = false;  // SEG: this warp's tile needs the id compares
+      if (SEG) {
+        const int* qid = qid_s + st * kBr;
+        const int c = qid[0];
+        per_score = !warp_one_segment(qid[lane] == c && qid[lane + 32] == c &&
+                                      kid_a == c && kid_b == c) ||
+                    (causal && k0 + warp * 16 + 15 > q0);
+      }
+      if (per_score) {
+        const int* qid = qid_s + st * kBr;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = n * 8 + 2 * t4 + (e & 1);
+            const int key = e < 2 ? key_a : key_b;
+            float p_;
+            if (key >= sk || q0 + qc >= sq) {
+              p_ = 0.f;
+              masked |= 1u << (4 * n + e);
+            } else if ((e < 2 ? kid_a : kid_b) != qid[qc] ||
+                       (causal && key > q0 + qc)) {
+              p_ = ls[qc] < kDeadLse ? inv_sk : 0.f;
+              masked |= 1u << (4 * n + e);
+            } else {
+              p_ = exp2f(s[n][e] * scale_log2 - ls[qc]);
+            }
+            s[n][e] = p_;
+          }
+        }
+      } else {
+        const bool edge = (k0 + kBc > sk) || (q0 + kBr > sq) ||
+                          (causal && k0 + warp * 16 + 15 > q0);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = n * 8 + 2 * t4 + (e & 1);
+            float p_ = exp2f(s[n][e] * scale_log2 - ls[qc]);
+            if (edge) {
+              const int key = e < 2 ? key_a : key_b;
+              if (key >= sk || q0 + qc >= sq || (causal && key > q0 + qc))
+                p_ = 0.f;
+            }
+            s[n][e] = p_;
+          }
+        }
+      }
+
+      // dV += P^T dO, p rounded to bf16
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        ldsm_x4_t(a[0], a[1], a[2], a[3],
-                  ds_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
-                             kDsStride +
-                      warp * 16 + ((lane >> 3) & 1) * 8);
-        mma_tile_b<S, D / 16>(dqa, a, k_s, kk * 16, lane);
+        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        mma_tile_b<S, D / 16>(dva, pa, dos, kk * 16, lane);
       }
-      // 2-wide atomics (red.global.add.v2.f32): a lane's two adjacent
-      // columns of each row go in one instruction
-      const int qr_a = q0 + warp * 16 + g, qr_b = qr_a + 8;
-      float* dqg = dq_acc + (long long)bh * sq * D + 2 * t4;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        float* ra = dqg + (long long)qr_a * D + n * 8;
-        float* rb = dqg + (long long)qr_b * D + n * 8;
-        if (qr_a < sq)
-          atomicAdd(reinterpret_cast<float2*>(ra),
-                    make_float2(scale * dqa[n][0], scale * dqa[n][1]));
-        if (qr_b < sq)
-          atomicAdd(reinterpret_cast<float2*>(rb),
-                    make_float2(scale * dqa[n][2], scale * dqa[n][3]));
-      }
-    }
-    __syncthreads();  // ds_s and this stage are rewritten next iteration
-  }
-  cp_async_wait<0>();  // a block with no q step still has copies in flight
 
-  bf16* dkg = dk + (long long)bh * sk * D;
-  bf16* dvg = dv + (long long)bh * sk * D;
+      // dP^T = V dO^T
+      float dp[8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (key_a < sk) {
-      *reinterpret_cast<uint32_t*>(dkg + (long long)key_a * D + c) =
-          pack_bf16(scale * dka[n][0], scale * dka[n][1]);
-      *reinterpret_cast<uint32_t*>(dvg + (long long)key_a * D + c) =
-          pack_bf16(dva[n][0], dva[n][1]);
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        load_a<D>(a, v_s, warp * 16, kk * 16, g, t4);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const bf16* dr = dos + (n * 8 + g) * S + kk * 16 + 2 * t4;
+          mma16816(dp[n], a, ld32(dr), ld32(dr + 8));
+        }
+      }
+
+      // dS^T = P (dP - delta), fp32 p; 0 where masked
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[n][e] = SEG && (masked >> (4 * n + e)) & 1u
+                         ? 0.f
+                         : s[n][e] * (dp[n][e] - dls[n * 8 + 2 * t4 + (e & 1)]);
+
+      // dK += dS^T Q (ds rounded to bf16; scale applied at the end)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+        mma_tile_b<S, D / 16>(dka, da, qs, kk * 16, lane);
+      }
+
+      if constexpr (DQ) {
+        // dS^T to shared memory: dQ needs it with queries as rows
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int c = n * 8 + 2 * t4;
+          bf16* row = ds_s + (warp * 16 + g) * kDsStride + c;
+          *reinterpret_cast<uint32_t*>(row) = pack_bf16(dp[n][0], dp[n][1]);
+          *reinterpret_cast<uint32_t*>(row + 8 * kDsStride) =
+              pack_bf16(dp[n][2], dp[n][3]);
+        }
+        __syncthreads();
+
+        // dQ (this warp's 16 queries) += scale dS K, summed across key
+        // blocks with atomics
+        float dqa[D / 8][4];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          uint32_t a[4];
+          ldsm_x4_t(a[0], a[1], a[2], a[3],
+                    ds_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
+                               kDsStride +
+                        warp * 16 + ((lane >> 3) & 1) * 8);
+          mma_tile_b<S, D / 16>(dqa, a, k_s, kk * 16, lane);
+        }
+        // 2-wide atomics (red.global.add.v2.f32): a lane's two adjacent
+        // columns of each row go in one instruction
+        const int qr_a = q0 + warp * 16 + g, qr_b = qr_a + 8;
+        float* dqg = dq_acc + (long long)bh * sq * D + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          float* ra = dqg + (long long)qr_a * D + n * 8;
+          float* rb = dqg + (long long)qr_b * D + n * 8;
+          if (qr_a < sq)
+            atomicAdd(reinterpret_cast<float2*>(ra),
+                      make_float2(scale * dqa[n][0], scale * dqa[n][1]));
+          if (qr_b < sq)
+            atomicAdd(reinterpret_cast<float2*>(rb),
+                      make_float2(scale * dqa[n][2], scale * dqa[n][3]));
+        }
+      }
+      __syncthreads();  // ds_s and this stage are rewritten next iteration
     }
-    if (key_b < sk) {
-      *reinterpret_cast<uint32_t*>(dkg + (long long)key_b * D + c) =
-          pack_bf16(scale * dka[n][2], scale * dka[n][3]);
-      *reinterpret_cast<uint32_t*>(dvg + (long long)key_b * D + c) =
-          pack_bf16(dva[n][2], dva[n][3]);
+    cp_async_wait<0>();  // a head with no q step still has copies in flight
+
+    // the next head's tiles fly while this head's dk and dv are written
+    if (p + 1 < hp) prologue(bh + 1);
+
+    bf16* dkg = dk + (long long)bh * sk * D;
+    bf16* dvg = dv + (long long)bh * sk * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t4;
+      if (key_a < sk) {
+        *reinterpret_cast<uint32_t*>(dkg + (long long)key_a * D + c) =
+            pack_bf16(scale * dka[n][0], scale * dka[n][1]);
+        *reinterpret_cast<uint32_t*>(dvg + (long long)key_a * D + c) =
+            pack_bf16(dva[n][0], dva[n][1]);
+      }
+      if (key_b < sk) {
+        *reinterpret_cast<uint32_t*>(dkg + (long long)key_b * D + c) =
+            pack_bf16(scale * dka[n][2], scale * dka[n][3]);
+        *reinterpret_cast<uint32_t*>(dvg + (long long)key_b * D + c) =
+            pack_bf16(dva[n][2], dva[n][3]);
+      }
     }
   }
+}
+
+#define BWD_PARAMS                                                           \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                   \
+      const bf16 *__restrict__ v, const bf16 *__restrict__ dout,            \
+      const float *__restrict__ lse, const float *__restrict__ delta,       \
+      float *__restrict__ dq_acc, bf16 *__restrict__ dk,                    \
+      bf16 *__restrict__ dv, long long q_sb, long long q_sh, long long q_ss, \
+      long long k_sb, long long k_sh, long long k_ss, long long v_sb,       \
+      long long v_sh, long long v_ss, long long o_sb, long long o_sh,       \
+      long long o_ss, int h, int sq, int sk, float scale, float scale_log2, \
+      int causal, const int *__restrict__ q_seg,                            \
+      const int *__restrict__ kv_seg, long long q_seg_sb, long long kv_seg_sb
+#define BWD_ARGS                                                             \
+  q, k, v, dout, lse, delta, dq_acc, dk, dv, q_sb, q_sh, q_ss, k_sb, k_sh,   \
+      k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, h, sq, sk, scale,           \
+      scale_log2, causal, q_seg, kv_seg, q_seg_sb, kv_seg_sb
+
+// one block per (64 keys, batch*head); causal: low key blocks have the
+// most work
+template <int D, bool SEG, bool DQ>
+__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BWD_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_heads<D, SEG, DQ>(BWD_ARGS, blockIdx.y, 1, blockIdx.x, smem_raw);
+}
+
+// the port of _bwd_fused_kernel_packed: one block per (64 keys, group of
+// hp heads of one batch row), the heads walked in turn, dq by atomics
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_packed_kernel(BWD_PARAMS, int hp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_heads<D, SEG, true>(BWD_ARGS, blockIdx.y * hp, hp, blockIdx.x,
+                          smem_raw);
 }
 
 // ---------------------------------------------------- backward, dq pass ----
 
 template <int D, bool SEG>
-constexpr size_t bwd_dq_smem() {
+__host__ __device__ constexpr size_t bwd_dq_smem() {
   // Q, dO, K[2], V[2], and with SEG the key ids [2][64]
   return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
          (SEG ? 2 * kBc * sizeof(int) : 0);
@@ -937,6 +1077,30 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int D, bool SEG>
+cudaError_t launch_fwd_packed(const void* q, const void* k, const void* v,
+                              void* o, void* lse, const long long* st, int b,
+                              int h, int sq, int sk, float scale, int causal,
+                              int hp, Seg seg, cudaStream_t stream) {
+  static bool opted = false;
+  constexpr size_t base = fwd_smem<D, SEG>();
+  // opted in once at the most it can take: resident ids for kIdCache keys
+  constexpr size_t most = base + (SEG ? size_t(kIdCache) * sizeof(int) : 0);
+  cudaError_t e = opt_in(flash_fwd_packed_kernel<D, SEG>, most, opted);
+  if (e != cudaSuccess) return e;
+  const int res_ids = SEG && sk <= kIdCache;
+  const size_t smem =
+      base + (res_ids ? size_t((sk + kBc - 1) / kBc * kBc) * sizeof(int) : 0);
+  const dim3 grid((sq + kBr - 1) / kBr, b * h / hp);
+  flash_fwd_packed_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), st[0], st[1], st[2], st[3], st[4], st[5],
+      st[6], st[7], st[8], h, sq, sk, scale * kLog2e, causal, seg.q, seg.kv,
+      seg.q_sb, seg.kv_sb, hp, res_ids);
+  return cudaGetLastError();
+}
+
 template <int D, bool SEG, bool DQ>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -956,6 +1120,29 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       static_cast<bf16*>(dv), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
       causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
+  return cudaGetLastError();
+}
+
+template <int D, bool SEG>
+cudaError_t launch_bwd_packed(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dq_acc, void* dk,
+                              void* dv, const long long* st, int b, int h,
+                              int sq, int sk, float scale, int causal, int hp,
+                              Seg seg, cudaStream_t stream) {
+  static bool opted = false;
+  constexpr size_t smem = bwd_smem<D, SEG, true>();
+  cudaError_t e = opt_in(flash_bwd_packed_kernel<D, SEG>, smem, opted);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((sk + kBc - 1) / kBc, b * h / hp);
+  flash_bwd_packed_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
+      causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb, hp);
   return cudaGetLastError();
 }
 
@@ -1093,5 +1280,43 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
     return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, strides, b, h, sq, sk,
         scale, causal, seg, s);
+  });
+}
+
+// The packed forward (_fwd_kernel_packed): apex_flash_attn_fwd's arguments
+// and `hp`, the heads one block walks, which must divide h (else
+// cudaErrorInvalidValue, nothing launched).  o and lse are the unpacked
+// forward's bit for bit.
+extern "C" int apex_flash_attn_fwd_packed(
+    int head_dim, const void* q, const void* k, const void* v, void* o,
+    void* lse, const long long* strides, int b, int h, int sq, int sk,
+    float scale, int causal, int hp, const void* q_seg, const void* kv_seg,
+    long long q_seg_sb, long long kv_seg_sb, void* stream) {
+  if (hp < 1 || h % hp) return static_cast<int>(cudaErrorInvalidValue);
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_fwd_packed<decltype(d)::value, decltype(has_seg)::value>(
+        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, hp, seg, s);
+  });
+}
+
+// The packed fused backward (_bwd_fused_kernel_packed): apex_flash_attn_bwd's
+// arguments and `hp` (dividing h).  dk and dv are the unpacked fused
+// kernel's bit for bit; dq is summed by the same atomics.
+extern "C" int apex_flash_attn_bwd_packed(
+    int head_dim, const void* q, const void* k, const void* v,
+    const void* dout, const void* lse, const void* delta, void* dq_acc,
+    void* dk, void* dv, const long long* strides, int b, int h, int sq,
+    int sk, float scale, int causal, int hp, const void* q_seg,
+    const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
+    void* stream) {
+  if (hp < 1 || h % hp) return static_cast<int>(cudaErrorInvalidValue);
+  const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
+    return launch_bwd_packed<decltype(d)::value, decltype(has_seg)::value>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, strides, b, h, sq, sk,
+        scale, causal, hp, seg, s);
   });
 }

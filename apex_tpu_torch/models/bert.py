@@ -72,8 +72,8 @@ class BertConfig:
     # MLM logits dtype: None keeps fp32 (S, B, V) logits
     logits_dtype: Optional[torch.dtype] = None
     use_flash_attention: bool = False
-    # the TPU kernel's tile knobs: accepted, not read (the CUDA kernels
-    # tile by 64 x 64)
+    # flash attention's kernel-shape knobs, passed on as GPTConfig's
+    # attn_* fields are (None: the tuner, then the unpacked kernels)
     attn_block_q: Any = None
     attn_block_k: Any = None
     attn_heads_per_step: Any = None
@@ -194,7 +194,10 @@ class Bert:
         scale = 1.0 / math.sqrt(c.head_dim)
         if c.use_flash_attention:
             ctx = flash_attention(q, k, v, softmax_scale=scale,
-                                  segment_ids=attn_mask)
+                                  segment_ids=attn_mask,
+                                  block_q=c.attn_block_q,
+                                  block_k=c.attn_block_k,
+                                  heads_per_step=c.attn_heads_per_step)
         else:
             scores = torch.matmul(q, k.transpose(-2, -1))  # (B, nh, S, S)
             probs = scaled_masked_softmax(scores, attn_mask, scale)

@@ -64,6 +64,16 @@ class GPTConfig:
     # (S, B, V) traffic (the cross entropy upcasts inside either way)
     logits_dtype: Optional[torch.dtype] = None
     use_flash_attention: bool = False
+    # flash attention's kernel-shape knobs (the JAX package's fields).
+    # All None: the flash kernel consults the tuner (apex_tpu_torch.tune)
+    # for this shape, dtype and device kind, and a miss keeps the
+    # unpacked kernels, so an untuned machine runs the kernels it ran
+    # before.  attn_heads_per_step > 1 packs that many heads into each
+    # block of the packed kernels; the CUDA tile is 64 x 64 whatever
+    # attn_block_q / attn_block_k say (they are validated only).
+    attn_block_q: Any = None
+    attn_block_k: Any = None
+    attn_heads_per_step: Any = None
     remat: bool = False            # activation checkpointing: not yet
 
     @property
@@ -186,7 +196,10 @@ class GPT:
         q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
         scale = 1.0 / math.sqrt(c.head_dim)
         if c.use_flash_attention:
-            ctx = flash_attention(q, k, v, causal=True, softmax_scale=scale)
+            ctx = flash_attention(q, k, v, causal=True, softmax_scale=scale,
+                                  block_q=c.attn_block_q,
+                                  block_k=c.attn_block_k,
+                                  heads_per_step=c.attn_heads_per_step)
         else:
             # the two products stay GEMMs (XLA's einsums in the JAX
             # package), each rounded once to the compute dtype

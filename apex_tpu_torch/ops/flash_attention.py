@@ -13,16 +13,29 @@ Two implementations live here:
     `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` are the plain
     versions of the split backward's two passes, from the forward's lse.
   * the CUDA C++ kernels in `apex_tpu_torch/csrc/flash_attention.cu`,
-    the ports of `_fwd_kernel`, `_bwd_fused_kernel`, `_bwd_dq_kernel`
+    the ports of `_fwd_kernel`, `_fwd_kernel_packed`,
+    `_bwd_fused_kernel`, `_bwd_fused_kernel_packed`, `_bwd_dq_kernel`
     and `_bwd_dkv_kernel`, launched by `flash_fwd_cuda`,
-    `flash_bwd_cuda`, `flash_bwd_dq_cuda` and `flash_bwd_dkv_cuda`
-    inside `_FlashFn`, a `torch.autograd.Function` that saves o and the
-    fp32 lse (b, h, sq).  Its source note says what bounds them and how.
+    `flash_fwd_packed_cuda`, `flash_bwd_cuda`, `flash_bwd_packed_cuda`,
+    `flash_bwd_dq_cuda` and `flash_bwd_dkv_cuda` inside `_FlashFn`, a
+    `torch.autograd.Function` that saves o and the fp32 lse (b, h, sq).
+    Its source note says what bounds them and how.
 
-The backward takes the JAX package's route (`backward_route`, its
-`_bwd_impl` rule): the fused kernel while sk * d <= `_FUSED_BWD_CAP`,
-the split pair (the dq pass, then the dk/dv pass) beyond it, e.g. at
-32k keys of 64 or GPT-350M at seq 8192.  Nothing else chooses it.
+`heads_per_step` (hp) packs hp heads of one batch row into each block
+of the packed kernels: the forward runs packed at any hp that divides
+h; the backward takes the JAX package's route (`backward_route`, its
+`_bwd_impl` rule): the packed fused kernel while hp > 1, sk * d <=
+`_FUSED_BWD_CAP` and hp * sk * d <= `_FUSED_BWD_CAP_PACKED`; else the
+fused kernel while sk * d <= `_FUSED_BWD_CAP`; else the split pair (the
+dq pass, then the dk/dv pass), e.g. at 32k keys of 64 or GPT-350M at
+seq 8192.  Nothing else chooses it.  Per head, the packed kernels give
+the unpacked ones' o, lse, dk and dv bit for bit.
+
+When the caller passes none of block_q, block_k and heads_per_step, a
+CUDA call consults the tuner (`apex_tpu_torch.tune`, op "flash_sdpa")
+for this shape, dtype and device kind, as the JAX package does; a miss
+keeps hp = 1, so with an empty cache every call runs the kernels it ran
+before the tuner existed.
 
 On CUDA the kernels take the surface the training steps use: causal or
 not, segment ids or not (BERT's padding mask), bf16, head_dim 64 or 128,
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from typing import Optional
 
 import torch
@@ -48,17 +62,123 @@ _KERNEL_HEAD_DIMS = (64, 128)
 # applied as its _bwd_impl applies it (:979): the TPU kernel keeps the
 # whole (sk, d) dk/dv scratch in VMEM, so past the cap it splits
 _FUSED_BWD_CAP = 256 * 1024
+# the packed fused backward's cap on hp * sk * d (the JAX package's
+# _FUSED_BWD_CAP_PACKED, :45: two fp32 (hp, sk, d) VMEM scratches); the
+# card keeps dk, dv in registers per head and has no such limit, but the
+# route is the JAX package's
+_FUSED_BWD_CAP_PACKED = 512 * 1024
 # query rows per step of the split backward's plain versions: bounds
 # their fp32 (rows, sk) temporaries (1 GiB each at 8 heads of 32k keys)
 _REFERENCE_ROWS = 1024
 
 
-def backward_route(sk: int, head_dim: int) -> str:
-    """The backward `_FlashFn` runs for sk keys of `head_dim`: "fused"
-    while sk * head_dim <= `_FUSED_BWD_CAP`, else "split" — the JAX
-    package's `_bwd_impl` rule for the surface CUDA takes (no bias, so no
-    key-only dbias forces the split)."""
-    return "fused" if sk * head_dim <= _FUSED_BWD_CAP else "split"
+def backward_route(sk: int, head_dim: int, heads_per_step: int = 1) -> str:
+    """The backward `_FlashFn` runs for sk keys of `head_dim` with
+    `heads_per_step` heads packed: "packed" while hp > 1, sk * head_dim
+    <= `_FUSED_BWD_CAP` and hp * sk * head_dim <= `_FUSED_BWD_CAP_PACKED`;
+    else "fused" while sk * head_dim <= `_FUSED_BWD_CAP`; else "split" —
+    the JAX package's `_bwd_impl` rule (:947-979) for the surface CUDA
+    takes (no bias, so no dbias unpacks or splits it)."""
+    fits = sk * head_dim <= _FUSED_BWD_CAP
+    if (heads_per_step > 1 and fits
+            and heads_per_step * sk * head_dim <= _FUSED_BWD_CAP_PACKED):
+        return "packed"
+    return "fused" if fits else "split"
+
+
+# ----------------------------- kernel-shape knobs -----------------------------
+#
+# The JAX package's block and packing knobs and its tuner lookup, with the
+# same results and warnings.  The CUDA kernels tile by 64 x 64 whatever the
+# blocks say: block_q / block_k are validated (a tuned or explicit block
+# that does not divide the sequence warns once) and not otherwise read.
+
+_BLOCK_FALLBACK_WARNED = set()
+# the tuner's cap on hp * block_q * block_k (the JAX package's, :1135)
+_TUNED_SCORE_ELEMS_CAP = 1024 * 1024
+
+
+def _pick_block(seq, cap=512):
+    for b in (1024, 512, 256, 128, 64, 32, 16, 8):
+        if b <= cap and seq % b == 0:
+            return b
+    return None
+
+
+def _fit_block(blk, seq, name):
+    """Largest power-of-two block <= blk that divides seq (the JAX
+    package's `_fit_block`): an explicit or tuned block that does not
+    divide the sequence warns once per (name, blk, seq) and falls back;
+    raises if no power-of-two block divides it."""
+    if blk is None or seq % blk == 0:
+        return blk
+    fb = _pick_block(seq, cap=blk)
+    if fb is None:
+        raise ValueError(
+            f"{name}={blk} does not divide seq={seq} and no smaller "
+            f"power-of-two block divides it either")
+    key = (name, blk, seq)
+    if key not in _BLOCK_FALLBACK_WARNED:
+        _BLOCK_FALLBACK_WARNED.add(key)
+        warnings.warn(
+            f"flash attention: {name}={blk} does not divide seq={seq}; "
+            f"falling back to the largest dividing block {fb}",
+            stacklevel=3)
+    return fb
+
+
+def _resolve_heads_per_step(heads_per_step, h, want_dbias=False):
+    """Validated packing factor (the JAX package's, :774-791): it must
+    divide the head count; dbias paths run unpacked.  An invalid value
+    warns once and falls back to 1."""
+    hp = int(heads_per_step or 1)
+    if hp <= 1:
+        return 1
+    if want_dbias:
+        return 1
+    if h % hp:
+        key = ("heads_per_step", hp, h)
+        if key not in _BLOCK_FALLBACK_WARNED:
+            _BLOCK_FALLBACK_WARNED.add(key)
+            warnings.warn(
+                f"flash attention: heads_per_step={hp} does not divide "
+                f"num_heads={h}; running unpacked", stacklevel=3)
+        return 1
+    return hp
+
+
+def _tuned_flash_config(b, h, sq, sk, d, dtype, causal, bias_kind,
+                        has_seg):
+    """The tuner's config for this call (the JAX package's lookup,
+    :1139-1174): a host-side dict access, None on a miss, and None for
+    sq != sk (entries are swept at self-attention shapes).  A hit whose
+    blocks or packing are out of range warns once and is ignored."""
+    from apex_tpu_torch import tune
+
+    if sq != sk:
+        return None
+    cfg = tune.tuned("flash_sdpa",
+                     tune.flash_attrs(b, h, sq, sk, d, dtype, causal,
+                                      bias=bias_kind, seg=has_seg))
+    if not cfg:
+        return None
+    bq = cfg.get("block_q")
+    bk = cfg.get("block_k")
+    hp = cfg.get("heads_per_step", 1)
+    ok = (all(v is None or (isinstance(v, int) and 8 <= v <= 4096)
+              for v in (bq, bk))
+          and isinstance(hp, int) and 1 <= hp <= 16
+          and hp * (bq or 1024) * (bk or 1024) <= _TUNED_SCORE_ELEMS_CAP)
+    if not ok:
+        key = ("tuned_cfg", sq, sk, d)
+        if key not in _BLOCK_FALLBACK_WARNED:
+            _BLOCK_FALLBACK_WARNED.add(key)
+            warnings.warn(
+                f"flash attention: ignoring out-of-range tuned config "
+                f"{cfg} at (sq={sq}, sk={sk}, d={d}); using heuristics",
+                stacklevel=3)
+        return None
+    return cfg
 
 
 # --------------------------- plain PyTorch version ---------------------------
@@ -190,6 +310,15 @@ def _bind(lib):
     lib.apex_flash_attn_bwd_dkv.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
         i32, *seg, vp]
+    # the packed pair: the unpacked arguments with hp after `causal`
+    lib.apex_flash_attn_fwd_packed.restype = i32
+    lib.apex_flash_attn_fwd_packed.argtypes = [
+        i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32, i32,
+        *seg, vp]
+    lib.apex_flash_attn_bwd_packed.restype = i32
+    lib.apex_flash_attn_bwd_packed.argtypes = [
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
+        f32, i32, i32, *seg, vp]
     return lib
 
 
@@ -289,6 +418,43 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
 flash_fwd_cuda.launches = 0
 
 
+def _check_heads_per_step(hp, h):
+    if not (isinstance(hp, int) and hp >= 1 and h % hp == 0):
+        raise ValueError(f"the packed flash kernels take a heads_per_step "
+                         f"that divides num_heads={h}, got {hp!r}")
+
+
+def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
+                          kv_seg=None):
+    """Launch the packed forward kernel on the current stream: the
+    arguments of `flash_fwd_cuda` and `hp`, the heads of one batch row
+    each block walks (it must divide h).  o and lse are
+    `flash_fwd_cuda`'s bit for bit.  `flash_fwd_packed_cuda.launches`
+    counts launches."""
+    _check_kernel_inputs(q, k, v)
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    _check_heads_per_step(hp, h)
+    seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    _require_cuda(q, k, v, *keep)
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().apex_flash_attn_fwd_packed(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
+        int(bool(causal)), hp, *seg, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention packed forward launch failed: "
+                           f"CUDA error {err}")
+    flash_fwd_packed_cuda.launches += 1
+    return o, lse
+
+
+flash_fwd_packed_cuda.launches = 0
+
+
 def _require_cuda(*ts):
     """The launchers take CUDA tensors only: the plain versions serve the
     CPU (`flash_attention` dispatches by device)."""
@@ -350,6 +516,38 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
 flash_bwd_cuda.launches = 0
 
 
+def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
+                          q_seg=None, kv_seg=None):
+    """Launch the packed fused backward kernel on the current stream: the
+    arguments of `flash_bwd_cuda` and `hp` (dividing h).  dk and dv are
+    `flash_bwd_cuda`'s bit for bit; dq is summed by the same fp32
+    atomics, whose order changes from run to run.
+    `flash_bwd_packed_cuda.launches` counts launches."""
+    _check_heads_per_step(hp, q.shape[1])
+    q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
+                                            kv_seg)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32,
+                         device=q.device)
+    dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().apex_flash_attn_bwd_packed(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
+        int(bool(causal)), hp, *seg, stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention packed backward launch failed: "
+                           f"CUDA error {err}")
+    flash_bwd_packed_cuda.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+flash_bwd_packed_cuda.launches = 0
+
+
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                       kv_seg=None):
     """Launch the split backward's dq pass on the current stream (the
@@ -406,30 +604,37 @@ flash_bwd_dkv_cuda.launches = 0
 
 
 class _FlashFn(torch.autograd.Function):
-    """The kernels as one differentiable op: forward saves o and the fp32
-    lse; backward forms delta = sum(do * o) in fp32 (as `_bwd_impl`
-    does) and runs the fused backward kernel or the split pair, as
-    `backward_route` says."""
+    """The kernels as one differentiable op: forward runs the packed
+    kernel when `hp` > 1 and saves o and the fp32 lse; backward forms
+    delta = sum(do * o) in fp32 (as `_bwd_impl` does) and runs the packed
+    fused kernel, the fused kernel or the split pair, as `backward_route`
+    says.  `hp` is already resolved (`_resolve_heads_per_step`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg):
-        o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg)
+    def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg, hp):
+        if hp > 1:
+            o, lse = flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg,
+                                           kv_seg)
+        else:
+            o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg)
         ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.scale, ctx.causal, ctx.hp = scale, causal, hp
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
         delta = torch.sum(do.float() * o.float(), dim=-1)
-        args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal, q_seg,
-                kv_seg)
-        if backward_route(k.shape[2], q.shape[3]) == "fused":
-            dq, dk, dv = flash_bwd_cuda(*args)
+        args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        route = backward_route(k.shape[2], q.shape[3], ctx.hp)
+        if route == "packed":
+            dq, dk, dv = flash_bwd_packed_cuda(*args, ctx.hp, q_seg, kv_seg)
+        elif route == "fused":
+            dq, dk, dv = flash_bwd_cuda(*args, q_seg, kv_seg)
         else:
-            dq = flash_bwd_dq_cuda(*args)
-            dk, dv = flash_bwd_dkv_cuda(*args)
-        return dq, dk, dv, None, None, None, None
+            dq = flash_bwd_dq_cuda(*args, q_seg, kv_seg)
+            dk, dv = flash_bwd_dkv_cuda(*args, q_seg, kv_seg)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # --------------------------------- public API -------------------------------
@@ -455,11 +660,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
     a masked score is -1e30, so a query row with every key masked gets
     uniform weights over the keys, as the plain version gives it.
 
-    block_q / block_k: the TPU kernel's tile knobs; the CUDA kernels
-    tile by 64 x 64 and do not take them yet.  heads_per_step: accepted
-    and ignored — on Hopper head packing is a tile-shape choice inside
-    these kernels, a tuner axis still to come (ROADMAP Queue 2 items
-    5–6, slice 8).
+    block_q / block_k / heads_per_step: the kernel-shape knobs.  The
+    CUDA kernels tile by 64 x 64: block_q and block_k are validated as
+    the JAX package validates them (one that does not divide the
+    sequence warns once) and not otherwise read.  heads_per_step > 1
+    runs the packed kernels, hp heads of one batch row per block (one
+    that does not divide h warns once and runs unpacked).  When all
+    three are None, a CUDA call consults the tuner (`_tuned_flash_config`)
+    for a config swept at this exact (shape, dtype, device kind); a miss
+    or APEX_TPU_TUNE=0 keeps hp = 1, so an empty cache runs the kernels
+    that explicit None runs.  The CPU's plain version serves every hp.
     """
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
@@ -505,5 +715,17 @@ def flash_attention(q, k, v, *, causal: bool = False,
             f"flash attention on CUDA does not take {', '.join(unsupported)} "
             "yet (the training steps' surface is causal or not, segment "
             "ids or not, no bias, no dropout)")
+    if _pick_block(sq) and _pick_block(sk):    # where JAX runs its kernels
+        if block_q is None and block_k is None and heads_per_step is None:
+            # the key's bias kind is "none": CUDA takes no bias
+            cfg = _tuned_flash_config(b, h, sq, sk, d, q.dtype, causal,
+                                      "none", q_segment_ids is not None)
+            if cfg:
+                block_q = cfg.get("block_q")
+                block_k = cfg.get("block_k")
+                heads_per_step = cfg.get("heads_per_step")
+        _fit_block(block_q, sq, "block_q")
+        _fit_block(block_k, sk, "block_k")
+    hp = _resolve_heads_per_step(heads_per_step, h)
     return _FlashFn.apply(q, k, v, float(scale), bool(causal),
-                          q_segment_ids, kv_segment_ids)
+                          q_segment_ids, kv_segment_ids, hp)

@@ -105,6 +105,30 @@ def _resolve_heads_per_step(heads_per_step, hkv, page_size):
     return hp
 
 
+def _tuned_decode_config(n_slots, q_len, hq, hkv, d, page_size, dtype):
+    """The tuner's `flash_decode` config for this call (the JAX package's
+    lookup, apex_tpu/ops/flash_decode.py:133-158): a host-side dict
+    access, None on a miss.  A hit whose heads_per_step is out of range
+    or does not divide n_kv_heads warns once and is ignored."""
+    from apex_tpu_torch import tune
+
+    cfg = tune.tuned("flash_decode",
+                     tune.decode_attrs(n_slots, q_len, hq, hkv, d,
+                                       page_size, dtype))
+    if not cfg:
+        return None
+    hp = cfg.get("heads_per_step", 1)
+    if not (isinstance(hp, int) and 1 <= hp <= 16 and hkv % hp == 0):
+        key = ("decode_cfg", hkv, d, page_size)
+        if key not in _HP_FALLBACK_WARNED:
+            _HP_FALLBACK_WARNED.add(key)
+            warnings.warn(
+                f"flash_decode: ignoring out-of-range tuned config "
+                f"{cfg}; using heuristics", stacklevel=4)
+        return None
+    return cfg
+
+
 # --------------------------- plain PyTorch version ---------------------------
 
 def paged_attention_reference(q, k_pages, v_pages, block_table, lengths,
@@ -214,16 +238,25 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
                  heads_per_step: Optional[int] = None):
     """Single/few-query attention against a paged KV cache (module
     docstring for the layout).  CPU tensors run the plain version; CUDA
-    tensors run the CUDA kernel or raise.  `heads_per_step` is validated
-    as in the JAX package and not used by the kernel yet.  Inactive
-    slots (lengths == 0) return exact zeros."""
+    tensors run the CUDA kernel or raise.  heads_per_step None consults
+    the tuner on a CUDA call (`_tuned_decode_config`, key
+    `tune.decode_attrs`), as the JAX package does; the result is
+    validated as in the JAX package (a bad value warns once) and not
+    used by the kernel, which tiles as it does.  Inactive slots
+    (lengths == 0) return exact zeros."""
     _check_shapes(q, k_pages, v_pages, block_table, lengths)
-    d = q.shape[3]
+    n_slots, q_len, hq, d = q.shape
     hkv, _, page, _ = k_pages.shape
     scale = (softmax_scale if softmax_scale is not None
              else 1.0 / math.sqrt(d))
+    on_card = check_kernel_device(q, k_pages, v_pages, block_table, lengths)
+    if on_card and heads_per_step is None:
+        cfg = _tuned_decode_config(n_slots, q_len, hq, hkv, d, page,
+                                   q.dtype)
+        if cfg:
+            heads_per_step = cfg.get("heads_per_step")
     _resolve_heads_per_step(heads_per_step, hkv, page)
-    if not check_kernel_device(q, k_pages, v_pages, block_table, lengths):
+    if not on_card:
         return paged_attention_reference(
             q, k_pages, v_pages, block_table, lengths, softmax_scale=scale)
     return flash_decode_cuda(q, k_pages, v_pages, block_table, lengths,

@@ -1,8 +1,9 @@
 """Fused optimizer kernels over flat 1-D buffers (counterpart of
-apex_tpu/ops/optimizer_kernels.py; the uniform Adam/AdamW update, Adam
+apex_tpu/ops/optimizer_kernels.py: the uniform Adam/AdamW update, Adam
 with per-tensor weight decay and lr scales, the two LAMB phases with
-their per-tensor norms and SGD with momentum are ported so far — all but
-the uniform Adam are described at their sections below).
+their per-tensor norms, SGD with momentum, Adagrad, the per-element LAMB
+phase 2 and the generic elementwise launcher `_elementwise_call` — all
+but the uniform Adam are described at their sections below).
 
 `adam_flat` applies one Adam/AdamW step to flat param / exp_avg /
 exp_avg_sq buffers IN PLACE (the port's answer to JAX's donation), from
@@ -35,6 +36,7 @@ arithmetic.
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -1127,6 +1129,160 @@ def lamb_phase2_flat(p, u, ratio_elem, lr):
     if not check_kernel_device(p, u, ratio_elem):
         return p.copy_(_lamb_phase2_flat_reference(p, u, ratio_elem, lr_t))
     return lamb_phase2_flat_triton(p, u, ratio_elem, lr_t)
+
+
+# ------------------------- generic elementwise launcher ----------------------
+#
+# Replaces apex_tpu/ops/optimizer_kernels.py:_elementwise_call, which runs
+# one Pallas elementwise body over equal flat buffers padded to (rows, 128)
+# tiles, the first n_out of them aliased as outputs (multi_tensor_apply's
+# in-place functor).  A Pallas body is a function of refs, which neither
+# Triton nor PyTorch can run, so the port's `kernel` is an
+# `ElementwiseKernel` that carries the body in the two forms the launcher
+# needs: `plain`, a PyTorch function of the flat buffers, and `body`, a
+# factory that returns a `@triton.jit` function of loaded blocks (made at
+# the first launch: this module imports without triton).  Both take
+# (x0, x1, x2, x3, c0, c1, c2, c3): up to four buffers (absent ones are
+# None in `plain` and fp32 zeros in `body`) and four fp32 constants
+# (`consts`, absent ones 0.0), and return the n_out new values (one value
+# when n_out is 1), which are stored into the first n_out buffers, in
+# place.  Four buffers and three outputs is Adam's arity.
+#
+# Kernel note.  Bound by bytes: each buffer read once and each output
+# written once.  One generic Triton kernel, `_elementwise_kernel`, takes
+# the body as a `tl.constexpr` (one compilation per body, arity and
+# dtypes), one program per 4096-element block (the block is fixed: the
+# tuned `elementwise` block rows are not ported), a ragged end masked, not
+# padded by copies.  Stores round to nearest-even and fp contraction is
+# off, so a body whose plain version does the same operations in the same
+# order gives the same bits.  Nothing under apex_tpu/ calls the JAX
+# launcher, and nothing in the port calls this one: `chip_smoke.py` holds
+# it against its plain version.
+
+_EW_MAX_IN = 4
+_EW_MAX_OUT = 3
+_EW_MAX_CONSTS = 4
+
+
+class ElementwiseKernel(NamedTuple):
+    """An elementwise body for `_elementwise_call` (section note):
+    `plain(x0, x1, x2, x3, c0, c1, c2, c3)` in PyTorch, `body()` → the
+    same function `@triton.jit`-ed over loaded blocks, and the fp32
+    constants `consts` (at most four) both receive."""
+    plain: Callable
+    body: Callable
+    consts: Tuple[float, ...] = ()
+
+
+def _elementwise_kernel(A0, A1, A2, A3, c0, c1, c2, c3, n,
+                        BODY: tl.constexpr, N_IN: tl.constexpr,
+                        N_OUT: tl.constexpr, BLOCK: tl.constexpr):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    mask = offs < n
+    x0 = tl.load(A0 + offs, mask=mask, other=0.0)
+    x1 = tl.zeros([BLOCK], tl.float32)
+    x2 = tl.zeros([BLOCK], tl.float32)
+    x3 = tl.zeros([BLOCK], tl.float32)
+    if N_IN > 1:
+        x1 = tl.load(A1 + offs, mask=mask, other=0.0)
+    if N_IN > 2:
+        x2 = tl.load(A2 + offs, mask=mask, other=0.0)
+    if N_IN > 3:
+        x3 = tl.load(A3 + offs, mask=mask, other=0.0)
+    if N_OUT == 1:
+        y0 = BODY(x0, x1, x2, x3, c0, c1, c2, c3)
+        tl.store(A0 + offs, y0.to(A0.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+    elif N_OUT == 2:
+        y0, y1 = BODY(x0, x1, x2, x3, c0, c1, c2, c3)
+        tl.store(A0 + offs, y0.to(A0.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+        tl.store(A1 + offs, y1.to(A1.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+    else:
+        y0, y1, y2 = BODY(x0, x1, x2, x3, c0, c1, c2, c3)
+        tl.store(A0 + offs, y0.to(A0.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+        tl.store(A1 + offs, y1.to(A1.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+        tl.store(A2 + offs, y2.to(A2.dtype.element_ty,
+                                  fp_downcast_rounding="rtne"), mask=mask)
+
+
+_EW_BODIES = {}
+
+
+def _check_elementwise(kernel, arrays, n_out):
+    """The launcher's contract, checked before anything runs."""
+    if not isinstance(kernel, ElementwiseKernel):
+        raise TypeError("_elementwise_call takes an ElementwiseKernel (a "
+                        "Pallas body of refs has no PyTorch counterpart)")
+    if not 1 <= len(arrays) <= _EW_MAX_IN:
+        raise ValueError(f"_elementwise_call takes 1..{_EW_MAX_IN} buffers, "
+                         f"got {len(arrays)}")
+    if not 1 <= n_out <= min(_EW_MAX_OUT, len(arrays)):
+        raise ValueError(f"n_out={n_out} must be in 1..{_EW_MAX_OUT} and at "
+                         f"most the {len(arrays)} buffers")
+    if len(kernel.consts) > _EW_MAX_CONSTS:
+        raise ValueError(f"at most {_EW_MAX_CONSTS} constants, got "
+                         f"{len(kernel.consts)}")
+    n = arrays[0].numel()
+    for i, t in enumerate(arrays):
+        if t.ndim != 1 or t.numel() != n or not t.is_contiguous():
+            raise ValueError(f"_elementwise_call needs contiguous 1-D "
+                             f"buffers of one length; buffer {i} is "
+                             f"{tuple(t.shape)}")
+    return n
+
+
+def _elementwise_reference(kernel, arrays, n_out):
+    """The plain version: `kernel.plain` on the buffers, its results
+    copied into the first n_out of them (rounded to their dtypes)."""
+    xs = list(arrays) + [None] * (_EW_MAX_IN - len(arrays))
+    cs = [float(c) for c in kernel.consts]
+    cs += [0.0] * (_EW_MAX_CONSTS - len(cs))
+    out = kernel.plain(*xs, *cs)
+    if isinstance(out, torch.Tensor):
+        out = (out,)
+    if len(out) != n_out:
+        raise ValueError(f"the plain body returned {len(out)} values, "
+                         f"n_out={n_out}")
+    for buf, new in zip(arrays, out):
+        buf.copy_(new)
+    return list(arrays[:n_out])
+
+
+def elementwise_triton(kernel, arrays, n_out):
+    """Launch the generic Triton kernel with `kernel.body` over CUDA flat
+    buffers, the first n_out updated in place.
+    `elementwise_triton.launches` counts launches."""
+    n = _check_elementwise(kernel, arrays, n_out)
+    if kernel.body not in _EW_BODIES:
+        _EW_BODIES[kernel.body] = kernel.body()
+    ptrs = list(arrays) + [arrays[0]] * (_EW_MAX_IN - len(arrays))
+    cs = [float(c) for c in kernel.consts]
+    cs += [0.0] * (_EW_MAX_CONSTS - len(cs))
+    if n:
+        _jit(_elementwise_kernel)[(-(-n // _BLOCK),)](
+            *ptrs, *cs, n, BODY=_EW_BODIES[kernel.body], N_IN=len(arrays),
+            N_OUT=n_out, BLOCK=_BLOCK, num_warps=8, enable_fp_fusion=False)
+    elementwise_triton.launches += 1
+    return list(arrays[:n_out])
+
+
+elementwise_triton.launches = 0
+
+
+def _elementwise_call(kernel, arrays, n_out):
+    """Run one elementwise body over equal flat buffers, the first n_out
+    updated IN PLACE (≡ the JAX package's `_elementwise_call`, whose
+    aliased outputs these are).  Returns those n_out buffers.  CPU
+    buffers run `kernel.plain`; CUDA buffers the Triton kernel, or the
+    call raises."""
+    _check_elementwise(kernel, arrays, n_out)
+    if not check_kernel_device(*arrays):
+        return _elementwise_reference(kernel, arrays, n_out)
+    return elementwise_triton(kernel, arrays, n_out)
 
 
 # --------------------------- reductions / utilities -------------------------

@@ -21,8 +21,8 @@ admission/retirement.  Pages for a request are reserved at admission
 for its worst case (prompt + max_new_tokens), so a decode step never
 asks the host for memory.
 
-``page_size`` defaults to the JAX package's heuristic, 128; the tuner
-lookup that can override it waits for the port of `apex_tpu.tune`.
+``page_size`` None consults the tuner (`serve_page`) and falls back to
+the JAX package's heuristic, 128 (`default_page_size`).
 """
 
 from __future__ import annotations
@@ -48,10 +48,21 @@ class PageAccountingError(ValueError):
 
 
 def default_page_size(n_kv_heads: int, head_dim: int, dtype=None) -> int:
-    """The page size when none is configured: 128, the JAX package's
-    heuristic (its tuner lookup is not ported yet).  On Hopper a
-    128-token page at d=64 in bf16 is 16 KiB per kv head."""
-    del n_kv_heads, head_dim, dtype
+    """The page size when none is configured (the JAX package's
+    `default_page_size`): the tuner's `serve_page` entry for this cache
+    layout on this device kind, where it names a page the port's decode
+    kernel takes (8 <= page <= 2048, a multiple of 8 — the JAX package's
+    sanity check, and `flash_decode_cuda`'s own multiple-of-8 rule);
+    else the heuristic, 128.  On Hopper a 128-token page at d=64 in bf16
+    is 16 KiB per kv head."""
+    from apex_tpu_torch import tune
+
+    cfg = tune.tuned("serve_page",
+                     tune.serve_page_attrs(n_kv_heads, head_dim, dtype))
+    if cfg:
+        ps = cfg.get("page_size")
+        if isinstance(ps, int) and 8 <= ps <= 2048 and ps % 8 == 0:
+            return ps
     return 128
 
 

@@ -36,7 +36,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  without a bias, at GPT-350M's MLP shapes, apex's
                  run_mlp layers and ragged shapes (N = 1 included),
                  within 1e-2 (16-bit) or 1e-5 (fp32) of the largest
-                 |y|.
+                 |y|; the head-packed flash pair at heads_per_step 2 and
+                 4 (GPT's causal step shape on its views, BERT's with
+                 ragged padding and with q/kv ids that mask whole rows,
+                 head_dim 128, and padding at 8256 keys, past the
+                 forward's resident key ids): o, lse, dk and dv bit for
+                 bit with the
+                 hp=1 kernels, dq within one bf16 ulp of its largest
+                 magnitude, every output against the plain version as
+                 the hp=1 kernels are held; through the entry point, the
+                 packed forward with the unpacked fused backward (hp=16
+                 at (8, 16, 2048, 64), past the packed cap) and with the
+                 split backward (hp=2 at (1, 8, 32768, 64)), against
+                 hp=1; the generic elementwise launcher with an axpy and
+                 an Adam-shaped body over 1e8 + 37 fp32 elements, bit
+                 for bit with their plain versions.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -145,9 +159,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  bf16, forward and backward: two (five) GEMM launches a
                  forward, loss and grads against the plain version, ms
                  an iteration.
- 11. table       the kernels' times on the card (CUDA events) beside
+ 11. slice 8     bench.py's `_mha_latencies` leg tuned: `tune_flash`
+                 sweeps heads_per_step 1, 2, 4, 8, 16 (64 x 64 tiles)
+                 at (8, 16, 2048, 64) bf16 causal on the card and
+                 records the winner in this run's cache; then the leg
+                 as bench.py times it (the gradient of
+                 flash_attention(causal=True) with no knob: a tuner hit
+                 every call, the winner's launchers counted, its grads
+                 held against hp=1) beside `attention_reference`'s.
+                 Phase 5's GPT-350M step and phase 6's BERT-Large step
+                 at attn_heads_per_step=2 (2 + 3 and 1 + 2 steps): every
+                 flash launch a packed one (24 forwards and backwards a
+                 step), no host sync, the loss falls, the first step's
+                 loss bit for bit the hp=1 phase's; tokens/s, seq/s and
+                 peak memory beside phases 5 and 6's; a 2-layer
+                 kernels-vs-plain step of each.
+ 12. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function.
+
+The tuner's cache is pinned to a fresh temporary file for the whole run,
+so no cache elsewhere changes a phase's kernels: phase 5's step consults
+it and must miss (0 hits, no packed launch), and each training phase's
+line carries the tuner's hits, misses and fingerprint.
 
 The line before the last is the kernel table as one JSON object; the
 last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -158,8 +192,10 @@ any result.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -321,17 +357,8 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
     bf16 before their products, as the TPU kernels do; the plain version
     keeps them fp32), and no NaN; lse 1e-4 on rows that see a key, and
     below -1e29 on rows whose keys are all masked."""
-    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
     dev, bf16 = "cuda", torch.bfloat16
-    if packed:
-        qkv = torch.randn((s, b, 3 * h * d), generator=rng,
-                          device=dev).to(bf16)
-        q, k, v = qkv_split_heads(qkv, h, d)
-        do = torch.randn((s, b, h, d), generator=rng,
-                         device=dev).to(bf16).permute(1, 2, 0, 3)
-    else:
-        q, k, v, do = (torch.randn((b, h, s, d), generator=rng,
-                                   device=dev).to(bf16) for _ in range(4))
+    q, k, v, do = flash_inputs(torch, rng, b, h, s, d, packed)
     sc = 1.0 / math.sqrt(d)
     o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, q_seg, kv_seg)
     delta = torch.sum(do.float() * o.float(), dim=-1)
@@ -969,6 +996,9 @@ def training_kernels(fa, ln, ok):
             "flash_attention_bwd": fa.flash_bwd_cuda,
             "flash_attention_bwd_dq": fa.flash_bwd_dq_cuda,
             "flash_attention_bwd_dkv": fa.flash_bwd_dkv_cuda,
+            "flash_attention_fwd_packed": fa.flash_fwd_packed_cuda,
+            "flash_attention_bwd_packed": fa.flash_bwd_packed_cuda,
+            "elementwise": ok.elementwise_triton,
             "layer_norm_fwd": ln.norm_fwd_triton,
             "layer_norm_bwd": ln.norm_bwd_triton,
             "softmax_fwd": sm.softmax_fwd_triton,
@@ -991,6 +1021,16 @@ def kernel_counts(fa, ln, ok):
 def reset_kernel_counts(fa, ln, ok):
     for fn in training_kernels(fa, ln, ok).values():
         fn.launches = 0
+
+
+def tune_stats(reset=False):
+    """The tuner's hits, misses and fingerprint (the cache this run pinned
+    at its start); `reset` zeroes the counts first."""
+    from apex_tpu_torch import tune
+
+    if reset:
+        tune.reset_stats()
+    return tune.stats()
 
 
 def device_time_by_kernel(torch, prof):
@@ -1075,6 +1115,7 @@ def train_loop(torch, fa, ln, ok, what, step, state, args, per_step,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts(fa, ln, ok)
+    tune_stats(reset=True)
     losses = []
     t0 = time.perf_counter()
     for _ in range(warmup):
@@ -1100,6 +1141,7 @@ def train_loop(torch, fa, ln, ok, what, step, state, args, per_step,
               f"{what} {name}: {counts[name]} launches in {total} steps, "
               f"want {n} per step")
     return state, {"warmup_steps": warmup, "steps": steps, "losses": losses,
+                   "tune": tune_stats(),
                    "warmup_s": warm_s, "window_s": window_s,
                    "step_ms": 1e3 * window_s / steps,
                    "peak_mem_gib": torch.cuda.max_memory_allocated()
@@ -1109,7 +1151,7 @@ def train_loop(torch, fa, ln, ok, what, step, state, args, per_step,
 
 def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
                     opt_swaps, per_step, names, warmup, steps, batch=12,
-                    seq=1024, lr=1e-4):
+                    seq=1024, lr=1e-4, model_kw=None):
     """The GPT-350M training step at full width (module docstring,
     phases 5, 8 and 9): `gpt_350m` in bf16, batch x seq (12 x 1024
     unless asked), bf16 logits, seed-0 weights, `flash` attention or the
@@ -1120,8 +1162,9 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     kernels to sum), and compares a 2-layer step through the kernels
     with the plain step (`opt_swaps`: the optimizer's plain stand-ins)
     at two of the batch's sequences (one when the batch has one); `lr`
-    is the optimizer's, which bounds how far one step moves a weight.
-    Returns the measurements and that comparison."""
+    is the optimizer's, which bounds how far one step moves a weight;
+    `model_kw`: more `GPTConfig` fields.  Returns the measurements and
+    that comparison."""
     from apex_tpu_torch.models import gpt as gpt_mod
     from apex_tpu_torch.transformer.training import (
         init_sharded_optimizer, make_tp_dp_train_step)
@@ -1129,7 +1172,7 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     bf16 = torch.bfloat16
     model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=seq, dropout=0.0,
                              dtype=bf16, logits_dtype=bf16,
-                             use_flash_attention=flash)
+                             use_flash_attention=flash, **(model_kw or {}))
     cfg = model.c
     params = model.init(seed=0)
     opt = make_opt(params)
@@ -1152,7 +1195,9 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     torch.cuda.empty_cache()
     result = dict(
         result, config=f"GPT-350M bf16, batch {batch} x seq {seq}, bf16 "
-        f"logits, {'flash' if flash else 'dense'} attention, {opt_desc}",
+        f"logits, {'flash' if flash else 'dense'} attention"
+        f"{''.join(f', {k}={v}' for k, v in (model_kw or {}).items())}, "
+        f"{opt_desc}",
         params=n_params,
         tokens_per_s=batch * seq * steps / result["window_s"],
         host_syncs_per_step=len(syncs), profile=profile_line)
@@ -1162,11 +1207,13 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
 
 
 def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
-                    batch=12, seq=1024):
+                    batch=12, seq=1024, heads_per_step=None):
     """The flash GPT-350M step with FusedAdam(lr=1e-4, master bf16) at
-    batch x seq (phases 5 and 9).  `backward` is the route every layer's
-    backward must take, "fused" (seq 1024) or "split" (seq 8192): 24
-    launches a step of each of its kernels and none of the other's."""
+    batch x seq (phases 5, 9 and 11).  `backward` is the route every
+    layer's backward must take, "fused" (seq 1024), "split" (seq 8192)
+    or "packed" (`heads_per_step` > 1, phase 11, whose forward is the
+    packed one too): 24 launches a step of each of its kernels and none
+    of the others'."""
     from apex_tpu_torch.optimizers import FusedAdam
 
     def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
@@ -1175,13 +1222,19 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
             buf.copy_(new)
         return p, m, v
 
-    split = backward == "split"
-    per_step = {"flash_attention_fwd": 24,
-                "flash_attention_bwd": 0 if split else 24,
+    split, packed = backward == "split", backward == "packed"
+    check(packed == (heads_per_step is not None),
+          "the packed route needs heads_per_step")
+    per_step = {"flash_attention_fwd": 0 if packed else 24,
+                "flash_attention_fwd_packed": 24 if packed else 0,
+                "flash_attention_bwd": 24 if backward == "fused" else 0,
+                "flash_attention_bwd_packed": 24 if packed else 0,
                 "flash_attention_bwd_dq": 24 if split else 0,
                 "flash_attention_bwd_dkv": 24 if split else 0,
                 "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_fwd_packed":
+                 lambda k: "flash_fwd_packed_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
              "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
                                                "_bwd_finish_kernel"),
@@ -1190,6 +1243,9 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
         names.update(
             flash_attention_bwd_dq=lambda k: "flash_bwd_dq_kernel" in k,
             flash_attention_bwd_dkv=lambda k: "flash_bwd_kernel" in k)
+    elif packed:
+        names["flash_attention_bwd_packed"] = (
+            lambda k: "flash_bwd_packed_kernel" in k)
     else:
         names["flash_attention_bwd"] = lambda k: "flash_bwd_kernel" in k
     return gpt_train_phase(
@@ -1197,14 +1253,21 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
         lambda params: FusedAdam(lr=1e-4, master_dtype=torch.bfloat16),
         "FusedAdam(lr=1e-4, master bf16)",
         [(ok, "adam_flat_triton", plain_adam)], per_step, names,
-        warmup=warmup, steps=steps, batch=batch, seq=seq)
+        warmup=warmup, steps=steps, batch=batch, seq=seq,
+        model_kw=(None if heads_per_step is None
+                  else {"attn_heads_per_step": heads_per_step}))
 
 
 def train_phase(torch, fa, ln, ok):
     """Phase 5: the flash step on the fused backward, one warm-up step
-    and four timed ones (five in all, as before)."""
-    return flash_gpt_phase(torch, fa, ln, ok, "train", "fused", warmup=1,
-                           steps=4)
+    and four timed ones (five in all, as before).  The tuner is consulted
+    (every knob None) and, with this run's empty cache, misses: no hit
+    and no packed launch."""
+    train, vs_plain = flash_gpt_phase(torch, fa, ln, ok, "train", "fused",
+                                      warmup=1, steps=4)
+    check(train["tune"]["hits"] == 0 and train["tune"]["misses"] > 0,
+          f"phase 5's step took a tuned config: {train['tune']}")
+    return train, vs_plain
 
 
 def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
@@ -1292,7 +1355,8 @@ def attention_swaps(mod, fa, cfg):
                 (sm, "softmax_bwd_triton", sm.softmax_bwd_reference)]
 
     def plain_flash(q, k, v, *, softmax_scale, causal=False,
-                    segment_ids=None):
+                    segment_ids=None, block_q=None, block_k=None,
+                    heads_per_step=None):
         return fa.attention_reference(q, k, v, causal=causal,
                                       softmax_scale=softmax_scale,
                                       q_segment_ids=segment_ids,
@@ -1339,15 +1403,16 @@ def bert_data(torch, cfg, batch):
     return tokens, (mlm, mask, nsp)
 
 
-def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
+def bert_phase(torch, fa, ln, ok, flash=True, steps=5, heads_per_step=None):
     """The BERT-Large pretraining step at full width with `flash` or the
-    dense attention (module docstring, phases 6 and 8): one step that
-    builds the kernels, then `steps` - 1 timed ones on the bench's
+    dense attention (module docstring, phases 6, 8 and 11): one step
+    that builds the kernels, then `steps` - 1 timed ones on the bench's
     seeded batch.  Checks the losses and the launch counts each step,
-    takes a step with no host sync and a profiled one.  With flash
-    (phase 6), then two steps of the same model with FusedLAMB without a
-    wd_mask (the optimizer's unmasked path).  Returns the measurements
-    and the kernel-vs-plain comparison."""
+    takes a step with no host sync and a profiled one.  With flash and
+    no `heads_per_step` (phase 6), then two steps of the same model with
+    FusedLAMB without a wd_mask (the optimizer's unmasked path); with
+    `heads_per_step` (phase 11) every flash launch is a packed one.
+    Returns the measurements and the kernel-vs-plain comparison."""
     from apex_tpu_torch.models import bert as bert_mod
     from apex_tpu_torch.optimizers import FusedLAMB
     from apex_tpu_torch.transformer.pipeline_parallel import (
@@ -1357,8 +1422,11 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
 
     bf16 = torch.bfloat16
     what = "bert" if flash else "dense BERT"
+    if heads_per_step is not None:
+        what = f"bert hp={heads_per_step}"
     cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16,
-                              use_flash_attention=flash)
+                              use_flash_attention=flash,
+                              attn_heads_per_step=heads_per_step)
     check((cfg.vocab_size, cfg.hidden, cfg.num_layers, cfg.num_heads,
            cfg.logits_dtype) == (30528, 1024, 24, 16, None),
           "BERT-Large configuration drifted")
@@ -1378,6 +1446,7 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts(fa, ln, ok)
+    tune_stats(reset=True)
     losses = []
     t_first = time.perf_counter()
     state, loss = step(state, tokens, labels)     # builds the LAMB kernels
@@ -1400,8 +1469,11 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
     check(int(state.step) == steps, f"LAMB step {int(state.step)}")
     n_flash, n_softmax = (cfg.num_layers, 0) if flash else (0,
                                                             cfg.num_layers)
-    per_step = {"flash_attention_fwd": n_flash,
-                "flash_attention_bwd": n_flash,
+    n_packed = n_flash if heads_per_step is not None else 0
+    per_step = {"flash_attention_fwd": n_flash - n_packed,
+                "flash_attention_bwd": n_flash - n_packed,
+                "flash_attention_fwd_packed": n_packed,
+                "flash_attention_bwd_packed": n_packed,
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                 "softmax_fwd": n_softmax, "softmax_bwd": n_softmax,
                 "layer_norm_fwd": 2 * cfg.num_layers + 2,
@@ -1415,7 +1487,11 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
               f"want {k} per step")
     state, syncs = step_without_sync(torch, step, state, tokens, labels)
     attention = ({"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
-                  "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k}
+                  "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+                  "flash_attention_fwd_packed":
+                      lambda k: "flash_fwd_packed_kernel" in k,
+                  "flash_attention_bwd_packed":
+                      lambda k: "flash_bwd_packed_kernel" in k}
                  if flash else
                  {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
                   "softmax_bwd": lambda k: k == "_softmax_bwd_kernel"})
@@ -1430,14 +1506,18 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
     state, profile_line = profile_step(torch, step, state, (tokens, labels),
                                        names)
     del state, opt, step
+    tuned = tune_stats()
+    packing = ("" if heads_per_step is None
+               else f", attn_heads_per_step={heads_per_step}")
     result = {
         "config": f"BERT-Large bf16 (V 30528, H 1024, L 24, 16 heads), "
                   f"batch 32 x seq 512, "
-                  f"{'flash' if flash else 'dense'} attention, fp32 MLM "
+                  f"{'flash' if flash else 'dense'} attention{packing}"
+                  f", fp32 MLM "
                   f"logits, MLM + NSP, FusedLAMB(lr=1e-4, wd 0.01, master "
                   f"bf16, no-decay wd_mask)",
         "params": n_params, "steps": steps, "losses": losses,
-        "first_step_s": first_s,
+        "tune": tuned, "first_step_s": first_s,
         "step_ms": 1e3 * window_s / (steps - 1),
         "seq_per_s": BERT_BATCH * (steps - 1) / window_s,
         "tokens_per_s": BERT_BATCH * BERT_SEQ * (steps - 1) / window_s,
@@ -1445,7 +1525,7 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5):
         "launches": counts, "launches_per_step": per_step,
         "profile": profile_line}
 
-    if flash:   # the unmasked optimizer path: no wd_mask, two steps
+    if flash and heads_per_step is None:   # the unmasked optimizer path
         opt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16)
         state = init_sharded_optimizer(opt, model, model.init(seed=0))
         step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
@@ -1593,6 +1673,7 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
     torch.cuda.reset_peak_memory_stats()
     for fn in resnet_kernels(xe, wf, ok).values():
         fn.launches = 0
+    tune_stats(reset=True)
     records = []
     t0 = time.perf_counter()
     for _ in range(warmup):
@@ -1648,7 +1729,7 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
                   + "FusedSGD(lr=0.1, momentum 0.9, wd 1e-4)",
         "cudnn_benchmark": True, "params": 25_557_032,
         "warmup_steps": warmup, "steps": steps, "losses": losses,
-        "loss_scales": scales, "warmup_s": warm_s,
+        "loss_scales": scales, "tune": tune_stats(), "warmup_s": warm_s,
         "step_ms": 1e3 * window_s / steps,
         "img_per_s": RESNET_BATCH * steps / window_s,
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
@@ -2409,6 +2490,458 @@ def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
     return rows
 
 
+# ------------------------------------------------ phase 11: slice 8 ----
+#
+# The head-packed flash kernels (hp heads of one batch row a block) and the
+# generic elementwise launcher: their phase-2 checks, the tuned MHA leg and
+# the GPT-350M / BERT-Large steps at attn_heads_per_step=2, and their rows
+# of the kernel table.
+
+MHA_SHAPE = (8, 16, 2048, 64)    # bench.py:236, _mha_latencies on the chip
+EW_N = 100_000_037               # the elementwise checks' buffers (fp32)
+# packed dq against the hp=1 kernel's: one bf16 ulp of its largest
+# magnitude (2^-8).  Both sum dq in fp32 with atomics in an order that
+# changes from run to run, then round once to bf16.
+PACKED_DQ_TOL = 2.0 ** -8
+
+
+def flash_inputs(torch, rng, b, h, s, d, views):
+    """q, k, v, do in bf16 on the card; `views` lays q, k, v out as the
+    training path does (strided views of one (S, B, 3H) tensor, do a
+    permuted view)."""
+    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+
+    bf16 = torch.bfloat16
+    if views:
+        qkv = torch.randn((s, b, 3 * h * d), generator=rng,
+                          device="cuda").to(bf16)
+        q, k, v = qkv_split_heads(qkv, h, d)
+        do = torch.randn((s, b, h, d), generator=rng,
+                         device="cuda").to(bf16).permute(1, 2, 0, 3)
+        return q, k, v, do
+    return tuple(torch.randn((b, h, s, d), generator=rng, device="cuda")
+                 .to(bf16) for _ in range(4))
+
+
+def check_packed_flash(torch, fa, rng, *, b, h, s, d, causal, hps,
+                       views=False, q_seg=None, kv_seg=None):
+    """The packed forward and fused backward at each hp in `hps` on one
+    bf16 input, against the hp=1 kernels (o, lse, dk and dv bit for bit;
+    dq within `PACKED_DQ_TOL` of its largest magnitude) and against the
+    plain version (`attention_reference` and autograd through it: 1e-2
+    of each output's largest magnitude, as `check_flash_attention` holds
+    the hp=1 kernels).  Returns the errors by hp."""
+    q, k, v, do = flash_inputs(torch, rng, b, h, s, d, views)
+    sc = 1.0 / math.sqrt(d)
+    o1, lse1 = fa.flash_fwd_cuda(q, k, v, sc, causal, q_seg, kv_seg)
+    delta = torch.sum(do.float() * o1.float(), dim=-1)
+    bwd_args = (q, k, v, do, lse1, delta, sc, causal)
+    dq1, dk1, dv1 = fa.flash_bwd_cuda(*bwd_args, q_seg, kv_seg)
+    dq1b, _, _ = fa.flash_bwd_cuda(*bwd_args, q_seg, kv_seg)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_ref = fa.attention_reference(qr, kr, vr, causal=causal,
+                                   softmax_scale=sc, q_segment_ids=q_seg,
+                                   kv_segment_ids=kv_seg)
+    o_ref.backward(do)
+    torch.cuda.synchronize()
+    what = f"packed flash ({b},{h},{s},{d}) causal={causal}"
+    out = {"hp1_dq_run_to_run": (dq1.float() - dq1b.float()).abs().max()
+           .item()}
+    for hp in hps:
+        o, lse = fa.flash_fwd_packed_cuda(q, k, v, sc, causal, hp, q_seg,
+                                          kv_seg)
+        dq, dk, dv = fa.flash_bwd_packed_cuda(*bwd_args, hp, q_seg, kv_seg)
+        torch.cuda.synchronize()
+        for name, got, one in (("o", o, o1), ("lse", lse, lse1),
+                               ("dk", dk, dk1), ("dv", dv, dv1)):
+            check(torch.equal(got, one),
+                  f"{what} hp={hp}: {name} differs from the hp=1 kernel's")
+        e = {"dq_vs_hp1": max_err(torch, f"{what} hp={hp} dq vs hp=1", dq,
+                                  dq1, tol=PACKED_DQ_TOL)}
+        for name, got, ref in (("o", o, o_ref), ("dq", dq, qr.grad),
+                               ("dk", dk, kr.grad), ("dv", dv, vr.grad)):
+            e[name] = max_err(torch, f"{what} hp={hp} {name} vs plain", got,
+                              ref)
+        out[hp] = e
+    return out
+
+
+def check_packed_routes(torch, fa, ln, ok, rng):
+    """Two routes through the entry point and autograd that pair the
+    packed forward with an unpacked backward, held against heads_per_step
+    = 1 on the same inputs: hp=16 at MHA_SHAPE (hp * sk * d past the
+    packed cap: the fused backward; o, dk, dv bit for bit, dq within
+    `PACKED_DQ_TOL`) and hp=2 at LONG_SHAPE (sk * d past the fused cap:
+    the split backward; o, dq, dk, dv bit for bit, the dq pass has no
+    atomics).  The launch counters show each route."""
+    out = {}
+    for shape, hp, want in (
+            (MHA_SHAPE, 16, {"flash_attention_fwd_packed": 1,
+                             "flash_attention_bwd": 1}),
+            (LONG_SHAPE, 2, {"flash_attention_fwd_packed": 1,
+                             "flash_attention_bwd_dq": 1,
+                             "flash_attention_bwd_dkv": 1})):
+        q, k, v = (torch.randn(shape, generator=rng, device="cuda")
+                   .to(torch.bfloat16).requires_grad_(True)
+                   for _ in range(3))
+        do = torch.randn(shape, generator=rng,
+                         device="cuda").to(torch.bfloat16)
+        check(fa.backward_route(shape[2], shape[3], hp) == (
+            "fused" if hp == 16 else "split"), f"route at {shape} hp={hp}")
+
+        def run(hp_):
+            o = fa.flash_attention(q, k, v, causal=True,
+                                   heads_per_step=hp_)
+            return (o,) + torch.autograd.grad(o, (q, k, v), do)
+
+        reset_kernel_counts(fa, ln, ok)
+        got = run(hp)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in kernel_counts(fa, ln, ok).items() if c}
+        check(counts == want, f"packed route at {shape} hp={hp}: launches "
+              f"{counts}, want {want}")
+        one = run(1)
+        torch.cuda.synchronize()
+        exact = ("o", "dk", "dv") + (("dq",) if hp == 2 else ())
+        for name, g, w in zip(("o", "dq", "dk", "dv"), got, one):
+            if name in exact:
+                check(torch.equal(g, w), f"packed route at {shape} hp={hp}: "
+                      f"{name} differs from hp=1")
+        out[f"{shape} hp={hp}"] = {
+            "launches": counts, "bitwise": list(exact),
+            "dq_vs_hp1": 0.0 if hp == 2 else max_err(
+                torch, f"packed route hp={hp} dq", got[1], one[1],
+                tol=PACKED_DQ_TOL)}
+        del q, k, v, do, got, one
+        torch.cuda.empty_cache()
+    return out
+
+
+# Bodies for `_elementwise_call` (its section in ops/optimizer_kernels.py).
+# The Triton bodies are written against the module global `tl`, which
+# `triton_body` binds before `triton.jit`, at the first launch.
+tl = None
+
+
+def triton_body(fn):
+    """A factory that returns `fn` jitted by Triton (made at launch)."""
+    def factory():
+        global tl
+        import triton
+        import triton.language
+
+        tl = triton.language
+        return triton.jit(fn)
+    return factory
+
+
+def _axpy(y, x, x2, x3, a, c1, c2, c3):
+    # one body for both forms: the same fp32 operations in either
+    return y + a * x
+
+
+def _adam_plain(p, m, v, g, b1, c1, b2, c2):
+    import torch
+
+    m = b1 * m + c1 * g
+    v = b2 * v + c2 * (g * g)
+    return p - 1e-3 * (m / (torch.sqrt(v) + 1e-8)), m, v
+
+
+def _adam_triton(p, m, v, g, b1, c1, b2, c2):
+    m = b1 * m + c1 * g
+    v = b2 * v + c2 * (g * g)
+    return p - 1e-3 * tl.div_rn(m, tl.sqrt_rn(v) + 1e-8), m, v
+
+
+def elementwise_kernels(ok):
+    """The two bodies: axpy (y += 0.5 x; one output) and an Adam-shaped
+    update (p, m, v from p, m, v, g with betas 0.9 / 0.999, lr 1e-3, eps
+    1e-8; three outputs)."""
+    axpy = ok.ElementwiseKernel(_axpy, triton_body(_axpy), (0.5,))
+    adam = ok.ElementwiseKernel(_adam_plain, triton_body(_adam_triton),
+                                (0.9, 1.0 - 0.9, 0.999, 1.0 - 0.999))
+    return axpy, adam
+
+
+def check_elementwise(torch, ok, rng):
+    """`_elementwise_call` over EW_N fp32 elements (a ragged end) with
+    both bodies, bit for bit with their plain versions (fp contraction
+    off; IEEE square root and divide in both), the outputs updated in
+    place.  Returns the max errors (0) and the launches."""
+    axpy, adam = elementwise_kernels(ok)
+    n0 = ok.elementwise_triton.launches
+
+    def randn(scale=1.0):
+        return torch.randn((EW_N,), generator=rng, device="cuda") * scale
+
+    y, x = randn(), randn()
+    want = ok._elementwise_reference(axpy, [y.clone(), x], 1)[0]
+    got = ok._elementwise_call(axpy, [y, x], 1)[0]
+    torch.cuda.synchronize()
+    check(got is y and torch.equal(y, want),
+          "elementwise axpy: kernel and plain version differ")
+    del y, x, want, got
+    p, m, g = randn(), randn(0.1), randn()
+    v = randn(0.01).abs()
+    want = ok._elementwise_reference(adam, [p.clone(), m.clone(), v.clone(),
+                                            g], 3)
+    got = ok._elementwise_call(adam, [p, m, v, g], 3)
+    torch.cuda.synchronize()
+    check(all(a is b for a, b in zip(got, (p, m, v))),
+          "elementwise Adam: not in place")
+    for name, a, b in zip("pmv", got, want):
+        check(torch.equal(a, b), f"elementwise Adam {name}: kernel and "
+              f"plain version differ")
+    del p, m, v, g, want, got
+    torch.cuda.empty_cache()
+    return {"axpy": 0.0, "adam": 0.0,
+            "launches": ok.elementwise_triton.launches - n0}
+
+
+def mha_leg(torch, fa, ln, ok, rng, smi, warmup=1, iters=10):
+    """bench.py's `_mha_latencies` (bench.py:229-256) on the card, tuned:
+    `tune_flash` sweeps the H100 candidates at MHA_SHAPE (bf16, causal)
+    and records the winner in this run's pinned cache; then the leg as
+    bench.py times it — the gradient of flash_attention(q, k, v,
+    causal=True).float().mean() with no knob, whose lookup must hit,
+    `warmup` + `iters` iterations, ms an iteration — and the same for
+    `attention_reference`, the leg's second number.  The winner's
+    launchers are counted, and the leg's gradients are held against
+    heads_per_step=1 (dk, dv bit for bit where the backward is fused or
+    packed, dq within `PACKED_DQ_TOL`)."""
+    from apex_tpu_torch.tune import search
+
+    name, limit = (x.strip() for x in smi.split(",", 1))
+    b, h, s, d = MHA_SHAPE
+    t0 = time.perf_counter()
+    best, results = search.tune_flash(
+        b, h, s, d, dtype=torch.bfloat16, causal=True, iters=10, warmup=3,
+        meta={"device": name, "power_limit": limit,
+              "script": "chip_smoke.py (phase 11)"})
+    sweep_s = time.perf_counter() - t0
+    candidates_ms = {str(c["heads_per_step"]): 1e3 * t for c, t in results}
+    log(f"MHA sweep {MHA_SHAPE} bf16 causal, fwd+bwd ms by heads_per_step: "
+        f"{json.dumps(candidates_ms)}; winner {best}")
+    q, k, v = (torch.randn(MHA_SHAPE, generator=rng, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+
+    def timed(fn, n):
+        def grad():
+            loss = fn(q, k, v).float().mean()
+            return torch.autograd.grad(loss, (q, k, v))
+
+        for _ in range(warmup):
+            out = grad()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(n):
+            out = grad()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t1) / n, out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    tune_stats(reset=True)
+    fused_ms, grads = timed(
+        lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=True), iters)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {n_: c for n_, c in kernel_counts(fa, ln, ok).items() if c}
+    tuned = tune_stats()
+    n = warmup + iters
+    hp = best["heads_per_step"]
+    route = fa.backward_route(s, d, hp)
+    want = {("flash_attention_fwd_packed" if hp > 1
+             else "flash_attention_fwd"): n,
+            {"packed": "flash_attention_bwd_packed",
+             "fused": "flash_attention_bwd"}[route]: n}
+    check(tuned["hits"] == n and tuned["misses"] == 0,
+          f"MHA leg: the lookup did not hit on every call: {tuned}")
+    check(counts == want, f"MHA leg launches {counts}, want {want}")
+    one = torch.autograd.grad(fa.flash_attention(
+        q, k, v, causal=True, heads_per_step=1).float().mean(), (q, k, v))
+    torch.cuda.synchronize()
+    check(torch.equal(grads[1], one[1]) and torch.equal(grads[2], one[2]),
+          "MHA leg: dk, dv differ from heads_per_step=1")
+    dq_err = max_err(torch, "MHA leg dq vs hp=1", grads[0], one[0],
+                     tol=PACKED_DQ_TOL)
+    del grads, one
+    unfused_ms, _ = timed(
+        lambda q_, k_, v_: fa.attention_reference(q_, k_, v_, causal=True),
+        3)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": list(MHA_SHAPE), "dtype": "bfloat16", "causal": True,
+            "sweep_s": sweep_s, "candidates_fwd_bwd_ms": candidates_ms,
+            "winner": best, "backward_route": route,
+            "fused_ms": fused_ms, "unfused_ms": unfused_ms,
+            "warmup": warmup, "iters": iters, "peak_mem_gib": peak / 2 ** 30,
+            "tune": tuned, "launches": counts, "dq_vs_hp1_max_err": dq_err}
+
+
+def slice8_phase(torch, fa, ln, ok, rng, smi, train, bert):
+    """Phase 11 (module docstring): the tuned MHA leg, then phase 5's
+    GPT-350M step and phase 6's BERT-Large step at attn_heads_per_step=2
+    (every flash launch a packed one, no host sync, the loss falls, and
+    the first step's loss bit for bit the hp=1 phase's: the packed
+    forward is bit-identical).  `train`, `bert`: phases 5 and 6."""
+    t0 = time.perf_counter()
+    mha = mha_leg(torch, fa, ln, ok, rng, smi)
+    log("MHA leg " + json.dumps(mha))
+    gpt, gpt_vs_plain = flash_gpt_phase(torch, fa, ln, ok, "GPT hp=2",
+                                        "packed", warmup=2, steps=3,
+                                        heads_per_step=2)
+    check(gpt["losses"][0] == train["losses"][0],
+          f"GPT hp=2: first loss {gpt['losses'][0]!r} is not phase 5's "
+          f"{train['losses'][0]!r}")
+    log("GPT hp=2 " + json.dumps(gpt))
+    log("GPT tokens/s, peak GiB: hp=2 "
+        f"{gpt['tokens_per_s']:.1f}, {gpt['peak_mem_gib']:.3f}; phase 5 "
+        f"{train['tokens_per_s']:.1f}, {train['peak_mem_gib']:.3f}")
+    torch.cuda.empty_cache()
+    bert2, bert2_vs_plain = bert_phase(torch, fa, ln, ok, steps=3,
+                                       heads_per_step=2)
+    check(bert2["losses"][0] == bert["losses"][0],
+          f"BERT hp=2: first loss {bert2['losses'][0]!r} is not phase 6's "
+          f"{bert['losses'][0]!r}")
+    log("bert hp=2 " + json.dumps(bert2))
+    log("BERT seq/s, peak GiB: hp=2 "
+        f"{bert2['seq_per_s']:.2f}, {bert2['peak_mem_gib']:.3f}; phase 6 "
+        f"{bert['seq_per_s']:.2f}, {bert['peak_mem_gib']:.3f}")
+    torch.cuda.empty_cache()
+    log(f"phase 11 {time.perf_counter() - t0:.1f}s")
+    return {"mha": mha, "gpt": gpt, "bert": bert2}, {
+        "gpt": gpt_vs_plain, "bert": bert2_vs_plain}
+
+
+def table_slice8_kernels(torch, fa, ok, rng, errs, slice8):
+    """Phase 12 rows of this slice's kernels.  The packed pair at GPT's
+    (12, 16, 1024, 64) causal, on the step's views (the rows' `ms`), with
+    the hp=1 kernel and the packed launcher at hp 1, 2 and 4, and at
+    MHA_SHAPE at hp 1, 2, 4, 8 and 16; bounds as the hp=1 rows count them
+    (the score pairs at or below the diagonal: 4 d flop a pair forward,
+    10 d backward, bf16 tensor cores); library: SDPA on the same call.
+    Launches: phase 11's GPT and BERT steps and the MHA leg.  The
+    elementwise launcher: axpy over EW_N fp32 elements against its plain
+    version and `Tensor.add_(x, alpha=0.5)`, bound by its 12 bytes an
+    element; it has no main path (no caller in either package)."""
+    import torch.nn.functional as F
+
+    def pairs(b, h, s):
+        return b * h * s * (s + 1) // 2
+
+    mha, gpt, bert = slice8["mha"], slice8["gpt"], slice8["bert"]
+    shapes = {}
+    for label, shape, hps, views in (
+            ("gpt", (12, 16, 1024, 64), (1, 2, 4), True),
+            ("mha", MHA_SHAPE, (1, 2, 4, 8, 16), False)):
+        b, h, s, d = shape
+        q, k, v, do = flash_inputs(torch, rng, b, h, s, d, views)
+        sc = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        t = {"fwd_unpacked": time_ms(torch, lambda: fa.flash_fwd_cuda(
+                 q, k, v, sc, True)),
+             "bwd_unpacked": time_ms(torch, lambda: fa.flash_bwd_cuda(
+                 q, k, v, do, lse, delta, sc, True))}
+        for hp in hps:
+            t[f"fwd_hp{hp}"] = time_ms(torch, lambda: fa.flash_fwd_packed_cuda(
+                q, k, v, sc, True, hp))
+            t[f"bwd_hp{hp}"] = time_ms(torch, lambda: fa.flash_bwd_packed_cuda(
+                q, k, v, do, lse, delta, sc, True, hp))
+        t["fwd_sdpa"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=sc))
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             scale=sc)
+        t["bwd_sdpa"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        del out
+        if label == "gpt":
+            t["fwd_plain"] = time_ms(torch, lambda: fa.attention_reference(
+                q, k, v, causal=True, softmax_scale=sc), n=10)
+            out = fa.attention_reference(qg, kg, vg, causal=True,
+                                         softmax_scale=sc)
+            t["bwd_plain"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), n=10)
+            del out
+        io = b * h * s * d * 2
+        t["fwd_bound"] = 1e3 * max((4 * io + b * h * s * 4) / HBM_BYTES_PER_S,
+                                   4 * pairs(b, h, s) * d / BF16_FLOPS)
+        t["bwd_bound"] = 1e3 * max(
+            (7 * io + 2 * b * h * s * 4) / HBM_BYTES_PER_S,
+            10 * pairs(b, h, s) * d / BF16_FLOPS)
+        shapes[label] = t
+        del q, k, v, do, o, lse, delta, qg, kg, vg
+        torch.cuda.empty_cache()
+    log("packed flash times " + json.dumps(shapes))
+    g = shapes["gpt"]
+    b, h, s, d = 12, 16, 1024, 64
+    io = b * h * s * d * 2
+    rows = []
+    for key, name, replaces, bytes_, ops in (
+            ("fwd", "flash_attention_fwd_packed",
+             "apex_tpu/ops/flash_attention.py:385",
+             4 * io + b * h * s * 4, 4 * pairs(b, h, s) * d),
+            ("bwd", "flash_attention_bwd_packed",
+             "apex_tpu/ops/flash_attention.py:643",
+             7 * io + 2 * b * h * s * 4, 10 * pairs(b, h, s) * d)):
+        counter = f"flash_attention_{key}_packed"
+        launches = (gpt["launches"][counter] + bert["launches"][counter]
+                    + mha["launches"].get(counter, 0))
+        row = table_row(
+            name, launches, gpt["launches_per_step"][counter],
+            errs[counter], "cuda", "apex_tpu_torch/csrc/flash_attention.cu",
+            replaces, g[f"{key}_hp2"], g[f"{key}_plain"], g[f"{key}_sdpa"],
+            "scaled_dot_product_attention(is_causal=True)"
+            + (" backward (autograd)" if key == "bwd" else ""),
+            bytes_, ops, "q,k,v (12,16,1024,64) bf16 views of qkv (1024,12,"
+            "3072), causal, heads_per_step=2")
+        row.update({
+            "launches_gpt_hp2": gpt["launches"][counter],
+            "launches_bert_hp2": bert["launches"][counter],
+            "launches_mha_leg": mha["launches"].get(counter, 0),
+            "ms_gpt_by_hp": {k_[len(key) + 3:]: v_ for k_, v_ in g.items()
+                             if k_.startswith(f"{key}_hp")},
+            "ms_gpt_unpacked_kernel": g[f"{key}_unpacked"],
+            "ms_mha_by_hp": {k_[len(key) + 3:]: v_
+                             for k_, v_ in shapes["mha"].items()
+                             if k_.startswith(f"{key}_hp")},
+            "ms_mha_unpacked_kernel": shapes["mha"][f"{key}_unpacked"],
+            "bound_ms_mha": shapes["mha"][f"{key}_bound"],
+            "library_ms_mha": shapes["mha"][f"{key}_sdpa"]})
+        rows.append(row)
+    # the elementwise launcher: axpy, in place
+    axpy, adam = elementwise_kernels(ok)
+    y, x = (torch.randn((EW_N,), generator=rng, device="cuda")
+            for _ in range(2))
+    ew_ms = time_ms(torch, lambda: ok.elementwise_triton(axpy, [y, x], 1),
+                    n=20)
+    ew_plain = time_ms(torch, lambda: ok._elementwise_reference(
+        axpy, [y, x], 1), n=10)
+    ew_lib = time_ms(torch, lambda: y.add_(x, alpha=0.5), n=20)
+    m, g_ = (torch.randn((EW_N,), generator=rng, device="cuda")
+             for _ in range(2))
+    vv = torch.rand((EW_N,), generator=rng, device="cuda")
+    adam_ms = time_ms(torch, lambda: ok.elementwise_triton(
+        adam, [y, m, vv, g_], 3), n=10)
+    row = table_row(
+        "elementwise", 0, 0, errs["elementwise"], "triton",
+        "apex_tpu_torch/ops/optimizer_kernels.py",
+        "apex_tpu/ops/optimizer_kernels.py:73", ew_ms, ew_plain, ew_lib,
+        "Tensor.add_(x, alpha=0.5)", 12 * EW_N, 2 * EW_N,
+        f"axpy y += 0.5 x over ({EW_N},) fp32, in place")
+    row.update({"launches_in_checks": errs["elementwise_launches"],
+                "main_path": "none (no caller in apex_tpu or the port)",
+                "ms_adam_shaped": adam_ms,
+                "bound_ms_adam_shaped": 1e3 * 28 * EW_N / HBM_BYTES_PER_S})
+    rows.append(row)
+    del y, x, m, g_, vv
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -2789,6 +3322,19 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
 
 
 def main():
+    """Pin the tuner's cache to a fresh file for the whole run (a cache
+    elsewhere, e.g. under ~/.cache, must not change any phase's kernels;
+    phase 11's sweep writes its winner there), then run the phases."""
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["APEX_TPU_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
+    os.environ.pop("APEX_TPU_TUNE", None)
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run_phases():
     import numpy as np
     import torch
 
@@ -2941,7 +3487,42 @@ def main():
                                   causal=causal, q_seg=sg, kv_seg=sg)
         log(f"flash_attention segments ({b_},3,{s_},{d_}) causal={causal} "
             f"lengths {lens}: {e}")
+    # the packed pair (hp heads a block) against the hp=1 kernels and the
+    # plain version: GPT's step shape on its views, BERT's with ragged
+    # padding and with q/kv ids that leave whole rows masked, head_dim 128
+    packed_errs = []
+    for kw in (dict(b=12, h=16, s=1024, d=64, causal=True, views=True),
+               dict(b=BERT_BATCH, h=16, s=BERT_SEQ, d=64, causal=False,
+                    views=True, q_seg=bseg, kv_seg=bseg),
+               dict(b=BERT_BATCH, h=16, s=BERT_SEQ, d=64, causal=False,
+                    q_seg=qs, kv_seg=ks),
+               dict(b=2, h=8, s=512, d=128, causal=True),
+               dict(b=3, h=8, s=129, d=128, causal=False,
+                    q_seg=pad_segments(torch, 3, 129, [129, 64, 1]),
+                    kv_seg=pad_segments(torch, 3, 129, [129, 64, 1])),
+               # past the forward's resident key ids (8192): staged ids
+               dict(b=2, h=2, s=8256, d=64, causal=False,
+                    q_seg=pad_segments(torch, 2, 8256, [8256, 5000]),
+                    kv_seg=pad_segments(torch, 2, 8256, [8256, 5000]))):
+        e = check_packed_flash(torch, fa, rng,
+                               hps=tuple(hp for hp in (2, 4)
+                                         if kw["h"] % hp == 0), **kw)
+        packed_errs.append(e)
+        log(f"packed flash ({kw['b']},{kw['h']},{kw['s']},{kw['d']}) "
+            f"causal={kw['causal']} ids={kw.get('q_seg') is not None}: "
+            f"bit for bit with hp=1 (o, lse, dk, dv); {e}")
+    errs["flash_attention_fwd_packed"] = packed_errs[0][2]["o"]
+    errs["flash_attention_bwd_packed"] = max(
+        packed_errs[0][2][n] for n in ("dq", "dk", "dv"))
     del bseg, qs, ks
+    log("packed forward with unpacked backward routes "
+        + json.dumps(check_packed_routes(torch, fa, ln, ok, rng)))
+    ew = check_elementwise(torch, ok, rng)
+    errs["elementwise"] = max(ew["axpy"], ew["adam"])
+    errs["elementwise_launches"] = ew["launches"]
+    log(f"elementwise ({EW_N},) fp32, axpy and Adam-shaped: bit for bit "
+        f"with the plain versions ({ew['launches']} launches)")
+    torch.cuda.empty_cache()
     layout = bert_large_layout(torch)
     for dtype in (bf16, f32):
         e = check_lamb(torch, ok, rng, *layout, dtype)
@@ -3152,8 +3733,13 @@ def main():
     fdn.linear_bias_cuda.launches = 0
     mlp = mlp_phase(torch, fdn)
     log("fused dense / MLP " + json.dumps(mlp))
+    torch.cuda.empty_cache()
 
-    # ---- 11. kernel table --------------------------------------------
+    # ---- 11. slice 8: the tuner and head-packed flash -----------------
+    slice8, slice8_vs_plain = slice8_phase(torch, fa, ln, ok, rng, smi,
+                                           train, bert)
+
+    # ---- 12. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -3227,6 +3813,7 @@ def main():
     long_rows = table_long_kernels(torch, fa, rng, long)
     slice7_rows = table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad,
                                        mlp, gpt_layout[1], layout)
+    slice8_rows = table_slice8_kernels(torch, fa, ok, rng, errs, slice8)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -3254,7 +3841,7 @@ def main():
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
     ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
-        + slice7_rows}
+        + slice7_rows + slice8_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -3269,6 +3856,8 @@ def main():
     log("long GPT step, kernels vs plain " + json.dumps(long_vs_plain))
     log("adagrad GPT step, kernels vs plain "
         + json.dumps(adagrad_vs_plain))
+    log("GPT hp=2 / BERT hp=2 steps, kernels vs plain "
+        + json.dumps(slice8_vs_plain))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,7 @@ The split backward (the dq pass and the dk/dv pass that the JAX package
 runs past `_FUSED_BWD_CAP`) is held by its plain versions against the
 JAX `_bwd_impl` with the cap shrunk to 1, at the same tolerances."""
 
+import functools
 import math
 
 import jax
@@ -382,7 +383,7 @@ def test_flash_fn_backward_follows_the_route(monkeypatch):
         q, k, v = (torch.randn(1, 1, n, 64, generator=torch.Generator()
                                .manual_seed(sk + i)).requires_grad_(True)
                    for i, n in enumerate((64, sk, sk)))
-        out = tfa._FlashFn.apply(q, k, v, 0.125, False, None, None)
+        out = tfa._FlashFn.apply(q, k, v, 0.125, False, None, None, 1)
         out.backward(torch.ones_like(out))
         assert calls == route, (sk, calls)
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -391,3 +392,138 @@ def test_flash_fn_backward_follows_the_route(monkeypatch):
         for got, want in ((q.grad, qr.grad), (k.grad, kr.grad),
                           (v.grad, vr.grad)):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+# ----------------------------- head packing ---------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_packed(causal, seg):
+    """The JAX packed kernels (`_fwd_kernel_packed`, and
+    `_bwd_fused_kernel_packed` for the backward) in interpret mode at
+    heads_per_step=2, 32 x 32 blocks, (2, 4, 64, 16) fp32: o and dq, dk,
+    dv for do = the seeded cotangent, as numpy."""
+    b, h, s, d = 2, 4, 64, 16
+    q, k, v, do = _inputs(b, h, s, d, seed=40 + 2 * causal + seg)
+    ids = _pad_segments(b, s, [64, 23]) if seg else None
+
+    def jf(q_, k_, v_):
+        return jax_flash(q_, k_, v_, causal=causal,
+                         segment_ids=None if ids is None else jnp.asarray(ids),
+                         block_q=32, block_k=32, heads_per_step=2,
+                         use_pallas_override=True)
+
+    jo, vjp = jax.vjp(jf, *(jnp.asarray(x) for x in (q, k, v)))
+    grads = vjp(jnp.asarray(do))
+    return (q, k, v, do, ids), [np.asarray(x) for x in (jo, *grads)]
+
+
+@pytest.mark.parametrize("hp", [1, 2, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seg", [False, True])
+def test_packed_heads_match_jax_packed_kernels(hp, causal, seg):
+    """The port's flash attention at heads_per_step hp (on the CPU: the
+    plain version, the packed route's plain version) against the JAX
+    packed kernels, forward and gradients, fp32 within 1e-5 (about 10x
+    the measured difference; the two compute fp32 scores in different
+    orders)."""
+    (q, k, v, do, ids), want = _jax_packed(causal, seg)
+    tq, tk, tv = (torch.tensor(x).requires_grad_(True) for x in (q, k, v))
+    to = tfa.flash_attention(
+        tq, tk, tv, causal=causal, heads_per_step=hp,
+        segment_ids=None if ids is None else torch.tensor(ids))
+    to.backward(torch.tensor(do))
+    for got, w, what in zip((to.detach(), tq.grad, tk.grad, tv.grad), want,
+                            ("o", "dq", "dk", "dv")):
+        np.testing.assert_allclose(got.numpy(), w, atol=1e-5, rtol=0,
+                                   err_msg=f"{what} hp={hp}")
+
+
+def test_flash_fn_takes_the_packed_kernels_by_the_route(monkeypatch):
+    """`_FlashFn` with hp > 1 launches the packed forward, and its
+    backward follows `backward_route(sk, d, hp)`: the packed fused
+    kernel at hp * sk * d <= 512k, the unpacked fused kernel past it
+    (hp 16 at sk 1024), the split pair past sk * d = 256k; hp = 1 never
+    reaches a packed launcher.  Counting stand-ins run the plain
+    versions on these CPU tensors, and the gradients match autograd
+    through `attention_reference`."""
+    calls = []
+
+    def plain_fwd(q, k, v, scale):
+        sc = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+        return (attention_reference(q, k, v, softmax_scale=scale),
+                torch.logsumexp(sc, -1))
+
+    def fwd(q, k, v, scale, causal, q_seg, kv_seg):
+        calls.append("fwd")
+        return plain_fwd(q, k, v, scale)
+
+    def fwd_packed(q, k, v, scale, causal, hp, q_seg, kv_seg):
+        calls.append(f"fwd_packed{hp}")
+        return plain_fwd(q, k, v, scale)
+
+    def fused(*args):
+        calls.append("fused")
+        return (tfa.flash_bwd_dq_reference(*args),
+                *tfa.flash_bwd_dkv_reference(*args))
+
+    def packed(q, k, v, do, lse, delta, scale, causal, hp, q_seg, kv_seg):
+        calls.append(f"packed{hp}")
+        args = (q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg)
+        return (tfa.flash_bwd_dq_reference(*args),
+                *tfa.flash_bwd_dkv_reference(*args))
+
+    for name, fn in (("flash_fwd_cuda", fwd),
+                     ("flash_fwd_packed_cuda", fwd_packed),
+                     ("flash_bwd_cuda", fused),
+                     ("flash_bwd_packed_cuda", packed),
+                     ("flash_bwd_dq_cuda",
+                      lambda *a: calls.append("dq")
+                      or tfa.flash_bwd_dq_reference(*a)),
+                     ("flash_bwd_dkv_cuda",
+                      lambda *a: calls.append("dkv")
+                      or tfa.flash_bwd_dkv_reference(*a))):
+        monkeypatch.setattr(tfa, name, fn)
+    for h, hp, sk, route in (
+            (4, 2, 1024, ["fwd_packed2", "packed2"]),
+            (16, 16, 1024, ["fwd_packed16", "fused"]),
+            (16, 8, 1024, ["fwd_packed8", "packed8"]),
+            (2, 2, 4160, ["fwd_packed2", "dq", "dkv"]),
+            (2, 1, 1024, ["fwd", "fused"])):
+        calls.clear()
+        q, k, v = (torch.randn(1, h, n, 64, generator=torch.Generator()
+                               .manual_seed(sk + hp + i)).requires_grad_(True)
+                   for i, n in enumerate((64, sk, sk)))
+        out = tfa._FlashFn.apply(q, k, v, 0.125, False, None, None, hp)
+        out.backward(torch.ones_like(out))
+        assert calls == route, (h, hp, sk, calls)
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        attention_reference(qr, kr, vr, softmax_scale=0.125).backward(
+            torch.ones_like(out))
+        for got, want in ((q.grad, qr.grad), (k.grad, kr.grad),
+                          (v.grad, vr.grad)):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def test_packed_launchers_refuse_before_launching():
+    """What the packed launchers refuse, before any launch: a
+    heads_per_step that does not divide h (or is not a positive int),
+    fp32, and CPU tensors."""
+    xb = torch.zeros(1, 4, 8, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 4, 8)
+    n = (tfa.flash_fwd_packed_cuda.launches,
+         tfa.flash_bwd_packed_cuda.launches)
+    for hp in (3, 0, 8, 2.0):
+        with pytest.raises(ValueError, match="divides num_heads=4"):
+            tfa.flash_fwd_packed_cuda(xb, xb, xb, 0.125, True, hp)
+        with pytest.raises(ValueError, match="divides num_heads=4"):
+            tfa.flash_bwd_packed_cuda(xb, xb, xb, xb, lse, lse, 0.125, True,
+                                      hp)
+    x32 = torch.zeros(1, 4, 8, 64)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfa.flash_fwd_packed_cuda(x32, x32, x32, 0.125, True, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_fwd_packed_cuda(xb, xb, xb, 0.125, True, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_bwd_packed_cuda(xb, xb, xb, xb, lse, lse, 0.125, True, 2)
+    assert (tfa.flash_fwd_packed_cuda.launches,
+            tfa.flash_bwd_packed_cuda.launches) == n

@@ -141,3 +141,46 @@ def test_presets_match_jax(build, preset):
     for field in ("hidden", "num_layers", "num_heads", "seq_len",
                   "head_dim"):
         assert getattr(tm.c, field) == getattr(jm.c, field), field
+
+
+@pytest.mark.parametrize("which", ["gpt", "bert"])
+def test_configs_carry_the_attention_knobs_as_jax_does(which, monkeypatch):
+    """GPTConfig and BertConfig have the JAX configs' three attn_* fields
+    (default None, the presets too), and the flash path hands them to
+    `flash_attention` as the JAX models do."""
+    from apex_tpu.models import bert as jbert
+    from apex_tpu_torch.models import bert as tbert
+
+    jmod, tmod = (jgpt, tgpt) if which == "gpt" else (jbert, tbert)
+    jcfg, tcfg = ((jgpt.GPTConfig, tgpt.GPTConfig) if which == "gpt"
+                  else (jbert.BertConfig, tbert.BertConfig))
+    knobs = ("attn_block_q", "attn_block_k", "attn_heads_per_step")
+    for f in knobs:
+        assert getattr(tcfg(), f) is None is getattr(jcfg(), f), f
+    if which == "gpt":
+        assert all(getattr(tgpt.gpt_350m().c, f) is None for f in knobs)
+        assert tgpt.gpt_1p3b(attn_heads_per_step=2).c.attn_heads_per_step \
+            == jgpt.gpt_1p3b(attn_heads_per_step=2).c.attn_heads_per_step
+    seen = []
+
+    def flash(q, k, v, **kw):
+        seen.append({f: kw[f] for f in ("block_q", "block_k",
+                                        "heads_per_step")})
+        return q
+
+    monkeypatch.setattr(tmod, "flash_attention", flash)
+    small = dict(vocab_size=96, seq_len=32, hidden=32, num_layers=2,
+                 num_heads=4, use_flash_attention=True, attn_block_q=32,
+                 attn_block_k=16, attn_heads_per_step=2)
+    if which == "gpt":
+        model = tgpt.GPT(tgpt.GPTConfig(**small))
+        params = model.init(seed=0, device="cpu")
+        tokens = torch.zeros(2, 32, dtype=torch.int64)
+        model.loss(params, tokens, tokens)
+    else:
+        model = tbert.Bert(tbert.BertConfig(**small))
+        params = model.init(seed=0, device="cpu")
+        tokens = torch.zeros(2, 32, dtype=torch.int64)
+        model.loss(params, tokens, tokens, torch.ones(2, 32, dtype=torch.bool),
+                   torch.zeros(2, dtype=torch.int64))
+    assert seen == [{"block_q": 32, "block_k": 16, "heads_per_step": 2}] * 2
