@@ -12,8 +12,10 @@ compiled on its own into `build/lib<name>-<hash>.so` with
          -shared -Xcompiler -fPIC -Xptxas=-v
 
 (sm_90a: Hopper with its architecture-specific features).  The file
-name carries a hash of the source and flags, so an edited kernel is
-rebuilt and a stale library is never loaded.  nvcc's output, including
+name carries a hash of the source, of every header of this directory it
+includes (its local `#include "..."` lines, followed through the headers
+they include) and of the flags, so an edited kernel or shared header
+(`hopper.cuh`) is rebuilt and a stale library is never loaded.  nvcc's output, including
 ptxas' register and shared-memory report, is kept beside the library
 as `<name>.log`.  `build()` starts one nvcc per source, all together.
 """
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +35,11 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# a launcher's return code at or above this is hopper.cuh's
+# kTensorMapError: cuTensorMapEncodeTiled refused a TMA tensor map, its
+# CUresult added
+TENSOR_MAP_ERROR = 100000
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -57,10 +65,32 @@ def source_path(name: str) -> str:
     return os.path.join(_DIR, f"{name}.cu")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_includes(path: str) -> list:
+    """The files that `path` includes by `#include "..."`, directly or
+    through another such file, as paths beside the including file, in
+    the order first reached."""
+    seen, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        with open(cur, "rb") as f:
+            text = f.read()
+        for m in _LOCAL_INCLUDE.finditer(text):
+            inc = os.path.normpath(os.path.join(
+                os.path.dirname(cur), m.group(1).decode()))
+            if inc not in seen:
+                seen.append(inc)
+                todo.append(inc)
+    return seen
+
+
 def _so_path(name: str) -> str:
     h = hashlib.sha1()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    for path in [source_path(name)] + local_includes(source_path(name)):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 

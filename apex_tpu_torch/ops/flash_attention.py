@@ -89,9 +89,11 @@ def backward_route(sk: int, head_dim: int, heads_per_step: int = 1) -> str:
 # ----------------------------- kernel-shape knobs -----------------------------
 #
 # The JAX package's block and packing knobs and its tuner lookup, with the
-# same results and warnings.  The CUDA kernels tile by 64 x 64 whatever the
-# blocks say: block_q / block_k are validated (a tuned or explicit block
-# that does not divide the sequence warns once) and not otherwise read.
+# same results and warnings.  The CUDA kernels keep their own tiles
+# whatever the blocks say (the forward 192 query rows at d=64, 128 at
+# d=128, x 128 keys; the backward 64 x 64): block_q / block_k are validated (a tuned or explicit
+# block that does not divide the sequence warns once) and not otherwise
+# read.
 
 _BLOCK_FALLBACK_WARNED = set()
 # the tuner's cap on hp * block_q * block_k (the JAX package's, :1135)
@@ -332,11 +334,14 @@ def _lib():
 
 def _kernel_operand(t):
     """`t` as the kernels read it: bf16, last dim contiguous, every row
-    16-byte aligned (base and strides).  A view that is not gets one
-    contiguous copy."""
+    16-byte aligned (base and strides), no stride of 0 across more than
+    one row (a TMA tensor map, which the forward reads through, takes
+    none).  A view that is not gets one contiguous copy (a fresh one:
+    `contiguous()` would return a misaligned contiguous view as it is)."""
     if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(s % 8 for s in t.stride()[:3])):
-        t = t.contiguous()
+            or any(s % 8 or (s == 0 and n > 1)
+                   for s, n in zip(t.stride()[:3], t.shape[:3]))):
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -390,6 +395,18 @@ def _seg_args(q_seg, kv_seg, b, sq, sk):
             out[1].stride(0)], out
 
 
+def _raise_fwd_error(err, what):
+    from apex_tpu_torch.csrc import TENSOR_MAP_ERROR
+
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash attention {what}: cuTensorMapEncodeTiled "
+                           f"refused a TMA tensor map, CUresult "
+                           f"{err - TENSOR_MAP_ERROR}")
+    if err != 0:
+        raise RuntimeError(f"flash attention {what} launch failed: CUDA "
+                           f"error {err}")
+
+
 def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
     """Launch the forward kernel on the current stream; `q_seg` (b, sq)
     and `kv_seg` (b, sk) are optional integer segment ids (both or
@@ -408,9 +425,7 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention forward launch failed: CUDA "
-                           f"error {err}")
+    _raise_fwd_error(err, "forward")
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -445,9 +460,7 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), hp, *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention packed forward launch failed: "
-                           f"CUDA error {err}")
+    _raise_fwd_error(err, "packed forward")
     flash_fwd_packed_cuda.launches += 1
     return o, lse
 
@@ -661,7 +674,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     uniform weights over the keys, as the plain version gives it.
 
     block_q / block_k / heads_per_step: the kernel-shape knobs.  The
-    CUDA kernels tile by 64 x 64: block_q and block_k are validated as
+    CUDA kernels keep their own tiles (forward 192 or 128 query rows x
+    128 keys, backward 64 x 64): block_q and block_k are validated as
     the JAX package validates them (one that does not divide the
     sequence warns once) and not otherwise read.  heads_per_step > 1
     runs the packed kernels, hp heads of one batch row per block (one

@@ -13,7 +13,7 @@ implementations of the forward:
     the activation, one rounding to x's dtype.  CPU tensors run it
     (autograd gives its gradient); `chip_smoke.py` holds the kernel
     against it.
-  * the CUDA C++ kernel in `apex_tpu_torch/csrc/fused_dense.cu` (the
+  * the CUDA C++ kernels in `apex_tpu_torch/csrc/fused_dense.cu` (the
     port of `_matmul_kernel`), launched by `linear_bias_cuda` inside
     `_FusedLinearFn`, the counterpart of the JAX package's custom_vjp:
     where a gradient is needed and there is an activation, the forward
@@ -24,9 +24,15 @@ implementations of the forward:
     grads.  Its source note says what bounds the kernel and how.
 
 Activations: relu, gelu (the tanh approximation, as the JAX package's
-`jax.nn.gelu(approximate=True)`), sigmoid, none.  On CUDA the kernel
-takes fp32, bf16 and fp16 operands of one dtype with any M, N and K;
-anything else raises.
+`jax.nn.gelu(approximate=True)`), sigmoid, none.  On CUDA the kernels
+take fp32, bf16 and fp16 operands of one dtype with any M, N and K;
+anything else raises.  `gemm_route` picks the kernel from the dtype, the
+shape and the operands' alignment before the launch: "wgmma" (Hopper's
+wgmma fed by TMA: bf16 / fp16 with K and N multiples of 8 and 16-byte
+aligned x and w, what a TMA tensor map can address), "mma" (mma.sync:
+the other 16-bit shapes, such as apex's MLP's last layer, N = 1) or
+"fma" (fp32, in full fp32).  A route whose kernel fails raises; none
+stands in for another.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from apex_tpu_torch.ops._common import check_kernel_device, resolve_device
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "sigmoid": 3}
+_ROUTE_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
 _LIB = None
 
 
@@ -80,17 +87,70 @@ def _lib():
         lib = csrc.load("fused_dense")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.apex_fused_dense_fwd.restype = i32
-        lib.apex_fused_dense_fwd.argtypes = [i32, i32, vp, vp, vp, vp, i32,
+        lib.apex_fused_dense_fwd.argtypes = [i32, i32, i32, vp, vp, vp, vp,
                                              i32, i32, i32, vp]
         _LIB = lib
     return _LIB
 
 
+def gemm_route(dtype, m, n, k, x_ptr, w_ptr):
+    """The fused dense kernel that computes x (m, k) · w (k, n) in `dtype`
+    with x at address `x_ptr` and w at `w_ptr`: "wgmma" where a TMA tensor
+    map can address both operands (bf16 / fp16, k > 0, k and n multiples
+    of 8 so every row stride is a multiple of 16 bytes, both bases 16-byte
+    aligned), "mma" for the other 16-bit shapes, "fma" for fp32."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"fused dense kernels take fp32/bf16/fp16, got "
+                        f"{dtype}")
+    if (k > 0 and k % 8 == 0 and n % 8 == 0 and x_ptr % 16 == 0
+            and w_ptr % 16 == 0):
+        return "wgmma"
+    return "mma"
+
+
+def _launch(route, x2, w, b, y, activation):
+    """Launch the kernel of `route` on the current stream: y = act(x2 · w
+    + b) into the preallocated y.  Counts the launch in
+    `linear_bias_cuda.launches` and its route's
+    `linear_bias_cuda.route_launches`."""
+    tensors = [t for t in (x2, w, b, y) if t is not None]
+    if not all(t.is_cuda for t in tensors) or len(
+            {t.device for t in tensors}) != 1:
+        raise ValueError("fused dense kernel inputs must lie on one card")
+    (m, k), n = x2.shape, w.shape[1]
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    from apex_tpu_torch.csrc import TENSOR_MAP_ERROR
+
+    err = _lib().apex_fused_dense_fwd(
+        _ROUTE_CODES[route], _DTYPE_CODES[x2.dtype], _ACT_CODES[activation],
+        x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+        y.data_ptr(), m, n, k, stream)
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"fused dense kernel ({route}): "
+                           f"cuTensorMapEncodeTiled refused a TMA tensor "
+                           f"map, CUresult "
+                           f"{err - TENSOR_MAP_ERROR}")
+    if err != 0:
+        raise RuntimeError(f"fused dense kernel ({route}) launch failed: "
+                           f"CUDA error {err}")
+    linear_bias_cuda.launches += 1
+    linear_bias_cuda.route_launches[route] += 1
+
+
+# route -> launcher(x2, w, b, y, activation); one entry per kernel
+_LAUNCHERS = {route: (lambda *a, route=route: _launch(route, *a))
+              for route in _ROUTE_CODES}
+
+
 def linear_bias_cuda(x2, w, b, activation):
-    """Launch the fused dense kernel on the current stream: y = act(x2 · w
-    + b) for x2 (M, K) and w (K, N) of one dtype (fp32, bf16, fp16), both
-    contiguous on one card, b (N,) of any float dtype or None.  Returns y
-    (M, N) in x2's dtype.  `linear_bias_cuda.launches` counts launches."""
+    """Launch the fused dense kernel that `gemm_route` picks on the
+    current stream: y = act(x2 · w + b) for x2 (M, K) and w (K, N) of one
+    dtype (fp32, bf16, fp16), both contiguous on one card, b (N,) of any
+    float dtype or None.  Returns y (M, N) in x2's dtype.
+    `linear_bias_cuda.launches` counts launches and
+    `linear_bias_cuda.route_launches` each route's."""
     if x2.ndim != 2 or w.ndim != 2 or x2.shape[1] != w.shape[0]:
         raise ValueError(f"fused dense kernel needs x (M, K) and w (K, N); "
                          f"got {tuple(x2.shape)} and {tuple(w.shape)}")
@@ -106,29 +166,16 @@ def linear_bias_cuda(x2, w, b, activation):
         if b.shape != (n,):
             raise ValueError(f"bias {tuple(b.shape)} for {n} columns")
         b = b.to(torch.float32).contiguous()
-    tensors = [t for t in (x2, w, b) if t is not None]
-    if not all(t.is_cuda for t in tensors) or len(
-            {t.device for t in tensors}) != 1:
-        raise ValueError("fused dense kernel inputs must lie on one card")
     y = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0 or n == 0:
         return y
-    vec = 16 // x2.element_size()
-    aligned = (k % vec == 0 and n % vec == 0 and x2.data_ptr() % 16 == 0
-               and w.data_ptr() % 16 == 0)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    err = _lib().apex_fused_dense_fwd(
-        _DTYPE_CODES[x2.dtype], _ACT_CODES[activation], x2.data_ptr(),
-        w.data_ptr(), None if b is None else b.data_ptr(), y.data_ptr(), m,
-        n, k, int(aligned), stream)
-    if err != 0:
-        raise RuntimeError(f"fused dense kernel launch failed: CUDA error "
-                           f"{err}")
-    linear_bias_cuda.launches += 1
+    route = gemm_route(x2.dtype, m, n, k, x2.data_ptr(), w.data_ptr())
+    _LAUNCHERS[route](x2, w, b, y, activation)
     return y
 
 
 linear_bias_cuda.launches = 0
+linear_bias_cuda.route_launches = {route: 0 for route in _ROUTE_CODES}
 
 
 def _act_grad(g32, pre, activation):

@@ -17,7 +17,7 @@ Three pieces, as in the JAX package:
               the winner.
 
 What the port tunes: flash attention's `heads_per_step`
-(ops/flash_attention.py; the CUDA tile stays 64 x 64), and the serving
+(ops/flash_attention.py; the CUDA kernels' tiles stay as they are), and the serving
 path's `flash_decode` heads_per_step (validated; the decode kernel
 tiles as it does) and paged-KV page size (`serve_page`).  The key
 functions below are the JAX package's, all of them, so keys written by

@@ -24,9 +24,11 @@ from apex_tpu_torch.tune import cache
 
 # the packing factors a sweep tries (the JAX validation admits 1..16)
 _HEADS_PER_STEP = (1, 2, 4, 8, 16)
-# the CUDA kernels' tile: a candidate names it, never None, because the
-# tuner's validation counts a None block as 1024 (hp * 1024 * 1024 > 1M
-# would throw every packed candidate away)
+# the block a candidate names for the tuner's validation, never None,
+# because that validation counts a None block as 1024 (hp * 1024 * 1024 >
+# 1M would throw every packed candidate away); the CUDA kernels keep their
+# own tiles (the forward 192 or 128 x 128, the backward 64 x 64) whatever
+# it says
 _CUDA_TILE = 64
 
 
@@ -51,9 +53,9 @@ def forced(op: str, attrs: Dict[str, Any], config: Dict[str, Any]):
 # ------------------------------ flash attention -----------------------------
 
 def flash_candidates(h: int, sq: int, sk: int) -> List[Dict[str, int]]:
-    """The candidates the port's kernels run, by a static rule: the CUDA
-    tile (64 x 64, or the largest power-of-two block under it that
-    divides the sequence) and each packing factor in (1, 2, 4, 8, 16)
+    """The candidates the port's kernels run, by a static rule: blocks of
+    `_CUDA_TILE` (64, or the largest power-of-two block under it that
+    divides the sequence; validated, not read by the kernels) and each packing factor in (1, 2, 4, 8, 16)
     that divides the head count — the packed forward runs any such
     factor, and the backward route falls back to the unpacked fused
     kernel where hp * sk * d passes the packed cap.  No other candidate

@@ -805,11 +805,25 @@ def check_lamb_phase2_flat(torch, ok, rng, spec, n, dtype):
 GEMM_ACTS = (None, "relu", "gelu", "sigmoid")
 # (M, K, N): GPT-350M's MLP up and down projections over batch 12 x seq
 # 1024; apex's tests/L0/run_mlp layers (batch 1024, mlp_sizes [480,
-# 1024, 1024, 512, 256, 1]); ragged shapes
+# 1024, 1024, 512, 256, 1]); ragged shapes; two shapes that TMA can
+# address but that are ragged against the wgmma kernel's 128 x 256 x 64
+# tile in M, N and K (its zero fill past each edge)
 GEMM_SHAPES = ((12288, 1024, 4096), (12288, 4096, 1024),
                (1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
                (1024, 512, 256), (1024, 256, 1),
-               (1000, 27, 13), (1000, 27, 1), (129, 70, 50), (1, 5, 3))
+               (1000, 27, 13), (1000, 27, 1), (129, 70, 50), (1, 5, 3),
+               (300, 200, 264), (12289, 1032, 520))
+
+
+def gemm_route_of(dtype, k, n):
+    """The fused dense kernel a fresh (16-byte aligned) x (M, k) · w (k, n)
+    in `dtype` must take, by the rule the port states (TMA addresses rows
+    whose stride is a multiple of 16 bytes), written out here on its own
+    rather than read from `gemm_route`."""
+    import torch
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if k > 0 and k % 8 == 0 and n % 8 == 0 else "mma"
 
 
 def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
@@ -818,8 +832,11 @@ def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
     within 1e-2 of the largest magnitude of the plain result for 16-bit
     types (one rounding of the output, the products' fp32 sums in
     another order), 1e-5 for fp32.  x ~ N(0, 1), w ~ N(0, 1/k), b ~
-    N(0, 1).  Returns the largest error relative to that magnitude."""
+    N(0, 1).  Each call must go through the route `gemm_route_of` names
+    (by the route counters).  Returns the largest error relative to that
+    magnitude."""
     dev = "cuda"
+    route = gemm_route_of(dtype, k, n)
     x = torch.randn((m, k), generator=rng, device=dev).to(dtype)
     w = (torch.randn((k, n), generator=rng, device=dev)
          / math.sqrt(k)).to(dtype)
@@ -828,7 +845,13 @@ def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
     worst = 0.0
     for act in GEMM_ACTS:
         for bias in (b, None):
+            before = dict(fdn.linear_bias_cuda.route_launches)
             got = fdn.linear_bias_cuda(x, w, bias, act)
+            moved = {r: fdn.linear_bias_cuda.route_launches[r] - before[r]
+                     for r in before}
+            check(moved == {r: int(r == route) for r in before},
+                  f"fused dense ({m},{k})x({k},{n}) {dtype}: routes "
+                  f"{moved}, want one {route} launch")
             ref = fdn.linear_bias_reference(x, w, bias, act)
             torch.cuda.synchronize()
             check(got.dtype == dtype and got.shape == (m, n),
@@ -2148,7 +2171,8 @@ def table_long_kernels(torch, fa, rng, long):
     the score pairs at or below the diagonal: the dq pass does 3
     products of 2d flop a pair, the dk/dv pass 4.  Launches: the 32k
     leg's and the seq-8192 GPT phase's.  Library: one SDPA backward
-    (autograd) at the same shape, which computes dq, dk and dv."""
+    (autograd) at the same shape, which computes dq, dk and dv, and at
+    seq 8192."""
     import torch.nn.functional as F
 
     bf16 = torch.bfloat16
@@ -2188,6 +2212,12 @@ def table_long_kernels(torch, fa, rng, long):
     at_8192 = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*gargs)),
                "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*gargs))}
     fused_8192 = time_ms(torch, lambda: fa.flash_bwd_cuda(*gargs))
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (gq, gk, gv))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         scale=sc)
+    lib_8192 = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), gdo, retain_graph=True))
+    del out, qg, kg, vg
     del gq, gk, gv, gdo, go, glse, gdelta, gargs
     torch.cuda.empty_cache()
 
@@ -2218,6 +2248,7 @@ def table_long_kernels(torch, fa, rng, long):
             "ms_at_gpt_seq8192": at_8192[key],
             "bound_ms_at_gpt_seq8192": 1e3 * 2 * products * d
             * pairs(1, 16, 8192) / BF16_FLOPS,
+            "library_ms_at_gpt_seq8192": lib_8192,
             "fused_route_ms_32k": routes["fused_ms"],
             "split_route_ms_32k": routes["split_ms"],
             "fused_route_ms_gpt_seq8192": fused_8192})
@@ -2346,23 +2377,33 @@ def mlp_phase(torch, fdn, iters=5):
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
+    # the routes of a forward's launches: both GPT-350M MLP shapes and
+    # every 16-bit MLP layer but the last (N = 1) on wgmma
     cases = [("fused_dense_gelu_dense", lambda dt: FusedDenseGeluDense(
-        1024, 4096, 1024, dtype=dt), (12288, 1024), torch.bfloat16, 2)]
-    for dt in (torch.float32, torch.bfloat16):
+        1024, 4096, 1024, dtype=dt), (12288, 1024), torch.bfloat16,
+        {"wgmma": 2})]
+    for dt, routes in ((torch.float32, {"fma": 5}),
+                       (torch.bfloat16, {"wgmma": 4, "mma": 1})):
         cases.append((f"mlp_{str(dt)[6:]}", lambda dt: MLP(
             [480, 1024, 1024, 512, 256, 1], activation="relu", dtype=dt),
-            (1024, 480), dt, 5))
-    for name, make, shape, dt, per_fwd in cases:
+            (1024, 480), dt, routes))
+    for name, make, shape, dt, routes in cases:
+        per_fwd = sum(routes.values())
         mod = make(dt)
         params = list(mod.parameters())
         x = torch.randn(shape, generator=gen, device=dev).to(dt)
         x.requires_grad_(True)
         before = fdn.linear_bias_cuda.launches
+        by_route = dict(fdn.linear_bias_cuda.route_launches)
         y, loss, grads = dense_fwd_bwd(torch, mod, x, params)
         torch.cuda.synchronize()
         check(fdn.linear_bias_cuda.launches - before == per_fwd,
               f"{name}: {fdn.linear_bias_cuda.launches - before} GEMM "
               f"launches a forward, want {per_fwd}")
+        moved = {r: n - by_route[r] for r, n in
+                 fdn.linear_bias_cuda.route_launches.items()
+                 if n != by_route[r]}
+        check(moved == routes, f"{name}: routes {moved}, want {routes}")
         saved = fdn.linear_bias_cuda
         fdn.linear_bias_cuda = (lambda x2, w, b, act:
                                 fdn.linear_bias_reference(x2, w, b, act))
@@ -2395,15 +2436,32 @@ def mlp_phase(torch, fdn, iters=5):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / iters
         out[name] = {"shape": list(shape), "dtype": str(dt),
-                     "launches_per_forward": per_fwd, "fwd_bwd_ms": ms,
+                     "launches_per_forward": per_fwd,
+                     "routes_per_forward": routes, "fwd_bwd_ms": ms,
                      "out_max_err_vs_plain": y_err,
                      "loss_rel_diff_vs_plain": loss_rel,
                      "grad_max_err_vs_plain": max(grad_max),
                      "grad_rel_l2_vs_plain": max(grad_l2)}
         del mod, params, x, y, y_p, grads, grads_p
     out["launches"] = fdn.linear_bias_cuda.launches
+    out["route_launches"] = dict(fdn.linear_bias_cuda.route_launches)
     torch.cuda.empty_cache()
     return out
+
+
+def gemm_host_us(torch, fn, n=50):
+    """Host microseconds a call of `fn` takes to enqueue (the wrapper's
+    checks, the output's allocation, the tensor maps, the launch), with
+    the card held busy by a sleep so no call waits on it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e9))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
 
 
 def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
@@ -2478,14 +2536,30 @@ def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
         else:
             lib = time_ms(torch, lambda: torch.addmm(b, x, w))
             library = "torch.addmm"
-        rows.append(table_row(
+        row = table_row(
             f"fused_dense_{m}x{k}x{nn}", mlp["launches"], 2,
             errs["fused_dense"], "cuda", "apex_tpu_torch/csrc/fused_dense.cu",
             "apex_tpu/ops/fused_dense.py:55", ms, plain, lib, library,
             2 * (m * k + k * nn + m * nn) + 2 * nn, 2 * m * nn * k,
             f"x ({m},{k}) . w ({k},{nn}) bf16 + b, act {act}",
-            peak=BF16_FLOPS))
-        del x, w, b
+            peak=BF16_FLOPS)
+        # the host cost of a call: this route (three TMA tensor maps built
+        # a call) against the same call on the mma.sync route (none), x
+        # one element into a buffer so that the route takes it
+        buf = torch.empty(m * k + 8, dtype=bf16, device=dev)
+        x_mma = buf[1:1 + m * k].view(m, k)
+        x_mma.copy_(x)
+        check(fdn.gemm_route(bf16, m, nn, k, x_mma.data_ptr(),
+                             w.data_ptr()) == "mma", "misaligned x route")
+        row.update({"gemm_route": "wgmma",
+                    "route_launches": mlp["route_launches"],
+                    "host_us_per_call": gemm_host_us(
+                        torch, lambda: fdn.linear_bias_cuda(x, w, b, act)),
+                    "host_us_per_call_mma_route": gemm_host_us(
+                        torch, lambda: fdn.linear_bias_cuda(x_mma, w, b,
+                                                            act), n=10)})
+        rows.append(row)
+        del x, w, b, buf, x_mma
     torch.cuda.empty_cache()
     return rows
 
@@ -2942,6 +3016,17 @@ def table_slice8_kernels(torch, fa, ok, rng, errs, slice8):
     return rows
 
 
+# a redesigned kernel's row keeps its time before the redesign (root
+# PERF.md's table; NVIDIA H100 80GB HBM3 at 700 W) and what ran then
+_MMA_FWD = "mma.sync + cp.async forward, 64 query rows a block"
+_MMA_GEMM = "mma.sync + cp.async GEMM, 128 x 128 tiles"
+EARLIER_MS = {"flash_attention_fwd": (0.1697, _MMA_FWD),
+              "flash_attention_fwd_seg": (0.2176, _MMA_FWD),
+              "flash_attention_fwd_packed": (0.1985, _MMA_FWD),
+              "fused_dense_12288x1024x4096": (0.3950, _MMA_GEMM),
+              "fused_dense_12288x4096x1024": (0.3450, _MMA_GEMM)}
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -2952,14 +3037,17 @@ def table_row(name, launches, per_step, err, route, source, replaces, ms,
     if peak is None:
         peak = BF16_FLOPS if name.startswith("flash") else FP32_FLOPS
     by_ops = ops / peak
-    return {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
-            "launches_per_train_step": per_step, "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "library_ms": library_ms, "library": library, "shape": shape,
-            "l2": "warm"}
+    row = {"name": name, "route": route, "source": source,
+           "replaces": replaces, "launches": launches,
+           "launches_per_train_step": per_step, "max_abs_err": err,
+           "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+           "bound_ms": 1e3 * max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "library_ms": library_ms, "library": library, "shape": shape,
+           "l2": "warm"}
+    if name in EARLIER_MS:
+        row["earlier_ms"], row["earlier_kernel"] = EARLIER_MS[name]
+    return row
 
 
 def table_bert_kernels(torch, fa, ok, rng, errs, bert, layout):
@@ -3376,15 +3464,30 @@ def run_phases():
             with open(csrc.log_path(name)) as f:
                 lines = [ln_.strip() for ln_ in f
                          if "registers" in ln_ or "spill" in ln_
-                         or "Compiling entry" in ln_]
+                         or "Compiling entry" in ln_
+                         or "Performance Loss" in ln_]
+            # ptxas notes that it serialised wgmma instructions (C7515):
+            # the kernel is right but slow
+            for ln_ in lines:
+                if "Performance Loss" in ln_:
+                    log(f"ptxas {name}: " + ln_[:200])
             if name == "fused_dense":   # 40 instantiations: a summary
-                regs = [int(ln_.split("Used ")[1].split()[0])
-                        for ln_ in lines if "Used " in ln_]
+                fams = {}
+                fam = None
+                for ln_ in lines:
+                    if "Compiling entry" in ln_:
+                        fam = next((f for f in ("wgmma", "mma", "f32")
+                                    if f"dense_{f}_kernel" in ln_), "other")
+                    elif "Used " in ln_ and fam:
+                        fams.setdefault(fam, []).append(
+                            int(ln_.split("Used ")[1].split()[0]))
                 spills = [ln_ for ln_ in lines if "spill" in ln_
                           and not ln_.startswith("0 bytes stack frame, "
                                                  "0 bytes spill")]
-                log(f"ptxas {name}: {len(regs)} kernels, registers "
-                    f"{min(regs)}-{max(regs)}, spills: {spills or 'none'}")
+                log(f"ptxas {name}: " + ", ".join(
+                    f"{f} {len(r)} kernels, registers {min(r)}-{max(r)}"
+                    for f, r in sorted(fams.items()))
+                    + f"; spills: {spills or 'none'}")
                 continue
             for line in lines:
                 log(f"ptxas {name}: " + line[:160])
@@ -3731,6 +3834,8 @@ def run_phases():
     novograd = novograd_phase(torch, fa, ln, ok)
     log("novograd BERT " + json.dumps(novograd))
     fdn.linear_bias_cuda.launches = 0
+    for route in fdn.linear_bias_cuda.route_launches:
+        fdn.linear_bias_cuda.route_launches[route] = 0
     mlp = mlp_phase(torch, fdn)
     log("fused dense / MLP " + json.dumps(mlp))
     torch.cuda.empty_cache()
@@ -3794,6 +3899,8 @@ def run_phases():
     xt = torch.randn((12288, 1024), generator=rng, device="cuda").to(bf16)
     ln_ms_train = time_ms(torch, lambda: ln.norm_fwd_triton(
         xt, w, b, 1e-5, False))
+    ln_lib_train = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+        xt, (1024,), w, b, 1e-5))
     del xt
     ln_plain = time_ms(torch, lambda: ln.norm_fwd_reference(x, w, b, 1e-5))
     ln_lib = time_ms(torch, lambda: torch.nn.functional.layer_norm(
@@ -3837,6 +3944,7 @@ def run_phases():
          "ms": ln_ms, "kernel_ms": ln_ms, "plain_ms": ln_plain,
          "launches_train": train["launches"]["layer_norm_fwd"],
          "ms_at_train_shape": ln_ms_train,
+         "library_ms_at_train_shape": ln_lib_train,
          "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},

@@ -33,6 +33,7 @@ from apex_tpu.ops.flash_attention import attention_reference as jax_reference
 from apex_tpu.ops.flash_attention import flash_attention as jax_flash
 from apex_tpu_torch.ops import flash_attention as tfa
 from apex_tpu_torch.ops.flash_attention import attention_reference
+from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 
 _DTYPES = {"f32": (jnp.float32, torch.float32),
            "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -527,3 +528,50 @@ def test_packed_launchers_refuse_before_launching():
         tfa.flash_bwd_packed_cuda(xb, xb, xb, xb, lse, lse, 0.125, True, 2)
     assert (tfa.flash_fwd_packed_cuda.launches,
             tfa.flash_bwd_packed_cuda.launches) == n
+
+
+def _operand_cases():
+    qkv = torch.zeros(16, 2, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, _, _ = qkv_split_heads(qkv, 4, 64)
+    base = torch.zeros(2, 1, 16, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 4 * 16 * 64 + 1, dtype=torch.bfloat16)
+    return [
+        ("packed qkv view", q, False),
+        ("heads broadcast by expand", base.expand(2, 4, 16, 64), True),
+        ("a stride of 0 on an extent of 1",
+         torch.zeros(1, 4, 16, 64, dtype=torch.bfloat16).as_strided(
+             (1, 4, 16, 64), (0, 1024, 64, 1)), False),
+        ("base one element off 16 bytes",
+         flat[1:].view(2, 4, 16, 64), True),
+        ("d not contiguous",
+         torch.zeros(2, 4, 64, 16, dtype=torch.bfloat16).transpose(2, 3),
+         True),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_kernel_operand_keeps_what_tma_reads(case):
+    """`_kernel_operand` passes a view through unchanged where a TMA tensor
+    map can read it (last dim contiguous, 16-byte aligned base and
+    strides, no stride of 0 across more than one row), and makes one
+    contiguous copy otherwise; the values are the same either way."""
+    name, t, copied = _operand_cases()[case]
+    got = tfa._kernel_operand(t)
+    assert (got.data_ptr() != t.data_ptr()) == copied, name
+    assert torch.equal(got, t), name
+    if copied:
+        assert got.is_contiguous(), name
+
+
+@pytest.mark.parametrize("err,match", [
+    (0, None), (1, "CUDA error 1"), (100000 + 1, "TMA tensor map, CUresult 1"),
+    (100000 + 500, "CUresult 500")])
+def test_forward_launch_errors_are_named(err, match):
+    """A forward launcher's error code: 0 is a launch; a driver refusal of
+    a tensor map (csrc/hopper.cuh kTensorMapError + the CUresult) and a
+    CUDA error raise, each named."""
+    if match is None:
+        tfa._raise_fwd_error(err, "forward")
+        return
+    with pytest.raises(RuntimeError, match=match):
+        tfa._raise_fwd_error(err, "forward")

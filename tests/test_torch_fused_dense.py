@@ -162,6 +162,83 @@ def test_cuda_route_autograd_matches_jax(act, needs_grad):
             _close_grad(t.grad, g, "bf16")
 
 
+@pytest.mark.parametrize("x_off,w_off", [(0, 0), (2, 0), (0, 8), (16, 32)])
+@pytest.mark.parametrize("k,n", [(480, 1032), (1032, 480), (70, 1032),
+                                 (480, 1), (1024, 70), (0, 8)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
+def test_gemm_route(dtype, k, n, x_off, w_off):
+    """The kernel by dtype, shape and alignment: fp32 always the FMA
+    kernel; 16-bit the wgmma + TMA kernel exactly where a TMA tensor map
+    can address both operands (k > 0, k and n multiples of 8, both bases
+    16-byte aligned), else mma.sync."""
+    tdt = _DTYPES[dtype][1]
+    base = 1 << 20
+    got = fdn.gemm_route(tdt, 96, n, k, base + x_off, base + w_off)
+    if dtype == "f32":
+        want = "fma"
+    elif k > 0 and k % 8 == 0 and n % 8 == 0 and (x_off, w_off) in (
+            (0, 0), (16, 32)):
+        want = "wgmma"
+    else:
+        want = "mma"
+    assert got == want
+
+
+def test_gemm_route_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="fp32/bf16/fp16"):
+        fdn.gemm_route(torch.float64, 4, 8, 8, 0, 0)
+
+
+# (route, dtype, k, n, x misaligned by one element): the routes a CPU
+# tensor reaches with the launchers stood in for
+_ROUTE_CASES = [("wgmma", "bf16", 16, 8, False), ("wgmma", "f16", 48, 24,
+                                                       False),
+                ("mma", "bf16", 16, 1, False), ("mma", "f16", 70, 8, False),
+                ("mma", "bf16", 16, 8, True), ("fma", "f32", 16, 8, False)]
+
+
+@pytest.mark.parametrize("needs_grad", [True, False])
+@pytest.mark.parametrize("act", [None, "gelu"])
+@pytest.mark.parametrize("route,dtype,k,n,misaligned", _ROUTE_CASES)
+def test_each_route_through_the_autograd_function(route, dtype, k, n,
+                                                  misaligned, act,
+                                                  needs_grad, monkeypatch):
+    """`_FusedLinearFn` and `linear_bias_cuda` on each route, with counting
+    stand-ins for the three launchers (on the CPU): the route is the one
+    the shape, dtype and alignment call for, taken once a forward, and the
+    output and grads match the JAX `linear_bias` (its Pallas kernel in
+    interpret mode and its custom_vjp)."""
+    rng = np.random.RandomState(23)
+    jx, tx, ct = _inputs(rng, 9, k, n, dtype, True)
+    calls = []
+
+    def stand_in(name):
+        def launch(x2, w, b, y, activation):
+            calls.append((name, activation))
+            assert b is None or b.dtype == torch.float32
+            y.copy_(fdn.linear_bias_reference(x2, w, b, activation))
+        return launch
+
+    monkeypatch.setattr(fdn, "_LAUNCHERS",
+                        {name: stand_in(name) for name in fdn._LAUNCHERS})
+    x2 = tx[0]
+    if misaligned:   # the same values one element into a buffer
+        buf = torch.empty(x2.numel() + 8, dtype=x2.dtype)
+        x2 = buf[1:1 + x2.numel()].view(x2.shape)
+        x2.copy_(tx[0])
+        assert x2.data_ptr() % 16 != 0
+    with torch.set_grad_enabled(needs_grad):
+        y = fdn._linear_fused(x2, tx[1], tx[2], act)
+    fused = None if act is None or needs_grad else act
+    assert calls == [(route, fused)]
+    jy, jy_vjp, jgrads = _jax_value_and_grads(jx, ct, act)
+    _close_out(y, jy_vjp if needs_grad else jy, dtype)
+    if needs_grad:
+        (y.float() * torch.tensor(ct)).sum().backward()
+        for t, g in zip(tx, jgrads):
+            _close_grad(t.grad, g, dtype)
+
+
 def test_fused_dense_gelu_dense_and_fused_dense_with_jax_weights():
     """FusedDenseGeluDense and FusedDense with the JAX modules' weights
     (params_from_jax: a plain copy), fp32: forward and the weights'
