@@ -284,16 +284,36 @@ constexpr int kIdCache = 8192;
 // [kStages][kFwdKeys]; the packed kernel's resident ids follow.  The ring
 // is as deep as shared memory allows at one block an SM: 4 stages at d=64
 // (179 KB), 2 at d=128 (194 KB), with 32 KB of resident ids.
+// -D overrides that build scripts/port_hopper_ablation.py's variants of
+// the forward; the defaults are the kernel.  The two that make o garbage
+// (no products and softmax, no stores of o) switch their code off at run
+// time (`|| sq < 0`), not at compile time, so the rest stays the same code.
+#ifndef APEX_FWD_WGS64  // consumer warpgroups at d=64
+#define APEX_FWD_WGS64 3
+#endif
+#ifndef APEX_FWD_STAGES64  // the K/V ring's depth at d=64
+#define APEX_FWD_STAGES64 4
+#endif
+#ifndef APEX_FWD_TILE_SKIP  // 0: every warpgroup runs every key tile
+#define APEX_FWD_TILE_SKIP 1
+#endif
+#ifndef APEX_FWD_MATH  // 0: the pipeline alone
+#define APEX_FWD_MATH 1
+#endif
+#ifndef APEX_FWD_STORE_O  // 0: o is not stored
+#define APEX_FWD_STORE_O 1
+#endif
+
 template <int D, bool SEG>
 struct FwdSmem {
-  static constexpr int kWgs = D == 64 ? 3 : 2;
+  static constexpr int kWgs = D == 64 ? APEX_FWD_WGS64 : 2;
   static constexpr int kRows = 64 * kWgs;  // query rows per work item
   static constexpr int kThreads = 128 * (kWgs + 1);
   // a consumer warp arrives once its lanes are past a wgmma wait
   static constexpr int kConsumerWarps = 4 * kWgs;
   static constexpr int kProducerRegs = kWgs == 3 ? 32 : 40;
   static constexpr int kConsumerRegs = kWgs == 3 ? 160 : 232;
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages = D == 64 ? APEX_FWD_STAGES64 : 2;
   static constexpr int kQBlock = kRows * 128;      // 64 columns of Q
   static constexpr int kKBlock = kFwdKeys * 128;   // of K or V: 16 KB
   static constexpr int kQTile = D / 64 * kQBlock;
@@ -698,23 +718,24 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
         // keys above their diagonal without segment ids) is only released
         // (once it has landed: a release ahead of the producer would count
         // towards the stage's previous use): it would add p = 0 everywhere
-        if (wrow0 >= sq || (causal && !SEG && it * kFwdKeys > wrow0 + 63)) {
+        if (wrow0 >= sq || (APEX_FWD_TILE_SKIP && causal && !SEG &&
+                            it * kFwdKeys > wrow0 + 63)) {
           if (it == n_kv - 1) q_read();
           release(fill);
           continue;
         }
         hopper::wgmma_fence();
-        scores(fill);
+        if (APEX_FWD_MATH || sq < 0) scores(fill);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(sc);
         if (it == n_kv - 1) q_read();
-        softmax(it, s);
-        to_p();
+        if (APEX_FWD_MATH || sq < 0) softmax(it, s);
+        if (APEX_FWD_MATH || sq < 0) to_p();
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(acc);
         hopper::wgmma_fence();  // P and the rescaled O are in registers
-        pv(fill);
+        if (APEX_FWD_MATH || sq < 0) pv(fill);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
@@ -731,18 +752,20 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
       if (row_a < sq) {
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<uint32_t*>(og + (long long)row_a * D + n * 8 +
-                                       2 * t4) =
-              pack_bf16(acc[4 * n] / la, acc[4 * n + 1] / la);
+          if (APEX_FWD_STORE_O || sq < 0)
+            *reinterpret_cast<uint32_t*>(og + (long long)row_a * D + n * 8 +
+                                         2 * t4) =
+                pack_bf16(acc[4 * n] / la, acc[4 * n + 1] / la);
         if (t4 == 0)
           a.lse[(long long)bh * sq + row_a] = (m_a + log2f(la)) * kLn2;
       }
       if (row_b < sq) {
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<uint32_t*>(og + (long long)row_b * D + n * 8 +
-                                       2 * t4) =
-              pack_bf16(acc[4 * n + 2] / lb, acc[4 * n + 3] / lb);
+          if (APEX_FWD_STORE_O || sq < 0)
+            *reinterpret_cast<uint32_t*>(og + (long long)row_b * D + n * 8 +
+                                         2 * t4) =
+                pack_bf16(acc[4 * n + 2] / lb, acc[4 * n + 3] / lb);
         if (t4 == 0)
           a.lse[(long long)bh * sq + row_b] = (m_b + log2f(lb)) * kLn2;
       }

@@ -63,16 +63,16 @@ using bf16 = __nv_bfloat16;
 enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSigmoid = 3 };
 
 // tanh on the special-function unit, one instruction (relative error
-// below 2^-10): the 16-bit kernels' gelu, whose result is rounded to bf16
-// or fp16 next; tanhf costs some 20 instructions, which at K = 1024 made
-// the epilogue a third of the wgmma kernel's time
+// below 2^-10): the wgmma kernel's gelu in bf16, whose 2^-8 rounding
+// hides it; tanhf costs some 20 instructions, which at K = 1024 made the
+// epilogue a third of the wgmma kernel's time.  fp16 (2^-11) keeps tanhf
 __device__ __forceinline__ float tanh_fast(float x) {
   float y;
   asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// FAST: the 16-bit kernels (tanh_fast); the fp32 kernel keeps tanhf
+// FAST: tanh_fast (the wgmma kernel in bf16); the others keep tanhf
 template <int ACT, bool FAST>
 __device__ __forceinline__ float apply_act(float y) {
   if (ACT == kRelu) return y < 0.f ? 0.f : y;  // NaN stays NaN
@@ -258,9 +258,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int row = m0 + wm + mi * 16 + g + 8 * h;
         if (row >= M) continue;
         const T v0 =
-            to_out<T>(apply_act<ACT, true>(acc[mi][ni][2 * h] + b0));
+            to_out<T>(apply_act<ACT, false>(acc[mi][ni][2 * h] + b0));
         const T v1 =
-            to_out<T>(apply_act<ACT, true>(acc[mi][ni][2 * h + 1] + b1));
+            to_out<T>(apply_act<ACT, false>(acc[mi][ni][2 * h + 1] + b1));
         T* out = y + (long long)row * N + col;
         if (col < N) out[0] = v0;
         if (col + 1 < N) out[1] = v1;
@@ -272,9 +272,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ------------------------- 16-bit: wgmma + TMA (K, N % 8 == 0, aligned) --
 
 constexpr int kWgBM = 128;       // rows of y per block: two warpgroups of 64
-constexpr int kWgBN = 256;       // columns of y per block
+// -D overrides of the tile's width and the ring's depth build
+// scripts/port_hopper_ablation.py's variants; the defaults are the kernel
+#ifndef APEX_GEMM_WG_BN
+#define APEX_GEMM_WG_BN 256
+#endif
+#ifndef APEX_GEMM_WG_STAGES
+#define APEX_GEMM_WG_STAGES 4
+#endif
+constexpr int kWgBN = APEX_GEMM_WG_BN;  // columns of y per block
 constexpr int kWgBK = 64;        // depth per stage: one 128-byte x row
-constexpr int kWgStages = 4;     // the TMA ring
+constexpr int kWgStages = APEX_GEMM_WG_STAGES;  // the TMA ring
 constexpr int kWgThreads = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr int kWgConsumerWarps = 8;  // each arrives once past its wait
 constexpr int kWgA = kWgBM * kWgBK * 2;  // an x box: 16 KB
@@ -405,6 +413,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // 16-byte chunk c of row r at chunk c ^ (r % 8): the warp's writes hit
     // 32 banks), then one thread stores it; rows and columns past M and N
     // are dropped by the store.
+    constexpr bool kFast = std::is_same<T, bf16>::value;
 #pragma unroll
     for (int h = 0; h < kWgBN / 64; ++h) {
       unsigned char* buf = out + (2 * wg + (h & 1)) * kWgOut;
@@ -424,8 +433,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int hh = 0; hh < 2; ++hh) {
           const int r = warp * 16 + g + 8 * hh;  // row of the block
           T pair[2] = {
-              to_out<T>(apply_act<ACT, true>(acc[4 * j + 2 * hh] + b0)),
-              to_out<T>(apply_act<ACT, true>(acc[4 * j + 2 * hh + 1] + b1))};
+              to_out<T>(apply_act<ACT, kFast>(acc[4 * j + 2 * hh] + b0)),
+              to_out<T>(apply_act<ACT, kFast>(acc[4 * j + 2 * hh + 1] + b1))};
           *reinterpret_cast<uint32_t*>(buf + r * 128 + ((jj ^ (r & 7)) << 4) +
                                        4 * t4) =
               *reinterpret_cast<const uint32_t*>(pair);

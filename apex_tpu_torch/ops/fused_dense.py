@@ -139,11 +139,6 @@ def _launch(route, x2, w, b, y, activation):
     linear_bias_cuda.route_launches[route] += 1
 
 
-# route -> launcher(x2, w, b, y, activation); one entry per kernel
-_LAUNCHERS = {route: (lambda *a, route=route: _launch(route, *a))
-              for route in _ROUTE_CODES}
-
-
 def linear_bias_cuda(x2, w, b, activation):
     """Launch the fused dense kernel that `gemm_route` picks on the
     current stream: y = act(x2 · w + b) for x2 (M, K) and w (K, N) of one
@@ -170,7 +165,7 @@ def linear_bias_cuda(x2, w, b, activation):
     if m == 0 or n == 0:
         return y
     route = gemm_route(x2.dtype, m, n, k, x2.data_ptr(), w.data_ptr())
-    _LAUNCHERS[route](x2, w, b, y, activation)
+    _launch(route, x2, w, b, y, activation)
     return y
 
 

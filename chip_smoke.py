@@ -3016,17 +3016,6 @@ def table_slice8_kernels(torch, fa, ok, rng, errs, slice8):
     return rows
 
 
-# a redesigned kernel's row keeps its time before the redesign (root
-# PERF.md's table; NVIDIA H100 80GB HBM3 at 700 W) and what ran then
-_MMA_FWD = "mma.sync + cp.async forward, 64 query rows a block"
-_MMA_GEMM = "mma.sync + cp.async GEMM, 128 x 128 tiles"
-EARLIER_MS = {"flash_attention_fwd": (0.1697, _MMA_FWD),
-              "flash_attention_fwd_seg": (0.2176, _MMA_FWD),
-              "flash_attention_fwd_packed": (0.1985, _MMA_FWD),
-              "fused_dense_12288x1024x4096": (0.3950, _MMA_GEMM),
-              "fused_dense_12288x4096x1024": (0.3450, _MMA_GEMM)}
-
-
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -3045,8 +3034,6 @@ def table_row(name, launches, per_step, err, route, source, replaces, ms,
            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
            "library_ms": library_ms, "library": library, "shape": shape,
            "l2": "warm"}
-    if name in EARLIER_MS:
-        row["earlier_ms"], row["earlier_kernel"] = EARLIER_MS[name]
     return row
 
 

@@ -4,8 +4,9 @@
     python3 scripts/port_hopper_ablation.py
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
-they stand and variants made from them by changing one constant or test
-(into the gitignored `apex_tpu_torch/csrc/build/ablation_hopper/`):
+they stand and variants of them through the `-D` overrides the two
+sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`; into the gitignored
+`apex_tpu_torch/csrc/build/ablation_hopper/`):
 
   fused dense GEMM (the wgmma route)
     shipped           128 x 256 output tiles, a 4-stage TMA ring
@@ -46,58 +47,32 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# (constant or test in the source, its replacement), each exactly once
+# variant -> its -D overrides of the source's defaults
 GEMM_VARIANTS = {
-    "tile_128x128": [("constexpr int kWgBN = 256;",
-                      "constexpr int kWgBN = 128;"),
-                     ("constexpr int kWgStages = 4;",
-                      "constexpr int kWgStages = 6;")],
+    "shipped": [],
+    "tile_128x128": ["-DAPEX_GEMM_WG_BN=128", "-DAPEX_GEMM_WG_STAGES=6"],
 }
 FLASH_VARIANTS = {
-    "two_warpgroups": [("static constexpr int kWgs = D == 64 ? 3 : 2;",
-                        "static constexpr int kWgs = 2;")],
-    "two_stages": [("static constexpr int kStages = D == 64 ? 4 : 2;",
-                    "static constexpr int kStages = 2;")],
-    "no_tile_skip": [("if (wrow0 >= sq || (causal && !SEG && "
-                      "it * kFwdKeys > wrow0 + 63)) {",
-                      "if (wrow0 >= sq) {")],
-    "no_math": [("        scores(fill);", "        if (sq < 0) scores(fill);"),
-                ("        softmax(it, s);",
-                 "        if (sq < 0) softmax(it, s);"),
-                ("        to_p();", "        if (sq < 0) to_p();"),
-                ("        pv(fill);", "        if (sq < 0) pv(fill);")],
-    "no_o_store": [("          *reinterpret_cast<uint32_t*>(og + (long long)"
-                    "row_a * D", "          if (sq < 0) *reinterpret_cast"
-                    "<uint32_t*>(og + (long long)row_a * D"),
-                   ("          *reinterpret_cast<uint32_t*>(og + (long long)"
-                    "row_b * D", "          if (sq < 0) *reinterpret_cast"
-                    "<uint32_t*>(og + (long long)row_b * D")],
+    "shipped": [],
+    "two_warpgroups": ["-DAPEX_FWD_WGS64=2"],
+    "two_stages": ["-DAPEX_FWD_STAGES64=2"],
+    "no_tile_skip": ["-DAPEX_FWD_TILE_SKIP=0"],
+    "no_math": ["-DAPEX_FWD_MATH=0"],
+    "no_o_store": ["-DAPEX_FWD_STORE_O=0"],
 }
 # variants whose output is not the function (timed only)
 UNCHECKED = ("no_math", "no_o_store")
 
 
-def variant_text(src, subs):
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise SystemExit(f"ablation: {old!r} is not once in the source")
-        src = src.replace(old, new)
-    return src
-
-
-def build(csrc, cs, name, out, texts):
-    """{variant: loaded library} for `name`.cu and its variants, one nvcc
-    each, all started together."""
+def build(csrc, cs, name, out, variants):
+    """{variant: loaded library} for `name`.cu under each variant's
+    overrides, one nvcc each, all started together."""
     nvcc = csrc._nvcc()
     procs = {}
-    for var, text in texts.items():
-        path = os.path.join(out, f"{name}_{var}.cu")
-        with open(path, "w") as f:
-            f.write(text)
+    for var, defs in variants.items():
         procs[var] = subprocess.Popen(
-            [nvcc, *csrc.NVCC_FLAGS, "-I", os.path.dirname(
-                csrc.source_path(name)), "-o",
-             os.path.join(out, f"{name}_{var}.so"), path],
+            [nvcc, *csrc.NVCC_FLAGS, *defs, "-o",
+             os.path.join(out, f"{name}_{var}.so"), csrc.source_path(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for var, proc in procs.items():
@@ -139,18 +114,8 @@ def main():
                          text=True, timeout=60, check=True).stdout.strip())
     out = os.path.join(csrc.BUILD_DIR, "ablation_hopper")
     os.makedirs(out, exist_ok=True)
-    srcs = {}
-    for name in ("fused_dense", "flash_attention"):
-        with open(csrc.source_path(name)) as f:
-            srcs[name] = f.read()
-    gemm = build(csrc, cs, "fused_dense", out, {
-        "shipped": srcs["fused_dense"],
-        **{v: variant_text(srcs["fused_dense"], s)
-           for v, s in GEMM_VARIANTS.items()}})
-    flash = build(csrc, cs, "flash_attention", out, {
-        "shipped": srcs["flash_attention"],
-        **{v: variant_text(srcs["flash_attention"], s)
-           for v, s in FLASH_VARIANTS.items()}})
+    gemm = build(csrc, cs, "fused_dense", out, GEMM_VARIANTS)
+    flash = build(csrc, cs, "flash_attention", out, FLASH_VARIANTS)
 
     rng = torch.Generator(device="cuda").manual_seed(0)
     bf16 = torch.bfloat16

@@ -203,8 +203,8 @@ _ROUTE_CASES = [("wgmma", "bf16", 16, 8, False), ("wgmma", "f16", 48, 24,
 def test_each_route_through_the_autograd_function(route, dtype, k, n,
                                                   misaligned, act,
                                                   needs_grad, monkeypatch):
-    """`_FusedLinearFn` and `linear_bias_cuda` on each route, with counting
-    stand-ins for the three launchers (on the CPU): the route is the one
+    """`_FusedLinearFn` and `linear_bias_cuda` on each route, with a
+    recording stand-in for `_launch` (on the CPU): the route is the one
     the shape, dtype and alignment call for, taken once a forward, and the
     output and grads match the JAX `linear_bias` (its Pallas kernel in
     interpret mode and its custom_vjp)."""
@@ -212,15 +212,12 @@ def test_each_route_through_the_autograd_function(route, dtype, k, n,
     jx, tx, ct = _inputs(rng, 9, k, n, dtype, True)
     calls = []
 
-    def stand_in(name):
-        def launch(x2, w, b, y, activation):
-            calls.append((name, activation))
-            assert b is None or b.dtype == torch.float32
-            y.copy_(fdn.linear_bias_reference(x2, w, b, activation))
-        return launch
+    def launch(route, x2, w, b, y, activation):
+        calls.append((route, activation))
+        assert b is None or b.dtype == torch.float32
+        y.copy_(fdn.linear_bias_reference(x2, w, b, activation))
 
-    monkeypatch.setattr(fdn, "_LAUNCHERS",
-                        {name: stand_in(name) for name in fdn._LAUNCHERS})
+    monkeypatch.setattr(fdn, "_launch", launch)
     x2 = tx[0]
     if misaligned:   # the same values one element into a buffer
         buf = torch.empty(x2.numel() + 8, dtype=x2.dtype)
