@@ -46,63 +46,81 @@
 //     Causal: key tiles above the diagonal are never visited and only
 //     tiles that cross it are masked (_causal_dispatch); the longest rows
 //     go first.  l is guarded with max(l, 1e-30).
-//   * backward: products are mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate), written into the kernel as inline PTX.  Operands come
-//     from shared memory whose rows are padded by 16 bytes, so the 32-bit
-//     fragment loads and the ldmatrix(.trans) loads of a warp hit 32
-//     distinct banks.
-//     The TPU kernel carries dk/dv across its outer q loop in
-//     VMEM; on the card nothing carries between blocks, so the loop is
-//     turned inside out (FlashAttention-2): one block per (batch*head, 64
-//     keys) walks the q blocks at or below the diagonal, keeping dk and dv
-//     in registers.  p_v and ds are rounded to bf16 before their products,
-//     as on the TPU; `scale` multiplies ds for dk and dq.  The fused
-//     kernel sums dq across key blocks with fp32 atomics into a zeroed
-//     scratch buffer that the caller casts once: the order of those sums
-//     changes from run to run, so its dq is not bitwise reproducible (dk,
-//     dv are).  Scalar atomics were ~45 % of the first version's time
-//     (measured by removing them); 2-wide ones (float2,
-//     red.global.add.v2.f32) take a third off the kernel.  Measured and
-//     not kept: 4-wide atomics (the lane-pair shuffle that feeds them
-//     costs more than it saves) and ldmatrix fragment loads (no faster
-//     than 32-bit loads from the padded tiles).
+//   * backward (sm_90a: wgmma and TMA): the TPU kernel carries dk/dv across
+//     its outer q loop in VMEM; on the card nothing carries between
+//     blocks, so the loop is turned inside out (FlashAttention-2): one
+//     block an SM walks work items of (batch*head, 128 keys), keeping dK
+//     and dV in registers, and each item walks the 64-row q steps from the
+//     first that sees its keys.  A block takes its items in turn from a
+//     counter in device memory (atomicAdd), so blocks with short causal
+//     items take more; the items go in chunks of a few heads, the longest
+//     key tiles first within a chunk, so the blocks at work share those
+//     heads' Q, dO and dq rows in L2 and the last items are short.  One
+//     warp feeds the block: it loads each item's K and V (double-buffered
+//     at d=64) and each q step's Q and dO through a ring (2 stages) by
+//     TMA, through the same 4-D maps as the forward, with the rows' lse
+//     and delta (and query ids) copied beside them by cp.async; each
+//     completes on an mbarrier.  At d=64 that warp is a producer
+//     warpgroup's (setmaxnreg: 40 registers there, 232 for the
+//     consumers); at d=128 it is warp 0 of the consumers, between its own
+//     steps, since an SM's four register quadrants hold any block of more
+//     than 8 warps to 168 registers a thread, where the d=128 consumers
+//     spilled and ran 2.7x slower.  Two consumer warpgroups own 64 keys
+//     each (keys are the wgmma M dimension): S^T = K Q^T and dP^T = V dO^T
+//     by wgmma m64n64k16 from shared memory, P^T and dS^T = P^T (dP^T -
+//     delta) in registers (the mask only on tiles that cross the diagonal
+//     or the ragged ends; a warpgroup skips a causal tile above all its
+//     rows), then dV += P^T dO and dK += dS^T Q by wgmma with the bf16 A
+//     operand in registers and dO, Q as MN-major operands.  p and ds are
+//     rounded to bf16 before their products, as on the TPU; `scale`
+//     multiplies ds for dk and dq.  dk and dv leave through shared memory
+//     by TMA stores.  The fused kernel also takes dQ = dS K by wgmma from
+//     dS^T in shared memory (dS^T and K as MN-major operands): at d=64
+//     each warpgroup over its own 64 keys, at d=128 half of the columns
+//     over both warpgroups' 128 keys (a named barrier a step); each warp
+//     adds its 16 rows into a zeroed fp32 scratch buffer that the caller
+//     casts once, by one bulk tensor reduce-add
+//     (cp.reduce.async.bulk.tensor ... .add) per 32 columns from its own
+//     slice of shared memory: the L2 sums them, with no per-thread
+//     atomics or address math.  The order of those sums changes from run
+//     to run, so dq is not bitwise reproducible (dk, dv are).  At d=128 a
+//     consumer thread holds dK and dV (128 fp32) beside the step's tiles:
+//     each q step is taken in two parts of 32 rows there, and the dQ
+//     product waits for dV's and dK's.
 //   * split backward (long context, where the TPU's (sk, d) dk/dv scratch
 //     would not fit VMEM): the dk/dv pass is the fused kernel's body with
 //     its dq part compiled out (the DQ template flag), so its dk and dv
-//     are the fused kernel's bit for bit.  The dq pass has the forward's
-//     shape: one block per (batch*head, 64 query rows) keeps its q and dO
-//     tiles and its rows' lse and delta resident, walks the 64-key blocks
-//     up to the diagonal with K/V double-buffered by cp.async, recomputes
-//     s = q k^T and dp = dO v^T, rounds ds = p (dp - delta) to bf16 and
-//     adds ds k into registers.  Each dq row is written once: no atomics,
-//     no scratch buffer, the same bits from run to run.  It pays the
-//     recomputation of s and dp a second time (3 products a pair in the
-//     dq pass and 4 in the dk/dv pass, against the fused kernel's 5).
+//     are the fused kernel's bit for bit.  The dq pass (mma.sync m16n8k16,
+//     bf16 in, fp32 accumulate, as inline PTX, from shared memory padded by
+//     16 bytes a row and filled by cp.async) has the forward's shape: one
+//     block per (batch*head, 64 query rows) keeps its q and dO tiles and
+//     its rows' lse and delta resident, walks the 64-key blocks up to the
+//     diagonal with K/V double-buffered, recomputes s = q k^T and dp = dO
+//     v^T, rounds ds = p (dp - delta) to bf16 and adds ds k into
+//     registers.  Each dq row is written once: no atomics, no scratch
+//     buffer, the same bits from run to run.  It pays the recomputation
+//     of s and dp a second time (3 products a pair in the dq pass and 4
+//     in the dk/dv pass, against the fused kernel's 5).
 //   * head packing (_fwd_kernel_packed, _bwd_fused_kernel_packed): the TPU
 //     kernels stack hp heads into one grid step to fill its vregs and the
 //     128-deep MXU that a d=64 head half fills; the per-head math stays
 //     separate and bit-identical.  On the card a head already fills a
 //     block, so packing is a choice of what one block walks, not a second
 //     copy of the math: the packed kernels run the unpacked kernels'
-//     per-head bodies (fwd_items, bwd_heads) for hp heads of one batch row
-//     in turn (the forward's work items hold hp heads; the backward has
-//     b*h/hp blocks instead of b*h).  Per head, o and lse
+//     per-head bodies (fwd_items, bwd_items) for hp heads of one batch row
+//     in turn (their work items hold hp heads).  Per head, o and lse
 //     (forward) and dk, dv (backward) are the unpacked kernels' bit for
-//     bit; dq is summed by the same atomics.  What a block shares across
-//     its heads: the query ids (forward) or key ids (backward) of its
-//     rows, loaded once; in the forward the key ids of the whole batch
+//     bit; dq is summed by the same reduce-adds.  What a block shares
+//     across its heads: the query ids (forward) or key ids (backward) of
+//     its rows, loaded once; in the forward the key ids of the whole batch
 //     row, resident in shared memory while sk <= 8192 (32 KB), so they are
-//     read once per key tile for the group, not once per head, and the
-//     producer's K/V ring, which runs on into the next head's first tiles
-//     while this head's last tile is used (in the backward, the next
-//     head's K/V tiles and first q step, issued by cp.async before the
-//     current head's epilogue; scripts/port_flash_packed_ablation.py
-//     times three forms of that prefetch in the forward as it was before
-//     the forward moved to wgmma).  Shared memory stays the unpacked
-//     kernels' (fwd ~179 KB at d=64 and ~194 KB at d=128, fused bwd ~65 KB
-//     at d=64, plus the resident ids), so every hp that the JAX route
-//     admits runs: any divisor of h in the forward, and hp * sk * d <=
-//     512k in the backward.
+//     read once per key tile for the group, not once per head; and the
+//     producer's rings, which run on into the next head's tiles while
+//     this head's last ones are used.  Shared memory stays the unpacked
+//     kernels' (fwd ~179 KB at d=64 and ~194 KB at d=128, the fused bwd
+//     ~177 KB at d=64 and ~226 KB at d=128, plus the forward's resident
+//     ids), so every hp that the JAX route admits runs: any divisor of h
+//     in the forward, and hp * sk * d <= 512k in the backward.
 // Rows past sq and keys past sk are zero-filled on load and masked, so any
 // sequence length works.
 //
@@ -122,13 +140,15 @@
 // ds = 0 at every masked score, the dq pass stops at the diagonal even
 // with segment ids; the dk/dv pass cannot, because a dead row's uniform p
 // reaches dv for every key.  Each block loads its key tile's ids
-// (forward: the producer stages them beside K; dq pass) or its q block's
-// ids (dk/dv) next to the tiles; passing null ids launches the
-// unsegmented kernels, whose code is unchanged.  A warp whose 16 rows and
-// whose tile's keys (128 forward, 64 backward) all carry one id, in a
-// tile that does not cross the diagonal, takes the unsegmented masking (a
-// warp vote per tile): the per-score compares cost the backward half its
-// time again, and in BERT's batches most tiles are one segment.
+// (forward: the producer stages them beside K; dq pass) or each q step's
+// ids (fused and dk/dv: the producer writes them beside Q and dO, the
+// consumers read their keys' ids once an item); passing null ids launches
+// the unsegmented kernels, whose code is unchanged.  A forward warp whose 16
+// rows and whose tile's 128 keys all carry one id, or a backward
+// warpgroup whose 64 keys (voted once an item) and whose step's 64 rows
+// all carry one id, in a tile that does not cross the diagonal, takes
+// the unsegmented masking: the per-score compares cost the backward half
+// its time again, and in BERT's batches most tiles are one segment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,9 +163,11 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBr = 64;       // query rows per block (fwd) / per step (bwd)
-constexpr int kBc = 64;       // keys per step (fwd) / per block (bwd)
-constexpr int kThreads = 128;  // 4 warps, 16 rows (or keys) each
+// the dq pass (mma.sync): 64 query rows a block, 64 keys a step, 4 warps
+// of 16 rows
+constexpr int kBr = 64;
+constexpr int kBc = 64;
+constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -155,7 +177,8 @@ constexpr float kMaskedLog2 = -1.0e30f * kLog2e;
 // masked: real scores are nowhere near -1e29
 constexpr float kDeadLse = -1.0e29f;
 
-// a (64, D) bf16 tile in shared memory, rows padded by 8 elements
+// a (64, D) bf16 tile of the dq pass in shared memory, rows padded by 8
+// elements
 template <int D>
 struct Tile {
   static constexpr int kStride = D + 8;
@@ -796,332 +819,746 @@ __global__ void __launch_bounds__(FwdSmem<D, SEG>::kThreads, 1)
 
 // ----------------------------------------------------------- backward ----
 
-constexpr int kDsStride = kBr + 8;  // ds tile: 64 keys x 64 queries, padded
+constexpr int kBwdKeys = 128;  // keys per work item: 64 per consumer warpgroup
+constexpr int kBwdRows = 64;   // query rows per q step
+
+// The backward's shape, at both head dims: two consumer warpgroups of 64
+// keys each (the wgmma M dimension is keys) and one feeding warp (see the
+// top).  At d=128 a consumer thread holds dK and dV (128 fp32) beside a q
+// step's S^T, dP^T and their bf16 copies, so there the step is taken in
+// two parts of 32 rows (48 registers, not 96); a third warpgroup or wider
+// key tiles do not fit.  Shared memory from its 1024-byte aligned start:
+// kKvBufs K and V tiles (128 keys, D / 64 column blocks of 128 rows x 128
+// bytes, as TMA lands them in 128-byte swizzled rows), kStages Q and dO
+// tiles (64 rows), with DQ two dS^T tiles (128 keys x 64 queries, bf16,
+// swizzled), then the consumer warps' output slices, then the rows' lse,
+// delta and (SEG) ids per stage, then the barriers and the item indices.
+// d=64: two K/V buffers and a 2-stage ring (about 193 KB with DQ); d=128:
+// one K/V buffer and 2 stages (about 226 KB); apex_flash_attn_bwd_smem
+// gives each.
+// -D overrides that build scripts/port_hopper_ablation.py's variants; the
+// defaults are the kernel.  The two that make dq garbage (no products and
+// math, no dq store) switch their code off at run time (`|| sq < 0`), as
+// the forward's do.
+#ifndef APEX_BWD_STAGES64  // the Q/dO ring's depth at d=64
+#define APEX_BWD_STAGES64 2
+#endif
+#ifndef APEX_BWD_DQ_RED  // 1: dq leaves by per-thread red.global.add.v2.f32
+#define APEX_BWD_DQ_RED 0
+#endif
+#ifndef APEX_BWD_MATH  // 0: the pipeline alone
+#define APEX_BWD_MATH 1
+#endif
+#ifndef APEX_BWD_STORE_DQ  // 0: dq is not stored
+#define APEX_BWD_STORE_DQ 1
+#endif
+#ifndef APEX_BWD_CHUNK  // head groups a chunk of work items (0: as many
+#define APEX_BWD_CHUNK 0    // as give the grid one item each)
+#endif
+#ifndef APEX_BWD_DQ_OWN64  // 0: dQ's columns split between the warpgroups
+#define APEX_BWD_DQ_OWN64 1
+#endif
 
 template <int D, bool SEG, bool DQ>
-__host__ __device__ constexpr size_t bwd_smem() {
-  // K, V, Q[2], dO[2], with DQ dS, lse[2], delta[2], and with SEG the q
-  // ids [2]
-  return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
-         (DQ ? size_t(kBc) * kDsStride * sizeof(bf16) : 0) +
-         4 * kBr * sizeof(float) + (SEG ? 2 * kBr * sizeof(int) : 0);
+struct BwdSmem {
+  // d=64: two consumer warpgroups and a producer warpgroup, one warp of
+  // which feeds (384 threads; setmaxnreg gives the consumers 232
+  // registers, the producers 40).  d=128: the consumers' warp 0 also
+  // issues the loads (256 threads).  An SM's registers sit in four
+  // quadrants of 16K, so a block of more than 8 warps holds each thread
+  // to 168 at launch; there the d=128 consumers spilled and ran 2.7x
+  // slower, and ptxas gave them no more after setmaxnreg.  At d=64 a
+  // feeding warp 0 cost 20 % (it holds its warpgroup back).
+  static constexpr bool kProducerWg = D == 64;
+  static constexpr int kThreads = kProducerWg ? 384 : 256;
+  static constexpr int kConsumerWarps = 8;
+  // dQ's product in flight beside dV's and dK's (D = 128: their A
+  // registers and dQ's accumulator do not fit beside each other)
+  static constexpr bool kOverlap = D == 64;
+  // a q step's 64 rows in kHalves parts of kQc rows: S^T, dP^T, P^T, dS^T
+  // and their bf16 copies hold kQc / 2 + kQc / 2 + kQc / 4 + kQc / 4
+  // registers a thread (d=128: 2 parts, so that they fit beside dK, dV)
+  static constexpr int kHalves = D == 64 ? 1 : 2;
+  static constexpr int kQc = kBwdRows / kHalves;
+  static constexpr int kStages = D == 64 ? APEX_BWD_STAGES64 : 2;
+  static constexpr int kKvBufs = D == 64 ? 2 : 1;
+  static constexpr int kQBlock = kBwdRows * 128;  // 64 columns of Q or dO
+  static constexpr int kKBlock = kBwdKeys * 128;  // of K or V: 16 KB
+  static constexpr int kQTile = D / 64 * kQBlock;
+  static constexpr int kKTile = D / 64 * kKBlock;
+  static constexpr int kDsTile = kBwdKeys * 128;  // dS^T of both warpgroups
+  // a consumer warp's output slice: dk and dv of its 16 keys (bf16, 64 D
+  // bytes) at a head's end, between them kDqBufs fp32 dq tiles of its 16
+  // query rows and its warpgroup's D / 2 columns (32 D bytes each), in
+  // boxes of 16 rows x 128 bytes (2 KB, swizzled)
+  static constexpr int kDqBufs = 2;
+  // dQ = dS K: at d=64 (kDqOwn) each warpgroup takes every column over its
+  // own 64 keys (no exchange between the warpgroups, twice the sums into
+  // dq_acc: 3-5 % faster at GPT's and MHA's shapes); at d=128 half of the
+  // columns over all 128 keys, the two exchanging dS^T through shared
+  // memory (its dQ tile would not fit the registers there)
+  static constexpr bool kDqOwn = D == 64 && APEX_BWD_DQ_OWN64;
+  static constexpr int kDqCols = kDqOwn ? D : D / 2;
+  static constexpr int kSlice = kDqBufs * 64 * kDqCols > 64 * D
+                                    ? kDqBufs * 64 * kDqCols
+                                    : 64 * D;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKvBufs * kKTile;
+  static constexpr int kQ = kV + kKvBufs * kKTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kDs = kDo + kStages * kQTile;
+  static constexpr int kOut = kDs + (DQ ? 2 * kDsTile : 0);
+  static constexpr int kLse = kOut + kConsumerWarps * kSlice;  // [kStages][64]
+  static constexpr int kDelta = kLse + kStages * kBwdRows * 4;
+  static constexpr int kQid = kDelta + kStages * kBwdRows * 4;  // SEG
+  static constexpr int kBar = kQid + (SEG ? kStages * kBwdRows * 4 : 0);
+  // the work item each K/V buffer holds (-1: no more)
+  static constexpr int kItem = kBar + 8 * (2 * kKvBufs + 2 * kStages);
+  static constexpr int kEnd = kItem + 4 * kKvBufs;
+  static constexpr size_t kBytes = size_t(kEnd) + 1024;
+};
+
+// one backward launch's arguments: 4-D TMA maps of the (b, h, s, d) views
+// q, k, v and dout (loads), of the contiguous dk and dv (stores, boxes of
+// 16 rows) and of the fp32 dq_acc (reduce-adds, 32 columns x 16 rows;
+// DQ only), each map's `order_*` as FwdArgs has them (dk and dv share
+// theirs); `groups`: b * h / hp; `work`: the launch's zeroed item counter
+struct BwdArgs {
+  CUtensorMap q, k, v, dout, dk, dv, dq;
+  int order_q, order_k, order_v, order_do, order_dkv, order_dq;
+  const float* lse;
+  const float* delta;
+  float* dq_acc;
+  int* work;
+  int h, sq, sk, groups;
+  float scale, scale_log2;
+  int causal;
+  const int* q_seg;
+  const int* kv_seg;
+  long long q_seg_sb, kv_seg_sb;
+};
+
+// work item w of a backward launch: the items go in chunks of `chunk`
+// head groups (about one item per block of the grid: APEX_BWD_CHUNK = 0),
+// key tile by key tile within a chunk (the longest causal walks first), so
+// the blocks at work share a few heads' Q, dO and dq_acc rows in the L2
+// and the last items taken are short.  An item is key tile tk of the hp
+// heads (batch * head) bh0 .. bh0 + hp - 1 of one batch row; j0: the
+// first q step that sees one of its keys (SEG: every step, see the top).
+struct BwdItem {
+  int bh0, b, k0, j0;
+  __device__ __forceinline__ BwdItem(const BwdArgs& a, int w, int hp,
+                                     bool seg) {
+    const int n_kt = (a.sk + kBwdKeys - 1) / kBwdKeys;
+    int chunk = APEX_BWD_CHUNK > 0 ? APEX_BWD_CHUNK
+                                   : static_cast<int>(gridDim.x) / n_kt;
+    chunk = max(1, min(chunk, a.groups));
+    const int c = w / (chunk * n_kt);  // the chunk, and its head groups
+    const int first = c * chunk, in_c = min(chunk, a.groups - first);
+    const int r = w - c * chunk * n_kt;
+    const int tk = r / in_c;
+    bh0 = (first + r % in_c) * hp;
+    b = bh0 / a.h;
+    k0 = tk * kBwdKeys;
+    j0 = a.causal && !seg ? k0 / kBwdRows : 0;
+  }
+};
+
+// the 4-byte word at row r (of 64, 128-byte rows) and 16-byte chunk c of a
+// swizzled tile whose 1024-byte groups of 8 rows start at `base`
+__device__ __forceinline__ unsigned char* swz(unsigned char* base, int r,
+                                              int c) {
+  return base + r * 128 + ((c ^ (r & 7)) << 4);
 }
 
-// One block's backward over the 64 keys of block `tk` for `hp` heads in
-// turn, flat (batch * head) indices bh0 .. bh0 + hp - 1 of one batch row,
-// dk and dv in registers per head.  DQ: the fused kernel (dq summed by
-// atomics into dq_acc); without it the split route's dk/dv pass (dq_acc
-// unused), whose dk and dv are the same arithmetic.  Each head is the
-// unpacked kernel's body, so its dk and dv are that kernel's bit for bit.
-// The next head's K/V tiles and first q step are issued by cp.async before
-// this head's dk and dv are written.
+// the box at `src` to rows [row, row + 16) x columns [d0, ...) of head hh
+// of batch row b through `map` (a store, or with `add` a reduce-add)
+__device__ __forceinline__ void put_rows(const CUtensorMap* map, int order,
+                                         const void* src, int d0, int row,
+                                         int hh, int b, bool add) {
+  const int ps = order & 3, ph = (order >> 2) & 3;
+  const int c1 = ps == 1 ? row : ph == 1 ? hh : b;
+  const int c2 = ps == 2 ? row : ph == 2 ? hh : b;
+  const int c3 = ps == 3 ? row : ph == 3 ? hh : b;
+  if (add)
+    hopper::tma_reduce_add_4d(map, src, d0, c1, c2, c3);
+  else
+    hopper::tma_store_4d(map, src, d0, c1, c2, c3);
+}
+
+// A block's share of the backward (one block an SM, for all of the
+// launch): work items taken in order from the launch's counter, so a
+// block that finishes early takes the next (causal items differ up to
+// sk / 64 q steps), each 128 keys of `hp` heads in turn.  Each head is
+// the same code whatever hp and DQ are, so its dk and dv are bit for bit
+// the same in the fused kernel, the packed kernel and the dk/dv pass
+// (which leaves out the dq part: DQ).
+//
+// One warp feeds the block (`feed`; d=64: warp 0 of a producer
+// warpgroup, d=128: warp 0 of the consumers): it loads each head's K and
+// V tiles (kKvBufs buffers) and then, for each q step from the first that
+// sees the tile, the Q and dO tiles into a ring of kStages, by TMA, with
+// the rows' lse, delta and (SEG) query ids copied beside them by its
+// lanes' cp.async; each completes on an mbarrier, and the feed runs ahead
+// across heads and items as far as the ring and the K/V buffers allow.
+// Warpgroups 0 and 1 own 64 keys each, dK and dV in registers.  Per q
+// step: S^T = K Q^T and dP^T = V dO^T by wgmma from shared memory; P^T and
+// dS^T = P^T (dP^T - delta) in registers, with the mask; dV += P^T dO and
+// dK += dS^T Q by wgmma with P^T and dS^T (bf16) in registers and dO, Q as
+// MN-major operands.  DQ: dS^T goes to shared memory (double-buffered)
+// and dQ = dS K is taken by wgmma (dS^T the MN-major A operand, K the
+// MN-major B): at d=64 each warpgroup over its own 64 keys and every
+// column, at d=128 each over both warpgroups' 128 keys and half of the
+// columns (a named barrier a step between them); each warp scales its 16
+// rows into its output slice and reduce-adds them into dq_acc with one
+// bulk tensor reduce-add per 32 columns (APEX_BWD_DQ_RED: per-thread
+// red.global instead).  At a head's end each warp stores its 16 keys of dk
+// (scaled) and dv through its slice by TMA.
 template <int D, bool SEG, bool DQ>
-__device__ __forceinline__ void bwd_heads(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss, int h,
-    int sq, int sk, float scale, float scale_log2, int causal,
-    const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-    long long q_seg_sb, long long kv_seg_sb, int bh0, int hp, int tk,
-    unsigned char* smem_raw) {
-  constexpr int S = Tile<D>::kStride;
-  constexpr int E = Tile<D>::kElems;
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + E;
-  bf16* q_s = v_s + E;       // two stages
-  bf16* do_s = q_s + 2 * E;  // two stages
-  bf16* ds_s = do_s + 2 * E;  // DQ only
-  float* lse_s =
-      reinterpret_cast<float*>(ds_s + (DQ ? kBc * kDsStride : 0));  // [2][64]
-  float* dl_s = lse_s + 2 * kBr;                                    // [2][64]
-  int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kBr);  // SEG: [2][64]
+__device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
+                                          unsigned char* smem) {
+  using L = BwdSmem<D, SEG, DQ>;
+  constexpr int kStages = L::kStages, kKvBufs = L::kKvBufs;
+  unsigned char* k_s = smem + L::kK;    // [kKvBufs]
+  unsigned char* v_s = smem + L::kV;    // [kKvBufs]
+  unsigned char* q_s = smem + L::kQ;    // [kStages]
+  unsigned char* do_s = smem + L::kDo;  // [kStages]
+  unsigned char* ds_s = smem + L::kDs;  // DQ: [2]
+  float* lse_s = reinterpret_cast<float*>(smem + L::kLse);  // [kStages][64]
+  float* dl_s = reinterpret_cast<float*>(smem + L::kDelta);
+  int* qid_s = reinterpret_cast<int*>(smem + L::kQid);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* kv_full = bar;                    // [kKvBufs]
+  uint64_t* kv_empty = kv_full + kKvBufs;     // [kKvBufs]
+  uint64_t* q_full = kv_empty + kKvBufs;      // [kStages]
+  uint64_t* q_empty = q_full + kStages;       // [kStages]
+  int* item_s = reinterpret_cast<int*>(smem + L::kItem);  // [kKvBufs]
 
-  const int b = bh0 / h;  // every head of the group is in this batch row
-  const int k0 = tk * kBc;
-  const int nq = (sq + kBr - 1) / kBr;
-  // first q block that sees a key here (SEG: every q block, see the top)
-  const int j0 = causal && !SEG ? k0 / kBr : 0;
+  const int h = a.h, sq = a.sq, sk = a.sk;
+  const bool causal = a.causal != 0;
+  const int nq = (sq + kBwdRows - 1) / kBwdRows;
+  const int n_items = (sk + kBwdKeys - 1) / kBwdKeys * a.groups;
+  const int wg = threadIdx.x / 128;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kKvBufs; ++i) {
+      hopper::mbar_init(&kv_full[i], 1);
+      hopper::mbar_init(&kv_empty[i], L::kConsumerWarps);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      // every lane of warp 0 arrives once its rows' lse and delta land
+      hopper::mbar_init(&q_full[s], 32);
+      hopper::mbar_init(&q_empty[s], L::kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are visible
+
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int key_a = k0 + warp * 16 + g;  // this thread's two keys
-  const int key_b = key_a + 8;
-  const int* qidg = SEG ? q_seg + b * q_seg_sb : nullptr;
-  int kid_a = 0, kid_b = 0;
-  if (SEG) {
-    const int* kidg = kv_seg + b * kv_seg_sb;
-    if (key_a < sk) kid_a = kidg[key_a];
-    if (key_b < sk) kid_b = kidg[key_b];
-  }
-  const float inv_sk = 1.f / sk;  // a fully masked row's weight per key
+  const int r_a = warp * 16 + g;  // this thread's accumulator rows r_a, r_a + 8
 
-  // one head's q step j into stage st: Q, dO, the rows' lse, delta, ids
-  auto load_step = [&](int bh, int j, int st) {
-    const int hh = bh % h;
-    load_tile<D>(q_s + st * E, q + b * q_sb + hh * q_sh, q_ss, j * kBr, sq);
-    load_tile<D>(do_s + st * E, dout + b * o_sb + hh * o_sh, o_ss, j * kBr,
-                 sq);
-    if (tid < kBr) {
-      const int r = j * kBr + tid;
-      lse_s[st * kBr + tid] = r < sq ? lse[(long long)bh * sq + r] * kLog2e
-                                     : 0.f;
-      dl_s[st * kBr + tid] = r < sq ? delta[(long long)bh * sq + r] : 0.f;
-      if (SEG) qid_s[st * kBr + tid] = r < sq ? qidg[r] : 0;
-    }
-  };
-  // one head's K and V tiles and its first q step
-  auto prologue = [&](int bh) {
-    const int hh = bh % h;
-    load_tile<D>(k_s, k + b * k_sb + hh * k_sh, k_ss, k0, sk);
-    load_tile<D>(v_s, v + b * v_sb + hh * v_sh, v_ss, k0, sk);
-    if (j0 < nq) load_step(bh, j0, 0);
-    cp_async_commit();
-  };
-  for (int p = 0; p < hp; ++p) {
-    const int bh = bh0 + p;
-    if (p == 0) prologue(bh);
-
-    float dka[D / 8][4], dva[D / 8][4];
+  // ----------------------------------------------------------------- feed
+  // Warp 0 issues every load, ahead of both warpgroups: its place in the
+  // sequence of heads and q steps (item f_w, head f_p of it, next step
+  // f_j; f_bh, f_b: that head and its batch row) and the K/V tiles (f_ki)
+  // and q steps (f_qi) issued so far.  feed(q_lim, kv_lim) issues q steps
+  // below q_lim and K/V tiles below kv_lim, taking the next item from the
+  // launch's counter where a head's steps run out, each once both
+  // warpgroups have released the stage or buffer it takes (a producer
+  // warp: with no limits, ahead as far as those allow; warp 0 of the
+  // consumers: the ring's depth ahead, so that it waits only for a user
+  // its own warpgroup is already past).
+  int f_w = -1, f_p = 0, f_j = nq, f_bh = 0, f_b = 0, f_ki = 0, f_qi = 0;
+  bool f_done = false;
+  auto feed = [&](int q_lim, int kv_lim) {
+    while (!f_done) {
+      if (f_j >= nq) {  // the next head's K and V (or the end)
+        if (f_ki >= kv_lim) return;
+        const int kb = f_ki % kKvBufs;
+        // both warpgroups are done with the head this buffer held
+        if (f_ki >= kKvBufs)
+          hopper::mbar_wait(&kv_empty[kb], (f_ki / kKvBufs - 1) & 1);
+        int w = f_w;
+        if (f_w < 0 || f_p + 1 >= hp) {
+          if (lane == 0) w = atomicAdd(a.work, 1);
+          w = __shfl_sync(kFull, w, 0);
+        }
+        ++f_ki;
+        if (w >= n_items) {  // no more: the consumers read -1
+          if (lane == 0) {
+            item_s[kb] = -1;
+            hopper::mbar_arrive(&kv_full[kb]);
+          }
+          __syncwarp();
+          f_done = true;
+          return;
+        }
+        f_p = w == f_w ? f_p + 1 : 0;
+        f_w = w;
+        const BwdItem t(a, w, hp, SEG);
+        f_bh = t.bh0 + f_p;
+        f_b = t.b;
+        f_j = t.j0;
+        if (lane == 0) {
+          item_s[kb] = w * hp + f_p;
+          hopper::mbar_arrive_expect_tx(&kv_full[kb], 2 * L::kKTile);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+          for (int c = 0; c < D / 64; ++c) {
+            load_rows(k_s + kb * L::kKTile + c * L::kKBlock, &a.k, a.order_k,
+                      &kv_full[kb], 64 * c, t.k0, f_bh % h, t.b);
+            load_rows(v_s + kb * L::kKTile + c * L::kKBlock, &a.v, a.order_v,
+                      &kv_full[kb], 64 * c, t.k0, f_bh % h, t.b);
+          }
+        }
+        __syncwarp();
+        continue;
+      }
+      if (f_qi >= q_lim) return;
+      // q step f_j of head f_bh into stage f_qi % kStages, once both
+      // warpgroups are done with the step it held
+      const int st = f_qi % kStages;
+      if (f_qi >= kStages)
+        hopper::mbar_wait(&q_empty[st], (f_qi / kStages - 1) & 1);
+      const int q0 = f_j * kBwdRows, hh = f_bh % h;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(&q_full[st], 2 * L::kQTile);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-    for (int j = j0; j < nq; ++j) {
-      const int st = (j - j0) & 1;
-      if (j + 1 < nq) load_step(bh, j + 1, st ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      const bf16* qs = q_s + st * E;
-      const bf16* dos = do_s + st * E;
-      const float* ls = lse_s + st * kBr;
-      const float* dls = dl_s + st * kBr;
-      const int q0 = j * kBr;
-
-      // s^T = K Q^T: 16 keys x 64 queries per warp
-      float s[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a<D>(a, k_s, warp * 16, kk * 16, g, t4);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const bf16* qr = qs + (n * 8 + g) * S + kk * 16 + 2 * t4;
-          mma16816(s[n], a, ld32(qr), ld32(qr + 8));
+        for (int c = 0; c < D / 64; ++c) {
+          load_rows(q_s + st * L::kQTile + c * L::kQBlock, &a.q, a.order_q,
+                    &q_full[st], 64 * c, q0, hh, f_b);
+          load_rows(do_s + st * L::kQTile + c * L::kQBlock, &a.dout,
+                    a.order_do, &q_full[st], 64 * c, q0, hh, f_b);
         }
       }
-
-      // p^T = exp(scale s - lse), zero where masked (warp-uniform test)
-      uint32_t masked = 0;  // SEG: bit 4n+e set where ds must be 0
-      bool per_score = false;  // SEG: this warp's tile needs the id compares
+      // the rows' lse, delta and ids by cp.async (zeros past sq), each
+      // lane's arrival once its copies land: the warp does not wait for
+      // them
+      const float* lseg = a.lse + (long long)f_bh * sq;
+      const float* dlg = a.delta + (long long)f_bh * sq;
+      const int* qidg = SEG ? a.q_seg + f_b * a.q_seg_sb : nullptr;
+#pragma unroll
+      for (int i = lane; i < kBwdRows; i += 32) {
+        const bool in = q0 + i < sq;
+        const int r = in ? q0 + i : 0;
+        hopper::cp_async4(lse_s + st * kBwdRows + i, lseg + r, in);
+        hopper::cp_async4(dl_s + st * kBwdRows + i, dlg + r, in);
+        if (SEG) hopper::cp_async4(qid_s + st * kBwdRows + i, qidg + r, in);
+      }
+      hopper::cp_async_mbar_arrive(&q_full[st]);
+      __syncwarp();
+      ++f_qi;
+      ++f_j;
+    }
+  };
+  // ------------------------------------------------------------ consumers
+  // feeder: warp 0, where no producer warpgroup feeds
+  auto consume = [&](bool feeder) {
+    const bool math = APEX_BWD_MATH || sq < 0;
+    const bool store_dq = APEX_BWD_STORE_DQ || sq < 0;
+    const float scale = a.scale, sl = a.scale_log2;
+    const float inv_sk = 1.f / sk;  // a fully masked row's weight per key
+    const int c0 = L::kDqOwn ? 0 : wg * (D / 2);  // its first dQ column
+    // this warp's output slice (boxes of 16 rows x 128 bytes)
+    unsigned char* out_w = smem + L::kOut + (wg * 4 + warp) * L::kSlice;
+    int kvc = 0, qc = 0, dqc = 0;
+    for (;; ++kvc) {
+      if (feeder) feed(qc + kStages, kvc + kKvBufs);
+      // the head the next K/V buffer holds: head v % hp of item v / hp
+      // (-1: none); one head a pass, so the packed kernel's loop is the
+      // unpacked kernel's
+      const int kb = kvc % kKvBufs;
+      hopper::mbar_wait(&kv_full[kb], (kvc / kKvBufs) & 1);
+      const int v = item_s[kb];
+      if (v < 0) break;
+      const BwdItem t(a, v / hp, hp, SEG);
+      const int bh = t.bh0 + v % hp, hh = bh % h;
+      const int k0w = t.k0 + wg * 64;  // the warpgroup's first key
+      const int key_a = k0w + r_a, key_b = key_a + 8;  // this thread's keys
+      // SEG: the keys' ids, and whether the warpgroup's 64 keys (those
+      // before sk) all carry one id kc (every warp reads all 64: the same
+      // answer in every warp of the warpgroup)
+      int kid_a = 0, kid_b = 0, kc = 0;
+      bool keys_one = false;
       if (SEG) {
-        const int* qid = qid_s + st * kBr;
-        const int c = qid[0];
-        per_score = !warp_one_segment(qid[lane] == c && qid[lane + 32] == c &&
-                                      kid_a == c && kid_b == c) ||
-                    (causal && k0 + warp * 16 + 15 > q0);
+        const int* kidg = a.kv_seg + t.b * a.kv_seg_sb;
+        if (key_a < sk) kid_a = kidg[key_a];
+        if (key_b < sk) kid_b = kidg[key_b];
+        kc = k0w < sk ? kidg[k0w] : 0;
+        const int x = k0w + lane, y = x + 32;
+        const int ix = x < sk ? kidg[x] : kc, iy = y < sk ? kidg[y] : kc;
+        keys_one = __all_sync(kFull, (ix == kc) & (iy == kc));
       }
-      if (per_score) {
-        const int* qid = qid_s + st * kBr;
+      const unsigned char* ks = k_s + kb * L::kKTile;
+      const unsigned char* vs = v_s + kb * L::kKTile;
+      // dk[4n + e], dv[4n + e]: keys r_a (e < 2) and r_a + 8 of the
+      // warpgroup's 64, d column 8n + 2 t4 + (e & 1)
+      float dk[D / 2], dv[D / 2];
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+      for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+      for (int j = t.j0; j < nq; ++j, ++qc) {
+        const int s = qc % kStages;
+        const int q0 = j * kBwdRows;
+        const unsigned char* qs = q_s + s * L::kQTile;
+        const unsigned char* dos = do_s + s * L::kQTile;
+        unsigned char* dsb = ds_s + (qc & 1) * L::kDsTile;
+        if (feeder) feed(qc + kStages, kvc + kKvBufs);
+        hopper::mbar_wait(&q_full[s], (qc / kStages) & 1);
+        // a tile none of whose scores counts (all its keys past sk, or
+        // above the diagonal of all its rows without segment ids) adds 0
+        // everywhere: no products, and with DQ a zero dS^T
+        const bool skip =
+            !math || k0w >= sk ||
+            (causal && !SEG && k0w > q0 + 63);
+        const float* ls = lse_s + s * kBwdRows;
+        const float* dls = dl_s + s * kBwdRows;
+        const int* qid = qid_s + s * kBwdRows;
+        bool per_score = false;  // SEG: the tile needs the id compares
+        bool edge = false;       // the tile crosses the diagonal or an end
+        if (!skip) {
+          if (SEG) {  // warpgroup-uniform: the same smem and registers
+            const bool q_one = __all_sync(
+                kFull, (q0 + lane >= sq || qid[lane] == kc) &
+                           (q0 + lane + 32 >= sq || qid[lane + 32] == kc));
+            per_score = !(keys_one && q_one) || (causal && k0w + 63 > q0);
+          }
+          edge = (k0w + 64 > sk) || (q0 + kBwdRows > sq) ||
+                 (causal && k0w + 63 > q0);
+        }
+        // DQ: this warpgroup's dS^T
+        unsigned char* dsw = dsb + wg * 64 * 128;
+        // the step's kHalves parts of kQc query rows, in turn
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = n * 8 + 2 * t4 + (e & 1);
-            const int key = e < 2 ? key_a : key_b;
-            float p_;
-            if (key >= sk || q0 + qc >= sq) {
-              p_ = 0.f;
-              masked |= 1u << (4 * n + e);
-            } else if ((e < 2 ? kid_a : kid_b) != qid[qc] ||
-                       (causal && key > q0 + qc)) {
-              p_ = ls[qc] < kDeadLse ? inv_sk : 0.f;
-              masked |= 1u << (4 * n + e);
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          constexpr int kQc = L::kQc;
+          const int qh = hf * kQc;  // the part's first row in the step
+          // P^T and dS^T rounded to bf16, as the m16n8k16 A fragments of
+          // the part's queries 16kk .. 16kk + 15
+          uint32_t pa[kQc / 16][4], da[kQc / 16][4];
+          if (!skip) {
+            // sc[4n + e], dp[4n + e]: keys r_a (e < 2) and r_a + 8, query
+            // qh + 8n + 2 t4 + (e & 1) of the step
+            float sc[kQc / 2], dp[kQc / 2];
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              const int ko =
+                  (kk / 4) * L::kKBlock + wg * 64 * 128 + (kk % 4) * 32;
+              const int qo = (kk / 4) * L::kQBlock + qh * 128 + (kk % 4) * 32;
+              hopper::wgmma_ss_bf16<0, 0>(
+                  sc, hopper::wgmma_desc(ks + ko, 16, 1024),
+                  hopper::wgmma_desc(qs + qo, 16, 1024), kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              const int ko =
+                  (kk / 4) * L::kKBlock + wg * 64 * 128 + (kk % 4) * 32;
+              const int qo = (kk / 4) * L::kQBlock + qh * 128 + (kk % 4) * 32;
+              hopper::wgmma_ss_bf16<0, 0>(
+                  dp, hopper::wgmma_desc(vs + ko, 16, 1024),
+                  hopper::wgmma_desc(dos + qo, 16, 1024), kk > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(sc);
+            hopper::fence_regs(dp);
+
+            if (per_score) {
+              // selects, not branches (see the forward)
+#pragma unroll
+              for (int n = 0; n < kQc / 8; ++n) {
+                const int qcol = qh + 8 * n + 2 * t4;
+                const float2 l2 =
+                    *reinterpret_cast<const float2*>(ls + qcol);
+                const float2 d2 =
+                    *reinterpret_cast<const float2*>(dls + qcol);
+                const int2 i2 = *reinterpret_cast<const int2*>(qid + qcol);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = q0 + qcol + (e & 1);
+                  const int key = e < 2 ? key_a : key_b;
+                  // the row's lse in log2 units
+                  const float l = ((e & 1) ? l2.y : l2.x) * kLog2e;
+                  const bool out = key >= sk || row >= sq;
+                  const bool msk = out ||
+                                   (e < 2 ? kid_a : kid_b) !=
+                                       ((e & 1) ? i2.y : i2.x) ||
+                                   (causal && key > row);
+                  float p_ = ex2(fmaf(sc[4 * n + e], sl, -l));
+                  p_ = msk ? (!out && l < kDeadLse ? inv_sk : 0.f) : p_;
+                  dp[4 * n + e] = msk ? 0.f
+                                      : p_ * (dp[4 * n + e] -
+                                              ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = p_;
+                }
+              }
+            } else if (edge) {
+              // the whole loop under the test, as in the forward
+#pragma unroll
+              for (int n = 0; n < kQc / 8; ++n) {
+                const int qcol = qh + 8 * n + 2 * t4;
+                const float2 l2 =
+                    *reinterpret_cast<const float2*>(ls + qcol);
+                const float2 d2 =
+                    *reinterpret_cast<const float2*>(dls + qcol);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = q0 + qcol + (e & 1);
+                  const int key = e < 2 ? key_a : key_b;
+                  float p_ = ex2(fmaf(sc[4 * n + e], sl,
+                                      -((e & 1) ? l2.y : l2.x) * kLog2e));
+                  p_ = key >= sk || row >= sq || (causal && key > row) ? 0.f
+                                                                        : p_;
+                  dp[4 * n + e] =
+                      p_ * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = p_;
+                }
+              }
             } else {
-              p_ = exp2f(s[n][e] * scale_log2 - ls[qc]);
+#pragma unroll
+              for (int n = 0; n < kQc / 8; ++n) {
+                const int qcol = qh + 8 * n + 2 * t4;
+                const float2 l2 =
+                    *reinterpret_cast<const float2*>(ls + qcol);
+                const float2 d2 =
+                    *reinterpret_cast<const float2*>(dls + qcol);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float p_ =
+                      ex2(fmaf(sc[4 * n + e], sl,
+                               -((e & 1) ? l2.y : l2.x) * kLog2e));
+                  dp[4 * n + e] =
+                      p_ * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = p_;
+                }
+              }
             }
-            s[n][e] = p_;
+#pragma unroll
+            for (int kk = 0; kk < kQc / 16; ++kk) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                pa[kk][i] =
+                    pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+                da[kk][i] =
+                    pack_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1]);
+              }
+            }
+          }
+          if constexpr (DQ) {
+            // dS^T to shared memory: row r_a (+8) of the warpgroup's keys,
+            // queries qh + 16kk + 8 (i >> 1) + 2 t4 (chunk qh / 8 + 2kk +
+            // (i >> 1))
+#pragma unroll
+            for (int kk = 0; kk < kQc / 16; ++kk)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                *reinterpret_cast<uint32_t*>(
+                    swz(dsw, r_a + (i & 1) * 8, qh / 8 + 2 * kk + (i >> 1)) +
+                    4 * t4) = skip ? 0u : da[kk][i];
+          }
+          if (!skip) {
+            hopper::fence_regs(dk);
+            hopper::fence_regs(dv);
+            hopper::wgmma_fence();  // P^T, dS^T and dK, dV are in registers
+#pragma unroll
+            for (int kk = 0; kk < kQc / 16; ++kk)
+              hopper::wgmma_rs_bf16<1>(
+                  dv, pa[kk],
+                  hopper::wgmma_desc(dos + (qh / 16 + kk) * 2048, L::kQBlock,
+                                     1024),
+                  1);
+#pragma unroll
+            for (int kk = 0; kk < kQc / 16; ++kk)
+              hopper::wgmma_rs_bf16<1>(
+                  dk, da[kk],
+                  hopper::wgmma_desc(qs + (qh / 16 + kk) * 2048, L::kQBlock,
+                                     1024),
+                  1);
+            hopper::wgmma_commit();
+            // the next part redefines pa and da: this part's products
+            // must have read them
+            if (hf + 1 < L::kHalves) {
+              hopper::wgmma_wait<0>();
+              hopper::fence_regs(dk);
+              hopper::fence_regs(dv);
+            }
           }
         }
-      } else {
-        const bool edge = (k0 + kBc > sk) || (q0 + kBr > sq) ||
-                          (causal && k0 + warp * 16 + 15 > q0);
+        if constexpr (DQ) hopper::fence_proxy_async();  // for wgmma's reads
+        // dq[4n + e]: query rows r_a (e < 2) and r_a + 8 of the step,
+        // column c0 + 8n + 2 t4 + (e & 1)
+        float dq[L::kDqCols / 2];
+        if constexpr (DQ) {
+          if (!L::kOverlap) {
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dk);
+            hopper::fence_regs(dv);
+          }
+          // both warpgroups' dS^T are in shared memory
+          if (L::kDqOwn)
+            hopper::named_barrier_sync(1 + wg, 128);
+          else
+            hopper::named_barrier_sync(1, 256);
+          if (math) {
+            // kDqOwn: the warpgroup's own dS^T rows and K rows
+            const int own = L::kDqOwn ? wg * 64 * 128 : 0;
+            const unsigned char* kc0 =
+                ks + (c0 / 64) * L::kKBlock + (c0 % 64) * 2 + own;
+            hopper::wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < 8; ++n) {
+            for (int kk = 0; kk < (L::kDqOwn ? 64 : kBwdKeys) / 16; ++kk)
+              hopper::wgmma_ss_bf16<1, 1>(
+                  dq,
+                  hopper::wgmma_desc(dsb + own + kk * 2048, L::kDsTile,
+                                     1024),
+                  hopper::wgmma_desc(kc0 + kk * 2048, L::kKBlock, 1024),
+                  kk > 0);
+            hopper::wgmma_commit();
+          }
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dk);
+        hopper::fence_regs(dv);
+        if constexpr (DQ) hopper::fence_regs(dq);
+        // Q and dO are read: the stage may be refilled
+        if (lane == 0) hopper::mbar_arrive(&q_empty[s]);
+        __syncwarp();
+
+        if constexpr (DQ) {
+          if (store_dq) {
+            const int qa = q0 + r_a;
+            if (APEX_BWD_DQ_RED) {
+              float* dqg =
+                  a.dq_acc + ((long long)bh * sq) * D + c0 + 2 * t4;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qc = n * 8 + 2 * t4 + (e & 1);
-            float p_ = exp2f(s[n][e] * scale_log2 - ls[qc]);
-            if (edge) {
-              const int key = e < 2 ? key_a : key_b;
-              if (key >= sk || q0 + qc >= sq || (causal && key > q0 + qc))
-                p_ = 0.f;
+              for (int n = 0; n < L::kDqCols / 8; ++n) {
+                if (qa < sq)
+                  atomicAdd(reinterpret_cast<float2*>(
+                                dqg + (long long)qa * D + 8 * n),
+                            make_float2(scale * dq[4 * n],
+                                        scale * dq[4 * n + 1]));
+                if (qa + 8 < sq)
+                  atomicAdd(reinterpret_cast<float2*>(
+                                dqg + (long long)(qa + 8) * D + 8 * n),
+                            make_float2(scale * dq[4 * n + 2],
+                                        scale * dq[4 * n + 3]));
+              }
+            } else {
+              // the slice's buffer is free once the reduce-add that read it
+              // kDqBufs steps ago (or the previous head's stores) has
+              if (lane == 0) {
+                if (j == t.j0)
+                  hopper::bulk_wait_read<0>();
+                else
+                  hopper::bulk_wait_read<L::kDqBufs - 1>();
+              }
+              __syncwarp();
+              // fp32 boxes of 32 columns x 16 rows; column c0 + 8n + 2 t4
+              // is in box n / 4, chunk 2 (n % 4) + (t4 >> 1)
+              unsigned char* buf =
+                  out_w + (dqc % L::kDqBufs) * (L::kDqCols / 32) * 2048;
+#pragma unroll
+              for (int n = 0; n < L::kDqCols / 8; ++n) {
+                unsigned char* box = buf + (n / 4) * 2048;
+                const int ch = 2 * (n % 4) + (t4 >> 1);
+                *reinterpret_cast<float2*>(swz(box, g, ch) + 8 * (t4 & 1)) =
+                    make_float2(scale * dq[4 * n], scale * dq[4 * n + 1]);
+                *reinterpret_cast<float2*>(swz(box, g + 8, ch) +
+                                           8 * (t4 & 1)) =
+                    make_float2(scale * dq[4 * n + 2], scale * dq[4 * n + 3]);
+              }
+              hopper::fence_proxy_async();
+              __syncwarp();
+              if (lane == 0) {
+#pragma unroll
+                for (int x = 0; x < L::kDqCols / 32; ++x)
+                  put_rows(&a.dq, a.order_dq, buf + x * 2048, c0 + 32 * x,
+                           q0 + warp * 16, hh, t.b, true);
+                hopper::bulk_commit();
+              }
+              __syncwarp();
+              ++dqc;
             }
-            s[n][e] = p_;
           }
         }
       }
+      // K and V are no longer read (the head's last products are done)
+      if (lane == 0) hopper::mbar_arrive(&kv_empty[kb]);
+      __syncwarp();
 
-      // dV += P^T dO, p rounded to bf16
+      // dk (scaled) and dv: this warp's 16 keys through its slice, boxes
+      // of 64 columns x 16 rows; column 8n + 2 t4 is in box n / 8, chunk
+      // n % 8
+      if (lane == 0) hopper::bulk_wait_read<0>();
+      __syncwarp();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        mma_tile_b<S, D / 16>(dva, pa, dos, kk * 16, lane);
+      for (int n = 0; n < D / 8; ++n) {
+        unsigned char* bk = out_w + (n / 8) * 2048;
+        unsigned char* bv = bk + (D / 64) * 2048;
+        *reinterpret_cast<uint32_t*>(swz(bk, g, n % 8) + 4 * t4) =
+            pack_bf16(scale * dk[4 * n], scale * dk[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(swz(bk, g + 8, n % 8) + 4 * t4) =
+            pack_bf16(scale * dk[4 * n + 2], scale * dk[4 * n + 3]);
+        *reinterpret_cast<uint32_t*>(swz(bv, g, n % 8) + 4 * t4) =
+            pack_bf16(dv[4 * n], dv[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(swz(bv, g + 8, n % 8) + 4 * t4) =
+            pack_bf16(dv[4 * n + 2], dv[4 * n + 3]);
       }
-
-      // dP^T = V dO^T
-      float dp[8][4];
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a<D>(a, v_s, warp * 16, kk * 16, g, t4);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const bf16* dr = dos + (n * 8 + g) * S + kk * 16 + 2 * t4;
-          mma16816(dp[n], a, ld32(dr), ld32(dr + 8));
+        for (int x = 0; x < D / 64; ++x) {
+          put_rows(&a.dk, a.order_dkv, out_w + x * 2048, 64 * x,
+                   k0w + warp * 16, hh, t.b, false);
+          put_rows(&a.dv, a.order_dkv, out_w + (D / 64 + x) * 2048, 64 * x,
+                   k0w + warp * 16, hh, t.b, false);
         }
+        hopper::bulk_commit();
       }
-
-      // dS^T = P (dP - delta), fp32 p; 0 where masked
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[n][e] = SEG && (masked >> (4 * n + e)) & 1u
-                         ? 0.f
-                         : s[n][e] * (dp[n][e] - dls[n * 8 + 2 * t4 + (e & 1)]);
-
-      // dK += dS^T Q (ds rounded to bf16; scale applied at the end)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                                pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                                pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-        mma_tile_b<S, D / 16>(dka, da, qs, kk * 16, lane);
-      }
-
-      if constexpr (DQ) {
-        // dS^T to shared memory: dQ needs it with queries as rows
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int c = n * 8 + 2 * t4;
-          bf16* row = ds_s + (warp * 16 + g) * kDsStride + c;
-          *reinterpret_cast<uint32_t*>(row) = pack_bf16(dp[n][0], dp[n][1]);
-          *reinterpret_cast<uint32_t*>(row + 8 * kDsStride) =
-              pack_bf16(dp[n][2], dp[n][3]);
-        }
-        __syncthreads();
-
-        // dQ (this warp's 16 queries) += scale dS K, summed across key
-        // blocks with atomics
-        float dqa[D / 8][4];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          uint32_t a[4];
-          ldsm_x4_t(a[0], a[1], a[2], a[3],
-                    ds_s + (kk * 16 + (lane & 7) + (lane >> 4) * 8) *
-                               kDsStride +
-                        warp * 16 + ((lane >> 3) & 1) * 8);
-          mma_tile_b<S, D / 16>(dqa, a, k_s, kk * 16, lane);
-        }
-        // 2-wide atomics (red.global.add.v2.f32): a lane's two adjacent
-        // columns of each row go in one instruction
-        const int qr_a = q0 + warp * 16 + g, qr_b = qr_a + 8;
-        float* dqg = dq_acc + (long long)bh * sq * D + 2 * t4;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          float* ra = dqg + (long long)qr_a * D + n * 8;
-          float* rb = dqg + (long long)qr_b * D + n * 8;
-          if (qr_a < sq)
-            atomicAdd(reinterpret_cast<float2*>(ra),
-                      make_float2(scale * dqa[n][0], scale * dqa[n][1]));
-          if (qr_b < sq)
-            atomicAdd(reinterpret_cast<float2*>(rb),
-                      make_float2(scale * dqa[n][2], scale * dqa[n][3]));
-        }
-      }
-      __syncthreads();  // ds_s and this stage are rewritten next iteration
+      __syncwarp();
     }
-    cp_async_wait<0>();  // a head with no q step still has copies in flight
+    if (lane == 0) hopper::bulk_wait_all();  // the last stores are complete
+  };
 
-    // the next head's tiles fly while this head's dk and dv are written
-    if (p + 1 < hp) prologue(bh + 1);
-
-    bf16* dkg = dk + (long long)bh * sk * D;
-    bf16* dvg = dv + (long long)bh * sk * D;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int c = n * 8 + 2 * t4;
-      if (key_a < sk) {
-        *reinterpret_cast<uint32_t*>(dkg + (long long)key_a * D + c) =
-            pack_bf16(scale * dka[n][0], scale * dka[n][1]);
-        *reinterpret_cast<uint32_t*>(dvg + (long long)key_a * D + c) =
-            pack_bf16(dva[n][0], dva[n][1]);
-      }
-      if (key_b < sk) {
-        *reinterpret_cast<uint32_t*>(dkg + (long long)key_b * D + c) =
-            pack_bf16(scale * dka[n][2], scale * dka[n][3]);
-        *reinterpret_cast<uint32_t*>(dvg + (long long)key_b * D + c) =
-            pack_bf16(dva[n][2], dva[n][3]);
-      }
+  if constexpr (L::kProducerWg) {
+    // the role from warp 0's lane: warp-uniform to the compiler, and the
+    // two branches apart to the end, so ptxas keeps the consumers' code
+    // free of spills
+    const int role = __shfl_sync(kFull, static_cast<int>(threadIdx.x / 128),
+                                 0);
+    if (role == 2) {
+      // one warp feeds until the items run out, waiting on the empty
+      // barriers alone
+      hopper::setmaxnreg_dec<40>();
+      if (threadIdx.x < 256 + 32) feed(1 << 30, 1 << 30);
+    } else {
+      hopper::setmaxnreg_inc<232>();
+      consume(false);
     }
+  } else {
+    consume(threadIdx.x < 32);
   }
 }
 
-#define BWD_PARAMS                                                           \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                   \
-      const bf16 *__restrict__ v, const bf16 *__restrict__ dout,            \
-      const float *__restrict__ lse, const float *__restrict__ delta,       \
-      float *__restrict__ dq_acc, bf16 *__restrict__ dk,                    \
-      bf16 *__restrict__ dv, long long q_sb, long long q_sh, long long q_ss, \
-      long long k_sb, long long k_sh, long long k_ss, long long v_sb,       \
-      long long v_sh, long long v_ss, long long o_sb, long long o_sh,       \
-      long long o_ss, int h, int sq, int sk, float scale, float scale_log2, \
-      int causal, const int *__restrict__ q_seg,                            \
-      const int *__restrict__ kv_seg, long long q_seg_sb, long long kv_seg_sb
-#define BWD_ARGS                                                             \
-  q, k, v, dout, lse, delta, dq_acc, dk, dv, q_sb, q_sh, q_ss, k_sb, k_sh,   \
-      k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, h, sq, sk, scale,           \
-      scale_log2, causal, q_seg, kv_seg, q_seg_sb, kv_seg_sb
-
-// one block per (64 keys, batch*head); causal: low key blocks have the
-// most work
+// one block an SM, walking the work items of (128 keys, batch*head); DQ:
+// the fused kernel, else the split route's dk/dv pass
 template <int D, bool SEG, bool DQ>
-__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(BWD_PARAMS) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_heads<D, SEG, DQ>(BWD_ARGS, blockIdx.y, 1, blockIdx.x, smem_raw);
+__global__ void __launch_bounds__(BwdSmem<D, SEG, DQ>::kThreads, 1)
+    flash_bwd_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  bwd_items<D, SEG, DQ>(a, 1, hopper::align1024(smem_raw));
 }
 
-// the port of _bwd_fused_kernel_packed: one block per (64 keys, group of
-// hp heads of one batch row), the heads walked in turn, dq by atomics
+// the port of _bwd_fused_kernel_packed: one block an SM, walking the work
+// items of (128 keys, group of hp heads of one batch row), the heads in
+// turn, dq by the same reduce-adds
 template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_packed_kernel(BWD_PARAMS, int hp) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_heads<D, SEG, true>(BWD_ARGS, blockIdx.y * hp, hp, blockIdx.x,
-                          smem_raw);
+__global__ void __launch_bounds__(BwdSmem<D, SEG, true>::kThreads, 1)
+    flash_bwd_packed_kernel(const __grid_constant__ BwdArgs a, int hp) {
+  extern __shared__ unsigned char smem_raw[];
+  bwd_items<D, SEG, true>(a, hp, hopper::align1024(smem_raw));
 }
 
 // ---------------------------------------------------- backward, dq pass ----
@@ -1313,16 +1750,20 @@ cudaError_t opt_in(K kernel, size_t smem, bool& done) {
 // read at 0), so the map nests however the view is strided (the training
 // path's q, k and v are views of one packed qkv, with the head stride
 // below the sequence stride).  `order` gets the slots of s, h and b, as
-// load_rows reads them.  0, or hopper::kTensorMapError + the CUresult.
+// load_rows reads them.  `type`: bf16, or fp32 (dq_acc: boxes of 32
+// columns, 128 bytes as a bf16 box's 64).  0, or hopper::kTensorMapError +
+// the CUresult.
 int map_bhsd(CUtensorMap* map, int* order, const void* base,
-             const long long* st, int b, int h, int s, int D, int rows) {
+             const long long* st, int b, int h, int s, int D, int rows,
+             CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const int es = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   struct Axis {
     cuuint64_t n, stride;
     int which;  // 0 s, 1 h, 2 b
   };
-  Axis ax[3] = {{cuuint64_t(s), cuuint64_t(st[2]) * 2, 0},
-                {cuuint64_t(h), cuuint64_t(st[1]) * 2, 1},
-                {cuuint64_t(b), cuuint64_t(st[0]) * 2, 2}};
+  Axis ax[3] = {{cuuint64_t(s), cuuint64_t(st[2]) * es, 0},
+                {cuuint64_t(h), cuuint64_t(st[1]) * es, 1},
+                {cuuint64_t(b), cuuint64_t(st[0]) * es, 2}};
   auto later = [](const Axis& x, const Axis& y) {
     return (x.n == 1) != (y.n == 1) ? x.n == 1 : x.stride > y.stride;
   };
@@ -1334,8 +1775,8 @@ int map_bhsd(CUtensorMap* map, int* order, const void* base,
     }
   cuuint64_t dims[4] = {cuuint64_t(D), 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 1, 1, 1};
-  cuuint64_t span = cuuint64_t(D) * 2;
+  cuuint32_t box[4] = {cuuint32_t(128 / es), 1, 1, 1};
+  cuuint64_t span = cuuint64_t(D) * es;
   int ord = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = ax[i].n;
@@ -1345,8 +1786,7 @@ int map_bhsd(CUtensorMap* map, int* order, const void* base,
     ord |= (i + 1) << (2 * ax[i].which);
   }
   *order = ord;
-  return hopper::make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                                 base, dims, strides, box);
+  return hopper::make_tensor_map(map, type, 4, base, dims, strides, box);
 }
 
 // the segment ids of one call: both null (no segments) or both set
@@ -1380,11 +1820,13 @@ int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
   return e;
 }
 
-// the forward's grid: one block an SM, or one a work item when there are
-// fewer; 0 when the device cannot be asked
-int fwd_grid(int b, int h, int sq, int hp, int rows) {
+// a persistent grid over work items of `rows` rows of s (query rows in
+// the forward, keys in the backward) x groups of hp heads: one block an
+// SM, or one a work item when there are fewer; 0 when the device cannot be
+// asked
+int item_grid(int b, int h, int s, int hp, int rows) {
   const int sms = hopper::sm_count();
-  const long long items = (long long)((sq + rows - 1) / rows) * (b * h / hp);
+  const long long items = (long long)((s + rows - 1) / rows) * (b * h / hp);
   return static_cast<int>(items < sms ? items : sms);
 }
 
@@ -1401,7 +1843,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   constexpr size_t smem = L::kBytes;
   const cudaError_t ce = opt_in(flash_fwd_kernel<D, SEG>, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
-  const int grid = fwd_grid(b, h, sq, 1, L::kRows);
+  const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -1428,56 +1870,91 @@ int launch_fwd_packed(const void* q, const void* k, const void* v, void* o,
       base + (res_ids ? size_t((sk + kFwdKeys - 1) / kFwdKeys * kFwdKeys) *
                             sizeof(int)
                       : 0);
-  const int grid = fwd_grid(b, h, sq, hp, L::kRows);
+  const int grid = item_grid(b, h, sq, hp, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   flash_fwd_packed_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(
       a, hp, res_ids);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool SEG, bool DQ>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq_acc, void* dk, void* dv, const long long* st,
-                       int b, int h, int sq, int sk, float scale, int causal,
-                       Seg seg, cudaStream_t stream) {
-  static bool opted = false;
-  constexpr size_t smem = bwd_smem<D, SEG, DQ>();
-  cudaError_t e = opt_in(flash_bwd_kernel<D, SEG, DQ>, smem, opted);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sk + kBc - 1) / kBc, b * h);
-  flash_bwd_kernel<D, SEG, DQ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
-      causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
-  return cudaGetLastError();
+// one backward launch's arguments, its tensor maps built for this call:
+// q, k, v, dout strided as `st` gives them (12 values), dk, dv (and with
+// dq_acc, dq) contiguous
+int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
+             const void* dout, const void* lse, const void* delta,
+             void* dq_acc, void* dk, void* dv, void* work,
+             const long long* st, int b, int h, int sq, int sk, float scale,
+             int causal, int hp, Seg seg) {
+  *a = BwdArgs{};
+  int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, kBwdRows);
+  if (e == 0)
+    e = map_bhsd(&a->k, &a->order_k, k, st + 3, b, h, sk, D, kBwdKeys);
+  if (e == 0)
+    e = map_bhsd(&a->v, &a->order_v, v, st + 6, b, h, sk, D, kBwdKeys);
+  if (e == 0)
+    e = map_bhsd(&a->dout, &a->order_do, dout, st + 9, b, h, sq, D,
+                 kBwdRows);
+  // the output slices' boxes: 16 rows of one consumer warp
+  const long long ok[3] = {(long long)h * sk * D, (long long)sk * D, D};
+  if (e == 0) e = map_bhsd(&a->dk, &a->order_dkv, dk, ok, b, h, sk, D, 16);
+  int order_dv = 0;
+  if (e == 0) e = map_bhsd(&a->dv, &order_dv, dv, ok, b, h, sk, D, 16);
+  if (e == 0 && dq_acc != nullptr) {
+    const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
+    e = map_bhsd(&a->dq, &a->order_dq, dq_acc, oq, b, h, sq, D, 16,
+                 CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
+  }
+  a->lse = static_cast<const float*>(lse);
+  a->delta = static_cast<const float*>(delta);
+  a->dq_acc = static_cast<float*>(dq_acc);
+  a->work = static_cast<int*>(work);
+  a->h = h;
+  a->sq = sq;
+  a->sk = sk;
+  a->groups = b * h / hp;
+  a->scale = scale;
+  a->scale_log2 = scale * kLog2e;
+  a->causal = causal;
+  a->q_seg = seg.q;
+  a->kv_seg = seg.kv;
+  a->q_seg_sb = seg.q_sb;
+  a->kv_seg_sb = seg.kv_sb;
+  return e;
 }
 
-template <int D, bool SEG>
-cudaError_t launch_bwd_packed(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* delta, void* dq_acc, void* dk,
-                              void* dv, const long long* st, int b, int h,
-                              int sq, int sk, float scale, int causal, int hp,
-                              Seg seg, cudaStream_t stream) {
-  static bool opted = false;
-  constexpr size_t smem = bwd_smem<D, SEG, true>();
-  cudaError_t e = opt_in(flash_bwd_packed_kernel<D, SEG>, smem, opted);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sk + kBc - 1) / kBc, b * h / hp);
-  flash_bwd_packed_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale, scale * kLog2e,
-      causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb, hp);
-  return cudaGetLastError();
+// DQ: the fused kernel (hp = 1) or the packed one (hp > 1); else the
+// dk/dv pass (hp = 1)
+template <int D, bool SEG, bool DQ>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq_acc, void* dk,
+               void* dv, void* work, const long long* st, int b, int h,
+               int sq, int sk, float scale, int causal, int hp, Seg seg,
+               cudaStream_t stream) {
+  using L = BwdSmem<D, SEG, DQ>;
+  if ((!DQ && hp != 1) || work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a;
+  const int e = bwd_args(&a, D, q, k, v, dout, lse, delta,
+                         DQ ? dq_acc : nullptr, dk, dv, work, st, b, h, sq,
+                         sk, scale, causal, hp, seg);
+  if (e != 0) return e;
+  const int grid = item_grid(b, h, sk, hp, kBwdKeys);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = L::kBytes;
+  cudaError_t ce;
+  if (hp == 1) {
+    static bool opted = false;
+    ce = opt_in(flash_bwd_kernel<D, SEG, DQ>, smem, opted);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    flash_bwd_kernel<D, SEG, DQ><<<grid, L::kThreads, smem, stream>>>(a);
+  } else if constexpr (DQ) {
+    static bool opted = false;
+    ce = opt_in(flash_bwd_packed_kernel<D, SEG>, smem, opted);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    flash_bwd_packed_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(
+        a, hp);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, bool SEG>
@@ -1557,12 +2034,14 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
 // The fused backward: as above, plus dout (strided like q; its strides
 // follow q, k, v's in `strides`, 12 values), lse and delta (b, h, sq) fp32
 // contiguous, dq_acc (b, h, sq, d) fp32 contiguous and ZEROED (dq is added
-// into it, scaled), dk and dv (b, h, sk, d) bf16 contiguous.
+// into it, scaled), dk and dv (b, h, sk, d) bf16 contiguous, and `work`,
+// one ZEROED int32 (the launch's work-item counter).
 extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    void* dq_acc, void* dk, void* dv,
-                                   const long long* strides, int b, int h,
+                                   void* work, const long long* strides,
+                                   int b, int h,
                                    int sq, int sk, float scale, int causal,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
@@ -1571,8 +2050,8 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
     return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true>(
-        q, k, v, dout, lse, delta, dq_acc, dk, dv, strides, b, h, sq, sk,
-        scale, causal, seg, s);
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
+        sk, scale, causal, 1, seg, s);
   });
 }
 
@@ -1603,7 +2082,8 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
                                        const void* delta, void* dk, void* dv,
-                                       const long long* strides, int b,
+                                       void* work, const long long* strides,
+                                       int b,
                                        int h, int sq, int sk, float scale,
                                        int causal, const void* q_seg,
                                        const void* kv_seg, long long q_seg_sb,
@@ -1612,9 +2092,24 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
     return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, strides, b, h, sq, sk,
-        scale, causal, seg, s);
+        q, k, v, dout, lse, delta, nullptr, dk, dv, work, strides, b, h, sq,
+        sk, scale, causal, 1, seg, s);
   });
+}
+
+// The dynamic shared memory a backward launch asks for (head_dim 64 or
+// 128; `seg`: with segment ids; `dq`: the fused and packed kernels, else
+// the dk/dv pass), in bytes; -1 for another head_dim.
+extern "C" int apex_flash_attn_bwd_smem(int head_dim, int seg, int dq) {
+  auto of = [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return static_cast<int>(
+        seg ? (dq ? BwdSmem<D, true, true>::kBytes
+                  : BwdSmem<D, true, false>::kBytes)
+            : (dq ? BwdSmem<D, false, true>::kBytes
+                  : BwdSmem<D, false, false>::kBytes));
+  };
+  return head_dim == 64 ? of(Dim<64>{}) : head_dim == 128 ? of(Dim<128>{}) : -1;
 }
 
 // The packed forward (_fwd_kernel_packed): apex_flash_attn_fwd's arguments
@@ -1641,16 +2136,16 @@ extern "C" int apex_flash_attn_fwd_packed(
 extern "C" int apex_flash_attn_bwd_packed(
     int head_dim, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta, void* dq_acc,
-    void* dk, void* dv, const long long* strides, int b, int h, int sq,
-    int sk, float scale, int causal, int hp, const void* q_seg,
+    void* dk, void* dv, void* work, const long long* strides, int b, int h,
+    int sq, int sk, float scale, int causal, int hp, const void* q_seg,
     const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
     void* stream) {
   if (hp < 1 || h % hp) return static_cast<int>(cudaErrorInvalidValue);
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_bwd_packed<decltype(d)::value, decltype(has_seg)::value>(
-        q, k, v, dout, lse, delta, dq_acc, dk, dv, strides, b, h, sq, sk,
-        scale, causal, hp, seg, s);
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true>(
+        q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
+        sk, scale, causal, hp, seg, s);
   });
 }

@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory,
 // as inline PTX in the style of their cp.async / ldmatrix helpers:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
-//     and a parity wait;
+//     an expected count alone, a parity wait, and the arrival of a
+//     thread's 4-byte cp.async copies once they land;
 //   * TMA: cp.async.bulk.tensor loads of 2-D and 4-D boxes into shared
-//     memory, completing on an mbarrier, and 2-D stores from it;
+//     memory, completing on an mbarrier, 2-D and 4-D stores from it, and
+//     the 4-D bulk reduce-add (cp.reduce.async.bulk.tensor ... .add) of
+//     an fp32 box into device memory;
 //   * wgmma: the shared-memory matrix descriptor (128-byte swizzle), the
 //     fence / commit / wait trio, and the m64nNk16 shapes the kernels
 //     issue (generated operand lists: one "+f" per accumulator register);
@@ -75,6 +78,34 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                : "memory");
 }
 
+// expect `bytes` more from TMA before the phase completes, without
+// arriving
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes from device memory at `src` to shared memory at `dst` by
+// cp.async, or 4 zero bytes (nothing read) where `valid` is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued before it
+// has landed (counted against the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
   asm volatile(
@@ -138,6 +169,30 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// one box from shared memory at `src` added element by element into the
+// tensor map's box at those coordinates (the map's element type: fp32 for
+// the kernels' sums), atomically in the L2; writes past the extents are
+// dropped.  Tracked by the issuing thread's bulk group, as a store is
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.tile"
+      ".bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -189,6 +244,40 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // The m64nNk16 shapes the kernels issue.
+
+// d (64 x 32 fp32) = [d +] a (64 x 16) b (16 x 32), bf16 operands both
+// read from shared memory through descriptors; TA / TB: 1 where that
+// operand is MN-major; `accumulate` 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d (64 x 64 fp32) = [d +] a (64 x 16) b (16 x 64), bf16 operands both
+// read from shared memory through descriptors; TA / TB: 1 where that
+// operand is MN-major; `accumulate` 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
 
 // d (64 x 128 fp32) = [d +] a (64 x 16) b (16 x 128), bf16 operands both
 // read from shared memory through descriptors; TA / TB: 1 where that

@@ -91,9 +91,10 @@ def backward_route(sk: int, head_dim: int, heads_per_step: int = 1) -> str:
 # The JAX package's block and packing knobs and its tuner lookup, with the
 # same results and warnings.  The CUDA kernels keep their own tiles
 # whatever the blocks say (the forward 192 query rows at d=64, 128 at
-# d=128, x 128 keys; the backward 64 x 64): block_q / block_k are validated (a tuned or explicit
-# block that does not divide the sequence warns once) and not otherwise
-# read.
+# d=128, x 128 keys; the fused backward and the dk/dv pass 128 keys x 64
+# query rows, the dq pass 64 x 64): block_q / block_k are validated (a
+# tuned or explicit block that does not divide the sequence warns once)
+# and not otherwise read.
 
 _BLOCK_FALLBACK_WARNED = set()
 # the tuner's cap on hp * block_q * block_k (the JAX package's, :1135)
@@ -300,18 +301,19 @@ def _bind(lib):
     lib.apex_flash_attn_fwd.argtypes = [
         i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
         *seg, vp]
+    # the backward kernels take a zeroed int32 work-item counter after dv
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
-        f32, i32, *seg, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32,
+        i32, f32, i32, *seg, vp]
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
         *seg, vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
-        i32, *seg, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
+        f32, i32, *seg, vp]
     # the packed pair: the unpacked arguments with hp after `causal`
     lib.apex_flash_attn_fwd_packed.restype = i32
     lib.apex_flash_attn_fwd_packed.argtypes = [
@@ -319,8 +321,11 @@ def _bind(lib):
         *seg, vp]
     lib.apex_flash_attn_bwd_packed.restype = i32
     lib.apex_flash_attn_bwd_packed.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
-        f32, i32, i32, *seg, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32,
+        i32, f32, i32, i32, *seg, vp]
+    # the backward's dynamic shared memory: (head_dim, seg, dq) -> bytes
+    lib.apex_flash_attn_bwd_smem.restype = i32
+    lib.apex_flash_attn_bwd_smem.argtypes = [i32, i32, i32]
     return lib
 
 
@@ -395,7 +400,10 @@ def _seg_args(q_seg, kv_seg, b, sq, sk):
             out[1].stride(0)], out
 
 
-def _raise_fwd_error(err, what):
+def _raise_launch_error(err, what):
+    """Raise for a launcher's return code: 0 is a launch; a code at or
+    above `TENSOR_MAP_ERROR` is a tensor map the driver refused (its
+    CUresult added), anything else a CUDA error."""
     from apex_tpu_torch.csrc import TENSOR_MAP_ERROR
 
     if err >= TENSOR_MAP_ERROR:
@@ -425,7 +433,7 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), *seg, stream)
-    _raise_fwd_error(err, "forward")
+    _raise_launch_error(err, "forward")
     flash_fwd_cuda.launches += 1
     return o, lse
 
@@ -460,7 +468,7 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), hp, *seg, stream)
-    _raise_fwd_error(err, "packed forward")
+    _raise_launch_error(err, "packed forward")
     flash_fwd_packed_cuda.launches += 1
     return o, lse
 
@@ -498,30 +506,37 @@ def _bwd_operands(q, k, v, do, lse, delta, q_seg, kv_seg):
     return q, k, v, do, seg, keep
 
 
+def _dq_scratch(b, h, sq, d, device):
+    """The fused kernels' zeroed scratch, from one allocation: dq_acc
+    (b, h, sq, d) fp32, and after it the launch's int32 work-item
+    counter (its address), which starts at 0 (the bits of 0.0)."""
+    n = b * h * sq * d
+    buf = torch.zeros(n + 4, dtype=torch.float32, device=device)
+    return buf[:n].view(b, h, sq, d), buf.data_ptr() + 4 * n
+
+
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                    kv_seg=None):
     """Launch the fused backward kernel on the current stream: dq, dk, dv
     from q, k, v, the output gradient `do`, the forward's fp32 `lse` and
     `delta = sum(do * o, -1)` in fp32, with the forward's segment ids.
-    dq is summed across key blocks in an fp32 scratch buffer by atomics
-    and cast once.  `flash_bwd_cuda.launches` counts launches."""
+    dq is summed across key tiles in an fp32 scratch buffer by bulk
+    reduce-adds and cast once.  `flash_bwd_cuda.launches` counts
+    launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32,
-                         device=q.device)
+    dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention backward launch failed: CUDA "
-                           f"error {err}")
+        dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
+        float(scale), int(bool(causal)), *seg, stream)
+    _raise_launch_error(err, "backward")
     flash_bwd_cuda.launches += 1
     return dq_acc.to(q.dtype), dk, dv
 
@@ -534,26 +549,23 @@ def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
     """Launch the packed fused backward kernel on the current stream: the
     arguments of `flash_bwd_cuda` and `hp` (dividing h).  dk and dv are
     `flash_bwd_cuda`'s bit for bit; dq is summed by the same fp32
-    atomics, whose order changes from run to run.
+    reduce-adds, whose order changes from run to run.
     `flash_bwd_packed_cuda.launches` counts launches."""
     _check_heads_per_step(hp, q.shape[1])
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dq_acc = torch.zeros((b, h, sq, d), dtype=torch.float32,
-                         device=q.device)
+    dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd_packed(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), hp, *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention packed backward launch failed: "
-                           f"CUDA error {err}")
+        dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
+        float(scale), int(bool(causal)), hp, *seg, stream)
+    _raise_launch_error(err, "packed backward")
     flash_bwd_packed_cuda.launches += 1
     return dq_acc.to(q.dtype), dk, dv
 
@@ -578,9 +590,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do), b, h, sq, sk, float(scale),
         int(bool(causal)), *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention dq pass launch failed: CUDA "
-                           f"error {err}")
+    _raise_launch_error(err, "dq pass")
     flash_bwd_dq_cuda.launches += 1
     return dq
 
@@ -600,15 +610,14 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
     sk = k.shape[2]
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+    work = torch.zeros(4, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd_dkv(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _strides(q, k, v, do), b, h, sq, sk, float(scale),
+        work.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
         int(bool(causal)), *seg, stream)
-    if err != 0:
-        raise RuntimeError(f"flash attention dk/dv pass launch failed: "
-                           f"CUDA error {err}")
+    _raise_launch_error(err, "dk/dv pass")
     flash_bwd_dkv_cuda.launches += 1
     return dk, dv
 
@@ -675,8 +684,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     block_q / block_k / heads_per_step: the kernel-shape knobs.  The
     CUDA kernels keep their own tiles (forward 192 or 128 query rows x
-    128 keys, backward 64 x 64): block_q and block_k are validated as
-    the JAX package validates them (one that does not divide the
+    128 keys, backward 128 keys x 64 rows): block_q and block_k are
+    validated as the JAX package validates them (one that does not divide the
     sequence warns once) and not otherwise read.  heads_per_step > 1
     runs the packed kernels, hp heads of one batch row per block (one
     that does not divide h warns once and runs unpacked).  When all

@@ -7,13 +7,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
   1. device      the card's name and power limit, as nvidia-smi gives
                  them; the kernels are built from this checkout's
-                 sources (nvcc for the CUDA C++, Triton's JIT).
+                 sources (nvcc for the CUDA C++, Triton's JIT); ptxas'
+                 registers and spills by kernel, the flash backward's
+                 dynamic shared memory and any serialised-wgmma note
+                 (C7512, C7515) are logged.
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: the
                  segment-masked flash kernels at BERT's (32, 16, 512, 64)
-                 with ragged padding, causal, and whole masked rows; the
-                 LAMB kernels over the BERT-Large flat buffer in bf16 and
+                 with ragged padding, causal, and whole masked rows,
+                 at sq != sk with sk off the backward's 128-key tile
+                 (dk, dv of the fused kernel, the dk/dv pass and the
+                 packed kernel bit for bit), at head_dim 128 with
+                 BERT's padding and a dead row, each backward run twice
+                 (dk, dv the same bits, each run's dq within
+                 tolerance); the LAMB kernels over the BERT-Large flat buffer in bf16 and
                  fp32, with a found_inf step and per-tensor lr scales;
                  the cross-entropy kernels at ResNet's (256, 1000) and a
                  ragged (64, 50304); SGD over the ResNet-50 flat buffer
@@ -356,7 +364,9 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
     of each output's largest magnitude (the kernels round p and ds to
     bf16 before their products, as the TPU kernels do; the plain version
     keeps them fp32), and no NaN; lse 1e-4 on rows that see a key, and
-    below -1e29 on rows whose keys are all masked."""
+    below -1e29 on rows whose keys are all masked.  The backward runs
+    twice: dk and dv the same bits, each run's dq within the tolerance
+    (dq's fp32 sums land in another order each run)."""
     dev, bf16 = "cuda", torch.bfloat16
     q, k, v, do = flash_inputs(torch, rng, b, h, s, d, packed)
     sc = 1.0 / math.sqrt(d)
@@ -364,6 +374,8 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
     delta = torch.sum(do.float() * o.float(), dim=-1)
     dq, dk, dv = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, causal,
                                    q_seg, kv_seg)
+    dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, do, lse, delta, sc, causal,
+                                      q_seg, kv_seg)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     o_ref = fa.attention_reference(qr, kr, vr, causal=causal,
                                    softmax_scale=sc, q_segment_ids=q_seg,
@@ -388,11 +400,74 @@ def check_flash_attention(torch, fa, rng, *, b, h, s, d, causal,
         check(got.dtype == bf16, f"flash {name} dtype {got.dtype}")
         errs[name] = max_err(torch, f"flash {name} ({b},{h},{s},{d}) "
                              f"causal={causal}", got, ref)
+    check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+          f"flash ({b},{h},{s},{d}): dk, dv differ from run to run")
+    errs["dq_second_run"] = max_err(torch, f"flash dq ({b},{h},{s},{d}) "
+                                    f"second run", dq2, qr.grad)
+    errs["dq_run_to_run"] = (dq.float() - dq2.float()).abs().max().item()
     errs["lse"] = (lse - lse_ref).abs()[live].max().item()
     check(errs["lse"] <= 1e-4, f"flash lse max err {errs['lse']:.3e}")
     check(bool((lse[~live] < -1e29).all()), "flash lse of a fully masked row")
     errs["dead_rows"] = int((~live).sum().item())
     return errs
+
+
+def check_flash_cross(torch, fa, rng, *, b, h, sq, sk, d, causal, hp=2):
+    """The flash pair where sq != sk and sk is not a multiple of the
+    backward's 128-key tile: o, dq, dk, dv against the plain version
+    (`attention_reference` and autograd, 1e-2 of each output's largest
+    magnitude, as `check_flash_attention`), and dk, dv of the dk/dv pass
+    and of the packed kernel at `hp` bit for bit the fused kernel's."""
+    bf16 = torch.bfloat16
+    q, do = (torch.randn((b, h, sq, d), generator=rng, device="cuda")
+             .to(bf16) for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=rng, device="cuda")
+            .to(bf16) for _ in range(2))
+    sc = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, causal)
+    dq, dk, dv = fa.flash_bwd_cuda(*args)
+    pdk, pdv = fa.flash_bwd_dkv_cuda(*args)
+    _, kdk, kdv = fa.flash_bwd_packed_cuda(*args, hp)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_ref = fa.attention_reference(qr, kr, vr, causal=causal,
+                                   softmax_scale=sc)
+    o_ref.backward(do)
+    torch.cuda.synchronize()
+    case = f"flash ({b},{h}) sq={sq} sk={sk} d={d} causal={causal}"
+    check(torch.equal(pdk, dk) and torch.equal(pdv, dv),
+          f"{case}: the dk/dv pass differs from the fused kernel")
+    check(torch.equal(kdk, dk) and torch.equal(kdv, dv),
+          f"{case}: the packed kernel (hp={hp}) differs from the fused one")
+    return {name: max_err(torch, f"{case} {name}", got, ref)
+            for name, got, ref in (("o", o, o_ref), ("dq", dq, qr.grad),
+                                   ("dk", dk, kr.grad), ("dv", dv, vr.grad))}
+
+
+def bwd_ptxas(fa, log_text):
+    """The backward kernels' lines of ptxas' report (csrc/build/
+    flash_attention.log): registers and spills by kernel, the dynamic
+    shared memory each launch asks for, and ptxas' notes that it
+    serialised wgmma instructions (C7512, C7515)."""
+    rows, notes, name = {}, [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name and ("flash_bwd_kernel" in name
+                       or "flash_bwd_packed_kernel" in name):
+            if "Used " in line:
+                rows.setdefault(name, {})["registers"] = int(
+                    line.split("Used ")[1].split()[0])
+            elif "spill" in line:
+                rows.setdefault(name, {})["spills"] = line.strip()
+        if "Performance Loss" in line and "flash_bwd_" in line \
+                and "flash_bwd_dq_kernel" not in line:
+            notes.append(line.strip()[:200])
+    lib = fa._lib()
+    smem = {f"d={d} seg={seg} dq={dq}": lib.apex_flash_attn_bwd_smem(
+        d, seg, dq) for d in (64, 128) for seg in (0, 1) for dq in (0, 1)}
+    return rows, smem, notes
 
 
 def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype):
@@ -3478,6 +3553,14 @@ def run_phases():
                 continue
             for line in lines:
                 log(f"ptxas {name}: " + line[:160])
+            if name == "flash_attention":
+                with open(csrc.log_path(name)) as f:
+                    rows, smem, notes = bwd_ptxas(fa, f.read())
+                for kname, r in sorted(rows.items()):
+                    log(f"ptxas flash backward {kname[-60:]}: {r}")
+                log(f"flash backward dynamic shared memory (bytes): {smem}")
+                log("flash backward serialised wgmma notes: "
+                    + ("; ".join(notes) if notes else "none"))
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -3535,6 +3618,16 @@ def run_phases():
         e = check_flash_attention(torch, fa, rng, b=b_, h=h_, s=s_, d=d_,
                                   causal=causal)
         log(f"flash_attention ({b_},{h_},{s_},{d_}) causal={causal}: {e}")
+    # sq != sk, sk off the backward's 128-key tile (causal with sq < sk:
+    # key tiles no query sees)
+    for b_, h_, sq_, sk_, d_, causal in ((2, 4, 100, 300, 64, True),
+                                         (2, 4, 300, 200, 64, False),
+                                         (1, 4, 77, 200, 128, True),
+                                         (1, 4, 330, 129, 128, False)):
+        e = check_flash_cross(torch, fa, rng, b=b_, h=h_, sq=sq_, sk=sk_,
+                              d=d_, causal=causal)
+        log(f"flash_attention sq={sq_} sk={sk_} d={d_} causal={causal}: "
+            f"dk, dv bit for bit fused / dk/dv pass / packed; {e}")
     errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
                                                   1024, bf16)
     for rows, hidden, dtype in ((77, 1000, f32), (5, 1024, bf16)):
@@ -3577,6 +3670,18 @@ def run_phases():
                                   causal=causal, q_seg=sg, kv_seg=sg)
         log(f"flash_attention segments ({b_},3,{s_},{d_}) causal={causal} "
             f"lengths {lens}: {e}")
+    # head_dim 128 with BERT's ragged padding, on the step's views, and a
+    # query whose id no key carries (a dead row: uniform p, ds = 0)
+    sg = pad_segments(torch, 4, BERT_SEQ, [512, 300, 129, 1])
+    qd = sg.clone()
+    qd[1, 400] = 5
+    e = check_flash_attention(torch, fa, rng, b=4, h=8, s=BERT_SEQ, d=128,
+                              causal=False, packed=True, q_seg=qd,
+                              kv_seg=sg)
+    check(e["dead_rows"] == 8, f"d=128 padding case: {e['dead_rows']} "
+          f"dead rows, want 8 (one a head)")
+    log(f"flash_attention segments (4,8,512,128), packed, a dead row: {e}")
+    del sg, qd
     # the packed pair (hp heads a block) against the hp=1 kernels and the
     # plain version: GPT's step shape on its views, BERT's with ragged
     # padding and with q/kv ids that leave whole rows masked, head_dim 128

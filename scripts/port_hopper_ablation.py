@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the port's wgmma + TMA kernels on one GPU.
 
-    python3 scripts/port_hopper_ablation.py
+    python3 scripts/port_hopper_ablation.py [--backward]
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
 they stand and variants of them through the `-D` overrides the two
@@ -22,6 +22,27 @@ sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`; into the gitignored
                       store, but no product, softmax or rescale (o is
                       then garbage: timed, not checked)
     no_o_store        everything but the stores of o (timed, not checked)
+  flash backward (the fused, packed and dk/dv kernels' one body)
+    shipped           two consumer warpgroups of 64 keys and (d=64) a
+                      producer warpgroup, a 2-stage Q/dO ring at d=64,
+                      work items taken from a counter in chunks of a few
+                      heads, dQ over a warpgroup's own 64 keys at d=64, dq
+                      by one bulk tensor reduce-add per warp and 32
+                      columns
+    dq_red            dq by per-thread red.global.add.v2.f32 from registers
+    three_stages      d=64 with a 3-stage Q/dO ring
+    dq_split          d=64: each warpgroup takes half of dQ's columns over
+                      all 128 keys, the two exchanging dS^T through shared
+                      memory behind a named barrier each step (half the
+                      reduce-adds)
+    no_math           the pipeline alone: every wait, load, release, barrier
+                      and store, but no product or softmax (timed, not
+                      checked)
+    no_dq_store       everything but dq's way out (timed, not checked)
+    key_major         the work items in key-tile order over all heads
+                      (all first tiles first) instead of in chunks of a
+                      few heads
+    head_major        one head (group) a chunk: its tiles side by side
 
 holds each against its plain version (the GEMM within 1e-2 of max |y| at
 GPT-350M's two MLP shapes; the forward's o and lse packed against
@@ -32,10 +53,17 @@ gelu, the down projection with its bias) and the forward (hp 1 and 2) at
 GPT's step shape (12, 16, 1024, 64) causal on the step's views, BERT's
 (32, 16, 512, 64) with padding segment ids, and bench.py's MHA shape
 (8, 16, 2048, 64) causal: the median of 60 CUDA-event timings, the
-variants in turns (each in order, then in reverse order).
+variants in turns (each in order, then in reverse order).  The backward
+variants are checked as the forward's are (dk and dv of the packed kernel
+and of the dk/dv pass bit for bit with the fused kernel's at GPT's step
+shape, every output against the plain version) and timed at the same
+three shapes (fused at hp 1, packed at hp 2, the dk/dv pass) and the dk/dv
+pass at bench.py's 32k shape (1, 8, 32768, 64) causal.  Each build's
+ptxas summary of the backward kernels (registers, spills, serialised
+wgmma notes) is printed beside its name.
 
-The card's name and power limit come first, the times last.  Fails
-without CUDA.
+The card's name and power limit come first, the times last.
+`--backward` runs the backward's variants alone.  Fails without CUDA.
 """
 
 import ctypes
@@ -60,28 +88,71 @@ FLASH_VARIANTS = {
     "no_math": ["-DAPEX_FWD_MATH=0"],
     "no_o_store": ["-DAPEX_FWD_STORE_O=0"],
 }
+BWD_VARIANTS = {
+    "shipped": [],
+    "dq_red": ["-DAPEX_BWD_DQ_RED=1"],
+    "three_stages": ["-DAPEX_BWD_STAGES64=3"],
+    "dq_split": ["-DAPEX_BWD_DQ_OWN64=0"],
+    "no_math": ["-DAPEX_BWD_MATH=0"],
+    "no_dq_store": ["-DAPEX_BWD_STORE_DQ=0"],
+    "key_major": ["-DAPEX_BWD_CHUNK=1000000"],
+    "head_major": ["-DAPEX_BWD_CHUNK=1"],
+}
 # variants whose output is not the function (timed only)
-UNCHECKED = ("no_math", "no_o_store")
+UNCHECKED = ("no_math", "no_o_store", "no_dq_store")
+# every -D override above, for the check that the sources declare them
+OVERRIDES = {"fused_dense": GEMM_VARIANTS,
+             "flash_attention": {**FLASH_VARIANTS, **{
+                 f"bwd_{k}": v for k, v in BWD_VARIANTS.items()}}}
 
 
-def build(csrc, cs, name, out, variants):
-    """{variant: loaded library} for `name`.cu under each variant's
-    overrides, one nvcc each, all started together."""
+def ptxas_summary(log, part):
+    """(kernel, registers, spill line) for each entry of an nvcc log whose
+    name holds `part`, and ptxas' serialised-wgmma notes (C7512, C7515)
+    for them."""
+    rows, notes, name = [], [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and part in name and "Used " in line:
+            rows.append([name, line.split("Used ")[1].split(",")[0]])
+        elif name and part in name and "spill" in line:
+            rows.append([name, line.strip()])
+        if "Performance Loss" in line and part in line:
+            notes.append(line.strip())
+    return rows, notes
+
+
+def start(csrc, name, out, variants):
+    """{variant: nvcc process} building `name`.cu under each variant's
+    overrides into `out`."""
     nvcc = csrc._nvcc()
-    procs = {}
-    for var, defs in variants.items():
-        procs[var] = subprocess.Popen(
-            [nvcc, *csrc.NVCC_FLAGS, *defs, "-o",
-             os.path.join(out, f"{name}_{var}.so"), csrc.source_path(name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {var: (subprocess.Popen(
+        [nvcc, *csrc.NVCC_FLAGS, *defs, "-o",
+         os.path.join(out, f"{name}_{var}.so"), csrc.source_path(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        os.path.join(out, f"{name}_{var}.so"))
+        for var, defs in variants.items()}
+
+
+def finish(cs, name, procs, part=None):
+    """{variant: loaded library} once each build of `start` is done.
+    `part`: print the ptxas summary of the kernels whose names hold it."""
     libs = {}
-    for var, proc in procs.items():
+    for var, (proc, path) in procs.items():
         log, _ = proc.communicate()
         cs.check(proc.returncode == 0, f"nvcc failed for {var}:\n{log}")
         regs = [line.split("Used ")[1].split(",")[0]
                 for line in log.splitlines() if "Used " in line]
         print(f"{name} {var}: ptxas registers by kernel {regs}", flush=True)
-        libs[var] = ctypes.CDLL(os.path.join(out, f"{name}_{var}.so"))
+        if part:
+            rows, notes = ptxas_summary(log, part)
+            for row in rows:
+                print(f"{name} {var}: ptxas {row[0][-60:]} {row[1]}",
+                      flush=True)
+            print(f"{name} {var}: serialised wgmma notes: "
+                  f"{notes or 'none'}", flush=True)
+        libs[var] = ctypes.CDLL(path)
     return libs
 
 
@@ -96,7 +167,61 @@ def in_turns(cs, torch, libs, install, cases):
     return times
 
 
-def main():
+def backward(cs, torch, fa, rng, libs):
+    """The backward variants: checked (`UNCHECKED` aside) and timed in
+    turns (module docstring)."""
+    for var in libs:
+        libs[var] = fa._bind(libs[var])
+        if var in UNCHECKED:
+            continue
+        fa._LIB = libs[var]
+        e = cs.check_packed_flash(torch, fa, rng, b=12, h=16, s=1024, d=64,
+                                  causal=True, views=True, hps=(2,))
+        q, k, v, do = cs.flash_inputs(torch, rng, 12, 16, 1024, 64, True)
+        o, lse = fa.flash_fwd_cuda(q, k, v, 0.125, True)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q, k, v, do, lse, delta, 0.125, True)
+        _, fdk, fdv = fa.flash_bwd_cuda(*args)
+        dk, dv = fa.flash_bwd_dkv_cuda(*args)
+        cs.check(torch.equal(dk, fdk) and torch.equal(dv, fdv),
+                 f"flash bwd {var}: the dk/dv pass differs from fused")
+        print(f"flash bwd {var}: GPT shape bit for bit packed, dk/dv pass "
+              f"and fused (dk, dv), {e}", flush=True)
+    cases = {}
+    keep = []
+    seg = cs.pad_segments(torch, 32, 512, [512, 300, 129, 1])
+    for label, (b, h, s, d), causal, ids, views in (
+            ("gpt", (12, 16, 1024, 64), True, None, True),
+            ("bert", (32, 16, 512, 64), False, seg, True),
+            ("mha", cs.MHA_SHAPE, True, None, False),
+            ("32k", cs.LONG_SHAPE, True, None, False)):
+        q, k, v, do = cs.flash_inputs(torch, rng, b, h, s, d, views)
+        sc = 1.0 / math.sqrt(d)
+        sg = (ids, ids) if ids is not None else (None, None)
+        fa._LIB = libs["shipped"]
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, *sg)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q, k, v, do, lse, delta, sc, causal)
+        keep.append(args)
+        if label != "32k":
+            cases[f"{label} fused"] = (
+                lambda a=args, sg=sg: fa.flash_bwd_cuda(*a, *sg))
+            cases[f"{label} packed hp2"] = (
+                lambda a=args, sg=sg: fa.flash_bwd_packed_cuda(*a, 2, *sg))
+        cases[f"{label} dk/dv pass"] = (
+            lambda a=args, sg=sg: fa.flash_bwd_dkv_cuda(*a, *sg))
+
+    def use_flash(lib):
+        fa._LIB = lib
+
+    times = in_turns(cs, torch, libs, use_flash, cases)
+    for (var, case), ts in times.items():
+        print(f"flash bwd {case} {var}: "
+              f"{', '.join(f'{x:.4f}' for x in ts)} ms", flush=True)
+    use_flash(libs["shipped"])
+
+
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
@@ -114,10 +239,20 @@ def main():
                          text=True, timeout=60, check=True).stdout.strip())
     out = os.path.join(csrc.BUILD_DIR, "ablation_hopper")
     os.makedirs(out, exist_ok=True)
-    gemm = build(csrc, cs, "fused_dense", out, GEMM_VARIANTS)
-    flash = build(csrc, cs, "flash_attention", out, FLASH_VARIANTS)
-
     rng = torch.Generator(device="cuda").manual_seed(0)
+    only_bwd = "--backward" in argv
+    os.makedirs(os.path.join(out, "bwd"), exist_ok=True)
+    bwd_procs = start(csrc, "flash_attention", os.path.join(out, "bwd"),
+                      BWD_VARIANTS)
+    if not only_bwd:
+        gemm_procs = start(csrc, "fused_dense", out, GEMM_VARIANTS)
+        flash_procs = start(csrc, "flash_attention", out, FLASH_VARIANTS)
+    bwd = finish(cs, "flash_attention", bwd_procs, part="flash_bwd")
+    backward(cs, torch, fa, rng, bwd)
+    if only_bwd:
+        return 0
+    gemm = finish(cs, "fused_dense", gemm_procs)
+    flash = finish(cs, "flash_attention", flash_procs)
     bf16 = torch.bfloat16
 
     # the GEMM at GPT-350M's MLP shapes
@@ -198,4 +333,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

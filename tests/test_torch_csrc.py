@@ -74,3 +74,34 @@ def test_nested_local_includes_are_followed(tree):
 def test_every_local_include_exists(name):
     for path in csrc.local_includes(csrc.source_path(name)):
         assert os.path.isfile(path), f"{name}.cu includes missing {path}"
+
+
+def _ablation_script():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "port_hopper_ablation.py")
+    spec = importlib.util.spec_from_file_location("port_hopper_ablation",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["fused_dense", "flash_attention"])
+def test_ablation_overrides_are_declared(name):
+    """Every `-D` override that scripts/port_hopper_ablation.py passes to
+    nvcc names a macro that the source it builds declares with an
+    `#ifndef` default, so a renamed or removed knob fails here instead
+    of building the shipped kernel under a variant's name."""
+    import re
+
+    variants = _ablation_script().OVERRIDES[name]
+    with open(csrc.source_path(name)) as f:
+        declared = set(re.findall(r"^#ifndef (APEX_\w+)", f.read(), re.M))
+    passed = {d[2:].split("=")[0] for defs in variants.values()
+              for d in defs}
+    assert passed, name
+    assert passed <= declared, sorted(passed - declared)
+    assert all(d.startswith("-D") and "=" in d
+               for defs in variants.values() for d in defs)

@@ -546,10 +546,14 @@ def _operand_cases():
         ("d not contiguous",
          torch.zeros(2, 4, 64, 16, dtype=torch.bfloat16).transpose(2, 3),
          True),
+        # the training step's output gradient: (s, b, h, d) permuted
+        ("do as the step passes it",
+         torch.zeros(16, 2, 4, 64, dtype=torch.bfloat16).permute(1, 2, 0, 3),
+         False),
     ]
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(6))
 def test_kernel_operand_keeps_what_tma_reads(case):
     """`_kernel_operand` passes a view through unchanged where a TMA tensor
     map can read it (last dim contiguous, 16-byte aligned base and
@@ -571,7 +575,84 @@ def test_forward_launch_errors_are_named(err, match):
     a tensor map (csrc/hopper.cuh kTensorMapError + the CUresult) and a
     CUDA error raise, each named."""
     if match is None:
-        tfa._raise_fwd_error(err, "forward")
+        tfa._raise_launch_error(err, "forward")
         return
     with pytest.raises(RuntimeError, match=match):
-        tfa._raise_fwd_error(err, "forward")
+        tfa._raise_launch_error(err, "forward")
+
+
+class _StandInLib:
+    """A flash library whose every launcher returns `err`."""
+
+    def __init__(self, err):
+        self.err = err
+
+    def __getattr__(self, name):
+        return lambda *args: self.err
+
+
+_BWD_LAUNCHERS = {
+    "backward": lambda a: tfa.flash_bwd_cuda(*a),
+    "packed backward": lambda a: tfa.flash_bwd_packed_cuda(*a, 2),
+    "dq pass": lambda a: tfa.flash_bwd_dq_cuda(*a),
+    "dk/dv pass": lambda a: tfa.flash_bwd_dkv_cuda(*a),
+}
+_BWD_COUNTERS = {"backward": tfa.flash_bwd_cuda,
+                 "packed backward": tfa.flash_bwd_packed_cuda,
+                 "dq pass": tfa.flash_bwd_dq_cuda,
+                 "dk/dv pass": tfa.flash_bwd_dkv_cuda}
+
+
+@pytest.mark.parametrize("err,match", [
+    (1, "launch failed: CUDA error 1"),
+    (100000 + 1, "refused a TMA tensor map, CUresult 1")])
+@pytest.mark.parametrize("what", sorted(_BWD_LAUNCHERS))
+def test_backward_launch_errors_are_named(monkeypatch, what, err, match):
+    """Each backward launcher raises the forward's named error for its C
+    function's return code (a CUDA error, or a tensor map the driver
+    refused), with the library stood in and the device checks passed on
+    the CPU, and counts no launch."""
+    monkeypatch.setattr(tfa, "_LIB", _StandInLib(err))
+    monkeypatch.setattr(tfa, "_require_cuda", lambda *ts: None)
+    monkeypatch.setattr(tfa.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    x = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8)
+    fn = _BWD_COUNTERS[what]
+    n = fn.launches
+    with pytest.raises(RuntimeError, match=f"flash attention {what}.*{match}"):
+        _BWD_LAUNCHERS[what]((x, x, x, x, lse, lse, 0.125, True))
+    assert fn.launches == n
+    # 0 is a launch: counted once
+    monkeypatch.setattr(tfa, "_LIB", _StandInLib(0))
+    _BWD_LAUNCHERS[what]((x, x, x, x, lse, lse, 0.125, True))
+    assert fn.launches == n + 1
+    fn.launches = n
+
+
+def test_bindings_match_the_c_signatures():
+    """`_bind` declares, for every function that csrc/flash_attention.cu
+    exports, as many arguments as its C signature has (read from the
+    source): a parameter added on one side only would shift every
+    argument after it."""
+    import os
+    import re
+    from types import SimpleNamespace
+
+    from apex_tpu_torch import csrc
+
+    with open(os.path.join(csrc._DIR, "flash_attention.cu")) as f:
+        src = f.read()
+    sigs = {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
+            for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert len(sigs) == 7, sorted(sigs)
+
+    class Lib(SimpleNamespace):
+        def __getattr__(self, name):
+            fn = SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = tfa._bind(Lib())
+    for name, n in sigs.items():
+        assert len(getattr(lib, name).argtypes) == n, name
