@@ -118,7 +118,7 @@
 //     producer's rings, which run on into the next head's tiles while
 //     this head's last ones are used.  Shared memory stays the unpacked
 //     kernels' (fwd ~179 KB at d=64 and ~194 KB at d=128, the fused bwd
-//     ~177 KB at d=64 and ~226 KB at d=128, plus the forward's resident
+//     ~193 KB at d=64 and ~226 KB at d=128, plus the forward's resident
 //     ids), so every hp that the JAX route admits runs: any divisor of h
 //     in the forward, and hp * sk * d <= 512k in the backward.
 // Rows past sq and keys past sk are zero-filled on load and masked, so any
@@ -872,8 +872,8 @@ struct BwdSmem {
   static constexpr bool kProducerWg = D == 64;
   static constexpr int kThreads = kProducerWg ? 384 : 256;
   static constexpr int kConsumerWarps = 8;
-  // dQ's product in flight beside dV's and dK's (D = 128: their A
-  // registers and dQ's accumulator do not fit beside each other)
+  // dQ's product issued while dV's and dK's run (d=128: after them, fewer
+  // registers live at once; chosen while its consumers were held to 168)
   static constexpr bool kOverlap = D == 64;
   // a q step's 64 rows in kHalves parts of kQc rows: S^T, dP^T, P^T, dS^T
   // and their bf16 copies hold kQc / 2 + kQc / 2 + kQc / 4 + kQc / 4
@@ -889,8 +889,8 @@ struct BwdSmem {
   static constexpr int kDsTile = kBwdKeys * 128;  // dS^T of both warpgroups
   // a consumer warp's output slice: dk and dv of its 16 keys (bf16, 64 D
   // bytes) at a head's end, between them kDqBufs fp32 dq tiles of its 16
-  // query rows and its warpgroup's D / 2 columns (32 D bytes each), in
-  // boxes of 16 rows x 128 bytes (2 KB, swizzled)
+  // query rows and its warpgroup's kDqCols columns, in boxes of 16 rows x
+  // 128 bytes (2 KB, swizzled)
   static constexpr int kDqBufs = 2;
   // dQ = dS K: at d=64 (kDqOwn) each warpgroup takes every column over its
   // own 64 keys (no exchange between the warpgroups, twice the sums into
@@ -912,7 +912,7 @@ struct BwdSmem {
   static constexpr int kDelta = kLse + kStages * kBwdRows * 4;
   static constexpr int kQid = kDelta + kStages * kBwdRows * 4;  // SEG
   static constexpr int kBar = kQid + (SEG ? kStages * kBwdRows * 4 : 0);
-  // the work item each K/V buffer holds (-1: no more)
+  // the head each K/V buffer holds, item * hp + head (-1: no more)
   static constexpr int kItem = kBar + 8 * (2 * kKvBufs + 2 * kStages);
   static constexpr int kEnd = kItem + 4 * kKvBufs;
   static constexpr size_t kBytes = size_t(kEnd) + 1024;
