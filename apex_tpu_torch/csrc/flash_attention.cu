@@ -65,8 +65,8 @@
 //     consumers); at d=128 it is warp 0 of the consumers, between its own
 //     steps, since an SM's four register quadrants hold any block of more
 //     than 8 warps to 168 registers a thread, where the d=128 consumers
-//     spilled and ran 2.7x slower.  Two consumer warpgroups own 64 keys
-//     each (keys are the wgmma M dimension): S^T = K Q^T and dP^T = V dO^T
+//     spilled.  Two consumer warpgroups own 64 keys each (keys are the
+//     wgmma M dimension): S^T = K Q^T and dP^T = V dO^T
 //     by wgmma m64n64k16 from shared memory, P^T and dS^T = P^T (dP^T -
 //     delta) in registers (the mask only on tiles that cross the diagonal
 //     or the ragged ends; a warpgroup skips a causal tile above all its
@@ -866,9 +866,9 @@ struct BwdSmem {
   // registers, the producers 40).  d=128: the consumers' warp 0 also
   // issues the loads (256 threads).  An SM's registers sit in four
   // quadrants of 16K, so a block of more than 8 warps holds each thread
-  // to 168 at launch; there the d=128 consumers spilled and ran 2.7x
-  // slower, and ptxas gave them no more after setmaxnreg.  At d=64 a
-  // feeding warp 0 cost 20 % (it holds its warpgroup back).
+  // to 168 at launch; there the d=128 consumers spilled, and ptxas gave
+  // them no more after setmaxnreg.  At d=64 a feeding warp 0 cost 20 %
+  // (it holds its warpgroup back).
   static constexpr bool kProducerWg = D == 64;
   static constexpr int kThreads = kProducerWg ? 384 : 256;
   static constexpr int kConsumerWarps = 8;
@@ -894,7 +894,7 @@ struct BwdSmem {
   static constexpr int kDqBufs = 2;
   // dQ = dS K: at d=64 (kDqOwn) each warpgroup takes every column over its
   // own 64 keys (no exchange between the warpgroups, twice the sums into
-  // dq_acc: 3-5 % faster at GPT's and MHA's shapes); at d=128 half of the
+  // dq_acc: 5 % faster at GPT's and MHA's shapes); at d=128 half of the
   // columns over all 128 keys, the two exchanging dS^T through shared
   // memory (its dQ tile would not fit the registers there)
   static constexpr bool kDqOwn = D == 64 && APEX_BWD_DQ_OWN64;

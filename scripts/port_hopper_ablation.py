@@ -30,6 +30,8 @@ sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`; into the gitignored
                       by one bulk tensor reduce-add per warp and 32
                       columns
     dq_red            dq by per-thread red.global.add.v2.f32 from registers
+    one_stage         d=64 with a 1-stage Q/dO ring (no load overlaps a
+                      step)
     three_stages      d=64 with a 3-stage Q/dO ring
     dq_split          d=64: each warpgroup takes half of dQ's columns over
                       all 128 keys, the two exchanging dS^T through shared
@@ -91,6 +93,7 @@ FLASH_VARIANTS = {
 BWD_VARIANTS = {
     "shipped": [],
     "dq_red": ["-DAPEX_BWD_DQ_RED=1"],
+    "one_stage": ["-DAPEX_BWD_STAGES64=1"],
     "three_stages": ["-DAPEX_BWD_STAGES64=3"],
     "dq_split": ["-DAPEX_BWD_DQ_OWN64=0"],
     "no_math": ["-DAPEX_BWD_MATH=0"],
