@@ -402,7 +402,7 @@ def _seg_args(q_seg, kv_seg, b, sq, sk):
 
 def _raise_launch_error(err, what):
     """Raise for a launcher's return code: 0 is a launch; a code at or
-    above `TENSOR_MAP_ERROR` is a tensor map the driver refused (its
+    above `TENSOR_MAP_ERROR` is a tensor map the CUDA driver refused (its
     CUresult added), anything else a CUDA error."""
     from apex_tpu_torch.csrc import TENSOR_MAP_ERROR
 

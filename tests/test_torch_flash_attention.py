@@ -609,7 +609,7 @@ _BWD_COUNTERS = {"backward": tfa.flash_bwd_cuda,
 @pytest.mark.parametrize("what", sorted(_BWD_LAUNCHERS))
 def test_backward_launch_errors_are_named(monkeypatch, what, err, match):
     """Each backward launcher raises the forward's named error for its C
-    function's return code (a CUDA error, or a tensor map the driver
+    function's return code (a CUDA error, or a tensor map the CUDA driver
     refused), with the library stood in and the device checks passed on
     the CPU, and counts no launch."""
     monkeypatch.setattr(tfa, "_LIB", _StandInLib(err))
