@@ -90,17 +90,27 @@
 //   * split backward (long context, where the TPU's (sk, d) dk/dv scratch
 //     would not fit VMEM): the dk/dv pass is the fused kernel's body with
 //     its dq part compiled out (the DQ template flag), so its dk and dv
-//     are the fused kernel's bit for bit.  The dq pass (mma.sync m16n8k16,
-//     bf16 in, fp32 accumulate, as inline PTX, from shared memory padded by
-//     16 bytes a row and filled by cp.async) has the forward's shape: one
-//     block per (batch*head, 64 query rows) keeps its q and dO tiles and
-//     its rows' lse and delta resident, walks the 64-key blocks up to the
-//     diagonal with K/V double-buffered, recomputes s = q k^T and dp = dO
-//     v^T, rounds ds = p (dp - delta) to bf16 and adds ds k into
-//     registers.  Each dq row is written once: no atomics, no scratch
-//     buffer, the same bits from run to run.  It pays the recomputation
-//     of s and dp a second time (3 products a pair in the dq pass and 4
-//     in the dk/dv pass, against the fused kernel's 5).
+//     are the fused kernel's bit for bit.  The dq pass (sm_90a: wgmma and
+//     TMA) has the forward's shape with three products for two, and is
+//     built from its pieces (FwdItem's work items, load_rows, the 4-D
+//     maps, the mbarrier ring): one block an SM takes work items of
+//     (batch*head, 192 query rows at d=64, 128 at d=128) from a counter in
+//     device memory, the longest causal rows first.  A producer warp loads
+//     each item's Q and dO tiles by TMA (double-buffered), with the rows'
+//     lse and delta (and query ids) copied beside them by cp.async, and
+//     walks its key tiles (64 keys) up to the diagonal through a ring of
+//     K and V tiles (key ids staged beside them).  Three consumer
+//     warpgroups (two at d=128) own 64 query rows each: S = Q K^T and dP
+//     = dO V^T by wgmma m64n64k16 from shared memory, P and dS = P (dP -
+//     delta) in registers (the mask only on tiles that cross the diagonal
+//     or the ragged end, or hold more than one segment), then dQ += dS K
+//     by wgmma with dS, rounded to bf16, in registers and K as the
+//     MN-major operand.  dQ stays in registers over all of the item's key
+//     tiles and leaves scaled, each row once, through the warpgroup's rows
+//     of the Q buffer and a TMA store: no atomics, no scratch buffer, the
+//     same bits from run to run.  It pays the recomputation of s and dp a
+//     second time (3 products a pair in the dq pass and 4 in the dk/dv
+//     pass, against the fused kernel's 5).
 //   * head packing (_fwd_kernel_packed, _bwd_fused_kernel_packed): the TPU
 //     kernels stack hp heads into one grid step to fill its vregs and the
 //     128-deep MXU that a d=64 head half fills; the per-head math stays
@@ -163,11 +173,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// the dq pass (mma.sync): 64 query rows a block, 64 keys a step, 4 warps
-// of 16 rows
-constexpr int kBr = 64;
-constexpr int kBc = 64;
-constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -177,47 +182,6 @@ constexpr float kMaskedLog2 = -1.0e30f * kLog2e;
 // masked: real scores are nowhere near -1e29
 constexpr float kDeadLse = -1.0e29f;
 
-// a (64, D) bf16 tile of the dq pass in shared memory, rows padded by 8
-// elements
-template <int D>
-struct Tile {
-  static constexpr int kStride = D + 8;
-  static constexpr int kElems = 64 * kStride;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing is read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [row0, row0 + 64) of a (rows, D) matrix whose row stride is `rs`
-// elements into a padded tile; rows at or past n_rows are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
-                                          long long rs, int row0,
-                                          int n_rows) {
-  constexpr int kPieces = D / 8;  // 16-byte pieces per row
-  constexpr int kIters = 64 * kPieces / kThreads;
-#pragma unroll
-  for (int i = 0; i < kIters; ++i) {
-    const int c = i * kThreads + threadIdx.x;
-    const int r = c / kPieces, col = (c % kPieces) * 8;
-    const bool ok = row0 + r < n_rows;
-    const bf16* src = ok ? g + (long long)(row0 + r) * rs + col : g;
-    cp_async16(s + r * Tile<D>::kStride + col, src, ok);
-  }
-}
-
 // true in every lane when `same` holds in every lane of the warp: with
 // `same` = "my ids equal the tile's first id", the warp's tile is one
 // segment
@@ -225,67 +189,9 @@ __device__ __forceinline__ bool warp_one_segment(bool same) {
   return __all_sync(kFull, same);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// four 8x8 b16 matrices, transposed; lanes 8i..8i+7 address matrix i's rows
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3,
-                                          const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(a)
-      : "memory");
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment of rows [r, r+16) x cols [c, c+16) of a padded tile, read
-// straight from its rows (the tile holds A row-major)
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int r, int c, int g, int t4) {
-  constexpr int S = Tile<D>::kStride;
-  const bf16* p = tile + (r + g) * S + c + 2 * t4;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * S);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * S + 8);
-}
-
-// acc[2np], acc[2np+1] += a * tile[k0 : k0+16, 16np : 16np+16] for every
-// np: the tile holds B row-major (k, n), so its fragments come through
-// ldmatrix.trans
-template <int S, int NP>
-__device__ __forceinline__ void mma_tile_b(float (*acc)[4],
-                                           const uint32_t (&a)[4],
-                                           const bf16* tile, int k0,
-                                           int lane) {
-  const bf16* base =
-      tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    uint32_t b0, b1, b2, b3;
-    ldsm_x4_t(b0, b1, b2, b3, base + np * 16);
-    mma16816(acc[2 * np], a, b0, b1);
-    mma16816(acc[2 * np + 1], a, b2, b3);
-  }
 }
 
 // ------------------------------------------------------------ forward ----
@@ -394,16 +300,17 @@ __device__ __forceinline__ void load_rows(void* dst, const CUtensorMap* map,
 struct FwdItem {
   int jq, bh0, b, q0, n_kv;
   __device__ __forceinline__ FwdItem(const FwdArgs& a, int w, int hp, int nq,
-                                     int rows, bool seg) {
+                                     int rows, bool seg,
+                                     int keys = kFwdKeys) {
     jq = nq - 1 - w / a.groups;
     bh0 = (w % a.groups) * hp;
     b = bh0 / a.h;
     q0 = jq * rows;
-    // key tiles: up to the diagonal when causal, every one with segment
-    // ids (a row whose keys are all masked sees all sk of them)
-    n_kv = (a.sk + kFwdKeys - 1) / kFwdKeys;
+    // key tiles of `keys`: up to the diagonal when causal, every one with
+    // segment ids (a row whose keys are all masked sees all sk of them)
+    n_kv = (a.sk + keys - 1) / keys;
     if (a.causal && !seg)
-      n_kv = min(n_kv, (min(q0 + rows, a.sq) - 1) / kFwdKeys + 1);
+      n_kv = min(n_kv, (min(q0 + rows, a.sq) - 1) / keys + 1);
   }
 };
 
@@ -1563,173 +1470,456 @@ __global__ void __launch_bounds__(BwdSmem<D, SEG, true>::kThreads, 1)
 
 // ---------------------------------------------------- backward, dq pass ----
 
+// The dq pass's shape at head_dim D: kWgs consumer warpgroups of 64 query
+// rows each (the wgmma M dimension is rows, as in the forward) and one
+// producer warpgroup, with the forward's setmaxnreg split; key tiles of
+// kKeys keys.  A consumer thread holds dQ (D / 2 fp32) over an item's key
+// tiles beside a tile's S and dP (kKeys / 2 each) and dS in bf16 (kKeys /
+// 4): at 64 keys 96 registers at d=64 and 128 at d=128.  d=64 takes three
+// consumer warpgroups (512 threads, so 128 registers a thread: no spills),
+// each K and V tile serving 192 rows (faster than two: PERF.md); d=128's
+// dQ leaves room for two.  128-key tiles spilled at d=64.
+// Shared memory from its 1024-byte aligned start: Q[2] and dO[2] (an
+// item's kRows rows, D / 64 column blocks of 128-byte swizzled rows, as
+// TMA lands them), kStages K and V tiles, the rows' lse, delta and (SEG)
+// query ids [2][kRows], (SEG) the staged key ids [kStages][kKeys], then the
+// barriers and each Q buffer's item.  A warpgroup's dq leaves through its
+// own rows of the item's Q buffer, which its score products have read by
+// then, by TMA stores.  d=64: 6 stages (about 199 KB); d=128: 2 (about
+// 196 KB); apex_flash_attn_bwd_dq_smem gives each.  -D overrides that
+// build scripts/port_hopper_ablation.py's variants; the defaults are the
+// kernel.  The two that make dq garbage (no products and math, no dq
+// store) switch their code off at run time (`|| sq < 0`), as the
+// forward's do.
+#ifndef APEX_DQ_KEYS64  // keys per K/V tile at d=64
+#define APEX_DQ_KEYS64 64
+#endif
+#ifndef APEX_DQ_WGS64  // consumer warpgroups at d=64
+#define APEX_DQ_WGS64 3
+#endif
+#ifndef APEX_DQ_STAGES64  // the K/V ring's depth at d=64
+#define APEX_DQ_STAGES64 6
+#endif
+#ifndef APEX_DQ_MATH  // 0: the pipeline alone
+#define APEX_DQ_MATH 1
+#endif
+#ifndef APEX_DQ_STORE  // 0: dq is not stored
+#define APEX_DQ_STORE 1
+#endif
+
 template <int D, bool SEG>
-__host__ __device__ constexpr size_t bwd_dq_smem() {
-  // Q, dO, K[2], V[2], and with SEG the key ids [2][64]
-  return size_t(6) * Tile<D>::kElems * sizeof(bf16) +
-         (SEG ? 2 * kBc * sizeof(int) : 0);
+struct DqSmem {
+  static constexpr int kWgs = D == 64 ? APEX_DQ_WGS64 : 2;
+  static constexpr int kRows = 64 * kWgs;  // query rows per work item
+  static constexpr int kKeys = D == 64 ? APEX_DQ_KEYS64 : 64;
+  static constexpr int kThreads = 128 * (kWgs + 1);
+  static constexpr int kConsumerWarps = 4 * kWgs;
+  static constexpr int kProducerRegs = kWgs == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kWgs == 3 ? 160 : 232;
+  static constexpr int kStages = D == 64 ? APEX_DQ_STAGES64 : 2;
+  static constexpr int kQBlock = kRows * 128;  // 64 columns of Q or dO
+  static constexpr int kKBlock = kKeys * 128;  // of K or V
+  static constexpr int kQTile = D / 64 * kQBlock;
+  static constexpr int kKTile = D / 64 * kKBlock;
+  static constexpr int kQ = 0, kDo = 2 * kQTile;
+  static constexpr int kK = kDo + 2 * kQTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kStats = kV + kStages * kKTile;
+  static constexpr int kKid = kStats + (SEG ? 3 : 2) * 2 * kRows * 4;
+  static constexpr int kBar = kKid + (SEG ? kStages * kKeys * 4 : 0);
+  static constexpr int kItem = kBar + (4 + 2 * kStages) * 8;
+  static constexpr int kEnd = kItem + 2 * 4;
+  // the dynamic shared memory, with the alignment slack
+  static constexpr size_t kBytes = size_t(kEnd) + 1024;
+};
+
+// one dq-pass launch's arguments: the forward's (the q, k and v maps, lse,
+// the shape and the segment ids; o is not used), 4-D TMA maps of the (b, h,
+// s, d) view dout (loads) and of the contiguous dq (stores, boxes of 64
+// rows), each map's `order_*` as FwdArgs has them, the rows' delta and the
+// launch's zeroed item counter
+struct DqArgs : FwdArgs {
+  CUtensorMap dout, dq;
+  int order_do, order_dq;
+  const float* delta;
+  int* work;
+  float scale;
+};
+
+// A block's share of the dq pass (one block an SM, for all of the launch):
+// work items of kRows query rows of one head, taken in order from the
+// launch's counter (FwdItem's order: the longest causal rows first, so a
+// block that finishes early takes the next), each walked over its key
+// tiles up to the diagonal when causal, with segment ids too (ds = 0 at
+// every masked score; see the top).  The forward's pipeline: warpgroup
+// kWgs produces, one warp loading each item's Q and dO into one of two
+// buffers by TMA with the rows' lse, delta and (SEG) query ids beside them
+// by 4-byte cp.async, and the item's K and V tiles through a ring (SEG:
+// their key ids staged beside them), each completing on an mbarrier.
+// Consumer warpgroup wg owns the item's rows wg * 64 .. wg * 64 + 63: per
+// key tile, S = Q K^T and dP = dO V^T by wgmma from shared memory, then P
+// and dS = P (dP - delta) in registers (the mask only on tiles that cross
+// the diagonal or the ragged end of the keys, or (SEG) hold more than one
+// id: warp-uniform tests), then dQ += bf16(dS) K by wgmma with dS in
+// registers and K (keys x d, row-major) as the MN-major operand, as the
+// forward's P V takes V.  dQ stays in registers over the item's tiles and
+// leaves scaled, each row once: no atomics, no scratch buffer, the same
+// bits on every run.
+template <int D, bool SEG>
+__device__ __forceinline__ void dq_items(const DqArgs& a,
+                                         unsigned char* smem) {
+  using L = DqSmem<D, SEG>;
+  constexpr int kStages = L::kStages, kWgs = L::kWgs, kKeys = L::kKeys;
+  constexpr int kRows = L::kRows;
+  unsigned char* q_s = smem + L::kQ;    // [2]
+  unsigned char* do_s = smem + L::kDo;  // [2]
+  unsigned char* k_s = smem + L::kK;    // [kStages]
+  unsigned char* v_s = smem + L::kV;    // [kStages]
+  float* lse_s = reinterpret_cast<float*>(smem + L::kStats);  // [2][kRows]
+  float* dl_s = lse_s + 2 * kRows;                            // [2][kRows]
+  int* qid_s = reinterpret_cast<int*>(dl_s + 2 * kRows);      // SEG
+  int* kid_s = reinterpret_cast<int*>(smem + L::kKid);  // SEG: [kStages][kKeys]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_full = bar;                  // [2]
+  uint64_t* q_empty = bar + 2;             // [2]
+  uint64_t* kv_full = bar + 4;             // [kStages]
+  uint64_t* kv_empty = kv_full + kStages;  // [kStages]
+  int* item_s = reinterpret_cast<int*>(smem + L::kItem);  // [2]: -1, no more
+
+  const int h = a.h, sq = a.sq, sk = a.sk;
+  const bool causal = a.causal != 0;
+  const int nq = (sq + kRows - 1) / kRows;
+  const int n_items = nq * a.groups;
+  // the warpgroup, and below the item and the tiles a warpgroup computes,
+  // through a shuffle from lane 0: warp-uniform to the compiler, so ptxas
+  // does not take the branches around the products for divergent paths
+  // (where it serialised every wgmma: note C7520)
+  const int wg = __shfl_sync(kFull, static_cast<int>(threadIdx.x / 128), 0);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      // every producer lane arrives once its cp.async copies land, lane 0
+      // once more with the item and the TMA bytes
+      hopper::mbar_init(&q_full[i], 33);
+      // each consumer warpgroup once its dq stores have read the buffer
+      hopper::mbar_init(&q_empty[i], kWgs);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      // staged ids: every producer lane arrives after writing its ids
+      hopper::mbar_init(&kv_full[s], SEG ? 32 : 1);
+      hopper::mbar_init(&kv_empty[s], L::kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are visible
+
+  if (wg == kWgs) {  // --------------------------------------- producer
+    hopper::setmaxnreg_dec<L::kProducerRegs>();
+    if (threadIdx.x >= 128 * kWgs + 32) return;  // one warp produces
+    const int lane = threadIdx.x & 31;
+    int fill = 0;  // K/V tiles issued so far: tile f uses stage f % kStages
+    // item qc into Q buffer qc & 1, once both warpgroups are done with the
+    // item it held; the last one is the -1 that ends the consumers
+    for (int qc = 0;; ++qc) {
+      const int qb = qc & 1;
+      if (qc >= 2) hopper::mbar_wait(&q_empty[qb], ((qc >> 1) - 1) & 1);
+      int w = 0;
+      if (lane == 0) w = atomicAdd(a.work, 1);
+      w = __shfl_sync(kFull, w, 0);
+      const bool done = w >= n_items;
+      const FwdItem t(a, done ? 0 : w, 1, nq, kRows, false, kKeys);
+      const int hh = t.bh0 % h;
+      if (!done) {
+        // the rows' lse, delta and ids (zeros past sq); the warp does not
+        // wait for them
+        const float* lseg = a.lse + (long long)t.bh0 * sq;
+        const float* dlg = a.delta + (long long)t.bh0 * sq;
+        const int* qidg = SEG ? a.q_seg + t.b * a.q_seg_sb : nullptr;
+#pragma unroll
+        for (int i = lane; i < kRows; i += 32) {
+          const bool in = t.q0 + i < sq;
+          const int r = in ? t.q0 + i : 0;
+          hopper::cp_async4(lse_s + qb * kRows + i, lseg + r, in);
+          hopper::cp_async4(dl_s + qb * kRows + i, dlg + r, in);
+          if (SEG) hopper::cp_async4(qid_s + qb * kRows + i, qidg + r, in);
+        }
+      }
+      hopper::cp_async_mbar_arrive(&q_full[qb]);
+      if (lane == 0) {
+        item_s[qb] = done ? -1 : w;
+        hopper::mbar_arrive_expect_tx(&q_full[qb], done ? 0 : 2 * L::kQTile);
+        if (!done) {
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            load_rows(q_s + qb * L::kQTile + c * L::kQBlock, &a.q, a.order_q,
+                      &q_full[qb], 64 * c, t.q0, hh, t.b);
+            load_rows(do_s + qb * L::kQTile + c * L::kQBlock, &a.dout,
+                      a.order_do, &q_full[qb], 64 * c, t.q0, hh, t.b);
+          }
+        }
+      }
+      __syncwarp();
+      if (done) break;
+      const int* kidg = SEG ? a.kv_seg + t.b * a.kv_seg_sb : nullptr;
+      for (int it = 0; it < t.n_kv; ++it, ++fill) {
+        const int s = fill % kStages;
+        // both consumers are done with the tile this stage held
+        if (fill >= kStages)
+          hopper::mbar_wait(&kv_empty[s], (fill / kStages - 1) & 1);
+        const int k0 = it * kKeys;
+        if (SEG) {
+#pragma unroll
+          for (int i = lane; i < kKeys; i += 32)
+            kid_s[s * kKeys + i] = k0 + i < sk ? kidg[k0 + i] : 0;
+          if (lane != 0) hopper::mbar_arrive(&kv_full[s]);
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&kv_full[s], 2 * L::kKTile);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            load_rows(k_s + s * L::kKTile + c * L::kKBlock, &a.k, a.order_k,
+                      &kv_full[s], 64 * c, k0, hh, t.b);
+            load_rows(v_s + s * L::kKTile + c * L::kKBlock, &a.v, a.order_v,
+                      &kv_full[s], 64 * c, k0, hh, t.b);
+          }
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  hopper::setmaxnreg_inc<L::kConsumerRegs>();
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool math = APEX_DQ_MATH || sq < 0;
+  const bool store = APEX_DQ_STORE || sq < 0;
+  const float sl = a.scale_log2, scale = a.scale;
+  // the warp is done with the tile in stage s: it may be refilled
+  auto release = [&](int s) {
+    if (lane == 0) hopper::mbar_arrive(&kv_empty[s]);
+    __syncwarp();
+  };
+  int fill = 0;
+  for (int qc = 0;; ++qc) {
+    const int qb = qc & 1;
+    hopper::mbar_wait(&q_full[qb], (qc >> 1) & 1);
+    const int w = __shfl_sync(kFull, item_s[qb], 0);
+    if (w < 0) break;
+    const FwdItem t(a, w, 1, nq, kRows, false, kKeys);
+    const int hh = t.bh0 % h;
+    const int wrow0 = t.q0 + wg * 64;  // the warpgroup's first query row
+    const int r0 = wrow0 + warp * 16;  // the warp's first query row
+    const int ra = wg * 64 + warp * 16 + g;  // this thread's rows ra, ra + 8
+    const int row_a = t.q0 + ra, row_b = row_a + 8;  // of the item
+    // the rows' lse (log2 units), delta and ids, from the item's buffer
+    const float lse_a = lse_s[qb * kRows + ra] * kLog2e;
+    const float lse_b = lse_s[qb * kRows + ra + 8] * kLog2e;
+    const float dl_a = dl_s[qb * kRows + ra], dl_b = dl_s[qb * kRows + ra + 8];
+    int qid_a = 0, qid_b = 0;
+    if (SEG) {
+      qid_a = qid_s[qb * kRows + ra];
+      qid_b = qid_s[qb * kRows + ra + 8];
+    }
+    const unsigned char* qs = q_s + qb * L::kQTile;
+    const unsigned char* dos = do_s + qb * L::kQTile;
+    // dq[4n + e]: row ra (e < 2) or ra + 8, d column 8n + 2 t4 + (e & 1)
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    // the tiles this warpgroup computes: the item's, up to the first whose
+    // keys all sit above its rows' diagonal (none when its rows are all
+    // past sq); the rest would add 0 and are only released, each once it
+    // has landed (a release ahead of the producer would count towards the
+    // stage's previous use)
+    int n_mine = math && wrow0 < sq ? t.n_kv : 0;
+    if (causal) n_mine = min(n_mine, (wrow0 + 63) / kKeys + 1);
+    n_mine = __shfl_sync(kFull, n_mine, 0);
+    // sc[4n + e], dp[4n + e]: row ra (e < 2) or ra + 8, key k0 + 8n + 2 t4
+    // + (e & 1) of the tile; da: its dS in bf16
+    float sc[kKeys / 2], dp[kKeys / 2];
+    uint32_t da[kKeys / 16][4];
+    // S = Q K^T and dP = dO V^T of the tile in stage s, by wgmma from
+    // shared memory
+    auto scores = [&](int s) {
+      const unsigned char* ks = k_s + s * L::kKTile;
+      const unsigned char* vs = v_s + s * L::kKTile;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int qo = (kk / 4) * L::kQBlock + wg * 64 * 128 + (kk % 4) * 32;
+        const int ko = (kk / 4) * L::kKBlock + (kk % 4) * 32;
+        hopper::wgmma_ss_bf16<0, 0>(sc, hopper::wgmma_desc(qs + qo, 16, 1024),
+                                    hopper::wgmma_desc(ks + ko, 16, 1024),
+                                    kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int qo = (kk / 4) * L::kQBlock + wg * 64 * 128 + (kk % 4) * 32;
+        const int ko = (kk / 4) * L::kKBlock + (kk % 4) * 32;
+        hopper::wgmma_ss_bf16<0, 0>(dp,
+                                    hopper::wgmma_desc(dos + qo, 16, 1024),
+                                    hopper::wgmma_desc(vs + ko, 16, 1024),
+                                    kk > 0);
+      }
+    };
+    // dQ += dS K for the tile in stage s, dS (da) from registers and K as
+    // the MN-major operand
+    auto dq_product = [&](int s) {
+      const unsigned char* ks = k_s + s * L::kKTile;
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        hopper::wgmma_rs_bf16<1>(
+            dq, da[kk], hopper::wgmma_desc(ks + kk * 2048, L::kKBlock, 1024),
+            1);
+    };
+    // until the tile that `f` names has landed (waited on with no product
+    // in flight)
+    auto land = [&](int f) {
+      hopper::mbar_wait(&kv_full[f % kStages], (f / kStages) & 1);
+    };
+    // dS = P (dP - delta) of tile `it` (stage s) into da, 0 wherever
+    // masked.  The mask only on tiles that cross the ragged end of the
+    // keys or the diagonal of the warp's rows, or (SEG) whose keys and rows
+    // carry more than one id (warp-uniform tests)
+    auto to_ds = [&](int it, int s) {
+      const int k0 = it * kKeys;
+      const int* kid = kid_s + s * kKeys;
+      bool edge = (k0 + kKeys > sk) || (causal && k0 + kKeys - 1 > r0);
+      if (SEG) {  // no short-circuit: branches here diverge the warp
+        const int c = kid[0];
+        bool same = (qid_a == c) & (qid_b == c);
+#pragma unroll
+        for (int i = 0; i < kKeys / 32; ++i) same &= kid[lane + 32 * i] == c;
+        edge = edge || !warp_one_segment(same);
+      }
+      if (edge) {
+        // the whole loop under the test, as in the forward; selects, not
+        // branches, and a masked score's p (inf in a dead row) never
+        // reaches ds
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+          const int kc = 8 * n + 2 * t4;
+          const int2 ids = SEG ? *reinterpret_cast<const int2*>(kid + kc)
+                               : make_int2(0, 0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool top = e < 2;
+            const int key = k0 + kc + (e & 1);
+            const bool masked =
+                key >= sk || (causal && key > (top ? row_a : row_b)) ||
+                (SEG && ((e & 1) ? ids.y : ids.x) != (top ? qid_a : qid_b));
+            const float p =
+                ex2(fmaf(sc[4 * n + e], sl, -(top ? lse_a : lse_b)));
+            const float ds = p * (dp[4 * n + e] - (top ? dl_a : dl_b));
+            dp[4 * n + e] = masked ? 0.f : ds;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool top = e < 2;
+            const float p =
+                ex2(fmaf(sc[4 * n + e], sl, -(top ? lse_a : lse_b)));
+            dp[4 * n + e] = p * (dp[4 * n + e] - (top ? dl_a : dl_b));
+          }
+        }
+      }
+      // rounded to bf16 (as the TPU kernel rounds ds before its product),
+      // as the m16n8k16 A fragments of keys 16kk .. 16kk + 15
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        da[kk][0] = pack_bf16(dp[8 * kk], dp[8 * kk + 1]);
+        da[kk][1] = pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+    };
+    auto wait_products = [&]() {
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dq);
+    };
+    // Per tile: S and dP, dS in registers, dQ += dS K.  Each product group
+    // is issued and waited for in one straight stretch of code (a product
+    // in flight across a branch or a barrier wait made ptxas serialise
+    // every wgmma: notes C7518, C7520).
+    if (n_mine > 0) {
+      land(fill);
+      hopper::wgmma_fence();
+      scores(fill % kStages);
+      wait_products();
+      to_ds(0, fill % kStages);
+      for (int it = 1; it < n_mine; ++it) {
+        const int f = fill + it;
+        land(f);
+        hopper::wgmma_fence();  // dS, and sc, dp read by to_ds
+        dq_product((f - 1) % kStages);
+        wait_products();
+        hopper::wgmma_fence();
+        scores(f % kStages);
+        wait_products();
+        release((f - 1) % kStages);
+        to_ds(it, f % kStages);
+      }
+      hopper::wgmma_fence();
+      dq_product((fill + n_mine - 1) % kStages);
+      wait_products();
+      release((fill + n_mine - 1) % kStages);
+    }
+    for (int it = n_mine; it < t.n_kv; ++it) {
+      land(fill + it);
+      release((fill + it) % kStages);
+    }
+    fill += t.n_kv;
+
+    // dq (scaled, bf16) into this warpgroup's rows of the item's Q buffer
+    // (its score products are done with them), then one TMA store per 64
+    // columns (rows past sq are dropped); the buffer goes back to the
+    // producer once the stores have read it
+    unsigned char* ob = q_s + qb * L::kQTile + wg * 64 * 128;
+    const bool out = store && wrow0 < sq;
+    if (out) {
+      const int rw = warp * 16 + g;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        unsigned char* blk = ob + (n / 8) * L::kQBlock;
+        *reinterpret_cast<uint32_t*>(swz(blk, rw, n % 8) + 4 * t4) =
+            pack_bf16(scale * dq[4 * n], scale * dq[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(swz(blk, rw + 8, n % 8) + 4 * t4) =
+            pack_bf16(scale * dq[4 * n + 2], scale * dq[4 * n + 3]);
+      }
+      hopper::fence_proxy_async();
+    }
+    hopper::named_barrier_sync(1 + wg, 128);  // the warpgroup's rows are in
+    if (threadIdx.x % 128 == 0) {
+      if (out) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          put_rows(&a.dq, a.order_dq, ob + c * L::kQBlock, 64 * c, wrow0, hh,
+                   t.b, false);
+        hopper::bulk_commit();
+        hopper::bulk_wait_read<0>();
+      }
+      hopper::mbar_arrive(&q_empty[qb]);
+    }
+    __syncwarp();
+  }
+  if (threadIdx.x % 128 == 0) hopper::bulk_wait_all();  // the last stores
 }
 
+// one block an SM, walking the work items of (DqSmem::kRows query rows,
+// batch*head)
 template <int D, bool SEG>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int h, int sq, int sk, float scale, float scale_log2,
-    int causal, const int* __restrict__ q_seg,
-    const int* __restrict__ kv_seg, long long q_seg_sb,
-    long long kv_seg_sb) {
-  constexpr int S = Tile<D>::kStride;
-  constexpr int E = Tile<D>::kElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + E;
-  bf16* k_s = do_s + E;     // two stages
-  bf16* v_s = k_s + 2 * E;  // two stages
-  int* kid_s = reinterpret_cast<int*>(v_s + 2 * E);  // SEG: two stages
-
-  const int nq = (sq + kBr - 1) / kBr;
-  const int jq = nq - 1 - blockIdx.x;  // causal: the longest rows first
-  const int bh = blockIdx.y;
-  const int b = bh / h, hh = bh % h;
-  const bf16* qg = q + b * q_sb + hh * q_sh;
-  const bf16* kg = k + b * k_sb + hh * k_sh;
-  const bf16* vg = v + b * v_sb + hh * v_sh;
-  const bf16* dog = dout + b * o_sb + hh * o_sh;
-  const int q0 = jq * kBr;
-  // ds = 0 past the diagonal, segment ids or not (see the top)
-  int n_kv = (sk + kBc - 1) / kBc;
-  if (causal) n_kv = min(n_kv, (min(q0 + kBr, sq) - 1) / kBc + 1);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row_a = q0 + warp * 16 + g;  // this thread's two query rows
-  const int row_b = row_a + 8;
-  const float* lseg = lse + (long long)bh * sq;
-  const float* dlg = delta + (long long)bh * sq;
-  // the rows' lse (log2 units) and delta stay in registers
-  const float lse_a = row_a < sq ? lseg[row_a] * kLog2e : 0.f;
-  const float lse_b = row_b < sq ? lseg[row_b] * kLog2e : 0.f;
-  const float dl_a = row_a < sq ? dlg[row_a] : 0.f;
-  const float dl_b = row_b < sq ? dlg[row_b] : 0.f;
-  const int* kidg = SEG ? kv_seg + b * kv_seg_sb : nullptr;
-  int qid_a = 0, qid_b = 0;
-  if (SEG) {
-    const int* qidg = q_seg + b * q_seg_sb;
-    if (row_a < sq) qid_a = qidg[row_a];
-    if (row_b < sq) qid_b = qidg[row_b];
-    const int t = threadIdx.x;
-    if (t < kBc) kid_s[t] = t < sk ? kidg[t] : 0;
-  }
-
-  load_tile<D>(q_s, qg, q_ss, q0, sq);
-  load_tile<D>(do_s, dog, o_ss, q0, sq);
-  load_tile<D>(k_s, kg, k_ss, 0, sk);
-  load_tile<D>(v_s, vg, v_ss, 0, sk);
-  cp_async_commit();
-
-  float dqa[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  for (int it = 0; it < n_kv; ++it) {
-    const int st = it & 1;
-    if (it + 1 < n_kv) {  // the next K/V block flies while this one is used
-      load_tile<D>(k_s + (st ^ 1) * E, kg, k_ss, (it + 1) * kBc, sk);
-      load_tile<D>(v_s + (st ^ 1) * E, vg, v_ss, (it + 1) * kBc, sk);
-      const int t = threadIdx.x;
-      if (SEG && t < kBc) {
-        const int key = (it + 1) * kBc + t;
-        kid_s[(st ^ 1) * kBc + t] = key < sk ? kidg[key] : 0;
-      }
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* ks = k_s + st * E;
-    const bf16* vs = v_s + st * E;
-
-    // s = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<D>(qa, q_s, warp * 16, kk * 16, g, t4);
-      load_a<D>(da, do_s, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const bf16* kr = ks + (n * 8 + g) * S + kk * 16 + 2 * t4;
-        const bf16* vr = vs + (n * 8 + g) * S + kk * 16 + 2 * t4;
-        mma16816(s[n], qa, ld32(kr), ld32(kr + 8));
-        mma16816(dp[n], da, ld32(vr), ld32(vr + 8));
-      }
-    }
-
-    // dS = P (dP - delta), fp32 p; 0 where masked.  Only tiles that
-    // cross the diagonal or the ragged end of the keys, or (SEG) hold
-    // more than one id, test each score (warp-uniform test)
-    const int k0 = it * kBc;
-    const int* kid = kid_s + st * kBc;
-    bool edge = (k0 + kBc > sk) || (causal && k0 + kBc - 1 > q0 + warp * 16);
-    if (SEG) {
-      const int c = kid[0];
-      edge = edge || !warp_one_segment(kid[lane] == c &&
-                                       kid[lane + 32] == c && qid_a == c &&
-                                       qid_b == c);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool top = e < 2;
-        const float p =
-            exp2f(s[n][e] * scale_log2 - (top ? lse_a : lse_b));
-        float ds = p * (dp[n][e] - (top ? dl_a : dl_b));
-        if (edge) {
-          const int kc = n * 8 + 2 * t4 + (e & 1);
-          const int key = k0 + kc;
-          if (key >= sk || (causal && key > (top ? row_a : row_b)) ||
-              (SEG && kid[kc] != (top ? qid_a : qid_b)))
-            ds = 0.f;
-        }
-        s[n][e] = ds;
-      }
-    }
-
-    // dQ += dS K, ds rounded to bf16 (the ds tile is the A fragment;
-    // scale applied at the end)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      mma_tile_b<S, D / 16>(dqa, pa, ks, kk * 16, lane);
-    }
-    __syncthreads();  // this stage is refilled by the next iteration
-  }
-
-  // each row once: no atomics, the same bits on every run
-  bf16* dqg = dq + (long long)bh * sq * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t4;
-    if (row_a < sq)
-      *reinterpret_cast<uint32_t*>(dqg + (long long)row_a * D + c) =
-          pack_bf16(scale * dqa[n][0], scale * dqa[n][1]);
-    if (row_b < sq)
-      *reinterpret_cast<uint32_t*>(dqg + (long long)row_b * D + c) =
-          pack_bf16(scale * dqa[n][2], scale * dqa[n][3]);
-  }
+__global__ void __launch_bounds__(DqSmem<D, SEG>::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  dq_items<D, SEG>(a, hopper::align1024(smem_raw));
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in, once
@@ -1796,15 +1986,17 @@ struct Seg {
   long long q_sb, kv_sb;
 };
 
-// one forward launch's arguments, its tensor maps built for this call
+// one forward launch's arguments, its tensor maps built for this call:
+// boxes of `rows` query rows and `keys` keys
 int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
              const void* v, void* o, void* lse, const long long* st, int b,
-             int h, int sq, int sk, float scale, int causal, int hp, Seg seg) {
+             int h, int sq, int sk, float scale, int causal, int hp, Seg seg,
+             int keys = kFwdKeys) {
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, rows);
   if (e == 0)
-    e = map_bhsd(&a->k, &a->order_k, k, st + 3, b, h, sk, D, kFwdKeys);
+    e = map_bhsd(&a->k, &a->order_k, k, st + 3, b, h, sk, D, keys);
   if (e == 0)
-    e = map_bhsd(&a->v, &a->order_v, v, st + 6, b, h, sk, D, kFwdKeys);
+    e = map_bhsd(&a->v, &a->order_v, v, st + 6, b, h, sk, D, keys);
   a->o = static_cast<bf16*>(o);
   a->lse = static_cast<float*>(lse);
   a->h = h;
@@ -1957,25 +2149,46 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// one dq-pass launch's arguments, its tensor maps built for this call:
+// q, k, v, dout strided as `st` gives them (12 values; boxes of `rows`
+// query rows and `keys` keys), dq contiguous (boxes of 64 rows)
+int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
+            const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dq, void* work, const long long* st,
+            int b, int h, int sq, int sk, float scale, int causal, Seg seg) {
+  *a = DqArgs{};
+  int e = fwd_args(a, D, rows, q, k, v, nullptr, const_cast<void*>(lse), st,
+                   b, h, sq, sk, scale, causal, 1, seg, keys);
+  if (e == 0)
+    e = map_bhsd(&a->dout, &a->order_do, dout, st + 9, b, h, sq, D, rows);
+  const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
+  if (e == 0) e = map_bhsd(&a->dq, &a->order_dq, dq, oq, b, h, sq, D, 64);
+  a->delta = static_cast<const float*>(delta);
+  a->work = static_cast<int*>(work);
+  a->scale = scale;
+  return e;
+}
+
 template <int D, bool SEG>
-cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, void* dq, const long long* st,
-                          int b, int h, int sq, int sk, float scale,
-                          int causal, Seg seg, cudaStream_t stream) {
+int launch_bwd_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, void* work, const long long* st, int b, int h,
+                  int sq, int sk, float scale, int causal, Seg seg,
+                  cudaStream_t stream) {
+  using L = DqSmem<D, SEG>;
+  if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  DqArgs a;
+  const int e = dq_args(&a, D, L::kRows, L::kKeys, q, k, v, dout, lse, delta,
+                        dq, work, st, b, h, sq, sk, scale, causal, seg);
+  if (e != 0) return e;
   static bool opted = false;
-  constexpr size_t smem = bwd_dq_smem<D, SEG>();
-  cudaError_t e = opt_in(flash_bwd_dq_kernel<D, SEG>, smem, opted);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((sq + kBr - 1) / kBr, b * h);
-  flash_bwd_dq_kernel<D, SEG><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], h, sq, sk, scale,
-      scale * kLog2e, causal, seg.q, seg.kv, seg.q_sb, seg.kv_sb);
-  return cudaGetLastError();
+  constexpr size_t smem = L::kBytes;
+  const cudaError_t ce = opt_in(flash_bwd_dq_kernel<D, SEG>, smem, opted);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  const int grid = item_grid(b, h, sq, 1, L::kRows);
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_dq_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -2057,11 +2270,12 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
 
 // The split backward's dq pass: the fused backward's arguments, with dq
 // (b, h, sq, d) bf16 contiguous, written once (no zeroing), in place of
-// dq_acc, dk and dv.
+// dq_acc, dk and dv, and `work`, one ZEROED int32 (the launch's work-item
+// counter).
 extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
                                       const void* k, const void* v,
                                       const void* dout, const void* lse,
-                                      const void* delta, void* dq,
+                                      const void* delta, void* dq, void* work,
                                       const long long* strides, int b, int h,
                                       int sq, int sk, float scale, int causal,
                                       const void* q_seg, const void* kv_seg,
@@ -2071,9 +2285,20 @@ extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
     return launch_bwd_dq<decltype(d)::value, decltype(has_seg)::value>(
-        q, k, v, dout, lse, delta, dq, strides, b, h, sq, sk, scale, causal,
-        seg, s);
+        q, k, v, dout, lse, delta, dq, work, strides, b, h, sq, sk, scale,
+        causal, seg, s);
   });
+}
+
+// The dynamic shared memory a dq-pass launch asks for (head_dim 64 or 128;
+// `seg`: with segment ids), in bytes; -1 for another head_dim.
+extern "C" int apex_flash_attn_bwd_dq_smem(int head_dim, int seg) {
+  auto of = [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return static_cast<int>(seg ? DqSmem<D, true>::kBytes
+                                : DqSmem<D, false>::kBytes);
+  };
+  return head_dim == 64 ? of(Dim<64>{}) : head_dim == 128 ? of(Dim<128>{}) : -1;
 }
 
 // The split backward's dk/dv pass: the fused backward's arguments without

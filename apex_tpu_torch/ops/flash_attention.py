@@ -92,9 +92,9 @@ def backward_route(sk: int, head_dim: int, heads_per_step: int = 1) -> str:
 # same results and warnings.  The CUDA kernels keep their own tiles
 # whatever the blocks say (the forward 192 query rows at d=64, 128 at
 # d=128, x 128 keys; the fused backward and the dk/dv pass 128 keys x 64
-# query rows, the dq pass 64 x 64): block_q / block_k are validated (a
-# tuned or explicit block that does not divide the sequence warns once)
-# and not otherwise read.
+# query rows; the dq pass 192 query rows at d=64, 128 at d=128, x 64
+# keys): block_q / block_k are validated (a tuned or explicit block that
+# does not divide the sequence warns once) and not otherwise read.
 
 _BLOCK_FALLBACK_WARNED = set()
 # the tuner's cap on hp * block_q * block_k (the JAX package's, :1135)
@@ -193,7 +193,8 @@ def attention_reference(q, k, v, *, causal=False, softmax_scale=None,
     JAX package's `attention_reference`).  Dropout masks the
     post-softmax weights with a bernoulli draw from `dropout_key`, a
     `torch.Generator` (another stream than any kernel's, the same
-    distribution)."""
+    distribution); with no key it applies none, as the JAX package's
+    `_common.dropout` does."""
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -209,7 +210,7 @@ def attention_reference(q, k, v, *, causal=False, softmax_scale=None,
                           device=s.device).triu(1)
         s = s.masked_fill(mask, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    if dropout_rate > 0.0:
+    if dropout_rate > 0.0 and dropout_key is not None:
         keep = torch.rand(p.shape, generator=dropout_key,
                           device=p.device) >= dropout_rate
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
@@ -306,10 +307,11 @@ def _bind(lib):
     lib.apex_flash_attn_bwd.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32,
         i32, f32, i32, *seg, vp]
+    # the dq pass: dq, then its zeroed int32 work-item counter
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
-        *seg, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
+        i32, *seg, vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
@@ -326,6 +328,9 @@ def _bind(lib):
     # the backward's dynamic shared memory: (head_dim, seg, dq) -> bytes
     lib.apex_flash_attn_bwd_smem.restype = i32
     lib.apex_flash_attn_bwd_smem.argtypes = [i32, i32, i32]
+    # the dq pass's: (head_dim, seg) -> bytes
+    lib.apex_flash_attn_bwd_dq_smem.restype = i32
+    lib.apex_flash_attn_bwd_dq_smem.argtypes = [i32, i32]
     return lib
 
 
@@ -577,17 +582,19 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                       kv_seg=None):
     """Launch the split backward's dq pass on the current stream (the
     arguments of `flash_bwd_cuda`).  Each dq row is summed over its key
-    blocks in registers and written once, in bf16: no atomics, the same
-    bits on every run.  `flash_bwd_dq_cuda.launches` counts launches."""
+    tiles in registers and written once, in bf16: no atomics, the same
+    bits on every run.  The kernel takes its work items from a zeroed
+    int32 counter.  `flash_bwd_dq_cuda.launches` counts launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    work = torch.zeros(1, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd_dq(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), work.data_ptr(),
         _strides(q, k, v, do), b, h, sq, sk, float(scale),
         int(bool(causal)), *seg, stream)
     _raise_launch_error(err, "dq pass")
@@ -698,6 +705,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and dropout_key is None:
+        raise ValueError("dropout_rate > 0 requires dropout_key")
     if segment_ids is not None:
         if q_segment_ids is not None or kv_segment_ids is not None:
             raise ValueError(

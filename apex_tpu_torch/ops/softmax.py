@@ -28,12 +28,24 @@ Forward kernel note.  Replaces apex_tpu/ops/softmax.py:_fwd_kernel
 once where the mask leaves it (a masked element's output does not
 depend on x: the lower triangle of the causal form, the unmasked
 columns of the masked form), the mask, and y written once; ~6 flops per
-element.  This kernel reads all of x.  Design:
+element.  Design:
+  * A masked element's score is -10000 whatever x holds, so it enters
+    the max, the sum and its own output, exp(-10000 - m)/s, as that
+    constant: the plain version's function, a fully masked row
+    (uniform) and rows whose scores sit near -10000 (where the masked
+    elements' term of s matters) included.  The causal form loads x
+    only up to each row's diagonal, rounded up to whole groups of
+    `_GROUP` (8) columns: a load mask that is one value a group keeps
+    the loads 16 bytes wide.  The masked form loads every in-bounds x:
+    skipping its padded groups made the unpadded batches the models
+    send slower (PERF.md).
   * A row up to `_MAX_BLOCK` (8192) columns sits in registers, so x is
     read once; short rows are packed several to a program (about 4096
     elements each), so a program never idles on a 64-wide row.  Longer
-    rows take two passes in chunks: an online max and rescaled sum, then
-    the writes (x is read twice).  Every sequence length runs.
+    rows take two passes in chunks: an online max and rescaled sum (the
+    causal form visits the chunks up to the row's diagonal and adds the
+    rest as n·exp(-10000 - m)), then the writes (x is read twice where
+    visible).  Every sequence length runs.
   * The mask is read through its broadcast strides: BERT's (B, 1, 1, S)
     padding mask is S bytes a sequence, and the (B, nh, S, S) mask the
     TPU wrapper builds with `broadcast_to` never exists.  A program maps
@@ -41,8 +53,9 @@ element.  This kernel reads all of x.  Design:
   * The causal form computes its mask from the row index (query
     position = row % sq), reading no mask at all.
   * fp32 math; the exponential is the hardware one (`ex2.approx`, within
-    ~1e-6 relative of the plain version's `expf`), the divide is the IEEE
-    one (`div_rn`), and the store rounds to nearest-even.
+    ~1e-6 relative of the plain version's `expf`), each row's 1/s is the
+    IEEE one (`div_rn`) and multiplies every numerator (within an fp32
+    ulp of the quotient), and the store rounds to nearest-even.
 
 Backward kernel note.  Replaces apex_tpu/ops/softmax.py:_bwd_kernel
 (launched by _bwd_pallas).  What bounds it on an H100: bytes — g and y
@@ -70,6 +83,9 @@ _MAX_BLOCK = 8192
 _CHUNK = 4096
 # elements a program covers when it packs several short rows
 _PROGRAM_ELEMS = 4096
+# the forward reads x in groups of this many columns, whole groups at a
+# time (16 bytes of bf16)
+_GROUP = 8
 
 
 # --------------------------- plain PyTorch versions --------------------------
@@ -119,71 +135,103 @@ def softmax_bwd_reference(g, y, scale):
 def _softmax_fwd_kernel(X, M, Y, n_rows, n_cols, x_stride, y_stride, sq,
                         n1, n2, ms0, ms1, ms2, msc, scale,
                         ROWS: tl.constexpr, BLOCK: tl.constexpr,
-                        ONE_BLOCK: tl.constexpr, HAS_MASK: tl.constexpr,
-                        CAUSAL: tl.constexpr):
+                        GROUP: tl.constexpr, ONE_BLOCK: tl.constexpr,
+                        HAS_MASK: tl.constexpr, CAUSAL: tl.constexpr):
+    # a block of ROWS rows x BLOCK columns as (row, group of GROUP
+    # columns, column in the group): a load mask that is one value a
+    # group keeps its loads 16 bytes wide
     rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
-    rmask = rows < n_rows
+    rmask = (rows < n_rows)[:, None, None]
     r64 = rows.to(tl.int64)
-    x_row = X + r64[:, None] * x_stride
-    y_row = Y + r64[:, None] * y_stride
+    x_row = X + r64[:, None, None] * x_stride
+    y_row = Y + r64[:, None, None] * y_stride
+    m_row = M
     if HAS_MASK:
         # the mask's offset of each row: row = (i0 * n1 + i1) * n2 + i2
         i2 = r64 % n2
         i1 = (r64 // n2) % n1
         i0 = r64 // n2 // n1
-        m_row = M + (i0 * ms0 + i1 * ms1 + i2 * ms2)[:, None]
-    pos = (rows % sq)[:, None]                       # query position
+        m_row = M + (i0 * ms0 + i1 * ms1 + i2 * ms2)[:, None, None]
+    pos = (rows % sq)[:, None, None]                 # query position
+    grp = tl.arange(0, BLOCK // GROUP)[None, :, None] * GROUP
+    lane = tl.arange(0, GROUP)[None, None, :]
     if ONE_BLOCK:
-        cols = tl.arange(0, BLOCK)[None, :]
-        inb = rmask[:, None] & (cols < n_cols)
-        x = tl.load(x_row + cols, mask=inb, other=0.0).to(tl.float32)
-        x = x * scale
-        if HAS_MASK:
-            mk = tl.load(m_row + cols.to(tl.int64) * msc, mask=inb, other=0)
-            x = tl.where(mk != 0, -10000.0, x)
-        if CAUSAL:
-            x = tl.where(cols > pos, -10000.0, x)
-        x = tl.where(inb, x, float("-inf"))
-        mx = tl.max(x, axis=1)
-        e = tl.exp(x - mx[:, None])
-        s = tl.sum(e, axis=1)
-        y = tl.div_rn(e, s[:, None])
-        tl.store(y_row + cols, y.to(Y.dtype.element_ty,
-                                    fp_downcast_rounding="rtne"), mask=inb)
+        cols = grp + lane
+        inb = rmask & (cols < n_cols)
+        vis, live = _fwd_visible(m_row, cols, grp, inb, pos, msc,
+                                 HAS_MASK, CAUSAL)
+        x = tl.load(x_row + cols, mask=live, other=0.0).to(tl.float32)
+        # a masked score is -10000 whatever x holds there; out of bounds,
+        # no weight
+        z = tl.where(vis, x * scale, -10000.0)
+        z = tl.where(inb, z, float("-inf"))
+        m = tl.max(tl.max(z, axis=2), axis=1)
+        e = tl.exp(z - m[:, None, None])
+        inv = tl.div_rn(tl.full([ROWS], 1.0, tl.float32),
+                        tl.sum(tl.sum(e, axis=2), axis=1))
+        tl.store(y_row + cols, (e * inv[:, None, None]).to(
+            Y.dtype.element_ty, fp_downcast_rounding="rtne"), mask=inb)
     else:
+        # one row a program (ROWS == 1): an online max and rescaled sum,
+        # then the writes; the causal form's chunks past the row's
+        # diagonal, every score -10000, are counted, not visited
         m_i = tl.full([ROWS], float("-inf"), tl.float32)
         s_i = tl.zeros([ROWS], dtype=tl.float32)
-        for c0 in range(0, n_cols, BLOCK):
-            cols = c0 + tl.arange(0, BLOCK)[None, :]
-            inb = rmask[:, None] & (cols < n_cols)
-            x = tl.load(x_row + cols, mask=inb, other=0.0).to(tl.float32)
-            x = x * scale
-            if HAS_MASK:
-                mk = tl.load(m_row + cols.to(tl.int64) * msc, mask=inb,
-                             other=0)
-                x = tl.where(mk != 0, -10000.0, x)
-            if CAUSAL:
-                x = tl.where(cols > pos, -10000.0, x)
-            x = tl.where(inb, x, float("-inf"))
-            m_new = tl.maximum(m_i, tl.max(x, axis=1))
+        end = n_cols
+        if CAUSAL:
+            end = tl.minimum(
+                n_cols, ((tl.program_id(0) * ROWS) % sq) // BLOCK * BLOCK
+                + BLOCK)
+        for c0 in range(0, end, BLOCK):
+            cols = c0 + grp + lane
+            inb = rmask & (cols < n_cols)
+            vis, live = _fwd_visible(m_row, cols, c0 + grp, inb, pos, msc,
+                                     HAS_MASK, CAUSAL)
+            x = tl.load(x_row + cols, mask=live, other=0.0).to(tl.float32)
+            z = tl.where(vis, x * scale, -10000.0)
+            z = tl.where(inb, z, float("-inf"))
+            m_new = tl.maximum(m_i, tl.max(tl.max(z, axis=2), axis=1))
             s_i = (s_i * tl.exp(m_i - m_new)
-                   + tl.sum(tl.exp(x - m_new[:, None]), axis=1))
+                   + tl.sum(tl.sum(tl.exp(z - m_new[:, None, None]),
+                                   axis=2), axis=1))
             m_i = m_new
+        if CAUSAL:
+            n_skip = (n_cols - end).to(tl.float32)
+            m_new = tl.where(n_skip > 0, tl.maximum(m_i, -10000.0), m_i)
+            s_i = (s_i * tl.exp(m_i - m_new)
+                   + n_skip * tl.exp(-10000.0 - m_new))
+            m_i = m_new
+        inv = tl.div_rn(tl.full([ROWS], 1.0, tl.float32), s_i)
         for c0 in range(0, n_cols, BLOCK):
-            cols = c0 + tl.arange(0, BLOCK)[None, :]
-            inb = rmask[:, None] & (cols < n_cols)
-            x = tl.load(x_row + cols, mask=inb, other=0.0).to(tl.float32)
-            x = x * scale
-            if HAS_MASK:
-                mk = tl.load(m_row + cols.to(tl.int64) * msc, mask=inb,
-                             other=0)
-                x = tl.where(mk != 0, -10000.0, x)
-            if CAUSAL:
-                x = tl.where(cols > pos, -10000.0, x)
-            y = tl.div_rn(tl.exp(x - m_i[:, None]), s_i[:, None])
-            tl.store(y_row + cols, y.to(Y.dtype.element_ty,
-                                        fp_downcast_rounding="rtne"),
-                     mask=inb)
+            cols = c0 + grp + lane
+            inb = rmask & (cols < n_cols)
+            vis, live = _fwd_visible(m_row, cols, c0 + grp, inb, pos, msc,
+                                     HAS_MASK, CAUSAL)
+            x = tl.load(x_row + cols, mask=live, other=0.0).to(tl.float32)
+            # the scaled score rounded before the exponent, as in the plain
+            # version (through the select: no FMA takes the product whole)
+            z = tl.where(vis, x * scale, -10000.0)
+            e = tl.exp(z - m_i[:, None, None])
+            tl.store(y_row + cols, (e * inv[:, None, None]).to(
+                Y.dtype.element_ty, fp_downcast_rounding="rtne"), mask=inb)
+
+
+def _fwd_visible(m_row, cols, grp, inb, pos, msc, HAS_MASK: tl.constexpr,
+                 CAUSAL: tl.constexpr):
+    """(vis, live) over a (rows, groups, GROUP) block of columns `cols`
+    whose groups start at `grp`: vis, the in-bounds elements the mask
+    leaves (their scores count); live, where x is loaded — in the causal
+    form the in-bounds elements of every group that starts at or before
+    the row's diagonal, else every in-bounds element."""
+    vis = inb
+    live = inb
+    if CAUSAL:
+        vis = inb & (cols <= pos)
+        live = inb & (grp <= pos)
+    elif HAS_MASK:
+        mk = tl.load(m_row + cols.to(tl.int64) * msc, mask=inb, other=1)
+        vis = inb & (mk == 0)
+    return vis, live
 
 
 def _softmax_bwd_kernel(G, Y, DX, n_rows, n_cols, g_stride, y_stride,
@@ -227,12 +275,15 @@ _JIT = {}
 
 
 def _jit(fn):
-    global tl
+    global tl, _fwd_visible
     if fn.__name__ not in _JIT:
         import triton
         import triton.language
 
         tl = triton.language
+        if not isinstance(_fwd_visible, triton.JITFunction):
+            # the forward kernel's helper, jitted before its first compile
+            _fwd_visible = triton.jit(_fwd_visible)
         _JIT[fn.__name__] = triton.jit(fn)
     return _JIT[fn.__name__]
 
@@ -297,6 +348,14 @@ def softmax_fwd_triton(x, mask, scale, causal):
     softmax over its last dim); `mask` None or a tensor that broadcasts
     to x.  Returns y, new, of x's shape and dtype.
     `softmax_fwd_triton.launches` counts launches."""
+    y, _ = _launch_fwd(x, mask, scale, causal)
+    softmax_fwd_triton.launches += 1
+    return y
+
+
+def _launch_fwd(x, mask, scale, causal):
+    """`softmax_fwd_triton`'s launch, uncounted: (y, the compiled kernel,
+    whose `asm["ptx"]` shows its loads; None for an empty x)."""
     if not x.dtype.is_floating_point:
         raise TypeError(f"softmax kernel needs a float tensor, got {x.dtype}")
     shape = tuple(x.shape)
@@ -312,15 +371,15 @@ def softmax_fwd_triton(x, mask, scale, causal):
         m, n1, n2, s0, s1, s2, sc = _mask_layout(mask, shape)
     else:
         m, n1, n2, s0, s1, s2, sc = x2, 1, 1, 0, 0, 0, 0
+    compiled = None
     if n_rows and n_cols:
         block, rows, one, num_warps, grid = _launch_shape(n_rows, n_cols)
-        _jit(_softmax_fwd_kernel)[grid](
+        compiled = _jit(_softmax_fwd_kernel)[grid](
             x2, m, y, n_rows, n_cols, x2.stride(0), y.stride(0), sq, n1, n2,
             s0, s1, s2, sc, float(scale), ROWS=rows, BLOCK=block,
-            ONE_BLOCK=one, HAS_MASK=mask is not None, CAUSAL=bool(causal),
-            num_warps=num_warps)
-    softmax_fwd_triton.launches += 1
-    return y.reshape(shape)
+            GROUP=_GROUP, ONE_BLOCK=one, HAS_MASK=mask is not None,
+            CAUSAL=bool(causal), num_warps=num_warps)
+    return y.reshape(shape), compiled
 
 
 softmax_fwd_triton.launches = 0

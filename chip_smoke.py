@@ -9,8 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  them; the kernels are built from this checkout's
                  sources (nvcc for the CUDA C++, Triton's JIT); ptxas'
                  registers and spills by kernel, the flash backward's
-                 dynamic shared memory and any serialised-wgmma note
-                 (C7512, C7515) are logged.
+                 and the dq pass's dynamic shared memory and any
+                 serialised-wgmma note (C7512, C7515, C7518, C7520) are
+                 logged; the dq pass's four kernels must have no spills
+                 and no such note.
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: the
@@ -21,7 +23,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  packed kernel bit for bit), at head_dim 128 with
                  BERT's padding and a dead row, each backward run twice
                  (dk, dv the same bits, each run's dq within
-                 tolerance); the LAMB kernels over the BERT-Large flat buffer in bf16 and
+                 tolerance); the split backward's dq pass against its
+                 plain version at the sq != sk shapes, at head_dim 128
+                 with the padding and the dead row, at BERT's step shape
+                 with its padding (causal and not) and with q/kv ids
+                 that mask whole rows, two runs bit for bit each; the
+                 LAMB kernels over the BERT-Large flat buffer in bf16 and
                  fp32, with a found_inf step and per-tensor lr scales;
                  the cross-entropy kernels at ResNet's (256, 1000) and a
                  ragged (64, 50304); SGD over the ResNet-50 flat buffer
@@ -30,8 +37,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  against fp64 sums; the softmax pair at GPT's causal
                  (192, 1024, 1024) and BERT's (32, 16, 512, 512) with a
                  ragged (32, 1, 1, 512) padding mask (8 sequences padded
-                 entirely: uniform rows) in bf16, and in fp32 at ragged
-                 widths up to 20000, past the single-block cap; the
+                 entirely: uniform rows) in bf16 (the forward's loads 16
+                 bytes wide in its PTX), in fp32 at ragged widths up to
+                 20000, past the single-block cap, and with scaled
+                 scores near -10000 (causal, BERT's padding, a chunked
+                 row), where the masked elements' term of the sum
+                 matters; the
                  segmented Adam over the GPT-350M flat buffer in bf16
                  and fp32 (the no-decay wd, lr scales, AdamW and L2, a
                  found_inf step), bit for bit; Adagrad over the same
@@ -184,7 +195,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  kernels-vs-plain step of each.
  12. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
-                 call computing the same function.
+                 call computing the same function; the softmax forward
+                 also at the BERT step's own mask (no padding) and with
+                 the bytes of x it reads; the fused dense GEMM's mma.sync
+                 and fp32 routes at the MLP leg's shapes beside their
+                 bounds and torch.addmm.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -445,28 +460,60 @@ def check_flash_cross(torch, fa, rng, *, b, h, sq, sk, d, causal, hp=2):
                                    ("dk", dk, kr.grad), ("dv", dv, vr.grad))}
 
 
+def check_dq_pass(torch, fa, rng, *, b, h, sq, sk, d, causal, q_seg=None,
+                  kv_seg=None):
+    """The split backward's dq pass (`flash_bwd_dq_cuda`) against its plain
+    version (`flash_bwd_dq_reference`) on one bf16 input and the forward
+    kernel's lse, run twice: the two runs the same bits (each row is
+    written once), each within 1e-2 of dq's largest magnitude (the
+    tolerance of `check_flash_attention`: dS is rounded to bf16 before its
+    product in both, its exponent taken in another order).  q_seg (b, sq)
+    / kv_seg (b, sk): segment ids.  Returns the max error."""
+    bf16 = torch.bfloat16
+    q, do = (torch.randn((b, h, sq, d), generator=rng, device="cuda")
+             .to(bf16) for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=rng, device="cuda")
+            .to(bf16) for _ in range(2))
+    sc = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, q_seg, kv_seg)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, causal, q_seg, kv_seg)
+    dq = fa.flash_bwd_dq_cuda(*args)
+    dq_again = fa.flash_bwd_dq_cuda(*args)
+    ref = fa.flash_bwd_dq_reference(*args)
+    torch.cuda.synchronize()
+    case = (f"dq pass ({b},{h}) sq={sq} sk={sk} d={d} causal={causal} "
+            f"seg={q_seg is not None}")
+    check(dq.dtype == bf16, f"{case}: dtype {dq.dtype}")
+    check(torch.equal(dq, dq_again), f"{case}: two runs differ")
+    return max_err(torch, case, dq, ref)
+
+
 def bwd_ptxas(fa, log_text):
     """The backward kernels' lines of ptxas' report (csrc/build/
-    flash_attention.log): registers and spills by kernel, the dynamic
-    shared memory each launch asks for, and ptxas' notes that it
-    serialised wgmma instructions (C7512, C7515)."""
+    flash_attention.log), the split dq pass's included: registers and
+    spills by kernel, the dynamic shared memory each launch asks for, and
+    ptxas' notes that it serialised wgmma instructions (C7512, C7515,
+    C7520)."""
     rows, notes, name = {}, [], None
     for line in log_text.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else None
-        elif name and ("flash_bwd_kernel" in name
-                       or "flash_bwd_packed_kernel" in name):
+        elif name and any(k in name for k in (
+                "flash_bwd_kernel", "flash_bwd_packed_kernel",
+                "flash_bwd_dq_kernel")):
             if "Used " in line:
                 rows.setdefault(name, {})["registers"] = int(
                     line.split("Used ")[1].split()[0])
             elif "spill" in line:
                 rows.setdefault(name, {})["spills"] = line.strip()
-        if "Performance Loss" in line and "flash_bwd_" in line \
-                and "flash_bwd_dq_kernel" not in line:
-            notes.append(line.strip()[:200])
+        if "Performance Loss" in line and "flash_bwd_" in line:
+            notes.append(line.strip()[:220])
     lib = fa._lib()
     smem = {f"d={d} seg={seg} dq={dq}": lib.apex_flash_attn_bwd_smem(
         d, seg, dq) for d in (64, 128) for seg in (0, 1) for dq in (0, 1)}
+    smem.update({f"dq pass d={d} seg={seg}": lib.apex_flash_attn_bwd_dq_smem(
+        d, seg) for d in (64, 128) for seg in (0, 1)})
     return rows, smem, notes
 
 
@@ -634,9 +681,9 @@ def check_adam(torch, ok, rng, n, dtype, weight_decay):
 
 
 def check_softmax(torch, sm, rng, shape, dtype, scale, *, causal=False,
-                  mask=None):
+                  mask=None, shift=0.0):
     """Both softmax kernels against their plain versions on one seeded
-    input (scores 4·N(0, 1), N(0, 1) cotangents).  Tolerances: fp32 y
+    input (scores 4·N(0, 1) + `shift`, N(0, 1) cotangents).  Tolerances: fp32 y
     within 2e-6 relative (the kernel's exp is the hardware `ex2.approx`,
     the plain version's `expf`; 1e-30 absolute for results that
     underflow); bf16 y within one bf16 ulp of the plain value.  dx:
@@ -645,7 +692,7 @@ def check_softmax(torch, sm, rng, shape, dtype, scale, *, causal=False,
     and the number of rows whose every key is masked (they must come out
     uniform)."""
     dev = "cuda"
-    x = (torch.randn(shape, generator=rng, device=dev) * 4).to(dtype)
+    x = (torch.randn(shape, generator=rng, device=dev) * 4 + shift).to(dtype)
     g = torch.randn(shape, generator=rng, device=dev).to(dtype)
     y = sm.softmax_fwd_triton(x, mask, scale, causal)
     yr = sm.softmax_fwd_reference(x, mask, scale, causal)
@@ -690,6 +737,20 @@ def check_softmax(torch, sm, rng, shape, dtype, scale, *, causal=False,
     return fwd_err, err.max().item(), dead
 
 
+def fwd_loads(torch, sm, shape, mask, causal):
+    """The global loads, by instruction, in the PTX of the softmax forward
+    compiled for bf16 scores of `shape` (`ld.global.v4.b32`: 16 bytes a
+    thread), from an uncounted launch."""
+    import re
+
+    x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    _, kernel = sm._launch_fwd(x, mask, 0.125, causal)
+    out = {}
+    for ins in re.findall(r"ld\.global[\w.]*", kernel.asm["ptx"]):
+        out[ins] = out.get(ins, 0) + 1
+    return out
+
+
 def dense_kernel_checks(torch, sm, rng):
     """Phase 2's softmax cases: GPT's causal (192, 1024, 1024) and BERT's
     (32, 16, 512, 512) with the ragged (32, 1, 1, 512) padding mask
@@ -704,16 +765,22 @@ def dense_kernel_checks(torch, sm, rng):
     fwd, bwd, _ = check_softmax(torch, sm, rng, (192, 1024, 1024), bf16, sc,
                                 causal=True)
     errs["softmax_fwd"], errs["softmax_bwd"] = fwd, bwd
+    loads = fwd_loads(torch, sm, (192, 1024, 1024), None, True)
+    check("ld.global.v4.b32" in loads, f"softmax forward loads {loads}")
     log(f"softmax (192,1024,1024) causal bf16: max err fwd {fwd:.3e} "
-        f"bwd {bwd:.3e}")
+        f"bwd {bwd:.3e}; forward loads {loads}")
     pad = pad_segments(torch, BERT_BATCH, BERT_SEQ, [512, 300, 129, 0]) == 0
     fwd, bwd, dead = check_softmax(torch, sm, rng,
                                    (BERT_BATCH, 16, BERT_SEQ, BERT_SEQ),
                                    bf16, sc, mask=pad[:, None, None, :])
     check(dead == 8 * 16 * BERT_SEQ, f"{dead} fully masked rows")
     errs["softmax_fwd_bert"], errs["softmax_bwd_bert"] = fwd, bwd
+    loads = fwd_loads(torch, sm, (BERT_BATCH, 16, BERT_SEQ, BERT_SEQ),
+                      pad[:, None, None, :], False)
+    check("ld.global.v4.b32" in loads, f"softmax forward loads {loads}")
     log(f"softmax (32,16,512,512) padding mask bf16: max err fwd "
-        f"{fwd:.3e} bwd {bwd:.3e}, {dead} uniform rows")
+        f"{fwd:.3e} bwd {bwd:.3e}, {dead} uniform rows; forward loads "
+        f"{loads}")
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [((3, 5, 1), None, False), ((4, 3, 7), None, False),
              ((2, 33, 1000), None, False), ((2, 3, 20000), None, False),
@@ -728,6 +795,23 @@ def dense_kernel_checks(torch, sm, rng):
                                        causal=causal, mask=mask)
         log(f"softmax {shape} fp32 causal={causal} mask={mshape}: max err "
             f"fwd {fwd:.3e} bwd {bwd:.3e}, {dead} uniform rows")
+    # scaled scores that sit near -10000 (scale 0.3, x = -10000 / 0.3 +
+    # 4·N(0, 1): the other cases' spread), where the masked elements' term
+    # of the sum matters: causal, BERT's padding (a fully padded sequence
+    # among them) and a chunked row
+    near = pad_segments(torch, 8, 512, [512, 300, 129, 0]) == 0
+    for shape, mask, causal in (
+            ((4, 8, 256, 256), None, True),
+            ((8, 4, 512, 512), near[:, None, None, :], False),
+            ((2, 1, 3, 20000),
+             torch.rand((2, 1, 1, 20000), generator=g, device="cuda") < 0.3,
+             False)):
+        fwd, bwd, dead = check_softmax(torch, sm, rng, shape, f32, 0.3,
+                                       causal=causal, mask=mask,
+                                       shift=-10000.0 / 0.3)
+        log(f"softmax {shape} fp32 near -10000 causal={causal} "
+            f"mask={mask is not None}: max err fwd {fwd:.3e} bwd "
+            f"{bwd:.3e}, {dead} uniform rows")
     fwd, bwd, _ = check_softmax(torch, sm, rng, (3, 77, 77), bf16, sc,
                                 causal=True)
     log(f"softmax (3,77,77) causal bf16: max err fwd {fwd:.3e} "
@@ -2539,6 +2623,46 @@ def gemm_host_us(torch, fn, n=50):
     return us
 
 
+# apex's run_mlp layers at batch 1024 (`MLP([480, 1024, 1024, 512, 256,
+# 1])`): (m, k, n), relu on all but the last
+MLP_LAYERS = ((1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
+              (1024, 512, 256), (1024, 256, 1))
+
+
+def gemm_route_times(torch, fdn, rng):
+    """The fused dense GEMM's other two routes at the MLP leg's shapes:
+    `fma` (fp32) at each layer of the fp32 MLP, `mma` (`mma.sync`) at the
+    bf16 MLP's last layer (N = 1, the leg's one launch on that route);
+    each beside its bound (bytes once, or 2mnk at the fp32 / bf16 peak)
+    and `torch.addmm` (+ relu) on the same inputs."""
+    out = []
+    cases = [(shape, torch.float32, "fma") for shape in MLP_LAYERS]
+    cases.append((MLP_LAYERS[-1], torch.bfloat16, "mma"))
+    for (m, k, n), dt, route in cases:
+        act = "relu" if n != 1 else None
+        x = torch.randn((m, k), generator=rng, device="cuda").to(dt)
+        w = (torch.randn((k, n), generator=rng, device="cuda")
+             / math.sqrt(k)).to(dt)
+        b = torch.randn((n,), generator=rng, device="cuda").to(dt)
+        check(fdn.gemm_route(dt, m, n, k, x.data_ptr(), w.data_ptr())
+              == route, f"GEMM ({m},{k},{n}) {dt}: not the {route} route")
+        ms = time_ms(torch, lambda: fdn.linear_bias_cuda(x, w, b, act))
+        if act:
+            lib = time_ms(torch, lambda: torch.relu(torch.addmm(b, x, w)))
+        else:
+            lib = time_ms(torch, lambda: torch.addmm(b, x, w))
+        el = x.element_size()
+        peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        bound = 1e3 * max((m * k + k * n + m * n + n) * el / HBM_BYTES_PER_S,
+                          2 * m * n * k / peak)
+        out.append({"shape": [m, k, n], "dtype": str(dt)[6:],
+                    "route": route, "act": act, "ms": ms, "bound_ms": bound,
+                    "library_ms": lib, "library": "torch.addmm"
+                    + (" + relu" if act else "")})
+        del x, w, b
+    return out
+
+
 def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
                          bert_layout):
     """Phase 11 rows of this slice's kernels: Adagrad over the GPT-350M
@@ -2635,6 +2759,7 @@ def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
                                                             act), n=10)})
         rows.append(row)
         del x, w, b, buf, x_mma
+    rows[-2]["other_routes_at_mlp_leg"] = gemm_route_times(torch, fdn, rng)
     torch.cuda.empty_cache()
     return rows
 
@@ -3299,6 +3424,11 @@ def table_dense_kernels(torch, sm, ok, rng, errs, gpt, bert, layout):
     bfwd_plain = time_ms(torch, lambda: sm.softmax_fwd_reference(
         xb, mask, sc, False), n=10)
     bfwd_lib = time_ms(torch, lambda: torch._masked_softmax(xb, pad, -1, 1))
+    # the BERT step's own mask: the bench's batch has no padding (the
+    # table's case leaves 941 of every 2048 keys)
+    step_mask = torch.zeros_like(mask)
+    bfwd_step = time_ms(torch, lambda: sm.softmax_fwd_triton(
+        xb, step_mask, sc, False))
     yb = sm.softmax_fwd_triton(xb, mask, sc, False)
     bbwd = time_ms(torch, lambda: sm.softmax_bwd_triton(gb, yb, sc))
     bbwd_plain = time_ms(torch, lambda: sm.softmax_bwd_reference(gb, yb, sc),
@@ -3327,6 +3457,12 @@ def table_dense_kernels(torch, sm, ok, rng, errs, gpt, bert, layout):
     n_real = int((~pad).sum().item())
     rows[-1].update(bert_cols(bfwd, bfwd_plain, bfwd_lib,
                               h * sb * n_real * 2 + pad.numel() + elb * 2))
+    rows[-1].update({
+        "bert_step_mask_ms": bfwd_step,
+        "bert_step_mask_bound_ms": 1e3 * (2 * elb * 2 + pad.numel())
+        / HBM_BYTES_PER_S,
+        "bert_step_mask": "(32,1,1,512) all False: the bench's BERT batch "
+                          "has no padding"})
     row("softmax_bwd", "triton", src, "apex_tpu/ops/softmax.py:73", bwd_ms,
         bwd_plain, bwd_lib, "torch._softmax_backward_data (no scale)",
         3 * el * 2, 4 * el, "g, y (192,1024,1024) bf16")
@@ -3561,6 +3697,17 @@ def run_phases():
                 log(f"flash backward dynamic shared memory (bytes): {smem}")
                 log("flash backward serialised wgmma notes: "
                     + ("; ".join(notes) if notes else "none"))
+                # the dq pass: four instantiations, none spilling, none
+                # with its wgmma instructions serialised
+                dq_rows = {k: r for k, r in rows.items()
+                           if "flash_bwd_dq_kernel" in k}
+                check(len(dq_rows) == 4 and all(
+                    r.get("spills", "").startswith(
+                        "0 bytes stack frame, 0 bytes spill")
+                    for r in dq_rows.values()),
+                    f"dq pass ptxas: {dq_rows}")
+                check(not any("flash_bwd_dq_kernel" in n_ for n_ in notes),
+                      "dq pass: ptxas serialised its wgmma instructions")
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -3628,6 +3775,10 @@ def run_phases():
                               d=d_, causal=causal)
         log(f"flash_attention sq={sq_} sk={sk_} d={d_} causal={causal}: "
             f"dk, dv bit for bit fused / dk/dv pass / packed; {e}")
+        e = check_dq_pass(torch, fa, rng, b=b_, h=h_, sq=sq_, sk=sk_, d=d_,
+                          causal=causal)
+        log(f"dq pass sq={sq_} sk={sk_} d={d_} causal={causal}: max err "
+            f"{e:.3e} vs its plain version, two runs bit for bit")
     errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
                                                   1024, bf16)
     for rows, hidden, dtype in ((77, 1000, f32), (5, 1024, bf16)):
@@ -3681,6 +3832,21 @@ def run_phases():
     check(e["dead_rows"] == 8, f"d=128 padding case: {e['dead_rows']} "
           f"dead rows, want 8 (one a head)")
     log(f"flash_attention segments (4,8,512,128), packed, a dead row: {e}")
+    # the dq pass with segment ids: the same d=128 padding and dead row,
+    # BERT's step shape with its padding, and q/kv ids that leave whole
+    # rows masked
+    for kw in (dict(b=4, h=8, sq=BERT_SEQ, sk=BERT_SEQ, d=128,
+                    causal=False, q_seg=qd, kv_seg=sg),
+               dict(b=BERT_BATCH, h=16, sq=BERT_SEQ, sk=BERT_SEQ, d=64,
+                    causal=False, q_seg=bseg, kv_seg=bseg),
+               dict(b=BERT_BATCH, h=16, sq=BERT_SEQ, sk=BERT_SEQ, d=64,
+                    causal=True, q_seg=bseg, kv_seg=bseg),
+               dict(b=BERT_BATCH, h=16, sq=BERT_SEQ, sk=BERT_SEQ, d=64,
+                    causal=False, q_seg=qs, kv_seg=ks)):
+        e = check_dq_pass(torch, fa, rng, **kw)
+        log(f"dq pass segments ({kw['b']},{kw['h']},{kw['sq']},{kw['d']}) "
+            f"causal={kw['causal']}: max err {e:.3e} vs its plain version, "
+            f"two runs bit for bit")
     del sg, qd
     # the packed pair (hp heads a block) against the hp=1 kernels and the
     # plain version: GPT's step shape on its views, BERT's with ragged

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time variants of the port's wgmma + TMA kernels on one GPU.
 
-    python3 scripts/port_hopper_ablation.py [--backward]
+    python3 scripts/port_hopper_ablation.py [--backward | --dq | --softmax]
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
 they stand and variants of them through the `-D` overrides the two
-sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`; into the gitignored
+sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`, `APEX_BWD_*`,
+`APEX_DQ_*`; into the gitignored
 `apex_tpu_torch/csrc/build/ablation_hopper/`):
 
   fused dense GEMM (the wgmma route)
@@ -45,6 +46,17 @@ sources declare (`APEX_GEMM_WG_*`, `APEX_FWD_*`; into the gitignored
                       (all first tiles first) instead of in chunks of a
                       few heads
     head_major        one head (group) a chunk: its tiles side by side
+  the split backward's dq pass
+    shipped           d=64: three consumer warpgroups of 64 query rows
+                      (192 rows a work item), 64-key tiles through a
+                      6-stage K/V ring, a tile's dQ product and the next
+                      tile's S and dP each waited for
+    two_warpgroups    two consumer warpgroups (128 rows a work item)
+    keys128           two warpgroups with 128-key tiles (a 3-stage ring)
+    three_stages      a 3-stage K/V ring
+    no_math           the pipeline alone: every wait, load, release and
+                      store, but no product or math (timed, not checked)
+    no_dq_store       everything but the stores of dq (timed, not checked)
 
 holds each against its plain version (the GEMM within 1e-2 of max |y| at
 GPT-350M's two MLP shapes; the forward's o and lse packed against
@@ -62,11 +74,29 @@ shape, every output against the plain version) and timed at the same
 three shapes (fused at hp 1, packed at hp 2, the dk/dv pass) and the dk/dv
 pass at bench.py's 32k shape (1, 8, 32768, 64) causal.  Each build's
 ptxas summary of the backward kernels (registers, spills, serialised
-wgmma notes) is printed beside its name.
+wgmma notes) is printed beside its name.  The dq-pass variants are held
+against `flash_bwd_dq_reference` (chip_smoke.check_dq_pass: causal at
+(1, 8, 2048, 64), and BERT's padding at (4, 8, 512, 64); two runs bit
+for bit) and timed at GPT-350M's seq 8192 (1, 16, 8192, 64) and at
+bench.py's 32k shape (1, 8, 32768, 64), causal, with their ptxas
+summaries.
+
+`--softmax` times the Triton softmax forward (`ops/softmax.py`) as
+shipped, whose causal form loads x only in the 8-column groups up to
+each row's diagonal, and a copy of it built here with its visibility
+helper swapped for one that loads every in-bounds x (`read_all`: the
+masks applied as before, the same outputs), at GPT's (192, 1024, 1024)
+causal and BERT's (32, 16, 512, 512) with the padding masks
+512/300/129/0 and none (the bench's batch; the masked form is the same
+code in both), in turns, each checked against
+`softmax_fwd_reference`.
 
 The card's name and power limit come first, the times last.
-`--backward` runs the backward's variants alone.  Fails without CUDA.
+`--backward` runs the backward's variants alone, `--dq` the dq pass's,
+`--softmax` the softmax forward's.  Fails without CUDA.
 """
+
+from __future__ import annotations
 
 import ctypes
 import math
@@ -76,6 +106,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+# triton.language, bound by `softmax_forward` on the card (this script
+# imports without triton)
+tl = None
 
 # variant -> its -D overrides of the source's defaults
 GEMM_VARIANTS = {
@@ -101,12 +135,22 @@ BWD_VARIANTS = {
     "key_major": ["-DAPEX_BWD_CHUNK=1000000"],
     "head_major": ["-DAPEX_BWD_CHUNK=1"],
 }
+DQ_VARIANTS = {
+    "shipped": [],
+    "two_warpgroups": ["-DAPEX_DQ_WGS64=2"],
+    "keys128": ["-DAPEX_DQ_WGS64=2", "-DAPEX_DQ_KEYS64=128",
+                "-DAPEX_DQ_STAGES64=3"],
+    "three_stages": ["-DAPEX_DQ_STAGES64=3"],
+    "no_math": ["-DAPEX_DQ_MATH=0"],
+    "no_dq_store": ["-DAPEX_DQ_STORE=0"],
+}
 # variants whose output is not the function (timed only)
 UNCHECKED = ("no_math", "no_o_store", "no_dq_store")
 # every -D override above, for the check that the sources declare them
 OVERRIDES = {"fused_dense": GEMM_VARIANTS,
              "flash_attention": {**FLASH_VARIANTS, **{
-                 f"bwd_{k}": v for k, v in BWD_VARIANTS.items()}}}
+                 f"bwd_{k}": v for k, v in BWD_VARIANTS.items()}, **{
+                 f"dq_{k}": v for k, v in DQ_VARIANTS.items()}}}
 
 
 def ptxas_summary(log, part):
@@ -224,6 +268,118 @@ def backward(cs, torch, fa, rng, libs):
     use_flash(libs["shipped"])
 
 
+def dq_pass(cs, torch, fa, rng, libs):
+    """The dq-pass variants: checked (`UNCHECKED` aside) and timed in
+    turns (module docstring)."""
+    seg = cs.pad_segments(torch, 4, 512, [512, 300, 129, 0])
+    for var in libs:
+        libs[var] = fa._bind(libs[var])
+        if var in UNCHECKED:
+            continue
+        fa._LIB = libs[var]
+        e = (cs.check_dq_pass(torch, fa, rng, b=1, h=8, sq=2048, sk=2048,
+                              d=64, causal=True),
+             cs.check_dq_pass(torch, fa, rng, b=4, h=8, sq=512, sk=512,
+                              d=64, causal=False, q_seg=seg, kv_seg=seg))
+        print(f"dq pass {var}: max err vs plain (causal, padding) {e}",
+              flush=True)
+    cases = {}
+    keep = []
+    for label, shape in (("seq8192", (1, 16, 8192, 64)),
+                         ("32k", cs.LONG_SHAPE)):
+        q, k, v, do = (torch.randn(shape, generator=rng, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        sc = 1.0 / math.sqrt(shape[3])
+        fa._LIB = libs["shipped"]
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, True)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q, k, v, do, lse, delta, sc, True)
+        keep.append(args)
+        cases[f"{label} dq pass"] = (
+            lambda a=args: fa.flash_bwd_dq_cuda(*a))
+
+    def use_flash(lib):
+        fa._LIB = lib
+
+    times = in_turns(cs, torch, libs, use_flash, cases)
+    for (var, case), ts in times.items():
+        print(f"flash {case} {var}: "
+              f"{', '.join(f'{x:.4f}' for x in ts)} ms", flush=True)
+    use_flash(libs["shipped"])
+
+
+def _visible_read_all(m_row, cols, grp, inb, pos, msc,
+                      HAS_MASK: tl.constexpr, CAUSAL: tl.constexpr):
+    """`ops.softmax._fwd_visible` with every in-bounds x loaded: the
+    `read_all` variant's helper (written against the module global `tl`,
+    bound to triton.language before it is jitted)."""
+    vis = inb
+    if CAUSAL:
+        vis = inb & (cols <= pos)
+    elif HAS_MASK:
+        mk = tl.load(m_row + cols.to(tl.int64) * msc, mask=inb, other=1)
+        vis = inb & (mk == 0)
+    return vis, inb
+
+
+def softmax_forward(cs, torch, rng):
+    """The softmax forward as shipped and with every x loaded (module
+    docstring), checked and timed in turns.  The wrapper launches the
+    kernel it finds in `softmax._JIT`, swapped here as `fa._LIB` is for
+    the CUDA variants."""
+    global tl
+    import types
+
+    import triton
+    import triton.language
+
+    from apex_tpu_torch.ops import softmax as sm
+
+    tl = triton.language
+    name = sm._softmax_fwd_kernel.__name__
+    shipped = sm._jit(sm._softmax_fwd_kernel)
+    # the kernel's own code and signature over the module's globals, but
+    # the helper
+    kernel = types.FunctionType(
+        sm._softmax_fwd_kernel.__code__,
+        dict(vars(sm), _fwd_visible=triton.jit(_visible_read_all)), name)
+    kernel.__annotations__ = sm._softmax_fwd_kernel.__annotations__
+    read_all = triton.jit(kernel)
+    variants = {"shipped": shipped, "read_all": read_all}
+    bf16 = torch.bfloat16
+    x = torch.randn((192, 1024, 1024), generator=rng,
+                    device="cuda").to(bf16)
+    xb = torch.randn((32, 16, 512, 512), generator=rng,
+                     device="cuda").to(bf16)
+
+    def pad(lens):
+        return (cs.pad_segments(torch, 32, 512, lens) == 0)[:, None, None, :]
+
+    cases = {"gpt causal": (x, None, True),
+             "bert 512/300/129/0": (xb, pad([512, 300, 129, 0]), False),
+             "bert no padding": (xb, pad([512]), False)}
+    for var, fn in variants.items():
+        sm._JIT[name] = fn
+        for case, (xx, mk, causal) in cases.items():
+            got = sm.softmax_fwd_triton(xx, mk, 0.125, causal).float()
+            ref = sm.softmax_fwd_reference(xx, mk, 0.125, causal).float()
+            err = (got - ref).abs().max().item()
+            cs.check(err <= 1e-3, f"softmax {var} {case}: error {err:.3e}")
+            print(f"softmax fwd {var} {case}: max err {err:.3e}",
+                  flush=True)
+    times = {}
+    for var in list(variants) + list(reversed(variants)):
+        sm._JIT[name] = variants[var]
+        for case, (xx, mk, causal) in cases.items():
+            times.setdefault((var, case), []).append(cs.time_ms(
+                torch, lambda: sm.softmax_fwd_triton(xx, mk, 0.125,
+                                                     causal)))
+    sm._JIT[name] = shipped
+    for (var, case), ts in times.items():
+        print(f"softmax fwd {case} {var}: "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
+
+
 def main(argv):
     import torch
 
@@ -243,6 +399,16 @@ def main(argv):
     out = os.path.join(csrc.BUILD_DIR, "ablation_hopper")
     os.makedirs(out, exist_ok=True)
     rng = torch.Generator(device="cuda").manual_seed(0)
+    if "--softmax" in argv:
+        softmax_forward(cs, torch, rng)
+        return 0
+    if "--dq" in argv:
+        os.makedirs(os.path.join(out, "dq"), exist_ok=True)
+        dq_procs = start(csrc, "flash_attention", os.path.join(out, "dq"),
+                         DQ_VARIANTS)
+        dq_pass(cs, torch, fa, rng, finish(cs, "flash_attention", dq_procs,
+                                           part="flash_bwd_dq"))
+        return 0
     only_bwd = "--backward" in argv
     os.makedirs(os.path.join(out, "bwd"), exist_ok=True)
     bwd_procs = start(csrc, "flash_attention", os.path.join(out, "bwd"),

@@ -115,6 +115,42 @@ def test_plain_version_matches_jax_reference_with_bias_and_segments():
                                rtol=0)
 
 
+def test_dropout_without_a_key_raises_as_jax():
+    """Fault 5: `flash_attention` with dropout_rate > 0 and no key raises
+    the JAX package's message, on the CPU as on the card (before the
+    device dispatch), for the same inputs handed to both packages."""
+    q, k, v, _ = _inputs(1, 2, 16, 64, seed=11)
+    with pytest.raises(ValueError, match="dropout_rate > 0 requires "
+                                         "dropout_key") as jerr:
+        jax_flash(*(jnp.asarray(x) for x in (q, k, v)), dropout_rate=0.5)
+    with pytest.raises(ValueError, match="dropout_rate > 0 requires "
+                                         "dropout_key") as terr:
+        tfa.flash_attention(*(torch.tensor(x) for x in (q, k, v)),
+                            dropout_rate=0.5)
+    assert str(terr.value) == str(jerr.value)
+    # and before any device check: meta tensors are neither CPU nor CUDA
+    with pytest.raises(ValueError, match="requires dropout_key"):
+        tfa.flash_attention(*(torch.empty(1, 2, 16, 64, device="meta"),) * 3,
+                            dropout_rate=0.5)
+
+
+def test_keyless_reference_applies_no_dropout():
+    """Fault 5: `attention_reference` with a rate but no key applies no
+    dropout, as the JAX one does (its `_common.dropout` returns x without a
+    key): fp32 at (1, 2, 16, 64) to 1e-5, and the same across two calls."""
+    q, k, v, _ = _inputs(1, 2, 16, 64, seed=12)
+    want = jax_reference(*(jnp.asarray(x) for x in (q, k, v)),
+                         dropout_rate=0.5)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    got = attention_reference(tq, tk, tv, dropout_rate=0.5)
+    again = attention_reference(tq, tk, tv, dropout_rate=0.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=0)
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(
+        got.numpy(), attention_reference(tq, tk, tv).numpy(), atol=0, rtol=0)
+
+
 def _pad_segments(b, s, lengths):
     """BERT's segment ids from a padding mask: 1 for the first
     `lengths[i]` tokens of row i, 0 for its pads."""
@@ -645,7 +681,7 @@ def test_bindings_match_the_c_signatures():
         src = f.read()
     sigs = {m.group(1): len([a for a in m.group(2).split(",") if a.strip()])
             for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src)}
-    assert len(sigs) == 7, sorted(sigs)
+    assert len(sigs) == 8, sorted(sigs)
 
     class Lib(SimpleNamespace):
         def __getattr__(self, name):
@@ -656,3 +692,76 @@ def test_bindings_match_the_c_signatures():
     lib = tfa._bind(Lib())
     for name, n in sigs.items():
         assert len(getattr(lib, name).argtypes) == n, name
+
+
+def _c_params(name):
+    """The parameter names of csrc/flash_attention.cu's `extern "C"`
+    function `name`, in order."""
+    import os
+    import re
+
+    from apex_tpu_torch import csrc
+
+    with open(os.path.join(csrc._DIR, "flash_attention.cu")) as f:
+        src = f.read()
+    m = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', src)
+    return [a.split()[-1].lstrip("*") for a in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("seg", [False, True])
+def test_dq_launcher_passes_the_c_arguments_in_order(monkeypatch, seg):
+    """`flash_bwd_dq_cuda` hands `apex_flash_attn_bwd_dq` each argument in
+    the place the C signature declares it (parameter names read from the
+    .cu): the operands' and dq's addresses, the zeroed int32 work-item
+    counter after dq, the 12 (batch, head, seq) strides of q, k, v and do,
+    the shape, scale, causal, the segment ids and the stream — with the
+    library stood in and the device checks passed on the CPU.  The dq
+    pass's shared-memory query takes (head_dim, seg)."""
+    calls = []
+
+    class Lib:
+        def apex_flash_attn_bwd_dq(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(tfa, "_LIB", Lib())
+    monkeypatch.setattr(tfa, "_require_cuda", lambda *ts: None)
+    monkeypatch.setattr(tfa.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 77}))
+    b, h, sq, sk, d = 2, 3, 40, 24, 64
+    g = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(b, h, sq, d, generator=g).to(torch.bfloat16)
+             for _ in range(2))
+    # k a strided view: its strides reach the C side as they are
+    k = torch.randn(b, sk, h, d, generator=g).to(torch.bfloat16).transpose(
+        1, 2)
+    v = torch.randn(b, h, sk, d, generator=g).to(torch.bfloat16)
+    lse, delta = torch.zeros(b, h, sq), torch.ones(b, h, sq)
+    ids = ((torch.zeros(b, sq, dtype=torch.int32),
+            torch.ones(b, sk, dtype=torch.int32)) if seg else (None, None))
+    n = tfa.flash_bwd_dq_cuda.launches
+    dq = tfa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, 0.125, True, *ids)
+    tfa.flash_bwd_dq_cuda.launches = n
+    (args,) = calls
+    params = _c_params("apex_flash_attn_bwd_dq")
+    assert len(args) == len(params)
+    got = dict(zip(params, args))
+    assert (got["head_dim"], got["b"], got["h"], got["sq"], got["sk"]) == (
+        d, b, h, sq, sk)
+    assert got["scale"] == 0.125 and got["causal"] == 1
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", do),
+                    ("lse", lse), ("delta", delta), ("dq", dq)):
+        assert got[name] == t.data_ptr(), name
+    assert dq.shape == (b, h, sq, d) and dq.dtype == torch.bfloat16
+    assert isinstance(got["work"], int) and got["work"] not in (
+        got["dq"], got["q"])
+    assert list(got["strides"]) == [s_ for t in (q, k, v, do)
+                                    for s_ in t.stride()[:3]]
+    assert got["stream"] == 77
+    if seg:
+        assert got["q_seg"] == ids[0].data_ptr()
+        assert got["kv_seg"] == ids[1].data_ptr()
+        assert (got["q_seg_sb"], got["kv_seg_sb"]) == (sq, sk)
+    else:
+        assert got["q_seg"] is None and got["kv_seg"] is None
+    assert _c_params("apex_flash_attn_bwd_dq_smem") == ["head_dim", "seg"]

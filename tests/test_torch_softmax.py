@@ -252,3 +252,87 @@ def test_kernel_dispatch_refuses_mixed_devices():
     with pytest.raises(ValueError, match="CPU"):
         sm.softmax_fwd(x, torch.zeros(2, 4, dtype=torch.bool,
                                       device="meta"), 1.0, False)
+
+
+class _StandInLaunch:
+    """Stands in for the jitted forward kernel: `kernel[grid](*args,
+    **meta)` records the launch and returns a token in place of the
+    compiled kernel."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getitem__(self, grid):
+        def launch(*args, **meta):
+            self.calls.append((grid, args, meta))
+            return "compiled"
+        return launch
+
+
+@pytest.mark.parametrize("name,shape,mshape,causal", [
+    # BERT's (B, nh, S, S) scores with its (B, 1, 1, S) padding mask, a
+    # fully padded sequence among them (fewer heads: the same row map)
+    ("bert", (4, 2, 512, 512), "pad", False),
+    ("causal", (2, 3, 1024, 1024), None, True),
+    ("causal ragged", (2, 37, 37), None, True),
+    ("ragged width", (2, 1, 3, 1000), (2, 1, 1, 1000), False),
+    ("chunked width", (1, 2, 20003), (1, 1, 20003), False),
+    ("folded dims", (2, 3, 4, 5, 7), (2, 1, 4, 1, 7), False),
+    ("(B, 1, S, S)", (2, 3, 40, 40), (2, 1, 40, 40), False),
+    ("plain", (3, 5, 77), None, False),
+])
+def test_forward_launch_matches_numpy(monkeypatch, name, shape, mshape,
+                                      causal):
+    """The forward wrapper's host side, with the Triton launch stood in:
+    one counted launch over x's rows, `_launch_shape`'s grid and
+    constexprs, the row's query position taken mod sq, and a mask passed
+    as (storage, n1, n2, s0, s1, s2, sc) whose entry for row
+    r = (i0 * n1 + i1) * n2 + i2 and column c, at offset
+    i0·s0 + i1·s1 + i2·s2 + c·sc, is the broadcast mask's (r, c) entry
+    computed with numpy."""
+    rng = np.random.RandomState(len(name))
+    if mshape == "pad":
+        b, s = shape[0], shape[-1]
+        lens = np.array([512, 300, 129, 0])[np.arange(b) % 4]
+        mask = (np.arange(s)[None, :] >= lens[:, None])[:, None, None, :]
+    elif mshape is not None:
+        mask = rng.rand(*mshape) < 0.3
+    else:
+        mask = None
+    stand_in = _StandInLaunch()
+    monkeypatch.setitem(sm._JIT, "_softmax_fwd_kernel", stand_in)
+    monkeypatch.setattr(sm.softmax_fwd_triton, "launches", 0)
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    y = sm.softmax_fwd_triton(x, None if mask is None
+                              else torch.tensor(mask), 0.5, causal)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert sm.softmax_fwd_triton.launches == 1
+    assert sm._launch_fwd(x, None, 0.5, causal)[1] == "compiled"
+    (grid, args, meta), _ = stand_in.calls
+    n_cols = shape[-1]
+    n_rows = int(np.prod(shape[:-1]))
+    block, rows, one, warps, want_grid = sm._launch_shape(n_rows, n_cols)
+    assert grid == want_grid
+    assert meta == dict(ROWS=rows, BLOCK=block, GROUP=8, ONE_BLOCK=one,
+                        HAS_MASK=mask is not None, CAUSAL=causal,
+                        num_warps=warps)
+    (xr, m, yr, n_rows_, n_cols_, x_stride, y_stride, sq, n1, n2, s0, s1,
+     s2, sc, scale) = args
+    assert (n_rows_, n_cols_, x_stride, y_stride, scale) == \
+        (n_rows, n_cols, n_cols, n_cols, 0.5)
+    assert xr.shape == yr.shape == (n_rows, n_cols)
+    assert sq == shape[-2]
+    if causal:
+        # query position of row r: r mod sq, the row's index in its head
+        pos = np.arange(n_rows) % sq
+        np.testing.assert_array_equal(
+            pos, np.indices(shape[:-1]).reshape(len(shape) - 1, -1)[-1])
+    if mask is None:
+        return
+    storage = np.frombuffer(bytes(m.untyped_storage()), np.uint8)
+    r = np.arange(n_rows)[:, None]
+    c = np.arange(n_cols)[None, :]
+    i2, i1, i0 = r % n2, (r // n2) % n1, r // n2 // n1
+    off = m.storage_offset() + i0 * s0 + i1 * s1 + i2 * s2 + c * sc
+    want = np.broadcast_to(mask, shape).reshape(n_rows, n_cols)
+    np.testing.assert_array_equal(storage[off] != 0, want)
