@@ -27,17 +27,19 @@ Activations: relu, gelu (the tanh approximation, as the JAX package's
 `jax.nn.gelu(approximate=True)`), sigmoid, none.  On CUDA the kernels
 take fp32, bf16 and fp16 operands of one dtype with any M, N and K;
 anything else raises.  `gemm_route` picks the kernel from the dtype, the
-shape and the operands' alignment before the launch: "wgmma" (Hopper's
-wgmma fed by TMA: bf16 / fp16 with K and N multiples of 8 and 16-byte
-aligned x and w, what a TMA tensor map can address), "mma" (mma.sync:
-the other 16-bit shapes, such as apex's MLP's last layer, N = 1) or
-"fma" (fp32, in full fp32).  A route whose kernel fails raises; none
-stands in for another.
+shape and the operands' alignment before the launch: "gemv" (N ≤ 8 in
+any dtype: a warp a row of x, such as apex's MLP's last layer, N = 1),
+"wgmma" (Hopper's wgmma fed by TMA: bf16 / fp16 with K and N multiples
+of 8 and 16-byte aligned x and w, what a TMA tensor map can address),
+"mma" (mma.sync: the other 16-bit shapes) or "fma" (fp32, in full fp32,
+its K split among the blocks of a cluster by `f32_plan`).  A route
+whose kernel fails raises; none stands in for another.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -50,8 +52,23 @@ from apex_tpu_torch.ops._common import check_kernel_device, resolve_device
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "sigmoid": 3}
-_ROUTE_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+_ROUTE_CODES = {"fma": 0, "mma": 1, "wgmma": 2, "gemv": 3}
+GEMV_MAX_N = 8                # the widest y the GEMV kernel takes
+F32_TILES = ((128, 128), (128, 64))   # the fp32 kernel's blocks of y
+F32_SLICE = 16                # the fp32 kernel's depth per pipeline slice
+F32_MAX_SPLIT = 8             # blocks a cluster (the portable limit)
+# `f32_plan`'s costs, in the time of one 16-deep slice of a 128 x 128
+# block (1.53 us on an NVIDIA H100 80GB HBM3 at 700 W), fitted to that
+# card's times of the MLP layers by tile and split
+# (scripts/port_hopper_ablation.py --gemm32): a slice of each tile (the
+# 128 x 64 tile does half the FMAs with the same copies, barrier and
+# reads of x); a block's epilogue, per 128 x 128 of y it sums and
+# stores; a cluster's reduction, F32_REDUCE[0] + F32_REDUCE[1] × split
+F32_TILE_COST = {(128, 128): 1.0, (128, 64): 0.62}
+F32_EPILOGUE = 7.8
+F32_REDUCE = (1.5, 0.5)
 _LIB = None
+_CLUSTERS = {}
 
 
 def _act(y, activation):
@@ -80,53 +97,159 @@ def linear_bias_reference(x, w, b=None, activation=None):
 
 # ------------------------------- CUDA kernel --------------------------------
 
+def _bind(lib):
+    """`lib` (a build of csrc/fused_dense.cu) with its C entry's types."""
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.apex_fused_dense_fwd.restype = i32
+    lib.apex_fused_dense_fwd.argtypes = [i32, i32, i32, vp, vp, vp, vp,
+                                         i32, i32, i32, i32, i32, i32, i32,
+                                         vp]
+    lib.apex_fused_dense_f32_clusters.restype = i32
+    lib.apex_fused_dense_f32_clusters.argtypes = [i32, i32]
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from apex_tpu_torch import csrc
-        lib = csrc.load("fused_dense")
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.apex_fused_dense_fwd.restype = i32
-        lib.apex_fused_dense_fwd.argtypes = [i32, i32, i32, vp, vp, vp, vp,
-                                             i32, i32, i32, vp]
-        _LIB = lib
+        _LIB = _bind(csrc.load("fused_dense"))
     return _LIB
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def f32_clusters(device):
+    """{tile: [clusters of s fp32-kernel blocks of that tile the card holds
+    at once, s = 1 .. F32_MAX_SPLIT]} (the runtime's cluster occupancy
+    query; an H100 SXM holds 132, 66, 39, 30, 22, 17, 15, 15 of either:
+    one block an SM, a cluster on SMs of one GPC)."""
+    if device not in _CLUSTERS:
+        with torch.cuda.device(device):
+            got = {tile: [_lib().apex_fused_dense_f32_clusters(tile[1], s)
+                          for s in range(1, F32_MAX_SPLIT + 1)]
+                   for tile in F32_TILES}
+        if min(min(v) for v in got.values()) <= 0:
+            raise RuntimeError(f"fused dense fp32 kernel: cluster "
+                               f"occupancy query failed: {got}")
+        _CLUSTERS[device] = got
+    return _CLUSTERS[device]
 
 
 def gemm_route(dtype, m, n, k, x_ptr, w_ptr):
     """The fused dense kernel that computes x (m, k) · w (k, n) in `dtype`
-    with x at address `x_ptr` and w at `w_ptr`: "wgmma" where a TMA tensor
-    map can address both operands (bf16 / fp16, k > 0, k and n multiples
-    of 8 so every row stride is a multiple of 16 bytes, both bases 16-byte
-    aligned), "mma" for the other 16-bit shapes, "fma" for fp32."""
-    if dtype == torch.float32:
-        return "fma"
-    if dtype not in (torch.bfloat16, torch.float16):
+    with x at address `x_ptr` and w at `w_ptr`: "gemv" for n ≤ 8 in any
+    dtype; else "fma" for fp32, "wgmma" where a TMA tensor map can
+    address both operands (bf16 / fp16, k > 0, k and n multiples of 8 so
+    every row stride is a multiple of 16 bytes, both bases 16-byte
+    aligned), "mma" for the other 16-bit shapes."""
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"fused dense kernels take fp32/bf16/fp16, got "
                         f"{dtype}")
+    if n <= GEMV_MAX_N:
+        return "gemv"
+    if dtype == torch.float32:
+        return "fma"
     if (k > 0 and k % 8 == 0 and n % 8 == 0 and x_ptr % 16 == 0
             and w_ptr % 16 == 0):
         return "wgmma"
     return "mma"
 
 
+def f32_plan(m, n, k, sms, clusters=None):
+    """The fp32 kernel's plan for y (m, n) = x (m, k) · w (k, n) on a card
+    of `sms` SMs that holds `clusters[tile][s - 1]` clusters of s blocks
+    of each tile at once (`f32_clusters`; by default sms // s, one block
+    an SM): (tile, split, k_split).  Each block computes a tile of y (one
+    of F32_TILES); `split` blocks of one cluster share its depth,
+    `k_split` (whole F32_SLICE-deep slices) each, block r taking
+    [r k_split, (r + 1) k_split) ∩ [0, k), and each sums and stores
+    1 / split of the tile.  Of the tiles and the splits 1 to
+    F32_MAX_SPLIT that leave no block without a slice, the plan takes the
+    one whose busiest SM has the least to do: waves × (slices a block ×
+    F32_TILE_COST + its epilogue + the reduction), a wave being as many
+    tiles as the card holds clusters; ties go to the larger tile, then
+    the smaller split.  apex's MLP layers (batch 1024) on an H100 SXM:
+    128 x 128 split 2 at 480 → 1024 and 1024 → 1024, 128 x 64 split 2 at
+    1024 → 512 and split 3 at 512 → 256."""
+    slices = -(-k // F32_SLICE)
+    best = None
+    for tile in F32_TILES:
+        tiles = -(-m // tile[0]) * -(-n // tile[1])
+        for split in range(1, F32_MAX_SPLIT + 1):
+            per = -(-slices // split)
+            if split > 1 and (split - 1) * per >= slices:
+                continue          # a block would have no slice
+            held = clusters[tile][split - 1] if clusters else sms // split
+            waves = -(-tiles // max(held, 1))
+            cost = waves * (
+                per * F32_TILE_COST[tile]
+                + F32_EPILOGUE * tile[0] * tile[1] / (128 * 128 * split)
+                + (F32_REDUCE[0] + F32_REDUCE[1] * split if split > 1
+                   else 0))
+            if best is None or cost < best[0]:
+                best = (cost, tile, split, per * F32_SLICE)
+    return best[1:]
+
+
+def vec_loads(route, el, k, n, x_ptr, w_ptr):
+    """Whether the kernel of `route` reads its operands 16 bytes a thread
+    (else one element): the fp32 route where k and n are multiples of 4
+    and x and w 16-byte aligned (a 16-byte chunk of a row is then all in
+    or all out of the tile), the GEMV route where every row of x starts
+    16-byte aligned (x aligned, k · `el` bytes a multiple of 16); the
+    16-bit routes decide their own loads."""
+    if route == "fma":
+        return k % 4 == 0 and n % 4 == 0 and x_ptr % 16 == 0 and (
+            w_ptr % 16 == 0)
+    if route == "gemv":
+        return x_ptr % 16 == 0 and k * el % 16 == 0
+    return False
+
+
+@functools.lru_cache(maxsize=4096)
+def _f32_plan_on(m, n, k, device):
+    """`f32_plan` on `device`'s SMs and clusters, once a shape (the search
+    is a Python loop, and the MLP leg is host-bound)."""
+    return f32_plan(m, n, k, _sm_count(device), f32_clusters(device))
+
+
+def _plan(route, x2, w):
+    """(tile_n, split, k_split, vec) of the C entry for this call:
+    `f32_plan` on the card's SMs and clusters for the fp32 route (its
+    tile's width), one block's depth for the others (tile_n 0);
+    `vec_loads`."""
+    (m, k), n = x2.shape, w.shape[1]
+    tile_n, split, k_split = 0, 1, k
+    if route == "fma":
+        tile, split, k_split = _f32_plan_on(m, n, k, x2.device)
+        tile_n = tile[1]
+    vec = vec_loads(route, x2.element_size(), k, n, x2.data_ptr(),
+                    w.data_ptr())
+    return tile_n, split, k_split, vec
+
+
 def _launch(route, x2, w, b, y, activation):
-    """Launch the kernel of `route` on the current stream: y = act(x2 · w
-    + b) into the preallocated y.  Counts the launch in
+    """Launch the kernel of `route` on the current stream under `_plan`:
+    y = act(x2 · w + b) into the preallocated y.  Counts the launch in
     `linear_bias_cuda.launches` and its route's
-    `linear_bias_cuda.route_launches`."""
+    `linear_bias_cuda.route_launches`, and keeps the plan in
+    `linear_bias_cuda.last_plan`."""
     tensors = [t for t in (x2, w, b, y) if t is not None]
     if not all(t.is_cuda for t in tensors) or len(
             {t.device for t in tensors}) != 1:
         raise ValueError("fused dense kernel inputs must lie on one card")
     (m, k), n = x2.shape, w.shape[1]
+    tile_n, split, k_split, vec = _plan(route, x2, w)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     from apex_tpu_torch.csrc import TENSOR_MAP_ERROR
 
     err = _lib().apex_fused_dense_fwd(
         _ROUTE_CODES[route], _DTYPE_CODES[x2.dtype], _ACT_CODES[activation],
         x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        y.data_ptr(), m, n, k, stream)
+        y.data_ptr(), m, n, k, tile_n, split, k_split, int(vec), stream)
     if err >= TENSOR_MAP_ERROR:
         raise RuntimeError(f"fused dense kernel ({route}): "
                            f"cuTensorMapEncodeTiled refused a TMA tensor "
@@ -137,6 +260,9 @@ def _launch(route, x2, w, b, y, activation):
                            f"CUDA error {err}")
     linear_bias_cuda.launches += 1
     linear_bias_cuda.route_launches[route] += 1
+    linear_bias_cuda.last_plan = {"route": route, "tile_n": tile_n,
+                                  "split": split, "k_split": k_split,
+                                  "vec": vec}
 
 
 def linear_bias_cuda(x2, w, b, activation):
@@ -171,6 +297,7 @@ def linear_bias_cuda(x2, w, b, activation):
 
 linear_bias_cuda.launches = 0
 linear_bias_cuda.route_launches = {route: 0 for route in _ROUTE_CODES}
+linear_bias_cuda.last_plan = None
 
 
 def _act_grad(g32, pre, activation):

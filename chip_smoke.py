@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  and the dq pass's dynamic shared memory and any
                  serialised-wgmma note (C7512, C7515, C7518, C7520) are
                  logged; the dq pass's four kernels must have no spills
-                 and no such note.
+                 and no such note, nor the fused dense GEMM's fp32 and
+                 GEMV kernels any spill (their registers and spills in
+                 its summary line, by kernel family).
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: the
@@ -53,9 +55,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  segmented phase 2 on the same ratios; the fused dense
                  GEMM in bf16, fp16 and fp32, every activation with and
                  without a bias, at GPT-350M's MLP shapes, apex's
-                 run_mlp layers and ragged shapes (N = 1 included),
-                 within 1e-2 (16-bit) or 1e-5 (fp32) of the largest
-                 |y|; the head-packed flash pair at heads_per_step 2 and
+                 run_mlp layers, an N = 8 router-like shape and ragged
+                 shapes (N = 1 and N = 3 on the GEMV kernel), within
+                 1e-2 (16-bit) or 1e-5 (fp32) of the largest |y|, each
+                 call on the route the rule names (the fp32 kernel at
+                 1024 x 512 x 256 with K split in one wave of clusters,
+                 4-byte loads where K or N is not a multiple of 4), the
+                 fp32 and GEMV kernels twice with the same bits; the
+                 head-packed flash pair at heads_per_step 2 and
                  4 (GPT's causal step shape on its views, BERT's with
                  ragged padding and with q/kv ids that mask whole rows,
                  head_dim 128, and padding at 8256 keys, past the
@@ -176,8 +183,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  bf16 over (12288, 1024) tokens and MLP([480, 1024,
                  1024, 512, 256, 1], relu) at batch 1024 in fp32 and
                  bf16, forward and backward: two (five) GEMM launches a
-                 forward, loss and grads against the plain version, ms
-                 an iteration.
+                 forward, by route (the MLP: four fp32 or wgmma and one
+                 GEMV), loss and grads against the plain version, ms an
+                 iteration on the host's clock and on the card's.
  11. slice 8     bench.py's `_mha_latencies` leg tuned: `tune_flash`
                  sweeps heads_per_step 1, 2, 4, 8, 16 (64 x 64 tiles)
                  at (8, 16, 2048, 64) bf16 causal on the card and
@@ -197,9 +205,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
-                 the bytes of x it reads; the fused dense GEMM's mma.sync
-                 and fp32 routes at the MLP leg's shapes beside their
-                 bounds and torch.addmm.
+                 the bytes of x it reads; the fused dense GEMM's fp32
+                 kernel at the MLP leg's four fp32 layers, its GEMV
+                 kernel at the N = 1 layer (fp32 and bf16) and its
+                 mma.sync kernel at one shape it still takes, each with
+                 its plan, beside its bound and torch.addmm.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -961,25 +971,48 @@ def check_lamb_phase2_flat(torch, ok, rng, spec, n, dtype):
     return err
 
 
+def fused_dense_ptxas(lines):
+    """From ptxas' report on csrc/fused_dense.cu (its "Compiling entry",
+    "Used" and spill lines): {family: [registers of each kernel]} with
+    the families f32, gemv, mma, wgmma, and [(family, line)] for every
+    kernel whose spill stores or loads are not 0 bytes."""
+    fams, spills, fam = {}, [], None
+    for ln_ in lines:
+        if "Compiling entry" in ln_:
+            fam = next((f for f in ("wgmma", "mma", "f32", "gemv")
+                        if f"dense_{f}_kernel" in ln_), "other")
+        elif "Used " in ln_ and fam:
+            fams.setdefault(fam, []).append(
+                int(ln_.split("Used ")[1].split()[0]))
+        elif "spill" in ln_ and fam and not (
+                "0 bytes spill stores" in ln_
+                and "0 bytes spill loads" in ln_):
+            spills.append((fam, ln_))
+    return fams, spills
+
+
 GEMM_ACTS = (None, "relu", "gelu", "sigmoid")
 # (M, K, N): GPT-350M's MLP up and down projections over batch 12 x seq
 # 1024; apex's tests/L0/run_mlp layers (batch 1024, mlp_sizes [480,
 # 1024, 1024, 512, 256, 1]); ragged shapes; two shapes that TMA can
 # address but that are ragged against the wgmma kernel's 128 x 256 x 64
-# tile in M, N and K (its zero fill past each edge)
+# tile in M, N and K (its zero fill past each edge); an MoE router's
+# N = 8 (8 experts over GPT-350M's hidden 1024, 4096 tokens)
 GEMM_SHAPES = ((12288, 1024, 4096), (12288, 4096, 1024),
                (1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
                (1024, 512, 256), (1024, 256, 1),
                (1000, 27, 13), (1000, 27, 1), (129, 70, 50), (1, 5, 3),
-               (300, 200, 264), (12289, 1032, 520))
+               (300, 200, 264), (12289, 1032, 520), (4096, 1024, 8))
 
 
 def gemm_route_of(dtype, k, n):
     """The fused dense kernel a fresh (16-byte aligned) x (M, k) · w (k, n)
-    in `dtype` must take, by the rule the port states (TMA addresses rows
-    whose stride is a multiple of 16 bytes), written out here on its own
-    rather than read from `gemm_route`."""
+    in `dtype` must take, by the rule the port states (N <= 8 the GEMV
+    kernel; TMA addresses rows whose stride is a multiple of 16 bytes),
+    written out here on its own rather than read from `gemm_route`."""
     import torch
+    if n <= 8:
+        return "gemv"
     if dtype == torch.float32:
         return "fma"
     return "wgmma" if k > 0 and k % 8 == 0 and n % 8 == 0 else "mma"
@@ -992,8 +1025,14 @@ def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
     types (one rounding of the output, the products' fp32 sums in
     another order), 1e-5 for fp32.  x ~ N(0, 1), w ~ N(0, 1/k), b ~
     N(0, 1).  Each call must go through the route `gemm_route_of` names
-    (by the route counters).  Returns the largest error relative to that
-    magnitude."""
+    (by the route counters); the fp32 kernel at (1024, 512, 256) with K
+    split among the blocks of a cluster, all its tiles' clusters in one
+    wave of what the card holds (`f32_clusters`: an H100 SXM holds 15
+    clusters of 8 128 x 128 blocks, so 16 tiles split 8 would take two),
+    with 16-byte loads exactly where K and N are multiples of 4, the GEMV
+    kernel where K fills whole 16-byte pieces; the fp32 and GEMV kernels
+    run twice and give the same bits.  Returns (route, the largest error
+    relative to that magnitude)."""
     dev = "cuda"
     route = gemm_route_of(dtype, k, n)
     x = torch.randn((m, k), generator=rng, device=dev).to(dtype)
@@ -1011,6 +1050,26 @@ def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
             check(moved == {r: int(r == route) for r in before},
                   f"fused dense ({m},{k})x({k},{n}) {dtype}: routes "
                   f"{moved}, want one {route} launch")
+            plan = fdn.linear_bias_cuda.last_plan
+            el = x.element_size()
+            want_vec = {"fma": k % 4 == 0 and n % 4 == 0,
+                        "gemv": k * el % 16 == 0}.get(route, False)
+            if route == "fma" and (m, k, n) == (1024, 512, 256):
+                split, tile = plan["split"], (128, plan["tile_n"])
+                held = fdn.f32_clusters(x.device)[tile][split - 1]
+                tiles = -(-m // tile[0]) * -(-n // tile[1])
+                check(split > 1 and tiles <= held,
+                      f"fused dense ({m},{k})x({k},{n}): plan {plan}, "
+                      f"want K split in one wave of clusters")
+            check(plan["vec"] == want_vec,
+                  f"fused dense ({m},{k})x({k},{n}) {dtype}: plan {plan}")
+            if route in ("fma", "gemv"):
+                again = fdn.linear_bias_cuda(x, w, bias, act)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"fused dense {route} ({m},{k})x({k},{n}): two runs "
+                      f"differ")
+                del again
             ref = fdn.linear_bias_reference(x, w, bias, act)
             torch.cuda.synchronize()
             check(got.dtype == dtype and got.shape == (m, n),
@@ -1023,7 +1082,7 @@ def check_fused_dense(torch, fdn, rng, m, k, n, dtype):
                   f"{scale:.3e}")
             worst = max(worst, err / max(scale, 1e-30))
             del got, ref
-    return worst
+    return route, worst
 
 
 def check_xent(torch, xe, rng, rows, v, smoothing, dtype):
@@ -2529,20 +2588,24 @@ def mlp_phase(torch, fdn, iters=5):
     which moves single elements of the grads below it by their own size
     but the tensor by < 1 %: the MLP's dx by 4-7 % at its largest
     element, 0.3 % relative L2, in a CPU simulation of the two
-    roundings).  Returns the measurements."""
+    roundings).  Beside the wall ms an iteration, the card's: `time_ms`
+    of an iteration with the host enqueued ahead (the leg is host-bound,
+    so only the card's time shows its kernels).  Returns the
+    measurements."""
     from apex_tpu_torch.ops.fused_dense import FusedDenseGeluDense
     from apex_tpu_torch.ops.mlp import MLP
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
-    # the routes of a forward's launches: both GPT-350M MLP shapes and
-    # every 16-bit MLP layer but the last (N = 1) on wgmma
+    # the routes of a forward's launches: both GPT-350M MLP shapes on
+    # wgmma; every MLP layer but the last (N = 1, on the GEMV kernel) on
+    # the fp32 kernel or wgmma
     cases = [("fused_dense_gelu_dense", lambda dt: FusedDenseGeluDense(
         1024, 4096, 1024, dtype=dt), (12288, 1024), torch.bfloat16,
         {"wgmma": 2})]
-    for dt, routes in ((torch.float32, {"fma": 5}),
-                       (torch.bfloat16, {"wgmma": 4, "mma": 1})):
+    for dt, routes in ((torch.float32, {"fma": 4, "gemv": 1}),
+                       (torch.bfloat16, {"wgmma": 4, "gemv": 1})):
         cases.append((f"mlp_{str(dt)[6:]}", lambda dt: MLP(
             [480, 1024, 1024, 512, 256, 1], activation="relu", dtype=dt),
             (1024, 480), dt, routes))
@@ -2594,9 +2657,13 @@ def mlp_phase(torch, fdn, iters=5):
             dense_fwd_bwd(torch, mod, x, params)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / iters
+        device_ms = time_ms(torch, lambda: dense_fwd_bwd(torch, mod, x,
+                                                         params),
+                            n=10, warm=1)
         out[name] = {"shape": list(shape), "dtype": str(dt),
                      "launches_per_forward": per_fwd,
                      "routes_per_forward": routes, "fwd_bwd_ms": ms,
+                     "fwd_bwd_device_ms": device_ms,
                      "out_max_err_vs_plain": y_err,
                      "loss_rel_diff_vs_plain": loss_rel,
                      "grad_max_err_vs_plain": max(grad_max),
@@ -2629,38 +2696,64 @@ MLP_LAYERS = ((1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
               (1024, 512, 256), (1024, 256, 1))
 
 
-def gemm_route_times(torch, fdn, rng):
-    """The fused dense GEMM's other two routes at the MLP leg's shapes:
-    `fma` (fp32) at each layer of the fp32 MLP, `mma` (`mma.sync`) at the
-    bf16 MLP's last layer (N = 1, the leg's one launch on that route);
-    each beside its bound (bytes once, or 2mnk at the fp32 / bf16 peak)
-    and `torch.addmm` (+ relu) on the same inputs."""
-    out = []
-    cases = [(shape, torch.float32, "fma") for shape in MLP_LAYERS]
-    cases.append((MLP_LAYERS[-1], torch.bfloat16, "mma"))
+def gemm_route_times(torch, fdn, rng, mlp, errs):
+    """The fused dense GEMM's other three kernels at the MLP leg's shapes,
+    as rows of the kernel table: `fma` (the fp32 kernel) at the fp32
+    MLP's four wide layers, `gemv` at the last layer (N = 1) in fp32 and
+    bf16, and `mma` (`mma.sync`) at one shape it still takes (the bf16
+    MLP's 1024 x 1024 x 1024 layer on a view of x one element into a
+    buffer, which TMA cannot address; no main path launches it); each
+    with the plan it ran, beside its bound (bytes once, or 2mnk at the
+    fp32 / bf16 peak), its plain version and `torch.addmm` (+ relu) on
+    the same inputs.  The kernel is timed with the bias already in fp32,
+    its operand (the wrapper converts a 16-bit bias first: one more
+    launch, a large share of the GEMV's few microseconds).  Launches: the
+    MLP leg's, by route."""
+    rows = []
+    cases = [(shape, torch.float32, "fma") for shape in MLP_LAYERS[:4]]
+    cases += [(MLP_LAYERS[4], torch.float32, "gemv"),
+              (MLP_LAYERS[4], torch.bfloat16, "gemv"),
+              (MLP_LAYERS[1], torch.bfloat16, "mma")]
+    per_fwd = {"fma": 4, "gemv": 1, "mma": 0}
     for (m, k, n), dt, route in cases:
         act = "relu" if n != 1 else None
         x = torch.randn((m, k), generator=rng, device="cuda").to(dt)
+        buf = None
+        if route == "mma":  # the same values one element into a buffer
+            buf = torch.empty(m * k + 8, dtype=dt, device="cuda")
+            buf[1:1 + m * k].copy_(x.reshape(-1))
+            x = buf[1:1 + m * k].view(m, k)
         w = (torch.randn((k, n), generator=rng, device="cuda")
              / math.sqrt(k)).to(dt)
         b = torch.randn((n,), generator=rng, device="cuda").to(dt)
         check(fdn.gemm_route(dt, m, n, k, x.data_ptr(), w.data_ptr())
               == route, f"GEMM ({m},{k},{n}) {dt}: not the {route} route")
-        ms = time_ms(torch, lambda: fdn.linear_bias_cuda(x, w, b, act))
+        b32 = b.float()
+        ms = time_ms(torch, lambda: fdn.linear_bias_cuda(x, w, b32, act))
+        plan = dict(fdn.linear_bias_cuda.last_plan)
+        plain = time_ms(torch, lambda: fdn.linear_bias_reference(
+            x, w, b, act), n=20)
         if act:
             lib = time_ms(torch, lambda: torch.relu(torch.addmm(b, x, w)))
         else:
             lib = time_ms(torch, lambda: torch.addmm(b, x, w))
         el = x.element_size()
-        peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
-        bound = 1e3 * max((m * k + k * n + m * n + n) * el / HBM_BYTES_PER_S,
-                          2 * m * n * k / peak)
-        out.append({"shape": [m, k, n], "dtype": str(dt)[6:],
-                    "route": route, "act": act, "ms": ms, "bound_ms": bound,
-                    "library_ms": lib, "library": "torch.addmm"
-                    + (" + relu" if act else "")})
-        del x, w, b
-    return out
+        dname = str(dt)[6:]
+        row = table_row(
+            f"fused_dense_{route}_{m}x{k}x{n}_{dname}",
+            mlp["route_launches"][route], per_fwd[route],
+            errs[f"fused_dense_{route}"], "cuda",
+            "apex_tpu_torch/csrc/fused_dense.cu",
+            "apex_tpu/ops/fused_dense.py:55", ms, plain, lib,
+            "torch.addmm" + (" + relu" if act else ""),
+            (m * k + k * n + m * n) * el + 4 * n, 2 * m * n * k,
+            f"x ({m},{k}) . w ({k},{n}) {dname} + b, act {act}"
+            + (", x one element into a buffer" if buf is not None else ""),
+            peak=FP32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+        row.update({"gemm_route": route, "plan": plan})
+        rows.append(row)
+        del x, w, b, b32, buf
+    return rows
 
 
 def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
@@ -2669,9 +2762,11 @@ def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
     flat buffer (fp32 p and h, bf16 grads); the per-element LAMB phase 2
     over the BERT-Large buffer (bf16 p and u, fp32 r); the fused dense
     GEMM at GPT-350M's two MLP shapes in bf16 (the up projection with
-    its bias and gelu, the down projection with its bias).  Launches:
-    the Adagrad step's five steps; `lamb_phase2_flat` has no caller on a
-    main path (0); the GEMM's from the MLP leg."""
+    its bias and gelu, the down projection with its bias: the wgmma
+    kernel), then its fp32, GEMV and mma.sync kernels at the MLP leg's
+    shapes (`gemm_route_times`).  Launches: the Adagrad step's five
+    steps; `lamb_phase2_flat` has no caller on a main path (0); the
+    GEMM's from the MLP leg."""
     import torch.nn.functional as F
 
     dev, bf16 = "cuda", torch.bfloat16
@@ -2759,7 +2854,7 @@ def table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad, mlp, gpt_n,
                                                             act), n=10)})
         rows.append(row)
         del x, w, b, buf, x_mma
-    rows[-2]["other_routes_at_mlp_leg"] = gemm_route_times(torch, fdn, rng)
+    rows += gemm_route_times(torch, fdn, rng, mlp, errs)
     torch.cuda.empty_cache()
     return rows
 
@@ -3669,23 +3764,20 @@ def run_phases():
             for ln_ in lines:
                 if "Performance Loss" in ln_:
                     log(f"ptxas {name}: " + ln_[:200])
-            if name == "fused_dense":   # 40 instantiations: a summary
-                fams = {}
-                fam = None
-                for ln_ in lines:
-                    if "Compiling entry" in ln_:
-                        fam = next((f for f in ("wgmma", "mma", "f32")
-                                    if f"dense_{f}_kernel" in ln_), "other")
-                    elif "Used " in ln_ and fam:
-                        fams.setdefault(fam, []).append(
-                            int(ln_.split("Used ")[1].split()[0]))
-                spills = [ln_ for ln_ in lines if "spill" in ln_
-                          and not ln_.startswith("0 bytes stack frame, "
-                                                 "0 bytes spill")]
+            if name == "fused_dense":   # 64 instantiations: a summary
+                fams, spills = fused_dense_ptxas(lines)
                 log(f"ptxas {name}: " + ", ".join(
                     f"{f} {len(r)} kernels, registers {min(r)}-{max(r)}"
                     for f, r in sorted(fams.items()))
-                    + f"; spills: {spills or 'none'}")
+                    + f"; spills: {spills or 'none'}; fp32 kernel "
+                    f"clusters of 1..8 blocks held at once "
+                    f"{fdn.f32_clusters(torch.device('cuda', 0))}")
+                check(all(f in fams for f in ("f32", "gemv", "mma",
+                                              "wgmma")),
+                      f"fused dense ptxas: kernel families {sorted(fams)}")
+                check(not any(f in ("f32", "gemv") for f, _ in spills),
+                      f"fused dense: the fp32 or GEMV kernel spills: "
+                      f"{spills}")
                 continue
             for line in lines:
                 log(f"ptxas {name}: " + line[:160])
@@ -3938,14 +4030,19 @@ def run_phases():
             errs["lamb_phase2_flat"] = e
     torch.cuda.empty_cache()
     errs["fused_dense"] = 0.0
+    for route in ("fma", "gemv", "mma"):
+        errs[f"fused_dense_{route}"] = 0.0
     for m_, k_, n_ in GEMM_SHAPES:
         for dtype in (bf16, torch.float16, f32):
-            e = check_fused_dense(torch, fdn, rng, m_, k_, n_, dtype)
-            log(f"fused_dense ({m_},{k_})x({k_},{n_}) {dtype}, 4 "
-                f"activations x bias: max err {e:.3e} of the largest "
-                f"|y|")
+            route, e = check_fused_dense(torch, fdn, rng, m_, k_, n_, dtype)
+            log(f"fused_dense ({m_},{k_})x({k_},{n_}) {dtype} {route} "
+                f"{fdn.linear_bias_cuda.last_plan}, 4 activations x bias: "
+                f"max err {e:.3e} of the largest |y|")
             if m_ == 12288 and dtype == bf16:
                 errs["fused_dense"] = max(errs["fused_dense"], e)
+            if route != "wgmma":
+                errs[f"fused_dense_{route}"] = max(
+                    errs[f"fused_dense_{route}"], e)
     torch.cuda.empty_cache()
 
     # ---- 3. the engine at full width ---------------------------------

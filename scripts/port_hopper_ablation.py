@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the port's wgmma + TMA kernels on one GPU.
 
-    python3 scripts/port_hopper_ablation.py [--backward | --dq | --softmax]
+    python3 scripts/port_hopper_ablation.py [--backward | --dq | --softmax |
+                                             --gemm32]
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
 they stand and variants of them through the `-D` overrides the two
@@ -81,6 +82,41 @@ for bit) and timed at GPT-350M's seq 8192 (1, 16, 8192, 64) and at
 bench.py's 32k shape (1, 8, 32768, 64), causal, with their ptxas
 summaries.
 
+`--gemm32` times the fused dense GEMM's fp32 kernel (the `fma` route)
+at apex's run_mlp layers (batch 1024: 1024 x 480 x 1024, 1024^2, 1024
+x 1024 x 512, 1024 x 512 x 256; bias and relu), each variant checked
+against `linear_bias_reference` within 1e-5 of max |y| first (but the
+timed-only `no_reads` and `no_math`) and timed in turns beside
+`torch.relu(torch.addmm(...))`:
+
+    shipped           `ops.fused_dense._plan`: `f32_plan` on the card's
+                      SMs and clusters (tile 128 x 128 or 128 x 64, K
+                      split among a cluster's blocks), 16-byte cp.async
+                      into a 4-stage ring
+    no_split          the shipped build and tile under split 1 (the grid of
+                      tiles only)
+    loads4            the shipped build and plan with 4-byte copies, as
+                      ragged shapes take them
+    tile_128          the shipped build under the best plan of 128 x 128
+                      tiles alone
+    all_clusters      the shipped build under `f32_plan` without the card's
+                      clusters (as if it held sms / split of each size:
+                      split 4 at the last two layers, whose 32 clusters of
+                      4 the card cannot hold at once)
+    one_stage         -DAPEX_GEMM_F32_STAGES=1: one slice in shared memory,
+                      no copy overlapping the FMAs
+    two_stages        -DAPEX_GEMM_F32_STAGES=2
+    no_reads          -DAPEX_GEMM_F32_READS=0: x and w read from shared
+                      memory once a slice (the FMAs without their reads)
+    no_math           -DAPEX_GEMM_F32_MATH=0: the reads, adds instead of the
+                      FMAs
+
+(the split-K sums go through the cluster's shared memory in the one
+launch; no workspace variant exists).  Then the shipped build at every
+tile and split 1-8 at each layer, once: the times `f32_plan`'s costs
+(F32_TILE_COST, F32_EPILOGUE, F32_REDUCE) are fitted to.  Each build's
+fp32 kernels' ptxas registers and spills are printed beside its name.
+
 `--softmax` times the Triton softmax forward (`ops/softmax.py`) as
 shipped, whose causal form loads x only in the 8-column groups up to
 each row's diagonal, and a copy of it built here with its visibility
@@ -93,7 +129,8 @@ code in both), in turns, each checked against
 
 The card's name and power limit come first, the times last.
 `--backward` runs the backward's variants alone, `--dq` the dq pass's,
-`--softmax` the softmax forward's.  Fails without CUDA.
+`--softmax` the softmax forward's, `--gemm32` the fp32 GEMM's.  Fails
+without CUDA.
 """
 
 from __future__ import annotations
@@ -116,6 +153,15 @@ GEMM_VARIANTS = {
     "shipped": [],
     "tile_128x128": ["-DAPEX_GEMM_WG_BN=128", "-DAPEX_GEMM_WG_STAGES=6"],
 }
+GEMM32_VARIANTS = {
+    "shipped": [],
+    "one_stage": ["-DAPEX_GEMM_F32_STAGES=1"],
+    "two_stages": ["-DAPEX_GEMM_F32_STAGES=2"],
+    "no_reads": ["-DAPEX_GEMM_F32_READS=0"],
+    "no_math": ["-DAPEX_GEMM_F32_MATH=0"],
+}
+# variants that run the shipped build under another plan
+GEMM32_PLANS = ("no_split", "loads4", "tile_128", "all_clusters")
 FLASH_VARIANTS = {
     "shipped": [],
     "two_warpgroups": ["-DAPEX_FWD_WGS64=2"],
@@ -145,9 +191,10 @@ DQ_VARIANTS = {
     "no_dq_store": ["-DAPEX_DQ_STORE=0"],
 }
 # variants whose output is not the function (timed only)
-UNCHECKED = ("no_math", "no_o_store", "no_dq_store")
+UNCHECKED = ("no_math", "no_o_store", "no_dq_store", "no_reads")
 # every -D override above, for the check that the sources declare them
-OVERRIDES = {"fused_dense": GEMM_VARIANTS,
+OVERRIDES = {"fused_dense": {**GEMM_VARIANTS, **{
+                 f"f32_{k}": v for k, v in GEMM32_VARIANTS.items()}},
              "flash_attention": {**FLASH_VARIANTS, **{
                  f"bwd_{k}": v for k, v in BWD_VARIANTS.items()}, **{
                  f"dq_{k}": v for k, v in DQ_VARIANTS.items()}}}
@@ -308,6 +355,100 @@ def dq_pass(cs, torch, fa, rng, libs):
     use_flash(libs["shipped"])
 
 
+def gemm32(cs, torch, fdn, rng, libs):
+    """The fp32 GEMM's variants (module docstring): each checked, then all
+    timed in turns with `torch.relu(torch.addmm(...))` at the MLP
+    layers; then the shipped build's tile x split sweep."""
+    libs = {var: fdn._bind(lib) for var, lib in libs.items()}
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clusters = fdn.f32_clusters(dev)
+    print(f"fp32 GEMM: {sms} SMs, clusters of 1..8 blocks held at once "
+          f"{clusters}", flush=True)
+    runs = {var: (lib, var) for var, lib in libs.items()}
+    runs.update({var: (libs["shipped"], var) for var in GEMM32_PLANS})
+    data = []
+    for m, k, n in cs.MLP_LAYERS[:4]:
+        x = torch.randn((m, k), generator=rng, device="cuda")
+        w = torch.randn((k, n), generator=rng, device="cuda") / math.sqrt(k)
+        b = torch.randn((n,), generator=rng, device="cuda")
+        data.append((x, w, b, torch.empty((m, n), device="cuda")))
+
+    def plan_of(var, x, w):
+        (m, k), n = x.shape, w.shape[1]
+        tile_n, split, k_split, vec = fdn._plan("fma", x, w)
+        if var == "no_split":
+            split, k_split = 1, -(-k // fdn.F32_SLICE) * fdn.F32_SLICE
+        elif var == "loads4":
+            vec = False
+        elif var == "tile_128":
+            saved, fdn.F32_TILES = fdn.F32_TILES, ((128, 128),)
+            try:
+                tile, split, k_split = fdn.f32_plan(m, n, k, sms, clusters)
+            finally:
+                fdn.F32_TILES = saved
+            tile_n = tile[1]
+        elif var == "all_clusters":
+            tile, split, k_split = fdn.f32_plan(m, n, k, sms)
+            tile_n = tile[1]
+        return tile_n, split, k_split, vec
+
+    def launch(lib, plan, x, w, b, y):
+        tile_n, split, k_split, vec = plan
+        err = lib.apex_fused_dense_fwd(
+            fdn._ROUTE_CODES["fma"], 0, fdn._ACT_CODES["relu"],
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+            x.shape[0], w.shape[1], x.shape[1], tile_n, split, k_split,
+            int(vec), torch.cuda.current_stream().cuda_stream)
+        cs.check(err == 0, f"fp32 GEMM launch {plan}: error {err}")
+
+    for var, (lib, pv) in runs.items():
+        for x, w, b, y in data:
+            plan = plan_of(pv, x, w)
+            launch(lib, plan, x, w, b, y)
+            if var in UNCHECKED:
+                print(f"fp32 GEMM {var} {tuple(x.shape)}x{tuple(w.shape)} "
+                      f"plan {plan}: timed only", flush=True)
+                continue
+            ref = fdn.linear_bias_reference(x, w, b, "relu")
+            err = ((y - ref).abs().max() / ref.abs().max()).item()
+            cs.check(err <= 1e-5, f"fp32 GEMM {var}: error {err:.3e}")
+            print(f"fp32 GEMM {var} {tuple(x.shape)}x{tuple(w.shape)} plan "
+                  f"(tile_n, split, k_split, vec) {plan}: max err "
+                  f"{err:.3e} of max |y|", flush=True)
+    order = list(runs) + ["addmm+relu"]
+    times = {}
+    for var in order + list(reversed(order)):
+        for x, w, b, y in data:
+            case = "x".join(map(str, (x.shape[0], x.shape[1], w.shape[1])))
+            if var == "addmm+relu":
+                fn = (lambda x=x, w=w, b=b: torch.relu(torch.addmm(b, x, w)))
+            else:
+                lib, pv = runs[var]
+                fn = (lambda lib=lib, p=plan_of(pv, x, w), x=x, w=w, b=b,
+                      y=y: launch(lib, p, x, w, b, y))
+            times.setdefault((var, case), []).append(cs.time_ms(torch, fn))
+    for (var, case), ts in times.items():
+        print(f"fp32 GEMM {case} {var}: "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
+    for x, w, b, y in data:
+        case = "x".join(map(str, (x.shape[0], x.shape[1], w.shape[1])))
+        k = x.shape[1]
+        slices = -(-k // fdn.F32_SLICE)
+        row = []
+        for tile in fdn.F32_TILES:
+            for split in range(1, fdn.F32_MAX_SPLIT + 1):
+                per = -(-slices // split)
+                if split > 1 and (split - 1) * per >= slices:
+                    continue
+                plan = (tile[1], split, per * fdn.F32_SLICE, True)
+                t = cs.time_ms(torch, lambda: launch(
+                    libs["shipped"], plan, x, w, b, y))
+                row.append(f"{tile[0]}x{tile[1]}/{split} {t:.4f}")
+        print(f"fp32 GEMM sweep {case} (tile/split ms): " + ", ".join(row),
+              flush=True)
+
+
 def _visible_read_all(m_row, cols, grp, inb, pos, msc,
                       HAS_MASK: tl.constexpr, CAUSAL: tl.constexpr):
     """`ops.softmax._fwd_visible` with every in-bounds x loaded: the
@@ -402,6 +543,13 @@ def main(argv):
     if "--softmax" in argv:
         softmax_forward(cs, torch, rng)
         return 0
+    if "--gemm32" in argv:
+        os.makedirs(os.path.join(out, "gemm32"), exist_ok=True)
+        procs = start(csrc, "fused_dense", os.path.join(out, "gemm32"),
+                      GEMM32_VARIANTS)
+        gemm32(cs, torch, fdn, rng, finish(cs, "fused_dense", procs,
+                                           part="dense_f32_kernel"))
+        return 0
     if "--dq" in argv:
         os.makedirs(os.path.join(out, "dq"), exist_ok=True)
         dq_procs = start(csrc, "flash_attention", os.path.join(out, "dq"),
@@ -425,11 +573,8 @@ def main(argv):
     bf16 = torch.bfloat16
 
     # the GEMM at GPT-350M's MLP shapes
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
     for lib in gemm.values():
-        lib.apex_fused_dense_fwd.restype = i32
-        lib.apex_fused_dense_fwd.argtypes = [i32, i32, i32, vp, vp, vp, vp,
-                                             i32, i32, i32, vp]
+        fdn._bind(lib)
     cases = {}
     data = []
     for (m, k, n), act in (((12288, 1024, 4096), "gelu"),

@@ -164,17 +164,21 @@ def test_cuda_route_autograd_matches_jax(act, needs_grad):
 
 @pytest.mark.parametrize("x_off,w_off", [(0, 0), (2, 0), (0, 8), (16, 32)])
 @pytest.mark.parametrize("k,n", [(480, 1032), (1032, 480), (70, 1032),
-                                 (480, 1), (1024, 70), (0, 8)])
+                                 (480, 1), (1024, 70), (0, 8), (27, 3),
+                                 (1024, 8), (0, 1), (0, 16)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_gemm_route(dtype, k, n, x_off, w_off):
-    """The kernel by dtype, shape and alignment: fp32 always the FMA
-    kernel; 16-bit the wgmma + TMA kernel exactly where a TMA tensor map
-    can address both operands (k > 0, k and n multiples of 8, both bases
-    16-byte aligned), else mma.sync."""
+    """The kernel by dtype, shape and alignment: n ≤ 8 the GEMV kernel in
+    every dtype; else fp32 the FMA kernel, and 16-bit the wgmma + TMA
+    kernel exactly where a TMA tensor map can address both operands (k >
+    0, k and n multiples of 8, both bases 16-byte aligned), else
+    mma.sync."""
     tdt = _DTYPES[dtype][1]
     base = 1 << 20
     got = fdn.gemm_route(tdt, 96, n, k, base + x_off, base + w_off)
-    if dtype == "f32":
+    if n <= 8:
+        want = "gemv"
+    elif dtype == "f32":
         want = "fma"
     elif k > 0 and k % 8 == 0 and n % 8 == 0 and (x_off, w_off) in (
             (0, 0), (16, 32)):
@@ -184,6 +188,100 @@ def test_gemm_route(dtype, k, n, x_off, w_off):
     assert got == want
 
 
+# apex's run_mlp layers at batch 1024 (chip_smoke.MLP_LAYERS' fp32 ones),
+# (m, k, n), and an H100 SXM's cluster occupancy (the clusters of 1 .. 8
+# fp32-kernel blocks it holds at once, as the runtime's query gave them on
+# the card, either tile)
+_MLP_F32_LAYERS = [(1024, 480, 1024), (1024, 1024, 1024), (1024, 1024, 512),
+                   (1024, 512, 256)]
+_H100_CLUSTERS = {tile: [132, 66, 39, 30, 22, 17, 15, 15]
+                  for tile in fdn.F32_TILES}
+
+
+@pytest.mark.parametrize("clusters", [None, _H100_CLUSTERS])
+@pytest.mark.parametrize("m,k,n,sms", [
+    (m, k, n, 132) for m, k, n in _MLP_F32_LAYERS] + [
+    (1000, 27, 13, 132), (129, 70, 50, 132), (300, 200, 264, 132),
+    (12289, 1032, 520, 132), (12288, 1024, 4096, 132), (1, 5, 30, 132),
+    (5, 0, 20, 132), (1, 100000, 9, 132), (1024, 1024, 1024, 114),
+    (2048, 1000, 640, 132), (40 * 128, 1024, 128, 132)])
+def test_f32_plan(m, k, n, sms, clusters):
+    """`f32_plan`: one of the two tiles; a split of 1 to 8 whose blocks'
+    depth ranges, whole 16-deep slices, cover [0, k) exactly once with
+    none empty; and the card filled where m, n and k allow it: with fewer
+    128 x 64 tiles than half the SMs and at least 32 slices of depth (so
+    that a split pays for its reduction), more than half the SMs take a
+    block, or the split is 8."""
+    clusters = clusters if sms == 132 else None
+    tile, split, k_split = fdn.f32_plan(m, n, k, sms, clusters)
+    assert tile in fdn.F32_TILES
+    assert 1 <= split <= 8 and k_split % 16 == 0 and k_split >= 0
+    covered = np.zeros(k, dtype=int)
+    for r in range(split):
+        lo, hi = r * k_split, min(k, (r + 1) * k_split)
+        assert hi > lo or k == 0
+        covered[lo:hi] += 1
+    assert np.all(covered == 1)
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    if 2 * (-(-m // 128) * -(-n // 64)) <= sms and k >= 32 * 16:
+        assert 2 * tiles * split > sms or split == 8
+
+
+@pytest.mark.parametrize("clusters,plans", [
+    (None, [((128, 128), 2), ((128, 128), 2), ((128, 128), 4),
+            ((128, 64), 4)]),
+    (_H100_CLUSTERS, [((128, 128), 2), ((128, 128), 2), ((128, 64), 2),
+                      ((128, 64), 3)])])
+def test_f32_plan_at_the_mlp_layers(clusters, plans):
+    """The MLP layers' plans on 132 SMs: 128 x 128 tiles split 2 at the
+    two wide layers (128 blocks); by default (every cluster fits) 128 x
+    128 split 4 and 128 x 64 split 4 at the last two; with an H100's
+    clusters (30 of 4 blocks and 15 of 8, where 32 and 16 would be
+    needed) 128 x 64 split 2 and split 3, each in one wave of clusters
+    (the fastest of the tiles and splits the card timed)."""
+    for (m, k, n), want in zip(_MLP_F32_LAYERS, plans):
+        tile, split, k_split = fdn.f32_plan(m, n, k, 132, clusters)
+        assert (tile, split) == want
+        tiles = (m // tile[0]) * (n // tile[1])
+        held = clusters[tile][split - 1] if clusters else 132 // split
+        assert tiles <= held and split * k_split >= k > (split - 1) * k_split
+
+
+@pytest.mark.parametrize("route,el,k,n,x_off,w_off,want", [
+    ("fma", 4, 512, 256, 0, 0, True), ("fma", 4, 27, 16, 0, 0, False),
+    ("fma", 4, 512, 13, 0, 0, False), ("fma", 4, 512, 256, 4, 0, False),
+    ("fma", 4, 512, 256, 0, 8, False), ("gemv", 4, 256, 1, 0, 0, True),
+    ("gemv", 2, 256, 1, 0, 0, True), ("gemv", 2, 1004, 1, 0, 0, False),
+    ("gemv", 4, 27, 1, 0, 0, False), ("gemv", 2, 256, 3, 2, 0, False),
+    ("gemv", 2, 256, 3, 0, 2, True), ("mma", 2, 70, 16, 0, 0, False)])
+def test_vec_loads(route, el, k, n, x_off, w_off, want):
+    """The load width the host picks before the launch: 16 bytes a thread
+    for the fp32 kernel where k and n are multiples of 4 and x and w
+    16-byte aligned, for the GEMV kernel where every row of x starts
+    16-byte aligned (w is staged element by element either way)."""
+    base = 1 << 20
+    assert fdn.vec_loads(route, el, k, n, base + x_off, base + w_off) is want
+
+
+def test_plan_of_each_route(monkeypatch):
+    """`_plan`, what `_launch` hands the C entry besides the operands: the
+    fp32 route `f32_plan` on the card's SMs and clusters (here an H100's)
+    and its load width, the GEMV and 16-bit routes one block's depth."""
+    monkeypatch.setattr(fdn, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fdn, "f32_clusters", lambda device: _H100_CLUSTERS)
+    fdn._f32_plan_on.cache_clear()
+    x = torch.zeros(1024, 512)
+    w = torch.zeros(512, 256)
+    assert fdn._plan("fma", x, w) == (64, 3, 176, True)
+    assert fdn._plan("fma", x[:, 1:], torch.zeros(511, 256)) == (
+        64, 3, 176, False)
+    xb = torch.zeros(1024, 256, dtype=torch.bfloat16)
+    wb = torch.zeros(256, 1, dtype=torch.bfloat16)
+    assert fdn._plan("gemv", xb, wb) == (0, 1, 256, True)
+    assert fdn._plan("gemv", torch.zeros(9, 27), torch.zeros(27, 1)) == (
+        0, 1, 27, False)
+
+
 def test_gemm_route_refuses_other_dtypes():
     with pytest.raises(TypeError, match="fp32/bf16/fp16"):
         fdn.gemm_route(torch.float64, 4, 8, 8, 0, 0)
@@ -191,10 +289,12 @@ def test_gemm_route_refuses_other_dtypes():
 
 # (route, dtype, k, n, x misaligned by one element): the routes a CPU
 # tensor reaches with the launchers stood in for
-_ROUTE_CASES = [("wgmma", "bf16", 16, 8, False), ("wgmma", "f16", 48, 24,
-                                                       False),
-                ("mma", "bf16", 16, 1, False), ("mma", "f16", 70, 8, False),
-                ("mma", "bf16", 16, 8, True), ("fma", "f32", 16, 8, False)]
+_ROUTE_CASES = [("wgmma", "bf16", 16, 16, False),
+                ("wgmma", "f16", 48, 24, False),
+                ("mma", "bf16", 16, 12, False), ("mma", "f16", 70, 16, False),
+                ("mma", "bf16", 16, 16, True), ("fma", "f32", 16, 16, False),
+                ("gemv", "f32", 16, 1, False), ("gemv", "bf16", 16, 1, False),
+                ("gemv", "f16", 70, 3, False), ("gemv", "bf16", 16, 8, True)]
 
 
 @pytest.mark.parametrize("needs_grad", [True, False])
@@ -294,6 +394,48 @@ def test_mlp_matches_jax(activation, bias):
     for i, b in enumerate(mlp.biases):
         _close_grad(b.grad, jg["biases"][i], "f32")
     assert len(mlp.biases) == (len(sizes) - 1 if bias else 0)
+
+
+@pytest.mark.parametrize("activation,bias", [("relu", True),
+                                             ("sigmoid", False),
+                                             ("none", True)])
+def test_mlp_routes_through_the_stand_in(activation, bias, monkeypatch):
+    """The MLP chain of `test_mlp_matches_jax` on the CUDA route
+    (`_FusedLinearFn`, the device check passed), with a recording
+    stand-in for `_launch`: one launch a layer, the fp32 FMA kernel for
+    the two wide layers and the GEMV kernel for the last (N = 1); the
+    output and every weight's grad against the JAX MLP (Pallas in
+    interpret mode)."""
+    rng = np.random.RandomState(24)
+    sizes = [13, 27, 11, 1]
+    jmlp = JaxMLP(sizes, bias=bias, activation=activation)
+    jp = jmlp.init(jax.random.PRNGKey(7))
+    mlp = MLP(sizes, bias=bias, activation=activation, device="cpu")
+    mlp.load_state_dict(params_from_jax(jp))
+    x = rng.randn(9, 13).astype(np.float32)
+    ct = rng.randn(9, 1).astype(np.float32)
+    routes = []
+
+    def launch(route, x2, w, b, y, act):
+        routes.append(route)
+        y.copy_(fdn.linear_bias_reference(x2, w, b, act))
+
+    monkeypatch.setattr(fdn, "_launch", launch)
+    monkeypatch.setattr(fdn, "check_kernel_device", lambda *t: True)
+
+    def jloss(p):
+        y = jmlp.apply(p, jnp.asarray(x), use_pallas_override=True)
+        return jnp.sum(y * ct), y
+
+    (_, jy), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jp)
+    y = mlp(torch.tensor(x))
+    assert routes == ["fma", "fma", "gemv"]
+    _close_out(y, jy, "f32")
+    (y * torch.tensor(ct)).sum().backward()
+    for i, w in enumerate(mlp.weights):
+        _close_grad(w.grad, jg["weights"][i], "f32")
+    for i, b in enumerate(mlp.biases):
+        _close_grad(b.grad, jg["biases"][i], "f32")
 
 
 def test_wgrad_accum_matches_jax_in_place():
