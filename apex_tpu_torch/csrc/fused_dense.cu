@@ -53,7 +53,7 @@
 //     128 or 128 x 64 tile, each thread 8 x 8 or 8 x 4 outputs, over its
 //     share of K: the host plan (ops/fused_dense.py f32_plan) picks the
 //     tile and splits K among `split` blocks (1 to 8) of one thread-block
-//     cluster, so that the MLP's layers, 8 to 64 tiles, still fill the
+//     cluster, so that the MLP's layers, 8 to 64 tiles of 128 x 128, fill the
 //     card's 132 SMs, one block an SM.  16-deep slices of x and w stream
 //     into a 4-stage ring by 16-byte cp.async (4-byte copies where K or N
 //     is not a multiple of 4 or a base is not 16-byte aligned: the host's
@@ -64,7 +64,7 @@
 //     its 128 / split rows of every block's tile through distributed
 //     shared memory, in rank order (the same bits on every run), and runs
 //     the epilogue on them.  What bounds it: the FMAs (2 M N K at 67 TF/s;
-//     0.032 ms at 1024^3), of which nvcc's code issues some 70 % at best.
+//     0.032 ms at 1024^3), of which this loop issues some two thirds.
 // Every kernel's epilogue is in registers: bias, activation, rounding,
 // store; the pre-activation never reaches device memory unless the
 // caller asks for it (the autograd forward launches with act = none).

@@ -58,7 +58,7 @@ F32_TILES = ((128, 128), (128, 64))   # the fp32 kernel's blocks of y
 F32_SLICE = 16                # the fp32 kernel's depth per pipeline slice
 F32_MAX_SPLIT = 8             # blocks a cluster (the portable limit)
 # `f32_plan`'s costs, in the time of one 16-deep slice of a 128 x 128
-# block (1.53 us on an NVIDIA H100 80GB HBM3 at 700 W), fitted to that
+# block (1.6 us on an NVIDIA H100 80GB HBM3 at 700 W), fitted to that
 # card's times of the MLP layers by tile and split
 # (scripts/port_hopper_ablation.py --gemm32): a slice of each tile (the
 # 128 x 64 tile does half the FMAs with the same copies, barrier and
