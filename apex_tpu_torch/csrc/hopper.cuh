@@ -4,7 +4,8 @@
 //     an expected count alone, a parity wait, and the arrival of a
 //     thread's 4-byte cp.async copies once they land;
 //   * TMA: cp.async.bulk.tensor loads of 2-D and 4-D boxes into shared
-//     memory, completing on an mbarrier, 2-D and 4-D stores from it, and
+//     memory, completing on an mbarrier, 1-D bulk copies of a contiguous
+//     run of bytes the same way, 2-D and 4-D stores from it, and
 //     the 4-D bulk reduce-add (cp.reduce.async.bulk.tensor ... .add) of
 //     an fp32 box into device memory;
 //   * wgmma: the shared-memory matrix descriptor (128-byte swizzle), the
@@ -154,6 +155,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory at `src` to shared memory
+// at `dst`, both 16-byte aligned, by one 1-D bulk copy (no tensor map),
+// completing `bytes` of `bar`'s transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

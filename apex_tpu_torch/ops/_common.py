@@ -45,6 +45,18 @@ def check_kernel_device(*tensors: torch.Tensor) -> bool:
         f"one CUDA device (kernel); got {sorted(str(t.device) for t in tensors)}")
 
 
+_SMS = {}
+
+
+def sm_count(device) -> int:
+    """The card's SM count (a persistent grid's size), asked once a
+    device."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def strict_matmul_numerics() -> None:
     """The GEMM numerics the JAX package gets from
     `preferred_element_type=float32`: bf16 products reduce in fp32

@@ -22,7 +22,9 @@ Two implementations of that contract live here:
     for CPU tensors, and `chip_smoke.py` holds the kernel against it.
   * the CUDA C++ kernel in `apex_tpu_torch/csrc/flash_decode.cu` (the
     port of `_decode_kernel`), launched by `flash_decode` for CUDA
-    tensors.  Its source note says what bounds it and how.
+    tensors under the host plan `decode_plan` (kv heads a block, a split
+    of a slot's pages among the blocks of a cluster, ring slots, row
+    tile).  Its source note says what bounds it and how.
 
 Forward only: decode is inference.
 """
@@ -32,11 +34,12 @@ from __future__ import annotations
 import ctypes
 import math
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
-from apex_tpu_torch.ops._common import check_kernel_device
+from apex_tpu_torch.ops._common import (check_kernel_device,
+                                        sm_count as _sm_count)
 
 _NEG_INF = -1e30
 
@@ -80,9 +83,8 @@ def _check_shapes(q, k_pages, v_pages, block_table, lengths):
 def _resolve_heads_per_step(heads_per_step, hkv, page_size):
     """Validated kv-head packing factor, as in the JAX package.  None →
     the largest power-of-two divisor of n_kv_heads with hp * page_size
-    <= 1024; an invalid explicit value warns once and degrades to 1.
-    On Hopper this is a tiling choice the first kernel does not make:
-    the value is validated and returned, and the kernel ignores it."""
+    <= 1024 (the TPU's rule; on the card `decode_plan` states its own for
+    None); an invalid explicit value warns once and degrades to 1."""
     if heads_per_step is None:
         hp = 1
         while (hkv % (hp * 2) == 0 and (hp * 2) * page_size <= 1024
@@ -168,27 +170,128 @@ def paged_attention_reference(q, k_pages, v_pages, block_table, lengths,
 
 # ------------------------------- CUDA kernel --------------------------------
 
+# the plan's constants (csrc/flash_decode.cu): keys a ring slot holds, a
+# block's shared memory when blocks share an SM (five of them) and when
+# the grid leaves an SM to each, the cluster's most blocks, and the blocks
+# the rule for heads_per_step keeps at least (per SM)
+DECODE_CHUNK = 128
+DECODE_SMEM_SHARED = 40 * 1024
+DECODE_SMEM_ALONE = 200 * 1024
+DECODE_MAX_SPLIT = 8
+DECODE_BLOCKS_PER_SM = 4
+_WARPS = 4
 _LIB = None
+
+
+class DecodePlan(NamedTuple):
+    """What `csrc/flash_decode.cu` runs: `heads_per_block` kv heads of one
+    slot a block, a slot's pages split among `split` blocks of a cluster,
+    a ring of `stages` slots of `chunk` keys of K and V, and `row_tile`
+    query rows a block."""
+    heads_per_block: int
+    split: int
+    stages: int
+    row_tile: int
+    chunk: int
+
+
+def decode_smem(d, itemsize, row_tile, hp, split, stages, chunk, max_pages):
+    """The dynamic shared memory of a block (the C entry's layout): the
+    ring, q's rows, the rank's table entries, the warps' merge, with a
+    split the block's merged states, the mbarriers."""
+    def r16(b):
+        return -(-b // 16) * 16
+    pps = -(-max_pages // split)
+    q = stages * 2 * chunk * d * itemsize
+    state = (q + r16(hp * row_tile * d * itemsize) + r16(pps * 4)
+             + _WARPS * row_tile * (d + 2) * 4)
+    extra = hp * row_tile * (d + 2) * 4 if split > 1 else 0
+    return r16(state + extra) + stages * 8
+
+
+def decode_plan(n_slots, hkv, G, q_len, max_pages, page, d, itemsize, sms,
+                hp=None):
+    """The decode kernel's plan.  `hp`, the kv heads a block, is the
+    caller's or the tuner's heads_per_step (validated); without one, the
+    largest power of two dividing hkv that still leaves
+    `DECODE_BLOCKS_PER_SM` blocks an SM.  The row tile is 1 when G * q_len
+    is 1, else 8.  When the blocks would leave SMs idle and a slot has
+    more than one page, a slot's pages split among as many blocks of a
+    cluster (at most 8) as the idle SMs take.  The ring holds as many
+    chunks (at most all of a block's) as a block's share of shared memory
+    does: `DECODE_SMEM_ALONE` when the grid leaves an SM to each block,
+    else `DECODE_SMEM_SHARED`."""
+    rows = G * q_len
+    row_tile = 1 if rows == 1 else 8
+    tiles = -(-rows // row_tile)
+    if hp is None:
+        hp = 1
+        while (hkv % (2 * hp) == 0 and n_slots * (hkv // (2 * hp)) * tiles
+               >= DECODE_BLOCKS_PER_SM * sms):
+            hp *= 2
+    if hp < 1 or hkv % hp:
+        raise ValueError(f"flash_decode plan: heads_per_step {hp} does not "
+                         f"divide n_kv_heads={hkv}")
+    base = n_slots * (hkv // hp) * tiles
+    split = 1
+    if base < sms and max_pages > 1:
+        split = max(1, min(DECODE_MAX_SPLIT, max_pages, sms // base))
+    chunk = min(page, DECODE_CHUNK)
+    items = hp * -(-max_pages // split) * -(-page // chunk)
+    budget = DECODE_SMEM_ALONE if base * split <= sms else DECODE_SMEM_SHARED
+    fixed = decode_smem(d, itemsize, row_tile, hp, split, 0, chunk,
+                        max_pages)
+    stages = max(1, min(items, (budget - fixed) // (2 * chunk * d * itemsize
+                                                     + 8)))
+    return DecodePlan(hp, split, stages, row_tile, chunk)
+
+
+def _bind(lib):
+    """`lib` (a build of csrc/flash_decode.cu) with its C entry's types."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.apex_flash_decode.restype = i32
+    lib.apex_flash_decode.argtypes = [
+        i32, i32, vp, i64, i64, i64, vp, vp, vp, vp, vp,
+        i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, i32, i32,
+        i32, i32, vp]
+    return lib
 
 
 def _lib():
     global _LIB
     if _LIB is None:
         from apex_tpu_torch import csrc
-        lib = csrc.load("flash_decode")
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.apex_flash_decode.restype = i32
-        lib.apex_flash_decode.argtypes = [
-            i32, i32, vp, i64, i64, i64, vp, vp, vp, vp, vp,
-            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, vp]
-        _LIB = lib
+        _LIB = _bind(csrc.load("flash_decode"))
     return _LIB
 
 
-def flash_decode_cuda(q, k_pages, v_pages, block_table, lengths, scale):
+def _launch(plan, q, k_pages, v_pages, tbl, lens, out, scale):
+    """Launch the kernel on the current stream under `plan` into the
+    preallocated out; counts the launch in `flash_decode_cuda.launches`
+    and keeps the plan in `flash_decode_cuda.last_plan`."""
+    n_slots, q_len, hq, d = q.shape
+    hkv, n_pages, page, _ = k_pages.shape
+    err = _lib().apex_flash_decode(
+        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1),
+        q.stride(2), k_pages.data_ptr(), v_pages.data_ptr(), tbl.data_ptr(),
+        lens.data_ptr(), out.data_ptr(), n_slots, q_len, hq, hkv, n_pages,
+        page, tbl.shape[1], float(scale), plan.heads_per_block, plan.split,
+        plan.stages, plan.row_tile, plan.chunk,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed (plan "
+                           f"{tuple(plan)}): CUDA error {err}")
+    flash_decode_cuda.launches += 1
+    flash_decode_cuda.last_plan = plan
+
+
+def flash_decode_cuda(q, k_pages, v_pages, block_table, lengths, scale,
+                      heads_per_step=None):
     """Launch the CUDA kernel on the current stream (shapes already
-    checked).  Raises on anything the kernel does not take and when the
-    launch is refused.  `flash_decode_cuda.launches` counts launches."""
+    checked) under `decode_plan`, heads_per_step (validated) giving its
+    heads a block.  Raises on anything the kernel does not take and when
+    the launch is refused.  `flash_decode_cuda.launches` counts
+    launches."""
     n_slots, q_len, hq, d = q.shape
     hkv, n_pages, page, _ = k_pages.shape
     if q.dtype not in _KERNEL_DTYPES:
@@ -215,20 +318,14 @@ def flash_decode_cuda(q, k_pages, v_pages, block_table, lengths, scale):
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((n_slots, q_len, hq, d), dtype=q.dtype,
                       device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib().apex_flash_decode(
-        _KERNEL_DTYPES[q.dtype], d, q.data_ptr(), q.stride(0), q.stride(1),
-        q.stride(2), k_pages.data_ptr(), v_pages.data_ptr(), tbl.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), n_slots, q_len, hq, hkv, n_pages,
-        page, tbl.shape[1], float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
-                           f"{err}")
-    flash_decode_cuda.launches += 1
+    plan = decode_plan(n_slots, hkv, hq // hkv, q_len, tbl.shape[1], page, d,
+                       q.element_size(), _sm_count(q.device), heads_per_step)
+    _launch(plan, q, k_pages, v_pages, tbl, lens, out, scale)
     return out
 
 
 flash_decode_cuda.launches = 0
+flash_decode_cuda.last_plan = None
 
 
 # --------------------------------- public API -------------------------------
@@ -240,10 +337,11 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
     docstring for the layout).  CPU tensors run the plain version; CUDA
     tensors run the CUDA kernel or raise.  heads_per_step None consults
     the tuner on a CUDA call (`_tuned_decode_config`, key
-    `tune.decode_attrs`), as the JAX package does; the result is
-    validated as in the JAX package (a bad value warns once) and not
-    used by the kernel, which tiles as it does.  Inactive slots
-    (lengths == 0) return exact zeros."""
+    `tune.decode_attrs`), as the JAX package does; a value from either is
+    validated as in the JAX package (a bad value warns once and runs
+    unpacked) and gives the kernel's kv heads a block; with neither,
+    `decode_plan`'s rule does.  Inactive slots (lengths == 0) return
+    exact zeros."""
     _check_shapes(q, k_pages, v_pages, block_table, lengths)
     n_slots, q_len, hq, d = q.shape
     hkv, _, page, _ = k_pages.shape
@@ -255,9 +353,10 @@ def flash_decode(q, k_pages, v_pages, block_table, lengths, *,
                                    q.dtype)
         if cfg:
             heads_per_step = cfg.get("heads_per_step")
-    _resolve_heads_per_step(heads_per_step, hkv, page)
+    hp = (None if heads_per_step is None else
+          _resolve_heads_per_step(heads_per_step, hkv, page))
     if not on_card:
         return paged_attention_reference(
             q, k_pages, v_pages, block_table, lengths, softmax_scale=scale)
     return flash_decode_cuda(q, k_pages, v_pages, block_table, lengths,
-                             scale)
+                             scale, hp)

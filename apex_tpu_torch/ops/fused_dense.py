@@ -48,7 +48,8 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
-from apex_tpu_torch.ops._common import check_kernel_device, resolve_device
+from apex_tpu_torch.ops._common import (check_kernel_device, resolve_device,
+                                        sm_count as _sm_count)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ACT_CODES = {None: 0, "none": 0, "relu": 1, "gelu": 2, "sigmoid": 3}
@@ -115,10 +116,6 @@ def _lib():
         from apex_tpu_torch import csrc
         _LIB = _bind(csrc.load("fused_dense"))
     return _LIB
-
-
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def f32_clusters(device):

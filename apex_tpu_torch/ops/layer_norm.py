@@ -12,11 +12,12 @@ Two implementations of each direction live here:
     spellings of the JAX package).  CPU tensors run them (autograd
     differentiates the plain forward), and `chip_smoke.py` holds the
     kernels against them.
-  * `_fwd_kernel` and `_bwd_kernel` (+ `_bwd_finish_kernel`), Triton
-    kernels launched by `norm_fwd_triton` / `norm_bwd_triton` for CUDA
-    tensors.  A CUDA call that needs a gradient goes through `_NormFn`
-    (a `torch.autograd.Function`: the forward kernel saves x, mean and
-    rstd, the backward kernel computes dx, dw, db); one that does not
+  * the Triton `_fwd_kernel`, launched by `norm_fwd_triton`, and the
+    CUDA C++ backward in `apex_tpu_torch/csrc/layer_norm.cu`, launched by
+    `norm_bwd_cuda` under the host plan `bwd_plan`, for CUDA tensors.  A
+    CUDA call that needs a gradient goes through `_NormFn` (a
+    `torch.autograd.Function`: the forward kernel saves x, mean and rstd,
+    the backward kernel computes dx, dw, db); one that does not
     (`torch.inference_mode()`, `torch.no_grad()`, the serving engine)
     runs the forward kernel alone.
 
@@ -33,20 +34,28 @@ Backward kernel note.  Replaces apex_tpu/ops/layer_norm.py:_bwd_kernel
 mean(wg * xhat)) with wg = g * w (RMSNorm drops the mean(wg) term),
 rounded once to x's dtype; dw = sum over rows of g * xhat, db = sum of g,
 in fp32.  What bounds it on an H100: bytes — g and x read once, dx
-written once, ~12 flops per element.  The TPU kernel accumulates dw and
+written once, ~20 flops per element.  The TPU kernel accumulates dw and
 db across its sequential grid; blocks on the card run in any order, so
-each program of `_bwd_kernel` walks a fixed run of rows, keeps its dw/db
-partial rows in fp32 registers and writes them out, and
-`_bwd_finish_kernel` sums the partials in a fixed order.  No atomics:
-the result is deterministic.
+the kernel runs about one persistent block an SM over a fixed run of
+rows (`bwd_plan`): a warp a row at hidden <= 1024 (a group of warps a
+wider row), each row group streaming its rows through a ring of slots
+in shared memory filled by 1-D bulk copies several rows ahead, its dw
+and db sums in fp32 registers.  Each block writes one partial row of
+dw and db (its groups in order) and a finishing pass of one block a
+4-column slice sums them in a fixed order.  No atomics: the same bits
+on every run.  The source note (csrc/layer_norm.cu) has the details.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 from torch import nn
 
-from apex_tpu_torch.ops._common import check_kernel_device
+from apex_tpu_torch.ops._common import (check_kernel_device,
+                                        sm_count as _sm_count)
 
 # triton.language, bound by `_jit` at the first launch: the kernels
 # below are compiled only on a machine with a card, and importing this
@@ -113,7 +122,7 @@ def rms_norm_reference(x, weight=None, eps=1e-5):
     return y.reshape(x.shape)
 
 
-# ------------------------------- Triton kernel ------------------------------
+# ------------------------------- Triton forward ------------------------------
 
 def _fwd_kernel(X, W, B, Y, Mean, Rstd, x_stride, y_stride, n_cols, eps,
                 BLOCK: tl.constexpr, RMS: tl.constexpr,
@@ -142,65 +151,6 @@ def _fwd_kernel(X, W, B, Y, Mean, Rstd, x_stride, y_stride, n_cols, eps,
              mask=mask)
     tl.store(Mean + row, mean)
     tl.store(Rstd + row, rstd)
-
-
-def _bwd_kernel(G, X, Mean, Rstd, W, DX, DWP, DBP, g_stride, x_stride,
-                dx_stride, n_rows, n_cols, rows_per_prog,
-                BLOCK: tl.constexpr, RMS: tl.constexpr,
-                HAS_WEIGHT: tl.constexpr):
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < n_cols
-    if HAS_WEIGHT:
-        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
-    dw_acc = tl.zeros([BLOCK], dtype=tl.float32)
-    db_acc = tl.zeros([BLOCK], dtype=tl.float32)
-    row0 = pid * rows_per_prog
-    for row in range(row0, tl.minimum(row0 + rows_per_prog, n_rows)):
-        r = row.to(tl.int64)
-        g = tl.load(G + r * g_stride + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        x = tl.load(X + r * x_stride + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        mean = tl.load(Mean + r)
-        rstd = tl.load(Rstd + r)
-        xhat = tl.where(mask, (x - mean) * rstd, 0.0)
-        wg = g
-        if HAS_WEIGHT:
-            wg = g * w
-        c2 = tl.sum(wg * xhat, axis=0) / n_cols
-        if RMS:
-            dx = rstd * (wg - xhat * c2)
-        else:
-            c1 = tl.sum(wg, axis=0) / n_cols
-            dx = rstd * (wg - c1 - xhat * c2)
-        tl.store(DX + r * dx_stride + cols, dx.to(DX.dtype.element_ty),
-                 mask=mask)
-        if HAS_WEIGHT:
-            dw_acc += g * xhat
-            db_acc += g
-    if HAS_WEIGHT:
-        tl.store(DWP + pid * n_cols + cols, dw_acc, mask=mask)
-        tl.store(DBP + pid * n_cols + cols, db_acc, mask=mask)
-
-
-def _bwd_finish_kernel(DWP, DBP, DW, DB, n_parts, n_cols,
-                       PARTS: tl.constexpr, BLOCK_N: tl.constexpr):
-    """dw, db = the column sums of the (n_parts, n_cols) partials, in a
-    fixed order (PARTS rows at a time)."""
-    cols = tl.program_id(0) * BLOCK_N + tl.arange(0, BLOCK_N)
-    cmask = cols < n_cols
-    parts = tl.arange(0, PARTS)
-    dw = tl.zeros([BLOCK_N], dtype=tl.float32)
-    db = tl.zeros([BLOCK_N], dtype=tl.float32)
-    for p0 in range(0, n_parts, PARTS):
-        rows = p0 + parts
-        m = (rows[:, None] < n_parts) & cmask[None, :]
-        off = rows[:, None] * n_cols + cols[None, :]
-        dw += tl.sum(tl.load(DWP + off, mask=m, other=0.0), axis=0)
-        db += tl.sum(tl.load(DBP + off, mask=m, other=0.0), axis=0)
-    tl.store(DW + cols, dw, mask=cmask)
-    tl.store(DB + cols, db, mask=cmask)
 
 
 _JIT = {}
@@ -250,17 +200,141 @@ def norm_fwd_triton(x2, weight, bias, eps, rms):
 
 norm_fwd_triton.launches = 0
 
-# the backward splits the rows into at most this many runs, one program
-# each, whose dw/db partial rows the finishing pass sums
-_BWD_PARTS = 512
+# ------------------------------ CUDA backward -------------------------------
+
+# the plan's constants (csrc/layer_norm.cu): columns a thread holds (its
+# dw and db sums live in registers) at up to 8 warps a row, warps a block,
+# the warps of a row past 8 x 1024 columns, the shared memory of
+# a block's ring and w's fp32 row, the ring's most slots, and the
+# columns of a slice of the finishing pass
+BWD_COLS = 32
+BWD_WARPS = 8
+BWD_WIDE_WARPS = 12
+BWD_SMEM = 200 * 1024
+BWD_MAX_STAGES = 4
+BWD_FINISH_COLS = 4
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LIB = None
 
 
-def norm_bwd_triton(g2, x2, mean, rstd, weight, rms):
-    """Launch the Triton backward over CUDA (rows, hidden) tensors whose
+class BwdPlan(NamedTuple):
+    """What `csrc/layer_norm.cu` runs: `blocks` blocks of `warps` warps
+    and `rows_per_block` rows (the last one short), `warps_per_row` warps
+    a row, a ring of `stages` rows a row group, loads `load_width` bytes
+    wide (16: bulk copies), and `finish_blocks` blocks summing the
+    partial rows of dw and db."""
+    blocks: int
+    rows_per_block: int
+    warps: int
+    warps_per_row: int
+    stages: int
+    load_width: int
+    finish_blocks: int
+
+
+def bwd_plan(rows, hidden, itemsize, sms, align=16):
+    """The backward kernel's plan for (rows, hidden) of `itemsize`-byte
+    elements on a card of `sms` SMs, where `align` bytes divide every
+    base and row stride of g, x and dx.  A row takes the fewest warps (a
+    power of two) that hold it at `BWD_COLS` columns a thread, or past
+    `BWD_WARPS` such warps `BWD_WIDE_WARPS` (up to 48 columns a thread);
+    a block has `BWD_WARPS` warps (a row's when it takes more), each row
+    group walking every `groups`-th row of its block's run; the runs are
+    as even as whole rows a group allow, one block an SM at most.  Rows
+    whose bytes and bases are 16-byte multiples stream through a ring of
+    as many slots (at most 4) as `BWD_SMEM` holds beside w's fp32 row;
+    others take 4- or 2-byte loads, one row at a time.  The finishing
+    pass takes a block of `BWD_FINISH_COLS` columns each (256 at hidden
+    1024)."""
+    if not 0 < hidden <= _MAX_HIDDEN:
+        raise ValueError(f"LayerNorm backward kernel takes hidden in "
+                         f"(0, {_MAX_HIDDEN}], got {hidden}")
+    wpr = 1
+    while hidden > wpr * 32 * BWD_COLS:
+        wpr *= 2
+    if wpr > BWD_WARPS:
+        wpr = BWD_WIDE_WARPS
+    warps = max(wpr, BWD_WARPS)
+    groups = warps // wpr
+    row_bytes = hidden * itemsize
+    if align % 16 == 0 and row_bytes % 16 == 0:
+        width = 16
+    elif align % 4 == 0 and row_bytes % 4 == 0:
+        width = 4
+    else:
+        width = itemsize
+    stages = 1
+    if width == 16:
+        w_bytes = -(-hidden // 8) * 32
+        stages = max(1, min(BWD_MAX_STAGES, (BWD_SMEM - w_bytes)
+                            // (groups * 2 * row_bytes)))
+    finish = -(-hidden // BWD_FINISH_COLS)
+    if rows == 0:
+        return BwdPlan(0, 0, warps, wpr, stages, width, finish)
+    per_group = -(-rows // (sms * groups))
+    rows_per_block = per_group * groups
+    return BwdPlan(-(-rows // rows_per_block), rows_per_block, warps, wpr,
+                   stages, width, finish)
+
+
+def _bind(lib):
+    """`lib` (a build of csrc/layer_norm.cu) with its C entry's types."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.apex_layer_norm_bwd.restype = i32
+    lib.apex_layer_norm_bwd.argtypes = [
+        i32, vp, i64, vp, i64, vp, vp, vp, i32, vp, i64, vp, vp, vp, vp, i32,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    return lib
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from apex_tpu_torch import csrc
+        _LIB = _bind(csrc.load("layer_norm"))
+    return _LIB
+
+
+def _align(*tensors):
+    """The largest of 16, 4, 2 bytes dividing every base and row stride."""
+    for a in (16, 4):
+        if all(t.data_ptr() % a == 0 and t.stride(0) * t.element_size() % a
+               == 0 for t in tensors):
+            return a
+    return 2
+
+
+def _launch(plan, g2, x2, mean, rstd, weight, dx, dwdb, rms):
+    """Launch the backward kernel (and its finishing pass) on the current
+    stream under `plan`: dx, and with a weight dwdb = (dw, db) (2, hidden)
+    fp32, filled in place.  Counts the launch in `norm_bwd_cuda.launches`."""
+    rows, hidden = x2.shape
+    pd = None
+    if weight is not None:
+        pd = torch.empty((2, plan.blocks, -(-hidden // 4) * 4),
+                         dtype=torch.float32, device=x2.device)
+    ptr = (lambda t, i: None if t is None else t[i].data_ptr())
+    err = _lib().apex_layer_norm_bwd(
+        _DTYPE_CODES[x2.dtype], g2.data_ptr(), g2.stride(0), x2.data_ptr(),
+        x2.stride(0), mean.data_ptr(), rstd.data_ptr(),
+        None if weight is None else weight.data_ptr(),
+        0 if weight is None else _DTYPE_CODES[weight.dtype], dx.data_ptr(),
+        dx.stride(0), ptr(pd, 0), ptr(pd, 1), ptr(dwdb, 0), ptr(dwdb, 1),
+        int(rms), rows, hidden, plan.blocks, plan.rows_per_block,
+        plan.warps, plan.warps_per_row, plan.stages, plan.load_width,
+        plan.finish_blocks, torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LayerNorm backward kernel launch failed "
+                           f"(plan {tuple(plan)}): CUDA error {err}")
+    norm_bwd_cuda.launches += 1
+
+
+def norm_bwd_cuda(g2, x2, mean, rstd, weight, rms):
+    """Launch the CUDA backward over CUDA (rows, hidden) tensors whose
     last dim is contiguous: returns (dx in x's dtype, fp32 dw, fp32 db),
-    dw/db None without a weight.  One call launches `_bwd_kernel` and,
-    with a weight, `_bwd_finish_kernel`; `norm_bwd_triton.launches`
-    counts calls."""
+    dw/db None without a weight.  One call launches the kernel under
+    `bwd_plan` and, with a weight, its finishing pass;
+    `norm_bwd_cuda.launches` counts calls."""
     rows, hidden = x2.shape
     if hidden > _MAX_HIDDEN:
         raise ValueError(f"LayerNorm kernel holds a row in registers: "
@@ -268,54 +342,43 @@ def norm_bwd_triton(g2, x2, mean, rstd, weight, rms):
     if g2.shape != x2.shape or g2.stride(1) != 1 or x2.stride(1) != 1:
         raise ValueError("LayerNorm backward needs g and x of one shape "
                          "with the hidden dim contiguous")
+    if x2.dtype not in _DTYPE_CODES or g2.dtype != x2.dtype:
+        raise TypeError(f"LayerNorm backward kernel takes g and x of one "
+                        f"dtype in fp32/bf16/fp16, got {g2.dtype} and "
+                        f"{x2.dtype}")
     for name, t in (("mean", mean), ("rstd", rstd)):
         if (t.dtype != torch.float32 or t.numel() != rows
                 or not t.is_contiguous()):
             raise ValueError(f"LayerNorm backward {name} must be "
                              f"contiguous fp32 ({rows}, 1)")
     if weight is not None and (tuple(weight.shape) != (hidden,)
-                               or not weight.is_contiguous()):
+                               or not weight.is_contiguous()
+                               or weight.dtype not in _DTYPE_CODES):
         raise ValueError(f"LayerNorm weight must be contiguous "
-                         f"({hidden},), got {tuple(weight.shape)}")
-    dx = torch.empty_like(x2)
-    has_w = weight is not None
-    dw = db = None
+                         f"({hidden},) fp32/bf16/fp16, got "
+                         f"{tuple(weight.shape)} {weight.dtype}")
+    dx = torch.empty((rows, hidden), dtype=x2.dtype, device=x2.device)
+    dwdb = None
+    if weight is not None:
+        dwdb = torch.empty((2, hidden), dtype=torch.float32,
+                           device=x2.device)
     if rows == 0:
-        if has_w:
-            dw = torch.zeros(hidden, dtype=torch.float32, device=x2.device)
-            db = torch.zeros_like(dw)
-        return dx, dw, db
-    rows_per_prog = -(-rows // _BWD_PARTS)
-    n_parts = -(-rows // rows_per_prog)
-    if has_w:
-        dwp = torch.empty((n_parts, hidden), dtype=torch.float32,
-                          device=x2.device)
-        dbp = torch.empty_like(dwp)
+        if dwdb is not None:
+            dwdb.zero_()
     else:
-        dwp = dbp = dx
-    block = 1 << (hidden - 1).bit_length()
-    num_warps = 4 if block <= 1024 else (8 if block <= 4096 else 16)
-    _jit(_bwd_kernel)[(n_parts,)](
-        g2, x2, mean, rstd, x2 if weight is None else weight, dx, dwp, dbp,
-        g2.stride(0), x2.stride(0), dx.stride(0), rows, hidden,
-        rows_per_prog, BLOCK=block, RMS=rms, HAS_WEIGHT=has_w,
-        num_warps=num_warps)
-    if has_w:
-        dw = torch.empty(hidden, dtype=torch.float32, device=x2.device)
-        db = torch.empty_like(dw)
-        block_n = 32
-        _jit(_bwd_finish_kernel)[(-(-hidden // block_n),)](
-            dwp, dbp, dw, db, n_parts, hidden, PARTS=32, BLOCK_N=block_n,
-            num_warps=4)
-    norm_bwd_triton.launches += 1
-    return dx, dw, db
+        plan = bwd_plan(rows, hidden, x2.element_size(),
+                        _sm_count(x2.device), _align(g2, x2, dx))
+        _launch(plan, g2, x2, mean, rstd, weight, dx, dwdb, rms)
+    if dwdb is None:
+        return dx, None, None
+    return dx, dwdb[0], dwdb[1]
 
 
-norm_bwd_triton.launches = 0
+norm_bwd_cuda.launches = 0
 
 
 class _NormFn(torch.autograd.Function):
-    """The Triton kernels as one differentiable op over (rows, hidden):
+    """The kernels as one differentiable op over (rows, hidden):
     the forward saves x and the fp32 mean/rstd it computed; dw and db
     come back in the weight's and bias's dtypes (fp32 sums, one cast)."""
 
@@ -331,7 +394,7 @@ class _NormFn(torch.autograd.Function):
     def backward(ctx, gy):
         x2, weight, mean, rstd = ctx.saved_tensors
         g2 = gy if gy.stride(1) == 1 else gy.contiguous()
-        dx, dw, db = norm_bwd_triton(g2, x2, mean, rstd, weight, ctx.rms)
+        dx, dw, db = norm_bwd_cuda(g2, x2, mean, rstd, weight, ctx.rms)
         if weight is not None:
             dw = dw.to(weight.dtype)
             db = None if ctx.bias_dtype is None else db.to(ctx.bias_dtype)
@@ -359,8 +422,8 @@ def _norm(x, weight, bias, eps, rms):
 def fused_layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     """Affine/plain LayerNorm over the last dim ≡ the JAX package's
     `fused_layer_norm`.  CPU tensors run the plain version; CUDA
-    tensors run the Triton kernels (forward, and backward when a
-    gradient is needed) or raise."""
+    tensors run the kernels (the Triton forward, and the CUDA backward
+    when a gradient is needed) or raise."""
     return _norm(x, weight, bias, eps, False)
 
 

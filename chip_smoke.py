@@ -14,10 +14,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  logged; the dq pass's four kernels must have no spills
                  and no such note, nor the fused dense GEMM's fp32 and
                  GEMV kernels any spill (their registers and spills in
-                 its summary line, by kernel family).
+                 its summary line, by kernel family), nor any kernel of
+                 the LayerNorm backward or flash-decode (a summary line
+                 each: registers by kernel, spills).
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
-                 training paths give it, plus ragged cases: the
+                 training paths give it, plus ragged cases: flash-decode
+                 at the serving shape (its plan: no split, a one-row
+                 tile; heads_per_step 1, 2 and 4 bit for bit with it),
+                 at 4 slots x 4096 keys (a split among a cluster's
+                 blocks), GQA with q_len 2 and a page-8 case, each run
+                 twice bit for bit; the LayerNorm backward at GPT's and
+                 BERT's rows, ragged and tiny ones, fp16, RMSNorm, no
+                 weight, 4- and 2-byte loads and rows of 2-12 warps, each
+                 run twice bit for bit; the
                  segment-masked flash kernels at BERT's (32, 16, 512, 64)
                  with ragged padding, causal, and whole masked rows,
                  at sq != sk with sk off the backward's 128-key tile
@@ -82,7 +92,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  with the bench's ragged prompts (1..128 tokens) and 32
                  new tokens each, driven by `measure_decode`; the
                  kernels' launch counters prove the path ran through
-                 them.
+                 them; one profiled window of pure decode steps: wall
+                 and device ms a step, flash-decode's share.
   4. churn       8 ragged requests through a 4-slot engine of the same
                  model equal, bitwise, the same 8 decoded one at a time;
                  one decode step with the kernels agrees with the same
@@ -119,7 +130,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  finite and falls, no step overflows, the launch counters
                  prove every step ran 53 channel sums, one cross-entropy
                  forward and backward and one SGD, with no host sync;
-                 img/s, peak memory and one profiled step.  One step
+                 img/s, peak memory and one profiled step, with the
+                 channel sums' device ms in it beside the bound of their
+                 53 inputs' bytes.  One step
                  through the kernels agrees with the same step through
                  the plain versions (full width, batch 8).
   8. dense       GPT-350M's default dense-attention step at full width
@@ -209,7 +222,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  kernel at the MLP leg's four fp32 layers, its GEMV
                  kernel at the N = 1 layer (fp32 and bf16) and its
                  mma.sync kernel at one shape it still takes, each with
-                 its plan, beside its bound and torch.addmm.
+                 its plan, beside its bound and torch.addmm; the
+                 LayerNorm backward at GPT's and BERT's rows beside
+                 F.layer_norm's backward; flash-decode with a cold and a
+                 warm L2, by slot length (0, 1, 256) and at the long
+                 case, beside SDPA.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -225,6 +242,7 @@ any result.
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -298,11 +316,40 @@ def flash_decode_case(torch, rng, *, n_slots, hkv, G, q_len, d, page,
     return q, k, v, tbl, lens
 
 
-def check_flash_decode(torch, fd, case, dtype):
+def decode_main_case(torch, rng):
+    """The serving path's shape: 64 slots, 16 heads of 64, page 128, 2
+    pages per slot, a 65-page pool; lengths ragged with 0, mid-page and
+    page-aligned entries."""
+    lengths = [0, 1, 5, 63, 127, 128, 129, 200, 255, 256, 0, 128]
+    gl = torch.Generator().manual_seed(7)
+    lengths += torch.randint(0, 257, (64 - len(lengths),),
+                             generator=gl).tolist()
+    return flash_decode_case(
+        torch, rng, n_slots=64, hkv=16, G=1, q_len=1, d=64, page=128,
+        max_pages=2, n_pages=65, lengths=lengths, dtype=torch.bfloat16)
+
+
+def decode_long_case(torch, rng):
+    """Few slots of long context, where the plan splits a slot's pages
+    among a cluster's blocks: 4 slots x 16 heads of 64 at 4096 keys each
+    (32 pages of 128), a 129-page pool."""
+    return flash_decode_case(
+        torch, rng, n_slots=4, hkv=16, G=1, q_len=1, d=64, page=128,
+        max_pages=32, n_pages=129, lengths=[4096] * 4, dtype=torch.bfloat16)
+
+
+def check_flash_decode(torch, fd, case, dtype, hp=None):
+    """The kernel (heads_per_step `hp`, or the plan's) against
+    `paged_attention_reference`, and a second run for the same bits.
+    Returns the largest absolute error."""
     q, k, v, tbl, lens = case
-    out = fd.flash_decode_cuda(q, k, v, tbl, lens, 1.0 / math.sqrt(q.shape[3]))
+    sc = 1.0 / math.sqrt(q.shape[3])
+    out = fd.flash_decode_cuda(q, k, v, tbl, lens, sc, hp)
+    again = fd.flash_decode_cuda(q, k, v, tbl, lens, sc, hp)
     ref = fd.paged_attention_reference(q, k, v, tbl, lens)
     torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          f"flash_decode {fd.flash_decode_cuda.last_plan}: two runs differ")
     check(out.shape == ref.shape and out.dtype == ref.dtype,
           f"flash_decode shape/dtype {out.shape}/{out.dtype}")
     check(bool(torch.isfinite(out.float()).all()), "flash_decode non-finite")
@@ -353,8 +400,9 @@ def check_layer_norm(torch, ln, rng, rows, hidden, dtype, rms=False):
     return err.max().item()
 
 def ulp(torch, ref, dtype):
-    """One ulp of `dtype` at |ref| (bf16: 8 significand bits, fp32: 24)."""
-    bits = 8 if dtype == torch.bfloat16 else 24
+    """One ulp of `dtype` at |ref| (bf16: 8 significand bits, fp16: 11,
+    fp32: 24)."""
+    bits = {torch.bfloat16: 8, torch.float16: 11}.get(dtype, 24)
     return torch.ldexp(torch.ones_like(ref),
                        torch.frexp(ref.abs()).exponent - bits)
 
@@ -527,34 +575,54 @@ def bwd_ptxas(fa, log_text):
     return rows, smem, notes
 
 
-def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype):
+def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype, rms=False,
+                         weight=True, offset=0):
     """The backward kernel against `norm_bwd_reference` on the forward
-    kernel's mean/rstd.  Tolerance: dx one ulp of its dtype plus 1e-5 of
-    its largest magnitude (fp32 sums in another order before the one
-    rounding); dw, db (fp32 sums over rows) 1e-5 of their largest."""
+    kernel's mean/rstd, run twice for the same bits.  `offset` elements
+    into a buffer places g off 16 bytes (the kernel's narrow loads).
+    Tolerance: dx one ulp of its dtype plus 1e-5 of its largest
+    magnitude (fp32 sums in another order before the one rounding); dw,
+    db (fp32 sums over rows) 1e-5 of their largest.  Returns the kernel's
+    plan and its largest dx error."""
     dev = "cuda"
     x = (torch.randn((rows, hidden), generator=rng, device=dev) * 2
          + 0.5).to(dtype)
     w = (torch.randn((hidden,), generator=rng, device=dev) * 0.5
          + 1).to(dtype)
-    b = (torch.randn((hidden,), generator=rng, device=dev) * 0.1).to(dtype)
+    b = (None if rms else
+         (torch.randn((hidden,), generator=rng, device=dev) * 0.1).to(dtype))
     gy = torch.randn((rows, hidden), generator=rng, device=dev).to(dtype)
-    _, mean, rstd = ln.norm_fwd_triton(x, w, b, 1e-5, False)
-    dx, dw, db = ln.norm_bwd_triton(gy, x, mean, rstd, w, False)
-    dxr, dwr, dbr = ln.norm_bwd_reference(gy, x, mean, rstd, w, False)
+    if offset:
+        buf = torch.empty(rows * hidden + offset, dtype=dtype, device=dev)
+        buf[offset:].copy_(gy.reshape(-1))
+        gy = buf[offset:].view(rows, hidden)
+    _, mean, rstd = ln.norm_fwd_triton(x, w, b, 1e-5, rms)
+    w = w if weight else None
+    dx, dw, db = ln.norm_bwd_cuda(gy, x, mean, rstd, w, rms)
+    dx2, dw2, db2 = ln.norm_bwd_cuda(gy, x, mean, rstd, w, rms)
+    dxr, dwr, dbr = ln.norm_bwd_reference(gy, x, mean, rstd, w, rms)
     torch.cuda.synchronize()
-    check(dx.dtype == dtype and dw.dtype == db.dtype == torch.float32,
-          "layer_norm bwd dtypes")
+    plan = ln.bwd_plan(rows, hidden, x.element_size(),
+                       ln._sm_count(x.device), ln._align(gy, x, dx))
+    what = (f"layer_norm bwd ({rows},{hidden}) {dtype} rms={rms} "
+            f"weight={weight} plan {tuple(plan)}")
+    check(torch.equal(dx, dx2) and (not weight or (
+        torch.equal(dw, dw2) and torch.equal(db, db2))),
+          f"{what}: two runs differ")
+    check(dx.dtype == dtype, f"{what}: dx dtype {dx.dtype}")
     err = (dx.float() - dxr.float()).abs()
     tol = ulp(torch, dxr.float(), dtype) + 1e-5 * dxr.float().abs().max()
     check(bool((err <= tol).all()),
-          f"layer_norm bwd dx ({rows},{hidden}) {dtype}: max err "
-          f"{err.max().item():.3e}")
-    for name, got, ref in (("dw", dw, dwr), ("db", db, dbr)):
-        e = (got - ref).abs().max().item()
-        check(e <= 1e-5 * ref.abs().max().item(),
-              f"layer_norm bwd {name} ({rows},{hidden}): max err {e:.3e}")
-    return err.max().item()
+          f"{what}: dx max err {err.max().item():.3e}")
+    if weight:
+        check(dw.dtype == db.dtype == torch.float32, f"{what}: dw, db dtype")
+        for name, got, ref in (("dw", dw, dwr), ("db", db, dbr)):
+            e = (got - ref).abs().max().item()
+            check(e <= 1e-5 * ref.abs().max().item(),
+                  f"{what}: {name} max err {e:.3e}")
+    else:
+        check(dw is None and db is None, f"{what}: dw, db without weight")
+    return plan, err.max().item()
 
 
 def bert_large_layout(torch):
@@ -971,6 +1039,29 @@ def check_lamb_phase2_flat(torch, ok, rng, spec, n, dtype):
     return err
 
 
+def small_kernel_ptxas(lines):
+    """{kernel (demangled enough to read): registers} and the spill lines
+    that are not zero, from ptxas' report lines of one library."""
+    regs, spills, name = {}, [], None
+    for line in lines:
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else line
+            for key in ("ln_bwd_finish_kernel", "ln_bwd_kernel",
+                        "decode_kernel"):
+                if key in name:
+                    tail = name.split(key, 1)[1]
+                    end = tail.find("EEv")
+                    name = key + (re.sub(r"L[ib](\d+)E?", r",\1",
+                                         tail[:end]) if end > 0 else "")
+                    break
+        elif name and "Used " in line:
+            regs[name] = int(line.split("Used ")[1].split()[0])
+        elif name and "spill" in line and not line.startswith(
+                "0 bytes stack frame, 0 bytes spill"):
+            spills.append(f"{name}: {line}")
+    return regs, spills
+
+
 def fused_dense_ptxas(lines):
     """From ptxas' report on csrc/fused_dense.cu (its "Compiling entry",
     "Used" and spill lines): {family: [registers of each kernel]} with
@@ -1223,8 +1314,10 @@ def profile_decode(torch, np, build_flagship_engine, params, steps=4):
                               + e.self_device_time_total)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    decode = sum(t for k, t in kernels.items() if "decode_kernel" in k)
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_ms_per_step": busy / steps / 1e3,
+            "flash_decode_ms_per_step": decode / steps / 1e3,
             "device_busy_share": busy / wall_us,
             "top_kernels_ms_per_step": {k[:80]: v / steps / 1e3
                                         for k, v in top}}
@@ -1241,7 +1334,7 @@ def training_kernels(fa, ln, ok):
             "flash_attention_bwd_packed": fa.flash_bwd_packed_cuda,
             "elementwise": ok.elementwise_triton,
             "layer_norm_fwd": ln.norm_fwd_triton,
-            "layer_norm_bwd": ln.norm_bwd_triton,
+            "layer_norm_bwd": ln.norm_bwd_cuda,
             "softmax_fwd": sm.softmax_fwd_triton,
             "softmax_bwd": sm.softmax_bwd_triton,
             "adam": ok.adam_flat_triton,
@@ -1477,8 +1570,7 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
              "flash_attention_fwd_packed":
                  lambda k: "flash_fwd_packed_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
+             "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adam": lambda k: k == "_adam_kernel"}
     if split:      # the dk/dv pass is flash_bwd_kernel<D, SEG, false>
         names.update(
@@ -1738,8 +1830,7 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5, heads_per_step=None):
                   "softmax_bwd": lambda k: k == "_softmax_bwd_kernel"})
     names = dict(attention,
                  layer_norm_fwd=lambda k: k == "_fwd_kernel",
-                 layer_norm_bwd=lambda k: k in ("_bwd_kernel",
-                                                "_bwd_finish_kernel"),
+                 layer_norm_bwd=lambda k: "ln_bwd_" in k,
                  lamb_phase1_seg=lambda k: k == "_lamb_phase1_kernel",
                  rows_sumsq_seg=lambda k: k in ("_sumsq_items_kernel",
                                                 "_sumsq_segments_kernel"),
@@ -1957,8 +2048,35 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
     if larc:
         names["rows_sumsq_seg"] = lambda k: k in ("_sumsq_items_kernel",
                                                   "_sumsq_segments_kernel")
-    carry, profile_line = profile_step(torch, carry_step, carry, (batch,),
-                                       names)
+    # the channel sums' shapes in the profiled step, for their bound
+    sums_in = []
+    channel_sums = wf.channel_sums_triton
+
+    def record_sums(x2):
+        sums_in.append((x2.numel() * x2.element_size(), x2.shape[1]))
+        return channel_sums(x2)
+
+    # the kernel's body counts its launches on the module global: the
+    # recorder carries the count while it stands in
+    record_sums.launches = channel_sums.launches
+    wf.channel_sums_triton = record_sums
+    try:
+        carry, profile_line = profile_step(torch, carry_step, carry,
+                                           (batch,), names)
+    finally:
+        wf.channel_sums_triton = channel_sums
+        channel_sums.launches = record_sums.launches
+    # x read once, the fp32 sums and sums of squares written once
+    sums_bytes = sum(b + 2 * 4 * c for b, c in sums_in)
+    sums_ms = profile_line["kernels_ms"]["channel_sums"]
+    sums_bound = 1e3 * sums_bytes / HBM_BYTES_PER_S
+    channel_sums_step = {"launches": len(sums_in), "device_ms": sums_ms,
+                         "bound_ms": sums_bound,
+                         "share_of_bound": sums_bound / sums_ms}
+    log(f"{what} channel sums in one profiled step: "
+        + json.dumps(channel_sums_step))
+    check(len(sums_in) == per_step["channel_sums"],
+          f"{what}: {len(sums_in)} channel sums in the profiled step")
     spec = opt.spec
     del carry, step, opt
     torch.cuda.empty_cache()
@@ -1975,7 +2093,7 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
         "img_per_s": RESNET_BATCH * steps / window_s,
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
         "launches": counts, "launches_per_step": per_step,
-        "profile": profile_line}
+        "channel_sums_step": channel_sums_step, "profile": profile_line}
     vs_plain = None if larc else compare_resnet_step(torch, xe, wf, ok,
                                                      batch=8)
     torch.backends.cudnn.benchmark = bench_was
@@ -2189,8 +2307,7 @@ def dense_phase(torch, fa, ln, ok):
     names = {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
              "softmax_bwd": lambda k: k == "_softmax_bwd_kernel",
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
+             "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adam_seg": lambda k: k == "_adam_seg_kernel"}
     gpt, gpt_vs_plain = gpt_train_phase(
         torch, fa, ln, ok, "dense GPT", False, make_adam,
@@ -2497,8 +2614,7 @@ def adagrad_phase(torch, fa, ln, ok):
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
+             "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adagrad": lambda k: k == "_adagrad_kernel"}
     return gpt_train_phase(
         torch, fa, ln, ok, "adagrad GPT", True,
@@ -2546,8 +2662,7 @@ def novograd_phase(torch, fa, ln, ok, warmup=2, steps=3):
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
              "layer_norm_fwd": lambda k: k == "_fwd_kernel",
-             "layer_norm_bwd": lambda k: k in ("_bwd_kernel",
-                                               "_bwd_finish_kernel"),
+             "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "rows_sumsq_seg": lambda k: k in ("_sumsq_items_kernel",
                                                "_sumsq_segments_kernel")}
     state, profile_line = profile_step(torch, step, state, (tokens, labels),
@@ -3311,6 +3426,45 @@ def table_slice8_kernels(torch, fa, ok, rng, errs, slice8):
     return rows
 
 
+def decode_times(torch, fd, case, flush):
+    """Flash-decode on `case`: the kernel with a cold L2 (`flush` before
+    each launch) and a warm one, its plain version, SDPA over the cache
+    gathered densely beforehand (the gather not timed) with the same
+    position mask, the bound (each visible K/V row read once, q read and
+    out written, the table and lengths; q.k and p.v at the fp32 rate,
+    far under the bytes) and the plan."""
+    q, k, v, tbl, lens = case
+    sc = 1.0 / math.sqrt(q.shape[3])
+    ms = time_ms(torch, lambda: fd.flash_decode_cuda(q, k, v, tbl, lens, sc),
+                 flush=flush)
+    plan = list(fd.flash_decode_cuda.last_plan)
+    warm = time_ms(torch, lambda: fd.flash_decode_cuda(q, k, v, tbl, lens,
+                                                       sc))
+    plain = time_ms(torch, lambda: fd.paged_attention_reference(
+        q, k, v, tbl, lens, softmax_scale=sc), flush=flush, n=20)
+    n_slots, hkv, d = q.shape[0], k.shape[0], q.shape[3]
+    kd = k[:, tbl.long()].permute(1, 0, 2, 3, 4).reshape(n_slots, hkv, -1, d)
+    vd = v[:, tbl.long()].permute(1, 0, 2, 3, 4).reshape(n_slots, hkv, -1, d)
+    qd = q.permute(0, 2, 1, 3)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, None, None, :]
+            < lens[:, None, None, None])
+    lib = time_ms(torch, lambda: torch.nn.functional
+                  .scaled_dot_product_attention(qd, kd, vd, attn_mask=mask),
+                  flush=flush)
+    vis_keys = sum(min(int(n), tbl.shape[1] * k.shape[2])
+                   for n in lens.tolist())
+    el = q.element_size()
+    bytes_ = (2 * vis_keys * hkv * d * el           # K and V rows read
+              + 2 * q.numel() * el                   # q in, out
+              + tbl.numel() * 4 + lens.numel() * 4)
+    ops = 4 * vis_keys * hkv * d                     # q.k and p.v
+    bound = 1e3 * max(bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS)
+    return {"ms": ms, "warm_l2_ms": warm, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "plan": plan,
+            "shape": f"q {tuple(q.shape)} {q.dtype}, pages "
+                     f"{tuple(k.shape)}, table {tuple(tbl.shape)}"}
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -3653,28 +3807,46 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
     del qkv, q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
 
-    # LayerNorm backward at the step's rows (batch 12 x seq 1024)
-    rows_, hid = 12288, 1024
-    x = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
-    w = torch.randn((hid,), generator=rng, device=dev).to(bf16)
-    bb = torch.randn((hid,), generator=rng, device=dev).to(bf16)
-    gy = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
-    _, mean, rstd = ln.norm_fwd_triton(x, w, bb, 1e-5, False)
-    lnb_ms = time_ms(torch, lambda: ln.norm_bwd_triton(
-        gy, x, mean, rstd, w, False))
-    lnb_plain = time_ms(torch, lambda: ln.norm_bwd_reference(
-        gy, x, mean, rstd, w, False))
-    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, bb))
-    out = F.layer_norm(xg, (hid,), wg, bg, 1e-5)
-    lnb_lib = time_ms(torch, lambda: torch.autograd.grad(
-        out, (xg, wg, bg), gy, retain_graph=True))
-    del out, xg, wg, bg
-    row("layer_norm_bwd", "triton", "apex_tpu_torch/ops/layer_norm.py",
-        "apex_tpu/ops/layer_norm.py:79", lnb_ms, lnb_plain, lnb_lib,
-        "torch.nn.functional.layer_norm backward (autograd)",
-        3 * x.numel() * el + 2 * rows_ * 4 + hid * el + 2 * hid * 4,
-        12 * x.numel(), "g, x (12288,1024) bf16; dw, db fp32")
-    del x, w, bb, gy, mean, rstd
+    # LayerNorm backward at the GPT step's rows (batch 12 x seq 1024) and
+    # BERT's (batch 32 x seq 512)
+    def lnb_times(rows_, hid=1024, plain=True):
+        x = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
+        w = torch.randn((hid,), generator=rng, device=dev).to(bf16)
+        bb = torch.randn((hid,), generator=rng, device=dev).to(bf16)
+        gy = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
+        _, mean, rstd = ln.norm_fwd_triton(x, w, bb, 1e-5, False)
+        ms = time_ms(torch, lambda: ln.norm_bwd_cuda(
+            gy, x, mean, rstd, w, False))
+        plain_ms = time_ms(torch, lambda: ln.norm_bwd_reference(
+            gy, x, mean, rstd, w, False)) if plain else None
+        xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, w, bb))
+        out = F.layer_norm(xg, (hid,), wg, bg, 1e-5)
+        lib = time_ms(torch, lambda: torch.autograd.grad(
+            out, (xg, wg, bg), gy, retain_graph=True))
+        # g, x read and dx written once, mean and rstd, w, fp32 dw and db
+        bytes_ = 3 * x.numel() * el + 2 * rows_ * 4 + hid * el + 2 * hid * 4
+        return ms, plain_ms, lib, bytes_, 12 * x.numel()
+
+    lnb = lnb_times(12288)
+    row("layer_norm_bwd", "cuda", "apex_tpu_torch/csrc/layer_norm.cu",
+        "apex_tpu/ops/layer_norm.py:79", *lnb[:3],
+        "torch.nn.functional.layer_norm backward (autograd)", *lnb[3:],
+        "g, x (12288,1024) bf16; dw, db fp32")
+    bert_ms, _, bert_lib, bert_bytes, bert_ops = lnb_times(16384,
+                                                           plain=False)
+    rows[-1].update({
+        "ms_at_bert_shape": bert_ms, "library_ms_at_bert_shape": bert_lib,
+        "bound_ms_at_bert_shape": 1e3 * max(bert_bytes / HBM_BYTES_PER_S,
+                                            bert_ops / FP32_FLOPS),
+        "bert_shape": "g, x (16384,1024) bf16",
+        "plan": list(ln.bwd_plan(12288, 1024, 2, ln._sm_count(
+            torch.device("cuda", torch.cuda.current_device()))))})
+    log("layer_norm bwd: " + json.dumps(
+        {k: rows[-1][k] for k in ("ms", "bound_ms", "library_ms",
+                                  "ms_at_bert_shape",
+                                  "bound_ms_at_bert_shape",
+                                  "library_ms_at_bert_shape", "plan")}))
+    torch.cuda.empty_cache()
 
     # Adam over the flat GPT-350M buffers (bf16 state and grads)
     n = 354_877_440
@@ -3749,7 +3921,8 @@ def run_phases():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    sources = ["flash_decode", "flash_attention", "fused_dense"]
+    sources = ["flash_decode", "flash_attention", "fused_dense",
+               "layer_norm"]
     csrc.build(sources)                 # one nvcc per source, in parallel
     log(f"nvcc build {time.perf_counter() - t0:.1f}s")
     for name in sources:
@@ -3779,6 +3952,14 @@ def run_phases():
                       f"fused dense: the fp32 or GEMV kernel spills: "
                       f"{spills}")
                 continue
+            if name in ("layer_norm", "flash_decode"):
+                # this slice's kernels: a summary line, and no spills
+                regs, spills = small_kernel_ptxas(lines)
+                log(f"ptxas {name}: registers by kernel {regs}; spills: "
+                    f"{spills or 'none'}")
+                check(regs and not spills, f"{name}: a kernel spills: "
+                      f"{spills}")
+                continue
             for line in lines:
                 log(f"ptxas {name}: " + line[:160])
             if name == "flash_attention":
@@ -3805,32 +3986,43 @@ def run_phases():
     rng = torch.Generator(device="cuda").manual_seed(1234)
     errs = {}
     bf16, f32 = torch.bfloat16, torch.float32
-    # the serving path's shape: 64 slots, 16 heads of 64, page 128,
-    # 2 pages per slot, a 65-page pool; lengths ragged with 0,
-    # mid-page and page-aligned entries
-    main_lengths = [0, 1, 5, 63, 127, 128, 129, 200, 255, 256, 0, 128]
-    gl = torch.Generator().manual_seed(7)
-    main_lengths += torch.randint(0, 257, (64 - len(main_lengths),),
-                                  generator=gl).tolist()
-    fd_main = flash_decode_case(
-        torch, rng, n_slots=64, hkv=16, G=1, q_len=1, d=64, page=128,
-        max_pages=2, n_pages=65, lengths=main_lengths, dtype=bf16)
+    fd_main = decode_main_case(torch, rng)
     errs["flash_decode"] = check_flash_decode(torch, fd, fd_main, bf16)
+    main_plan = fd.flash_decode_cuda.last_plan
+    check(main_plan.split == 1 and main_plan.row_tile == 1,
+          f"flash_decode main shape plan {main_plan}")
+    # heads_per_step 1, 2 and 4 give the plan's bits
+    q, k, v, tbl, lens = fd_main
+    want = fd.flash_decode_cuda(q, k, v, tbl, lens, 0.125)
+    for hp in (1, 2, 4):
+        got = fd.flash_decode_cuda(q, k, v, tbl, lens, 0.125, hp)
+        check(fd.flash_decode_cuda.last_plan.heads_per_block == hp
+              and torch.equal(got, want),
+              f"flash_decode heads_per_step={hp}: other bits")
+    log(f"flash_decode main shape: plan {tuple(main_plan)}; "
+        f"heads_per_step 1, 2, 4 bit for bit")
+    fd_long = decode_long_case(torch, rng)
+    e = check_flash_decode(torch, fd, fd_long, bf16)
+    long_plan = fd.flash_decode_cuda.last_plan
+    check(long_plan.split > 1, f"flash_decode long case plan {long_plan}")
+    log(f"flash_decode long case (4 slots x 16 heads x 4096 keys) bf16: "
+        f"plan {tuple(long_plan)}, max err {e:.3e}")
     for dtype in (f32, bf16):
         for d in (64, 128):
             case = flash_decode_case(
                 torch, rng, n_slots=4, hkv=2, G=2, q_len=2, d=d, page=16,
                 max_pages=4, n_pages=17, lengths=[0, 5, 32, 64], dtype=dtype)
             e = check_flash_decode(torch, fd, case, dtype)
-            log(f"flash_decode GQA G=2 q_len=2 d={d} {dtype}: "
-                f"max err {e:.3e}")
+            log(f"flash_decode GQA G=2 q_len=2 d={d} {dtype}: plan "
+                f"{tuple(fd.flash_decode_cuda.last_plan)}, max err {e:.3e}")
     # 16 query rows per kv head (two row tiles), page 8, and a length
     # past the table's capacity (40 positions)
     case = flash_decode_case(
         torch, rng, n_slots=5, hkv=2, G=8, q_len=2, d=64, page=8,
         max_pages=5, n_pages=26, lengths=[0, 3, 17, 40, 45], dtype=f32)
     e = check_flash_decode(torch, fd, case, f32)
-    log(f"flash_decode GQA G=8 q_len=2 page=8 float32: max err {e:.3e}")
+    log(f"flash_decode GQA G=8 q_len=2 page=8 float32: plan "
+        f"{tuple(fd.flash_decode_cuda.last_plan)}, max err {e:.3e}")
     log(f"flash_decode main shape bf16: max err {errs['flash_decode']:.3e}")
     ln_errs = []
     # (12288, 1024): the training step's rows (batch 12 x seq 1024)
@@ -3871,11 +4063,23 @@ def run_phases():
                           causal=causal)
         log(f"dq pass sq={sq_} sk={sk_} d={d_} causal={causal}: max err "
             f"{e:.3e} vs its plain version, two runs bit for bit")
-    errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
-                                                  1024, bf16)
-    for rows, hidden, dtype in ((77, 1000, f32), (5, 1024, bf16)):
-        e = check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype)
-        log(f"layer_norm bwd ({rows},{hidden}) {dtype}: max dx err {e:.3e}")
+    # the GPT and BERT steps' rows, ragged and tiny ones, fp16, RMSNorm,
+    # no weight, a g 2 bytes off 16 (4-byte loads), an odd fp16 width
+    # (2-byte loads), rows of 2-16 warps
+    _, errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
+                                                     1024, bf16)
+    f16 = torch.float16
+    for rows, hidden, dtype, kw in (
+            (16384, 1024, bf16, {}), (77, 1000, f32, {}), (5, 1024, bf16, {}),
+            (64, 1024, f16, {}), (12288, 1024, bf16, {"rms": True}),
+            (12288, 1024, bf16, {"weight": False}),
+            (77, 1000, f32, {"offset": 1}), (77, 1001, f16, {}),
+            (33, 2048, f32, {}), (9, 4096, bf16, {"rms": True}),
+            (3, 16384, bf16, {}), (3, 16384, f32, {})):
+        plan, e = check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype,
+                                       **kw)
+        log(f"layer_norm bwd ({rows},{hidden}) {dtype} {kw}: plan "
+            f"{tuple(plan)}, max dx err {e:.3e}, two runs bit for bit")
     n_flat = 354_877_440             # GPT-350M, FLAT_TILE-padded
     errs["adam"] = check_adam(torch, ok, rng, n_flat, bf16, 0.0)
     e = check_adam(torch, ok, rng, 1_000_003, f32, 0.01)
@@ -4211,10 +4415,10 @@ def run_phases():
     def flush():
         torch.sum(flush_src, dim=0, dtype=torch.int64, out=flush_sink)
 
-    fd_ms = time_ms(torch, lambda: fd.flash_decode_cuda(
-        q, k, v, tbl, lens, sc), flush=flush)
-    fd_warm = time_ms(torch, lambda: fd.flash_decode_cuda(
-        q, k, v, tbl, lens, sc))
+    fd_t = decode_times(torch, fd, fd_main, flush)
+    fd_ms, fd_warm, fd_plain, fd_lib, fd_bound = (
+        fd_t[k_] for k_ in ("ms", "warm_l2_ms", "plain_ms", "library_ms",
+                            "bound_ms"))
     # how the kernel's time grows with the keys it reads: every slot at
     # length 0 (launch and exit), 1 (one key: the latency chain alone)
     # and 256 (both pages)
@@ -4224,28 +4428,9 @@ def run_phases():
         scaling[f"len{n}_ms"] = time_ms(torch, lambda: fd.flash_decode_cuda(
             q, k, v, tbl, ln_n, sc), flush=flush)
     log("flash_decode time by slot length (cold L2) " + json.dumps(scaling))
-    fd_plain = time_ms(torch, lambda: fd.paged_attention_reference(
-        q, k, v, tbl, lens, softmax_scale=sc), flush=flush)
-    # library yardstick: SDPA over the cache gathered densely beforehand
-    # (the gather is not timed) with the same position mask
-    n_slots, hkv, d = q.shape[0], k.shape[0], q.shape[3]
-    kd = k[:, tbl.long()].permute(1, 0, 2, 3, 4).reshape(n_slots, hkv, -1, d)
-    vd = v[:, tbl.long()].permute(1, 0, 2, 3, 4).reshape(n_slots, hkv, -1, d)
-    qd = q.permute(0, 2, 1, 3)
-    mask = (torch.arange(kd.shape[2], device="cuda")[None, None, None, :]
-            < lens[:, None, None, None])
-    fd_lib = time_ms(torch, lambda: torch.nn.functional
-                     .scaled_dot_product_attention(qd, kd, vd,
-                                                   attn_mask=mask),
-                     flush=flush)
-    vis_keys = sum(min(int(n), tbl.shape[1] * k.shape[2])
-                   for n in lens.tolist())
-    el = q.element_size()
-    fd_bytes = (2 * vis_keys * hkv * d * el           # K and V rows read
-                + 2 * q.numel() * el                   # q in, out
-                + tbl.numel() * 4 + lens.numel() * 4)
-    fd_ops = 4 * vis_keys * hkv * d                    # q.k and p.v
-    fd_bound = 1e3 * max(fd_bytes / HBM_BYTES_PER_S, fd_ops / FP32_FLOPS)
+    fd_long_t = decode_times(torch, fd, fd_long, flush)
+    log("flash_decode: main shape " + json.dumps(fd_t) + "; long case "
+        + json.dumps(fd_long_t))
 
     x = torch.randn((64, 1024), generator=rng, device="cuda").to(bf16)
     w = torch.randn((1024,), generator=rng, device="cuda").to(bf16)
@@ -4289,6 +4474,8 @@ def run_phases():
          "bound_ms": fd_bound, "bound_by": "bytes", "library_ms": fd_lib,
          "library": "scaled_dot_product_attention on a pre-gathered cache",
          "shape": "q (64,1,16,64) bf16, pages (16,65,128,64), table (64,2)",
+         "plan": fd_t["plan"], "by_slot_length": scaling,
+         "long_case": fd_long_t,
          "l2": "flushed (read) before each launch"},
         {"name": "layer_norm_fwd", "route": "triton",
          "source": "apex_tpu_torch/ops/layer_norm.py",

@@ -2,7 +2,7 @@
 """Time variants of the port's wgmma + TMA kernels on one GPU.
 
     python3 scripts/port_hopper_ablation.py [--backward | --dq | --softmax |
-                                             --gemm32]
+                                             --gemm32 | --lnbwd | --decode]
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
 they stand and variants of them through the `-D` overrides the two
@@ -127,10 +127,58 @@ causal and BERT's (32, 16, 512, 512) with the padding masks
 code in both), in turns, each checked against
 `softmax_fwd_reference`.
 
+`--lnbwd` checks and times the LayerNorm backward (`csrc/layer_norm.cu`)
+at GPT-350M's and BERT-Large's rows, (12288, 1024) and (16384, 1024)
+bf16 with a weight, beside `F.layer_norm`'s backward, each checked
+variant against `norm_bwd_reference` first (chip_smoke's
+`check_layer_norm_bwd`, two runs bit for bit):
+
+    shipped           `ops.layer_norm.bwd_plan`: a warp a row, a 4-slot
+                      ring of bulk copies, a second launch of one block a
+                      4-column slice summing the partial rows; also timed
+                      without a weight (no partial rows, no second launch)
+    grid_barrier      -DAPEX_LNB_FINISH=1: a cooperative launch whose
+                      blocks sum the slices after a grid barrier
+    no_finish         -DAPEX_LNB_FINISH=2: no finishing pass (timed only)
+    early_launch      -DAPEX_LNB_FINISH=3: the second launch as a
+                      programmatic dependent launch
+    two_per_sm        -DAPEX_LNB_TWO=1: two blocks an SM at 128 registers,
+                      pass 2 reading the staged row again, the plan's runs
+                      for twice the SMs and 2 slots
+    no_math           -DAPEX_LNB_MATH=0: the rows stream through the ring,
+                      nothing computed or stored (timed only; also without
+                      a weight)
+    one_row           the shipped build, one ring slot (one row in flight)
+    loads4            the shipped build with 4-byte loads, one row at a time
+    finish32          the shipped build, the finishing pass on 32 blocks
+    torch.add         g + x into dx: the kernel's bytes through one ATen
+                      elementwise kernel (the streaming yardstick)
+
+`--decode` checks and times flash-decode (`csrc/flash_decode.cu`) with a
+cold L2 at the serving case (64 slots x 16 heads of 64, pages of 128,
+lengths 0-256) and the long case (4 slots x 16 heads x 4096 keys), each
+checked variant against `paged_attention_reference` first (chip_smoke's
+`check_flash_decode`, two runs bit for bit), beside SDPA over the cache
+gathered beforehand:
+
+    shipped           `ops.flash_decode.decode_plan`: 4 warps a block, one
+                      bulk copy of K and one of V a page and head
+    cp_async          -DAPEX_FD_BULK=0: 16-byte cp.async by every thread
+                      into the same ring
+    no_math           -DAPEX_FD_MATH=0: the keys stream through, nothing
+                      computed (timed only)
+    eight_warps       -DAPEX_FD_WARPS=8
+    no_split          the shipped build without the long case's split
+    row_tile8         the 8-row tile on one query row
+    two_stages        two ring slots (both pages of a serving slot at once)
+    chunk64           ring slots of 64 keys
+    hp2, hp4, hp8     the plan at heads_per_step 2, 4, 8
+
 The card's name and power limit come first, the times last.
 `--backward` runs the backward's variants alone, `--dq` the dq pass's,
-`--softmax` the softmax forward's, `--gemm32` the fp32 GEMM's.  Fails
-without CUDA.
+`--softmax` the softmax forward's, `--gemm32` the fp32 GEMM's, `--lnbwd`
+the LayerNorm backward's, `--decode` flash-decode's.  Fails without
+CUDA.
 """
 
 from __future__ import annotations
@@ -162,6 +210,28 @@ GEMM32_VARIANTS = {
 }
 # variants that run the shipped build under another plan
 GEMM32_PLANS = ("no_split", "loads4", "tile_128", "all_clusters")
+LNBWD_VARIANTS = {
+    "shipped": [],
+    "grid_barrier": ["-DAPEX_LNB_FINISH=1"],
+    "no_finish": ["-DAPEX_LNB_FINISH=2"],
+    "early_launch": ["-DAPEX_LNB_FINISH=3"],
+    "two_per_sm": ["-DAPEX_LNB_TWO=1"],
+    "no_math": ["-DAPEX_LNB_MATH=0"],
+}
+# the shipped build's plan changed: (field, value) pairs
+LNBWD_PLANS = {"one_row": {"stages": 1},
+               "loads4": {"stages": 1, "load_width": 4},
+               "finish32": {"finish_blocks": 32}}
+DECODE_VARIANTS = {
+    "shipped": [],
+    "cp_async": ["-DAPEX_FD_BULK=0"],
+    "no_math": ["-DAPEX_FD_MATH=0"],
+    "eight_warps": ["-DAPEX_FD_WARPS=8"],
+}
+DECODE_PLANS = {"no_split": {"split": 1}, "row_tile8": {"row_tile": 8},
+                "two_stages": {"stages": 2}, "chunk64": {"chunk": 64}}
+# the shipped build and plan at a caller's heads_per_step
+DECODE_HPS = {"hp2": 2, "hp4": 4, "hp8": 8}
 FLASH_VARIANTS = {
     "shipped": [],
     "two_warpgroups": ["-DAPEX_FWD_WGS64=2"],
@@ -191,9 +261,14 @@ DQ_VARIANTS = {
     "no_dq_store": ["-DAPEX_DQ_STORE=0"],
 }
 # variants whose output is not the function (timed only)
-UNCHECKED = ("no_math", "no_o_store", "no_dq_store", "no_reads")
+UNCHECKED = ("no_math", "no_o_store", "no_dq_store", "no_reads",
+             "no_finish")
+# the cases the LayerNorm backward's variants are timed at: GPT-350M's
+# step rows (batch 12 x seq 1024) and BERT-Large's (32 x 512), hidden 1024
+LNBWD_ROWS = (12288, 16384)
 # every -D override above, for the check that the sources declare them
-OVERRIDES = {"fused_dense": {**GEMM_VARIANTS, **{
+OVERRIDES = {"layer_norm": LNBWD_VARIANTS, "flash_decode": DECODE_VARIANTS,
+             "fused_dense": {**GEMM_VARIANTS, **{
                  f"f32_{k}": v for k, v in GEMM32_VARIANTS.items()}},
              "flash_attention": {**FLASH_VARIANTS, **{
                  f"bwd_{k}": v for k, v in BWD_VARIANTS.items()}, **{
@@ -449,6 +524,152 @@ def gemm32(cs, torch, fdn, rng, libs):
               flush=True)
 
 
+def layer_norm_bwd(cs, torch, ln, rng, libs):
+    """The LayerNorm backward's builds and plans (module docstring): each
+    checked variant against `norm_bwd_reference` (chip_smoke's
+    `check_layer_norm_bwd`: GPT's rows in bf16, a ragged fp32 case, two
+    runs bit for bit), then all timed in turns at `LNBWD_ROWS` beside
+    `F.layer_norm`'s backward."""
+    libs = {var: ln._bind(lib) for var, lib in libs.items()}
+    runs = {var: (lib, {}) for var, lib in libs.items()}
+    runs.update({var: (libs["shipped"], ch)
+                 for var, ch in LNBWD_PLANS.items()})
+    launch = ln._launch
+    data = []
+    for rows in LNBWD_ROWS:
+        x = (torch.randn((rows, 1024), generator=rng, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        w = (torch.randn((1024,), generator=rng, device="cuda") * 0.5
+             + 1).to(torch.bfloat16)
+        gy = torch.randn((rows, 1024), generator=rng,
+                         device="cuda").to(torch.bfloat16)
+        _, mean, rstd = ln.norm_fwd_reference(x, w, None)
+        dx = torch.empty_like(x)
+        data.append((x, w, gy, mean, rstd, dx,
+                     torch.empty((2, 1024), device="cuda"), ""))
+        # no weight: no dw, db, so no partial rows and no finishing pass
+        data.append((x, None, gy, mean, rstd, dx, None, " no weight"))
+
+    def two_per_sm(plan, g2, x2, *a):
+        """The plan for two blocks an SM: runs for twice the SMs, two
+        ring slots a row group."""
+        rows, hidden = x2.shape
+        return ln.bwd_plan(rows, hidden, x2.element_size(),
+                           2 * ln._sm_count(x2.device),
+                           ln._align(g2, x2))._replace(stages=2)
+
+    def use(var):
+        lib, change = runs[var]
+        ln._LIB = lib
+        if var == "two_per_sm":
+            ln._launch = (lambda plan, g2, x2, *a: launch(
+                two_per_sm(plan, g2, x2), g2, x2, *a))
+        else:
+            ln._launch = (lambda plan, *a: launch(plan._replace(**change),
+                                                  *a))
+
+    try:
+        for var in runs:
+            if var in UNCHECKED:
+                continue
+            use(var)
+            errs = [cs.check_layer_norm_bwd(torch, ln, rng, r, h, dt)[1]
+                    for r, h, dt in ((12288, 1024, torch.bfloat16),
+                                     (77, 1000, torch.float32))]
+            print(f"layer_norm bwd {var}: max dx err {errs} (GPT rows "
+                  f"bf16, (77, 1000) fp32), two runs bit for bit",
+                  flush=True)
+        order = list(runs) + ["F.layer_norm", "torch.add"]
+        times = {}
+        for var in order + list(reversed(order)):
+            for x, w, gy, mean, rstd, dx, dwdb, label in data:
+                case = f"({x.shape[0]}, 1024){label}"
+                if label and var not in ("shipped", "no_math"):
+                    continue
+                if var == "torch.add":
+                    # the kernel's bytes (g and x read, dx written) through
+                    # one ATen elementwise kernel: what streaming costs
+                    fn = (lambda gy=gy, x=x, dx=dx: torch.add(gy, x, out=dx))
+                elif var == "F.layer_norm":
+                    xg, wg, bg = (t.detach().requires_grad_(True) for t in
+                                  (x, w, torch.zeros_like(w)))
+                    out = torch.nn.functional.layer_norm(xg, (1024,), wg, bg)
+                    fn = (lambda out=out, xg=xg, wg=wg, bg=bg, gy=gy:
+                          torch.autograd.grad(out, (xg, wg, bg), gy,
+                                              retain_graph=True))
+                else:
+                    use(var)
+                    plan = ln.bwd_plan(x.shape[0], 1024, 2,
+                                       ln._sm_count(x.device))
+                    fn = (lambda p=plan, a=(gy, x, mean, rstd, w, dx, dwdb,
+                                            False): ln._launch(p, *a))
+                times.setdefault((var, case), []).append(
+                    cs.time_ms(torch, fn))
+    finally:
+        ln._LIB, ln._launch = libs["shipped"], launch
+    for (var, case), ts in times.items():
+        print(f"layer_norm bwd {case} bf16 {var}: "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
+
+
+def decode(cs, torch, fd, rng, libs):
+    """Flash-decode's builds and plans (module docstring): each checked
+    against `paged_attention_reference` (chip_smoke's
+    `check_flash_decode`, two runs bit for bit) at the serving shape and
+    the long case, then timed in turns with a cold L2 at both beside
+    SDPA over the pre-gathered cache."""
+    libs = {var: fd._bind(lib) for var, lib in libs.items()}
+    runs = {var: (lib, {}, None) for var, lib in libs.items()}
+    runs.update({var: (libs["shipped"], ch, None)
+                 for var, ch in DECODE_PLANS.items()})
+    runs.update({var: (libs["shipped"], {}, hp)
+                 for var, hp in DECODE_HPS.items()})
+    launch = fd._launch
+    cases = {"serving": cs.decode_main_case(torch, rng),
+             "long": cs.decode_long_case(torch, rng)}
+    flush_src = torch.ones(64 * 2 ** 20, dtype=torch.int8, device="cuda")
+    sink = torch.empty((), dtype=torch.int64, device="cuda")
+
+    def flush():
+        torch.sum(flush_src, dim=0, dtype=torch.int64, out=sink)
+
+    def use(var):
+        lib, change, hp = runs[var]
+        fd._LIB = lib
+        fd._launch = (lambda plan, *a: launch(plan._replace(**change), *a))
+        return hp
+
+    try:
+        for var in runs:
+            if var in UNCHECKED:
+                continue
+            hp = use(var)
+            for case, args in cases.items():
+                e = cs.check_flash_decode(torch, fd, args, torch.bfloat16,
+                                          hp)
+                print(f"flash_decode {var} {case}: plan "
+                      f"{tuple(fd.flash_decode_cuda.last_plan)}, max err "
+                      f"{e:.3e}, two runs bit for bit", flush=True)
+        order = list(runs) + ["SDPA"]
+        times = {}
+        for var in order + list(reversed(order)):
+            for case, (q, k, v, tbl, lens) in cases.items():
+                if var == "SDPA":
+                    lib_ms = cs.decode_times(torch, fd, (q, k, v, tbl, lens),
+                                             flush)["library_ms"]
+                    times.setdefault((var, case), []).append(lib_ms)
+                    continue
+                hp = use(var)
+                times.setdefault((var, case), []).append(cs.time_ms(
+                    torch, lambda a=(q, k, v, tbl, lens): fd.flash_decode_cuda(
+                        *a, 0.125, hp), flush=flush))
+    finally:
+        fd._LIB, fd._launch = libs["shipped"], launch
+    for (var, case), ts in times.items():
+        print(f"flash_decode {case} {var} (cold L2): "
+              f"{', '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
+
+
 def _visible_read_all(m_row, cols, grp, inb, pos, msc,
                       HAS_MASK: tl.constexpr, CAUSAL: tl.constexpr):
     """`ops.softmax._fwd_visible` with every in-bounds x loaded: the
@@ -530,7 +751,9 @@ def main(argv):
     import chip_smoke as cs
     from apex_tpu_torch import csrc
     from apex_tpu_torch.ops import flash_attention as fa
+    from apex_tpu_torch.ops import flash_decode as fd
     from apex_tpu_torch.ops import fused_dense as fdn
+    from apex_tpu_torch.ops import layer_norm as ln
     from apex_tpu_torch.ops._common import strict_matmul_numerics
 
     strict_matmul_numerics()
@@ -540,6 +763,15 @@ def main(argv):
     out = os.path.join(csrc.BUILD_DIR, "ablation_hopper")
     os.makedirs(out, exist_ok=True)
     rng = torch.Generator(device="cuda").manual_seed(0)
+    for flag, name, variants, run in (
+            ("--lnbwd", "layer_norm", LNBWD_VARIANTS, layer_norm_bwd),
+            ("--decode", "flash_decode", DECODE_VARIANTS, decode)):
+        if flag in argv:
+            os.makedirs(os.path.join(out, name), exist_ok=True)
+            procs = start(csrc, name, os.path.join(out, name), variants)
+            mod = ln if name == "layer_norm" else fd
+            run(cs, torch, mod, rng, finish(cs, name, procs, part="kernel"))
+            return 0
     if "--softmax" in argv:
         softmax_forward(cs, torch, rng)
         return 0

@@ -31,7 +31,8 @@ def _append(path, text):
         f.write(text)
 
 
-@pytest.mark.parametrize("name", ["fused_dense", "flash_attention"])
+@pytest.mark.parametrize("name", ["fused_dense", "flash_attention",
+                                  "flash_decode", "layer_norm"])
 def test_so_path_follows_the_shared_header(tree, name):
     assert str(tree / "hopper.cuh") in csrc.local_includes(
         csrc.source_path(name))
@@ -88,7 +89,8 @@ def _ablation_script():
     return mod
 
 
-@pytest.mark.parametrize("name", ["fused_dense", "flash_attention"])
+@pytest.mark.parametrize("name", ["fused_dense", "flash_attention",
+                                  "flash_decode", "layer_norm"])
 def test_ablation_overrides_are_declared(name):
     """Every `-D` override that scripts/port_hopper_ablation.py passes to
     nvcc names a macro that the source it builds declares with an

@@ -182,3 +182,181 @@ def test_bwd_reference_is_the_gradient(rms):
     _, dw_none, db_none = tln.norm_bwd_reference(g, tx.detach(), mean,
                                                  rstd, None, rms)
     assert dw_none is None and db_none is None
+
+
+# ------------------------------ the CUDA plan -------------------------------
+
+_H100_SMS = 132
+
+
+def _groups(plan):
+    """Row groups a block."""
+    assert plan.warps % plan.warps_per_row == 0
+    return plan.warps // plan.warps_per_row
+
+
+@pytest.mark.parametrize("rows,hidden,itemsize,align", [
+    (12288, 1024, 2, 16), (16384, 1024, 2, 16), (77, 1000, 4, 16),
+    (5, 1024, 2, 16), (1, 16384, 2, 16), (0, 1024, 2, 16),
+    (77, 1001, 2, 16), (77, 1000, 4, 4), (3, 16384, 4, 16), (3, 8200, 2, 16),
+    (33, 2048, 4, 16), (12288, 1024, 2, 4)])
+def test_bwd_plan(rows, hidden, itemsize, align):
+    """`bwd_plan` covers every row exactly once (blocks of
+    `rows_per_block` rows, each row group taking every `groups`-th row of
+    its block's run, as the kernel walks them), at most one block an SM;
+    a row's threads hold at most 32 columns (48 on the 12 warps of a row
+    past 8192 columns); the finishing pass takes at
+    least one block an SM wherever hidden has the 4-column slices for it;
+    16-byte loads (bulk copies into a ring) only where the rows' bytes
+    and bases are 16-byte multiples, one slot otherwise; the ring and w's
+    fp32 row fit the 227 KB a block may take; a block has 8 warps (a
+    row's, when it takes more)."""
+    plan = tln.bwd_plan(rows, hidden, itemsize, _H100_SMS, align)
+    groups = _groups(plan)
+    if plan.warps_per_row == tln.BWD_WIDE_WARPS:
+        assert hidden > tln.BWD_WARPS * 32 * tln.BWD_COLS
+    else:
+        assert hidden <= plan.warps_per_row * 32 * tln.BWD_COLS
+        assert plan.warps_per_row == 1 or hidden > (
+            plan.warps_per_row // 2 * 32 * tln.BWD_COLS)
+    seen = np.zeros(rows, np.int64)
+    for b in range(plan.blocks):
+        r0 = b * plan.rows_per_block
+        end = min(r0 + plan.rows_per_block, rows)
+        assert end > r0
+        for g in range(groups):
+            seen[r0 + g:end:groups] += 1
+    assert np.all(seen == 1)
+    assert plan.blocks <= _H100_SMS
+    assert plan.finish_blocks == -(-hidden // tln.BWD_FINISH_COLS)
+    if hidden >= _H100_SMS * tln.BWD_FINISH_COLS:
+        assert plan.finish_blocks >= _H100_SMS
+    wide = align % 16 == 0 and hidden * itemsize % 16 == 0
+    assert (plan.load_width == 16) == wide
+    if not wide:
+        assert plan.stages == 1 and plan.load_width in (4, 2)
+        assert plan.load_width == 2 or hidden * itemsize % 4 == 0
+    ring = groups * plan.stages * 2 * -(-hidden * itemsize // 16) * 16
+    assert 1 <= plan.stages <= tln.BWD_MAX_STAGES
+    assert ring + hidden * 4 <= tln.BWD_SMEM or plan.stages == 1
+    assert ring + hidden * 4 < 227 * 1024
+    assert plan.warps == max(plan.warps_per_row, tln.BWD_WARPS)
+    if (rows, hidden) == (12288, 1024) and wide:
+        assert plan == tln.BwdPlan(128, 96, 8, 1, 4, 16, 256)
+
+
+@pytest.mark.parametrize("hidden", [0, 16385])
+def test_bwd_plan_refuses_what_the_kernel_cannot_hold(hidden):
+    with pytest.raises(ValueError, match="hidden"):
+        tln.bwd_plan(8, hidden, 2, _H100_SMS)
+
+
+def _bwd_stand_in(monkeypatch, calls):
+    """Stand-ins for the card: the forward kernel runs its plain version,
+    the backward's C launch (`_launch`) records its plan and fills dx and
+    (dw, db) with the plain backward."""
+    def fwd(x2, weight, bias, eps, rms):
+        return tln.norm_fwd_reference(x2, weight, bias, eps, rms)
+
+    def launch(plan, g2, x2, mean, rstd, weight, dx, dwdb, rms):
+        calls.append(plan)
+        assert dx.shape == x2.shape and dx.dtype == x2.dtype
+        rdx, rdw, rdb = tln.norm_bwd_reference(g2, x2, mean, rstd, weight,
+                                               rms)
+        dx.copy_(rdx)
+        if weight is None:
+            assert dwdb is None
+        else:
+            assert dwdb.shape == (2, x2.shape[1])
+            assert dwdb.dtype == torch.float32
+            dwdb[0].copy_(rdw)
+            dwdb[1].copy_(rdb)
+
+    monkeypatch.setattr(tln, "norm_fwd_triton", fwd)
+    monkeypatch.setattr(tln, "_launch", launch)
+    monkeypatch.setattr(tln, "_sm_count", lambda device: _H100_SMS)
+    monkeypatch.setattr(tln, "check_kernel_device", lambda *t: True)
+
+
+@pytest.mark.parametrize("weight", [True, False])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rms", [False, True])
+def test_bwd_launcher_matches_jax_bwd_pallas(rms, dtype, weight,
+                                             monkeypatch):
+    """`norm_bwd_cuda` with a recording stand-in for its C launch (on the
+    CPU): one launch under `bwd_plan`, and its outputs (dx in x's dtype,
+    fp32 dw and db, or None without a weight) match the JAX package's
+    `_bwd_pallas` (its Pallas backward in interpret mode) on the same
+    inputs.  Tolerances as the autograd test's: fp32 dx atol 1e-5, dw/db
+    rtol 1e-5; bf16 one ulp plus 1e-5 of the largest magnitude."""
+    from apex_tpu.ops.layer_norm import _bwd_pallas
+
+    calls = []
+    _bwd_stand_in(monkeypatch, calls)
+    rows, hidden = 37, 256
+    x, w, _ = _inputs(rows, hidden, seed=11)
+    g = np.random.RandomState(12).randn(rows, hidden).astype(np.float32)
+    jdt, tdt = _DTYPES[dtype]
+    tx, tw, tg = (torch.tensor(a).to(tdt) for a in (x, w, g))
+    _, mean, rstd = tln.norm_fwd_reference(tx, tw, None, rms=rms)
+    tw = tw if weight else None
+    got = tln.norm_bwd_cuda(tg, tx, mean, rstd, tw, rms)
+    assert calls == [tln.bwd_plan(rows, hidden, tx.element_size(),
+                                  _H100_SMS)]
+    want = _bwd_pallas(jnp.asarray(g).astype(jdt), jnp.asarray(x).astype(jdt),
+                       jnp.asarray(mean.numpy()), jnp.asarray(rstd.numpy()),
+                       jnp.asarray(w).astype(jdt) if weight else None, rms)
+    assert got[0].dtype == tdt
+    if not weight:
+        assert got[1] is None and got[2] is None and want[1] is None
+    for i, (gt, wt) in enumerate(zip(got, want)):
+        if gt is None:
+            continue
+        if i:
+            assert gt.dtype == torch.float32
+        if dtype == "bf16" and i == 0:
+            _ulp_close(gt, wt, 1e-5 * float(jnp.max(jnp.abs(
+                wt.astype(jnp.float32)))))
+        elif i == 0:
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                       atol=1e-5, rtol=0)
+        else:
+            np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm_fn_routes_its_backward_to_the_cuda_launcher(kind,
+                                                          monkeypatch):
+    """The autograd route of a CUDA call, with stand-ins for the kernels
+    (on the CPU): the backward launches once, under the plan of a 16-byte
+    load width at (37, 256), and the grads match jax.vjp of the JAX
+    package's norm with its Pallas backward in interpret mode (fp32:
+    dx atol 1e-5, dw/db rtol 1e-5).  Zero rows launch nothing and give
+    zero dw/db."""
+    calls = []
+    _bwd_stand_in(monkeypatch, calls)
+    x, w, b = _inputs(37, 256, seed=13)
+    g = np.random.RandomState(14).randn(37, 256).astype(np.float32)
+    tx, tw, tb = (torch.tensor(a).requires_grad_(True) for a in (x, w, b))
+    jx, jw, jb, jg = (jnp.asarray(a) for a in (x, w, b, g))
+    if kind == "layer":
+        _, vjp = jax.vjp(lambda x_, w_, b_: jax_layer_norm(
+            x_, w_, b_, use_pallas_override=True), jx, jw, jb)
+        tln.fused_layer_norm(tx, tw, tb).backward(torch.tensor(g))
+        got = (tx.grad, tw.grad, tb.grad)
+    else:
+        _, vjp = jax.vjp(lambda x_, w_: jax_rms_norm(
+            x_, w_, use_pallas_override=True), jx, jw)
+        tln.fused_rms_norm(tx, tw).backward(torch.tensor(g))
+        got = (tx.grad, tw.grad)
+    assert len(calls) == 1 and calls[0].load_width == 16
+    for i, (gt, wt) in enumerate(zip(got, vjp(jg))):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                   atol=1e-5, rtol=0 if i == 0 else 1e-5)
+    calls.clear()
+    empty = torch.zeros((0, 256))
+    dx, dw, db = tln.norm_bwd_cuda(empty, empty, torch.zeros((0, 1)),
+                                   torch.zeros((0, 1)), tw.detach(), False)
+    assert calls == [] and dx.shape == (0, 256)
+    assert torch.equal(dw, torch.zeros(256)) and torch.equal(db, dw)
