@@ -53,8 +53,11 @@
 // and p is rounded to the cache dtype before the P.V product
 // (flash_decode.py:245).  That rounding is why, in bf16, this kernel
 // sits further from the fp32 plain version than the fp32 kernel does.
-// A head's keys meet in the same warps and order whatever hp is, so
-// every hp gives the same bits.  -DAPEX_FD_BULK=0 builds the copies as
+// A head's keys meet in the same warps and order whatever hp is, so hp
+// keeps the bits as long as the plan's split stays the same; but hp sets
+// the block count, from which the plan picks the split (serving's 64
+// slots x 16 heads split 2 at hp 16), and another split merges in
+// another order.  -DAPEX_FD_BULK=0 builds the copies as
 // 16-byte cp.async by every thread into the same ring instead.
 
 #include <cuda_bf16.h>
@@ -74,11 +77,7 @@
 
 namespace {
 
-#ifndef APEX_FD_WARPS
-#define APEX_FD_WARPS 4  // warps a block
-#endif
-
-constexpr int kWarps = APEX_FD_WARPS;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSplit = 8;
 constexpr int kMaxSmem = 232448 - 1024;  // and the static length_s
@@ -591,18 +590,18 @@ int launch(const Args& a, int n_slots, int rows, int smem,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // The dynamic shared memory (bytes) a block of the plan takes, or -1 for
-// a plan no block can hold.  dtype 0 float32, 1 bfloat16.
-extern "C" int apex_flash_decode_smem(int dtype, int head_dim, int row_tile,
-                                      int hp, int split, int stages,
-                                      int chunk, int max_pages) {
-  const int el = dtype == 0 ? 4 : 2;
+// a plan no block can hold.  The host plan sizes its ring by a copy of
+// Layout (ops.flash_decode.decode_smem), which must match it: a drift
+// shows as a refused launch.
+int block_smem(int el, int head_dim, int row_tile, int hp, int split,
+               int stages, int chunk, int max_pages) {
   const int pps = (max_pages + split - 1) / split;
   const Layout L(head_dim, el, row_tile, hp, split, stages, pps, chunk);
   return L.total <= kMaxSmem ? L.total : -1;
 }
+
+}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 64 or 128.  q strides are
 // in elements (its last dim must be contiguous); the pages (16-byte
@@ -635,8 +634,8 @@ extern "C" int apex_flash_decode(int dtype, int head_dim, const void* q,
       (rows + row_tile - 1) / row_tile <= 65535 &&
       reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
-  const int smem = ok ? apex_flash_decode_smem(dtype, head_dim, row_tile, hp,
-                                               split, stages, chunk, max_pages)
+  const int smem = ok ? block_smem(dtype == 0 ? 4 : 2, head_dim, row_tile, hp,
+                                  split, stages, chunk, max_pages)
                       : -1;
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;

@@ -39,9 +39,7 @@
 //     4-column slice (256 blocks at hidden 1024) sums the partial rows of
 //     its columns in a fixed order.  -DAPEX_LNB_FINISH=1 builds the
 //     other way: a cooperative launch whose blocks meet at a grid barrier
-//     and then sum the slices themselves; =3 the second launch as a
-//     programmatic dependent one, its blocks waiting beside the first
-//     kernel's last ones.
+//     and then sum the slices themselves.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -52,13 +50,8 @@
 
 #ifndef APEX_LNB_FINISH
 // 0: a second launch; 1: a grid barrier; 2: no finishing pass (dw and db
-// are not summed: timed only); 3: a second launch that the first lets
-// start early (programmatic dependent launch)
+// are not summed: timed only)
 #define APEX_LNB_FINISH 0
-#endif
-
-#ifndef APEX_LNB_TWO
-#define APEX_LNB_TWO 0  // 1: blocks of 8 warps two an SM (timed variant)
 #endif
 
 #ifndef APEX_LNB_MATH
@@ -248,9 +241,8 @@ __device__ void finish_slices(const float* __restrict__ pdw,
 // (THREADS 384), whose threads hold up to 44 (fp32) or 48 columns and
 // read the staged row again in pass 2 (CACHE false), within the 168
 // registers a thread of 384 may have
-template <typename T, int THREADS, bool CACHE = THREADS == 256,
-          int MIN_BLOCKS = 1>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ln_bwd_kernel(Args a) {
+template <typename T, int THREADS, bool CACHE = THREADS == 256>
+__global__ void __launch_bounds__(THREADS) ln_bwd_kernel(Args a) {
   constexpr int E = 16 / sizeof(T);  // elements of a 16-byte vector
   // vectors a thread holds
   constexpr int NV = THREADS == 256
@@ -311,10 +303,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) ln_bwd_kernel(Args a) {
                          : to_float(static_cast<const __half*>(a.w)[i]);
   }
   __syncthreads();
-#if APEX_LNB_FINISH == 3
-  // the finishing pass may launch now: its blocks wait for this grid's end
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-#endif
 
   float dwa[NV][E], dba[NV][E];
 #pragma unroll
@@ -474,11 +462,6 @@ __global__ void __launch_bounds__(kFinishThreads) ln_bwd_finish_kernel(
     const float* __restrict__ pdw, const float* __restrict__ pdb, float* dw,
     float* db, int parts, int hidden, int ld) {
   __shared__ float4 red[2 * kFinishThreads];
-#if APEX_LNB_FINISH == 3
-  // launched early beside the first kernel's last blocks: wait until it
-  // has ended and its partial rows are visible
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-#endif
   finish_slices(pdw, pdb, dw, db, parts, hidden, ld, blockIdx.x, gridDim.x,
                 red);
 }
@@ -486,11 +469,7 @@ __global__ void __launch_bounds__(kFinishThreads) ln_bwd_finish_kernel(
 template <typename T, int THREADS>
 int launch(const Args& a, int blocks, int finish_blocks, int smem,
            cudaStream_t stream) {
-  // -DAPEX_LNB_TWO=1: two blocks an SM (128 registers a thread), pass 2
-  // reading the staged row again
-  constexpr bool kTwo = APEX_LNB_TWO && THREADS == 256;
-  const auto kernel =
-      ln_bwd_kernel<T, THREADS, THREADS == 256 && !kTwo, kTwo ? 2 : 1>;
+  const auto kernel = ln_bwd_kernel<T, THREADS>;
   static int opted = 0;  // the largest dynamic shared memory opted into
   if (smem > 48 * 1024 && smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -516,23 +495,11 @@ int launch(const Args& a, int blocks, int finish_blocks, int smem,
   }
 #endif
   kernel<<<blocks, THREADS, smem, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.w == nullptr || APEX_LNB_FINISH == 2)
     return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(finish_blocks);
-  cfg.blockDim = dim3(kFinishThreads);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = APEX_LNB_FINISH == 3 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, ln_bwd_finish_kernel,
-                         static_cast<const float*>(a.pdw),
-                         static_cast<const float*>(a.pdb), a.dw, a.db, blocks,
-                         a.hidden, a.ld);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  ln_bwd_finish_kernel<<<finish_blocks, kFinishThreads, 0, stream>>>(
+      a.pdw, a.pdb, a.dw, a.db, blocks, a.hidden, a.ld);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,17 +507,16 @@ bool aligned(const void* p, int n) {
   return reinterpret_cast<uintptr_t>(p) % n == 0;
 }
 
-}  // namespace
-
 // The dynamic shared memory (bytes) a block of the plan takes, or -1 for
-// a plan no block can hold.
-extern "C" int apex_layer_norm_bwd_smem(int dtype, int hidden, int warps,
-                                        int wpr, int stages) {
-  const int el = dtype == 0 ? 4 : 2;
-  const int threads = 32 * warps;
-  const Layout L(hidden, el, warps / wpr, stages, wpr, threads);
+// a plan no block can hold.  Layout is this source's alone: the host plan
+// (ops.layer_norm.bwd_plan) sizes the ring and w's row within BWD_SMEM,
+// which leaves room under kMaxSmem for the rest of it.
+int block_smem(int el, int hidden, int warps, int wpr, int stages) {
+  const Layout L(hidden, el, warps / wpr, stages, wpr, 32 * warps);
   return L.total <= kMaxSmem ? L.total : -1;
 }
+
+}  // namespace
 
 // g, x and dx (rows, hidden) of one dtype (0 fp32, 1 bf16, 2 fp16), the
 // hidden dim contiguous, row strides in elements; mean and rstd fp32
@@ -609,8 +575,7 @@ extern "C" int apex_layer_norm_bwd(int dtype, const void* g,
   if (w != nullptr)
     ok = ok && w_dtype >= 0 && w_dtype <= 2 && pdw && pdb && dw && db &&
          aligned(pdw, 16) && aligned(pdb, 16) && finish_blocks >= 1;
-  const int smem =
-      apex_layer_norm_bwd_smem(dtype, hidden, warps, wpr, stages);
+  const int smem = block_smem(el, hidden, warps, wpr, stages);
   if (!ok || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.g = g;

@@ -196,9 +196,11 @@ class DecodePlan(NamedTuple):
 
 
 def decode_smem(d, itemsize, row_tile, hp, split, stages, chunk, max_pages):
-    """The dynamic shared memory of a block (the C entry's layout): the
-    ring, q's rows, the rank's table entries, the warps' merge, with a
-    split the block's merged states, the mbarriers."""
+    """The dynamic shared memory of a block: a copy of `Layout` in
+    csrc/flash_decode.cu, which must match it (the C entry refuses a plan
+    its own Layout cannot hold).  The ring, q's rows, the rank's table
+    entries, the warps' merge, with a split the block's merged states,
+    the mbarriers."""
     def r16(b):
         return -(-b // 16) * 16
     pps = -(-max_pages // split)

@@ -18,8 +18,8 @@ Three pieces, as in the JAX package:
 
 What the port tunes: flash attention's `heads_per_step`
 (ops/flash_attention.py; the CUDA kernels' tiles stay as they are), and the serving
-path's `flash_decode` heads_per_step (validated; the decode kernel
-tiles as it does) and paged-KV page size (`serve_page`).  The key
+path's `flash_decode` heads_per_step (validated; the decode kernel's
+kv heads a block) and paged-KV page size (`serve_page`).  The key
 functions below are the JAX package's, all of them, so keys written by
 either package are read by the other; the row-block and flat-optimizer
 axes (`tuned_row_block`, `opt_flat`) are not consulted by the port's

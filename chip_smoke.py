@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: flash-decode
                  at the serving shape (its plan: no split, a one-row
-                 tile; heads_per_step 1, 2 and 4 bit for bit with it),
+                 tile; heads_per_step 1, 2 and 4 bit for bit with it,
+                 8 and 16, which the plan splits, against the plain
+                 version),
                  at 4 slots x 4096 keys (a split among a cluster's
                  blocks), GQA with q_len 2 and a page-8 case, each run
                  twice bit for bit; the LayerNorm backward at GPT's and
@@ -3991,16 +3993,27 @@ def run_phases():
     main_plan = fd.flash_decode_cuda.last_plan
     check(main_plan.split == 1 and main_plan.row_tile == 1,
           f"flash_decode main shape plan {main_plan}")
-    # heads_per_step 1, 2 and 4 give the plan's bits
+    # heads_per_step 1, 2 and 4 give the plan's bits; 8 and 16 leave
+    # fewer blocks, so the plan may split (another merge order): those
+    # are held against the plain version instead
     q, k, v, tbl, lens = fd_main
     want = fd.flash_decode_cuda(q, k, v, tbl, lens, 0.125)
-    for hp in (1, 2, 4):
+    hp_errs = {}
+    for hp in (1, 2, 4, 8, 16):
         got = fd.flash_decode_cuda(q, k, v, tbl, lens, 0.125, hp)
-        check(fd.flash_decode_cuda.last_plan.heads_per_block == hp
-              and torch.equal(got, want),
-              f"flash_decode heads_per_step={hp}: other bits")
+        plan = fd.flash_decode_cuda.last_plan
+        check(plan.heads_per_block == hp,
+              f"flash_decode heads_per_step={hp}: plan {plan}")
+        if plan.split == main_plan.split:
+            check(torch.equal(got, want),
+                  f"flash_decode heads_per_step={hp}: other bits")
+        else:
+            check(hp > 4, f"flash_decode heads_per_step={hp}: plan {plan}")
+            hp_errs[f"hp={hp} split={plan.split}"] = check_flash_decode(
+                torch, fd, fd_main, bf16, hp)
     log(f"flash_decode main shape: plan {tuple(main_plan)}; "
-        f"heads_per_step 1, 2, 4 bit for bit")
+        f"heads_per_step of the same split bit for bit with it; the "
+        f"others' max err vs plain {hp_errs}")
     fd_long = decode_long_case(torch, rng)
     e = check_flash_decode(torch, fd, fd_long, bf16)
     long_plan = fd.flash_decode_cuda.last_plan
@@ -4064,8 +4077,8 @@ def run_phases():
         log(f"dq pass sq={sq_} sk={sk_} d={d_} causal={causal}: max err "
             f"{e:.3e} vs its plain version, two runs bit for bit")
     # the GPT and BERT steps' rows, ragged and tiny ones, fp16, RMSNorm,
-    # no weight, a g 2 bytes off 16 (4-byte loads), an odd fp16 width
-    # (2-byte loads), rows of 2-16 warps
+    # no weight, a g 4 bytes off 16 (4-byte loads), an odd fp16 width
+    # (2-byte loads), rows of 2-12 warps
     _, errs["layer_norm_bwd"] = check_layer_norm_bwd(torch, ln, rng, 12288,
                                                      1024, bf16)
     f16 = torch.float16

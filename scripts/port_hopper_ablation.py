@@ -140,11 +140,6 @@ variant against `norm_bwd_reference` first (chip_smoke's
     grid_barrier      -DAPEX_LNB_FINISH=1: a cooperative launch whose
                       blocks sum the slices after a grid barrier
     no_finish         -DAPEX_LNB_FINISH=2: no finishing pass (timed only)
-    early_launch      -DAPEX_LNB_FINISH=3: the second launch as a
-                      programmatic dependent launch
-    two_per_sm        -DAPEX_LNB_TWO=1: two blocks an SM at 128 registers,
-                      pass 2 reading the staged row again, the plan's runs
-                      for twice the SMs and 2 slots
     no_math           -DAPEX_LNB_MATH=0: the rows stream through the ring,
                       nothing computed or stored (timed only; also without
                       a weight)
@@ -167,7 +162,6 @@ gathered beforehand:
                       into the same ring
     no_math           -DAPEX_FD_MATH=0: the keys stream through, nothing
                       computed (timed only)
-    eight_warps       -DAPEX_FD_WARPS=8
     no_split          the shipped build without the long case's split
     row_tile8         the 8-row tile on one query row
     two_stages        two ring slots (both pages of a serving slot at once)
@@ -214,8 +208,6 @@ LNBWD_VARIANTS = {
     "shipped": [],
     "grid_barrier": ["-DAPEX_LNB_FINISH=1"],
     "no_finish": ["-DAPEX_LNB_FINISH=2"],
-    "early_launch": ["-DAPEX_LNB_FINISH=3"],
-    "two_per_sm": ["-DAPEX_LNB_TWO=1"],
     "no_math": ["-DAPEX_LNB_MATH=0"],
 }
 # the shipped build's plan changed: (field, value) pairs
@@ -226,7 +218,6 @@ DECODE_VARIANTS = {
     "shipped": [],
     "cp_async": ["-DAPEX_FD_BULK=0"],
     "no_math": ["-DAPEX_FD_MATH=0"],
-    "eight_warps": ["-DAPEX_FD_WARPS=8"],
 }
 DECODE_PLANS = {"no_split": {"split": 1}, "row_tile8": {"row_tile": 8},
                 "two_stages": {"stages": 2}, "chunk64": {"chunk": 64}}
@@ -550,23 +541,10 @@ def layer_norm_bwd(cs, torch, ln, rng, libs):
         # no weight: no dw, db, so no partial rows and no finishing pass
         data.append((x, None, gy, mean, rstd, dx, None, " no weight"))
 
-    def two_per_sm(plan, g2, x2, *a):
-        """The plan for two blocks an SM: runs for twice the SMs, two
-        ring slots a row group."""
-        rows, hidden = x2.shape
-        return ln.bwd_plan(rows, hidden, x2.element_size(),
-                           2 * ln._sm_count(x2.device),
-                           ln._align(g2, x2))._replace(stages=2)
-
     def use(var):
         lib, change = runs[var]
         ln._LIB = lib
-        if var == "two_per_sm":
-            ln._launch = (lambda plan, g2, x2, *a: launch(
-                two_per_sm(plan, g2, x2), g2, x2, *a))
-        else:
-            ln._launch = (lambda plan, *a: launch(plan._replace(**change),
-                                                  *a))
+        ln._launch = (lambda plan, *a: launch(plan._replace(**change), *a))
 
     try:
         for var in runs:
