@@ -1,7 +1,7 @@
 // Flash attention forward and backward for Hopper (sm_90a), plain C
 // interface.  Layout (b, h, s, d), bf16, head_dim 64 or 128, causal or
-// not, with or without segment ids; no bias, no dropout (the training
-// steps' surface).
+// not, with or without segment ids, with or without dropout; no bias (the
+// training steps' surface).
 //
 // Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel and
 // :_fwd_kernel_packed (launched by _fwd_impl), :_bwd_fused_kernel,
@@ -159,6 +159,22 @@
 // all carry one id, in a tile that does not cross the diagonal, takes
 // the unsegmented masking: the per-score compares cost the backward half
 // its time again, and in BERT's batches most tiles are one segment.
+//
+// Dropout (the DROP instantiations; _dropout_keep, the TPU kernels'
+// counter hash): a score of head i (batch * h + head), global query row q
+// and global key k is kept where fmix32(seed * 1000003 + i + k *
+// 0x9e3779b1 + q * 0x85ebca77) (32-bit, wrapping, logical shifts) has its
+// low 31 bits >= the host's int(rate * 2^31); q and k are the launch's
+// q_off / k_off plus the row and key.  The bits are a pure function of the
+// score's coordinates, so every kernel, tile, route and packing computes
+// the same mask, and the backward regenerates the forward's without
+// storing it.  Each thread hashes the scores it holds in its wgmma
+// accumulator fragment: the forward drops the fp32 p (not l, which stays
+// the softmax sum) and scales it by 1 / (1 - rate) before its rounding for
+// P V; the backward drops and scales p for dV and dP before dS = P (dP -
+// delta), as the TPU kernels do.  About 12 integer operations a score on
+// the hot loop, no memory.  Rate 0 launches the !DROP instantiations,
+// which are the kernels as they were before dropout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,6 +208,52 @@ __device__ __forceinline__ bool warp_one_segment(bool same) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// one launch's dropout (see the top): the seed and offsets as 32-bit
+// words, the keep threshold on the hash's low 31 bits, 1 / (1 - rate)
+struct Drop {
+  uint32_t seed, q_off, k_off, thresh;
+  float inv;
+};
+
+// murmur3's finalizer
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  return h ^ (h >> 16);
+}
+
+// the hash's terms of head bh, query row q and key k: they add up (mod
+// 2^32) to the word fmix32 takes
+__device__ __forceinline__ uint32_t drop_head(const Drop& d, int bh) {
+  return d.seed * 1000003u + static_cast<uint32_t>(bh);
+}
+__device__ __forceinline__ uint32_t drop_row(const Drop& d, int q) {
+  return (d.q_off + static_cast<uint32_t>(q)) * 0x85ebca77u;
+}
+__device__ __forceinline__ uint32_t drop_key(const Drop& d, int k) {
+  return (d.k_off + static_cast<uint32_t>(k)) * 0x9e3779b1u;
+}
+
+// whether the score whose terms sum to `w` is kept
+__device__ __forceinline__ bool drop_keep(const Drop& d, uint32_t w) {
+  return (fmix32(w) & 0x7fffffffu) >= d.thresh;
+}
+
+// the backward's dropout of one score, kept where bit `i` of `bits` is
+// set: pv = p for dV and dpv = dP, each dropped and scaled; p itself goes
+// into dS = P (dP - delta) undropped.  The backward kernels hash a tile's
+// scores into `bits` before its products, so that the hash's temporaries
+// never sit beside the products' accumulators (beside them the d=64
+// kernels spilled).
+__device__ __forceinline__ void drop_pair(const Drop& d, uint32_t bits, int i,
+                                          float p, float& pv, float& dpv) {
+  const bool kp = (bits >> i) & 1u;
+  pv = kp ? p * d.inv : 0.f;
+  dpv = kp ? dpv * d.inv : 0.f;
 }
 
 // ------------------------------------------------------------ forward ----
@@ -270,6 +332,7 @@ struct FwdArgs {
   const int* q_seg;
   const int* kv_seg;
   long long q_seg_sb, kv_seg_sb;
+  Drop drop;  // DROP instantiations
 };
 
 // 2^x in one special-function instruction (ex2.approx.ftz: subnormal
@@ -331,7 +394,7 @@ struct FwdItem {
 // tile: per key tile, S = Q K^T by wgmma from shared memory (K K-major),
 // the mask and online softmax in registers, then O += P V by wgmma with P
 // in registers (V, keys x d row-major, is MN-major).
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
                                           bool res_ids, unsigned char* smem) {
   using L = FwdSmem<D, SEG>;
@@ -604,6 +667,26 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
         row_max(mx_a, mx_b);
         exp_sum(fmaxf(m_a, mx_a * sl), fmaxf(m_b, mx_b * sl), sl);
       };
+      // DROP: p of key tile `it` dropped and scaled by the hash of its
+      // coordinates, as the TPU kernel's where(keep, p, 0) / (1 - rate); l
+      // keeps the undropped sum
+      auto drop_p = [&](int it) {
+        const Drop& dr = a.drop;
+        const uint32_t ha = drop_head(dr, bh) + drop_row(dr, row_a);
+        const uint32_t hb = drop_head(dr, bh) + drop_row(dr, row_b);
+        const int kc0 = it * kFwdKeys + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t kt = drop_key(dr, kc0 + 8 * n + e);
+            sc[4 * n + e] =
+                drop_keep(dr, ha + kt) ? sc[4 * n + e] * dr.inv : 0.f;
+            sc[4 * n + 2 + e] =
+                drop_keep(dr, hb + kt) ? sc[4 * n + 2 + e] * dr.inv : 0.f;
+          }
+        }
+      };
       // p to bf16 (as the TPU kernel casts p to v's dtype) and O rescaled
       auto to_p = [&]() {
 #pragma unroll
@@ -661,6 +744,8 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
         hopper::fence_regs(sc);
         if (it == n_kv - 1) q_read();
         if (APEX_FWD_MATH || sq < 0) softmax(it, s);
+        if constexpr (DROP)
+          if (APEX_FWD_MATH || sq < 0) drop_p(it);
         if (APEX_FWD_MATH || sq < 0) to_p();
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(acc);
@@ -705,23 +790,23 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
 
 // one block an SM, walking the work items of (FwdSmem::kRows query rows,
 // batch*head)
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(FwdSmem<D, SEG>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_items<D, SEG>(a, 1, false, hopper::align1024(smem_raw));
+  fwd_items<D, SEG, DROP>(a, 1, false, hopper::align1024(smem_raw));
 }
 
 // the port of _fwd_kernel_packed: one block an SM, walking the work items
 // of (FwdSmem::kRows query rows, group of hp heads of one batch row), the
 // heads in turn; `res_ids`: the key ids are resident (SEG, sk <=
 // kIdCache), in shared memory after the unpacked kernel's
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(FwdSmem<D, SEG>::kThreads, 1)
     flash_fwd_packed_kernel(const __grid_constant__ FwdArgs a, int hp,
                             int res_ids) {
   extern __shared__ unsigned char smem_raw[];
-  fwd_items<D, SEG>(a, hp, SEG && res_ids, hopper::align1024(smem_raw));
+  fwd_items<D, SEG, DROP>(a, hp, SEG && res_ids, hopper::align1024(smem_raw));
 }
 
 // ----------------------------------------------------------- backward ----
@@ -843,6 +928,7 @@ struct BwdArgs {
   const int* q_seg;
   const int* kv_seg;
   long long q_seg_sb, kv_seg_sb;
+  Drop drop;  // DROP instantiations
 };
 
 // work item w of a backward launch: the items go in chunks of `chunk`
@@ -921,7 +1007,7 @@ __device__ __forceinline__ void put_rows(const CUtensorMap* map, int order,
 // bulk tensor reduce-add per 32 columns (APEX_BWD_DQ_RED: per-thread
 // red.global instead).  At a head's end each warp stores its 16 keys of dk
 // (scaled) and dv through its slice by TMA.
-template <int D, bool SEG, bool DQ>
+template <int D, bool SEG, bool DQ, bool DROP>
 __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                                           unsigned char* smem) {
   using L = BwdSmem<D, SEG, DQ>;
@@ -1135,15 +1221,35 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
         }
         // DQ: this warpgroup's dS^T
         unsigned char* dsw = dsb + wg * 64 * 128;
-        // the step's kHalves parts of kQc query rows, in turn
+        // the step's kHalves parts of kQc query rows, in turn (DROP: two
+        // parts at d=64 too; in one, ptxas spilled at the 168 registers a
+        // thread has, even with the keep bits taken before the products)
+        constexpr int kHalves = DROP ? 2 : L::kHalves;
 #pragma unroll
-        for (int hf = 0; hf < L::kHalves; ++hf) {
-          constexpr int kQc = L::kQc;
+        for (int hf = 0; hf < kHalves; ++hf) {
+          constexpr int kQc = kBwdRows / kHalves;
           const int qh = hf * kQc;  // the part's first row in the step
           // P^T and dS^T rounded to bf16, as the m16n8k16 A fragments of
           // the part's queries 16kk .. 16kk + 15
           uint32_t pa[kQc / 16][4], da[kQc / 16][4];
           if (!skip) {
+            // DROP: the part's keep bits, bit 4n + e for score 4n + e
+            // (a rolled loop: few of the hash's temporaries live at once)
+            uint32_t kbits = 0;
+            if constexpr (DROP) {
+              const uint32_t hd = drop_head(a.drop, bh);
+#pragma unroll 1
+              for (int n = 0; n < kQc / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  kbits |= uint32_t(drop_keep(
+                               a.drop, hd + drop_key(a.drop, e < 2 ? key_a
+                                                                   : key_b) +
+                                           drop_row(a.drop, q0 + qh + 8 * n +
+                                                                2 * t4 +
+                                                                (e & 1))))
+                           << (4 * n + e);
+            }
             // sc[4n + e], dp[4n + e]: keys r_a (e < 2) and r_a + 8, query
             // qh + 8n + 2 t4 + (e & 1) of the step
             float sc[kQc / 2], dp[kQc / 2];
@@ -1194,10 +1300,12 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                                    (causal && key > row);
                   float p_ = ex2(fmaf(sc[4 * n + e], sl, -l));
                   p_ = msk ? (!out && l < kDeadLse ? inv_sk : 0.f) : p_;
-                  dp[4 * n + e] = msk ? 0.f
-                                      : p_ * (dp[4 * n + e] -
-                                              ((e & 1) ? d2.y : d2.x));
-                  sc[4 * n + e] = p_;
+                  float pv = p_, dpv = dp[4 * n + e];
+                  if constexpr (DROP)
+                    drop_pair(a.drop, kbits, 4 * n + e, p_, pv, dpv);
+                  dp[4 * n + e] =
+                      msk ? 0.f : p_ * (dpv - ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = pv;
                 }
               }
             } else if (edge) {
@@ -1217,9 +1325,11 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                                       -((e & 1) ? l2.y : l2.x) * kLog2e));
                   p_ = key >= sk || row >= sq || (causal && key > row) ? 0.f
                                                                         : p_;
-                  dp[4 * n + e] =
-                      p_ * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
-                  sc[4 * n + e] = p_;
+                  float pv = p_, dpv = dp[4 * n + e];
+                  if constexpr (DROP)
+                    drop_pair(a.drop, kbits, 4 * n + e, p_, pv, dpv);
+                  dp[4 * n + e] = p_ * (dpv - ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = pv;
                 }
               }
             } else {
@@ -1235,9 +1345,11 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                   const float p_ =
                       ex2(fmaf(sc[4 * n + e], sl,
                                -((e & 1) ? l2.y : l2.x) * kLog2e));
-                  dp[4 * n + e] =
-                      p_ * (dp[4 * n + e] - ((e & 1) ? d2.y : d2.x));
-                  sc[4 * n + e] = p_;
+                  float pv = p_, dpv = dp[4 * n + e];
+                  if constexpr (DROP)
+                    drop_pair(a.drop, kbits, 4 * n + e, p_, pv, dpv);
+                  dp[4 * n + e] = p_ * (dpv - ((e & 1) ? d2.y : d2.x));
+                  sc[4 * n + e] = pv;
                 }
               }
             }
@@ -1285,7 +1397,7 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
             hopper::wgmma_commit();
             // the next part redefines pa and da: this part's products
             // must have read them
-            if (hf + 1 < L::kHalves) {
+            if (hf + 1 < kHalves) {
               hopper::wgmma_wait<0>();
               hopper::fence_regs(dk);
               hopper::fence_regs(dv);
@@ -1451,21 +1563,21 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
 
 // one block an SM, walking the work items of (128 keys, batch*head); DQ:
 // the fused kernel, else the split route's dk/dv pass
-template <int D, bool SEG, bool DQ>
+template <int D, bool SEG, bool DQ, bool DROP>
 __global__ void __launch_bounds__(BwdSmem<D, SEG, DQ>::kThreads, 1)
     flash_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_items<D, SEG, DQ>(a, 1, hopper::align1024(smem_raw));
+  bwd_items<D, SEG, DQ, DROP>(a, 1, hopper::align1024(smem_raw));
 }
 
 // the port of _bwd_fused_kernel_packed: one block an SM, walking the work
 // items of (128 keys, group of hp heads of one batch row), the heads in
 // turn, dq by the same reduce-adds
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(BwdSmem<D, SEG, true>::kThreads, 1)
     flash_bwd_packed_kernel(const __grid_constant__ BwdArgs a, int hp) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_items<D, SEG, true>(a, hp, hopper::align1024(smem_raw));
+  bwd_items<D, SEG, true, DROP>(a, hp, hopper::align1024(smem_raw));
 }
 
 // ---------------------------------------------------- backward, dq pass ----
@@ -1507,11 +1619,14 @@ __global__ void __launch_bounds__(BwdSmem<D, SEG, true>::kThreads, 1)
 #define APEX_DQ_STORE 1
 #endif
 
-template <int D, bool SEG>
+// DROP at d=128 takes key tiles of 32 (its dQ, S and dP with 64 keys
+// spilled at 168 registers); its dynamic shared memory is then less than
+// apex_flash_attn_bwd_dq_smem gives
+template <int D, bool SEG, bool DROP = false>
 struct DqSmem {
   static constexpr int kWgs = D == 64 ? APEX_DQ_WGS64 : 2;
   static constexpr int kRows = 64 * kWgs;  // query rows per work item
-  static constexpr int kKeys = D == 64 ? APEX_DQ_KEYS64 : 64;
+  static constexpr int kKeys = D == 64 ? APEX_DQ_KEYS64 : DROP ? 32 : 64;
   static constexpr int kThreads = 128 * (kWgs + 1);
   static constexpr int kConsumerWarps = 4 * kWgs;
   static constexpr int kProducerRegs = kWgs == 3 ? 32 : 40;
@@ -1565,10 +1680,10 @@ struct DqArgs : FwdArgs {
 // forward's P V takes V.  dQ stays in registers over the item's tiles and
 // leaves scaled, each row once: no atomics, no scratch buffer, the same
 // bits on every run.
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 __device__ __forceinline__ void dq_items(const DqArgs& a,
                                          unsigned char* smem) {
-  using L = DqSmem<D, SEG>;
+  using L = DqSmem<D, SEG, DROP>;
   constexpr int kStages = L::kStages, kWgs = L::kWgs, kKeys = L::kKeys;
   constexpr int kRows = L::kRows;
   unsigned char* q_s = smem + L::kQ;    // [2]
@@ -1722,6 +1837,12 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
       qid_a = qid_s[qb * kRows + ra];
       qid_b = qid_s[qb * kRows + ra + 8];
     }
+    // DROP: the hash's head and row terms of this thread's two rows
+    uint32_t hr_a = 0, hr_b = 0;
+    if constexpr (DROP) {
+      hr_a = drop_head(a.drop, t.bh0) + drop_row(a.drop, row_a);
+      hr_b = drop_head(a.drop, t.bh0) + drop_row(a.drop, row_b);
+    }
     const unsigned char* qs = q_s + qb * L::kQTile;
     const unsigned char* dos = do_s + qb * L::kQTile;
     // dq[4n + e]: row ra (e < 2) or ra + 8, d column 8n + 2 t4 + (e & 1)
@@ -1779,6 +1900,24 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     auto land = [&](int f) {
       hopper::mbar_wait(&kv_full[f % kStages], (f / kStages) & 1);
     };
+    // DROP: tile `it`'s keep bits, bit 4n + e for score 4n + e, taken
+    // while no product is in flight and before S and dP are (beside them
+    // the hash's temporaries spilled)
+    uint32_t kbits = 0;
+    auto keep_bits = [&](int it) {
+      if constexpr (DROP) {
+        kbits = 0;
+#pragma unroll 1
+        for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kbits |= uint32_t(drop_keep(
+                         a.drop, (e < 2 ? hr_a : hr_b) +
+                                     drop_key(a.drop, it * kKeys + 8 * n +
+                                                          2 * t4 + (e & 1))))
+                     << (4 * n + e);
+      }
+    };
     // dS = P (dP - delta) of tile `it` (stage s) into da, 0 wherever
     // masked.  The mask only on tiles that cross the ragged end of the
     // keys or the diagonal of the warp's rows, or (SEG) whose keys and rows
@@ -1812,7 +1951,10 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
                 (SEG && ((e & 1) ? ids.y : ids.x) != (top ? qid_a : qid_b));
             const float p =
                 ex2(fmaf(sc[4 * n + e], sl, -(top ? lse_a : lse_b)));
-            const float ds = p * (dp[4 * n + e] - (top ? dl_a : dl_b));
+            float dpv = dp[4 * n + e];
+            if constexpr (DROP)
+              dpv = (kbits >> (4 * n + e)) & 1u ? dpv * a.drop.inv : 0.f;
+            const float ds = p * (dpv - (top ? dl_a : dl_b));
             dp[4 * n + e] = masked ? 0.f : ds;
           }
         }
@@ -1824,7 +1966,10 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
             const bool top = e < 2;
             const float p =
                 ex2(fmaf(sc[4 * n + e], sl, -(top ? lse_a : lse_b)));
-            dp[4 * n + e] = p * (dp[4 * n + e] - (top ? dl_a : dl_b));
+            float dpv = dp[4 * n + e];
+            if constexpr (DROP)
+              dpv = (kbits >> (4 * n + e)) & 1u ? dpv * a.drop.inv : 0.f;
+            dp[4 * n + e] = p * (dpv - (top ? dl_a : dl_b));
           }
         }
       }
@@ -1851,6 +1996,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     // every wgmma: notes C7518, C7520).
     if (n_mine > 0) {
       land(fill);
+      keep_bits(0);
       hopper::wgmma_fence();
       scores(fill % kStages);
       wait_products();
@@ -1861,6 +2007,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
         hopper::wgmma_fence();  // dS, and sc, dp read by to_ds
         dq_product((f - 1) % kStages);
         wait_products();
+        keep_bits(it);
         hopper::wgmma_fence();
         scores(f % kStages);
         wait_products();
@@ -1915,11 +2062,11 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
 
 // one block an SM, walking the work items of (DqSmem::kRows query rows,
 // batch*head)
-template <int D, bool SEG>
-__global__ void __launch_bounds__(DqSmem<D, SEG>::kThreads, 1)
+template <int D, bool SEG, bool DROP>
+__global__ void __launch_bounds__(DqSmem<D, SEG, DROP>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  dq_items<D, SEG>(a, hopper::align1024(smem_raw));
+  dq_items<D, SEG, DROP>(a, hopper::align1024(smem_raw));
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in, once
@@ -1991,7 +2138,7 @@ struct Seg {
 int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
              const void* v, void* o, void* lse, const long long* st, int b,
              int h, int sq, int sk, float scale, int causal, int hp, Seg seg,
-             int keys = kFwdKeys) {
+             Drop drop, int keys = kFwdKeys) {
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, rows);
   if (e == 0)
     e = map_bhsd(&a->k, &a->order_k, k, st + 3, b, h, sk, D, keys);
@@ -2009,6 +2156,7 @@ int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
   a->kv_seg = seg.kv;
   a->q_seg_sb = seg.q_sb;
   a->kv_seg_sb = seg.kv_sb;
+  a->drop = drop;
   return e;
 }
 
@@ -2022,40 +2170,42 @@ int item_grid(int b, int h, int s, int hp, int rows) {
   return static_cast<int>(items < sms ? items : sms);
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, const long long* st, int b, int h, int sq, int sk,
-               float scale, int causal, Seg seg, cudaStream_t stream) {
+               float scale, int causal, Seg seg, Drop drop,
+               cudaStream_t stream) {
   using L = FwdSmem<D, SEG>;
   FwdArgs a;
   const int e = fwd_args(&a, D, L::kRows, q, k, v, o, lse, st, b, h, sq, sk,
-                         scale, causal, 1, seg);
+                         scale, causal, 1, seg, drop);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t smem = L::kBytes;
-  const cudaError_t ce = opt_in(flash_fwd_kernel<D, SEG>, smem, opted);
+  const cudaError_t ce = opt_in(flash_fwd_kernel<D, SEG, DROP>, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<D, SEG, DROP><<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 int launch_fwd_packed(const void* q, const void* k, const void* v, void* o,
                       void* lse, const long long* st, int b, int h, int sq,
                       int sk, float scale, int causal, int hp, Seg seg,
-                      cudaStream_t stream) {
+                      Drop drop, cudaStream_t stream) {
   using L = FwdSmem<D, SEG>;
   FwdArgs a;
   const int e = fwd_args(&a, D, L::kRows, q, k, v, o, lse, st, b, h, sq, sk,
-                         scale, causal, hp, seg);
+                         scale, causal, hp, seg, drop);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t base = L::kBytes;
   // opted in once at the most it can take: resident ids for kIdCache keys
   constexpr size_t most = base + (SEG ? size_t(kIdCache) * sizeof(int) : 0);
-  const cudaError_t ce = opt_in(flash_fwd_packed_kernel<D, SEG>, most, opted);
+  const cudaError_t ce =
+      opt_in(flash_fwd_packed_kernel<D, SEG, DROP>, most, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int res_ids = SEG && sk <= kIdCache;
   const size_t smem =
@@ -2064,7 +2214,7 @@ int launch_fwd_packed(const void* q, const void* k, const void* v, void* o,
                       : 0);
   const int grid = item_grid(b, h, sq, hp, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_packed_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(
+  flash_fwd_packed_kernel<D, SEG, DROP><<<grid, L::kThreads, smem, stream>>>(
       a, hp, res_ids);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2076,7 +2226,7 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
              const void* dout, const void* lse, const void* delta,
              void* dq_acc, void* dk, void* dv, void* work,
              const long long* st, int b, int h, int sq, int sk, float scale,
-             int causal, int hp, Seg seg) {
+             int causal, int hp, Seg seg, Drop drop) {
   *a = BwdArgs{};
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, kBwdRows);
   if (e == 0)
@@ -2111,24 +2261,25 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
   a->kv_seg = seg.kv;
   a->q_seg_sb = seg.q_sb;
   a->kv_seg_sb = seg.kv_sb;
+  a->drop = drop;
   return e;
 }
 
 // DQ: the fused kernel (hp = 1) or the packed one (hp > 1); else the
 // dk/dv pass (hp = 1)
-template <int D, bool SEG, bool DQ>
+template <int D, bool SEG, bool DQ, bool DROP>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_acc, void* dk,
                void* dv, void* work, const long long* st, int b, int h,
                int sq, int sk, float scale, int causal, int hp, Seg seg,
-               cudaStream_t stream) {
+               Drop drop, cudaStream_t stream) {
   using L = BwdSmem<D, SEG, DQ>;
   if ((!DQ && hp != 1) || work == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   const int e = bwd_args(&a, D, q, k, v, dout, lse, delta,
                          DQ ? dq_acc : nullptr, dk, dv, work, st, b, h, sq,
-                         sk, scale, causal, hp, seg);
+                         sk, scale, causal, hp, seg, drop);
   if (e != 0) return e;
   const int grid = item_grid(b, h, sk, hp, kBwdKeys);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -2136,15 +2287,16 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t ce;
   if (hp == 1) {
     static bool opted = false;
-    ce = opt_in(flash_bwd_kernel<D, SEG, DQ>, smem, opted);
+    ce = opt_in(flash_bwd_kernel<D, SEG, DQ, DROP>, smem, opted);
     if (ce != cudaSuccess) return static_cast<int>(ce);
-    flash_bwd_kernel<D, SEG, DQ><<<grid, L::kThreads, smem, stream>>>(a);
+    flash_bwd_kernel<D, SEG, DQ, DROP><<<grid, L::kThreads, smem, stream>>>(
+        a);
   } else if constexpr (DQ) {
     static bool opted = false;
-    ce = opt_in(flash_bwd_packed_kernel<D, SEG>, smem, opted);
+    ce = opt_in(flash_bwd_packed_kernel<D, SEG, DROP>, smem, opted);
     if (ce != cudaSuccess) return static_cast<int>(ce);
-    flash_bwd_packed_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(
-        a, hp);
+    flash_bwd_packed_kernel<D, SEG, DROP>
+        <<<grid, L::kThreads, smem, stream>>>(a, hp);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2155,10 +2307,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
             const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dq, void* work, const long long* st,
-            int b, int h, int sq, int sk, float scale, int causal, Seg seg) {
+            int b, int h, int sq, int sk, float scale, int causal, Seg seg,
+            Drop drop) {
   *a = DqArgs{};
   int e = fwd_args(a, D, rows, q, k, v, nullptr, const_cast<void*>(lse), st,
-                   b, h, sq, sk, scale, causal, 1, seg, keys);
+                   b, h, sq, sk, scale, causal, 1, seg, drop, keys);
   if (e == 0)
     e = map_bhsd(&a->dout, &a->order_do, dout, st + 9, b, h, sq, D, rows);
   const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
@@ -2169,25 +2322,26 @@ int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
   return e;
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool DROP>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, void* work, const long long* st, int b, int h,
-                  int sq, int sk, float scale, int causal, Seg seg,
+                  int sq, int sk, float scale, int causal, Seg seg, Drop drop,
                   cudaStream_t stream) {
-  using L = DqSmem<D, SEG>;
+  using L = DqSmem<D, SEG, DROP>;
   if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
   const int e = dq_args(&a, D, L::kRows, L::kKeys, q, k, v, dout, lse, delta,
-                        dq, work, st, b, h, sq, sk, scale, causal, seg);
+                        dq, work, st, b, h, sq, sk, scale, causal, seg, drop);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t smem = L::kBytes;
-  const cudaError_t ce = opt_in(flash_bwd_dq_kernel<D, SEG>, smem, opted);
+  const cudaError_t ce =
+      opt_in(flash_bwd_dq_kernel<D, SEG, DROP>, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_kernel<D, SEG><<<grid, L::kThreads, smem, stream>>>(a);
+  flash_bwd_dq_kernel<D, SEG, DROP><<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2196,22 +2350,27 @@ using Dim = std::integral_constant<int, D>;
 template <bool B>
 using Flag = std::integral_constant<bool, B>;
 
-// launch(Dim<head_dim>, Flag<has segment ids>) for one call's head_dim (64
-// or 128) and segment ids (both null or both set); anything else is
-// cudaErrorInvalidValue, with nothing launched
+// launch(Dim<head_dim>, Flag<has segment ids>, Flag<dropout>) for one
+// call's head_dim (64 or 128), segment ids (both null or both set) and
+// dropout flag; anything else is cudaErrorInvalidValue, with nothing
+// launched
 template <typename F>
-int dispatch(int head_dim, const void* q_seg, const void* kv_seg,
+int dispatch(int head_dim, const void* q_seg, const void* kv_seg, int dropout,
              F launch) {
   if ((q_seg == nullptr) != (kv_seg == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool seg = q_seg != nullptr;
+  auto by_drop = [&](auto d, auto has_seg) {
+    return dropout ? launch(d, has_seg, Flag<true>{})
+                   : launch(d, has_seg, Flag<false>{});
+  };
   int e = cudaErrorInvalidValue;
   if (head_dim == 64)
-    e = seg ? launch(Dim<64>{}, Flag<true>{})
-            : launch(Dim<64>{}, Flag<false>{});
+    e = seg ? by_drop(Dim<64>{}, Flag<true>{})
+            : by_drop(Dim<64>{}, Flag<false>{});
   else if (head_dim == 128)
-    e = seg ? launch(Dim<128>{}, Flag<true>{})
-            : launch(Dim<128>{}, Flag<false>{});
+    e = seg ? by_drop(Dim<128>{}, Flag<true>{})
+            : by_drop(Dim<128>{}, Flag<false>{});
   return static_cast<int>(e);
 }
 
@@ -2221,11 +2380,24 @@ Seg make_seg(const void* q_seg, const void* kv_seg, long long q_seg_sb,
              q_seg_sb, kv_seg_sb};
 }
 
+// the C entries' dropout arguments as one launch's Drop: the seed and
+// offsets as 32-bit words (wrapping), the threshold int(rate * 2^31),
+// 1 / (1 - rate)
+Drop make_drop(float inv, int thresh, int seed, int q_off, int k_off) {
+  return Drop{static_cast<uint32_t>(seed), static_cast<uint32_t>(q_off),
+              static_cast<uint32_t>(k_off), static_cast<uint32_t>(thresh),
+              inv};
+}
+
 }  // namespace
 
 // q, k, v: bf16 (b, h, s, d) with d contiguous, every row 16-byte aligned;
 // `strides` holds (batch, head, seq) strides in elements for q, k, v (9
 // values).  o (b, h, sq, d) bf16 and lse (b, h, sq) fp32 are contiguous.
+// Dropout: `dropout` 0 launches the kernels without it; else a score is
+// kept where the hash of (seed, batch * h + head, q_off + query row,
+// k_off + key) clears `thresh` (int(rate * 2^31)) and survivors are scaled
+// by `inv` (1 / (1 - rate)); the backward entries take the forward's.
 // q_seg (b, sq) and kv_seg (b, sk): int32 segment ids, contiguous along the
 // sequence, with batch strides q_seg_sb / kv_seg_sb; both null for none.
 // Launches on `stream`; returns the CUDA error of the launch (0 = launched).
@@ -2233,14 +2405,19 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const long long* strides, int b, int h,
                                    int sq, int sk, float scale, int causal,
+                                   int dropout, float inv, int thresh,
+                                   int seed, int q_off, int k_off,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_fwd<decltype(d)::value, decltype(has_seg)::value>(
-        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, seg, s);
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_fwd<decltype(d)::value, decltype(has_seg)::value,
+                      decltype(drops)::value>(
+        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, seg, drop, s);
   });
 }
 
@@ -2256,15 +2433,20 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    void* work, const long long* strides,
                                    int b, int h,
                                    int sq, int sk, float scale, int causal,
+                                   int dropout, float inv, int thresh,
+                                   int seed, int q_off, int k_off,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
                                    void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true>(
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true,
+                      decltype(drops)::value>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
-        sk, scale, causal, 1, seg, s);
+        sk, scale, causal, 1, seg, drop, s);
   });
 }
 
@@ -2278,15 +2460,20 @@ extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
                                       const void* delta, void* dq, void* work,
                                       const long long* strides, int b, int h,
                                       int sq, int sk, float scale, int causal,
+                                      int dropout, float inv, int thresh,
+                                      int seed, int q_off, int k_off,
                                       const void* q_seg, const void* kv_seg,
                                       long long q_seg_sb, long long kv_seg_sb,
                                       void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_bwd_dq<decltype(d)::value, decltype(has_seg)::value>(
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_bwd_dq<decltype(d)::value, decltype(has_seg)::value,
+                         decltype(drops)::value>(
         q, k, v, dout, lse, delta, dq, work, strides, b, h, sq, sk, scale,
-        causal, seg, s);
+        causal, seg, drop, s);
   });
 }
 
@@ -2310,15 +2497,20 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        void* work, const long long* strides,
                                        int b,
                                        int h, int sq, int sk, float scale,
-                                       int causal, const void* q_seg,
+                                       int causal, int dropout, float inv,
+                                       int thresh, int seed, int q_off,
+                                       int k_off, const void* q_seg,
                                        const void* kv_seg, long long q_seg_sb,
                                        long long kv_seg_sb, void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false>(
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false,
+                      decltype(drops)::value>(
         q, k, v, dout, lse, delta, nullptr, dk, dv, work, strides, b, h, sq,
-        sk, scale, causal, 1, seg, s);
+        sk, scale, causal, 1, seg, drop, s);
   });
 }
 
@@ -2344,14 +2536,19 @@ extern "C" int apex_flash_attn_bwd_smem(int head_dim, int seg, int dq) {
 extern "C" int apex_flash_attn_fwd_packed(
     int head_dim, const void* q, const void* k, const void* v, void* o,
     void* lse, const long long* strides, int b, int h, int sq, int sk,
-    float scale, int causal, int hp, const void* q_seg, const void* kv_seg,
+    float scale, int causal, int hp, int dropout, float inv, int thresh,
+    int seed, int q_off, int k_off, const void* q_seg, const void* kv_seg,
     long long q_seg_sb, long long kv_seg_sb, void* stream) {
   if (hp < 1 || h % hp) return static_cast<int>(cudaErrorInvalidValue);
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_fwd_packed<decltype(d)::value, decltype(has_seg)::value>(
-        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, hp, seg, s);
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_fwd_packed<decltype(d)::value, decltype(has_seg)::value,
+                             decltype(drops)::value>(
+        q, k, v, o, lse, strides, b, h, sq, sk, scale, causal, hp, seg, drop,
+        s);
   });
 }
 
@@ -2362,15 +2559,19 @@ extern "C" int apex_flash_attn_bwd_packed(
     int head_dim, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta, void* dq_acc,
     void* dk, void* dv, void* work, const long long* strides, int b, int h,
-    int sq, int sk, float scale, int causal, int hp, const void* q_seg,
+    int sq, int sk, float scale, int causal, int hp, int dropout, float inv,
+    int thresh, int seed, int q_off, int k_off, const void* q_seg,
     const void* kv_seg, long long q_seg_sb, long long kv_seg_sb,
     void* stream) {
   if (hp < 1 || h % hp) return static_cast<int>(cudaErrorInvalidValue);
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
+  const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(head_dim, q_seg, kv_seg, [&](auto d, auto has_seg) {
-    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true>(
+  return dispatch(head_dim, q_seg, kv_seg, dropout,
+                  [&](auto d, auto has_seg, auto drops) {
+    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true,
+                      decltype(drops)::value>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
-        sk, scale, causal, hp, seg, s);
+        sk, scale, causal, hp, seg, drop, s);
   });
 }

@@ -23,11 +23,29 @@ with `use_flash_attention=True`, else the dense path: the S² scores,
 the fused causal softmax kernel, the probabilities times v), the MLP is
 fc1 → tanh-gelu → fc2, the LM head is the tied embedding and the loss is
 the mean vocab-parallel cross entropy.
+
+Dropout (`GPTConfig.dropout`) applies when `apply` / `loss` get a key, a
+`torch.Generator`, as in the JAX package: on the attention weights (the
+flash kernels' in-kernel mask, or `_common.dropout` on the dense path's
+probabilities) and on both residual branches.  The key is folded with
+the tp rank and then with each layer's index (`tensor_parallel.random`),
+and a block splits its layer's key three ways; these derivations hash the
+key's state and never draw from it, so a recomputed block (`remat`)
+derives the same generators and draws the same masks.
+
+Activation checkpointing (`remat=True`) wraps each block in
+`torch.utils.checkpoint` (non-reentrant): `remat_policy` None recomputes
+the whole block in the backward; "dots" keeps every matmul's output
+(cuBLAS `mm` / `bmm` / `addmm`) and recomputes the rest, the flash
+kernels included, as `checkpoint_dots` treats a `pallas_call`;
+"names:a,b" keeps only the block's tensors tagged with those
+`REMAT_TAGS` (`_cn`), through selective-checkpoint policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Mapping, Optional
 
@@ -35,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
@@ -48,6 +67,20 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
 )
+from apex_tpu_torch.transformer.tensor_parallel.random import (
+    fold_in,
+    model_parallel_fold_in,
+    split,
+)
+
+# The tags `_cn` puts on the block's tensors — the single source of truth
+# shared by the block and remat_policy validation (the JAX package's).
+REMAT_TAGS = frozenset({"qkv", "attn_ctx", "attn_out", "ffn1", "ffn_out"})
+
+# the matmuls whose outputs the "dots" policy keeps
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +107,12 @@ class GPTConfig:
     attn_block_q: Any = None
     attn_block_k: Any = None
     attn_heads_per_step: Any = None
-    remat: bool = False            # activation checkpointing: not yet
+    remat: bool = False            # activation checkpointing per block
+    # what the per-block checkpoint may keep (the JAX package's dial):
+    #   None        — keep nothing, recompute the whole block
+    #   "dots"      — keep matmul outputs, recompute the rest
+    #   "names:a,b" — keep only the listed REMAT_TAGS tensors
+    remat_policy: Any = None
 
     @property
     def head_dim(self):
@@ -152,6 +190,21 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
     return convert(tree)
 
 
+def _remat_names(policy) -> Optional[tuple]:
+    """The tags a "names:a,b" policy keeps, checked against REMAT_TAGS
+    with the JAX package's message; None for another policy."""
+    if not (isinstance(policy, str) and policy.startswith("names:")):
+        return None
+    names = tuple(n for n in policy[6:].split(",") if n)
+    bad = [n for n in names if n not in REMAT_TAGS]
+    if bad:
+        raise ValueError(
+            f"remat_policy names {bad} do not match any "
+            f"checkpoint_name tag in _block; known tags: "
+            f"{sorted(REMAT_TAGS)}")
+    return names
+
+
 class GPT:
     """The GPT LM's training forward on one device ≡ the JAX package's
     `GPT` at tp=1, over the nested parameter dict of `init_gpt_params` /
@@ -159,21 +212,17 @@ class GPT:
 
     Attention follows `use_flash_attention`: the flash kernel, or (the
     default, as in the JAX package) the dense path through the causal
-    scaled softmax kernel.  Dropout is not applied: the JAX package's
-    `loss` applies it only when given a key, and its train step passes
-    none.  `remat=True` (activation checkpointing) is not ported yet and
-    raises."""
+    scaled softmax kernel.  Dropout applies when `apply` / `loss` get a
+    key, and `remat` checkpoints each block (module docstring)."""
 
     def __init__(self, config: GPTConfig):
         c = config
         if c.hidden % c.num_heads:
             raise ValueError(f"num_heads={c.num_heads} must divide "
                              f"hidden={c.hidden}")
-        if c.remat:
-            raise NotImplementedError(
-                "GPTConfig.remat (activation checkpointing and the "
-                "remat_policy dials) is not ported yet")
         self.c = c
+        # the tag `_cn` has just named, read by the "names:" policy
+        self._pending_tag = None
         h, f = c.hidden, c.ffn_mult * c.hidden
         self.embed = VocabParallelEmbedding(c.vocab_size, h)
         self.blocks = [(ColumnParallelLinear(h, 3 * h),
@@ -188,15 +237,34 @@ class GPT:
     def _ln(self, p, x):
         return fused_layer_norm(x, p["weight"], p["bias"])
 
-    def _attention(self, bp, qkv_mod, proj_mod, x):
-        """x: (S, B, H) → attention output (S, B, H)."""
+    def _dropout(self, key, x):
+        return _common.dropout(key, self.c.dropout, x)
+
+    def _cn(self, x, name):
+        """The JAX package's `checkpoint_name`: under a "names:" remat
+        policy, an alias of x that the policy may keep; otherwise x
+        itself (no op)."""
+        assert name in REMAT_TAGS, name  # keep REMAT_TAGS in sync with _block
+        c = self.c
+        if not (c.remat and _remat_names(c.remat_policy) is not None):
+            return x
+        self._pending_tag = name
+        return torch.ops.aten.alias.default(x)
+
+    def _attention(self, bp, qkv_mod, proj_mod, x, key=None):
+        """x: (S, B, H) → attention output (S, B, H); `key`: the
+        attention weights' dropout key (None: no dropout)."""
         c = self.c
         s, b, _ = x.shape
         qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
+        qkv = self._cn(qkv, "qkv")
         q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
         scale = 1.0 / math.sqrt(c.head_dim)
         if c.use_flash_attention:
+            rate = c.dropout if key is not None else 0.0
             ctx = flash_attention(q, k, v, causal=True, softmax_scale=scale,
+                                  dropout_rate=rate,
+                                  dropout_key=key if rate > 0 else None,
                                   block_q=c.attn_block_q,
                                   block_k=c.attn_block_k,
                                   heads_per_step=c.attn_heads_per_step)
@@ -206,29 +274,88 @@ class GPT:
             scores = torch.matmul(q, k.transpose(-2, -1))  # (B, nh, S, S)
             probs = scaled_upper_triang_masked_softmax(
                 scores.reshape(-1, s, s), scale).reshape(scores.shape)
+            probs = self._dropout(key, probs)
             ctx = torch.matmul(probs, v)                   # (B, nh, S, d)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
+        ctx = self._cn(ctx, "attn_ctx")
         return proj_mod.apply(bp["proj"], ctx)
 
-    def _block(self, i, params, x):
-        """ln1 → qkv → split heads → attention → proj → residual, then
-        ln2 → fc1 → tanh-gelu → fc2 → residual."""
+    def _block(self, i, params, x, key=None):
+        """ln1 → qkv → split heads → attention → proj → dropout →
+        residual, then ln2 → fc1 → tanh-gelu → fc2 → dropout → residual;
+        `key` (the layer's) splits three ways: attention weights and the
+        two residual branches."""
         qkv_mod, proj_mod, fc1, fc2 = self.blocks[i]
+        k1 = k2 = k3 = None
+        if key is not None:
+            k1, k2, k3 = split(key, 3)
         h = self._ln(params["ln1"], x)
-        x = x + self._attention(params, qkv_mod, proj_mod, h)
+        attn = self._attention(params, qkv_mod, proj_mod, h, k1)
+        attn = self._cn(attn, "attn_out")
+        x = x + self._dropout(k2, attn)
         h = self._ln(params["ln2"], x)
         m = fc1.apply(params["fc1"], h)
+        m = self._cn(m, "ffn1")
         m = F.gelu(m, approximate="tanh")
         m = fc2.apply(params["fc2"], m)
-        return x + m
+        m = self._cn(m, "ffn_out")
+        return x + self._dropout(k3, m)
 
-    def apply(self, params, tokens):
-        """tokens: (B, S) int ids → final hidden states (S, B, H)."""
+    def _keeps(self, ctx, func, *args, **kwargs):
+        """The selective-checkpoint policy of `remat_policy` ("dots" or
+        "names:..."): keep a matmul's output, or a tag's alias."""
+        from torch.utils.checkpoint import CheckpointPolicy
+
+        names = _remat_names(self.c.remat_policy)
+        if names is None:
+            keep = func in _DOT_OPS
+        else:
+            keep = (func is torch.ops.aten.alias.default
+                    and self._pending_tag in names)
+            if func is torch.ops.aten.alias.default:
+                self._pending_tag = None
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def _remat_kwargs(self) -> dict:
+        """torch.utils.checkpoint's arguments for `remat_policy`, or the
+        JAX package's ValueError for a policy it does not know."""
+        c = self.c
+        if c.remat_policy is None:
+            return {}
+        if (c.remat_policy == "dots"
+                or _remat_names(c.remat_policy) is not None):
+            from torch.utils.checkpoint import (
+                create_selective_checkpoint_contexts)
+            return {"context_fn": functools.partial(
+                create_selective_checkpoint_contexts, self._keeps)}
+        raise ValueError(
+            f"unknown remat_policy {c.remat_policy!r}; "
+            "expected None, 'dots', or 'names:...'")
+
+    def apply(self, params, tokens, key=None):
+        """tokens: (B, S) int ids → final hidden states (S, B, H); `key`
+        (a `torch.Generator`, or None for no dropout): folded with the tp
+        rank, then with each layer's index, before the layer (and its
+        checkpoint) runs."""
+        from torch.utils.checkpoint import checkpoint
+
+        c = self.c
+        ckpt = self._remat_kwargs() if c.remat else None
         h = self.embed.apply(params["embed"], tokens.T)    # (S, B, H)
         pos = params["pos_embed"][:tokens.shape[1]][:, None, :]
         h = h + pos.to(h.dtype)
-        for i in range(self.c.num_layers):
-            h = self._block(i, params[f"block{i}"], h)
+        if key is not None:
+            key = model_parallel_fold_in(key)
+        for i in range(c.num_layers):
+            bk = None if key is None else fold_in(key, i)
+            if ckpt is None:
+                h = self._block(i, params[f"block{i}"], h, bk)
+            else:
+                h = checkpoint(functools.partial(self._block, i),
+                               params[f"block{i}"], h, bk,
+                               use_reentrant=False, preserve_rng_state=False,
+                               **ckpt)
         return self._ln(params["final_ln"], h)
 
     def logits_local(self, params, h):
@@ -240,9 +367,9 @@ class GPT:
             return torch.matmul(h, w.t())
         return torch.matmul(h.float(), w.float().t()).to(out_dtype)
 
-    def loss(self, params, tokens, labels):
-        """Mean LM loss; tokens/labels (B, S)."""
-        h = self.apply(params, tokens)
+    def loss(self, params, tokens, labels, key=None):
+        """Mean LM loss; tokens/labels (B, S); `key` as `apply` takes it."""
+        h = self.apply(params, tokens, key)
         logits = self.logits_local(params, h)              # (S, B, V)
         loss = vocab_parallel_cross_entropy(logits, labels.T)
         return torch.mean(loss)

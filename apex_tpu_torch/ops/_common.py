@@ -70,6 +70,40 @@ def strict_matmul_numerics() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def host_seed(key: torch.Generator, low: int = -2 ** 31,
+              high: int = 2 ** 31 - 1) -> int:
+    """One draw in [low, high) from `key` as a host int.  `key` must be a
+    CPU `torch.Generator`: the draw then never waits for the card."""
+    if key.device.type != "cpu":
+        raise ValueError(
+            f"a key whose draws reach the host must be a CPU torch.Generator, "
+            f"got one on {key.device} (reading its draw would wait for the "
+            "card)")
+    return int(torch.randint(low, high, (1,), generator=key))
+
+
+def dropout(key: Optional[torch.Generator], rate: float, x: torch.Tensor):
+    """Inverted-bernoulli dropout ≡ the JAX package's `_common.dropout`:
+    zero each element with probability `rate` and scale the survivors by
+    1/(1-rate) (`x / (1 - rate)` in x's dtype).  With rate 0 or no key it
+    returns x itself.  The mask is `rand < 1 - rate` drawn from `key`, a
+    `torch.Generator`, when it lives on x's device; otherwise (a CPU key
+    for a CUDA tensor) from a generator on x's device seeded with one
+    host draw from `key`.  The one implementation shared by the dense
+    attention reference and the models (the flash kernels' in-kernel
+    mask is a coordinate hash: `ops.flash_attention.dropout_keep_dense`)."""
+    if rate == 0.0 or key is None:
+        return x
+    keep = 1.0 - rate
+    gen = key
+    if key.device.type != x.device.type:
+        gen = torch.Generator(device=x.device).manual_seed(
+            host_seed(key, 0, 2 ** 63 - 1))
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 

@@ -7,11 +7,15 @@ attention is top-left aligned: query i sees key j iff j <= i.
 Two implementations live here:
 
   * `attention_reference` — the plain PyTorch version: fp32 scores,
-    masked scores set to `_NEG_INF` (-1e30), softmax, P.V in fp32.  It
-    runs for CPU tensors (autograd gives its gradient), and
-    `chip_smoke.py` holds the kernels against it.  Beside it,
-    `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` are the plain
-    versions of the split backward's two passes, from the forward's lse.
+    masked scores set to `_NEG_INF` (-1e30), softmax, dropout by
+    `_common.dropout` (a bernoulli draw from the key, as the JAX
+    package's reference draws it), P.V in fp32.  It runs for CPU tensors
+    (autograd gives its gradient), and `chip_smoke.py` holds the kernels
+    against it.  Beside it, `flash_fwd_reference` is the plain version
+    of the forward kernels with their in-kernel dropout (o and the lse),
+    and `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` are the
+    plain versions of the backward's dq and dk/dv parts, from the
+    forward's lse.
   * the CUDA C++ kernels in `apex_tpu_torch/csrc/flash_attention.cu`,
     the ports of `_fwd_kernel`, `_fwd_kernel_packed`,
     `_bwd_fused_kernel`, `_bwd_fused_kernel_packed`, `_bwd_dq_kernel`
@@ -37,10 +41,20 @@ for this shape, dtype and device kind, as the JAX package does; a miss
 keeps hp = 1, so with an empty cache every call runs the kernels it ran
 before the tuner existed.
 
+Dropout (`dropout_rate` > 0 with a `dropout_key`) runs inside every
+kernel, as on the TPU: a score (head i = batch * h + head, global query
+row q, global key k) is kept where a murmur3-finalised hash of (seed, i,
+q, k) clears the rate (`dropout_keep_dense`, the JAX package's
+`_dropout_keep`), so the backward regenerates the forward's mask and
+the mask is the same whatever the tiles, the packing or the route.  The
+seed is one host draw from the key, a CPU `torch.Generator`, as the JAX
+package draws an int32 from its key; q_off / k_off shift the hash's rows
+and keys for a chunk of a longer sequence.
+
 On CUDA the kernels take the surface the training steps use: causal or
-not, segment ids or not (BERT's padding mask), bf16, head_dim 64 or 128,
-no bias, no dropout.  Everything else raises NotImplementedError on
-CUDA; on the CPU the plain version serves all of it.
+not, segment ids or not (BERT's padding mask), dropout or not, bf16,
+head_dim 64 or 128, no bias.  A bias raises NotImplementedError on CUDA;
+on the CPU the plain version serves all of it.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import check_kernel_device
 
 _NEG_INF = -1e30
@@ -191,10 +206,9 @@ def attention_reference(q, k, v, *, causal=False, softmax_scale=None,
                         dropout_rate=0.0, dropout_key=None):
     """Plain softmax attention with fp32 scores (the op sequence of the
     JAX package's `attention_reference`).  Dropout masks the
-    post-softmax weights with a bernoulli draw from `dropout_key`, a
-    `torch.Generator` (another stream than any kernel's, the same
-    distribution); with no key it applies none, as the JAX package's
-    `_common.dropout` does."""
+    post-softmax weights through `_common.dropout` with `dropout_key`, a
+    `torch.Generator` (a bernoulli draw: another stream than the
+    kernels' hash, the same distribution); with no key it applies none."""
     d = q.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
@@ -210,24 +224,141 @@ def attention_reference(q, k, v, *, causal=False, softmax_scale=None,
                           device=s.device).triu(1)
         s = s.masked_fill(mask, _NEG_INF)
     p = torch.softmax(s, dim=-1)
-    if dropout_rate > 0.0 and dropout_key is not None:
-        keep = torch.rand(p.shape, generator=dropout_key,
-                          device=p.device) >= dropout_rate
-        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+    p = _common.dropout(dropout_key, dropout_rate, p)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+# ------------------------------ in-kernel dropout ----------------------------
+#
+# The TPU kernels' keep mask (`_dropout_keep` over `_fmix32`,
+# apex_tpu/ops/flash_attention.py:183-224): for head i (batch * h + head),
+# global query row q and global key k,
+#   v = fmix32(seed * 1000003 + i + k * 0x9e3779b1 + q * 0x85ebca77)
+# in wrapping 32-bit arithmetic with logical shifts, and the score is kept
+# where (v & 0x7fffffff) >= int(rate * 2^31).  Here the 32-bit words are
+# held in int64 tensors in [0, 2^32), and products are taken by 16-bit
+# halves so that no int64 product overflows.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a, c):
+    """(a * c) mod 2^32 for an int64 tensor `a` in [0, 2^32) and a
+    constant 0 <= c < 2^32."""
+    lo = (a & 0xFFFF) * c
+    hi = ((a >> 16) * c) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def _fmix32(h):
+    """murmur3's finalizer on 32-bit words (int64 tensors in [0, 2^32),
+    so >> is the logical shift of the JAX package's uint32 lanes)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _i32(x) -> int:
+    """An integer (or a one-element tensor or array) as an int32 value,
+    wrapped as the JAX package's int32 casts wrap it."""
+    if hasattr(x, "reshape"):
+        x = x.reshape(-1)[0]
+    return ((int(x) + 2 ** 31) & _M32) - 2 ** 31
+
+
+def _seed3(seed, q_off=0, k_off=0):
+    """(seed, global q offset, global k offset) as int32 values (the JAX
+    package's `_seed3`, there a (3, 1) int32 operand): None is seed 0; a
+    tensor or array seed gives its first element."""
+    return (_i32(0 if seed is None else seed), _i32(q_off), _i32(k_off))
+
+
+def _threshold(rate: float) -> int:
+    """The hash's keep threshold on its low 31 bits, as the JAX package
+    computes it."""
+    return int(rate * 2147483648.0)
+
+
+def dropout_keep_dense(seed, b, h, sq, sk, rate, q_off=0, k_off=0,
+                       device=None):
+    """The dense (b, h, sq, sk) keep mask, bool: the bits of the kernels'
+    in-kernel hash (head i = batch * h + head, query rows q_off .. q_off +
+    sq - 1, keys k_off .. k_off + sk - 1), equal to the JAX package's
+    `dropout_keep_dense` bit for bit."""
+    seed, q_off, k_off = _seed3(seed, q_off, k_off)
+    i64 = dict(dtype=torch.int64, device=device)
+    head = (((seed & _M32) * 1000003) & _M32) + torch.arange(b * h, **i64)
+    qt = _mul32((q_off + torch.arange(sq, **i64)) & _M32, 0x85EBCA77)
+    kt = _mul32((k_off + torch.arange(sk, **i64)) & _M32, 0x9E3779B1)
+    v = (head.reshape(b, h, 1, 1) + qt.reshape(1, 1, sq, 1)
+         + kt.reshape(1, 1, 1, sk)) & _M32
+    return (_fmix32(v) & 0x7FFFFFFF) >= _threshold(rate)
+
+
+def _drop_mask(dropout_rate, seed, b, h, r0, r1, nk, device):
+    """The keep mask of query rows [r0, r1) and keys [0, nk) under
+    `seed` = (seed, q_off, k_off), or None without dropout."""
+    if not dropout_rate:
+        return None
+    s, q_off, k_off = _seed3(*seed)
+    return dropout_keep_dense(s, b, h, r1 - r0, nk, dropout_rate,
+                              q_off + r0, k_off, device=device)
+
+
+def flash_fwd_reference(q, k, v, scale, causal, q_seg=None, kv_seg=None,
+                        dropout_rate=0.0, seed=(0, 0, 0)):
+    """Plain version of the forward kernels, on any device: (o in q's
+    dtype, lse (b, h, sq) fp32), `_REFERENCE_ROWS` query rows at a time.
+    Scores in fp32 with masked ones at -1e30 (`attention_reference`'s
+    masks), p = softmax, and with `dropout_rate` the kernels' dropout:
+    p·v takes where(keep, p, 0) · 1/(1 - rate), keep =
+    `dropout_keep_dense` under `seed` = (seed, q_off, k_off), while the
+    lse stays the undropped softmax's.  Differentiable (autograd)."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    dev = q.device
+    inv = 1.0 / (1.0 - dropout_rate)
+    outs, lses = [], []
+    for r0 in range(0, sq, _REFERENCE_ROWS):
+        r1 = min(sq, r0 + _REFERENCE_ROWS)
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
+                         k.float()) * scale
+        keep = torch.ones((r1 - r0, sk), dtype=torch.bool, device=dev)
+        if q_seg is not None:
+            keep = keep & (q_seg[:, None, r0:r1, None]
+                           == kv_seg[:, None, None, :])
+        if causal:
+            keep = keep & (torch.arange(r0, r1, device=dev)[:, None]
+                           >= torch.arange(sk, device=dev)[None, :])
+        s = s.masked_fill(~keep, _NEG_INF)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.softmax(s, dim=-1)    # a dead row: uniform, as the kernels
+        drop = _drop_mask(dropout_rate, seed, b, h, r0, r1, sk, dev)
+        if drop is not None:
+            p = torch.where(drop, p, 0.0) * inv
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, v.float()))
+        lses.append(lse)
+    return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
+
+
 def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
-                      kv_seg, all_keys):
-    """The split backward's score blocks, `_REFERENCE_ROWS` query rows at
-    a time: (r0, r1, nk, p, ds) in fp32 over keys [0, nk).  p = exp(scale
+                      kv_seg, all_keys, dropout_rate=0.0, seed=(0, 0, 0)):
+    """The backward's score blocks, `_REFERENCE_ROWS` query rows at a
+    time: (r0, r1, nk, p, ds) in fp32 over keys [0, nk).  p = exp(scale
     q kᵀ − lse) where a key is visible, and where it is masked 1/sk for a
     row whose keys are all masked (its lse is about -1e30: the uniform
-    weights of `attention_reference`), else 0; ds = p (do vᵀ − delta),
-    0 wherever masked.  Causal without `all_keys` stops at the block's
-    last row (every p and ds past it is 0; not so for a dead row's p)."""
-    sq, sk = q.shape[2], k.shape[2]
+    weights of `attention_reference`), else 0; ds = p (dp − delta), 0
+    wherever masked, dp = do vᵀ.  With dropout (the kernels' mask under
+    `seed`, as `flash_fwd_reference` applies it) dp is masked and scaled
+    before ds, and the p returned (dv's) is the dropped, scaled one.
+    Causal without `all_keys` stops at the block's last row (every p and
+    ds past it is 0; not so for a dead row's p)."""
+    b, h, sq = q.shape[:3]
+    sk = k.shape[2]
     dev = q.device
+    inv = 1.0 / (1.0 - dropout_rate)
     for r0 in range(0, sq, _REFERENCE_ROWS):
         r1 = min(sq, r0 + _REFERENCE_ROWS)
         nk = min(sk, r1) if causal and not all_keys else sk
@@ -246,21 +377,29 @@ def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
         del s
         dp = torch.einsum("bhqd,bhkd->bhqk", do[:, :, r0:r1].float(),
                           v[:, :, :nk].float())
+        drop = _drop_mask(dropout_rate, seed, b, h, r0, r1, nk, dev)
+        if drop is not None:
+            dp = torch.where(drop, dp, 0.0) * inv
         ds = torch.where(keep, p * (dp - delta[:, :, r0:r1, None]), 0.0)
         del dp, keep
+        if drop is not None:
+            p = torch.where(drop, p, 0.0) * inv
         yield r0, r1, nk, p, ds
 
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
-                           q_seg=None, kv_seg=None):
-    """Plain version of the split backward's dq pass (`_bwd_dq_kernel`),
-    on any device: dq = scale ds k from the forward's fp32 `lse` and
-    `delta = sum(do * o, -1)` in fp32, ds rounded to the inputs' dtype
-    before its product as the kernels round it.  Returns dq in q's
-    dtype."""
+                           q_seg=None, kv_seg=None, dropout_rate=0.0,
+                           seed=(0, 0, 0)):
+    """Plain version of the backward's dq (the split route's dq pass,
+    `_bwd_dq_kernel`, and the fused kernels' dq), on any device: dq =
+    scale ds k from the forward's fp32 `lse` and `delta = sum(do * o,
+    -1)` in fp32, ds rounded to the inputs' dtype before its product as
+    the kernels round it; `dropout_rate` and `seed` (seed, q_off, k_off)
+    as the forward had them.  Returns dq in q's dtype."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for r0, r1, nk, _, ds in _split_bwd_blocks(
-            q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg, False):
+            q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg, False,
+            dropout_rate, seed):
         dq[:, :, r0:r1] = (scale * torch.einsum(
             "bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
             k[:, :, :nk].float())).to(q.dtype)
@@ -268,17 +407,19 @@ def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, causal,
-                            q_seg=None, kv_seg=None):
-    """Plain version of the split backward's dk/dv pass
-    (`_bwd_dkv_kernel`), on any device: dv = pᵀ do and dk = scale dsᵀ q,
-    summed over the query blocks in fp32, p and ds rounded to the
-    inputs' dtype before their products.  Returns (dk, dv) in k's and
-    v's dtypes."""
+                            q_seg=None, kv_seg=None, dropout_rate=0.0,
+                            seed=(0, 0, 0)):
+    """Plain version of the backward's dk and dv (the split route's dk/dv
+    pass, `_bwd_dkv_kernel`, and the fused kernels' dk, dv), on any
+    device: dv = pᵀ do (p dropped and scaled with dropout) and dk = scale
+    dsᵀ q, summed over the query blocks in fp32, p and ds rounded to the
+    inputs' dtype before their products; `dropout_rate` and `seed` as
+    the forward had them.  Returns (dk, dv) in k's and v's dtypes."""
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for r0, r1, nk, p, ds in _split_bwd_blocks(
             q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg,
-            q_seg is not None):
+            q_seg is not None, dropout_rate, seed):
         dv[:, :, :nk] += torch.einsum("bhqk,bhqd->bhkd",
                                       p.to(q.dtype).float(),
                                       do[:, :, r0:r1].float())
@@ -298,6 +439,9 @@ def _bind(lib):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     i64, i64p = ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)
     seg = [vp, vp, i64, i64]           # q_seg, kv_seg and their batch strides
+    # dropout (a flag; 1/(1 - rate); the hash's threshold; seed, q_off,
+    # k_off) before the segment ids (`_drop_args`)
+    seg = [i32, f32, i32, i32, i32, i32] + seg
     lib.apex_flash_attn_fwd.restype = i32
     lib.apex_flash_attn_fwd.argtypes = [
         i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
@@ -420,16 +564,33 @@ def _raise_launch_error(err, what):
                            f"error {err}")
 
 
-def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
+def _drop_args(dropout_rate, seed):
+    """The C interface's dropout arguments: [flag, 1/(1 - rate) as fp32,
+    the hash's threshold, seed, q_off, k_off] (`seed` = the (seed, q_off,
+    k_off) triple).  Rate 0 launches the kernels without dropout."""
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if not dropout_rate:
+        return [0, 1.0, 0, 0, 0, 0]
+    return [1, 1.0 / (1.0 - dropout_rate), _threshold(dropout_rate),
+            *_seed3(*seed)]
+
+
+def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None,
+                   dropout_rate=0.0, seed=(0, 0, 0)):
     """Launch the forward kernel on the current stream; `q_seg` (b, sq)
     and `kv_seg` (b, sk) are optional integer segment ids (both or
-    neither).  Returns (o (b, h, sq, d) bf16, lse (b, h, sq) fp32).
-    `flash_fwd_cuda.launches` counts launches."""
+    neither); `dropout_rate` > 0 drops p·v's weights by the in-kernel
+    hash under `seed` = (seed, q_off, k_off) (`dropout_keep_dense`).
+    Returns (o (b, h, sq, d) bf16, lse (b, h, sq) fp32).
+    `flash_fwd_cuda.launches` counts launches, and `.dropout_launches`
+    those with dropout (each launcher of this module has both)."""
     _check_kernel_inputs(q, k, v)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    drop = _drop_args(dropout_rate, seed)
     _require_cuda(q, k, v, *keep)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -437,13 +598,15 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None):
     err = _lib().apex_flash_attn_fwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
-        int(bool(causal)), *seg, stream)
+        int(bool(causal)), *drop, *seg, stream)
     _raise_launch_error(err, "forward")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.dropout_launches = 0
 
 
 def _check_heads_per_step(hp, h):
@@ -453,7 +616,7 @@ def _check_heads_per_step(hp, h):
 
 
 def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
-                          kv_seg=None):
+                          kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
     """Launch the packed forward kernel on the current stream: the
     arguments of `flash_fwd_cuda` and `hp`, the heads of one batch row
     each block walks (it must divide h).  o and lse are
@@ -465,6 +628,7 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
     sk = k.shape[2]
     _check_heads_per_step(hp, h)
     seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    drop = _drop_args(dropout_rate, seed)
     _require_cuda(q, k, v, *keep)
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -472,13 +636,15 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
     err = _lib().apex_flash_attn_fwd_packed(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
-        int(bool(causal)), hp, *seg, stream)
+        int(bool(causal)), hp, *drop, *seg, stream)
     _raise_launch_error(err, "packed forward")
     flash_fwd_packed_cuda.launches += 1
+    flash_fwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return o, lse
 
 
 flash_fwd_packed_cuda.launches = 0
+flash_fwd_packed_cuda.dropout_launches = 0
 
 
 def _require_cuda(*ts):
@@ -489,16 +655,18 @@ def _require_cuda(*ts):
                          "CPU tensors go to the plain versions")
 
 
-def _bwd_operands(q, k, v, do, lse, delta, q_seg, kv_seg):
+def _bwd_operands(q, k, v, do, lse, delta, q_seg, kv_seg, dropout_rate,
+                  seed):
     """The checks every backward launcher makes before it launches (the
-    kernel surface, segment ids, do, lse, delta, the device), and the
-    operands as the kernels read them: (q, k, v, do, seg args, the id
-    tensors they point into)."""
+    kernel surface, segment ids, dropout, do, lse, delta, the device),
+    and the operands as the kernels read them: (q, k, v, do, dropout and
+    seg args, the id tensors they point into)."""
     _check_kernel_inputs(q, k, v)
     q, k, v, do = (_kernel_operand(t) for t in (q, k, v, do))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
+    seg = _drop_args(dropout_rate, seed) + seg
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q "
                          f"{tuple(q.shape)} {q.dtype}")
@@ -521,15 +689,15 @@ def _dq_scratch(b, h, sq, d, device):
 
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                   kv_seg=None):
+                   kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
     """Launch the fused backward kernel on the current stream: dq, dk, dv
     from q, k, v, the output gradient `do`, the forward's fp32 `lse` and
-    `delta = sum(do * o, -1)` in fp32, with the forward's segment ids.
-    dq is summed across key tiles in an fp32 scratch buffer by bulk
+    `delta = sum(do * o, -1)` in fp32, with the forward's segment ids and
+    dropout (`dropout_rate`, `seed`: the mask regenerated).  dq is summed across key tiles in an fp32 scratch buffer by bulk
     reduce-adds and cast once.  `flash_bwd_cuda.launches` counts
     launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
-                                            kv_seg)
+                                            kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
@@ -543,14 +711,17 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         float(scale), int(bool(causal)), *seg, stream)
     _raise_launch_error(err, "backward")
     flash_bwd_cuda.launches += 1
+    flash_bwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dq_acc.to(q.dtype), dk, dv
 
 
 flash_bwd_cuda.launches = 0
+flash_bwd_cuda.dropout_launches = 0
 
 
 def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
-                          q_seg=None, kv_seg=None):
+                          q_seg=None, kv_seg=None, dropout_rate=0.0,
+                          seed=(0, 0, 0)):
     """Launch the packed fused backward kernel on the current stream: the
     arguments of `flash_bwd_cuda` and `hp` (dividing h).  dk and dv are
     `flash_bwd_cuda`'s bit for bit; dq is summed by the same fp32
@@ -558,7 +729,7 @@ def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
     `flash_bwd_packed_cuda.launches` counts launches."""
     _check_heads_per_step(hp, q.shape[1])
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
-                                            kv_seg)
+                                            kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
@@ -572,21 +743,23 @@ def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
         float(scale), int(bool(causal)), hp, *seg, stream)
     _raise_launch_error(err, "packed backward")
     flash_bwd_packed_cuda.launches += 1
+    flash_bwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dq_acc.to(q.dtype), dk, dv
 
 
 flash_bwd_packed_cuda.launches = 0
+flash_bwd_packed_cuda.dropout_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                      kv_seg=None):
+                      kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
     """Launch the split backward's dq pass on the current stream (the
     arguments of `flash_bwd_cuda`).  Each dq row is summed over its key
     tiles in registers and written once, in bf16: no atomics, the same
     bits on every run.  The kernel takes its work items from a zeroed
     int32 counter.  `flash_bwd_dq_cuda.launches` counts launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
-                                            kv_seg)
+                                            kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
@@ -599,20 +772,22 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         int(bool(causal)), *seg, stream)
     _raise_launch_error(err, "dq pass")
     flash_bwd_dq_cuda.launches += 1
+    flash_bwd_dq_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.dropout_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                       kv_seg=None):
+                       kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
     """Launch the split backward's dk/dv pass on the current stream (the
     arguments of `flash_bwd_cuda`): the fused kernel without its dq
     part, so dk and dv are the fused kernel's bit for bit.  Returns (dk,
     dv) in bf16.  `flash_bwd_dkv_cuda.launches` counts launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
-                                            kv_seg)
+                                            kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
@@ -626,10 +801,12 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         int(bool(causal)), *seg, stream)
     _raise_launch_error(err, "dk/dv pass")
     flash_bwd_dkv_cuda.launches += 1
+    flash_bwd_dkv_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.dropout_launches = 0
 
 
 class _FlashFn(torch.autograd.Function):
@@ -637,17 +814,25 @@ class _FlashFn(torch.autograd.Function):
     kernel when `hp` > 1 and saves o and the fp32 lse; backward forms
     delta = sum(do * o) in fp32 (as `_bwd_impl` does) and runs the packed
     fused kernel, the fused kernel or the split pair, as `backward_route`
-    says.  `hp` is already resolved (`_resolve_heads_per_step`)."""
+    says.  `hp` is already resolved (`_resolve_heads_per_step`).  With
+    `dropout_rate` > 0 every launch, forward and backward, gets the rate
+    and `seed` = (seed, q_off, k_off), so the backward regenerates the
+    forward's mask; at rate 0 the launchers are called as they were
+    before dropout existed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg, hp):
+    def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg, hp,
+                dropout_rate=0.0, seed=(0, 0, 0)):
+        drop = ({} if not dropout_rate
+                else {"dropout_rate": dropout_rate, "seed": seed})
         if hp > 1:
             o, lse = flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg,
-                                           kv_seg)
+                                           kv_seg, **drop)
         else:
-            o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg)
+            o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg,
+                                    **drop)
         ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
-        ctx.scale, ctx.causal, ctx.hp = scale, causal, hp
+        ctx.scale, ctx.causal, ctx.hp, ctx.drop = scale, causal, hp, drop
         return o
 
     @staticmethod
@@ -657,13 +842,14 @@ class _FlashFn(torch.autograd.Function):
         args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal)
         route = backward_route(k.shape[2], q.shape[3], ctx.hp)
         if route == "packed":
-            dq, dk, dv = flash_bwd_packed_cuda(*args, ctx.hp, q_seg, kv_seg)
+            dq, dk, dv = flash_bwd_packed_cuda(*args, ctx.hp, q_seg, kv_seg,
+                                               **ctx.drop)
         elif route == "fused":
-            dq, dk, dv = flash_bwd_cuda(*args, q_seg, kv_seg)
+            dq, dk, dv = flash_bwd_cuda(*args, q_seg, kv_seg, **ctx.drop)
         else:
-            dq = flash_bwd_dq_cuda(*args, q_seg, kv_seg)
-            dk, dv = flash_bwd_dkv_cuda(*args, q_seg, kv_seg)
-        return dq, dk, dv, None, None, None, None, None
+            dq = flash_bwd_dq_cuda(*args, q_seg, kv_seg, **ctx.drop)
+            dk, dv = flash_bwd_dkv_cuda(*args, q_seg, kv_seg, **ctx.drop)
+        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 # --------------------------------- public API -------------------------------
@@ -682,9 +868,15 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     bias_grad: bool = True):
     """Flash attention over (batch, heads, seq, head_dim) ≡ the JAX
     package's `flash_attention` (same arguments and checks).  CPU tensors
-    run the plain version (which takes every argument; `dropout_key` is
-    a `torch.Generator` there); CUDA tensors run the kernels or raise:
-    bias and dropout raise NotImplementedError on CUDA.  Segment ids go
+    run the plain version (`attention_reference`, which takes every
+    argument; dropout there is `_common.dropout`'s bernoulli draw from
+    `dropout_key`, as the JAX package's reference draws it); CUDA tensors
+    run the kernels or raise: a bias raises NotImplementedError on CUDA.
+    With `dropout_rate` > 0 the kernels drop in-kernel by the coordinate
+    hash (`dropout_keep_dense`) under one int32 seed drawn on the host
+    from `dropout_key`, a CPU `torch.Generator` (no device sync), as the
+    JAX package draws `jax.random.randint(key, (1, 1), -2**31, 2**31 -
+    1)` for its kernels.  Segment ids go
     to the segment-masked kernels as they are, never read on the host;
     a masked score is -1e30, so a query row with every key masked gets
     uniform weights over the keys, as the plain version gives it.
@@ -739,14 +931,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
             q, k, v, causal=causal, softmax_scale=scale, bias=bias,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             dropout_rate=dropout_rate, dropout_key=dropout_key)
-    unsupported = [name for name, on in (
-        ("bias", bias is not None),
-        ("dropout", dropout_rate > 0.0)) if on]
-    if unsupported:
+    if bias is not None:
         raise NotImplementedError(
-            f"flash attention on CUDA does not take {', '.join(unsupported)} "
-            "yet (the training steps' surface is causal or not, segment "
-            "ids or not, no bias, no dropout)")
+            "flash attention on CUDA does not take bias yet (the training "
+            "steps' surface is causal or not, segment ids or not, dropout "
+            "or not, no bias)")
     if _pick_block(sq) and _pick_block(sk):    # where JAX runs its kernels
         if block_q is None and block_k is None and heads_per_step is None:
             # the key's bias kind is "none": CUDA takes no bias
@@ -759,5 +948,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
         _fit_block(block_q, sq, "block_q")
         _fit_block(block_k, sk, "block_k")
     hp = _resolve_heads_per_step(heads_per_step, h)
+    if dropout_rate > 0.0:
+        seed = _seed3(_common.host_seed(dropout_key))
+        return _FlashFn.apply(q, k, v, float(scale), bool(causal),
+                              q_segment_ids, kv_segment_ids, hp,
+                              float(dropout_rate), seed)
     return _FlashFn.apply(q, k, v, float(scale), bool(causal),
                           q_segment_ids, kv_segment_ids, hp)

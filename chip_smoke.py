@@ -11,8 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  registers and spills by kernel, the flash backward's
                  and the dq pass's dynamic shared memory and any
                  serialised-wgmma note (C7512, C7515, C7518, C7520) are
-                 logged; the dq pass's four kernels must have no spills
-                 and no such note, nor the fused dense GEMM's fp32 and
+                 logged; the dq pass's eight kernels must have no spills
+                 and no such note, the 24 dropout instantiations of the
+                 flash kernels no spill and no such note that their
+                 rate-0 twins lack, nor the fused dense GEMM's fp32 and
                  GEMV kernels any spill (their registers and spills in
                  its summary line, by kernel family), nor any kernel of
                  the LayerNorm backward or flash-decode (a summary line
@@ -86,9 +88,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  packed forward with the unpacked fused backward (hp=16
                  at (8, 16, 2048, 64), past the packed cap) and with the
                  split backward (hp=2 at (1, 8, 32768, 64)), against
-                 hp=1; the generic elementwise launcher with an axpy and
-                 an Adam-shaped body over 1e8 + 37 fp32 elements, bit
-                 for bit with their plain versions.
+                 hp=1; the flash kernels with in-kernel dropout: each
+                 kernel's keep mask read back (v = I, do = I; k = I for
+                 dq) bit for bit `dropout_keep_dense` at rates 0.1 and
+                 0.5, q_off 0 and 4096, head_dim 64 and 128; then at
+                 rates 0.1 and 0.5 the forward, the fused backward and
+                 the packed pair at GPT's causal (12, 16, 1024, 64) on
+                 its views, non-causal (8, 16, 2048, 64), head_dim 128,
+                 BERT's (32, 16, 512, 64) with ragged padding, the split
+                 pair at (1, 16, 8192, 64) causal and q_off 4096: o, dq,
+                 dk, dv against the plain versions within the rate-0
+                 tolerances, lse bit for bit rate 0's, each run twice
+                 for the same bits, hp 2 and 4 bit for bit hp 1 (o,
+                 lse, dk, dv), the dk/dv pass bit for bit the fused
+                 kernel; the generic elementwise launcher with an axpy
+                 and an Adam-shaped body over 1e8 + 37 fp32 elements,
+                 bit for bit with their plain versions.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -216,7 +231,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  loss bit for bit the hp=1 phase's; tokens/s, seq/s and
                  peak memory beside phases 5 and 6's; a 2-layer
                  kernels-vs-plain step of each.
- 12. table       the kernels' times on the card (CUDA events) beside
+ 12. slice 14    phase 5's GPT-350M step with dropout 0.1, a fresh step
+                 key each step through `loss_fn`, 2 + 3 steps: the loss
+                 falls, every step runs 24 dropout flash forwards and
+                 backwards (and no other flash launch), 49 LayerNorm
+                 forwards and backwards and one Adam, no host sync;
+                 tokens/s, peak memory, one profiled step with the
+                 dropout kernels' device ms beside phase 5's, a 2-layer
+                 kernels-vs-plain step on one key (the plain flash with
+                 the kernels' mask).  The same with remat under None,
+                 "dots" and "names:attn_ctx,ffn1", 1 + 2 steps each:
+                 48 flash forwards and 97 LayerNorm forwards a step (the
+                 recompute runs each block's forward again), peak
+                 memory, device ms; one step's loss and gradients with
+                 and without remat (full width, 2 layers), and whether
+                 their bits agree.  bench.py's `_adam_1b_step_ms`
+                 (`adam_flat` over 1e9 fp32 params, bf16 grads, 3 + 20
+                 steps; ms a step beside its 26-bytes-a-param bound) and
+                 `_gpt1p3b_tokens_per_sec` (GPT-1.3B, batch 7 x 512,
+                 bf16, flash, FusedAdam master bf16, 3 + 20 steps;
+                 tokens/s, peak memory, one profiled step).
+ 13. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -228,7 +263,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  LayerNorm backward at GPT's and BERT's rows beside
                  F.layer_norm's backward; flash-decode with a cold and a
                  warm L2, by slot length (0, 1, 256) and at the long
-                 case, beside SDPA.
+                 case, beside SDPA; the flash kernels' dropout
+                 instantiations at rate 0.1 beside their rate-0 times
+                 and SDPA with dropout_p=0.1.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -575,6 +612,60 @@ def bwd_ptxas(fa, log_text):
     smem.update({f"dq pass d={d} seg={seg}": lib.apex_flash_attn_bwd_dq_smem(
         d, seg) for d in (64, 128) for seg in (0, 1)})
     return rows, smem, notes
+
+
+def flash_ptxas(log_text):
+    """Every flash kernel's lines of ptxas' report: {mangled name:
+    {"registers", "spills"}} and {mangled name: [serialised-wgmma note
+    codes (C7512, C7515, C7518, C7520)]}."""
+    rows, notes, name = {}, {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else None
+        elif name and "Used " in line:
+            rows.setdefault(name, {})["registers"] = int(
+                line.split("Used ")[1].split()[0])
+        elif name and "spill" in line:
+            rows.setdefault(name, {})["spills"] = line.strip()
+        if "Performance Loss" in line:
+            code = re.search(r"\((C75\d\d)\)", line)
+            fn = re.search(r"'(_Z[^']+)'", line)
+            if code and fn:
+                notes.setdefault(fn.group(1), []).append(code.group(1))
+    return rows, notes
+
+
+def dropout_twin(name):
+    """The rate-0 twin of a DROP instantiation's mangled name (its last
+    template argument, `Lb1E`, set to `Lb0E`), or None if `name` is not
+    one."""
+    m = re.match(r"(.*I(?:L[ib]\d+E)*)Lb1EE(.*)", name)
+    if m is None or not any(k in name for k in (
+            "flash_fwd_kernel", "flash_fwd_packed_kernel", "flash_bwd_kernel",
+            "flash_bwd_packed_kernel", "flash_bwd_dq_kernel")):
+        return None
+    return f"{m.group(1)}Lb0EE{m.group(2)}"
+
+
+def check_dropout_ptxas(log_text):
+    """Phase 1's gate on the dropout instantiations: each has no spill and
+    no serialised-wgmma note that its rate-0 twin lacks.  Returns their
+    registers by kernel, beside the twin's."""
+    rows, notes = flash_ptxas(log_text)
+    out = {}
+    for name, r in rows.items():
+        twin = dropout_twin(name)
+        if twin is None or twin not in rows:
+            continue
+        check(r.get("spills", "").startswith(
+            "0 bytes stack frame, 0 bytes spill"),
+            f"dropout instantiation {name} spills: {r}")
+        new = set(notes.get(name, [])) - set(notes.get(twin, []))
+        check(not new, f"dropout instantiation {name}: serialised-wgmma "
+              f"notes {sorted(new)} that its rate-0 twin lacks")
+        out[name] = (r.get("registers"), rows[twin].get("registers"))
+    check(len(out) == 24, f"{len(out)} dropout instantiations, want 24")
+    return out
 
 
 def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype, rms=False,
@@ -1349,14 +1440,30 @@ def training_kernels(fa, ln, ok):
             "adagrad": ok.adagrad_flat_triton}
 
 
+# the flash launchers' counts of their dropout launches (the DROP
+# instantiations), by row name
+DROPOUT_KERNELS = {
+    "flash_attention_fwd_dropout": "flash_fwd_cuda",
+    "flash_attention_bwd_dropout": "flash_bwd_cuda",
+    "flash_attention_fwd_packed_dropout": "flash_fwd_packed_cuda",
+    "flash_attention_bwd_packed_dropout": "flash_bwd_packed_cuda",
+    "flash_attention_bwd_dq_dropout": "flash_bwd_dq_cuda",
+    "flash_attention_bwd_dkv_dropout": "flash_bwd_dkv_cuda"}
+
+
 def kernel_counts(fa, ln, ok):
-    return {name: fn.launches
-            for name, fn in training_kernels(fa, ln, ok).items()}
+    counts = {name: fn.launches
+              for name, fn in training_kernels(fa, ln, ok).items()}
+    counts.update({name: getattr(fa, fn).dropout_launches
+                   for name, fn in DROPOUT_KERNELS.items()})
+    return counts
 
 
 def reset_kernel_counts(fa, ln, ok):
     for fn in training_kernels(fa, ln, ok).values():
         fn.launches = 0
+    for fn in DROPOUT_KERNELS.values():
+        getattr(fa, fn).dropout_launches = 0
 
 
 def tune_stats(reset=False):
@@ -1485,9 +1592,24 @@ def train_loop(torch, fa, ln, ok, what, step, state, args, per_step,
                    "launches_per_step": per_step}
 
 
+def keyed_loss(torch, model, seed=None):
+    """`model.loss` with a dropout key: a fresh CPU generator each call
+    (seeds 0, 1, 2, ...), or with `seed` the same one every call."""
+    import itertools
+
+    seeds = itertools.count()
+
+    def loss_fn(p, t, lab):
+        key = torch.Generator().manual_seed(
+            next(seeds) if seed is None else seed)
+        return model.loss(p, t, lab, key=key)
+
+    return loss_fn
+
+
 def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
                     opt_swaps, per_step, names, warmup, steps, batch=12,
-                    seq=1024, lr=1e-4, model_kw=None):
+                    seq=1024, lr=1e-4, model_kw=None, compare=True):
     """The GPT-350M training step at full width (module docstring,
     phases 5, 8 and 9): `gpt_350m` in bf16, batch x seq (12 x 1024
     unless asked), bf16 logits, seed-0 weights, `flash` attention or the
@@ -1499,23 +1621,27 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
     with the plain step (`opt_swaps`: the optimizer's plain stand-ins)
     at two of the batch's sequences (one when the batch has one); `lr`
     is the optimizer's, which bounds how far one step moves a weight;
-    `model_kw`: more `GPTConfig` fields.  Returns the measurements and
-    that comparison."""
+    `model_kw`: more `GPTConfig` fields (with a `dropout`, each step gets
+    a fresh key through `loss_fn`, and the comparison one fixed key).
+    Returns the measurements and that comparison."""
     from apex_tpu_torch.models import gpt as gpt_mod
     from apex_tpu_torch.transformer.training import (
         init_sharded_optimizer, make_tp_dp_train_step)
 
     bf16 = torch.bfloat16
-    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=seq, dropout=0.0,
-                             dtype=bf16, logits_dtype=bf16,
-                             use_flash_attention=flash, **(model_kw or {}))
+    model = gpt_mod.gpt_350m(**{
+        "vocab_size": 50304, "seq_len": seq, "dropout": 0.0, "dtype": bf16,
+        "logits_dtype": bf16, "use_flash_attention": flash,
+        **(model_kw or {})})
     cfg = model.c
     params = model.init(seed=0)
     opt = make_opt(params)
     state = init_sharded_optimizer(opt, model, params)
     del params
     n_params = sum(opt.spec.sizes)
-    step = make_tp_dp_train_step(model, opt)
+    keyed = cfg.dropout > 0
+    step = make_tp_dp_train_step(
+        model, opt, loss_fn=keyed_loss(torch, model) if keyed else None)
     gen = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda", dtype=torch.int32)
@@ -1537,19 +1663,26 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
         params=n_params,
         tokens_per_s=batch * seq * steps / result["window_s"],
         host_syncs_per_step=len(syncs), profile=profile_line)
+    if not compare:
+        return result, None
     return result, compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what,
                                       make_opt, opt_swaps, tokens[:2],
-                                      labels[:2], lr=lr)
+                                      labels[:2], lr=lr, keyed=keyed)
 
 
 def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
-                    batch=12, seq=1024, heads_per_step=None):
+                    batch=12, seq=1024, heads_per_step=None, dropout=0.0,
+                    remat_policy=False, compare=True):
     """The flash GPT-350M step with FusedAdam(lr=1e-4, master bf16) at
-    batch x seq (phases 5, 9 and 11).  `backward` is the route every
+    batch x seq (phases 5, 9, 11 and 12).  `backward` is the route every
     layer's backward must take, "fused" (seq 1024), "split" (seq 8192)
     or "packed" (`heads_per_step` > 1, phase 11, whose forward is the
     packed one too): 24 launches a step of each of its kernels and none
-    of the others'."""
+    of the others'.  `dropout` > 0 (phase 12): each step a fresh key,
+    every flash launch a dropout one; `remat_policy` (not False: None,
+    "dots" or "names:..."): remat, whose recompute runs each block's
+    forward again (48 flash forwards and 97 LayerNorm forwards a step);
+    `compare`: the kernels-vs-plain 2-layer step."""
     from apex_tpu_torch.optimizers import FusedAdam
 
     def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
@@ -1583,14 +1716,32 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
             lambda k: "flash_bwd_packed_kernel" in k)
     else:
         names["flash_attention_bwd"] = lambda k: "flash_bwd_kernel" in k
+    model_kw = {}
+    if heads_per_step is not None:
+        model_kw["attn_heads_per_step"] = heads_per_step
+    if dropout:
+        check(backward == "fused", "phase 12 drives the fused route")
+        model_kw["dropout"] = dropout
+        per_step.update(flash_attention_fwd_dropout=24,
+                        flash_attention_bwd_dropout=24)
+        # the DROP instantiations' device time beside the whole kernels'
+        names.update(
+            flash_attention_fwd_dropout=lambda k: (
+                "flash_fwd_kernel<64, false, true>" in k),
+            flash_attention_bwd_dropout=lambda k: (
+                "flash_bwd_kernel<64, false, true, true>" in k))
+    if remat_policy is not False:
+        model_kw.update(remat=True, remat_policy=remat_policy)
+        per_step.update(flash_attention_fwd=48, layer_norm_fwd=97)
+        if dropout:
+            per_step["flash_attention_fwd_dropout"] = 48
     return gpt_train_phase(
         torch, fa, ln, ok, what, True,
         lambda params: FusedAdam(lr=1e-4, master_dtype=torch.bfloat16),
         "FusedAdam(lr=1e-4, master bf16)",
         [(ok, "adam_flat_triton", plain_adam)], per_step, names,
         warmup=warmup, steps=steps, batch=batch, seq=seq,
-        model_kw=(None if heads_per_step is None
-                  else {"attn_heads_per_step": heads_per_step}))
+        model_kw=model_kw or None, compare=compare)
 
 
 def train_phase(torch, fa, ln, ok):
@@ -1691,7 +1842,13 @@ def attention_swaps(mod, fa, cfg):
 
     def plain_flash(q, k, v, *, softmax_scale, causal=False,
                     segment_ids=None, block_q=None, block_k=None,
-                    heads_per_step=None):
+                    heads_per_step=None, dropout_rate=0.0, dropout_key=None):
+        if dropout_rate > 0.0:
+            # the kernels' mask: the same host draw from the key
+            seed = fa._seed3(fa._common.host_seed(dropout_key))
+            return fa.flash_fwd_reference(
+                q, k, v, softmax_scale, causal, segment_ids, segment_ids,
+                dropout_rate=dropout_rate, seed=seed)[0]
         return fa.attention_reference(q, k, v, causal=causal,
                                       softmax_scale=softmax_scale,
                                       q_segment_ids=segment_ids,
@@ -1701,17 +1858,19 @@ def attention_swaps(mod, fa, cfg):
 
 
 def compare_train_step(torch, fa, ln, ok, gpt_mod, cfg, what, make_opt,
-                       opt_swaps, tokens, labels, lr=1e-4):
+                       opt_swaps, tokens, labels, lr=1e-4, keyed=False):
     """One full-width GPT step of a 2-layer model at the batch of `tokens`
     through the kernels and through their plain versions
     (`kernels_vs_plain_step`):
     the attention kernels of `cfg`, the LayerNorm, and the optimizer's
-    (`opt_swaps`)."""
+    (`opt_swaps`); `keyed`: both steps with one fixed dropout key, so the
+    same masks."""
     import dataclasses
 
+    model = gpt_mod.GPT(dataclasses.replace(cfg, num_layers=2))
     return kernels_vs_plain_step(
-        torch, fa, ln, ok, what,
-        gpt_mod.GPT(dataclasses.replace(cfg, num_layers=2)), make_opt, None,
+        torch, fa, ln, ok, what, model, make_opt,
+        keyed_loss(torch, model, seed=7) if keyed else None,
         attention_swaps(gpt_mod, fa, cfg)
         + [(gpt_mod, "fused_layer_norm", ln.layer_norm_reference)]
         + opt_swaps, tokens, labels, lr=lr)
@@ -3467,6 +3626,423 @@ def decode_times(torch, fd, case, flush):
                      f"{tuple(k.shape)}, table {tuple(tbl.shape)}"}
 
 
+# ----------------------------------------------- phase 12: slice 14 ----
+#
+# Dropout inside the six flash kernels (phase 2's checks below), then the
+# GPT-350M step with dropout and with remat, and bench.py's two remaining
+# single-device legs (`adam_1b`, `gpt1p3b`).
+
+DROP_SEED = 0x5EED1                # the phase-2 cases' flash seed
+DROP_RATES = (0.1, 0.5)
+
+
+def check_flash_dropout(torch, fa, rng, *, b, h, s, d, causal, hps=(),
+                        views=False, q_seg=None, kv_seg=None, q_off=0,
+                        split=False, rates=DROP_RATES):
+    """The flash kernels with in-kernel dropout at each rate in `rates`,
+    on one bf16 input and the seed triple (DROP_SEED, q_off, 0): the
+    forward against `flash_fwd_reference` (o within 1e-2 of its largest
+    magnitude, the rate-0 tolerance of `check_flash_attention`; lse bit for
+    bit the rate-0 kernel's, since dropout leaves the softmax sum alone),
+    the fused backward against `flash_bwd_dq_reference` /
+    `flash_bwd_dkv_reference` on the kernel's lse (1e-2), each run twice
+    (o, lse, dk, dv the same bits; dq within the tolerance); at each hp in
+    `hps` the packed pair bit for bit the hp=1 kernels' (o, lse, dk, dv;
+    dq within `PACKED_DQ_TOL`); with `split` the dq pass (twice, the same
+    bits, against its plain version) and the dk/dv pass (bit for bit the
+    fused kernel's).  Returns the errors by rate."""
+    q, k, v, do = flash_inputs(torch, rng, b, h, s, d, views)
+    sc = 1.0 / math.sqrt(d)
+    seg = (q_seg, kv_seg)
+    o0, lse0 = fa.flash_fwd_cuda(q, k, v, sc, causal, *seg)
+    what = (f"flash dropout ({b},{h},{s},{d}) causal={causal} "
+            f"ids={q_seg is not None} q_off={q_off}")
+    out = {}
+    for rate in rates:
+        kw = dict(dropout_rate=rate, seed=(DROP_SEED, q_off, 0))
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, *seg, **kw)
+        o2, lse2 = fa.flash_fwd_cuda(q, k, v, sc, causal, *seg, **kw)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        bargs = (q, k, v, do, lse, delta, sc, causal, *seg)
+        dq, dk, dv = fa.flash_bwd_cuda(*bargs, **kw)
+        dq2, dk2, dv2 = fa.flash_bwd_cuda(*bargs, **kw)
+        o_ref, _ = fa.flash_fwd_reference(q, k, v, sc, causal, *seg, **kw)
+        dq_ref = fa.flash_bwd_dq_reference(*bargs, **kw)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*bargs, **kw)
+        torch.cuda.synchronize()
+        case = f"{what} rate={rate}"
+        check(torch.equal(o, o2) and torch.equal(lse, lse2),
+              f"{case}: o or lse differ from run to run")
+        check(torch.equal(lse, lse0), f"{case}: lse differs from rate 0's")
+        check(not torch.equal(o, o0), f"{case}: o is rate 0's")
+        check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+              f"{case}: dk, dv differ from run to run")
+        e = {name: max_err(torch, f"{case} {name}", got, ref)
+             for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                                    ("dq_second_run", dq2, dq_ref),
+                                    ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+        for hp in hps:
+            po, plse = fa.flash_fwd_packed_cuda(q, k, v, sc, causal, hp,
+                                                *seg, **kw)
+            pdq, pdk, pdv = fa.flash_bwd_packed_cuda(*bargs[:8], hp, *seg,
+                                                     **kw)
+            torch.cuda.synchronize()
+            for name, got, one in (("o", po, o), ("lse", plse, lse),
+                                   ("dk", pdk, dk), ("dv", pdv, dv)):
+                check(torch.equal(got, one), f"{case} hp={hp}: {name} "
+                      "differs from the hp=1 kernel's")
+            e[f"dq_hp{hp}_vs_hp1"] = max_err(
+                torch, f"{case} hp={hp} dq vs hp=1", pdq, dq,
+                tol=PACKED_DQ_TOL)
+        if split:
+            sdq = fa.flash_bwd_dq_cuda(*bargs, **kw)
+            sdq2 = fa.flash_bwd_dq_cuda(*bargs, **kw)
+            sdk, sdv = fa.flash_bwd_dkv_cuda(*bargs, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(sdq, sdq2), f"{case}: the dq pass differs "
+                  "from run to run")
+            check(torch.equal(sdk, dk) and torch.equal(sdv, dv),
+                  f"{case}: the dk/dv pass differs from the fused kernel")
+            e["dq_pass"] = max_err(torch, f"{case} dq pass", sdq, dq_ref)
+        out[rate] = e
+        del o, o2, dq, dq2, dk, dk2, dv, dv2, o_ref, dq_ref, dk_ref, dv_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dropout_mask(torch, fa, *, b, h, d, rate, q_off, k_off,
+                       seed=DROP_SEED):
+    """Each kernel's keep mask read back on the card against
+    `dropout_keep_dense`, bit for bit, at sq = sk = d (non-causal, bf16):
+    with q = 0 every weight is 1/sk.  The forward (and the packed one at
+    hp 2) with v = I: o[q, j] = keep[q, j] / (sk (1 - rate)), 0 where
+    dropped.  The fused backward and the dk/dv pass with v = I and do =
+    I: dv[k, q] = p·keep[q, k] / (1 - rate).  The dq pass (and the fused
+    kernel's dq) with k = I, v = do = 1 and delta = 0: dq[q, j] = scale ·
+    p · d · keep[q, j] / (1 - rate).  Returns the keep share."""
+    dev, bf16 = "cuda", torch.bfloat16
+    s = d
+    sc = 1.0 / math.sqrt(d)
+    want = fa.dropout_keep_dense(seed, b, h, s, s, rate, q_off, k_off,
+                                 device=dev)
+    kw = dict(dropout_rate=rate, seed=(seed, q_off, k_off))
+    eye = torch.eye(s, device=dev).to(bf16).expand(b, h, s, s).contiguous()
+    zero = torch.zeros((b, h, s, d), device=dev, dtype=bf16)
+    ones = torch.ones((b, h, s, d), device=dev, dtype=bf16)
+    o, lse = fa.flash_fwd_cuda(zero, eye, eye, sc, False, **kw)
+    po, _ = fa.flash_fwd_packed_cuda(zero, eye, eye, sc, False, 2, **kw)
+    delta = torch.zeros((b, h, s), device=dev)
+    bargs = (zero, eye, eye, eye, lse, delta, sc, False)
+    _, _, dv = fa.flash_bwd_cuda(*bargs, **kw)
+    _, pdv = fa.flash_bwd_dkv_cuda(*bargs, **kw)
+    qargs = (zero, eye, ones, ones, lse, delta, sc, False)
+    dq = fa.flash_bwd_dq_cuda(*qargs, **kw)
+    fdq, _, _ = fa.flash_bwd_cuda(*qargs, **kw)
+    torch.cuda.synchronize()
+    what = f"dropout mask ({b},{h},{s},{d}) rate={rate} offs=({q_off},{k_off})"
+    for name, got in (("forward", o != 0), ("packed forward", po != 0),
+                      ("fused backward dv", (dv != 0).transpose(-1, -2)),
+                      ("dk/dv pass dv", (pdv != 0).transpose(-1, -2)),
+                      ("dq pass", dq != 0), ("fused backward dq", fdq != 0)):
+        check(torch.equal(got, want), f"{what}: the {name} kernel's mask "
+              f"differs from dropout_keep_dense at "
+              f"{int((got != want).sum())} of {want.numel()} scores")
+    return want.float().mean().item()
+
+
+def remat_grads_check(torch, fa, ln, ok):
+    """One GPT-350M step's loss and gradients at full width, 2 layers,
+    batch 2 x seq 1024, dropout 0.1 with one fixed key, without remat and
+    with remat (policy None), through the kernels.  On the CPU the two
+    are bit for bit (tests/test_torch_gpt_remat.py); on the card the
+    fused backward sums dq by reduce-adds in an order that changes from
+    run to run, so the check is the loss within 1e-3 and each gradient
+    within 1e-2 relative L2, and whether the bits are the same is
+    printed."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+
+    out = {}
+    grads = {}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, 50304, (2, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    for remat in (False, True):
+        model = gpt_mod.gpt_350m(num_layers=2, dropout=0.1,
+                                 dtype=torch.bfloat16,
+                                 logits_dtype=torch.bfloat16,
+                                 use_flash_attention=True, remat=remat)
+        params = model.init(seed=0)
+        leaves = [t.requires_grad_(True) for t in
+                  torch.utils._pytree.tree_leaves(params)]
+        loss = model.loss(params, tokens, labels,
+                          key=torch.Generator().manual_seed(11))
+        grads[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    (l0, g0), (l1, g1) = grads[False], grads[True]
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(g1, g0) if b.float().norm() > 0]
+    out = {"loss": float(l0), "loss_remat": float(l1),
+           "bits_same": bool(torch.equal(l0, l1) and all(
+               torch.equal(a, b) for a, b in zip(g0, g1))),
+           "grad_rel_l2_max": max(rel)}
+    check(abs(out["loss"] - out["loss_remat"]) <= 1e-3 * abs(out["loss"]),
+          f"remat step loss differs: {out}")
+    check(out["grad_rel_l2_max"] <= 1e-2, f"remat step grads differ: {out}")
+    return out
+
+
+def adam_1b_leg(torch, ok, warmup=3, iters=20):
+    """bench.py's `_adam_1b_step_ms` (bench.py:1021-1049): `adam_flat` over
+    10^9 fp32 params (FLAT_TILE-padded) with bf16 grads of 1e-3, lr 1e-3,
+    step 10, weight decay 0.01, p/m/v updated in place (the JAX leg
+    donates them), `warmup` + `iters` steps, ms a step on the host's clock
+    (synchronised at the window's ends, as the bench reads it) and on the
+    card's (CUDA events); bound: 26 bytes a param (p, m, v read and
+    written in fp32, g read in bf16) over the card's memory rate."""
+    n = -(-10 ** 9 // ok.FLAT_TILE) * ok.FLAT_TILE
+    p, m, v = (torch.zeros(n, device="cuda") for _ in range(3))
+    g = torch.full((n,), 1e-3, device="cuda", dtype=torch.bfloat16)
+    ok.adam_flat_triton.launches = 0
+
+    def step():
+        ok.adam_flat(p, m, v, g, lr=1e-3, step=10, weight_decay=0.01)
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / iters
+    launches = ok.adam_flat_triton.launches
+    check(launches == warmup + iters, f"adam_1b: {launches} launches")
+    check(bool(torch.isfinite(p[:1000]).all()) and float(p[0]) != 0.0,
+          "adam_1b: p did not move or is not finite")
+    dev_ms = time_ms(torch, step, n=10, warm=1)
+    out = {"params": n, "step_ms": host_ms, "device_ms": dev_ms,
+           "bound_ms": 1e3 * 26 * n / HBM_BYTES_PER_S, "launches": launches}
+    del p, m, v, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def gpt1p3b_leg(torch, fa, ln, ok, warmup=3, steps=20):
+    """bench.py's `_gpt1p3b_tokens_per_sec` (bench.py:259-280) on the
+    card: `gpt_1p3b()` (h2048, L24, 32 heads of 64) at batch 7 x seq 512,
+    vocab 50304, bf16, bf16 logits, flash attention, no remat,
+    FusedAdam(lr=1e-4, master bf16), seed-0 weights, one seeded batch;
+    `warmup` + `steps` steps: the loss finite and falling, 24 flash
+    forwards and backwards, 49 LayerNorm forwards and backwards and one
+    Adam a step; tokens/s, peak memory and one profiled step."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    batch, seq = 7, 512
+    bf16 = torch.bfloat16
+    model = gpt_mod.gpt_1p3b(vocab_size=50304, seq_len=seq, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=True)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, model.init(seed=0))
+    step = make_tp_dp_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
+    state, result = train_loop(torch, fa, ln, ok, "gpt1p3b", step, state,
+                               (tokens, labels), per_step, warmup, steps)
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
+    state, prof = profile_step(torch, step, state, (tokens, labels), {
+        "flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+        "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+        "adam": lambda k: k == "_adam_kernel"})
+    out = dict(result, config="GPT-1.3B bf16, batch 7 x seq 512, vocab "
+               "50304, bf16 logits, flash, no remat, FusedAdam(lr=1e-4, "
+               "master bf16)", params=sum(opt.spec.sizes),
+               tokens_per_s=batch * seq * steps / result["window_s"],
+               host_syncs_per_step=len(syncs), profile=prof)
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice14_phase(torch, fa, ln, ok, train):
+    """Phase 12 (module docstring): GPT-350M at phase 5's configuration
+    with dropout 0.1 and a fresh step key each step (2 + 3 steps), then
+    with remat under None, "dots" and "names:attn_ctx,ffn1" (1 + 2 steps
+    each), the remat-vs-not gradient check, and bench.py's `adam_1b` and
+    `gpt1p3b` legs.  `train`: phase 5's line, for the comparison."""
+    t0 = time.perf_counter()
+    out = {}
+    drop, drop_vs_plain = flash_gpt_phase(
+        torch, fa, ln, ok, "GPT dropout", "fused", warmup=2, steps=3,
+        dropout=0.1)
+    out["dropout"] = drop
+    out["dropout_vs_plain"] = drop_vs_plain
+    log(f"GPT dropout 0.1: tokens/s, peak GiB, device ms "
+        f"{drop['tokens_per_s']:.1f}, {drop['peak_mem_gib']:.3f}, "
+        f"{drop['profile']['device_ms']:.2f}; phase 5 "
+        f"{train['tokens_per_s']:.1f}, {train['peak_mem_gib']:.3f}, "
+        f"{train['profile']['device_ms']:.2f}; flash kernels ms "
+        f"{json.dumps(drop['profile']['kernels_ms'])} (phase 5 "
+        f"{json.dumps(train['profile']['kernels_ms'])})")
+    torch.cuda.empty_cache()
+    out["remat"] = {}
+    for policy in (None, "dots", "names:attn_ctx,ffn1"):
+        r, _ = flash_gpt_phase(
+            torch, fa, ln, ok, f"GPT dropout remat={policy}", "fused",
+            warmup=1, steps=2, dropout=0.1, remat_policy=policy,
+            compare=False)
+        out["remat"][str(policy)] = r
+        log(f"GPT dropout remat {policy}: tokens/s, peak GiB, device ms "
+            f"{r['tokens_per_s']:.1f}, {r['peak_mem_gib']:.3f}, "
+            f"{r['profile']['device_ms']:.2f}")
+        torch.cuda.empty_cache()
+    out["remat_grads"] = remat_grads_check(torch, fa, ln, ok)
+    log("GPT remat vs no remat, one step at 2 layers "
+        + json.dumps(out["remat_grads"]))
+    torch.cuda.empty_cache()
+    out["adam_1b"] = adam_1b_leg(torch, ok)
+    log("adam_1b " + json.dumps(out["adam_1b"]))
+    out["gpt1p3b"] = gpt1p3b_leg(torch, fa, ln, ok)
+    log("gpt1p3b " + json.dumps(out["gpt1p3b"]))
+    log(f"phase 12 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def table_dropout_kernels(torch, fa, rng, errs, slice14):
+    """Phase 12 rows of the six flash kernels' dropout instantiations at
+    rate 0.1, beside their rate-0 times in the same call: the forward, the
+    fused backward and (hp=2) the packed pair at GPT's causal (12, 16,
+    1024, 64) on the step's views, the split pair at GPT-350M's seq 8192
+    (1, 16, 8192, 64).  Bounds as the rate-0 rows count them (bytes once,
+    the causal pairs' tensor-core flop; the hash's integer operations are
+    not counted).  Plain: `flash_fwd_reference` and the backward's plain
+    versions with the same mask.  Library: SDPA with dropout_p=0.1
+    (forward; the backward by autograd: dq, dk and dv).  Launches: phase
+    12's dropout step (the packed and split instantiations run on no main
+    path: phase 2 holds them)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops.fused_dense import qkv_split_heads
+
+    bf16 = torch.bfloat16
+    drop = slice14["dropout"]
+    rows = []
+    kw = dict(dropout_rate=0.1, seed=(DROP_SEED, 0, 0))
+
+    def pairs(bb, hh, ss):
+        return bb * hh * ss * (ss + 1) // 2           # causal score pairs
+
+    def row(name, replaces, ms, ms0, plain, lib, bytes_, ops, shape):
+        counter = name
+        r = table_row(name, drop["launches"].get(counter, 0),
+                      drop["launches_per_step"].get(counter, 0), errs[name],
+                      "cuda", "apex_tpu_torch/csrc/flash_attention.cu",
+                      replaces, ms, plain, lib,
+                      "scaled_dot_product_attention(dropout_p=0.1, "
+                      "is_causal=True)" + (" backward (autograd)"
+                                           if "bwd" in name else ""),
+                      bytes_, ops, shape)
+        r.update(rate=0.1, rate0_ms=ms0)
+        rows.append(r)
+
+    b, h, s, d = 12, 16, 1024, 64
+    sc = 1.0 / math.sqrt(d)
+    qkv = torch.randn((s, b, 3 * h * d), generator=rng, device="cuda").to(bf16)
+    q, k, v = qkv_split_heads(qkv, h, d)
+    do = torch.randn((s, b, h, d), generator=rng,
+                     device="cuda").to(bf16).permute(1, 2, 0, 3)
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, True, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    bargs = (q, k, v, do, lse, delta, sc, True)
+    io, p = b * h * s * d * 2, pairs(b, h, s)
+    shape = "q,k,v (12,16,1024,64) bf16 views of qkv (1024,12,3072), causal"
+    t = {}
+    for name, fn in (
+            ("fwd", lambda: fa.flash_fwd_cuda(q, k, v, sc, True, **kw)),
+            ("fwd0", lambda: fa.flash_fwd_cuda(q, k, v, sc, True)),
+            ("bwd", lambda: fa.flash_bwd_cuda(*bargs, **kw)),
+            ("bwd0", lambda: fa.flash_bwd_cuda(*bargs)),
+            ("pfwd", lambda: fa.flash_fwd_packed_cuda(q, k, v, sc, True, 2,
+                                                      **kw)),
+            ("pfwd0", lambda: fa.flash_fwd_packed_cuda(q, k, v, sc, True, 2)),
+            ("pbwd", lambda: fa.flash_bwd_packed_cuda(*bargs, 2, **kw)),
+            ("pbwd0", lambda: fa.flash_bwd_packed_cuda(*bargs, 2))):
+        t[name] = time_ms(torch, fn)
+    plain_fwd = time_ms(torch, lambda: fa.flash_fwd_reference(
+        q, k, v, sc, True, **kw), n=5, warm=1)
+    plain_bwd = time_ms(torch, lambda: (
+        fa.flash_bwd_dq_reference(*bargs, **kw),
+        fa.flash_bwd_dkv_reference(*bargs, **kw)), n=5, warm=1)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.1, is_causal=True, scale=sc))
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=0.1,
+                                         is_causal=True, scale=sc)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del out, qg, kg, vg
+    for name, replaces, key, plain, lib, bytes_, ops in (
+            ("flash_attention_fwd_dropout",
+             "apex_tpu/ops/flash_attention.py:289", "fwd", plain_fwd,
+             lib_fwd, 4 * io + b * h * s * 4, 4 * p * d),
+            ("flash_attention_bwd_dropout",
+             "apex_tpu/ops/flash_attention.py:564", "bwd", plain_bwd,
+             lib_bwd, 7 * io + 2 * b * h * s * 4, 10 * p * d),
+            ("flash_attention_fwd_packed_dropout",
+             "apex_tpu/ops/flash_attention.py:385", "pfwd", plain_fwd,
+             lib_fwd, 4 * io + b * h * s * 4, 4 * p * d),
+            ("flash_attention_bwd_packed_dropout",
+             "apex_tpu/ops/flash_attention.py:643", "pbwd", plain_bwd,
+             lib_bwd, 7 * io + 2 * b * h * s * 4, 10 * p * d)):
+        row(name, replaces, t[key], t[key + "0"], plain, lib, bytes_, ops,
+            shape + ("" if "fwd" in name else ", do a permuted view")
+            + (", hp=2" if "packed" in name else ""))
+    del qkv, q, k, v, do, o, lse, delta, bargs
+    torch.cuda.empty_cache()
+    # the split pair at GPT-350M's seq 8192
+    gshape = (1, 16, 8192, 64)
+    b, h, s, d = gshape
+    q, k, v, do = (torch.randn(gshape, generator=rng, device="cuda")
+                   .to(bf16) for _ in range(4))
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, True, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    bargs = (q, k, v, do, lse, delta, sc, True)
+    t = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bargs, **kw)),
+         "dq0": time_ms(torch, lambda: fa.flash_bwd_dq_cuda(*bargs)),
+         "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw)),
+         "dkv0": time_ms(torch, lambda: fa.flash_bwd_dkv_cuda(*bargs))}
+    plain = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
+        *bargs, **kw), n=3, warm=1),
+             "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+                 *bargs, **kw), n=3, warm=1)}
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, dropout_p=0.1,
+                                         is_causal=True, scale=sc)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+    del out, qg, kg, vg
+    io, p = b * h * s * d * 2, pairs(b, h, s)
+    for name, replaces, key, products, outs in (
+            ("flash_attention_bwd_dq_dropout",
+             "apex_tpu/ops/flash_attention.py:447", "dq", 3, 1),
+            ("flash_attention_bwd_dkv_dropout",
+             "apex_tpu/ops/flash_attention.py:497", "dkv", 4, 2)):
+        row(name, replaces, t[key], t[key + "0"], plain[key], lib,
+            (4 + outs) * io + 2 * b * h * s * 4, 2 * products * d * p,
+            f"q, k, v, do {gshape} bf16, causal; lse, delta fp32")
+    del q, k, v, do, o, lse, delta, bargs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def table_row(name, launches, per_step, err, route, source, replaces, ms,
               plain_ms, library_ms, library, bytes_, ops, shape, peak=None):
     """One row of the kernel table.  The bound is the larger of the bytes
@@ -3876,10 +4452,76 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
     return rows
 
 
+def rate0_bits(root):
+    """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
+    kernels' outputs at dropout rate 0 from the checkout at ROOT (its
+    `apex_tpu_torch` first on sys.path, built into its own
+    csrc/build/), for holding two checkouts' kernels bit for bit on one
+    card: run it for both in one call and compare the two lines.  The
+    launchers are called with the argument lists every checkout's take,
+    on seeded bf16 inputs: the forward (o, lse) and the packed forward at
+    hp 2, the fused and packed backward's dk and dv, the split pair's dq,
+    dk and dv, at GPT's causal (12, 16, 1024, 64), BERT's (32, 16, 512,
+    64) with ragged padding and head_dim 128 (2, 8, 512, 128).  The fused
+    and packed kernels' dq is summed by reduce-adds in an order that
+    changes from run to run, so it is left out.  Prints {case: {output:
+    sha256 of its bytes}}."""
+    import hashlib
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    from apex_tpu_torch.ops import flash_attention as fa
+
+    def digest(t):
+        return hashlib.sha256(
+            t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
+
+    out = {"root": os.path.abspath(fa.__file__)}
+    for name, (b, h, s, d), causal, padded in (
+            ("gpt", (12, 16, 1024, 64), True, False),
+            ("bert", (BERT_BATCH, 16, BERT_SEQ, 64), False, True),
+            ("d128", (2, 8, 512, 128), True, False)):
+        g = torch.Generator(device="cuda").manual_seed(20 + b)
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        seg = ()
+        if padded:
+            n = torch.tensor([(512, 300, 129, 1)[i % 4] for i in range(b)],
+                             device="cuda")
+            ids = (torch.arange(s, device="cuda")[None, :]
+                   < n[:, None]).to(torch.int32)
+            seg = (ids, ids)
+        sc = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, *seg)
+        po, plse = fa.flash_fwd_packed_cuda(q, k, v, sc, causal, 2, *seg)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q, k, v, do, lse, delta, sc, causal)
+        _, dk, dv = fa.flash_bwd_cuda(*args, *seg)
+        _, pdk, pdv = fa.flash_bwd_packed_cuda(*args, 2, *seg)
+        sdq = fa.flash_bwd_dq_cuda(*args, *seg)
+        sdk, sdv = fa.flash_bwd_dkv_cuda(*args, *seg)
+        torch.cuda.synchronize()
+        out[name] = {key: digest(t) for key, t in (
+            ("o", o), ("lse", lse), ("packed_o", po), ("packed_lse", plse),
+            ("dk", dk), ("dv", dv), ("packed_dk", pdk), ("packed_dv", pdv),
+            ("split_dq", sdq), ("split_dk", sdk), ("split_dv", sdv))}
+    print(json.dumps(out, sort_keys=True), flush=True)
+    return 0
+
+
 def main():
     """Pin the tuner's cache to a fresh file for the whole run (a cache
     elsewhere, e.g. under ~/.cache, must not change any phase's kernels;
-    phase 11's sweep writes its winner there), then run the phases."""
+    phase 11's sweep writes its winner there), then run the phases.
+    `--rate0-bits ROOT` runs `rate0_bits` instead."""
+    if sys.argv[1:2] == ["--rate0-bits"]:
+        return rate0_bits(sys.argv[2])
     tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
     os.environ["APEX_TPU_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
     os.environ.pop("APEX_TPU_TUNE", None)
@@ -3972,17 +4614,25 @@ def run_phases():
                 log(f"flash backward dynamic shared memory (bytes): {smem}")
                 log("flash backward serialised wgmma notes: "
                     + ("; ".join(notes) if notes else "none"))
-                # the dq pass: four instantiations, none spilling, none
-                # with its wgmma instructions serialised
+                # the dq pass: eight instantiations (four with dropout),
+                # none spilling, none with its wgmma instructions
+                # serialised
                 dq_rows = {k: r for k, r in rows.items()
                            if "flash_bwd_dq_kernel" in k}
-                check(len(dq_rows) == 4 and all(
+                check(len(dq_rows) == 8 and all(
                     r.get("spills", "").startswith(
                         "0 bytes stack frame, 0 bytes spill")
                     for r in dq_rows.values()),
                     f"dq pass ptxas: {dq_rows}")
                 check(not any("flash_bwd_dq_kernel" in n_ for n_ in notes),
                       "dq pass: ptxas serialised its wgmma instructions")
+                # the 24 dropout instantiations: no spill, and no
+                # serialised-wgmma note that the rate-0 twin lacks
+                with open(csrc.log_path(name)) as f:
+                    drop_regs = check_dropout_ptxas(f.read())
+                log("ptxas flash dropout instantiations, registers (rate "
+                    "0's): " + json.dumps(
+                        {k[-48:]: r for k, r in sorted(drop_regs.items())}))
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -4184,6 +4834,46 @@ def run_phases():
     errs["flash_attention_fwd_packed"] = packed_errs[0][2]["o"]
     errs["flash_attention_bwd_packed"] = max(
         packed_errs[0][2][n] for n in ("dq", "dk", "dv"))
+    # dropout inside the six flash kernels (phase 12's path): each
+    # kernel's mask read back against dropout_keep_dense, bit for bit, then
+    # every kernel at rates 0.1 and 0.5 against its plain version
+    shares = {}
+    for d_, offs in ((64, (0, 0)), (64, (4096, 0)), (128, (77, 1 << 20))):
+        for rate in DROP_RATES:
+            shares[f"d={d_} offs={offs} rate={rate}"] = check_dropout_mask(
+                torch, fa, b=2, h=4, d=d_, rate=rate, q_off=offs[0],
+                k_off=offs[1])
+    log("flash dropout masks (forward, packed forward, fused and dk/dv dv, "
+        "dq pass and fused dq) bit for bit dropout_keep_dense; keep shares "
+        + json.dumps(shares))
+    drop_errs = {}
+    for name, kw in (
+            ("gpt", dict(b=12, h=16, s=1024, d=64, causal=True, hps=(2, 4),
+                         views=True)),
+            ("non-causal", dict(b=8, h=16, s=2048, d=64, causal=False,
+                                hps=(2, 4))),
+            ("d128", dict(b=2, h=8, s=512, d=128, causal=True, hps=(2, 4))),
+            ("bert", dict(b=BERT_BATCH, h=16, s=BERT_SEQ, d=64, causal=False,
+                          hps=(2, 4), views=True, q_seg=bseg, kv_seg=bseg)),
+            ("split", dict(b=1, h=16, s=8192, d=64, causal=True,
+                           split=True)),
+            ("q_off 4096", dict(b=2, h=16, s=1024, d=64, causal=True,
+                                q_off=4096, hps=(2,), split=True))):
+        drop_errs[name] = check_flash_dropout(torch, fa, rng, **kw)
+        log(f"flash dropout {name} {kw.get('b')},{kw.get('h')},"
+            f"{kw.get('s')},{kw.get('d')}: runs bit for bit, packed bit for "
+            f"bit hp=1; max errs {json.dumps(drop_errs[name])}")
+    gpt_e, split_e = drop_errs["gpt"][0.1], drop_errs["split"][0.1]
+    errs["flash_attention_fwd_dropout"] = gpt_e["o"]
+    errs["flash_attention_bwd_dropout"] = max(gpt_e[n] for n in
+                                              ("dq", "dk", "dv"))
+    # the packed kernels' o, dk, dv are the hp=1 kernels' bits
+    errs["flash_attention_fwd_packed_dropout"] = gpt_e["o"]
+    errs["flash_attention_bwd_packed_dropout"] = max(
+        gpt_e["dk"], gpt_e["dv"], gpt_e["dq_hp2_vs_hp1"] + gpt_e["dq"])
+    errs["flash_attention_bwd_dq_dropout"] = split_e["dq_pass"]
+    errs["flash_attention_bwd_dkv_dropout"] = max(split_e["dk"],
+                                                  split_e["dv"])
     del bseg, qs, ks
     log("packed forward with unpacked backward routes "
         + json.dumps(check_packed_routes(torch, fa, ln, ok, rng)))
@@ -4416,7 +5106,10 @@ def run_phases():
     slice8, slice8_vs_plain = slice8_phase(torch, fa, ln, ok, rng, smi,
                                            train, bert)
 
-    # ---- 12. kernel table --------------------------------------------
+    # ---- 12. slice 14: dropout, remat and bench.py's last two legs -----
+    slice14 = slice14_phase(torch, fa, ln, ok, train)
+
+    # ---- 13. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -4474,6 +5167,7 @@ def run_phases():
     slice7_rows = table_slice7_kernels(torch, ok, fdn, rng, errs, adagrad,
                                        mlp, gpt_layout[1], layout)
     slice8_rows = table_slice8_kernels(torch, fa, ok, rng, errs, slice8)
+    dropout_rows = table_dropout_kernels(torch, fa, rng, errs, slice14)
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -4504,7 +5198,7 @@ def run_phases():
          "library": "torch.nn.functional.layer_norm",
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
     ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
-        + slice7_rows + slice8_rows}
+        + slice7_rows + slice8_rows + dropout_rows}
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -4521,6 +5215,8 @@ def run_phases():
         + json.dumps(adagrad_vs_plain))
     log("GPT hp=2 / BERT hp=2 steps, kernels vs plain "
         + json.dumps(slice8_vs_plain))
+    log("GPT dropout step, kernels vs plain "
+        + json.dumps(slice14["dropout_vs_plain"]))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

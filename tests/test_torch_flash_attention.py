@@ -765,3 +765,113 @@ def test_dq_launcher_passes_the_c_arguments_in_order(monkeypatch, seg):
     else:
         assert got["q_seg"] is None and got["kv_seg"] is None
     assert _c_params("apex_flash_attn_bwd_dq_smem") == ["head_dim", "seg"]
+
+
+# ------------------------------------------------------------ dropout -------
+
+def test_dropout_reaches_every_launcher_on_every_route(monkeypatch):
+    """`_FlashFn` with dropout hands the rate and the seed triple to every
+    launch, forward and backward, on the fused, packed and split routes;
+    counting stand-ins run the plain versions with what they are given,
+    and the gradients match autograd through `flash_fwd_reference` with
+    the same seed (fp32, 1e-5)."""
+    calls = []
+    seed = (77, 0, 0)
+
+    def record(name, kw):
+        calls.append((name, kw.get("dropout_rate"), kw.get("seed")))
+
+    def fwd(q, k, v, scale, causal, q_seg, kv_seg, **kw):
+        record("fwd", kw)
+        return tfa.flash_fwd_reference(q, k, v, scale, causal, q_seg, kv_seg,
+                                       **kw)
+
+    def fwd_packed(q, k, v, scale, causal, hp, q_seg, kv_seg, **kw):
+        record(f"fwd_packed{hp}", kw)
+        return tfa.flash_fwd_reference(q, k, v, scale, causal, q_seg, kv_seg,
+                                       **kw)
+
+    def fused(*args, **kw):
+        record("fused", kw)
+        return (tfa.flash_bwd_dq_reference(*args, **kw),
+                *tfa.flash_bwd_dkv_reference(*args, **kw))
+
+    def packed(q, k, v, do, lse, delta, scale, causal, hp, q_seg, kv_seg,
+               **kw):
+        record(f"packed{hp}", kw)
+        args = (q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg)
+        return (tfa.flash_bwd_dq_reference(*args, **kw),
+                *tfa.flash_bwd_dkv_reference(*args, **kw))
+
+    def dq_pass(*args, **kw):
+        record("dq", kw)
+        return tfa.flash_bwd_dq_reference(*args, **kw)
+
+    def dkv_pass(*args, **kw):
+        record("dkv", kw)
+        return tfa.flash_bwd_dkv_reference(*args, **kw)
+
+    for name, fn in (("flash_fwd_cuda", fwd),
+                     ("flash_fwd_packed_cuda", fwd_packed),
+                     ("flash_bwd_cuda", fused),
+                     ("flash_bwd_packed_cuda", packed),
+                     ("flash_bwd_dq_cuda", dq_pass),
+                     ("flash_bwd_dkv_cuda", dkv_pass)):
+        monkeypatch.setattr(tfa, name, fn)
+    for sk, hp, route in ((256, 1, ["fwd", "fused"]),
+                          (256, 2, ["fwd_packed2", "packed2"]),
+                          (4160, 1, ["fwd", "dq", "dkv"])):
+        calls.clear()
+        g = torch.Generator().manual_seed(sk + hp)
+        q, k, v = (torch.randn(1, 2, n, 64, generator=g).requires_grad_(True)
+                   for n in (64, sk, sk))
+        out = tfa._FlashFn.apply(q, k, v, 0.125, False, None, None, hp, 0.3,
+                                 seed)
+        out.backward(torch.ones_like(out))
+        assert [c[0] for c in calls] == route, (sk, hp, calls)
+        assert all(c[1:] == (0.3, seed) for c in calls), calls
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o, _ = tfa.flash_fwd_reference(qr, kr, vr, 0.125, False,
+                                       dropout_rate=0.3, seed=seed)
+        torch.testing.assert_close(out, o, atol=1e-6, rtol=0)
+        o.backward(torch.ones_like(o))
+        for got, want in ((q.grad, qr.grad), (k.grad, kr.grad),
+                          (v.grad, vr.grad)):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    # rate 0 calls the launchers as before dropout: no dropout arguments
+    calls.clear()
+    x = torch.randn(1, 2, 64, 64, requires_grad=True)
+    tfa._FlashFn.apply(x, x, x, 0.125, True, None, None, 1).sum().backward()
+    assert calls == [("fwd", None, None), ("fused", None, None)]
+
+
+def test_cuda_dispatch_takes_dropout_and_draws_the_seed_on_the_host(
+        monkeypatch):
+    """On CUDA (here: `check_kernel_device` stood in to say so) dropout
+    goes to `_FlashFn` with the rate and (one host draw from the key, 0,
+    0), as the JAX package draws an int32 from its key for its kernels; a
+    bias still raises NotImplementedError."""
+    got = []
+    monkeypatch.setattr(tfa, "check_kernel_device", lambda *t: True)
+    monkeypatch.setattr(tfa._FlashFn, "apply",
+                        lambda *args: got.append(args) or args[0])
+    x = torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16)
+    tfa.flash_attention(x, x, x, causal=True, dropout_rate=0.1,
+                        dropout_key=torch.Generator().manual_seed(3),
+                        heads_per_step=2)
+    want_seed = int(torch.randint(-2 ** 31, 2 ** 31 - 1, (1,),
+                                  generator=torch.Generator().manual_seed(3)))
+    assert got[-1][3:] == (0.125, True, None, None, 2, 0.1,
+                           (want_seed, 0, 0))
+    tfa.flash_attention(x, x, x, causal=True)
+    assert len(got[-1]) == 8            # rate 0: no dropout arguments
+    with pytest.raises(NotImplementedError, match="bias"):
+        tfa.flash_attention(x, x, x, bias=torch.zeros(1, 1, 1, 64),
+                            dropout_rate=0.1,
+                            dropout_key=torch.Generator().manual_seed(3))
+    # the launchers refuse a rate outside [0, 1) before any launch
+    with pytest.raises(ValueError, match="dropout_rate"):
+        tfa._drop_args(1.0, (0, 0, 0))
+    assert tfa._drop_args(0.0, (5, 1, 2)) == [0, 1.0, 0, 0, 0, 0]
+    assert tfa._drop_args(0.5, (-1, 4096, 0)) == [1, 2.0, 2 ** 30, -1, 4096,
+                                                  0]

@@ -294,10 +294,13 @@ def test_qkv_split_heads_matches_jax():
 
 
 def test_what_the_step_refuses():
-    """Not-yet-ported options raise by name; the entry point runs on the
-    card unless asked for the CPU, so without CUDA it refuses."""
-    with pytest.raises(NotImplementedError, match="remat"):
-        GPT(GPTConfig(**dict(SMOKE, remat=True)))
+    """An unknown remat policy raises by name (the JAX package's
+    ValueError) when the model runs; the entry point runs on the card
+    unless asked for the CPU, so without CUDA it refuses."""
+    bad = GPT(GPTConfig(**dict(SMOKE, remat=True, remat_policy="bogus")))
+    tokens = torch.zeros((2, 64), dtype=torch.int64)
+    with pytest.raises(ValueError, match="unknown remat_policy 'bogus'"):
+        bad.loss(bad.init(seed=0, device="cpu"), tokens, tokens)
     model = GPT(GPTConfig(**SMOKE))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
