@@ -12,22 +12,29 @@ Two implementations of each direction live here:
     spellings of the JAX package).  CPU tensors run them (autograd
     differentiates the plain forward), and `chip_smoke.py` holds the
     kernels against them.
-  * the Triton `_fwd_kernel`, launched by `norm_fwd_triton`, and the
-    CUDA C++ backward in `apex_tpu_torch/csrc/layer_norm.cu`, launched by
-    `norm_bwd_cuda` under the host plan `bwd_plan`, for CUDA tensors.  A
-    CUDA call that needs a gradient goes through `_NormFn` (a
+  * the CUDA C++ kernels of `apex_tpu_torch/csrc/layer_norm.cu`: the
+    forward launched by `norm_fwd_cuda` under the host plan `fwd_plan`,
+    the backward by `norm_bwd_cuda` under `bwd_plan`, for CUDA tensors.
+    A CUDA call that needs a gradient goes through `_NormFn` (a
     `torch.autograd.Function`: the forward kernel saves x, mean and rstd,
     the backward kernel computes dx, dw, db); one that does not
     (`torch.inference_mode()`, `torch.no_grad()`, the serving engine)
     runs the forward kernel alone.
 
 Forward kernel note.  Replaces apex_tpu/ops/layer_norm.py:_fwd_kernel
-(launched by _fwd_pallas).  What bounds it on an H100: bytes — a row
-reduction doing ~8 flops per element read.  Design: one program per row
-holds the whole row (hidden masked up to the next power of two, at most
-16384) in registers, so x is read once and y written once, with the
-statistics reduced in fp32 in between; no tensor cores and no pipeline
-to build.  Triton serves as well as CUDA C++ for this shape of work.
+(launched by _fwd_pallas).  What bounds it on an H100: bytes at the
+training steps' rows — x read and y written once, ~8 flops an element —
+and the latency of one load, two row sums and a store at decode's 64
+rows.  The TPU kernel takes a block of rows a grid step; here a row
+belongs to a group of warps whose threads hold it in registers, sum it
+by warp shuffles (one shared-memory step between the group's warps) and
+centre the variance on the values they hold (`fwd_plan`): two 16-byte
+vectors of x, w and b a thread at the training steps' rows (2 warps a
+row at hidden 1024), one at decode's (4 warps), each group walking a run
+of rows with the next row's loads in flight; rows past 8192 columns take
+12 warps and stream through a ring of 1-D bulk copies.  One launch a
+call, no atomics, the same bits every run.  The source note
+(csrc/layer_norm.cu) has the details.
 
 Backward kernel note.  Replaces apex_tpu/ops/layer_norm.py:_bwd_kernel
 (launched by _bwd_pallas).  dx = rstd * (wg - mean(wg) - xhat *
@@ -56,11 +63,6 @@ from torch import nn
 
 from apex_tpu_torch.ops._common import (check_kernel_device,
                                         sm_count as _sm_count)
-
-# triton.language, bound by `_jit` at the first launch: the kernels
-# below are compiled only on a machine with a card, and importing this
-# module must not need triton
-tl = None
 
 _MAX_HIDDEN = 16384
 
@@ -122,85 +124,7 @@ def rms_norm_reference(x, weight=None, eps=1e-5):
     return y.reshape(x.shape)
 
 
-# ------------------------------- Triton forward ------------------------------
-
-def _fwd_kernel(X, W, B, Y, Mean, Rstd, x_stride, y_stride, n_cols, eps,
-                BLOCK: tl.constexpr, RMS: tl.constexpr,
-                HAS_WEIGHT: tl.constexpr, HAS_BIAS: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < n_cols
-    x = tl.load(X + row * x_stride + cols, mask=mask,
-                other=0.0).to(tl.float32)
-    if RMS:
-        mean = tl.sum(tl.zeros([BLOCK], dtype=tl.float32), axis=0)
-        xc = x
-    else:
-        mean = tl.sum(x, axis=0) / n_cols
-        xc = tl.where(mask, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / n_cols
-    rstd = 1.0 / tl.sqrt(var + eps)
-    y = xc * rstd
-    if HAS_WEIGHT:
-        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
-        y = y * w
-    if HAS_BIAS:
-        b = tl.load(B + cols, mask=mask, other=0.0).to(tl.float32)
-        y = y + b
-    tl.store(Y + row * y_stride + cols, y.to(Y.dtype.element_ty),
-             mask=mask)
-    tl.store(Mean + row, mean)
-    tl.store(Rstd + row, rstd)
-
-
-_JIT = {}
-
-
-def _jit(fn):
-    global tl
-    if fn.__name__ not in _JIT:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _JIT[fn.__name__] = triton.jit(fn)
-    return _JIT[fn.__name__]
-
-
-def norm_fwd_triton(x2, weight, bias, eps, rms):
-    """Launch the Triton forward over a CUDA (rows, hidden) tensor whose
-    last dim is contiguous.  Returns (y, mean, rstd) like
-    `norm_fwd_reference`; `norm_fwd_triton.launches` counts launches."""
-    rows, hidden = x2.shape
-    if hidden > _MAX_HIDDEN:
-        raise ValueError(f"LayerNorm kernel holds a row in registers: "
-                         f"hidden {hidden} > {_MAX_HIDDEN}")
-    if x2.stride(1) != 1:
-        raise ValueError("LayerNorm kernel needs the hidden dim contiguous")
-    for name, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (tuple(t.shape) != (hidden,)
-                              or not t.is_contiguous()):
-            raise ValueError(f"LayerNorm {name} must be contiguous "
-                             f"({hidden},), got {tuple(t.shape)}")
-    y = torch.empty_like(x2)
-    mean = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
-    if rows == 0:
-        return y, mean, rstd
-    block = 1 << (hidden - 1).bit_length()
-    num_warps = 4 if block <= 1024 else (8 if block <= 4096 else 16)
-    _jit(_fwd_kernel)[(rows,)](
-        x2, x2 if weight is None else weight, x2 if bias is None else bias,
-        y, mean, rstd, x2.stride(0), y.stride(0), hidden, eps,
-        BLOCK=block, RMS=rms, HAS_WEIGHT=weight is not None,
-        HAS_BIAS=bias is not None, num_warps=num_warps)
-    norm_fwd_triton.launches += 1
-    return y, mean, rstd
-
-
-norm_fwd_triton.launches = 0
-
-# ------------------------------ CUDA backward -------------------------------
+# -------------------------------- CUDA kernels --------------------------------
 
 # the plan's constants (csrc/layer_norm.cu): columns a thread holds (its
 # dw and db sums live in registers) at up to 8 warps a row, warps a block,
@@ -249,20 +173,11 @@ def bwd_plan(rows, hidden, itemsize, sms, align=16):
     if not 0 < hidden <= _MAX_HIDDEN:
         raise ValueError(f"LayerNorm backward kernel takes hidden in "
                          f"(0, {_MAX_HIDDEN}], got {hidden}")
-    wpr = 1
-    while hidden > wpr * 32 * BWD_COLS:
-        wpr *= 2
-    if wpr > BWD_WARPS:
-        wpr = BWD_WIDE_WARPS
+    wpr = _row_warps(hidden, BWD_COLS, BWD_WARPS, BWD_WIDE_WARPS)
     warps = max(wpr, BWD_WARPS)
     groups = warps // wpr
     row_bytes = hidden * itemsize
-    if align % 16 == 0 and row_bytes % 16 == 0:
-        width = 16
-    elif align % 4 == 0 and row_bytes % 4 == 0:
-        width = 4
-    else:
-        width = itemsize
+    width = _load_width(hidden, itemsize, align)
     stages = 1
     if width == 16:
         w_bytes = -(-hidden // 8) * 32
@@ -277,13 +192,128 @@ def bwd_plan(rows, hidden, itemsize, sms, align=16):
                    stages, width, finish)
 
 
+# the forward plan's constants (csrc/layer_norm.cu): columns a thread
+# holds at up to 8 warps a row, the most warps a block, the warps of a row
+# past 8 x 1024 columns, 16-byte vectors a thread of many 16-byte rows,
+# blocks an SM the 16-byte rows' form is compiled for by the vectors a
+# thread holds (csrc's `FwdMinBlocks`; 1 for every other form), the
+# shared memory of a 12-warp row's ring and w's and b's fp32 rows, the
+# ring's most slots
+FWD_COLS = 32
+FWD_WARPS = 8
+FWD_WIDE_WARPS = 12
+FWD_VECS = 2
+FWD_BLOCKS_PER_SM = {1: 4, 2: 2}
+FWD_SMEM = 200 * 1024
+FWD_MAX_STAGES = 8
+
+
+class FwdPlan(NamedTuple):
+    """What `csrc/layer_norm.cu`'s forward runs: `blocks` blocks of
+    `warps` warps and `rows_per_block` rows (the last one short),
+    `warps_per_row` warps a row, a ring of `stages` rows a row group (0:
+    no ring, rows read straight from device memory), loads and stores
+    `load_width` bytes wide."""
+    blocks: int
+    rows_per_block: int
+    warps: int
+    warps_per_row: int
+    stages: int
+    load_width: int
+
+
+def _row_warps(hidden, cols, warps, wide_warps):
+    """Warps a row: the fewest (a power of two) holding `hidden` at `cols`
+    columns a thread, or past `warps` of them `wide_warps`."""
+    wpr = 1
+    while hidden > wpr * 32 * cols:
+        wpr *= 2
+    return wide_warps if wpr > warps else wpr
+
+
+def _load_width(hidden, itemsize, align):
+    """16 where the rows' bytes and `align` are 16-byte multiples, else 4
+    where they are 4-byte multiples, else the element size."""
+    row_bytes = hidden * itemsize
+    if align % 16 == 0 and row_bytes % 16 == 0:
+        return 16
+    if align % 4 == 0 and row_bytes % 4 == 0:
+        return 4
+    return itemsize
+
+
+def fwd_blocks_per_sm(hidden, itemsize, wpr, width):
+    """Blocks an SM the forward kernel's form for rows of `hidden`
+    `itemsize`-byte elements on `wpr` warps, loaded `width` bytes wide,
+    is compiled for (its register cap): `FWD_BLOCKS_PER_SM` by the
+    16-byte vectors a thread holds for 16-byte rows up to 8 warps, else
+    1.  (Rows whose w or b is not a 16-byte aligned row of x's dtype run
+    the narrow form under the same plan.)"""
+    if width != 16 or wpr > FWD_WARPS:
+        return 1
+    vecs = -(-hidden * itemsize // (32 * wpr * 16))
+    return FWD_BLOCKS_PER_SM.get(vecs, 1)
+
+
+def fwd_plan(rows, hidden, itemsize, sms, align=16):
+    """The forward kernel's plan for (rows, hidden) of `itemsize`-byte
+    elements on a card of `sms` SMs, where `align` bytes divide every
+    base and row stride of x and y.  A row takes the fewest warps (a
+    power of two, up to `FWD_WARPS`) that hold a row of 16-byte multiples
+    at `FWD_VECS` 16-byte vectors a thread (16 columns in 16-bit: 2 warps
+    at hidden 1024), or at one for few rows (at most `FWD_WARPS` an SM:
+    decode, prefill; 4 warps at hidden 1024, a shorter chain a row); other
+    rows at up to `FWD_COLS` columns a thread; a block as many groups
+    (up to `FWD_WARPS` warps) as spread the rows over the SMs, and each
+    group a run of rows as even as whole rows a group allow over one wave
+    of the blocks an SM that the kernel's form is compiled for
+    (`fwd_blocks_per_sm`): one row a one-group block at decode's rows,
+    runs of 12 rows of four two-warp groups a block, two blocks an SM, at
+    GPT-350M's training rows.  Past
+    `FWD_WARPS` such warps a row takes `FWD_WIDE_WARPS` on a block of its
+    own, about one an SM over a run of rows, which stream through a ring
+    of as many slots (at most `FWD_MAX_STAGES`) as `FWD_SMEM` holds
+    beside w's and b's fp32 rows.  Rows whose bytes or bases are not
+    16-byte multiples take 4- or 2-byte loads (no ring)."""
+    if not 0 < hidden <= _MAX_HIDDEN:
+        raise ValueError(f"LayerNorm forward kernel takes hidden in "
+                         f"(0, {_MAX_HIDDEN}], got {hidden}")
+    wpr = _row_warps(hidden, FWD_COLS, FWD_WARPS, FWD_WIDE_WARPS)
+    width = _load_width(hidden, itemsize, align)
+    if width == 16 and wpr != FWD_WIDE_WARPS:
+        # 16-byte vectors a thread where 8 warps hold the row so
+        vecs = 1 if rows <= sms * FWD_WARPS else FWD_VECS
+        wpr = _row_warps(hidden, vecs * 16 // itemsize, FWD_WARPS,
+                         FWD_WARPS)
+    if rows == 0:
+        return FwdPlan(0, 0, wpr, wpr, 0, width)
+    if wpr == FWD_WIDE_WARPS:
+        per_block = -(-rows // sms)
+        stages = 0
+        if width == 16:
+            row_bytes = -(-hidden * itemsize // 16) * 16
+            wb = 2 * -(-hidden // 8) * 32
+            stages = max(1, min(FWD_MAX_STAGES, (FWD_SMEM - wb) // row_bytes))
+        return FwdPlan(-(-rows // per_block), per_block, wpr, wpr, stages,
+                       width)
+    groups = min(FWD_WARPS // wpr, -(-rows // sms))
+    per_sm = fwd_blocks_per_sm(hidden, itemsize, wpr, width)
+    per_group = -(-rows // (sms * per_sm * groups))
+    return FwdPlan(-(-rows // (per_group * groups)), per_group * groups,
+                   groups * wpr, wpr, 0, width)
+
+
 def _bind(lib):
-    """`lib` (a build of csrc/layer_norm.cu) with its C entry's types."""
+    """`lib` (a build of csrc/layer_norm.cu) with its C entries' types."""
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.apex_layer_norm_bwd.restype = i32
     lib.apex_layer_norm_bwd.argtypes = [
         i32, vp, i64, vp, i64, vp, vp, vp, i32, vp, i64, vp, vp, vp, vp, i32,
         i32, i32, i32, i32, i32, i32, i32, i32, i32, vp]
+    lib.apex_layer_norm_fwd.restype = i32
+    lib.apex_layer_norm_fwd.argtypes = [
+        i32, vp, i64, vp, i32, vp, i32, vp, i64, vp, vp, ctypes.c_float, i32,
+        i32, i32, i32, i32, i32, i32, i32, i32, vp]
     return lib
 
 
@@ -302,6 +332,64 @@ def _align(*tensors):
                == 0 for t in tensors):
             return a
     return 2
+
+
+def _check_param(name, t, hidden):
+    if t is not None and (tuple(t.shape) != (hidden,)
+                          or not t.is_contiguous()
+                          or t.dtype not in _DTYPE_CODES):
+        raise ValueError(f"LayerNorm {name} must be contiguous ({hidden},) "
+                         f"fp32/bf16/fp16, got {tuple(t.shape)} {t.dtype}")
+
+
+def _launch_fwd(plan, x2, weight, bias, y, mean, rstd, eps, rms):
+    """Launch the forward kernel on the current stream under `plan`: y,
+    mean and rstd filled in place.  Counts the launch in
+    `norm_fwd_cuda.launches`."""
+    rows, hidden = x2.shape
+    code = (lambda t: 0 if t is None else _DTYPE_CODES[t.dtype])
+    err = _lib().apex_layer_norm_fwd(
+        _DTYPE_CODES[x2.dtype], x2.data_ptr(), x2.stride(0),
+        None if weight is None else weight.data_ptr(), code(weight),
+        None if bias is None else bias.data_ptr(), code(bias), y.data_ptr(),
+        y.stride(0), mean.data_ptr(), rstd.data_ptr(), eps, int(rms), rows,
+        hidden, plan.blocks, plan.rows_per_block, plan.warps,
+        plan.warps_per_row, plan.stages, plan.load_width,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LayerNorm forward kernel launch failed (plan "
+                           f"{tuple(plan)}): CUDA error {err}")
+    norm_fwd_cuda.launches += 1
+
+
+def norm_fwd_cuda(x2, weight, bias, eps, rms):
+    """Launch the CUDA forward over a CUDA (rows, hidden) tensor whose
+    last dim is contiguous, under `fwd_plan`.  Returns (y, mean, rstd)
+    like `norm_fwd_reference`; `norm_fwd_cuda.launches` counts
+    launches."""
+    rows, hidden = x2.shape
+    if hidden > _MAX_HIDDEN:
+        raise ValueError(f"LayerNorm kernel holds a row in registers: "
+                         f"hidden {hidden} > {_MAX_HIDDEN}")
+    if x2.stride(1) != 1:
+        raise ValueError("LayerNorm kernel needs the hidden dim contiguous")
+    if x2.dtype not in _DTYPE_CODES:
+        raise TypeError(f"LayerNorm forward kernel takes fp32/bf16/fp16 x, "
+                        f"got {x2.dtype}")
+    _check_param("weight", weight, hidden)
+    _check_param("bias", bias, hidden)
+    y = torch.empty((rows, hidden), dtype=x2.dtype, device=x2.device)
+    mean = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x2.device)
+    if rows == 0:
+        return y, mean, rstd
+    plan = fwd_plan(rows, hidden, x2.element_size(), _sm_count(x2.device),
+                    _align(x2, y))
+    _launch_fwd(plan, x2, weight, bias, y, mean, rstd, eps, rms)
+    return y, mean, rstd
+
+
+norm_fwd_cuda.launches = 0
 
 
 def _launch(plan, g2, x2, mean, rstd, weight, dx, dwdb, rms):
@@ -351,12 +439,7 @@ def norm_bwd_cuda(g2, x2, mean, rstd, weight, rms):
                 or not t.is_contiguous()):
             raise ValueError(f"LayerNorm backward {name} must be "
                              f"contiguous fp32 ({rows}, 1)")
-    if weight is not None and (tuple(weight.shape) != (hidden,)
-                               or not weight.is_contiguous()
-                               or weight.dtype not in _DTYPE_CODES):
-        raise ValueError(f"LayerNorm weight must be contiguous "
-                         f"({hidden},) fp32/bf16/fp16, got "
-                         f"{tuple(weight.shape)} {weight.dtype}")
+    _check_param("weight", weight, hidden)
     dx = torch.empty((rows, hidden), dtype=x2.dtype, device=x2.device)
     dwdb = None
     if weight is not None:
@@ -384,7 +467,7 @@ class _NormFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, weight, bias, eps, rms):
-        y, mean, rstd = norm_fwd_triton(x2, weight, bias, eps, rms)
+        y, mean, rstd = norm_fwd_cuda(x2, weight, bias, eps, rms)
         ctx.save_for_backward(x2, weight, mean, rstd)
         ctx.rms = rms
         ctx.bias_dtype = None if bias is None else bias.dtype
@@ -415,15 +498,15 @@ def _norm(x, weight, bias, eps, rms):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         y2 = _NormFn.apply(x2, weight, bias, eps, rms)
     else:
-        y2, _, _ = norm_fwd_triton(x2, weight, bias, eps, rms)
+        y2, _, _ = norm_fwd_cuda(x2, weight, bias, eps, rms)
     return y2.reshape(x.shape)
 
 
 def fused_layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
     """Affine/plain LayerNorm over the last dim ≡ the JAX package's
     `fused_layer_norm`.  CPU tensors run the plain version; CUDA
-    tensors run the kernels (the Triton forward, and the CUDA backward
-    when a gradient is needed) or raise."""
+    tensors run the CUDA kernels (the forward, and the backward when a
+    gradient is needed) or raise."""
     return _norm(x, weight, bias, eps, False)
 
 

@@ -11,8 +11,8 @@ Two implementations of the sums:
 
   * `channel_sums_reference` — the plain PyTorch version.  CPU tensors
     run it, and `chip_smoke.py` holds the kernel against fp64 sums.
-  * `_stats_partial_kernel` + `_stats_finish_kernel`, Triton kernels
-    launched by `channel_sums_triton` for CUDA tensors.
+  * the CUDA C++ kernel of `apex_tpu_torch/csrc/welford.cu`, launched by
+    `channel_sums_cuda` under the host plan `sums_plan`, for CUDA tensors.
 
 On the TPU the JAX package takes its Pallas kernel only when forced
 (`use_pallas_fusable`) and otherwise lets XLA fuse the reduction into
@@ -24,31 +24,42 @@ Kernel note.  Replaces apex_tpu/ops/welford.py:_stats_kernel (launched
 by channel_sums).  What bounds it on an H100: bytes — x is read once
 (2 bytes an element in bf16) for 3 flops.  The TPU kernel carries one
 (1, C) accumulator across its sequential grid; blocks on the card run
-in any order, so each program of `_stats_partial_kernel` sums a fixed
-run of rows for a block of at most 64 channels in fp32 registers
-(tiles of `_TILE_ROWS` rows: a tile of the 64-channel stem output is
-8 KB of contiguous bf16) and writes one partial row, and
-`_stats_finish_kernel` sums the partials in a fixed order.  No atomics:
-the sums are deterministic.  The runs are sized so about `_PROGRAMS`
-programs cover the input, several per SM at every batch-norm shape of
-ResNet-50, from (3,211,264, 64) to (12,544, 2048).
+in any order, so one launch a call runs about a block an SM, each
+owning every channel (up to 2048 in 16-bit) of a contiguous run of rows:
+a thread sums one 16-byte vector of channels of every R-th row in fp32
+registers, several 16-byte loads in flight; the block's threads meet in
+shared memory, the blocks of a thread-block cluster in rank order
+through distributed shared memory, and the last cluster to finish
+(an integer ticket tells it) sums the clusters' partials in cluster
+order.  No float atomics: the same bits every run.  The plan
+(`sums_plan`) covers every batch-norm shape of ResNet-50, from
+(3,211,264, 64) to (12,544, 2048); the source note (csrc/welford.cu)
+has the details.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch.ops._common import check_kernel_device
+from apex_tpu_torch.ops._common import (check_kernel_device,
+                                        sm_count as _sm_count)
 
-# triton.language, bound by `_jit` at the first launch: the kernels are
-# compiled only on a machine with a card, and importing this module must
-# not need triton
-tl = None
-
-_BLOCK_C = 64          # channels per program
-_TILE_ROWS = 64        # rows per loop step
-_PROGRAMS = 1024       # programs per launch, about
+# the plan's constants (csrc/welford.cu): threads a block, 16-byte loads
+# a thread keeps in flight, blocks an SM, the most blocks a cluster
+SUMS_THREADS = 256
+SUMS_UNROLL = 8
+SUMS_BLOCKS_PER_SM = 1
+SUMS_MAX_CLUSTER = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.float64: 3}
+_LIB = None
+# (device index, stream) -> the int32 ticket the kernel's clusters take
+# (0 between calls: the last cluster's atomicInc wraps it back)
+_TICKETS = {}
 
 
 # --------------------------- plain PyTorch version ---------------------------
@@ -59,91 +70,129 @@ def channel_sums_reference(x2):
     return torch.sum(x, dim=0), torch.sum(x * x, dim=0)
 
 
-# ------------------------------- Triton kernels ------------------------------
+# -------------------------------- CUDA kernel --------------------------------
 
-def _stats_partial_kernel(X, SP, QP, n_rows, n_cols, rows_per_prog,
-                          TR: tl.constexpr, BC: tl.constexpr):
-    pid = tl.program_id(0)
-    cols = tl.program_id(1) * BC + tl.arange(0, BC)
-    cmask = cols < n_cols
-    acc_s = tl.zeros((TR, BC), dtype=tl.float32)
-    acc_q = tl.zeros((TR, BC), dtype=tl.float32)
-    r0 = pid * rows_per_prog
-    r1 = tl.minimum(r0 + rows_per_prog, n_rows)
-    for r in range(r0, r1, TR):
-        rows = r + tl.arange(0, TR)
-        m = (rows < r1)[:, None] & cmask[None, :]
-        x = tl.load(X + rows.to(tl.int64)[:, None] * n_cols + cols[None, :],
-                    mask=m, other=0.0).to(tl.float32)
-        acc_s += x
-        acc_q += x * x
-    tl.store(SP + pid * n_cols + cols, tl.sum(acc_s, axis=0), mask=cmask)
-    tl.store(QP + pid * n_cols + cols, tl.sum(acc_q, axis=0), mask=cmask)
+class SumsPlan(NamedTuple):
+    """What `csrc/welford.cu` runs: `blocks` blocks of rows (a multiple
+    of `cluster`, the blocks of a thread-block cluster) of
+    `rows_per_block` rows, times `col_blocks` column chunks of `chunk`
+    vectors, loads `load_width` bytes wide (one vector: 16 bytes, or an
+    element)."""
+    blocks: int
+    rows_per_block: int
+    cluster: int
+    col_blocks: int
+    chunk: int
+    load_width: int
 
 
-def _stats_finish_kernel(SP, QP, S, Q, n_parts, n_cols, PARTS: tl.constexpr,
-                         BC: tl.constexpr):
-    """S, Q = the column sums of the (n_parts, n_cols) partials, PARTS
-    rows at a time in a fixed order."""
-    cols = tl.program_id(0) * BC + tl.arange(0, BC)
-    cmask = cols < n_cols
-    s = tl.zeros((BC,), dtype=tl.float32)
-    q = tl.zeros((BC,), dtype=tl.float32)
-    for p0 in range(0, n_parts, PARTS):
-        parts = p0 + tl.arange(0, PARTS)
-        m = (parts < n_parts)[:, None] & cmask[None, :]
-        off = parts[:, None] * n_cols + cols[None, :]
-        s += tl.sum(tl.load(SP + off, mask=m, other=0.0), axis=0)
-        q += tl.sum(tl.load(QP + off, mask=m, other=0.0), axis=0)
-    tl.store(S + cols, s, mask=cmask)
-    tl.store(Q + cols, q, mask=cmask)
+def sums_plan(rows, c, itemsize, sms, align=16):
+    """The kernel's plan for a contiguous (rows, c) tensor of
+    `itemsize`-byte elements on a card of `sms` SMs, where `align` bytes
+    divide its base.  A thread loads 16-byte vectors where the rows'
+    bytes and the base are 16-byte multiples, else one element; a block
+    of `SUMS_THREADS` threads covers up to that many vectors of a row
+    (a column chunk) and R = threads / vectors rows at a time.
+    `SUMS_BLOCKS_PER_SM` blocks an SM split the rows (fewer where that
+    would leave a block under R x `SUMS_UNROLL` rows), in clusters of
+    the most blocks, up to `SUMS_MAX_CLUSTER`, that divide their number
+    (6 of 132 on an H100); the blocks' runs are as even as whole rows
+    allow."""
+    if rows < 0 or c < 1:
+        raise ValueError(f"channel sums take rows >= 0 and c >= 1, got "
+                         f"({rows}, {c})")
+    width = 16 if align % 16 == 0 and c * itemsize % 16 == 0 else itemsize
+    vecs = c * itemsize // width
+    chunk = min(vecs, SUMS_THREADS)
+    col_blocks = -(-vecs // chunk)
+    slots = SUMS_THREADS // chunk
+    if rows == 0:
+        return SumsPlan(0, 0, 1, col_blocks, chunk, width)
+    target = max(1, SUMS_BLOCKS_PER_SM * sms // col_blocks)
+    want = max(1, min(target, -(-rows // (slots * SUMS_UNROLL))))
+    cluster = max(k for k in range(1, SUMS_MAX_CLUSTER + 1)
+                  if want % k == 0)
+    return SumsPlan(want, -(-rows // want), cluster, col_blocks, chunk,
+                    width)
 
 
-_JIT = {}
+def _bind(lib):
+    """`lib` (a build of csrc/welford.cu) with its C entry's types."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.apex_channel_sums.restype = i32
+    lib.apex_channel_sums.argtypes = [i32, vp, i64, i32, vp, vp, vp, vp, i32,
+                                      i32, i32, i32, i32, i32, vp]
+    return lib
 
 
-def _jit(fn):
-    global tl
-    if fn.__name__ not in _JIT:
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _JIT[fn.__name__] = triton.jit(fn)
-    return _JIT[fn.__name__]
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from apex_tpu_torch import csrc
+        _LIB = _bind(csrc.load("welford"))
+    return _LIB
 
 
-def channel_sums_triton(x2):
-    """Launch the two passes over a contiguous CUDA (rows, C) tensor of
-    any float dtype: returns fp32 (Σx, Σx²), each (C,).  A strided view
-    raises rather than being copied behind the caller's back.
-    `channel_sums_triton.launches` counts calls."""
+def _ticket(device, stream):
+    """The zeroed int32 ticket of calls on `stream` of `device`."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _launch(plan, x2, s, q):
+    """Launch the kernel on the current stream under `plan`: s and q
+    filled in place.  Counts the launch in `channel_sums_cuda.launches`."""
+    rows, c = x2.shape
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    part = ticket = None
+    if plan.blocks > plan.cluster:
+        part = torch.empty((plan.blocks // plan.cluster, 2, c),
+                           dtype=torch.float32, device=x2.device)
+        ticket = _ticket(x2.device, stream)
+    err = _lib().apex_channel_sums(
+        _DTYPE_CODES[x2.dtype], x2.data_ptr(), rows, c, s.data_ptr(),
+        q.data_ptr(), None if part is None else part.data_ptr(),
+        None if ticket is None else ticket.data_ptr(), plan.blocks,
+        plan.rows_per_block, plan.cluster, plan.col_blocks, plan.chunk,
+        plan.load_width, stream)
+    if err != 0:
+        raise RuntimeError(f"channel sums kernel launch failed (plan "
+                           f"{tuple(plan)}): CUDA error {err}")
+    channel_sums_cuda.launches += 1
+
+
+def channel_sums_cuda(x2):
+    """Launch the kernel over a contiguous CUDA (rows, C) tensor of fp32,
+    bf16, fp16 or fp64: returns fp32 (Σx, Σx²), each (C,), from one
+    launch under `sums_plan`.  A strided view raises rather than being
+    copied behind the caller's back.  `channel_sums_cuda.launches` counts
+    launches."""
     if x2.ndim != 2 or not x2.is_contiguous():
         raise ValueError(f"channel sums need a contiguous (rows, C) tensor, "
                          f"got shape {tuple(x2.shape)} strides "
                          f"{x2.stride()}")
     if not x2.dtype.is_floating_point:
         raise TypeError(f"channel sums need a float tensor, got {x2.dtype}")
+    if x2.dtype not in _DTYPE_CODES:
+        raise TypeError(f"channel sums kernel takes fp32/bf16/fp16/fp64, "
+                        f"got {x2.dtype}")
     rows, c = x2.shape
-    s = torch.zeros(c, dtype=torch.float32, device=x2.device)
-    q = torch.zeros_like(s)
-    if rows and c:
-        col_blocks = -(-c // _BLOCK_C)
-        per = max(_TILE_ROWS, -(-rows * col_blocks // _PROGRAMS))
-        per = -(-per // _TILE_ROWS) * _TILE_ROWS
-        n_parts = -(-rows // per)
-        sp = torch.empty((n_parts, c), dtype=torch.float32, device=x2.device)
-        qp = torch.empty_like(sp)
-        _jit(_stats_partial_kernel)[(n_parts, col_blocks)](
-            x2, sp, qp, rows, c, per, TR=_TILE_ROWS, BC=_BLOCK_C,
-            num_warps=4)
-        _jit(_stats_finish_kernel)[(col_blocks,)](
-            sp, qp, s, q, n_parts, c, PARTS=32, BC=_BLOCK_C, num_warps=4)
-    channel_sums_triton.launches += 1
+    if rows == 0 or c == 0:
+        z = torch.zeros(c, dtype=torch.float32, device=x2.device)
+        return z, z.clone()
+    s = torch.empty(c, dtype=torch.float32, device=x2.device)
+    q = torch.empty_like(s)
+    align = 16 if x2.data_ptr() % 16 == 0 else x2.element_size()
+    plan = sums_plan(rows, c, x2.element_size(), _sm_count(x2.device),
+                     align)
+    _launch(plan, x2, s, q)
     return s, q
 
 
-channel_sums_triton.launches = 0
+channel_sums_cuda.launches = 0
 
 
 class _ChannelSumsFn(torch.autograd.Function):
@@ -154,7 +203,7 @@ class _ChannelSumsFn(torch.autograd.Function):
     def forward(ctx, x2):
         ctx.save_for_backward(x2)
         if check_kernel_device(x2):
-            return channel_sums_triton(x2)
+            return channel_sums_cuda(x2)
         return channel_sums_reference(x2)
 
     @staticmethod
@@ -169,7 +218,7 @@ class _ChannelSumsFn(torch.autograd.Function):
 def channel_sums(x2):
     """(sum, sumsq) over rows of a (rows, C) tensor, fp32 (≡ the JAX
     package's `channel_sums`).  CPU tensors run the plain version; CUDA
-    tensors run the Triton kernels or raise."""
+    tensors run the CUDA kernel or raise."""
     return _ChannelSumsFn.apply(x2)
 
 

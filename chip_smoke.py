@@ -17,8 +17,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  rate-0 twins lack, nor the fused dense GEMM's fp32 and
                  GEMV kernels any spill (their registers and spills in
                  its summary line, by kernel family), nor any kernel of
-                 the LayerNorm backward or flash-decode (a summary line
-                 each: registers by kernel, spills).
+                 the LayerNorm forward and backward, flash-decode or
+                 the channel sums (a summary line each: registers by
+                 kernel, spills).
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: flash-decode
@@ -28,7 +29,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  version),
                  at 4 slots x 4096 keys (a split among a cluster's
                  blocks), GQA with q_len 2 and a page-8 case, each run
-                 twice bit for bit; the LayerNorm backward at GPT's and
+                 twice bit for bit; the LayerNorm forward at every
+                 main-path shape (decode's 64 rows to GPT-1.3B's (3584,
+                 2048)), RMSNorm, no weight, fp16, row-strided views,
+                 4- and 2-byte rows and the 12-warp rows, each run twice
+                 bit for bit; the LayerNorm backward at GPT's and
                  BERT's rows, ragged and tiny ones, fp16, RMSNorm, no
                  weight, 4- and 2-byte loads and rows of 2-12 warps, each
                  run twice bit for bit; the
@@ -49,8 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  the cross-entropy kernels at ResNet's (256, 1000) and a
                  ragged (64, 50304); SGD over the ResNet-50 flat buffer
                  (every flag, a first and a found_inf step); the channel
-                 sums at ResNet's largest and smallest batch-norm shapes
-                 against fp64 sums; the softmax pair at GPT's causal
+                 sums at each of ResNet-50's batch-norm shapes (bf16;
+                 the first and last also fp32 and fp16), C = 3, fp64 and
+                 an x off 16 bytes against fp64 sums, twice bit for bit; the softmax pair at GPT's causal
                  (192, 1024, 1024) and BERT's (32, 16, 512, 512) with a
                  ragged (32, 1, 1, 512) padding mask (8 sequences padded
                  entirely: uniform rows) in bf16 (the forward's loads 16
@@ -260,8 +266,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  kernel at the N = 1 layer (fp32 and bf16) and its
                  mma.sync kernel at one shape it still takes, each with
                  its plan, beside its bound and torch.addmm; the
-                 LayerNorm backward at GPT's and BERT's rows beside
-                 F.layer_norm's backward; flash-decode with a cold and a
+                 LayerNorm forward at decode's, GPT-350M's, BERT-Large's
+                 and GPT-1.3B's rows beside F.layer_norm, and its
+                 backward at GPT's and BERT's rows beside F.layer_norm's
+                 backward; the channel sums at each batch-norm shape of
+                 the ResNet-50 step beside torch.var_mean (and their sum
+                 a step); the launch floor: an empty kernel and a
+                 one-block 16-byte copy (csrc/launch_floor.cu), built as
+                 the port's kernels are; flash-decode with a cold and a
                  warm L2, by slot length (0, 1, 256) and at the long
                  case, beside SDPA; the flash kernels' dropout
                  instantiations at rate 0.1 beside their rate-0 times
@@ -409,34 +421,146 @@ def check_flash_decode(torch, fd, case, dtype, hp=None):
     return err.max().item()
 
 
-def check_layer_norm(torch, ln, rng, rows, hidden, dtype, rms=False):
+def check_layer_norm(torch, ln, rng, rows, hidden, dtype, rms=False,
+                     weight=True, bias=True, row_stride=None):
+    """The forward kernel against `norm_fwd_reference`, run twice for the
+    same bits.  `row_stride` (elements) makes x a row-strided view of a
+    wider buffer.  Tolerance: y one ulp of its dtype plus 1e-6 of the
+    largest |y| (fp32: 1e-5 + 1e-5 |y|): where b cancels xhat * w the
+    result is ~1e-7 and fp32 rounding of the operands (~3e-8) is many ulps
+    of it; mean and rstd 1e-5 + 1e-5 of their value.  Returns the plan
+    and the largest y error."""
     dev = "cuda"
-    x = (torch.randn((rows, hidden), generator=rng, device=dev) * 2
-         + 0.5).to(dtype)
+    x = (torch.randn((rows, row_stride or hidden), generator=rng,
+                     device=dev) * 2 + 0.5).to(dtype)[:, :hidden]
     w = (torch.randn((hidden,), generator=rng, device=dev) * 0.5
          + 1).to(dtype)
-    b = (None if rms else
-         (torch.randn((hidden,), generator=rng, device=dev) * 0.1).to(dtype))
-    y, mean, rstd = ln.norm_fwd_triton(x, w, b, 1e-5, rms)
+    b = (torch.randn((hidden,), generator=rng, device=dev) * 0.1).to(dtype)
+    w = w if weight else None
+    b = b if bias and not rms else None
+    y, mean, rstd = ln.norm_fwd_cuda(x, w, b, 1e-5, rms)
+    y2, mean2, rstd2 = ln.norm_fwd_cuda(x, w, b, 1e-5, rms)
     yr, meanr, rstdr = ln.norm_fwd_reference(x, w, b, 1e-5, rms)
     torch.cuda.synchronize()
-    check(y.dtype == dtype and y.shape == x.shape, "layer_norm shape/dtype")
+    plan = ln.fwd_plan(rows, hidden, x.element_size(),
+                       ln._sm_count(x.device), ln._align(x, y))
+    what = (f"layer_norm ({rows},{hidden}) {dtype} rms={rms} weight="
+            f"{weight} bias={bias} row_stride={row_stride} plan "
+            f"{tuple(plan)}")
+    check(y.dtype == dtype and y.shape == x.shape, f"{what}: shape/dtype")
+    check(torch.equal(y, y2) and torch.equal(mean, mean2)
+          and torch.equal(rstd, rstd2), f"{what}: two runs differ")
     err = (y.float() - yr.float()).abs()
     if dtype == torch.float32:
         tol = 1e-5 + 1e-5 * yr.abs()
     else:
-        # at most one bf16 ulp of the plain value, plus 1e-6 of the
-        # largest |y|: where b cancels xhat * w the result is ~1e-7 and
-        # fp32 rounding of the operands (~3e-8) is many ulps of it
-        tol = (torch.ldexp(torch.ones_like(err),
-                           torch.frexp(yr.float().abs()).exponent - 8)
-               + 1e-6 * yr.float().abs().max())
+        tol = ulp(torch, yr.float(), dtype) + 1e-6 * yr.float().abs().max()
     check(bool((err <= tol).all()),
-          f"layer_norm {dtype} ({rows},{hidden}) max err {err.max().item():.3e}")
-    for a, r, what in ((mean, meanr, "mean"), (rstd, rstdr, "rstd")):
+          f"{what}: max err {err.max().item():.3e}")
+    for a, r, name in ((mean, meanr, "mean"), (rstd, rstdr, "rstd")):
         check(bool(((a - r).abs() <= 1e-5 + 1e-5 * r.abs()).all()),
-              f"layer_norm {what} ({rows},{hidden}) {dtype}")
-    return err.max().item()
+              f"{what}: {name}")
+    return plan, err.max().item()
+
+
+# the shapes the main paths give the LayerNorm forward: decode (64 slots),
+# prefill-sized and ragged rows, GPT-350M's training rows (12 x 1024),
+# BERT-Large's (32 x 512), GPT-1.3B's (7 x 512 rows of 2048)
+LN_FWD_SHAPES = ((64, 1024), (128, 1024), (5, 1000), (12288, 1024),
+                 (16384, 1024), (3584, 2048))
+# ResNet-50's batch norms at batch 256, NHWC (the stride on the 3x3):
+# (rows, C) -> how many of the 53 a step runs
+RESNET50_BN_SHAPES = {
+    (3_211_264, 64): 1, (802_816, 64): 6, (802_816, 256): 4,
+    (802_816, 128): 1, (200_704, 128): 7, (200_704, 512): 5,
+    (200_704, 256): 1, (50_176, 256): 11, (50_176, 1024): 7,
+    (50_176, 512): 1, (12_544, 512): 5, (12_544, 2048): 4}
+
+
+def launch_floor_times(torch):
+    """`time_ms` of the two kernels of csrc/launch_floor.cu, built and
+    bound as the port's kernels are: an empty kernel and a one-block
+    16-byte copy (what a launch and one dependent load cost alone)."""
+    import ctypes
+
+    from apex_tpu_torch import csrc
+
+    lib = csrc.load("launch_floor")
+    vp = ctypes.c_void_p
+    lib.apex_launch_floor_empty.argtypes = [vp]
+    lib.apex_launch_floor_copy16.argtypes = [vp, vp, vp]
+    src = torch.ones(4, dtype=torch.int32, device="cuda")
+    dst = torch.zeros_like(src)
+
+    def run(err):
+        check(err == 0, f"launch floor kernel: CUDA error {err}")
+
+    stream = (lambda: torch.cuda.current_stream().cuda_stream)
+    out = {"empty_ms": time_ms(torch, lambda: run(
+        lib.apex_launch_floor_empty(stream()))),
+        "copy16_ms": time_ms(torch, lambda: run(
+            lib.apex_launch_floor_copy16(src.data_ptr(), dst.data_ptr(),
+                                         stream())))}
+    torch.cuda.synchronize()
+    check(torch.equal(src, dst), "launch floor: the 16-byte copy")
+    return out
+
+
+def layer_norm_fwd_checks(torch, ln, rng):
+    """Phase 2's LayerNorm forward checks (`check_layer_norm`): every
+    main-path shape (`LN_FWD_SHAPES`) in fp32 and bf16 with weight and
+    bias, then RMSNorm, no weight, no bias, fp16, a row-strided view,
+    4- and 2-byte rows, and the 12-warp rows past 8192 columns, ring and
+    no ring.  Returns the largest bf16 error at decode's (64, 1024)."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    out = None
+    for rows, hidden in LN_FWD_SHAPES:
+        for dtype in (f32, bf16):
+            plan, e = check_layer_norm(torch, ln, rng, rows, hidden, dtype)
+            log(f"layer_norm ({rows},{hidden}) {dtype}: plan {tuple(plan)}, "
+                f"max err {e:.3e}, two runs bit for bit")
+            if (rows, hidden, dtype) == (64, 1024, bf16):
+                out = e
+    for rows, hidden, dtype, kw in (
+            (64, 1024, bf16, {"rms": True}), (12288, 1024, bf16, {"rms": True}),
+            (64, 1024, bf16, {"weight": False, "bias": False}),
+            (12288, 1024, bf16, {"weight": False}),
+            (3584, 2048, bf16, {"bias": False}), (64, 1024, f16, {}),
+            (12288, 1024, f16, {}), (64, 1024, bf16, {"row_stride": 3072}),
+            (12288, 1024, bf16, {"row_stride": 3072}),
+            (12288, 1024, bf16, {"row_stride": 1026}),
+            (77, 1001, f16, {}), (3000, 1001, f16, {}), (77, 1002, f16, {}),
+            (33, 8192, f32, {}), (9, 16384, bf16, {}),
+            (1000, 16384, bf16, {"rms": True}), (300, 12288, f32, {})):
+        plan, e = check_layer_norm(torch, ln, rng, rows, hidden, dtype, **kw)
+        log(f"layer_norm ({rows},{hidden}) {dtype} {kw}: plan "
+            f"{tuple(plan)}, max err {e:.3e}, two runs bit for bit")
+    return out
+
+
+def channel_sums_checks(torch, wf, rng):
+    """Phase 2's channel-sums checks (`check_channel_sums`): every
+    distinct batch-norm shape of a ResNet-50 step at batch 256 in bf16
+    (the O1 step's dtype), fp32 and fp16, and C = 3, a ragged C, fp64 and
+    an x one element off 16 bytes (one element a load).  Returns the
+    largest |kernel - plain| at the stem's shape in bf16."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [(r, c, dt, 0) for r, c in RESNET50_BN_SHAPES
+             for dt in (bf16, f32, f16)]
+    cases += [(802_816, 3, bf16, 0), (802_816, 3, f32, 0), (37, 16, f32, 0),
+              (5000, 130, bf16, 0), (4096, 64, torch.float64, 0),
+              (200_704, 128, bf16, 1)]
+    out = None
+    for rows, c, dtype, offset in cases:
+        plan, e = check_channel_sums(torch, wf, rng, rows, c, dtype, offset)
+        log(f"channel sums ({rows},{c}) {dtype} offset {offset}: plan "
+            f"{tuple(plan)}, max |kernel - plain| {e:.3e}, two runs bit "
+            f"for bit")
+        if (rows, c, dtype) == (3_211_264, 64, bf16):
+            out = e
+        torch.cuda.empty_cache()
+    return out
+
 
 def ulp(torch, ref, dtype):
     """One ulp of `dtype` at |ref| (bf16: 8 significand bits, fp16: 11,
@@ -689,7 +813,7 @@ def check_layer_norm_bwd(torch, ln, rng, rows, hidden, dtype, rms=False,
         buf = torch.empty(rows * hidden + offset, dtype=dtype, device=dev)
         buf[offset:].copy_(gy.reshape(-1))
         gy = buf[offset:].view(rows, hidden)
-    _, mean, rstd = ln.norm_fwd_triton(x, w, b, 1e-5, rms)
+    _, mean, rstd = ln.norm_fwd_cuda(x, w, b, 1e-5, rms)
     w = w if weight else None
     dx, dw, db = ln.norm_bwd_cuda(gy, x, mean, rstd, w, rms)
     dx2, dw2, db2 = ln.norm_bwd_cuda(gy, x, mean, rstd, w, rms)
@@ -1140,7 +1264,8 @@ def small_kernel_ptxas(lines):
         if "Compiling entry" in line:
             name = line.split("'")[1] if "'" in line else line
             for key in ("ln_bwd_finish_kernel", "ln_bwd_kernel",
-                        "decode_kernel"):
+                        "ln_fwd_kernel", "decode_kernel",
+                        "channel_sums_finish_kernel", "channel_sums_kernel"):
                 if key in name:
                     tail = name.split(key, 1)[1]
                     end = tail.find("EEv")
@@ -1349,28 +1474,37 @@ def check_sgd(torch, ok, rng, n):
     return worst, exact
 
 
-def check_channel_sums(torch, wf, rng, rows, c, dtype):
+def check_channel_sums(torch, wf, rng, rows, c, dtype, offset=0):
     """The per-channel sums kernel against fp64 sums of the same values,
-    and against its plain version.  Tolerance: Σx within 1e-5 of Σ|x|
-    and Σx² within 1e-5 of itself, per channel (fp32 partial sums over
-    runs of rows; the plain version is held to the same bound).  Returns
-    the kernel's largest absolute difference from the plain version."""
-    x = (torch.randn((rows, c), generator=rng, device="cuda") + 0.5).to(
-        dtype)
-    s, q = wf.channel_sums_triton(x)
+    and against its plain version, run twice for the same bits.  `offset`
+    elements into a buffer places x off 16 bytes (one element a load).
+    Tolerance: Σx within 1e-5 of Σ|x| and Σx² within 1e-5 of itself, per
+    channel (fp32 partial sums over runs of rows; the plain version is
+    held to the same bound).  Returns the kernel's plan and its largest
+    absolute difference from the plain version."""
+    x = (torch.randn((rows * c + offset,), generator=rng, device="cuda")
+         + 0.5).to(dtype)[offset:].view(rows, c)
+    s, q = wf.channel_sums_cuda(x)
+    s2, q2 = wf.channel_sums_cuda(x)
     rs, rq = wf.channel_sums_reference(x)
+    align = 16 if x.data_ptr() % 16 == 0 else x.element_size()
+    plan = wf.sums_plan(rows, c, x.element_size(), wf._sm_count(x.device),
+                        align)
     x64 = x.double()
     s64, q64, a64 = x64.sum(0), (x64 * x64).sum(0), x64.abs().sum(0)
     del x64
     torch.cuda.synchronize()
+    what = f"channel sums ({rows},{c}) {dtype} plan {tuple(plan)}"
+    check(torch.equal(s, s2) and torch.equal(q, q2),
+          f"{what}: two runs differ")
     for name, got, want, scale in (("sum", s, s64, a64), ("sumsq", q, q64,
                                                            q64),
                                    ("plain sum", rs, s64, a64),
                                    ("plain sumsq", rq, q64, q64)):
         rel = ((got.double() - want).abs() / scale).max().item()
-        check(rel <= 1e-5, f"channel sums {name} ({rows},{c}) {dtype}: "
-              f"{rel:.3e} of the scale")
-    return max((s - rs).abs().max().item(), (q - rq).abs().max().item())
+        check(rel <= 1e-5, f"{what} {name}: {rel:.3e} of the scale")
+    return plan, max((s - rs).abs().max().item(),
+                     (q - rq).abs().max().item())
 
 
 def profile_decode(torch, np, build_flagship_engine, params, steps=4):
@@ -1408,9 +1542,11 @@ def profile_decode(torch, np, build_flagship_engine, params, steps=4):
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     decode = sum(t for k, t in kernels.items() if "decode_kernel" in k)
+    norm = sum(t for k, t in kernels.items() if "ln_fwd_kernel" in k)
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_ms_per_step": busy / steps / 1e3,
             "flash_decode_ms_per_step": decode / steps / 1e3,
+            "layer_norm_fwd_ms_per_step": norm / steps / 1e3,
             "device_busy_share": busy / wall_us,
             "top_kernels_ms_per_step": {k[:80]: v / steps / 1e3
                                         for k, v in top}}
@@ -1426,7 +1562,7 @@ def training_kernels(fa, ln, ok):
             "flash_attention_fwd_packed": fa.flash_fwd_packed_cuda,
             "flash_attention_bwd_packed": fa.flash_bwd_packed_cuda,
             "elementwise": ok.elementwise_triton,
-            "layer_norm_fwd": ln.norm_fwd_triton,
+            "layer_norm_fwd": ln.norm_fwd_cuda,
             "layer_norm_bwd": ln.norm_bwd_cuda,
             "softmax_fwd": sm.softmax_fwd_triton,
             "softmax_bwd": sm.softmax_bwd_triton,
@@ -1704,7 +1840,7 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_fwd_packed":
                  lambda k: "flash_fwd_packed_kernel" in k,
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
              "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adam": lambda k: k == "_adam_kernel"}
     if split:      # the dk/dv pass is flash_bwd_kernel<D, SEG, false>
@@ -1990,7 +2126,7 @@ def bert_phase(torch, fa, ln, ok, flash=True, steps=5, heads_per_step=None):
                  {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
                   "softmax_bwd": lambda k: k == "_softmax_bwd_kernel"})
     names = dict(attention,
-                 layer_norm_fwd=lambda k: k == "_fwd_kernel",
+                 layer_norm_fwd=lambda k: "ln_fwd_kernel" in k,
                  layer_norm_bwd=lambda k: "ln_bwd_" in k,
                  lamb_phase1_seg=lambda k: k == "_lamb_phase1_kernel",
                  rows_sumsq_seg=lambda k: k in ("_sumsq_items_kernel",
@@ -2089,7 +2225,7 @@ RESNET_BATCH, RESNET_SIZE = 256, 224
 
 def resnet_kernels(xe, wf, ok):
     return {"xent_fwd": xe.xent_fwd_triton, "xent_bwd": xe.xent_bwd_triton,
-            "sgd": ok.sgd_flat_triton, "channel_sums": wf.channel_sums_triton,
+            "sgd": ok.sgd_flat_triton, "channel_sums": wf.channel_sums_cuda,
             "rows_sumsq_seg": ok.rows_sumsq_seg_triton}
 
 
@@ -2204,31 +2340,38 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
     names = {"xent_fwd": lambda k: k == "_xent_fwd_kernel",
              "xent_bwd": lambda k: k == "_xent_bwd_kernel",
              "sgd": lambda k: k == "_sgd_kernel",
-             "channel_sums": lambda k: k in ("_stats_partial_kernel",
-                                             "_stats_finish_kernel")}
+             "channel_sums": lambda k: "channel_sums_" in k}
     if larc:
         names["rows_sumsq_seg"] = lambda k: k in ("_sumsq_items_kernel",
                                                   "_sumsq_segments_kernel")
     # the channel sums' shapes in the profiled step, for their bound
     sums_in = []
-    channel_sums = wf.channel_sums_triton
+    channel_sums = wf.channel_sums_cuda
 
     def record_sums(x2):
-        sums_in.append((x2.numel() * x2.element_size(), x2.shape[1]))
+        sums_in.append((tuple(x2.shape), x2.element_size(), x2.dtype))
         return channel_sums(x2)
 
-    # the kernel's body counts its launches on the module global: the
-    # recorder carries the count while it stands in
+    # the launcher counts its launches on the module global: the recorder
+    # carries the count while it stands in
     record_sums.launches = channel_sums.launches
-    wf.channel_sums_triton = record_sums
+    wf.channel_sums_cuda = record_sums
     try:
         carry, profile_line = profile_step(torch, carry_step, carry,
                                            (batch,), names)
     finally:
-        wf.channel_sums_triton = channel_sums
+        wf.channel_sums_cuda = channel_sums
         channel_sums.launches = record_sums.launches
+    shapes = {}
+    for shape, _, _ in sums_in:
+        shapes[shape] = shapes.get(shape, 0) + 1
+    check(shapes == RESNET50_BN_SHAPES,
+          f"{what}: the batch norms' shapes {sorted(shapes.items())} are "
+          f"not RESNET50_BN_SHAPES")
+    log(f"{what}: the batch norms' input dtypes "
+        f"{sorted({str(d) for *_, d in sums_in})}")
     # x read once, the fp32 sums and sums of squares written once
-    sums_bytes = sum(b + 2 * 4 * c for b, c in sums_in)
+    sums_bytes = sum(r * c * el + 2 * 4 * c for (r, c), el, _ in sums_in)
     sums_ms = profile_line["kernels_ms"]["channel_sums"]
     sums_bound = 1e3 * sums_bytes / HBM_BYTES_PER_S
     channel_sums_step = {"launches": len(sums_in), "device_ms": sums_ms,
@@ -2276,7 +2419,7 @@ def compare_resnet_step(torch, xe, wf, ok, batch):
 
     swaps = [(xe, "xent_fwd_triton", xe.xent_fwd_reference),
              (xe, "xent_bwd_triton", xe.xent_bwd_reference),
-             (wf, "channel_sums_triton", wf.channel_sums_reference),
+             (wf, "channel_sums_cuda", wf.channel_sums_reference),
              (ok, "sgd_flat_triton", plain_sgd)]
 
     def run(plain):
@@ -2414,23 +2557,40 @@ def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
         f"p, buf ({n},) fp32, g bf16; momentum 0.9, wd 1e-4")
     del p, b, gb
 
+    # the channel sums at every batch-norm shape of the step (bf16), each
+    # beside torch.var_mean; the row's own numbers at the stem's shape
+    by_shape = {}
+    for (rr, c), count in RESNET50_BN_SHAPES.items():
+        x2 = torch.randn((rr, c), generator=rng, device=dev).to(bf16)
+        by_shape[f"({rr}, {c})"] = {
+            "per_step": count,
+            "ms": time_ms(torch, lambda: wf.channel_sums_cuda(x2)),
+            "library_ms": time_ms(torch, lambda: torch.var_mean(
+                x2, dim=0, correction=0)),
+            "bound_ms": 1e3 * (2 * rr * c + 8 * c) / HBM_BYTES_PER_S,
+            "plan": list(wf.sums_plan(rr, c, 2, wf._sm_count(x2.device)))}
+        if (rr, c) == (3_211_264, 64):
+            plain = time_ms(torch, lambda: wf.channel_sums_reference(x2))
+        del x2
+        torch.cuda.empty_cache()
+    stem = by_shape["(3211264, 64)"]
     rr, c = 3_211_264, 64
-    x2 = torch.randn((rr, c), generator=rng, device=dev).to(bf16)
-    ms = time_ms(torch, lambda: wf.channel_sums_triton(x2))
-    plain = time_ms(torch, lambda: wf.channel_sums_reference(x2))
-    lib = time_ms(torch, lambda: torch.var_mean(x2, dim=0, correction=0))
-    row("channel_sums", "channel_sums", "triton",
-        "apex_tpu_torch/ops/welford.py", "apex_tpu/ops/welford.py:27",
-        ms, plain, lib, "torch.var_mean(x2, dim=0, correction=0)",
+    row("channel_sums", "channel_sums", "cuda",
+        "apex_tpu_torch/csrc/welford.cu", "apex_tpu/ops/welford.py:27",
+        stem["ms"], plain, stem["library_ms"],
+        "torch.var_mean(x2, dim=0, correction=0)",
         2 * rr * c + 8 * c, 3 * rr * c,
         "x (3211264, 64) bf16: the stem's batch norm -> fp32 (64,) x 2")
-    rr, c = 12_544, 2048
-    x2 = torch.randn((rr, c), generator=rng, device=dev).to(bf16)
-    rows[-1]["ms_smallest_shape"] = time_ms(
-        torch, lambda: wf.channel_sums_triton(x2))
-    rows[-1]["bound_ms_smallest_shape"] = 1e3 * (2 * rr * c + 8 * c) \
-        / HBM_BYTES_PER_S
-    del x2
+    small = by_shape["(12544, 2048)"]
+    rows[-1].update({
+        "plan": stem["plan"], "ms_smallest_shape": small["ms"],
+        "bound_ms_smallest_shape": small["bound_ms"], "by_shape": by_shape,
+        "ms_a_step": sum(v["per_step"] * v["ms"] for v in by_shape.values()),
+        "bound_ms_a_step": sum(v["per_step"] * v["bound_ms"]
+                               for v in by_shape.values()),
+        "library_ms_a_step": sum(v["per_step"] * v["library_ms"]
+                                 for v in by_shape.values())})
+    log("channel sums by shape: " + json.dumps(by_shape))
     torch.cuda.empty_cache()
     return rows
 
@@ -2467,7 +2627,7 @@ def dense_phase(torch, fa, ln, ok):
                 "adam": 0}
     names = {"softmax_fwd": lambda k: k == "_softmax_fwd_kernel",
              "softmax_bwd": lambda k: k == "_softmax_bwd_kernel",
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
              "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adam_seg": lambda k: k == "_adam_seg_kernel"}
     gpt, gpt_vs_plain = gpt_train_phase(
@@ -2774,7 +2934,7 @@ def adagrad_phase(torch, fa, ln, ok):
                 "adam": 0, "adam_seg": 0}
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
              "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "adagrad": lambda k: k == "_adagrad_kernel"}
     return gpt_train_phase(
@@ -2822,7 +2982,7 @@ def novograd_phase(torch, fa, ln, ok, warmup=2, steps=3):
     state, syncs = step_without_sync(torch, step, state, tokens, labels)
     names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
              "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
-             "layer_norm_fwd": lambda k: k == "_fwd_kernel",
+             "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
              "layer_norm_bwd": lambda k: "ln_bwd_" in k,
              "rows_sumsq_seg": lambda k: k in ("_sumsq_items_kernel",
                                                "_sumsq_segments_kernel")}
@@ -4392,7 +4552,7 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
         w = torch.randn((hid,), generator=rng, device=dev).to(bf16)
         bb = torch.randn((hid,), generator=rng, device=dev).to(bf16)
         gy = torch.randn((rows_, hid), generator=rng, device=dev).to(bf16)
-        _, mean, rstd = ln.norm_fwd_triton(x, w, bb, 1e-5, False)
+        _, mean, rstd = ln.norm_fwd_cuda(x, w, bb, 1e-5, False)
         ms = time_ms(torch, lambda: ln.norm_bwd_cuda(
             gy, x, mean, rstd, w, False))
         plain_ms = time_ms(torch, lambda: ln.norm_bwd_reference(
@@ -4566,7 +4726,7 @@ def run_phases():
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     sources = ["flash_decode", "flash_attention", "fused_dense",
-               "layer_norm"]
+               "layer_norm", "welford", "launch_floor"]
     csrc.build(sources)                 # one nvcc per source, in parallel
     log(f"nvcc build {time.perf_counter() - t0:.1f}s")
     for name in sources:
@@ -4596,7 +4756,7 @@ def run_phases():
                       f"fused dense: the fp32 or GEMV kernel spills: "
                       f"{spills}")
                 continue
-            if name in ("layer_norm", "flash_decode"):
+            if name in ("layer_norm", "flash_decode", "welford"):
                 # this slice's kernels: a summary line, and no spills
                 regs, spills = small_kernel_ptxas(lines)
                 log(f"ptxas {name}: registers by kernel {regs}; spills: "
@@ -4687,16 +4847,7 @@ def run_phases():
     log(f"flash_decode GQA G=8 q_len=2 page=8 float32: plan "
         f"{tuple(fd.flash_decode_cuda.last_plan)}, max err {e:.3e}")
     log(f"flash_decode main shape bf16: max err {errs['flash_decode']:.3e}")
-    ln_errs = []
-    # (12288, 1024): the training step's rows (batch 12 x seq 1024)
-    for rows, hidden in ((64, 1024), (128, 1024), (5, 1000), (12288, 1024)):
-        for dtype in (f32, bf16):
-            e = check_layer_norm(torch, ln, rng, rows, hidden, dtype)
-            log(f"layer_norm ({rows},{hidden}) {dtype}: max err {e:.3e}")
-            if (rows, hidden, dtype) == (64, 1024, bf16):
-                errs["layer_norm"] = e
-            ln_errs.append(e)
-    check_layer_norm(torch, ln, rng, 64, 1024, f32, rms=True)
+    errs["layer_norm"] = layer_norm_fwd_checks(torch, ln, rng)
     # the training path: flash attention at the step's shape (q, k, v
     # strided views of the packed qkv, do a permuted view), then ragged
     # sequences and head_dim 128
@@ -4905,13 +5056,7 @@ def run_phases():
     errs["sgd"], exact = check_sgd(torch, ok, rng, RESNET50_FLAT)
     log(f"sgd ({RESNET50_FLAT},) fp32/bf16 grads: max err {errs['sgd']:.3e}, "
         f"bit for bit {exact}")
-    for rows, c, dtype in ((3_211_264, 64, bf16), (12_544, 2048, bf16),
-                           (37, 16, f32)):
-        e = check_channel_sums(torch, wf, rng, rows, c, dtype)
-        log(f"channel sums ({rows},{c}) {dtype}: max |kernel - plain| "
-            f"{e:.3e}")
-        if rows == 3_211_264:
-            errs["channel_sums"] = e
+    errs["channel_sums"] = channel_sums_checks(torch, wf, rng)
     torch.cuda.empty_cache()
     errs.update(dense_kernel_checks(torch, sm, rng))
     gpt_layout = gpt350m_layout(torch)
@@ -4965,10 +5110,10 @@ def run_phases():
         plen = int(prng.randint(1, s.max_prompt_len + 1))
         eng.submit(prng.randint(0, c.vocab_size, plen).tolist(), max_new)
     fd.flash_decode_cuda.launches = 0
-    ln.norm_fwd_triton.launches = 0
+    ln.norm_fwd_cuda.launches = 0
     m = measure_decode(eng, max_steps=16 * max_new + 64)
     launches = {"flash_decode": fd.flash_decode_cuda.launches,
-                "layer_norm": ln.norm_fwd_triton.launches}
+                "layer_norm": ln.norm_fwd_cuda.launches}
     decode_steps = eng.sentry.calls
     prefills = eng.prefills
     fins = m["finished"]
@@ -5138,22 +5283,34 @@ def run_phases():
     log("flash_decode: main shape " + json.dumps(fd_t) + "; long case "
         + json.dumps(fd_long_t))
 
-    x = torch.randn((64, 1024), generator=rng, device="cuda").to(bf16)
-    w = torch.randn((1024,), generator=rng, device="cuda").to(bf16)
-    b = torch.randn((1024,), generator=rng, device="cuda").to(bf16)
-    ln_ms = time_ms(torch, lambda: ln.norm_fwd_triton(x, w, b, 1e-5, False))
-    xt = torch.randn((12288, 1024), generator=rng, device="cuda").to(bf16)
-    ln_ms_train = time_ms(torch, lambda: ln.norm_fwd_triton(
-        xt, w, b, 1e-5, False))
-    ln_lib_train = time_ms(torch, lambda: torch.nn.functional.layer_norm(
-        xt, (1024,), w, b, 1e-5))
-    del xt
-    ln_plain = time_ms(torch, lambda: ln.norm_fwd_reference(x, w, b, 1e-5))
-    ln_lib = time_ms(torch, lambda: torch.nn.functional.layer_norm(
-        x, (1024,), w, b, 1e-5))
-    ln_bytes = 2 * x.numel() * 2 + 2 * 1024 * 2 + 2 * 64 * 4
-    ln_ops = 8 * x.numel()
-    ln_bound = 1e3 * max(ln_bytes / HBM_BYTES_PER_S, ln_ops / FP32_FLOPS)
+    # the LayerNorm forward at every main-path shape: decode's 64 rows,
+    # GPT-350M's, BERT-Large's and GPT-1.3B's training rows (bf16, weight
+    # and bias), each beside F.layer_norm; x, y, w, b once, fp32 mean and
+    # rstd written, ~8 flops an element
+    ln_by_shape = {}
+    for rows_, hid in ((64, 1024), (12288, 1024), (16384, 1024),
+                       (3584, 2048)):
+        x = torch.randn((rows_, hid), generator=rng, device="cuda").to(bf16)
+        w = torch.randn((hid,), generator=rng, device="cuda").to(bf16)
+        b = torch.randn((hid,), generator=rng, device="cuda").to(bf16)
+        by = 2 * x.numel() * 2 + 2 * hid * 2 + 2 * rows_ * 4
+        ln_by_shape[f"({rows_}, {hid})"] = {
+            "ms": time_ms(torch, lambda: ln.norm_fwd_cuda(x, w, b, 1e-5,
+                                                          False)),
+            "library_ms": time_ms(torch, lambda: torch.nn.functional
+                                  .layer_norm(x, (hid,), w, b, 1e-5)),
+            "bound_ms": 1e3 * max(by / HBM_BYTES_PER_S,
+                                  8 * x.numel() / FP32_FLOPS),
+            "plan": list(ln.fwd_plan(rows_, hid, 2, ln._sm_count(x.device)))}
+        if rows_ in (64, 12288):
+            ln_by_shape[f"({rows_}, {hid})"]["plain_ms"] = time_ms(
+                torch, lambda: ln.norm_fwd_reference(x, w, b, 1e-5))
+        del x
+    log("layer_norm fwd by shape: " + json.dumps(ln_by_shape))
+    floor = launch_floor_times(torch)
+    log("launch floor (time_ms of an empty kernel and of a one-block "
+        "16-byte copy, built as the port's kernels): " + json.dumps(floor))
+    ln_dec, ln_train = ln_by_shape["(64, 1024)"], ln_by_shape["(12288, 1024)"]
 
     train_rows = table_train_kernels(torch, fa, ln, ok, rng, errs,
                                      train["launches"],
@@ -5184,18 +5341,22 @@ def run_phases():
          "plan": fd_t["plan"], "by_slot_length": scaling,
          "long_case": fd_long_t,
          "l2": "flushed (read) before each launch"},
-        {"name": "layer_norm_fwd", "route": "triton",
-         "source": "apex_tpu_torch/ops/layer_norm.py",
+        {"name": "layer_norm_fwd", "route": "cuda",
+         "source": "apex_tpu_torch/csrc/layer_norm.cu",
          "replaces": "apex_tpu/ops/layer_norm.py:58",
          "launches": launches["layer_norm"],
          "launches_per_decode_step": n_ln,
          "max_abs_err": errs["layer_norm"],
-         "ms": ln_ms, "kernel_ms": ln_ms, "plain_ms": ln_plain,
+         "ms": ln_dec["ms"], "kernel_ms": ln_dec["ms"],
+         "plain_ms": ln_dec["plain_ms"],
          "launches_train": train["launches"]["layer_norm_fwd"],
-         "ms_at_train_shape": ln_ms_train,
-         "library_ms_at_train_shape": ln_lib_train,
-         "bound_ms": ln_bound, "bound_by": "bytes", "library_ms": ln_lib,
+         "ms_at_train_shape": ln_train["ms"],
+         "library_ms_at_train_shape": ln_train["library_ms"],
+         "bound_ms": ln_dec["bound_ms"], "bound_by": "bytes",
+         "library_ms": ln_dec["library_ms"],
          "library": "torch.nn.functional.layer_norm",
+         "plan": ln_dec["plan"], "by_shape": ln_by_shape,
+         "launch_floor": floor,
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
     ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
         + slice7_rows + slice8_rows + dropout_rows}

@@ -2,7 +2,9 @@
 """Time variants of the port's wgmma + TMA kernels on one GPU.
 
     python3 scripts/port_hopper_ablation.py [--backward | --dq | --softmax |
-                                             --gemm32 | --lnbwd | --decode]
+                                             --gemm32 | --lnbwd | --decode |
+                                             --lnfwd | --sums]
+                                            [--baseline ROOT]
 
 Builds `apex_tpu_torch/csrc/fused_dense.cu` and `flash_attention.cu` as
 they stand and variants of them through the `-D` overrides the two
@@ -168,11 +170,58 @@ gathered beforehand:
     chunk64           ring slots of 64 keys
     hp2, hp4, hp8     the plan at heads_per_step 2, 4, 8
 
+`--lnfwd` checks and times the LayerNorm forward (`csrc/layer_norm.cu`)
+at the main paths' rows in bf16 with weight and bias: decode's (64,
+1024), GPT-350M's (12288, 1024), BERT-Large's (16384, 1024), GPT-1.3B's
+(3584, 2048), beside `F.layer_norm`, each checked variant against
+`norm_fwd_reference` first (chip_smoke's `check_layer_norm`, two runs
+bit for bit):
+
+    shipped           `ops.layer_norm.fwd_plan`: at the training rows two
+                      16-byte vectors a thread (2 warps a row at 1024),
+                      8 warps a block, each row group walking a run of
+                      rows with the next row's x in flight, w and b
+                      loaded once, one wave of the blocks an SM the
+                      form is compiled for (2); at decode's one vector a
+                      thread (4 warps a row), a row a block
+    no_math           -DAPEX_LNF_MATH=0: x copied to y, no sums (timed
+                      only)
+    warps_2x, half    the shipped build, twice or half the warps a row
+                      (1 or 4 vectors a thread at the training rows)
+    group_a_block     the shipped build, one row group a block
+    row_a_group       the shipped build, one row a group (no next row's
+                      loads in flight), as many blocks as that takes
+    runs4             the shipped build, runs of rows sized for four
+                      blocks an SM whatever the form (two waves of the
+                      two-vector form at the training rows)
+    y.copy_(x)        the kernel's bytes (x read, y written) through one
+                      ATen copy kernel (the streaming yardstick)
+
+`--sums` checks and times the channel sums (`csrc/welford.cu`) at each
+batch-norm shape of the ResNet-50 step at batch 256 in bf16, and their
+sum over a step's 53, beside `torch.var_mean`, each checked variant
+against fp64 sums and `channel_sums_reference` first (chip_smoke's
+`check_channel_sums`, two runs bit for bit):
+
+    shipped           `ops.welford.sums_plan`: a block an SM in
+                      clusters of 6, the last cluster (an integer
+                      ticket) summing the clusters' partials
+    no_math           -DAPEX_SUMS_MATH=0: the rows stream through, their
+                      bits folded (timed only)
+    no_cluster        the shipped build, clusters of one block
+    cluster4          the shipped build, clusters of up to 4 blocks
+    blocks2, blocks4  the shipped build, two or four blocks an SM
+
+`--baseline ROOT` adds, for `--lnfwd` and `--sums`, the Triton kernels of
+the checkout at ROOT (`norm_fwd_triton`, `channel_sums_triton`, as the
+port had them before these kernels were CUDA C++), timed in the same
+turns.
+
 The card's name and power limit come first, the times last.
 `--backward` runs the backward's variants alone, `--dq` the dq pass's,
 `--softmax` the softmax forward's, `--gemm32` the fp32 GEMM's, `--lnbwd`
-the LayerNorm backward's, `--decode` flash-decode's.  Fails without
-CUDA.
+the LayerNorm backward's, `--decode` flash-decode's, `--lnfwd` the
+LayerNorm forward's, `--sums` the channel sums'.  Fails without CUDA.
 """
 
 from __future__ import annotations
@@ -257,8 +306,55 @@ UNCHECKED = ("no_math", "no_o_store", "no_dq_store", "no_reads",
 # the cases the LayerNorm backward's variants are timed at: GPT-350M's
 # step rows (batch 12 x seq 1024) and BERT-Large's (32 x 512), hidden 1024
 LNBWD_ROWS = (12288, 16384)
+LNFWD_VARIANTS = {
+    "shipped": [],
+    "no_math": ["-DAPEX_LNF_MATH=0"],
+}
+
+
+
+def _runs4(p, rows, sms):
+    """`p` with its runs of rows sized for four blocks an SM."""
+    groups = p.warps // p.warps_per_row
+    per_block = -(-rows // (sms * 4 * groups)) * groups
+    return p._replace(blocks=-(-rows // per_block), rows_per_block=per_block)
+
+
+# the shipped build under another plan: plan, rows, SMs -> plan
+LNFWD_PLANS = {
+    # twice the warps a row (a vector a thread at the training rows)
+    "warps_2x": lambda p, rows, sms: p if p.warps_per_row > 4 else (
+        p._replace(warps_per_row=2 * p.warps_per_row,
+                   warps=max(2 * p.warps_per_row, p.warps))),
+    # half the warps a row (four vectors a thread at the training rows)
+    "warps_half": lambda p, rows, sms: p if p.warps_per_row in (1, 12) else (
+        p._replace(warps_per_row=p.warps_per_row // 2)),
+    # one row group a block
+    "group_a_block": lambda p, rows, sms: p if p.warps_per_row > 8 else (
+        p._replace(blocks=rows, rows_per_block=1, warps=p.warps_per_row)),
+    # one row a group (nothing to load ahead), as many blocks as that takes
+    "row_a_group": lambda p, rows, sms: p if p.warps_per_row > 8 else (
+        p._replace(rows_per_block=p.warps // p.warps_per_row,
+                   blocks=-(-rows // (p.warps // p.warps_per_row)))),
+    # runs sized for four blocks an SM whatever the form's registers
+    "runs4": lambda p, rows, sms: p if p.warps_per_row > 8 else (
+        _runs4(p, rows, sms)),
+}
+LNFWD_SHAPES = ((64, 1024), (12288, 1024), (16384, 1024), (3584, 2048))
+SUMS_VARIANTS = {
+    "shipped": [],
+    "no_math": ["-DAPEX_SUMS_MATH=0"],
+}
+# the shipped build under another plan: the plan's constants changed
+SUMS_PLANS = {"no_cluster": {"SUMS_MAX_CLUSTER": 1},
+              "cluster4": {"SUMS_MAX_CLUSTER": 4},
+              "blocks2": {"SUMS_BLOCKS_PER_SM": 2},
+              "blocks4": {"SUMS_BLOCKS_PER_SM": 4}}
 # every -D override above, for the check that the sources declare them
-OVERRIDES = {"layer_norm": LNBWD_VARIANTS, "flash_decode": DECODE_VARIANTS,
+OVERRIDES = {"layer_norm": {**LNBWD_VARIANTS, **{
+                 f"fwd_{k}": v for k, v in LNFWD_VARIANTS.items()}},
+             "welford": SUMS_VARIANTS,
+             "flash_decode": DECODE_VARIANTS,
              "fused_dense": {**GEMM_VARIANTS, **{
                  f"f32_{k}": v for k, v in GEMM32_VARIANTS.items()}},
              "flash_attention": {**FLASH_VARIANTS, **{
@@ -590,6 +686,159 @@ def layer_norm_bwd(cs, torch, ln, rng, libs):
               f"{', '.join(f'{t:.4f}' for t in ts)} ms", flush=True)
 
 
+def _baseline_module(root, name):
+    """ROOT's `apex_tpu_torch/ops/<name>.py`, imported on its own (its
+    imports of the package resolve to this checkout's)."""
+    import importlib.util
+
+    path = os.path.join(root, "apex_tpu_torch", "ops", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _print_times(what, times):
+    for (var, case), ts in times.items():
+        print(f"{what} {case} {var}: {', '.join(f'{t:.4f}' for t in ts)} ms",
+              flush=True)
+
+
+def layer_norm_fwd(cs, torch, ln, rng, libs, baseline=None):
+    """The LayerNorm forward's builds and plans (module docstring): each
+    checked variant against `norm_fwd_reference` (chip_smoke's
+    `check_layer_norm`: every `LNFWD_SHAPES` case in bf16, a ragged fp32
+    one, two runs bit for bit), then all timed in turns beside
+    `F.layer_norm`, the streaming yardstick and, with `baseline`, its
+    Triton forward."""
+    libs = {var: ln._bind(lib) for var, lib in libs.items()}
+    runs = {var: (lib, None) for var, lib in libs.items()}
+    runs.update({var: (libs["shipped"], ch)
+                 for var, ch in LNFWD_PLANS.items()})
+    launch = ln._launch_fwd
+    base = _baseline_module(baseline, "layer_norm") if baseline else None
+
+    def use(var):
+        lib, change = runs[var]
+        ln._LIB = lib
+        ln._launch_fwd = launch if change is None else (
+            lambda plan, x2, *a: launch(change(
+                plan, x2.shape[0], ln._sm_count(x2.device)), x2, *a))
+
+    data = []
+    for rows, hid in LNFWD_SHAPES:
+        x = (torch.randn((rows, hid), generator=rng, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        w = (torch.randn((hid,), generator=rng, device="cuda") * 0.5
+             + 1).to(torch.bfloat16)
+        b = (torch.randn((hid,), generator=rng, device="cuda")
+             * 0.1).to(torch.bfloat16)
+        data.append((f"({rows}, {hid})", x, w, b, torch.empty_like(x)))
+    try:
+        for var in runs:
+            if var in UNCHECKED:
+                continue
+            use(var)
+            errs = [cs.check_layer_norm(torch, ln, rng, r, h, dt)[1]
+                    for (r, h), dt in [(sh, torch.bfloat16)
+                                       for sh in LNFWD_SHAPES]
+                    + [((77, 1000), torch.float32)]]
+            print(f"layer_norm fwd {var}: max y err {errs}, two runs bit "
+                  f"for bit", flush=True)
+        order = list(runs) + ["F.layer_norm", "y.copy_(x)"]
+        if base is not None:
+            order.append("triton (baseline)")
+        times = {}
+        for var in order + list(reversed(order)):
+            for case, x, w, b, y in data:
+                hid = x.shape[1]
+                if var == "F.layer_norm":
+                    fn = (lambda x=x, w=w, b=b, hid=hid: torch.nn.functional
+                          .layer_norm(x, (hid,), w, b, 1e-5))
+                elif var == "y.copy_(x)":
+                    fn = (lambda x=x, y=y: y.copy_(x))
+                elif var == "triton (baseline)":
+                    fn = (lambda x=x, w=w, b=b: base.norm_fwd_triton(
+                        x, w, b, 1e-5, False))
+                else:
+                    use(var)
+                    fn = (lambda x=x, w=w, b=b: ln.norm_fwd_cuda(
+                        x, w, b, 1e-5, False))
+                times.setdefault((var, case), []).append(
+                    cs.time_ms(torch, fn))
+    finally:
+        ln._LIB, ln._launch_fwd = libs["shipped"], launch
+    for case, x, *_ in data:
+        print(f"layer_norm fwd {case}: shipped plan "
+              f"{tuple(ln.fwd_plan(x.shape[0], x.shape[1], 2, ln._sm_count(x.device)))}",
+              flush=True)
+    _print_times("layer_norm fwd bf16", times)
+
+
+def channel_sums(cs, torch, wf, rng, libs, baseline=None):
+    """The channel sums' builds and plans (module docstring): each
+    checked variant against fp64 sums and `channel_sums_reference`
+    (chip_smoke's `check_channel_sums`: the stem's and the last stage's
+    shapes in bf16, C = 3, a ragged fp32 case, two runs bit for bit),
+    then all timed in turns at every batch-norm shape of the ResNet-50
+    step beside `torch.var_mean` and, with `baseline`, its Triton
+    kernels; the last lines weigh each by the step's count."""
+    libs = {var: wf._bind(lib) for var, lib in libs.items()}
+    runs = {var: (lib, {}) for var, lib in libs.items()}
+    runs.update({var: (libs["shipped"], ch)
+                 for var, ch in SUMS_PLANS.items()})
+    consts = {k: getattr(wf, k) for ch in SUMS_PLANS.values() for k in ch}
+    base = _baseline_module(baseline, "welford") if baseline else None
+
+    def use(var):
+        lib, change = runs[var]
+        wf._LIB = lib
+        for k, v in consts.items():
+            setattr(wf, k, change.get(k, v))
+
+    try:
+        for var in runs:
+            if var in UNCHECKED:
+                continue
+            use(var)
+            errs = [cs.check_channel_sums(torch, wf, rng, r, c, dt)[1]
+                    for r, c, dt in ((3_211_264, 64, torch.bfloat16),
+                                     (12_544, 2048, torch.bfloat16),
+                                     (802_816, 3, torch.bfloat16),
+                                     (5000, 130, torch.float32))]
+            print(f"channel sums {var}: max |kernel - plain| {errs}, two "
+                  f"runs bit for bit", flush=True)
+            torch.cuda.empty_cache()
+        order = list(runs) + ["torch.var_mean"]
+        if base is not None:
+            order.append("triton (baseline)")
+        times = {}
+        data = {shape: torch.randn(shape, generator=rng,
+                                   device="cuda").to(torch.bfloat16)
+                for shape in cs.RESNET50_BN_SHAPES}
+        for var in order + list(reversed(order)):
+            for (r, c), x2 in data.items():
+                if var == "torch.var_mean":
+                    fn = (lambda x2=x2: torch.var_mean(x2, dim=0,
+                                                       correction=0))
+                elif var == "triton (baseline)":
+                    fn = (lambda x2=x2: base.channel_sums_triton(x2))
+                else:
+                    use(var)
+                    fn = (lambda x2=x2: wf.channel_sums_cuda(x2))
+                times.setdefault((var, f"({r}, {c})"), []).append(
+                    cs.time_ms(torch, fn))
+    finally:
+        use("shipped")
+    _print_times("channel sums bf16", times)
+    for var in order:
+        step = [sum(n * times[(var, f"({r}, {c})")][i]
+                    for (r, c), n in cs.RESNET50_BN_SHAPES.items())
+                for i in range(2)]
+        print(f"channel sums a ResNet-50 step (53) {var}: "
+              f"{', '.join(f'{t:.4f}' for t in step)} ms", flush=True)
+
+
 def decode(cs, torch, fd, rng, libs):
     """Flash-decode's builds and plans (module docstring): each checked
     against `paged_attention_reference` (chip_smoke's
@@ -732,6 +981,7 @@ def main(argv):
     from apex_tpu_torch.ops import flash_decode as fd
     from apex_tpu_torch.ops import fused_dense as fdn
     from apex_tpu_torch.ops import layer_norm as ln
+    from apex_tpu_torch.ops import welford as wf
     from apex_tpu_torch.ops._common import strict_matmul_numerics
 
     strict_matmul_numerics()
@@ -741,6 +991,8 @@ def main(argv):
     out = os.path.join(csrc.BUILD_DIR, "ablation_hopper")
     os.makedirs(out, exist_ok=True)
     rng = torch.Generator(device="cuda").manual_seed(0)
+    baseline = (argv[argv.index("--baseline") + 1]
+                if "--baseline" in argv else None)
     for flag, name, variants, run in (
             ("--lnbwd", "layer_norm", LNBWD_VARIANTS, layer_norm_bwd),
             ("--decode", "flash_decode", DECODE_VARIANTS, decode)):
@@ -749,6 +1001,16 @@ def main(argv):
             procs = start(csrc, name, os.path.join(out, name), variants)
             mod = ln if name == "layer_norm" else fd
             run(cs, torch, mod, rng, finish(cs, name, procs, part="kernel"))
+            return 0
+    for flag, name, variants, run, mod in (
+            ("--lnfwd", "layer_norm", LNFWD_VARIANTS, layer_norm_fwd, ln),
+            ("--sums", "welford", SUMS_VARIANTS, channel_sums, wf)):
+        if flag in argv:
+            sub = os.path.join(out, flag[2:])
+            os.makedirs(sub, exist_ok=True)
+            procs = start(csrc, name, sub, variants)
+            run(cs, torch, mod, rng, finish(cs, name, procs, part="kernel"),
+                baseline)
             return 0
     if "--softmax" in argv:
         softmax_forward(cs, torch, rng)

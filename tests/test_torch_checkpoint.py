@@ -94,10 +94,18 @@ def _grads(rng):
 
 def _port_to_numpy(t):
     """A port tensor as the JAX package's arrays come through numpy (bf16
-    as ml_dtypes' bfloat16)."""
+    as ml_dtypes' bfloat16), copied as a checkpoint written out would be.
+
+    The copy matters: `t.numpy()` shares the port's buffer, which the
+    port's next step updates in place (its state dict holds the state's
+    own tensors, as a torch optimizer's does), and `jnp.asarray` of a
+    numpy array may alias it on the CPU without a copy.  The JAX state
+    loaded from it then changes under the JAX package's asynchronously
+    dispatched step whenever the port steps first: the fp32 NovoGrad
+    case read the port's step-3 params in about one xdist run in ten."""
     if t.dtype == torch.bfloat16:
         return np.asarray(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16))
-    return t.numpy()
+    return t.numpy().copy()
 
 
 def _f32(x):

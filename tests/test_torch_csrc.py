@@ -90,7 +90,7 @@ def _ablation_script():
 
 
 @pytest.mark.parametrize("name", ["fused_dense", "flash_attention",
-                                  "flash_decode", "layer_norm"])
+                                  "flash_decode", "layer_norm", "welford"])
 def test_ablation_overrides_are_declared(name):
     """Every `-D` override that scripts/port_hopper_ablation.py passes to
     nvcc names a macro that the source it builds declares with an

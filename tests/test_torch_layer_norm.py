@@ -87,7 +87,7 @@ def test_modules_match_functions_and_stay_on_cpu():
     CPU tensor never reaches the kernel (its launch count stays put)."""
     x = torch.tensor(np.random.RandomState(0).randn(3, 5, 16)
                      .astype(np.float32))
-    before = tln.norm_fwd_triton.launches
+    before = tln.norm_fwd_cuda.launches
     m = tln.FusedLayerNorm(16)
     assert [n for n, _ in m.named_parameters()] == ["weight", "bias"]
     torch.testing.assert_close(m(x), tln.layer_norm_reference(
@@ -98,7 +98,7 @@ def test_modules_match_functions_and_stay_on_cpu():
     y = tln.fused_layer_norm(x.requires_grad_(True))
     y.sum().backward()         # the plain version is differentiable
     assert x.grad is not None and x.grad.shape == x.shape
-    assert tln.norm_fwd_triton.launches == before
+    assert tln.norm_fwd_cuda.launches == before
 
 
 def test_kernel_dispatch_refuses_other_devices():
@@ -272,7 +272,7 @@ def _bwd_stand_in(monkeypatch, calls):
             dwdb[0].copy_(rdw)
             dwdb[1].copy_(rdb)
 
-    monkeypatch.setattr(tln, "norm_fwd_triton", fwd)
+    monkeypatch.setattr(tln, "norm_fwd_cuda", fwd)
     monkeypatch.setattr(tln, "_launch", launch)
     monkeypatch.setattr(tln, "_sm_count", lambda device: _H100_SMS)
     monkeypatch.setattr(tln, "check_kernel_device", lambda *t: True)
@@ -360,3 +360,247 @@ def test_norm_fn_routes_its_backward_to_the_cuda_launcher(kind,
                                    torch.zeros((0, 1)), tw.detach(), False)
     assert calls == [] and dx.shape == (0, 256)
     assert torch.equal(dw, torch.zeros(256)) and torch.equal(db, dw)
+
+
+# ----------------------------- the forward plan ------------------------------
+
+# warps a row the plan gives each width of 16-bit rows of 16-byte
+# multiples (a 16-byte vector a thread up to 8 warps, 12 warps past 8192
+# columns)
+_FWD_WARPS = {64: 1, 1000: 4, 1024: 4, 2048: 8, 8192: 8, 16384: 12}
+# ... and at more rows than 8 an SM (two vectors a thread)
+_FWD_WARPS_MANY = {64: 1, 1000: 2, 1024: 2, 2048: 4, 8192: 8, 16384: 12}
+
+
+def _covered(plan, rows):
+    """How often the kernel's walk (blocks of `rows_per_block` rows, each
+    row group taking every `groups`-th row of its block's run) reaches
+    each row."""
+    groups = _groups(plan)
+    seen = np.zeros(rows, np.int64)
+    for b in range(plan.blocks):
+        r0 = b * plan.rows_per_block
+        end = min(r0 + plan.rows_per_block, rows)
+        assert end > r0
+        for g in range(groups):
+            seen[r0 + g:end:groups] += 1
+    return seen
+
+
+@pytest.mark.parametrize("rows,hidden,itemsize,align", [
+    (64, 1024, 2, 16), (128, 1024, 2, 16), (5, 1000, 4, 16),
+    (12288, 1024, 2, 16), (16384, 1024, 2, 16), (3584, 2048, 2, 16),
+    (12288, 64, 2, 16), (12288, 64, 4, 16), (77, 8192, 2, 16),
+    (4096, 8192, 2, 16), (1, 16384, 2, 16), (300, 16384, 2, 16),
+    (300, 16384, 4, 16), (0, 1024, 2, 16), (1057, 1024, 2, 16),
+    (77, 1001, 2, 16), (77, 1000, 4, 4), (12288, 1024, 2, 4),
+    (12288, 1024, 2, 2), (9, 1024, 2, 2), (64, 1000, 2, 4)])
+def test_fwd_plan(rows, hidden, itemsize, align):
+    """`fwd_plan` covers every row exactly once; a row's threads hold
+    two 16-byte vectors (one for few rows, at most 8 an SM) where up to 8
+    warps hold a 16-byte row so, else at most 32 columns (48 on the 12
+    warps of a row past 8192 columns), on the fewest warps that do.  Up to 8192 columns: a block as many row
+    groups (up to 8 warps) as spread the rows over the SMs (one at
+    decode's 64 rows, two at the training steps' rows), each group a run
+    of rows over one wave of the blocks an SM that the kernel's form is
+    compiled for (four at decode's rows, two at the training steps'), no
+    ring.  Past them: a 12-warp row a block, a block an SM at most, and a
+    ring of bulk copies only where the rows' bytes and bases are 16-byte
+    multiples, holding as many rows (up to 8) as its 200 KB allow beside
+    w's and b's fp32 rows, within the 227 KB a block may take.  Others
+    read 4 or 2 bytes at a time, straight from device memory."""
+    plan = tln.fwd_plan(rows, hidden, itemsize, _H100_SMS, align)
+    wpr = plan.warps_per_row
+    wide = align % 16 == 0 and hidden * itemsize % 16 == 0
+    few = rows <= _H100_SMS * tln.FWD_WARPS
+    if wide and itemsize == 2:
+        assert wpr == (_FWD_WARPS if few else _FWD_WARPS_MANY).get(hidden,
+                                                                   wpr)
+    wide_rows = wpr == tln.FWD_WIDE_WARPS
+    # columns a thread holds at most: one 16-byte vector (few rows) or
+    # FWD_VECS where 8 warps hold the row so, else up to FWD_COLS
+    vcols = (1 if few else tln.FWD_VECS) * 16 // itemsize
+    cols = vcols if wide and hidden <= (
+        tln.FWD_WARPS * 32 * vcols) else tln.FWD_COLS
+    if wide_rows:
+        assert hidden > tln.FWD_WARPS * 32 * tln.FWD_COLS
+        assert plan.warps == wpr
+    else:
+        assert hidden <= wpr * 32 * tln.FWD_COLS
+        assert wpr == tln.FWD_WARPS or hidden <= wpr * 32 * cols
+        assert wpr == 1 or hidden > wpr // 2 * 32 * cols
+        assert plan.warps % wpr == 0 and plan.warps <= tln.FWD_WARPS
+    assert (plan.load_width == 16) == wide
+    if not wide:
+        assert plan.load_width in (4, 2) and plan.stages == 0
+        assert plan.load_width == 2 or (hidden * itemsize % 4 == 0
+                                        and align % 4 == 0)
+    if rows == 0:
+        assert plan.blocks == 0
+        return
+    assert np.all(_covered(plan, rows) == 1)
+    groups = _groups(plan)
+    if not wide_rows:
+        assert plan.stages == 0 and plan.rows_per_block % groups == 0
+        assert groups == min(tln.FWD_WARPS // wpr, -(-rows // _H100_SMS))
+        per_sm = tln.fwd_blocks_per_sm(hidden, itemsize, wpr,
+                                       plan.load_width)
+        assert plan.blocks <= _H100_SMS * per_sm or (
+            plan.rows_per_block == groups)
+    else:
+        assert plan.blocks <= _H100_SMS and groups == 1
+        assert (plan.stages >= 1) == wide
+    if plan.stages:
+        row_bytes = -(-hidden * itemsize // 16) * 16
+        wb = 2 * -(-hidden // 8) * 32
+        ring = plan.stages * row_bytes
+        assert 1 <= plan.stages <= tln.FWD_MAX_STAGES
+        assert ring + wb <= tln.FWD_SMEM < 227 * 1024
+        assert (plan.stages == tln.FWD_MAX_STAGES
+                or ring + wb + row_bytes > tln.FWD_SMEM)
+    if (rows, hidden, itemsize, align) == (64, 1024, 2, 16):
+        assert plan == tln.FwdPlan(64, 1, 4, 4, 0, 16)
+    if (rows, hidden, itemsize, align) == (12288, 1024, 2, 16):
+        assert plan == tln.FwdPlan(256, 48, 8, 2, 0, 16)
+
+
+@pytest.mark.parametrize("hidden,itemsize,wpr,width,per_sm", [
+    (1024, 2, 4, 16, 4), (1024, 2, 2, 16, 2), (2048, 2, 4, 16, 2),
+    (1024, 4, 8, 16, 4), (1024, 4, 4, 16, 2), (8192, 2, 8, 16, 1),
+    (8192, 4, 8, 16, 1), (16384, 2, 12, 16, 1), (1024, 2, 2, 4, 1),
+    (1001, 2, 4, 2, 1)])
+def test_fwd_blocks_per_sm(hidden, itemsize, wpr, width, per_sm):
+    """The blocks an SM the plan sizes its runs by are those the form
+    it launches is compiled for: 4 at one 16-byte vector a thread, 2 at
+    two, 1 for the four- and eight-vector forms, the 12-warp rows and
+    the narrow rows."""
+    assert tln.fwd_blocks_per_sm(hidden, itemsize, wpr, width) == per_sm
+
+
+def test_fwd_blocks_per_sm_mirrors_the_kernel():
+    """`FWD_BLOCKS_PER_SM` is what csrc/layer_norm.cu's `FwdMinBlocks`
+    gives `__launch_bounds__` for the 16-byte rows' forms."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(tln.__file__), os.pardir, "csrc",
+                       "layer_norm.cu")
+    with open(src) as f:
+        text = f.read()
+    body = re.search(r"struct FwdMinBlocks \{(.*?)\};", text,
+                     re.S).group(1)
+    pairs = {int(v): int(n) for v, n in
+             re.findall(r"VECS == (\d+)\s*\? (\d+)", body)}
+    assert pairs == tln.FWD_BLOCKS_PER_SM
+    assert "FwdMinBlocks<THREADS, FAST, VECS>::value)" in text
+
+
+@pytest.mark.parametrize("hidden", [0, 16385])
+def test_fwd_plan_refuses_what_the_kernel_cannot_hold(hidden):
+    with pytest.raises(ValueError, match="hidden"):
+        tln.fwd_plan(8, hidden, 2, _H100_SMS)
+
+
+def _fwd_stand_in(monkeypatch, calls):
+    """A stand-in for the forward's C launch (`_launch_fwd`): it records
+    the plan and fills y, mean and rstd with the plain forward."""
+    def launch(plan, x2, weight, bias, y, mean, rstd, eps, rms):
+        calls.append(plan)
+        assert y.shape == x2.shape and y.dtype == x2.dtype
+        assert mean.shape == rstd.shape == (x2.shape[0], 1)
+        assert mean.dtype == rstd.dtype == torch.float32
+        ry, rmean, rstd_ = tln.norm_fwd_reference(x2, weight, bias, eps, rms)
+        y.copy_(ry)
+        mean.copy_(rmean)
+        rstd.copy_(rstd_)
+
+    monkeypatch.setattr(tln, "_launch_fwd", launch)
+    monkeypatch.setattr(tln, "_sm_count", lambda device: _H100_SMS)
+    monkeypatch.setattr(tln, "check_kernel_device", lambda *t: True)
+
+
+@pytest.mark.parametrize("rows,hidden", [(37, 256), (64, 1000)])
+@pytest.mark.parametrize("affine", ["both", "weight", "none"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rms", [False, True])
+def test_fwd_launcher_matches_jax_fwd_pallas(rms, dtype, affine, rows,
+                                             hidden, monkeypatch):
+    """`norm_fwd_cuda` with a recording stand-in for its C launch (on the
+    CPU): one launch under `fwd_plan`, and its outputs (y in x's dtype,
+    fp32 (rows, 1) mean and rstd) match the JAX package's `_fwd_pallas`
+    (its Pallas forward in interpret mode) on the same inputs.
+    Tolerances: fp32 y atol 1e-5; bf16 y one ulp plus 1e-5 of the
+    largest |y|; mean and rstd rtol 1e-5 (fp32 sums in another order)."""
+    from apex_tpu.ops.layer_norm import _fwd_pallas
+
+    calls = []
+    _fwd_stand_in(monkeypatch, calls)
+    x, w, b = _inputs(rows, hidden, seed=rows + hidden)
+    jdt, tdt = _DTYPES[dtype]
+    tx, tw, tb = (torch.tensor(a).to(tdt) for a in (x, w, b))
+    tw = None if affine == "none" else tw
+    tb = tb if affine == "both" and not rms else None
+    y, mean, rstd = tln.norm_fwd_cuda(tx, tw, tb, 1e-5, rms)
+    assert calls == [tln.fwd_plan(rows, hidden, tx.element_size(),
+                                  _H100_SMS)]
+    assert y.dtype == tdt and mean.shape == rstd.shape == (rows, 1)
+    jw = None if tw is None else jnp.asarray(w).astype(jdt)
+    jb = None if tb is None else jnp.asarray(b).astype(jdt)
+    wy, wmean, wrstd = _fwd_pallas(jnp.asarray(x).astype(jdt), jw, jb, 1e-5,
+                                   rms)
+    if dtype == "bf16":
+        _ulp_close(y, wy, 1e-5 * float(jnp.max(jnp.abs(
+            wy.astype(jnp.float32)))))
+    else:
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-5,
+                                   rtol=0)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(wmean).reshape(
+        rows, 1), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(wrstd).reshape(
+        rows, 1), rtol=1e-5, atol=0)
+
+
+def test_fwd_launcher_checks_before_launching(monkeypatch):
+    """Zero rows launch nothing; what the kernel does not take raises
+    before any launch: a hidden dim that is not contiguous, another
+    dtype, a weight of another width."""
+    calls = []
+    _fwd_stand_in(monkeypatch, calls)
+    y, mean, rstd = tln.norm_fwd_cuda(torch.zeros((0, 64)), None, None,
+                                      1e-5, False)
+    assert calls == [] and y.shape == (0, 64) and mean.shape == (0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.norm_fwd_cuda(torch.zeros((64, 8)).t(), None, None, 1e-5, False)
+    with pytest.raises(TypeError, match="fp32/bf16/fp16"):
+        tln.norm_fwd_cuda(torch.zeros((4, 8), dtype=torch.float64), None,
+                          None, 1e-5, False)
+    with pytest.raises(ValueError, match="weight"):
+        tln.norm_fwd_cuda(torch.zeros((4, 8)), torch.ones(7), None, 1e-5,
+                          False)
+    assert calls == []
+
+
+@pytest.mark.parametrize("kind", ["layer", "rms"])
+def test_norm_routes_its_forward_to_the_cuda_launcher(kind, monkeypatch):
+    """A CUDA call's forward, with the stand-in for the C launch (on the
+    CPU): one launch a call with and without a gradient (the autograd
+    route and the inference route), and y matches the JAX package's norm
+    with its Pallas forward in interpret mode (fp32, atol 1e-5)."""
+    calls = []
+    _fwd_stand_in(monkeypatch, calls)
+    x, w, b = _inputs(3 * 17, 128, seed=15)
+    tx, tw, tb = (torch.tensor(a) for a in (x, w, b))
+    jx, jw, jb = (jnp.asarray(a) for a in (x, w, b))
+    x3 = tx.reshape(3, 17, 128)
+    if kind == "layer":
+        want = jax_layer_norm(jx, jw, jb, use_pallas_override=True)
+        got = [tln.fused_layer_norm(x3, tw, tb),
+               tln.fused_layer_norm(x3, tw.requires_grad_(True), tb)]
+    else:
+        want = jax_rms_norm(jx, jw, use_pallas_override=True)
+        got = [tln.fused_rms_norm(x3, tw),
+               tln.fused_rms_norm(x3, tw.requires_grad_(True))]
+    assert len(calls) == 2
+    for y in got:
+        assert y.shape == (3, 17, 128)
+        np.testing.assert_allclose(y.detach().numpy().reshape(51, 128),
+                                   np.asarray(want), atol=1e-5, rtol=0)

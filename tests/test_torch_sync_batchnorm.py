@@ -208,8 +208,117 @@ def test_channel_sums_kernel_wrapper_refuses_strided_input():
     any launch (here, on CPU tensors, before triton is imported)."""
     x = torch.zeros(8, 6)
     with pytest.raises(ValueError, match="contiguous"):
-        W.channel_sums_triton(x.t())
+        W.channel_sums_cuda(x.t())
     with pytest.raises(ValueError, match="contiguous"):
-        W.channel_sums_triton(torch.zeros(2, 3, 4))
+        W.channel_sums_cuda(torch.zeros(2, 3, 4))
     with pytest.raises(TypeError, match="float"):
-        W.channel_sums_triton(torch.zeros(8, 6, dtype=torch.int32))
+        W.channel_sums_cuda(torch.zeros(8, 6, dtype=torch.int32))
+
+
+# -------------------------------- the CUDA plan -------------------------------
+
+_H100_SMS = 132
+
+
+@pytest.mark.parametrize("rows,c,itemsize,align", [
+    (3_211_264, 64, 2, 16), (802_816, 256, 2, 16), (200_704, 512, 2, 16),
+    (50_176, 1024, 2, 16), (12_544, 2048, 2, 16), (12_544, 2048, 4, 16),
+    (12_544, 2048, 8, 16), (64, 3, 2, 16), (64, 3, 4, 4), (37, 16, 4, 16),
+    (37, 16, 2, 2), (1000, 64, 2, 4), (0, 64, 2, 16), (1, 2048, 2, 16),
+    (5000, 4096, 4, 16), (3_211_264, 3, 2, 2)])
+def test_sums_plan(rows, c, itemsize, align):
+    """`sums_plan` covers every row (blocks of `rows_per_block` rows) and
+    every 16-byte vector of a row (column chunks of at most 256), in
+    clusters of the most blocks (1-8) that divide their number, about a
+    block an SM at most; 16-byte loads
+    only where the rows' bytes and the base are 16-byte multiples, else
+    one element a load; no more blocks than leave R x 8 rows a block
+    (R = 256 / vectors of a chunk), so every thread has a full round of
+    loads in flight."""
+    plan = W.sums_plan(rows, c, itemsize, _H100_SMS, align)
+    wide = align % 16 == 0 and c * itemsize % 16 == 0
+    assert plan.load_width == (16 if wide else itemsize)
+    vecs = c * itemsize // plan.load_width
+    assert 1 <= plan.chunk <= W.SUMS_THREADS
+    assert plan.col_blocks * plan.chunk >= vecs
+    assert (plan.col_blocks - 1) * plan.chunk < vecs
+    assert plan.chunk == min(vecs, W.SUMS_THREADS)
+    if rows == 0:
+        assert plan.blocks == 0
+        return
+    assert 1 <= plan.cluster <= W.SUMS_MAX_CLUSTER
+    assert plan.blocks % plan.cluster == 0
+    assert plan.blocks * plan.rows_per_block >= rows
+    assert (plan.blocks - plan.cluster) * plan.rows_per_block < rows
+    assert plan.blocks * plan.col_blocks <= (
+        W.SUMS_BLOCKS_PER_SM * _H100_SMS + W.SUMS_MAX_CLUSTER
+        * plan.col_blocks)
+    slots = W.SUMS_THREADS // plan.chunk
+    assert plan.blocks <= -(-rows // (slots * W.SUMS_UNROLL))
+    assert not any(plan.blocks % c == 0 for c in range(
+        plan.cluster + 1, W.SUMS_MAX_CLUSTER + 1))
+    if (rows, c, itemsize, align) == (3_211_264, 64, 2, 16):
+        assert plan == W.SumsPlan(132, 24328, 6, 1, 8, 16)
+    if (rows, c, itemsize, align) == (12_544, 2048, 2, 16):
+        assert plan == W.SumsPlan(132, 96, 6, 1, 256, 16)
+
+
+def _sums_stand_in(monkeypatch, calls):
+    """A stand-in for the kernel's C launch (`_launch`): it records the
+    plan and fills the sums with the plain version."""
+    def launch(plan, x2, s, q):
+        calls.append(plan)
+        assert s.shape == q.shape == (x2.shape[1],)
+        assert s.dtype == q.dtype == torch.float32
+        rs, rq = W.channel_sums_reference(x2)
+        s.copy_(rs)
+        q.copy_(rq)
+
+    monkeypatch.setattr(W, "_launch", launch)
+    monkeypatch.setattr(W, "_sm_count", lambda device: _H100_SMS)
+    monkeypatch.setattr(W, "check_kernel_device", lambda *t: True)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("rows,c", [(37, 16), (64, 3), (200, 130),
+                                    (1000, 64)])
+def test_channel_sums_launcher_matches_jax_pallas(rows, c, dtype,
+                                                  monkeypatch):
+    """`channel_sums` of a CUDA tensor, with a recording stand-in for the
+    C launch (on the CPU): one launch a call under `sums_plan`, and the
+    sums (fp32, (C,)) match the JAX package's `channel_sums` with its
+    Pallas kernel forced in interpret mode; the gradient is still the
+    plain ds + 2·x·dq.  Tolerance: rtol 1e-5 / atol 1e-4 (fp32 sums in
+    another order)."""
+    calls = []
+    _sums_stand_in(monkeypatch, calls)
+    rng = np.random.RandomState(rows * 3 + c)
+    x = (rng.randn(rows, c) * 2 + 0.5).astype(np.float32)
+    jx = jnp.asarray(x)
+    xt = torch.tensor(x)
+    if dtype == "bf16":
+        jx = jx.astype(jnp.bfloat16)
+        xt = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(
+            torch.bfloat16)
+    monkeypatch.setattr(jax_common, "_FORCE", "1")
+    ws, wq = JW.channel_sums(jx)
+    s, q = W.channel_sums(xt.requires_grad_(True))
+    assert calls == [W.sums_plan(rows, c, xt.element_size(), _H100_SMS)]
+    assert s.dtype == q.dtype == torch.float32 and s.shape == (c,)
+    np.testing.assert_allclose(s.detach().numpy(), np.asarray(ws),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(q.detach().numpy(), np.asarray(wq),
+                               rtol=1e-5, atol=1e-4)
+    torch.autograd.backward((s, q), (torch.ones(c), torch.ones(c)))
+    assert xt.grad.dtype == xt.dtype and xt.grad.shape == (rows, c)
+
+
+def test_channel_sums_launcher_launches_nothing_for_empty_input(
+        monkeypatch):
+    calls = []
+    _sums_stand_in(monkeypatch, calls)
+    s, q = W.channel_sums_cuda(torch.zeros((0, 5)))
+    assert calls == [] and torch.equal(s, torch.zeros(5))
+    assert torch.equal(q, torch.zeros(5))
+    with pytest.raises(TypeError, match="fp32/bf16/fp16/fp64"):
+        W.channel_sums_cuda(torch.zeros((4, 5), dtype=torch.float8_e4m3fn))
