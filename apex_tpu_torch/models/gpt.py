@@ -113,6 +113,9 @@ class GPTConfig:
     #   "dots"      — keep matmul outputs, recompute the rest
     #   "names:a,b" — keep only the listed REMAT_TAGS tensors
     remat_policy: Any = None
+    # the cross entropy's backward (the JAX package's field): None picks
+    # the fused one iff the logits are not fp32, True / False force it
+    fused_xent: Any = None
 
     @property
     def head_dim(self):
@@ -371,7 +374,8 @@ class GPT:
         """Mean LM loss; tokens/labels (B, S); `key` as `apply` takes it."""
         h = self.apply(params, tokens, key)
         logits = self.logits_local(params, h)              # (S, B, V)
-        loss = vocab_parallel_cross_entropy(logits, labels.T)
+        loss = vocab_parallel_cross_entropy(logits, labels.T,
+                                            fused=self.c.fused_xent)
         return torch.mean(loss)
 
 

@@ -14,8 +14,9 @@ Three layers, bottom-up:
 
   * serve/telemetry.py — the request-lifecycle ledger, streaming
     percentiles, gauges and the `ServeSLO` verdict (pure host Python).
-
-The engine watchdog (`apex_tpu/serve/watchdog.py`) is not ported yet.
+  * serve/watchdog.py — `EngineWatchdog`: a stalled engine's heartbeat
+    trips `EngineStalledError`, and `restart()` resumes a fresh engine
+    from a periodic snapshot, bit for bit.
 """
 
 from apex_tpu_torch.ops.flash_decode import (  # noqa: F401
@@ -54,4 +55,8 @@ from apex_tpu_torch.serve.telemetry import (  # noqa: F401
     StreamingPercentiles,
     step_latency_percentiles,
     validate_serve_report,
+)
+from apex_tpu_torch.serve.watchdog import (  # noqa: F401
+    EngineStalledError,
+    EngineWatchdog,
 )

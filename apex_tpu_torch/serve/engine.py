@@ -30,8 +30,9 @@ Failure semantics, as in the JAX package: per-request deadlines,
 cancellation through the `done` mask, a bounded admission queue with
 shed policies and SLO-driven proactive shedding, `drain()` returning a
 restorable snapshot, and the retire poll's validity guard
-(`PoisonedOutputError`).  The watchdog that restarts a stalled engine
-is not ported yet.
+(`PoisonedOutputError`).  `serve.watchdog.EngineWatchdog` notices a
+stalled engine by its heartbeat, `steps_completed`, and restarts it from
+a snapshot.
 
 Model and numerics: the forward mirrors the JAX engine op for op (same
 LayerNorm, same packed-QKV split order, GEMMs accumulating in fp32 then
@@ -304,6 +305,7 @@ class DecodeEngine:
         #                              step never bumps it)
         self.prefills = 0            # admissions that ran a prefill
         self.last_shed_rid: Optional[int] = None  # per-submit signal
+        self.watchdog = None         # set by EngineWatchdog.__init__
 
         # serving observatory: pure host bookkeeping.  telemetry=
         # accepts True (default ServeTelemetry), a ServeTelemetry
@@ -905,11 +907,15 @@ class DecodeEngine:
 
     def serve_record(self) -> dict:
         """Flat `serve_*` JSON scalars: live gauges always, ledger
-        percentiles once samples exist, `serve_slo_ok` when an SLO is
+        percentiles once samples exist, the watchdog's stall and restart
+        counts once one is attached, `serve_slo_ok` when an SLO is
         attached and its verdict is grounded."""
         if self.telemetry is None:
             return {}
         rec = self.telemetry.serve_record()
+        if self.watchdog is not None:
+            rec["serve_watchdog_stalls"] = int(self.watchdog.stalls)
+            rec["serve_watchdog_restarts"] = int(self.watchdog.restarts)
         if self.slo is not None:
             v = self.slo_verdict()
             # a green stamps only once every configured axis has

@@ -22,8 +22,10 @@ path's `flash_decode` heads_per_step (validated; the decode kernel's
 kv heads a block) and paged-KV page size (`serve_page`).  The key
 functions below are the JAX package's, all of them, so keys written by
 either package are read by the other; the row-block and flat-optimizer
-axes (`tuned_row_block`, `opt_flat`) are not consulted by the port's
-Triton launchers, which have no rows-per-program knob yet.
+axes (`tuned_row_block`, `opt_flat`) are not consulted: the softmax,
+LayerNorm and flat optimizer launchers keep fixed plans, which sweeps of
+a rows-per-program knob on an H100 found best at every shape swept
+(PERF.md § 6).
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ Unlike the JAX sweep, no candidate's failure is caught and skipped: a
 candidate the port's kernels cannot run is left out before timing by a
 static rule (`flash_candidates`), and any other failure raises.  The
 row-block and flat-optimizer sweeps (`tune_row_block`, `tune_opt_flat`)
-are not ported: the port's Triton launchers have no rows-per-program
-knob to sweep yet.
+are not ported: the port's launchers keep fixed plans (the package
+docstring says why).
 """
 
 from __future__ import annotations

@@ -257,7 +257,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  `_gpt1p3b_tokens_per_sec` (GPT-1.3B, batch 7 x 512,
                  bf16, flash, FusedAdam master bf16, 3 + 20 steps;
                  tokens/s, peak memory, one profiled step).
- 13. table       the kernels' times on the card (CUDA events) beside
+ 13. slice 16    the watchdog at full width: phase 3's engine and 64
+                 requests under `EngineWatchdog(snapshot_every=1,
+                 stall_timeout_s=2)`,
+                 the `serve.stall_step` fail point fired at step 12;
+                 `check()` raises `EngineStalledError` naming the step,
+                 `restart()` resumes a fresh engine on the card, and
+                 every request's tokens are phase 3's bit for bit;
+                 stall-to-raise and restart seconds.  bench.py's
+                 overload leg at full width: 256 requests against a
+                 queue of 128 (shed-lowest-deadline, every odd one with
+                 a 120 s deadline), drained; n_ok, n_shed, n_expired,
+                 shed_fraction, goodput tokens/s and steps, gated on the
+                 ledger's balance and a whole page pool.
+ 14. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -4612,6 +4625,156 @@ def table_train_kernels(torch, fa, ln, ok, rng, errs, launches, per_step):
     return rows
 
 
+# -------------------- slice 16: the watchdog and the overload leg ----------
+
+
+def watchdog_leg(torch, np, build_flagship_engine, ref_tokens, n_req=64,
+                 max_new=32, stall_at=12, timeout_s=2.0):
+    """Phase 13's watchdog at full width: the flagship engine (GPT-350M
+    bf16, 64 slots, pages of 128, seed-0 weights: phase 3's) with phase
+    3's 64 requests, an `EngineWatchdog(snapshot_every=1,
+    stall_timeout_s=timeout_s)`, and the `serve.stall_step` fail point
+    fired at the engine's `stall_at`-th step, mid-generation.  `check()`
+    must raise `EngineStalledError` naming the stuck step; `restart()`
+    builds a fresh engine on the card from the snapshot, and the drained
+    run's tokens must be phase 3's (`ref_tokens`) bit for bit.  Returns
+    the stall-to-raise and restart times."""
+    from apex_tpu_torch.checkpoint import chaos
+    from apex_tpu_torch.serve import EngineStalledError, EngineWatchdog
+
+    eng = build_flagship_engine()
+    c, s = eng.model_cfg, eng.serve_cfg
+    prng = np.random.RandomState(0)
+    for _ in range(n_req):
+        plen = int(prng.randint(1, s.max_prompt_len + 1))
+        eng.submit(prng.randint(0, c.vocab_size, plen).tolist(), max_new)
+    dog = EngineWatchdog(eng, stall_timeout_s=timeout_s, snapshot_every=1)
+    chaos.arm("serve.stall_step", stall_at)
+    fins, tripped, stalled_t, steps = {}, None, None, 0
+    t0 = time.perf_counter()
+    try:
+        while eng.pending:
+            check(steps < 16 * max_new + 64 + 1000, "watchdog leg: no end")
+            eng.step()
+            for f in eng.poll():
+                fins[f.request_id] = f
+            if eng.stalled and stalled_t is None:
+                stalled_t = time.perf_counter()
+            try:
+                dog.check()
+            except EngineStalledError as e:
+                raise_t = time.perf_counter()
+                tripped = e
+                eng = dog.restart()
+                torch.cuda.synchronize()
+                restart_s = time.perf_counter() - raise_t
+                stall_to_raise_s = raise_t - stalled_t
+            if eng.stalled:
+                time.sleep(0.05)
+            steps += 1
+        eng._retire_finished()
+        for f in eng.poll():
+            fins[f.request_id] = f
+    finally:
+        chaos.disarm_all()
+    wall = time.perf_counter() - t0
+    check(tripped is not None, "watchdog leg: the stall did not trip")
+    check(f"stuck at step {tripped.step}" in str(tripped)
+          and tripped.snapshot_step == tripped.step,
+          f"watchdog leg: {tripped}")
+    check(dog.stalls == dog.restarts == 1, "watchdog leg: counts")
+    check(eng.device.type == "cuda" and eng.watchdog is dog,
+          "watchdog leg: the restarted engine")
+    check(sorted(fins) == sorted(ref_tokens)
+          and all(f.status == "ok" for f in fins.values()),
+          "watchdog leg: a request did not end ok")
+    drift = [r for r, f in fins.items() if f.tokens != ref_tokens[r]]
+    check(not drift, f"watchdog leg: requests {drift} differ from phase 3's")
+    check(eng.cache.free_pages == eng.kv_config.usable_pages
+          and eng.telemetry.ledger.balance()["ok"],
+          "watchdog leg: pool or ledger")
+    rec = eng.serve_record()
+    check(rec["serve_watchdog_stalls"] == rec["serve_watchdog_restarts"]
+          == 1, f"watchdog leg: serve_record {rec}")
+    return {"stuck_step": tripped.step,
+            "stalled_for_s": tripped.stalled_for_s,
+            "stall_to_raise_s": stall_to_raise_s, "restart_s": restart_s,
+            "steps": steps, "wall_s": wall, "requests": len(fins),
+            "bitwise_phase3": True}
+
+
+def overload_leg(torch, np, build_flagship_engine):
+    """bench.py's `_serve_overload_bench` (bench.py:554-619) at full
+    width on the card: the flagship engine with max_queue_depth 2 x 64
+    and shed-lowest-deadline; 4 x 64 requests of 1..128 prompt tokens
+    and 1..128 new ones from RandomState(0), every odd one with a
+    deadline of 120 s; drained.  Gates: the ledger balances and the page
+    pool is whole again.  Returns the leg's numbers."""
+    eng = build_flagship_engine(serve_overrides={
+        "max_queue_depth": 2 * 64, "shed_policy": "shed-lowest-deadline"})
+    n_slots = eng.serve_cfg.n_slots
+    check(n_slots == 64, f"overload leg: {n_slots} slots")
+    n_requests = 4 * n_slots
+    max_new = eng.serve_cfg.max_new_cap
+    rng = np.random.RandomState(0)
+    mp = eng.serve_cfg.max_prompt_len
+    budgets = {}
+    t0 = time.perf_counter()
+    for i in range(n_requests):
+        plen = int(rng.randint(1, mp + 1))
+        budget = int(rng.randint(1, max_new + 1))
+        dl = 120_000.0 if i % 2 else None
+        rid = eng.submit(rng.randint(0, eng.model_cfg.vocab_size,
+                                     plen).tolist(), budget, deadline_ms=dl)
+        budgets[rid] = budget
+    fins, steps = {}, 0
+    while eng.pending:
+        check(steps < n_requests * max_new + 64, "overload storm: no end")
+        eng.step()
+        for f in eng.poll():
+            fins[f.request_id] = f
+        steps += 1
+    eng._retire_finished()
+    for f in eng.poll():
+        fins[f.request_id] = f
+    wall = time.perf_counter() - t0
+    led = eng.telemetry.ledger
+    ok_ = [f for f in fins.values() if f.status == "ok"]
+    good_tokens = sum(len(f.tokens) for f in ok_)
+    out = {
+        "n_requests": n_requests, "n_ok": led.n_retired,
+        "n_shed": led.n_shed, "n_expired": led.n_expired,
+        "shed_fraction": (led.n_shed + led.n_expired) / n_requests,
+        "goodput_tokens_per_sec": good_tokens / wall,
+        "good_tokens": good_tokens, "steps": steps, "wall_s": wall,
+        "balance_ok": led.balance()["ok"],
+        "pool_reconciled": (eng.cache.free_pages
+                            == eng.kv_config.usable_pages),
+        "recompile_ok": eng.recompile_ok,
+        "queue_saturation_peak": eng.telemetry.peaks["queue_saturation"]}
+    check(out["balance_ok"] and out["pool_reconciled"],
+          f"overload leg: a gate failed {out}")
+    check(len(fins) == n_requests and all(
+        len(f.tokens) == budgets[f.request_id] for f in ok_)
+        and all(0 <= t < eng.model_cfg.vocab_size for f in ok_
+                for t in f.tokens), "overload leg: an ok request's tokens")
+    return out
+
+
+def slice16_phase(torch, np, build_flagship_engine, ref_tokens):
+    """Phase 13 (module docstring).  `ref_tokens`: phase 3's tokens by
+    request."""
+    t0 = time.perf_counter()
+    dog = watchdog_leg(torch, np, build_flagship_engine, ref_tokens)
+    log("watchdog " + json.dumps(dog))
+    torch.cuda.empty_cache()
+    storm = overload_leg(torch, np, build_flagship_engine)
+    log("overload " + json.dumps(storm))
+    torch.cuda.empty_cache()
+    log(f"phase 13 {time.perf_counter() - t0:.1f}s")
+    return {"watchdog": dog, "overload": storm}
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -5117,6 +5280,7 @@ def run_phases():
     decode_steps = eng.sentry.calls
     prefills = eng.prefills
     fins = m["finished"]
+    phase3_tokens = {f.request_id: f.tokens for f in fins}
     check(len(fins) == n_req, f"{len(fins)} of {n_req} requests finished")
     check(all(f.status == "ok" for f in fins), "a request did not end ok")
     check(all(len(f.tokens) == max_new for f in fins),
@@ -5254,7 +5418,10 @@ def run_phases():
     # ---- 12. slice 14: dropout, remat and bench.py's last two legs -----
     slice14 = slice14_phase(torch, fa, ln, ok, train)
 
-    # ---- 13. kernel table --------------------------------------------
+    # ---- 13. slice 16: the watchdog and the overload leg -------------
+    slice16_phase(torch, np, build_flagship_engine, phase3_tokens)
+
+    # ---- 14. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
