@@ -26,15 +26,21 @@ Subpackages (lazily importable):
   models      — GPT, BERT and ResNet: configs, seeded inits, the
                 JAX-params converters and the training forwards
   optimizers  — flat buffers and their checkpoints, FusedAdam,
-                FusedLAMB, FusedSGD, FusedAdagrad and FusedNovoGrad
-  amp         — O0–O3 policies and the dynamic loss scaler
-  parallel    — the single-device train step of `ddp`, the batch norm
-                of `sync_batchnorm`, LARC and clip_grad
+                FusedLAMB, FusedSGD, FusedAdagrad, FusedNovoGrad and the
+                ZeRO-2 DistributedFusedAdam / DistributedFusedLAMB
+  amp         — O0–O3 policies, the dynamic loss scaler and
+                FP16_Optimizer (with `fp16_utils`, the reference's names)
+  parallel    — the process groups of `mesh` (data parallelism), the
+                data-parallel train step of `ddp` (microbatches, fp32
+                main grads, ZeRO-2), the batch norm of `sync_batchnorm`
+                (statistics merged across ranks), LARC, clip_grad and the
+                `multiproc` launcher
   contrib     — the xentropy and clip_grad facades
   multi_tensor_apply — one functor over parallel tensor lists
   fused_dense, mlp, normalization — the reference's facades over ops
   transformer — the single-device training step, the tensor-parallel
-                layers and cross entropy at tp=1, the weight-decay
+                layers and cross entropy at tp=1, the model-parallel-aware
+                GradScaler of `amp`, the weight-decay
                 grouping of pipeline_parallel.common and the attention
                 softmax dispatch of functional (FusedScaleMaskSoftmax)
   checkpoint  — the serving fail points (chaos)
@@ -48,7 +54,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
                     "checkpoint", "monitor", "csrc", "amp", "parallel",
                     "contrib", "multi_tensor_apply", "fused_dense", "mlp",
-                    "normalization", "tune"}
+                    "normalization", "tune", "fp16_utils"}
 
 
 def __getattr__(name):

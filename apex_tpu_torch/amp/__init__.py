@@ -4,9 +4,11 @@ apex.fp16_utils helpers).
 
 An explicit `Policy` applied where the train step casts, and a loss
 scaler whose state is a few device tensors; `parallel.ddp.
-make_train_step` takes the `AmpState` this module builds.  The fp16
-optimizer wrapper (`amp/fp16_optimizer.py`) and O2's separate master
-weights are not ported yet (ROADMAP Queue 1 item 11).
+make_train_step` takes the `AmpState` this module builds.  Under O2 the
+step runs low-precision params with the norm leaves kept fp32, and the
+optimizer's flat buffer in its master dtype is the master copy; the
+manual workflow's optimizer facade is `amp.fp16_optimizer.FP16_Optimizer`
+(with the reference's names in `apex_tpu_torch.fp16_utils`).
 """
 
 from __future__ import annotations

@@ -114,15 +114,20 @@ def get_policy(opt_level: str = "O1", low_dtype=torch.bfloat16,
 
 # --- fp16_utils equivalents ------------------------------------------------
 
+def is_norm_path(path) -> bool:
+    """Whether a param's key path names a norm-layer leaf (keys holding
+    norm/bn/batchstats), the leaves O2 keeps fp32."""
+    p = "/".join(str(k) for k in path).lower()
+    return ("norm" in p) or ("bn" in p) or ("batchstats" in p)
+
+
 def convert_network(params, dtype, is_norm_param=None):
     """Cast a param tree to `dtype`, keeping norm-layer params fp32 (≡ the
     JAX package's `convert_network`, itself ≡ apex.fp16_utils.
     convert_network).  `is_norm_param(path)` decides which leaves stay
     fp32; by default keys holding norm/bn/batchstats."""
     if is_norm_param is None:
-        def is_norm_param(path):
-            p = "/".join(str(k) for k in path).lower()
-            return ("norm" in p) or ("bn" in p) or ("batchstats" in p)
+        is_norm_param = is_norm_path
 
     def cast(path, x):
         if not (isinstance(x, torch.Tensor) and x.is_floating_point()):

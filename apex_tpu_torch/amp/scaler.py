@@ -53,9 +53,13 @@ def scale_loss(state: LossScalerState, loss):
 def check_finite(grads) -> torch.Tensor:
     """True (a bool device scalar) when any element of the grads is inf
     or NaN.  `grads` is one tensor (a flat buffer, whose zero padding
-    changes nothing) or a tree of them."""
-    leaves = [grads] if isinstance(grads, torch.Tensor) else \
-        tree_leaves(grads)
+    changes nothing), a list of them or a tree of them."""
+    if isinstance(grads, torch.Tensor):
+        leaves = [grads]
+    elif isinstance(grads, (list, tuple)):
+        leaves = list(grads)
+    else:
+        leaves = tree_leaves(grads)
     if not leaves:
         return torch.zeros((), dtype=torch.bool)
     flags = [~torch.isfinite(g).all() for g in leaves]

@@ -340,14 +340,18 @@ adam_flat_seg_triton.launches = 0
 
 
 def adam_flat_seg(p, m, v, g, lr, step, *, wd_values, lr_scale_values, spec,
-                  beta1=0.9, beta2=0.999, eps=1e-8, adam_w_mode=True,
-                  bias_correction=True, inv_scale=1.0, found_inf=False):
+                  row_offset=0, padded_total=None, beta1=0.9, beta2=0.999,
+                  eps=1e-8, adam_w_mode=True, bias_correction=True,
+                  inv_scale=1.0, found_inf=False):
     """`adam_flat` with per-tensor weight decay `wd_values` and lr scale
     `lr_scale_values` ((n_tensors,) each, device tensors or arrays),
     looked up per row from the lane-aligned `spec` (≡ the JAX package's
-    `adam_flat_seg` on one device), IN PLACE.  Returns (p, m, v) — the
-    same tensors, updated.  CPU tensors run the plain version; CUDA
-    tensors run the Triton kernel or raise."""
+    `adam_flat_seg`), IN PLACE.  A ZeRO shard passes its first row in the
+    whole buffer as `row_offset` (a host int) and the whole buffer's
+    length as `padded_total`: the kernel reads the row table at the
+    shard's rows.  Returns (p, m, v) — the same tensors, updated.  CPU
+    tensors run the plain version; CUDA tensors run the Triton kernel or
+    raise."""
     scalars = _adam_fold_scalars(lr, step, beta1, beta2, bias_correction,
                                  inv_scale, found_inf, device=p.device)
     wdt = _table(wd_values, p.device)
@@ -356,7 +360,8 @@ def adam_flat_seg(p, m, v, g, lr, step, *, wd_values, lr_scale_values, spec,
         if t.numel() != len(spec.sizes) + 1:
             raise ValueError(f"{t.numel() - 1} {what} for "
                              f"{len(spec.sizes)} tensors")
-    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    seg = shard_tables(spec, *_shard_rows(spec, p, row_offset, padded_total),
+                       p.device)["seg"]
     if not check_kernel_device(p, m, v, g):
         rows = seg.long()
         pn, mn, vn = _adam_seg_reference(p, m, v, g, scalars, eps,
@@ -469,7 +474,30 @@ def _seg_row_bounds(spec):
     return bounds[:-1].astype(np.int32), bounds[1:].astype(np.int32)
 
 
-@functools.lru_cache(maxsize=8)
+def _items(spec, lo_row, hi_row):
+    """The norm pass's work items over rows [lo_row, hi_row) of the
+    spec's buffer, row numbers relative to lo_row: each tensor's rows in
+    that range cut into runs of at most `_ITEM_ROWS` (item_lo, item_hi)
+    and each tensor's first item (item_ptr, n_tensors + 1 long; a tensor
+    outside the range has no item)."""
+    lo, hi = _seg_row_bounds(spec)
+    lo = np.clip(lo, lo_row, hi_row) - lo_row
+    hi = np.clip(hi, lo_row, hi_row) - lo_row
+    counts = -(-(hi - lo) // _ITEM_ROWS)
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    first = np.repeat(lo, counts)
+    k = np.arange(int(ptr[-1])) - np.repeat(ptr[:-1], counts)
+    item_lo = (first + k * _ITEM_ROWS).astype(np.int32)
+    item_hi = np.minimum(item_lo + _ITEM_ROWS,
+                         np.repeat(hi, counts)).astype(np.int32)
+    return item_lo, item_hi, ptr
+
+
+def _on(device, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@functools.lru_cache(maxsize=32)
 def segment_tables(spec, n_rows: int, device):
     """The kernels' lookups for a buffer of `n_rows` rows laid out by
     `spec`, on `device` (built once per spec and buffer; the first call
@@ -487,20 +515,52 @@ def segment_tables(spec, n_rows: int, device):
                          f"spec's {base.shape[0]}")
     seg = np.concatenate([base, np.full((n_rows - base.shape[0],), n_seg,
                                         np.int32)])
-    lo, hi = _seg_row_bounds(spec)
-    counts = -(-(hi - lo) // _ITEM_ROWS)
-    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    first = np.repeat(lo, counts)
-    k = np.arange(int(ptr[-1])) - np.repeat(ptr[:-1], counts)
-    item_lo = (first + k * _ITEM_ROWS).astype(np.int32)
-    item_hi = np.minimum(item_lo + _ITEM_ROWS,
-                         np.repeat(hi, counts)).astype(np.int32)
+    item_lo, item_hi, ptr = _items(spec, 0, n_rows)
+    return {"seg": _on(device, seg), "item_lo": _on(device, item_lo),
+            "item_hi": _on(device, item_hi), "item_ptr": _on(device, ptr)}
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return {"seg": dev(seg), "item_lo": dev(item_lo),
-            "item_hi": dev(item_hi), "item_ptr": dev(ptr)}
+@functools.lru_cache(maxsize=32)
+def shard_tables(spec, n_rows: int, row_offset: int, rows: int, device):
+    """`segment_tables` for one shard: rows [row_offset, row_offset +
+    rows) of an `n_rows`-row buffer laid out by `spec` (a rank's shard of
+    a ZeRO buffer, `n_rows` = padded_total / 128).  `seg` is a view of
+    the whole buffer's table at the shard's rows; the norm pass's work
+    items are re-cut to the shard's row range, row numbers relative to
+    its first row, so each tensor's partial sum covers its rows in the
+    shard.  The whole buffer (offset 0, all rows) is `segment_tables`.
+    Built once per (spec, buffer, shard), on `device`."""
+    if row_offset < 0 or rows < 0 or row_offset + rows > n_rows:
+        raise ValueError(f"shard rows [{row_offset}, {row_offset + rows}) "
+                         f"outside a buffer of {n_rows} rows")
+    full = segment_tables(spec, n_rows, device)
+    if row_offset == 0 and rows == n_rows:
+        return full
+    item_lo, item_hi, ptr = _items(spec, row_offset, row_offset + rows)
+    return {"seg": full["seg"][row_offset:row_offset + rows],
+            "item_lo": _on(device, item_lo), "item_hi": _on(device, item_hi),
+            "item_ptr": _on(device, ptr)}
+
+
+def _shard_rows(spec, p, row_offset, padded_total):
+    """(n_rows, row_offset, rows) of flat shard `p` inside the
+    `padded_total`-long buffer (the whole buffer when no offset is
+    given).  The offset is a host int: on the card a rank's shard is
+    known on the host and nothing is traced."""
+    if isinstance(row_offset, torch.Tensor) or not isinstance(
+            row_offset, (int, np.integer)):
+        raise TypeError(f"row_offset is a host int, got "
+                        f"{type(row_offset).__name__}")
+    rows = p.numel() // _LANES
+    if padded_total is None:
+        if row_offset:
+            raise ValueError("a shard at a row offset needs padded_total, "
+                             "the whole buffer's length")
+        return rows, 0, rows
+    if padded_total % _LANES:
+        raise ValueError(f"padded_total {padded_total} is not a multiple "
+                         f"of {_LANES}")
+    return padded_total // _LANES, int(row_offset), rows
 
 
 def _table(values, device):
@@ -540,17 +600,22 @@ def _lamb_phase2_reference(p, u, ratio_rows, lr):
             ).view(-1).to(p.dtype)
 
 
-def _rows_sumsq_reference(x, spec):
+def _rows_sumsq_reference(x, spec, seg=None):
     """Per-tensor sums of squares in plain PyTorch: fp32 sums of each row
     of 128, then a scatter-add by tensor id in fp64, rounded once to
     fp32.  (An fp32 scatter-add sums a tensor's rows one after another:
     over the 244,224 rows of BERT-Large's word embedding that drifts by
-    ~1e-5 relative, more than the kernel's tree of partial sums.)"""
-    rows = spec.total // _LANES
-    x2 = x[:spec.total].view(rows, _LANES).float()
-    seg = torch.from_numpy(_row_segment_ids(spec)).to(x.device).long()
-    out = torch.zeros(len(spec.sizes), dtype=torch.float64, device=x.device)
-    return out.index_add_(0, seg, torch.sum(x2 * x2, dim=1).double()).float()
+    ~1e-5 relative, more than the kernel's tree of partial sums.)  With
+    `seg`, the tensor id of each row of `x` (a shard's, padding rows the
+    dummy id): each tensor's partial sum over those rows."""
+    if seg is None:
+        x = x[:spec.total]
+        seg = torch.from_numpy(_row_segment_ids(spec)).to(x.device)
+    n_seg = len(spec.sizes)
+    x2 = x.view(-1, _LANES).float()
+    out = torch.zeros(n_seg + 1, dtype=torch.float64, device=x.device)
+    out.index_add_(0, seg.long(), torch.sum(x2 * x2, dim=1).double())
+    return out[:n_seg].float()
 
 
 # ------------------------------- Triton kernels ------------------------------
@@ -721,12 +786,15 @@ def lamb_phase2_seg_triton(p, u, seg, ratio_table, lr):
 lamb_phase2_seg_triton.launches = 0
 
 
-def rows_sumsq_seg_triton(x, spec):
+def rows_sumsq_seg_triton(x, spec, row_offset=0, padded_total=None):
     """Per-tensor fp32 sums of squares over a CUDA flat buffer laid out
-    by a lane-aligned `spec`: the item pass and the per-tensor pass, two
-    launches; `rows_sumsq_seg_triton.launches` counts calls."""
-    n = _check_flat("per-tensor norms", _LANES, x=x)
-    tabs = segment_tables(spec, n // _LANES, x.device)
+    by a lane-aligned `spec`, or over a shard of one (`row_offset`,
+    `padded_total` as for `adam_flat_seg`: each tensor's partial sum
+    over its rows in the shard): the item pass and the per-tensor pass,
+    two launches; `rows_sumsq_seg_triton.launches` counts calls."""
+    _check_flat("per-tensor norms", _LANES, x=x)
+    tabs = shard_tables(spec, *_shard_rows(spec, x, row_offset,
+                                           padded_total), x.device)
     n_items = tabs["item_lo"].numel()
     n_seg = len(spec.sizes)
     part = torch.empty(n_items, dtype=torch.float32, device=x.device)
@@ -769,11 +837,14 @@ def lamb_phase1_flat(m, v, g, p, clip_ratio, step, *, beta1, beta2, eps,
 
 
 def lamb_phase1_seg(m, v, g, p, clip_ratio, step, *, wd_values, spec, beta1,
-                    beta2, eps, bias_correction=True, grad_averaging=True,
+                    beta2, eps, row_offset=0, padded_total=None,
+                    bias_correction=True, grad_averaging=True,
                     inv_scale=1.0, found_inf=False):
     """`lamb_phase1_flat` with per-tensor weight decay `wd_values`
     ((n_tensors,), a device tensor or an array), looked up per row from
-    the lane-aligned `spec` (≡ the JAX package's `lamb_phase1_seg`)."""
+    the lane-aligned `spec` (≡ the JAX package's `lamb_phase1_seg`); a
+    ZeRO shard gives `row_offset` and `padded_total` as for
+    `adam_flat_seg`."""
     scalars = _lamb_fold_scalars(clip_ratio, step, beta1, beta2,
                                  bias_correction, grad_averaging, inv_scale,
                                  found_inf, device=p.device)
@@ -781,7 +852,8 @@ def lamb_phase1_seg(m, v, g, p, clip_ratio, step, *, wd_values, spec, beta1,
     if wdt.numel() != len(spec.sizes) + 1:
         raise ValueError(f"{wdt.numel() - 1} wd values for "
                          f"{len(spec.sizes)} tensors")
-    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    seg = shard_tables(spec, *_shard_rows(spec, p, row_offset, padded_total),
+                       p.device)["seg"]
     if not check_kernel_device(m, v, g, p):
         mn, vn, u = _lamb_phase1_reference(m, v, g, p, scalars, eps,
                                            wd_rows=wdt[seg.long()])
@@ -791,17 +863,20 @@ def lamb_phase1_seg(m, v, g, p, clip_ratio, step, *, wd_values, spec, beta1,
     return lamb_phase1_seg_triton(m, v, g, p, scalars, eps, seg, wdt)
 
 
-def lamb_phase2_seg(p, u, ratio_values, spec, lr):
+def lamb_phase2_seg(p, u, ratio_values, spec, lr, *, row_offset=0,
+                    padded_total=None):
     """p -= lr · trust_ratio[tensor] · u, IN PLACE, with the per-tensor
     `ratio_values` ((n_tensors,)) looked up per row from the lane-aligned
     `spec`; tail-padding rows get ratio 0 and stay untouched (≡ the JAX
-    package's `lamb_phase2_seg`).  `lr` may be a device tensor.  Returns
-    p."""
+    package's `lamb_phase2_seg`).  `lr` may be a device tensor; a ZeRO
+    shard gives `row_offset` and `padded_total` as for `adam_flat_seg`.
+    Returns p."""
     rt = _table(ratio_values, p.device)
     if rt.numel() != len(spec.sizes) + 1:
         raise ValueError(f"{rt.numel() - 1} ratios for "
                          f"{len(spec.sizes)} tensors")
-    seg = segment_tables(spec, p.numel() // _LANES, p.device)["seg"]
+    seg = shard_tables(spec, *_shard_rows(spec, p, row_offset, padded_total),
+                       p.device)["seg"]
     lr_t = device_scalar(lr, torch.float32, p.device)
     if not check_kernel_device(p, u):
         return p.copy_(_lamb_phase2_reference(p, u, rt[seg.long()], lr_t))
@@ -822,6 +897,59 @@ def per_tensor_l2norm_aligned(flat, spec):
     if not check_kernel_device(flat):
         return torch.sqrt(_rows_sumsq_reference(flat, spec))
     return torch.sqrt(rows_sumsq_seg_triton(flat, spec))
+
+
+# ------------------------------- ZeRO shards --------------------------------
+#
+# A ZeRO optimizer cuts the `padded_total`-long flat buffer into
+# `num_shards` contiguous shards of padded_total / num_shards elements (a
+# multiple of FLAT_TILE, so whole rows of 128); rank r holds rows
+# [r · rows, (r + 1) · rows).  A tensor may straddle a shard edge.  The
+# segmented kernels take the shard's first row as `row_offset` and read
+# the whole buffer's row table there (`shard_tables`); the per-tensor sums
+# of squares of one shard are partial sums, and their Σ over the ranks is
+# the whole buffer's.
+
+def shard_segment_ids(spec, rank: int, rows_shard: int, padded_total: int):
+    """Rank `rank`'s slice of the padded row → tensor map, int32 on the
+    CPU: tail-padding rows get the dummy id len(spec.sizes) (≡ the JAX
+    package's `shard_segment_ids`)."""
+    n_rows = padded_total // _LANES
+    off = rank * rows_shard
+    if off + rows_shard > n_rows:
+        raise ValueError(f"rank {rank}'s {rows_shard} rows outside a buffer "
+                         f"of {n_rows} rows")
+    return shard_tables(spec, n_rows, off, rows_shard,
+                        torch.device("cpu"))["seg"]
+
+
+def per_tensor_sumsq_shard(shard, spec, rank: int, padded_total: int):
+    """Per-tensor PARTIAL fp32 sums of squares over rank `rank`'s shard
+    of the `padded_total`-long buffer laid out by the lane-aligned
+    `spec` (≡ the JAX package's `per_tensor_sumsq_shard`): Σ over the
+    ranks is the whole buffer's per-tensor sums.  `rank` is a host int.
+    CPU tensors run the plain version; CUDA tensors the norm kernels at
+    the shard's rows, or raise."""
+    rows = shard.numel() // _LANES
+    if shard.numel() % _LANES:
+        raise ValueError(f"a shard of {shard.numel()} elements is not whole "
+                         f"rows of {_LANES}")
+    if not check_kernel_device(shard):
+        seg = shard_tables(spec, padded_total // _LANES, rank * rows, rows,
+                           shard.device)["seg"]
+        return _rows_sumsq_reference(shard, spec, seg)
+    return rows_sumsq_seg_triton(shard, spec, row_offset=rank * rows,
+                                 padded_total=padded_total)
+
+
+def expand_per_tensor_shard(values, seg):
+    """Per-tensor values broadcast to one shard's elements from its row
+    ids `seg` (`shard_segment_ids`); padding rows get 0 (≡ the JAX
+    package's `expand_per_tensor_shard`)."""
+    vals = torch.cat([values.float().reshape(-1), values.new_zeros(
+        1, dtype=torch.float32)])
+    per_row = vals[seg.to(values.device).long()]
+    return per_row[:, None].expand(-1, _LANES).reshape(-1)
 
 
 # ------------------------------------ SGD -----------------------------------

@@ -3,9 +3,8 @@
 
 `channel_sums` reduces a row-major (rows, C) view to fp32 per-channel
 (Σx, Σx²); `batch_stats` turns them into the batch mean and (biased)
-variance; `merge_stats` merges them across a process group, which is
-the identity on one device (data parallelism across cards comes later,
-ROADMAP Queue 1 item 12).
+variance; `merge_stats` merges them across a process group (one
+all-reduce; the identity without a group).
 
 Two implementations of the sums:
 
@@ -244,13 +243,43 @@ def batch_stats(x, reduce_axes):
     return mean, var, count
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Σ over the group with its transpose as the backward (≡ `lax.psum`
+    under differentiation): the gradient of a summed value is the sum
+    of the ranks' gradients of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def merge_stats(mean, var, count, process_group=None):
-    """Merge per-device (mean, var, count) across `process_group` (≡ the
-    JAX package's `merge_stats` over a mesh axis).  On one device — no
-    group, or a group of one rank — it is the identity."""
-    if process_group is not None:
-        if dist.get_world_size(process_group) > 1:
-            raise NotImplementedError(
-                "merging batch statistics across ranks comes with "
-                "multi-GPU data parallelism (ROADMAP Queue 1 item 12)")
-    return mean, var, count
+    """Merge per-rank (mean, var, count) across `process_group` (≡ the JAX
+    package's `merge_stats`, the all_gather + welford_parallel merge of
+    apex's SyncBatchNorm): one all-reduce of (n·mean, n·(var + mean²), n)
+    and the parallel-variance identity.  The all-reduce differentiates
+    as `psum` does (its backward is the all-reduce of the cotangent), so
+    the gradient reaches every rank's x.  Returns (mean, var, count),
+    the count a 0-d fp32 device tensor (ranks may hold different
+    counts).  Without a group it is the identity."""
+    if process_group is None:
+        return mean, var, count
+    c = mean.shape[0]
+    n = torch.full((1,), float(count), dtype=torch.float32,
+                   device=mean.device) if not isinstance(
+                       count, torch.Tensor) else count.float().reshape(1)
+    packed = torch.cat([n * mean, n * (var + mean * mean), n])
+    tot = _AllReduceSum.apply(packed, process_group)
+    tn = tot[2 * c]
+    tmean = tot[:c] / tn
+    tsq = tot[c:2 * c] / tn
+    return tmean, torch.clamp_min(tsq - tmean * tmean, 0.0), tn

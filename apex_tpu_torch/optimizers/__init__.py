@@ -1,13 +1,19 @@
 """apex_tpu_torch.optimizers — flat-buffer optimizers (counterpart of
 apex_tpu.optimizers): FusedAdam, FusedLAMB, FusedSGD, FusedAdagrad,
-FusedNovoGrad and the flat mapping; DistributedFusedAdam is still to
-port."""
+FusedNovoGrad, the ZeRO-2 DistributedFusedAdam / DistributedFusedLAMB
+and the flat mapping."""
 
 from apex_tpu_torch.optimizers.flat import (  # noqa: F401
     FlatSpec,
     flatten,
     make_spec,
     unflatten,
+)
+from apex_tpu_torch.optimizers.distributed_fused_adam import (  # noqa: F401
+    DistributedFusedAdam,
+    DistributedFusedAdamState,
+    DistributedFusedLAMB,
+    DistributedFusedLAMBState,
 )
 from apex_tpu_torch.optimizers.fused_adagrad import (  # noqa: F401
     FusedAdagrad,

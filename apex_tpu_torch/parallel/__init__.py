@@ -1,10 +1,11 @@
 """apex_tpu_torch.parallel — data-parallel utilities (counterpart of
-apex_tpu.parallel; so far the single-device train step of `ddp`, the
-batch norm of `sync_batchnorm`, whose cross-rank halves come with
-multi-GPU data parallelism, ROADMAP Queue 1 item 12, the `larc`
-optimizer wrapper and `clip_grad`)."""
+apex_tpu.parallel): the process groups of `mesh` (data parallelism; tp,
+pp, cp and ep come with later ROADMAP items), the data-parallel train
+step and gradient sync of `ddp`, the batch norm of `sync_batchnorm`
+(statistics merged across a process group), the `larc` optimizer
+wrapper, `clip_grad` and the `multiproc` launcher."""
 
-_LAZY = {"ddp", "sync_batchnorm", "larc", "clip_grad"}
+_LAZY = {"ddp", "sync_batchnorm", "larc", "clip_grad", "mesh", "multiproc"}
 
 
 def __getattr__(name):

@@ -3,10 +3,11 @@
 apex.parallel.SyncBatchNorm and `convert_syncbn_model`).
 
 Statistics come from `ops.welford` (the per-channel sums kernel) and are
-merged across the group by `merge_stats`, the identity on one device:
-SyncBN across ranks comes with multi-GPU data parallelism (ROADMAP Queue
-1 item 12) and raises until then.  The gradient flows through the batch
-mean and variance by autograd, as JAX differentiates through them.
+merged across `process_group` by `merge_stats` (one all-reduce; without
+a group the batch norm is local, as the JAX package's is without an
+axis name).  The gradient flows through the batch mean and variance by
+autograd, across the ranks through the all-reduce, as JAX
+differentiates through its psum.
 Running statistics take the batch mean and the *unbiased* variance.
 
 Layout is channels-last (NHWC, `channel_axis=-1`), as in the JAX
@@ -37,8 +38,12 @@ def sync_batch_norm(x, scale, bias, running_mean, running_var, *,
         mean, var, count = welford.batch_stats(x, reduce_axes)
         mean, var, count = welford.merge_stats(mean, var, count,
                                                process_group)
-        count = float(count)
-        unbiased = var.detach() * count / max(count - 1.0, 1.0)
+        if isinstance(count, torch.Tensor):     # merged: a device count
+            unbiased = var.detach() * count / torch.clamp_min(count - 1.0,
+                                                              1.0)
+        else:
+            count = float(count)
+            unbiased = var.detach() * count / max(count - 1.0, 1.0)
         new_rm = (1 - momentum) * running_mean + momentum * mean.detach()
         new_rv = (1 - momentum) * running_var + momentum * unbiased
     else:

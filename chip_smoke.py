@@ -109,7 +109,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  lse, dk, dv), the dk/dv pass bit for bit the fused
                  kernel; the generic elementwise launcher with an axpy
                  and an Adam-shaped body over 1e8 + 37 fp32 elements,
-                 bit for bit with their plain versions.
+                 bit for bit with their plain versions; the segmented
+                 Adam, LAMB phase 1 and phase 2 on four virtual ZeRO
+                 shards of GPT-350M's and BERT-Large's flat buffers (bf16,
+                 tensors straddling the edges), each shard at its row
+                 offset bit for bit its plain version, the shards'
+                 concatenation bit for bit one whole-buffer launch, the
+                 shards' per-tensor sums of squares summed in rank order
+                 within 1e-5 relative of the whole buffer's (the same
+                 bits on a second run), one shard's time beside the
+                 whole buffer's.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -270,7 +279,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  a 120 s deadline), drained; n_ok, n_shed, n_expired,
                  shed_fraction, goodput tokens/s and steps, gated on the
                  ledger's balance and a whole page pool.
- 14. table       the kernels' times on the card (CUDA events) beside
+ 14. slice 17    the card as a torch.distributed NCCL group of one rank
+                 (an in-process HashStore), the dp group checked as a
+                 world of one.  (a) bench.py's ZeRO-2 bucket sweep at full
+                 width: GPT (50304, h1024, 8 layers, 16 heads, seq 1024),
+                 batch 8, bf16, flash, DistributedFusedAdam(num_shards=1,
+                 lr=1e-4, master bf16) at n_buckets 1, 2 and 4 through
+                 `ddp.make_train_step`, 2 + 10 steps each: tokens/s, peak
+                 memory, no host sync, one Adam launch a bucket a step;
+                 the params of n_buckets 2 and 4 bit for bit n_buckets
+                 1's, and three steps bit for bit FusedAdam's through the
+                 same step.  (b) phase 5's GPT-350M step as 4 microbatches
+                 with fp32 main grads: the loss falls over 5 steps, no
+                 host sync, tokens/s, peak memory, one profiled step.
+                 (c) phase 6's BERT-Large step with
+                 DistributedFusedLAMB(num_shards=1, no-decay wd_mask): no
+                 host sync, seq/s; the optimizer alone bit for bit
+                 FusedLAMB's over three steps of the same grads, clipped
+                 and not; two steps against phase 6's FusedLAMB step
+                 within three times FusedLAMB's own run-to-run.  (d)
+                 phase 7's ResNet-50 step under amp O2 (bf16 weights,
+                 fp32 batch norms, the fp32 master in FusedSGD's flat
+                 buffer): as phase 7, with a two-step kernels-vs-plain
+                 comparison whose second step is held to the drift of
+                 the plain versions from a master nudged one ULP.
+ 15. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -290,7 +323,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  warm L2, by slot length (0, 1, 256) and at the long
                  case, beside SDPA; the flash kernels' dropout
                  instantiations at rate 0.1 beside their rate-0 times
-                 and SDPA with dropout_p=0.1.
+                 and SDPA with dropout_p=0.1; the four segmented
+                 optimizer kernels' shard times beside their whole
+                 buffers', and each kernel's launches in slice 17's legs.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -1925,7 +1960,7 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
         step_flat = opt.step_flat
 
         def capture(st, g_flat, **kw):
-            seen["g"] = g_flat.clone()
+            seen.setdefault("g", g_flat.clone())
             return step_flat(st, g_flat, **kw)
 
         opt.step_flat = capture
@@ -2247,7 +2282,7 @@ def resnet_counts(xe, wf, ok):
             for name, fn in resnet_kernels(xe, wf, ok).items()}
 
 
-def resnet_setup(torch, batch, seed=0, larc=False):
+def resnet_setup(torch, batch, seed=0, larc=False, opt_level="O1"):
     """The bench's ResNet-50 AMP-O1 step (`bench.py:338-391`, its on-chip
     branch) on the card: seed-`seed` weights, amp O1 (bf16 compute, fp32
     params, dynamic loss scale from 2^16), the mean of the fp32 cross
@@ -2255,7 +2290,13 @@ def resnet_setup(torch, batch, seed=0, larc=False):
     LARC(trust_coefficient=0.02, clip=True) with `larc`) and
     `make_train_step(with_state=True)`; a batch of `batch` 224x224x3
     N(0, 1) images and uniform labels over 1000 classes, each from its
-    own seeded generator.  Returns (opt, step, carry, (x, y))."""
+    own seeded generator.  `opt_level="O2"` (slice 17, apex's
+    `main_amp.py --opt-level O2`): `amp.initialize(params, "O2")` makes
+    the convolution and fc weights bf16 and keeps the batch norms' fp32,
+    FusedSGD's fp32 flat buffer is the master, and the step reads the
+    bf16 weights and fp32 batch-norm params (the loss function records
+    their dtypes in `step.param_dtypes` on its first call).  Returns
+    (opt, step, carry, (x, y))."""
     from apex_tpu_torch import amp
     from apex_tpu_torch.models import resnet as rn
     from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
@@ -2265,9 +2306,17 @@ def resnet_setup(torch, batch, seed=0, larc=False):
 
     model = rn.resnet50()
     params, mstate = model.init(seed=seed)
-    amp_state = amp.initialize(opt_level="O1")
+    if opt_level == "O2":
+        params, amp_state = amp.initialize(params, opt_level="O2")
+    else:
+        amp_state = amp.initialize(opt_level="O1")
+    param_dtypes = {}
 
     def loss_fn(p, ms, b):
+        if not param_dtypes:
+            for path, leaf in F.tree_leaves_with_paths(p):
+                kind = "bn" if amp.policy.is_norm_path(path) else "weights"
+                param_dtypes.setdefault(kind, set()).add(str(leaf.dtype))
         x, y = b
         logits, new_ms = model.apply(p, ms, x, training=True)
         return torch.mean(softmax_cross_entropy_loss(logits.float(), y)), \
@@ -2285,6 +2334,7 @@ def resnet_setup(torch, batch, seed=0, larc=False):
           "ResNet-50 layout drifted")
     step = ddp.make_train_step(loss_fn, opt, amp_state=amp_state,
                                with_state=True)
+    step.param_dtypes = param_dtypes
 
     def gen(s):
         return torch.Generator(device="cuda").manual_seed(s)
@@ -2295,13 +2345,19 @@ def resnet_setup(torch, batch, seed=0, larc=False):
     return opt, step, (state, amp_state.loss_scalers[0], mstate), (x, y)
 
 
-def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
+def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False,
+                 opt_level="O1"):
     """The ResNet-50 AMP-O1 training step at full width (module docstring,
     phase 7; with `larc`, phase 10's LARC leg, which takes no
-    kernels-vs-plain step).  Returns the measurements, the
-    kernels-vs-plain line (None with `larc`) and the flat layout."""
+    kernels-vs-plain step; with `opt_level="O2"`, slice 17's O2 leg,
+    whose kernels-vs-plain comparison takes two steps).  Returns the
+    measurements, the kernels-vs-plain line (None with `larc`) and the
+    flat layout."""
     what = "LARC resnet" if larc else "resnet"
-    opt, step, carry, batch = resnet_setup(torch, RESNET_BATCH, larc=larc)
+    if opt_level != "O1":
+        what += f" {opt_level}"
+    opt, step, carry, batch = resnet_setup(torch, RESNET_BATCH, larc=larc,
+                                           opt_level=opt_level)
 
     def carry_step(c, b):
         o, sc, ms, loss = step(*c, b)
@@ -2395,6 +2451,7 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
     check(len(sums_in) == per_step["channel_sums"],
           f"{what}: {len(sums_in)} channel sums in the profiled step")
     spec = opt.spec
+    param_dtypes, state_dtype = step.param_dtypes, carry[0].params.dtype
     del carry, step, opt
     torch.cuda.empty_cache()
     result = {
@@ -2411,17 +2468,34 @@ def resnet_phase(torch, xe, wf, ok, steps=5, warmup=2, larc=False):
         "peak_mem_gib": peak / 2 ** 30, "host_syncs_per_step": len(syncs),
         "launches": counts, "launches_per_step": per_step,
         "channel_sums_step": channel_sums_step, "profile": profile_line}
-    vs_plain = None if larc else compare_resnet_step(torch, xe, wf, ok,
-                                                     batch=8)
+    if opt_level == "O2":
+        dts = {k: sorted(v) for k, v in param_dtypes.items()}
+        check(dts == {"bn": ["torch.float32"], "weights": ["torch.bfloat16"]}
+              and state_dtype == torch.float32,
+              f"O2 step param dtypes {dts}, master {state_dtype}")
+        result["step_param_dtypes"] = dts
+        result["master_dtype"] = str(state_dtype)
+        result["config"] = result["config"].replace(
+            "amp O1 (bf16 compute, fp32 params,",
+            "amp O2 (bf16 weights and compute, fp32 batch-norm params, the "
+            "fp32 master in FusedSGD's flat buffer,")
+    vs_plain = None if larc else compare_resnet_step(
+        torch, xe, wf, ok, batch=8, opt_level=opt_level,
+        steps=2 if opt_level == "O2" else 1)
     torch.backends.cudnn.benchmark = bench_was
     return result, vs_plain, spec
 
 
-def compare_resnet_step(torch, xe, wf, ok, batch):
-    """One full-width ResNet-50 O1 step at `batch` through the kernels and
-    through their plain versions (swapped in for the run), from the same
-    seed-0 weights and data.  Compares the loss, each leaf's gradient and
-    param update (relative L2) and the running statistics."""
+def resnet_trajectory(torch, xe, wf, ok, batch, opt_level="O1", steps=1,
+                      plain=False, nudge=False):
+    """`steps` full-width ResNet-50 steps (amp `opt_level`) at `batch` from
+    `resnet_setup`'s seed-0 weights and data, through the kernels or,
+    with `plain`, through their plain versions (swapped in for the run);
+    with `nudge`, every element of the fp32 master moved one ULP up
+    (`torch.nextafter` toward +inf) before the first step.  Returns, per
+    step, (loss, the flat grads the optimizer was handed, the params'
+    change from the start, the running statistics), and the flat
+    layout."""
     from apex_tpu_torch.optimizers import flat as F
 
     def plain_sgd(p, buf, g, scalars, *flags):
@@ -2434,56 +2508,102 @@ def compare_resnet_step(torch, xe, wf, ok, batch):
              (xe, "xent_bwd_triton", xe.xent_bwd_reference),
              (wf, "channel_sums_cuda", wf.channel_sums_reference),
              (ok, "sgd_flat_triton", plain_sgd)]
+    opt, step, (state, sc, ms), b = resnet_setup(torch, batch,
+                                                 opt_level=opt_level)
+    if nudge:
+        state.params.copy_(torch.nextafter(
+            state.params, torch.full_like(state.params, float("inf"))))
+    p0 = state.params.clone()
+    grads = []
+    step_flat = opt.step_flat
 
-    def run(plain):
-        opt, step, (state, sc, ms), b = resnet_setup(torch, batch)
-        p0 = state.params.clone()
-        seen = {}
-        step_flat = opt.step_flat
+    def capture(st, g_flat, **kw):
+        grads.append(g_flat.clone())
+        return step_flat(st, g_flat, **kw)
 
-        def capture(st, g_flat, **kw):
-            seen["g"] = g_flat.clone()
-            return step_flat(st, g_flat, **kw)
-
-        opt.step_flat = capture
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-        if plain:
-            for mod, name, fn in swaps:
-                setattr(mod, name, fn)
-        try:
+    opt.step_flat = capture
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    if plain:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+    out = []
+    try:
+        for i in range(steps):
             state, sc, ms, loss = step(state, sc, ms, b)
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
-        return (float(loss), seen["g"], state.params - p0, ms, opt.spec)
+            out.append((float(loss), grads[i], state.params - p0,
+                        [x.clone() for x in F.tree_leaves(ms)]))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return out, opt.spec
 
-    before = resnet_counts(xe, wf, ok)
-    loss_p, g_p, u_p, ms_p, spec = run(plain=True)
-    check(resnet_counts(xe, wf, ok) == before,
-          "the plain ResNet step launched a kernel")
-    loss_k, g_k, u_k, ms_k, _ = run(plain=False)
-    torch.cuda.synchronize()
 
-    def rel_l2(a, r):
-        return ((a.float() - r.float()).norm()
-                / r.float().norm().clamp_min(1e-30)).item()
+def resnet_step_diffs(torch, a, r, spec):
+    """Per step, run `a` against run `r` (two `resnet_trajectory`s): the
+    losses' relative difference, each leaf's grad and param-change
+    relative L2 (median, max and the worst leaf) and the running
+    statistics' worst relative L2."""
+    def rel_l2(x, y):
+        return ((x.float() - y.float()).norm()
+                / y.float().norm().clamp_min(1e-30)).item()
 
-    grad_rel, upd_rel = {}, {}
-    for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
-        key = "/".join(path)
-        grad_rel[key] = rel_l2(g_k[off:off + size], g_p[off:off + size])
-        upd_rel[key] = rel_l2(u_k[off:off + size], u_p[off:off + size])
-    stat_rel = max(rel_l2(a, r) for a, r in zip(F.tree_leaves(ms_k),
-                                                F.tree_leaves(ms_p)))
-    gw = max(grad_rel, key=grad_rel.get)
-    uw = max(upd_rel, key=upd_rel.get)
-    line = {"batch": batch, "loss_kernels": loss_k, "loss_plain": loss_p,
-            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+    out = []
+    for (la, ga, ua, ma), (lr_, gr, ur, mr) in zip(a, r):
+        grad_rel, upd_rel = {}, {}
+        for path, off, size in zip(spec.paths, spec.offsets, spec.sizes):
+            key = "/".join(path)
+            grad_rel[key] = rel_l2(ga[off:off + size], gr[off:off + size])
+            upd_rel[key] = rel_l2(ua[off:off + size], ur[off:off + size])
+        gw = max(grad_rel, key=grad_rel.get)
+        uw = max(upd_rel, key=upd_rel.get)
+        out.append({
+            "loss": la, "loss_ref": lr_,
+            "loss_rel_diff": abs(la - lr_) / abs(lr_),
             "grad_rel_l2_max": grad_rel[gw], "grad_rel_l2_worst": gw,
             "grad_rel_l2_median": sorted(grad_rel.values())[
                 len(grad_rel) // 2],
             "update_rel_l2_max": upd_rel[uw], "update_rel_l2_worst": uw,
-            "running_stats_rel_l2_max": stat_rel}
+            "running_stats_rel_l2_max": max(rel_l2(x, y)
+                                            for x, y in zip(ma, mr))})
+    return out
+
+
+def compare_resnet_step(torch, xe, wf, ok, batch, opt_level="O1", steps=1):
+    """`steps` full-width ResNet-50 steps through the kernels and through
+    their plain versions from the same weights and data
+    (`resnet_trajectory`).  The first step's loss, each leaf's gradient
+    and param update (relative L2) and the running statistics are held
+    to phase 7's gates.  With more steps, the plain versions run once
+    more from the fp32 master nudged one ULP up, and each later step of
+    the kernels is held to that nudge's drift: from the second step on,
+    any rounding difference in the weights moves the batch-norm grads by
+    10-40 % (`--resnet-steps`: the kernels against the plain versions
+    and the nudged plain versions drift alike, under O1 as under O2,
+    while the plain versions are bit for bit run to run).  A later step's
+    grad median, grad max and update max are held within twice the
+    nudge's, its running statistics within 1e-2 and its loss within
+    1e-2 relative (3.5x the nudge's largest drift over three steps)."""
+    before = resnet_counts(xe, wf, ok)
+    plain, spec = resnet_trajectory(torch, xe, wf, ok, batch, opt_level,
+                                    steps, plain=True)
+    nudged = None
+    if steps > 1:
+        nudged, _ = resnet_trajectory(torch, xe, wf, ok, batch, opt_level,
+                                      steps, plain=True, nudge=True)
+    check(resnet_counts(xe, wf, ok) == before,
+          "the plain ResNet step launched a kernel")
+    kern, _ = resnet_trajectory(torch, xe, wf, ok, batch, opt_level, steps)
+    torch.cuda.synchronize()
+    diffs = resnet_step_diffs(torch, kern, plain, spec)
+    d = diffs[0]
+    line = {"batch": batch, "opt_level": opt_level, "steps": steps,
+            "loss_kernels": d["loss"], "loss_plain": d["loss_ref"],
+            **{k: v for k, v in d.items() if k not in ("loss", "loss_ref")}}
+    if steps > 1:
+        floor = resnet_step_diffs(torch, nudged, plain, spec)
+        del nudged
+        line["per_step"] = diffs
+        line["nudged_plain_per_step"] = floor
     log("resnet step, kernels vs plain versions " + json.dumps(line))
     # the kernels differ from the plain versions by fp32 rounding (sums in
     # another order, the hardware exp): a bf16 activation here and there
@@ -2492,11 +2612,55 @@ def compare_resnet_step(torch, xe, wf, ok, batch):
     check(line["loss_rel_diff"] <= 1e-3, "resnet step loss: kernels vs plain")
     check(line["grad_rel_l2_median"] <= 1e-2
           and line["grad_rel_l2_max"] <= 0.25,
-          f"resnet step grads: kernels vs plain ({gw})")
+          f"resnet step grads: kernels vs plain "
+          f"({line['grad_rel_l2_worst']})")
     check(line["update_rel_l2_max"] <= 0.25,
-          f"resnet step params: kernels vs plain ({uw})")
-    check(stat_rel <= 1e-2, "resnet step running stats: kernels vs plain")
+          f"resnet step params: kernels vs plain "
+          f"({line['update_rel_l2_worst']})")
+    check(line["running_stats_rel_l2_max"] <= 1e-2,
+          "resnet step running stats: kernels vs plain")
+    for k in range(1, steps):
+        dk, fk = diffs[k], line["nudged_plain_per_step"][k]
+        check(all(dk[m] <= 2 * fk[m] for m in (
+                  "grad_rel_l2_median", "grad_rel_l2_max",
+                  "update_rel_l2_max"))
+              and dk["running_stats_rel_l2_max"] <= 1e-2
+              and dk["loss_rel_diff"] <= 1e-2,
+              f"resnet {opt_level} step {k + 1}: kernels vs plain {dk}, "
+              f"against the one-ULP nudge's drift {fk}")
     return line
+
+
+def resnet_steps_evidence(torch, xe, wf, ok, batch=8, steps=3):
+    """`python3 chip_smoke.py --resnet-steps`: how far later ResNet-50
+    steps drift apart from rounding alone, under O1 and O2.  For each
+    opt level, `steps` steps at `batch` (phase 7's comparison size),
+    per step (`resnet_step_diffs`): the kernels against the plain
+    versions; the plain versions against themselves (the card's own
+    run-to-run); and the plain versions from the fp32 master nudged one
+    ULP up against the plain versions.  Prints one JSON line per opt
+    level."""
+    bench_was = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True        # as resnet_phase runs it
+    try:
+        for level in ("O1", "O2"):
+            base, spec = resnet_trajectory(torch, xe, wf, ok, batch, level,
+                                           steps, plain=True)
+            out = {"opt_level": level, "batch": batch, "steps": steps}
+            for name, kw in (("kernels_vs_plain", {}),
+                             ("plain_vs_plain", {"plain": True}),
+                             ("plain_nudged_vs_plain",
+                              {"plain": True, "nudge": True})):
+                run, _ = resnet_trajectory(torch, xe, wf, ok, batch, level,
+                                           steps, **kw)
+                out[name] = resnet_step_diffs(torch, run, base, spec)
+                del run
+            del base
+            torch.cuda.empty_cache()
+            print(json.dumps(out), flush=True)
+    finally:
+        torch.backends.cudnn.benchmark = bench_was
+    return 0
 
 
 def table_resnet_kernels(torch, xe, wf, ok, rng, errs, resnet, spec):
@@ -4775,6 +4939,621 @@ def slice16_phase(torch, np, build_flagship_engine, ref_tokens):
     return {"watchdog": dog, "overload": storm}
 
 
+# ----------------------------- slice 17 (PR 17) -----------------------------
+
+VIRTUAL_SHARDS = 4
+
+
+def check_virtual_shards(torch, ok, rng, spec, n, seg_wd, what):
+    """Phase 2's virtual shards: the `n`-element flat buffer of `spec`
+    (GPT-350M's or BERT-Large's lane-aligned layout, bf16 state and grads,
+    zero padding) cut into `VIRTUAL_SHARDS` shards of n / 4 elements, as
+    the ranks of a ZeRO optimizer hold it; tensors straddle the shard
+    edges.  Each rank's shard goes through `adam_flat_seg` (per-tensor wd
+    and lr scales), `lamb_phase1_seg` and `lamb_phase2_seg` at its row
+    offset, one after another on the one card: each launch bit for bit
+    its plain version on the same shard, and the shards' results
+    concatenated bit for bit one whole-buffer launch.  The per-tensor
+    sums of squares of two buffers, `per_tensor_sumsq_shard` per shard
+    summed in rank order, against the whole buffer's (`rows_sumsq_seg`)
+    within 1e-5 relative (the shards cut a straddling tensor's rows into
+    other work items: another order of fp32 sums), and the same bits on
+    a second run.  Times one shard's launch (rank 1) beside the whole
+    buffer's, for each kernel.  Returns the errors and those times."""
+    dev = "cuda"
+    bf16 = torch.bfloat16
+    real = torch.zeros(n, dtype=torch.bool, device=dev)
+    for off, size in zip(spec.offsets, spec.sizes):
+        real[off:off + size] = True
+
+    def buf(scale, absval=False):
+        x = torch.randn((n,), generator=rng, device=dev) * scale
+        return torch.where(real, x.abs() if absval else x, 0.0).to(bf16)
+
+    p, m, v, g = buf(0.05), buf(0.01), buf(1e-4, absval=True), buf(1.0)
+    del real
+    n_t = len(spec.sizes)
+    seg_full = ok.segment_tables(spec, n // 128, dev)["seg"]
+    wdt = ok._table(seg_wd, dev)
+    lrs = 0.5 + torch.rand(n_t, generator=rng, device=dev)
+    lrt = ok._table(lrs, dev)
+    ratio = 0.5 + torch.rand(n_t, generator=rng, device=dev)
+    rt = ok._table(ratio, dev)
+    lr = torch.full((), 1e-2, device=dev)
+    size = n // VIRTUAL_SHARDS
+    rows = size // 128
+    check(n % (VIRTUAL_SHARDS * 128) == 0,
+          f"{what}: {n} elements are not {VIRTUAL_SHARDS} shards of whole "
+          f"rows")
+    straddle = sum(1 for off, sz in zip(spec.offsets, spec.sizes)
+                   if off // size != (off + sz - 1) // size)
+    check(straddle > 0, f"{what}: no tensor straddles a shard edge")
+    adam_sc = ok._adam_fold_scalars(1e-4, 3, 0.9, 0.999, True, 1.0, False,
+                                    device=dev)
+    lamb_sc = ok._lamb_fold_scalars(0.8, 3, 0.9, 0.999, True, True, 1.0,
+                                    False, device=dev)
+
+    # (p, m, v, g) in, the kernel's outputs back (in place on its state)
+    def adam(x, y, z, gg, **kw):
+        return ok.adam_flat_seg(x, y, z, gg, 1e-4, 3, wd_values=seg_wd,
+                                lr_scale_values=lrs, spec=spec, **kw)
+
+    def lamb1(x, y, z, gg, **kw):
+        return ok.lamb_phase1_seg(y, z, gg, x, 0.8, 3, wd_values=seg_wd,
+                                  spec=spec, beta1=0.9, beta2=0.999,
+                                  eps=1e-6, **kw)
+
+    def lamb2(x, y, z, gg, **kw):            # u is m's buffer
+        return (ok.lamb_phase2_seg(x, y, ratio, spec, lr, **kw),)
+
+    kernels = {
+        "adam_seg": (adam, lambda x, y, z, gg, sg: ok._adam_seg_reference(
+            x, y, z, gg, adam_sc, 1e-8, True, wdt[sg], lrt[sg])),
+        "lamb_phase1_seg": (lamb1, lambda x, y, z, gg, sg:
+                            ok._lamb_phase1_reference(
+                                y, z, gg, x, lamb_sc, 1e-6,
+                                wd_rows=wdt[sg])),
+        "lamb_phase2_seg": (lamb2, lambda x, y, z, gg, sg: (
+            ok._lamb_phase2_reference(x, y, rt[sg], lr),))}
+    # the timed launches: the launchers alone, their scalars and tables
+    # made beforehand (the public functions add a few small kernels a
+    # call, which a quarter of the buffer no longer hides)
+    raw = {
+        "adam_seg": lambda x, y, z, gg, sg: ok.adam_flat_seg_triton(
+            x, y, z, gg, adam_sc, 1e-8, True, sg, wdt, lrt),
+        "lamb_phase1_seg": lambda x, y, z, gg, sg: ok.lamb_phase1_seg_triton(
+            y, z, gg, x, lamb_sc, 1e-6, sg, wdt),
+        "lamb_phase2_seg": lambda x, y, z, gg, sg: ok.lamb_phase2_seg_triton(
+            x, y, sg, rt, lr)}
+
+    def sl(r):
+        return slice(r * size, (r + 1) * size)
+
+    def at(r):
+        return {"row_offset": r * rows, "padded_total": n}
+
+    out = {"shards": VIRTUAL_SHARDS, "shard_elements": size,
+           "tensors_straddling_an_edge": straddle, "max_err": {},
+           "ms": {}}
+    for name, (launch, plain) in kernels.items():
+        whole = launch(p.clone(), m.clone(), v.clone(), g)
+        worst = 0.0
+        for r in range(VIRTUAL_SHARDS):
+            s_ = sl(r)
+            got = launch(p[s_].clone(), m[s_].clone(), v[s_].clone(), g[s_],
+                         **at(r))
+            ref = plain(p[s_], m[s_], v[s_], g[s_],
+                        seg_full[r * rows:(r + 1) * rows].long())
+            torch.cuda.synchronize()
+            for a, b, w in zip(got, ref, whole):
+                worst = max(worst, (a.float() - b.float()).abs().max().item())
+                check(torch.equal(a, b), f"{what} {name} shard {r}: not bit "
+                      f"for bit its plain version")
+                check(torch.equal(a, w[s_]), f"{what} {name} shard {r}: not "
+                      f"bit for bit the whole-buffer launch")
+            del got, ref
+        out["max_err"][name] = worst
+        del whole
+        # one shard's launch (rank 1) beside the whole buffer's
+        shard = [x[sl(1)].clone() for x in (p, m, v, g)]
+        full = [p.clone(), m.clone(), v.clone(), g]
+        seg1 = ok.shard_tables(spec, n // 128, rows, rows, dev)["seg"]
+        out["ms"][name] = {
+            "shard": time_ms(torch, lambda: raw[name](*shard, seg1), n=20,
+                             warm=2),
+            "whole": time_ms(torch, lambda: raw[name](*full, seg_full),
+                             n=20, warm=2)}
+        del shard, full
+        torch.cuda.empty_cache()
+    # the per-tensor sums of squares: the shards' partials in rank order
+    rels = []
+    for x in (p, m):
+        whole = ok.rows_sumsq_seg_triton(x, spec)
+        runs = []
+        for _ in range(2):
+            acc = torch.zeros_like(whole)
+            for r in range(VIRTUAL_SHARDS):
+                acc = acc + ok.per_tensor_sumsq_shard(x[sl(r)], spec, r, n)
+            runs.append(acc)
+        torch.cuda.synchronize()
+        check(torch.equal(runs[0], runs[1]), f"{what} per_tensor_sumsq_shard:"
+              f" two runs differ")
+        rels.append(((runs[0] - whole).abs()
+                     / whole.abs().clamp_min(1e-30)).max().item())
+        check(rels[-1] <= 1e-5, f"{what} per_tensor_sumsq_shard: max rel err "
+              f"{rels[-1]:.3e} vs the whole buffer")
+    out["max_err"]["rows_sumsq_seg_rel"] = max(rels)
+    xs = p[sl(1)].clone()
+    out["ms"]["rows_sumsq_seg"] = {
+        "shard": time_ms(torch, lambda: ok.rows_sumsq_seg_triton(
+            xs, spec, row_offset=rows, padded_total=n), n=20, warm=2),
+        "whole": time_ms(torch, lambda: ok.rows_sumsq_seg_triton(p, spec),
+                         n=20, warm=2)}
+    del p, m, v, g, xs
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero2_sweep_leg(torch, fa, ln, ok, warmup=2, steps=10):
+    """Slice 17 (a): bench.py's `_zero2_bucket_sweep` at full width.  GPT
+    (vocab 50304, hidden 1024, 8 layers, 16 heads, seq 1024) in bf16 with
+    bf16 logits and flash attention, batch 8, seed-0 weights, through
+    `ddp.make_train_step` with `DistributedFusedAdam(num_shards=1,
+    lr=1e-4, n_buckets, master_dtype=bf16)` on the one-rank NCCL group,
+    for n_buckets 1, 2 and 4: `warmup` + `steps` steps each (8 flash
+    forwards and backwards, 17 LayerNorm forwards and backwards and one
+    Adam launch a bucket a step), tokens/s and peak memory, a step with
+    no host sync; the last losses of n_buckets 2 and 4 within 5e-3
+    relative of n_buckets 1's (a step is not bit for bit repeatable on
+    the card, the embedding's backward adds by atomics, and each bucket's
+    leaves lie at other offsets of their gathered buffer, where cuBLAS
+    picks its kernels by the operands' alignment; two runs of n_buckets
+    1 ended 9.6e-5 apart, n_buckets 2 6.1e-4 from 1).  The optimizer alone, as tests/test_distributed_optimizers
+    .py:361 holds it: three steps of the same seeded bf16 grads at full
+    width (grad_sync_dtype bf16) give n_buckets 2 and 4 the params of
+    n_buckets 1 bit for bit, and those of FusedAdam(lr=1e-4, master
+    bf16).  Then three steps of FusedAdam, of FusedAdam again and of the
+    n_buckets 1 ZeRO optimizer through the same `make_train_step` from
+    the same weights: the ZeRO losses within 1e-3 relative of
+    FusedAdam's and its params within 0.1 of FusedAdam's update (L2),
+    beside FusedAdam's own run-to-run difference (the step is not bit for
+    bit repeatable: Adam turns the atomics' last-bit differences in
+    small grads into differences of up to lr a step)."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import DistributedFusedAdam, FusedAdam
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.parallel import ddp
+
+    bf16 = torch.bfloat16
+    batch, seq = 8, 1024
+    model = gpt_mod.GPT(gpt_mod.GPTConfig(
+        vocab_size=50304, seq_len=seq, hidden=1024, num_layers=8,
+        num_heads=16, dropout=0.0, dtype=bf16, logits_dtype=bf16,
+        use_flash_attention=True))
+    params = model.init(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+
+    def loss_fn(p, b):
+        return model.loss(p, b[0], b[1])
+
+    def carry_step(step):
+        def fn(state, b):
+            state, _, loss = step(state, None, b)
+            return state, loss
+        return fn
+
+    def zero(nb, **kw):
+        return DistributedFusedAdam(num_shards=1, lr=1e-4, n_buckets=nb,
+                                    master_dtype=bf16, **kw)
+
+    def leaves_of(opt, state):
+        leaves = (opt.full_leaves(state) if hasattr(opt, "full_leaves")
+                  else F.unflatten_leaves(state.params, opt.spec))
+        return [x.clone() for x in leaves]
+
+    out = {"config": "GPT vocab 50304, hidden 1024, 8 layers, 16 heads, "
+                     "seq 1024, batch 8, bf16 (bf16 logits), flash; "
+                     "DistributedFusedAdam(num_shards=1, lr=1e-4, "
+                     "master bf16) through ddp.make_train_step on a "
+                     "one-rank NCCL group",
+           "tokens_per_s": {}, "peak_mem_gib": {}, "step_ms": {},
+           "launches": {}, "losses": {}, "host_syncs_per_step": {}}
+    for nb in (1, 2, 4):
+        opt = zero(nb)
+        state = opt.init(params)
+        check(opt.shard_layout()["n_buckets"] == nb,
+              f"zero2: {opt.shard_layout()['n_buckets']} buckets, want {nb}")
+        step = carry_step(ddp.make_train_step(loss_fn, opt))
+        per_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8,
+                    "layer_norm_fwd": 17, "layer_norm_bwd": 17, "adam": nb,
+                    "adam_seg": 0}
+        state, res = train_loop(torch, fa, ln, ok, f"zero2 n_buckets={nb}",
+                                step, state, ((tokens, labels),), per_step,
+                                warmup, steps)
+        state, syncs = step_without_sync(torch, step, state,
+                                         (tokens, labels))
+        key = str(nb)
+        out["tokens_per_s"][key] = batch * seq * steps / res["window_s"]
+        out["peak_mem_gib"][key] = res["peak_mem_gib"]
+        out["step_ms"][key] = res["step_ms"]
+        out["launches"][key] = {k: res["launches"][k] for k in per_step}
+        out["losses"][key] = res["losses"]
+        out["host_syncs_per_step"][key] = len(syncs)
+        del state, opt, step
+        torch.cuda.empty_cache()
+    last = {k: v[-1] for k, v in out["losses"].items()}
+    out["last_loss_rel_diff_vs_1_bucket"] = {
+        k: abs(last[k] - last["1"]) / abs(last["1"]) for k in ("2", "4")}
+    check(max(out["last_loss_rel_diff_vs_1_bucket"].values()) <= 5e-3,
+          f"zero2: last losses by n_buckets {last}")
+
+    # the optimizer alone: the same seeded grads, three steps
+    ggen = torch.Generator(device="cuda").manual_seed(7)
+    grads = [torch.randn(leaf.shape, generator=ggen, device="cuda").to(bf16)
+             for leaf in F.tree_leaves(params)]
+    finals = {}
+    for name, opt in (("1", zero(1, grad_sync_dtype=bf16)),
+                      ("2", zero(2, grad_sync_dtype=bf16)),
+                      ("4", zero(4, grad_sync_dtype=bf16)),
+                      ("fused_adam", FusedAdam(lr=1e-4, master_dtype=bf16))):
+        state = opt.init(params)
+        for _ in range(3):
+            if hasattr(opt, "full_leaves"):
+                _, state = opt.step(state, grads, gather_params=False)
+            else:
+                _, state = opt.step(state, F.tree_from_leaves(opt.spec,
+                                                              grads))
+        finals[name] = leaves_of(opt, state)
+        del state, opt
+    same = {k: all(torch.equal(a, b) for a, b in zip(finals[k], finals["1"]))
+            for k in ("2", "4", "fused_adam")}
+    out["optimizer_alone_bit_for_bit_vs_1_bucket"] = same
+    check(all(same.values()), f"zero2: the optimizer alone, three steps of "
+          f"the same grads: bit for bit with n_buckets 1 {same}")
+    del finals, grads
+
+    def three_steps(opt):
+        state = opt.init(params)
+        step = ddp.make_train_step(loss_fn, opt)
+        p0 = leaves_of(opt, state)
+        losses = []
+        for _ in range(3):
+            state, _, loss = step(state, None, (tokens, labels))
+            losses.append(float(loss))
+        return p0, leaves_of(opt, state), losses
+
+    _, z, zl = three_steps(zero(1))
+    a0, a, al = three_steps(FusedAdam(lr=1e-4, master_dtype=bf16))
+    _, b, _ = three_steps(FusedAdam(lr=1e-4, master_dtype=bf16))
+    upd = sum((y.float() - x.float()).norm() ** 2
+              for x, y in zip(a0, a)).sqrt().item()
+
+    def rel(u, w):
+        return sum((x.float() - y.float()).norm() ** 2
+                   for x, y in zip(u, w)).sqrt().item() / max(upd, 1e-30)
+
+    vs = {"steps": 3, "losses_zero": zl, "losses_fused_adam": al,
+          "loss_rel_diff_max": max(abs(x - y) / abs(y)
+                                   for x, y in zip(zl, al)),
+          "params_diff_rel_to_update": rel(z, a),
+          "fused_adam_run_to_run_rel_to_update": rel(b, a),
+          "bit_for_bit": all(torch.equal(x, y) for x, y in zip(z, a))}
+    out["vs_fused_adam"] = vs
+    check(vs["loss_rel_diff_max"] <= 1e-3
+          and vs["params_diff_rel_to_update"] <= 0.1,
+          f"zero2: three steps against FusedAdam's {vs}")
+    del z, a, a0, b, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def microbatch_leg(torch, fa, ln, ok, warmup=1, steps=4):
+    """Slice 17 (b): phase 5's GPT-350M step (batch 12 x 1024, bf16, bf16
+    logits, flash, FusedAdam(lr=1e-4, master bf16)) through
+    `ddp.make_train_step(num_microbatches=4, main_grad_dtype=float32)` on
+    the one-rank NCCL group: four microbatches of 3 sequences a step,
+    their bf16 grads added into the persistent fp32 main-grad buffer and
+    divided by 4 after, one all-reduce of it, one Adam launch (96 flash
+    forwards and backwards and 196 LayerNorm forwards and backwards a
+    step).  The loss falls over the 5 steps, no host sync; tokens/s, peak
+    memory and one profiled step."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import ddp
+
+    bf16 = torch.bfloat16
+    batch, seq = 12, 1024
+    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=seq, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=True)
+    params = model.init(seed=0)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = opt.init(params)
+    del params
+    grad_dtypes = set()
+    step_flat = opt.step_flat
+
+    def recording(st, g_flat, **kw):
+        grad_dtypes.add(str(g_flat.dtype))
+        return step_flat(st, g_flat, **kw)
+
+    opt.step_flat = recording
+    step = ddp.make_train_step(lambda p, b: model.loss(p, b[0], b[1]), opt,
+                               num_microbatches=4,
+                               main_grad_dtype=torch.float32)
+
+    def carry(st, b):
+        st, _, loss = step(st, None, b)
+        return st, loss
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    per_step = {"flash_attention_fwd": 96, "flash_attention_bwd": 96,
+                "layer_norm_fwd": 196, "layer_norm_bwd": 196, "adam": 1}
+    state, res = train_loop(torch, fa, ln, ok, "GPT-350M 4 microbatches",
+                            carry, state, ((tokens, labels),), per_step,
+                            warmup, steps)
+    check(grad_dtypes == {"torch.float32"},
+          f"microbatch leg: the optimizer saw grads of {grad_dtypes}")
+    state, syncs = step_without_sync(torch, carry, state, (tokens, labels))
+    state, prof = profile_step(
+        torch, carry, state, ((tokens, labels),),
+        {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+         "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+         "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
+         "layer_norm_bwd": lambda k: "ln_bwd_" in k,
+         "adam": lambda k: k == "_adam_kernel"})
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return dict(res, config="GPT-350M bf16, batch 12 x seq 1024 as 4 "
+                "microbatches of 3, bf16 logits, flash, fp32 main grads, "
+                "FusedAdam(lr=1e-4, master bf16), ddp.make_train_step on a "
+                "one-rank NCCL group",
+                tokens_per_s=batch * seq * steps / res["window_s"],
+                host_syncs_per_step=len(syncs), grad_dtypes=sorted(
+                    grad_dtypes), profile=prof)
+
+
+def bf16_ulps(torch, a, b):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (the difference of their bit patterns mapped to ordered integers)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (key(a) - key(b)).abs()
+
+
+def lamb_alone_check(torch, ok, params, mask, zero_opt, steps=3):
+    """DistributedFusedLAMB's own math at full width against FusedLAMB's:
+    `steps` steps of `zero_opt()` (num_shards=1) and of FusedLAMB with the
+    same hyperparameters on the same seeded bf16 grads, at two scales:
+    grads of global norm below max_grad_norm (no clipping, so the clip
+    ratio is exactly 1 in both), and N(0, 1) grads, which clip.  Each
+    scale reports both global norms (FusedLAMB's ‖g‖ from `l2norm_flat`
+    of the bf16 buffer; the ZeRO step's √(Σ over ranks of ‖g_r‖²) of the
+    fp32 buffer, here one rank) and, for p, m and v after the steps,
+    whether they are bit for bit, how many elements differ and by how
+    many bf16 ULPs at most."""
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.optimizers import flat as F
+
+    ggen = torch.Generator(device="cuda").manual_seed(7)
+    unit = [torch.randn(leaf.shape, generator=ggen, device="cuda")
+            for leaf in F.tree_leaves(params)]
+    out = {}
+    for name, scale in (("unclipped", 1e-6), ("clipped", 1.0)):
+        grads = [(g * scale).to(torch.bfloat16) for g in unit]
+        zopt = zero_opt()
+        zstate = zopt.init(params)
+        fopt = FusedLAMB(lr=zopt.lr, weight_decay=zopt.weight_decay,
+                         master_dtype=zopt.master_dtype,
+                         wd_mask=zopt.wd_mask)
+        fstate = fopt.init(params)
+        tree = F.tree_from_leaves(fopt.spec, grads)
+        for _ in range(steps):
+            _, zstate = zopt.step(zstate, grads, gather_params=False)
+            _, fstate = fopt.step(fstate, tree)
+        (zg,) = zopt.flatten_grads(grads)
+        fg = F.flatten(tree, torch.bfloat16, pad_to=ok.FLAT_TILE,
+                       align=fopt.spec.align)
+        gz = torch.sqrt(torch.square(ok.l2norm_flat(zg))).item()
+        gf = ok.l2norm_flat(fg).item()
+        r = {"global_norm_zero": gz, "global_norm_fused_lamb": gf,
+             "global_norms_equal": gz == gf}
+        n = fstate.params.numel()
+        for key, z, f in (("p", zstate.params_shard, fstate.params),
+                          ("m", zstate.exp_avg, fstate.exp_avg),
+                          ("v", zstate.exp_avg_sq, fstate.exp_avg_sq)):
+            u = bf16_ulps(torch, z[:n], f)
+            r[key] = {"bit_for_bit": bool(torch.equal(z[:n], f)),
+                      "n_differ": int((u > 0).sum()),
+                      "max_ulps": int(u.max())}
+        out[name] = r
+        del zstate, fstate, zopt, fopt, grads, tree, zg, fg
+        torch.cuda.empty_cache()
+    out["n_elements"] = n
+    out["steps"] = steps
+    return out
+
+
+def zero_lamb_leg(torch, fa, ln, ok, warmup=1, steps=4):
+    """Slice 17 (c): phase 6's BERT-Large step (bf16, batch 32 x 512,
+    flash, MLM + NSP) with `DistributedFusedLAMB(num_shards=1, lr=1e-4,
+    weight_decay=0.01, master bf16, wd_mask=no-decay)` through
+    `ddp.make_train_step` on the one-rank NCCL group: each step one
+    reduce-scatter, one all-reduce of the grads' sum of squares, one
+    `lamb_phase1_seg` at the shard's offset, the per-tensor sums of
+    squares of p and u over the shard (two `rows_sumsq_seg` calls) and
+    their all-reduce, one `lamb_phase2_seg`, no host sync; seq/s and peak
+    memory.  The optimizer alone (`lamb_alone_check`): three steps of
+    the same seeded grads, clipped and not, bit for bit FusedLAMB's in
+    p, m and v.  Then two steps of it against two of phase 6's FusedLAMB
+    step (twice) from the same weights and batch: the losses within 1e-3
+    relative, the params' difference within three times FusedLAMB's own
+    run-to-run difference (L2, both relative to FusedLAMB's update; the
+    step is not bit for bit repeatable on the card, and two FusedLAMB
+    runs differ by 1.3 % of the update on an H100)."""
+    from apex_tpu_torch.models import bert as bert_mod
+    from apex_tpu_torch.optimizers import DistributedFusedLAMB, FusedLAMB
+    from apex_tpu_torch.parallel import ddp
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+    from apex_tpu_torch.transformer.training import make_tp_dp_train_step
+
+    bf16 = torch.bfloat16
+    cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16,
+                              use_flash_attention=True)
+    model = bert_mod.Bert(cfg)
+    params = model.init(seed=0)
+    mask = get_params_for_weight_decay_optimization(params)
+    tokens, labels = bert_data(torch, cfg, BERT_BATCH)
+
+    def loss_fn(p, b):
+        return model.loss(p, b[0], *b[1])
+
+    def zero_opt():
+        return DistributedFusedLAMB(num_shards=1, lr=1e-4, weight_decay=0.01,
+                                    master_dtype=bf16, wd_mask=mask)
+
+    opt = zero_opt()
+    state = opt.init(params)
+    step = ddp.make_train_step(loss_fn, opt)
+
+    def carry(st, b):
+        st, _, loss = step(st, None, b)
+        return st, loss
+
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "layer_norm_fwd": 50, "layer_norm_bwd": 50,
+                "lamb_phase1_seg": 1, "rows_sumsq_seg": 2,
+                "lamb_phase2_seg": 1, "lamb_phase1": 0}
+    state, res = train_loop(torch, fa, ln, ok, "BERT-Large ZeRO LAMB", carry,
+                            state, ((tokens, labels),), per_step, warmup,
+                            steps)
+    state, syncs = step_without_sync(torch, carry, state, (tokens, labels))
+    del state, opt, step
+    torch.cuda.empty_cache()
+    alone = lamb_alone_check(torch, ok, params, mask, zero_opt)
+    log("ZeRO LAMB vs FusedLAMB, the optimizer alone " + json.dumps(alone))
+    check(all(alone[c][k]["bit_for_bit"] for c in ("unclipped", "clipped")
+              for k in ("p", "m", "v")),
+          f"ZeRO LAMB vs FusedLAMB, the optimizer alone: {alone}")
+    # two steps of each from the same weights
+    zopt = zero_opt()
+    zstate = zopt.init(params)
+    zstep = ddp.make_train_step(loss_fn, zopt)
+    zl = []
+    for _ in range(2):
+        zstate, _, loss = zstep(zstate, None, (tokens, labels))
+        zl.append(float(loss))
+    zp = zstate.params_shard.clone()
+    del zstate, zopt, zstep
+
+    def fused_lamb_two_steps():
+        fopt = FusedLAMB(lr=1e-4, weight_decay=0.01, master_dtype=bf16,
+                         wd_mask=mask)
+        fstate = fopt.init(params)
+        p0 = fstate.params.clone()
+        fstep = make_tp_dp_train_step(
+            model, fopt, loss_fn=lambda p, t, lab: model.loss(p, t, *lab))
+        fl = []
+        for _ in range(2):
+            fstate, loss = fstep(fstate, tokens, labels)
+            fl.append(float(loss))
+        return p0, fstate.params, fl
+
+    p0, fp, fl = fused_lamb_two_steps()
+    _, fp2, _ = fused_lamb_two_steps()
+    zp = zp[:fp.numel()]
+    upd = (fp.float() - p0.float()).norm().item()
+    rel = (zp.float() - fp.float()).norm().item() / max(upd, 1e-30)
+    floor = (fp2.float() - fp.float()).norm().item() / max(upd, 1e-30)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(zl, fl))
+    vs = {"steps": 2, "losses_zero": zl, "losses_fused_lamb": fl,
+          "loss_rel_diff_max": loss_rel, "params_diff_rel_to_update": rel,
+          "fused_lamb_run_to_run_rel_to_update": floor,
+          "bit_for_bit": bool(torch.equal(zp, fp))}
+    check(loss_rel <= 1e-3 and rel <= 3 * floor,
+          f"ZeRO LAMB vs FusedLAMB: {vs}")
+    del fp, fp2, p0, zp, params
+    torch.cuda.empty_cache()
+    return dict(res, config="BERT-Large bf16, batch 32 x 512, flash, "
+                "DistributedFusedLAMB(num_shards=1, lr=1e-4, wd 0.01, "
+                "master bf16, no-decay wd_mask) through ddp.make_train_step "
+                "on a one-rank NCCL group",
+                seq_per_s=BERT_BATCH * steps / res["window_s"],
+                host_syncs_per_step=len(syncs), vs_fused_lamb=vs,
+                optimizer_alone=alone)
+
+
+SHARD_ROWS = {"adam_seg": ("GPT-350M", "adam_seg"),
+              "lamb_phase1_seg": ("BERT-Large", "lamb_phase1_seg"),
+              "rows_sumsq_seg": ("BERT-Large", "rows_sumsq_seg"),
+              "lamb_phase2_seg": ("BERT-Large", "lamb_phase2_seg")}
+
+
+def add_slice17_columns(rows, shards, slice17):
+    """The kernel table's slice-17 columns: the four segmented kernels'
+    shard offsets (one shard of four beside the whole buffer, phase 2)
+    and, on every row a slice-17 leg launched, its launches by leg."""
+    legs = {f"zero2 n_buckets={nb}": c for nb, c in
+            slice17["zero2_sweep"]["launches"].items()}
+    for leg in ("microbatches", "zero_lamb", "resnet_o2"):
+        legs[leg] = slice17[leg]["launches"]
+    for row in rows:
+        if row["name"] in SHARD_ROWS:
+            layout, key = SHARD_ROWS[row["name"]]
+            row["shard_offsets"] = "PR 17"
+            row["shard"] = dict(shards[layout]["ms"][key], layout=layout,
+                                shards=VIRTUAL_SHARDS)
+        by_leg = {leg: c[row["name"]] for leg, c in legs.items()
+                  if c.get(row["name"])}
+        if by_leg:
+            row["launches_slice17"] = by_leg
+
+
+def slice17_phase(torch, fa, ln, ok, xe, wf):
+    """Phase 14 (module docstring): the card as a torch.distributed NCCL
+    process group of one rank (an in-process HashStore: no network, no
+    file), the dp group of `parallel.mesh.initialize_model_parallel`
+    stated and checked as a world of one, and the four legs through it.
+    The group is torn down after."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group = mesh.initialize_model_parallel()
+        check(group is not None and dist.get_backend(group) == "nccl"
+              and mesh.get_data_parallel_world_size() == 1
+              and mesh.get_data_parallel_rank() == 0,
+              "slice 17: the dp group is not a one-rank NCCL group")
+        out = {"process_group": {"backend": dist.get_backend(group),
+                                 "world_size": dist.get_world_size(group)}}
+        out["zero2_sweep"] = zero2_sweep_leg(torch, fa, ln, ok)
+        log("slice 17 zero2 sweep " + json.dumps(out["zero2_sweep"]))
+        out["microbatches"] = microbatch_leg(torch, fa, ln, ok)
+        log("slice 17 microbatches " + json.dumps(out["microbatches"]))
+        out["zero_lamb"] = zero_lamb_leg(torch, fa, ln, ok)
+        log("slice 17 ZeRO LAMB " + json.dumps(out["zero_lamb"]))
+        o2, o2_vs_plain, _ = resnet_phase(torch, xe, wf, ok, opt_level="O2")
+        out["resnet_o2"] = dict(o2, vs_plain=o2_vs_plain)
+        log("slice 17 ResNet-50 O2 " + json.dumps(out["resnet_o2"]))
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    log(f"phase 14 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -4838,13 +5617,36 @@ def rate0_bits(root):
     return 0
 
 
+def resnet_steps_main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    from apex_tpu_torch import csrc
+    from apex_tpu_torch.ops import optimizer_kernels as ok
+    from apex_tpu_torch.ops import welford as wf
+    from apex_tpu_torch.ops import xentropy as xe
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), flush=True)
+    csrc.build(["welford"])
+    return resnet_steps_evidence(torch, xe, wf, ok)
+
+
 def main():
     """Pin the tuner's cache to a fresh file for the whole run (a cache
     elsewhere, e.g. under ~/.cache, must not change any phase's kernels;
     phase 11's sweep writes its winner there), then run the phases.
-    `--rate0-bits ROOT` runs `rate0_bits` instead."""
+    `--rate0-bits ROOT` runs `rate0_bits` instead, `--resnet-steps`
+    `resnet_steps_evidence`."""
     if sys.argv[1:2] == ["--rate0-bits"]:
         return rate0_bits(sys.argv[2])
+    if sys.argv[1:2] == ["--resnet-steps"]:
+        return resnet_steps_main()
     tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
     os.environ["APEX_TPU_TUNE_CACHE"] = os.path.join(tune_dir, "tune.json")
     os.environ.pop("APEX_TPU_TUNE", None)
@@ -5229,6 +6031,14 @@ def run_phases():
             f"err {e:.3e}")
         if dtype == bf16:
             errs["adam_seg"] = e
+    # slice 17: the segmented kernels at a ZeRO shard's row offset, four
+    # virtual shards of each layout launched one after another
+    shards = {name: check_virtual_shards(torch, ok, rng, *lay, name)
+              for name, lay in (("GPT-350M", gpt_layout),
+                                ("BERT-Large", layout))}
+    log("virtual shards (4 of each flat buffer, each launch bit for bit its "
+        "plain version, the concatenation the whole-buffer launch) "
+        + json.dumps(shards))
     # this slice's kernels: Adagrad over the GPT-350M buffer, the
     # per-element LAMB phase 2 over the BERT-Large buffer, the fused
     # dense GEMM at GPT-350M's MLP shapes, apex's run_mlp layers and
@@ -5421,7 +6231,11 @@ def run_phases():
     # ---- 13. slice 16: the watchdog and the overload leg -------------
     slice16_phase(torch, np, build_flagship_engine, phase3_tokens)
 
-    # ---- 14. kernel table --------------------------------------------
+    # ---- 14. slice 17: data parallelism and ZeRO-2 on one NCCL rank ------
+    slice17 = slice17_phase(torch, fa, ln, ok, xe, wf)
+    torch.cuda.empty_cache()
+
+    # ---- 15. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -5527,6 +6341,7 @@ def run_phases():
          "shape": "x (64,1024) bf16, affine", "l2": "warm"},
     ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
         + slice7_rows + slice8_rows + dropout_rows}
+    add_slice17_columns(table["kernels"], shards, slice17)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -387,12 +387,11 @@ def test_three_train_steps_match_jax(opt_level):
 
 
 def test_what_the_step_refuses():
-    """Accumulation, fp32 main grads and the monitor planes come with
-    later ROADMAP items; the entry points run on the card unless asked
-    for the CPU."""
+    """The monitor planes come with a later ROADMAP item (accumulation
+    and fp32 main grads are ported: tests/test_torch_ddp.py); the entry
+    points run on the card unless asked for the CPU."""
     opt = FusedSGD(lr=0.1)
-    for kw in ({"num_microbatches": 2}, {"main_grad_dtype": torch.float32},
-               {"metrics": True}, {"trace": True}):
+    for kw in ({"metrics": True}, {"trace": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ddp.make_train_step(lambda p, b: 0.0, opt, device="cpu", **kw)
     if not torch.cuda.is_available():

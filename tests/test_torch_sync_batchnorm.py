@@ -185,8 +185,11 @@ def test_module_facade_matches_the_function_and_updates_its_buffers():
 
 def test_convert_syncbn_model_and_merge_stats(monkeypatch):
     """convert_syncbn_model hands every SyncBatchNorm the group;
-    merge_stats is the identity on one device and refuses a group of
-    more than one rank (multi-GPU DP is a later ROADMAP item)."""
+    merge_stats is the identity without a group and, with one, merges
+    through one all-reduce (here a stand-in for two ranks holding the
+    same statistics: the merged mean and variance are theirs, the count
+    twice theirs).  Cross-rank merges with real gloo ranks:
+    tests/test_torch_ddp.py."""
     net = torch.nn.Sequential(S.SyncBatchNorm(3, device="cpu"),
                               torch.nn.Sequential(
                                   S.SyncBatchNorm(4, device="cpu")))
@@ -196,11 +199,18 @@ def test_convert_syncbn_model_and_merge_stats(monkeypatch):
                if isinstance(m, S.SyncBatchNorm))
     m, v = torch.ones(3), torch.full((3,), 2.0)
     assert W.merge_stats(m, v, 10) == (m, v, 10)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda g: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        W.merge_stats(m, v, 10, process_group=group)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda g: 1)
-    assert W.merge_stats(m, v, 10, process_group=group) == (m, v, 10)
+    calls = []
+
+    def two_equal_ranks(t, op=None, group=None, async_op=False):
+        calls.append(group)
+        return t.mul_(2)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", two_equal_ranks)
+    tm, tv, tn = W.merge_stats(m, v, 10, process_group=group)
+    assert calls == [group]
+    torch.testing.assert_close(tm, m)
+    torch.testing.assert_close(tv, v)
+    assert float(tn) == 20.0
 
 
 def test_channel_sums_kernel_wrapper_refuses_strided_input():
