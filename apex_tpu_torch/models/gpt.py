@@ -1,5 +1,6 @@
 """GPT — configuration, seeded init, the JAX-params converter and the
-training forward at tp=1 (counterpart of apex_tpu/models/gpt.py).
+tensor/sequence-parallel training forward (counterpart of
+apex_tpu/models/gpt.py).
 
 Parameters are a plain nested dict of tensors in the JAX package's
 layout and key names, so a checkpoint of either package maps onto the
@@ -17,12 +18,35 @@ other one name for one name:
 Linear weights stay (in, out), so every product reads `x @ w` exactly
 as the JAX package's `_dot` does.
 
-`GPT` is the training forward of the JAX package's `GPT` on one device
-(tp=1): activations are (S, B, H), attention is causal (the flash kernel
-with `use_flash_attention=True`, else the dense path: the S² scores,
-the fused causal softmax kernel, the probabilities times v), the MLP is
-fc1 → tanh-gelu → fc2, the LM head is the tied embedding and the loss is
-the mean vocab-parallel cross entropy.
+`GPT` is the training forward of the JAX package's `GPT`: activations
+are (S, B, H), attention is causal (the flash kernel with
+`use_flash_attention=True`, else the dense path: the S² scores, the
+fused causal softmax kernel, the probabilities times v), the MLP is fc1
+→ tanh-gelu → fc2, the LM head is the tied embedding and the loss is the
+mean vocab-parallel cross entropy.
+
+Tensor parallelism (apex_tpu/models/gpt.py:185-208, 216-290, 323-346)
+runs over the tp group of `parallel.mesh` (none: tp = 1).  Each rank
+holds its shard of the parameters (`partition_specs()`, a dim index or
+None per leaf; `params_from_jax(..., tp_rank, tp_size)` cuts it from the
+JAX tree): qkv and fc1 column-parallel, proj and fc2 row-parallel, the
+embedding (and so the tied LM head) vocab-parallel.  The attention sees
+num_heads / tp heads: the rank's contiguous 3H/tp columns of the packed
+qkv split three ways, as the JAX package splits its shard.  Under
+`sequence_parallel` the activations between the TP regions are sharded
+along the sequence: the embedding's output and the positions are
+scattered, and the LM head re-gathers the sequence (the gather's
+backward reduce-scatter sums the vocab shards' partial gradients, so no
+`copy_to` follows it, as in Megatron's `parallel_lm_logits`; the JAX
+package applies both, which scales the trunk's gradients by tp).  The
+LayerNorm params and the row-parallel biases, replicated and read by
+sequence-sharded regions, get partial gradients on each rank: they pass
+together through `copy_to_tensor_model_parallel_region_many`, one tp
+all-reduce a step where the JAX package has a `copy_to` each.
+`overlap_chunks` reaches the TP layers (`parallel/overlap.py`: None asks
+the tuner at tp > 1, 1 on a miss or at one rank).  The JAX package's
+`GPTPipelined` comes with pipeline parallelism (ROADMAP Queue 1 item
+14).
 
 Dropout (`GPTConfig.dropout`) applies when `apply` / `loss` get a key, a
 `torch.Generator`, as in the JAX package: on the attention weights (the
@@ -59,6 +83,13 @@ from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.softmax import scaled_upper_triang_masked_softmax
+from apex_tpu_torch.parallel.collectives import (
+    copy_to_tensor_model_parallel_region,
+    copy_to_tensor_model_parallel_region_many,
+    gather_from_sequence_parallel_region,
+    scatter_to_sequence_parallel_region,
+)
+from apex_tpu_torch.parallel.mesh import TP_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -66,6 +97,7 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    shard_tree,
 )
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     fold_in,
@@ -82,6 +114,11 @@ _DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                       torch.ops.aten.addmm.default,
                       torch.ops.aten.baddbmm.default})
 
+# the replicated leaves of a block that sequence parallelism leaves with
+# partial gradients
+_SP_SUMMED = (("ln1", "weight"), ("ln1", "bias"), ("ln2", "weight"),
+              ("ln2", "bias"), ("proj", "bias"), ("fc2", "bias"))
+
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
@@ -96,6 +133,7 @@ class GPTConfig:
     # LM-head logits dtype: None keeps fp32 logits; bf16 halves the
     # (S, B, V) traffic (the cross entropy upcasts inside either way)
     logits_dtype: Optional[torch.dtype] = None
+    sequence_parallel: bool = False
     use_flash_attention: bool = False
     # flash attention's kernel-shape knobs (the JAX package's fields).
     # All None: the flash kernel consults the tuner (apex_tpu_torch.tune)
@@ -107,6 +145,10 @@ class GPTConfig:
     attn_block_q: Any = None
     attn_block_k: Any = None
     attn_heads_per_step: Any = None
+    # the TP layers' chunked compute/collective overlap depth
+    # (parallel/overlap.py): None asks the tuner (`overlap_chunks`, 1 on
+    # a miss: the monolithic spelling), an int forces it
+    overlap_chunks: Any = None
     remat: bool = False            # activation checkpointing per block
     # what the per-block checkpoint may keep (the JAX package's dial):
     #   None        — keep nothing, recompute the whole block
@@ -116,6 +158,7 @@ class GPTConfig:
     # the cross entropy's backward (the JAX package's field): None picks
     # the fused one iff the logits are not fp32, True / False force it
     fused_xent: Any = None
+    axis_name: str = TP_AXIS
 
     @property
     def head_dim(self):
@@ -169,13 +212,30 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def partition_specs(cfg: GPTConfig) -> dict:
+    """The tp dim of every leaf of `init_gpt_params` (None: replicated)
+    ≡ the JAX package's `GPT.partition_specs`."""
+    col = {"weight": 1, "bias": 0}
+    row = {"weight": 0, "bias": None}
+    ln = {"weight": None, "bias": None}
+    specs = {"embed": {"weight": 0}, "pos_embed": None, "final_ln": dict(ln)}
+    for i in range(cfg.num_layers):
+        specs[f"block{i}"] = {"ln1": dict(ln), "qkv": dict(col),
+                              "proj": dict(row), "ln2": dict(ln),
+                              "fc1": dict(col), "fc2": dict(row)}
+    return specs
+
+
 def params_from_jax(tree: Mapping[str, Any], device=None,
-                    dtype: Optional[torch.dtype] = None) -> dict:
+                    dtype: Optional[torch.dtype] = None, *,
+                    tp_rank: int = 0, tp_size: int = 1) -> dict:
     """The JAX package's GPT parameter pytree, given as nested dicts of
     numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`),
     as the port's parameters on `device`: same keys, same layouts
     (Linear weights (in, out), embedding (V, H)).  `dtype` casts every
-    leaf; None keeps each array's own float type."""
+    leaf; None keeps each array's own float type.  With `tp_size` > 1,
+    tp rank `tp_rank`'s shards, each leaf cut along its
+    `partition_specs` dim (the shard `shard_map` hands that rank)."""
     dev = resolve_device(device)
 
     def convert(x):
@@ -190,7 +250,12 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
             t = t.to(dtype)
         return t.to(dev)
 
-    return convert(tree)
+    params = convert(tree)
+    if tp_size == 1:
+        return params
+    n_layers = sum(k.startswith("block") for k in params)
+    return shard_tree(params, partition_specs(GPTConfig(num_layers=n_layers)),
+                      tp_rank, tp_size)
 
 
 def _remat_names(policy) -> Optional[tuple]:
@@ -209,9 +274,9 @@ def _remat_names(policy) -> Optional[tuple]:
 
 
 class GPT:
-    """The GPT LM's training forward on one device ≡ the JAX package's
-    `GPT` at tp=1, over the nested parameter dict of `init_gpt_params` /
-    `params_from_jax`.
+    """The GPT LM's training forward ≡ the JAX package's `GPT`, over the
+    nested parameter dict of `init_gpt_params` / `params_from_jax` (this
+    tp rank's shards of it; module docstring).
 
     Attention follows `use_flash_attention`: the flash kernel, or (the
     default, as in the JAX package) the dense path through the causal
@@ -227,18 +292,53 @@ class GPT:
         # the tag `_cn` has just named, read by the "names:" policy
         self._pending_tag = None
         h, f = c.hidden, c.ffn_mult * c.hidden
-        self.embed = VocabParallelEmbedding(c.vocab_size, h)
-        self.blocks = [(ColumnParallelLinear(h, 3 * h),
-                        RowParallelLinear(h, h),
-                        ColumnParallelLinear(h, f),
-                        RowParallelLinear(f, h))
+        tp = dict(sequence_parallel=c.sequence_parallel,
+                  axis_name=c.axis_name, overlap_chunks=c.overlap_chunks)
+        self.embed = VocabParallelEmbedding(
+            c.vocab_size, h, axis_name=c.axis_name,
+            sequence_parallel=c.sequence_parallel)
+        # `_row` adds the row-parallel biases (summed over tp under
+        # sequence parallelism by `_sp_summed`)
+        self.blocks = [(ColumnParallelLinear(h, 3 * h, **tp),
+                        RowParallelLinear(h, h, bias=False, **tp),
+                        ColumnParallelLinear(h, f, **tp),
+                        RowParallelLinear(f, h, bias=False, **tp))
                        for _ in range(c.num_layers)]
 
     def init(self, seed: int = 0, device=None) -> dict:
+        """The whole (global) parameters; `init_sharded_optimizer` keeps
+        this rank's shards of them."""
         return init_gpt_params(self.c, seed, device)
 
-    def _ln(self, p, x):
-        return fused_layer_norm(x, p["weight"], p["bias"])
+    def partition_specs(self) -> dict:
+        """The tp dim of every leaf (None: replicated)."""
+        return partition_specs(self.c)
+
+    def _sp_summed(self, params):
+        """`params` with the replicated leaves that sequence-sharded
+        regions read (`_SP_SUMMED` and the final LayerNorm's) through one
+        `copy_to_tensor_model_parallel_region_many`: their gradients,
+        partial sums on each rank, summed over tp by one all-reduce."""
+        c = self.c
+        out = dict(params, final_ln=dict(params["final_ln"]))
+        slots = [(out["final_ln"], "weight"), (out["final_ln"], "bias")]
+        for i in range(c.num_layers):
+            blk = out[f"block{i}"] = dict(params[f"block{i}"])
+            for m in {m for m, _ in _SP_SUMMED}:
+                blk[m] = dict(blk[m])
+            slots += [(blk[m], k) for m, k in _SP_SUMMED]
+        leaves = copy_to_tensor_model_parallel_region_many(
+            [d[k] for d, k in slots], c.axis_name)
+        for (d, k), leaf in zip(slots, leaves):
+            d[k] = leaf
+        return out
+
+    @staticmethod
+    def _row(mod, p, x):
+        """A row-parallel layer, its bias added after the reduction as
+        `RowParallelLinear` adds it."""
+        y = mod.apply(p, x)
+        return y + p["bias"].to(y.dtype)
 
     def _dropout(self, key, x):
         return _common.dropout(key, self.c.dropout, x)
@@ -255,13 +355,15 @@ class GPT:
         return torch.ops.aten.alias.default(x)
 
     def _attention(self, bp, qkv_mod, proj_mod, x, key=None):
-        """x: (S, B, H) → attention output (S, B, H); `key`: the
-        attention weights' dropout key (None: no dropout)."""
+        """x: (S[/tp], B, H) → attention output (S[/tp], B, H), the heads
+        sharded over tp; `key`: the attention weights' dropout key (None:
+        no dropout)."""
         c = self.c
-        s, b, _ = x.shape
-        qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
+        qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H/tp)
         qkv = self._cn(qkv, "qkv")
-        q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
+        s, b, _ = qkv.shape
+        q, k, v = qkv_split_heads(qkv, qkv.shape[-1] // (3 * c.head_dim),
+                                  c.head_dim)
         scale = 1.0 / math.sqrt(c.head_dim)
         if c.use_flash_attention:
             rate = c.dropout if key is not None else 0.0
@@ -279,9 +381,9 @@ class GPT:
                 scores.reshape(-1, s, s), scale).reshape(scores.shape)
             probs = self._dropout(key, probs)
             ctx = torch.matmul(probs, v)                   # (B, nh, S, d)
-        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H/tp)
         ctx = self._cn(ctx, "attn_ctx")
-        return proj_mod.apply(bp["proj"], ctx)
+        return self._row(proj_mod, bp["proj"], ctx)
 
     def _block(self, i, params, x, key=None):
         """ln1 → qkv → split heads → attention → proj → dropout →
@@ -292,15 +394,17 @@ class GPT:
         k1 = k2 = k3 = None
         if key is not None:
             k1, k2, k3 = split(key, 3)
-        h = self._ln(params["ln1"], x)
+        ln = params["ln1"]
+        h = fused_layer_norm(x, ln["weight"], ln["bias"])
         attn = self._attention(params, qkv_mod, proj_mod, h, k1)
         attn = self._cn(attn, "attn_out")
         x = x + self._dropout(k2, attn)
-        h = self._ln(params["ln2"], x)
+        ln = params["ln2"]
+        h = fused_layer_norm(x, ln["weight"], ln["bias"])
         m = fc1.apply(params["fc1"], h)
         m = self._cn(m, "ffn1")
         m = F.gelu(m, approximate="tanh")
-        m = fc2.apply(params["fc2"], m)
+        m = self._row(fc2, params["fc2"], m)
         m = self._cn(m, "ffn_out")
         return x + self._dropout(k3, m)
 
@@ -337,19 +441,23 @@ class GPT:
             "expected None, 'dots', or 'names:...'")
 
     def apply(self, params, tokens, key=None):
-        """tokens: (B, S) int ids → final hidden states (S, B, H); `key`
-        (a `torch.Generator`, or None for no dropout): folded with the tp
-        rank, then with each layer's index, before the layer (and its
-        checkpoint) runs."""
+        """tokens: (B, S) global int ids (replicated over tp) → final
+        hidden states (S[/tp], B, H); `key` (a `torch.Generator`, or None
+        for no dropout): folded with the tp rank, then with each layer's
+        index, before the layer (and its checkpoint) runs."""
         from torch.utils.checkpoint import checkpoint
 
         c = self.c
         ckpt = self._remat_kwargs() if c.remat else None
-        h = self.embed.apply(params["embed"], tokens.T)    # (S, B, H)
+        if c.sequence_parallel:
+            params = self._sp_summed(params)
+        h = self.embed.apply(params["embed"], tokens.T)    # (S[/tp], B, H)
         pos = params["pos_embed"][:tokens.shape[1]][:, None, :]
+        if c.sequence_parallel:
+            pos = scatter_to_sequence_parallel_region(pos, c.axis_name)
         h = h + pos.to(h.dtype)
         if key is not None:
-            key = model_parallel_fold_in(key)
+            key = model_parallel_fold_in(key, c.axis_name)
         for i in range(c.num_layers):
             bk = None if key is None else fold_in(key, i)
             if ckpt is None:
@@ -359,11 +467,20 @@ class GPT:
                                params[f"block{i}"], h, bk,
                                use_reentrant=False, preserve_rng_state=False,
                                **ckpt)
-        return self._ln(params["final_ln"], h)
+        ln = params["final_ln"]
+        return fused_layer_norm(h, ln["weight"], ln["bias"])
 
     def logits_local(self, params, h):
-        """Tied-embedding LM head: (S, B, V) logits, the fp32-accumulated
-        product rounded once to `logits_dtype` (fp32 when None)."""
+        """Tied-embedding LM head: (S, B, V/tp) vocab-sharded logits, the
+        fp32-accumulated product rounded once to `logits_dtype` (fp32
+        when None).  Under sequence parallelism the hidden states are
+        re-gathered first, and the gather's backward sums the gradient over
+        tp; without it `copy_to` does."""
+        c = self.c
+        if c.sequence_parallel:
+            h = gather_from_sequence_parallel_region(h, c.axis_name)
+        else:
+            h = copy_to_tensor_model_parallel_region(h, c.axis_name)
         w = params["embed"]["weight"]
         out_dtype = self.c.logits_dtype or torch.float32
         if out_dtype == h.dtype:
@@ -373,8 +490,9 @@ class GPT:
     def loss(self, params, tokens, labels, key=None):
         """Mean LM loss; tokens/labels (B, S); `key` as `apply` takes it."""
         h = self.apply(params, tokens, key)
-        logits = self.logits_local(params, h)              # (S, B, V)
+        logits = self.logits_local(params, h)              # (S, B, V/tp)
         loss = vocab_parallel_cross_entropy(logits, labels.T,
+                                            axis_name=self.c.axis_name,
                                             fused=self.c.fused_xent)
         return torch.mean(loss)
 

@@ -1,11 +1,14 @@
-"""apex_tpu_torch.parallel — data-parallel utilities (counterpart of
-apex_tpu.parallel): the process groups of `mesh` (data parallelism; tp,
-pp, cp and ep come with later ROADMAP items), the data-parallel train
-step and gradient sync of `ddp`, the batch norm of `sync_batchnorm`
-(statistics merged across a process group), the `larc` optimizer
-wrapper, `clip_grad` and the `multiproc` launcher."""
+"""apex_tpu_torch.parallel — distributed utilities (counterpart of
+apex_tpu.parallel): the process groups of `mesh` (data and tensor
+parallelism; pp, cp and ep come with later ROADMAP items), the Megatron
+region collectives of `collectives`, the chunked compute/collective
+overlap of `overlap`, the data-parallel train step and gradient sync of
+`ddp`, the batch norm of `sync_batchnorm` (statistics merged across a
+process group), the `larc` optimizer wrapper, `clip_grad` and the
+`multiproc` launcher."""
 
-_LAZY = {"ddp", "sync_batchnorm", "larc", "clip_grad", "mesh", "multiproc"}
+_LAZY = {"ddp", "sync_batchnorm", "larc", "clip_grad", "mesh", "multiproc",
+         "collectives", "overlap"}
 
 
 def __getattr__(name):

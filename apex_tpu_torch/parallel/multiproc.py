@@ -10,8 +10,10 @@ Each child gets, beside the caller's environment:
                            launcher makes and removes, or --init-method)
     APEX_TPU_NUM_PROCESSES the world size
     APEX_TPU_PROCESS_ID    this process's rank
-and calls `init_from_env()` first, which joins the process group: gloo
-on the CPU, NCCL when the script asks for the card.
+and calls `init_from_env()` first, which joins the process group: NCCL
+on the card by default, as every entry point of the port runs there
+unless asked for the CPU; gloo when the script asks for the CPU
+(`init_from_env("cpu")`).
 
 Failure semantics: the children are polled together (`wait_fleet`).
 The first nonzero exit is the launcher's return code; the surviving
@@ -29,19 +31,27 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 __all__ = ["main", "init_from_env", "wait_fleet"]
 
 
-def init_from_env(device: str = "cpu") -> bool:
+def init_from_env(device: Optional[str] = None) -> bool:
     """Child side: join the process group the launcher's variables name
     (≡ `init_process_group(init_method='env://')` in the reference's
-    scripts): gloo for `device="cpu"`, NCCL for `device="cuda"`, each
-    rank on card `rank % device_count()`.  Returns False, doing nothing,
-    when the launcher's variables are absent (a single-process run)."""
+    scripts): NCCL on the card by default (`device` None or "cuda", each
+    rank on card `rank % device_count()`; without CUDA it raises, as
+    `ops._common.resolve_device` does), gloo for `device="cpu"`.
+    Returns False, doing nothing, when the launcher's variables are
+    absent (a single-process run)."""
     import torch
     import torch.distributed as dist
 
+    from apex_tpu_torch.ops._common import resolve_device
+
+    if device not in (None, "cpu", "cuda"):
+        raise ValueError(f"device must be None, 'cpu' or 'cuda', got "
+                         f"{device!r}")
     init = os.environ.get("APEX_TPU_INIT_METHOD")
     if not init:
         return False
@@ -49,15 +59,11 @@ def init_from_env(device: str = "cpu") -> bool:
     world = int(os.environ["APEX_TPU_NUM_PROCESSES"])
     if device == "cpu":
         backend, kw = "gloo", {}
-    elif device == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("init_from_env(device='cuda'): CUDA is not "
-                               "available")
+    else:
+        resolve_device(device)         # the card, or raise
         card = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(card)
         backend, kw = "nccl", {"device_id": card}
-    else:
-        raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
     dist.init_process_group(backend, init_method=init, world_size=world,
                             rank=rank, **kw)
     return True

@@ -13,11 +13,12 @@ its generators from a key handed in gets the same generators, and so
 the same bits, both times.  Only a consumer (a dropout mask, the flash
 kernels' seed) draws, from a generator it derived itself.
 
-Tensor parallelism is tp=1 in the port: `model_parallel_fold_in` folds
-in the rank it is given (0), and the distributed activation storage
+Tensor parallelism (apex_tpu/transformer/tensor_parallel/random.py:
+33-159): `model_parallel_fold_in` folds in this process's rank in the tp
+group of `parallel.mesh` (0 without one), so the tp ranks draw different
+dropout masks from one key, and the distributed activation storage
 (`split_tensor_into_1d_equal_chunks`, `gather_split_1d_tensor`,
-`checkpoint_with_distributed_saved_activations`) runs at one rank and
-refuses more, until TP > 1 comes (ROADMAP Queue 1 item 13).
+`checkpoint_with_distributed_saved_activations`) runs over that group.
 """
 
 from __future__ import annotations
@@ -27,6 +28,9 @@ from typing import Optional
 
 import torch
 import torch.utils.checkpoint as _ckpt
+
+from apex_tpu_torch.parallel import mesh as M
+from apex_tpu_torch.parallel.mesh import TP_AXIS
 
 _MODEL_PARALLEL_RNG = "model-parallel-rng"
 
@@ -54,11 +58,11 @@ def split(key: torch.Generator, num: int = 2) -> list:
     return [_derive(key, 1, i) for i in range(num)]
 
 
-def model_parallel_fold_in(key: torch.Generator, tp_rank: int = 0):
+def model_parallel_fold_in(key: torch.Generator, axis_name: str = TP_AXIS):
     """Per-tp-rank key ≡ seed + 2718 + tp_rank (the JAX package's
     `model_parallel_fold_in`, there `lax.axis_index` of the tp axis; here
-    the rank, 0 at tp=1)."""
-    return fold_in(key, 2718 + tp_rank)
+    this process's rank in the tp group, 0 without one)."""
+    return fold_in(key, 2718 + M.group_rank(M.group_of(axis_name)))
 
 
 class RNGStatesTracker:
@@ -128,41 +132,49 @@ def checkpoint(fn, *args, policy=None, **kw):
                             preserve_rng_state=False, **extra, **kw)
 
 
-def _one_rank(what: str, world_size: int):
-    if world_size != 1:
-        raise NotImplementedError(
-            f"{what} over {world_size} tensor-parallel ranks comes with "
-            "TP > 1, ROADMAP Queue 1 item 13")
-
-
-def split_tensor_into_1d_equal_chunks(x, world_size: int = 1, rank: int = 0):
-    """This rank's share of the flattened activation (the JAX package's,
-    over the tp axis): at tp=1, all of it."""
-    _one_rank("split_tensor_into_1d_equal_chunks", world_size)
+def split_tensor_into_1d_equal_chunks(x, axis_name: str = TP_AXIS):
+    """This rank's share of the flattened activation over the tp group
+    (all of it without one); a size the group does not divide raises."""
+    group = M.group_of(axis_name)
+    n = M.group_size(group)
     flat = x.reshape(-1)
-    per = flat.shape[0] // world_size
-    return flat[rank * per:(rank + 1) * per]
+    if flat.shape[0] % n:
+        raise ValueError(f"split_tensor_into_1d_equal_chunks: {flat.shape[0]}"
+                         f" elements are not divisible by {n} ranks")
+    per = flat.shape[0] // n
+    return flat[M.group_rank(group) * per:(M.group_rank(group) + 1) * per]
 
 
-def gather_split_1d_tensor(chunk, world_size: int = 1):
-    """The inverse gather: at tp=1, the chunk itself."""
-    _one_rank("gather_split_1d_tensor", world_size)
-    return chunk
+def gather_split_1d_tensor(chunk, axis_name: str = TP_AXIS):
+    """The inverse gather: every rank's chunk in rank order (its
+    gradient is the reduce-scatter, the JAX `all_gather`'s transpose)."""
+    from apex_tpu_torch.parallel.collectives import (
+        gather_from_sequence_parallel_region)
+
+    return gather_from_sequence_parallel_region(chunk, axis_name)
 
 
-def checkpoint_with_distributed_saved_activations(fn, world_size: int = 1):
+def checkpoint_with_distributed_saved_activations(fn,
+                                                  axis_name: str = TP_AXIS):
     """Returns g(x, *args) ≡ checkpoint(fn)(x, *args) that keeps this
-    rank's 1/tp share of `x` for the backward and gathers it back when
-    the backward recomputes; at tp=1 the share is all of `x`."""
-    _one_rank("checkpoint_with_distributed_saved_activations", world_size)
+    rank's 1/tp share of `x` for the backward and all-gathers it back
+    when the backward recomputes.  The split and the gather are the
+    Megatron pairs (split forward / gather backward outside, gather
+    forward / split backward inside), which keep the gradient of a
+    replicated `x` exact."""
+    from apex_tpu_torch.parallel.collectives import (
+        gather_from_sequence_parallel_region_no_tp_grad,
+        scatter_to_sequence_parallel_region)
 
     def g(x, *args):
-        chunk = split_tensor_into_1d_equal_chunks(x, world_size)
-        shape = x.shape
+        chunk = scatter_to_sequence_parallel_region(x.reshape(-1, 1),
+                                                    axis_name)
+        shape, dtype = x.shape, x.dtype
 
         def inner(ck, *a):
-            return fn(gather_split_1d_tensor(ck, world_size).reshape(shape),
-                      *a)
+            full = gather_from_sequence_parallel_region_no_tp_grad(
+                ck, axis_name)
+            return fn(full.reshape(shape).to(dtype), *a)
 
         return checkpoint(inner, chunk, *args)
 

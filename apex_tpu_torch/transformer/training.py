@@ -1,5 +1,5 @@
-"""The training step on one device (counterpart of
-apex_tpu/transformer/training.py, at a 1x1x1 mesh).
+"""The tensor- and data-parallel training step (counterpart of
+apex_tpu/transformer/training.py:33-160).
 
 The optimizer state owns the parameters: its flat buffer is the master
 copy and the model reads its weights as views into it (`flat.unflatten`
@@ -10,8 +10,15 @@ optimizer pass (`step_flat`) that updates the buffers in place.  No
 `torch.cuda.synchronize()` and no `.item()` inside the step: the loss
 comes back as a device tensor.
 
-Data parallelism (dp-mean of the grads), tensor/pipeline parallelism
-and the mesh come with later ROADMAP slices.
+Across ranks the groups are `parallel.mesh`'s (tp innermost, as the
+JAX mesh is laid out).  Each rank's optimizer state holds its tp shard
+of the parameters (`init_sharded_optimizer` cuts it by the model's
+`partition_specs()`), so rank r's flat buffer is the JAX package's
+state rows [r·L, (r+1)·L) of its `P(("pp", "tp"))` buffer.  The model's
+tp collectives run inside autograd; the flat gradient is averaged over
+the dp group (one all-reduce), and so is the returned loss.  Without a
+mesh and without torch.distributed this is the single-device step.
+Pipeline parallelism comes with ROADMAP Queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import torch
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
 from apex_tpu_torch.optimizers import flat as F
+from apex_tpu_torch.parallel import mesh as M
+from apex_tpu_torch.transformer.tensor_parallel.layers import shard_tree
 
 
 def _to_device(tree, dev):
@@ -38,8 +47,16 @@ def _to_device(tree, dev):
 
 
 def init_sharded_optimizer(optimizer, model, params):
-    """Optimizer state over the parameters (one device: nothing is
-    sharded).  The state holds its own copy of `params`."""
+    """Optimizer state over this rank's shards of the global `params`
+    (the JAX package's: it takes the global tree and `shard_map` hands
+    each rank its shard), cut by `model.partition_specs()` over the tp
+    group; without one, over all of them.  The state holds its own copy
+    of the parameters."""
+    group = M.group_of(M.TP_AXIS)
+    size = M.group_size(group)
+    if size > 1:
+        params = shard_tree(params, model.partition_specs(),
+                            M.group_rank(group), size)
     return optimizer.init(params)
 
 
@@ -50,8 +67,13 @@ def make_tp_dp_train_step(model, optimizer, *,
     `loss_fn(params, tokens, labels)` defaults to `model.loss`; `labels`
     may be a tensor or a tuple or list of tensors (BERT passes
     (mlm_labels, loss_mask, nsp_labels)), moved to the device as it is.
-    The step runs on `device`: the card unless the caller asks for the
-    CPU (`device="cpu"`, the plain versions of the kernels)."""
+    `tokens` and `labels` are this rank's share of the batch (the dp
+    group splits it; the tp ranks of a dp rank see the same).  The step
+    takes per-leaf gradients of the local loss, averages them over the
+    dp group of `parallel.mesh` (the world without a mesh; none without
+    torch.distributed), and makes one fused optimizer pass over the
+    rank's shard.  It runs on `device`: the card unless the caller asks
+    for the CPU (`device="cpu"`, the plain versions of the kernels)."""
     dev = resolve_device(device)
     lf = loss_fn or model.loss
 
@@ -76,7 +98,16 @@ def make_tp_dp_train_step(model, optimizer, *,
         g_flat = F.flatten(list(grads), gdt, pad_to=FLAT_TILE,
                            align=spec.align)
         del grads
+        group = M.data_parallel_group()
+        dp = M.group_size(group)
+        loss = loss.detach()
+        if group is not None:
+            M.all_reduce(g_flat, "sum", group)
+            loss = M.all_reduce(loss.clone(), "sum", group)
+            if dp > 1:
+                g_flat.div_(dp)
+                loss = loss / dp
         _, new_state = optimizer.step_flat(opt_state, g_flat)
-        return new_state, loss.detach()
+        return new_state, loss
 
     return step

@@ -17,9 +17,11 @@ Three pieces, as in the JAX package:
               the winner.
 
 What the port tunes: flash attention's `heads_per_step`
-(ops/flash_attention.py; the CUDA kernels' tiles stay as they are), and the serving
+(ops/flash_attention.py; the CUDA kernels' tiles stay as they are), the serving
 path's `flash_decode` heads_per_step (validated; the decode kernel's
-kv heads a block) and paged-KV page size (`serve_page`).  The key
+kv heads a block) and paged-KV page size (`serve_page`), and the TP
+layers' `overlap_chunks` (parallel/overlap.py; no entry is committed:
+one card cannot measure an overlap across cards).  The key
 functions below are the JAX package's, all of them, so keys written by
 either package are read by the other; the row-block and flat-optimizer
 axes (`tuned_row_block`, `opt_flat`) are not consulted: the softmax,
@@ -102,8 +104,9 @@ def serve_page_attrs(n_kv_heads, head_dim, dtype):
 
 
 def overlap_attrs(path, rows, width, axis_size, dtype):
-    """The `overlap_chunks` lookup-key attrs (the JAX package's chunked
-    compute/collective overlap; no consumer in the port yet); rows
+    """The `overlap_chunks` lookup-key attrs, asked by the TP layers'
+    `parallel.overlap.layer_chunks` when no chunk count is forced (the
+    JAX package's chunked compute/collective overlap); rows
     pow2-bucketed."""
     return dict(path=str(path), rows=pow2_bucket(rows), width=int(width),
                 ax=int(axis_size), dtype=dtype_name(dtype))

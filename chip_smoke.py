@@ -303,7 +303,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  buffer): as phase 7, with a two-step kernels-vs-plain
                  comparison whose second step is held to the drift of
                  the plain versions from a master nudged one ULP.
- 15. table       the kernels' times on the card (CUDA events) beside
+ 15. slice 18    the card as a one-rank NCCL group again, the tp and dp
+                 groups of `initialize_model_parallel(
+                 tensor_model_parallel_size=1)` checked as one-rank NCCL
+                 groups.  (a) bench.py's `_overlap_measure` cut from
+                 tp = 2 to tp = 1 by the box: phase 5's GPT-350M (bf16,
+                 bf16 logits, flash, FusedAdam(lr=1e-4, master bf16))
+                 with sequence_parallel=True through
+                 `make_tp_dp_train_step`, at overlap_chunks 1 and 2, 3 +
+                 20 steps each: step ms, tokens/s, peak memory, the
+                 device ms and the collectives of one profiled step (by
+                 kind, held to the count the layers imply), phase 5's
+                 launches, no host sync, the speedup; first-step losses
+                 within 1e-3 relative, three steps' update within 3x two
+                 monolithic runs' run-to-run.  (b) the same model without
+                 sequence parallelism (the copy / reduce path), 1 + 3
+                 steps: its collectives, no host sync, its first-step
+                 loss within 1e-3 relative of phase 5's.
+ 16. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -5553,6 +5570,266 @@ def slice17_phase(torch, fa, ln, ok, xe, wf):
     log(f"phase 14 {time.perf_counter() - t0:.1f}s")
     return out
 
+# ------------------ slice 18: tensor and sequence parallelism ------------------
+
+def nccl_by_kind(torch, prof):
+    """The collectives a profiled run issued, by kind (the profiler's
+    host-side `nccl:*` ranges, one a collective that reached NCCL); the
+    device-side events named for NCCL, by name (at one rank the
+    collectives' ranges on the card's timeline: a one-rank communicator
+    launches no NCCL kernel); and the device-to-device copies (what a
+    one-rank gather or scatter moves)."""
+    calls, device = {}, {}
+    dtod = 0
+    for e in prof.key_averages():
+        key = e.key
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "nccl" in key.lower():
+                device[key[:80]] = device.get(key[:80], 0) + e.count
+            if "dtod" in key.lower():
+                dtod += e.count
+        elif key.startswith("nccl:"):
+            k = key.lower()
+            kind = ("reduce_scatter" if "scatter" in k
+                    else "all_reduce" if "reduce" in k
+                    else "all_gather" if "gather" in k
+                    else "p2p" if ("send" in k or "recv" in k) else key)
+            calls[kind] = calls.get(kind, 0) + e.count
+    return {"calls": calls, "device": device, "memcpy_dtod": dtod}
+
+
+def implied_collectives(layers, sequence_parallel, chunks):
+    """The collectives one GPT training step through
+    `make_tp_dp_train_step` issues at tp = dp = 1 on a process group, by
+    kind, from the layers' spellings: all-reduces of the embedding, the
+    cross entropy (max, sum-exp, target), the step's flat gradient and
+    loss and, under sequence parallelism, one for the gradients of every
+    LayerNorm param and row-parallel bias together
+    (`copy_to_tensor_model_parallel_region_many`); without it, the LM
+    head's copy_to, each row-parallel layer's forward and each
+    column-parallel layer's backward.  Under sequence parallelism each
+    column layer all-gathers forward and reduce-scatters backward, each
+    row layer the reverse, and the positions, the embedding's scatter
+    and the LM head's gather add three more; chunked, at one rank the
+    ring has no hop, and each column layer's backward and each row
+    layer's forward and backward issue one collective a chunk."""
+    n = layers
+    if not sequence_parallel:
+        return {"all_reduce": 4 * n + 7}
+    out = {"all_reduce": 7}
+    if chunks == 1:
+        out.update(all_gather=4 * n + 3, reduce_scatter=4 * n + 1)
+    else:
+        out.update(all_gather=2 * n * chunks + 3,
+                   reduce_scatter=4 * n * chunks + 1)
+    return out
+
+
+def tp_gpt_leg(torch, fa, ln, ok, what, sequence_parallel, chunks, warmup,
+               steps, params):
+    """GPT-350M at full width (phase 5's: vocab 50304, h1024, L24, 16
+    heads, seq 1024, batch 12, bf16, bf16 logits, flash, no dropout,
+    seed-1 tokens) through the TP layers at `sequence_parallel` and
+    `overlap_chunks=chunks`, `FusedAdam(lr=1e-4, master bf16)`,
+    `make_tp_dp_train_step` on the mesh's one-rank groups: `warmup` +
+    `steps` steps (phase 5's launches each), one with no host sync, one
+    profiled with the collectives it issued held to
+    `implied_collectives`.  `params`: the seed-0 weights (copied)."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    batch, seq = 12, 1024
+    model = gpt_mod.gpt_350m(
+        vocab_size=50304, seq_len=seq, dropout=0.0, dtype=bf16,
+        logits_dtype=bf16, use_flash_attention=True,
+        sequence_parallel=sequence_parallel, overlap_chunks=chunks)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, params)
+    step = make_tp_dp_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (batch, seq), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
+    state, res = train_loop(torch, fa, ln, ok, what, step, state,
+                            (tokens, labels), per_step, warmup, steps)
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, tokens, labels)
+        torch.cuda.synchronize()
+    kernels = device_time_by_kernel(torch, prof)
+    nccl = nccl_by_kind(torch, prof)
+    want = implied_collectives(model.c.num_layers, sequence_parallel,
+                               chunks)
+    check(nccl["calls"] == want, f"{what}: the step issued the collectives "
+          f"{nccl}, the layers imply {want}")
+    device_ms = sum(kernels.values()) / 1e3
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return dict(res, config=f"GPT-350M bf16, batch 12 x seq 1024, bf16 "
+                f"logits, flash, sequence_parallel={sequence_parallel}, "
+                f"overlap_chunks={chunks}, FusedAdam(lr=1e-4, master bf16), "
+                f"make_tp_dp_train_step on one-rank NCCL tp and dp groups",
+                tokens_per_s=batch * seq * steps / res["window_s"],
+                host_syncs_per_step=len(syncs), device_ms=device_ms,
+                nccl_per_step=nccl, implied_collectives=want)
+
+
+def tp_three_steps(torch, params, chunks, sequence_parallel=True):
+    """Three steps of the leg's model at `chunks` from `params`: the
+    leaves before and after, and the losses."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    model = gpt_mod.gpt_350m(
+        vocab_size=50304, seq_len=1024, dropout=0.0, dtype=bf16,
+        logits_dtype=bf16, use_flash_attention=True,
+        sequence_parallel=sequence_parallel, overlap_chunks=chunks)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, params)
+    step = make_tp_dp_train_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (12, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, tokens, labels)
+        losses.append(float(loss))
+    after = [x.clone() for x in F.unflatten_leaves(state.params, opt.spec)]
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return after, losses
+
+
+def overlap_leg(torch, fa, ln, ok, warmup=3, steps=20):
+    """Slice 18 (a): bench.py's `_overlap_measure` (bench.py:914-975), cut
+    from tp = 2 to tp = 1 by the box: GPT-350M with sequence parallelism
+    at overlap_chunks 1 (the monolithic gather / reduce-scatter) and 2
+    (the P2P ring, here without a hop, and the chunked reduce-scatters),
+    3 + 20 steps each: step ms, tokens/s, peak GiB, the device ms and
+    collectives of one profiled step, the speedup.  Gates: no host sync,
+    phase 5's launches, the collectives the layers imply, first-step
+    losses within 1e-3 relative, losses finite and falling, and three
+    steps' update (relative L2 of chunked against monolithic) within 3x
+    that of two monolithic runs (a GPT step is not bit for bit
+    repeatable on the card)."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import flat as F
+
+    bf16 = torch.bfloat16
+    params = gpt_mod.init_gpt_params(gpt_mod.GPTConfig(
+        **gpt_mod.GPT2_350M, vocab_size=50304, seq_len=1024, dtype=bf16),
+        seed=0)
+    out = {"cut": "bench.py's _overlap_measure runs tp = 2; the box has "
+                  "one H100, so tp = 1 (one-rank NCCL tp and dp groups): "
+                  "every region collective and every chunk is issued, as "
+                  "a copy, and no collective is left to hide"}
+    for name, chunks in (("monolithic", 1), ("chunked", 2)):
+        out[name] = tp_gpt_leg(torch, fa, ln, ok, f"overlap {name}", True,
+                               chunks, warmup, steps, params)
+        log(f"slice 18 overlap {name} " + json.dumps(out[name]))
+    mono, chunked = out["monolithic"], out["chunked"]
+    out["speedup"] = mono["step_ms"] / chunked["step_ms"]
+    first = abs(chunked["losses"][0] - mono["losses"][0]) / abs(
+        mono["losses"][0])
+    out["first_loss_rel_diff"] = first
+    check(first <= 1e-3, f"overlap: first-step losses {mono['losses'][0]} "
+          f"(monolithic) and {chunked['losses'][0]} (chunked)")
+    a0 = [x.clone() for x in F.tree_leaves(params)]
+    a, al = tp_three_steps(torch, params, 1)
+    b, _ = tp_three_steps(torch, params, 1)
+    z, zl = tp_three_steps(torch, params, 2)
+
+    def dist_(u, w):
+        return sum((x.float() - y.float()).norm() ** 2
+                   for x, y in zip(u, w)).sqrt().item()
+
+    upd = dist_(a, a0)
+    out["three_steps"] = {
+        "losses_monolithic": al, "losses_chunked": zl,
+        "update_l2": upd,
+        "chunked_vs_monolithic_rel_to_update": dist_(z, a) / upd,
+        "monolithic_run_to_run_rel_to_update": dist_(b, a) / upd}
+    t3 = out["three_steps"]
+    check(t3["chunked_vs_monolithic_rel_to_update"]
+          <= 3 * t3["monolithic_run_to_run_rel_to_update"],
+          f"overlap: three steps chunked against monolithic {t3}")
+    del a, b, z, a0, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def copy_reduce_leg(torch, fa, ln, ok, train, warmup=1, steps=3):
+    """Slice 18 (b): the same model without sequence parallelism, chunks
+    1: the copy / reduce path, an all-reduce per row-parallel layer
+    forward and per column-parallel layer backward.  1 + 3 steps, phase
+    5's launches, no host sync, the collectives the layers imply; its
+    first-step loss within 1e-3 relative of phase 5's from the same
+    weights and tokens."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+
+    params = gpt_mod.init_gpt_params(gpt_mod.GPTConfig(
+        **gpt_mod.GPT2_350M, vocab_size=50304, seq_len=1024,
+        dtype=torch.bfloat16), seed=0)
+    out = tp_gpt_leg(torch, fa, ln, ok, "copy/reduce", False, 1, warmup,
+                     steps, params)
+    del params
+    rel = abs(out["losses"][0] - train["losses"][0]) / abs(
+        train["losses"][0])
+    out["first_loss_rel_diff_vs_phase5"] = rel
+    check(rel <= 1e-3, f"copy/reduce: first-step loss {out['losses'][0]}, "
+          f"phase 5's {train['losses'][0]}")
+    return out
+
+
+def slice18_phase(torch, fa, ln, ok, train):
+    """Phase 15 (module docstring): the card as a torch.distributed NCCL
+    process group of one rank (an in-process HashStore), the tp and dp
+    groups of `initialize_model_parallel(tensor_model_parallel_size=1)`
+    checked as one-rank NCCL groups, legs (a) and (b) through them; the
+    groups torn down after."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh.initialize_model_parallel(tensor_model_parallel_size=1)
+        groups = {"tp": mesh.get_tensor_model_parallel_group(),
+                  "dp": mesh.get_data_parallel_group()}
+        check(all(g is not None and dist.get_backend(g) == "nccl"
+                  and dist.get_world_size(g) == 1 for g in groups.values()),
+              "slice 18: the tp and dp groups are not one-rank NCCL groups")
+        out = {"process_groups": {k: {"backend": dist.get_backend(g),
+                                      "world_size": dist.get_world_size(g)}
+                                  for k, g in groups.items()}}
+        out["overlap"] = overlap_leg(torch, fa, ln, ok)
+        log("slice 18 overlap " + json.dumps(
+            {k: v for k, v in out["overlap"].items()
+             if k not in ("monolithic", "chunked")}))
+        out["copy_reduce"] = copy_reduce_leg(torch, fa, ln, ok, train)
+        log("slice 18 copy/reduce " + json.dumps(out["copy_reduce"]))
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    log(f"phase 15 {time.perf_counter() - t0:.1f}s")
+    return out
+
 
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
@@ -6235,7 +6512,11 @@ def run_phases():
     slice17 = slice17_phase(torch, fa, ln, ok, xe, wf)
     torch.cuda.empty_cache()
 
-    # ---- 15. kernel table --------------------------------------------
+    # ---- 15. slice 18: tensor and sequence parallelism on one NCCL rank ---
+    slice18_phase(torch, fa, ln, ok, train)
+    torch.cuda.empty_cache()
+
+    # ---- 16. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each

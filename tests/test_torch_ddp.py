@@ -479,6 +479,23 @@ def test_init_from_env_without_the_launcher(monkeypatch):
         multiproc.init_from_env("tpu")
 
 
+def test_init_from_env_defaults_to_the_card(monkeypatch):
+    """With the launcher's variables set, init_from_env() asks for the
+    card, as every entry point does: without CUDA it raises and joins no
+    gloo group."""
+    import torch.distributed as dist
+
+    monkeypatch.setenv("APEX_TPU_INIT_METHOD", "file:///nonexistent/x")
+    monkeypatch.setenv("APEX_TPU_PROCESS_ID", "0")
+    monkeypatch.setenv("APEX_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multiproc.init_from_env()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multiproc.init_from_env("cuda")
+    assert not dist.is_initialized()
+
+
 def test_launcher_runs_as_a_module(tmp_path):
     """`python -m apex_tpu_torch.parallel.multiproc` is the entry point."""
     script = tmp_path / "ok.py"
@@ -497,7 +514,8 @@ def test_launcher_runs_as_a_module(tmp_path):
 def test_mesh_world_of_one_and_refusals():
     """Without torch.distributed the dp group is a world of one (no group,
     size 1, rank 0) and the sync is the identity; tp, pp, cp and ep > 1
-    raise naming their ROADMAP items."""
+    raise naming their ROADMAP items; a tp size the world of one does not
+    divide raises as the JAX mesh does."""
     from apex_tpu_torch.parallel import mesh as M
 
     assert M.initialize_model_parallel() is None
@@ -506,8 +524,9 @@ def test_mesh_world_of_one_and_refusals():
             M.get_data_parallel_axis_names()) == (1, 0, ("dp",))
     g = torch.arange(4.0)
     assert ddp.sync_gradients(g) is g and torch.equal(g, torch.arange(4.0))
-    for kw, item in (({"tensor_model_parallel_size": 2}, "13"),
-                     ({"pipeline_model_parallel_size": 2}, "14"),
+    with pytest.raises(ValueError, match="not divisible by tp"):
+        M.initialize_model_parallel(tensor_model_parallel_size=2)
+    for kw, item in (({"pipeline_model_parallel_size": 2}, "14"),
                      ({"context_parallel_size": 2}, "15"),
                      ({"expert_model_parallel_size": 2}, "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -80,15 +80,14 @@ def test_fused_xent_loss_and_grads_match_jax(monkeypatch, fused, logits):
 
 
 def test_config_fields_cover_the_jax_config():
-    """Every JAX `GPTConfig` field but the mesh's (the tensor-parallel
-    axis name, sequence parallelism and its overlap chunks: the port's
-    model runs on one card) is a port field with the same default;
-    `fused_xent` among them, None (the automatic choice) by default."""
+    """Every JAX `GPTConfig` field, the mesh's among them (the
+    tensor-parallel axis name, sequence parallelism and its overlap
+    chunks), is a port field with the same default; `fused_xent` among
+    them, None (the automatic choice) by default."""
     jf = {f.name: f.default for f in dataclasses.fields(JaxGPTConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(GPTConfig)}
-    assert set(jf) - set(tf) == {"axis_name", "sequence_parallel",
-                                 "overlap_chunks"}
-    assert set(tf) <= set(jf)
+    assert set(jf) == set(tf)
+    assert {"axis_name", "sequence_parallel", "overlap_chunks"} <= set(tf)
     assert tf["fused_xent"] is None and jf["fused_xent"] is None
     for name in set(tf) - {"dtype", "logits_dtype"}:
         assert tf[name] == jf[name], name

@@ -364,6 +364,353 @@ def scn_o2(d, rank, world):
                                                "torch.float32"])}
 
 
+# ------------------------------ tensor parallelism --------------------------
+#
+# The TP scenarios set up the groups they need (tensor parallelism over
+# the whole world unless stated) and put the default mesh back after.
+
+def _tp(tp):
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(tensor_model_parallel_size=tp)
+
+
+def _restore():
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel()
+
+
+def _raises(exc, fn, *a, **kw):
+    try:
+        fn(*a, **kw)
+    except exc as e:
+        return str(e)
+    return ""
+
+
+def scn_tp_mesh(d, rank, world):
+    """The groups at every tp size dividing the world: sizes, ranks,
+    source ranks, members, sums over each group; the refusals."""
+    out = {}
+    for tp in d["tps"]:
+        _tp(tp)
+        tpg = mesh.get_tensor_model_parallel_group()
+        dpg = mesh.get_data_parallel_group()
+        x = torch.tensor([float(rank + 1)])
+        out[tp] = {
+            "sizes": np.array([mesh.get_tensor_model_parallel_world_size(),
+                               mesh.get_tensor_model_parallel_rank(),
+                               mesh.get_data_parallel_world_size(),
+                               mesh.get_data_parallel_rank(),
+                               mesh.get_tensor_model_parallel_src_rank(),
+                               mesh.get_data_parallel_src_rank(),
+                               dist.get_world_size(tpg),
+                               dist.get_rank(tpg), dist.get_world_size(dpg),
+                               dist.get_rank(dpg)]),
+            "tp_ranks": np.array(dist.get_process_group_ranks(tpg)),
+            "dp_ranks": np.array(dist.get_process_group_ranks(dpg)),
+            "tp_sum": n(mesh.all_reduce(x.clone(), "sum", tpg)),
+            "dp_sum": n(mesh.all_reduce(x.clone(), "sum", dpg)),
+            "world_sum": n(mesh.all_reduce(x.clone(), "sum",
+                                           mesh.new_process_group(
+                                               ("dp", "tp")))),
+            "info": mesh.get_rank_info()}
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(use_fp8=True)
+    out["amax"] = n(mesh.reduce_amax(torch.tensor([float(rank)])))
+    out["axes"] = (mesh.get_amax_reduction_axes(),
+                   mesh.get_model_parallel_axes())
+    out["refused"] = {
+        "tp3": _raises(ValueError, mesh.initialize_model_parallel,
+                       tensor_model_parallel_size=3),
+        "pp": _raises(NotImplementedError, mesh.initialize_model_parallel,
+                      pipeline_model_parallel_size=2),
+        "cp": _raises(NotImplementedError, mesh.initialize_model_parallel,
+                      context_parallel_size=2),
+        "ep": _raises(NotImplementedError, mesh.initialize_model_parallel,
+                      expert_model_parallel_size=2)}
+    _restore()
+    return out
+
+
+def _region_fns():
+    from apex_tpu_torch.parallel import collectives as C
+
+    return {name: getattr(C, name) for name in (
+        "copy_to_tensor_model_parallel_region",
+        "reduce_from_tensor_model_parallel_region",
+        "scatter_to_tensor_model_parallel_region",
+        "gather_from_tensor_model_parallel_region",
+        "scatter_to_sequence_parallel_region",
+        "gather_from_sequence_parallel_region",
+        "gather_from_sequence_parallel_region_no_tp_grad",
+        "reduce_scatter_to_sequence_parallel_region")}
+
+
+def scn_regions(d, rank, world):
+    """Each region pair on this rank's x: its output and the gradient of
+    sum(y * t) for this rank's t; the ring and halo exchanges; a
+    reduce-scatter the group does not divide."""
+    from apex_tpu_torch.parallel import collectives as C
+
+    _tp(world)
+    out = {}
+    for name, fn in _region_fns().items():
+        x = t(d[name]["x"][rank]).requires_grad_(True)
+        y = fn(x)
+        (y * t(d[name]["t"][rank])).sum().backward()
+        out[name] = (n(y), n(x.grad))
+    r = t(d["ring"][rank])
+    out["ring+1"] = n(C.ring_exchange(r, "tp", 1))
+    out["ring-1"] = n(C.ring_exchange(r, "tp", -1))
+    left, right = C.halo_exchange_1d(t(d["halo"][rank]), "tp", halo=1)
+    out["halo"] = n(torch.cat([left, right]))
+    out["ragged"] = _raises(
+        ValueError, C.reduce_scatter_to_sequence_parallel_region,
+        torch.ones(2 * world + 1, 3))
+    _restore()
+    return out
+
+
+def _grads_of(loss, leaves):
+    return [n(g) for g in torch.autograd.grad(loss, leaves)]
+
+
+def scn_tp_layers(d, rank, world):
+    """The TP layers, cross entropy, LayerNorm and RNG helpers at
+    tp = world, on this rank's shards of the global inputs."""
+    import torch.nn.functional as Fn
+
+    from apex_tpu_torch.ops import _common
+    from apex_tpu_torch.transformer.layers import LayerNorm
+    from apex_tpu_torch.transformer.tensor_parallel import random as trandom
+    from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+        vocab_parallel_cross_entropy)
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+        shard_tree)
+
+    _tp(world)
+    out = {}
+
+    def shards(layer, params):
+        return {k: v.requires_grad_(True) for k, v in shard_tree(
+            tree_t(params), layer.partition_spec(), rank, world).items()}
+
+    def rows(a):
+        return t(local_rows(a, rank, world))
+
+    # column with gather_output
+    col = ColumnParallelLinear(12, 24, gather_output=True)
+    p = shards(col, d["col"]["params"])
+    x = t(d["col"]["x"]).requires_grad_(True)
+    y = col.apply(p, x)
+    out["col"] = [n(y)] + _grads_of((y ** 2).sum(),
+                                    [p["weight"], p["bias"], x])
+    # the Megatron MLP: column (no gather) -> gelu -> row
+    for name, sp in (("mlp", False), ("sp_mlp", True)):
+        c = ColumnParallelLinear(16, 32, sequence_parallel=sp)
+        r_ = RowParallelLinear(32, 16, input_is_parallel=True,
+                               sequence_parallel=sp)
+        pc, pr = shards(c, d[name]["pc"]), shards(r_, d[name]["pr"])
+        x = (rows(d[name]["x"]) if sp else t(d[name]["x"])
+             ).requires_grad_(True)
+        y = r_.apply(pr, Fn.gelu(c.apply(pc, x), approximate="tanh"))
+        out[name] = [n(y)] + _grads_of(
+            (y ** 2).sum(), [pc["weight"], pc["bias"], pr["weight"],
+                             pr["bias"], x])
+    # the vocab-parallel embedding, replicated and sequence-parallel out
+    for name, sp in (("emb", False), ("sp_emb", True)):
+        emb = VocabParallelEmbedding(64, 8, sequence_parallel=sp)
+        p = shards(emb, d["emb"]["params"])
+        y = emb.apply(p, t(d[name]["ids"]))
+        out[name] = [n(y)] + _grads_of((y ** 2).sum(), [p["weight"]])
+    # the cross entropy on this rank's vocab shard
+    logits, labels = d["xent"]["logits"], t(d["xent"]["labels"])
+    for smoothing in (0.0, 0.1):
+        for fused in (False, True):
+            lg = t(local_cols(logits, rank, world)).requires_grad_(True)
+            loss = vocab_parallel_cross_entropy(lg, labels, smoothing,
+                                                fused=fused)
+            out[f"xent{smoothing}{fused}"] = [n(loss)] + _grads_of(
+                loss.mean(), [lg])
+    lg = t(local_cols(logits, rank, world), torch.bfloat16
+           ).requires_grad_(True)
+    loss = vocab_parallel_cross_entropy(lg, labels)
+    g, = torch.autograd.grad(loss.mean(), [lg])
+    out["xent_bf16"] = [n(loss), n(g), np.asarray(g.dtype == torch.bfloat16)]
+    # the sequence-parallel LayerNorm: the weight's and bias's grads
+    # summed over the ranks' sequence slices
+    ln = LayerNorm(8, sequence_parallel_enabled=True)
+    with torch.no_grad():
+        ln.weight.copy_(t(d["ln"]["w"]))
+        ln.bias.copy_(t(d["ln"]["b"]))
+    y = ln(rows(d["ln"]["x"]))
+    out["ln"] = [n(y)] + _grads_of((y * rows(d["ln"]["t"])).sum(),
+                                   [ln.weight, ln.bias])
+    # rank-divergent keys: a draw and a dropout mask of each rank's key
+    key = torch.Generator().manual_seed(0)
+    mp = trandom.model_parallel_fold_in(key)
+    out["draw"] = n(torch.rand(8, generator=mp))
+    out["mask"] = n(_common.dropout(trandom.fold_in(mp, 0), 0.5,
+                                    torch.ones(256)))
+    # the distributed activation storage against the plain remat
+    xs, ws = t(d["remat"]["x"]), t(d["remat"]["w"])
+
+    def fn(x_, w_):
+        k1, = trandom.split(key, 1)
+        return _common.dropout(k1, 0.5, torch.tanh(x_ @ w_)).sum()
+
+    def grads(run):
+        xr, wr = xs.clone().requires_grad_(True), ws.clone().requires_grad_(
+            True)
+        return _grads_of(run(xr, wr), [xr, wr])
+
+    out["remat"] = (grads(lambda a, b: trandom.checkpoint(fn, a, b)),
+                    grads(trandom.checkpoint_with_distributed_saved_activations(
+                        fn)))
+    chunk = trandom.split_tensor_into_1d_equal_chunks(xs)
+    out["split"] = (n(chunk), n(trandom.gather_split_1d_tensor(chunk)))
+    # a shard on a tp group it does not fit, and a size tp does not divide
+    out["bad_shard"] = _raises(ValueError, col.apply,
+                               {"weight": torch.zeros(12, 24),
+                                "bias": torch.zeros(24)}, torch.zeros(2, 12))
+    out["ragged"] = _raises(ValueError, ColumnParallelLinear(
+        12, 4 * world + 1).apply, {"weight": torch.zeros(12, 1)},
+        torch.zeros(2, 12))
+    _restore()
+    return out
+
+
+def local_rows(a, rank, world):
+    return local(np.asarray(a), rank, world)
+
+
+def local_cols(a, rank, world):
+    per = a.shape[-1] // world
+    return np.asarray(a)[..., rank * per:(rank + 1) * per]
+
+
+OVERLAP_CASES = ("col_sp", "row_sp", "row_ar", "col_copy")
+
+
+def overlap_case(case, d, rank, world, chunks, dtype):
+    """One TP layer shape of tests/test_overlap.py at `chunks`: its output,
+    the local loss sum(y * t) and the grads of weight, bias and input."""
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        ColumnParallelLinear, RowParallelLinear)
+
+    c = d[case]
+    h, o = c["w"].shape
+    col = case.startswith("col")
+    sp = case.endswith("sp")
+    if col:
+        lay = ColumnParallelLinear(h, o, sequence_parallel=sp,
+                                   overlap_chunks=chunks)
+        w, b = local_cols(c["w"], rank, world), local_cols(c["b"], rank,
+                                                           world)
+        x = local_rows(c["x"], rank, world) if sp else c["x"]
+        tt = local_cols(c["t"], rank, world)
+    else:
+        lay = RowParallelLinear(h, o, sequence_parallel=sp,
+                                overlap_chunks=chunks)
+        w, b = local_rows(c["w"], rank, world), c["b"]
+        x = local_cols(c["x"], rank, world)
+        tt = local_rows(c["t"], rank, world) if sp else c["t"]
+    w, b, x = (t(a, dtype).requires_grad_(True) for a in (w, b, x))
+    y = lay.apply({"weight": w, "bias": b}, x)
+    loss = (y.float() * t(tt)).sum()
+    return [n(y), n(loss)] + _grads_of(loss, [w, b, x])
+
+
+def scn_overlap(d, rank, world):
+    """The four TP layer shapes at chunks 1, 2 and 4 in fp32 and bf16;
+    chunks 3 against 8 local rows (the fallback to 2, one warning)."""
+    import warnings
+
+    from apex_tpu_torch.parallel import overlap as OV
+
+    _tp(world)
+    out = {}
+    for case in OVERLAP_CASES:
+        for dname, dtype in (("fp32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            for chunks in (1, 2, 4):
+                out[(case, dname, chunks)] = overlap_case(
+                    case, d, rank, world, chunks, dtype)
+    OV._WARNED_SITES.clear()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out["fallback"] = overlap_case("col_sp", d, rank, world, 3,
+                                       torch.float32)
+        overlap_case("col_sp", d, rank, world, 3, torch.float32)
+    out["warnings"] = [str(r.message) for r in rec
+                       if "overlap_chunks" in str(r.message)]
+    _restore()
+    return out
+
+
+def _leaf_paths(tree, prefix=()):
+    """The key paths of a nested dict's leaves, in insertion order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _leaf_paths(v, prefix + (k,))
+        else:
+            out.append(prefix + (k,))
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def scn_gpt(d, rank, world):
+    """The small GPT's loss and the gradients of this rank's shards at
+    each tp size (with and without sequence parallelism, and chunked),
+    then three make_tp_dp_train_step steps at tp = 2 x dp = world / 2."""
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig, params_from_jax
+    from apex_tpu_torch.transformer import training
+
+    out = {}
+    for tp, kw in d["losses"]:
+        _tp(tp)
+        model = GPT(GPTConfig(**dict(d["cfg"], **kw)))
+        params = params_from_jax(d["params"], device="cpu",
+                                 tp_rank=mesh.get_tensor_model_parallel_rank(),
+                                 tp_size=tp)
+        paths = _leaf_paths(params)
+        for path in paths:
+            _at(params, path).requires_grad_(True)
+        loss = model.loss(params, t(d["tokens"]), t(d["labels"]))
+        grads = torch.autograd.grad(loss, [_at(params, q) for q in paths])
+        case = tuple(sorted(kw.items()))
+        out[("loss", tp, case)] = n(loss)
+        out[("grads", tp, case)] = {q: n(g) for q, g in zip(paths, grads)}
+    if "train" in d:
+        tp = d["train"]["tp"]
+        _tp(tp)
+        model = GPT(GPTConfig(**d["cfg"]))
+        opt = FusedAdam(lr=1e-4)
+        state = training.init_sharded_optimizer(
+            opt, model, params_from_jax(d["params"], device="cpu"))
+        step = training.make_tp_dp_train_step(model, opt, device="cpu")
+        dpw, dpr = (mesh.get_data_parallel_world_size(),
+                    mesh.get_data_parallel_rank())
+        losses = []
+        for tokens in d["train"]["tokens"]:
+            state, loss = step(state, t(local(tokens, dpr, dpw)),
+                               t(local(np.roll(tokens, -1, axis=1), dpr,
+                                       dpw)))
+            losses.append(float(loss))
+        out["train"] = {"losses": np.asarray(losses),
+                        "params": n(state.params), "step": int(state.step),
+                        "tp_rank": mesh.get_tensor_model_parallel_rank()}
+    _restore()
+    return out
+
+
 SCENARIOS = {name[4:]: fn for name, fn in globals().items()
              if name.startswith("scn_")}
 
