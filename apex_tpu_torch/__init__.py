@@ -30,19 +30,22 @@ Subpackages (lazily importable):
                 ZeRO-2 DistributedFusedAdam / DistributedFusedLAMB
   amp         — O0–O3 policies, the dynamic loss scaler and
                 FP16_Optimizer (with `fp16_utils`, the reference's names)
-  parallel    — the process groups of `mesh` (data parallelism), the
-                data-parallel train step of `ddp` (microbatches, fp32
-                main grads, ZeRO-2), the batch norm of `sync_batchnorm`
-                (statistics merged across ranks), LARC, clip_grad and the
+  parallel    — the (pp, dp, tp) process groups of `mesh`, the region
+                collectives and the chunked overlap, the data-parallel
+                train step of `ddp` (microbatches, fp32 main grads,
+                ZeRO-2), the batch norm of `sync_batchnorm` (statistics
+                merged across ranks), LARC, clip_grad and the
                 `multiproc` launcher
   contrib     — the xentropy and clip_grad facades
   multi_tensor_apply — one functor over parallel tensor lists
   fused_dense, mlp, normalization — the reference's facades over ops
-  transformer — the single-device training step, the tensor-parallel
-                layers and cross entropy at tp=1, the model-parallel-aware
-                GradScaler of `amp`, the weight-decay
-                grouping of pipeline_parallel.common and the attention
-                softmax dispatch of functional (FusedScaleMaskSoftmax)
+  transformer — the pp x tp x dp training step, the tensor-parallel
+                layers and cross entropy, pipeline_parallel (the p2p
+                hops, the clocked schedules, the host-driven 1F1B
+                driver, the weight-decay grouping), the microbatch
+                calculators, the model-parallel-aware GradScaler of
+                `amp` and the attention softmax dispatch of functional
+                (FusedScaleMaskSoftmax)
   checkpoint  — the serving fail points (chaos)
   monitor     — the recompile sentry
   tune        — the kernel tuner: the JSON config cache the JAX package

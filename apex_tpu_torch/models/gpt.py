@@ -44,9 +44,16 @@ sequence-sharded regions, get partial gradients on each rank: they pass
 together through `copy_to_tensor_model_parallel_region_many`, one tp
 all-reduce a step where the JAX package has a `copy_to` each.
 `overlap_chunks` reaches the TP layers (`parallel/overlap.py`: None asks
-the tuner at tp > 1, 1 on a miss or at one rank).  The JAX package's
-`GPTPipelined` comes with pipeline parallelism (ROADMAP Queue 1 item
-14).
+the tuner at tp > 1, 1 on a miss or at one rank).
+
+`GPTPipelined` (apex_tpu/models/gpt.py:351-470) runs the blocks through
+the clocked pipeline of `transformer.pipeline_parallel.schedules` over
+the pp group of `parallel.mesh`: the blocks are stacked (pp, chunks,
+layers_per_stage, ...), global layer (c·pp + s)·lps + j at stage s,
+chunk c, slot j, and each stage holds its row; the embedding, the
+positions and the final LayerNorm are replicated on every stage (the
+embedding runs on stage 0, the head and the cross entropy on the last
+stage, and only the scalar loss crosses pp).
 
 Dropout (`GPTConfig.dropout`) applies when `apply` / `loss` get a key, a
 `torch.Generator`, as in the JAX package: on the attention weights (the
@@ -89,7 +96,8 @@ from apex_tpu_torch.parallel.collectives import (
     gather_from_sequence_parallel_region,
     scatter_to_sequence_parallel_region,
 )
-from apex_tpu_torch.parallel.mesh import TP_AXIS
+from apex_tpu_torch.parallel import mesh as M
+from apex_tpu_torch.parallel.mesh import PP_AXIS, TP_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -98,6 +106,7 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     RowParallelLinear,
     VocabParallelEmbedding,
     shard_tree,
+    shard_tree_axes,
 )
 from apex_tpu_torch.transformer.tensor_parallel.random import (
     fold_in,
@@ -226,16 +235,41 @@ def partition_specs(cfg: GPTConfig) -> dict:
     return specs
 
 
+def pipelined_partition_specs(cfg: GPTConfig) -> dict:
+    """The partition specs of `GPTPipelined`'s parameters: the leaves of
+    `blocks` (pp, chunks, lps, ...) as a tuple naming each dim's axis
+    ("pp" first, "tp" where `partition_specs` cuts the layer's leaf),
+    the replicated leaves as `partition_specs` has them."""
+    flat = partition_specs(dataclasses.replace(cfg, num_layers=1))
+    block = flat.pop("block0")
+
+    def stacked(dim, rank):
+        names = [None] * rank
+        if dim is not None:
+            names[dim] = TP_AXIS
+        return (PP_AXIS, None, None) + tuple(names)
+
+    flat["blocks"] = {
+        mod: {k: stacked(d, 2 if k == "weight" and mod not in ("ln1", "ln2")
+                         else 1) for k, d in leaves.items()}
+        for mod, leaves in block.items()}
+    return flat
+
+
 def params_from_jax(tree: Mapping[str, Any], device=None,
                     dtype: Optional[torch.dtype] = None, *,
-                    tp_rank: int = 0, tp_size: int = 1) -> dict:
+                    tp_rank: int = 0, tp_size: int = 1,
+                    pp_rank: int = 0, pp_size: int = 1) -> dict:
     """The JAX package's GPT parameter pytree, given as nested dicts of
     numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`),
     as the port's parameters on `device`: same keys, same layouts
     (Linear weights (in, out), embedding (V, H)).  `dtype` casts every
     leaf; None keeps each array's own float type.  With `tp_size` > 1,
     tp rank `tp_rank`'s shards, each leaf cut along its
-    `partition_specs` dim (the shard `shard_map` hands that rank)."""
+    `partition_specs` dim (the shard `shard_map` hands that rank).  A
+    `GPTPipelined` tree (its stacked `blocks`) is cut over pp too:
+    `blocks[pp_rank]` (its leading dim kept, of size 1) cut over tp,
+    beside the replicated embedding, positions and final LayerNorm."""
     dev = resolve_device(device)
 
     def convert(x):
@@ -251,6 +285,10 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
         return t.to(dev)
 
     params = convert(tree)
+    if "blocks" in params:
+        return shard_tree_axes(
+            params, pipelined_partition_specs(GPTConfig(num_layers=1)),
+            {TP_AXIS: (tp_rank, tp_size), PP_AXIS: (pp_rank, pp_size)})
     if tp_size == 1:
         return params
     n_layers = sum(k.startswith("block") for k in params)
@@ -495,6 +533,157 @@ class GPT:
                                             axis_name=self.c.axis_name,
                                             fused=self.c.fused_xent)
         return torch.mean(loss)
+
+
+class GPTPipelined(GPT):
+    """GPT over the (pp, dp, tp) groups ≡ the JAX package's `GPTPipelined`
+    (apex_tpu/models/gpt.py:351-470): the blocks stacked per stage and
+    cut over pp, the embedding, positions and final LayerNorm replicated
+    on every stage (each stage's copy gets a partial gradient; the train
+    step sums them over pp), microbatched through the clocked pipeline
+    (`pipeline_parallel.schedules.spmd_pipeline`).
+
+    `init` gives the whole stacked tree; a rank holds `blocks[pp_rank]`
+    (leading dim 1 kept, as `shard_map` hands it) cut over tp
+    (`init_sharded_optimizer`, `params_from_jax`).  The stage function
+    applies a stage's layers with no dropout key, as the JAX package's
+    does, and no per-block remat: `remat_stage` and `checkpoint_window`
+    are the pipeline's dials."""
+
+    def __init__(self, config: GPTConfig, num_microbatches: int,
+                 pipeline_parallel_size: int, num_model_chunks: int = 1,
+                 remat_stage: bool = False, checkpoint_window=None):
+        super().__init__(config)
+        c = config
+        self.num_microbatches = num_microbatches
+        self.pp = self.pipeline_parallel_size = pipeline_parallel_size
+        self.chunks = num_model_chunks
+        self.remat_stage = remat_stage
+        self.checkpoint_window = checkpoint_window
+        if c.num_layers % (self.pp * self.chunks):
+            raise ValueError("num_layers must divide pp * num_model_chunks")
+        self.layers_per_stage = c.num_layers // (self.pp * self.chunks)
+
+    def stack(self, flat_params: dict) -> dict:
+        """`GPT`'s tree (block0 … block{L-1}) as this model's: the blocks'
+        leaves stacked to (pp, chunks, lps, ...), global layer
+        ((c·pp + s)·lps + j) at [s, c, j]."""
+        c = self.c
+        out = {k: v for k, v in flat_params.items()
+               if not k.startswith("block")}
+        blocks = [flat_params[f"block{i}"] for i in range(c.num_layers)]
+
+        def stacked(*leaves):
+            x = torch.stack(leaves)
+            x = x.reshape((self.chunks, self.pp, self.layers_per_stage)
+                          + tuple(x.shape[1:]))
+            return x.transpose(0, 1).contiguous()
+
+        out["blocks"] = {
+            mod: {k: stacked(*(b[mod][k] for b in blocks))
+                  for k in blocks[0][mod]} for mod in blocks[0]}
+        return out
+
+    def init(self, seed: int = 0, device=None) -> dict:
+        """The whole (global) stacked parameters, `GPT.init`'s weights."""
+        return self.stack(super().init(seed, device))
+
+    def partition_specs(self) -> dict:
+        """The axes each leaf is cut over: the blocks' pp dim first
+        (`pipelined_partition_specs`)."""
+        return pipelined_partition_specs(self.c)
+
+    def _sp_summed(self, params):
+        """Under sequence parallelism the stacked LayerNorm params and
+        row-parallel biases and the final LayerNorm's, through one
+        `copy_to_tensor_model_parallel_region_many` (`GPT._sp_summed`)."""
+        out = dict(params, final_ln=dict(params["final_ln"]),
+                   blocks=dict(params["blocks"]))
+        blk = out["blocks"]
+        for m in {m for m, _ in _SP_SUMMED}:
+            blk[m] = dict(blk[m])
+        slots = [(out["final_ln"], "weight"), (out["final_ln"], "bias")]
+        slots += [(blk[m], k) for m, k in _SP_SUMMED]
+        leaves = copy_to_tensor_model_parallel_region_many(
+            [d[k] for d, k in slots], self.c.axis_name)
+        for (d, k), leaf in zip(slots, leaves):
+            d[k] = leaf
+        return out
+
+    def _stage_fn(self, stage_blocks, h, chunk):
+        """Apply one chunk's layers_per_stage blocks in order.  The
+        stacked leaves are unbound once: the backward then stacks the
+        layers' gradients in one copy, where indexing each layer would
+        scatter each into a zeroed stack-sized tensor (lax.scan's
+        transpose stacks them in the JAX package)."""
+        layers = {m: {k: v.unbind(0) for k, v in leaves.items()}
+                  for m, leaves in stage_blocks.items()}
+        for j in range(self.layers_per_stage):
+            bp = {m: {k: v[j] for k, v in leaves.items()}
+                  for m, leaves in layers.items()}
+            h = self._block(0, bp, h)
+        return h
+
+    def _embed_one(self, params, ids):
+        """One microbatch's (mb, S) ids → (S[/tp], mb, H) embeddings."""
+        c = self.c
+        h = self.embed.apply(params["embed"], ids.T)
+        pos = params["pos_embed"][:ids.shape[1]][:, None, :]
+        if c.sequence_parallel:
+            pos = scatter_to_sequence_parallel_region(pos, c.axis_name)
+        return h + pos.to(h.dtype)
+
+    def _head_one(self, params, h, labels):
+        """The last stage's head on one microbatch: final LayerNorm, the
+        tied LM head, the mean vocab-parallel cross entropy."""
+        ln = params["final_ln"]
+        h = fused_layer_norm(h, ln["weight"], ln["bias"])
+        logits = self.logits_local(params, h)
+        return torch.mean(vocab_parallel_cross_entropy(
+            logits, labels, axis_name=self.c.axis_name,
+            fused=self.c.fused_xent))
+
+    def loss(self, params, tokens, labels, key=None):
+        """Mean LM loss over tokens/labels (B, S), B = num_microbatches ×
+        the microbatch size; `params` this rank's shard.  `key` is taken
+        for `GPT.loss`'s signature and unused (no dropout, as in the JAX
+        package)."""
+        from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+            spmd_pipeline)
+
+        c = self.c
+        m = self.num_microbatches
+        group = M.group_of(PP_AXIS)
+        if M.group_size(group) != self.pp:
+            raise ValueError(
+                f"the model is cut into pp={self.pp} stages, the pp group "
+                f"has {M.group_size(group)} ranks")
+        B, S = tokens.shape
+        if B % m:
+            raise ValueError(f"batch {B} is not divisible by "
+                             f"{m} microbatches")
+        mb = B // m
+        if c.sequence_parallel:
+            params = self._sp_summed(params)
+        ids = tokens.reshape(m, mb, S)
+        if M.group_rank(group) == 0:
+            h_mbs = torch.stack([self._embed_one(params, ids[k])
+                                 for k in range(m)])
+        else:    # only stage 0 reads the feed
+            tp = M.group_size(M.group_of(c.axis_name))
+            s_local = S // tp if c.sequence_parallel else S
+            w = params["embed"]["weight"]
+            h_mbs = w.new_zeros((m, s_local, mb, c.hidden))
+        stage_blocks = {mod: {k: v[0] for k, v in leaves.items()}
+                        for mod, leaves in params["blocks"].items()}
+        lbl = labels.reshape(m, mb, S).transpose(1, 2)     # (m, S, mb)
+        total = spmd_pipeline(
+            self._stage_fn, stage_blocks, h_mbs,
+            num_model_chunks=self.chunks, remat_stage=self.remat_stage,
+            checkpoint_window=self.checkpoint_window,
+            loss_fn=lambda h, lab: self._head_one(params, h, lab),
+            loss_args=lbl)
+        return total / m
 
 
 def gpt_350m(**overrides) -> GPT:

@@ -1,6 +1,6 @@
 """apex_tpu_torch.parallel — distributed utilities (counterpart of
-apex_tpu.parallel): the process groups of `mesh` (data and tensor
-parallelism; pp, cp and ep come with later ROADMAP items), the Megatron
+apex_tpu.parallel): the process groups of `mesh` (data, tensor and
+pipeline parallelism; cp and ep come with later ROADMAP items), the Megatron
 region collectives of `collectives`, the chunked compute/collective
 overlap of `overlap`, the data-parallel train step and gradient sync of
 `ddp`, the batch norm of `sync_batchnorm` (statistics merged across a

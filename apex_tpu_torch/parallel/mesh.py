@@ -6,23 +6,34 @@ over the devices in row-major order (apex_tpu/parallel/mesh.py:61-123);
 the port keeps the axis names and holds, in their place, the
 `torch.distributed` process groups that each parallel dimension runs
 its collectives over.  `initialize_model_parallel` splits the world as
-that reshape does, tensor parallelism innermost: the tp groups are runs
-of contiguous ranks, [k·tp, (k+1)·tp), and the dp groups are strided,
-{i + j·tp}.  Every rank creates every group, in the same order (the tp
-groups, then the dp groups); a group that spans the whole world is the
-world itself.  Pipeline, context and expert parallelism raise, naming
-the ROADMAP items that bring them (14, 15, 16).
+that reshape does: rank = pp_i·dp·tp + dp_i·tp + tp_i, tensor
+parallelism innermost.  The tp groups are runs of contiguous ranks, the
+dp groups are strided by tp within a stage, and the pp groups are
+strided by dp·tp.  Besides the three axes' groups it makes one group for
+every set of two axes (("pp", "tp"), the model-parallel plane of the
+grad scaler; ("dp", "tp"), one stage's plane; ("pp", "dp")).  Every
+rank creates every group, in one fixed order (the tp groups, the dp
+groups, then the pp groups and the planes); a group that spans the
+whole world is the world itself.  At pp = 1 the tp and dp groups are
+the ones the port made before pipeline parallelism, member for member.
+Context and expert parallelism raise, naming the ROADMAP items that
+bring them (15, 16).
 
 A world of one needs no `init_process_group`: with torch.distributed
 not initialized every group is None, its size 1 and its rank 0, and the
 collectives below are the identity.  With a process group, even one of
-a single rank (NCCL on one card), every collective is issued.
+a single rank (NCCL on one card), every collective is issued; a
+point-to-point hop over a group of one rank is a copy
+(`collectives.ring_hop`).
 
 Ranks are host ints here: the JAX package's `get_tensor_model_parallel_
-rank` / `get_data_parallel_rank` are traced `lax.axis_index`es inside
-`shard_map`.  `named_sharding` and `data_parallel_sharding` are JAX
-shardings (`NamedSharding` over the mesh) and have no counterpart: a
-rank holds its shard as an ordinary tensor (`partition_spec()` of the
+rank`, `get_data_parallel_rank` and `get_pipeline_model_parallel_rank`
+are traced `lax.axis_index`es inside `shard_map`.  The stage helpers
+(`is_pipeline_first_stage`, the embedding groups' membership, the split)
+take a stage as the JAX package's do, and default to this rank's.
+`named_sharding` and `data_parallel_sharding` are JAX shardings
+(`NamedSharding` over the mesh) and have no counterpart: a rank holds
+its shard as an ordinary tensor (`partition_spec()` of the
 tensor-parallel layers names the dimension it is cut along).
 
 The collectives are thin wrappers over `torch.distributed` that take
@@ -35,6 +46,7 @@ torch builds that have them (`all_gather_single`,
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional
 
 import torch.distributed as dist
@@ -45,19 +57,29 @@ PP_AXIS = "pp"
 TP_AXIS = "tp"
 EP_AXIS = "ep"
 
+_AXES = (PP_AXIS, DP_AXIS, TP_AXIS)    # the mesh's order, outermost first
+
+# the order in which every rank creates the groups: the tp and dp groups
+# first (the only ones before pipeline parallelism), then the rest
+_GROUP_ORDER = tuple(frozenset(s) for s in (
+    (TP_AXIS,), (DP_AXIS,), (PP_AXIS,), (PP_AXIS, TP_AXIS),
+    (DP_AXIS, TP_AXIS), (PP_AXIS, DP_AXIS), (PP_AXIS, DP_AXIS, TP_AXIS)))
+
 _GLOBAL_STATE = None
 
 
 @dataclasses.dataclass
 class _MeshState:
-    dp_group: Optional[object]      # a ProcessGroup, or None (world of one)
-    data_parallel_size: int
-    data_parallel_rank: int
-    tp_group: Optional[object]
-    tensor_model_parallel_size: int
-    tensor_model_parallel_rank: int
+    sizes: dict        # axis name -> size
+    coords: dict       # axis name -> this rank's index along it
+    groups: dict       # frozenset of axis names -> ProcessGroup or None
     world_size: int
     rank: int
+    virtual_pipeline_model_parallel_size: Optional[int] = None
+    # the "current chunk" cursor of host-driven pipeline code
+    # (parallel_state.py:700-712)
+    virtual_pipeline_model_parallel_rank: int = 0
+    pipeline_model_parallel_split_rank: Optional[int] = None
     use_fp8: bool = False
 
 
@@ -85,6 +107,23 @@ def _new_groups(runs, rank, world):
     return mine
 
 
+def _runs(sizes, axes):
+    """The rank lists of the groups spanning `axes`: one for each
+    coordinate of the other axes, in the mesh's row-major order, its
+    members in row-major order over `axes`."""
+    strides = {PP_AXIS: sizes[DP_AXIS] * sizes[TP_AXIS],
+               DP_AXIS: sizes[TP_AXIS], TP_AXIS: 1}
+    fixed = [a for a in _AXES if a not in axes]
+    spans = [a for a in _AXES if a in axes]
+
+    def offsets(names):
+        return [sum(i * strides[a] for i, a in zip(idx, names))
+                for idx in itertools.product(*(range(sizes[a])
+                                               for a in names))]
+
+    return [[b + o for o in offsets(spans)] for b in offsets(fixed)]
+
+
 def initialize_model_parallel(
         tensor_model_parallel_size: int = 1,
         pipeline_model_parallel_size: int = 1,
@@ -93,52 +132,50 @@ def initialize_model_parallel(
         expert_model_parallel_size: int = 1,
         context_parallel_size: int = 1,
         use_fp8: bool = False):
-    """Split the torch.distributed world into tp groups and dp groups
-    (≡ the JAX package's `initialize_model_parallel` at pp = ep = 1:
-    dp = world // tp).  A tp size that does not divide the world raises.
-    Without torch.distributed the world is one rank and both groups are
-    None.  Returns the dp group."""
+    """Split the torch.distributed world into the (pp, dp, tp) groups
+    (≡ the JAX package's `initialize_model_parallel` at ep = 1: dp =
+    world // (tp·pp)).  Sizes that do not divide the world raise, and so
+    does a virtual pipeline below pp = 2, with the JAX package's
+    messages.  Without torch.distributed the world is one rank and every
+    group is None.  Returns the dp group."""
     global _GLOBAL_STATE
-    tp = tensor_model_parallel_size
-    if tp < 1:
-        raise ValueError(f"tensor_model_parallel_size must be >= 1, got {tp}")
+    tp, pp = tensor_model_parallel_size, pipeline_model_parallel_size
+    for what, n in (("tensor_model_parallel_size", tp),
+                    ("pipeline_model_parallel_size", pp)):
+        if n < 1:
+            raise ValueError(f"{what} must be >= 1, got {n}")
     for what, n, item in (
-            ("pipeline_model_parallel_size", pipeline_model_parallel_size,
-             14),
             ("context_parallel_size", context_parallel_size, 15),
             ("expert_model_parallel_size", expert_model_parallel_size, 16)):
         if n < 1:
             raise ValueError(f"{what} must be >= 1, got {n}")
         if n != 1:
             raise NotImplementedError(
-                f"{what}={n}: only data and tensor parallelism are ported; "
-                f"this comes with ROADMAP Queue 1 item {item}")
-    if (virtual_pipeline_model_parallel_size is not None
-            or pipeline_model_parallel_split_rank is not None):
-        raise NotImplementedError(
-            "virtual pipelines and the encoder/decoder split come with "
-            "pipeline parallelism, ROADMAP Queue 1 item 14")
+                f"{what}={n}: only data, tensor and pipeline parallelism "
+                f"are ported; this comes with ROADMAP Queue 1 item {item}")
     world_group = _world_group()
     world, rank = group_size(world_group), group_rank(world_group)
-    if world % tp:
+    if world % (tp * pp):
         raise ValueError(f"world size {world} is not divisible by tp({tp}) "
-                         f"x pp(1) x ep(1)")
-    dp = world // tp
-    if world_group is None:
-        tp_group = dp_group = None
-    else:
-        tp_group = _new_groups(
-            [list(range(k * tp, (k + 1) * tp)) for k in range(dp)],
-            rank, world)
-        dp_group = _new_groups(
-            [[i + j * tp for j in range(dp)] for i in range(tp)], rank,
-            world)
+                         f"x pp({pp}) x ep(1)")
+    if virtual_pipeline_model_parallel_size is not None and pp < 2:
+        raise ValueError("virtual pipeline parallelism requires "
+                         "pipeline_model_parallel_size >= 2")
+    dp = world // (tp * pp)
+    sizes = {PP_AXIS: pp, DP_AXIS: dp, TP_AXIS: tp}
+    coords = {PP_AXIS: rank // (dp * tp), DP_AXIS: (rank // tp) % dp,
+              TP_AXIS: rank % tp}
+    groups = {axes: (None if world_group is None else
+                     _new_groups(_runs(sizes, axes), rank, world))
+              for axes in _GROUP_ORDER}
     _GLOBAL_STATE = _MeshState(
-        dp_group=dp_group, data_parallel_size=dp,
-        data_parallel_rank=rank // tp, tp_group=tp_group,
-        tensor_model_parallel_size=tp, tensor_model_parallel_rank=rank % tp,
-        world_size=world, rank=rank, use_fp8=use_fp8)
-    return dp_group
+        sizes=sizes, coords=coords, groups=groups, world_size=world,
+        rank=rank,
+        virtual_pipeline_model_parallel_size=(
+            virtual_pipeline_model_parallel_size),
+        pipeline_model_parallel_split_rank=pipeline_model_parallel_split_rank,
+        use_fp8=use_fp8)
+    return groups[frozenset((DP_AXIS,))]
 
 
 def model_parallel_is_initialized() -> bool:
@@ -162,19 +199,27 @@ def _state() -> _MeshState:
     return _GLOBAL_STATE
 
 
+def _size(axis):
+    return _state().sizes[axis]
+
+
+def _coord(axis):
+    return _state().coords[axis]
+
+
 def get_data_parallel_group():
     """The dp ProcessGroup (None for a world of one)."""
-    return _state().dp_group
+    return new_process_group(DP_AXIS)
 
 
 def get_data_parallel_world_size() -> int:
-    return _state().data_parallel_size
+    return _size(DP_AXIS)
 
 
 def get_data_parallel_rank() -> int:
     """This process's dp rank, a host int (the JAX package's is the
     traced `axis_index`)."""
-    return _state().data_parallel_rank
+    return _coord(DP_AXIS)
 
 
 def get_data_parallel_axis_names() -> tuple:
@@ -186,34 +231,84 @@ def get_data_parallel_axis_names() -> tuple:
 
 def get_tensor_model_parallel_group():
     """The tp ProcessGroup (None for a world of one)."""
-    return _state().tp_group
+    return new_process_group(TP_AXIS)
 
 
 def get_tensor_model_parallel_world_size() -> int:
-    return _state().tensor_model_parallel_size
+    return _size(TP_AXIS)
 
 
 def get_tensor_model_parallel_rank() -> int:
     """This process's tp rank, a host int."""
-    return _state().tensor_model_parallel_rank
+    return _coord(TP_AXIS)
+
+
+def get_pipeline_model_parallel_group():
+    """The pp ProcessGroup (None for a world of one)."""
+    return new_process_group(PP_AXIS)
+
+
+def get_pipeline_model_parallel_world_size() -> int:
+    return _size(PP_AXIS)
+
+
+def get_pipeline_model_parallel_rank() -> int:
+    """This process's pipeline stage, a host int (the JAX package's is
+    the traced `axis_index`)."""
+    return _coord(PP_AXIS)
+
+
+def get_virtual_pipeline_model_parallel_world_size() -> Optional[int]:
+    return _state().virtual_pipeline_model_parallel_size
+
+
+def get_virtual_pipeline_model_parallel_rank() -> int:
+    return _state().virtual_pipeline_model_parallel_rank
+
+
+def set_virtual_pipeline_model_parallel_rank(rank: int) -> None:
+    _state().virtual_pipeline_model_parallel_rank = rank
+
+
+def get_pipeline_model_parallel_split_rank() -> Optional[int]:
+    return _state().pipeline_model_parallel_split_rank
+
+
+def set_pipeline_model_parallel_split_rank(rank: Optional[int]) -> None:
+    _state().pipeline_model_parallel_split_rank = rank
+
+
+def _stage_of(stage: Optional[int]) -> int:
+    return _coord(PP_AXIS) if stage is None else stage
+
+
+def is_pipeline_first_stage(stage: Optional[int] = None) -> bool:
+    """Whether `stage` (this rank's by default) is the first pipeline
+    stage ≡ parallel_state.is_pipeline_first_stage (parallel_state.py:590)
+    for the non-virtual case; virtual chunks are the schedule's."""
+    return _stage_of(stage) == 0
+
+
+def is_pipeline_last_stage(stage: Optional[int] = None) -> bool:
+    return _stage_of(stage) == _size(PP_AXIS) - 1
 
 
 def get_tensor_model_parallel_src_rank(device_rank: Optional[int] = None
                                        ) -> int:
     """First global rank of `device_rank`'s tp group (this process's by
     default) ≡ parallel_state.get_tensor_model_parallel_src_rank."""
-    s = _state()
-    r = s.rank if device_rank is None else device_rank
-    return (r // s.tensor_model_parallel_size) * s.tensor_model_parallel_size
+    r = _state().rank if device_rank is None else device_rank
+    tp = _size(TP_AXIS)
+    return (r // tp) * tp
 
 
 def get_data_parallel_src_rank(device_rank: Optional[int] = None) -> int:
     """First global rank of `device_rank`'s dp group (this process's by
-    default): the same tp index at dp index 0 (the JAX package's
-    coordinate form; pp = 1, so one stage holds the world)."""
-    s = _state()
-    r = s.rank if device_rank is None else device_rank
-    return r % s.tensor_model_parallel_size
+    default): the same stage and tp index at dp index 0 (the JAX
+    package's coordinate form, right for any pipeline depth)."""
+    r = _state().rank if device_rank is None else device_rank
+    stage_size = _size(DP_AXIS) * _size(TP_AXIS)
+    return (r // stage_size) * stage_size + r % _size(TP_AXIS)
 
 
 def get_rank_info() -> str:
@@ -223,8 +318,8 @@ def get_rank_info() -> str:
     if _GLOBAL_STATE is None:
         return f"proc{group_rank(_world_group())}"
     s = _GLOBAL_STATE
-    return (f"proc{s.rank} dp{s.data_parallel_size}"
-            f"/tp{s.tensor_model_parallel_size}/pp1")
+    return (f"proc{s.rank} dp{s.sizes[DP_AXIS]}/tp{s.sizes[TP_AXIS]}"
+            f"/pp{s.sizes[PP_AXIS]}")
 
 
 def get_model_parallel_axes() -> tuple:
@@ -250,28 +345,143 @@ def reduce_amax(x):
                       new_process_group(get_amax_reduction_axes()))
 
 
+def _axis_set(axes) -> frozenset:
+    """`axes` (one name or an iterable of them) as a frozenset; unknown
+    names raise with the JAX package's message."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    axes = frozenset(axes)
+    unknown = sorted(axes - set(_AXES))
+    if unknown:
+        raise ValueError(f"unknown mesh axes {unknown}; have {sorted(_AXES)}")
+    return axes
+
+
 def new_process_group(axes):
     """The process group whose collectives run over the named mesh axes
     (one name or an iterable of them) ≡ parallel_state.new_process_group,
     which the JAX package reduces to a validated tuple of axis names:
-    ("tp",) the tp group, ("dp",) the dp group, ("dp", "tp") the world;
-    "pp" adds nothing (pp = 1).  A group of one rank is None.  Unknown
-    axes raise."""
-    if isinstance(axes, str):
-        axes = (axes,)
-    axes = set(axes)
-    valid = {PP_AXIS, DP_AXIS, TP_AXIS}
-    unknown = sorted(axes - valid)
-    if unknown:
-        raise ValueError(f"unknown mesh axes {unknown}; have {sorted(valid)}")
-    s = _state()
-    if {DP_AXIS, TP_AXIS} <= axes:
-        return _world_group()
-    if TP_AXIS in axes:
-        return s.tp_group
-    if DP_AXIS in axes:
-        return s.dp_group
-    return None
+    ("tp",) the tp group, ("pp", "tp") the model-parallel plane, ("dp",
+    "tp") a stage's plane, all three the world.  None for a world of one
+    (or no axes).  Unknown axes raise."""
+    axes = _axis_set(axes)
+    return _state().groups[axes] if axes else None
+
+
+# --- pipeline stages ---------------------------------------------------------
+#
+# The reference builds dedicated process groups for the tied-embedding /
+# position-embedding exchange (parallel_state.py:321-407).  As in the JAX
+# package (apex_tpu/parallel/mesh.py:260-351) they are sets of pipeline
+# stages here (every (dp, tp) coordinate participates alike); the pp
+# group is what a sum across them runs over.
+
+def _split() -> Optional[int]:
+    return _state().pipeline_model_parallel_split_rank
+
+
+def get_embedding_group_stages() -> list:
+    """Pipeline stages that hold tied input/output embeddings.
+
+    ≡ embedding_ranks construction (parallel_state.py:352-370): [first,
+    last], with the encoder/decoder split stage inserted when set.
+    """
+    pp = _size(PP_AXIS)
+    if pp == 1:
+        return [0]
+    stages = [0, pp - 1]
+    sp = _split()
+    if sp is not None and sp not in stages:
+        stages = [0, sp, pp - 1]
+    return stages
+
+
+def get_position_embedding_group_stages() -> list:
+    """≡ position_embedding_ranks (parallel_state.py:355,367-370)."""
+    if _size(PP_AXIS) == 1:
+        return [0]
+    sp = _split()
+    return [0] if sp in (None, 0) else [0, sp]
+
+
+def get_encoder_relative_position_embedding_group_stages() -> list:
+    """≡ encoder_relative_position_embedding_ranks (parallel_state.py:356-363)."""
+    if _size(PP_AXIS) == 1:
+        return [0]
+    sp = _split()
+    return [0] if sp is None else list(range(sp))
+
+
+def get_decoder_relative_position_embedding_group_stages() -> list:
+    """≡ decoder_relative_position_embedding_ranks (parallel_state.py:356-365)."""
+    pp = _size(PP_AXIS)
+    if pp == 1:
+        return [0]
+    sp = _split()
+    return [0] if sp is None else list(range(sp, pp))
+
+
+def is_rank_in_embedding_group(stage: Optional[int] = None) -> bool:
+    """≡ parallel_state.is_rank_in_embedding_group for `stage` (this
+    rank's by default)."""
+    return _stage_of(stage) in get_embedding_group_stages()
+
+
+def is_rank_in_position_embedding_group(stage: Optional[int] = None) -> bool:
+    return _stage_of(stage) in get_position_embedding_group_stages()
+
+
+def is_pipeline_stage_before_split(stage: Optional[int] = None) -> bool:
+    """≡ parallel_state.is_pipeline_stage_before_split: True when the
+    stage (this rank's by default) runs encoder layers (always True
+    without an encoder/decoder split)."""
+    sp = _split()
+    return True if sp is None else _stage_of(stage) < sp
+
+
+def is_pipeline_stage_after_split(stage: Optional[int] = None) -> bool:
+    sp = _split()
+    return True if sp is None else _stage_of(stage) >= sp
+
+
+def is_pipeline_stage_at_split(stage: Optional[int] = None) -> bool:
+    """True when `stage` runs the last encoder block and `stage+1` the first
+    decoder block (≡ parallel_state.is_pipeline_stage_at_split)."""
+    stage = _stage_of(stage)
+    return (is_pipeline_stage_before_split(stage)
+            and is_pipeline_stage_after_split(stage + 1))
+
+
+def get_pipeline_model_parallel_next_rank(stage: Optional[int] = None
+                                          ) -> int:
+    """The next stage (of this rank's by default), wrapping: where a
+    forward hop sends (parallel_state.py:737-752)."""
+    return (_stage_of(stage) + 1) % _size(PP_AXIS)
+
+
+def get_pipeline_model_parallel_prev_rank(stage: Optional[int] = None
+                                          ) -> int:
+    return (_stage_of(stage) - 1) % _size(PP_AXIS)
+
+
+def get_pipeline_model_parallel_first_rank() -> int:
+    return 0
+
+
+def get_pipeline_model_parallel_last_rank() -> int:
+    return _size(PP_AXIS) - 1
+
+
+def get_pipeline_global_device_ranks(dp_index: Optional[int] = None,
+                                     tp_index: Optional[int] = None) -> list:
+    """Global ranks of one pipeline group (this rank's by default):
+    stage·dp·tp + dp_index·tp + tp_index for each stage
+    (parallel_state.py:345-348)."""
+    dp_index = _coord(DP_AXIS) if dp_index is None else dp_index
+    tp_index = _coord(TP_AXIS) if tp_index is None else tp_index
+    stride = _size(DP_AXIS) * _size(TP_AXIS)
+    base = dp_index * _size(TP_AXIS) + tp_index
+    return [base + stage * stride for stage in range(_size(PP_AXIS))]
 
 
 # --- the group a collective runs over ---------------------------------------
@@ -281,21 +491,26 @@ def data_parallel_group():
     torch.distributed world when it is initialized; else None (a world
     of one: every collective is the identity)."""
     if _GLOBAL_STATE is not None:
-        return _GLOBAL_STATE.dp_group
+        return get_data_parallel_group()
     return _world_group()
 
 
-def group_of(axis_name: str):
-    """The group a collective over `axis_name` ("tp" or "dp", the JAX
-    package's axis names) runs over: the mesh's; without a mesh the tp
-    group is None (every rank holds the whole model: tp = 1) and the dp
-    group `data_parallel_group()`."""
-    if axis_name == TP_AXIS:
-        return None if _GLOBAL_STATE is None else _GLOBAL_STATE.tp_group
-    if axis_name == DP_AXIS:
-        return data_parallel_group()
-    raise ValueError(f"no process group for axis {axis_name!r}; the port "
-                     f"has {TP_AXIS!r} and {DP_AXIS!r}")
+def group_of(axis_name):
+    """The group a collective over `axis_name` runs over: one of the JAX
+    package's axis names ("tp", "dp", "pp") or an iterable of them
+    (("pp", "tp"): the model-parallel plane), the mesh's group.  Without
+    a mesh the tp and pp groups are None (every rank holds the whole
+    model) and the dp group is `data_parallel_group()`.  An axis the
+    port has no group for raises."""
+    names = (axis_name,) if isinstance(axis_name, str) else axis_name
+    unknown = [a for a in names if a not in _AXES]
+    if unknown:
+        raise ValueError(f"no process group for axis {unknown[0]!r}; the "
+                         f"port has {TP_AXIS!r}, {DP_AXIS!r} and {PP_AXIS!r}")
+    axes = frozenset(names)
+    if _GLOBAL_STATE is not None:
+        return new_process_group(axes)
+    return data_parallel_group() if axes == {DP_AXIS} else None
 
 
 def group_size(group) -> int:

@@ -45,25 +45,47 @@ from apex_tpu_torch.parallel.collectives import (
 from apex_tpu_torch.parallel.mesh import TP_AXIS
 
 
-def _shard_leaf(x, dim: Optional[int], rank: int, size: int):
-    """Rank `rank`'s shard of the global `x` cut along `dim` into `size`
-    pieces (`x` itself when `dim` is None)."""
-    if dim is None or size == 1:
-        return x
-    if x.shape[dim] % size:
-        raise ValueError(f"dimension {dim} of size {x.shape[dim]} is not "
-                         f"divisible by {size} tensor-parallel ranks")
-    n = x.shape[dim] // size
-    return x.narrow(dim, rank * n, n).contiguous()
+def axis_dims(spec) -> dict:
+    """{axis name: dim} of one leaf's partition spec: None (replicated),
+    an int (the dim cut over tp), or a tuple naming each dim's axis ("pp",
+    "tp" or None), the JAX package's `PartitionSpec` order."""
+    if spec is None:
+        return {}
+    if isinstance(spec, int):
+        return {TP_AXIS: spec}
+    return {name: d for d, name in enumerate(spec) if name is not None}
+
+
+def _shard_leaf(x, spec, coords):
+    """The shard of the global `x` that `coords` ({axis: (rank, size)})
+    names: each dim of `spec` cut over its axis (axes absent from
+    `coords` are left whole)."""
+    for axis, dim in axis_dims(spec).items():
+        rank, size = coords.get(axis, (0, 1))
+        if size == 1:
+            continue
+        if x.shape[dim] % size:
+            raise ValueError(f"dimension {dim} of size {x.shape[dim]} is "
+                             f"not divisible by {size} {axis} ranks")
+        n = x.shape[dim] // size
+        x = x.narrow(dim, rank * n, n).contiguous()
+    return x
+
+
+def shard_tree_axes(tree, specs, coords):
+    """A nested dict of global leaves cut to the shards that `coords`
+    ({axis name: (rank, size)}) names, by the matching tree of partition
+    specs (`axis_dims`)."""
+    if isinstance(tree, dict):
+        return {k: shard_tree_axes(v, specs[k], coords)
+                for k, v in tree.items()}
+    return _shard_leaf(tree, specs, coords)
 
 
 def shard_tree(tree, specs, rank: int, size: int):
-    """A nested dict of global leaves cut to rank `rank`'s shards by the
-    matching tree of `partition_spec()` entries."""
-    if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], rank, size)
-                for k, v in tree.items()}
-    return _shard_leaf(tree, specs, rank, size)
+    """A nested dict of global leaves cut to tp rank `rank`'s shards by
+    the matching tree of `partition_spec()` entries."""
+    return shard_tree_axes(tree, specs, {TP_AXIS: (rank, size)})
 
 
 def _check_shard(who, leaf, full_shape, dim, p):

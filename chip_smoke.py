@@ -320,7 +320,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  sequence parallelism (the copy / reduce path), 1 + 3
                  steps: its collectives, no host sync, its first-step
                  loss within 1e-3 relative of phase 5's.
- 16. table       the kernels' times on the card (CUDA events) beside
+ 16. slice 19    (a) the card as a one-rank NCCL group again, the pp,
+                 tp and dp groups of `initialize_model_parallel(
+                 pipeline_model_parallel_size=1)` checked as one-rank
+                 NCCL groups: phase 5's GPT-350M as `GPTPipelined(pp=1)`,
+                 the batch of 12 as 4 microbatches of 3, through
+                 `make_tp_dp_train_step(pp_partial_grads=True)` at
+                 checkpoint_window None and 1, 1 + 3 steps each: the
+                 launches the clocked schedule implies (24 flash
+                 forwards and backwards and 49 LayerNorm forwards and
+                 backwards a microbatch, the window's recomputed
+                 forwards again, Adam 1), no host sync, the all-reduces
+                 of one profiled step held to the count the schedule
+                 implies (no p2p call: a one-rank hop is a copy), step
+                 ms, device ms, tokens/s, peak memory; the first-step
+                 losses within 2e-3 of the plain `GPT.loss` on the same
+                 weights and tokens and equal to each other.  (b) with no
+                 process group, `host_pipeline_train_step` over GPT-350M
+                 cut into 4 `HostPipelineStage`s of 6 blocks on the card
+                 (the embedding on the first and last), 8 microbatches
+                 of (1, 1024), "1f1b" and "gpipe", 1 + 3 steps each: the
+                 launches a step, the mean loss within 2e-3 and each
+                 stage's gradients (and the tied embedding's summed
+                 ones) within 1e-2 relative L2 of one-program autograd
+                 through the same stages, the in-flight peaks (1F1B's
+                 bound; gpipe all 8), 1f1b's peak memory below gpipe's,
+                 wall and device ms a step.
+ 17. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -342,7 +368,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  instantiations at rate 0.1 beside their rate-0 times
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
-                 buffers', and each kernel's launches in slice 17's legs.
+                 buffers', and each kernel's launches in slice 17's and
+                 slice 19's legs.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -5831,6 +5858,358 @@ def slice18_phase(torch, fa, ln, ok, train):
     return out
 
 
+# ------------------ slice 19: pipeline parallelism ------------------------------
+
+SLICE19_ROWS = ("flash_attention_fwd", "flash_attention_bwd",
+                "layer_norm_fwd", "layer_norm_bwd", "adam")
+
+
+def implied_pipeline_collectives(layers, microbatches, window, fused_xent):
+    """The all-reduces one `GPTPipelined` step through
+    `make_tp_dp_train_step` issues at pp = tp = dp = 1 on one-rank
+    groups (no sequence parallelism): per microbatch phase 15's copy /
+    reduce path (each row-parallel layer's forward, each column-parallel
+    layer's backward, the embedding, the cross entropy's three, the LM
+    head's copy_to), then the step's flat gradient and loss over dp and,
+    over pp, the loss's broadcast from the last stage and the sum of the
+    replicated leaves' gradients (`pp_partial_grads=True`).  Under a
+    checkpoint window the backward recomputes each clock's stage
+    forward, which issues its row-parallel all-reduces again, and each
+    microbatch's head: the fused cross entropy (one autograd op) issues
+    its three again, the unfused one two, as the recompute stops once
+    the tensors its backward saved are back (torch.utils.checkpoint's
+    early stop), before the loss's last all-reduce.  A hop over a
+    one-rank pp group is a copy: no p2p call."""
+    n, m = layers, microbatches
+    count = m * (4 * n + 5) + 4
+    if window:
+        count += m * (2 * n + (3 if fused_xent else 2))
+    return {"all_reduce": count}
+
+
+def pipelined_gpt_leg(torch, fa, ln, ok, window, params, tokens, labels,
+                      warmup=1, steps=3):
+    """Slice 19 (a) at `checkpoint_window=window`: GPT-350M (phase 5's
+    config) as `GPTPipelined(pp=1)`, 4 microbatches of 3, through
+    `make_tp_dp_train_step` on the mesh's one-rank groups: `warmup` +
+    `steps` steps with the launches the schedule implies, one step with
+    no host sync, one profiled: wall and device ms and the collectives
+    (held to `implied_pipeline_collectives`)."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = torch.bfloat16
+    m, L = 4, 24
+    model = gpt_mod.GPTPipelined(
+        gpt_mod.GPTConfig(**gpt_mod.GPT2_350M, vocab_size=50304,
+                          seq_len=1024, dropout=0.0, dtype=bf16,
+                          logits_dtype=bf16, use_flash_attention=True),
+        num_microbatches=m, pipeline_parallel_size=1,
+        checkpoint_window=window)
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, model.stack(params))
+    # the train step's pp path too: at one rank its sum is an identity
+    step = make_tp_dp_train_step(model, opt, pp_partial_grads=True)
+    # one clock per microbatch at pp = 1; a window recomputes each
+    # clock's 24 blocks (and each microbatch's final LayerNorm) once more
+    again = 2 if window else 1
+    per_step = {"flash_attention_fwd": L * m * again,
+                "flash_attention_bwd": L * m,
+                "layer_norm_fwd": (2 * L + 1) * m * again,
+                "layer_norm_bwd": (2 * L + 1) * m, "adam": 1}
+    what = f"GPTPipelined checkpoint_window={window}"
+    state, res = train_loop(torch, fa, ln, ok, what, step, state,
+                            (tokens, labels), per_step, warmup, steps)
+    state, syncs = step_without_sync(torch, step, state, tokens, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, _ = step(state, tokens, labels)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t1)
+    device_ms = sum(device_time_by_kernel(torch, prof).values()) / 1e3
+    nccl = nccl_by_kind(torch, prof)
+    want = implied_pipeline_collectives(L, m, window, fused_xent=True)
+    check(nccl["calls"] == want, f"{what}: the step issued {nccl}, the "
+          f"schedule implies {want}")
+    del state, opt, step
+    torch.cuda.empty_cache()
+    return dict(res, config=f"GPT-350M bf16, 4 microbatches of 3 x seq "
+                f"1024, bf16 logits, flash, GPTPipelined(pp=1, "
+                f"checkpoint_window={window}), FusedAdam(lr=1e-4, master "
+                f"bf16), make_tp_dp_train_step on one-rank NCCL groups",
+                tokens_per_s=12 * 1024 * steps / res["window_s"],
+                host_syncs_per_step=len(syncs), profiled_wall_ms=wall_ms,
+                device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                nccl_per_step=nccl, implied_collectives=want,
+                hops_over_nccl=nccl["calls"].get("p2p", 0))
+
+
+def gpt_stage_fns(torch, model, cuts):
+    """GPT-350M cut into host-pipeline stages at the block indices
+    `cuts` (stage i runs blocks cuts[i]..cuts[i+1]-1): stage 0 embeds
+    the (1, S) tokens and makes the labels, the stages pass (h, labels),
+    the last ends with the final LayerNorm, the tied LM head and the
+    mean cross entropy.  Returns (apply functions, a function giving
+    each stage's params from a GPT tree); the embedding sits on the
+    first and the last stage."""
+    from apex_tpu_torch.ops.layer_norm import fused_layer_norm
+    from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+        vocab_parallel_cross_entropy)
+
+    n = len(cuts) - 1
+
+    def blocks(i, p, h):
+        for b in range(cuts[i], cuts[i + 1]):
+            h = model._block(b, p[f"block{b}"], h)
+        return h
+
+    def first(p, tokens):
+        h = model.embed.apply(p["embed"], tokens.T)
+        h = h + p["pos_embed"][:tokens.shape[1]][:, None, :].to(h.dtype)
+        return blocks(0, p, h), torch.roll(tokens, -1, dims=1).T
+
+    def middle(i):
+        def fn(p, x):
+            h, lab = x
+            return blocks(i, p, h), lab
+        return fn
+
+    def last(p, x):
+        h, lab = x
+        h = blocks(n - 1, p, h)
+        h = fused_layer_norm(h, p["final_ln"]["weight"], p["final_ln"]["bias"])
+        return torch.mean(vocab_parallel_cross_entropy(
+            model.logits_local(p, h), lab, fused=model.c.fused_xent))
+
+    fns = [first] + [middle(i) for i in range(1, n - 1)] + [last]
+
+    def stage_params(tree):
+        out = []
+        for i in range(n):
+            p = {f"block{b}": tree[f"block{b}"]
+                 for b in range(cuts[i], cuts[i + 1])}
+            if i == 0:
+                p.update(embed=tree["embed"], pos_embed=tree["pos_embed"])
+            if i == n - 1:
+                p.update(embed=tree["embed"], final_ln=tree["final_ln"])
+            out.append(p)
+        return out
+
+    return fns, stage_params
+
+
+def rel_l2(torch, got, want):
+    """|got - want| / |want| over lists of tensors, in fp32."""
+    num = sum((g.float() - w.float()).norm() ** 2 for g, w in zip(got, want))
+    den = sum(w.float().norm() ** 2 for w in want)
+    return (num / den).sqrt().item()
+
+
+def host_pipeline_leg(torch, fa, ln, ok, params, warmup=1, steps=3):
+    """Slice 19 (b): `host_pipeline_train_step` over GPT-350M (bf16,
+    flash, bf16 logits) cut into 4 `HostPipelineStage`s of 6 blocks on
+    cuda:0, 8 microbatches of (1, 1024), schedules "1f1b" and "gpipe",
+    `warmup` + `steps` steps each (no process group: the stages share
+    one card).  Gates: the launches a step the schedule implies, the
+    in-flight peaks (the 1F1B bound, gpipe all 8), 1f1b's peak memory
+    below gpipe's; the mean loss within 2e-3 and each stage's gradients
+    within 1e-2 relative L2 of one-program autograd through the same
+    stages, and the tied embedding's two partial gradients summed."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        HostPipelineStage, host_pipeline_train_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = torch.bfloat16
+    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=1024, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=True)
+    fns, stage_params = gpt_stage_fns(torch, model, [0, 6, 12, 18, 24])
+    plist = stage_params(params)
+    stages = [HostPipelineStage(f) for f in fns]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mbs = [torch.randint(0, 50304, (1, 1024), generator=gen, device="cuda",
+                         dtype=torch.int32) for _ in range(8)]
+    # one-program autograd through the same stages, a microbatch at a
+    # time, the gradients summed in fp32
+    specs = [F.make_spec(p) for p in plist]
+    leaves = [[x.detach().requires_grad_() for x in F.tree_leaves(p)]
+              for p in plist]
+    trees = [F.tree_from_leaves(sp, lv) for sp, lv in zip(specs, leaves)]
+    ref = [[torch.zeros_like(x, dtype=torch.float32) for x in lv]
+           for lv in leaves]
+    ref_loss = 0.0
+    for x in mbs:
+        h = x
+        for f, p in zip(fns, trees):
+            h = f(p, h)
+        loss = h / len(mbs)
+        gs = iter(torch.autograd.grad(loss, [x_ for lv in leaves
+                                             for x_ in lv]))
+        for acc in ref:
+            for a in acc:
+                a += next(gs).float()
+        ref_loss += float(loss.detach())
+    del leaves, trees, h, loss
+    ref_trees = [F.tree_from_leaves(sp, r) for sp, r in zip(specs, ref)]
+    ref_tied = [ref_trees[0]["embed"]["weight"]
+                + ref_trees[-1]["embed"]["weight"]]
+    torch.cuda.empty_cache()
+    per_step = {"flash_attention_fwd": 8 * (3 * 2 * 6 + 6),
+                "flash_attention_bwd": 8 * 24,
+                "layer_norm_fwd": 8 * (3 * 2 * 12 + 13),
+                "layer_norm_bwd": 8 * 49}
+    out = {"config": "GPT-350M bf16 (bf16 logits, flash) cut into 4 "
+                     "HostPipelineStages of 6 blocks on cuda:0, 8 "
+                     "microbatches of (1, 1024)",
+           "reference_loss": ref_loss}
+    for schedule in ("1f1b", "gpipe"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts(fa, ln, ok)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(warmup + steps):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            loss, grads, stats = host_pipeline_train_step(
+                stages, plist, mbs, schedule=schedule, return_stats=True)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = kernel_counts(fa, ln, ok)
+        for name, n_ in per_step.items():
+            check(counts[name] == n_ * (warmup + steps),
+                  f"host pipeline {schedule} {name}: {counts[name]} "
+                  f"launches in {warmup + steps} steps, want {n_} a step")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            host_pipeline_train_step(stages, plist, mbs, schedule=schedule)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t1)
+        device_ms = sum(device_time_by_kernel(torch, prof).values()) / 1e3
+        losses = [float(x) for x in losses]
+        rel = abs(losses[-1] - ref_loss) / abs(ref_loss)
+        check(rel <= 2e-3, f"host pipeline {schedule}: loss {losses[-1]} "
+              f"against one-program autograd's {ref_loss}")
+        gaps = [rel_l2(torch, F.tree_leaves(g), F.tree_leaves(r))
+                for g, r in zip(grads, ref_trees)]
+        tied = rel_l2(torch, [grads[0]["embed"]["weight"].float()
+                              + grads[-1]["embed"]["weight"].float()],
+                      ref_tied)
+        check(max(gaps) <= 1e-2 and tied <= 1e-2,
+              f"host pipeline {schedule}: stage gradients' relative L2 "
+              f"gaps {gaps}, the tied embedding's {tied}")
+        peaks = stats["peak_in_flight_per_stage"]
+        if schedule == "1f1b":
+            check(all(p <= 4 - i for i, p in enumerate(peaks))
+                  and peaks[-1] == 1, f"1f1b in-flight peaks {peaks}")
+        else:
+            check(peaks == [8] * 4, f"gpipe in-flight peaks {peaks}")
+        out[schedule] = {
+            "losses": losses, "loss_rel_diff": rel,
+            "grad_rel_l2_by_stage": gaps, "tied_embedding_rel_l2": tied,
+            "peak_in_flight_per_stage": peaks, "peak_mem_gib": peak,
+            "step_ms": 1e3 * window_s / steps,
+            "tokens_per_s": 8 * 1024 * steps / window_s,
+            "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "launches": {k_: counts[k_] for k_ in per_step},
+            "launches_per_step": per_step}
+        del grads
+        torch.cuda.empty_cache()
+    check(out["1f1b"]["peak_mem_gib"] < out["gpipe"]["peak_mem_gib"],
+          f"1f1b's peak {out['1f1b']['peak_mem_gib']} GiB is not below "
+          f"gpipe's {out['gpipe']['peak_mem_gib']}")
+    del ref, ref_trees, ref_tied, plist, stages
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_slice19_columns(rows, slice19):
+    """The kernel table's slice-19 column: on every row a phase-16 leg
+    launched, its launches by leg."""
+    legs = {f"pipelined window={w}": slice19["pipelined"][w]["launches"]
+            for w in slice19["pipelined"]}
+    for schedule in ("1f1b", "gpipe"):
+        legs[f"host {schedule}"] = slice19["host"][schedule]["launches"]
+    for row in rows:
+        by_leg = {leg: c[row["name"]] for leg, c in legs.items()
+                  if c.get(row["name"])}
+        if row["name"] in SLICE19_ROWS and by_leg:
+            row["launches_slice19"] = by_leg
+
+
+def slice19_phase(torch, fa, ln, ok):
+    """Phase 16 (module docstring): (a) on the card as a one-rank NCCL
+    group, the pp, tp and dp groups of `initialize_model_parallel(
+    pipeline_model_parallel_size=1)` checked as one-rank NCCL groups,
+    GPTPipelined at checkpoint_window None and 1 (first-step losses
+    within 2e-3 of the plain `GPT.loss` on the same weights and tokens,
+    and equal to each other); (b) with no process group, the host
+    pipeline over GPT-350M in four stages."""
+    import torch.distributed as dist
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = gpt_mod.GPTConfig(**gpt_mod.GPT2_350M, vocab_size=50304,
+                            seq_len=1024, dropout=0.0, dtype=bf16,
+                            logits_dtype=bf16, use_flash_attention=True)
+    params = gpt_mod.init_gpt_params(cfg, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (12, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    with torch.no_grad():
+        plain = float(gpt_mod.GPT(cfg).loss(params, tokens, labels))
+    out = {"plain_first_loss": plain, "pipelined": {}}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh.initialize_model_parallel(pipeline_model_parallel_size=1)
+        groups = {"pp": mesh.get_pipeline_model_parallel_group(),
+                  "tp": mesh.get_tensor_model_parallel_group(),
+                  "dp": mesh.get_data_parallel_group()}
+        check(all(g is not None and dist.get_backend(g) == "nccl"
+                  and dist.get_world_size(g) == 1 for g in groups.values()),
+              "slice 19: the pp, tp and dp groups are not one-rank NCCL "
+              "groups")
+        for window in (None, 1):
+            leg = pipelined_gpt_leg(torch, fa, ln, ok, window, params,
+                                    tokens, labels)
+            rel = abs(leg["losses"][0] - plain) / abs(plain)
+            leg["first_loss_rel_diff_vs_plain"] = rel
+            check(rel <= 2e-3, f"GPTPipelined window={window}: first loss "
+                  f"{leg['losses'][0]}, plain GPT.loss {plain}")
+            out["pipelined"][window] = leg
+            log(f"slice 19 GPTPipelined checkpoint_window={window} "
+                + json.dumps(leg))
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    a, b = (out["pipelined"][w]["losses"][0] for w in (None, 1))
+    check(a == b, f"GPTPipelined: first-step losses at window None {a} and "
+          f"1 {b} differ")
+    out["host"] = host_pipeline_leg(torch, fa, ln, ok, params)
+    log("slice 19 host pipeline " + json.dumps(out["host"]))
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 16 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -6516,7 +6895,11 @@ def run_phases():
     slice18_phase(torch, fa, ln, ok, train)
     torch.cuda.empty_cache()
 
-    # ---- 16. kernel table --------------------------------------------
+    # ---- 16. slice 19: pipeline parallelism ------------------------------
+    slice19 = slice19_phase(torch, fa, ln, ok)
+    torch.cuda.empty_cache()
+
+    # ---- 17. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -6623,6 +7006,7 @@ def run_phases():
     ] + train_rows + bert_rows + resnet_rows + dense_rows + long_rows
         + slice7_rows + slice8_rows + dropout_rows}
     add_slice17_columns(table["kernels"], shards, slice17)
+    add_slice19_columns(table["kernels"], slice19)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -513,9 +513,9 @@ def test_launcher_runs_as_a_module(tmp_path):
 
 def test_mesh_world_of_one_and_refusals():
     """Without torch.distributed the dp group is a world of one (no group,
-    size 1, rank 0) and the sync is the identity; tp, pp, cp and ep > 1
-    raise naming their ROADMAP items; a tp size the world of one does not
-    divide raises as the JAX mesh does."""
+    size 1, rank 0) and the sync is the identity; cp and ep > 1 raise
+    naming their ROADMAP items; a tp or pp size the world of one does
+    not divide raises as the JAX mesh does."""
     from apex_tpu_torch.parallel import mesh as M
 
     assert M.initialize_model_parallel() is None
@@ -526,8 +526,9 @@ def test_mesh_world_of_one_and_refusals():
     assert ddp.sync_gradients(g) is g and torch.equal(g, torch.arange(4.0))
     with pytest.raises(ValueError, match="not divisible by tp"):
         M.initialize_model_parallel(tensor_model_parallel_size=2)
-    for kw, item in (({"pipeline_model_parallel_size": 2}, "14"),
-                     ({"context_parallel_size": 2}, "15"),
+    with pytest.raises(ValueError, match=r"not divisible by tp\(1\) x pp"):
+        M.initialize_model_parallel(pipeline_model_parallel_size=2)
+    for kw, item in (({"context_parallel_size": 2}, "15"),
                      ({"expert_model_parallel_size": 2}, "16")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             M.initialize_model_parallel(**kw)

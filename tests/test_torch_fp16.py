@@ -82,10 +82,20 @@ def _batch(seed=1):
             rng.normal(size=(16, 4)).astype(np.float32))
 
 
+def _mp_layouts(world):
+    """(pp, tp, the rank whose gradient overflows) of each found_inf
+    layout: dp = world (tp = pp = 1) in both worlds, pp 2 x tp 2 at 4."""
+    out = [(1, 1, world - 1)]
+    if world == 4:
+        out.append((2, 2, 3))
+    return out
+
+
 def _inputs(world):
     x, y = _batch()
-    return {"scenarios": ["found_inf", "fp16opt", "o2"],
+    return {"scenarios": ["found_inf", "found_inf_mp", "fp16opt", "o2"],
             "found_inf": {},
+            "found_inf_mp": {"layouts": _mp_layouts(world)},
             "fp16opt": {"params": _params(), "grads": _grads(world)},
             "o2": {"params": _bn_params(), "x": x, "y": y}}
 
@@ -265,6 +275,50 @@ def test_found_inf_is_or_ed_over_ranks(ranks):
         if r == 0:
             want[1] = np.nan
         np.testing.assert_array_equal(o["unscaled"], want)
+
+
+def _jax_found_inf(world, pp, tp, bad):
+    """Each device's overflow flag and updated scale from the JAX
+    GradScaler.unscale_and_sync + update in shard_map over a (pp, dp, tp)
+    mesh of `world` devices, the gradient of device `bad` holding an inf
+    (device r is the port's rank r)."""
+    JM.destroy_model_parallel()
+    mesh = JM.initialize_model_parallel(
+        tensor_model_parallel_size=tp, pipeline_model_parallel_size=pp,
+        devices=jax.devices()[:world])
+    g = np.full((world, 2), 8.0, np.float32)
+    g[bad, 0] = np.inf
+    axes = ("pp", "dp", "tp")
+
+    def local(a):
+        gs = JGradScaler(init_scale=8.0)
+        _, found = gs.unscale_and_sync({"a": a})
+        st = gs.update(found)
+        return found.reshape(1), st.scale.reshape(1)
+
+    found, scale = jax.jit(shard_map(
+        local, mesh=mesh, in_specs=(P(axes),), out_specs=(P(axes), P(axes)),
+        check_vma=False))(jnp.asarray(g))
+    JM.destroy_model_parallel()
+    return np.asarray(found), np.asarray(scale)
+
+
+def test_found_inf_is_or_ed_over_tp_and_pp_only(ranks):
+    """An overflow on one rank: at pp 2 x tp 2 (4 ranks) every rank of the
+    model-parallel plane skips and halves its scale; at dp = world (tp =
+    pp = 1) only that rank does, as the JAX package ORs over tp and pp
+    and not over dp.  Each rank's flag and scale against the JAX scaler's
+    on the same device of the same mesh."""
+    world, inputs, outs = ranks
+    for pp, tp, bad in inputs["found_inf_mp"]["layouts"]:
+        jfound, jscale = _jax_found_inf(world, pp, tp, bad)
+        for r, o in enumerate(outs):
+            got = o["found_inf_mp"][(pp, tp, bad)]
+            want_found = r == bad or tp * pp == world
+            assert bool(got["found"]) is bool(jfound[r]) is want_found, (
+                pp, tp, r)
+            assert float(got["scale"]) == float(jscale[r]) == (
+                4.0 if want_found else 8.0), (pp, tp, r)
 
 
 # ------------------------------------ O2 ------------------------------------

@@ -114,9 +114,10 @@ def test_group_rank_math_matches_the_jax_mesh(ranks):
 
 
 def test_amax_axes_and_refusals(ranks):
-    """reduce_amax is the max over the (dp, tp) plane; a tp size that
-    does not divide the world raises as the JAX mesh does; pp, cp and ep
-    above 1 raise naming ROADMAP items 14-16."""
+    """reduce_amax is the max over the (dp, tp) plane; a tp or pp size
+    that does not divide the world raises as the JAX mesh does, and so
+    does a virtual pipeline at pp = 1; cp and ep above 1 raise naming
+    ROADMAP items 15-16."""
     world, _, outs = ranks
     JM.destroy_model_parallel()
     JM.initialize_model_parallel(devices=jax.devices()[:world], use_fp8=True)
@@ -130,8 +131,17 @@ def test_amax_axes_and_refusals(ranks):
         assert o["tp_mesh"]["axes"] == axes
         refused = o["tp_mesh"]["refused"]
         assert "not divisible by tp(3)" in refused["tp3"]
-        for k, item in (("pp", 14), ("cp", 15), ("ep", 16)):
+        assert "not divisible by tp(1) x pp(3)" in refused["pp"]
+        assert "requires pipeline_model_parallel_size >= 2" in \
+            refused["vpp"]
+        for k, item in (("cp", 15), ("ep", 16)):
             assert f"item {item}" in refused[k], refused
+    with pytest.raises(ValueError, match="pp\\(3\\)"):
+        JM.initialize_model_parallel(pipeline_model_parallel_size=3,
+                                     devices=jax.devices()[:world])
+    with pytest.raises(ValueError, match="pipeline_model_parallel_size >= 2"):
+        JM.initialize_model_parallel(virtual_pipeline_model_parallel_size=2,
+                                     devices=jax.devices()[:world])
 
 
 def _jax_region(fn, xs, ts, world):

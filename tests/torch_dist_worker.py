@@ -1,5 +1,6 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
-tests/test_torch_zero.py, tests/test_torch_fp16.py).
+tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
+pipeline-parallel files).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -303,6 +304,9 @@ def scn_zero_load(d, rank, world):
 # ---------------------------------- amp -------------------------------------
 
 def scn_found_inf(d, rank, world):
+    # the flag is OR-ed over tp and pp (not dp): tensor parallelism over
+    # the whole world makes it every rank's
+    _tp(world)
     flag = torch.tensor(rank == world - 1)
     out = {"or": n(allreduce_found_inf(flag))}
     gs = GradScaler(init_scale=8.0, device="cpu")
@@ -313,6 +317,26 @@ def scn_found_inf(d, rank, world):
     gs.update(found)
     out.update(unscaled=n(grads), found=n(found),
                scale=n(gs.state.scale))
+    _restore()
+    return out
+
+
+def scn_found_inf_mp(d, rank, world):
+    """GradScaler.unscale_and_sync + update at each (pp, tp) layout of
+    the world with an inf on rank `bad` only: the flag and the scale."""
+    out = {}
+    for pp, tp, bad in d["layouts"]:
+        mesh.destroy_model_parallel()
+        mesh.initialize_model_parallel(tensor_model_parallel_size=tp,
+                                       pipeline_model_parallel_size=pp)
+        gs = GradScaler(init_scale=8.0, device="cpu")
+        g = {"a": torch.full((2,), 8.0)}
+        if rank == bad:
+            g["a"][0] = float("inf")
+        _, found = gs.unscale_and_sync(g)
+        gs.update(found)
+        out[(pp, tp, bad)] = {"found": n(found), "scale": n(gs.state.scale)}
+    _restore()
     return out
 
 
@@ -422,8 +446,10 @@ def scn_tp_mesh(d, rank, world):
     out["refused"] = {
         "tp3": _raises(ValueError, mesh.initialize_model_parallel,
                        tensor_model_parallel_size=3),
-        "pp": _raises(NotImplementedError, mesh.initialize_model_parallel,
-                      pipeline_model_parallel_size=2),
+        "pp": _raises(ValueError, mesh.initialize_model_parallel,
+                      pipeline_model_parallel_size=3),
+        "vpp": _raises(ValueError, mesh.initialize_model_parallel,
+                       virtual_pipeline_model_parallel_size=2),
         "cp": _raises(NotImplementedError, mesh.initialize_model_parallel,
                       context_parallel_size=2),
         "ep": _raises(NotImplementedError, mesh.initialize_model_parallel,
@@ -707,6 +733,160 @@ def scn_gpt(d, rank, world):
         out["train"] = {"losses": np.asarray(losses),
                         "params": n(state.params), "step": int(state.step),
                         "tp_rank": mesh.get_tensor_model_parallel_rank()}
+    _restore()
+    return out
+
+
+# ---------------------------- pipeline parallelism ---------------------------
+
+def _pp(pp, tp=1, **kw):
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(tensor_model_parallel_size=tp,
+                                   pipeline_model_parallel_size=pp, **kw)
+
+
+def scn_pp_mesh(d, rank, world):
+    """At each (pp, tp) layout: sizes, coordinates, source ranks, the
+    members of every group, a sum over the pp group, the stage helpers
+    and the embedding groups (with and without a split), and
+    build_model's placement under a virtual pipeline."""
+    from apex_tpu_torch.transformer.pipeline_parallel import build_model
+
+    out = {}
+    for pp, tp in d["layouts"]:
+        _pp(pp, tp)
+        groups = {axes: mesh.new_process_group(axes) for axes in
+                  (("tp",), ("dp",), ("pp",), ("pp", "tp"), ("dp", "tp"),
+                   ("pp", "dp"))}
+        x = torch.tensor([float(rank + 1)])
+        o = {"sizes": np.array([
+            mesh.get_pipeline_model_parallel_world_size(),
+            mesh.get_pipeline_model_parallel_rank(),
+            mesh.get_data_parallel_world_size(),
+            mesh.get_data_parallel_rank(),
+            mesh.get_tensor_model_parallel_world_size(),
+            mesh.get_tensor_model_parallel_rank(),
+            mesh.get_tensor_model_parallel_src_rank(),
+            mesh.get_data_parallel_src_rank()]),
+            "members": {axes: np.array(dist.get_process_group_ranks(g))
+                        for axes, g in groups.items()},
+            "pp_ranks": np.array(mesh.get_pipeline_global_device_ranks()),
+            "pp_sum": n(mesh.all_reduce(x.clone(), "sum",
+                                        mesh.group_of("pp"))),
+            "stages": (mesh.is_pipeline_first_stage(),
+                       mesh.is_pipeline_last_stage(),
+                       mesh.get_pipeline_model_parallel_next_rank(),
+                       mesh.get_pipeline_model_parallel_prev_rank(),
+                       mesh.get_embedding_group_stages(),
+                       mesh.get_position_embedding_group_stages(),
+                       mesh.is_rank_in_embedding_group()),
+            "info": mesh.get_rank_info()}
+        if pp > 1:
+            mesh.set_pipeline_model_parallel_split_rank(1)
+            o["split"] = (mesh.get_embedding_group_stages(),
+                          mesh.get_position_embedding_group_stages(),
+                          mesh.get_encoder_relative_position_embedding_group_stages(),
+                          mesh.get_decoder_relative_position_embedding_group_stages(),
+                          mesh.is_pipeline_stage_before_split(),
+                          mesh.is_pipeline_stage_after_split(),
+                          mesh.is_pipeline_stage_at_split())
+        out[(pp, tp)] = o
+    _pp(world, 1, virtual_pipeline_model_parallel_size=2)
+    out["vpp"] = {
+        "size": mesh.get_virtual_pipeline_model_parallel_world_size(),
+        "models": build_model(lambda pre_process, post_process: (
+            pre_process, post_process, mesh.get_virtual_pipeline_model_parallel_rank()),
+            virtual_pipeline_model_parallel_size=2)}
+    _restore()
+    return out
+
+
+def _toy_stage(p, x, c):
+    return x + torch.tanh(x @ p["w"] + p["b"])
+
+
+def scn_pipeline(d, rank, world):
+    """spmd_pipeline on the toy stage at each case: its output (the
+    stacked outputs, or the mean loss) and the gradients of this stage's
+    leaves (and of the microbatches)."""
+    from apex_tpu_torch.transformer.pipeline_parallel import spmd_pipeline
+
+    out = {}
+    for case in d["cases"]:
+        pp, m, chunks, window, remat, mode = case
+        _pp(pp)
+        s = mesh.get_pipeline_model_parallel_rank()
+        w, b = t(d["w"][case]), t(d["b"][case])
+        # chunk c of stage s holds global layer c·pp + s
+        layers = [c * pp + s for c in range(chunks)]
+        p = {"w": w[layers].clone().requires_grad_(),
+             "b": b[layers].clone().requires_grad_()}
+        mbs = t(d["mbs"][case]).requires_grad_()
+        lab = t(d["labels"][case])
+        if mode == "loss":
+            res = spmd_pipeline(
+                _toy_stage, p, mbs, num_model_chunks=chunks,
+                remat_stage=remat, checkpoint_window=window,
+                loss_fn=lambda y, lbl: torch.sum((y - lbl) ** 2),
+                loss_args=lab) / m
+            loss = res
+        else:
+            res = spmd_pipeline(_toy_stage, p, mbs, num_model_chunks=chunks,
+                                remat_stage=remat, checkpoint_window=window)
+            loss = torch.mean(res ** 2)
+        gw, gb, gx = torch.autograd.grad(loss, [p["w"], p["b"], mbs],
+                                         allow_unused=True,
+                                         materialize_grads=True)
+        out[case] = {"out": n(res), "w": n(gw), "b": n(gb), "x": n(gx)}
+    _restore()
+    return out
+
+
+def scn_gpt_pp(d, rank, world):
+    """GPTPipelined's loss and the gradients of this rank's shard at each
+    (pp, tp, m, chunks, sequence_parallel) case, then three
+    make_tp_dp_train_step steps at pp 2 x tp 2: the losses, the flat
+    parameters and the replicated leaves after them."""
+    from apex_tpu_torch.models.gpt import (GPTConfig, GPTPipelined,
+                                           params_from_jax)
+    from apex_tpu_torch.transformer import training
+
+    def setup(pp, tp, m, chunks, sp):
+        _pp(pp, tp)
+        model = GPTPipelined(GPTConfig(**d["cfg"], sequence_parallel=sp),
+                             m, pp, chunks)
+        params = params_from_jax(
+            d["params"][(pp, chunks)], device="cpu",
+            tp_rank=mesh.get_tensor_model_parallel_rank(), tp_size=tp,
+            pp_rank=mesh.get_pipeline_model_parallel_rank(), pp_size=pp)
+        return model, params
+
+    out = {}
+    for case in d["cases"]:
+        model, params = setup(*case)
+        paths = _leaf_paths(params)
+        for path in paths:
+            _at(params, path).requires_grad_(True)
+        loss = model.loss(params, t(d["tokens"]), t(d["labels"]))
+        grads = torch.autograd.grad(loss, [_at(params, q) for q in paths],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        out[case] = {"loss": n(loss),
+                     "grads": {q: n(g) for q, g in zip(paths, grads)}}
+    model, _ = setup(2, 2, 2, 1, False)
+    opt = FusedAdam(lr=1e-4)
+    state = training.init_sharded_optimizer(
+        opt, model, params_from_jax(d["params"][(2, 1)], device="cpu"))
+    step = training.make_tp_dp_train_step(model, opt, device="cpu")
+    losses = []
+    for tokens in d["train_tokens"]:
+        state, loss = step(state, t(tokens), t(np.roll(tokens, -1, axis=1)))
+        losses.append(float(loss))
+    tree = F.unflatten(state.params, opt.spec)
+    out["train"] = {"losses": np.asarray(losses), "params": n(state.params),
+                    "step": int(state.step),
+                    "replicated": {k: n(tree[k]) for k in
+                                   ("embed", "pos_embed", "final_ln")}}
     _restore()
     return out
 
