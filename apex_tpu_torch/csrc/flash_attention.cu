@@ -175,6 +175,20 @@
 // delta), as the TPU kernels do.  About 12 integer operations a score on
 // the hot loop, no memory.  Rate 0 launches the !DROP instantiations,
 // which are the kernels as they were before dropout.
+//
+// fp32 gradients (the F32 instantiations of the fused kernel, the dk/dv
+// pass and the dq pass; _bwd_impl's grad_dtype=float32, which the ring
+// attention of parallel/context_parallel.py asks for so that a chunk's
+// partials add up across ring steps in fp32 and are rounded once): the
+// same bodies, with dk and dv (and the dq pass's dq) written as fp32
+// straight from the accumulator registers by 8-byte global stores, each
+// thread its column pairs of its two rows, in place of the bf16 rounding
+// and the TMA stores through shared memory (whose slices are sized for
+// bf16).  The values are the ones the bf16 kernels round, so a bf16
+// launch's output is the F32 launch's rounded to bf16, bit for bit.  The
+// fused kernel's dq is already the fp32 dq_acc.  The flag is a template
+// argument, so no run-time branch sits in the product loop and the bf16
+// instantiations are the code they were.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -914,13 +928,17 @@ struct BwdSmem {
 // q, k, v and dout (loads), of the contiguous dk and dv (stores, boxes of
 // 16 rows) and of the fp32 dq_acc (reduce-adds, 32 columns x 16 rows;
 // DQ only), each map's `order_*` as FwdArgs has them (dk and dv share
-// theirs); `groups`: b * h / hp; `work`: the launch's zeroed item counter
+// theirs); `groups`: b * h / hp; `work`: the launch's zeroed item counter;
+// F32 instantiations: dk32 and dv32, the contiguous fp32 dk and dv, in
+// place of the dk and dv maps
 struct BwdArgs {
   CUtensorMap q, k, v, dout, dk, dv, dq;
   int order_q, order_k, order_v, order_do, order_dkv, order_dq;
   const float* lse;
   const float* delta;
   float* dq_acc;
+  float* dk32;
+  float* dv32;
   int* work;
   int h, sq, sk, groups;
   float scale, scale_log2;
@@ -1006,8 +1024,9 @@ __device__ __forceinline__ void put_rows(const CUtensorMap* map, int order,
 // rows into its output slice and reduce-adds them into dq_acc with one
 // bulk tensor reduce-add per 32 columns (APEX_BWD_DQ_RED: per-thread
 // red.global instead).  At a head's end each warp stores its 16 keys of dk
-// (scaled) and dv through its slice by TMA.
-template <int D, bool SEG, bool DQ, bool DROP>
+// (scaled) and dv through its slice by TMA (F32: each thread its own
+// column pairs as fp32, straight from its registers).
+template <int D, bool SEG, bool DQ, bool F32, bool DROP>
 __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                                           unsigned char* smem) {
   using L = BwdSmem<D, SEG, DQ>;
@@ -1506,6 +1525,29 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
       if (lane == 0) hopper::mbar_arrive(&kv_empty[kb]);
       __syncwarp();
 
+      if constexpr (F32) {
+        // dk (scaled) and dv as fp32: columns 8n + 2 t4 and + 1 of keys
+        // key_a and key_b, one 8-byte store each (keys past sk are not
+        // written); the slice is not used
+        float* dkg = a.dk32 + (long long)bh * sk * D + 2 * t4;
+        float* dvg = a.dv32 + (long long)bh * sk * D + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          if (key_a < sk) {
+            *reinterpret_cast<float2*>(dkg + (long long)key_a * D + 8 * n) =
+                make_float2(scale * dk[4 * n], scale * dk[4 * n + 1]);
+            *reinterpret_cast<float2*>(dvg + (long long)key_a * D + 8 * n) =
+                make_float2(dv[4 * n], dv[4 * n + 1]);
+          }
+          if (key_b < sk) {
+            *reinterpret_cast<float2*>(dkg + (long long)key_b * D + 8 * n) =
+                make_float2(scale * dk[4 * n + 2], scale * dk[4 * n + 3]);
+            *reinterpret_cast<float2*>(dvg + (long long)key_b * D + 8 * n) =
+                make_float2(dv[4 * n + 2], dv[4 * n + 3]);
+          }
+        }
+        continue;
+      }
       // dk (scaled) and dv: this warp's 16 keys through its slice, boxes
       // of 64 columns x 16 rows; column 8n + 2 t4 is in box n / 8, chunk
       // n % 8
@@ -1562,12 +1604,13 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
 }
 
 // one block an SM, walking the work items of (128 keys, batch*head); DQ:
-// the fused kernel, else the split route's dk/dv pass
-template <int D, bool SEG, bool DQ, bool DROP>
+// the fused kernel, else the split route's dk/dv pass; F32: dk and dv in
+// fp32
+template <int D, bool SEG, bool DQ, bool F32, bool DROP>
 __global__ void __launch_bounds__(BwdSmem<D, SEG, DQ>::kThreads, 1)
     flash_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_items<D, SEG, DQ, DROP>(a, 1, hopper::align1024(smem_raw));
+  bwd_items<D, SEG, DQ, F32, DROP>(a, 1, hopper::align1024(smem_raw));
 }
 
 // the port of _bwd_fused_kernel_packed: one block an SM, walking the work
@@ -1577,7 +1620,7 @@ template <int D, bool SEG, bool DROP>
 __global__ void __launch_bounds__(BwdSmem<D, SEG, true>::kThreads, 1)
     flash_bwd_packed_kernel(const __grid_constant__ BwdArgs a, int hp) {
   extern __shared__ unsigned char smem_raw[];
-  bwd_items<D, SEG, true, DROP>(a, hp, hopper::align1024(smem_raw));
+  bwd_items<D, SEG, true, false, DROP>(a, hp, hopper::align1024(smem_raw));
 }
 
 // ---------------------------------------------------- backward, dq pass ----
@@ -1652,11 +1695,13 @@ struct DqSmem {
 // the shape and the segment ids; o is not used), 4-D TMA maps of the (b, h,
 // s, d) view dout (loads) and of the contiguous dq (stores, boxes of 64
 // rows), each map's `order_*` as FwdArgs has them, the rows' delta and the
-// launch's zeroed item counter
+// launch's zeroed item counter; F32 instantiations: dq32, the contiguous
+// fp32 dq, in place of the dq map
 struct DqArgs : FwdArgs {
   CUtensorMap dout, dq;
   int order_do, order_dq;
   const float* delta;
+  float* dq32;
   int* work;
   float scale;
 };
@@ -1679,8 +1724,9 @@ struct DqArgs : FwdArgs {
 // registers and K (keys x d, row-major) as the MN-major operand, as the
 // forward's P V takes V.  dQ stays in registers over the item's tiles and
 // leaves scaled, each row once: no atomics, no scratch buffer, the same
-// bits on every run.
-template <int D, bool SEG, bool DROP>
+// bits on every run (F32: as fp32, each thread its own column pairs
+// straight from its registers).
+template <int D, bool SEG, bool F32, bool DROP>
 __device__ __forceinline__ void dq_items(const DqArgs& a,
                                          unsigned char* smem) {
   using L = DqSmem<D, SEG, DROP>;
@@ -2031,7 +2077,23 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     // producer once the stores have read it
     unsigned char* ob = q_s + qb * L::kQTile + wg * 64 * 128;
     const bool out = store && wrow0 < sq;
-    if (out) {
+    if constexpr (F32) {
+      // F32: columns 8n + 2 t4 and + 1 of rows row_a and row_b as fp32,
+      // one 8-byte store each (rows past sq are not written); the Q
+      // buffer is not written
+      if (out) {
+        float* dqg = a.dq32 + (long long)t.bh0 * sq * D + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          if (row_a < sq)
+            *reinterpret_cast<float2*>(dqg + (long long)row_a * D + 8 * n) =
+                make_float2(scale * dq[4 * n], scale * dq[4 * n + 1]);
+          if (row_b < sq)
+            *reinterpret_cast<float2*>(dqg + (long long)row_b * D + 8 * n) =
+                make_float2(scale * dq[4 * n + 2], scale * dq[4 * n + 3]);
+        }
+      }
+    } else if (out) {
       const int rw = warp * 16 + g;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
@@ -2045,7 +2107,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     }
     hopper::named_barrier_sync(1 + wg, 128);  // the warpgroup's rows are in
     if (threadIdx.x % 128 == 0) {
-      if (out) {
+      if (!F32 && out) {
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
           put_rows(&a.dq, a.order_dq, ob + c * L::kQBlock, 64 * c, wrow0, hh,
@@ -2061,12 +2123,12 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
 }
 
 // one block an SM, walking the work items of (DqSmem::kRows query rows,
-// batch*head)
-template <int D, bool SEG, bool DROP>
+// batch*head); F32: dq in fp32
+template <int D, bool SEG, bool F32, bool DROP>
 __global__ void __launch_bounds__(DqSmem<D, SEG, DROP>::kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ DqArgs a) {
   extern __shared__ unsigned char smem_raw[];
-  dq_items<D, SEG, DROP>(a, hopper::align1024(smem_raw));
+  dq_items<D, SEG, F32, DROP>(a, hopper::align1024(smem_raw));
 }
 
 // dynamic shared memory above the 48 KB default needs an opt-in, once
@@ -2221,12 +2283,12 @@ int launch_fwd_packed(const void* q, const void* k, const void* v, void* o,
 
 // one backward launch's arguments, its tensor maps built for this call:
 // q, k, v, dout strided as `st` gives them (12 values), dk, dv (and with
-// dq_acc, dq) contiguous
+// dq_acc, dq) contiguous; `f32`: dk and dv are fp32, written without maps
 int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
              const void* dout, const void* lse, const void* delta,
              void* dq_acc, void* dk, void* dv, void* work,
              const long long* st, int b, int h, int sq, int sk, float scale,
-             int causal, int hp, Seg seg, Drop drop) {
+             int causal, int hp, Seg seg, Drop drop, bool f32) {
   *a = BwdArgs{};
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, kBwdRows);
   if (e == 0)
@@ -2238,9 +2300,14 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
                  kBwdRows);
   // the output slices' boxes: 16 rows of one consumer warp
   const long long ok[3] = {(long long)h * sk * D, (long long)sk * D, D};
-  if (e == 0) e = map_bhsd(&a->dk, &a->order_dkv, dk, ok, b, h, sk, D, 16);
-  int order_dv = 0;
-  if (e == 0) e = map_bhsd(&a->dv, &order_dv, dv, ok, b, h, sk, D, 16);
+  if (f32) {
+    a->dk32 = static_cast<float*>(dk);
+    a->dv32 = static_cast<float*>(dv);
+  } else {
+    if (e == 0) e = map_bhsd(&a->dk, &a->order_dkv, dk, ok, b, h, sk, D, 16);
+    int order_dv = 0;
+    if (e == 0) e = map_bhsd(&a->dv, &order_dv, dv, ok, b, h, sk, D, 16);
+  }
   if (e == 0 && dq_acc != nullptr) {
     const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
     e = map_bhsd(&a->dq, &a->order_dq, dq_acc, oq, b, h, sq, D, 16,
@@ -2266,20 +2333,20 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
 }
 
 // DQ: the fused kernel (hp = 1) or the packed one (hp > 1); else the
-// dk/dv pass (hp = 1)
-template <int D, bool SEG, bool DQ, bool DROP>
+// dk/dv pass (hp = 1); F32 (hp = 1): dk and dv in fp32
+template <int D, bool SEG, bool DQ, bool F32, bool DROP>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_acc, void* dk,
                void* dv, void* work, const long long* st, int b, int h,
                int sq, int sk, float scale, int causal, int hp, Seg seg,
                Drop drop, cudaStream_t stream) {
   using L = BwdSmem<D, SEG, DQ>;
-  if ((!DQ && hp != 1) || work == nullptr)
+  if (((!DQ || F32) && hp != 1) || work == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   const int e = bwd_args(&a, D, q, k, v, dout, lse, delta,
                          DQ ? dq_acc : nullptr, dk, dv, work, st, b, h, sq,
-                         sk, scale, causal, hp, seg, drop);
+                         sk, scale, causal, hp, seg, drop, F32);
   if (e != 0) return e;
   const int grid = item_grid(b, h, sk, hp, kBwdKeys);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -2287,11 +2354,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t ce;
   if (hp == 1) {
     static bool opted = false;
-    ce = opt_in(flash_bwd_kernel<D, SEG, DQ, DROP>, smem, opted);
+    ce = opt_in(flash_bwd_kernel<D, SEG, DQ, F32, DROP>, smem, opted);
     if (ce != cudaSuccess) return static_cast<int>(ce);
-    flash_bwd_kernel<D, SEG, DQ, DROP><<<grid, L::kThreads, smem, stream>>>(
-        a);
-  } else if constexpr (DQ) {
+    flash_bwd_kernel<D, SEG, DQ, F32, DROP>
+        <<<grid, L::kThreads, smem, stream>>>(a);
+  } else if constexpr (DQ && !F32) {
     static bool opted = false;
     ce = opt_in(flash_bwd_packed_kernel<D, SEG, DROP>, smem, opted);
     if (ce != cudaSuccess) return static_cast<int>(ce);
@@ -2303,26 +2370,30 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
 
 // one dq-pass launch's arguments, its tensor maps built for this call:
 // q, k, v, dout strided as `st` gives them (12 values; boxes of `rows`
-// query rows and `keys` keys), dq contiguous (boxes of 64 rows)
+// query rows and `keys` keys), dq contiguous (boxes of 64 rows; `f32`: an
+// fp32 dq, written without a map)
 int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
             const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dq, void* work, const long long* st,
             int b, int h, int sq, int sk, float scale, int causal, Seg seg,
-            Drop drop) {
+            Drop drop, bool f32) {
   *a = DqArgs{};
   int e = fwd_args(a, D, rows, q, k, v, nullptr, const_cast<void*>(lse), st,
                    b, h, sq, sk, scale, causal, 1, seg, drop, keys);
   if (e == 0)
     e = map_bhsd(&a->dout, &a->order_do, dout, st + 9, b, h, sq, D, rows);
   const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
-  if (e == 0) e = map_bhsd(&a->dq, &a->order_dq, dq, oq, b, h, sq, D, 64);
+  if (f32)
+    a->dq32 = static_cast<float*>(dq);
+  else if (e == 0)
+    e = map_bhsd(&a->dq, &a->order_dq, dq, oq, b, h, sq, D, 64);
   a->delta = static_cast<const float*>(delta);
   a->work = static_cast<int*>(work);
   a->scale = scale;
   return e;
 }
 
-template <int D, bool SEG, bool DROP>
+template <int D, bool SEG, bool F32, bool DROP>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, void* work, const long long* st, int b, int h,
@@ -2332,16 +2403,18 @@ int launch_bwd_dq(const void* q, const void* k, const void* v,
   if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
   const int e = dq_args(&a, D, L::kRows, L::kKeys, q, k, v, dout, lse, delta,
-                        dq, work, st, b, h, sq, sk, scale, causal, seg, drop);
+                        dq, work, st, b, h, sq, sk, scale, causal, seg, drop,
+                        F32);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t smem = L::kBytes;
   const cudaError_t ce =
-      opt_in(flash_bwd_dq_kernel<D, SEG, DROP>, smem, opted);
+      opt_in(flash_bwd_dq_kernel<D, SEG, F32, DROP>, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_kernel<D, SEG, DROP><<<grid, L::kThreads, smem, stream>>>(a);
+  flash_bwd_dq_kernel<D, SEG, F32, DROP>
+      <<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2424,8 +2497,9 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
 // The fused backward: as above, plus dout (strided like q; its strides
 // follow q, k, v's in `strides`, 12 values), lse and delta (b, h, sq) fp32
 // contiguous, dq_acc (b, h, sq, d) fp32 contiguous and ZEROED (dq is added
-// into it, scaled), dk and dv (b, h, sk, d) bf16 contiguous, and `work`,
-// one ZEROED int32 (the launch's work-item counter).
+// into it, scaled), dk and dv (b, h, sk, d) contiguous, bf16 (or fp32 when
+// `out_f32` is 1: the F32 instantiations), and `work`, one ZEROED int32
+// (the launch's work-item counter).
 extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -2433,6 +2507,7 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    void* work, const long long* strides,
                                    int b, int h,
                                    int sq, int sk, float scale, int causal,
+                                   int out_f32,
                                    int dropout, float inv, int thresh,
                                    int seed, int q_off, int k_off,
                                    const void* q_seg, const void* kv_seg,
@@ -2443,23 +2518,30 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
-    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true,
-                      decltype(drops)::value>(
-        q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
-        sk, scale, causal, 1, seg, drop, s);
+    constexpr int D = decltype(d)::value;
+    constexpr bool G = decltype(has_seg)::value, R = decltype(drops)::value;
+    return out_f32 ? launch_bwd<D, G, true, true, R>(
+                         q, k, v, dout, lse, delta, dq_acc, dk, dv, work,
+                         strides, b, h, sq, sk, scale, causal, 1, seg, drop,
+                         s)
+                   : launch_bwd<D, G, true, false, R>(
+                         q, k, v, dout, lse, delta, dq_acc, dk, dv, work,
+                         strides, b, h, sq, sk, scale, causal, 1, seg, drop,
+                         s);
   });
 }
 
 // The split backward's dq pass: the fused backward's arguments, with dq
-// (b, h, sq, d) bf16 contiguous, written once (no zeroing), in place of
-// dq_acc, dk and dv, and `work`, one ZEROED int32 (the launch's work-item
-// counter).
+// (b, h, sq, d) contiguous, bf16 (fp32 with `out_f32`), written once (no
+// zeroing), in place of dq_acc, dk and dv, and `work`, one ZEROED int32
+// (the launch's work-item counter).
 extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
                                       const void* k, const void* v,
                                       const void* dout, const void* lse,
                                       const void* delta, void* dq, void* work,
                                       const long long* strides, int b, int h,
                                       int sq, int sk, float scale, int causal,
+                                      int out_f32,
                                       int dropout, float inv, int thresh,
                                       int seed, int q_off, int k_off,
                                       const void* q_seg, const void* kv_seg,
@@ -2470,10 +2552,14 @@ extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
-    return launch_bwd_dq<decltype(d)::value, decltype(has_seg)::value,
-                         decltype(drops)::value>(
-        q, k, v, dout, lse, delta, dq, work, strides, b, h, sq, sk, scale,
-        causal, seg, drop, s);
+    constexpr int D = decltype(d)::value;
+    constexpr bool G = decltype(has_seg)::value, R = decltype(drops)::value;
+    return out_f32 ? launch_bwd_dq<D, G, true, R>(
+                         q, k, v, dout, lse, delta, dq, work, strides, b, h,
+                         sq, sk, scale, causal, seg, drop, s)
+                   : launch_bwd_dq<D, G, false, R>(
+                         q, k, v, dout, lse, delta, dq, work, strides, b, h,
+                         sq, sk, scale, causal, seg, drop, s);
   });
 }
 
@@ -2489,7 +2575,7 @@ extern "C" int apex_flash_attn_bwd_dq_smem(int head_dim, int seg) {
 }
 
 // The split backward's dk/dv pass: the fused backward's arguments without
-// dq_acc.
+// dq_acc (dk and dv fp32 with `out_f32`).
 extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
@@ -2497,7 +2583,8 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        void* work, const long long* strides,
                                        int b,
                                        int h, int sq, int sk, float scale,
-                                       int causal, int dropout, float inv,
+                                       int causal, int out_f32,
+                                       int dropout, float inv,
                                        int thresh, int seed, int q_off,
                                        int k_off, const void* q_seg,
                                        const void* kv_seg, long long q_seg_sb,
@@ -2507,10 +2594,16 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
-    return launch_bwd<decltype(d)::value, decltype(has_seg)::value, false,
-                      decltype(drops)::value>(
-        q, k, v, dout, lse, delta, nullptr, dk, dv, work, strides, b, h, sq,
-        sk, scale, causal, 1, seg, drop, s);
+    constexpr int D = decltype(d)::value;
+    constexpr bool G = decltype(has_seg)::value, R = decltype(drops)::value;
+    return out_f32 ? launch_bwd<D, G, false, true, R>(
+                         q, k, v, dout, lse, delta, nullptr, dk, dv, work,
+                         strides, b, h, sq, sk, scale, causal, 1, seg, drop,
+                         s)
+                   : launch_bwd<D, G, false, false, R>(
+                         q, k, v, dout, lse, delta, nullptr, dk, dv, work,
+                         strides, b, h, sq, sk, scale, causal, 1, seg, drop,
+                         s);
   });
 }
 
@@ -2570,7 +2663,7 @@ extern "C" int apex_flash_attn_bwd_packed(
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
     return launch_bwd<decltype(d)::value, decltype(has_seg)::value, true,
-                      decltype(drops)::value>(
+                      false, decltype(drops)::value>(
         q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
         sk, scale, causal, hp, seg, drop, s);
   });

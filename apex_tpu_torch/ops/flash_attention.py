@@ -51,6 +51,14 @@ seed is one host draw from the key, a CPU `torch.Generator`, as the JAX
 package draws an int32 from its key; q_off / k_off shift the hash's rows
 and keys for a chunk of a longer sequence.
 
+`_fwd_impl` and `_bwd_impl` are the JAX package's chunk entry points,
+which ring attention (`parallel/context_parallel.py`) runs on each chunk
+pair: the forward's o and fp32 lse, and the backward from a given lse,
+with `grad_dtype=torch.float32` for fp32 dq, dk and dv (the backward
+launchers' `out_dtype`, the F32 kernel instantiations; the fused
+kernel's dq is its fp32 scratch, uncast), so that the ring's partials
+add up in fp32 and are rounded once.
+
 On CUDA the kernels take the surface the training steps use: causal or
 not, segment ids or not (BERT's padding mask), dropout or not, bf16,
 head_dim 64 or 128, no bias.  A bias raises NotImplementedError on CUDA;
@@ -389,32 +397,35 @@ def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
                            q_seg=None, kv_seg=None, dropout_rate=0.0,
-                           seed=(0, 0, 0)):
+                           seed=(0, 0, 0), out_dtype=None):
     """Plain version of the backward's dq (the split route's dq pass,
     `_bwd_dq_kernel`, and the fused kernels' dq), on any device: dq =
     scale ds k from the forward's fp32 `lse` and `delta = sum(do * o,
     -1)` in fp32, ds rounded to the inputs' dtype before its product as
     the kernels round it; `dropout_rate` and `seed` (seed, q_off, k_off)
-    as the forward had them.  Returns dq in q's dtype."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    as the forward had them.  Returns dq in q's dtype, or `out_dtype`
+    (fp32: the F32 kernels' output, the same sums unrounded)."""
+    out_dtype = out_dtype or q.dtype
+    dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     for r0, r1, nk, _, ds in _split_bwd_blocks(
             q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg, False,
             dropout_rate, seed):
         dq[:, :, r0:r1] = (scale * torch.einsum(
             "bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
-            k[:, :, :nk].float())).to(q.dtype)
+            k[:, :, :nk].float())).to(out_dtype)
     return dq
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, causal,
                             q_seg=None, kv_seg=None, dropout_rate=0.0,
-                            seed=(0, 0, 0)):
+                            seed=(0, 0, 0), out_dtype=None):
     """Plain version of the backward's dk and dv (the split route's dk/dv
     pass, `_bwd_dkv_kernel`, and the fused kernels' dk, dv), on any
     device: dv = pᵀ do (p dropped and scaled with dropout) and dk = scale
     dsᵀ q, summed over the query blocks in fp32, p and ds rounded to the
     inputs' dtype before their products; `dropout_rate` and `seed` as
-    the forward had them.  Returns (dk, dv) in k's and v's dtypes."""
+    the forward had them.  Returns (dk, dv) in k's and v's dtypes, or
+    both in `out_dtype`."""
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     for r0, r1, nk, p, ds in _split_bwd_blocks(
@@ -426,7 +437,7 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, causal,
         dk[:, :, :nk] += scale * torch.einsum(
             "bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
             q[:, :, r0:r1].float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
 
 
 # ------------------------------- CUDA kernels -------------------------------
@@ -446,20 +457,22 @@ def _bind(lib):
     lib.apex_flash_attn_fwd.argtypes = [
         i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
         *seg, vp]
-    # the backward kernels take a zeroed int32 work-item counter after dv
+    # the backward kernels take a zeroed int32 work-item counter after dv,
+    # and after `causal` a flag for fp32 gradients (the F32
+    # instantiations)
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32,
-        i32, f32, i32, *seg, vp]
+        i32, f32, i32, i32, *seg, vp]
     # the dq pass: dq, then its zeroed int32 work-item counter
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
-        i32, *seg, vp]
+        i32, i32, *seg, vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
-        f32, i32, *seg, vp]
+        f32, i32, i32, *seg, vp]
     # the packed pair: the unpacked arguments with hp after `causal`
     lib.apex_flash_attn_fwd_packed.restype = i32
     lib.apex_flash_attn_fwd_packed.argtypes = [
@@ -688,35 +701,55 @@ def _dq_scratch(b, h, sq, d, device):
     return buf[:n].view(b, h, sq, d), buf.data_ptr() + 4 * n
 
 
+def _grad_dtype(out_dtype, q):
+    """The backward launchers' output dtype and the C flag for it: None
+    or q's dtype (bf16) launches the kernels as they were; fp32 the F32
+    instantiations."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return q.dtype, 0
+    if out_dtype == torch.float32:
+        return torch.float32, 1
+    raise ValueError(f"the flash backward kernels write bf16 or fp32 "
+                     f"gradients, not {out_dtype}")
+
+
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                   kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
+                   kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
+                   out_dtype=None):
     """Launch the fused backward kernel on the current stream: dq, dk, dv
     from q, k, v, the output gradient `do`, the forward's fp32 `lse` and
     `delta = sum(do * o, -1)` in fp32, with the forward's segment ids and
-    dropout (`dropout_rate`, `seed`: the mask regenerated).  dq is summed across key tiles in an fp32 scratch buffer by bulk
-    reduce-adds and cast once.  `flash_bwd_cuda.launches` counts
-    launches."""
+    dropout (`dropout_rate`, `seed`: the mask regenerated).  dq is summed
+    across key tiles in an fp32 scratch buffer by bulk reduce-adds and
+    cast once.  `out_dtype=torch.float32` returns that fp32 dq uncast and
+    launches the F32 instantiation, which writes dk and dv in fp32 (their
+    bf16 launch's values before the rounding).  `flash_bwd_cuda.launches`
+    counts launches, `.f32_launches` those with fp32 outputs (each
+    backward launcher has both)."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    gdt, f32 = _grad_dtype(out_dtype, q)
     dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
-    dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+    dk = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
+    dv = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
-        float(scale), int(bool(causal)), *seg, stream)
+        float(scale), int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "backward")
     flash_bwd_cuda.launches += 1
     flash_bwd_cuda.dropout_launches += int(dropout_rate > 0.0)
-    return dq_acc.to(q.dtype), dk, dv
+    flash_bwd_cuda.f32_launches += f32
+    return (dq_acc if f32 else dq_acc.to(q.dtype)), dk, dv
 
 
 flash_bwd_cuda.launches = 0
 flash_bwd_cuda.dropout_launches = 0
+flash_bwd_cuda.f32_launches = 0
 
 
 def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
@@ -752,61 +785,159 @@ flash_bwd_packed_cuda.dropout_launches = 0
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                      kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
+                      kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
+                      out_dtype=None):
     """Launch the split backward's dq pass on the current stream (the
     arguments of `flash_bwd_cuda`).  Each dq row is summed over its key
-    tiles in registers and written once, in bf16: no atomics, the same
-    bits on every run.  The kernel takes its work items from a zeroed
-    int32 counter.  `flash_bwd_dq_cuda.launches` counts launches."""
+    tiles in registers and written once, in bf16 (fp32 with
+    `out_dtype=torch.float32`: the F32 instantiation): no atomics, the
+    same bits on every run.  The kernel takes its work items from a
+    zeroed int32 counter.  `flash_bwd_dq_cuda.launches` counts
+    launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    gdt, f32 = _grad_dtype(out_dtype, q)
+    dq = torch.empty((b, h, sq, d), dtype=gdt, device=q.device)
     work = torch.zeros(1, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd_dq(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), work.data_ptr(),
         _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), *seg, stream)
+        int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "dq pass")
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.dropout_launches += int(dropout_rate > 0.0)
+    flash_bwd_dq_cuda.f32_launches += f32
     return dq
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.dropout_launches = 0
+flash_bwd_dq_cuda.f32_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
-                       kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0)):
+                       kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
+                       out_dtype=None):
     """Launch the split backward's dk/dv pass on the current stream (the
     arguments of `flash_bwd_cuda`): the fused kernel without its dq
     part, so dk and dv are the fused kernel's bit for bit.  Returns (dk,
-    dv) in bf16.  `flash_bwd_dkv_cuda.launches` counts launches."""
+    dv) in bf16, or fp32 with `out_dtype=torch.float32`.
+    `flash_bwd_dkv_cuda.launches` counts launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    dk = torch.empty((b, h, sk, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, h, sk, d), dtype=v.dtype, device=q.device)
+    gdt, f32 = _grad_dtype(out_dtype, q)
+    dk = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
+    dv = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
     work = torch.zeros(4, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_bwd_dkv(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         work.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), *seg, stream)
+        int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "dk/dv pass")
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.dropout_launches += int(dropout_rate > 0.0)
+    flash_bwd_dkv_cuda.f32_launches += f32
     return dk, dv
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.dropout_launches = 0
+flash_bwd_dkv_cuda.f32_launches = 0
+
+
+# ----------------------- the chunk entry points (ring) -----------------------
+#
+# The JAX package's internal `_fwd_impl` / `_bwd_impl` (ops/flash_attention
+# .py:807, :884), which its ring attention runs on each (query chunk, key
+# chunk) pair with the chunks' global offsets (parallel/context_parallel
+# .py:180-207).  CUDA tensors run the kernels (or raise), CPU tensors the
+# plain versions.
+
+def _chunk_checks(bias, want_dbias=False):
+    if bias is not None or want_dbias:
+        raise NotImplementedError(
+            "the flash chunk entry points take no bias and give no dbias "
+            "yet (ROADMAP Queue 2 item 38)")
+
+
+def _fwd_impl(q, k, v, scale, causal, dropout_rate=0.0, seed=None,
+              block_q=None, block_k=None, bias=None, q_seg=None,
+              kv_seg=None, q_off=0, k_off=0, heads_per_step=1):
+    """The forward on one chunk pair (the JAX package's `_fwd_impl`):
+    (o in q's dtype, lse (b, h, sq) fp32).  `seed` is the int32 dropout
+    seed (None: 0); `q_off` / `k_off` are the chunk's global query row
+    and key offsets, which only the dropout hash reads (`_seed3`), so the
+    mask is the gathered sequence's.  `causal` is the chunk's own
+    top-left diagonal.  block_q / block_k are validated as
+    `flash_attention` validates them; heads_per_step > 1 runs the packed
+    forward on CUDA."""
+    _chunk_checks(bias)
+    sq, sk = q.shape[2], k.shape[2]
+    _fit_block(block_q, sq, "block_q")
+    _fit_block(block_k, sk, "block_k")
+    seed3 = _seed3(seed, q_off, k_off)
+    extras = [t for t in (q_seg, kv_seg) if t is not None]
+    if not check_kernel_device(q, k, v, *extras):
+        return flash_fwd_reference(q, k, v, scale, causal, q_seg, kv_seg,
+                                   dropout_rate, seed3)
+    hp = _resolve_heads_per_step(heads_per_step, q.shape[1])
+    if hp > 1:
+        return flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg,
+                                     kv_seg, dropout_rate, seed3)
+    return flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg,
+                          dropout_rate, seed3)
+
+
+def _bwd_impl(q, k, v, o, lse, do, scale, causal, dropout_rate=0.0,
+              seed=None, block_q=None, block_k=None, bias=None,
+              q_seg=None, kv_seg=None, want_dbias=False, grad_dtype=None,
+              q_off=0, k_off=0, heads_per_step=1):
+    """The backward on one chunk pair (the JAX package's `_bwd_impl`):
+    (dq, dk, dv, None), from the forward's o and fp32 lse (the ring
+    passes the global ones) and the output gradient `do`; delta =
+    sum(do * o) in fp32, as the JAX package forms it.  `grad_dtype`
+    (None: the inputs' dtypes; fp32: the F32 kernels, so that the ring
+    sums its partials in fp32 and rounds once).  On CUDA the route is
+    `backward_route`'s: the packed fused kernel, the fused kernel or the
+    split pair; fp32 gradients with heads packed raise.  On the CPU the
+    plain versions (`flash_bwd_dq_reference`, `flash_bwd_dkv_reference`)
+    give every dtype."""
+    _chunk_checks(bias, want_dbias)
+    sq, sk = q.shape[2], k.shape[2]
+    _fit_block(block_q, sq, "block_q")
+    _fit_block(block_k, sk, "block_k")
+    seed3 = _seed3(seed, q_off, k_off)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg,
+            dropout_rate, seed3)
+    extras = [t for t in (q_seg, kv_seg) if t is not None]
+    if not check_kernel_device(q, k, v, do, lse, *extras):
+        dq = flash_bwd_dq_reference(*args, out_dtype=grad_dtype)
+        dk, dv = flash_bwd_dkv_reference(*args, out_dtype=grad_dtype)
+        return dq, dk, dv, None
+    hp = _resolve_heads_per_step(heads_per_step, q.shape[1])
+    route = backward_route(sk, q.shape[3], hp)
+    if route == "packed":
+        if grad_dtype is not None and grad_dtype != q.dtype:
+            raise NotImplementedError(
+                "fp32 flash gradients with heads packed (heads_per_step > "
+                "1): the packed backward writes bf16 only (ROADMAP Queue 2 "
+                "item 46)")
+        dq, dk, dv = flash_bwd_packed_cuda(*args[:8], hp, *args[8:])
+    elif route == "fused":
+        dq, dk, dv = flash_bwd_cuda(*args, out_dtype=grad_dtype)
+    else:
+        dq = flash_bwd_dq_cuda(*args, out_dtype=grad_dtype)
+        dk, dv = flash_bwd_dkv_cuda(*args, out_dtype=grad_dtype)
+    return dq, dk, dv, None
 
 
 class _FlashFn(torch.autograd.Function):

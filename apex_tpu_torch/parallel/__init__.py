@@ -1,14 +1,15 @@
 """apex_tpu_torch.parallel — distributed utilities (counterpart of
 apex_tpu.parallel): the process groups of `mesh` (data, tensor and
-pipeline parallelism; cp and ep come with later ROADMAP items), the Megatron
+pipeline parallelism; ep comes with a later ROADMAP item), the Megatron
 region collectives of `collectives`, the chunked compute/collective
-overlap of `overlap`, the data-parallel train step and gradient sync of
+overlap of `overlap`, ring attention and Ulysses of `context_parallel`,
+the data-parallel train step and gradient sync of
 `ddp`, the batch norm of `sync_batchnorm` (statistics merged across a
 process group), the `larc` optimizer wrapper, `clip_grad` and the
 `multiproc` launcher."""
 
 _LAZY = {"ddp", "sync_batchnorm", "larc", "clip_grad", "mesh", "multiproc",
-         "collectives", "overlap"}
+         "collectives", "overlap", "context_parallel"}
 
 
 def __getattr__(name):

@@ -16,8 +16,9 @@ rank creates every group, in one fixed order (the tp groups, the dp
 groups, then the pp groups and the planes); a group that spans the
 whole world is the world itself.  At pp = 1 the tp and dp groups are
 the ones the port made before pipeline parallelism, member for member.
-Context and expert parallelism raise, naming the ROADMAP items that
-bring them (15, 16).
+Expert parallelism raises, naming the ROADMAP item that brings it (16).
+Context parallelism needs no axis of its own: as in the JAX package,
+`parallel.context_parallel` rings over whatever group it is given.
 
 A world of one needs no `init_process_group`: with torch.distributed
 not initialized every group is None, its size 1 and its rank 0, and the
@@ -130,7 +131,6 @@ def initialize_model_parallel(
         virtual_pipeline_model_parallel_size: Optional[int] = None,
         pipeline_model_parallel_split_rank: Optional[int] = None,
         expert_model_parallel_size: int = 1,
-        context_parallel_size: int = 1,
         use_fp8: bool = False):
     """Split the torch.distributed world into the (pp, dp, tp) groups
     (≡ the JAX package's `initialize_model_parallel` at ep = 1: dp =
@@ -144,15 +144,14 @@ def initialize_model_parallel(
                     ("pipeline_model_parallel_size", pp)):
         if n < 1:
             raise ValueError(f"{what} must be >= 1, got {n}")
-    for what, n, item in (
-            ("context_parallel_size", context_parallel_size, 15),
-            ("expert_model_parallel_size", expert_model_parallel_size, 16)):
-        if n < 1:
-            raise ValueError(f"{what} must be >= 1, got {n}")
-        if n != 1:
-            raise NotImplementedError(
-                f"{what}={n}: only data, tensor and pipeline parallelism "
-                f"are ported; this comes with ROADMAP Queue 1 item {item}")
+    ep = expert_model_parallel_size
+    if ep < 1:
+        raise ValueError(f"expert_model_parallel_size must be >= 1, got {ep}")
+    if ep != 1:
+        raise NotImplementedError(
+            f"expert_model_parallel_size={ep}: only data, tensor and "
+            f"pipeline parallelism are ported; this comes with ROADMAP "
+            f"Queue 1 item 16")
     world_group = _world_group()
     world, rank = group_size(world_group), group_rank(world_group)
     if world % (tp * pp):

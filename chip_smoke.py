@@ -11,10 +11,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  registers and spills by kernel, the flash backward's
                  and the dq pass's dynamic shared memory and any
                  serialised-wgmma note (C7512, C7515, C7518, C7520) are
-                 logged; the dq pass's eight kernels must have no spills
-                 and no such note, the 24 dropout instantiations of the
-                 flash kernels no spill and no such note that their
-                 rate-0 twins lack, nor the fused dense GEMM's fp32 and
+                 logged; the dq pass's sixteen kernels must have no
+                 spills and no such note, the 36 dropout instantiations
+                 of the flash kernels no spill and no such note that
+                 their rate-0 twins lack, the 24 fp32-output
+                 instantiations of the backward kernels (the fused
+                 kernel, the dk/dv pass, the dq pass) no spill and no
+                 such note that their bf16 twins lack, nor the fused
+                 dense GEMM's fp32 and
                  GEMV kernels any spill (their registers and spills in
                  its summary line, by kernel family), nor any kernel of
                  the LayerNorm forward and backward, flash-decode or
@@ -118,7 +122,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  shards' per-tensor sums of squares summed in rank order
                  within 1e-5 relative of the whole buffer's (the same
                  bits on a second run), one shard's time beside the
-                 whole buffer's.
+                 whole buffer's; the backward kernels with fp32 outputs
+                 (the ring's chunk backward) at the ring's chunk shapes
+                 (1, 8, 4096 / 8192 / 16384, 64) causal and not, sq !=
+                 sk off the tile, head_dim 128 with padding and a dead
+                 row, dropout 0.1 at q_off / k_off 8192 / 4096: the
+                 bf16 launches' dk, dv and the dq pass's dq equal the
+                 fp32 ones rounded, bit for bit, each fp32 launch twice
+                 the same bits (the fused kernel's dq within
+                 tolerance), the dk/dv pass's the fused kernel's, every
+                 fp32 output against the plain versions with fp32
+                 outputs within 1e-2 of its largest magnitude.
   3. engine      the flagship serving path at full width: GPT-350M in
                  bf16 (random weights, seed 0), 64 slots, 64 requests
                  with the bench's ragged prompts (1..128 tokens) and 32
@@ -346,7 +360,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  through the same stages, the in-flight peaks (1F1B's
                  bound; gpipe all 8), 1f1b's peak memory below gpipe's,
                  wall and device ms a step.
- 17. table       the kernels' times on the card (CUDA events) beside
+ 17. slice 20    context parallelism.  (a) On the card as a one-rank
+                 NCCL group, bench.py's 32k shape (1, 8, 32768, 64)
+                 bf16 causal as grad(mean(o)), 1 + 5 iterations each,
+                 through `flash_attention`, the contiguous ring, the
+                 zigzag ring and Ulysses over the world group: the
+                 contiguous ring at n = 1 is `flash_attention` bit for
+                 bit (o, dq, dk, dv), zigzag and Ulysses within 1e-2 of
+                 each tensor's largest magnitude; launches an iteration
+                 (contiguous one forward, one dq pass and one dk/dv pass,
+                 the two fp32; zigzag three of each; Ulysses
+                 `flash_attention`'s); ms, tokens/s, peak memory beside
+                 phase 9's leg.  (b) With no process group, the same
+                 shape as 4 virtual ranks through `emulate_ring` (the
+                 ring's step functions), contiguous and zigzag, causal,
+                 rates 0 and 0.1: o and the gradients within 1e-2 of
+                 single-device flash attention over the gathered
+                 sequence with the same seed, each rank's launches as
+                 the schedule implies (contiguous rank r: r + 1 chunks
+                 on the split pair at 8192 keys; zigzag: 2n + 1
+                 half-chunks a rank on the fused kernel at 4096; the
+                 backward's fp32; skipped chunks launch nothing), and at
+                 0.1 each kernel's mask read back at every chunk offset
+                 pair the schedule ran.  (c) examples/
+                 torch_long_context_training.py at its own defaults
+                 (seq 32768, hidden 128, 2 heads, 2 layers, vocab 512)
+                 on the one-rank group, 1 + 3 steps: the loss falls, the
+                 launches a step, no host sync, one profiled step,
+                 tokens/s, peak memory, the first-step loss within 2e-3
+                 relative of the same model through the plain fp32
+                 chunk versions on the card.
+ 18. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -368,8 +412,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  instantiations at rate 0.1 beside their rate-0 times
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
-                 buffers', and each kernel's launches in slice 17's and
-                 slice 19's legs.
+                 buffers', each kernel's launches in slice 17's, 19's
+                 and 20's legs (the backward rows' fp32 launches apart),
+                 and the backward kernels with fp32 outputs at the
+                 ring's chunk shapes beside their bf16 launches and
+                 both bounds.
 
 The tuner's cache is pinned to a fresh temporary file for the whole run,
 so no cache elsewhere changes a phase's kernels: phase 5's step consults
@@ -880,7 +927,7 @@ def check_dropout_ptxas(log_text):
         check(not new, f"dropout instantiation {name}: serialised-wgmma "
               f"notes {sorted(new)} that its rate-0 twin lacks")
         out[name] = (r.get("registers"), rows[twin].get("registers"))
-    check(len(out) == 24, f"{len(out)} dropout instantiations, want 24")
+    check(len(out) == 36, f"{len(out)} dropout instantiations, want 36")
     return out
 
 
@@ -1679,11 +1726,21 @@ DROPOUT_KERNELS = {
     "flash_attention_bwd_dkv_dropout": "flash_bwd_dkv_cuda"}
 
 
+# the flash backward launchers' counts of their fp32-output launches (the
+# F32 instantiations, the ring's chunk backward), by row name
+F32_KERNELS = {
+    "flash_attention_bwd_f32": "flash_bwd_cuda",
+    "flash_attention_bwd_dq_f32": "flash_bwd_dq_cuda",
+    "flash_attention_bwd_dkv_f32": "flash_bwd_dkv_cuda"}
+
+
 def kernel_counts(fa, ln, ok):
     counts = {name: fn.launches
               for name, fn in training_kernels(fa, ln, ok).items()}
     counts.update({name: getattr(fa, fn).dropout_launches
                    for name, fn in DROPOUT_KERNELS.items()})
+    counts.update({name: getattr(fa, fn).f32_launches
+                   for name, fn in F32_KERNELS.items()})
     return counts
 
 
@@ -1692,6 +1749,8 @@ def reset_kernel_counts(fa, ln, ok):
         fn.launches = 0
     for fn in DROPOUT_KERNELS.values():
         getattr(fa, fn).dropout_launches = 0
+    for fn in F32_KERNELS.values():
+        getattr(fa, fn).f32_launches = 0
 
 
 def tune_stats(reset=False):
@@ -6210,6 +6269,558 @@ def slice19_phase(torch, fa, ln, ok):
     return out
 
 
+# ------------------ slice 20: context parallelism ------------------------------
+#
+# Ring attention and Ulysses (apex_tpu_torch/parallel/context_parallel.py)
+# over the flash kernels' chunk entry points, whose backward kernels write
+# fp32 gradients for the ring (the F32 instantiations).
+
+RING_CHUNK_SHAPES = ((1, 8, 4096, 64), (1, 8, 8192, 64), (1, 8, 16384, 64))
+VIRTUAL_RANKS = 4
+CP_SEED = 0x5EED20               # the phase-17 legs' dropout seed
+
+
+def f32_twin(name):
+    """The bf16 twin of an F32 instantiation's mangled name
+    (flash_bwd_kernel<D, SEG, DQ, F32, DROP>, flash_bwd_dq_kernel<D, SEG,
+    F32, DROP>: the argument before the last, `Lb1E`, set to `Lb0E`), or
+    None if `name` is not one."""
+    m = re.match(r"(.*(?:flash_bwd_kernel|flash_bwd_dq_kernel)I"
+                 r"(?:L[ib]\d+E)*)Lb1E(Lb[01]EE.*)", name)
+    return None if m is None else f"{m.group(1)}Lb0E{m.group(2)}"
+
+
+def check_f32_ptxas(log_text):
+    """Phase 1's gate on the fp32-output instantiations: each has no
+    spill and no serialised-wgmma note that its bf16 twin lacks.  Returns
+    their registers by kernel, beside the twin's."""
+    rows, notes = flash_ptxas(log_text)
+    out = {}
+    for name, r in rows.items():
+        twin = f32_twin(name)
+        if twin is None or twin not in rows:
+            continue
+        check(r.get("spills", "").startswith(
+            "0 bytes stack frame, 0 bytes spill"),
+            f"fp32 instantiation {name} spills: {r}")
+        new = set(notes.get(name, [])) - set(notes.get(twin, []))
+        check(not new, f"fp32 instantiation {name}: serialised-wgmma notes "
+              f"{sorted(new)} that its bf16 twin lacks")
+        out[name] = (r.get("registers"), rows[twin].get("registers"))
+    check(len(out) == 24, f"{len(out)} fp32 instantiations, want 24")
+    return out
+
+
+def check_f32_grads(torch, fa, rng, *, b, h, sq, sk, d, causal, q_seg=None,
+                    kv_seg=None, rate=0.0, offs=(0, 0)):
+    """The backward kernels with fp32 outputs (`out_dtype=torch.float32`)
+    on one bf16 input: the fused kernel's dk, dv and the dk/dv pass's are
+    the bf16 launches' before the rounding (rounded to bf16 they equal
+    them bit for bit), and so is the dq pass's dq; each fp32 launch twice
+    gives the same bits (the fused kernel's dq, summed by reduce-adds in
+    an order that varies, within the tolerance); the dk/dv pass's fp32
+    dk, dv equal the fused kernel's; every fp32 output against the plain
+    versions with fp32 outputs within 1e-2 of its largest magnitude.
+    `rate` > 0: dropout under (CP_SEED, *offs).  Returns the errors."""
+    dev, bf16, f32 = "cuda", torch.bfloat16, torch.float32
+    q, do = (torch.randn((b, h, sq, d), generator=rng, device=dev).to(bf16)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=rng, device=dev).to(bf16)
+            for _ in range(2))
+    sc = 1.0 / math.sqrt(d)
+    kw = dict(dropout_rate=rate, seed=(CP_SEED, *offs)) if rate else {}
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, q_seg, kv_seg, **kw)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, causal, q_seg, kv_seg)
+    _, fdk16, fdv16 = fa.flash_bwd_cuda(*args, **kw)
+    fdq, fdk, fdv = fa.flash_bwd_cuda(*args, **kw, out_dtype=f32)
+    fdq2, fdk2, fdv2 = fa.flash_bwd_cuda(*args, **kw, out_dtype=f32)
+    sdq16 = fa.flash_bwd_dq_cuda(*args, **kw)
+    sdq = fa.flash_bwd_dq_cuda(*args, **kw, out_dtype=f32)
+    sdq2 = fa.flash_bwd_dq_cuda(*args, **kw, out_dtype=f32)
+    sdk16, sdv16 = fa.flash_bwd_dkv_cuda(*args, **kw)
+    sdk, sdv = fa.flash_bwd_dkv_cuda(*args, **kw, out_dtype=f32)
+    sdk2, sdv2 = fa.flash_bwd_dkv_cuda(*args, **kw, out_dtype=f32)
+    pkw = dict(kw, out_dtype=f32)
+    pdq = fa.flash_bwd_dq_reference(*args, **pkw)
+    pdk, pdv = fa.flash_bwd_dkv_reference(*args, **pkw)
+    torch.cuda.synchronize()
+    case = (f"fp32 grads ({b},{h},{sq},{sk},{d}) causal={causal} "
+            f"ids={q_seg is not None} rate={rate} offs={offs}")
+    check(all(t.dtype == f32 for t in (fdq, fdk, fdv, sdq, sdk, sdv)),
+          f"{case}: an output is not fp32")
+    for name, t32, t16 in (("fused dk", fdk, fdk16), ("fused dv", fdv, fdv16),
+                           ("dq pass dq", sdq, sdq16),
+                           ("dk/dv pass dk", sdk, sdk16),
+                           ("dk/dv pass dv", sdv, sdv16)):
+        check(torch.equal(t32.to(bf16), t16),
+              f"{case}: {name} rounded to bf16 is not the bf16 launch's")
+    for name, a, b_ in (("fused dk", fdk, fdk2), ("fused dv", fdv, fdv2),
+                        ("dq pass dq", sdq, sdq2), ("dk/dv pass dk", sdk, sdk2),
+                        ("dk/dv pass dv", sdv, sdv2),
+                        ("dk/dv pass dk vs fused", sdk, fdk),
+                        ("dk/dv pass dv vs fused", sdv, fdv)):
+        check(torch.equal(a, b_), f"{case}: {name}: two launches differ")
+    return {"fused_dq": max_err(torch, f"{case} fused dq", fdq, pdq),
+            "fused_dq_twice": max_err(torch, f"{case} fused dq twice", fdq2,
+                                      fdq),
+            "dq_pass": max_err(torch, f"{case} dq pass", sdq, pdq),
+            "dk": max_err(torch, f"{case} dk", fdk, pdk),
+            "dv": max_err(torch, f"{case} dv", fdv, pdv)}
+
+
+def f32_checks(torch, fa, rng):
+    """Phase 2's fp32-output checks (module docstring): the ring's chunk
+    shapes causal and not, sq != sk off the tile, head_dim 128 with
+    padding and a dead row, dropout 0.1 at offsets 8192 / 4096."""
+    out = {}
+    for b, h, s, d in RING_CHUNK_SHAPES:
+        for causal in (True, False):
+            out[f"({b},{h},{s},{d}) causal={causal}"] = check_f32_grads(
+                torch, fa, rng, b=b, h=h, sq=s, sk=s, d=d, causal=causal)
+            torch.cuda.empty_cache()
+    for b, h, sq, sk, d, causal in ((2, 4, 100, 300, 64, True),
+                                    (1, 4, 330, 129, 128, False)):
+        out[f"sq={sq} sk={sk} d={d} causal={causal}"] = check_f32_grads(
+            torch, fa, rng, b=b, h=h, sq=sq, sk=sk, d=d, causal=causal)
+    sg = pad_segments(torch, 4, BERT_SEQ, [512, 300, 129, 1])
+    qd = sg.clone()
+    qd[1, 400] = 5                      # a query whose id no key carries
+    out["d=128 padding, a dead row"] = check_f32_grads(
+        torch, fa, rng, b=4, h=8, sq=BERT_SEQ, sk=BERT_SEQ, d=128,
+        causal=False, q_seg=qd, kv_seg=sg)
+    for b, h, s, d in RING_CHUNK_SHAPES[:2]:
+        out[f"({b},{h},{s},{d}) dropout 0.1 offs 8192/4096"] = (
+            check_f32_grads(torch, fa, rng, b=b, h=h, sq=s, sk=s, d=d,
+                            causal=False, rate=0.1, offs=(8192, 4096)))
+    torch.cuda.empty_cache()
+    return out
+
+
+def f32_kernel_times(torch, fa, rng):
+    """The backward kernels at the ring's chunk shapes, bf16 and fp32
+    outputs timed in turns (CUDA events, warm L2): the fused kernel at
+    4096 keys, the dq pass and the dk/dv pass at 8192 and 16384, causal
+    (the diagonal chunk) and not (a full one).  Bounds: q, k, v, do read
+    once in bf16, lse and delta in fp32, the outputs written once in
+    their dtype (fp32: dk and dv double; the fused kernel's dq is fp32
+    either way), against the products' flop (fused 5, dq pass 3, dk/dv
+    pass 4 products of 2d a visible score pair) at the bf16 peak."""
+    out = {}
+    for (b, h, s, d), kernels in zip(RING_CHUNK_SHAPES, (
+            ("fused",), ("dq", "dkv"), ("dq", "dkv"))):
+        q, k, v, do = (torch.randn((b, h, s, d), generator=rng,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        sc = 1.0 / math.sqrt(d)
+        io = b * h * s * d * 2
+        for causal in (True, False):
+            o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal)
+            delta = torch.sum(do.float() * o.float(), dim=-1)
+            args = (q, k, v, do, lse, delta, sc, causal)
+            pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
+            n = 20 if s > 4096 else 60
+            for kern in kernels:
+                fn, products, outs16, outs32 = {
+                    "fused": (fa.flash_bwd_cuda, 5, 2 * io + 2 * io,
+                              2 * io + 4 * io),
+                    "dq": (fa.flash_bwd_dq_cuda, 3, io, 2 * io),
+                    "dkv": (fa.flash_bwd_dkv_cuda, 4, 2 * io, 4 * io)}[kern]
+                t16 = time_ms(torch, lambda: fn(*args), n=n)
+                t32 = time_ms(torch, lambda: fn(*args,
+                                                out_dtype=torch.float32),
+                              n=n)
+                t16b = time_ms(torch, lambda: fn(*args), n=n)
+                t32b = time_ms(torch, lambda: fn(*args,
+                                                 out_dtype=torch.float32),
+                               n=n)
+                ins = 4 * io + 2 * b * h * s * 4
+                flop = 2 * products * d * pairs
+                out[f"{kern} ({b},{h},{s},{d}) causal={causal}"] = {
+                    "bf16_ms": min(t16, t16b), "f32_ms": min(t32, t32b),
+                    "bf16_runs_ms": [t16, t16b], "f32_runs_ms": [t32, t32b],
+                    "f32_bound_ms": 1e3 * max((ins + outs32) / HBM_BYTES_PER_S,
+                                              flop / BF16_FLOPS),
+                    "bf16_bound_ms": 1e3 * max(
+                        (ins + outs16) / HBM_BYTES_PER_S, flop / BF16_FLOPS),
+                    "bound_by": ("bytes" if (ins + outs32) / HBM_BYTES_PER_S
+                                 >= flop / BF16_FLOPS else "operations")}
+            del o, lse, delta, args
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_leg(torch, fa, ln, ok, what, fn, qkv, per_iter, warmup=1, iters=5):
+    """The gradient of fn(q, k, v).float().mean() through autograd,
+    `warmup` + `iters` timed iterations from zeroed launch counts, each
+    count `per_iter` times the iterations.  Returns ((o, dq, dk, dv) of
+    the last iteration, the measurements)."""
+    q, k, v = qkv
+    s = q.shape[0] * q.shape[2]
+
+    def grad():
+        o = fn(q, k, v)
+        return (o.detach(),) + torch.autograd.grad(o.float().mean(),
+                                                   (q, k, v))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln, ok)
+    for _ in range(warmup):
+        out = grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = grad()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / iters
+    counts = kernel_counts(fa, ln, ok)
+    n = warmup + iters
+    for name, want in per_iter.items():
+        check(counts[name] == want * n, f"{what}: {name} {counts[name]} "
+              f"launches in {n} iterations, want {want} each")
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          f"{what}: an output or gradient is not finite")
+    return out, {"warmup": warmup, "iters": iters, "ms": 1e3 * dt,
+                 "tokens_per_s": s / dt,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "launches": {k_: counts[k_] for k_ in per_iter},
+                 "launches_per_iter": per_iter}
+
+
+def _per_iter(fwd=0, fused=0, dq=0, dkv=0, f32=False, drop=False):
+    counts = {"flash_attention_fwd": fwd, "flash_attention_bwd": fused,
+              "flash_attention_bwd_dq": dq, "flash_attention_bwd_dkv": dkv,
+              "flash_attention_bwd_f32": fused if f32 else 0,
+              "flash_attention_bwd_dq_f32": dq if f32 else 0,
+              "flash_attention_bwd_dkv_f32": dkv if f32 else 0,
+              "flash_attention_fwd_packed": 0,
+              "flash_attention_bwd_packed": 0}
+    if drop:
+        counts.update({"flash_attention_fwd_dropout": fwd,
+                       "flash_attention_bwd_dropout": fused,
+                       "flash_attention_bwd_dq_dropout": dq,
+                       "flash_attention_bwd_dkv_dropout": dkv})
+    return counts
+
+
+def one_rank_ring_legs(torch, fa, ln, ok, rng, cp, group, phase9_ms):
+    """Slice 20 (a): bench.py's 32k shape (LONG_SHAPE, bf16, causal) on
+    the one-rank NCCL group: flash_attention (phase 9's leg, for the
+    comparison in this call), the contiguous ring, the zigzag ring and
+    Ulysses, each as grad(mean(o)), 1 + 5 iterations.  The contiguous
+    ring at n = 1 is flash_attention bit for bit (o and the three
+    gradients: one chunk merged into the empty state, the split pair with
+    fp32 outputs rounded once); zigzag and Ulysses within 1e-2 of each
+    tensor's largest magnitude.  Launches an iteration: contiguous one
+    forward, one dq pass and one dk/dv pass, both fp32; zigzag three of
+    each (the three half-chunk pairs of its one step: (b, c) full, (a, c)
+    and (b, d) diagonal), the backward's fp32; Ulysses flash_attention's."""
+    q, k, v = (torch.randn(LONG_SHAPE, generator=rng, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    legs = {}
+    want, legs["flash_attention"] = ring_leg(
+        torch, fa, ln, ok, "32k flash_attention",
+        lambda q, k, v: fa.flash_attention(q, k, v, causal=True), (q, k, v),
+        _per_iter(fwd=1, dq=1, dkv=1))
+    got, legs["ring_contiguous"] = ring_leg(
+        torch, fa, ln, ok, "32k ring contiguous n=1",
+        lambda q, k, v: cp.ring_attention(q, k, v, group, causal=True),
+        (q, k, v), _per_iter(fwd=1, dq=1, dkv=1, f32=True))
+    for name, a, b_ in zip(("o", "dq", "dk", "dv"), got, want):
+        check(torch.equal(a, b_), f"32k ring contiguous n=1: {name} is not "
+              f"flash_attention's bit for bit")
+    legs["ring_contiguous"]["equal_flash_attention_bitwise"] = True
+    del got
+    got, legs["ring_zigzag"] = ring_leg(
+        torch, fa, ln, ok, "32k ring zigzag n=1",
+        lambda q, k, v: cp.ring_attention(q, k, v, group, causal=True,
+                                          layout="zigzag"),
+        (q, k, v), _per_iter(fwd=3, dq=3, dkv=3, f32=True))
+    legs["ring_zigzag"]["max_err_vs_flash_attention"] = {
+        name: max_err(torch, f"32k ring zigzag n=1 {name}", a, b_)
+        for name, a, b_ in zip(("o", "dq", "dk", "dv"), got, want)}
+    del got
+    got, legs["ulysses"] = ring_leg(
+        torch, fa, ln, ok, "32k ulysses n=1",
+        lambda q, k, v: cp.ulysses_attention(q, k, v, group, causal=True),
+        (q, k, v), _per_iter(fwd=1, dq=1, dkv=1))
+    legs["ulysses"]["max_err_vs_flash_attention"] = {
+        name: max_err(torch, f"32k ulysses n=1 {name}", a, b_)
+        for name, a, b_ in zip(("o", "dq", "dk", "dv"), got, want)}
+    del got, want, q, k, v
+    for leg in legs.values():
+        leg["phase9_leg_ms"] = phase9_ms
+    torch.cuda.empty_cache()
+    return legs
+
+
+def virtual_ring_leg(torch, fa, ln, ok, cp, layout, rate, qkvd):
+    """Slice 20 (b) for one layout and rate: `emulate_ring` over
+    VIRTUAL_RANKS shards of the 32k inputs (the ring's step functions on
+    one card), causal, with dropout under CP_SEED at `rate`: o and the
+    gradients against single-device flash attention (`_FlashFn`, the
+    same seed) over the gathered sequence within 1e-2 of each tensor's
+    largest magnitude; each rank's launches as the schedule implies
+    (contiguous rank r: r + 1 chunk forwards and backwards, the split
+    pair at 8192 keys; zigzag: 2n + 1 half-chunk forwards and backwards a
+    rank, the fused kernel at 4096 keys; the backward's fp32, skipped
+    chunks launching nothing); with dropout, each kernel's mask read back
+    at every chunk offset pair the schedule ran (`check_dropout_mask`).
+    Timed (wall, forward and backward of all the ranks in turn) after
+    one untimed run."""
+    n = VIRTUAL_RANKS
+    q, k, v, do = qkvd
+    sc = 1.0 / math.sqrt(q.shape[3])
+    zz = layout == "zigzag"
+    shards = [[t.contiguous() for t in (cp.zigzag_shard(x, n) if zz else x)
+               .chunk(n, dim=2)] for x in (q, k, v, do)]
+    by_rank = {("fwd", r): {} for r in range(n)}
+    by_rank.update({("bwd", r): {} for r in range(n)})
+    last = [kernel_counts(fa, ln, ok)]
+
+    def after(stage, step, rank):
+        now = kernel_counts(fa, ln, ok)
+        acc = by_rank[(stage, rank)]
+        for key, c in now.items():
+            if c != last[0][key]:
+                acc[key] = acc.get(key, 0) + c - last[0][key]
+        last[0] = now
+
+    offsets = set()
+    chunk_fwd = cp._chunk_fwd
+
+    def recording_fwd(q, k, v, scale, causal, q_seg, kv_seg, block_q,
+                      block_k, dropout_rate=0.0, seed=None, q_off=0,
+                      k_off=0):
+        offsets.add((q_off, k_off))
+        return chunk_fwd(q, k, v, scale, causal, q_seg, kv_seg, block_q,
+                         block_k, dropout_rate, seed, q_off, k_off)
+
+    def run(after=None):
+        return cp.emulate_ring(*shards, layout=layout, causal=True,
+                               dropout_rate=rate,
+                               seed=CP_SEED if rate else None, after=after)
+
+    run()           # a warm-up: the first launch of a kernel loads it
+    reset_kernel_counts(fa, ln, ok)
+    last[0] = kernel_counts(fa, ln, ok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp._chunk_fwd = recording_fwd
+    try:
+        os_, dqs, dks, dvs = run(after)
+    finally:
+        cp._chunk_fwd = chunk_fwd
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    what = f"virtual ring {layout} n={n} rate={rate}"
+    for r in range(n):
+        chunks = 2 * n + 1 if zz else r + 1
+        if zz:
+            fwd, bwd = _per_iter(fwd=chunks, drop=rate > 0), _per_iter(
+                fused=chunks, f32=True, drop=rate > 0)
+        else:
+            fwd, bwd = _per_iter(fwd=chunks, drop=rate > 0), _per_iter(
+                dq=chunks, dkv=chunks, f32=True, drop=rate > 0)
+        for stage, want in (("fwd", fwd), ("bwd", bwd)):
+            got = by_rank[(stage, r)]
+            for key, c in want.items():
+                check(got.get(key, 0) == c, f"{what} rank {r} {stage}: {key} "
+                      f"{got.get(key, 0)} launches, want {c}")
+    cat = [torch.cat(t, dim=2) for t in (os_, dqs, dks, dvs)]
+    if zz:
+        cat = [cp.zigzag_unshard(t, n) for t in cat]
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    drop = (rate, fa._seed3(CP_SEED)) if rate else ()
+    o_ref = fa._FlashFn.apply(qr, kr, vr, sc, True, None, None, 1, *drop)
+    refs = (o_ref.detach(),) + torch.autograd.grad(o_ref, (qr, kr, vr), do)
+    errs = {name: max_err(torch, f"{what} {name}", a, b_)
+            for name, a, b_ in zip(("o", "dq", "dk", "dv"), cat, refs)}
+    masks = {}
+    if rate:
+        for q_off, k_off in sorted(offsets):
+            masks[f"{q_off},{k_off}"] = check_dropout_mask(
+                torch, fa, b=1, h=8, d=64, rate=rate, q_off=q_off,
+                k_off=k_off, seed=CP_SEED)
+    del cat, refs, o_ref, os_, dqs, dks, dvs, shards
+    torch.cuda.empty_cache()
+    return {"layout": layout, "rate": rate, "ranks": n, "ms": ms,
+            "max_err_vs_flash_attention": errs,
+            "launches_by_rank": {f"{s_} rank {r}": c
+                                 for (s_, r), c in sorted(by_rank.items())},
+            "chunk_offsets": len(offsets),
+            "dropout_mask_keep_shares": masks}
+
+
+def virtual_ring_legs(torch, fa, ln, ok, rng, cp):
+    """Slice 20 (b): the 32k shape as VIRTUAL_RANKS shards on the one
+    card, contiguous and zigzag, causal, at dropout 0 and 0.1."""
+    qkvd = [torch.randn(LONG_SHAPE, generator=rng, device="cuda")
+            .to(torch.bfloat16) for _ in range(4)]
+    legs = {}
+    for layout in ("contiguous", "zigzag"):
+        for rate in (0.0, 0.1):
+            legs[f"{layout} rate={rate}"] = virtual_ring_leg(
+                torch, fa, ln, ok, cp, layout, rate, qkvd)
+            log(f"slice 20 virtual ring {layout} rate={rate} "
+                + json.dumps(legs[f"{layout} rate={rate}"]))
+    del qkvd
+    torch.cuda.empty_cache()
+    return legs
+
+
+def plain_chunks(torch, fa):
+    """The ring's chunk functions as the plain versions in fp32 (q, k, v,
+    do upcast), for running the ring's model on the card without the
+    kernels."""
+
+    def fwd(q, k, v, scale, causal, q_seg, kv_seg, block_q, block_k,
+            dropout_rate=0.0, seed=None, q_off=0, k_off=0):
+        return fa.flash_fwd_reference(
+            q.float(), k.float(), v.float(), scale, causal, q_seg, kv_seg,
+            dropout_rate, fa._seed3(seed, q_off, k_off))
+
+    def bwd(q, k, v, o, lse, do, scale, causal, q_seg, kv_seg, block_q,
+            block_k, dropout_rate=0.0, seed=None, q_off=0, k_off=0):
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (q.float(), k.float(), v.float(), do.float(), lse, delta,
+                scale, causal, q_seg, kv_seg, dropout_rate,
+                fa._seed3(seed, q_off, k_off))
+        return (fa.flash_bwd_dq_reference(*args, out_dtype=torch.float32),
+                *fa.flash_bwd_dkv_reference(*args,
+                                            out_dtype=torch.float32))
+
+    return fwd, bwd
+
+
+def example_leg(torch, fa, ln, ok, cp, group, warmup=1, steps=3):
+    """Slice 20 (c): examples/torch_long_context_training.py at its own
+    defaults (seq 32768, hidden 128, 2 heads of 64, 2 layers, vocab 512,
+    FusedAdam lr 3e-3) on the one-rank NCCL group, `warmup` + `steps`
+    steps: the loss falls; launches a step (per layer the zigzag ring's
+    three half-chunk forwards and the split pair's three dq and dk/dv
+    passes at 16384 keys, fp32; one Adam); no host sync in a step; one
+    profiled step; the first-step loss within 2e-3 relative of the same
+    model with the plain fp32 chunk versions on the card."""
+    from apex_tpu_torch.optimizers import FusedAdam
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    import torch_long_context_training as ex
+
+    a = ex.parse([])
+    check((a.seq, a.hidden, a.heads, a.layers, a.vocab) == (32768, 128, 2, 2,
+                                                            512),
+          "the long-context example's defaults drifted")
+    dev = torch.device("cuda", 0)
+    params = ex.init_params(0, a, dev)
+    data = ex.make_data(a, 1, dev)
+    with torch.no_grad():
+        first = float(ex.forward_loss(params, *data, a, group))
+        saved = cp._chunk_fwd, cp._chunk_bwd
+        cp._chunk_fwd, cp._chunk_bwd = plain_chunks(torch, fa)
+        try:
+            plain = float(ex.forward_loss(params, *data, a, group))
+        finally:
+            cp._chunk_fwd, cp._chunk_bwd = saved
+    rel = abs(first - plain) / abs(plain)
+    check(rel <= 2e-3, f"long-context example: first loss {first} through "
+          f"the kernels, {plain} through the plain fp32 chunks")
+    opt = FusedAdam(lr=a.lr)
+    state = opt.init(params)
+    step = ex.make_step(opt, a, group)
+    per_step = dict(_per_iter(fwd=3 * a.layers, dq=3 * a.layers,
+                              dkv=3 * a.layers, f32=True), adam=1)
+    state, line = train_loop(torch, fa, ln, ok, "long-context example", step,
+                             state, data, per_step, warmup, steps)
+    check(abs(line["losses"][0] - first) <= 1e-6 * abs(first),
+          f"long-context example: the step's first loss "
+          f"{line['losses'][0]} is not the forward's {first}")
+    state, _ = step_without_sync(torch, step, state, *data)
+    state, prof = profile_step(torch, step, state, data, {
+        "flash_attention_fwd": lambda k_: "flash_fwd" in k_,
+        "flash_attention_bwd_dq": lambda k_: "flash_bwd_dq" in k_,
+        "flash_attention_bwd_dkv": lambda k_: "flash_bwd_kernel" in k_,
+        "adam": lambda k_: "adam" in k_})
+    line.update({"config": {"seq": a.seq, "hidden": a.hidden,
+                            "heads": a.heads, "layers": a.layers,
+                            "vocab": a.vocab, "lr": a.lr},
+                 "tokens_per_s": a.seq / (line["step_ms"] / 1e3),
+                 "first_loss_plain_fp32_chunks": plain,
+                 "first_loss_rel_diff_vs_plain": rel, "no_host_sync": True,
+                 "profile": prof})
+    del state, params, data
+    torch.cuda.empty_cache()
+    return line
+
+
+def slice20_phase(torch, fa, ln, ok, rng, phase9_ms):
+    """Phase 17 (module docstring): (a) and (c) on the card as a one-rank
+    NCCL group (the ring and Ulysses over the world group), (b) with no
+    process group, four virtual ranks through `emulate_ring`."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import context_parallel as cp
+
+    t0 = time.perf_counter()
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        group = dist.group.WORLD
+        check(dist.get_backend(group) == "nccl"
+              and dist.get_world_size(group) == 1,
+              "slice 20: the world is not a one-rank NCCL group")
+        out["one_rank"] = one_rank_ring_legs(torch, fa, ln, ok, rng, cp,
+                                             group, phase9_ms)
+        log("slice 20 one-rank legs " + json.dumps(out["one_rank"]))
+        out["example"] = example_leg(torch, fa, ln, ok, cp, group)
+        log("slice 20 long-context example " + json.dumps(out["example"]))
+    finally:
+        dist.destroy_process_group()
+    out["virtual"] = virtual_ring_legs(torch, fa, ln, ok, rng, cp)
+    log(f"phase 17 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+SLICE20_ROWS = ("flash_attention_fwd", "flash_attention_bwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def add_slice20_columns(rows, slice20, f32_times):
+    """The kernel table's slice-20 columns: on each flash row a phase-17
+    leg launched, its launches by leg, its fp32 launches (the backward
+    rows) and, for the backward kernels, their times with fp32 outputs
+    at the ring's chunk shapes beside the bf16 launches' and the
+    bounds."""
+    legs = {f"one-rank {k}": v["launches"]
+            for k, v in slice20["one_rank"].items()}
+    legs["example"] = slice20["example"]["launches"]
+    for name, leg in slice20["virtual"].items():
+        total = {}
+        for counts in leg["launches_by_rank"].values():
+            for key, c in counts.items():
+                total[key] = total.get(key, 0) + c
+        legs[f"virtual {name}"] = total
+    kern = {"flash_attention_bwd": "fused", "flash_attention_bwd_dq": "dq",
+            "flash_attention_bwd_dkv": "dkv"}
+    for row in rows:
+        name = row["name"]
+        if name not in SLICE20_ROWS:
+            continue
+        by_leg = {leg: c[name] for leg, c in legs.items() if c.get(name)}
+        if by_leg:
+            row["launches_slice20"] = by_leg
+        if name in kern:
+            row["f32_launches_slice20"] = {
+                leg: c[f"{name}_f32"] for leg, c in legs.items()
+                if c.get(f"{name}_f32")}
+            row["f32_outputs"] = {
+                k_: t for k_, t in f32_times.items()
+                if k_.startswith(kern[name] + " ")}
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -6395,12 +7006,12 @@ def run_phases():
                 log(f"flash backward dynamic shared memory (bytes): {smem}")
                 log("flash backward serialised wgmma notes: "
                     + ("; ".join(notes) if notes else "none"))
-                # the dq pass: eight instantiations (four with dropout),
-                # none spilling, none with its wgmma instructions
-                # serialised
+                # the dq pass: sixteen instantiations (eight with
+                # dropout, eight with fp32 dq), none spilling, none with
+                # its wgmma instructions serialised
                 dq_rows = {k: r for k, r in rows.items()
                            if "flash_bwd_dq_kernel" in k}
-                check(len(dq_rows) == 8 and all(
+                check(len(dq_rows) == 16 and all(
                     r.get("spills", "").startswith(
                         "0 bytes stack frame, 0 bytes spill")
                     for r in dq_rows.values()),
@@ -6414,6 +7025,13 @@ def run_phases():
                 log("ptxas flash dropout instantiations, registers (rate "
                     "0's): " + json.dumps(
                         {k[-48:]: r for k, r in sorted(drop_regs.items())}))
+                # the 24 fp32-output instantiations: no spill, and no
+                # serialised-wgmma note that the bf16 twin lacks
+                with open(csrc.log_path(name)) as f:
+                    f32_regs = check_f32_ptxas(f.read())
+                log("ptxas flash fp32-output instantiations, registers "
+                    "(bf16 twin's): " + json.dumps(
+                        {k[-48:]: r for k, r in sorted(f32_regs.items())}))
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -6647,6 +7265,12 @@ def run_phases():
     errs["flash_attention_bwd_dkv_dropout"] = max(split_e["dk"],
                                                   split_e["dv"])
     del bseg, qs, ks
+    # slice 20: the backward kernels with fp32 outputs (the ring's chunks)
+    f32_errs = f32_checks(torch, fa, rng)
+    log("flash fp32 gradients (bf16 launches = fp32 rounded, bit for bit; "
+        "each fp32 launch twice the same bits; the dk/dv pass the fused "
+        "kernel's) max errs vs the plain fp32 versions "
+        + json.dumps(f32_errs))
     log("packed forward with unpacked backward routes "
         + json.dumps(check_packed_routes(torch, fa, ln, ok, rng)))
     ew = check_elementwise(torch, ok, rng)
@@ -6899,7 +7523,11 @@ def run_phases():
     slice19 = slice19_phase(torch, fa, ln, ok)
     torch.cuda.empty_cache()
 
-    # ---- 17. kernel table --------------------------------------------
+    # ---- 17. slice 20: context parallelism ------------------------------
+    slice20 = slice20_phase(torch, fa, ln, ok, rng, long["leg"]["ms"])
+    torch.cuda.empty_cache()
+
+    # ---- 18. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -6970,6 +7598,8 @@ def run_phases():
                                        mlp, gpt_layout[1], layout)
     slice8_rows = table_slice8_kernels(torch, fa, ok, rng, errs, slice8)
     dropout_rows = table_dropout_kernels(torch, fa, rng, errs, slice14)
+    f32_times = f32_kernel_times(torch, fa, rng)
+    log("flash backward fp32 outputs vs bf16 (ms) " + json.dumps(f32_times))
 
     table = {"kernels": [
         {"name": "flash_decode", "route": "cuda",
@@ -7007,6 +7637,7 @@ def run_phases():
         + slice7_rows + slice8_rows + dropout_rows}
     add_slice17_columns(table["kernels"], shards, slice17)
     add_slice19_columns(table["kernels"], slice19)
+    add_slice20_columns(table["kernels"], slice20, f32_times)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -513,9 +513,10 @@ def test_launcher_runs_as_a_module(tmp_path):
 
 def test_mesh_world_of_one_and_refusals():
     """Without torch.distributed the dp group is a world of one (no group,
-    size 1, rank 0) and the sync is the identity; cp and ep > 1 raise
-    naming their ROADMAP items; a tp or pp size the world of one does
-    not divide raises as the JAX mesh does."""
+    size 1, rank 0) and the sync is the identity; ep > 1 raises naming
+    its ROADMAP item, and a context_parallel_size argument is refused as
+    the JAX function refuses it (it has none); a tp or pp size the world
+    of one does not divide raises as the JAX mesh does."""
     from apex_tpu_torch.parallel import mesh as M
 
     assert M.initialize_model_parallel() is None
@@ -528,10 +529,15 @@ def test_mesh_world_of_one_and_refusals():
         M.initialize_model_parallel(tensor_model_parallel_size=2)
     with pytest.raises(ValueError, match=r"not divisible by tp\(1\) x pp"):
         M.initialize_model_parallel(pipeline_model_parallel_size=2)
-    for kw, item in (({"context_parallel_size": 2}, "15"),
-                     ({"expert_model_parallel_size": 2}, "16")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for kw, exc, match in (
+            ({"context_parallel_size": 2}, TypeError,
+             "context_parallel_size"),
+            ({"expert_model_parallel_size": 2}, NotImplementedError,
+             "item 16")):
+        with pytest.raises(exc, match=match):
             M.initialize_model_parallel(**kw)
+    with pytest.raises(TypeError, match="context_parallel_size"):
+        JM.initialize_model_parallel(context_parallel_size=2)
     M.destroy_model_parallel()
     assert not M.model_parallel_is_initialized()
     with pytest.raises(M.MeshNotInitializedError):

@@ -161,7 +161,10 @@ def test_flagship_refuses_cpu_fallback():
 _PORT_FILES = sorted(
     os.path.join(d, f)
     for d, _, fs in os.walk(os.path.join(_ROOT, "apex_tpu_torch"))
-    for f in fs if f.endswith(".py")) + [os.path.join(_ROOT, "chip_smoke.py")]
+    for f in fs if f.endswith(".py")) + [os.path.join(_ROOT, "chip_smoke.py")] \
+    + sorted(os.path.join(_ROOT, "examples", f)
+             for f in os.listdir(os.path.join(_ROOT, "examples"))
+             if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _forbidden(name):

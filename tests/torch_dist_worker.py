@@ -450,7 +450,7 @@ def scn_tp_mesh(d, rank, world):
                       pipeline_model_parallel_size=3),
         "vpp": _raises(ValueError, mesh.initialize_model_parallel,
                        virtual_pipeline_model_parallel_size=2),
-        "cp": _raises(NotImplementedError, mesh.initialize_model_parallel,
+        "cp": _raises(TypeError, mesh.initialize_model_parallel,
                       context_parallel_size=2),
         "ep": _raises(NotImplementedError, mesh.initialize_model_parallel,
                       expert_model_parallel_size=2)}
@@ -887,6 +887,87 @@ def scn_gpt_pp(d, rank, world):
                     "step": int(state.step),
                     "replicated": {k: n(tree[k]) for k in
                                    ("embed", "pos_embed", "final_ln")}}
+    _restore()
+    return out
+
+
+# ---------------------------- context parallelism ----------------------------
+
+def _cp_shard(a, rank, world, axis=2):
+    """Rank `rank`'s contiguous shard of a global sequence axis."""
+    return np.ascontiguousarray(np.split(np.asarray(a), world,
+                                         axis=axis)[rank])
+
+
+def scn_cp(d, rank, world):
+    """Context parallelism over the tp group (tp = world, the axis the
+    JAX tests ring over): each ring case's output shard and gradients
+    (given do), through `ring_attention`, or through `_ring` / `_ring_zz`
+    with the test's int32 seed where there is dropout; rank 0 also runs
+    `emulate_ring` over every rank's shards (the virtual-rank drive,
+    compared bit for bit); each Ulysses case's output shard and
+    gradients; and the long-context example's losses over the world
+    group from the JAX example's parameters."""
+    from apex_tpu_torch.parallel import context_parallel as cp
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    import torch_long_context_training as ex
+
+    _tp(world)
+    group = mesh.get_tensor_model_parallel_group()
+    out = {"ring": {}, "emulated": {}, "ulysses": {}}
+    for c in d["ring"]:
+        q, k, v, do = (t(_cp_shard(c[x], rank, world)).requires_grad_(
+            x != "do") for x in ("q", "k", "v", "do"))
+        seg = (None if c["seg"] is None
+               else t(_cp_shard(c["seg"], rank, world, axis=1)))
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        if c["rate"]:
+            if c["layout"] == "zigzag":
+                o = cp._ring_zz(q, k, v, seg, seg, c["seed"], group, scale,
+                                dropout_rate=c["rate"])
+            else:
+                o = cp._ring(q, k, v, seg, seg, c["seed"], group,
+                             c["causal"], scale, dropout_rate=c["rate"])
+        else:
+            o = cp.ring_attention(q, k, v, "tp", causal=c["causal"],
+                                  segment_ids=seg, layout=c["layout"])
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        out["ring"][c["name"]] = [n(x) for x in (o, *grads)]
+        if rank == 0:
+            shards = [[t(_cp_shard(c[x], r, world)) for r in range(world)]
+                      for x in ("q", "k", "v", "do")]
+            segs = (None if c["seg"] is None else
+                    [t(_cp_shard(c["seg"], r, world, axis=1))
+                     for r in range(world)])
+            res = cp.emulate_ring(
+                *shards, layout=c["layout"], causal=c["causal"],
+                q_segs=segs, kv_segs=segs, dropout_rate=c["rate"],
+                seed=c["seed"])
+            out["emulated"][c["name"]] = [[n(x) for x in lst]
+                                          for lst in res]
+    for c in d["ulysses"]:
+        q, k, v = (t(_cp_shard(c[x], rank, world)).requires_grad_(True)
+                   for x in ("q", "k", "v"))
+        do = t(_cp_shard(c["do"], rank, world))
+        seg = t(_cp_shard(c["seg"], rank, world, axis=1))
+        o = cp.ulysses_attention(q, k, v, "tp", causal=c["causal"],
+                                 segment_ids=seg, use_flash=c["use_flash"])
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        out["ulysses"][c["name"]] = [n(x) for x in (o, *grads)]
+    e = d["example"]
+    a = ex.parse(e["argv"])
+    opt = FusedAdam(lr=a.lr)
+    state = opt.init(ex.params_from_jax(e["params"]))
+    step = ex.make_step(opt, a, dist.group.WORLD)
+    shard = [t(_cp_shard(e[x], rank, world, axis=0))
+             for x in ("tokens", "labels", "pos")]
+    losses = []
+    for _ in range(a.steps):
+        state, loss = step(state, *shard)
+        losses.append(float(loss))
+    out["example"] = np.asarray(losses)
     _restore()
     return out
 
