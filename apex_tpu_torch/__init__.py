@@ -23,15 +23,18 @@ Subpackages (lazily importable):
                 and the fused dense GEMM with its bias and activation
                 epilogue (CUDA), the fused MLP, and the NHWC max pool
   serve       — paged KV cache + continuous-batching decode engine
-  models      — GPT, BERT and ResNet: configs, seeded inits, the
-                JAX-params converters and the training forwards
+  models      — GPT, MoE-GPT, BERT and ResNet: configs, seeded inits,
+                the JAX-params converters and the training forwards
+  moe         — the Mixture-of-Experts layer: the fp32 top-k router, the
+                dense dispatch/combine with the ep all-to-all, MoEMLP
   optimizers  — flat buffers and their checkpoints, FusedAdam,
                 FusedLAMB, FusedSGD, FusedAdagrad, FusedNovoGrad and the
                 ZeRO-2 DistributedFusedAdam / DistributedFusedLAMB
   amp         — O0–O3 policies, the dynamic loss scaler and
                 FP16_Optimizer (with `fp16_utils`, the reference's names)
-  parallel    — the (pp, dp, tp) process groups of `mesh`, the region
-                collectives and the chunked overlap, the data-parallel
+  parallel    — the (pp, dp[, ep], tp) process groups of `mesh`, the
+                region collectives (and the tiled all-to-all) and the
+                chunked overlap, the data-parallel
                 train step of `ddp` (microbatches, fp32 main grads,
                 ZeRO-2), the batch norm of `sync_batchnorm` (statistics
                 merged across ranks), LARC, clip_grad and the
@@ -57,7 +60,7 @@ __version__ = "0.1.0"
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
                     "checkpoint", "monitor", "csrc", "amp", "parallel",
                     "contrib", "multi_tensor_apply", "fused_dense", "mlp",
-                    "normalization", "tune", "fp16_utils"}
+                    "normalization", "tune", "fp16_utils", "moe"}
 
 
 def __getattr__(name):

@@ -1,7 +1,7 @@
-"""apex_tpu_torch.models — so far GPT (`models.gpt`), BERT
-(`models.bert`) and ResNet (`models.resnet`): their configs, seeded
-inits, the converters from the JAX package's parameters and the
-training forwards."""
+"""apex_tpu_torch.models — so far GPT (`models.gpt`), MoE-GPT
+(`models.moe_gpt`), BERT (`models.bert`) and ResNet (`models.resnet`):
+their configs, seeded inits, the converters from the JAX package's
+parameters and the training forwards."""
 
 from apex_tpu_torch.models.gpt import (  # noqa: F401
     GPT,
@@ -12,6 +12,13 @@ from apex_tpu_torch.models.gpt import (  # noqa: F401
     gpt_350m,
     init_gpt_params,
     params_from_jax,
+)
+from apex_tpu_torch.models.moe_gpt import (  # noqa: F401
+    MOE_GPT_350M_8E,
+    MoEGPT,
+    MoEGPTConfig,
+    build_moe_train_step,
+    moe_smoke_config,
 )
 from apex_tpu_torch.models.bert import (  # noqa: F401
     Bert,

@@ -29,14 +29,16 @@ per-tensor partial sums of squares of p and u over the shard
 (`per_tensor_sumsq_shard`), summed by one small all-reduce into the
 trust ratios, phase 2 at the shard's offset, and the gather.
 
-The group is the dp group of
-`parallel.mesh.initialize_model_parallel`, else the torch.distributed
-world, else none (a world of one, where the collectives are copies).
-`init` checks that `num_shards` is the group's size: a world of one is
-stated, not assumed.  Every scalar of a step (the overflow flag, the
-norms, the ratios) stays on the device: a step makes no host sync.
-Expert-parallel sharding over a tuple of axes (`ep_shards > 1`) comes
-with ROADMAP Queue 1 item 16 and raises.
+The group is the one `axis_name` names (`parallel.mesh.group_of`): the
+dp group of `parallel.mesh.initialize_model_parallel` (`"dp"`, the
+default), or for an expert-parallel model the combined group of
+`axis_name=("dp", "ep")` with `num_shards = dp·ep` and `ep_shards = ep`
+(the JAX package's MoE wiring; `shard_layout()` then records
+`ep_shards`); without a mesh, the torch.distributed world, else none (a
+world of one, where the collectives are copies).  `init` checks that
+`num_shards` is the group's size: a world of one is stated, not assumed.
+Every scalar of a step (the overflow flag, the norms, the ratios) stays
+on the device: a step makes no host sync.
 """
 
 from __future__ import annotations
@@ -92,19 +94,25 @@ class _ShardedFlat(F.FlatCheckpointMixin):
     chunks and the gathers."""
 
     _ALIGN = 1
-    ep_shards = 1
 
     def _setup(self, num_shards, axis_name, ep_shards, master_dtype,
                grad_sync_dtype, param_sync_dtype):
-        if isinstance(axis_name, (tuple, list)) or ep_shards != 1:
-            raise NotImplementedError(
-                "sharding over the combined (dp, ep) axes comes with "
-                "expert parallelism, ROADMAP Queue 1 item 16")
-        if axis_name != M.DP_AXIS:
-            raise ValueError(f"axis_name={axis_name!r}: the sharded state "
-                             f"lives on the {M.DP_AXIS!r} axis")
+        names = ((axis_name,) if isinstance(axis_name, str)
+                 else tuple(axis_name))
+        if names not in ((M.DP_AXIS,), (M.DP_AXIS, M.EP_AXIS)):
+            raise ValueError(
+                f"axis_name={axis_name!r}: the sharded state lives on the "
+                f"{M.DP_AXIS!r} axis or the combined "
+                f"{(M.DP_AXIS, M.EP_AXIS)!r} axes")
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+        # the JAX package's check and message (`_set_ep_shards`)
+        if ep_shards < 1 or num_shards % ep_shards:
+            raise ValueError(
+                f"ep_shards={ep_shards} must be >= 1 and divide "
+                f"num_shards={num_shards} (num_shards = dp * ep)")
+        self.axis_name = axis_name
+        self.ep_shards = ep_shards
         self.num_shards = num_shards
         self.master_dtype = master_dtype
         self.grad_sync_dtype = grad_sync_dtype
@@ -114,8 +122,11 @@ class _ShardedFlat(F.FlatCheckpointMixin):
         self.padded_total = None
 
     # -- the group ----------------------------------------------------------
+    def _group(self):
+        return M.group_of(self.axis_name)
+
     def _rank(self) -> int:
-        group = M.data_parallel_group()
+        group = self._group()
         world = M.group_size(group)
         if world != self.num_shards:
             raise ValueError(
@@ -183,7 +194,7 @@ class _ShardedFlat(F.FlatCheckpointMixin):
         """Every bucket's chunk all-gathered into the whole buffer and
         read out as the spec's leaves (views of the gathered buffers, in
         the leaves' own dtypes unless `cast` is False)."""
-        group = M.data_parallel_group()
+        group = self._group()
         dtype = dtype or shard.dtype
         pending = [self._start_gather(shard[off:off + sz], padded, dtype,
                                       group)
@@ -208,20 +219,25 @@ class _ShardedFlat(F.FlatCheckpointMixin):
     def shard_layout(self) -> dict:
         """The shard layout (≡ the JAX package's `shard_layout`): enough to
         reassemble the whole flat buffer from per-rank shards at any
-        (num_shards, n_buckets)."""
+        (num_shards, n_buckets); `ep_shards` when the state is sharded
+        over (dp, ep)."""
         if self.spec is None:
             raise RuntimeError(
                 f"{type(self).__name__}.shard_layout() before init(); "
                 "call init(params) first so the flat layout is fixed")
-        return {"align": int(self.spec.align),
-                "total": int(self.spec.total),
-                "n_tensors": len(self.spec.sizes),
-                "num_shards": int(self.num_shards),
-                "n_buckets": len(self._ranges),
-                "bucket_totals": [int(s.total) for s in self.bucket_specs],
-                "bucket_padded": [int(p) for p in self._bucket_padded],
-                "master_dtype": str(self.master_dtype).replace("torch.",
-                                                               "")}
+        d = {"align": int(self.spec.align),
+             "total": int(self.spec.total),
+             "n_tensors": len(self.spec.sizes),
+             "num_shards": int(self.num_shards),
+             "n_buckets": len(self._ranges),
+             "bucket_totals": [int(s.total) for s in self.bucket_specs],
+             "bucket_padded": [int(p) for p in self._bucket_padded],
+             "master_dtype": str(self.master_dtype).replace("torch.", "")}
+        if self.ep_shards > 1:
+            # the expert sharding named, as the JAX package records it
+            # (dense layouts omit the key)
+            d["ep_shards"] = int(self.ep_shards)
+        return d
 
     # -- gathered (layout-independent) checkpoints ---------------------------
     def gather_state_dict(self, state) -> dict:
@@ -351,7 +367,7 @@ class DistributedFusedAdam(_ShardedFlat):
         """One step from the bucket buffers of `flatten_grads`."""
         if self.spec is None:
             raise RuntimeError("call init(params) before step_flat()")
-        group = M.data_parallel_group()
+        group = self._group()
         rank = self._rank_
         dev = state.params_shard.device
         found = K.device_scalar(found_inf, torch.bool, dev)
@@ -453,7 +469,7 @@ class DistributedFusedLAMB(_ShardedFlat):
         if g_flat.numel() != self.padded_total:
             raise ValueError(f"a grad buffer of {g_flat.numel()} elements "
                              f"for a layout of {self.padded_total}")
-        group = M.data_parallel_group()
+        group = self._group()
         rank = self._rank_
         spec = self.spec
         dev = state.params_shard.device

@@ -1,7 +1,7 @@
 """apex_tpu_torch.parallel — distributed utilities (counterpart of
-apex_tpu.parallel): the process groups of `mesh` (data, tensor and
-pipeline parallelism; ep comes with a later ROADMAP item), the Megatron
-region collectives of `collectives`, the chunked compute/collective
+apex_tpu.parallel): the process groups of `mesh` (data, tensor,
+pipeline and expert parallelism), the Megatron region collectives and
+the tiled all-to-all of `collectives`, the chunked compute/collective
 overlap of `overlap`, ring attention and Ulysses of `context_parallel`,
 the data-parallel train step and gradient sync of
 `ddp`, the batch norm of `sync_batchnorm` (statistics merged across a

@@ -24,6 +24,11 @@ tensors with one all-reduce of their flattened gradients: the sum that
 Megatron's trainer makes over the sequence-parallel replicated params
 (`allreduce_sequence_parallel_grads`), in the autograd graph.
 
+`all_to_all` is the JAX package's tiled `lax.all_to_all` over a group
+(the MoE exchange over "ep"): chunk i of the split dimension goes to
+rank i, and the chunks received are concatenated along the concat
+dimension in rank order; its backward is the inverse exchange.
+
 A split or reduce-scatter along a dimension the group's size does not
 divide raises, as the JAX package's `psum_scatter` does.
 `ring_exchange` and `halo_exchange_1d` are point-to-point exchanges
@@ -33,6 +38,7 @@ divide raises, as the JAX package's `psum_scatter` does.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from apex_tpu_torch.parallel import mesh as M
 from apex_tpu_torch.parallel.mesh import TP_AXIS
@@ -178,6 +184,49 @@ reduce_scatter_to_sequence_parallel_region = _make_pair(
     "reduce_scatter_to_sequence_parallel_region",
     _reduce_scatter,
     lambda dy, g: _all_gather(dy, g, 0))
+
+
+def _tiled_all_to_all(x, group, split_dim, concat_dim):
+    """One `all_to_all_single`: x cut into n chunks along `split_dim`,
+    chunk i to rank i; the n chunks received (one from each rank, in
+    rank order) concatenated along `concat_dim` of a chunk."""
+    n = M.group_size(group)
+    _check_divides(n, x.shape[split_dim], split_dim, "all_to_all")
+    shape = list(x.shape)
+    chunk = shape[:split_dim] + [shape[split_dim] // n] + shape[split_dim + 1:]
+    send = x.reshape(shape[:split_dim] + [n] + chunk[split_dim:])
+    send = send.movedim(split_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    out = chunk[:concat_dim] + [n * chunk[concat_dim]] + chunk[concat_dim + 1:]
+    return recv.movedim(0, concat_dim).reshape(out)
+
+
+class _AllToAll(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _tiled_all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_tiled_all_to_all(g, ctx.group, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all(x, axis_name, split_dim: int = 0, concat_dim: int = 1):
+    """≡ `lax.all_to_all(x, axis_name, split_dim, concat_dim, tiled=True)`
+    over the group of `axis_name` ("ep" for the MoE exchange): this rank's
+    chunk i of `split_dim` goes to rank i, and rank i's chunk for this
+    rank lands at the i-th place of `concat_dim`.  Its gradient is the
+    inverse exchange.  A group of one rank (or none) is the identity: no
+    collective is issued."""
+    group = M.group_of(axis_name)
+    if M.group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.dim(), concat_dim % x.dim())
 
 
 def ring_hop(x, group, shift: int = 1):

@@ -11,8 +11,10 @@ fused optimizer step).
   * `Reducer` / `DistributedDataParallel` — the reference's facades
   * `make_train_step` — the step the JAX package builds, run eagerly
 
-The group is the dp group of
-`parallel.mesh.initialize_model_parallel`, else the torch.distributed
+The group is the data-parallel group of
+`parallel.mesh.initialize_model_parallel` (the dp group, or the combined
+(dp, ep) group of an expert-parallel mesh; `make_train_step(axis_name=)`
+names it as the JAX package's step does), else the torch.distributed
 world when it is initialized, else none: a world of one, where the sync
 is the identity and no `init_process_group` is needed.
 
@@ -64,13 +66,14 @@ def _tensors(grads):
     return F.tree_leaves(grads)
 
 
-def sync_gradients(grads, average: bool = True):
-    """All-reduce the grads over the data-parallel group, IN PLACE, and
-    divide by its size with `average` (≡ the JAX package's
+def sync_gradients(grads, average: bool = True, group=None):
+    """All-reduce the grads over the data-parallel group (or `group`), IN
+    PLACE, and divide by its size with `average` (≡ the JAX package's
     `sync_gradients`, DDP's allreduce with gradient_average).  `grads`
     is one tensor (a flat buffer: one collective), a list or a tree of
     tensors.  Returns `grads`."""
-    group = M.data_parallel_group()
+    if group is None:
+        group = M.data_parallel_group()
     world = M.group_size(group)
     for g in _tensors(grads):
         M.all_reduce(g, "sum", group)
@@ -205,7 +208,8 @@ def make_train_step(loss_fn: Callable, optimizer, *,
                     amp_state: Optional[amp_lib.AmpState] = None,
                     has_aux: bool = False, with_state: bool = False,
                     device=None, num_microbatches: int = 1,
-                    main_grad_dtype=None, metrics=None, trace=None):
+                    main_grad_dtype=None, axis_name=None, metrics=None,
+                    trace=None):
     """Build the data-parallel train step (≡ the JAX package's
     `make_train_step`).
 
@@ -219,9 +223,12 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     detected by its `full_leaves` and `shard_layout`) updates its flat
     buffers in place.  With num_microbatches > 1 the aux is the stacked
     per-microbatch auxes (has_aux) or the model state threaded through
-    the microbatches (with_state).  The step runs on `device`: the card
-    unless the caller asks for the CPU (`device="cpu"`, the plain
-    versions of the kernels)."""
+    the microbatches (with_state).  `axis_name` (the JAX package's: "dp",
+    or ("dp", "ep") for an expert-parallel model) names the group the
+    grads and the loss scaler's overflow flag are averaged or OR-ed
+    over; None is `mesh.data_parallel_group()`, which is that group at
+    ep > 1.  The step runs on `device`: the card unless the caller asks
+    for the CPU (`device="cpu"`, the plain versions of the kernels)."""
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1, got "
                          f"{num_microbatches}")
@@ -234,7 +241,8 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     dynamic = amp_state.dynamic if amp_state is not None else False
     sharded = (hasattr(optimizer, "full_leaves")
                and hasattr(optimizer, "shard_layout"))
-    group = M.data_parallel_group()
+    group = (M.data_parallel_group() if axis_name is None
+             else M.group_of(axis_name))
     m = num_microbatches
     main_grads = _MainGrads()
 
@@ -317,7 +325,7 @@ def make_train_step(loss_fn: Callable, optimizer, *,
                 gdt = dtypes.pop() if len(dtypes) == 1 else torch.float32
                 g_flat = F.flatten(grads, gdt, pad_to=FLAT_TILE,
                                    align=spec.align)
-            g_sync = sync_gradients(g_flat)
+            g_sync = sync_gradients(g_flat, group=group)
         del grads
         if scaler_state is not None:
             inv = 1.0 / scaler_state.scale

@@ -2,23 +2,31 @@
 itself ≡ apex.transformer.parallel_state).
 
 The JAX package names the axes of one device mesh, shape (pp, dp, tp)
-over the devices in row-major order (apex_tpu/parallel/mesh.py:61-123);
-the port keeps the axis names and holds, in their place, the
-`torch.distributed` process groups that each parallel dimension runs
-its collectives over.  `initialize_model_parallel` splits the world as
-that reshape does: rank = pp_i·dp·tp + dp_i·tp + tp_i, tensor
-parallelism innermost.  The tp groups are runs of contiguous ranks, the
-dp groups are strided by tp within a stage, and the pp groups are
-strided by dp·tp.  Besides the three axes' groups it makes one group for
-every set of two axes (("pp", "tp"), the model-parallel plane of the
-grad scaler; ("dp", "tp"), one stage's plane; ("pp", "dp")).  Every
-rank creates every group, in one fixed order (the tp groups, the dp
-groups, then the pp groups and the planes); a group that spans the
-whole world is the world itself.  At pp = 1 the tp and dp groups are
-the ones the port made before pipeline parallelism, member for member.
-Expert parallelism raises, naming the ROADMAP item that brings it (16).
-Context parallelism needs no axis of its own: as in the JAX package,
-`parallel.context_parallel` rings over whatever group it is given.
+over the devices in row-major order, or (pp, dp, ep, tp) with expert
+parallelism (apex_tpu/parallel/mesh.py:61-123); the port keeps the axis
+names and holds, in their place, the `torch.distributed` process groups
+that each parallel dimension runs its collectives over.
+`initialize_model_parallel` splits the world as that reshape does: rank
+= pp_i·dp·ep·tp + dp_i·ep·tp + ep_i·tp + tp_i, tensor parallelism
+innermost, ep between dp and tp.  The tp groups are runs of contiguous
+ranks, the ep groups are strided by tp, the dp groups by ep·tp within a
+stage, and the pp groups by dp·ep·tp.  Besides the axes' groups it makes
+one group for every other set of axes (("pp", "tp"), the model-parallel
+plane of the grad scaler; ("dp", "tp"), one stage's plane; ("dp", "ep"),
+the data-parallel world of an expert-parallel model; ...).  Every rank
+creates every group, in one fixed order (the tp groups, the dp groups,
+then the pp groups and the planes; with ep > 1 the sets holding "ep"
+after them); a group that spans the whole world is the world itself.  At
+ep = 1 no group holds "ep": those sets name the groups without it (the
+ep group is None), so the groups are the ones the port made before
+expert parallelism, member for member.  Context parallelism needs no
+axis of its own: as in the JAX package, `parallel.context_parallel`
+rings over whatever group it is given.
+
+With ep > 1 a data batch (and its grad sync) spans ("dp", "ep")
+(`get_data_parallel_axis_names`), and `data_parallel_group()`, the group
+that DDP, the ZeRO optimizers and the grad scaler's sums run over, is
+that combined group.
 
 A world of one needs no `init_process_group`: with torch.distributed
 not initialized every group is None, its size 1 and its rank 0, and the
@@ -28,8 +36,9 @@ point-to-point hop over a group of one rank is a copy
 (`collectives.ring_hop`).
 
 Ranks are host ints here: the JAX package's `get_tensor_model_parallel_
-rank`, `get_data_parallel_rank` and `get_pipeline_model_parallel_rank`
-are traced `lax.axis_index`es inside `shard_map`.  The stage helpers
+rank`, `get_data_parallel_rank`, `get_expert_model_parallel_rank` and
+`get_pipeline_model_parallel_rank` are traced `lax.axis_index`es inside
+`shard_map`.  The stage helpers
 (`is_pipeline_first_stage`, the embedding groups' membership, the split)
 take a stage as the JAX package's do, and default to this rank's.
 `named_sharding` and `data_parallel_sharding` are JAX shardings
@@ -58,13 +67,19 @@ PP_AXIS = "pp"
 TP_AXIS = "tp"
 EP_AXIS = "ep"
 
-_AXES = (PP_AXIS, DP_AXIS, TP_AXIS)    # the mesh's order, outermost first
+# the mesh's order, outermost first
+_AXES = (PP_AXIS, DP_AXIS, EP_AXIS, TP_AXIS)
 
 # the order in which every rank creates the groups: the tp and dp groups
-# first (the only ones before pipeline parallelism), then the rest
+# first (the only ones before pipeline parallelism), then the rest; the
+# sets holding "ep" only at ep > 1
 _GROUP_ORDER = tuple(frozenset(s) for s in (
     (TP_AXIS,), (DP_AXIS,), (PP_AXIS,), (PP_AXIS, TP_AXIS),
     (DP_AXIS, TP_AXIS), (PP_AXIS, DP_AXIS), (PP_AXIS, DP_AXIS, TP_AXIS)))
+_EP_GROUP_ORDER = tuple(frozenset(s) for s in (
+    (EP_AXIS,), (DP_AXIS, EP_AXIS), (EP_AXIS, TP_AXIS), (PP_AXIS, EP_AXIS),
+    (DP_AXIS, EP_AXIS, TP_AXIS), (PP_AXIS, DP_AXIS, EP_AXIS),
+    (PP_AXIS, EP_AXIS, TP_AXIS), (PP_AXIS, DP_AXIS, EP_AXIS, TP_AXIS)))
 
 _GLOBAL_STATE = None
 
@@ -112,8 +127,9 @@ def _runs(sizes, axes):
     """The rank lists of the groups spanning `axes`: one for each
     coordinate of the other axes, in the mesh's row-major order, its
     members in row-major order over `axes`."""
-    strides = {PP_AXIS: sizes[DP_AXIS] * sizes[TP_AXIS],
-               DP_AXIS: sizes[TP_AXIS], TP_AXIS: 1}
+    strides = {TP_AXIS: 1, EP_AXIS: sizes[TP_AXIS],
+               DP_AXIS: sizes[EP_AXIS] * sizes[TP_AXIS],
+               PP_AXIS: sizes[DP_AXIS] * sizes[EP_AXIS] * sizes[TP_AXIS]}
     fixed = [a for a in _AXES if a not in axes]
     spans = [a for a in _AXES if a in axes]
 
@@ -132,12 +148,13 @@ def initialize_model_parallel(
         pipeline_model_parallel_split_rank: Optional[int] = None,
         expert_model_parallel_size: int = 1,
         use_fp8: bool = False):
-    """Split the torch.distributed world into the (pp, dp, tp) groups
-    (≡ the JAX package's `initialize_model_parallel` at ep = 1: dp =
-    world // (tp·pp)).  Sizes that do not divide the world raise, and so
+    """Split the torch.distributed world into the (pp, dp[, ep], tp)
+    groups (≡ the JAX package's `initialize_model_parallel`: dp = world
+    // (tp·pp·ep)).  Sizes that do not divide the world raise, and so
     does a virtual pipeline below pp = 2, with the JAX package's
     messages.  Without torch.distributed the world is one rank and every
-    group is None.  Returns the dp group."""
+    group is None.  Returns the data-parallel group (`data_parallel_
+    group()`: the dp group, or the combined (dp, ep) group at ep > 1)."""
     global _GLOBAL_STATE
     tp, pp = tensor_model_parallel_size, pipeline_model_parallel_size
     for what, n in (("tensor_model_parallel_size", tp),
@@ -147,26 +164,23 @@ def initialize_model_parallel(
     ep = expert_model_parallel_size
     if ep < 1:
         raise ValueError(f"expert_model_parallel_size must be >= 1, got {ep}")
-    if ep != 1:
-        raise NotImplementedError(
-            f"expert_model_parallel_size={ep}: only data, tensor and "
-            f"pipeline parallelism are ported; this comes with ROADMAP "
-            f"Queue 1 item 16")
     world_group = _world_group()
     world, rank = group_size(world_group), group_rank(world_group)
-    if world % (tp * pp):
+    if world % (tp * pp * ep):
         raise ValueError(f"world size {world} is not divisible by tp({tp}) "
-                         f"x pp({pp}) x ep(1)")
+                         f"x pp({pp}) x ep({ep})")
     if virtual_pipeline_model_parallel_size is not None and pp < 2:
         raise ValueError("virtual pipeline parallelism requires "
                          "pipeline_model_parallel_size >= 2")
-    dp = world // (tp * pp)
-    sizes = {PP_AXIS: pp, DP_AXIS: dp, TP_AXIS: tp}
-    coords = {PP_AXIS: rank // (dp * tp), DP_AXIS: (rank // tp) % dp,
-              TP_AXIS: rank % tp}
+    dp = world // (tp * pp * ep)
+    sizes = {PP_AXIS: pp, DP_AXIS: dp, EP_AXIS: ep, TP_AXIS: tp}
+    coords = {PP_AXIS: rank // (dp * ep * tp),
+              DP_AXIS: (rank // (ep * tp)) % dp,
+              EP_AXIS: (rank // tp) % ep, TP_AXIS: rank % tp}
+    order = _GROUP_ORDER + (_EP_GROUP_ORDER if ep > 1 else ())
     groups = {axes: (None if world_group is None else
                      _new_groups(_runs(sizes, axes), rank, world))
-              for axes in _GROUP_ORDER}
+              for axes in order}
     _GLOBAL_STATE = _MeshState(
         sizes=sizes, coords=coords, groups=groups, world_size=world,
         rank=rank,
@@ -174,7 +188,7 @@ def initialize_model_parallel(
             virtual_pipeline_model_parallel_size),
         pipeline_model_parallel_split_rank=pipeline_model_parallel_split_rank,
         use_fp8=use_fp8)
-    return groups[frozenset((DP_AXIS,))]
+    return data_parallel_group()
 
 
 def model_parallel_is_initialized() -> bool:
@@ -222,10 +236,24 @@ def get_data_parallel_rank() -> int:
 
 
 def get_data_parallel_axis_names() -> tuple:
-    """The axes a data batch (and its grad sync) spans: ("dp",) without
-    expert parallelism, which is all the port has."""
-    _state()
+    """The axes a data batch (and its grad sync) spans: ("dp",), or
+    ("dp", "ep") with expert parallelism, which rides inside the
+    data-parallel world (each ep rank routes its own tokens; for every
+    non-expert parameter ep is more data parallelism).  `group_of` takes
+    the tuple."""
+    if _size(EP_AXIS) > 1:
+        return (DP_AXIS, EP_AXIS)
     return (DP_AXIS,)
+
+
+def get_expert_model_parallel_world_size() -> int:
+    return _size(EP_AXIS)
+
+
+def get_expert_model_parallel_rank() -> int:
+    """This process's ep rank, a host int (the JAX package's is the
+    traced `axis_index`, valid only when the mesh has an ep axis)."""
+    return _coord(EP_AXIS)
 
 
 def get_tensor_model_parallel_group():
@@ -303,22 +331,24 @@ def get_tensor_model_parallel_src_rank(device_rank: Optional[int] = None
 
 def get_data_parallel_src_rank(device_rank: Optional[int] = None) -> int:
     """First global rank of `device_rank`'s dp group (this process's by
-    default): the same stage and tp index at dp index 0 (the JAX
+    default): the same stage, ep and tp index at dp index 0 (the JAX
     package's coordinate form, right for any pipeline depth)."""
     r = _state().rank if device_rank is None else device_rank
-    stage_size = _size(DP_AXIS) * _size(TP_AXIS)
-    return (r // stage_size) * stage_size + r % _size(TP_AXIS)
+    inner = _size(EP_AXIS) * _size(TP_AXIS)
+    stage_size = _size(DP_AXIS) * inner
+    return (r // stage_size) * stage_size + r % inner
 
 
 def get_rank_info() -> str:
-    """(dp, tp, pp) info string for log prefixes ≡
+    """(dp, tp, pp[, ep]) info string for log prefixes ≡
     parallel_state.get_rank_info: this process's rank and the group
-    sizes."""
+    sizes (ep only when above 1, as the JAX package writes it)."""
     if _GLOBAL_STATE is None:
         return f"proc{group_rank(_world_group())}"
     s = _GLOBAL_STATE
+    ep = f"/ep{s.sizes[EP_AXIS]}" if s.sizes[EP_AXIS] > 1 else ""
     return (f"proc{s.rank} dp{s.sizes[DP_AXIS]}/tp{s.sizes[TP_AXIS]}"
-            f"/pp{s.sizes[PP_AXIS]}")
+            f"/pp{s.sizes[PP_AXIS]}{ep}")
 
 
 def get_model_parallel_axes() -> tuple:
@@ -361,10 +391,15 @@ def new_process_group(axes):
     (one name or an iterable of them) ≡ parallel_state.new_process_group,
     which the JAX package reduces to a validated tuple of axis names:
     ("tp",) the tp group, ("pp", "tp") the model-parallel plane, ("dp",
-    "tp") a stage's plane, all three the world.  None for a world of one
-    (or no axes).  Unknown axes raise."""
+    "tp") a stage's plane, ("dp", "ep") the data-parallel world of an
+    expert-parallel model, all of them the world.  At ep = 1 "ep" names
+    no group of its own (("dp", "ep") is the dp group).  None for a world
+    of one (or no axes).  Unknown axes raise."""
     axes = _axis_set(axes)
-    return _state().groups[axes] if axes else None
+    s = _state()
+    if s.sizes[EP_AXIS] == 1:
+        axes = axes - {EP_AXIS}
+    return s.groups[axes] if axes else None
 
 
 # --- pipeline stages ---------------------------------------------------------
@@ -474,42 +509,47 @@ def get_pipeline_model_parallel_last_rank() -> int:
 def get_pipeline_global_device_ranks(dp_index: Optional[int] = None,
                                      tp_index: Optional[int] = None) -> list:
     """Global ranks of one pipeline group (this rank's by default):
-    stage·dp·tp + dp_index·tp + tp_index for each stage
-    (parallel_state.py:345-348)."""
+    stage·dp·ep·tp + dp_index·ep·tp + ep_index·tp + tp_index for each
+    stage, ep_index this rank's (parallel_state.py:345-348)."""
     dp_index = _coord(DP_AXIS) if dp_index is None else dp_index
     tp_index = _coord(TP_AXIS) if tp_index is None else tp_index
-    stride = _size(DP_AXIS) * _size(TP_AXIS)
-    base = dp_index * _size(TP_AXIS) + tp_index
+    inner = _size(EP_AXIS) * _size(TP_AXIS)
+    stride = _size(DP_AXIS) * inner
+    base = dp_index * inner + _coord(EP_AXIS) * _size(TP_AXIS) + tp_index
     return [base + stage * stride for stage in range(_size(PP_AXIS))]
 
 
 # --- the group a collective runs over ---------------------------------------
 
 def data_parallel_group():
-    """The dp group of `initialize_model_parallel`; else the
+    """The group a data batch spans under `initialize_model_parallel`
+    (the dp group, or the combined (dp, ep) group at ep > 1); else the
     torch.distributed world when it is initialized; else None (a world
     of one: every collective is the identity)."""
     if _GLOBAL_STATE is not None:
-        return get_data_parallel_group()
+        return new_process_group(get_data_parallel_axis_names())
     return _world_group()
 
 
 def group_of(axis_name):
     """The group a collective over `axis_name` runs over: one of the JAX
-    package's axis names ("tp", "dp", "pp") or an iterable of them
-    (("pp", "tp"): the model-parallel plane), the mesh's group.  Without
-    a mesh the tp and pp groups are None (every rank holds the whole
-    model) and the dp group is `data_parallel_group()`.  An axis the
-    port has no group for raises."""
+    package's axis names ("tp", "dp", "pp", "ep") or an iterable of them
+    (("pp", "tp"): the model-parallel plane; ("dp", "ep"): the data
+    world of an expert-parallel model), the mesh's group.  Without a
+    mesh the tp, pp and ep groups are None (every rank holds the whole
+    model, ep is 1) and the dp group, with or without "ep", is
+    `data_parallel_group()`.  An axis the port has no group for
+    raises."""
     names = (axis_name,) if isinstance(axis_name, str) else axis_name
     unknown = [a for a in names if a not in _AXES]
     if unknown:
         raise ValueError(f"no process group for axis {unknown[0]!r}; the "
-                         f"port has {TP_AXIS!r}, {DP_AXIS!r} and {PP_AXIS!r}")
+                         f"port has {TP_AXIS!r}, {DP_AXIS!r}, {PP_AXIS!r} "
+                         f"and {EP_AXIS!r}")
     axes = frozenset(names)
     if _GLOBAL_STATE is not None:
         return new_process_group(axes)
-    return data_parallel_group() if axes == {DP_AXIS} else None
+    return data_parallel_group() if axes - {EP_AXIS} == {DP_AXIS} else None
 
 
 def group_size(group) -> int:

@@ -19,9 +19,11 @@ Three pieces, as in the JAX package:
 What the port tunes: flash attention's `heads_per_step`
 (ops/flash_attention.py; the CUDA kernels' tiles stay as they are), the serving
 path's `flash_decode` heads_per_step (validated; the decode kernel's
-kv heads a block) and paged-KV page size (`serve_page`), and the TP
-layers' `overlap_chunks` (parallel/overlap.py; no entry is committed:
-one card cannot measure an overlap across cards).  The key
+kv heads a block) and paged-KV page size (`serve_page`), the TP
+layers' and the MoE exchange's `overlap_chunks` (parallel/overlap.py,
+moe/layer.py; no entry is committed: one card cannot measure an overlap
+across cards), and the MoE router's `block_rows` (`moe_router`,
+moe/router.py; every block size gives the same bytes).  The key
 functions below are the JAX package's, all of them, so keys written by
 either package are read by the other; the row-block and flat-optimizer
 axes (`tuned_row_block`, `opt_flat`) are not consulted: the softmax,
@@ -90,8 +92,8 @@ def decode_attrs(n_slots, q_len, hq, hkv, d, page_size, dtype):
 
 
 def moe_router_attrs(tokens, n_experts, top_k, dtype):
-    """The `moe_router` lookup-key attrs (the JAX package's MoE router;
-    no consumer in the port yet); tokens pow2-bucketed."""
+    """The `moe_router` lookup-key attrs, asked by `moe.router.
+    topk_gates` when no block_rows is passed; tokens pow2-bucketed."""
     return dict(rows=pow2_bucket(tokens), experts=int(n_experts),
                 k=int(top_k), dtype=dtype_name(dtype))
 

@@ -389,8 +389,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  launches a step, no host sync, one profiled step,
                  tokens/s, peak memory, the first-step loss within 2e-3
                  relative of the same model through the plain fp32
-                 chunk versions on the card.
- 18. table       the kernels' times on the card (CUDA events) beside
+                 chunk versions on the card, and its first-step gradient
+                 of every parameter within 1e-2 relative L2 of that
+                 model's.
+ 18. slice 21    Mixture-of-Experts on the card as a one-rank NCCL group
+                 (`build_moe_train_step` meshes over it: ep 1, the data
+                 group the world).  (a) bench.py's `_moe_gpt_bench`: the
+                 MoE-GPT step at the JAX bench's on-chip configuration
+                 (vocab 50304, seq 1024, hidden 1024, 12 layers, 16
+                 heads, 8 experts, top 2, capacity factor 1.25, bf16,
+                 bf16 logits, flash), batch 8, ZeRO-2
+                 DistributedFusedAdam(lr=1e-4, n_buckets=2, master bf16)
+                 through `ddp.make_train_step`, 3 + 20 steps: the loss
+                 finite and falling, every step 12 flash forwards and
+                 fused backwards, 25 LayerNorm forwards and backwards and
+                 two Adam launches, no host sync, the aux scalars
+                 (drop fraction, aux loss, gate entropy, z loss) finite;
+                 tokens/s, step ms, peak memory, one profiled step.  (b)
+                 a 2-layer step of that model at batch 2 through the
+                 kernels against the plain versions (one bucket),
+                 phase 5's limits.  (c) the dense anchor: the model at
+                 n_experts 1, top_k 1, capacity factor inf, no aux or z
+                 loss, its experts a dense GPT's of the same width, 3
+                 steps against that GPT's, within 3x the dense step's
+                 own run-to-run (two runs in the call) in loss and
+                 params, the router's weight unmoved.  (d) at the bench's
+                 shapes the blocked router (1024 rows) bit for bit the
+                 dense one, and the layer's forward and backward at
+                 overlap_chunks 2 within 1e-2 of chunks 1's (bitwise
+                 reported).
+ 19. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -412,8 +440,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  instantiations at rate 0.1 beside their rate-0 times
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
-                 buffers', each kernel's launches in slice 17's, 19's
-                 and 20's legs (the backward rows' fp32 launches apart),
+                 buffers', each kernel's launches in slice 17's, 19's,
+                 20's and 21's legs (the backward rows' fp32 launches
+                 apart),
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -1957,6 +1986,29 @@ def gpt_train_phase(torch, fa, ln, ok, what, flash, make_opt, opt_desc,
                                       labels[:2], lr=lr, keyed=keyed)
 
 
+def plain_adam(ok):
+    """`adam_flat_triton`'s plain stand-in (in place, as the kernel
+    updates), for the kernels-vs-plain steps."""
+    def adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
+        for buf, new in zip((p, m, v), ok._adam_reference(
+                p, m, v, g, scalars, eps, weight_decay, adam_w_mode)):
+            buf.copy_(new)
+        return p, m, v
+    return adam
+
+
+def zero_step_fn(step, last=None):
+    """`ddp.make_train_step`'s step (no loss scaler) as `train_loop`
+    drives it: (state, batch) -> (state, loss); with `last`, the aux
+    (has_aux) kept in last["aux"]."""
+    def fn(state, b):
+        out = step(state, None, b)
+        if last is not None:
+            last["aux"] = out[3]
+        return out[0], out[2]
+    return fn
+
+
 def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
                     batch=12, seq=1024, heads_per_step=None, dropout=0.0,
                     remat_policy=False, compare=True):
@@ -1971,12 +2023,6 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
     forward again (48 flash forwards and 97 LayerNorm forwards a step);
     `compare`: the kernels-vs-plain 2-layer step."""
     from apex_tpu_torch.optimizers import FusedAdam
-
-    def plain_adam(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
-        for buf, new in zip((p, m, v), ok._adam_reference(
-                p, m, v, g, scalars, eps, weight_decay, adam_w_mode)):
-            buf.copy_(new)
-        return p, m, v
 
     split, packed = backward == "split", backward == "packed"
     check(packed == (heads_per_step is not None),
@@ -2026,7 +2072,7 @@ def flash_gpt_phase(torch, fa, ln, ok, what, backward, warmup, steps,
         torch, fa, ln, ok, what, True,
         lambda params: FusedAdam(lr=1e-4, master_dtype=torch.bfloat16),
         "FusedAdam(lr=1e-4, master bf16)",
-        [(ok, "adam_flat_triton", plain_adam)], per_step, names,
+        [(ok, "adam_flat_triton", plain_adam(ok))], per_step, names,
         warmup=warmup, steps=steps, batch=batch, seq=seq,
         model_kw=model_kw or None, compare=compare)
 
@@ -2050,7 +2096,10 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
     run), from the same weights (`model.init(seed=0)`) and a fresh
     optimizer each (`make_opt(params)`).  Compares the loss, each leaf's
     gradient (relative L2 error) and the updated flat params, with the
-    limits of the flash step's comparison (phase 5)."""
+    limits of the flash step's comparison (phase 5).  A ZeRO optimizer
+    (one bucket) steps through `ddp.make_train_step`, the others through
+    `make_tp_dp_train_step`."""
+    from apex_tpu_torch.parallel import ddp
     from apex_tpu_torch.transformer.training import (
         init_sharded_optimizer, make_tp_dp_train_step)
 
@@ -2058,16 +2107,27 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
 
     def run(plain):
         opt = make_opt(params)
-        state = init_sharded_optimizer(opt, model, params)
         seen = {}
         step_flat = opt.step_flat
 
         def capture(st, g_flat, **kw):
-            seen.setdefault("g", g_flat.clone())
+            # a ZeRO optimizer takes its list of buckets (here one)
+            g = g_flat[0] if isinstance(g_flat, list) else g_flat
+            seen.setdefault("g", g.clone())
             return step_flat(st, g_flat, **kw)
 
         opt.step_flat = capture
-        step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
+        if hasattr(opt, "full_leaves"):
+            state = opt.init(params)
+            loss_of = loss_fn or model.loss
+            zstep = ddp.make_train_step(lambda p, b: loss_of(p, *b), opt)
+
+            def step(st, t, lab):
+                st, _, loss = zstep(st, None, (t, lab))
+                return st, loss
+        else:
+            state = init_sharded_optimizer(opt, model, params)
+            step = make_tp_dp_train_step(model, opt, loss_fn=loss_fn)
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         if plain:
             for mod, name, fn in swaps:
@@ -2077,7 +2137,9 @@ def kernels_vs_plain_step(torch, fa, ln, ok, what, model, make_opt,
         finally:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
-        return float(loss), seen["g"], state.params, opt.spec
+        flat = (state.params_shard if hasattr(opt, "full_leaves")
+                else state.params)
+        return float(loss), seen["g"], flat, opt.spec
 
     before = kernel_counts(fa, ln, ok)
     loss_p, g_p, p_p, spec = run(plain=True)
@@ -5242,12 +5304,6 @@ def zero2_sweep_leg(torch, fa, ln, ok, warmup=2, steps=10):
     def loss_fn(p, b):
         return model.loss(p, b[0], b[1])
 
-    def carry_step(step):
-        def fn(state, b):
-            state, _, loss = step(state, None, b)
-            return state, loss
-        return fn
-
     def zero(nb, **kw):
         return DistributedFusedAdam(num_shards=1, lr=1e-4, n_buckets=nb,
                                     master_dtype=bf16, **kw)
@@ -5269,7 +5325,7 @@ def zero2_sweep_leg(torch, fa, ln, ok, warmup=2, steps=10):
         state = opt.init(params)
         check(opt.shard_layout()["n_buckets"] == nb,
               f"zero2: {opt.shard_layout()['n_buckets']} buckets, want {nb}")
-        step = carry_step(ddp.make_train_step(loss_fn, opt))
+        step = zero_step_fn(ddp.make_train_step(loss_fn, opt))
         per_step = {"flash_attention_fwd": 8, "flash_attention_bwd": 8,
                     "layer_norm_fwd": 17, "layer_norm_bwd": 17, "adam": nb,
                     "adam_seg": 0}
@@ -6695,6 +6751,13 @@ def plain_chunks(torch, fa):
     return fwd, bwd
 
 
+# the long-context example's first-step gradients through the kernels
+# against the plain fp32 chunks', relative L2 a parameter (q, k, v enter
+# the ring as bf16 on both routes; the kernels round the probabilities
+# to bf16 for the P·V and dS products)
+EXAMPLE_GRAD_TOL = 1e-2
+
+
 def example_leg(torch, fa, ln, ok, cp, group, warmup=1, steps=3):
     """Slice 20 (c): examples/torch_long_context_training.py at its own
     defaults (seq 32768, hidden 128, 2 heads of 64, 2 layers, vocab 512,
@@ -6703,8 +6766,11 @@ def example_leg(torch, fa, ln, ok, cp, group, warmup=1, steps=3):
     three half-chunk forwards and the split pair's three dq and dk/dv
     passes at 16384 keys, fp32; one Adam); no host sync in a step; one
     profiled step; the first-step loss within 2e-3 relative of the same
-    model with the plain fp32 chunk versions on the card."""
+    model with the plain fp32 chunk versions on the card, and the
+    first-step gradient of every parameter within EXAMPLE_GRAD_TOL
+    (relative L2) of that model's."""
     from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.optimizers import flat as F
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "examples"))
@@ -6717,17 +6783,35 @@ def example_leg(torch, fa, ln, ok, cp, group, warmup=1, steps=3):
     dev = torch.device("cuda", 0)
     params = ex.init_params(0, a, dev)
     data = ex.make_data(a, 1, dev)
-    with torch.no_grad():
-        first = float(ex.forward_loss(params, *data, a, group))
-        saved = cp._chunk_fwd, cp._chunk_bwd
-        cp._chunk_fwd, cp._chunk_bwd = plain_chunks(torch, fa)
-        try:
-            plain = float(ex.forward_loss(params, *data, a, group))
-        finally:
-            cp._chunk_fwd, cp._chunk_bwd = saved
+
+    def loss_and_grads():
+        ps = {k: ({n_: v.detach().requires_grad_(True) for n_, v in p.items()}
+                  if isinstance(p, dict) else p.detach().requires_grad_(True))
+              for k, p in params.items()}
+        loss = ex.forward_loss(ps, *data, a, group)
+        pairs = F.tree_leaves_with_paths(ps)
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in pairs])
+        return float(loss), {"/".join(path): g
+                             for (path, _), g in zip(pairs, grads)}
+
+    first, grads = loss_and_grads()
+    saved = cp._chunk_fwd, cp._chunk_bwd
+    cp._chunk_fwd, cp._chunk_bwd = plain_chunks(torch, fa)
+    try:
+        plain, plain_grads = loss_and_grads()
+    finally:
+        cp._chunk_fwd, cp._chunk_bwd = saved
     rel = abs(first - plain) / abs(plain)
     check(rel <= 2e-3, f"long-context example: first loss {first} through "
           f"the kernels, {plain} through the plain fp32 chunks")
+    grad_rel = {name: ((g - plain_grads[name]).norm()
+                       / plain_grads[name].norm()).item()
+                for name, g in grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    check(grad_rel[worst] <= EXAMPLE_GRAD_TOL,
+          f"long-context example: first-step gradient of {worst} "
+          f"{grad_rel[worst]:.3e} (relative L2) from the plain fp32 chunks'")
+    del grads, plain_grads
     opt = FusedAdam(lr=a.lr)
     state = opt.init(params)
     step = ex.make_step(opt, a, group)
@@ -6749,7 +6833,10 @@ def example_leg(torch, fa, ln, ok, cp, group, warmup=1, steps=3):
                             "vocab": a.vocab, "lr": a.lr},
                  "tokens_per_s": a.seq / (line["step_ms"] / 1e3),
                  "first_loss_plain_fp32_chunks": plain,
-                 "first_loss_rel_diff_vs_plain": rel, "no_host_sync": True,
+                 "first_loss_rel_diff_vs_plain": rel,
+                 "first_grads_rel_l2_vs_plain": grad_rel,
+                 "first_grads_rel_l2_max": grad_rel[worst],
+                 "no_host_sync": True,
                  "profile": prof})
     del state, params, data
     torch.cuda.empty_cache()
@@ -6819,6 +6906,330 @@ def add_slice20_columns(rows, slice20, f32_times):
             row["f32_outputs"] = {
                 k_: t for k_, t in f32_times.items()
                 if k_.startswith(kern[name] + " ")}
+
+
+# ------------------------ slice 21: Mixture-of-Experts ------------------------
+
+# the MoE-GPT bench step's launches (12 layers: one flash forward and fused
+# backward a layer, two LayerNorms a layer and the final one, one Adam a
+# bucket; no other flash route, no segmented Adam)
+MOE_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_fwd_packed": 0,
+                "flash_attention_bwd_packed": 0, "layer_norm_fwd": 25,
+                "layer_norm_bwd": 25, "adam": 2, "adam_seg": 0}
+MOE_KERNEL_NAMES = {
+    "flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+    "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+    "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
+    "layer_norm_bwd": lambda k: "ln_bwd_" in k,
+    "adam": lambda k: k == "_adam_kernel"}
+# the dense anchor's limit: the MoE step against the dense one, in units
+# of the dense step's own run-to-run difference
+ANCHOR_RUN_TO_RUN = 3.0
+# overlap_chunks 2 against 1 at the bench's shapes, of each tensor's
+# largest magnitude
+MOE_CHUNKS_TOL = 1e-2
+
+
+def moe_bench_leg(torch, fa, ln, ok, warmup=3, steps=20):
+    """Slice 21 (a): bench.py's `_moe_gpt_bench` (bench.py:856-900)
+    through the port's `build_moe_train_step()` on the one-rank NCCL
+    group (ep 1, dp 1): MoE-GPT at the JAX bench's on-chip configuration
+    (vocab 50304, seq 1024, hidden 1024, 12 layers, 16 heads, 8 experts,
+    top 2, capacity factor 1.25, bf16, bf16 logits, flash) at batch 8,
+    ZeRO-2 DistributedFusedAdam(lr=1e-4, n_buckets=2, master bf16) over
+    the (dp, ep) group; `warmup` + `steps` steps on one seeded batch: the
+    loss finite and falling, the launches a step (MOE_PER_STEP), the aux
+    scalars finite, no host sync, one profiled step.  Returns the line and
+    the batch."""
+    from apex_tpu_torch.models.moe_gpt import build_moe_train_step
+    from apex_tpu_torch.moe.router import expert_capacity
+
+    _, step, (state, _, (shape, _)), info = build_moe_train_step()
+    c, opt = info["config"], info["optimizer"]
+    check((info["ep"], info["dp"], info["batch"], c.vocab_size, c.seq_len,
+           c.hidden, c.num_layers, c.num_heads, c.n_experts, c.top_k,
+           c.capacity_factor, c.dtype, c.use_flash_attention)
+          == (1, 1, 8, 50304, 1024, 1024, 12, 16, 8, 2, 1.25, torch.bfloat16,
+              True), f"the MoE bench configuration drifted: {c}")
+    layout = opt.shard_layout()
+    check(layout["n_buckets"] == 2 and layout["num_shards"] == 1
+          and "ep_shards" not in layout, f"MoE ZeRO layout {layout}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, c.vocab_size, tuple(shape), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    last = {}
+    fn = zero_step_fn(step, last)
+    state, res = train_loop(torch, fa, ln, ok, "moe_gpt", fn, state,
+                            ((tokens, labels),), MOE_PER_STEP, warmup, steps)
+    aux = {k: float(v) for k, v in last["aux"].items()}
+    check(all(math.isfinite(v) for v in aux.values()),
+          f"moe_gpt: an aux scalar is not finite {aux}")
+    state, syncs = step_without_sync(torch, fn, state, (tokens, labels))
+    state, prof = profile_step(torch, fn, state, ((tokens, labels),),
+                               MOE_KERNEL_NAMES)
+    t = info["batch"] * info["seq"]
+    line = dict(
+        res, config="MoE-GPT vocab 50304, seq 1024, hidden 1024, 12 layers, "
+        "16 heads, 8 experts, top 2, capacity factor 1.25, bf16 (bf16 "
+        "logits), flash; batch 8; DistributedFusedAdam(lr=1e-4, n_buckets=2, "
+        "master bf16) through ddp.make_train_step on a one-rank NCCL group "
+        "(ep 1)", params=sum(opt.spec.sizes),
+        capacity=expert_capacity(t, c.n_experts, c.top_k, c.capacity_factor),
+        tokens_per_s=t * steps / res["window_s"], aux=aux,
+        host_syncs_per_step=len(syncs), profile=prof)
+    del state, step, opt, info
+    torch.cuda.empty_cache()
+    return line, tokens, labels
+
+
+def moe_vs_plain(torch, fa, ln, ok, tokens, labels):
+    """Slice 21 (b): the bench configuration at 2 layers, one step at two
+    of the batch's sequences through the kernels and one through their
+    plain versions (the flash pair, the LayerNorm, Adam) with
+    DistributedFusedAdam(num_shards=1, lr=1e-4, one bucket, master bf16):
+    `kernels_vs_plain_step`'s limits, with the routing pinned.  Top-k
+    routing is discontinuous: a token whose second and third gate
+    probabilities lie closer than the kernels' bf16 roundings move them
+    changes experts, and with it a whole row of an expert's gradient (at
+    2048 tokens a few such flips moved the median gradient by 4-8 %,
+    the router's by 12-15 %, where the dense step's move by < 1 %).  So
+    the plain run (which runs first) records each layer's expert choices
+    and the kernels' run takes them (its gates the probabilities it
+    computes at those choices), and the choices the kernels' run would
+    have made itself are counted apart (`routing_flips`)."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.models import moe_gpt as moe_mod
+    from apex_tpu_torch.moe import router as R
+    from apex_tpu_torch.optimizers import DistributedFusedAdam
+
+    cfg = dataclasses.replace(moe_mod.bench_config(), num_layers=2)
+    swaps = (attention_swaps(gpt_mod, fa, cfg)
+             + [(moe_mod, "fused_layer_norm", ln.layer_norm_reference),
+                (ok, "adam_flat_triton", plain_adam(ok))])
+    topk_gates, choices = R.topk_gates, []
+    flips = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def pinned(x, wg, top_k, block_rows=None):
+        out = topk_gates(x, wg, top_k, block_rows)
+        if len(choices) < cfg.num_layers:          # the plain run's
+            choices.append(out.idx)
+            return out
+        idx = choices[len(choices) % cfg.num_layers]
+        choices.append(idx)
+        flips.add_((out.idx != idx).sum())
+        return out._replace(idx=idx,
+                            gate=out.probs.gather(1, idx.long()))
+
+    R.topk_gates = pinned
+    try:
+        line = kernels_vs_plain_step(
+            torch, fa, ln, ok, "moe_gpt (routing pinned)",
+            moe_mod.MoEGPT(cfg),
+            lambda params: DistributedFusedAdam(1, lr=1e-4,
+                                                master_dtype=torch.bfloat16),
+            None, swaps, tokens[:2], labels[:2])
+    finally:
+        R.topk_gates = topk_gates
+    check(len(choices) == 2 * cfg.num_layers,
+          f"moe_gpt kernels vs plain: {len(choices)} routings, want "
+          f"{2 * cfg.num_layers}")
+    line["routing_flips"] = int(flips)
+    line["routed_assignments"] = int(2 * cfg.seq_len * cfg.top_k
+                                     * cfg.num_layers)
+    return line
+
+
+def moe_dense_anchor(torch, tokens, labels, steps=3):
+    """Slice 21 (c): the JAX package's dense anchor (tests/test_moe.py:
+    162-168) on the card: MoEGPT at the bench's width with n_experts 1,
+    top_k 1, capacity factor inf and aux / z coefficients 0, its experts
+    the fc1 / fc2 of a dense GPT of the same width and every other weight
+    that GPT's (the same seed), against that GPT, each through
+    ddp.make_train_step with DistributedFusedAdam(1, lr=1e-4, n_buckets=2,
+    master bf16), `steps` steps on the bench batch; the dense model twice.
+    The MoE step's losses (the largest difference over the steps) and its
+    updated params (L2 over every leaf, the router's excluded, which gets
+    no gradient and must not move) within ANCHOR_RUN_TO_RUN times the
+    dense step's own run-to-run difference."""
+    import dataclasses
+
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.models import moe_gpt as moe_mod
+    from apex_tpu_torch.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.optimizers import flat as F
+    from apex_tpu_torch.parallel import ddp
+
+    mcfg = dataclasses.replace(moe_mod.bench_config(), n_experts=1, top_k=1,
+                               capacity_factor=float("inf"), aux_coef=0.0,
+                               z_coef=0.0)
+    dcfg = gpt_mod.GPTConfig(**{f.name: getattr(mcfg, f.name)
+                                for f in dataclasses.fields(gpt_mod.GPTConfig)})
+    dense, moe = gpt_mod.GPT(dcfg), moe_mod.MoEGPT(mcfg)
+    dparams, mparams = dense.init(seed=0), moe.init(seed=0)
+    for i in range(mcfg.num_layers):
+        bp, dbp = mparams[f"block{i}"], dparams[f"block{i}"]
+        bp["moe"].update(w1=dbp["fc1"]["weight"][None],
+                         b1=dbp["fc1"]["bias"][None],
+                         w2=dbp["fc2"]["weight"][None],
+                         b2=dbp["fc2"]["bias"][None])
+    ren = {("fc1", "weight"): ("moe", "w1"), ("fc1", "bias"): ("moe", "b1"),
+           ("fc2", "weight"): ("moe", "w2"), ("fc2", "bias"): ("moe", "b2")}
+
+    def run(model, params, has_aux):
+        opt = DistributedFusedAdam(1, lr=1e-4, n_buckets=2,
+                                   master_dtype=torch.bfloat16)
+        state = opt.init(params)
+
+        def loss_fn(p, b):
+            return (model.loss_with_stats(p, *b) if has_aux
+                    else model.loss(p, *b))
+
+        step = ddp.make_train_step(loss_fn, opt, has_aux=has_aux)
+        losses = []
+        for _ in range(steps):
+            out = step(state, None, (tokens, labels))
+            state = out[0]
+            losses.append(float(out[2]))
+        return losses, opt.full_params(state)
+
+    d1, d2, m = (run(dense, dparams, False), run(dense, dparams, False),
+                 run(moe, mparams, True))
+    pairs = []
+    for path, leaf in F.tree_leaves_with_paths(d1[1]):
+        q = path[:-2] + ren.get(path[-2:], path[-2:])
+        other = m[1]
+        for key in q:
+            other = other[key]
+        pairs.append((leaf, other.reshape(leaf.shape)))
+    d2_leaves = F.tree_leaves(d2[1])
+    moved = [m[1][f"block{i}"]["moe"]["wg"] for i in range(mcfg.num_layers)]
+    check(all(torch.equal(w, mparams[f"block{i}"]["moe"]["wg"])
+              for i, w in enumerate(moved)),
+          "dense anchor: the router's weight moved (it gets no gradient)")
+
+    def l2(xs, ys):
+        return sum((x.float() - y.float()).norm() ** 2
+                   for x, y in zip(xs, ys)).sqrt().item()
+
+    ref = [a for a, _ in pairs]
+    line = {
+        "steps": steps, "losses_dense": d1[0], "losses_dense_again": d2[0],
+        "losses_moe": m[0],
+        "loss_diff_moe": max(abs(a - b) for a, b in zip(m[0], d1[0])),
+        "loss_diff_dense_run_to_run": max(abs(a - b)
+                                          for a, b in zip(d2[0], d1[0])),
+        "param_l2_moe": l2([b for _, b in pairs], ref),
+        "param_l2_dense_run_to_run": l2(d2_leaves, ref),
+        "losses_bit_for_bit": m[0] == d1[0],
+        "params_bit_for_bit": all(torch.equal(a, b) for a, b in pairs)}
+    log("slice 21 dense anchor " + json.dumps(line))
+    check(line["loss_diff_moe"]
+          <= ANCHOR_RUN_TO_RUN * line["loss_diff_dense_run_to_run"]
+          and line["param_l2_moe"]
+          <= ANCHOR_RUN_TO_RUN * line["param_l2_dense_run_to_run"],
+          f"dense anchor: the MoE step (n_experts 1) is further from the "
+          f"dense step than {ANCHOR_RUN_TO_RUN}x its own run-to-run: {line}")
+    del d1, d2, m, pairs, dparams, mparams, d2_leaves, ref
+    torch.cuda.empty_cache()
+    return line
+
+
+def moe_routed_forms(torch, rng):
+    """Slice 21 (d): at the bench step's shapes (8192 tokens of hidden
+    1024, 8 experts, top 2, bf16, capacity 2560): the blocked router at
+    block_rows 1024 bit for bit the dense router (probs, gate, idx,
+    logits), both timed; MoEMLP forward and backward (a seeded
+    cotangent) at overlap_chunks 2 against 1: y, dx and each parameter's
+    gradient within MOE_CHUNKS_TOL of its largest magnitude, whether
+    each is bit for bit reported."""
+    from apex_tpu_torch.moe import router as R
+    from apex_tpu_torch.moe.layer import MoEMLP
+
+    bf16 = torch.bfloat16
+    x = torch.randn((8192, 1024), generator=rng, device="cuda").to(bf16)
+    cot = torch.randn((8192, 1024), generator=rng, device="cuda").to(bf16)
+    params = MoEMLP(1024, 4096, 8, top_k=2).init(seed=3, dtype=bf16)
+    dense = R.topk_gates_dense(x, params["wg"], 2)
+    blocked = R.topk_gates_blocked(x, params["wg"], 2, 1024)
+    for f in dense._fields:
+        check(torch.equal(getattr(dense, f), getattr(blocked, f)),
+              f"moe router: blocked (1024 rows) {f} is not the dense one's")
+    out = {"router_blocked_1024_bit_for_bit": True,
+           "router_dense_ms": time_ms(torch, lambda: R.topk_gates_dense(
+               x, params["wg"], 2), n=20),
+           "router_blocked_ms": time_ms(torch, lambda: R.topk_gates_blocked(
+               x, params["wg"], 2, 1024), n=20)}
+    names = sorted(params)
+
+    def fwd_bwd(chunks):
+        layer = MoEMLP(1024, 4096, 8, top_k=2, capacity_factor=1.25,
+                       overlap_chunks=chunks)
+        ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        xx = x.detach().requires_grad_(True)
+        y, _ = layer.apply(ps, xx)
+        grads = torch.autograd.grad(y, [ps[k] for k in names] + [xx], cot)
+        return [y.detach()] + list(grads)
+
+    one, two = fwd_bwd(1), fwd_bwd(2)
+    out["chunks2_vs_1"] = {
+        name: {"max_err": max_err(torch, f"moe chunks 2 vs 1 {name}", b, a,
+                                  tol=MOE_CHUNKS_TOL),
+               "bit_for_bit": bool(torch.equal(a, b))}
+        for name, a, b in zip(["y"] + names + ["x"], one, two)}
+    del x, cot, params, dense, blocked, one, two
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice21_phase(torch, fa, ln, ok, rng):
+    """Phase 18 (module docstring): (a), (b) and (c) on the card as a
+    one-rank NCCL group (`build_moe_train_step` meshes over it: ep 1),
+    (d) the routed forms at the bench's shapes."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        out["bench"], tokens, labels = moe_bench_leg(torch, fa, ln, ok)
+        group = mesh.data_parallel_group()
+        check(group is not None and dist.get_backend(group) == "nccl"
+              and mesh.get_expert_model_parallel_world_size() == 1
+              and mesh.get_data_parallel_axis_names() == ("dp",),
+              "slice 21: the data group is not a one-rank NCCL group at ep 1")
+        log("slice 21 MoE bench " + json.dumps(out["bench"]))
+        out["vs_plain"] = moe_vs_plain(torch, fa, ln, ok, tokens, labels)
+        out["dense_anchor"] = moe_dense_anchor(torch, tokens, labels)
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    out["routed"] = moe_routed_forms(torch, rng)
+    log("slice 21 routed forms " + json.dumps(out["routed"]))
+    log(f"phase 18 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+SLICE21_ROWS = ("flash_attention_fwd", "flash_attention_bwd",
+                "layer_norm_fwd", "layer_norm_bwd", "adam")
+
+
+def add_slice21_columns(rows, slice21):
+    """The kernel table's slice-21 column: on each row the MoE-GPT bench
+    step launched, its launches in that leg (3 + 20 steps) and a step."""
+    leg = slice21["bench"]
+    for row in rows:
+        name = row["name"]
+        if name in SLICE21_ROWS:
+            row["launches_slice21"] = {
+                "moe bench": leg["launches"][name],
+                "per_step": leg["launches_per_step"][name]}
 
 
 def rate0_bits(root):
@@ -7527,7 +7938,11 @@ def run_phases():
     slice20 = slice20_phase(torch, fa, ln, ok, rng, long["leg"]["ms"])
     torch.cuda.empty_cache()
 
-    # ---- 18. kernel table --------------------------------------------
+    # ---- 18. slice 21: Mixture-of-Experts ------------------------------
+    slice21 = slice21_phase(torch, fa, ln, ok, rng)
+    torch.cuda.empty_cache()
+
+    # ---- 19. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -7638,6 +8053,7 @@ def run_phases():
     add_slice17_columns(table["kernels"], shards, slice17)
     add_slice19_columns(table["kernels"], slice19)
     add_slice20_columns(table["kernels"], slice20, f32_times)
+    add_slice21_columns(table["kernels"], slice21)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -7656,6 +8072,7 @@ def run_phases():
         + json.dumps(slice8_vs_plain))
     log("GPT dropout step, kernels vs plain "
         + json.dumps(slice14["dropout_vs_plain"]))
+    log("MoE-GPT step, kernels vs plain " + json.dumps(slice21["vs_plain"]))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -513,10 +513,11 @@ def test_launcher_runs_as_a_module(tmp_path):
 
 def test_mesh_world_of_one_and_refusals():
     """Without torch.distributed the dp group is a world of one (no group,
-    size 1, rank 0) and the sync is the identity; ep > 1 raises naming
-    its ROADMAP item, and a context_parallel_size argument is refused as
-    the JAX function refuses it (it has none); a tp or pp size the world
-    of one does not divide raises as the JAX mesh does."""
+    size 1, rank 0) and the sync is the identity; ep = 2 does not divide
+    the world of one and raises the JAX mesh's ValueError, and a
+    context_parallel_size argument is refused as the JAX function
+    refuses it (it has none); a tp or pp size the world of one does not
+    divide raises as the JAX mesh does."""
     from apex_tpu_torch.parallel import mesh as M
 
     assert M.initialize_model_parallel() is None
@@ -532,12 +533,13 @@ def test_mesh_world_of_one_and_refusals():
     for kw, exc, match in (
             ({"context_parallel_size": 2}, TypeError,
              "context_parallel_size"),
-            ({"expert_model_parallel_size": 2}, NotImplementedError,
-             "item 16")):
+            ({"expert_model_parallel_size": 2}, ValueError,
+             r"world size 1 is not divisible by tp\(1\) x pp\(1\) x "
+             r"ep\(2\)")):
         with pytest.raises(exc, match=match):
             M.initialize_model_parallel(**kw)
-    with pytest.raises(TypeError, match="context_parallel_size"):
-        JM.initialize_model_parallel(context_parallel_size=2)
+        with pytest.raises(exc, match=match):
+            JM.initialize_model_parallel(devices=jax.devices()[:1], **kw)
     M.destroy_model_parallel()
     assert not M.model_parallel_is_initialized()
     with pytest.raises(M.MeshNotInitializedError):

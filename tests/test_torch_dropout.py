@@ -342,18 +342,19 @@ def test_fold_in_and_split_are_pure():
 
 def test_one_rank_storage_round_trips_and_more_raise():
     """Without a tp group the distributed storage keeps all of x and
-    round-trips it, and so it does over "pp" without a mesh; the tp
-    storage over more ranks runs over the tp group
+    round-trips it, and so it does over "pp" and "ep" without a mesh; the
+    tp storage over more ranks runs over the tp group
     (tests/test_torch_tensor_parallel.py), and an axis with no group
     raises."""
     x = torch.randn(3, 4, 5)
     chunk = trandom.split_tensor_into_1d_equal_chunks(x)
     assert torch.equal(trandom.gather_split_1d_tensor(chunk).reshape(x.shape),
                        x)
-    assert torch.equal(trandom.split_tensor_into_1d_equal_chunks(x, "pp"),
-                       chunk)
-    for fn, args in ((trandom.split_tensor_into_1d_equal_chunks, (x, "ep")),
-                     (trandom.gather_split_1d_tensor, (chunk, "ep")),
+    for axis in ("pp", "ep"):
+        assert torch.equal(trandom.split_tensor_into_1d_equal_chunks(x, axis),
+                           chunk)
+    for fn, args in ((trandom.split_tensor_into_1d_equal_chunks, (x, "cp")),
+                     (trandom.gather_split_1d_tensor, (chunk, "cp")),
                      (trandom.checkpoint_with_distributed_saved_activations(
                          torch.sin, "cp"), (x,))):
         with pytest.raises(ValueError, match="no process group"):

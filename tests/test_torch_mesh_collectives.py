@@ -116,9 +116,10 @@ def test_group_rank_math_matches_the_jax_mesh(ranks):
 def test_amax_axes_and_refusals(ranks):
     """reduce_amax is the max over the (dp, tp) plane; a tp or pp size
     that does not divide the world raises as the JAX mesh does, and so
-    does a virtual pipeline at pp = 1; ep above 1 raises naming ROADMAP
-    item 16, and a context_parallel_size argument is a TypeError, as the
-    JAX function (which has none) gives."""
+    does a virtual pipeline at pp = 1 and an ep size that does not divide
+    the world (the JAX message names it), and a context_parallel_size
+    argument is a TypeError, as the JAX function (which has none)
+    gives."""
     world, _, outs = ranks
     JM.destroy_model_parallel()
     JM.initialize_model_parallel(devices=jax.devices()[:world], use_fp8=True)
@@ -136,12 +137,16 @@ def test_amax_axes_and_refusals(ranks):
         assert "requires pipeline_model_parallel_size >= 2" in \
             refused["vpp"]
         assert "context_parallel_size" in refused["cp"], refused
-        assert "item 16" in refused["ep"], refused
+        assert "not divisible by tp(1) x pp(1) x ep(3)" in refused["ep"], \
+            refused
     with pytest.raises(ValueError, match="pp\\(3\\)"):
         JM.initialize_model_parallel(pipeline_model_parallel_size=3,
                                      devices=jax.devices()[:world])
     with pytest.raises(ValueError, match="pipeline_model_parallel_size >= 2"):
         JM.initialize_model_parallel(virtual_pipeline_model_parallel_size=2,
+                                     devices=jax.devices()[:world])
+    with pytest.raises(ValueError, match=r"x pp\(1\) x ep\(3\)"):
+        JM.initialize_model_parallel(expert_model_parallel_size=3,
                                      devices=jax.devices()[:world])
 
 
@@ -225,8 +230,11 @@ def test_world_of_one_collectives_are_the_identity():
             M.get_tensor_model_parallel_world_size(),
             M.get_tensor_model_parallel_rank()) == (None, 1, 0)
     assert M.new_process_group(("pp", "tp")) is None
+    # at ep = 1 "ep" names no group of its own: ("dp", "ep") is dp's
+    assert M.new_process_group("ep") is None
+    assert M.new_process_group(("dp", "ep")) is None
     with pytest.raises(ValueError, match="unknown mesh axes"):
-        M.new_process_group("ep")
+        M.new_process_group("cp")
     with pytest.raises(M.MeshNotInitializedError, match="use_fp8"):
         M.get_amax_reduction_axes()
     M.destroy_model_parallel()

@@ -437,19 +437,25 @@ def test_segmented_kernels_at_shard_offsets():
 
 
 def test_zero_refusals_and_world_of_one():
-    """num_shards must be the group's size (here a world of one); the
-    (dp, ep) sharding raises naming item 16, another axis name is
-    refused; a checkpoint of another
-    bucket count is refused; at one rank the ZeRO step is FusedAdam's."""
+    """num_shards must be the group's size (here a world of one); an
+    ep_shards that does not divide num_shards raises the JAX package's
+    ValueError, the combined ("dp", "ep") axes are taken (at ep = 1 the
+    dp group: the world of one) and another axis name is refused; a
+    checkpoint of another bucket count is refused; at one rank the ZeRO
+    step is FusedAdam's."""
     from apex_tpu_torch.optimizers import FusedAdam
 
     params = {k: torch.from_numpy(v) for k, v in _mlp_params().items()}
     with pytest.raises(ValueError, match="num_shards"):
         DistributedFusedAdam(2).init(params)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    msg = r"ep_shards=2 must be >= 1 and divide num_shards=1"
+    with pytest.raises(ValueError, match=msg):
         DistributedFusedAdam(1, ep_shards=2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        DistributedFusedLAMB(1, axis_name=("dp", "ep"))
+    with pytest.raises(ValueError, match=msg):
+        JDAdam(num_shards=1, ep_shards=2)
+    lamb = DistributedFusedLAMB(1, axis_name=("dp", "ep"))
+    lamb.init(params)
+    assert "ep_shards" not in lamb.shard_layout()
     with pytest.raises(ValueError, match="axis_name"):
         DistributedFusedAdam(1, axis_name="tp")
     opt = DistributedFusedAdam(1, lr=1e-2, n_buckets=2)

@@ -452,8 +452,8 @@ def scn_tp_mesh(d, rank, world):
                        virtual_pipeline_model_parallel_size=2),
         "cp": _raises(TypeError, mesh.initialize_model_parallel,
                       context_parallel_size=2),
-        "ep": _raises(NotImplementedError, mesh.initialize_model_parallel,
-                      expert_model_parallel_size=2)}
+        "ep": _raises(ValueError, mesh.initialize_model_parallel,
+                      expert_model_parallel_size=3)}
     _restore()
     return out
 
@@ -968,6 +968,105 @@ def scn_cp(d, rank, world):
         state, loss = step(state, *shard)
         losses.append(float(loss))
     out["example"] = np.asarray(losses)
+    _restore()
+    return out
+
+
+# ---------------------------- expert parallelism ----------------------------
+
+MOE_AXES = (("tp",), ("ep",), ("dp",), ("pp",), ("dp", "ep"), ("ep", "tp"),
+            ("dp", "tp"), ("pp", "dp", "ep", "tp"))
+
+
+def _ep(ep, tp=1):
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(tensor_model_parallel_size=tp,
+                                   expert_model_parallel_size=ep)
+
+
+def scn_moe(d, rank, world):
+    """Expert parallelism: at each (ep, tp) layout the sizes, coordinates
+    and the members of every group; the dispatch/combine round trip
+    through the ep all-to-all pair (monolithic and in 2 chunks, an
+    elementwise expert); an MoEMLP at ep = 2 (chunks 1 and 2): its output,
+    loss and the (dp, ep)-mean of its gradients; two steps of
+    `build_moe_train_step` from the JAX weights; the refusals (tp > 1, an
+    ep that does not divide the world)."""
+    from apex_tpu_torch.models import moe_gpt
+    from apex_tpu_torch.moe import dispatch as D
+    from apex_tpu_torch.moe import router as R
+    from apex_tpu_torch.moe.layer import MoEMLP
+
+    out = {}
+    for ep, tp in d["layouts"]:
+        _ep(ep, tp)
+        out[("mesh", ep, tp)] = {
+            "sizes": np.array([
+                mesh.get_data_parallel_world_size(),
+                mesh.get_data_parallel_rank(),
+                mesh.get_expert_model_parallel_world_size(),
+                mesh.get_expert_model_parallel_rank(),
+                mesh.get_tensor_model_parallel_world_size(),
+                mesh.get_tensor_model_parallel_rank()]),
+            "axes": mesh.get_data_parallel_axis_names(),
+            "info": mesh.get_rank_info(),
+            "groups": {axes: dist.get_process_group_ranks(
+                mesh.new_process_group(axes)) for axes in MOE_AXES},
+            "data_group": dist.get_process_group_ranks(
+                mesh.data_parallel_group())}
+    _ep(2)
+    e = d["n_experts"]
+    xl = local(t(d["x"]), rank, world)
+    tl = xl.shape[0]
+    idx = (torch.arange(tl)[:, None] * 3) % e
+    cap = R.expert_capacity(tl, e, 1, float("inf"))
+    dest, _ = R.capacity_destinations(idx, e, cap)
+    buf = D.dispatch(xl, dest, e, cap)
+    ones = torch.ones((tl, 1))
+    ybuf = D.exchange_combine(D.exchange_dispatch(buf, "ep", 2, e, cap),
+                              "ep", 2, e, cap)
+    out["roundtrip"] = n(D.combine(ybuf, dest, ones))
+    ybuf = D.chunked_expert_exchange(buf, lambda xe: xe * 2.0 + 1.0, "ep",
+                                     2, e, cap, chunks=2)
+    out["roundtrip_chunks"] = n(D.combine(ybuf, dest, ones))
+    m = d["mlp"]
+    for chunks in (1, 2):
+        layer = MoEMLP(m["hidden"], m["ffn"], e, top_k=2,
+                       capacity_factor=2.0, ep_size=2,
+                       overlap_chunks=chunks)
+        params = tree_t(m["params"])
+        names = sorted(params)
+        for k in names:
+            params[k].requires_grad_(True)
+        y, _ = layer.apply(params, local(t(m["x"]), rank, world))
+        loss = torch.sum(y * local(t(m["t"]), rank, world))
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        ddp.sync_gradients(list(grads))            # the (dp, ep) mean
+        out[("mlp", chunks)] = {"y": n(y), "loss": n(loss),
+                                "grads": {k: n(g) for k, g in
+                                          zip(names, grads)}}
+    model, step, _, info = moe_gpt.build_moe_train_step("cpu")
+    opt = info["optimizer"]
+    state = opt.init(moe_gpt.params_from_jax(d["gpt_params"], device="cpu"))
+    r = mesh.group_rank(mesh.data_parallel_group())
+    tokens = t(local(d["tokens"], r, world))
+    labels = t(local(np.roll(d["tokens"], -1, axis=1), r, world))
+    losses, stats = [], []
+    for _ in range(2):
+        state, _, loss, st = step(state, None, (tokens, labels))
+        losses.append(float(loss))
+        stats.append({k: float(v) for k, v in st.items()})
+    out["train"] = {"losses": np.asarray(losses), "stats": stats,
+                    "shard": n(state.params_shard),
+                    "layout": opt.shard_layout(),
+                    "ep": info["ep"], "dp": info["dp"],
+                    "local_batch": info["local_batch"]}
+    _ep(1, 2)
+    layer = MoEMLP(m["hidden"], m["ffn"], e, top_k=2, tp_axis="tp")
+    out["tp_refused"] = _raises(NotImplementedError, layer.apply,
+                                tree_t(m["params"]), t(m["x"]))
+    out["ep3_refused"] = _raises(ValueError, mesh.initialize_model_parallel,
+                                 expert_model_parallel_size=3)
     _restore()
     return out
 
