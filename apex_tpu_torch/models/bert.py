@@ -1,5 +1,5 @@
-"""BERT — the bidirectional encoder with its MLM and NSP heads, at tp=1
-(counterpart of apex_tpu/models/bert.py).
+"""BERT — the bidirectional encoder with its MLM and NSP heads, over the
+tensor-parallel ranks (counterpart of apex_tpu/models/bert.py).
 
 Parameters are a plain nested dict of tensors in the JAX package's
 layout and key names (`params_from_jax` carries a JAX tree over):
@@ -32,6 +32,20 @@ card keeps both operands bf16 on the tensor cores (cuBLAS accumulates in
 fp32), where upcasting them first would make the (tokens × H) · (H × V)
 product and its two gradients fp32 GEMMs.  The gradients round the fp32
 cotangent to bf16 once and run as bf16 GEMMs.
+
+Tensor parallelism (apex_tpu/models/bert.py:61-86, 127-150, 214-229)
+runs over the tp group that `BertConfig.axis_name` names in
+`parallel.mesh` (none: tp = 1).  Each rank holds its shard of the
+parameters (`partition_specs()`, GPT's dim-index spelling, so
+`shard_tree` and `transformer.training.init_sharded_optimizer` take it;
+`params_from_jax(..., tp_rank, tp_size)` cuts it from the JAX tree): the
+embedding's rows, qkv and fc1 column-parallel, proj and fc2
+row-parallel, everything else replicated.  A rank sees num_heads / tp
+heads, the rank's contiguous 3H/tp columns of the packed qkv split three
+ways, as the JAX package splits its shard.  The MLM head is
+vocab-parallel: `copy_to` over tp, the product with the rank's (V/tp, H)
+embedding rows, the vocab-parallel cross entropy.  The JAX BERT has no
+sequence-parallel path, and neither has this one.
 """
 
 from __future__ import annotations
@@ -43,12 +57,16 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch.models.gpt import params_from_jax  # noqa: F401
+from apex_tpu_torch.models.gpt import tree_from_jax
 from apex_tpu_torch.ops._common import resolve_device
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.softmax import scaled_masked_softmax
+from apex_tpu_torch.parallel.collectives import (
+    copy_to_tensor_model_parallel_region,
+)
+from apex_tpu_torch.parallel.mesh import TP_AXIS
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -56,6 +74,7 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    shard_tree,
 )
 
 
@@ -77,7 +96,7 @@ class BertConfig:
     attn_block_q: Any = None
     attn_block_k: Any = None
     attn_heads_per_step: Any = None
-    axis_name: str = "tp"       # the tensor-parallel axis: tp=1 here
+    axis_name: str = TP_AXIS    # the tensor-parallel axis of the mesh
 
     @property
     def head_dim(self):
@@ -129,6 +148,41 @@ def init_bert_params(cfg: BertConfig, seed: int = 0, device=None) -> dict:
     return params
 
 
+def partition_specs(cfg: BertConfig) -> dict:
+    """The tp dim of every leaf of `init_bert_params` (None: replicated)
+    ≡ the JAX package's `Bert.partition_specs`: the embedding's rows,
+    qkv and fc1 columns, proj and fc2 rows; the positions, token types,
+    LayerNorms, pooler, MLM dense, NSP and the row biases replicated."""
+    col = {"weight": 1, "bias": 0}
+    row = {"weight": 0, "bias": None}
+    ln = {"weight": None, "bias": None}
+    specs = {"embed": {"weight": 0}, "pos_embed": None,
+             "tokentype_embed": None, "embed_ln": dict(ln),
+             "pooler_w": None, "pooler_b": None, "lm_head_ln": dict(ln),
+             "lm_head_dense_w": None, "lm_head_dense_b": None,
+             "nsp_w": None, "nsp_b": None}
+    for i in range(cfg.num_layers):
+        specs[f"block{i}"] = {"ln1": dict(ln), "qkv": dict(col),
+                              "proj": dict(row), "ln2": dict(ln),
+                              "fc1": dict(col), "fc2": dict(row)}
+    return specs
+
+
+def params_from_jax(tree, device=None, dtype: Optional[torch.dtype] = None,
+                    *, tp_rank: int = 0, tp_size: int = 1) -> dict:
+    """The JAX package's BERT parameter pytree (nested dicts of numpy
+    arrays) as the port's parameters on `device`: same keys and layouts;
+    `dtype` casts every leaf.  With `tp_size` > 1, tp rank `tp_rank`'s
+    shards, each leaf cut along its `partition_specs` dim (the shard
+    `shard_map` hands that rank)."""
+    params = tree_from_jax(tree, device, dtype)
+    if tp_size == 1:
+        return params
+    n_layers = sum(k.startswith("block") for k in params)
+    return shard_tree(params, partition_specs(BertConfig(num_layers=n_layers)),
+                      tp_rank, tp_size)
+
+
 class _MlmLogits(torch.autograd.Function):
     """(N, H) · (V, H)ᵀ with bf16 operands and an fp32 product on the
     card; the gradients are bf16 GEMMs of the cotangent rounded once."""
@@ -157,11 +211,12 @@ def mlm_logits(x, w, out_dtype):
 
 
 class Bert:
-    """The BERT encoder and its pretraining loss on one device ≡ the JAX
-    package's `Bert` at tp=1, over the nested parameter dict of
-    `init_bert_params` / `params_from_jax`.  Attention follows
-    `use_flash_attention`: the flash kernel with segment ids, or (the
-    default) the dense path through the masked scaled softmax kernel."""
+    """The BERT encoder and its pretraining loss ≡ the JAX package's
+    `Bert`, over this rank's shard of the nested parameter dict of
+    `init_bert_params` / `params_from_jax` (the whole dict at tp = 1).
+    Attention follows `use_flash_attention`: the flash kernel with
+    segment ids, or (the default) the dense path through the masked
+    scaled softmax kernel."""
 
     def __init__(self, config: BertConfig):
         c = config
@@ -170,27 +225,36 @@ class Bert:
                              f"hidden={c.hidden}")
         self.c = c
         h, f = c.hidden, c.ffn_mult * c.hidden
-        self.embed = VocabParallelEmbedding(c.vocab_size, h)
-        self.blocks = [(ColumnParallelLinear(h, 3 * h),
-                        RowParallelLinear(h, h),
-                        ColumnParallelLinear(h, f),
-                        RowParallelLinear(f, h))
+        ax = dict(axis_name=c.axis_name)
+        self.embed = VocabParallelEmbedding(c.vocab_size, h, **ax)
+        self.blocks = [(ColumnParallelLinear(h, 3 * h, **ax),
+                        RowParallelLinear(h, h, **ax),
+                        ColumnParallelLinear(h, f, **ax),
+                        RowParallelLinear(f, h, **ax))
                        for _ in range(c.num_layers)]
 
     def init(self, seed: int = 0, device=None) -> dict:
+        """The whole (global) parameters; `init_sharded_optimizer` keeps
+        this rank's shards of them."""
         return init_bert_params(self.c, seed, device)
+
+    def partition_specs(self) -> dict:
+        """The tp dim of every leaf (None: replicated)."""
+        return partition_specs(self.c)
 
     def _ln(self, p, x):
         return fused_layer_norm(x, p["weight"], p["bias"])
 
     def _attention(self, bp, qkv_mod, proj_mod, x, attn_mask):
-        """x: (S, B, H) → (S, B, H).  attn_mask: the flash path's (B, S)
+        """x: (S, B, H) → (S, B, H), the heads sharded over tp.
+        attn_mask: the flash path's (B, S)
         int32 segment ids, or the dense path's (B, 1, 1, S) bool padding
         mask (True = padded)."""
         c = self.c
         s, b, _ = x.shape
-        qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H)
-        q, k, v = qkv_split_heads(qkv, c.num_heads, c.head_dim)
+        qkv = qkv_mod.apply(bp["qkv"], x)                  # (S, B, 3H/tp)
+        q, k, v = qkv_split_heads(qkv, qkv.shape[-1] // (3 * c.head_dim),
+                                  c.head_dim)
         scale = 1.0 / math.sqrt(c.head_dim)
         if c.use_flash_attention:
             ctx = flash_attention(q, k, v, softmax_scale=scale,
@@ -202,7 +266,7 @@ class Bert:
             scores = torch.matmul(q, k.transpose(-2, -1))  # (B, nh, S, S)
             probs = scaled_masked_softmax(scores, attn_mask, scale)
             ctx = torch.matmul(probs, v)                   # (B, nh, S, d)
-        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, -1)    # (S, B, H/tp)
         return proj_mod.apply(bp["proj"], ctx)
 
     def encode(self, params, tokens, tokentype_ids=None, pad_mask=None):
@@ -244,9 +308,13 @@ class Bert:
               + params["lm_head_dense_b"].to(h.dtype))
         lm = self._ln(params["lm_head_ln"],
                       F.gelu(lm, approximate="tanh"))
+        # vocab-parallel head: the replicated hidden states meet the
+        # rank's (V/tp, H) rows; copy_to sums their gradient over tp
+        lm = copy_to_tensor_model_parallel_region(lm, c.axis_name)
         logits = mlm_logits(lm, params["embed"]["weight"],
                             c.logits_dtype or torch.float32)
-        per_tok = vocab_parallel_cross_entropy(logits, mlm_labels.T)
+        per_tok = vocab_parallel_cross_entropy(logits, mlm_labels.T,
+                                               axis_name=c.axis_name)
         lm_mask = loss_mask.T.to(torch.float32)
         mlm_loss = (torch.sum(per_tok * lm_mask)
                     / torch.clamp_min(torch.sum(lm_mask), 1.0))

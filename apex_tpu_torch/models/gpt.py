@@ -256,20 +256,11 @@ def pipelined_partition_specs(cfg: GPTConfig) -> dict:
     return flat
 
 
-def params_from_jax(tree: Mapping[str, Any], device=None,
-                    dtype: Optional[torch.dtype] = None, *,
-                    tp_rank: int = 0, tp_size: int = 1,
-                    pp_rank: int = 0, pp_size: int = 1) -> dict:
-    """The JAX package's GPT parameter pytree, given as nested dicts of
-    numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`),
-    as the port's parameters on `device`: same keys, same layouts
-    (Linear weights (in, out), embedding (V, H)).  `dtype` casts every
-    leaf; None keeps each array's own float type.  With `tp_size` > 1,
-    tp rank `tp_rank`'s shards, each leaf cut along its
-    `partition_specs` dim (the shard `shard_map` hands that rank).  A
-    `GPTPipelined` tree (its stacked `blocks`) is cut over pp too:
-    `blocks[pp_rank]` (its leading dim kept, of size 1) cut over tp,
-    beside the replicated embedding, positions and final LayerNorm."""
+def tree_from_jax(tree: Mapping[str, Any], device=None,
+                  dtype: Optional[torch.dtype] = None) -> dict:
+    """A JAX parameter pytree given as nested dicts of numpy arrays, as
+    nested dicts of tensors on `device` (copies, never views); `dtype`
+    casts every leaf, None keeps each array's own float type."""
     dev = resolve_device(device)
 
     def convert(x):
@@ -284,7 +275,24 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
             t = t.to(dtype)
         return t.to(dev)
 
-    params = convert(tree)
+    return convert(tree)
+
+
+def params_from_jax(tree: Mapping[str, Any], device=None,
+                    dtype: Optional[torch.dtype] = None, *,
+                    tp_rank: int = 0, tp_size: int = 1,
+                    pp_rank: int = 0, pp_size: int = 1) -> dict:
+    """The JAX package's GPT parameter pytree, given as nested dicts of
+    numpy arrays (e.g. `jax.tree_util.tree_map(np.asarray, params)`),
+    as the port's parameters on `device`: same keys, same layouts
+    (Linear weights (in, out), embedding (V, H)).  `dtype` casts every
+    leaf; None keeps each array's own float type.  With `tp_size` > 1,
+    tp rank `tp_rank`'s shards, each leaf cut along its
+    `partition_specs` dim (the shard `shard_map` hands that rank).  A
+    `GPTPipelined` tree (its stacked `blocks`) is cut over pp too:
+    `blocks[pp_rank]` (its leading dim kept, of size 1) cut over tp,
+    beside the replicated embedding, positions and final LayerNorm."""
+    params = tree_from_jax(tree, device, dtype)
     if "blocks" in params:
         return shard_tree_axes(
             params, pipelined_partition_specs(GPTConfig(num_layers=1)),

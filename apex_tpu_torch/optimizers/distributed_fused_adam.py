@@ -216,6 +216,15 @@ class _ShardedFlat(F.FlatCheckpointMixin):
         """The full params tree, all-gathered from the ranks' chunks."""
         return F.tree_from_leaves(self.spec, self.full_leaves(state))
 
+    def state_partition_specs(self):
+        """Which state fields shard over the group (≡ the JAX package's
+        `state_partition_specs`, with the axis names as a tuple in place
+        of a `PartitionSpec`): `step` replicated (an empty tuple), every
+        flat buffer split over `axis_name`.  The checkpoint manager reads
+        it."""
+        return self._STATE(*[() if f == "step" else (self.axis_name,)
+                             for f in self._STATE._fields])
+
     def shard_layout(self) -> dict:
         """The shard layout (≡ the JAX package's `shard_layout`): enough to
         reassemble the whole flat buffer from per-rank shards at any

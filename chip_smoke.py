@@ -418,7 +418,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  dense one, and the layer's forward and backward at
                  overlap_chunks 2 within 1e-2 of chunks 1's (bitwise
                  reported).
- 19. table       the kernels' times on the card (CUDA events) beside
+ 19. slice 22    BERT at tp > 1 and the checkpoint package, on the card
+                 as a one-rank NCCL group (the tp and dp groups of
+                 `initialize_model_parallel(tensor_model_parallel_size=
+                 1)`).  (a) phase 6's BERT-Large step (h1024, L24, 16
+                 heads, seq 512, batch 32, bf16, flash with the padding
+                 mask as segment ids, MLM + NSP, FusedLAMB(lr=1e-4, wd
+                 0.01, master bf16, the no-decay mask)) through
+                 `make_tp_dp_train_step` over those groups, 1 + 4 steps:
+                 the launches a step phase 6's, no host sync, the loss
+                 falls, the first loss within 1e-3 relative of phase
+                 6's, the 2-layer kernels-vs-plain step within phase 6's
+                 limits; seq/s, step and device ms, peak memory.  (b)
+                 bench.py's `_ckpt_cycle` on the card: GPT at vocab
+                 50304, seq 1024, h1024, L8, 16 heads, bf16, flash, batch
+                 8, ZeRO-2 DistributedFusedAdam(lr=1e-4, n_buckets=2,
+                 master bf16) through `ddp.make_train_step`; one step,
+                 then CheckpointManager save, wait, restore: every state
+                 field bit for bit; ckpt_blocking_s, ckpt_save_s,
+                 ckpt_bytes, restore s, and the step's wall and device ms
+                 with no write and with a write in flight on the writer
+                 thread.  (c) the save → kill → resume gate on (b)'s
+                 model: 8 steps with a commit at step 4 and a save at
+                 step 6 killed by the `ckpt.mid_shards` fail point (that
+                 step does not load, the latest committed step is 4), a
+                 second unpreempted run, then a fresh optimizer and
+                 manager restore step 4 (bit for bit the committed
+                 state) and replay steps 5-8: the first replayed loss bit
+                 for bit the baseline's, the later losses and the final
+                 master flat within 3x the second run's distance from
+                 the baseline; 8 flash forwards and backwards, 17
+                 LayerNorm forwards and backwards and 2 Adam launches a
+                 step; the committed state written by `save_sharded` as
+                 a dp = 4 layout from four virtual shards restores at
+                 dp = 1 bit for bit.  (d) bench.py's `_fleet_cycle` (n =
+                 2^20, dp 4, two emulated hosts) through the port's
+                 modules: the commit through the file barrier, a
+                 half-fleet commit refused, one lost-rank resume that
+                 re-shards to dp 2 and gives back the flat bit for bit;
+                 barrier s.  The checkpoints live under a temporary
+                 directory that the phase removes.
+ 20. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -441,8 +481,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
                  buffers', each kernel's launches in slice 17's, 19's,
-                 20's and 21's legs (the backward rows' fp32 launches
-                 apart),
+                 20's, 21's and 22's legs (the backward rows' fp32
+                 launches apart),
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -7232,6 +7272,412 @@ def add_slice21_columns(rows, slice21):
                 "per_step": leg["launches_per_step"][name]}
 
 
+# ------------- slice 22: BERT at tp > 1 and the checkpoint package -------------
+
+# bench.py's `_ckpt_cycle` at its on-chip size: GPT at h1024, 8 layers
+CKPT_GPT = dict(vocab_size=50304, seq_len=1024, hidden=1024, num_layers=8,
+                num_heads=16)
+CKPT_BATCH = 8
+# per step: flash 8 + 8, LayerNorm 2 a layer + the final one, Adam 1 a
+# bucket (two buckets)
+CKPT_PER_STEP = {"flash_attention_fwd": 8, "flash_attention_bwd": 8,
+                 "layer_norm_fwd": 17, "layer_norm_bwd": 17, "adam": 2}
+# the resumed run's distance from the baseline, in units of a second
+# unpreempted run's (phase 18's gate 3)
+RESUME_RUN_TO_RUN = ANCHOR_RUN_TO_RUN
+# phase 6's kernels-vs-plain loss limit (`kernels_vs_plain_step`)
+BERT_TP_LOSS_TOL = 1e-3
+
+
+def bert_tp_leg(torch, fa, ln, ok, bert):
+    """Slice 22 (a): phase 6's BERT-Large step (`bert_phase`: 1 + 4
+    steps, the unmasked two and the 2-layer kernels-vs-plain step)
+    through the mesh's tp and dp groups, one-rank NCCL groups here: the
+    launches a step phase 6's, the first loss within phase 6's
+    kernels-vs-plain loss limit of phase 6's first loss."""
+    res, vs_plain = bert_phase(torch, fa, ln, ok)
+    check(res["launches_per_step"] == bert["launches_per_step"],
+          f"BERT tp: launches a step {res['launches_per_step']}, phase 6 "
+          f"{bert['launches_per_step']}")
+    first, want = res["losses"][0], bert["losses"][0]
+    check(abs(first - want) <= BERT_TP_LOSS_TOL * abs(want),
+          f"BERT tp: first loss {first}, phase 6's {want}")
+    return {"config": res["config"] + "; through make_tp_dp_train_step "
+            "over the mesh's tp and dp groups (one-rank NCCL)",
+            "steps": res["steps"], "losses": res["losses"],
+            "phase6_first_loss": want,
+            "first_loss_rel_diff": abs(first - want) / abs(want),
+            "seq_per_s": res["seq_per_s"], "step_ms": res["step_ms"],
+            "device_ms": res["profile"]["device_ms"],
+            "peak_mem_gib": res["peak_mem_gib"],
+            "host_syncs_per_step": res["host_syncs_per_step"],
+            "launches": res["launches"],
+            "launches_per_step": res["launches_per_step"],
+            "vs_plain": vs_plain}
+
+
+def ckpt_gpt(torch):
+    """(b)'s model and step: GPT (CKPT_GPT) in bf16 with bf16 logits and
+    flash attention, DistributedFusedAdam(1, lr=1e-4, n_buckets=2,
+    master bf16) through `ddp.make_train_step` on the one-rank dp group,
+    one seeded batch.  Returns (fresh, batch): fresh() builds the
+    optimizer, its state from the seed-0 weights and the step."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import DistributedFusedAdam
+    from apex_tpu_torch.parallel import ddp
+
+    bf16 = torch.bfloat16
+    model = gpt_mod.GPT(gpt_mod.GPTConfig(
+        **CKPT_GPT, dropout=0.0, dtype=bf16, logits_dtype=bf16,
+        use_flash_attention=True))
+
+    def fresh():
+        opt = DistributedFusedAdam(1, lr=1e-4, n_buckets=2,
+                                   master_dtype=bf16)
+        state = opt.init(model.init(seed=0))
+        step = zero_step_fn(ddp.make_train_step(
+            lambda p, b: model.loss(p, *b), opt))
+        return opt, state, step
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, CKPT_GPT["vocab_size"],
+                           (CKPT_BATCH, CKPT_GPT["seq_len"]), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return fresh, (tokens, torch.roll(tokens, -1, dims=1))
+
+
+def timed_step(torch, step, state, batch):
+    """One step: (state, wall ms on the host's clock, device ms between
+    CUDA events around it)."""
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    state, _ = step(state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    return state, 1e3 * (time.perf_counter() - t0), e0.elapsed_time(e1)
+
+
+def ckpt_cycle_leg(torch, gpt, tmp, trials=3):
+    """Slice 22 (b): bench.py's `_ckpt_cycle` (bench.py:669-750): one
+    step, then CheckpointManager(every_n_steps=1) save, wait, restore:
+    every state field back bit for bit.  Then the writer's cost to the
+    step: `trials` steps with no write, and `trials` steps each right
+    after a save() (its write in flight on the writer thread)."""
+    from apex_tpu_torch.checkpoint import CheckpointManager
+
+    fresh, batch = gpt
+    opt, state, step = fresh()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(tmp, opt, every_n_steps=1)
+    check(not mgr.multihost, "ckpt cycle: a one-rank group saves alone")
+    mgr.save(1, state)
+    mgr.wait()
+    st = mgr.stats()
+    t0 = time.perf_counter()
+    restored, _, manifest = mgr.restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(manifest["step"] == 1 and all(
+        torch.equal(getattr(restored, f), getattr(state, f))
+        for f in state._fields),
+        "ckpt cycle: the restored state is not the saved one bit for bit")
+    del restored
+    quiet, busy, in_flight = [], [], []
+    for _ in range(trials):
+        state, wall, dev = timed_step(torch, step, state, batch)
+        quiet.append((wall, dev))
+    for i in range(trials):
+        mgr.save(2 + i, state)
+        state, wall, dev = timed_step(torch, step, state, batch)
+        in_flight.append(mgr._thread is not None and mgr._thread.is_alive())
+        busy.append((wall, dev))
+        mgr.wait()
+    check(any(in_flight), "ckpt cycle: every write finished within its "
+          "step; no step ran with a write in flight")
+    busy = [b for b, f in zip(busy, in_flight) if f]
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    line = {"config": "GPT vocab 50304, seq 1024, hidden 1024, 8 layers, "
+            "16 heads, bf16 (bf16 logits), flash; batch 8; "
+            "DistributedFusedAdam(1, lr=1e-4, n_buckets=2, master bf16) "
+            "through ddp.make_train_step on a one-rank NCCL group; "
+            "CheckpointManager(every_n_steps=1) under a temporary directory",
+            "params": sum(opt.spec.sizes),
+            "ckpt_blocking_s": st["ckpt_blocking_s"],
+            "ckpt_save_s": st["ckpt_save_s"], "ckpt_bytes": st["ckpt_bytes"],
+            "restore_s": restore_s, "roundtrip_bit_for_bit": True,
+            "step_wall_ms_no_write": med([w for w, _ in quiet]),
+            "step_device_ms_no_write": med([d for _, d in quiet]),
+            "step_wall_ms_write_in_flight": med([w for w, _ in busy]),
+            "step_device_ms_write_in_flight": med([d for _, d in busy]),
+            "steps_with_write_in_flight": len(busy),
+            "each_step_ms_no_write": quiet, "each_step_ms_in_flight": busy,
+            "blocking_s_last_save": mgr.stats()["ckpt_blocking_s"],
+            "save_s_last_save": mgr.stats()["ckpt_save_s"]}
+    del state, opt, step, mgr
+    torch.cuda.empty_cache()
+    return line
+
+
+def resume_leg(torch, fa, ln, ok, gpt, tmp, steps=8, at=4, kill_at=6):
+    """Slice 22 (c): the save → kill → resume gate (the counterpart of
+    scripts/resume_probe.py stages 1-4) on (b)'s model.  The baseline:
+    `steps` steps, a commit at step `at`, and a save at `kill_at` killed
+    by the `ckpt.mid_shards` fail point (that directory does not load,
+    `latest_committed_step` stays `at`).  A second unpreempted run gives
+    the card's run-to-run spread.  A fresh optimizer and manager restore
+    step `at` (bit for bit the committed state) and replay the rest: the
+    first replayed loss bit for bit the baseline's, the later losses and
+    the final master flat within RESUME_RUN_TO_RUN x the spread.  Then
+    the elastic gate: the committed state written by `save_sharded` as
+    a dp = 4 layout from four virtual shards restores at dp = 1 to the
+    committed shards bit for bit."""
+    from apex_tpu_torch.checkpoint import (CheckpointManager, chaos,
+                                           latest_committed_step)
+    from apex_tpu_torch.checkpoint import sharded as S
+
+    fresh, batch = gpt
+
+    def run(mgr_dir=None):
+        opt, state, step = fresh()
+        mgr = (CheckpointManager(mgr_dir, opt, every_n_steps=at, keep=4)
+               if mgr_dir else None)
+        losses, committed = [], None
+        reset_kernel_counts(fa, ln, ok)
+        for i in range(1, steps + 1):
+            state, loss = step(state, batch)
+            losses.append(loss)
+            if mgr is not None and i == at:
+                check(mgr.maybe_save(i, state), "resume: no save at step "
+                      f"{at}")
+                mgr.wait()
+                committed = {f: getattr(state, f).clone()
+                             for f in state._fields}
+            if mgr is not None and i == kill_at:
+                with chaos.preempt_at("ckpt.mid_shards"):
+                    mgr.save(i, state)
+                    try:
+                        mgr.wait()
+                        killed = False
+                    except chaos.SimulatedPreemption:
+                        killed = True
+                check(killed, f"resume: the save at step {kill_at} was not "
+                      "killed by ckpt.mid_shards")
+                check(latest_committed_step(mgr_dir) == at,
+                      f"resume: latest committed step "
+                      f"{latest_committed_step(mgr_dir)} after the kill, "
+                      f"want {at}")
+                try:
+                    S.read_manifest(S.step_dir(mgr_dir, kill_at))
+                    loads = True
+                except S.CheckpointError:
+                    loads = False
+                check(not loads, f"resume: the killed step {kill_at} loads")
+        torch.cuda.synchronize()
+        counts = kernel_counts(fa, ln, ok)
+        for name, n in CKPT_PER_STEP.items():
+            check(counts[name] == n * steps, f"resume {name}: {counts[name]} "
+                  f"launches in {steps} steps, want {n} a step")
+        out = (losses, state.params_shard.clone(), committed, counts)
+        del opt, state, step, mgr
+        return out
+
+    base, final_a, committed, counts = run(tmp)
+    second, final_b = run()[:2]
+    opt, _, step = fresh()
+    restored, _, manifest = CheckpointManager(tmp, opt).restore()
+    check(manifest["step"] == at and all(
+        torch.equal(getattr(restored, f), committed[f])
+        for f in restored._fields),
+        "resume: the restored state is not the committed one bit for bit")
+    replay, state = [], restored
+    for _ in range(at + 1, steps + 1):
+        state, loss = step(state, batch)
+        replay.append(loss)
+    torch.cuda.synchronize()
+    check(torch.equal(replay[0], base[at]),
+          f"resume: the first replayed loss {float(replay[0])!r} is not the "
+          f"baseline's step-{at + 1} loss {float(base[at])!r} bit for bit")
+
+    def diff(xs, ys):
+        return max(abs(float(x) - float(y)) for x, y in zip(xs, ys))
+
+    def l2(x, y):
+        return (x.float() - y.float()).norm().item()
+
+    line = {"steps": steps, "committed_at": at, "killed_at": kill_at,
+            "losses_baseline": [float(x) for x in base],
+            "losses_second_run": [float(x) for x in second],
+            "losses_replayed": [float(x) for x in replay],
+            "first_replayed_loss_bit_for_bit": True,
+            "restored_state_bit_for_bit": True,
+            "loss_diff_replayed": diff(replay[1:], base[at + 1:]),
+            "loss_diff_run_to_run": diff(second[at:], base[at:]),
+            "master_l2_replayed": l2(state.params_shard, final_a),
+            "master_l2_run_to_run": l2(final_b, final_a),
+            "master_bit_for_bit_replayed": bool(torch.equal(
+                state.params_shard, final_a)),
+            "launches_per_step": CKPT_PER_STEP}
+    log("slice 22 resume " + json.dumps(line))
+    check(line["loss_diff_replayed"]
+          <= RESUME_RUN_TO_RUN * line["loss_diff_run_to_run"]
+          and line["master_l2_replayed"]
+          <= RESUME_RUN_TO_RUN * line["master_l2_run_to_run"],
+          f"resume: the replayed steps are further from the baseline than "
+          f"{RESUME_RUN_TO_RUN}x a second run's: {line}")
+    del state, restored, replay, final_a, final_b
+
+    # the elastic gate: the committed state as a dp = 4 layout
+    lay1 = opt.shard_layout()
+    tile = 4 * ok.FLAT_TILE
+    lay4 = dict(lay1, num_shards=4, bucket_padded=[
+        -(-t // tile) * tile for t in lay1["bucket_totals"]])
+    fields = {"step": ("replicated", committed["step"].cpu())}
+    for f in ("params_shard", "exp_avg", "exp_avg_sq"):
+        canon = S.canonical_flat([committed[f].cpu()], lay1)
+        fields[f] = ("sharded", list(torch.chunk(S.relayout_flat(canon,
+                                                                 lay4), 4)))
+    dp4 = os.path.join(tmp, "dp4")
+    S.save_sharded(dp4, at, fields, flat_layout=lay4)
+    back, _, _ = S.restore_sharded(dp4, opt)
+    check(all(torch.equal(getattr(back, f), committed[f])
+              for f in back._fields),
+          "resume: the dp = 4 layout does not restore at dp = 1 bit for bit")
+    line["elastic_dp4_to_dp1_bit_for_bit"] = True
+    line["dp4_layout_bucket_padded"] = lay4["bucket_padded"]
+    line["launches"] = counts
+    del back, committed, opt, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def fleet_leg(tmp, n=1 << 20, dp=4):
+    """Slice 22 (d): bench.py's `_fleet_cycle` (bench.py:765-843) at its
+    on-chip size through the port's modules: two emulated hosts commit a
+    dp = 4 layout through the sub-manifest file barrier, a half-fleet
+    commit of the next step is refused, and the ElasticOrchestrator
+    drives one lost-rank recovery whose re-shard to dp = 2 gives back
+    the committed canonical flat bit for bit."""
+    import numpy as np
+    import torch
+
+    from apex_tpu_torch.checkpoint import ElasticOrchestrator
+    from apex_tpu_torch.checkpoint import multihost as MH
+    from apex_tpu_torch.checkpoint import sharded as S
+    from apex_tpu_torch.checkpoint.chaos import RankLostError
+
+    layout = {"align": 64, "total": n, "n_tensors": 1, "num_shards": dp,
+              "n_buckets": 1, "bucket_totals": [n], "bucket_padded": [n],
+              "master_dtype": "float32"}
+    flat = torch.from_numpy(np.random.RandomState(11).randn(n).astype(
+        np.float32))
+    shards = dict(enumerate(torch.chunk(flat, dp)))
+    MH.save_sharded_multihost(
+        tmp, 1, {"params_shard": ("sharded", {2: shards[2], 3: shards[3]})},
+        process_id=1, num_processes=2, flat_layout=layout)
+    _, barrier_s = MH.save_sharded_multihost(
+        tmp, 1, {"params_shard": ("sharded", {0: shards[0], 1: shards[1]})},
+        process_id=0, num_processes=2, flat_layout=layout, timeout_s=30.0)
+    try:
+        MH.save_sharded_multihost(
+            tmp, 2, {"params_shard": ("sharded",
+                                      {0: shards[0], 1: shards[1]})},
+            process_id=0, num_processes=2, flat_layout=layout,
+            timeout_s=0.2, poll_s=0.02)
+        refused = False
+    except MH.MultihostCommitError:
+        refused = True
+    refused = refused and S.latest_committed_step(tmp) == 1
+    dst = dict(layout, num_shards=2)
+
+    def build(new_dp, resume_step, attempt):
+        def session():
+            if new_dp == dp:
+                raise RankLostError("rank 3 lost (fleet cycle)", rank=3)
+            p = S.step_dir(tmp, resume_step)
+            m = S.read_manifest(p)
+            host = S.load_field_host(p, m, "params_shard", check_crc=True)
+            re2 = S.reshard(host, m["flat_layout"], dst)
+            return S.canonical_flat(list(torch.chunk(re2, 2)), dst)
+        return session
+
+    orch = ElasticOrchestrator(tmp, build, initial_dp=dp,
+                               choose_dp=lambda d, e: 2)
+    canon = orch.run()
+    line = {"dp": dp, "n": n, "n_hosts": 2, "barrier_s": barrier_s,
+            "refused_ok": bool(refused),
+            "resumes": orch.stats()["fleet_resumes"],
+            "resume_ok": bool(torch.equal(canon, flat))}
+    check(line["resume_ok"] and line["refused_ok"] and line["resumes"] == 1,
+          f"fleet cycle: {line}")
+    return line
+
+
+def slice22_phase(torch, fa, ln, ok, bert):
+    """Phase 19 (module docstring): (a), (b) and (c) on the card as a
+    one-rank NCCL group (the tp and dp groups of
+    `initialize_model_parallel(tensor_model_parallel_size=1)`), (d) on
+    the host; the checkpoints under a temporary directory removed after."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh.initialize_model_parallel(tensor_model_parallel_size=1)
+        groups = {"tp": mesh.get_tensor_model_parallel_group(),
+                  "dp": mesh.get_data_parallel_group()}
+        check(all(g is not None and dist.get_backend(g) == "nccl"
+                  and dist.get_world_size(g) == 1 for g in groups.values()),
+              "slice 22: the tp and dp groups are not one-rank NCCL groups")
+        out["bert_tp"] = bert_tp_leg(torch, fa, ln, ok, bert)
+        log("slice 22 BERT tp " + json.dumps(out["bert_tp"]))
+        torch.cuda.empty_cache()
+        gpt = ckpt_gpt(torch)
+        out["ckpt"] = ckpt_cycle_leg(torch, gpt, os.path.join(tmp, "cycle"))
+        log("slice 22 ckpt cycle " + json.dumps(out["ckpt"]))
+        out["resume"] = resume_leg(torch, fa, ln, ok, gpt,
+                                   os.path.join(tmp, "resume"))
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        out["fleet"] = fleet_leg(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("slice 22 fleet cycle " + json.dumps(out["fleet"]))
+    log(f"phase 19 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def add_slice22_columns(rows, slice22):
+    """The kernel table's slice-22 column: on each row phase 19's legs
+    launched, its launches in the BERT tp leg (1 + 4 steps) and in the
+    resume gate's baseline run (8 steps), and a step of each."""
+    bert, resume = slice22["bert_tp"], slice22["resume"]
+    for row in rows:
+        name = row["name"]
+        col = {}
+        if bert["launches_per_step"].get(name):
+            col["bert tp"] = bert["launches"][name]
+            col["bert tp per_step"] = bert["launches_per_step"][name]
+        if name in CKPT_PER_STEP:
+            col["ckpt gpt resume baseline"] = resume["launches"][name]
+            col["ckpt gpt per_step"] = CKPT_PER_STEP[name]
+        if col:
+            row["launches_slice22"] = col
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -7942,7 +8388,11 @@ def run_phases():
     slice21 = slice21_phase(torch, fa, ln, ok, rng)
     torch.cuda.empty_cache()
 
-    # ---- 19. kernel table --------------------------------------------
+    # ---- 19. slice 22: BERT at tp > 1 and the checkpoint package -------
+    slice22 = slice22_phase(torch, fa, ln, ok, bert)
+    torch.cuda.empty_cache()
+
+    # ---- 20. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -8054,6 +8504,7 @@ def run_phases():
     add_slice19_columns(table["kernels"], slice19)
     add_slice20_columns(table["kernels"], slice20, f32_times)
     add_slice21_columns(table["kernels"], slice21)
+    add_slice22_columns(table["kernels"], slice22)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),
@@ -8073,6 +8524,8 @@ def run_phases():
     log("GPT dropout step, kernels vs plain "
         + json.dumps(slice14["dropout_vs_plain"]))
     log("MoE-GPT step, kernels vs plain " + json.dumps(slice21["vs_plain"]))
+    log("BERT tp step, kernels vs plain "
+        + json.dumps(slice22["bert_tp"]["vs_plain"]))
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
-pipeline-parallel files).
+pipeline-parallel files, tests/test_torch_bert_tp.py and
+tests/test_torch_checkpoint_sharded.py).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -1068,6 +1069,93 @@ def scn_moe(d, rank, world):
     out["ep3_refused"] = _raises(ValueError, mesh.initialize_model_parallel,
                                  expert_model_parallel_size=3)
     _restore()
+    return out
+
+
+# ------------------------------- BERT at tp > 1 -------------------------------
+
+def scn_bert_tp(d, rank, world):
+    """The small BERT's MLM + NSP loss at tp = 2 (dense and flash
+    attention, each rank on its shard of the JAX weights), then three
+    FusedLAMB steps of make_tp_dp_train_step at tp = 2: "tp2" gives both
+    dp ranks the whole batch (so the step is the tp = 2 x dp = 1 step),
+    "tp2dp2" splits it over dp."""
+    from apex_tpu_torch.models.bert import Bert, BertConfig, params_from_jax
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer import training
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+
+    _tp(2)
+    tpr = mesh.get_tensor_model_parallel_rank()
+    dpw, dpr = (mesh.get_data_parallel_world_size(),
+                mesh.get_data_parallel_rank())
+    out = {"tp_rank": tpr}
+    b = d["batch"]
+    for flash in (False, True):
+        model = Bert(BertConfig(**d["cfg"], use_flash_attention=flash))
+        params = params_from_jax(d["params"], device="cpu", tp_rank=tpr,
+                                 tp_size=2)
+        out[("loss", flash)] = n(model.loss(
+            params, t(b["tokens"]), t(b["mlm"]), t(b["mask"]),
+            nsp_labels=t(b["nsp"]), tokentype_ids=t(b["tt"]),
+            pad_mask=t(b["pad"])))
+    model = Bert(BertConfig(**d["cfg"]))
+
+    def loss_fn(p, tokens, lab):
+        return model.loss(p, tokens, lab[0], lab[1], lab[2],
+                          tokentype_ids=lab[3], pad_mask=lab[4])
+
+    for name, split in (("tp2", False), ("tp2dp2", True)):
+        gparams = tree_t(d["params"])
+        opt = FusedLAMB(lr=1e-4, weight_decay=0.01,
+                        wd_mask=get_params_for_weight_decay_optimization(
+                            gparams))
+        state = training.init_sharded_optimizer(opt, model, gparams)
+        step = training.make_tp_dp_train_step(model, opt, device="cpu",
+                                              loss_fn=loss_fn)
+        losses = []
+        for bb in d["steps"]:
+            cut = ((lambda a: local(a, dpr, dpw)) if split
+                   else (lambda a: a))
+            state, loss = step(state, t(cut(bb["tokens"])), tuple(
+                t(cut(bb[k])) for k in ("mlm", "mask", "nsp", "tt", "pad")))
+            losses.append(float(loss))
+        out[name] = {"losses": np.asarray(losses), "params": n(state.params),
+                     "step": int(state.step)}
+    _restore()
+    return out
+
+
+# ------------------------------- checkpoints ---------------------------------
+
+def scn_ckpt(d, rank, world):
+    """ZeRO-2 checkpoints at dp = world: restore the JAX package's dp = 4
+    save, save the restored state again (same step), take one step and
+    save that.  Returns this rank's shards after the restore and after
+    the step."""
+    from apex_tpu_torch.checkpoint import CheckpointManager
+
+    def shards(state):
+        return {f: n(getattr(state, f)).copy() for f in state._fields}
+
+    params = tree_t(d["params"])
+    opt = DistributedFusedAdam(world, lr=1e-3, n_buckets=2)
+    opt.init(params)
+    state, _, manifest = CheckpointManager(d["jax_dir"], opt).restore(
+        device="cpu")
+    out = {"restored": shards(state), "layout": opt.shard_layout(),
+           "restored_step": manifest["step"]}
+    for directory, step in ((d["same_dir"], manifest["step"]),
+                            (d["next_dir"], manifest["step"] + 1)):
+        if directory == d["next_dir"]:
+            _, state = opt.step(state, tree_t(d["grads"]))
+            out["stepped"] = shards(state)
+        with CheckpointManager(directory, opt, every_n_steps=1) as mgr:
+            assert mgr.multihost == (world > 1)
+            mgr.save(step, state)
+        # rank 0's writer commits behind the file barrier
+        dist.barrier()
     return out
 
 
