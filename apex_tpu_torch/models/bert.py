@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.models.gpt import tree_from_jax
 from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops._common import tap as _tap
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
@@ -289,13 +290,16 @@ class Bert:
             # (B, 1, 1, S): the softmax kernel reads it through its
             # broadcast strides
             attn_mask = pad_mask.to(torch.bool)[:, None, None, :]
+        # the flight recorder's tap points mirror GPT._block's: the
+        # identity unless a TapContext is active
         for i, (qkv_mod, proj_mod, fc1, fc2) in enumerate(self.blocks):
             bp = params[f"block{i}"]
-            hn = self._ln(bp["ln1"], h)
-            h = h + self._attention(bp, qkv_mod, proj_mod, hn, attn_mask)
-            hn = self._ln(bp["ln2"], h)
+            hn = _tap(self._ln(bp["ln1"], h), f"block{i}/ln1")
+            h = h + _tap(self._attention(bp, qkv_mod, proj_mod, hn,
+                                         attn_mask), f"block{i}/attn")
+            hn = _tap(self._ln(bp["ln2"], h), f"block{i}/ln2")
             m = F.gelu(fc1.apply(bp["fc1"], hn), approximate="tanh")
-            h = h + fc2.apply(bp["fc2"], m)
+            h = h + _tap(fc2.apply(bp["fc2"], m), f"block{i}/mlp")
         return h
 
     def loss(self, params, tokens, mlm_labels, loss_mask, nsp_labels=None,

@@ -86,6 +86,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops._common import tap as _tap
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.fused_dense import qkv_split_heads
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
@@ -435,23 +436,28 @@ class GPT:
         """ln1 → qkv → split heads → attention → proj → dropout →
         residual, then ln2 → fc1 → tanh-gelu → fc2 → dropout → residual;
         `key` (the layer's) splits three ways: attention weights and the
-        two residual branches."""
+        two residual branches.  The flight recorder's tap points
+        (`_common.tap`: the identity unless a TapContext is active) are
+        the ln1, attention, ln2 and MLP outputs, as in the JAX
+        package."""
         qkv_mod, proj_mod, fc1, fc2 = self.blocks[i]
         k1 = k2 = k3 = None
         if key is not None:
             k1, k2, k3 = split(key, 3)
         ln = params["ln1"]
-        h = fused_layer_norm(x, ln["weight"], ln["bias"])
+        h = _tap(fused_layer_norm(x, ln["weight"], ln["bias"]),
+                 f"block{i}/ln1")
         attn = self._attention(params, qkv_mod, proj_mod, h, k1)
-        attn = self._cn(attn, "attn_out")
+        attn = _tap(self._cn(attn, "attn_out"), f"block{i}/attn")
         x = x + self._dropout(k2, attn)
         ln = params["ln2"]
-        h = fused_layer_norm(x, ln["weight"], ln["bias"])
+        h = _tap(fused_layer_norm(x, ln["weight"], ln["bias"]),
+                 f"block{i}/ln2")
         m = fc1.apply(params["fc1"], h)
         m = self._cn(m, "ffn1")
         m = F.gelu(m, approximate="tanh")
         m = self._row(fc2, params["fc2"], m)
-        m = self._cn(m, "ffn_out")
+        m = _tap(self._cn(m, "ffn_out"), f"block{i}/mlp")
         return x + self._dropout(k3, m)
 
     def _keeps(self, ctx, func, *args, **kwargs):

@@ -41,6 +41,7 @@ import torch
 from apex_tpu_torch.models import gpt as gpt_mod
 from apex_tpu_torch.models.gpt import GPT, GPTConfig
 from apex_tpu_torch.moe.layer import MoEMLP, mean_aux
+from apex_tpu_torch.ops._common import tap as _tap
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
@@ -135,14 +136,17 @@ class MoEGPT(GPT):
         if key is not None:
             k1, k2, k3 = split(key, 3)
         ln = params["ln1"]
-        h = fused_layer_norm(x, ln["weight"], ln["bias"])
+        h = _tap(fused_layer_norm(x, ln["weight"], ln["bias"]),
+                 f"block{i}/ln1")
         attn = self._attention(params, qkv_mod, proj_mod, h, k1)
-        attn = self._cn(attn, "attn_out")
+        attn = _tap(self._cn(attn, "attn_out"), f"block{i}/attn")
         x = x + self._dropout(k2, attn)
         ln = params["ln2"]
-        h = fused_layer_norm(x, ln["weight"], ln["bias"])
+        h = _tap(fused_layer_norm(x, ln["weight"], ln["bias"]),
+                 f"block{i}/ln2")
         m, aux = self.moe[i].apply(params["moe"], h,
                                    tap_prefix=f"block{i}/moe", cn=self._cn)
+        m = _tap(m, f"block{i}/mlp")
         return x + self._dropout(k3, m), aux
 
     def apply_with_stats(self, params, tokens, key=None):

@@ -10,9 +10,8 @@ ZeRO-2 optimizers sharded over the combined (dp, ep) group.
 
 `MoERecorder` holds the newest step's MoE aux scalars on the host
 (`update` floats them: feed it the copy the logger fetches anyway);
-`moe_record()` gives the `moe_*` fields a metrics record carries.  The
-logger that stamps them comes with the monitor port (ROADMAP Queue 1
-item 23).
+`moe_record()` gives the `moe_*` fields a metrics record carries;
+`monitor.MetricsLogger(moe=recorder)` stamps them into every record.
 """
 
 from __future__ import annotations

@@ -19,10 +19,10 @@ for expert and non-expert parameters alike.
 The expert products are cuBLAS (`torch.matmul` / `bmm`): the JAX package
 leaves them to XLA's einsums, so no TPU kernel sits on this path.
 
-The JAX package taps per-expert load, drops and gate entropy into its
-flight recorder when a tap context is armed; the port has no tap plane
-yet (ROADMAP Queue 1 item 23), so `tap_prefix` is taken and the untapped
-program is the only one.
+With `tap_prefix` and an active tap context (`ops._common.tap`),
+`apply` taps the per-expert load, the per-expert drop fraction and the
+per-token gate entropy into the flight recorder, as the JAX package
+does; without a context it runs the ops it always ran.
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.moe import dispatch as D
 from apex_tpu_torch.moe import router as R
-from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops._common import active_tap_context, resolve_device
+from apex_tpu_torch.ops._common import tap as _tap
 from apex_tpu_torch.parallel import mesh as M
 from apex_tpu_torch.parallel.collectives import (
     copy_to_tensor_model_parallel_region,
@@ -178,8 +179,9 @@ class MoEMLP:
     def apply(self, params, x, tap_prefix: Optional[str] = None, cn=None):
         """x: (..., H) this rank's activations ((S, B, H) from a GPT
         block).  Returns (y, MoEAux), y in x's shape and dtype.
-        `tap_prefix` is taken for the JAX signature (no tap plane in the
-        port yet); `cn`: the tagger of `_expert_ffn`."""
+        `tap_prefix` (with a tap context active): tap `<prefix>/load`,
+        `/drop` and `/gate_entropy`; `cn`: the tagger of
+        `_expert_ffn`."""
         lead_shape = x.shape[:-1]
         if self.tp_axis is not None:
             tp = M.group_size(M.group_of(self.tp_axis))
@@ -228,12 +230,24 @@ class MoEMLP:
                 self.ep_axis, self.ep_size, e, cap, chunks)
             y = D.combine(ybuf, dest, out.gate)
 
-        aux_loss, _, _ = R.load_balancing_aux(out.probs, out.idx, e)
+        aux_loss, load, _ = R.load_balancing_aux(out.probs, out.idx, e)
         drop_per_expert = dropped / float(t * k)
+        ent = R.gate_entropy(out.probs)
         aux = MoEAux(aux_loss=aux_loss,
                      z_loss=R.router_z_loss(out.logits),
                      drop_fraction=torch.sum(drop_per_expert),
-                     gate_entropy=torch.mean(R.gate_entropy(out.probs)))
+                     gate_entropy=torch.mean(ent))
+
+        if tap_prefix is not None and active_tap_context() is not None:
+            # the tapped stat tensors ride into the output through a
+            # 0.0 * sum so the backward reaches their probe rows (a zero
+            # gradient still carries the forward plane), as in the JAX
+            # package; without a context this block is skipped
+            s = (_tap(load, f"{tap_prefix}/load").sum()
+                 + _tap(drop_per_expert, f"{tap_prefix}/drop").sum()
+                 + _tap(ent, f"{tap_prefix}/gate_entropy").sum())
+            y = y + (0.0 * s).to(y.dtype)
+
         return y.reshape(*lead_shape, self.hidden), aux
 
 

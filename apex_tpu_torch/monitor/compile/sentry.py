@@ -50,14 +50,18 @@ def _sig_of(args, kwargs):
 class RecompileSentry:
     """Wrap a step: `sentry = RecompileSentry(step); sentry(*args)`.
 
-    name: label in warnings/events.  warn: emit the one-time
-    steady-state warning (disable in benchmarks that assert instead).
+    name: label in warnings/events.  recorder: an optional
+    `trace.FlightRecorder` — every compile event is also pushed into its
+    event list (`note_compile_event`) so a crash dump tells the
+    recompile story too.  warn: emit the one-time steady-state warning
+    (disable in benchmarks that assert instead).
     """
 
     def __init__(self, step_fn: Callable, *, name: str = "train_step",
-                 warn: bool = True):
+                 recorder=None, warn: bool = True):
         self._fn = step_fn
         self.name = name
+        self.recorder = recorder
         self.warn = warn
         self.calls = 0
         self.n_compiles = 0
@@ -83,6 +87,11 @@ class RecompileSentry:
                      text[:509] + "..."}
             if len(self.events) < _MAX_EVENTS:
                 self.events.append(event)
+            # a recorder stand-in with only `dump` (a watchdog's) takes
+            # no events
+            note = getattr(self.recorder, "note_compile_event", None)
+            if note is not None:
+                note(dict(event, name=self.name))
             if self._steady:
                 self.steady_recompiles += 1
                 if self.warn and not self._warned:

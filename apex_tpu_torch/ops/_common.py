@@ -9,6 +9,9 @@ carry on without one.
 
 from __future__ import annotations
 
+import contextlib
+import math
+import threading
 from typing import Optional, Union
 
 import torch
@@ -117,3 +120,137 @@ def row_block(rows: int, hidden: int, bytes_per_elt: int = 4,
     b = max(align, vmem_budget // max(1, hidden * bytes_per_elt))
     b = min(b, cap, round_up(rows, align))
     return round_up(b, align) if b % align else b
+
+
+# --------------------------- numerics taps ---------------------------
+#
+# The flight recorder's tap op (monitor.trace).  It lives here, not in
+# monitor/, because the models call `tap()` on their hot path and must
+# not import the monitor package (the JAX package's layout).
+#
+# Contract: `tap(x, name)` returns `x` itself when no TapContext is
+# active (the default), so an untapped step runs the ops it always ran.
+# Under an active context every tap takes a (2, 4) row of the context's
+# `probes` (a leaf the step differentiates) and both stat planes leave
+# through that row's *gradient*: `grad_tap`'s backward returns
+# stack([tap_stats(x), tap_stats(grad)]) as the row's gradient (the JAX
+# package's custom_vjp).  No hooks, no host callbacks, no collectives.
+#
+# Remat: a block under non-reentrant `torch.utils.checkpoint` runs its
+# forward again during the backward.  The recompute's taps must not take
+# new rows or append the names again, and must save what the first
+# forward saved.  `grad_tap` saves no tensor (its forward stats ride on
+# the node as an attribute) and the first forward's nodes keep their
+# rows, so inside a backward pass (`_in_backward`) `tap` is the identity:
+# the row assignment of the first forward stands, as the probes being an
+# argument of `jax.grad` makes it stand in the JAX package.
+
+TAP_STAT_FIELDS = ("absmax", "mean", "rms", "nonfinite")
+TAP_STAT_DIM = len(TAP_STAT_FIELDS)
+TAP_PLANES = ("fwd", "grad")
+
+
+def tap_stats(x: torch.Tensor) -> torch.Tensor:
+    """f32[4] = [absmax, mean, rms, nonfinite-element count] of x, in
+    f32, with no autograd graph.  When x holds non-finite values the
+    first three lanes are themselves non-finite (NaN propagates through
+    the max and the sums) while lane 3, the count, stays finite:
+    provenance keys on it.
+
+    Plain ATen reductions that read x in its own dtype and strides (no
+    f32 copy, no contiguous copy): the inf-norm, the f32 mean, the
+    2-norm of the 2-norms of the rows of the last dim (a two-level sum
+    keeps the f32 error of a long reduction down) and the count of the
+    elements with x - x != 0, which are the non-finite ones."""
+    with torch.no_grad():
+        f32 = torch.float32
+        rows = torch.linalg.vector_norm(x if x.ndim else x.reshape(1),
+                                        dim=-1, dtype=f32)
+        return torch.stack([
+            torch.linalg.vector_norm(x, float("inf"), dtype=f32),
+            torch.mean(x, dtype=f32),
+            torch.linalg.vector_norm(rows) / math.sqrt(x.numel()),
+            torch.count_nonzero(x - x).to(f32),
+        ])
+
+
+class _GradTap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, probe):
+        # an attribute, not save_for_backward: a checkpointed block's
+        # recompute must save what the first forward saved
+        ctx.fwd_stats = tap_stats(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, torch.stack([ctx.fwd_stats, tap_stats(g)])
+
+
+def grad_tap(x: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """Identity on x whose backward returns stacked [tap_stats(x),
+    tap_stats(grad)] as `probe`'s gradient (probe: an f32 (2, 4) row of
+    the TapContext's probes)."""
+    return _GradTap.apply(x, probe)
+
+
+class TapContext:
+    """Assigns probe rows to tap points for one forward.
+
+    probes: f32 (max_taps, 2, 4) zeros that the step differentiates, so
+    each tap's [fwd, grad] stats land in its row's gradient.  Rows are
+    assigned in forward order; `names[i]` labels row i.
+    `discover=True` records names only (no probe row) for tap
+    enumeration."""
+
+    def __init__(self, probes: Optional[torch.Tensor] = None,
+                 discover: bool = False):
+        self.probes = probes
+        self.discover = discover
+        self.names = []
+
+    @property
+    def max_taps(self) -> int:
+        return 0 if self.probes is None else int(self.probes.shape[0])
+
+
+_ACTIVE_TAPS = threading.local()
+
+
+def active_tap_context() -> Optional[TapContext]:
+    return getattr(_ACTIVE_TAPS, "ctx", None)
+
+
+@contextlib.contextmanager
+def tap_context(ctx: TapContext):
+    prev = active_tap_context()
+    _ACTIVE_TAPS.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _ACTIVE_TAPS.ctx = prev
+
+
+def _in_backward() -> bool:
+    """True while autograd runs a backward pass in this thread (where a
+    checkpointed block's forward is recomputed)."""
+    return torch._C._current_graph_task_id() != -1
+
+
+def tap(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Named numerics tap point.  No active TapContext (the default), or
+    a checkpoint's recompute inside the backward: returns x itself.
+    Active: arms the [fwd, grad] stats probe of the next row."""
+    ctx = active_tap_context()
+    if ctx is None or _in_backward():
+        return x
+    i = len(ctx.names)
+    ctx.names.append(str(name))
+    if ctx.discover:
+        return x
+    if i >= ctx.max_taps:
+        raise ValueError(
+            f"tap {name!r} is tap #{i + 1} but the TapContext probes "
+            f"array holds {ctx.max_taps} rows; raise "
+            "TraceConfig.max_taps")
+    return grad_tap(x, ctx.probes[i])

@@ -39,8 +39,11 @@ the unscale and the overflow skip inside its kernel.  No `.item()` and
 no `torch.cuda.synchronize()` inside the step: the loss comes back as a
 device tensor (each rank's own, as the JAX step returns a shard's).
 
-The metrics and trace planes come with the monitor port (ROADMAP Queue 1
-item 23) and raise until then.
+With `metrics=` / `trace=` the step also carries the monitor's planes
+(`apex_tpu_torch.monitor`): a `MetricsState` folded on the device, the
+flight recorder's per-layer taps (`TapState`) and the cross-rank timing
+matrix, with no host sync; without them it is the step above, op for
+op.
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ import torch
 
 from apex_tpu_torch import amp as amp_lib
 from apex_tpu_torch.amp.policy import is_norm_path
-from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops._common import (TapContext, resolve_device,
+                                        tap_context)
 from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
 from apex_tpu_torch.optimizers import flat as F
 from apex_tpu_torch.parallel import mesh as M
@@ -228,14 +232,59 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     grads and the loss scaler's overflow flag are averaged or OR-ed
     over; None is `mesh.data_parallel_group()`, which is that group at
     ep > 1.  The step runs on `device`: the card unless the caller asks
-    for the CPU (`device="cpu"`, the plain versions of the kernels)."""
+    for the CPU (`device="cpu"`, the plain versions of the kernels).
+
+    metrics (True or a `monitor.MetricsConfig`): the step takes a
+    trailing `monitor.MetricsState` and returns the updated one — the
+    dp-mean loss, the unscaled grad norm (the synced grads; a ZeRO
+    optimizer's local pre-reduction grads, as in the JAX package), the
+    master param and update norms (a ZeRO optimizer's shards' squared
+    sums and the loss go out in ONE all-reduce of a 3-vector), the
+    loss scale, the overflow/skip counts and the tokens — on the device,
+    with no host sync.
+
+    trace (True or a `monitor.trace.TraceConfig`): with `taps` (the
+    default) the forward runs under a `TapContext` and the step
+    differentiates with respect to the params and the tap probes, so
+    the per-layer stats leave through autograd; the step returns a
+    `TapState` and `step.tap_names()` gives its row labels after the
+    first call.  Taps need num_microbatches == 1.  With `rank_timing`
+    the step takes this rank's (timing_dim,) duration vector and
+    returns the (n_ranks, timing_dim) matrix all-gathered over the
+    group (one small collective a step).
+
+    Argument/output order with everything enabled (the JAX package's):
+        step(opt_state, scaler_state[, model_state], batch,
+             metrics_state, local_timing)
+          -> (opt_state, scaler_state[, model_state], loss[, aux],
+              metrics, tap_state, rank_timings)"""
     if num_microbatches < 1:
         raise ValueError(f"num_microbatches must be >= 1, got "
                          f"{num_microbatches}")
-    if metrics not in (None, False) or trace not in (None, False):
-        raise NotImplementedError(
-            "the metrics and trace planes come with the monitor port, "
-            "ROADMAP Queue 1 item 23")
+    metrics_cfg = None
+    if metrics is not None and metrics is not False:
+        from apex_tpu_torch.monitor import metrics as _mon
+        if isinstance(metrics, _mon.MetricsState):
+            raise TypeError(
+                "make_train_step(metrics=...) takes True or a "
+                "MetricsConfig at build time; pass the MetricsState to "
+                "the built step as its trailing argument")
+        metrics_cfg = _mon.MetricsConfig() if metrics is True else metrics
+    trace_cfg = None
+    if trace is not None and trace is not False:
+        from apex_tpu_torch.monitor.trace import taps as _trc
+        trace_cfg = _trc.TraceConfig() if trace is True else trace
+        if trace_cfg.taps and num_microbatches != 1:
+            raise ValueError(
+                "trace taps require num_microbatches == 1 (merging "
+                "per-microbatch tap stats across the accumulation is "
+                "not defined); use TraceConfig(taps=False, "
+                "rank_timing=True) for the timing plane alone")
+    taps_on = trace_cfg is not None and trace_cfg.taps
+    timing_on = trace_cfg is not None and trace_cfg.rank_timing
+    # the tap names are known once the tapped loss has run (first call);
+    # step.tap_names() reads them for the flight recorder's report
+    tap_holder = {"names": None}
     dev = resolve_device(device)
     policy = amp_state.policy if amp_state is not None else None
     dynamic = amp_state.dynamic if amp_state is not None else False
@@ -246,7 +295,11 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     m = num_microbatches
     main_grads = _MainGrads()
 
-    def local_step(opt_state, scaler_state, model_state, batch):
+    def local_step(opt_state, scaler_state, model_state, batch, *extras):
+        ex = list(extras)
+        metrics_state = ex.pop(0) if metrics_cfg is not None else None
+        local_timing = ex.pop(0) if timing_on else None
+        raw_batch = batch
         spec = optimizer.spec
         if spec is None:
             raise RuntimeError("build the state with optimizer.init before "
@@ -267,23 +320,43 @@ def make_train_step(loss_fn: Callable, optimizer, *,
         leaves = [leaf.detach().requires_grad_(True) for leaf in leaves]
         params = F.tree_from_leaves(spec, leaves)
 
-        def grads_of(mstate, b):
+        def forward(mstate, b):
             if with_state:
                 loss, aux = loss_fn(params, mstate, b)
             else:
                 out = loss_fn(params, b)
                 loss, aux = (out[0], out[1]) if has_aux else (out, None)
+            return loss, aux
+
+        def grads_of(mstate, b, probes=None):
+            if probes is None:
+                loss, aux = forward(mstate, b)
+            else:
+                # the tapped forward: every tap takes a row of `probes`
+                # and its stats come back as that row's gradient
+                ctx = TapContext(probes=probes)
+                with tap_context(ctx):
+                    loss, aux = forward(mstate, b)
+                tap_holder["names"] = tuple(ctx.names)
             scaled = loss * scaler_state.scale if scaler_state is not None \
                 else loss
             # a leaf the loss does not read gets a zero gradient, as
             # under jax.grad
-            grads = torch.autograd.grad(scaled, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            return list(grads), loss.detach(), _detach(aux)
+            wrt = leaves if probes is None else leaves + [probes]
+            grads = list(torch.autograd.grad(
+                scaled, wrt, allow_unused=True, materialize_grads=True))
+            return grads, loss.detach(), _detach(aux)
 
         n_flat = None if sharded else opt_state.params.numel()
+        probe_grads = None
         if m == 1:
-            grads, loss, aux = grads_of(model_state, batch)
+            probes = None
+            if taps_on:
+                probes = _trc.make_probes(trace_cfg.max_taps, dev)
+                probes.requires_grad_(True)
+            grads, loss, aux = grads_of(model_state, batch, probes)
+            if probes is not None:
+                probe_grads = grads.pop()
             if main_grad_dtype is not None:
                 grads = [g.to(main_grad_dtype) for g in grads]
             g_flat = None
@@ -339,6 +412,16 @@ def make_train_step(loss_fn: Callable, optimizer, *,
                                                dynamic=dynamic)
         else:
             inv, found_inf, new_scaler = 1.0, False, None
+        tap_state = None
+        if probe_grads is not None:
+            # the gradient plane's magnitudes unscaled (loss units); its
+            # nonfinite count as observed on the raw scaled grads
+            tap_state = _trc.finalize(probe_grads, len(tap_holder["names"]),
+                                      inv_scale=inv)
+        if metrics_cfg is not None:
+            # read before the step: the optimizers update in place
+            gnorm, p_old = _pre_step_metrics(
+                metrics_cfg, g_sync, inv, opt_state, sharded)
         if sharded:
             _, new_opt_state = optimizer.step_flat(
                 opt_state, g_sync, inv_scale=inv, found_inf=found_inf,
@@ -352,15 +435,82 @@ def make_train_step(loss_fn: Callable, optimizer, *,
         outs += (loss,)
         if has_aux and not with_state:
             outs += (aux,)
+        if metrics_cfg is not None:
+            outs += (_post_step_metrics(
+                metrics_cfg, metrics_state, raw_batch, group, loss, gnorm,
+                p_old, new_opt_state, sharded, scaler_state, found_inf),)
+        if taps_on:
+            outs += (tap_state,)
+        if timing_on:
+            local_timing = _trc.timing_to_device(local_timing, dev)
+            if local_timing.shape[-1] != trace_cfg.timing_dim:
+                raise ValueError(
+                    f"local_timing has {local_timing.shape[-1]} "
+                    f"columns, TraceConfig.timing_dim is "
+                    f"{trace_cfg.timing_dim}; pass this rank's "
+                    f"({trace_cfg.timing_dim},) duration vector or set "
+                    "timing_dim to match")
+            outs += (_trc.gather_rank_timings(local_timing, group),)
         return outs
 
     if with_state:
-        def step(opt_state, scaler_state, model_state, batch):
-            return local_step(opt_state, scaler_state, model_state, batch)
+        def step(opt_state, scaler_state, model_state, batch, *extras):
+            return local_step(opt_state, scaler_state, model_state, batch,
+                              *extras)
     else:
-        def step(opt_state, scaler_state, batch):
-            return local_step(opt_state, scaler_state, None, batch)
+        def step(opt_state, scaler_state, batch, *extras):
+            return local_step(opt_state, scaler_state, None, batch, *extras)
+    step.tap_names = lambda: tap_holder["names"]
     return step
+
+
+def _pre_step_metrics(cfg, g_sync, inv, opt_state, sharded):
+    """What the metrics read before the optimizer updates its buffers in
+    place: the unscaled grad norm and a copy of the master params (the
+    rank's shard for a ZeRO optimizer; None without param norms)."""
+    from apex_tpu_torch.monitor import metrics as _mon
+
+    gnorm = _mon.global_norm(g_sync) * inv
+    p_old = None
+    if cfg.param_norms:
+        p_old = (opt_state.params_shard if sharded
+                 else opt_state.params).clone()
+    return gnorm, p_old
+
+
+def _post_step_metrics(cfg, state, batch, group, loss, gnorm, p_old,
+                       new_opt_state, sharded, scaler_state, found_inf):
+    """The step's MetricsState: the dp-mean loss and the param / update
+    norms (a ZeRO optimizer's squared sums and the loss in ONE
+    all-reduce of a 3-vector; a replicated optimizer's norms read its
+    whole buffer, and only the loss is reduced)."""
+    from apex_tpu_torch.monitor import metrics as _mon
+
+    world = M.group_size(group)
+    tokens = (cfg.tokens_per_step if cfg.tokens_per_step is not None
+              else _mon.infer_tokens_per_step(batch) * world)
+    loss = loss.float().reshape(())
+    pn = un = p_flat = p_new = None
+    if p_old is not None and sharded:
+        p_new = new_opt_state.params_shard
+        sums = torch.stack([
+            torch.linalg.vector_norm(p_old, dtype=torch.float32).square(),
+            torch.linalg.vector_norm(p_new.float() - p_old.float()).square(),
+            loss])
+        M.all_reduce(sums, "sum", group)
+        pn, un = torch.sqrt(sums[0]), torch.sqrt(sums[1])
+        loss = sums[2] / world
+    else:
+        if p_old is not None:
+            p_flat, p_new = p_old, new_opt_state.params
+        if world > 1:
+            loss = M.all_reduce(loss.clone(), "sum", group) / world
+    new = _mon.update_metrics(
+        state, loss=loss, params_flat=p_flat, new_params_flat=p_new,
+        param_norm=pn, update_norm=un,
+        loss_scale=scaler_state.scale if scaler_state is not None else 1.0,
+        found_inf=found_inf, tokens=tokens)
+    return new._replace(grad_norm=gnorm.reshape(()))
 
 
 def _detach(tree):

@@ -228,7 +228,7 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def __init__(self, model_cfg, params, serve_cfg: ServeConfig,
-                 telemetry=True, slo=None, device=None):
+                 recorder=None, telemetry=True, slo=None, device=None):
         c, s = model_cfg, serve_cfg
         if c.hidden % c.num_heads:
             raise ValueError(
@@ -287,8 +287,12 @@ class DecodeEngine:
                                   and _mm_out_dtype_on_cuda())
 
         self.decode_step = self._decode_fn
+        # kept so a watchdog restart rebuilds the engine with the same
+        # flight recorder
+        self.recorder = recorder
         self.sentry = RecompileSentry(self.decode_step,
-                                      name="serve_decode", warn=True)
+                                      name="serve_decode",
+                                      recorder=recorder, warn=True)
         self._steady = False
         self.last_logits = None
 
@@ -318,6 +322,9 @@ class DecodeEngine:
         # requests admitted since the last retire poll: their first
         # token is bounded by the NEXT poll's device fetch
         self._awaiting_first: List[int] = []
+        if (recorder is not None and self.telemetry is not None
+                and hasattr(recorder, "attach_serve")):
+            recorder.attach_serve(self)
 
     # ------------------------------------------------------------------
     # model forward pieces (mirror the JAX engine op for op)
@@ -1197,7 +1204,7 @@ def flagship_n_slots(on_gpu: bool) -> int:
 
 
 def build_flagship_engine(n_slots: Optional[int] = None, seed: int = 0,
-                          params=None,
+                          recorder=None, params=None,
                           serve_overrides: Optional[dict] = None,
                           device=None) -> DecodeEngine:
     """The flagship serving setup.  On the card (the default device):
@@ -1210,7 +1217,9 @@ def build_flagship_engine(n_slots: Optional[int] = None, seed: int = 0,
 
     `params=` reuses an already-initialized weight dict; `n_slots=None`
     takes `flagship_n_slots`; `serve_overrides=` replaces ServeConfig
-    fields on top of the flagship defaults."""
+    fields on top of the flagship defaults; `recorder=` a
+    `monitor.trace.FlightRecorder` the engine's sentry pushes its
+    compile events to and whose dumps carry the engine's telemetry."""
     from apex_tpu_torch.models.gpt import GPTConfig, init_gpt_params
 
     dev = resolve_device(device)
@@ -1232,4 +1241,4 @@ def build_flagship_engine(n_slots: Optional[int] = None, seed: int = 0,
         sc = dataclasses.replace(sc, **serve_overrides)
     if params is None:
         params = init_gpt_params(cfg, seed, dev)
-    return DecodeEngine(cfg, params, sc, device=dev)
+    return DecodeEngine(cfg, params, sc, recorder=recorder, device=dev)

@@ -20,9 +20,10 @@ alive and nothing raises.  This module notices it and restarts:
   taken on the watchdog's side of the heartbeat, because a wedged card
   cannot be asked for its state after the wedge.
 
-The port has no flight recorder yet, so `recorder=` stays a parameter:
-an object with a `dump(reason=...)` method, called as the JAX watchdog
-calls it; without one nothing is dumped.  `DecodeEngine.serve_record()`
+`recorder=` is a `monitor.trace.FlightRecorder` (or any object with a
+`dump(reason=...)` method), called as the JAX watchdog calls it; the
+restarted engine keeps it; without one nothing is dumped.
+`DecodeEngine.serve_record()`
 stamps `serve_watchdog_stalls` / `serve_watchdog_restarts` once a
 watchdog is attached.
 """
@@ -168,7 +169,8 @@ class EngineWatchdog:
         old = self.engine
         eng = DecodeEngine(
             old.model_cfg, params if params is not None else old.params,
-            old.serve_cfg, telemetry=old.telemetry is not None, slo=old.slo,
+            old.serve_cfg, recorder=self.recorder,
+            telemetry=old.telemetry is not None, slo=old.slo,
             device=old.device)
         eng.load_state_dict(snap)
         self.restarts += 1

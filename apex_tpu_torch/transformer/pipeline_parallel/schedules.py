@@ -329,13 +329,6 @@ def _broadcast_from_last(out, stage, pp, axis_name):
 
 # ------------------------- reference-shaped drivers -------------------------
 
-def _no_flight_recorder(metrics, rank_timing):
-    if metrics is not None or rank_timing is not None:
-        raise NotImplementedError(
-            "metrics= and rank_timing= (the monitor's flight recorder) "
-            "come with ROADMAP Queue 1 item 23")
-
-
 def forward_backward_no_pipelining(forward_step_func, batch, model_params, *,
                                    num_microbatches: int,
                                    grad_fn: Optional[Callable] = None,
@@ -356,11 +349,37 @@ def forward_backward_no_pipelining(forward_step_func, batch, model_params, *,
     own dtype (the JAX package's AD through the scan).  A floating dtype
     (torch.float32: Apex's persistent fp32 `main_grad`): one backward a
     microbatch, the running sum held in that dtype and the result its
-    mean in that dtype.  `metrics=` / `rank_timing=` raise (ROADMAP
-    item 23)."""
-    _no_flight_recorder(metrics, rank_timing)
+    mean in that dtype.
+
+    metrics: a `monitor.MetricsState` — the return becomes (mean_loss,
+    grads, new_metrics) with the loss, the LOCAL grad norm (this rank's
+    accumulation before the caller's sync) and the tokens
+    (tokens_per_step, or inferred from the microbatched batch) folded in
+    on the device; this path holds no scaler or optimizer state, so those
+    fields carry over (give a following `FP16_Optimizer.step(metrics=)`
+    metrics_count_step=False).  rank_timing: this rank's (k,) duration
+    vector (`monitor.trace.TIMING_FIELDS`), a host vector or a tensor,
+    moved to the loss's device; the (n_ranks, k) matrix all-gathered over
+    `rank_timing_axis`'s group is the LAST return value (one small
+    collective).  Without them nothing is added."""
     leaves, rebuild = tree_flatten(model_params)
     m = num_microbatches
+
+    def finish(loss, grads):
+        out = (loss, grads)
+        if metrics is not None:
+            from apex_tpu_torch.monitor import metrics as _mon
+            tokens = tokens_per_step if tokens_per_step is not None else \
+                _mon.infer_tokens_per_step(batch, microbatch_dims=1)
+            out += (_mon.update_metrics(metrics, loss=loss, grads=grads,
+                                        tokens=tokens),)
+        if rank_timing is not None:
+            from apex_tpu_torch.monitor.trace import taps as _trc
+            from apex_tpu_torch.parallel import mesh as M
+            out += (_trc.gather_rank_timings(
+                rank_timing, M.group_of(rank_timing_axis),
+                device=loss.device),)
+        return out
 
     def fresh():
         return [leaf.detach().requires_grad_(leaf.is_floating_point())
@@ -382,7 +401,7 @@ def forward_backward_no_pipelining(forward_step_func, batch, model_params, *,
         for k in range(m):
             acc = acc + forward_step_func(p, microbatch(k))
         loss = acc / m
-        return loss.detach(), rebuild(grads_of(loss, ps))
+        return finish(loss.detach(), rebuild(grads_of(loss, ps)))
 
     dt = main_grad_dtype
     g_acc = [torch.zeros(leaf.shape, dtype=dt, device=leaf.device)
@@ -396,7 +415,7 @@ def forward_backward_no_pipelining(forward_step_func, batch, model_params, *,
                 a.add_(g.to(dt))
         loss_acc = loss_acc + loss.detach().float()
     inv = torch.tensor(1.0 / m, dtype=dt)
-    return loss_acc * (1.0 / m), rebuild([a * inv for a in g_acc])
+    return finish(loss_acc * (1.0 / m), rebuild([a * inv for a in g_acc]))
 
 
 def forward_backward_pipelining_without_interleaving(

@@ -458,7 +458,48 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  re-shards to dp 2 and gives back the flat bit for bit;
                  barrier s.  The checkpoints live under a temporary
                  directory that the phase removes.
- 20. table       the kernels' times on the card (CUDA events) beside
+ 20. slice 23    the monitored step: phase 5's GPT-350M (vocab 50304,
+                 seq 1024, bf16, bf16 logits, flash, batch 12, seed-0
+                 weights, FusedAdam(lr=1e-4, master bf16)) through
+                 `ddp.make_train_step(metrics=, trace=)`.  (a) 5 steps
+                 with metrics=True under a RecompileSentry and a
+                 MetricsLogger (JSONL sink, memory watermarks, the
+                 step's `gpt_step_flops`): every record passes
+                 `validate_records`, the card resolves to an H100 row of
+                 the peak table, mfu in (0, 1), hbm_peak_bytes_in_use
+                 within 1 % of max_memory_allocated (the same allocator
+                 stat), hbm_bytes_limit the card's total memory, the
+                 bytes in use at least the live state's tensors and at
+                 most the peak, the reserved bytes at most what the
+                 driver has handed out, one signature.
+                 (b) the metrics+trace step makes no host sync, its
+                 first loss is the plain step's bit for bit, its master
+                 params after 3 steps are within 2x the distance of two
+                 plain runs from a plain run, and it launches phase 5's
+                 kernels a step (flash 24 + 24, LayerNorm 49 + 49, Adam
+                 1).  (c) 96 taps block0/ln1 ... block23/mlp in order,
+                 both planes finite, the same with remat (no
+                 CheckpointError).  (d) block 7's fc1 weight with one
+                 inf under a dynamic loss scaler: the forward plane
+                 names block7/mlp, the step is skipped (overflow and
+                 skip counts +1, the master params bit for bit, the
+                 scale halved), and a FlightRecorder.guard() around a
+                 raise dumps a report that validates and renders naming
+                 block7/mlp.  (e) the flagship engine built with
+                 `recorder=` serves 8 requests; the recorder's dump
+                 carries its serve plane and the sentry's compile event.
+                 (f) the wall ms a step (5 synchronized steps) and one
+                 profiled step's device ms, with neither plane, with the
+                 metrics and with the metrics and the trace, beside the
+                 card's name and power limit; each variant's launches
+                 counted from before its warm-up to after its profiled
+                 step.  (g) in a one-rank NCCL world, the step with
+                 metrics, taps and `TraceConfig(rank_timing=True)` takes
+                 its timing vector as a host list with no host sync and
+                 returns it gathered on the card, and
+                 `forward_backward_no_pipelining(rank_timing=)` gathers
+                 a host list over the NCCL dp group.
+ 21. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -481,7 +522,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
                  buffers', each kernel's launches in slice 17's, 19's,
-                 20's, 21's and 22's legs (the backward rows' fp32
+                 20's, 21's, 22's and 23's legs (the backward rows' fp32
                  launches apart),
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
@@ -7678,6 +7719,460 @@ def add_slice22_columns(rows, slice22):
             row["launches_slice22"] = col
 
 
+# ------------------ slice 23: the monitored step ------------------------------
+
+# phase 5's launches a step of the flash GPT-350M step (fused backward)
+MONITOR_PER_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                    "layer_norm_fwd": 49, "layer_norm_bwd": 49, "adam": 1}
+
+
+def monitored_gpt(torch, remat=False, poison=False):
+    """Phase 5's model, optimizer and batch, fresh: GPT-350M (vocab 50304,
+    seq 1024, bf16, bf16 logits, flash), seed-0 weights, FusedAdam(lr=
+    1e-4, master bf16), tokens from a seed-1 generator at batch 12.
+    `poison`: one element of block 7's fc1 weight is inf."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import init_sharded_optimizer
+
+    bf16 = torch.bfloat16
+    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=1024, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=True, remat=remat)
+    params = model.init(seed=0)
+    if poison:
+        params["block7"]["fc1"]["weight"][3, 5] = float("inf")
+    opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+    state = init_sharded_optimizer(opt, model, params)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (12, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return model, opt, state, (tokens, torch.roll(tokens, -1, dims=1))
+
+
+def tensor_bytes(torch, obj, seen=None):
+    """The bytes of the distinct card storages reachable from `obj`
+    through tuples (named ones too), lists and dicts."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = obj.untyped_storage().data_ptr()
+        if obj.is_cuda and key not in seen:
+            seen.add(key)
+            return obj.untyped_storage().nbytes()
+        return 0
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(torch, o, seen) for o in obj)
+    return 0
+
+
+def monitored_step(model, opt, amp_state=None, **kw):
+    from apex_tpu_torch.parallel import ddp
+
+    return ddp.make_train_step(lambda p, b: model.loss(p, b[0], b[1]), opt,
+                               amp_state=amp_state, **kw)
+
+
+def flat_distance(torch, a, b):
+    return float(torch.linalg.vector_norm(a.float() - b.float()))
+
+
+def monitor_metrics_leg(torch, tmp, steps=5):
+    """(a) 5 monitored steps under a MetricsLogger with a JSONL sink, the
+    memory watermarks, a recompile sentry and the step's flops."""
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.monitor import flops
+
+    model, opt, state, batch = monitored_gpt(torch)
+    step = monitor.RecompileSentry(monitored_step(model, opt, metrics=True),
+                                   warn=False)
+    name = torch.cuda.get_device_name(0)
+    peak = flops.device_peak_flops()
+    check("H100" in name and peak in (flops.DEVICE_BF16_PEAKS["h100-sxm"],
+                                      flops.DEVICE_BF16_PEAKS["h100-pcie"]),
+          f"{name} resolves to a peak of {peak}, not an H100 row")
+    fps = flops.gpt_step_flops(model.c, 12)
+    path = os.path.join(tmp, "metrics.jsonl")
+    lg = monitor.MetricsLogger([monitor.JSONLSink(path)], flops_per_step=fps,
+                               memory=True, sentry=step)
+    m = monitor.init_metrics()
+    torch.cuda.reset_peak_memory_stats()
+    recs = []
+    for i in range(steps):
+        out = step(state, None, batch, m)
+        state, m = out[0], out[3]
+        recs.append(lg.log_step(m))
+        peak_alloc = torch.cuda.max_memory_allocated()
+        if i == 0:
+            step.mark_steady()
+            lg.reset_timer(m)
+    lg.close()
+    with open(path) as f:
+        disk = [json.loads(line) for line in f]
+    monitor.validate_records(disk)
+    check(len(disk) == steps and [r["step"] for r in disk]
+          == list(range(1, steps + 1)), "the JSONL records' steps")
+    last = disk[-1]
+    check(0.0 < last["mfu"] < 1.0, f"mfu {last['mfu']}")
+    # the logger and max_memory_allocated read the same allocator stat, so
+    # this one holds the field's name and unit only; the checks after it
+    # hold the record against what it does not read itself
+    check(abs(last["hbm_peak_bytes_in_use"] - peak_alloc)
+          <= 0.01 * peak_alloc, f"hbm_peak_bytes_in_use "
+          f"{last['hbm_peak_bytes_in_use']} vs max_memory_allocated "
+          f"{peak_alloc}")
+    live = tensor_bytes(torch, (state, batch, m))
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(last["hbm_bytes_limit"] == total, f"hbm_bytes_limit "
+          f"{last['hbm_bytes_limit']}, the card's properties {total}")
+    check(live <= last["hbm_bytes_in_use"] <= last["hbm_peak_bytes_in_use"]
+          <= last["hbm_peak_bytes_reserved"], f"the watermarks "
+          f"{ {k: v for k, v in last.items() if k.startswith('hbm_')} } "
+          f"against {live} bytes of live state")
+    check(last["hbm_bytes_reserved"]
+          <= last["hbm_bytes_limit"] - last["hbm_bytes_free"],
+          "the allocator holds more than the driver has handed out")
+    check(last["n_compiles"] == 1 and "steady_recompiles" not in last,
+          "the monitored step's signature changed")
+    check(last["tokens_seen"] == 12 * 1024 * steps
+          and last["overflow_count"] == 0, "tokens or overflows")
+    check(recs[-1]["loss"] < recs[0]["loss"], "the monitored loss did not "
+          "fall")
+    return {"records": disk, "peak_flops": peak, "flops_per_step": fps,
+            "device": name}
+
+
+def monitor_numbers_leg(torch, fa, ln, ok, steps=3):
+    """(b) the traced step makes no host sync, its first loss is the plain
+    step's bit for bit, its params after `steps` steps are within 2x the
+    distance of two untraced runs, and it launches phase 5's kernels."""
+    from apex_tpu_torch import monitor
+
+    def run(**kw):
+        model, opt, state, batch = monitored_gpt(torch)
+        step = monitored_step(model, opt, **kw)
+        extra = (monitor.init_metrics(),) if kw else ()
+        losses = []
+        for _ in range(steps):
+            out = step(state, None, batch, *extra)
+            state = out[0]
+            losses.append(out[2])
+            if kw:
+                extra = (out[3],)
+        flat = state.params.clone()
+        del state, opt
+        return flat, losses
+
+    a, la = run()
+    b, _ = run()
+    t, lt = run(metrics=True, trace=True)
+    check(torch.equal(lt[0], la[0]), f"the traced step's first loss "
+          f"{float(lt[0])} is not the plain step's {float(la[0])}")
+    d_ab, d_ta = flat_distance(torch, a, b), flat_distance(torch, t, a)
+    check(d_ta <= 2 * d_ab, f"traced params {d_ta} from the untraced run, "
+          f"two untraced runs {d_ab} apart")
+    del a, b, t
+    torch.cuda.empty_cache()
+
+    model, opt, state, batch = monitored_gpt(torch)
+    step = monitored_step(model, opt, metrics=True, trace=True)
+    m = monitor.init_metrics()
+    holder = {}
+
+    def traced(st, b):
+        out = step(st, None, b, holder.get("m", m))
+        holder["m"], holder["taps"] = out[3], out[4]
+        return out[0], out[2]
+
+    state, _ = traced(state, batch)         # warm-up
+    reset_kernel_counts(fa, ln, ok)
+    n = 2
+    for _ in range(n):
+        state, _ = traced(state, batch)
+    counts = kernel_counts(fa, ln, ok)
+    for k, per in MONITOR_PER_STEP.items():
+        check(counts[k] == per * n, f"monitored step {k}: {counts[k]} "
+              f"launches in {n} steps, want {per} a step")
+    state, syncs = step_without_sync(torch, traced, state, batch)
+    return {"first_loss": float(lt[0]), "plain_first_loss": float(la[0]),
+            "traced_vs_untraced": d_ta, "untraced_vs_untraced": d_ab,
+            "launches_per_step": {k: counts[k] // n
+                                  for k in MONITOR_PER_STEP},
+            "host_syncs_per_step": len(syncs),
+            "metrics_step": int(holder["m"].step)}
+
+
+def gpt_tap_names(layers=24):
+    return [f"block{i}/{p}" for i in range(layers)
+            for p in ("ln1", "attn", "ln2", "mlp")]
+
+
+def monitor_taps_leg(torch):
+    """(c) 96 taps in order, both planes finite, and the same with remat
+    (no CheckpointError)."""
+    from apex_tpu_torch import monitor
+
+    out = {}
+    for remat in (False, True):
+        model, opt, state, batch = monitored_gpt(torch, remat=remat)
+        step = monitored_step(model, opt, metrics=True, trace=True)
+        res = step(state, None, batch, monitor.init_metrics())
+        ts = res[4]
+        check(list(step.tap_names()) == gpt_tap_names(),
+              f"remat={remat}: tap names {step.tap_names()[:6]}...")
+        check(bool(torch.isfinite(ts.fwd).all())
+              and bool(torch.isfinite(ts.grad).all()),
+              f"remat={remat}: a tap plane is not finite")
+        check(int(ts.first_bad_fwd) == -1 and int(ts.first_bad_grad) == -1,
+              f"remat={remat}: a clean step names a bad tap")
+        out[f"remat={remat}"] = {
+            "n_taps": len(step.tap_names()),
+            "fwd_absmax_max": float(ts.fwd[:, 0].max()),
+            "grad_absmax_max": float(ts.grad[:, 0].max())}
+        del state, opt, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def monitor_provenance_leg(torch, tmp):
+    """(d) block 7's fc1 weight poisoned with inf under a dynamic loss
+    scaler: the forward plane names block7/mlp, the step is skipped (the
+    counts rise by 1, the params keep their bits), and a guarded raise
+    dumps a report that validates and renders naming block7/mlp."""
+    from apex_tpu_torch import amp, monitor
+    from apex_tpu_torch.monitor import trace
+
+    bf16 = torch.bfloat16
+    model, opt, state, batch = monitored_gpt(torch, poison=True)
+    amp_state = amp.initialize(opt_level="O0", loss_scale="dynamic",
+                               param_dtype=bf16, compute_dtype=bf16)
+    scaler = amp_state.loss_scalers[0]
+    step = monitored_step(model, opt, amp_state=amp_state, metrics=True,
+                          trace=True)
+    m = monitor.init_metrics()
+    before = state.params.clone()
+    state, scaler, loss, m1, ts = step(state, scaler, batch, m)
+    names = step.tap_names()
+    prov = trace.provenance(ts, names)
+    check(prov is not None and prov["plane"] == "fwd"
+          and prov["tap"] == "block7/mlp", f"provenance {prov}")
+    check(int(m1.overflow_count) == 1 and int(m1.skipped_steps) == 1
+          and int(m1.step) == 1, "the poisoned step was not counted as "
+          "skipped")
+    check(torch.equal(state.params, before), "the skipped step moved the "
+          "params")
+    check(float(scaler.scale) == 2.0 ** 15, "the loss scale did not back "
+          "off")
+    path = os.path.join(tmp, "flight.json")
+    rec = trace.FlightRecorder(path, capacity=4, tap_names=names)
+    lg = monitor.MetricsLogger([], taps=True)
+    rec.record(1, metrics=lg.log_step(m1, taps=ts, tap_names=names), taps=ts)
+    try:
+        with rec.guard():
+            raise RuntimeError("injected crash after the poisoned step")
+    except RuntimeError:
+        pass
+    with open(path) as f:
+        rep = json.load(f)
+    trace.validate_report(rep)
+    text = trace.render_report(rep)
+    check("block7/mlp" in text and "first bad step: 1" in text,
+          "the rendered report does not name block7/mlp")
+    return {"provenance": prov, "loss": float(loss),
+            "render_tail": text.splitlines()[-2:]}
+
+
+def monitor_serve_leg(torch, np, tmp, n_req=8, max_new=8):
+    """(e) the flagship engine built with a flight recorder serves a few
+    requests; the recorder's dump carries the engine's serve plane and
+    its sentry's compile events."""
+    from apex_tpu_torch.monitor import trace
+    from apex_tpu_torch.serve import build_flagship_engine, measure_decode
+
+    rec = trace.FlightRecorder(os.path.join(tmp, "serve.json"), capacity=4)
+    eng = build_flagship_engine(recorder=rec)
+    prng = np.random.RandomState(3)
+    for _ in range(n_req):
+        eng.submit(prng.randint(0, 50304, 16).tolist(), max_new)
+    fins = measure_decode(eng, max_steps=8 * max_new)["finished"]
+    check(len(fins) == n_req and all(f.status == "ok" for f in fins),
+          "the recorded engine did not finish its requests")
+    rep = rec.dump()
+    trace.validate_report(rep)
+    check(rep["serve"] is not None and "fetch_error" not in rep["serve"],
+          "the dump has no serve plane")
+    check(len(rep["compile_events"]) >= 1 and rep["compile_events"][0][
+        "name"] == "serve_decode", "the dump has no sentry compile event")
+    del eng
+    torch.cuda.empty_cache()
+    return {"serve_keys": sorted(rep["serve"]),
+            "compile_events": len(rep["compile_events"])}
+
+
+def monitor_timing_leg(torch):
+    """(g) the rank-timing plane over a one-rank NCCL world: the GPT step
+    with metrics, taps and rank timing takes its timing vector as a host
+    list and makes no host sync, the gathered row on the card is that
+    vector; `forward_backward_no_pipelining(rank_timing=)` gathers a host
+    list over the NCCL dp group likewise.  The group is torn down
+    after."""
+    import torch.distributed as dist
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.monitor import trace
+    from apex_tpu_torch.parallel import mesh
+    from apex_tpu_torch.transformer.pipeline_parallel import schedules
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group = mesh.initialize_model_parallel()
+        backend = dist.get_backend(group)
+        check(group is not None and backend == "nccl",
+              "slice 23 (g): the dp group is not a one-rank NCCL group")
+        model, opt, state, batch = monitored_gpt(torch)
+        step = monitored_step(model, opt, metrics=True,
+                              trace=trace.TraceConfig(rank_timing=True))
+        holder = {"m": monitor.init_metrics(), "t": [0.25, 0.125]}
+
+        def timed(st, b):
+            out = step(st, None, b, holder["m"], list(holder["t"]))
+            holder["m"], holder["rows"] = out[3], out[5]
+            return out[0], out[2]
+
+        state, _ = timed(state, batch)          # warm-up
+        holder["t"] = [0.5, 0.0625]
+        state, syncs = step_without_sync(torch, timed, state, batch)
+        rows = holder["rows"]
+        check(rows.is_cuda and rows.tolist() == [holder["t"]],
+              f"the step's rank timings {rows} are not [{holder['t']}]")
+        del state, opt, step
+        torch.cuda.empty_cache()
+
+        g = torch.Generator(device="cuda").manual_seed(5)
+        w = torch.randn(64, 64, generator=g, device="cuda")
+        x = torch.randn(1, 8, 64, generator=g, device="cuda")
+        res = schedules.forward_backward_no_pipelining(
+            lambda p, mb: (mb @ p["w"]).square().mean(), x, {"w": w},
+            num_microbatches=1, rank_timing=[1.5, 0.75])
+        fb_rows = res[-1]
+        check(fb_rows.is_cuda and fb_rows.tolist() == [[1.5, 0.75]],
+              f"forward_backward_no_pipelining's rank timings {fb_rows}")
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    return {"backend": backend, "step_rows": rows.tolist(),
+            "host_syncs_per_step": len(syncs),
+            "no_pipelining_rows": fb_rows.tolist()}
+
+
+def monitor_cost_leg(torch, fa, ln, ok, warmup=2, steps=5):
+    """(f) a step's wall ms (host clock over `steps` synchronized steps)
+    and one profiled step's device ms, with neither plane, with the
+    metrics only and with the metrics and the trace."""
+    from apex_tpu_torch import monitor
+
+    names = {"flash_attention_fwd": lambda k: "flash_fwd_kernel" in k,
+             "flash_attention_bwd": lambda k: "flash_bwd_kernel" in k,
+             "layer_norm_fwd": lambda k: "ln_fwd_kernel" in k,
+             "layer_norm_bwd": lambda k: "ln_bwd_" in k,
+             "adam": lambda k: k == "_adam_kernel"}
+    out = {}
+    model, opt, state, batch = monitored_gpt(torch)
+    for label, kw in (("neither", {}), ("metrics", {"metrics": True}),
+                      ("metrics+trace", {"metrics": True, "trace": True})):
+        step = monitored_step(model, opt, **kw)
+        holder = {"m": monitor.init_metrics()}
+
+        def fn(st, b, step=step, kw=kw, holder=holder):
+            res = step(st, None, b, *((holder["m"],) if kw else ()))
+            if kw:
+                holder["m"] = res[3]
+            return res[0], res[2]
+
+        # the counts run from before the warm-up to after the profiled step
+        torch.cuda.synchronize()
+        reset_kernel_counts(fa, ln, ok)
+        for _ in range(warmup):
+            state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+        state, prof = profile_step(torch, fn, state, (batch,), names)
+        counts = kernel_counts(fa, ln, ok)
+        n = warmup + steps + 1
+        for k, per in MONITOR_PER_STEP.items():
+            check(counts[k] == per * n, f"{label} step {k}: {counts[k]} "
+                  f"launches in {n} steps, want {per} a step")
+        out[label] = {"wall_ms": wall, "profiled_wall_ms": prof["wall_ms"],
+                      "device_ms": prof["device_ms"],
+                      "device_busy_share": prof["device_busy_share"],
+                      "aten_elementwise_reduce_copy_ms":
+                          prof["aten_elementwise_reduce_copy_ms"],
+                      "top_aten_ops_ms": prof["top_aten_ops_ms"],
+                      "steps": n,
+                      "launches": {k: counts[k] for k in MONITOR_PER_STEP}}
+    total = sum(out[label]["steps"] for label in out)
+    out["launches"] = {k: sum(v["launches"][k] for v in out.values())
+                       for k in MONITOR_PER_STEP}
+    out["launches_per_step"] = {k: v / total
+                                for k, v in out["launches"].items()}
+    return out
+
+
+def slice23_phase(torch, np, fa, ln, ok, smi):
+    """Phase 20 (module docstring): the monitored GPT-350M step, (a)-(f);
+    the JSONL and the reports under a temporary directory removed after."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_monitor_")
+    out = {"card": smi}
+    try:
+        out["metrics"] = monitor_metrics_leg(torch, tmp)
+        log("slice 23 (a) metrics " + json.dumps(
+            {k: v for k, v in out["metrics"].items() if k != "records"})
+            + " last record " + json.dumps(out["metrics"]["records"][-1]))
+        torch.cuda.empty_cache()
+        out["numbers"] = monitor_numbers_leg(torch, fa, ln, ok)
+        log("slice 23 (b) no sync, same numbers "
+            + json.dumps(out["numbers"]))
+        torch.cuda.empty_cache()
+        out["taps"] = monitor_taps_leg(torch)
+        log("slice 23 (c) taps " + json.dumps(out["taps"]))
+        out["provenance"] = monitor_provenance_leg(torch, tmp)
+        log("slice 23 (d) provenance " + json.dumps(out["provenance"]))
+        torch.cuda.empty_cache()
+        out["serve"] = monitor_serve_leg(torch, np, tmp)
+        log("slice 23 (e) serve plane " + json.dumps(out["serve"]))
+        out["timing"] = monitor_timing_leg(torch)
+        log("slice 23 (g) rank timing " + json.dumps(out["timing"]))
+        torch.cuda.empty_cache()
+        out["cost"] = monitor_cost_leg(torch, fa, ln, ok)
+        log(f"slice 23 (f) cost on {smi} " + json.dumps(out["cost"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 20 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def add_slice23_columns(rows, slice23):
+    """The kernel table's slice-23 column: on each row phase 20's cost leg
+    launched, the launches counted there (three step variants, from before
+    each warm-up to after its profiled step) and their quotient by the
+    steps."""
+    cost = slice23["cost"]
+    for row in rows:
+        name = row["name"]
+        if name in cost["launches_per_step"]:
+            row["launches_slice23"] = {
+                "monitored gpt": cost["launches"][name],
+                "monitored gpt per_step": cost["launches_per_step"][name]}
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -8392,7 +8887,11 @@ def run_phases():
     slice22 = slice22_phase(torch, fa, ln, ok, bert)
     torch.cuda.empty_cache()
 
-    # ---- 20. kernel table --------------------------------------------
+    # ---- 20. slice 23: the monitored step ------------------------------
+    slice23 = slice23_phase(torch, np, fa, ln, ok, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 21. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -8505,6 +9004,7 @@ def run_phases():
     add_slice20_columns(table["kernels"], slice20, f32_times)
     add_slice21_columns(table["kernels"], slice21)
     add_slice22_columns(table["kernels"], slice22)
+    add_slice23_columns(table["kernels"], slice23)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -163,8 +163,10 @@ def test_fp16_optimizer_on_synced_grads(ranks):
 def test_fp16_optimizer_one_process_and_state_dict():
     """On one process: the same steps against the JAX facade; its state
     dict (the inner optimizer's masters and the scaler) restores into a
-    new facade that then steps as the first one does; the flight
-    recorder's arguments raise naming item 23."""
+    new facade that then steps as the first one does; `step(metrics=)`
+    folds the scale used, the unscaled grad norm and the step count in,
+    and refuses what is not a MetricsState before it touches the state
+    or the scale."""
     params, g = _params(), _grads(1)[0]
     opt = FP16_Optimizer(FusedAdam(lr=1e-2), dynamic_loss_scale=True,
                          device="cpu")
@@ -191,10 +193,20 @@ def test_fp16_optimizer_one_process_and_state_dict():
     _, a = opt.step(state, {k: v.clone() for k, v in gs.items()})
     _, b = again.step(restored, gs)
     assert torch.equal(a.params, b.params)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        opt.step(a, gs, tap_state=object())
-    with pytest.raises(NotImplementedError, match="item 23"):
+    from apex_tpu_torch import monitor
+    _, a, m = opt.step(a, {k: v.clone() for k, v in gs.items()},
+                       metrics=monitor.init_metrics("cpu"))
+    assert int(m.step) == 1 and float(m.loss_scale) == 8.0
+    assert int(m.overflow_count) == 0 and float(m.update_norm) > 0
+    gnorm = np.sqrt(sum(float(np.sum(np.square(v))) for v in g.values()))
+    np.testing.assert_allclose(float(m.grad_norm), gnorm, rtol=1e-5)
+    before = (a.params.clone(), a.exp_avg.clone(), a.step.clone(),
+              opt.scaler_state.scale.clone())
+    with pytest.raises(TypeError, match="MetricsState"):
         opt.step(a, gs, metrics=object())
+    after = (a.params, a.exp_avg, a.step, opt.scaler_state.scale)
+    assert all(torch.equal(x, y) for x, y in zip(before, after)), \
+        "the refused step changed the state or the scale"
 
 
 # --------------------------- fp16_utils, GradScaler --------------------------

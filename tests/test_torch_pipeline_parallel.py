@@ -283,7 +283,24 @@ def test_forward_backward_no_pipelining_matches_jax(main_grad_dtype):
     np.testing.assert_allclose(grads["w"].float().numpy(),
                                np.asarray(jgrads["w"], np.float32),
                                rtol=tol, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 23"):
+    # the metrics plane: the loss, the local grad norm and the samples
+    # (6 microbatches of 2) folded in as the JAX package folds them
+    from apex_tpu import monitor as jmon
+    from apex_tpu_torch import monitor
+    *_, m = forward_backward_no_pipelining(
+        _mlp_fwd_torch, torch.from_numpy(batch).to(pdt),
+        {"w": torch.from_numpy(w).to(pdt)}, num_microbatches=6,
+        main_grad_dtype=dt, metrics=monitor.init_metrics("cpu"))
+    *_, jm = j_no_pipelining(
+        lambda p, mb: jnp.mean((mb @ p["w"]) ** 2),
+        jnp.asarray(batch).astype(jpdt), {"w": jnp.asarray(w).astype(jpdt)},
+        num_microbatches=6, main_grad_dtype=jdt, metrics=jmon.init_metrics())
+    assert int(m.step) == int(jm.step) == 1
+    assert float(m.tokens_seen) == float(jm.tokens_seen) == 12.0
+    for f in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(getattr(m, f)),
+                                   float(getattr(jm, f)), rtol=tol)
+    with pytest.raises(TypeError, match="MetricsState"):
         forward_backward_no_pipelining(
             _mlp_fwd_torch, torch.from_numpy(batch),
             {"w": torch.from_numpy(w)}, num_microbatches=6,

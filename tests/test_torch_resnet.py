@@ -387,13 +387,20 @@ def test_three_train_steps_match_jax(opt_level):
 
 
 def test_what_the_step_refuses():
-    """The monitor planes come with a later ROADMAP item (accumulation
-    and fp32 main grads are ported: tests/test_torch_ddp.py); the entry
-    points run on the card unless asked for the CPU."""
+    """The monitor planes' build-time refusals (the planes themselves:
+    tests/test_torch_monitor.py and tests/test_torch_trace.py): a
+    MetricsState where the build takes True or a MetricsConfig, and taps
+    with microbatches; the entry points run on the card unless asked for
+    the CPU."""
+    from apex_tpu_torch import monitor
+
     opt = FusedSGD(lr=0.1)
-    for kw in ({"metrics": True}, {"trace": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ddp.make_train_step(lambda p, b: 0.0, opt, device="cpu", **kw)
+    with pytest.raises(TypeError, match="build time"):
+        ddp.make_train_step(lambda p, b: 0.0, opt, device="cpu",
+                            metrics=monitor.init_metrics("cpu"))
+    with pytest.raises(ValueError, match="num_microbatches"):
+        ddp.make_train_step(lambda p, b: 0.0, opt, device="cpu",
+                            trace=True, num_microbatches=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ddp.make_train_step(lambda p, b: 0.0, opt)

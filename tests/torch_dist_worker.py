@@ -1,7 +1,7 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
-pipeline-parallel files, tests/test_torch_bert_tp.py and
-tests/test_torch_checkpoint_sharded.py).
+pipeline-parallel files, tests/test_torch_bert_tp.py,
+tests/test_torch_checkpoint_sharded.py and tests/test_torch_trace.py).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -1156,6 +1156,51 @@ def scn_ckpt(d, rank, world):
             mgr.save(step, state)
         # rank 0's writer commits behind the file barrier
         dist.barrier()
+    return out
+
+
+# ------------------------------ monitor --------------------------------------
+
+def scn_trace_timing(d, rank, world):
+    """The monitor's planes across ranks: make_train_step with metrics
+    and the rank-timing plane (TraceConfig(taps=False, rank_timing=True))
+    over FusedAdam and over DistributedFusedAdam (the ZeRO-2 squared
+    sums and loss in one all-reduce), three steps on this rank's slice of
+    the batch and its row of each step's timing matrix (a tensor, or a
+    host list on step 1); then forward_backward_no_pipelining with a
+    host list as rank_timing= and metrics=."""
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.monitor.trace import TraceConfig
+    from apex_tpu_torch.transformer.pipeline_parallel.schedules import (
+        forward_backward_no_pipelining)
+
+    out = {}
+    cfg = TraceConfig(taps=False, rank_timing=True)
+    for kind in ("dense", "zero"):
+        params = tree_t(d["params"])
+        opt = (FusedAdam(lr=1e-2, weight_decay=0.01) if kind == "dense" else
+               DistributedFusedAdam(world, lr=1e-2, weight_decay=0.01,
+                                    n_buckets=2))
+        state = opt.init(params)
+        step = ddp.make_train_step(mlp_loss, opt, device="cpu", metrics=True,
+                                   trace=cfg)
+        m = monitor.init_metrics("cpu")
+        for i in range(3):
+            b = (t(local(d["x"], rank, world)), t(local(d["y"], rank, world)))
+            # a host list on step 1: the step moves it to its device
+            row = d["timing"][i][rank]
+            state, _, _, m, gathered = step(
+                state, None, b, m, row.tolist() if i == 1 else t(row))
+            out[f"{kind}_gathered{i}"] = n(gathered)
+            out[f"{kind}_metrics{i}"] = np.asarray([float(v) for v in m])
+    w = tree_t(d["fb_w"])
+    loss, grads, m, gathered = forward_backward_no_pipelining(
+        lambda p, mb: torch.mean((mb @ p["w"]) ** 2),
+        t(d["fb_batch"]), w, num_microbatches=2,
+        metrics=monitor.init_metrics("cpu"),
+        rank_timing=d["fb_timing"][rank].tolist())
+    out["fb_gathered"] = n(gathered)
+    out["fb_metrics"] = np.asarray([float(v) for v in m])
     return out
 
 
