@@ -14,11 +14,27 @@ apex_tpu.monitor).
   * trace    — the numerics flight recorder: per-layer stat taps with
                NaN/overflow provenance, cross-rank timing + straggler
                detection, and the crash-dump ring (`monitor.trace`)
-  * compile  — the recompile sentry and the device memory watermarks
-               with OOM classification (`monitor.compile`)
+  * profiler — `profile_capture(step_range)`: a torch.profiler trace
+               (host + device) armed over a chosen step window
+  * compile  — the step audit (`analyze_step` -> `CompileReport`: the
+               step run once on clones of its arguments, its memory
+               budget table, the donation and counted-flops checks), the
+               recompile sentry and the device memory watermarks with
+               OOM classification (`monitor.compile`)
+  * comms    — the collective & overlap observatory: the inventory the
+               collective wrappers record while a step runs
+               (`comms_report` -> `CommsReport`), the async-window
+               overlap classification and the link roofline
+               (`monitor.comms`)
+  * timeline — the runtime timeline observatory: a captured trace as a
+               MEASURED per-step anatomy (`analyze_trace` ->
+               `TimelineReport`: device busy union and host gap,
+               category attribution, per-collective measured overlap)
+               and `crosscheck_comms` against the comms report
 
-The JAX package's trace and HLO observatories (its profiler capture,
-timeline, compile report and comms inventory) are not ported yet.
+The JAX package's optimized-HLO parser (`monitor.comms.hlo`'s
+`parse_module` / `inventory_from_hlo`) has no input in an eager step and
+is not ported; the inventory recorder takes its place.
 """
 
 from apex_tpu_torch.monitor import flops  # noqa: F401
@@ -33,8 +49,29 @@ from apex_tpu_torch.monitor.flops import (  # noqa: F401
 )
 from apex_tpu_torch.monitor import compile  # noqa: F401,A004 — subpackage
 from apex_tpu_torch.monitor.compile import (  # noqa: F401
+    CompileReport,
     RecompileSentry,
+    analyze_step,
     device_memory_stats,
+    render_budget_table,
+)
+from apex_tpu_torch.monitor import comms  # noqa: F401
+from apex_tpu_torch.monitor.comms import (  # noqa: F401
+    DEVICE_ICI_BANDWIDTH,
+    CommsReport,
+    comms_report,
+    device_link_bandwidth,
+    render_comms_table,
+)
+from apex_tpu_torch.monitor import timeline  # noqa: F401
+from apex_tpu_torch.monitor.timeline import (  # noqa: F401
+    TIMELINE_SCHEMA_VERSION,
+    TimelineReport,
+    TraceParseError,
+    analyze_trace,
+    crosscheck_comms,
+    render_timeline_table,
+    validate_timeline_report,
 )
 from apex_tpu_torch.monitor.logger import (  # noqa: F401
     SCHEMA,
@@ -50,6 +87,11 @@ from apex_tpu_torch.monitor.metrics import (  # noqa: F401
     infer_tokens_per_step,
     init_metrics,
     update_metrics,
+)
+from apex_tpu_torch.monitor.profiler import (  # noqa: F401
+    ProfileCapture,
+    ProfileStepReentryError,
+    profile_capture,
 )
 from apex_tpu_torch.monitor.sinks import (  # noqa: F401
     ConsoleSink,

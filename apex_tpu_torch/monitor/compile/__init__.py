@@ -1,6 +1,12 @@
-"""apex_tpu_torch.monitor.compile — the recompile sentry and the device
-memory watermarks (counterpart of apex_tpu.monitor.compile).
+"""apex_tpu_torch.monitor.compile — the step audit, the recompile sentry
+and the device memory watermarks (counterpart of
+apex_tpu.monitor.compile).
 
+  * report     — `analyze_step(step_fn, args) -> CompileReport`: the step
+                 run once on clones of its arguments; argument / output
+                 / alias / temp bytes, the counted flops against
+                 `monitor.flops`' accounting, the donation check and the
+                 memory budget table (`render_budget_table`).
   * sentry     — `RecompileSentry`: wraps a step, fingerprints each
                  call's argument signature, warns once on a
                  steady-state change; its events ride into
@@ -10,12 +16,15 @@ memory watermarks (counterpart of apex_tpu.monitor.compile).
                  the CPU, never a crash) and `is_oom`, so the
                  flight-recorder guard dumps an allocator death with a
                  memory snapshot.
-
-The compile report of the JAX package (`analyze_step`, the HBM budget
-table) is not ported yet: it reads XLA's compiled program, which eager
-PyTorch does not build.
 """
 
+from apex_tpu_torch.monitor.compile.report import (  # noqa: F401
+    DONATION_TOL,
+    CompileReport,
+    analyze_step,
+    render_budget_table,
+    tree_bytes,
+)
 from apex_tpu_torch.monitor.compile.sentry import RecompileSentry  # noqa: F401
 # the module itself is not shadowed: the function export is named
 # hbm_watermarks so `compile.watermarks` stays the submodule

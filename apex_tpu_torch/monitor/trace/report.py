@@ -157,12 +157,14 @@ def render_report(report: dict, last: Optional[int] = None) -> str:
         lines.append(line)
 
     if report.get("compile_report") and (report.get("oom") or events):
-        # the budget table is the OOM forensics payload; the port has no
-        # budget-table renderer yet (monitor.compile.report), so the
-        # attachment is named with its keys
-        cr = report["compile_report"]
-        keys = sorted(cr) if isinstance(cr, dict) else []
-        lines.append(f"compile report attached: {', '.join(keys[:12])}")
+        # the budget table IS the OOM forensics payload; on a healthy
+        # explicit dump it stays out of the way unless compiles fired
+        from apex_tpu_torch.monitor.compile import report as compile_report
+        try:
+            lines.append(compile_report.render_budget_table(
+                report["compile_report"]))
+        except Exception as e:  # a drifted attachment must not cost
+            lines.append(f"(compile report unrenderable: {e!r})")
 
     last_good = None
     first_bad = None

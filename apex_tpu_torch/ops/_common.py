@@ -48,6 +48,39 @@ def check_kernel_device(*tensors: torch.Tensor) -> bool:
         f"one CUDA device (kernel); got {sorted(str(t.device) for t in tensors)}")
 
 
+# While a flop audit runs (`monitor.compile.analyze_step`,
+# `monitor.comms.comms_report`) a one-element list the launchers of the
+# port's matmul kernels add their flops to; None otherwise.
+_KERNEL_FLOPS = None
+
+
+def add_kernel_flops(n: int) -> None:
+    """Count `n` flops of a hand-written kernel's launch into the active
+    audit.  A flop counter (`torch.utils.flop_counter.FlopCounterMode`)
+    sees ATen's ops only: on the CPU a kernel's plain version runs as
+    ATen matmuls and is counted there, while on the card the kernel runs
+    and only its launcher can say what it computed.  So each launcher of
+    a matmul kernel calls this with the products of the function it
+    computes (the plain version's products, as the flop accounting of
+    `monitor.flops` counts them), and each product is counted once on
+    either device."""
+    if _KERNEL_FLOPS is not None:
+        _KERNEL_FLOPS[0] += int(n)
+
+
+@contextlib.contextmanager
+def kernel_flop_count():
+    """Collect `add_kernel_flops` inside the block: yields the
+    one-element list the launchers add to."""
+    global _KERNEL_FLOPS
+    prev, box = _KERNEL_FLOPS, [0]
+    _KERNEL_FLOPS = box
+    try:
+        yield box
+    finally:
+        _KERNEL_FLOPS = prev
+
+
 _SMS = {}
 
 

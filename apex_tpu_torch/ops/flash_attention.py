@@ -75,7 +75,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.ops import _common
-from apex_tpu_torch.ops._common import check_kernel_device
+from apex_tpu_torch.ops._common import add_kernel_flops, check_kernel_device
 
 _NEG_INF = -1e30
 
@@ -562,6 +562,16 @@ def _seg_args(q_seg, kv_seg, b, sq, sk):
             out[1].stride(0)], out
 
 
+def _fwd_flops(b, h, sq, sk, d):
+    """The flops of the forward's two products, q·kᵀ and p·v, over the
+    full sq x sk square (what the plain version computes and
+    `monitor.flops` counts, causal or not).  The backward's four
+    products (dp, dv, dq, dk) are twice this; the split backward's dq
+    pass computes dp and dq, its dk/dv pass dv and dk (the recomputed
+    scores are not the model's products and are not counted)."""
+    return 4 * b * h * sq * sk * d
+
+
 def _raise_launch_error(err, what):
     """Raise for a launcher's return code: 0 is a launch; a code at or
     above `TENSOR_MAP_ERROR` is a tensor map the CUDA driver refused (its
@@ -613,6 +623,7 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None,
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), *drop, *seg, stream)
     _raise_launch_error(err, "forward")
+    add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     return o, lse
@@ -651,6 +662,7 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
         int(bool(causal)), hp, *drop, *seg, stream)
     _raise_launch_error(err, "packed forward")
+    add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_fwd_packed_cuda.launches += 1
     flash_fwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return o, lse
@@ -741,6 +753,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
         float(scale), int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "backward")
+    add_kernel_flops(2 * _fwd_flops(b, h, sq, sk, d))
     flash_bwd_cuda.launches += 1
     flash_bwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_cuda.f32_launches += f32
@@ -775,6 +788,7 @@ def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
         dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
         float(scale), int(bool(causal)), hp, *seg, stream)
     _raise_launch_error(err, "packed backward")
+    add_kernel_flops(2 * _fwd_flops(b, h, sq, sk, d))
     flash_bwd_packed_cuda.launches += 1
     flash_bwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dq_acc.to(q.dtype), dk, dv
@@ -808,6 +822,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         _strides(q, k, v, do), b, h, sq, sk, float(scale),
         int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "dq pass")
+    add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dq_cuda.f32_launches += f32
@@ -842,6 +857,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         work.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
         int(bool(causal)), f32, *seg, stream)
     _raise_launch_error(err, "dk/dv pass")
+    add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dkv_cuda.f32_launches += f32

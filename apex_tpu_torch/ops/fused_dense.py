@@ -48,7 +48,8 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
-from apex_tpu_torch.ops._common import (check_kernel_device, resolve_device,
+from apex_tpu_torch.ops._common import (add_kernel_flops,
+                                        check_kernel_device, resolve_device,
                                         sm_count as _sm_count)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -255,6 +256,7 @@ def _launch(route, x2, w, b, y, activation):
     if err != 0:
         raise RuntimeError(f"fused dense kernel ({route}) launch failed: "
                            f"CUDA error {err}")
+    add_kernel_flops(2 * m * n * k)
     linear_bias_cuda.launches += 1
     linear_bias_cuda.route_launches[route] += 1
     linear_bias_cuda.last_plan = {"route": route, "tile_n": tile_n,

@@ -42,10 +42,10 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from apex_tpu_torch.ops._common import (check_kernel_device,
                                         sm_count as _sm_count)
+from apex_tpu_torch.parallel import mesh as M
 
 # the plan's constants (csrc/welford.cu): threads a block, 16-byte loads
 # a thread keeps in flight, blocks an SM, the most blocks a cluster
@@ -251,15 +251,11 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
+        return M.all_reduce(x.clone(), "sum", group)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return M.all_reduce(g.clone(), "sum", ctx.group), None
 
 
 def merge_stats(mean, var, count, process_group=None):

@@ -38,7 +38,6 @@ divide raises, as the JAX package's `psum_scatter` does.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
 from apex_tpu_torch.parallel import mesh as M
 from apex_tpu_torch.parallel.mesh import TP_AXIS
@@ -197,7 +196,7 @@ def _tiled_all_to_all(x, group, split_dim, concat_dim):
     send = x.reshape(shape[:split_dim] + [n] + chunk[split_dim:])
     send = send.movedim(split_dim, 0).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    M.all_to_all(recv, send, group)
     out = chunk[:concat_dim] + [n * chunk[concat_dim]] + chunk[concat_dim + 1:]
     return recv.movedim(0, concat_dim).reshape(out)
 

@@ -62,7 +62,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops.flash_attention import (
@@ -547,7 +546,7 @@ def _seq_to_heads(x, group, n):
     b, h, s, d = x.shape
     send = x.reshape(b, n, h // n, s, d).transpose(0, 1).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    M.all_to_all(recv, send, group)
     return recv.permute(1, 2, 0, 3, 4).reshape(b, h // n, n * s, d)
 
 
@@ -558,7 +557,7 @@ def _heads_to_seq(x, group, n):
     s = big // n
     send = x.reshape(b, hl, n, s, d).permute(2, 0, 1, 3, 4).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
+    M.all_to_all(recv, send, group)
     return recv.transpose(0, 1).reshape(b, n * hl, s, d)
 
 

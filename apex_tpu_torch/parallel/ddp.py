@@ -461,6 +461,20 @@ def make_train_step(loss_fn: Callable, optimizer, *,
         def step(opt_state, scaler_state, batch, *extras):
             return local_step(opt_state, scaler_state, None, batch, *extras)
     step.tap_names = lambda: tap_holder["names"]
+    # the observatory's labels (monitor.analyze_step / comms_report): the
+    # arguments' names for the budget table, the state the step updates
+    # in place (the optimizer's flat buffers), the mesh's axes
+    names = ["opt_state", "scaler_state"]
+    if with_state:
+        names.append("model_state")
+    names.append("batch")
+    if metrics_cfg is not None:
+        names.append("metrics_state")
+    if timing_on:
+        names.append("local_timing")
+    step.arg_names = tuple(names)
+    step.donate_argnums = (0,)
+    step.mesh_axis_names, step.mesh_axis_sizes = M.mesh_axes()
     return step
 
 

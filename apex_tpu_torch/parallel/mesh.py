@@ -561,8 +561,41 @@ def group_rank(group) -> int:
 
 
 # --- collectives ------------------------------------------------------------
+#
+# Every collective of the port goes through the wrappers below.  While
+# the monitor observes them (`monitor.comms`' inventory recorder, or a
+# `monitor.ProfileCapture` window that names each collective's range in
+# the trace) `_OBSERVER` is its `issue(kind, operands, outputs, group,
+# async_op, run)`, which numbers the collective, runs `run()` and
+# returns what it returns; otherwise it is None and a wrapper pays that
+# one check.
+
+_OBSERVER = None
 
 _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
+
+
+def set_collective_observer(observer):
+    """Install `observer` (None: none) and return the one it replaces."""
+    global _OBSERVER
+    prev, _OBSERVER = _OBSERVER, observer
+    return prev
+
+
+def _issue(kind, operands, outputs, group, async_op, run):
+    if _OBSERVER is None:
+        return run()
+    return _OBSERVER.issue(kind, operands, outputs, group, async_op, run)
+
+
+def _all_reduce(x, op, group, async_op):
+    op = getattr(dist.ReduceOp, _OPS[op])
+    if not x.is_contiguous() and not async_op:
+        y = x.contiguous()
+        dist.all_reduce(y, op=op, group=group)
+        return x.copy_(y)
+    work = dist.all_reduce(x, op=op, group=group, async_op=async_op)
+    return work if async_op else x
 
 
 def all_reduce(x, op: str = "sum", group=None, async_op: bool = False):
@@ -572,13 +605,8 @@ def all_reduce(x, op: str = "sum", group=None, async_op: bool = False):
     A strided `x` is reduced through a contiguous copy."""
     if group is None:
         return None if async_op else x
-    op = getattr(dist.ReduceOp, _OPS[op])
-    if not x.is_contiguous() and not async_op:
-        y = x.contiguous()
-        dist.all_reduce(y, op=op, group=group)
-        return x.copy_(y)
-    work = dist.all_reduce(x, op=op, group=group, async_op=async_op)
-    return work if async_op else x
+    return _issue("all-reduce", (x,), (x,), group, async_op,
+                  lambda: _all_reduce(x, op, group, async_op))
 
 
 def reduce_scatter(out, inp, group=None, async_op: bool = False):
@@ -590,8 +618,12 @@ def reduce_scatter(out, inp, group=None, async_op: bool = False):
         return None if async_op else out
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
-    work = fn(out, inp, group=group, async_op=async_op)
-    return work if async_op else out
+
+    def run():
+        work = fn(out, inp, group=group, async_op=async_op)
+        return work if async_op else out
+
+    return _issue("reduce-scatter", (inp,), (out,), group, async_op, run)
 
 
 def all_gather(out, inp, group=None, async_op: bool = False):
@@ -603,8 +635,28 @@ def all_gather(out, inp, group=None, async_op: bool = False):
         return None if async_op else out
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    work = fn(out, inp, group=group, async_op=async_op)
-    return work if async_op else out
+
+    def run():
+        work = fn(out, inp, group=group, async_op=async_op)
+        return work if async_op else out
+
+    return _issue("all-gather", (inp,), (out,), group, async_op, run)
+
+
+def all_to_all(out, inp, group=None, async_op: bool = False):
+    """`out` := chunk r of every rank's `inp`, in rank order, where r is
+    this rank (the leading dimension cut into world equal chunks; ≡
+    `all_to_all_single`); a copy without a group.  Both contiguous."""
+    if group is None:
+        out.copy_(inp)
+        return None if async_op else out
+
+    def run():
+        work = dist.all_to_all_single(out, inp, group=group,
+                                      async_op=async_op)
+        return work if async_op else out
+
+    return _issue("all-to-all", (inp,), (out,), group, async_op, run)
 
 
 def exchange(sends, group):
@@ -612,10 +664,51 @@ def exchange(sends, group):
     recv buffer, src) with group ranks; every send and receive is issued
     in one batch (`batch_isend_irecv`).  Returns the work handles: wait
     on them before reading a receive buffer or writing a sent tensor."""
-    ops = []
-    for t, dst, buf, src in sends:
-        ops.append(dist.P2POp(dist.isend, t,
-                              dist.get_global_rank(group, dst), group))
-        ops.append(dist.P2POp(dist.irecv, buf,
-                              dist.get_global_rank(group, src), group))
-    return dist.batch_isend_irecv(ops)
+    def run():
+        ops = []
+        for t, dst, buf, src in sends:
+            ops.append(dist.P2POp(dist.isend, t,
+                                  dist.get_global_rank(group, dst), group))
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  dist.get_global_rank(group, src), group))
+        return dist.batch_isend_irecv(ops)
+
+    return _issue("collective-permute", tuple(s[0] for s in sends),
+                  tuple(s[2] for s in sends), group, True, run)
+
+
+# --- the mesh as the monitor names it ----------------------------------------
+
+def mesh_axes():
+    """(axis names, sizes) of the mesh in the JAX package's order:
+    ("pp", "dp", "tp"), or ("pp", "dp", "ep", "tp") with expert
+    parallelism; without `initialize_model_parallel`, the world as one
+    ("dp",) axis (size 1 without torch.distributed)."""
+    if _GLOBAL_STATE is None:
+        return (DP_AXIS,), (group_size(_world_group()),)
+    s = _GLOBAL_STATE
+    names = tuple(a for a in _AXES if a != EP_AXIS or s.sizes[EP_AXIS] > 1)
+    return names, tuple(s.sizes[a] for a in names)
+
+
+def group_axes(group) -> Optional[tuple]:
+    """The mesh axes a process group spans, in `mesh_axes` order: the
+    axes whose coordinate varies over its members (() for a group of
+    one rank); None when the group is not one of the mesh's (or there
+    is no mesh and it is not the world)."""
+    if group is None:
+        return ()
+    if _GLOBAL_STATE is None:
+        if group is _world_group():
+            return (DP_AXIS,) if group_size(group) > 1 else ()
+        return None
+    names, sizes = mesh_axes()
+    coords = []
+    for r in dist.get_process_group_ranks(group):
+        c, rest = {}, r
+        for a, n in zip(reversed(names), reversed(sizes)):
+            c[a], rest = rest % n, rest // n
+        if rest:            # a rank outside the mesh
+            return None
+        coords.append(c)
+    return tuple(a for a in names if len({c[a] for c in coords}) > 1)

@@ -139,6 +139,11 @@ def make_tp_dp_train_step(model, optimizer, *,
         _, new_state = optimizer.step_flat(opt_state, g_flat)
         return new_state, loss
 
+    # the observatory's labels (monitor.analyze_step / comms_report), as
+    # parallel.ddp's step carries them
+    step.arg_names = ("opt_state", "tokens", "labels")
+    step.donate_argnums = (0,)
+    step.mesh_axis_names, step.mesh_axis_sizes = M.mesh_axes()
     return step
 
 

@@ -499,7 +499,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  returns it gathered on the card, and
                  `forward_backward_no_pipelining(rank_timing=)` gathers
                  a host list over the NCCL dp group.
- 21. table       the kernels' times on the card (CUDA events) beside
+ 21. slice 24    the observatories on phase 20's step: (a) two warm-up
+                 and five timed steps (each ended by a synchronize), then
+                 three under `monitor.ProfileCapture(range(3))`; the
+                 trace through `analyze_trace`: a "gpu" timeline of 3
+                 steps with device events, each step's kernel events
+                 (flash 24 + 24, LayerNorm 49 + 49, Adam 1) equal to the
+                 launch counters, the busy union at most the device
+                 events' summed time and within 10 % of it (one stream),
+                 a `MetricsLogger(timeline=)` record
+                 through `validate_record`, and one `profile_step` step
+                 beside it.  (b) `monitor.analyze_step` of the step with
+                 `gpt_step_flops`: flops_ok (the flash kernels' flops
+                 added by their launchers), donation_ok, the budget's
+                 params the flat buffer's bytes, the budget table; the
+                 audited state bit for bit its copy, and a step from it
+                 against a twin's (losses bit for bit, params within
+                 twice two twin steps' distance).  (c) `comms_report` of
+                 phase 15 (a)'s sequence-parallel step on one-rank NCCL
+                 groups: the inventory by kind the layers' count, every
+                 entry priced 0, each named by a range in a captured
+                 trace of the step, `crosscheck_comms` with no row.  (d)
+                 the captured steps' wall ms beside the timed steps'.
+ 22. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -522,8 +544,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  and SDPA with dropout_p=0.1; the four segmented
                  optimizer kernels' shard times beside their whole
                  buffers', each kernel's launches in slice 17's, 19's,
-                 20's, 21's, 22's and 23's legs (the backward rows' fp32
-                 launches apart),
+                 20's, 21's, 22's, 23's and 24's legs (the backward rows'
+                 fp32 launches apart),
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -8173,6 +8195,377 @@ def add_slice23_columns(rows, slice23):
                 "monitored gpt per_step": cost["launches_per_step"][name]}
 
 
+# ------------------ slice 24: the monitor's observatories --------------------
+
+# the kernels of the GPT-350M step by their names in a trace (as
+# `monitor_cost_leg` matches them), keyed by their launch counters' rows;
+# "ln_bwd_kernel" leaves out the finishing pass `ln_bwd_finish_kernel`
+TRACE_KERNELS = {"flash_attention_fwd": "flash_fwd_kernel",
+                 "flash_attention_bwd": "flash_bwd_kernel",
+                 "layer_norm_fwd": "ln_fwd_kernel",
+                 "layer_norm_bwd": "ln_bwd_kernel",
+                 "adam": "_adam_kernel"}
+
+
+def trace_kernel_counts(trace, rep):
+    """Each captured step's launches of the step's kernels, counted from
+    the trace's kernel events inside the step's window."""
+    out = []
+    for s in rep.steps:
+        lo, hi = s.t_start_us, s.t_start_us + 1e3 * s.wall_ms
+        names = [e.name for e in trace.events if e.cat == "kernel"
+                 and lo <= e.ts and e.end <= hi]
+        out.append({row: sum(1 for n in names
+                             if re.search(rf"\b{k}\b", n)
+                             and (k != "_adam_kernel" or n == k))
+                    for row, k in TRACE_KERNELS.items()})
+    return out
+
+
+def observatory_timeline_leg(torch, fa, ln, ok, tmp, warmup=2, plain=5):
+    """(a) the monitored GPT-350M step: `warmup` steps, `plain` timed steps
+    (each ended by a synchronize, as a captured step is), then three under
+    `ProfileCapture(range(3))`: the timeline's steps, device events, busy
+    union and host gap, the trace's kernel counts against the launch
+    counters, the busy union against the device events' summed times
+    (what `profile_step` sums), the timeline record through
+    `validate_record`; and one step through `profile_step` beside it.  (d) the cost of the capture:
+    the captured steps' wall ms against the timed ones', and the trace's
+    export."""
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.monitor import flops
+    from apex_tpu_torch.monitor.timeline import events as tl_events
+
+    model, opt, state, batch = monitored_gpt(torch)
+    step = monitored_step(model, opt, metrics=True)
+    holder = {"m": monitor.init_metrics()}
+
+    def fn(st, b):
+        out = step(st, None, b, holder["m"])
+        holder["m"] = out[3]
+        return out[0], out[2]
+
+    torch.cuda.synchronize()
+    reset_kernel_counts(fa, ln, ok)
+    for _ in range(warmup):
+        state, _ = fn(state, batch)
+    torch.cuda.synchronize()
+    plain_ms = []
+    for _ in range(plain):
+        t0 = time.perf_counter()
+        state, _ = fn(state, batch)
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    before = kernel_counts(fa, ln, ok)
+    cap = monitor.profile_capture(range(3), logdir=tmp)
+    captured_ms = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        with cap.step(i):
+            state, _ = fn(state, batch)
+        captured_ms.append(1e3 * (time.perf_counter() - t0))
+    check(not cap.active and cap.trace_path() is not None,
+          "the capture's window did not close")
+    # the last step's time includes the trace's export at the window's
+    # close: time the parts apart
+    t0 = time.perf_counter()
+    trace = tl_events.read_trace(cap.trace_path())
+    rep = monitor.timeline.analyze_events(trace)
+    analyze_s = time.perf_counter() - t0
+    after = kernel_counts(fa, ln, ok)
+    counters = {k: after[k] - before[k] for k in TRACE_KERNELS}
+    check(rep.device_type == "gpu" and len(rep.steps) == 3
+          and rep.n_device_events > 0
+          and all(s.n_device_events > 0 for s in rep.steps),
+          f"the GPU timeline: device {rep.device_type}, "
+          f"{len(rep.steps)} steps, {rep.n_device_events} device events")
+    per_step = trace_kernel_counts(trace, rep)
+    kernels = [e for e in trace.events if e.cat == "kernel"]
+    # the capture's tiny launches, recorded ahead of step 0's window
+    ahead = sum(1 for e in kernels if e.end <= rep.steps[0].t_start_us)
+    whole = {row: sum(1 for e in kernels if re.search(rf"\b{k}\b", e.name)
+                      and (k != "_adam_kernel" or e.name == k))
+             for row, k in TRACE_KERNELS.items()}
+    for i, got in enumerate(per_step):
+        check(got == MONITOR_PER_STEP, f"captured step {i}: the trace "
+              f"counts {got}, the step launches {MONITOR_PER_STEP}; the "
+              f"whole trace {whole}; its first kernel at "
+              f"{min(e.ts for e in kernels) - rep.steps[0].t_start_us} us "
+              f"from step 0's window, {ahead} kernels ahead of it")
+    check(counters == {k: 3 * n for k, n in MONITOR_PER_STEP.items()},
+          f"the launch counters over the captured steps: {counters}")
+    # the device events' own times summed, as profile_step sums them
+    # (key_averages over a profiler with open ranges would add the
+    # ranges' mirrors on the stream lanes, gpu_user_annotation, too)
+    summed_ms = sum(
+        e.dur for e in trace.events if e.cat in tl_events.DEVICE_CATEGORIES
+        and any(s.t_start_us <= e.ts and e.end <= s.t_start_us
+                + 1e3 * s.wall_ms for s in rep.steps)) / 1e3
+    mirrors_ms = sum(device_time_by_kernel(torch, cap.profiler).values()) \
+        / 1e3
+    busy_ms = sum(s.device_busy_ms for s in rep.steps)
+    # the union of the same intervals can exceed their sum only by the
+    # rounding of ts + dur (~2.4e-7 ms at these timestamps) an event
+    check(0.9 * summed_ms <= busy_ms
+          <= summed_ms + 1e-6 * rep.n_device_events,
+          f"the busy union {busy_ms} ms against the device events' summed "
+          f"{summed_ms} ms (one stream: within a few per cent)")
+    path = os.path.join(tmp, "timeline.jsonl")
+    lg = monitor.MetricsLogger([monitor.JSONLSink(path)],
+                               flops_per_step=flops.gpt_step_flops(
+                                   model.c, 12), timeline=rep)
+    rec = lg.log_step(holder["m"])
+    lg.close()
+    monitor.validate_record(rec)
+    check(rec["timeline_device_busy_fraction"]
+          == rep.device_busy_fraction, "the timeline record's busy share")
+    monitor.validate_timeline_report(json.loads(json.dumps(rep.to_dict())))
+    log("slice 24 (a) timeline\n" + monitor.render_timeline_table(
+        rep, label="GPT-350M monitored step"))
+    names = {row: (lambda k: (lambda n: re.search(rf"\b{k}\b", n)
+                              is not None))(k)
+             for row, k in TRACE_KERNELS.items()}
+    state, prof = profile_step(torch, fn, state, (batch,), names)
+    out = {
+        "steps": [s.to_dict() for s in rep.steps],
+        "device_busy_fraction": rep.device_busy_fraction,
+        "host_gap_ms": rep.host_gap_ms,
+        "category_fractions": rep.category_fractions,
+        "n_device_events": rep.n_device_events,
+        "n_host_events": rep.n_host_events,
+        "busy_union_ms": busy_ms, "kernels_summed_ms": summed_ms,
+        "union_over_sum": busy_ms / summed_ms,
+        "key_averages_device_ms_with_range_mirrors": mirrors_ms,
+        "trace_kernels_per_step": per_step, "trace_kernels_whole": whole,
+        "kernels_ahead_of_the_window": ahead,
+        "launch_counters": counters,
+        "record": {k: v for k, v in rec.items()
+                   if k.startswith("timeline_")},
+        "profile_step": {k: prof[k] for k in
+                         ("wall_ms", "device_ms", "device_busy_share")},
+        "trace_bytes": os.path.getsize(cap.trace_path()),
+        "read_and_analyze_s": analyze_s,
+        "cost": {"plain_step_ms": plain_ms, "captured_step_ms": captured_ms,
+                 "plain_median_ms": sorted(plain_ms)[len(plain_ms) // 2],
+                 "captured_first_two_mean_ms": sum(captured_ms[:2]) / 2,
+                 "captured_last_with_export_ms": captured_ms[2]},
+        "launches": counters}
+    del state, opt, step, trace
+    torch.cuda.empty_cache()
+    return out
+
+
+def observatory_audit_leg(torch):
+    """(b) `analyze_step` of the monitored step with the step's
+    `gpt_step_flops`: flops_ok, donation_ok, the params bytes the flat
+    master buffer's, the budget table; the audited state bit for bit its
+    copy before the audit; then one step from it and one from an
+    unaudited twin: their losses bit for bit, their params within twice
+    the distance of two unaudited steps (the fused backward's dq is
+    summed by reduce-adds in an order that changes from run to run)."""
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.monitor import flops
+
+    model, opt, state, batch = monitored_gpt(torch)
+    step = monitored_step(model, opt, metrics=True)
+    m = monitor.init_metrics()
+    state, _, _, m = step(state, None, batch, m)[:4]     # warm-up
+    twin = [x.clone() for x in state]
+    twin_m = type(m)(*[x.clone() for x in m])
+    fps = flops.gpt_step_flops(model.c, 12)
+    t0 = time.perf_counter()
+    rep = monitor.analyze_step(step, (state, None, batch, m),
+                               analytic_flops=fps)
+    audit_s = time.perf_counter() - t0
+    table = monitor.render_budget_table(rep)
+    log("slice 24 (b) audit\n" + table)
+    check(all(torch.equal(a, b) for a, b in zip(state, twin))
+          and all(torch.equal(a, b) for a, b in zip(m, twin_m)),
+          "analyze_step moved the caller's state")
+    check(rep.flops_ok is True, f"counted flops {rep.flops} against "
+          f"gpt_step_flops {fps}: divergence {rep.flops_divergence}")
+    check(rep.donation_ok is True, f"donation: {rep.undonated_bytes} of "
+          f"{rep.donated_bytes} bytes not updated in place")
+    flat = state.params.numel() * state.params.element_size()
+    check(rep.budget["params"] == flat, f"the budget's params "
+          f"{rep.budget['params']} bytes, the flat buffer {flat}")
+    check(rep.backend == "gpu" and rep.temp_bytes and rep.temp_bytes > 0,
+          f"backend {rep.backend}, temp bytes {rep.temp_bytes}")
+
+    def one(st, mm):
+        st = type(st)(*[x.clone() for x in st])
+        out = step(st, None, batch, type(mm)(*[x.clone() for x in mm]))
+        return out[0].params.clone(), out[2]
+
+    p_a, l_a = one(state, m)
+    p_t, l_t = one(type(state)(*twin), twin_m)
+    p_u, _ = one(type(state)(*twin), twin_m)
+    d_at, d_tu = flat_distance(torch, p_a, p_t), flat_distance(torch, p_t,
+                                                                p_u)
+    check(torch.equal(l_a, l_t), f"the audited state's next loss "
+          f"{float(l_a)}, the twin's {float(l_t)}")
+    check(d_at <= 2 * d_tu, f"a step from the audited state is {d_at} from "
+          f"the twin's, two twin steps {d_tu} apart")
+    out = {"report": {k: v for k, v in rep.to_dict().items()},
+           "budget_table": table, "analytic_flops": fps,
+           "audit_s": audit_s, "next_loss": float(l_a),
+           "next_params_bit_for_bit": bool(torch.equal(p_a, p_t)),
+           "audited_vs_twin": d_at, "twin_vs_twin": d_tu}
+    del state, twin, opt, step, p_a, p_t, p_u
+    torch.cuda.empty_cache()
+    return out
+
+
+def observatory_comms_leg(torch, tmp):
+    """(c) `comms_report` of phase 15 (a)'s step (GPT-350M, sequence
+    parallelism, overlap_chunks 1, on one-rank NCCL tp and dp groups):
+    the inventory's count by kind the layers' (`implied_collectives`),
+    every entry a one-rank group priced 0, named in a captured trace of
+    the step (its host range, and the device events it launched), and
+    `crosscheck_comms` with no row; the captured step's busy union, its
+    device events' summed time and `device_time_by_kernel`'s sum (what
+    `profile_step` reports), which counts the spans of the ranges'
+    mirrors too, and the "nccl:*" ranges' mirrors alone (what phase 15's
+    profiled step, which opens no range of its own, adds)."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.monitor.timeline import events as tl_events
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.parallel import mesh
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh.initialize_model_parallel(tensor_model_parallel_size=1)
+        bf16 = torch.bfloat16
+        model = gpt_mod.gpt_350m(
+            vocab_size=50304, seq_len=1024, dropout=0.0, dtype=bf16,
+            logits_dtype=bf16, use_flash_attention=True,
+            sequence_parallel=True, overlap_chunks=1)
+        opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+        state = init_sharded_optimizer(opt, model, model.init(seed=0))
+        step = make_tp_dp_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tokens = torch.randint(0, 50304, (12, 1024), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels = torch.roll(tokens, -1, dims=1)
+        state, _ = step(state, tokens, labels)          # warm-up
+        t0 = time.perf_counter()
+        rep = monitor.comms_report(step, (state, tokens, labels))
+        report_s = time.perf_counter() - t0
+        d = rep.to_dict()
+        monitor.comms.validate_comms_report(json.loads(json.dumps(d)))
+        listed = {}
+        for c in rep.collectives:
+            listed[c.kind] = listed.get(c.kind, 0) + 1
+        want = {k.replace("_", "-"): v for k, v in
+                implied_collectives(24, True, 1).items()}
+        check(listed == want, f"the inventory {listed}, the layers issue "
+              f"{want}")
+        check(all(c.group_size == 1 and c.predicted_s == 0.0
+                  and c.axes == () for c in rep.collectives)
+              and rep.counts == {} and rep.predicted_comm_s == 0.0
+              and rep.async_supported,
+              "one-rank groups: every entry degenerate and priced 0, NCCL")
+        log("slice 24 (c) comms\n" + monitor.render_comms_table(
+            rep, label="GPT-350M SP step, one-rank NCCL groups"))
+        cap = monitor.profile_capture(range(1), logdir=tmp)
+        with cap.step(0):
+            state, _ = step(state, tokens, labels)
+        trace = tl_events.read_trace(cap.trace_path())
+        tl = monitor.timeline.analyze_events(trace)
+        ranges = {e.name for e in trace.events
+                  if e.cat == "user_annotation"}
+        on_device = {}
+        for e in trace.events:
+            if e.hlo_op:
+                on_device[e.hlo_op] = on_device.get(e.hlo_op, 0) + 1
+        missing = [c.name for c in rep.collectives if c.name not in ranges]
+        check(not missing, f"inventory entries with no range of their "
+              f"name in the trace: {missing[:8]}")
+        xc = monitor.crosscheck_comms(tl, rep)
+        check(xc["ok"] and xc["rows"] == [], f"crosscheck {xc}")
+        # profile_step's sum (key_averages' device time) against the
+        # device events' own: torch's "nccl:*" ranges mirror onto the
+        # stream lanes and add their spans to key_averages
+        (s,) = tl.steps
+        events_ms = sum(e.dur for e in trace.events
+                        if e.cat in tl_events.DEVICE_CATEGORIES) / 1e3
+        key_avg_ms = sum(device_time_by_kernel(
+            torch, cap.profiler).values()) / 1e3
+        nccl_mirrors_ms = sum(e.dur for e in trace.events
+                              if e.cat == "gpu_user_annotation"
+                              and e.name.startswith("nccl:")) / 1e3
+        by_kind = {}
+        for c in rep.collectives:
+            k = by_kind.setdefault(c.kind, {"n": 0, "with_device_events": 0,
+                                            "operand_bytes": 0})
+            k["n"] += 1
+            k["operand_bytes"] += c.operand_bytes
+            k["with_device_events"] += int(c.name in on_device)
+        out = {"inventory_by_kind": by_kind, "implied": want,
+               "report_s": report_s, "counted_flops_s": rep.compute_s,
+               "predicted_comm_s": rep.predicted_comm_s,
+               "link_bandwidth": rep.link_bandwidth,
+               "bandwidth_source": rep.bandwidth_source,
+               "timeline_collective_spans": len(tl.collectives),
+               "timeline_collective_fraction": tl.collective_fraction,
+               "captured_step": {"wall_ms": s.wall_ms,
+                                 "busy_union_ms": s.device_busy_ms,
+                                 "device_events_ms": events_ms,
+                                 "key_averages_ms": key_avg_ms,
+                                 "nccl_range_mirrors_ms": nccl_mirrors_ms},
+               "crosscheck_rows": len(xc["rows"])}
+        del state, opt, step
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice24_phase(torch, fa, ln, ok, smi):
+    """Phase 21 (module docstring): the observatories on the GPT-350M
+    step, (a)-(d); the traces under a temporary directory removed
+    after."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_observatory_")
+    out = {"card": smi}
+    try:
+        out["timeline"] = observatory_timeline_leg(torch, fa, ln, ok, tmp)
+        log(f"slice 24 (a) timeline, (d) capture cost on {smi} "
+            + json.dumps(out["timeline"]))
+        out["audit"] = observatory_audit_leg(torch)
+        log("slice 24 (b) audit " + json.dumps(
+            {k: v for k, v in out["audit"].items() if k != "budget_table"}))
+        out["comms"] = observatory_comms_leg(torch, tmp)
+        log("slice 24 (c) comms " + json.dumps(out["comms"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 21 {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def add_slice24_columns(rows, slice24):
+    """The kernel table's slice-24 column: on each row phase 21 (a)
+    counted, its launches in the three captured steps, counted by the
+    launch counters and in the trace."""
+    tl = slice24["timeline"]
+    for row in rows:
+        name = row["name"]
+        if name in tl["launches"]:
+            row["launches_slice24"] = {
+                "captured gpt": tl["launches"][name],
+                "captured gpt per_step": tl["launches"][name] / 3,
+                "trace per_step": [s[name] for s in
+                                   tl["trace_kernels_per_step"]]}
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -8891,7 +9284,11 @@ def run_phases():
     slice23 = slice23_phase(torch, np, fa, ln, ok, smi)
     torch.cuda.empty_cache()
 
-    # ---- 21. kernel table --------------------------------------------
+    # ---- 21. slice 24: the monitor's observatories ---------------------
+    slice24 = slice24_phase(torch, fa, ln, ok, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 22. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -9005,6 +9402,7 @@ def run_phases():
     add_slice21_columns(table["kernels"], slice21)
     add_slice22_columns(table["kernels"], slice22)
     add_slice23_columns(table["kernels"], slice23)
+    add_slice24_columns(table["kernels"], slice24)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

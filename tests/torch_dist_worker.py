@@ -1,7 +1,8 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
 pipeline-parallel files, tests/test_torch_bert_tp.py,
-tests/test_torch_checkpoint_sharded.py and tests/test_torch_trace.py).
+tests/test_torch_checkpoint_sharded.py, tests/test_torch_trace.py and
+tests/test_torch_comms.py).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -1201,6 +1202,65 @@ def scn_trace_timing(d, rank, world):
         rank_timing=d["fb_timing"][rank].tolist())
     out["fb_gathered"] = n(gathered)
     out["fb_metrics"] = np.asarray([float(v) for v in m])
+    return out
+
+
+def scn_comms(d, rank, world):
+    """The comms observatory at tp = world: `monitor.comms_report` of the
+    Megatron MLP (column without gather -> gelu -> row), with and without
+    sequence parallelism, as the JAX test harness runs it (its output,
+    then the gradient of the sum of squares of a second forward); each
+    collective's (kind, dtype, operand bytes, output bytes, group size,
+    axes), the report's dict and table; then the same function under a
+    CPU `ProfileCapture` (a gloo trace) and `crosscheck_comms` of the
+    two."""
+    import tempfile
+
+    import torch.nn.functional as Fn
+
+    from apex_tpu_torch import monitor
+    from apex_tpu_torch.transformer.tensor_parallel.layers import (
+        ColumnParallelLinear, RowParallelLinear, shard_tree)
+
+    _tp(world)
+    out = {}
+    for name, sp in (("mlp", False), ("sp_mlp", True)):
+        c = ColumnParallelLinear(16, 32, sequence_parallel=sp)
+        r_ = RowParallelLinear(32, 16, input_is_parallel=True,
+                               sequence_parallel=sp)
+        pc = shard_tree(tree_t(d["pc"]), c.partition_spec(), rank, world)
+        pr = shard_tree(tree_t(d["pr"]), r_.partition_spec(), rank, world)
+        x = t(local_rows(d["x"], rank, world)) if sp else t(d["x"])
+
+        def fwd(pc, pr, x):
+            return r_.apply(pr, Fn.gelu(c.apply(pc, x), approximate="tanh"))
+
+        def step(pc, pr, x):
+            y = fwd(pc, pr, x)
+            leaves = [v.detach().requires_grad_(True)
+                      for v in (pc["weight"], pc["bias"], pr["weight"],
+                                pr["bias"], x)]
+            p1 = {"weight": leaves[0], "bias": leaves[1]}
+            p2 = {"weight": leaves[2], "bias": leaves[3]}
+            loss = (fwd(p1, p2, leaves[4]) ** 2).sum()
+            return y.detach(), torch.autograd.grad(loss, leaves)
+
+        rep = monitor.comms_report(step, (pc, pr, x))
+        out[name] = {
+            "collectives": [(k.kind, k.dtype, k.operand_bytes,
+                             k.output_bytes, k.group_size, k.axes)
+                            for k in rep.collectives],
+            "report": rep.to_dict(),
+            "table": monitor.render_comms_table(rep, label=name)}
+        with tempfile.TemporaryDirectory() as logdir:
+            cap = monitor.profile_capture(range(1), logdir=logdir,
+                                          device="cpu")
+            with cap.step(0):
+                step(pc, pr, x)
+            tl = monitor.analyze_trace(cap.trace_path())
+        out[name]["timeline"] = tl.to_dict()
+        out[name]["crosscheck"] = monitor.crosscheck_comms(tl, rep)
+    _restore()
     return out
 
 
