@@ -39,7 +39,12 @@ Subpackages (lazily importable):
                 ZeRO-2), the batch norm of `sync_batchnorm` (statistics
                 merged across ranks), LARC, clip_grad and the
                 `multiproc` launcher
-  contrib     — the xentropy and clip_grad facades
+  contrib     — the JAX package's contrib modules: multihead_attn and
+                fmha over the flash kernels (masks as segment ids or an
+                additive bias), groupbn, bottleneck and peer_memory
+                (halo exchange), focal_loss, index_mul_2d, transducer,
+                sparsity (ASP), conv_bias_relu, and the xentropy,
+                clip_grad, layer_norm and optimizers facades
   multi_tensor_apply — one functor over parallel tensor lists
   fused_dense, mlp, normalization — the reference's facades over ops
   transformer — the pp x tp x dp training step, the tensor-parallel

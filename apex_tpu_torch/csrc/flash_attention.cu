@@ -1,7 +1,8 @@
 // Flash attention forward and backward for Hopper (sm_90a), plain C
 // interface.  Layout (b, h, s, d), bf16, head_dim 64 or 128, causal or
-// not, with or without segment ids, with or without dropout; no bias (the
-// training steps' surface).
+// not, with or without segment ids, with or without dropout, and (the
+// unpacked kernels, without segment ids) with or without an additive
+// fp32 score bias and its gradient.
 //
 // Replaces: apex_tpu/ops/flash_attention.py:_fwd_kernel and
 // :_fwd_kernel_packed (launched by _fwd_impl), :_bwd_fused_kernel,
@@ -176,6 +177,39 @@
 // the hot loop, no memory.  Rate 0 launches the !DROP instantiations,
 // which are the kernels as they were before dropout.
 //
+// Additive bias (the BIAS instantiations of the forward, the fused kernel,
+// the dk/dv pass and the dq pass: flash_*_bias_kernel; _mask_bias and
+// want_dbias in the TPU kernels): an fp32 bias of shape (b|1, h|1, sq|1, sk)
+// is added to the scaled scores before the causal mask, as _mask_bias orders
+// it; a broadcast dimension has stride 0, so a key-compact (.., 1, sk) bias
+// ("sk") is the same code as a full one ("full"), its query stride 0. A
+// query-compact bias is not passed: softmax cancels it, so the caller
+// launches the kernels without one. The kernels take scale * (q k + bias /
+// scale) = scale * q k + bias: each thread loads its score fragment's bias
+// values (8-byte pairs of keys where the fragment holds key pairs: the
+// forward and the dq pass), times 1 / scale, into the score product's
+// accumulator registers before the product is issued, and the product
+// accumulates q k onto them. So the biased scores leave the product with the
+// bias in them, and the rest of the kernel (the masks, the log2-unit
+// exponent, the tile skips) is the unbiased kernel's code: the masks still
+// follow the bias, as _mask_bias orders them. The loads are issued while no
+// product is in flight (ptxas serialises wgmma otherwise); a broadcast (1, 1,
+// sq, sk) bias of a few MB stays in the L2. The gradient with respect to the
+// bias is ds = p (dp - delta), the gradient with respect to the whole
+// pre-softmax score s * scale + bias, which the backward already forms before
+// its products (in fp32, before the bf16 rounding): BIAS 2 writes it. The
+// fused kernel and the dq pass write "full" dbias as a (b * h, sq, sk) fp32
+// partial, each thread its own scores (a causal tile that no query sees is
+// not visited: the caller zeroes the partial); the dk/dv pass writes "sk"
+// dbias, ds summed over every query of the item's keys, as a (b * h, sk) fp32
+// partial: each thread sums its two keys over its rows and q steps in
+// registers, the four lanes that share a key add theirs by shuffles, and one
+// lane stores the key's sum at the item's end (a key tile belongs to one
+// item, and a warpgroup owns its 64 keys: no atomics). The caller sums the
+// partials over the bias's broadcast dimensions. Bias with segment ids, with
+// fp32 outputs or with heads packed is refused (cudaErrorInvalidValue): no
+// instantiation takes them.
+//
 // fp32 gradients (the F32 instantiations of the fused kernel, the dk/dv
 // pass and the dq pass; _bwd_impl's grad_dtype=float32, which the ring
 // attention of parallel/context_parallel.py asks for so that a chunk's
@@ -230,6 +264,33 @@ struct Drop {
   uint32_t seed, q_off, k_off, thresh;
   float inv;
 };
+
+// one launch's additive bias (see the top): the element of head hh of
+// batch row b, query row q and key k is p[b sb + hh sh + q sq + k] (strides
+// in elements, 0 on a broadcast dimension, all even, p 8-byte aligned,
+// rows readable to an even length: the caller pads an odd sk), so a pair
+// of keys 2j, 2j + 1 is one 8-byte load; db: the dbias partial a BIAS 2
+// instantiation writes, fp32, (b * h, sq, sk) from the fused kernel and
+// the dq pass, (b * h, sk) from the dk/dv pass
+struct Bias {
+  const float* p;
+  float* db;
+  long long sb, sh, sq;
+};
+
+// head bh's bias (bh = batch * h + head)
+__device__ __forceinline__ const float* bias_head(const Bias& bs, int bh,
+                                                  int h) {
+  return bs.p + (long long)(bh / h) * bs.sb + (long long)(bh % h) * bs.sh;
+}
+
+// keys key and key + 1 (key even) of the bias row `row` of a head: 0 past
+// sk or sq
+__device__ __forceinline__ float2 bias_pair(const float* row, int key,
+                                            bool in) {
+  return in ? __ldg(reinterpret_cast<const float2*>(row + key))
+            : make_float2(0.f, 0.f);
+}
 
 // murmur3's finalizer
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -347,6 +408,7 @@ struct FwdArgs {
   const int* kv_seg;
   long long q_seg_sb, kv_seg_sb;
   Drop drop;  // DROP instantiations
+  Bias bias;  // BIAS instantiations
 };
 
 // 2^x in one special-function instruction (ex2.approx.ftz: subnormal
@@ -407,10 +469,12 @@ struct FwdItem {
 // 128 rows.  Warpgroups 0 and 1 own 64 query rows each and share every
 // tile: per key tile, S = Q K^T by wgmma from shared memory (K K-major),
 // the mask and online softmax in registers, then O += P V by wgmma with P
-// in registers (V, keys x d row-major, is MN-major).
-template <int D, bool SEG, bool DROP>
+// in registers (V, keys x d row-major, is MN-major).  BIAS (hp = 1, no
+// segment ids): the bias is added to every score before the masks.
+template <int D, bool SEG, bool DROP, int BIAS = 0>
 __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
                                           bool res_ids, unsigned char* smem) {
+  static_assert(!(SEG && BIAS), "no instantiation takes bias and ids");
   using L = FwdSmem<D, SEG>;
   constexpr int kStages = L::kStages, kWgs = L::kWgs;
   unsigned char* q_s = smem + L::kQ;  // [2]
@@ -535,6 +599,15 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
       const int bh = t.bh0 + p;
       const int qb = qc & 1;
       const unsigned char* qs = q_s + qb * L::kQTile;
+      // BIAS: this thread's two rows of the head's bias, and 1 / scale
+      const float* bias_a = nullptr;
+      const float* bias_b = nullptr;
+      if (BIAS) {
+        const float* hb = bias_head(a.bias, bh, h);
+        bias_a = hb + (long long)row_a * a.bias.sq;
+        bias_b = hb + (long long)row_b * a.bias.sq;
+      }
+      const float inv_scale = kLog2e / scale_log2;
       // acc[4n + e]: rows g (e < 2) and g + 8 of the warp's 16, d column
       // 8n + 2 t4 + (e & 1)
       float acc[D / 2];
@@ -559,7 +632,22 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
           const int ko = (kk / 4) * L::kKBlock + (kk % 4) * 32;
           hopper::wgmma_ss_bf16<0, 0>(
               sc, hopper::wgmma_desc(qs + qo, 16, 1024),
-              hopper::wgmma_desc(ks + ko, 16, 1024), kk > 0);
+              hopper::wgmma_desc(ks + ko, 16, 1024), BIAS != 0 || kk > 0);
+        }
+      };
+      // BIAS: sc = the bias of key tile `it` / scale, for the score
+      // product to accumulate onto (keys 8n + 2 t4 and + 1: one pair)
+      auto load_bias = [&](int it) {
+        const int kc = it * kFwdKeys + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          const int key = kc + 8 * n;
+          const float2 ba = bias_pair(bias_a, key, key < sk && row_a < sq);
+          const float2 bb = bias_pair(bias_b, key, key < sk && row_b < sq);
+          sc[4 * n] = ba.x * inv_scale;
+          sc[4 * n + 1] = ba.y * inv_scale;
+          sc[4 * n + 2] = bb.x * inv_scale;
+          sc[4 * n + 3] = bb.y * inv_scale;
         }
       };
       // O += P V for the tile that `f` names, P from registers
@@ -740,13 +828,16 @@ __device__ __forceinline__ void fwd_items(const FwdArgs& a, int hp,
       for (int it = 0; it < n_kv; ++it, ++fill) {
         const int s = fill % kStages;
         const uint32_t parity = (fill / kStages) & 1;
-        hopper::mbar_wait(&k_full[s], parity);
         // a tile this warpgroup's rows never see (all past sq, or all
         // keys above their diagonal without segment ids) is only released
         // (once it has landed: a release ahead of the producer would count
         // towards the stage's previous use): it would add p = 0 everywhere
-        if (wrow0 >= sq || (APEX_FWD_TILE_SKIP && causal && !SEG &&
-                            it * kFwdKeys > wrow0 + 63)) {
+        const bool unseen = wrow0 >= sq || (APEX_FWD_TILE_SKIP && causal &&
+                                            !SEG &&
+                                            it * kFwdKeys > wrow0 + 63);
+        if (BIAS && !unseen) load_bias(it);
+        hopper::mbar_wait(&k_full[s], parity);
+        if (unseen) {
           if (it == n_kv - 1) q_read();
           release(fill);
           continue;
@@ -809,6 +900,14 @@ __global__ void __launch_bounds__(FwdSmem<D, SEG>::kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ FwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   fwd_items<D, SEG, DROP>(a, 1, false, hopper::align1024(smem_raw));
+}
+
+// the forward with an additive bias (no segment ids)
+template <int D, bool DROP>
+__global__ void __launch_bounds__(FwdSmem<D, false>::kThreads, 1)
+    flash_fwd_bias_kernel(const __grid_constant__ FwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  fwd_items<D, false, DROP, 1>(a, 1, false, hopper::align1024(smem_raw));
 }
 
 // the port of _fwd_kernel_packed: one block an SM, walking the work items
@@ -947,6 +1046,7 @@ struct BwdArgs {
   const int* kv_seg;
   long long q_seg_sb, kv_seg_sb;
   Drop drop;  // DROP instantiations
+  Bias bias;  // BIAS instantiations
 };
 
 // work item w of a backward launch: the items go in chunks of `chunk`
@@ -1025,10 +1125,14 @@ __device__ __forceinline__ void put_rows(const CUtensorMap* map, int order,
 // bulk tensor reduce-add per 32 columns (APEX_BWD_DQ_RED: per-thread
 // red.global instead).  At a head's end each warp stores its 16 keys of dk
 // (scaled) and dv through its slice by TMA (F32: each thread its own
-// column pairs as fp32, straight from its registers).
-template <int D, bool SEG, bool DQ, bool F32, bool DROP>
+// column pairs as fp32, straight from its registers).  BIAS (hp = 1, no
+// segment ids, bf16 outputs): the bias in every recomputed score; BIAS 2
+// writes dbias, "full" with DQ (each score's ds), "sk" without (ds summed
+// over the queries, one float a key at the item's end).
+template <int D, bool SEG, bool DQ, bool F32, bool DROP, int BIAS = 0>
 __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                                           unsigned char* smem) {
+  static_assert(!(BIAS && (SEG || F32)), "no such bias instantiation");
   using L = BwdSmem<D, SEG, DQ>;
   constexpr int kStages = L::kStages, kKvBufs = L::kKvBufs;
   unsigned char* k_s = smem + L::kK;    // [kKvBufs]
@@ -1203,6 +1307,14 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
       }
       const unsigned char* ks = k_s + kb * L::kKTile;
       const unsigned char* vs = v_s + kb * L::kKTile;
+      // BIAS: the head's bias and 1 / scale; BIAS 2 with DQ: its "full"
+      // dbias partial, without: this thread's sums of its two keys' ds
+      // ("sk")
+      const float* hb = BIAS ? bias_head(a.bias, bh, h) : nullptr;
+      const float inv_scale = 1.f / scale;
+      float* dbh = BIAS == 2 && DQ ? a.bias.db + (long long)bh * sq * sk
+                                   : nullptr;
+      float db_a = 0.f, db_b = 0.f;
       // dk[4n + e], dv[4n + e]: keys r_a (e < 2) and r_a + 8 of the
       // warpgroup's 64, d column 8n + 2 t4 + (e & 1)
       float dk[D / 2], dv[D / 2];
@@ -1272,6 +1384,23 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
             // sc[4n + e], dp[4n + e]: keys r_a (e < 2) and r_a + 8, query
             // qh + 8n + 2 t4 + (e & 1) of the step
             float sc[kQc / 2], dp[kQc / 2];
+            if (BIAS) {
+              // S^T accumulates onto bias^T / scale (see the top): keys
+              // key_a, key_b, queries qh + 8n + 2 t4 (+ 1)
+#pragma unroll
+              for (int n = 0; n < kQc / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = q0 + qh + 8 * n + 2 * t4 + (e & 1);
+                  const int key = e < 2 ? key_a : key_b;
+                  sc[4 * n + e] =
+                      key < sk && row < sq
+                          ? __ldg(hb + (long long)row * a.bias.sq + key) *
+                                inv_scale
+                          : 0.f;
+                }
+              }
+            }
             hopper::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
@@ -1280,7 +1409,7 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
               const int qo = (kk / 4) * L::kQBlock + qh * 128 + (kk % 4) * 32;
               hopper::wgmma_ss_bf16<0, 0>(
                   sc, hopper::wgmma_desc(ks + ko, 16, 1024),
-                  hopper::wgmma_desc(qs + qo, 16, 1024), kk > 0);
+                  hopper::wgmma_desc(qs + qo, 16, 1024), BIAS != 0 || kk > 0);
             }
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
@@ -1369,6 +1498,26 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
                     drop_pair(a.drop, kbits, 4 * n + e, p_, pv, dpv);
                   dp[4 * n + e] = p_ * (dpv - ((e & 1) ? d2.y : d2.x));
                   sc[4 * n + e] = pv;
+                }
+              }
+            }
+            if (BIAS == 2) {
+              // dbias: ds (0 wherever masked), the "full" partial's score
+              // (DQ) or the "sk" sums of this thread's two keys
+#pragma unroll
+              for (int n = 0; n < kQc / 8; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = q0 + qh + 8 * n + 2 * t4 + (e & 1);
+                  const int key = e < 2 ? key_a : key_b;
+                  if (DQ) {
+                    if (key < sk && row < sq)
+                      dbh[(long long)row * sk + key] = dp[4 * n + e];
+                  } else if (e < 2) {
+                    db_a += dp[4 * n + e];
+                  } else {
+                    db_b += dp[4 * n + e];
+                  }
                 }
               }
             }
@@ -1524,6 +1673,17 @@ __device__ __forceinline__ void bwd_items(const BwdArgs& a, int hp,
       // K and V are no longer read (the head's last products are done)
       if (lane == 0) hopper::mbar_arrive(&kv_empty[kb]);
       __syncwarp();
+      if (BIAS == 2 && !DQ) {
+        // "sk" dbias: the four lanes of a key add their sums, one stores
+#pragma unroll
+        for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+          db_a += __shfl_xor_sync(kFull, db_a, o_);
+          db_b += __shfl_xor_sync(kFull, db_b, o_);
+        }
+        float* dbg = a.bias.db + (long long)bh * sk;
+        if (t4 == 0 && key_a < sk) dbg[key_a] = db_a;
+        if (t4 == 0 && key_b < sk) dbg[key_b] = db_b;
+      }
 
       if constexpr (F32) {
         // dk (scaled) and dv as fp32: columns 8n + 2 t4 and + 1 of keys
@@ -1611,6 +1771,16 @@ __global__ void __launch_bounds__(BwdSmem<D, SEG, DQ>::kThreads, 1)
     flash_bwd_kernel(const __grid_constant__ BwdArgs a) {
   extern __shared__ unsigned char smem_raw[];
   bwd_items<D, SEG, DQ, F32, DROP>(a, 1, hopper::align1024(smem_raw));
+}
+
+// the fused kernel (DQ) or the dk/dv pass with an additive bias (hp = 1,
+// no segment ids, bf16 outputs); BIAS 2: and its dbias
+template <int D, bool DQ, bool DROP, int BIAS>
+__global__ void __launch_bounds__(BwdSmem<D, false, DQ>::kThreads, 1)
+    flash_bwd_bias_kernel(const __grid_constant__ BwdArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  bwd_items<D, false, DQ, false, DROP, BIAS>(a, 1,
+                                             hopper::align1024(smem_raw));
 }
 
 // the port of _bwd_fused_kernel_packed: one block an SM, walking the work
@@ -1725,10 +1895,13 @@ struct DqArgs : FwdArgs {
 // forward's P V takes V.  dQ stays in registers over the item's tiles and
 // leaves scaled, each row once: no atomics, no scratch buffer, the same
 // bits on every run (F32: as fp32, each thread its own column pairs
-// straight from its registers).
-template <int D, bool SEG, bool F32, bool DROP>
+// straight from its registers).  BIAS (no segment ids, bf16 dq): the
+// bias in every recomputed score; BIAS 2 writes each score's ds as the
+// "full" dbias partial.
+template <int D, bool SEG, bool F32, bool DROP, int BIAS = 0>
 __device__ __forceinline__ void dq_items(const DqArgs& a,
                                          unsigned char* smem) {
+  static_assert(!(BIAS && (SEG || F32)), "no such bias instantiation");
   using L = DqSmem<D, SEG, DROP>;
   constexpr int kStages = L::kStages, kWgs = L::kWgs, kKeys = L::kKeys;
   constexpr int kRows = L::kRows;
@@ -1891,6 +2064,18 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     }
     const unsigned char* qs = q_s + qb * L::kQTile;
     const unsigned char* dos = do_s + qb * L::kQTile;
+    // BIAS: this thread's two rows of the head's bias, 1 / scale, and (2)
+    // the head's "full" dbias partial
+    const float* bias_a = nullptr;
+    const float* bias_b = nullptr;
+    float* dbh = nullptr;
+    if (BIAS) {
+      const float* hb = bias_head(a.bias, t.bh0, h);
+      bias_a = hb + (long long)row_a * a.bias.sq;
+      bias_b = hb + (long long)row_b * a.bias.sq;
+      if (BIAS == 2) dbh = a.bias.db + (long long)t.bh0 * sq * sk;
+    }
+    const float inv_scale = 1.f / scale;
     // dq[4n + e]: row ra (e < 2) or ra + 8, d column 8n + 2 t4 + (e & 1)
     float dq[D / 2];
 #pragma unroll
@@ -1919,7 +2104,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
         const int ko = (kk / 4) * L::kKBlock + (kk % 4) * 32;
         hopper::wgmma_ss_bf16<0, 0>(sc, hopper::wgmma_desc(qs + qo, 16, 1024),
                                     hopper::wgmma_desc(ks + ko, 16, 1024),
-                                    kk > 0);
+                                    BIAS != 0 || kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -1929,6 +2114,24 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
                                     hopper::wgmma_desc(dos + qo, 16, 1024),
                                     hopper::wgmma_desc(vs + ko, 16, 1024),
                                     kk > 0);
+      }
+    };
+    // BIAS: sc = the bias of key tile `it` / scale, for the score product
+    // to accumulate onto (keys 8n + 2 t4 and + 1: one pair), loaded while
+    // no product is in flight
+    auto load_bias = [&](int it) {
+      if constexpr (BIAS != 0) {
+        const int kc = it * kKeys + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+          const int key = kc + 8 * n;
+          const float2 ba = bias_pair(bias_a, key, key < sk && row_a < sq);
+          const float2 bb = bias_pair(bias_b, key, key < sk && row_b < sq);
+          sc[4 * n] = ba.x * inv_scale;
+          sc[4 * n + 1] = ba.y * inv_scale;
+          sc[4 * n + 2] = bb.x * inv_scale;
+          sc[4 * n + 3] = bb.y * inv_scale;
+        }
       }
     };
     // dQ += dS K for the tile in stage s, dS (da) from registers and K as
@@ -2019,6 +2222,19 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
           }
         }
       }
+      if (BIAS == 2) {
+        // "full" dbias: ds (0 wherever masked) of every score
+#pragma unroll
+        for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            if (key < sk && row < sq)
+              dbh[(long long)row * sk + key] = dp[4 * n + e];
+          }
+        }
+      }
       // rounded to bf16 (as the TPU kernel rounds ds before its product),
       // as the m16n8k16 A fragments of keys 16kk .. 16kk + 15
 #pragma unroll
@@ -2043,6 +2259,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
     if (n_mine > 0) {
       land(fill);
       keep_bits(0);
+      load_bias(0);
       hopper::wgmma_fence();
       scores(fill % kStages);
       wait_products();
@@ -2054,6 +2271,7 @@ __device__ __forceinline__ void dq_items(const DqArgs& a,
         dq_product((f - 1) % kStages);
         wait_products();
         keep_bits(it);
+        load_bias(it);
         hopper::wgmma_fence();
         scores(f % kStages);
         wait_products();
@@ -2131,6 +2349,15 @@ __global__ void __launch_bounds__(DqSmem<D, SEG, DROP>::kThreads, 1)
   dq_items<D, SEG, F32, DROP>(a, hopper::align1024(smem_raw));
 }
 
+// the dq pass with an additive bias (no segment ids, bf16 dq); BIAS 2:
+// and its "full" dbias
+template <int D, bool DROP, int BIAS>
+__global__ void __launch_bounds__(DqSmem<D, false, DROP>::kThreads, 1)
+    flash_bwd_dq_bias_kernel(const __grid_constant__ DqArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  dq_items<D, false, false, DROP, BIAS>(a, hopper::align1024(smem_raw));
+}
+
 // dynamic shared memory above the 48 KB default needs an opt-in, once
 template <typename K>
 cudaError_t opt_in(K kernel, size_t smem, bool& done) {
@@ -2200,7 +2427,7 @@ struct Seg {
 int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
              const void* v, void* o, void* lse, const long long* st, int b,
              int h, int sq, int sk, float scale, int causal, int hp, Seg seg,
-             Drop drop, int keys = kFwdKeys) {
+             Drop drop, int keys = kFwdKeys, Bias bias = Bias{}) {
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, rows);
   if (e == 0)
     e = map_bhsd(&a->k, &a->order_k, k, st + 3, b, h, sk, D, keys);
@@ -2219,6 +2446,7 @@ int fwd_args(FwdArgs* a, int D, int rows, const void* q, const void* k,
   a->q_seg_sb = seg.q_sb;
   a->kv_seg_sb = seg.kv_sb;
   a->drop = drop;
+  a->bias = bias;
   return e;
 }
 
@@ -2232,23 +2460,26 @@ int item_grid(int b, int h, int s, int hp, int rows) {
   return static_cast<int>(items < sms ? items : sms);
 }
 
-template <int D, bool SEG, bool DROP>
+// BIAS: the bias kernel (no segment ids)
+template <int D, bool SEG, bool DROP, int BIAS = 0>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, const long long* st, int b, int h, int sq, int sk,
                float scale, int causal, Seg seg, Drop drop,
-               cudaStream_t stream) {
+               cudaStream_t stream, Bias bias = Bias{}) {
   using L = FwdSmem<D, SEG>;
   FwdArgs a;
   const int e = fwd_args(&a, D, L::kRows, q, k, v, o, lse, st, b, h, sq, sk,
-                         scale, causal, 1, seg, drop);
+                         scale, causal, 1, seg, drop, kFwdKeys, bias);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t smem = L::kBytes;
-  const cudaError_t ce = opt_in(flash_fwd_kernel<D, SEG, DROP>, smem, opted);
+  auto kernel = flash_fwd_kernel<D, SEG, DROP>;
+  if constexpr (BIAS != 0) kernel = flash_fwd_bias_kernel<D, DROP>;
+  const cudaError_t ce = opt_in(kernel, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<D, SEG, DROP><<<grid, L::kThreads, smem, stream>>>(a);
+  kernel<<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2288,7 +2519,8 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
              const void* dout, const void* lse, const void* delta,
              void* dq_acc, void* dk, void* dv, void* work,
              const long long* st, int b, int h, int sq, int sk, float scale,
-             int causal, int hp, Seg seg, Drop drop, bool f32) {
+             int causal, int hp, Seg seg, Drop drop, bool f32,
+             Bias bias = Bias{}) {
   *a = BwdArgs{};
   int e = map_bhsd(&a->q, &a->order_q, q, st, b, h, sq, D, kBwdRows);
   if (e == 0)
@@ -2329,30 +2561,39 @@ int bwd_args(BwdArgs* a, int D, const void* q, const void* k, const void* v,
   a->q_seg_sb = seg.q_sb;
   a->kv_seg_sb = seg.kv_sb;
   a->drop = drop;
+  a->bias = bias;
   return e;
 }
 
 // DQ: the fused kernel (hp = 1) or the packed one (hp > 1); else the
-// dk/dv pass (hp = 1); F32 (hp = 1): dk and dv in fp32
-template <int D, bool SEG, bool DQ, bool F32, bool DROP>
+// dk/dv pass (hp = 1); F32 (hp = 1): dk and dv in fp32; BIAS (hp = 1, no
+// segment ids, bf16): the bias kernel
+template <int D, bool SEG, bool DQ, bool F32, bool DROP, int BIAS = 0>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dq_acc, void* dk,
                void* dv, void* work, const long long* st, int b, int h,
                int sq, int sk, float scale, int causal, int hp, Seg seg,
-               Drop drop, cudaStream_t stream) {
+               Drop drop, cudaStream_t stream, Bias bias = Bias{}) {
   using L = BwdSmem<D, SEG, DQ>;
-  if (((!DQ || F32) && hp != 1) || work == nullptr)
+  if (((!DQ || F32 || BIAS) && hp != 1) || work == nullptr ||
+      (BIAS == 2 && bias.db == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a;
   const int e = bwd_args(&a, D, q, k, v, dout, lse, delta,
                          DQ ? dq_acc : nullptr, dk, dv, work, st, b, h, sq,
-                         sk, scale, causal, hp, seg, drop, F32);
+                         sk, scale, causal, hp, seg, drop, F32, bias);
   if (e != 0) return e;
   const int grid = item_grid(b, h, sk, hp, kBwdKeys);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = L::kBytes;
   cudaError_t ce;
-  if (hp == 1) {
+  if constexpr (BIAS != 0) {
+    static bool opted = false;
+    ce = opt_in(flash_bwd_bias_kernel<D, DQ, DROP, BIAS>, smem, opted);
+    if (ce != cudaSuccess) return static_cast<int>(ce);
+    flash_bwd_bias_kernel<D, DQ, DROP, BIAS>
+        <<<grid, L::kThreads, smem, stream>>>(a);
+  } else if (hp == 1) {
     static bool opted = false;
     ce = opt_in(flash_bwd_kernel<D, SEG, DQ, F32, DROP>, smem, opted);
     if (ce != cudaSuccess) return static_cast<int>(ce);
@@ -2376,10 +2617,10 @@ int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
             const void* k, const void* v, const void* dout, const void* lse,
             const void* delta, void* dq, void* work, const long long* st,
             int b, int h, int sq, int sk, float scale, int causal, Seg seg,
-            Drop drop, bool f32) {
+            Drop drop, bool f32, Bias bias = Bias{}) {
   *a = DqArgs{};
   int e = fwd_args(a, D, rows, q, k, v, nullptr, const_cast<void*>(lse), st,
-                   b, h, sq, sk, scale, causal, 1, seg, drop, keys);
+                   b, h, sq, sk, scale, causal, 1, seg, drop, keys, bias);
   if (e == 0)
     e = map_bhsd(&a->dout, &a->order_do, dout, st + 9, b, h, sq, D, rows);
   const long long oq[3] = {(long long)h * sq * D, (long long)sq * D, D};
@@ -2393,28 +2634,30 @@ int dq_args(DqArgs* a, int D, int rows, int keys, const void* q,
   return e;
 }
 
-template <int D, bool SEG, bool F32, bool DROP>
+// BIAS (no segment ids, bf16 dq): the bias kernel
+template <int D, bool SEG, bool F32, bool DROP, int BIAS = 0>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, void* work, const long long* st, int b, int h,
                   int sq, int sk, float scale, int causal, Seg seg, Drop drop,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, Bias bias = Bias{}) {
   using L = DqSmem<D, SEG, DROP>;
-  if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (work == nullptr || (BIAS == 2 && bias.db == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   DqArgs a;
   const int e = dq_args(&a, D, L::kRows, L::kKeys, q, k, v, dout, lse, delta,
                         dq, work, st, b, h, sq, sk, scale, causal, seg, drop,
-                        F32);
+                        F32, bias);
   if (e != 0) return e;
   static bool opted = false;
   constexpr size_t smem = L::kBytes;
-  const cudaError_t ce =
-      opt_in(flash_bwd_dq_kernel<D, SEG, F32, DROP>, smem, opted);
+  auto kernel = flash_bwd_dq_kernel<D, SEG, F32, DROP>;
+  if constexpr (BIAS != 0) kernel = flash_bwd_dq_bias_kernel<D, DROP, BIAS>;
+  const cudaError_t ce = opt_in(kernel, smem, opted);
   if (ce != cudaSuccess) return static_cast<int>(ce);
   const int grid = item_grid(b, h, sq, 1, L::kRows);
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  flash_bwd_dq_kernel<D, SEG, F32, DROP>
-      <<<grid, L::kThreads, smem, stream>>>(a);
+  kernel<<<grid, L::kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2447,6 +2690,45 @@ int dispatch(int head_dim, const void* q_seg, const void* kv_seg, int dropout,
   return static_cast<int>(e);
 }
 
+template <int N>
+using Mode = std::integral_constant<int, N>;
+
+// launch(Dim<head_dim>, Flag<dropout>, Mode<bias_mode>) for a biased
+// call: bias_mode 1 reads the bias, 2 also writes dbias (`most`: the
+// highest mode the kernel takes); segment ids, fp32 outputs, another
+// mode, or a bias the kernels cannot read by 8-byte pairs of keys (key
+// stride other than 1, an odd stride, a base off 8 bytes) are
+// cudaErrorInvalidValue, with nothing launched
+template <typename F>
+int dispatch_bias(int head_dim, const void* q_seg, const void* kv_seg,
+                  int dropout, int out_f32, int bias_mode, int most,
+                  const void* bias, const long long* st, F launch) {
+  if (q_seg != nullptr || kv_seg != nullptr || out_f32 || bias_mode < 1 ||
+      bias_mode > most || bias == nullptr || st == nullptr || st[3] != 1 ||
+      (st[0] | st[1] | st[2]) & 1 ||
+      reinterpret_cast<uintptr_t>(bias) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto by_mode = [&](auto d, auto drops) {
+    return bias_mode == 2 ? launch(d, drops, Mode<2>{})
+                          : launch(d, drops, Mode<1>{});
+  };
+  auto by_drop = [&](auto d) {
+    return dropout ? by_mode(d, Flag<true>{}) : by_mode(d, Flag<false>{});
+  };
+  if (head_dim == 64) return by_drop(Dim<64>{});
+  if (head_dim == 128) return by_drop(Dim<128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the C entries' bias arguments as one launch's Bias: the fp32 bias, its
+// (batch, head, query) strides in elements (0 on a broadcast dimension;
+// the key stride is 1, which dispatch_bias checks) and the dbias partial
+Bias make_bias(const void* bias, const long long* st, void* dbias) {
+  if (bias == nullptr || st == nullptr) return Bias{};
+  return Bias{static_cast<const float*>(bias), static_cast<float*>(dbias),
+              st[0], st[1], st[2]};
+}
+
 Seg make_seg(const void* q_seg, const void* kv_seg, long long q_seg_sb,
              long long kv_seg_sb) {
   return Seg{static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
@@ -2473,6 +2755,14 @@ Drop make_drop(float inv, int thresh, int seed, int q_off, int k_off) {
 // by `inv` (1 / (1 - rate)); the backward entries take the forward's.
 // q_seg (b, sq) and kv_seg (b, sk): int32 segment ids, contiguous along the
 // sequence, with batch strides q_seg_sb / kv_seg_sb; both null for none.
+// Bias (these four unpacked entries): `bias_mode` 0 launches the kernels
+// without one; 1 adds the fp32 `bias`, whose element (batch, head, query,
+// key) is at the strides `bias_st` (4 values in elements: 0 on a broadcast
+// dimension, the key stride 1, the others even; the base 8-byte aligned,
+// rows readable to an even number of keys), to the scaled scores; the
+// backward entries take 2 to also write dbias's fp32 partial into
+// `dbias` (see each entry).  A bias with segment ids or fp32 outputs is
+// cudaErrorInvalidValue.
 // Launches on `stream`; returns the CUDA error of the launch (0 = launched).
 extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
                                    const void* v, void* o, void* lse,
@@ -2482,10 +2772,21 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
                                    int seed, int q_off, int k_off,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
-                                   void* stream) {
+                                   const void* bias, const long long* bias_st,
+                                   int bias_mode, void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_mode != 0) {
+    const Bias bs = make_bias(bias, bias_st, nullptr);
+    return dispatch_bias(head_dim, q_seg, kv_seg, dropout, 0, bias_mode, 1,
+                         bias, bias_st, [&](auto d, auto drops, auto mode) {
+      return launch_fwd<decltype(d)::value, false, decltype(drops)::value,
+                        decltype(mode)::value>(q, k, v, o, lse, strides, b, h,
+                                               sq, sk, scale, causal, seg,
+                                               drop, s, bs);
+    });
+  }
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
     return launch_fwd<decltype(d)::value, decltype(has_seg)::value,
@@ -2499,7 +2800,8 @@ extern "C" int apex_flash_attn_fwd(int head_dim, const void* q, const void* k,
 // contiguous, dq_acc (b, h, sq, d) fp32 contiguous and ZEROED (dq is added
 // into it, scaled), dk and dv (b, h, sk, d) contiguous, bf16 (or fp32 when
 // `out_f32` is 1: the F32 instantiations), and `work`, one ZEROED int32
-// (the launch's work-item counter).
+// (the launch's work-item counter).  bias_mode 2: `dbias` is a ZEROED
+// (b * h, sq, sk) fp32 partial that gets each score's ds ("full" dbias).
 extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -2512,10 +2814,22 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
                                    int seed, int q_off, int k_off,
                                    const void* q_seg, const void* kv_seg,
                                    long long q_seg_sb, long long kv_seg_sb,
-                                   void* stream) {
+                                   const void* bias, const long long* bias_st,
+                                   int bias_mode, void* dbias, void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_mode != 0) {
+    const Bias bs = make_bias(bias, bias_st, dbias);
+    return dispatch_bias(head_dim, q_seg, kv_seg, dropout, out_f32,
+                         bias_mode, 2, bias, bias_st,
+                         [&](auto d, auto drops, auto mode) {
+      return launch_bwd<decltype(d)::value, false, true, false,
+                        decltype(drops)::value, decltype(mode)::value>(
+          q, k, v, dout, lse, delta, dq_acc, dk, dv, work, strides, b, h, sq,
+          sk, scale, causal, 1, seg, drop, s, bs);
+    });
+  }
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
     constexpr int D = decltype(d)::value;
@@ -2534,7 +2848,8 @@ extern "C" int apex_flash_attn_bwd(int head_dim, const void* q, const void* k,
 // The split backward's dq pass: the fused backward's arguments, with dq
 // (b, h, sq, d) contiguous, bf16 (fp32 with `out_f32`), written once (no
 // zeroing), in place of dq_acc, dk and dv, and `work`, one ZEROED int32
-// (the launch's work-item counter).
+// (the launch's work-item counter).  bias_mode 2: `dbias` is a ZEROED
+// (b * h, sq, sk) fp32 partial that gets each score's ds ("full" dbias).
 extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
                                       const void* k, const void* v,
                                       const void* dout, const void* lse,
@@ -2546,10 +2861,23 @@ extern "C" int apex_flash_attn_bwd_dq(int head_dim, const void* q,
                                       int seed, int q_off, int k_off,
                                       const void* q_seg, const void* kv_seg,
                                       long long q_seg_sb, long long kv_seg_sb,
-                                      void* stream) {
+                                      const void* bias,
+                                      const long long* bias_st, int bias_mode,
+                                      void* dbias, void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_mode != 0) {
+    const Bias bs = make_bias(bias, bias_st, dbias);
+    return dispatch_bias(head_dim, q_seg, kv_seg, dropout, out_f32,
+                         bias_mode, 2, bias, bias_st,
+                         [&](auto d, auto drops, auto mode) {
+      return launch_bwd_dq<decltype(d)::value, false, false,
+                           decltype(drops)::value, decltype(mode)::value>(
+          q, k, v, dout, lse, delta, dq, work, strides, b, h, sq, sk, scale,
+          causal, seg, drop, s, bs);
+    });
+  }
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
     constexpr int D = decltype(d)::value;
@@ -2575,7 +2903,9 @@ extern "C" int apex_flash_attn_bwd_dq_smem(int head_dim, int seg) {
 }
 
 // The split backward's dk/dv pass: the fused backward's arguments without
-// dq_acc (dk and dv fp32 with `out_f32`).
+// dq_acc (dk and dv fp32 with `out_f32`).  bias_mode 2: `dbias` is a
+// (b * h, sk) fp32 partial that gets each key's ds summed over the queries
+// ("sk" dbias; every key written).
 extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const void* lse,
@@ -2588,10 +2918,24 @@ extern "C" int apex_flash_attn_bwd_dkv(int head_dim, const void* q,
                                        int thresh, int seed, int q_off,
                                        int k_off, const void* q_seg,
                                        const void* kv_seg, long long q_seg_sb,
-                                       long long kv_seg_sb, void* stream) {
+                                       long long kv_seg_sb, const void* bias,
+                                       const long long* bias_st,
+                                       int bias_mode, void* dbias,
+                                       void* stream) {
   const Seg seg = make_seg(q_seg, kv_seg, q_seg_sb, kv_seg_sb);
   const Drop drop = make_drop(inv, thresh, seed, q_off, k_off);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias_mode != 0) {
+    const Bias bs = make_bias(bias, bias_st, dbias);
+    return dispatch_bias(head_dim, q_seg, kv_seg, dropout, out_f32,
+                         bias_mode, 2, bias, bias_st,
+                         [&](auto d, auto drops, auto mode) {
+      return launch_bwd<decltype(d)::value, false, false, false,
+                        decltype(drops)::value, decltype(mode)::value>(
+          q, k, v, dout, lse, delta, nullptr, dk, dv, work, strides, b, h,
+          sq, sk, scale, causal, 1, seg, drop, s, bs);
+    });
+  }
   return dispatch(head_dim, q_seg, kv_seg, dropout,
                   [&](auto d, auto has_seg, auto drops) {
     constexpr int D = decltype(d)::value;

@@ -59,10 +59,21 @@ launchers' `out_dtype`, the F32 kernel instantiations; the fused
 kernel's dq is its fp32 scratch, uncast), so that the ring's partials
 add up in fp32 and are rounded once.
 
-On CUDA the kernels take the surface the training steps use: causal or
-not, segment ids or not (BERT's padding mask), dropout or not, bf16,
-head_dim 64 or 128, no bias.  A bias raises NotImplementedError on CUDA;
-on the CPU the plain version serves all of it.
+On CUDA the kernels take causal or not, segment ids or not (BERT's
+padding mask), dropout or not, bf16, head_dim 64 or 128, and an additive
+bias (the unpacked kernels, without segment ids): `_bias_kind` sorts it
+as the JAX package does.  A "full" (.., sq, sk) or key-compact "sk"
+(.., 1, sk) bias goes to the BIAS instantiations in fp32 with stride 0 on
+its broadcast dimensions, never expanded; a query-compact (.., *, 1)
+bias is a per-query constant that softmax cancels, so the kernels run
+without it and its gradient is zero.  With `bias_grad` the backward
+writes dbias: "full" from the fused kernel or the dq pass as a (b, h, sq,
+sk) fp32 partial, "sk" from the dk/dv pass as a (b, h, sk) one, which
+forces the split route (`backward_route`); each is summed over the bias's
+broadcast dimensions (`_reduce_db`).  On CUDA a bias with segment ids,
+with an explicit heads_per_step > 1, or through the chunk entry points
+raises NotImplementedError (ROADMAP Queue 2 item 38); on the CPU the
+plain version serves all of it.
 """
 
 from __future__ import annotations
@@ -95,18 +106,20 @@ _FUSED_BWD_CAP_PACKED = 512 * 1024
 _REFERENCE_ROWS = 1024
 
 
-def backward_route(sk: int, head_dim: int, heads_per_step: int = 1) -> str:
+def backward_route(sk: int, head_dim: int, heads_per_step: int = 1,
+                   dbias_sk: bool = False) -> str:
     """The backward `_FlashFn` runs for sk keys of `head_dim` with
     `heads_per_step` heads packed: "packed" while hp > 1, sk * head_dim
     <= `_FUSED_BWD_CAP` and hp * sk * head_dim <= `_FUSED_BWD_CAP_PACKED`;
-    else "fused" while sk * head_dim <= `_FUSED_BWD_CAP`; else "split" —
-    the JAX package's `_bwd_impl` rule (:947-979) for the surface CUDA
-    takes (no bias, so no dbias unpacks or splits it)."""
+    else "fused" while sk * head_dim <= `_FUSED_BWD_CAP` and no "sk"
+    dbias is wanted (`dbias_sk`: its q-sum is the dk/dv pass's); else
+    "split" — the JAX package's `_bwd_impl` rule (:938-979).  A dbias
+    runs unpacked (`_resolve_heads_per_step`)."""
     fits = sk * head_dim <= _FUSED_BWD_CAP
     if (heads_per_step > 1 and fits
             and heads_per_step * sk * head_dim <= _FUSED_BWD_CAP_PACKED):
         return "packed"
-    return "fused" if fits else "split"
+    return "fused" if fits and not dbias_sk else "split"
 
 
 # ----------------------------- kernel-shape knobs -----------------------------
@@ -315,13 +328,47 @@ def _drop_mask(dropout_rate, seed, b, h, r0, r1, nk, device):
                               q_off + r0, k_off, device=device)
 
 
+def _bias_kind(bias, sk):
+    """The JAX package's `_bias_kind` (:98-113): "none" for no bias and
+    for a query-compact (.., *, 1) one (softmax cancels a per-query
+    constant, so the kernels skip it and its gradient is zero), "sk" for
+    a key-compact (.., 1, sk) one, else "full" (.., sq, sk)."""
+    if bias is None or bias.shape[3] == 1:
+        return "none"
+    if bias.shape[2] == 1 and bias.shape[3] == sk:
+        return "sk"
+    return "full"
+
+
+def _bias_rows(bias, r0, r1):
+    """The bias of query rows [r0, r1) in fp32 (a broadcast query
+    dimension stays 1), or None, also for a query-compact bias, which the
+    kernels skip (its lse is the unbiased one, as the JAX package's)."""
+    if bias is None or bias.shape[3] == 1:
+        return None
+    return (bias if bias.shape[2] == 1 else bias[:, :, r0:r1]).float()
+
+
+def _reduce_db(db, bias_shape):
+    """(b, h, ...) per-head dbias partials summed over the bias's
+    broadcast batch and head dimensions (the JAX package's `_reduce_db`,
+    :929-936)."""
+    if bias_shape[0] == 1:
+        db = db.sum(dim=0, keepdim=True)
+    if bias_shape[1] == 1:
+        db = db.sum(dim=1, keepdim=True)
+    return db
+
+
 def flash_fwd_reference(q, k, v, scale, causal, q_seg=None, kv_seg=None,
-                        dropout_rate=0.0, seed=(0, 0, 0)):
+                        dropout_rate=0.0, seed=(0, 0, 0), bias=None):
     """Plain version of the forward kernels, on any device: (o in q's
     dtype, lse (b, h, sq) fp32), `_REFERENCE_ROWS` query rows at a time.
-    Scores in fp32 with masked ones at -1e30 (`attention_reference`'s
-    masks), p = softmax, and with `dropout_rate` the kernels' dropout:
-    p·v takes where(keep, p, 0) · 1/(1 - rate), keep =
+    Scores in fp32, `bias` (b|1, h|1, sq|1, sk; a query-compact one is
+    skipped, as the kernels skip it) added, masked ones at
+    -1e30 (`attention_reference`'s masks, after the bias as `_mask_bias`
+    orders them), p = softmax, and with `dropout_rate` the kernels'
+    dropout: p·v takes where(keep, p, 0) · 1/(1 - rate), keep =
     `dropout_keep_dense` under `seed` = (seed, q_off, k_off), while the
     lse stays the undropped softmax's.  Differentiable (autograd)."""
     b, h, sq, _ = q.shape
@@ -333,6 +380,9 @@ def flash_fwd_reference(q, k, v, scale, causal, q_seg=None, kv_seg=None,
         r1 = min(sq, r0 + _REFERENCE_ROWS)
         s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
                          k.float()) * scale
+        br = _bias_rows(bias, r0, r1)
+        if br is not None:
+            s = s + br
         keep = torch.ones((r1 - r0, sk), dtype=torch.bool, device=dev)
         if q_seg is not None:
             keep = keep & (q_seg[:, None, r0:r1, None]
@@ -352,7 +402,8 @@ def flash_fwd_reference(q, k, v, scale, causal, q_seg=None, kv_seg=None,
 
 
 def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
-                      kv_seg, all_keys, dropout_rate=0.0, seed=(0, 0, 0)):
+                      kv_seg, all_keys, dropout_rate=0.0, seed=(0, 0, 0),
+                      bias=None):
     """The backward's score blocks, `_REFERENCE_ROWS` query rows at a
     time: (r0, r1, nk, p, ds) in fp32 over keys [0, nk).  p = exp(scale
     q kᵀ − lse) where a key is visible, and where it is masked 1/sk for a
@@ -362,7 +413,8 @@ def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
     `seed`, as `flash_fwd_reference` applies it) dp is masked and scaled
     before ds, and the p returned (dv's) is the dropped, scaled one.
     Causal without `all_keys` stops at the block's last row (every p and
-    ds past it is 0; not so for a dead row's p)."""
+    ds past it is 0; not so for a dead row's p).  `bias` is added to the
+    scaled scores, as the forward added it."""
     b, h, sq = q.shape[:3]
     sk = k.shape[2]
     dev = q.device
@@ -372,6 +424,9 @@ def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
         nk = min(sk, r1) if causal and not all_keys else sk
         s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r1].float(),
                          k[:, :, :nk].float()) * scale
+        br = _bias_rows(bias, r0, r1)
+        if br is not None:
+            s = s + br[..., :nk]
         keep = torch.ones((r1 - r0, nk), dtype=torch.bool, device=dev)
         if causal:
             keep = (torch.arange(r0, r1, device=dev)[:, None]
@@ -397,47 +452,62 @@ def _split_bwd_blocks(q, k, v, do, lse, delta, scale, causal, q_seg,
 
 def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal,
                            q_seg=None, kv_seg=None, dropout_rate=0.0,
-                           seed=(0, 0, 0), out_dtype=None):
+                           seed=(0, 0, 0), out_dtype=None, bias=None,
+                           want_dbias=False):
     """Plain version of the backward's dq (the split route's dq pass,
     `_bwd_dq_kernel`, and the fused kernels' dq), on any device: dq =
     scale ds k from the forward's fp32 `lse` and `delta = sum(do * o,
     -1)` in fp32, ds rounded to the inputs' dtype before its product as
-    the kernels round it; `dropout_rate` and `seed` (seed, q_off, k_off)
-    as the forward had them.  Returns dq in q's dtype, or `out_dtype`
-    (fp32: the F32 kernels' output, the same sums unrounded)."""
+    the kernels round it; `dropout_rate`, `seed` (seed, q_off, k_off) and
+    `bias` as the forward had them.  Returns dq in q's dtype, or
+    `out_dtype` (fp32: the F32 kernels' output, the same sums unrounded);
+    with `want_dbias`, (dq, the "full" dbias partial: ds itself, (b, h,
+    sq, sk) fp32, unrounded)."""
     out_dtype = out_dtype or q.dtype
     dq = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    b, h, sq = q.shape[:3]
+    db = (torch.zeros((b, h, sq, k.shape[2]), dtype=torch.float32,
+                      device=q.device) if want_dbias else None)
     for r0, r1, nk, _, ds in _split_bwd_blocks(
             q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg, False,
-            dropout_rate, seed):
+            dropout_rate, seed, bias):
         dq[:, :, r0:r1] = (scale * torch.einsum(
             "bhqk,bhkd->bhqd", ds.to(q.dtype).float(),
             k[:, :, :nk].float())).to(out_dtype)
-    return dq
+        if db is not None:
+            db[:, :, r0:r1, :nk] = ds
+    return dq if db is None else (dq, db)
 
 
 def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, causal,
                             q_seg=None, kv_seg=None, dropout_rate=0.0,
-                            seed=(0, 0, 0), out_dtype=None):
+                            seed=(0, 0, 0), out_dtype=None, bias=None,
+                            want_dbias=False):
     """Plain version of the backward's dk and dv (the split route's dk/dv
     pass, `_bwd_dkv_kernel`, and the fused kernels' dk, dv), on any
     device: dv = pᵀ do (p dropped and scaled with dropout) and dk = scale
     dsᵀ q, summed over the query blocks in fp32, p and ds rounded to the
-    inputs' dtype before their products; `dropout_rate` and `seed` as
-    the forward had them.  Returns (dk, dv) in k's and v's dtypes, or
-    both in `out_dtype`."""
+    inputs' dtype before their products; `dropout_rate`, `seed` and
+    `bias` as the forward had them.  Returns (dk, dv) in k's and v's
+    dtypes, or both in `out_dtype`; with `want_dbias`, (dk, dv, the "sk"
+    dbias partial: ds summed over the queries, (b, h, sk) fp32)."""
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    db = (torch.zeros(k.shape[:3], dtype=torch.float32, device=k.device)
+          if want_dbias else None)
     for r0, r1, nk, p, ds in _split_bwd_blocks(
             q, k, v, do, lse, delta, scale, causal, q_seg, kv_seg,
-            q_seg is not None, dropout_rate, seed):
+            q_seg is not None, dropout_rate, seed, bias):
         dv[:, :, :nk] += torch.einsum("bhqk,bhqd->bhkd",
                                       p.to(q.dtype).float(),
                                       do[:, :, r0:r1].float())
         dk[:, :, :nk] += scale * torch.einsum(
             "bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
             q[:, :, r0:r1].float())
-    return dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
+        if db is not None:
+            db[:, :, :nk] += ds.sum(dim=2)
+    out = dk.to(out_dtype or k.dtype), dv.to(out_dtype or v.dtype)
+    return out if db is None else (*out, db)
 
 
 # ------------------------------- CUDA kernels -------------------------------
@@ -453,26 +523,29 @@ def _bind(lib):
     # dropout (a flag; 1/(1 - rate); the hash's threshold; seed, q_off,
     # k_off) before the segment ids (`_drop_args`)
     seg = [i32, f32, i32, i32, i32, i32] + seg
+    # the unpacked entries' bias (`_bias_args`: the fp32 bias, its four
+    # strides, the mode) after the segment ids; the backward's dbias after
+    bias = [vp, i64p, i32]
     lib.apex_flash_attn_fwd.restype = i32
     lib.apex_flash_attn_fwd.argtypes = [
         i32, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32, i32,
-        *seg, vp]
+        *seg, *bias, vp]
     # the backward kernels take a zeroed int32 work-item counter after dv,
     # and after `causal` a flag for fp32 gradients (the F32
     # instantiations)
     lib.apex_flash_attn_bwd.restype = i32
     lib.apex_flash_attn_bwd.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32,
-        i32, f32, i32, i32, *seg, vp]
+        i32, f32, i32, i32, *seg, *bias, vp, vp]
     # the dq pass: dq, then its zeroed int32 work-item counter
     lib.apex_flash_attn_bwd_dq.restype = i32
     lib.apex_flash_attn_bwd_dq.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32, f32,
-        i32, i32, *seg, vp]
+        i32, i32, *seg, *bias, vp, vp]
     lib.apex_flash_attn_bwd_dkv.restype = i32
     lib.apex_flash_attn_bwd_dkv.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, i64p, i32, i32, i32, i32,
-        f32, i32, i32, *seg, vp]
+        f32, i32, i32, *seg, *bias, vp, vp]
     # the packed pair: the unpacked arguments with hp after `causal`
     lib.apex_flash_attn_fwd_packed.restype = i32
     lib.apex_flash_attn_fwd_packed.argtypes = [
@@ -599,38 +672,98 @@ def _drop_args(dropout_rate, seed):
             *_seed3(*seed)]
 
 
+def _bias_args(bias, b, h, sq, sk, has_seg):
+    """The C interface's [bias, bias_st, bias_mode] and the fp32 tensor
+    they point into: a "full" (b|1, h|1, sq, sk) or "sk" (b|1, h|1, 1,
+    sk) bias as fp32, its strides in elements with 0 on every broadcast
+    dimension (never expanded), mode 1 (the backward launchers make it 2
+    with dbias); [None, None, 0] and None without one.  The kernels read
+    a pair of keys as one 8-byte load, so a bias whose key stride is not
+    1, whose other strides are odd, whose base is off 8 bytes or whose sk
+    is odd goes as a copy with its rows padded to an even length (the
+    pad is never a key).  A bias with segment ids raises: no kernel takes
+    both."""
+    if bias is None:
+        return [None, None, 0], None
+    if (bias.ndim != 4 or bias.shape[0] not in (1, b)
+            or bias.shape[1] not in (1, h) or bias.shape[2] not in (1, sq)
+            or bias.shape[3] != sk):
+        raise ValueError(f"the flash kernels take a bias of shape "
+                         f"({b}|1, {h}|1, {sq}|1, {sk}), got "
+                         f"{tuple(bias.shape)}")
+    if has_seg:
+        raise NotImplementedError(
+            "the flash kernels take a bias or segment ids, not both "
+            "(ROADMAP Queue 2 item 38)")
+    bf = bias.float()
+    st = [0 if n == 1 else s_ for n, s_ in zip(bf.shape, bf.stride())]
+    if st[3] != 1 or sk % 2 or any(x % 2 for x in st[:3]) \
+            or bf.data_ptr() % 8:
+        pad = bf.new_zeros(tuple(bf.shape[:3]) + (sk + sk % 2,))
+        pad[..., :sk] = bf
+        bf = pad
+        st = [0 if n == 1 else s_ for n, s_ in zip(bf.shape, bf.stride())]
+    return [bf.data_ptr(), (ctypes.c_longlong * 4)(*st), 1], bf
+
+
+def _bwd_bias_args(bias, want_dbias, kind, q, sk, has_seg):
+    """The backward launchers' [bias, bias_st, bias_mode, dbias], the fp32
+    bias they point into and the zeroed fp32 dbias partial (None without
+    dbias): `_bias_args`, and mode 2 where `want_dbias`, which takes a
+    bias of `kind`: "full" for the fused kernel and the dq pass (a (b, h,
+    sq, sk) partial), "sk" for the dk/dv pass ((b, h, sk))."""
+    b, h, sq = q.shape[:3]
+    bias_c, bf = _bias_args(bias, b, h, sq, sk, has_seg)
+    if bf is not None:
+        _require_cuda(bf)
+    if not want_dbias:
+        return bias_c + [None], bf, None
+    if bf is None or _bias_kind(bias, sk) != kind:
+        raise ValueError(f"this launcher writes a {kind!r} dbias; got a "
+                         f"bias of shape "
+                         f"{None if bias is None else tuple(bias.shape)}")
+    db = torch.zeros((b, h, sq, sk) if kind == "full" else (b, h, sk),
+                     dtype=torch.float32, device=q.device)
+    return bias_c[:2] + [2, db.data_ptr()], bf, db
+
+
 def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None,
-                   dropout_rate=0.0, seed=(0, 0, 0)):
+                   dropout_rate=0.0, seed=(0, 0, 0), bias=None):
     """Launch the forward kernel on the current stream; `q_seg` (b, sq)
     and `kv_seg` (b, sk) are optional integer segment ids (both or
     neither); `dropout_rate` > 0 drops p·v's weights by the in-kernel
-    hash under `seed` = (seed, q_off, k_off) (`dropout_keep_dense`).
-    Returns (o (b, h, sq, d) bf16, lse (b, h, sq) fp32).
-    `flash_fwd_cuda.launches` counts launches, and `.dropout_launches`
-    those with dropout (each launcher of this module has both)."""
+    hash under `seed` = (seed, q_off, k_off) (`dropout_keep_dense`);
+    `bias`, a "full" or "sk" additive bias (`_bias_args`), launches the
+    BIAS instantiation.  Returns (o (b, h, sq, d) bf16, lse (b, h, sq)
+    fp32).  `flash_fwd_cuda.launches` counts launches, `.dropout_launches`
+    those with dropout (each launcher of this module has both), and
+    `.bias_launches` those with a bias (each unpacked launcher)."""
     _check_kernel_inputs(q, k, v)
     q, k, v = (_kernel_operand(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     seg, keep = _seg_args(q_seg, kv_seg, b, sq, sk)
     drop = _drop_args(dropout_rate, seed)
-    _require_cuda(q, k, v, *keep)
+    bias_c, bf = _bias_args(bias, b, h, sq, sk, q_seg is not None)
+    _require_cuda(q, k, v, *keep, *([bf] if bf is not None else []))
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib().apex_flash_attn_fwd(
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), _strides(q, k, v), b, h, sq, sk, float(scale),
-        int(bool(causal)), *drop, *seg, stream)
+        int(bool(causal)), *drop, *seg, *bias_c, stream)
     _raise_launch_error(err, "forward")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_fwd_cuda.launches += 1
     flash_fwd_cuda.dropout_launches += int(dropout_rate > 0.0)
+    flash_fwd_cuda.bias_launches += int(bias is not None)
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.dropout_launches = 0
+flash_fwd_cuda.bias_launches = 0
 
 
 def _check_heads_per_step(hp, h):
@@ -727,7 +860,7 @@ def _grad_dtype(out_dtype, q):
 
 def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                    kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
-                   out_dtype=None):
+                   out_dtype=None, bias=None, want_dbias=False):
     """Launch the fused backward kernel on the current stream: dq, dk, dv
     from q, k, v, the output gradient `do`, the forward's fp32 `lse` and
     `delta = sum(do * o, -1)` in fp32, with the forward's segment ids and
@@ -735,14 +868,19 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
     across key tiles in an fp32 scratch buffer by bulk reduce-adds and
     cast once.  `out_dtype=torch.float32` returns that fp32 dq uncast and
     launches the F32 instantiation, which writes dk and dv in fp32 (their
-    bf16 launch's values before the rounding).  `flash_bwd_cuda.launches`
-    counts launches, `.f32_launches` those with fp32 outputs (each
-    backward launcher has both)."""
+    bf16 launch's values before the rounding).  `bias` (bf16 outputs):
+    the forward's "full" or "sk" bias; with `want_dbias` ("full" only)
+    the kernel also writes each score's ds into a zeroed (b, h, sq, sk)
+    fp32 partial, returned fourth.  `flash_bwd_cuda.launches` counts
+    launches, `.f32_launches` those with fp32 outputs (each backward
+    launcher has both)."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     gdt, f32 = _grad_dtype(out_dtype, q)
+    bias_c, _bf, db = _bwd_bias_args(bias, want_dbias, "full", q, sk,
+                                     q_seg is not None)
     dq_acc, work = _dq_scratch(b, h, sq, d, q.device)
     dk = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
@@ -751,18 +889,21 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), work, _strides(q, k, v, do), b, h, sq, sk,
-        float(scale), int(bool(causal)), f32, *seg, stream)
+        float(scale), int(bool(causal)), f32, *seg, *bias_c, stream)
     _raise_launch_error(err, "backward")
     add_kernel_flops(2 * _fwd_flops(b, h, sq, sk, d))
     flash_bwd_cuda.launches += 1
     flash_bwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_cuda.f32_launches += f32
-    return (dq_acc if f32 else dq_acc.to(q.dtype)), dk, dv
+    flash_bwd_cuda.bias_launches += int(bias is not None)
+    out = (dq_acc if f32 else dq_acc.to(q.dtype)), dk, dv
+    return out if db is None else (*out, db)
 
 
 flash_bwd_cuda.launches = 0
 flash_bwd_cuda.dropout_launches = 0
 flash_bwd_cuda.f32_launches = 0
+flash_bwd_cuda.bias_launches = 0
 
 
 def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
@@ -800,19 +941,23 @@ flash_bwd_packed_cuda.dropout_launches = 0
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                       kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
-                      out_dtype=None):
+                      out_dtype=None, bias=None, want_dbias=False):
     """Launch the split backward's dq pass on the current stream (the
     arguments of `flash_bwd_cuda`).  Each dq row is summed over its key
     tiles in registers and written once, in bf16 (fp32 with
     `out_dtype=torch.float32`: the F32 instantiation): no atomics, the
     same bits on every run.  The kernel takes its work items from a
-    zeroed int32 counter.  `flash_bwd_dq_cuda.launches` counts
-    launches."""
+    zeroed int32 counter.  `bias` (bf16 dq): the forward's; with
+    `want_dbias` ("full" only) the kernel also writes each score's ds
+    into a zeroed (b, h, sq, sk) fp32 partial: returns (dq, that).
+    `flash_bwd_dq_cuda.launches` counts launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     gdt, f32 = _grad_dtype(out_dtype, q)
+    bias_c, _bf, db = _bwd_bias_args(bias, want_dbias, "full", q, sk,
+                                     q_seg is not None)
     dq = torch.empty((b, h, sq, d), dtype=gdt, device=q.device)
     work = torch.zeros(1, dtype=torch.int32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -820,33 +965,40 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), work.data_ptr(),
         _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), f32, *seg, stream)
+        int(bool(causal)), f32, *seg, *bias_c, stream)
     _raise_launch_error(err, "dq pass")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dq_cuda.launches += 1
     flash_bwd_dq_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dq_cuda.f32_launches += f32
-    return dq
+    flash_bwd_dq_cuda.bias_launches += int(bias is not None)
+    return dq if db is None else (dq, db)
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.dropout_launches = 0
 flash_bwd_dq_cuda.f32_launches = 0
+flash_bwd_dq_cuda.bias_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
                        kv_seg=None, dropout_rate=0.0, seed=(0, 0, 0),
-                       out_dtype=None):
+                       out_dtype=None, bias=None, want_dbias=False):
     """Launch the split backward's dk/dv pass on the current stream (the
     arguments of `flash_bwd_cuda`): the fused kernel without its dq
     part, so dk and dv are the fused kernel's bit for bit.  Returns (dk,
-    dv) in bf16, or fp32 with `out_dtype=torch.float32`.
-    `flash_bwd_dkv_cuda.launches` counts launches."""
+    dv) in bf16, or fp32 with `out_dtype=torch.float32`.  `bias` (bf16
+    outputs): the forward's; with `want_dbias` ("sk" only) the kernel also
+    writes each key's ds summed over the queries into a (b, h, sk) fp32
+    partial, returned third.  `flash_bwd_dkv_cuda.launches` counts
+    launches."""
     q, k, v, do, seg, _keep = _bwd_operands(q, k, v, do, lse, delta, q_seg,
                                             kv_seg, dropout_rate, seed)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     gdt, f32 = _grad_dtype(out_dtype, q)
+    bias_c, _bf, db = _bwd_bias_args(bias, want_dbias, "sk", q, sk,
+                                     q_seg is not None)
     dk = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
     dv = torch.empty((b, h, sk, d), dtype=gdt, device=q.device)
     work = torch.zeros(4, dtype=torch.int32, device=q.device)
@@ -855,18 +1007,20 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
         d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         work.data_ptr(), _strides(q, k, v, do), b, h, sq, sk, float(scale),
-        int(bool(causal)), f32, *seg, stream)
+        int(bool(causal)), f32, *seg, *bias_c, stream)
     _raise_launch_error(err, "dk/dv pass")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dkv_cuda.launches += 1
     flash_bwd_dkv_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dkv_cuda.f32_launches += f32
-    return dk, dv
+    flash_bwd_dkv_cuda.bias_launches += int(bias is not None)
+    return (dk, dv) if db is None else (dk, dv, db)
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.dropout_launches = 0
 flash_bwd_dkv_cuda.f32_launches = 0
+flash_bwd_dkv_cuda.bias_launches = 0
 
 
 # ----------------------- the chunk entry points (ring) -----------------------
@@ -965,38 +1119,84 @@ class _FlashFn(torch.autograd.Function):
     `dropout_rate` > 0 every launch, forward and backward, gets the rate
     and `seed` = (seed, q_off, k_off), so the backward regenerates the
     forward's mask; at rate 0 the launchers are called as they were
-    before dropout existed."""
+    before dropout existed.
+
+    `bias` (hp = 1): a "full" or "sk" bias goes to every launch; a
+    query-compact one to none (softmax cancels it).  dbias is wanted
+    where `bias_grad` and the bias needs a gradient and is not
+    query-compact (the JAX package's `_flash_bwd`): "full" from the fused
+    kernel or the dq pass, "sk" from the dk/dv pass (the split route),
+    summed over the bias's broadcast dimensions and cast to its dtype; a
+    query-compact bias's gradient is zero; with `bias_grad` False, or a
+    bias that needs none, the gradient is None.  Without a bias the
+    launchers are called as they were before it existed."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, q_seg, kv_seg, hp,
-                dropout_rate=0.0, seed=(0, 0, 0)):
+                dropout_rate=0.0, seed=(0, 0, 0), bias=None,
+                bias_grad=False):
         drop = ({} if not dropout_rate
                 else {"dropout_rate": dropout_rate, "seed": seed})
+        kind = _bias_kind(bias, k.shape[2])
+        kb = {} if kind == "none" else {"bias": bias}
         if hp > 1:
+            if kb:
+                raise NotImplementedError(
+                    "the packed flash kernels take no bias (ROADMAP Queue "
+                    "2 item 38)")
             o, lse = flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg,
                                            kv_seg, **drop)
         else:
             o, lse = flash_fwd_cuda(q, k, v, scale, causal, q_seg, kv_seg,
-                                    **drop)
-        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
+                                    **drop, **kb)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg, bias)
         ctx.scale, ctx.causal, ctx.hp, ctx.drop = scale, causal, hp, drop
+        ctx.kind, ctx.bias_grad = kind, bool(bias_grad)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+        q, k, v, o, lse, q_seg, kv_seg, bias = ctx.saved_tensors
         delta = torch.sum(do.float() * o.float(), dim=-1)
         args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal)
-        route = backward_route(k.shape[2], q.shape[3], ctx.hp)
+        grad_bias = (bias is not None and ctx.bias_grad
+                     and ctx.needs_input_grad[10])
+        want = grad_bias and ctx.kind != "none"
+        kb = {} if ctx.kind == "none" else {"bias": bias}
+        if want:
+            kb["want_dbias"] = True
+        route = backward_route(k.shape[2], q.shape[3], ctx.hp,
+                               dbias_sk=want and ctx.kind == "sk")
+        db = None
         if route == "packed":
             dq, dk, dv = flash_bwd_packed_cuda(*args, ctx.hp, q_seg, kv_seg,
                                                **ctx.drop)
         elif route == "fused":
-            dq, dk, dv = flash_bwd_cuda(*args, q_seg, kv_seg, **ctx.drop)
+            dq, dk, dv, *db = flash_bwd_cuda(*args, q_seg, kv_seg, **ctx.drop,
+                                             **kb)
         else:
-            dq = flash_bwd_dq_cuda(*args, q_seg, kv_seg, **ctx.drop)
-            dk, dv = flash_bwd_dkv_cuda(*args, q_seg, kv_seg, **ctx.drop)
-        return (dq, dk, dv) + (None,) * (len(ctx.needs_input_grad) - 3)
+            dkb = dict(kb, want_dbias=want and ctx.kind == "sk") if kb else {}
+            dqb = dict(kb, want_dbias=want and ctx.kind == "full") if kb \
+                else {}
+            dq, *db_q = _as_tuple(flash_bwd_dq_cuda(*args, q_seg, kv_seg,
+                                                    **ctx.drop, **dqb))
+            dk, dv, *db_k = flash_bwd_dkv_cuda(*args, q_seg, kv_seg,
+                                               **ctx.drop, **dkb)
+            db = db_q + db_k
+        dbias = None
+        if want:
+            dbias = _reduce_db(db[0], bias.shape)
+            if ctx.kind == "sk":
+                dbias = dbias[:, :, None, :]
+            dbias = dbias.to(bias.dtype)
+        elif grad_bias:
+            dbias = torch.zeros_like(bias)
+        return (dq, dk, dv, None, None, None, None, None, None, None, dbias,
+                None)[:len(ctx.needs_input_grad)]
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 # --------------------------------- public API -------------------------------
@@ -1018,7 +1218,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
     run the plain version (`attention_reference`, which takes every
     argument; dropout there is `_common.dropout`'s bernoulli draw from
     `dropout_key`, as the JAX package's reference draws it); CUDA tensors
-    run the kernels or raise: a bias raises NotImplementedError on CUDA.
+    run the kernels or raise.  `bias` (b|1, h|1, sq|1, sk|1) runs the
+    BIAS kernels (module docstring) with its gradient where `bias_grad`;
+    on CUDA a bias the kernels take ("full" or "sk") with segment ids or
+    with an explicit heads_per_step > 1 raises NotImplementedError
+    (ROADMAP Queue 2 item 38), and a tuned hp > 1 runs unpacked.
     With `dropout_rate` > 0 the kernels drop in-kernel by the coordinate
     hash (`dropout_keep_dense`) under one int32 seed drawn on the host
     from `dropout_key`, a CPU `torch.Generator` (no device sync), as the
@@ -1078,23 +1282,37 @@ def flash_attention(q, k, v, *, causal: bool = False,
             q, k, v, causal=causal, softmax_scale=scale, bias=bias,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
             dropout_rate=dropout_rate, dropout_key=dropout_key)
-    if bias is not None:
-        raise NotImplementedError(
-            "flash attention on CUDA does not take bias yet (the training "
-            "steps' surface is causal or not, segment ids or not, dropout "
-            "or not, no bias)")
+    kind = _bias_kind(bias, sk)
+    if kind != "none":
+        if q_segment_ids is not None:
+            raise NotImplementedError(
+                "flash attention on CUDA takes a bias or segment ids, not "
+                "both (ROADMAP Queue 2 item 38)")
+        if heads_per_step is not None and int(heads_per_step) > 1:
+            raise NotImplementedError(
+                "flash attention on CUDA takes no bias with heads packed "
+                "(heads_per_step > 1): the packed kernels' bias is ROADMAP "
+                "Queue 2 item 38's packed part")
     if _pick_block(sq) and _pick_block(sk):    # where JAX runs its kernels
         if block_q is None and block_k is None and heads_per_step is None:
-            # the key's bias kind is "none": CUDA takes no bias
             cfg = _tuned_flash_config(b, h, sq, sk, d, q.dtype, causal,
-                                      "none", q_segment_ids is not None)
+                                      kind, q_segment_ids is not None)
             if cfg:
                 block_q = cfg.get("block_q")
                 block_k = cfg.get("block_k")
                 heads_per_step = cfg.get("heads_per_step")
         _fit_block(block_q, sq, "block_q")
         _fit_block(block_k, sk, "block_k")
-    hp = _resolve_heads_per_step(heads_per_step, h)
+    # a bias the kernels take runs unpacked (the JAX package packs it;
+    # the port's packed kernels take none yet)
+    hp = 1 if kind != "none" else _resolve_heads_per_step(heads_per_step, h)
+    if bias is not None:
+        seed = (_seed3(_common.host_seed(dropout_key)) if dropout_rate > 0.0
+                else (0, 0, 0))
+        return _FlashFn.apply(q, k, v, float(scale), bool(causal),
+                              q_segment_ids, kv_segment_ids, hp,
+                              float(dropout_rate), seed, bias,
+                              bool(bias_grad))
     if dropout_rate > 0.0:
         seed = _seed3(_common.host_seed(dropout_key))
         return _FlashFn.apply(q, k, v, float(scale), bool(causal),

@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  its summary line, by kernel family), nor any kernel of
                  the LayerNorm forward and backward, flash-decode or
                  the channel sums (a summary line each: registers by
-                 kernel, spills).
+                 kernel, spills); the 28 bias instantiations of the
+                 flash kernels' registers and spills are logged.
   2. kernels     each hand-written kernel against its plain PyTorch
                  version on the card, at the shapes the serving and
                  training paths give it, plus ragged cases: flash-decode
@@ -86,7 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  1024 x 512 x 256 with K split in one wave of clusters,
                  4-byte loads where K or N is not a multiple of 4), the
                  fp32 and GEMV kernels twice with the same bits; the
-                 head-packed flash pair at heads_per_step 2 and
+                 four unpacked flash kernels with an additive bias
+                 (`check_flash_bias`: full and key-compact, broadcast
+                 over batch or heads, ragged, d 64 and 128, causal or
+                 not, dropout 0.1) and the dbias each writes, against
+                 their plain versions; the head-packed flash pair at heads_per_step 2 and
                  4 (GPT's causal step shape on its views, BERT's with
                  ragged padding and with q/kv ids that mask whole rows,
                  head_dim 128, and padding at 8256 keys, past the
@@ -521,7 +526,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  entry priced 0, each named by a range in a captured
                  trace of the step, `crosscheck_comms` with no row.  (d)
                  the captured steps' wall ms beside the timed steps'.
- 22. table       the kernels' times on the card (CUDA events) beside
+ 22. slice 25    contrib and the additive flash bias: (a) the
+                 multihead-attention example's module at full width,
+                 `SelfMultiheadAttn(1024, 16, bias=True)` bf16 at seq
+                 1024 x batch 8, include_norm_add off and on, with no
+                 mask, a (B, Sk) key-padding mask of 1024 - 61 i keys
+                 (the segment-id kernels) and a decoder's (sq, sk)
+                 future mask (the BIAS kernels, bias_grad=False), at
+                 dropout 0 and the future mask also at 0.1: the output
+                 and every gradient against the same module with the
+                 plain core (1e-2 of the largest magnitude), the
+                 launches of a forward and backward, forward and
+                 forward + backward ms of both; (b)
+                 `EncdecMultiheadAttn(1024, 16)`, decoder 1024 x encoder
+                 512 x batch 8, with an encoder padding mask and an (sq,
+                 sk) mask; (c) trainable biases through
+                 `flash_attention(bias_grad=True)`: a T5-style per-head
+                 (1, 16, 1024, 1024) bias at (8, 16, 1024, 64) (full
+                 dbias, fused route), an (8, 1, 1, 1024) key-compact one
+                 (sk dbias, split route), a (1, 8, 8192, 8192) bias at
+                 (1, 8, 8192, 64) causal (full dbias from the dq pass),
+                 o and every gradient against autograd through the plain
+                 forward, the launches of each route, each kernel and
+                 dbias against its plain version from the same lse
+                 (`check_flash_bias`), and a query-compact bias (the
+                 no-bias output bit for bit, no bias launch, zero
+                 dbias); (d) focal_loss at EfficientDet-D0's level-3
+                 head, index_mul_2d at (262144 | 1048576, 128),
+                 transducer_loss and its gradient at (8, 256, 129, 1024)
+                 (each against itself in float64), BatchNorm2d_NHWC(256,
+                 fuse_relu) with z at ResNet-50 stage 1 (one channel-sums
+                 launch; against the CPU), SpatialBottleneck in a world
+                 of one against Bottleneck, conv_bias_relu at (32, 56,
+                 56, 64) (float64), FMHA over a packed row of 4096 tokens
+                 (against the plain core), ASP over GPT-350M's
+                 parameters (masks bit for bit the CPU's) and
+                 search_channel_permutation on a (1024, 1024) weight,
+                 timed; then the four kernels' times with no bias, a
+                 full and a key-compact bias and the dbias each writes
+                 at (8, 16, 1024, 64), beside their bounds, the plain
+                 versions and SDPA with a float attn_mask.
+ 23. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -545,7 +590,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  optimizer kernels' shard times beside their whole
                  buffers', each kernel's launches in slice 17's, 19's,
                  20's, 21's, 22's, 23's and 24's legs (the backward rows'
-                 fp32 launches apart),
+                 fp32 launches apart), the four unpacked flash kernels'
+                 bias launches and bias times (phase 22),
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -561,6 +607,7 @@ the rest of the repository beside it, the script fails before printing
 any result.
 """
 
+import itertools
 import json
 import math
 import os
@@ -979,6 +1026,78 @@ def check_dq_pass(torch, fa, rng, *, b, h, sq, sk, d, causal, q_seg=None,
     check(dq.dtype == bf16, f"{case}: dtype {dq.dtype}")
     check(torch.equal(dq, dq_again), f"{case}: two runs differ")
     return max_err(torch, case, dq, ref)
+
+
+def bias_case(torch, rng, b, h, sq, sk, shape):
+    """An fp32 additive bias of `shape` (b|1, h|1, sq|1, sk|1) with values
+    of about a score's size (N(0, 1))."""
+    return torch.randn(shape, generator=rng, device="cuda",
+                       dtype=torch.float32)
+
+
+def check_flash_bias(torch, fa, rng, *, b, h, sq, sk, d, causal, shape,
+                     rate=0.0, seed=(7, 0, 0)):
+    """The four unpacked flash kernels with an additive bias of `shape`
+    (its kind, "full" or "sk", from `fa._bias_kind`) against their plain
+    versions on one bf16 input: the forward's o and lse; the fused
+    kernel, the dq pass and the dk/dv pass, with the dbias their kind
+    writes (the fused kernel and the dq pass "full", the dk/dv pass "sk")
+    against `flash_bwd_dq_reference` / `flash_bwd_dkv_reference` with
+    `want_dbias`, at `rate` dropout under `seed`.  Tolerance 1e-2 of each
+    output's largest magnitude (phase 2's flash tolerance) and lse 1e-4;
+    dk and dv bit for bit across the fused kernel and the dk/dv pass, and
+    the dq pass's dq bit for bit with and without dbias (the same body).
+    Returns the max errors."""
+    bf16 = torch.bfloat16
+    q, do = (torch.randn((b, h, sq, d), generator=rng, device="cuda")
+             .to(bf16) for _ in range(2))
+    k, v = (torch.randn((b, h, sk, d), generator=rng, device="cuda")
+            .to(bf16) for _ in range(2))
+    bias = bias_case(torch, rng, b, h, sq, sk, shape)
+    kind = fa._bias_kind(bias, sk)
+    check(kind in ("full", "sk"), f"bias {shape}: kind {kind}")
+    sc = 1.0 / math.sqrt(d)
+    drop = {"dropout_rate": rate, "seed": seed} if rate else {}
+    case = (f"flash bias {kind} {tuple(shape)} ({b},{h}) sq={sq} sk={sk} "
+            f"d={d} causal={causal} rate={rate}")
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, causal, bias=bias, **drop)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, sc, causal, bias=bias,
+                                            **drop)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, causal)
+    full, sk_kind = kind == "full", kind == "sk"
+    fused = fa.flash_bwd_cuda(*args, **drop, bias=bias, want_dbias=full)
+    dq_p = fa.flash_bwd_dq_cuda(*args, **drop, bias=bias, want_dbias=full)
+    dq_p2 = fa.flash_bwd_dq_cuda(*args, **drop, bias=bias)
+    dkv = fa.flash_bwd_dkv_cuda(*args, **drop, bias=bias,
+                                want_dbias=sk_kind)
+    want_dq, db_full = fa.flash_bwd_dq_reference(
+        *args, **drop, bias=bias, want_dbias=True)
+    want_dk, want_dv, db_sk = fa.flash_bwd_dkv_reference(
+        *args, **drop, bias=bias, want_dbias=True)
+    torch.cuda.synchronize()
+    dq_pass = dq_p[0] if full else dq_p
+    check(torch.equal(dq_pass, dq_p2),
+          f"{case}: the dq pass's dq differs with and without dbias")
+    check(torch.equal(fused[1], dkv[0]) and torch.equal(fused[2], dkv[1]),
+          f"{case}: dk, dv differ between the fused kernel and the dk/dv "
+          f"pass")
+    errs = {"o": max_err(torch, f"{case} o", o, o_ref),
+            "lse": (lse - lse_ref).abs().max().item(),
+            "dq_fused": max_err(torch, f"{case} fused dq", fused[0], want_dq),
+            "dq_pass": max_err(torch, f"{case} dq pass", dq_pass, want_dq),
+            "dk": max_err(torch, f"{case} dk", dkv[0], want_dk),
+            "dv": max_err(torch, f"{case} dv", dkv[1], want_dv)}
+    check(errs["lse"] <= 1e-4, f"{case}: lse max err {errs['lse']:.3e}")
+    if full:
+        errs["dbias_fused"] = max_err(torch, f"{case} fused dbias",
+                                      fused[3], db_full)
+        errs["dbias_dq_pass"] = max_err(torch, f"{case} dq pass dbias",
+                                        dq_p[1], db_full)
+    else:
+        errs["dbias_dkv"] = max_err(torch, f"{case} dk/dv pass dbias",
+                                    dkv[2], db_sk)
+    return errs
 
 
 def bwd_ptxas(fa, log_text):
@@ -7154,11 +7273,15 @@ def moe_dense_anchor(torch, tokens, labels, steps=3):
     the fc1 / fc2 of a dense GPT of the same width and every other weight
     that GPT's (the same seed), against that GPT, each through
     ddp.make_train_step with DistributedFusedAdam(1, lr=1e-4, n_buckets=2,
-    master bf16), `steps` steps on the bench batch; the dense model twice.
-    The MoE step's losses (the largest difference over the steps) and its
-    updated params (L2 over every leaf, the router's excluded, which gets
-    no gradient and must not move) within ANCHOR_RUN_TO_RUN times the
-    dense step's own run-to-run difference."""
+    master bf16), `steps` steps on the bench batch; the dense model three
+    times.  The MoE step's losses (the largest difference over the steps
+    from the first dense run's) and its updated params (L2 over every
+    leaf from the first dense run's, the router's excluded, which gets no
+    gradient and must not move) within ANCHOR_RUN_TO_RUN times the dense
+    step's run-to-run spread: the largest of the three pairwise
+    differences of the dense runs, for the losses and for the params'
+    L2 alike (one pair's difference is one draw of a small random
+    number, and made the check fail by chance)."""
     import dataclasses
 
     from apex_tpu_torch.models import gpt as gpt_mod
@@ -7200,8 +7323,8 @@ def moe_dense_anchor(torch, tokens, labels, steps=3):
             losses.append(float(out[2]))
         return losses, opt.full_params(state)
 
-    d1, d2, m = (run(dense, dparams, False), run(dense, dparams, False),
-                 run(moe, mparams, True))
+    d1, d2, d3, m = (run(dense, dparams, False), run(dense, dparams, False),
+                     run(dense, dparams, False), run(moe, mparams, True))
     pairs = []
     for path, leaf in F.tree_leaves_with_paths(d1[1]):
         q = path[:-2] + ren.get(path[-2:], path[-2:])
@@ -7209,7 +7332,7 @@ def moe_dense_anchor(torch, tokens, labels, steps=3):
         for key in q:
             other = other[key]
         pairs.append((leaf, other.reshape(leaf.shape)))
-    d2_leaves = F.tree_leaves(d2[1])
+    dense_leaves = [F.tree_leaves(d[1]) for d in (d1, d2, d3)]
     moved = [m[1][f"block{i}"]["moe"]["wg"] for i in range(mcfg.num_layers)]
     check(all(torch.equal(w, mparams[f"block{i}"]["moe"]["wg"])
               for i, w in enumerate(moved)),
@@ -7220,14 +7343,22 @@ def moe_dense_anchor(torch, tokens, labels, steps=3):
                    for x, y in zip(xs, ys)).sqrt().item()
 
     ref = [a for a, _ in pairs]
+    runs = (d1, d2, d3)
+    dense_pairs = ((0, 1), (0, 2), (1, 2))
+    loss_pairs = {f"{i}-{j}": max(abs(a - b) for a, b in
+                                  zip(runs[i][0], runs[j][0]))
+                  for i, j in dense_pairs}
+    l2_pairs = {f"{i}-{j}": l2(dense_leaves[i], dense_leaves[j])
+                for i, j in dense_pairs}
     line = {
-        "steps": steps, "losses_dense": d1[0], "losses_dense_again": d2[0],
+        "steps": steps, "losses_dense": [d[0] for d in runs],
         "losses_moe": m[0],
         "loss_diff_moe": max(abs(a - b) for a, b in zip(m[0], d1[0])),
-        "loss_diff_dense_run_to_run": max(abs(a - b)
-                                          for a, b in zip(d2[0], d1[0])),
+        "loss_diff_dense_pairs": loss_pairs,
+        "loss_diff_dense_run_to_run": max(loss_pairs.values()),
         "param_l2_moe": l2([b for _, b in pairs], ref),
-        "param_l2_dense_run_to_run": l2(d2_leaves, ref),
+        "param_l2_dense_pairs": l2_pairs,
+        "param_l2_dense_run_to_run": max(l2_pairs.values()),
         "losses_bit_for_bit": m[0] == d1[0],
         "params_bit_for_bit": all(torch.equal(a, b) for a, b in pairs)}
     log("slice 21 dense anchor " + json.dumps(line))
@@ -7237,7 +7368,7 @@ def moe_dense_anchor(torch, tokens, labels, steps=3):
           <= ANCHOR_RUN_TO_RUN * line["param_l2_dense_run_to_run"],
           f"dense anchor: the MoE step (n_experts 1) is further from the "
           f"dense step than {ANCHOR_RUN_TO_RUN}x its own run-to-run: {line}")
-    del d1, d2, m, pairs, dparams, mparams, d2_leaves, ref
+    del d1, d2, d3, m, runs, pairs, dparams, mparams, dense_leaves, ref
     torch.cuda.empty_cache()
     return line
 
@@ -8566,6 +8697,635 @@ def add_slice24_columns(rows, slice24):
                                    tl["trace_kernels_per_step"]]}
 
 
+# --------------- slice 25: contrib and the additive flash bias ---------------
+
+# the multihead-attention example's width (examples/bench_multihead_attn.py
+# defaults): seq, batch, hidden, heads
+MHA_SEQ, MHA_BATCH, MHA_HIDDEN, MHA_HEADS = 1024, 8, 1024, 16
+# leg (b)'s encoder length
+MHA_ENC_SEQ = 512
+# leg (c)'s shape and the kernel table's bias times
+BIAS_SHAPE = (8, 16, 1024, 64)
+# the four kernels the bias reaches, by counter name
+BIAS_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# phase 2's bias checks (`check_flash_bias`): full and key-compact biases,
+# broadcast over batch or heads, ragged lengths, both head dims, causal
+# or not, dropout 0.1
+BIAS_CHECKS = (
+    dict(b=2, h=4, sq=200, sk=200, d=64, causal=True, shape=(1, 4, 200, 200)),
+    dict(b=2, h=4, sq=200, sk=200, d=64, causal=False, shape=(2, 1, 1, 200)),
+    dict(b=2, h=3, sq=300, sk=129, d=128, causal=False,
+         shape=(2, 3, 300, 129)),
+    dict(b=1, h=4, sq=77, sk=200, d=128, causal=True, shape=(1, 1, 1, 200)),
+    dict(b=2, h=4, sq=200, sk=200, d=64, causal=True,
+         shape=(1, 4, 200, 200), rate=0.1),
+    dict(b=2, h=4, sq=200, sk=200, d=128, causal=False,
+         shape=(2, 1, 1, 200), rate=0.1))
+
+
+def bias_ptxas(log_text):
+    """Phase 1's report of the bias instantiations (flash_*_bias_kernel):
+    {"<kernel><D, DROP[, DQ], BIAS>": {"registers", "spills", "notes"}}
+    (notes: ptxas' serialised-wgmma codes)."""
+    rows, notes = flash_ptxas(log_text)
+    out = {}
+    for name, r in rows.items():
+        m = re.search(r"(flash_\w+?_bias_kernel)I((?:L[ib]\d+E)+)E", name)
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            out[f"{m.group(1)}<{args}>"] = dict(r, notes=notes.get(name, []))
+    check(len(out) == 28, f"{len(out)} bias instantiations, want 28")
+    return out
+
+
+def bias_counts(fa):
+    """The four kernels' launches and bias launches, by counter name."""
+    fns = (fa.flash_fwd_cuda, fa.flash_bwd_cuda, fa.flash_bwd_dq_cuda,
+           fa.flash_bwd_dkv_cuda)
+    return {name: (f.launches, f.bias_launches)
+            for name, f in zip(BIAS_KERNELS, fns)}
+
+
+def counts_since(fa, before):
+    now = bias_counts(fa)
+    return {k: (now[k][0] - before[k][0], now[k][1] - before[k][1])
+            for k in now}
+
+
+def plain_mha_core(torch, fa):
+    """`flash_attention`'s arguments through the plain forward
+    (`flash_fwd_reference`, autograd for the backward) with the kernels'
+    own dropout mask: the seed drawn from the key as `flash_attention`
+    draws it, so a key seeded alike gives both the same mask."""
+    from apex_tpu_torch.ops._common import host_seed
+
+    def core(q, k, v, *, causal=False, softmax_scale=None, bias=None,
+             bias_grad=True, q_segment_ids=None, kv_segment_ids=None,
+             segment_ids=None, dropout_rate=0.0, dropout_key=None):
+        seed = (fa._seed3(host_seed(dropout_key)) if dropout_rate > 0.0
+                else (0, 0, 0))
+        if bias is not None and not bias_grad:
+            bias = bias.detach()
+        scale = (softmax_scale if softmax_scale is not None
+                 else 1.0 / math.sqrt(q.shape[-1]))
+        return fa.flash_fwd_reference(q, k, v, scale, causal,
+                                      q_segment_ids, kv_segment_ids,
+                                      dropout_rate, seed, bias=bias)[0]
+    return core
+
+
+def mha_run(torch, module, x, enc, mask, rate, gy):
+    """One forward and backward of `module` (grads zeroed first): the
+    output and the gradients of x and every parameter, by name."""
+    module.zero_grad(set_to_none=True)
+    xg = x.detach().requires_grad_(True)
+    key = torch.Generator().manual_seed(5) if rate else None
+    y = module(xg, enc, mask=mask, is_training=True, dropout_key=key)
+    (y.float() * gy).sum().backward()
+    grads = {"x": xg.grad}
+    grads.update({n_: p.grad for n_, p in module.named_parameters()})
+    return y.detach(), grads
+
+
+def mha_variant(torch, fa, ln, mha_mod, module, x, enc, mask, rate, what,
+                kernel_counts):
+    """Leg (a)/(b) for one variant: the module through the kernels
+    against the same module with the plain core (`plain_mha_core`) on the
+    same inputs, the output and every gradient within 1e-2 of its
+    largest magnitude (phase 2's flash tolerance); the launches of one
+    forward and backward against `kernel_counts` {counter: (launches,
+    bias launches)}; forward and forward + backward ms of both by CUDA
+    events."""
+    gy = torch.randn(x.shape[0], x.shape[1], MHA_HIDDEN, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(9))
+    before = bias_counts(fa)
+    drop0 = fa.flash_fwd_cuda.dropout_launches
+    ln0 = (ln.norm_fwd_cuda.launches, ln.norm_bwd_cuda.launches)
+    y, grads = mha_run(torch, module, x, enc, mask, rate, gy)
+    torch.cuda.synchronize()
+    got = counts_since(fa, before)
+    check(got == kernel_counts, f"{what}: launches {got}, want "
+          f"{kernel_counts}")
+    check(fa.flash_fwd_cuda.dropout_launches - drop0 == int(rate > 0),
+          f"{what}: dropout launches")
+    n_ln = int(module.include_norm_add)
+    check((ln.norm_fwd_cuda.launches - ln0[0],
+           ln.norm_bwd_cuda.launches - ln0[1]) == (n_ln, n_ln),
+          f"{what}: LayerNorm launches")
+    saved = mha_mod.flash_attention
+    mha_mod.flash_attention = plain_mha_core(torch, fa)
+    try:
+        py, pgrads = mha_run(torch, module, x, enc, mask, rate, gy)
+        torch.cuda.synchronize()
+        errs = {"y": max_err(torch, f"{what} y", y, py)}
+        for name, g in grads.items():
+            errs[name] = max_err(torch, f"{what} d{name}", g, pgrads[name])
+        del py, pgrads
+
+        def fwd():
+            with torch.no_grad():
+                module(x, enc, mask=mask, is_training=True,
+                       dropout_key=(torch.Generator().manual_seed(5)
+                                    if rate else None))
+
+        def fwd_bwd():
+            mha_run(torch, module, x, enc, mask, rate, gy)
+
+        plain_ms = {"fwd": time_ms(torch, fwd, n=2, warm=1),
+                    "fwd_bwd": time_ms(torch, fwd_bwd, n=2, warm=1)}
+    finally:
+        mha_mod.flash_attention = saved
+    ms = {"fwd": time_ms(torch, fwd, n=10, warm=2),
+          "fwd_bwd": time_ms(torch, fwd_bwd, n=10, warm=2)}
+    module.zero_grad(set_to_none=True)
+    del grads, y
+    return {"max_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "launches": {k: v for k, v in got.items() if v != (0, 0)}}
+
+
+def mha_module_leg(torch, fa, ln, mha_mod):
+    """(a) SelfMultiheadAttn(1024, 16, bias=True) in bf16 at seq 1024 x
+    batch 8, include_norm_add off and on, with no mask, a (B, Sk)
+    key-padding mask of 1024 - 61 i real keys (the segment-id kernels)
+    and the (sq, sk) future mask of a Transformer decoder (the BIAS
+    kernels, bias_grad=False), each at dropout 0, the future mask also at
+    0.1; (b) EncdecMultiheadAttn(1024, 16) with a decoder of 1024 and an
+    encoder of 512 rows, batch 8, with a (B, Sk) encoder padding mask and
+    an (sq, sk) mask."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((MHA_SEQ, MHA_BATCH, MHA_HIDDEN), generator=gen).to(
+        "cuda", bf16)
+    enc = torch.randn((MHA_ENC_SEQ, MHA_BATCH, MHA_HIDDEN),
+                      generator=gen).to("cuda", bf16)
+    ar = torch.arange(MHA_SEQ, device="cuda")
+    lens = torch.tensor([MHA_SEQ - 61 * i for i in range(MHA_BATCH)],
+                        device="cuda")
+    pad = ar[None, :] >= lens[:, None]
+    future = torch.ones((MHA_SEQ, MHA_SEQ), dtype=torch.bool,
+                        device="cuda").triu(1)
+    enc_lens = torch.tensor([MHA_ENC_SEQ - 29 * i for i in range(MHA_BATCH)],
+                            device="cuda")
+    enc_pad = (torch.arange(MHA_ENC_SEQ, device="cuda")[None, :]
+               >= enc_lens[:, None])
+    cross = torch.rand((MHA_SEQ, MHA_ENC_SEQ), device="cuda",
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(3)) < 0.1
+
+    def want(bias):
+        return {"flash_attention_fwd": (1, int(bias)),
+                "flash_attention_bwd": (1, int(bias)),
+                "flash_attention_bwd_dq": (0, 0),
+                "flash_attention_bwd_dkv": (0, 0)}
+
+    out = {}
+    for norm in (False, True):
+        m = mha_mod.SelfMultiheadAttn(MHA_HIDDEN, MHA_HEADS, bias=True,
+                                      include_norm_add=norm, dropout=0.1,
+                                      dtype=bf16)
+        for name, mask, rate in (("none", None, 0.0), ("key_padding", pad, 0.0),
+                                 ("future", future, 0.0),
+                                 ("future dropout 0.1", future, 0.1)):
+            what = f"self-attn norm_add={norm} mask={name}"
+            out[what] = mha_variant(torch, fa, ln, mha_mod, m, x, None,
+                                    mask, rate, what,
+                                    want(name.startswith("future")))
+            log(f"slice 25 (a) {what}: " + json.dumps(out[what]))
+        del m
+    m = mha_mod.EncdecMultiheadAttn(MHA_HIDDEN, MHA_HEADS, bias=True,
+                                    dtype=bf16)
+    for name, mask in (("encoder padding", enc_pad), ("(sq, sk)", cross)):
+        what = f"encdec mask={name}"
+        out[what] = mha_variant(torch, fa, ln, mha_mod, m, x, enc, mask, 0.0,
+                                what, want(name == "(sq, sk)"))
+        log(f"slice 25 (b) {what}: " + json.dumps(out[what]))
+    del m, x, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def trainable_bias_leg(torch, fa, rng):
+    """(c) trainable biases through `flash_attention(bias_grad=True)`: o,
+    dq, dk, dv and dbias through the kernels and autograd against
+    autograd through the plain forward (`flash_fwd_reference`) on the
+    same inputs, 1e-2 of each output's largest magnitude; the launches
+    of each route; a query-compact bias: the no-bias output bit for bit,
+    no bias launch, a zero dbias.  `slice25_phase` runs the
+    launcher-level checks at each case's shape after the phase's
+    launches are counted."""
+    bf16 = torch.bfloat16
+    out = {}
+    cases = (("T5 relative bias, full dbias, fused", BIAS_SHAPE, False,
+              (1, 16, 1024, 1024), "fused"),
+             ("key-compact bias, sk dbias, split", BIAS_SHAPE, False,
+              (8, 1, 1, 1024), "split"),
+             ("8192 causal, full dbias, dq pass", (1, 8, 8192, 64), True,
+              (1, 8, 8192, 8192), "split"))
+    for what, shape, causal, bshape, route in cases:
+        b, h, s, d = shape
+        q, k, v, do = (torch.randn(shape, generator=rng, device="cuda")
+                       .to(bf16) for _ in range(4))
+        bias = torch.randn(bshape, generator=rng, device="cuda")
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+        before = bias_counts(fa)
+        o = fa.flash_attention(*leaves[:3], causal=causal, bias=leaves[3],
+                               bias_grad=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        got = counts_since(fa, before)
+        fused = route == "fused"
+        want = {"flash_attention_fwd": (1, 1),
+                "flash_attention_bwd": (int(fused), int(fused)),
+                "flash_attention_bwd_dq": (int(not fused), int(not fused)),
+                "flash_attention_bwd_dkv": (int(not fused),
+                                            int(not fused))}
+        check(got == want, f"(c) {what}: launches {got}, want {want}")
+        plain = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+        po, _ = fa.flash_fwd_reference(*plain[:3], 1.0 / math.sqrt(d),
+                                       causal, bias=plain[3])
+        po.backward(do)
+        errs = {"o": max_err(torch, f"(c) {what} o", o, po)}
+        for name, g, p in zip(("dq", "dk", "dv", "dbias"), leaves, plain):
+            check(g.grad.shape == p.grad.shape, f"(c) {what} {name} shape")
+            errs[name] = max_err(torch, f"(c) {what} {name}", g.grad,
+                                 p.grad)
+        del leaves, plain, po, o
+        out[what] = {"max_err": errs, "launches": got,
+                     "case": dict(b=b, h=h, sq=s, sk=s, d=d, causal=causal,
+                                  shape=bshape)}
+        log(f"slice 25 (c) {what}: " + json.dumps(out[what]))
+        torch.cuda.empty_cache()
+    # a query-compact bias: softmax cancels it
+    q, k, v = (torch.randn(BIAS_SHAPE, generator=rng, device="cuda")
+               .to(bf16) for _ in range(3))
+    qc = torch.randn((1, 1, 1024, 1), generator=rng,
+                     device="cuda").requires_grad_(True)
+    before = bias_counts(fa)
+    o = fa.flash_attention(q, k, v, bias=qc)
+    o.float().sum().backward()
+    got = counts_since(fa, before)
+    check(all(n_b == 0 for _, n_b in got.values()),
+          f"(c) query-compact bias: bias launches {got}")
+    check(torch.equal(o, fa.flash_attention(q, k, v)),
+          "(c) query-compact bias: not the no-bias output")
+    check(bool((qc.grad == 0).all()), "(c) query-compact bias: dbias != 0")
+    out["query-compact"] = {"launches": got, "equal_no_bias": True,
+                            "dbias_zero": True}
+    log("slice 25 (c) query-compact bias: " + json.dumps(out["query-compact"]))
+    return out
+
+
+def other_modules_leg(torch, fa, wf, rng):
+    """(d) the other contrib modules once each at sizes their users run,
+    with TF32 off: focal_loss, index_mul_2d, transducer_loss and
+    conv_bias_relu against the same port function on the same inputs in
+    float64 (1e-5 relative of the largest magnitude; the transducer's
+    loss 1e-4 and gradient 1e-3, a log-space recursion in fp32 around a
+    loss of ~2.5e3 nats); BatchNorm2d_NHWC (the channel sums kernel)
+    against the plain version on the CPU in fp32; SpatialBottleneck in a
+    world of one (no group: both halos zeroed) against Bottleneck at the
+    same weights; FMHA over a packed row of 4096 tokens against the
+    plain core; ASP's masks over GPT-350M's parameters against the CPU's,
+    bit for bit; search_channel_permutation on one (1024, 1024) weight,
+    timed."""
+    from apex_tpu_torch.contrib import bottleneck as bn_mod
+    from apex_tpu_torch.contrib import conv_bias_relu as cbr
+    from apex_tpu_torch.contrib import fmha as fmha_mod
+    from apex_tpu_torch.contrib import groupbn, sparsity
+    from apex_tpu_torch.contrib.focal_loss import focal_loss
+    from apex_tpu_torch.contrib.index_mul_2d import index_mul_2d
+    from apex_tpu_torch.contrib.transducer import transducer_loss
+    from apex_tpu_torch.models import resnet
+    from apex_tpu_torch.models.gpt import GPT, GPTConfig
+
+    f64 = torch.float64
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+
+    def rel(what, got, ref, tol):
+        err = (got.double() - ref.double()).abs().max().item()
+        scale = ref.double().abs().max().item()
+        check(math.isfinite(err) and err <= tol * max(scale, 1e-30),
+              f"(d) {what}: max err {err:.3e} of {scale:.3e}")
+        return err
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    try:
+        # EfficientDet-D0's level-3 head: 64 x 64 x 9 anchors, 90 classes
+        x = torch.randn((16, 64 * 64 * 9, 96), generator=rng, device="cuda")
+        tgt = torch.randint(-2, 90, (16, 64 * 64 * 9), generator=rng,
+                            device="cuda")
+        loss, ms = timed(lambda: focal_loss(x, tgt, 1000.0, 90,
+                                            label_smoothing=0.1))
+        out["focal_loss"] = {"err": rel("focal_loss", loss, focal_loss(
+            x.double(), tgt, 1000.0, 90, label_smoothing=0.1), 1e-5),
+            "ms": ms}
+        del x, tgt
+        in1 = torch.randn((262144, 128), generator=rng, device="cuda")
+        in2 = torch.randn((1048576, 128), generator=rng, device="cuda")
+        idx = torch.randint(0, 262144, (1048576,), generator=rng,
+                            device="cuda")
+        g = torch.randn((1048576, 128), generator=rng, device="cuda")
+        res = {}
+        for name, dt in (("fp32", torch.float32), ("fp64", f64)):
+            a, b_ = (t.to(dt).detach().requires_grad_(True)
+                     for t in (in1, in2))
+            y = index_mul_2d(a, b_, idx)
+            y.backward(g.to(dt))
+            res[name] = (y.detach(), a.grad, b_.grad)
+        out["index_mul_2d"] = {n_: rel(f"index_mul_2d {n_}", got, ref, 1e-5)
+                               for n_, got, ref in zip(
+                                   ("y", "d_in1", "d_in2"), res["fp32"],
+                                   res["fp64"])}
+        del in1, in2, idx, g, res, a, b_, y
+        # an RNN-T of the MLPerf kind: 1024-token vocabulary
+        Bn, T, U, V = 8, 256, 128, 1024
+        logits = torch.randn((Bn, T, U + 1, V), generator=rng, device="cuda")
+        labels = torch.randint(1, V, (Bn, U), generator=rng, device="cuda")
+        f_len = torch.tensor([T - 13 * i for i in range(Bn)], device="cuda")
+        y_len = torch.tensor([U - 9 * i for i in range(Bn)], device="cuda")
+        res = {}
+        for name, dt in (("fp32", torch.float32), ("fp64", f64)):
+            lg = logits.to(dt).detach().requires_grad_(True)
+            per, ms = timed(lambda: transducer_loss(
+                torch.log_softmax(lg, -1), labels, f_len, y_len))
+            per.sum().backward()
+            res[name] = (per.detach(), lg.grad, ms)
+        check(bool(torch.isfinite(res["fp32"][1]).all()),
+              "(d) transducer gradient not finite")
+        out["transducer"] = {
+            "loss": rel("transducer loss", res["fp32"][0], res["fp64"][0],
+                        1e-4),
+            # the gradient is a probability computed in log space around
+            # a loss of ~2.5e3 nats, where one fp32 ulp is 2.4e-4: it
+            # carries a few of them as a relative error
+            "grad": rel("transducer grad", res["fp32"][1], res["fp64"][1],
+                        1e-3), "fwd_ms": res["fp32"][2]}
+        del logits, res, lg, per
+        torch.cuda.empty_cache()
+        # ResNet-50 stage 1
+        xb = torch.randn((32, 56, 56, 256), generator=rng, device="cuda")
+        zb = torch.randn((32, 56, 56, 256), generator=rng, device="cuda")
+        bnm = groupbn.BatchNorm2d_NHWC(256, fuse_relu=True)
+        n0 = wf.channel_sums_cuda.launches
+        yb, st = bnm.apply(*bnm.init(device="cuda"), xb, training=True, z=zb)
+        torch.cuda.synchronize()
+        check(wf.channel_sums_cuda.launches - n0 == 1,
+              "(d) BatchNorm2d_NHWC: not one channel-sums launch")
+        cpu = groupbn.BatchNorm2d_NHWC(256, fuse_relu=True, device="cpu")
+        yc, stc = cpu.apply(*cpu.init(device="cpu"), xb.cpu(), training=True,
+                            z=zb.cpu())
+        out["groupbn"] = {
+            "y": rel("groupbn y", yb.cpu(), yc, 1e-5),
+            "running_var": rel("groupbn running var",
+                               st["running_var"].cpu(), stc["running_var"],
+                               1e-5)}
+        del yb, yc, zb
+        # SpatialBottleneck in a world of one against Bottleneck
+        blk = resnet.Bottleneck(256, 64)
+        sblk = bn_mod.SpatialBottleneck(256, 64)
+        params, state = blk.init(resnet._Init(0, "cuda"))
+        params["bn3"]["scale"].fill_(1.0)     # not the zero-init residual
+        want, _ = blk.apply(params, state, xb, True)
+        got, _ = sblk.apply(params, state, xb, True)
+        out["spatial_bottleneck"] = rel("SpatialBottleneck", got, want,
+                                        1e-5)
+        del xb, want, got, params, state
+        xc = torch.randn((32, 56, 56, 64), generator=rng, device="cuda")
+        wc = torch.randn((64, 3, 3, 64), generator=rng, device="cuda") * 0.05
+        bc = torch.randn((64,), generator=rng, device="cuda")
+        out["conv_bias_relu"] = rel(
+            "conv_bias_relu", cbr.conv_bias_relu(xc, wc, bc),
+            cbr.conv_bias_relu(xc.double(), wc.double(), bc.double()), 1e-5)
+        del xc, wc, bc
+        # FMHA: one packed row of 4096 tokens, sequences of <= 512
+        lens = [512, 300, 488, 97, 512, 256, 411, 129, 512, 377, 1, 501]
+        cu = torch.tensor([0] + list(itertools.accumulate(lens)),
+                          device="cuda", dtype=torch.int32)
+        check(int(cu[-1]) == 4096, "(d) FMHA lengths")
+        qkv = torch.randn((1, 4096, 3, 16, 64), generator=rng,
+                          device="cuda").to(torch.bfloat16)
+        qg = qkv.detach().requires_grad_(True)
+        n0 = fa.flash_fwd_cuda.launches
+        o = fmha_mod.FMHA()(qg, cu_seqlens=cu)
+        do = torch.randn(o.shape, generator=rng, device="cuda").to(o.dtype)
+        o.backward(do)
+        check(fa.flash_fwd_cuda.launches - n0 == 1, "(d) FMHA launches")
+        seg = fmha_mod.segment_ids_from_cu_seqlens(cu, 4096)
+        pq = qkv.detach().requires_grad_(True)
+        po = fa.flash_fwd_reference(
+            *(pq[:, :, i].permute(0, 2, 1, 3) for i in range(3)), 0.125,
+            False, seg, seg)[0].permute(0, 2, 1, 3)
+        po.backward(do)
+        out["fmha"] = {"o": max_err(torch, "(d) FMHA o", o, po),
+                       "dqkv": max_err(torch, "(d) FMHA dqkv", qg.grad,
+                                       pq.grad)}
+        del qkv, qg, pq, o, po, do
+        # ASP over GPT-350M's parameters
+        params = GPT(GPTConfig(vocab_size=50304, seq_len=1024, hidden=1024,
+                               num_layers=24, num_heads=16)).init(seed=0)
+        asp, asp_cpu = sparsity.ASP(), sparsity.ASP()
+        _, ms = timed(lambda: asp.init_model_for_pruning(params))
+        asp_cpu.init_model_for_pruning(_tree_to(params, "cpu"))
+        check(sorted(asp.masks) == sorted(asp_cpu.masks) and asp.masks,
+              "(d) ASP: other leaves masked on the card and the CPU")
+        same = all(torch.equal(asp.masks[k_].cpu(), asp_cpu.masks[k_])
+                   for k_ in asp.masks)
+        check(same, "(d) ASP: masks differ from the CPU's")
+        out["asp"] = {"masked_leaves": len(asp.masks),
+                      "masked_elements": sum(m_.numel() for m_ in
+                                             asp.masks.values()),
+                      "dtype": str(params["block0"]["qkv"]["weight"].dtype),
+                      "bit_for_bit_cpu": same, "ms": ms,
+                      "sparsity": asp.sparsity()}
+        # one (1024, 1024) weight: the q third of block 0's qkv
+        w = params["block0"]["qkv"]["weight"][:, :1024].contiguous()
+        del asp, asp_cpu
+        (perm, score), ms = timed(
+            lambda: sparsity.search_channel_permutation(w))
+        base = float(sparsity.magnitude_after_mask(w.float()))
+        check(sorted(perm.tolist()) == list(range(1024)) and score >= base,
+              "(d) search_channel_permutation: not a permutation or lost "
+              "magnitude")
+        out["search_channel_permutation"] = {
+            "shape": list(w.shape), "ms": ms, "score": score,
+            "identity_score": base}
+        del params, w
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+    log("slice 25 (d) " + json.dumps(out))
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def bias_kernel_times(torch, fa, rng):
+    """The table's bias columns at BIAS_SHAPE (not causal, bf16): each of
+    the four kernels with no bias, a full (1, 16, 1024, 1024) bias and a
+    key-compact (8, 1, 1, 1024) one, and the dbias it writes (full from
+    the fused kernel and the dq pass, sk from the dk/dv pass), in the
+    same call; each bias time's bound (the kernel's bytes plus the bias's
+    read once and the dbias partial's written once, its operations
+    unchanged); the plain versions with the full bias; the library call:
+    SDPA with the full bias as a float attn_mask, forward, and backward
+    with the mask's gradient."""
+    import torch.nn.functional as F
+
+    b, h, s, d = BIAS_SHAPE
+    sc = 1.0 / math.sqrt(d)
+    bf16 = torch.bfloat16
+    q, k, v, do = (torch.randn(BIAS_SHAPE, generator=rng, device="cuda")
+                   .to(bf16) for _ in range(4))
+    full = torch.randn((1, h, s, s), generator=rng, device="cuda")
+    skb = torch.randn((b, 1, 1, s), generator=rng, device="cuda")
+    o, lse = fa.flash_fwd_cuda(q, k, v, sc, False)
+    delta = torch.sum(do.float() * o.float(), dim=-1)
+    args = (q, k, v, do, lse, delta, sc, False)
+    io = b * h * s * d * 2
+    full_bytes, sk_bytes = full.numel() * 4, skb.numel() * 4
+    db_full, db_sk = b * h * s * s * 4, b * h * s * 4
+    launchers = {
+        "flash_attention_fwd": (lambda **kw: fa.flash_fwd_cuda(
+            q, k, v, sc, False, **kw), 4 * io + b * h * s * 4, 4, None),
+        "flash_attention_bwd": (lambda **kw: fa.flash_bwd_cuda(*args, **kw),
+                                7 * io + 2 * b * h * s * 4, 8, "full"),
+        "flash_attention_bwd_dq": (lambda **kw: fa.flash_bwd_dq_cuda(
+            *args, **kw), 5 * io + 2 * b * h * s * 4, 6, "full"),
+        "flash_attention_bwd_dkv": (lambda **kw: fa.flash_bwd_dkv_cuda(
+            *args, **kw), 6 * io + 2 * b * h * s * 4, 8, "sk")}
+    plain = {
+        "flash_attention_fwd": lambda: fa.flash_fwd_reference(
+            q, k, v, sc, False, bias=full),
+        "flash_attention_bwd": lambda: (
+            fa.flash_bwd_dq_reference(*args, bias=full, want_dbias=True),
+            fa.flash_bwd_dkv_reference(*args, bias=full)),
+        "flash_attention_bwd_dq": lambda: fa.flash_bwd_dq_reference(
+            *args, bias=full, want_dbias=True),
+        "flash_attention_bwd_dkv": lambda: fa.flash_bwd_dkv_reference(
+            *args, bias=skb, want_dbias=True)}
+    mask = full.to(bf16)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sc))
+    qg, kg, vg, mg = (t.detach().requires_grad_(True)
+                      for t in (q, k, v, mask.expand(b, h, s, s)
+                                .contiguous()))
+    out_ = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mg, scale=sc)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out_, (qg, kg, vg, mg), do, retain_graph=True), n=10)
+    del out_, qg, kg, vg, mg
+    flops = 4 * b * h * s * s * d
+    rows = {}
+    for name, (fn, base_bytes, prod2, db_kind) in launchers.items():
+        ops = prod2 * b * h * s * s * d
+        r = {"shape": f"q, k, v, do {BIAS_SHAPE} bf16, not causal",
+             "no_bias_ms": time_ms(torch, lambda: fn()),
+             "full_ms": time_ms(torch, lambda: fn(bias=full)),
+             "sk_ms": time_ms(torch, lambda: fn(bias=skb)),
+             "bound_ms_no_bias": 1e3 * max(base_bytes / HBM_BYTES_PER_S,
+                                           ops / BF16_FLOPS),
+             "bound_ms_full": 1e3 * max((base_bytes + full_bytes)
+                                        / HBM_BYTES_PER_S,
+                                        ops / BF16_FLOPS),
+             "bound_ms_sk": 1e3 * max((base_bytes + sk_bytes)
+                                      / HBM_BYTES_PER_S, ops / BF16_FLOPS),
+             "plain_ms_full": time_ms(torch, plain[name], n=3, warm=1),
+             "library_ms": lib_fwd if db_kind is None else lib_bwd,
+             "library": ("scaled_dot_product_attention(attn_mask=full "
+                         "bias, bf16)" + ("" if db_kind is None else
+                                          " backward with the mask's "
+                                          "gradient"))}
+        if db_kind == "full":
+            r["dbias_full_ms"] = time_ms(torch, lambda: fn(
+                bias=full, want_dbias=True))
+            r["bound_ms_dbias_full"] = 1e3 * max(
+                (base_bytes + full_bytes + db_full) / HBM_BYTES_PER_S,
+                ops / BF16_FLOPS)
+        elif db_kind == "sk":
+            r["dbias_sk_ms"] = time_ms(torch, lambda: fn(
+                bias=skb, want_dbias=True))
+            r["bound_ms_dbias_sk"] = 1e3 * max(
+                (base_bytes + sk_bytes + db_sk) / HBM_BYTES_PER_S,
+                ops / BF16_FLOPS)
+        rows[name] = r
+    del q, k, v, do, o, lse, delta, args, full, skb, mask
+    torch.cuda.empty_cache()
+    log("slice 25 bias kernel times (ms) " + json.dumps(rows)
+        + f"; forward flops {flops}")
+    return rows
+
+
+def slice25_phase(torch, fa, ln, wf, smi):
+    """Phase 22 (module docstring): legs (a)-(d) and the bias times; the
+    bias launches of the phase by kernel."""
+    from apex_tpu_torch.contrib import multihead_attn as mha_mod
+
+    t0 = time.perf_counter()
+    rng = torch.Generator(device="cuda").manual_seed(2525)
+    before = bias_counts(fa)
+    legs = {}
+    mha = mha_module_leg(torch, fa, ln, mha_mod)
+    legs["a, b"] = time.perf_counter() - t0
+    trainable = trainable_bias_leg(torch, fa, rng)
+    phase_counts = counts_since(fa, before)
+    # each kernel and dbias against its plain version from the same lse
+    # at (c)'s shapes (`check_flash_bias`): comparisons, not counted
+    for case in trainable.values():
+        if "case" in case:
+            case["max_err"]["launchers"] = check_flash_bias(
+                torch, fa, rng, **case.pop("case"))
+    log("slice 25 (c) launcher checks at the cases' shapes: " + json.dumps(
+        {k: c["max_err"]["launchers"] for k, c in trainable.items()
+         if "max_err" in c}))
+    legs["c"] = time.perf_counter() - t0 - sum(legs.values())
+    other = other_modules_leg(torch, fa, wf, rng)
+    legs["d"] = time.perf_counter() - t0 - sum(legs.values())
+    times = bias_kernel_times(torch, fa, rng)
+    legs["bias times"] = time.perf_counter() - t0 - sum(legs.values())
+    log(f"phase 22 {time.perf_counter() - t0:.1f}s (legs, s: "
+        f"{json.dumps(legs)}; {smi})")
+    return {"mha": mha, "trainable": trainable, "other": other,
+            "bias_times": times, "bias_launches": phase_counts}
+
+
+def add_slice25_columns(rows, slice25):
+    """The kernel table's slice-25 column: on each of the four kernels'
+    rows the bias launches of phase 22's legs (a)-(c), the largest error
+    of its bias checks there (leg (c)'s launcher checks), and its times
+    with and without a bias at BIAS_SHAPE beside their bounds, the plain
+    version's and the library call's."""
+    keys = {"flash_attention_fwd": ("o",),
+            "flash_attention_bwd": ("dq_fused", "dk", "dv", "dbias_fused"),
+            "flash_attention_bwd_dq": ("dq_pass", "dbias_dq_pass"),
+            "flash_attention_bwd_dkv": ("dk", "dv", "dbias_dkv")}
+    checks = [c["max_err"]["launchers"]
+              for c in slice25["trainable"].values() if "max_err" in c]
+    for row in rows:
+        name = row["name"]
+        if name in slice25["bias_times"] and "bias" not in row:
+            launches, bias_launches = slice25["bias_launches"][name]
+            row["bias"] = dict(
+                slice25["bias_times"][name],
+                launches_phase22=launches,
+                bias_launches_phase22=bias_launches,
+                max_abs_err=max(c[k] for c in checks for k in keys[name]
+                                if k in c))
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -8777,6 +9537,15 @@ def run_phases():
                 log("ptxas flash fp32-output instantiations, registers "
                     "(bf16 twin's): " + json.dumps(
                         {k[-48:]: r for k, r in sorted(f32_regs.items())}))
+                # the 28 bias instantiations: registers and spills
+                with open(csrc.log_path(name)) as f:
+                    bias_regs = bias_ptxas(f.read())
+                log("ptxas flash bias instantiations (<head_dim, dropout"
+                    "[, dq], bias mode>: registers, spills, serialised-"
+                    "wgmma notes): " + json.dumps(
+                        {k: (r.get("registers"), r.get("spills", "")[:60],
+                             r["notes"])
+                         for k, r in sorted(bias_regs.items())}))
 
     # ---- 2. kernels vs plain -----------------------------------------
     rng = torch.Generator(device="cuda").manual_seed(1234)
@@ -9018,6 +9787,13 @@ def run_phases():
         + json.dumps(f32_errs))
     log("packed forward with unpacked backward routes "
         + json.dumps(check_packed_routes(torch, fa, ln, ok, rng)))
+    # slice 25: the additive bias in the four unpacked kernels, full and
+    # key-compact, ragged, d 64 and 128, causal or not, with dropout
+    bias_errs = {}
+    for kw in BIAS_CHECKS:
+        bias_errs[json.dumps(kw)] = check_flash_bias(torch, fa, rng, **kw)
+    log("flash bias (forward, fused, dq pass, dk/dv pass and their dbias "
+        "vs the plain versions) " + json.dumps(bias_errs))
     ew = check_elementwise(torch, ok, rng)
     errs["elementwise"] = max(ew["axpy"], ew["adam"])
     errs["elementwise_launches"] = ew["launches"]
@@ -9288,7 +10064,11 @@ def run_phases():
     slice24 = slice24_phase(torch, fa, ln, ok, smi)
     torch.cuda.empty_cache()
 
-    # ---- 22. kernel table --------------------------------------------
+    # ---- 22. slice 25: contrib and the additive flash bias -------------
+    slice25 = slice25_phase(torch, fa, ln, wf, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 23. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -9403,6 +10183,7 @@ def run_phases():
     add_slice22_columns(table["kernels"], slice22)
     add_slice23_columns(table["kernels"], slice23)
     add_slice24_columns(table["kernels"], slice24)
+    add_slice25_columns(table["kernels"], slice25)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

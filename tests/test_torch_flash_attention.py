@@ -850,7 +850,9 @@ def test_cuda_dispatch_takes_dropout_and_draws_the_seed_on_the_host(
     """On CUDA (here: `check_kernel_device` stood in to say so) dropout
     goes to `_FlashFn` with the rate and (one host draw from the key, 0,
     0), as the JAX package draws an int32 from its key for its kernels; a
-    bias still raises NotImplementedError."""
+    bias reaches `_FlashFn` with `bias_grad` (hp 1: the kernels' bias
+    runs unpacked), an explicit heads_per_step > 1 with a bias raises
+    NotImplementedError, and so do the chunk entry points given one."""
     got = []
     monkeypatch.setattr(tfa, "check_kernel_device", lambda *t: True)
     monkeypatch.setattr(tfa._FlashFn, "apply",
@@ -865,10 +867,23 @@ def test_cuda_dispatch_takes_dropout_and_draws_the_seed_on_the_host(
                            (want_seed, 0, 0))
     tfa.flash_attention(x, x, x, causal=True)
     assert len(got[-1]) == 8            # rate 0: no dropout arguments
-    with pytest.raises(NotImplementedError, match="bias"):
-        tfa.flash_attention(x, x, x, bias=torch.zeros(1, 1, 1, 64),
-                            dropout_rate=0.1,
-                            dropout_key=torch.Generator().manual_seed(3))
+    bias = torch.zeros(1, 1, 1, 64)
+    tfa.flash_attention(x, x, x, bias=bias, dropout_rate=0.1,
+                        dropout_key=torch.Generator().manual_seed(3))
+    assert got[-1][3:10] == (0.125, False, None, None, 1, 0.1,
+                             (want_seed, 0, 0))
+    assert got[-1][10] is bias and got[-1][11] is True
+    assert tfa._bias_kind(got[-1][10], 64) == "sk"
+    tfa.flash_attention(x, x, x, bias=bias, bias_grad=False)
+    assert got[-1][8:] == (0.0, (0, 0, 0), bias, False)
+    with pytest.raises(NotImplementedError, match="item 38"):
+        tfa.flash_attention(x, x, x, bias=torch.zeros(1, 4, 64, 64),
+                            heads_per_step=2)
+    with pytest.raises(NotImplementedError, match="item 38"):
+        tfa._fwd_impl(x, x, x, 0.125, False, bias=bias)
+    with pytest.raises(NotImplementedError, match="item 38"):
+        tfa._bwd_impl(x, x, x, x, torch.zeros(2, 4, 64), x, 0.125, False,
+                      want_dbias=True)
     # the launchers refuse a rate outside [0, 1) before any launch
     with pytest.raises(ValueError, match="dropout_rate"):
         tfa._drop_args(1.0, (0, 0, 0))

@@ -1,8 +1,8 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
 pipeline-parallel files, tests/test_torch_bert_tp.py,
-tests/test_torch_checkpoint_sharded.py, tests/test_torch_trace.py and
-tests/test_torch_comms.py).
+tests/test_torch_checkpoint_sharded.py, tests/test_torch_trace.py,
+tests/test_torch_comms.py and tests/test_torch_contrib.py).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -1261,6 +1261,44 @@ def scn_comms(d, rank, world):
         out[name]["timeline"] = tl.to_dict()
         out[name]["crosscheck"] = monitor.crosscheck_comms(tl, rep)
     _restore()
+    return out
+
+
+def scn_contrib(d, rank, world):
+    """The contrib collectives: spatial_conv2d over this rank's band of
+    H rows (its output, the input's gradient and the weight's, summed
+    over the ranks), PeerHaloExchanger1d over a 32-row ramp, and
+    BatchNorm2d_NHWC over two groups of world / 2 ranks (fuse_relu with
+    the add-ReLU of z)."""
+    from apex_tpu_torch.contrib.bottleneck import spatial_conv2d
+    from apex_tpu_torch.contrib.groupbn import BatchNorm2d_NHWC
+    from apex_tpu_torch.contrib.peer_memory import PeerHaloExchanger1d
+
+    rows = d["x"].shape[1] // world
+    band = slice(rank * rows, (rank + 1) * rows)
+    x = t(d["x"][:, band]).requires_grad_(True)
+    w = t(d["w"]).permute(3, 0, 1, 2).contiguous().requires_grad_(True)
+    y = spatial_conv2d(x, w, "dp")
+    (y * t(d["gy"][:, band])).sum().backward()
+    gw = w.grad.clone()
+    dist.all_reduce(gw)
+    out = {"y": n(y), "gx": n(x.grad), "gw": n(gw)}
+    ramp = torch.arange(32.0).reshape(1, 32, 1, 1)[:, 8 * rank:8 * rank + 8]
+    left, right = PeerHaloExchanger1d(half_halo=1, axis_name="dp")(ramp)
+    out.update(left=n(left), right=n(right))
+    half = world // 2
+    groups = [dist.new_group(list(range(g * half, (g + 1) * half)))
+              for g in range(2)]
+    mine = groups[rank // half]
+    per = d["bn_x"].shape[0] // world
+    sl = slice(rank * per, (rank + 1) * per)
+    bn = BatchNorm2d_NHWC(6, fuse_relu=True, bn_group=half,
+                          process_group=mine, device="cpu")
+    params, state = bn.init(device="cpu")
+    yb, st = bn.apply(params, state, t(d["bn_x"][sl]), training=True,
+                      z=t(d["bn_z"][sl]))
+    out.update(bn=n(yb), bn_rm=n(st["running_mean"]),
+               bn_rv=n(st["running_var"]))
     return out
 
 
