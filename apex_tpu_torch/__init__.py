@@ -52,20 +52,76 @@ Subpackages (lazily importable):
                 hops, the clocked schedules, the host-driven 1F1B
                 driver, the weight-decay grouping), the microbatch
                 calculators, the model-parallel-aware GradScaler of
-                `amp` and the attention softmax dispatch of functional
-                (FusedScaleMaskSoftmax)
-  checkpoint  — the serving fail points (chaos)
-  monitor     — the recompile sentry
+                `amp`, the attention softmax dispatch of functional
+                (FusedScaleMaskSoftmax), the batch samplers of `_data`,
+                `broadcast_data` and the activation arenas of
+                `tensor_parallel`, and the test harness of `testing`
+  checkpoint  — the shard-native checkpoints: the format, the async
+                CheckpointManager, elastic re-shard, the multi-host
+                commit, the orchestrator, the legacy single-file format
+                and the serving fail points (chaos)
+  monitor     — the telemetry plane (on-device metrics, sinks, the
+                logger, flops, watermarks, the tap plane and the flight
+                recorder of trace/) and the observatories (the profiler
+                capture, the timeline, the compile audit, the comms
+                inventory, the recompile sentry)
   tune        — the kernel tuner: the JSON config cache the JAX package
                 shares, the lookups, the offline sweep
+  csrc        — the CUDA kernels' build-on-first-use loader, and the
+                host runtime (g++: flat layouts, chunk plans, the epoch
+                shuffle, the threaded row gather)
+  rnn         — RNNReLU, RNNTanh, LSTM, GRU and mLSTM, stacked and
+                bidirectional (also as `RNN`)
+  utils       — the phase timers and the per-module loggers
 """
 
+import logging as _logging
+
 __version__ = "0.1.0"
+
+
+class RankInfoFormatter(_logging.Formatter):
+    """Log formatter that stamps `rank_info` on each record: this
+    process's rank and the group sizes (`parallel.mesh.get_rank_info()`,
+    "uninit" when that cannot be read)."""
+
+    def format(self, record):
+        from apex_tpu_torch.parallel import mesh as _mesh
+
+        try:
+            info = _mesh.get_rank_info()
+        except Exception:
+            info = "uninit"
+        record.rank_info = info
+        return super().format(record)
+
+
+_logger = _logging.getLogger(__name__)
+_logger.addHandler(_logging.NullHandler())
+
+
+def deprecated_warning(msg: str) -> None:
+    """Emit `msg` as a FutureWarning, from global rank 0 only (every
+    process warns when torch.distributed is not initialized)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_rank() != 0:
+        return
+    warnings.warn(msg, FutureWarning, stacklevel=2)
+
+
+def _get_logger(name=None):
+    return _logging.getLogger(name or __name__)
+
 
 _LAZY_SUBMODULES = {"ops", "serve", "models", "optimizers", "transformer",
                     "checkpoint", "monitor", "csrc", "amp", "parallel",
                     "contrib", "multi_tensor_apply", "fused_dense", "mlp",
-                    "normalization", "tune", "fp16_utils", "moe"}
+                    "normalization", "tune", "fp16_utils", "moe", "rnn",
+                    "utils"}
 
 
 def __getattr__(name):
@@ -73,5 +129,7 @@ def __getattr__(name):
 
     if name in _LAZY_SUBMODULES:
         return importlib.import_module(f"apex_tpu_torch.{name}")
+    if name == "RNN":  # the reference's `apex.RNN`
+        return importlib.import_module("apex_tpu_torch.rnn")
     raise AttributeError(
         f"module 'apex_tpu_torch' has no attribute {name!r}")

@@ -659,6 +659,20 @@ def all_to_all(out, inp, group=None, async_op: bool = False):
     return _issue("all-to-all", (inp,), (out,), group, async_op, run)
 
 
+def broadcast(x, src: int = 0, group=None, async_op: bool = False):
+    """`x` := global rank `src`'s `x` on every rank of `group`, in place
+    and returned (with `async_op`, the work handle); the identity without
+    a group.  As the JAX package's `broadcast_one_to_all`: every rank but
+    `src` zeroes its `x` and the group sums, so the comms inventory sees
+    one all-reduce (the JAX package's collective kinds have no
+    broadcast) and `src`'s values come back exactly."""
+    if group is None:
+        return None if async_op else x
+    if dist.get_rank() != src:
+        x.zero_()
+    return all_reduce(x, "sum", group, async_op)
+
+
 def exchange(sends, group):
     """Point-to-point over `group`: `sends` is a list of (tensor, dst,
     recv buffer, src) with group ranks; every send and receive is issued

@@ -6,8 +6,10 @@ RNG keys), `pipeline_parallel` (the p2p hops, the clocked schedules, the
 host-driven 1F1B driver, the microbatch utilities, the weight-decay
 grouping), the microbatch calculators of `microbatches`, `layers` (the
 sequence-parallel LayerNorm), the pp x tp x dp training step of
-`training`, the attention softmax dispatch of `functional` and the
-model-parallel-aware GradScaler of `amp`."""
+`training`, the attention softmax dispatch of `functional`, the
+model-parallel-aware GradScaler of `amp`, the Megatron batch samplers of
+`_data`, and `testing` (the toy modules, the argument parser, the
+global state of test harnesses, the standalone models' names)."""
 
 from apex_tpu_torch.parallel import mesh as parallel_state  # noqa: F401
 
@@ -16,6 +18,6 @@ def __getattr__(name):
     import importlib
 
     if name in ("tensor_parallel", "pipeline_parallel", "functional",
-                "layers", "training", "amp", "microbatches"):
+                "layers", "training", "amp", "microbatches", "testing"):
         return importlib.import_module(f"apex_tpu_torch.transformer.{name}")
     raise AttributeError(name)

@@ -1,8 +1,8 @@
 """apex_tpu_torch.transformer.tensor_parallel (counterpart of
 apex_tpu.transformer.tensor_parallel): Megatron-style parallel layers,
 the region collectives (≡ mappings.py), the vocab-parallel cross
-entropy, RNG keys and activation-checkpoint helpers.  `broadcast_data`
-(`data.py`) comes with ROADMAP Queue 1 item 25."""
+entropy, `broadcast_data`, RNG keys, activation-checkpoint helpers and
+the activation arenas of `memory`."""
 
 from apex_tpu_torch.parallel.collectives import (  # noqa: F401  (≡ mappings.py)
     copy_to_tensor_model_parallel_region,
@@ -16,6 +16,7 @@ from apex_tpu_torch.parallel.collectives import (  # noqa: F401  (≡ mappings.p
 from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (  # noqa: F401
     vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.data import broadcast_data  # noqa: F401
 from apex_tpu_torch.transformer.tensor_parallel.layers import (  # noqa: F401
     ColumnParallelLinear,
     RowParallelLinear,

@@ -566,7 +566,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  full and a key-compact bias and the dbias each writes
                  at (8, 16, 1024, 64), beside their bounds, the plain
                  versions and SDPA with a float attn_mask.
- 23. table       the kernels' times on the card (CUDA events) beside
+ 23. slice 26    the eight examples that are twins of the JAX
+                 package's, through their `main(argv)` at the JAX
+                 examples' widths, each from zeroed launch counters
+                 and its launches held exactly, its output logged:
+                 (a) simple_distributed (64 x 8 regression, 20
+                 FusedSGD steps, a one-rank NCCL group; the loss
+                 falls), bench_optimizers (2^27 and 1e9 fp32 params,
+                 bf16 grads, 3 + 20 Adam launches each, GB/s against
+                 the card's bandwidth), imagenet_amp (ResNet-50 O1,
+                 batch 64 of 224^2, 20 iterations, the host runtime's
+                 shuffle, --save), bench_bert (BERT-Large, 8 x 512,
+                 flash, FusedLAMB with no wd_mask: 2 + 10 steps of one
+                 unsegmented LAMB phase 1), gpt_scaling_test (the JAX
+                 SWEEP, 8 x 512, remat, FusedAdam fp32 master, 1 + 5
+                 steps a point; the hidden-1536 point's head_dim 96 on
+                 the dense path), dcgan_amp (batch 64, 32^2, O1, three
+                 loss scalers, 20 iterations), serve_gpt (GPT-350M, 64
+                 streams, generous --slo-* and --deadline-ms, exit 0;
+                 then --drain-after-steps 8, exit 0) and
+                 zero_memory_report (GPT-1.3B, DistributedFusedAdam on
+                 a one-rank NCCL group: analyze_step's bytes beside the
+                 analytic p + m + v at dp 8, one step); (b) the library:
+                 mLSTM(64, 4096) at batch 128 x seq 256, LSTM and GRU
+                 of 2 bidirectional layers of 1024, forward + backward
+                 in bf16 against fp32 from the same params (relative
+                 L2: outputs 2e-2, gradients 6e-2) and their ms; the
+                 blocking timer against a long kernel's CUDA events;
+                 MemoryBuffer's views of one arena; broadcast_data and
+                 mesh.broadcast on a one-rank NCCL group, seen by the
+                 comms inventory; the host runtime built with g++, its
+                 outputs the CPU's bits.
+ 24. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -591,7 +622,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  buffers', each kernel's launches in slice 17's, 19's,
                  20's, 21's, 22's, 23's and 24's legs (the backward rows'
                  fp32 launches apart), the four unpacked flash kernels'
-                 bias launches and bias times (phase 22),
+                 bias launches and bias times (phase 22), each kernel's
+                 launches in phase 23's examples,
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -607,6 +639,7 @@ the rest of the repository beside it, the script fails before printing
 any result.
 """
 
+import contextlib
 import itertools
 import json
 import math
@@ -9326,6 +9359,418 @@ def add_slice25_columns(rows, slice25):
                                 if k in c))
 
 
+# ----------- slice 26: the eight examples and the root modules -----------
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+# sha256 over the host runtime's shuffle_indices(1e6, 1234), flat_layout
+# of 999 sizes at align 128 and chunk_plan of 299 sizes by 65536, as the
+# CPU computes them (`host_runtime_digest`)
+HOST_RUNTIME_DIGEST = ("6dd210306bda63799924344fe63fdf61"
+                       "f9baee404eda4e661717b25fe65123d9")
+# bf16 against fp32 on the same params (relative L2), the RNN legs
+RNN_OUT_TOL, RNN_GRAD_TOL = 2e-2, 6e-2
+
+
+def slice26_counters(fa, ln, ok, xe, wf, fd):
+    """The launch counters phase 23 reads, by kernel-table row name."""
+    out = dict(training_kernels(fa, ln, ok))
+    out.update(resnet_kernels(xe, wf, ok))
+    out["flash_decode"] = fd.flash_decode_cuda
+    return out
+
+
+def example_module(name):
+    """examples/<name>.py of this checkout, imported."""
+    import importlib
+
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    return importlib.import_module(name)
+
+
+def run_example(torch, counters, name, argv):
+    """examples/<name>.py's `main(argv)` from zeroed launch counters, its
+    standard output logged line by line.  Returns (what main returned,
+    the launches by row name (the nonzero ones), the seconds it took)."""
+    import io
+
+    mod = example_module(name)
+    for fn in counters.values():
+        fn.launches = 0
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = mod.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"{name}: {line}")
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    log(f"{name} {' '.join(argv)}: {seconds:.1f}s, launches "
+        f"{json.dumps(launches)}")
+    return ret, launches, seconds
+
+
+def want_launches(what, got, per_step, steps):
+    """The launches of `steps` steps at `per_step` each, exactly (every
+    other counter zero)."""
+    want = {k: n * steps for k, n in per_step.items() if n}
+    check(got == want, f"{what}: launches {got}, want {want} ({steps} "
+          f"steps of {per_step})")
+
+
+def finite_losses(what, losses):
+    check(len(losses) > 0 and all(math.isfinite(x) for x in losses),
+          f"{what}: a loss is not finite: {losses}")
+
+
+@contextlib.contextmanager
+def one_rank_nccl(torch):
+    """The card as a torch.distributed NCCL group of one rank (an
+    in-process HashStore), torn down after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def examples_leg(torch, fa, counters, tmp):
+    """Phase 23 (a): the eight examples through their `main(argv)` at the
+    JAX examples' widths, each from zeroed counters, their gates."""
+    out = {}
+    with one_rank_nccl(torch):
+        losses, got, s = run_example(torch, counters,
+                                     "torch_simple_distributed", [])
+        finite_losses("simple_distributed", losses)
+        check(len(losses) == 20 and losses[-1] < losses[0],
+              f"simple_distributed: losses {losses}")
+        want_launches("simple_distributed", got, {"sgd": 1}, 20)
+        out["simple_distributed"] = {"first_loss": losses[0],
+                                     "final_loss": losses[-1], "s": s,
+                                     "launches": got}
+
+    recs, got, s = run_example(torch, counters, "torch_bench_optimizers",
+                               [])
+    want_launches("bench_optimizers", got, {"adam": 1}, 2 * 23)
+    for r in recs:
+        r["hbm_share"] = r["gb_per_s"] * 1e9 / HBM_BYTES_PER_S
+    out["bench_optimizers"] = {"records": recs, "s": s, "launches": got}
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "imagenet_ck")
+    res, got, s = run_example(torch, counters, "torch_imagenet_amp", [
+        "--iters", "20", "--print-freq", "10", "--save", ck])
+    finite_losses("imagenet_amp", res["losses"])
+    check(len(res["losses"]) == 20, "imagenet_amp: 20 losses")
+    want_launches("imagenet_amp", got, {"channel_sums": 53, "xent_fwd": 1,
+                                        "xent_bwd": 1, "sgd": 1}, 20)
+    check(os.path.exists(os.path.join(ck, "state.pkl")),
+          "imagenet_amp --save wrote no state.pkl")
+    out["imagenet_amp"] = {"img_per_s": res["img_per_s"], "s": s,
+                           "launches": got,
+                           "first_loss": res["losses"][0],
+                           "last_loss": res["losses"][-1]}
+    torch.cuda.empty_cache()
+
+    res, got, s = run_example(torch, counters, "torch_bench_bert", [])
+    finite_losses("bench_bert", res["losses"])
+    want_launches("bench_bert", got, {
+        "flash_attention_fwd": 24, "flash_attention_bwd": 24,
+        "layer_norm_fwd": 50, "layer_norm_bwd": 50, "lamb_phase1": 1,
+        "rows_sumsq_seg": 2, "lamb_phase2_seg": 1}, 12)
+    out["bench_bert"] = dict(res["record"], s=s, launches=got,
+                             losses=[res["losses"][0], res["losses"][-1]])
+    torch.cuda.empty_cache()
+
+    points = []
+    for hidden, layers, heads in example_module(
+            "torch_gpt_scaling_test").SWEEP:
+        res, got, s = run_example(torch, counters, "torch_gpt_scaling_test",
+                                  ["--min-hidden", str(hidden),
+                                   "--max-hidden", str(hidden)])
+        (pt,) = res
+        finite_losses(f"gpt_scaling h{hidden}", pt["losses"])
+        attn = (("flash_attention_fwd", "flash_attention_bwd")
+                if pt["flash"] else ("softmax_fwd", "softmax_bwd"))
+        check(pt["flash"] == (hidden // heads in fa._KERNEL_HEAD_DIMS),
+              f"gpt_scaling h{hidden}: attention path")
+        # remat: each block's forward runs again in the backward
+        want_launches(f"gpt_scaling h{hidden}", got, {
+            attn[0]: 2 * layers, attn[1]: layers,
+            "layer_norm_fwd": 4 * layers + 1,
+            "layer_norm_bwd": 2 * layers + 1, "adam": 1}, 6)
+        points.append(dict(pt, losses=[pt["losses"][0], pt["losses"][-1]],
+                           s=s, launches=got))
+        torch.cuda.empty_cache()
+    out["gpt_scaling"] = points
+
+    res, got, s = run_example(torch, counters, "torch_dcgan_amp",
+                              ["--iters", "20"])
+    finite_losses("dcgan_amp", res["loss_d"] + res["loss_g"])
+    want_launches("dcgan_amp", got, {"adam": 2}, 20)
+    out["dcgan_amp"] = {"img_per_s": res["img_per_s"], "s": s,
+                        "first_iter_s": res["first_iter_s"],
+                        "img_per_s_after_first":
+                            res["img_per_s_after_first"],
+                        "launches": got,
+                        "loss_d": res["loss_d"][-1],
+                        "loss_g": res["loss_g"][-1]}
+
+    serve = {}
+    for what, argv in (("serve", ["--slo-ttft-p99-ms", "5000",
+                                  "--slo-token-p99-ms", "250",
+                                  "--deadline-ms", "600000"]),
+                       ("drain", ["--drain-after-steps", "8"])):
+        rc, got, s = run_example(torch, counters, "torch_serve_gpt", argv)
+        check(rc == 0, f"serve_gpt {what}: exit code {rc}")
+        n_dec, n_ln = got.get("flash_decode", 0), got.get(
+            "layer_norm_fwd", 0)
+        check(n_dec > 0 and n_dec % 24 == 0 and n_ln > 0 and n_ln % 49 == 0
+              and set(got) == {"flash_decode", "layer_norm_fwd"},
+              f"serve_gpt {what}: launches {got}, want 24 flash-decode and "
+              f"49 LayerNorm launches an engine step")
+        serve[what] = {"rc": rc, "launches": got, "s": s}
+    out["serve_gpt"] = serve
+    torch.cuda.empty_cache()
+
+    with one_rank_nccl(torch):
+        res, got, s = run_example(torch, counters,
+                                  "torch_zero_memory_report", [])
+    finite_losses("zero_memory_report", [res["loss"]])
+    # analyze_step's run on clones, then one real step; remat
+    want_launches("zero_memory_report", got, {
+        "flash_attention_fwd": 48, "flash_attention_bwd": 24,
+        "layer_norm_fwd": 97, "layer_norm_bwd": 49, "adam": 1}, 2)
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(res["peak_bytes"] < total, f"zero_memory_report: peak "
+          f"{res['peak_bytes']} of {total} bytes")
+    out["zero_memory_report"] = dict(res, s=s, launches=got,
+                                     measured_over_analytic_state=(
+                                         res["argument_bytes"]
+                                         / res["state_bytes"]))
+    torch.cuda.empty_cache()
+    return out
+
+
+def rnn_case(torch, rnn, cls, args, batch, seq, in_dim, warm=1, iters=3):
+    """One RNN forward + backward at (seq, batch, in_dim) in bf16 and in
+    fp32 from the same params on the card: the relative L2 of the output
+    and of the input's and every weight's gradient, bf16 against fp32,
+    and the bf16 and fp32 ms a forward + backward (CUDA events).  The
+    params come from `init` with no device, which is the card's."""
+    m = getattr(rnn, cls)(*args)
+    p32 = m.init(torch.Generator().manual_seed(0))
+    check(all(t.is_cuda for q in p32 for t in q.values()),
+          f"{cls}.init with no device left params off the card")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((seq, batch, in_dim), generator=gen, device="cuda")
+    gy = torch.randn((seq, batch, args[1] * (2 if args[3] else 1)),
+                     generator=gen, device="cuda")
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = [{k: v.to(dt).requires_grad_(True) for k, v in q.items()}
+             for q in p32]
+        xx = x.to(dt).requires_grad_(True)
+        wanted = [xx] + [t for q in p for k, t in sorted(q.items())
+                         if k.startswith("w_")]
+
+        def fwd_bwd():
+            y = m.apply(p, xx)
+            return y, torch.autograd.grad(y, wanted, gy.to(dt))
+
+        for _ in range(warm):
+            fwd_bwd()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(iters):
+            y, grads = fwd_bwd()
+        end.record()
+        torch.cuda.synchronize()
+        res[dt] = (y, grads, start.elapsed_time(end) / iters)
+    y32, g32, ms32 = res[torch.float32]
+    y16, g16, ms16 = res[torch.bfloat16]
+    out_err = rel_l2(torch, y16, y32)
+    grad_err = max(rel_l2(torch, a, b) for a, b in zip(g16, g32))
+    check(math.isfinite(out_err) and out_err <= RNN_OUT_TOL,
+          f"{cls}: bf16 output rel L2 {out_err} > {RNN_OUT_TOL}")
+    check(math.isfinite(grad_err) and grad_err <= RNN_GRAD_TOL,
+          f"{cls}: bf16 gradient rel L2 {grad_err} > {RNN_GRAD_TOL}")
+    return {"config": f"{cls}{args} batch {batch} seq {seq} input {in_dim}",
+            "out_rel_l2": out_err, "grad_rel_l2_max": grad_err,
+            "bf16_ms": ms16, "fp32_ms": ms32}
+
+
+def timers_check(torch):
+    """`Timers.stop(block=True)` around a long kernel reads at least its
+    CUDA-event time; the non-blocking read (the launch only) beside it."""
+    from apex_tpu_torch.utils import Timers
+
+    t = Timers()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    torch.cuda.synchronize()
+    t("blocking").start()
+    start.record()
+    torch.cuda._sleep(int(1e8))
+    end.record()
+    t("blocking").stop(block=True)
+    event_ms = start.elapsed_time(end)
+    blocking_ms = 1e3 * t("blocking").elapsed()
+    torch.cuda.synchronize()
+    t("launch").start()
+    torch.cuda._sleep(int(1e8))
+    t("launch").stop()
+    launch_ms = 1e3 * t("launch").elapsed()
+    torch.cuda.synchronize()
+    check(blocking_ms >= event_ms, f"Timers: the blocking read {blocking_ms}"
+          f" ms is under the kernel's {event_ms} ms")
+    return {"event_ms": event_ms, "blocking_ms": blocking_ms,
+            "non_blocking_ms": launch_ms, "log": t.log(["launch"])}
+
+
+def arena_check(torch):
+    """`MemoryBuffer` on the card: views of one arena's storage."""
+    from apex_tpu_torch.transformer.tensor_parallel.memory import (
+        MemoryBuffer)
+
+    buf = MemoryBuffer("act", 768 * 1024, torch.bfloat16, track_usage=True)
+    a, b = buf.add((512, 1024)), buf.add((256, 1024))
+    base = buf.get_data().untyped_storage().data_ptr()
+    check(a.is_cuda and a.untyped_storage().data_ptr() == base
+          and b.untyped_storage().data_ptr() == base
+          and b.data_ptr() - a.data_ptr() == 512 * 1024 * 2,
+          "MemoryBuffer: the views do not share the arena's storage")
+    b.fill_(3)
+    check(float(buf.get_data()[512 * 1024:].float().sum())
+          == 3 * 256 * 1024, "MemoryBuffer: a view's write missed the arena")
+    try:
+        buf.add((1,))
+    except RuntimeError as e:
+        check("out of space" in str(e), f"MemoryBuffer: {e}")
+    else:
+        check(False, "MemoryBuffer: a full arena handed out more")
+    return {"arena_bytes": buf.get_data().numel() * 2,
+            "in_use": buf.in_use_value}
+
+
+def broadcast_check(torch):
+    """`broadcast_data` on a one-rank NCCL group (the entries on the card,
+    the values kept), and `mesh.broadcast` over the world recorded by the
+    comms inventory as one all-reduce (the JAX package's spelling of a
+    broadcast: the sum of the source's values and zeros elsewhere)."""
+    import numpy as np
+
+    from apex_tpu_torch.monitor.comms.inventory import (InventoryRecorder,
+                                                        recording)
+    from apex_tpu_torch.parallel import mesh
+    from apex_tpu_torch.transformer.tensor_parallel import broadcast_data
+
+    with one_rank_nccl(torch) as dist:
+        batch = {"text": np.arange(8 * 512, dtype=np.int32).reshape(8, 512)}
+        rec = InventoryRecorder()
+        with recording(rec):
+            got = broadcast_data(["text"], batch)
+            mesh.broadcast(got["text"], src=0, group=dist.group.WORLD)
+        torch.cuda.synchronize()
+        check(got["text"].is_cuda and bool((got["text"].cpu().numpy()
+                                            == batch["text"]).all()),
+              "broadcast_data: the batch changed")
+        kinds = [(e["kind"], e["backend"]) for e in rec.entries]
+        check(kinds == [("all-reduce", "nccl")],
+              f"mesh.broadcast: the inventory recorded {kinds}")
+    return {"inventory": kinds}
+
+
+def host_runtime_check():
+    """The host runtime built with this machine's g++; its outputs the
+    CPU's bits (`HOST_RUNTIME_DIGEST`)."""
+    import hashlib
+
+    import numpy as np
+
+    from apex_tpu_torch import csrc
+
+    t0 = time.perf_counter()
+    so = csrc.build_host()
+    build_s = time.perf_counter() - t0
+    h = hashlib.sha256()
+    h.update(csrc.shuffle_indices(1_000_000, 1234).tobytes())
+    h.update(csrc.flat_layout(np.arange(1, 1000) * 37, 128)[0].tobytes())
+    h.update(csrc.chunk_plan(np.arange(1, 300) * 1001, 65536).tobytes())
+    check(h.hexdigest() == HOST_RUNTIME_DIGEST,
+          f"host runtime: digest {h.hexdigest()}, the CPU's "
+          f"{HOST_RUNTIME_DIGEST}")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()[0]
+    return {"library": os.path.basename(so), "build_s": build_s,
+            "g++": gxx}
+
+
+def library_leg(torch):
+    """Phase 23 (b): the RNN zoo at its widths in bf16 against fp32, the
+    timers, the arena, the broadcast and the host runtime."""
+    from apex_tpu_torch import rnn
+
+    out = {"rnn": []}
+    # the sentiment neuron: one mLSTM layer of 4096, input 64; then two
+    # bidirectional layers of 1024
+    for cls, args, in_dim in (("mLSTM", (64, 4096, 1, False), 64),
+                              ("LSTM", (1024, 1024, 2, True), 1024),
+                              ("GRU", (1024, 1024, 2, True), 1024)):
+        out["rnn"].append(rnn_case(torch, rnn, cls, args, 128, 256, in_dim))
+        log("slice 26 (b) rnn " + json.dumps(out["rnn"][-1]))
+        torch.cuda.empty_cache()
+    for name, fn in (("timers", timers_check), ("arena", arena_check),
+                     ("broadcast", broadcast_check)):
+        out[name] = fn(torch)
+        log(f"slice 26 (b) {name} " + json.dumps(out[name]))
+    out["host_runtime"] = host_runtime_check()
+    return out
+
+
+def slice26_phase(torch, fa, ln, ok, xe, wf, fd, smi):
+    """Phase 23 (module docstring): (a) the eight examples, (b) the
+    library on the card; a temporary directory removed after."""
+    t0 = time.perf_counter()
+    counters = slice26_counters(fa, ln, ok, xe, wf, fd)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        out = {"examples": examples_leg(torch, fa, counters, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t1 = time.perf_counter()
+    log("slice 26 (a) examples " + json.dumps(out["examples"]))
+    out["library"] = library_leg(torch)
+    log("slice 26 (b) host runtime "
+        + json.dumps(out["library"]["host_runtime"]))
+    log(f"phase 23 {time.perf_counter() - t0:.1f}s ((a) {t1 - t0:.1f}s; "
+        f"{smi})")
+    return out
+
+
+def add_slice26_columns(rows, slice26):
+    """The kernel table's slice-26 column: on each row, its launches in
+    phase 23 (a)'s example runs, by example."""
+    ex = slice26["examples"]
+    runs = {name: ex[name]["launches"] for name in (
+        "simple_distributed", "bench_optimizers", "imagenet_amp",
+        "bench_bert", "dcgan_amp", "zero_memory_report")}
+    runs.update({f"gpt_scaling h{p['hidden']}": p["launches"]
+                 for p in ex["gpt_scaling"]})
+    runs.update({f"serve_gpt {what}": r["launches"]
+                 for what, r in ex["serve_gpt"].items()})
+    for row in rows:
+        col = {what: got[row["name"]] for what, got in runs.items()
+               if row["name"] in got}
+        if col:
+            row["launches_slice26"] = col
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -10068,7 +10513,11 @@ def run_phases():
     slice25 = slice25_phase(torch, fa, ln, wf, smi)
     torch.cuda.empty_cache()
 
-    # ---- 23. kernel table --------------------------------------------
+    # ---- 23. slice 26: the eight examples and the root modules ---------
+    slice26 = slice26_phase(torch, fa, ln, ok, xe, wf, fd, smi)
+    torch.cuda.empty_cache()
+
+    # ---- 24. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -10184,6 +10633,7 @@ def run_phases():
     add_slice23_columns(table["kernels"], slice23)
     add_slice24_columns(table["kernels"], slice24)
     add_slice25_columns(table["kernels"], slice25)
+    add_slice26_columns(table["kernels"], slice26)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -29,9 +29,12 @@ saves the optimizer + scaler state every `--ckpt-every` steps, the
 logger stamps the ckpt_* fields, and `--resume` restores the latest
 committed step (and the batch generator's state) before training.
 
-The JAX example's phase timers (`utils.timers`) are not ported, so the
-step's wall time is the logger's own; its `--force-cpu-devices` has no
-counterpart (the world is the launcher's, one rank without it).
+Each step also runs under the phase timer "train-step"
+(`apex_tpu_torch.utils.Timers`, stopped with `block=True`, so it waits
+for the card), whose reading `Timers.write(names, logger.writer, step)`
+lands in the same metrics stream as `train-step-time`, as in the JAX
+example; its `--force-cpu-devices` has no counterpart (the world is the
+launcher's, one rank without it).
 
   python examples/torch_train_with_monitor.py --steps 10 \\
       --jsonl /tmp/metrics.jsonl [--profile-steps 3:6] \\
@@ -60,6 +63,7 @@ from apex_tpu_torch.ops._common import resolve_device  # noqa: E402
 from apex_tpu_torch.optimizers import FusedAdam  # noqa: E402
 from apex_tpu_torch.parallel import ddp  # noqa: E402
 from apex_tpu_torch.parallel import mesh as M  # noqa: E402
+from apex_tpu_torch.utils import Timers  # noqa: E402
 
 
 def parse(argv=None):
@@ -168,6 +172,7 @@ def main(argv=None):
         taps=flight, sentry=sentry, memory=True, ckpt=manager)
     metrics = monitor.init_metrics(dev)
     cap = _capture(args, dev)
+    timers = Timers()
 
     gen = torch.Generator().manual_seed(1 + M.group_rank(
         M.data_parallel_group()))
@@ -231,9 +236,11 @@ def main(argv=None):
             batch = make_batch()
             t0 = time.perf_counter()
             with cap.step(i):
+                timers("train-step").start()
                 out = run_step(batch, metrics, prev_durations)
                 box["opt"], box["scaler"], loss, metrics = out[:4]
                 tap_state, rank_timings = out[4], out[5]
+                timers("train-step").stop(block=True)
             prev_durations = (time.perf_counter() - t0, 0.0)
             if args.profile_steps and logger.timeline is None \
                     and not cap.active and cap.trace_path() is not None:
@@ -247,6 +254,7 @@ def main(argv=None):
                 recorder.record(i, metrics=rec, taps=tap_state,
                                 timings=rank_timings,
                                 tap_names=train_step.tap_names())
+            timers.write(["train-step"], logger.writer, i, reset=True)
             if manager is not None:
                 manager.maybe_save(start_step + i + 1, box["opt"],
                                    box["scaler"],

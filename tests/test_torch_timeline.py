@@ -563,8 +563,9 @@ def test_both_validators_agree(case):
 
 def test_train_with_monitor_example(tmp_path):
     """examples/torch_train_with_monitor.py on the CPU: 3 steps with a
-    capture over steps 0-1 and a flight report; the JSONL validates and
-    its last record carries the timeline stamps, the report validates,
+    capture over steps 0-1 and a flight report; the JSONL's step records
+    validate, its last carries the timeline stamps, and the phase
+    timer's rows sit beside them, the report validates,
     renders and carries the audit with its comms plane."""
     import subprocess
     import sys
@@ -583,10 +584,17 @@ def test_train_with_monitor_example(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "=== timeline: steps 0:2 ===" in proc.stdout
     with open(jsonl) as f:
-        records = [json.loads(line) for line in f]
+        lines = [json.loads(line) for line in f]
+    # the stream interleaves the step records with the "train-step"
+    # timer's ScalarWriter rows (as the JAX example's does); the schema
+    # governs the step records
+    records = [rec for rec in lines if "loss" in rec]
     monitor.validate_records(records)
     assert len(records) == 3
     assert "timeline_device_busy_fraction" in records[-1]
+    timer_rows = [rec for rec in lines if "train-step-time" in rec]
+    assert [rec["step"] for rec in timer_rows] == [0, 1, 2]
+    assert all(rec["train-step-time"] > 0 for rec in timer_rows)
     with open(flight) as f:
         rep = json.load(f)
     text = trace_report.render_report(rep)

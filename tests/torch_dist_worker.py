@@ -2,7 +2,8 @@
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
 pipeline-parallel files, tests/test_torch_bert_tp.py,
 tests/test_torch_checkpoint_sharded.py, tests/test_torch_trace.py,
-tests/test_torch_comms.py and tests/test_torch_contrib.py).
+tests/test_torch_comms.py, tests/test_torch_contrib.py and
+tests/test_torch_transformer_misc.py).
 
 Run by the port's launcher, one process a rank, gloo over a file store:
 
@@ -1300,6 +1301,32 @@ def scn_contrib(d, rank, world):
     out.update(bn=n(yb), bn_rm=n(st["running_mean"]),
                bn_rv=n(st["running_var"]))
     return out
+
+
+def scn_broadcast(d, rank, world):
+    """`broadcast_data` of this rank's own batch (rank r's entries are
+    d["batch"] + r): every rank ends with rank 0's; the collectives it
+    issued, as the comms inventory recorded them (an all-reduce a key);
+    a deprecation warning from each rank (rank 0's only is emitted)."""
+    import warnings
+
+    import apex_tpu_torch
+    from apex_tpu_torch.monitor.comms.inventory import InventoryRecorder
+    from apex_tpu_torch.monitor.comms.inventory import recording
+    from apex_tpu_torch.transformer.tensor_parallel import broadcast_data
+
+    mine = {k: torch.from_numpy(v + rank) for k, v in d["batch"].items()}
+    rec = InventoryRecorder()
+    with recording(rec):
+        got = broadcast_data(list(d["batch"]), mine, torch.int32,
+                             device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        apex_tpu_torch.deprecated_warning("old name")
+    return {"got": {k: n(v) for k, v in got.items()},
+            "kinds": [e["kind"] for e in rec.entries],
+            "group_sizes": [e["group_size"] for e in rec.entries],
+            "warned": len(caught)}
 
 
 SCENARIOS = {name[4:]: fn for name, fn in globals().items()
