@@ -33,9 +33,20 @@ the one a single-controller save of the same state writes.  Passing
 ``process_id`` / ``num_processes`` / ``local_ranks`` (or the launcher's
 ``APEX_TPU_*`` variables, for an optimizer without a group) runs the
 JAX package's multi-host mode instead, where a state holds the global
-buffers and each host writes its local ranks' slices.  A state cut over
-tensor- or pipeline-parallel ranks is refused: this format records dp
-shards only.
+buffers and each host writes its local ranks' slices.
+
+States cut over tp or pp.  `make_tp_dp_train_step`'s state (and so
+`GPTPipelined`'s) holds on each rank its pp and tp shard of the flat
+buffers: the rank at stage pp_i and tp rank tp_i holds row
+pp_i·tp + tp_i of the JAX package's ``P(("pp", "tp"))`` state buffer.
+`save()` gathers every field but `step` over the mesh's (pp, tp) group
+on the training thread (`parallel.mesh.all_gather`, so the comms
+inventory sees it), pp-major, into that global buffer, and writes it
+as the JAX manager does: one ``"replicated"`` field.  One process
+writes alone; above one rank, global rank 0 writes the replicated
+fields and commits behind the multi-host file barrier, with no host
+record, so the manifest is the one the JAX package's single-controller
+save writes.  `restore()` hands each rank its row of each such field.
 
 Model state outside the optimizer (RNG key, BN running stats) rides
 the same commit: ``model_state={"rng_key": key, ...}`` to
@@ -53,6 +64,23 @@ import torch
 
 from apex_tpu_torch.checkpoint import sharded as S
 from apex_tpu_torch.parallel import mesh as M
+
+
+def _plane():
+    """The mesh's (pp, tp) group (None without a mesh or without
+    torch.distributed): the ranks a `make_tp_dp_train_step` state is cut
+    over, in row order."""
+    return M.group_of((M.PP_AXIS, M.TP_AXIS))
+
+
+def _cut():
+    """(row, pp, tp): this rank's row in the mesh's (pp, tp) plane and
+    the plane's shape; None without a mesh."""
+    plane = _plane()
+    if plane is None:
+        return None
+    return (M.group_rank(plane), M.group_size(M.group_of(M.PP_AXIS)),
+            M.group_size(M.group_of(M.TP_AXIS)))
 
 
 class CheckpointManager:
@@ -94,6 +122,15 @@ class CheckpointManager:
         if self._group_ranks:
             process_id, num_processes = self._rank_of(), num
             local_ranks = [process_id]
+        # a state cut over tp or pp ranks: each rank of the world is one
+        # process of the multi-host protocol, global rank 0 commits
+        self._mp_ranks = (not self._group_ranks and process_id is None
+                          and num_processes is None and local_ranks is None
+                          and M.group_size(_plane()) > 1)
+        if self._mp_ranks:
+            import torch.distributed as dist
+            process_id, num_processes = dist.get_rank(), dist.get_world_size()
+            local_ranks = []
         # each id falls back to the launcher's env independently
         if num_processes is None:
             num_processes = int(os.environ.get(
@@ -159,13 +196,18 @@ class CheckpointManager:
         replicated arrays committed in the same manifest (written by
         process 0 only)."""
         t0 = time.perf_counter()
-        self._check_topology()
         self.wait()  # double buffer: at most one write in flight
         fields = self._snapshot(opt_state, model_state)
         scaler = None
         if scaler_state is not None:
             from apex_tpu_torch.amp import scaler as scaler_lib
             scaler = scaler_lib.state_dict(scaler_state)
+        # a cut save records its (pp, tp) in the ranks' sub-manifests,
+        # the port's own files, so a restore at another cut is refused
+        cut = None
+        if self._mp_ranks:
+            _, pp, tp = _cut()
+            cut = {"pp": pp, "tp": tp}
         layout = None
         if self.optimizer is not None and hasattr(self.optimizer,
                                                   "shard_layout"):
@@ -193,7 +235,9 @@ class CheckpointManager:
                         flat_layout=layout, scaler=scaler,
                         tuner_fingerprint=fingerprint, extra=extra,
                         timeout_s=self.barrier_timeout_s,
-                        record_hosts=not self._group_ranks)
+                        record_hosts=not (self._group_ranks
+                                          or self._mp_ranks),
+                        cut=cut)
                 else:
                     S.save_sharded(
                         self.directory, step, fields, flat_layout=layout,
@@ -261,18 +305,22 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def _check_topology(self) -> None:
-        """This format records dp (or dp x ep) shards of one flat state:
-        a state cut over tp or pp ranks is refused by name."""
-        for axis in (M.TP_AXIS, M.PP_AXIS):
-            n = M.group_size(M.group_of(axis))
-            if n > 1:
-                raise S.CheckpointError(
-                    f"CheckpointManager: the optimizer state is cut over "
-                    f"{n} {axis!r} ranks — the shard-native format "
-                    "records data-parallel shards of one flat state; "
-                    f"checkpoint at {axis}=1 (or gather the model-"
-                    "parallel state first)")
+    def _check_topology(self, specs) -> None:
+        """A state cut over tp or pp ranks saves through `_snapshot`'s
+        gather.  What this format cannot hold is a ZeRO state cut over
+        them too: its dp shards differ from one (pp, tp) rank to the
+        next, and a shard file is named by its dp rank alone.  That is
+        refused by name."""
+        n = M.group_size(_plane())
+        dp_cut = [k for k, v in (specs or {}).items()
+                  if v and self.axis_name in tuple(v)]
+        if n > 1 and dp_cut:
+            raise S.CheckpointError(
+                f"CheckpointManager: the ZeRO fields {sorted(dp_cut)} are "
+                f"sharded over {self.axis_name!r} and the state is cut over "
+                f"{n} (pp, tp) ranks as well — the shard-native format "
+                "records data-parallel shards of one flat state; "
+                "checkpoint a ZeRO state at tp = pp = 1")
 
     def _to_host(self, name: str, v) -> torch.Tensor:
         """`v` copied into this field's kept host buffer (pinned for a
@@ -313,11 +361,27 @@ class CheckpointManager:
             specs = self.optimizer.state_partition_specs()
             specs = (specs._asdict() if hasattr(specs, "_asdict")
                      else dict(specs))
+        self._check_topology(specs)
         num = int(getattr(self.optimizer, "num_shards", 1) or 1)
         writes_replicated = not self.multihost or self.process_id == 0
         sharded = {name: bool(specs and specs.get(name))
                    and self.axis_name in tuple(specs.get(name))
                    for name in d}
+        plane = _plane()
+        if plane is not None:
+            # every field but `step` is cut over (pp, tp): this rank's
+            # row of the JAX package's P(("pp", "tp")) buffer.  Gathered
+            # here, on the training thread, pp-major
+            n = M.group_size(plane)
+            for name, v in list(d.items()):
+                if (sharded.get(name) or name == "step"
+                        or not isinstance(v, torch.Tensor) or v.dim() == 0):
+                    continue
+                v = v.detach().reshape(-1).contiguous()
+                out = torch.empty(n * v.numel(), dtype=v.dtype,
+                                  device=v.device)
+                M.all_gather(out, v, plane)
+                d[name] = out
         if model_state and writes_replicated:
             packed = S.pack_model_state(model_state)
             clash = set(packed) & set(d)
@@ -375,8 +439,10 @@ class CheckpointManager:
     def restore(self, device=None, step: Optional[int] = None,
                 verify_crc: bool = True):
         """`sharded.restore_sharded` against this manager's optimizer, on
-        `device` (the card unless the caller asks for the CPU).  Returns
-        (state, scaler_state, manifest)."""
+        `device` (the card unless the caller asks for the CPU).  Under a
+        mesh each rank takes its row pp_i·tp + tp_i of every field but
+        `step`, and a save at another (pp, tp) cut is refused by name
+        (`cut`).  Returns (state, scaler_state, manifest)."""
         if self.optimizer is None:
             raise S.CheckpointError(
                 "CheckpointManager.restore needs the optimizer the "
@@ -384,7 +450,7 @@ class CheckpointManager:
                 "target layout)")
         return S.restore_sharded(self.directory, self.optimizer,
                                  device=device, step=step,
-                                 verify_crc=verify_crc)
+                                 verify_crc=verify_crc, cut=_cut())
 
     def restore_model_state(self, step: Optional[int] = None, *,
                             verify_crc: bool = True) -> dict:

@@ -94,9 +94,12 @@ def local_ranks(process_id: int, num_processes: int,
 
 def write_host_shards(d: str, step: int, fields: Dict[str, tuple], *,
                       host: int, num_processes: int, attempt: int = 0,
-                      flat_layout: Optional[dict] = None) -> dict:
+                      flat_layout: Optional[dict] = None,
+                      cut: Optional[dict] = None) -> dict:
     """Write this host's shard files under `d` and return its
-    sub-manifest dict (NOT yet published).
+    sub-manifest dict (NOT yet published).  `cut` ({"pp", "tp"}: the
+    state was cut over tp or pp ranks) is kept in the sub-manifest
+    (`sharded.saved_cut` reads it back).
 
     fields: ``{name: (kind, value)}`` — kind ``"sharded"`` with value a
     ``{global_rank: 1-D host array}`` dict holding only THIS host's
@@ -119,6 +122,8 @@ def write_host_shards(d: str, step: int, fields: Dict[str, tuple], *,
         "fields": {},
         "flat_layout": flat_layout,
     }
+    if cut is not None:
+        sub["cut"] = dict(cut)
     chaos.check("ckpt.before_shards")
     for name, (kind, value) in fields.items():
         if kind not in ("sharded", "replicated"):
@@ -368,7 +373,7 @@ def save_sharded_multihost(
         flat_layout: Optional[dict] = None, scaler: Optional[dict] = None,
         tuner_fingerprint: Optional[str] = None, extra: Optional[dict] = None,
         timeout_s: float = 120.0, poll_s: float = 0.05,
-        record_hosts: bool = True,
+        record_hosts: bool = True, cut: Optional[dict] = None,
 ) -> Tuple[Optional[str], float]:
     """This host's half of one multi-host commit.
 
@@ -396,7 +401,7 @@ def save_sharded_multihost(
             "step (or prune) instead")
     sub = write_host_shards(
         d, step, fields, host=process_id, num_processes=num_processes,
-        attempt=attempt, flat_layout=flat_layout)
+        attempt=attempt, flat_layout=flat_layout, cut=cut)
     publish_submanifest(d, sub)
     if process_id != 0:
         return None, 0.0

@@ -617,8 +617,58 @@ def reshard(shards: Sequence[torch.Tensor], src_layout: dict,
     return relayout_flat(canonical_flat(shards, src_layout), dst_layout)
 
 
+def saved_cut(step_path: str) -> Optional[Tuple[int, int]]:
+    """The (pp, tp) a save of a state cut over tp or pp was made at, as
+    the port's multi-rank save records it in its host sub-manifests;
+    None for any other save (the JAX package's records none)."""
+    from apex_tpu_torch.checkpoint.multihost import submanifest_path
+
+    path = submanifest_path(step_path, 0)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        cut = json.load(f).get("cut")
+    return None if cut is None else (int(cut["pp"]), int(cut["tp"]))
+
+
+def flat_length(optimizer) -> Optional[int]:
+    """The length `init` gives a flat optimizer's buffers (its spec's
+    total rounded up to FLAT_TILE); None before `init` or for an
+    optimizer without a flat spec."""
+    from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
+
+    spec = getattr(optimizer, "spec", None)
+    total = getattr(spec, "total", None)
+    return None if total is None else -(-int(total) // FLAT_TILE) * FLAT_TILE
+
+
+def _row_of(name: str, host: torch.Tensor, row: int, n: int,
+            want: Optional[int]) -> torch.Tensor:
+    """Row `row` of `n` of a replicated field saved from a state cut over
+    n (pp, tp) ranks (the global buffer's row-th block, as the JAX
+    package's ``P(("pp", "tp"))`` sharding hands it to that rank; the
+    whole field at n = 1), held to `want`, the length the optimizer's
+    own buffer has (None: not checked)."""
+    if host.shape[0] % n:
+        raise LayoutMismatchError(
+            f"checkpoint field {name!r} has global length "
+            f"{host.shape[0]}, which the target's {n} (pp, tp) ranks do "
+            "not divide — a state cut over tp or pp restores at the cut "
+            "it was saved at")
+    per = host.shape[0] // n
+    if want is not None and per != want:
+        raise LayoutMismatchError(
+            f"checkpoint field {name!r}: a row of {per} elements at "
+            f"{n} (pp, tp) ranks is not the target optimizer's flat "
+            f"buffer of {want} — re-sharding can re-lay (num_shards, "
+            "n_buckets), not a different tp or pp cut (restore at the "
+            "(pp, tp) the state was saved at)")
+    return host[row * per:(row + 1) * per]
+
+
 def restore_sharded(directory: str, optimizer, *, device=None,
-                    step: Optional[int] = None, verify_crc: bool = True):
+                    step: Optional[int] = None, verify_crc: bool = True,
+                    cut: Optional[Tuple[int, int, int]] = None):
     """Restore an optimizer-state checkpoint for `optimizer`'s CURRENT
     layout and topology (`init` must have run so the layout is fixed).
 
@@ -629,6 +679,15 @@ def restore_sharded(directory: str, optimizer, *, device=None,
     in the optimizer's group, `_rank()`; the whole global buffer for an
     optimizer without one) and each replicated field whole;
     `scaler_state` an `amp.scaler.LossScalerState` or None.
+
+    cut=(row, pp, tp): the state is cut over pp·tp ranks and this rank
+    holds row `row` of each replicated field but `step` (the JAX
+    package's ``P(("pp", "tp"))`` blocks of the global buffer); None is
+    an uncut state, (0, 1, 1).  Refused by name: a save whose recorded
+    cut (`saved_cut`) is not this one, a field the rank count does not
+    divide, and a row of the master buffer's length that is not the
+    optimizer's own flat length (`flat_length`), which is how a save at
+    another cut that records none (the JAX package's) shows.
 
     step=None resumes from the latest COMMITTED step; if that step's
     crc sweep finds size-preserving corruption, restore falls back, with
@@ -697,6 +756,19 @@ def restore_sharded(directory: str, optimizer, *, device=None,
             f"checkpoint step {step} has sharded fields but no "
             "flat_layout record — cannot re-shard")
     rank_of = getattr(optimizer, "_rank", None)
+    row, pp, tp = cut or (0, 1, 1)
+    saved = saved_cut(step_dir(directory, step))
+    if saved is not None and saved != (pp, tp):
+        raise LayoutMismatchError(
+            f"checkpoint step {step} was saved from a state cut over "
+            f"(pp, tp) = {saved}, the target is cut over {(pp, tp)} — "
+            "re-sharding can re-lay (num_shards, n_buckets), not a "
+            "different tp or pp cut (restore at the (pp, tp) the state "
+            "was saved at)")
+    master = host_values.get("params")
+    master_len = (None if master is None or master.dim() != 1
+                  else master.shape[0])
+    want = flat_length(optimizer)
 
     values = {}
     for name, e in manifest["fields"].items():
@@ -709,6 +781,9 @@ def restore_sharded(directory: str, optimizer, *, device=None,
                 per = host.shape[0] // int(dst_layout["num_shards"])
                 r = rank_of()
                 host = host[r * per:(r + 1) * per]
+        elif name != "step" and host.dim() > 0:
+            host = _row_of(name, host, row, pp * tp,
+                           want if host.shape[0] == master_len else None)
         values[name] = host.to(dev, copy=True)
 
     state_cls = getattr(optimizer, "_STATE", None)

@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch.ops._common import fp32_class
+
 
 def expert_capacity(tokens: int, n_experts: int, top_k: int,
                     capacity_factor: float) -> int:
@@ -65,13 +67,16 @@ class _GateLogits(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         if x.is_cuda and x.dtype != torch.float32:
             return torch.mm(x, w, out_dtype=torch.float32)
-        return torch.mm(x.float(), w.float())
+        with fp32_class("router_gate"):
+            return torch.mm(x.float(), w.float())
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx = torch.mm(g, w.float().t()).to(x.dtype)
-        dw = torch.mm(x.float().t(), g).to(w.dtype)
+        # the router's fp32 contract: exact upcasts, fp32 products
+        with fp32_class("router_gate"):
+            dx = torch.mm(g, w.float().t()).to(x.dtype)
+            dw = torch.mm(x.float().t(), g).to(w.dtype)
         return dx, dw
 
 

@@ -89,7 +89,12 @@ class InventoryRecorder:
         self.flops_now = flops_now or (lambda: 0.0)
         self.ops_now = ops_now or (lambda: 0)
 
-    def begin(self, name, kind, operands, outputs, group, async_op):
+    def begin(self, name, kind, operands, outputs, group, async_op,
+              **info):
+        """Record one collective as it is issued and return its entry.
+        `info` is the wrapper's (`op`, `pairs`); a subclass that sets
+        ``entry["not_issued"]`` holds the collective back (the linter's,
+        for an exchange that would hang)."""
         ranks = dist.get_process_group_ranks(group)
         n = len(ranks)
         world = dist.get_world_size()
@@ -139,13 +144,17 @@ class _Observer:
         self.annotate = 0
         self.seq = 0
 
-    def issue(self, kind, operands, outputs, group, async_op, run):
+    def issue(self, kind, operands, outputs, group, async_op, run,
+              **info):
         name = f"{kind}.{self.seq}"
         self.seq += 1
         rec = self.recorders[-1] if self.recorders else None
-        entry = (rec.begin(name, kind, operands, outputs, group, async_op)
+        entry = (rec.begin(name, kind, operands, outputs, group, async_op,
+                           **info)
                  if rec is not None else None)
-        if self.annotate:
+        if entry is not None and entry.get("not_issued"):
+            out = []            # held back: no work handles to wait on
+        elif self.annotate:
             with torch.profiler.record_function(name):
                 out = run()
         else:

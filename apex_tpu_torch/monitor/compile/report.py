@@ -92,8 +92,9 @@ class CompileReport:
     # budget classification (params / optimizer_state / inputs /
     # activations_temps / outputs / generated_code)
     budget: dict
-    # the JAX package's static-analysis attachment; the port's linter is
-    # not ported, so this stays None
+    # analyze_step(..., lint=True): `lint.lint_step`'s findings over the
+    # SAME run ({"ok", "findings"}), so a crash dump carrying this report
+    # carries the lint verdict too; None when not asked for
     lint: Optional[dict] = None
     # analyze_step(..., comms=True): `comms_report`'s dict from the SAME
     # run, so that a crash dump carrying this report carries the
@@ -195,13 +196,16 @@ class _Run:
     flops: float
     temp_bytes: Optional[int]
     inventory: Optional[list] = None
+    record: Any = None
 
 
 def audit_run(step_fn, args: Sequence[Any], *,
-              inventory: bool = False) -> _Run:
+              inventory: bool = False, record=None) -> _Run:
     """Run `step_fn` once on clones of `args` under a flop count (and,
-    with `inventory`, the collective recorder), restoring the global RNG
-    states after it."""
+    with `inventory`, the collective recorder; with `record`, a
+    `lint.engine.Recorder`, the linter's program record of the same run,
+    whose collective recorder is then the inventory's), restoring the
+    global RNG states after it."""
     from apex_tpu_torch.monitor.comms import inventory as inv
 
     dev = _device_of(args)
@@ -223,11 +227,14 @@ def audit_run(step_fn, args: Sequence[Any], *,
             kbox = stack.enter_context(_common.kernel_flop_count())
             stack.enter_context(fc)
             stack.enter_context(ops)
-            if inventory:
-                rec = inv.InventoryRecorder(
-                    flops_now=lambda: fc.get_total_flops() + kbox[0],
-                    ops_now=lambda: ops.n)
+            if inventory or record is not None:
+                make = (inv.InventoryRecorder if record is None
+                        else record.inventory)
+                rec = make(flops_now=lambda: fc.get_total_flops() + kbox[0],
+                           ops_now=lambda: ops.n)
                 stack.enter_context(inv.recording(rec))
+            if record is not None:
+                stack.enter_context(record.recording())
             outputs = step_fn(*clones)
         flops = float(fc.get_total_flops() + kbox[0])
     finally:
@@ -238,9 +245,12 @@ def audit_run(step_fn, args: Sequence[Any], *,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         temp = max(0, torch.cuda.max_memory_allocated(dev) - resident)
+    if record is not None:
+        record.record.finish(outputs, clones)
     return _Run(device=dev, args=clones, outputs=outputs, flops=flops,
                 temp_bytes=temp,
-                inventory=None if rec is None else rec.entries)
+                inventory=None if rec is None else rec.entries,
+                record=None if record is None else record.record)
 
 
 def _classify_budget(args: Sequence[Any], names: Sequence[str]) -> dict:
@@ -290,13 +300,11 @@ def analyze_step(step_fn, args: Sequence[Any], *,
     labels the budget table (None reads `step_fn.arg_names`, falling back
     to `arg{i}`).  analytic_flops: the `monitor.flops` count of one step,
     held against the counted flops.  comms: also attach `comms_report`'s
-    dict, taken from the SAME run.  lint: the JAX package's static
-    program passes; the port's linter is not ported (ROADMAP item 26),
-    so lint=True raises NotImplementedError."""
-    if lint:
-        raise NotImplementedError(
-            "analyze_step(lint=True): the static linter (ROADMAP item 26) "
-            "is not ported to apex_tpu_torch yet")
+    dict, taken from the SAME run.  lint: also attach `lint.lint_step`'s
+    findings over the program record of the SAME run, the donation
+    cross-check against this report included, as ``{"ok", "findings"}``
+    (advisory: a linter failure attaches ``{"ok": None, "error"}`` and
+    never voids the audit)."""
     if donated is None:
         donated = getattr(step_fn, "donate_argnums", ())
     if arg_names is None:
@@ -305,7 +313,11 @@ def analyze_step(step_fn, args: Sequence[Any], *,
     names += [f"arg{i}" for i in range(len(names), len(args))]
     names = names[:len(args)]
 
-    run = audit_run(step_fn, args, inventory=comms)
+    recorder = None
+    if lint:
+        from apex_tpu_torch.lint.engine import Recorder
+        recorder = Recorder()
+    run = audit_run(step_fn, args, inventory=comms, record=recorder)
     backend, device_kind = _device_info(run.device)
     arg_st = _storages(run.args)
     out_st = _storages(run.outputs)
@@ -351,6 +363,18 @@ def analyze_step(step_fn, args: Sequence[Any], *,
         flops_ok=flops_ok,
         budget=budget,
     )
+    if lint:
+        try:
+            from apex_tpu_torch import lint as lint_lib
+            findings = lint_lib.lint_step(
+                step_fn, args, program="analyze_step", arg_names=names,
+                donate_argnums=donated, compile_report=report,
+                record=run.record)
+            report.lint = {"ok": not findings,
+                           "findings": [f.to_dict() for f in findings]}
+        except Exception as e:     # the audit above stands
+            report.lint = {"ok": None, "findings": [],
+                           "error": repr(e)[:200]}
     if comms:
         from apex_tpu_torch.monitor.comms import report as comms_lib
         report.comms = comms_lib.comms_report(
@@ -426,8 +450,9 @@ def render_budget_table(report) -> str:
         else:
             rules = sorted({f.get("rule", "?")
                             for f in lint.get("findings") or []})
-            # a lint attachment comes from the JAX package's audit, whose
-            # linter the line names
+            # the JAX package's words, so that one report dict renders
+            # the same in both packages (the port's gate is `python -m
+            # apex_tpu_torch.lint`)
             lines.append(
                 f"** LINT: {len(lint.get('findings') or [])} "
                 f"finding(s) [{', '.join(rules)}] — run "

@@ -71,6 +71,13 @@ class RecompileSentry:
         self._steady = False
         self._warned = False
 
+    @property
+    def wrapped(self):
+        """The step underneath, for tools that run the step without the
+        sentry's bookkeeping (`lint.lint_step` records `wrapped`, so a
+        lint run neither counts as a call nor registers a signature)."""
+        return self._fn
+
     def __call__(self, *args, **kwargs):
         sig = _sig_of(args, kwargs)
         out = self._fn(*args, **kwargs)

@@ -81,6 +81,64 @@ def kernel_flop_count():
         _KERNEL_FLOPS = prev
 
 
+# While a program is recorded (`lint.engine.Recorder`) a callable the
+# launchers of the port's kernels report each launch to; None otherwise.
+_LAUNCH_LOG = None
+
+
+def note_launch(name: str, *operands: torch.Tensor) -> None:
+    """Report one launch of a hand-written kernel (`name`, its launcher's
+    name) with its operand tensors to an active program record.  A
+    dispatch mode sees ATen's ops only; a kernel launched through ctypes
+    or Triton is visible to the record through this call, made where
+    the launcher counts the launch."""
+    if _LAUNCH_LOG is not None:
+        _LAUNCH_LOG(name, operands)
+
+
+@contextlib.contextmanager
+def kernel_launch_log(fn):
+    """Hand every `note_launch` inside the block to `fn(name, operands)`."""
+    global _LAUNCH_LOG
+    prev, _LAUNCH_LOG = _LAUNCH_LOG, fn
+    try:
+        yield
+    finally:
+        _LAUNCH_LOG = prev
+
+
+def device_step(fn):
+    """Mark `fn` as a function the port runs as one step on the device
+    (a train step, a decode or prefill step).  A no-op at run time; the
+    linter's source pass (`lint.hostsync`) holds a marked function to
+    the device-step rules: no `.item()`, no host copy, no branching on a
+    tensor."""
+    return fn
+
+
+def _record_range(name: str):
+    """A `record_function` range while a program is recorded (the
+    linter's record reads its ranges), else nothing: hot loops pay one
+    check, and profiler traces are unchanged."""
+    if _LAUNCH_LOG is None:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
+def loop_iteration(loop: str, i: int):
+    """Iteration `i` (from 0) of a loop named `loop` (the range
+    ``<loop>#<i>``): how a loop shows in a program record
+    (`lint.engine`, CL203)."""
+    return _record_range(f"{loop}#{i}")
+
+
+def fp32_class(name: str):
+    """Around GEMMs that are deliberately fp32 inside a low-precision
+    program (the range ``fp32_class:<name>``): the static form of an
+    entry on Apex's FP32 cast list, which the linter's DP101 honours."""
+    return _record_range(f"fp32_class:{name}")
+
+
 _SMS = {}
 
 

@@ -756,6 +756,7 @@ def flash_fwd_cuda(q, k, v, scale, causal, q_seg=None, kv_seg=None,
     _raise_launch_error(err, "forward")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_fwd_cuda.launches += 1
+    _common.note_launch("flash_fwd_cuda", q, k, v)
     flash_fwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_fwd_cuda.bias_launches += int(bias is not None)
     return o, lse
@@ -797,6 +798,7 @@ def flash_fwd_packed_cuda(q, k, v, scale, causal, hp, q_seg=None,
     _raise_launch_error(err, "packed forward")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_fwd_packed_cuda.launches += 1
+    _common.note_launch("flash_fwd_packed_cuda", q, k, v)
     flash_fwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return o, lse
 
@@ -893,6 +895,7 @@ def flash_bwd_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
     _raise_launch_error(err, "backward")
     add_kernel_flops(2 * _fwd_flops(b, h, sq, sk, d))
     flash_bwd_cuda.launches += 1
+    _common.note_launch("flash_bwd_cuda", q, k, v, do)
     flash_bwd_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_cuda.f32_launches += f32
     flash_bwd_cuda.bias_launches += int(bias is not None)
@@ -931,6 +934,7 @@ def flash_bwd_packed_cuda(q, k, v, do, lse, delta, scale, causal, hp,
     _raise_launch_error(err, "packed backward")
     add_kernel_flops(2 * _fwd_flops(b, h, sq, sk, d))
     flash_bwd_packed_cuda.launches += 1
+    _common.note_launch("flash_bwd_packed_cuda", q, k, v, do)
     flash_bwd_packed_cuda.dropout_launches += int(dropout_rate > 0.0)
     return dq_acc.to(q.dtype), dk, dv
 
@@ -969,6 +973,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
     _raise_launch_error(err, "dq pass")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dq_cuda.launches += 1
+    _common.note_launch("flash_bwd_dq_cuda", q, k, v, do)
     flash_bwd_dq_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dq_cuda.f32_launches += f32
     flash_bwd_dq_cuda.bias_launches += int(bias is not None)
@@ -1011,6 +1016,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, causal, q_seg=None,
     _raise_launch_error(err, "dk/dv pass")
     add_kernel_flops(_fwd_flops(b, h, sq, sk, d))
     flash_bwd_dkv_cuda.launches += 1
+    _common.note_launch("flash_bwd_dkv_cuda", q, k, v, do)
     flash_bwd_dkv_cuda.dropout_launches += int(dropout_rate > 0.0)
     flash_bwd_dkv_cuda.f32_launches += f32
     flash_bwd_dkv_cuda.bias_launches += int(bias is not None)

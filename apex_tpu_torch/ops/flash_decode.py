@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import (check_kernel_device,
                                         sm_count as _sm_count)
 
@@ -284,6 +285,7 @@ def _launch(plan, q, k_pages, v_pages, tbl, lens, out, scale):
         raise RuntimeError(f"flash_decode kernel launch failed (plan "
                            f"{tuple(plan)}): CUDA error {err}")
     flash_decode_cuda.launches += 1
+    _common.note_launch("flash_decode_cuda", q, k_pages, v_pages)
     flash_decode_cuda.last_plan = plan
 
 

@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import (add_kernel_flops,
                                         check_kernel_device, resolve_device,
                                         sm_count as _sm_count)
@@ -258,6 +259,7 @@ def _launch(route, x2, w, b, y, activation):
                            f"CUDA error {err}")
     add_kernel_flops(2 * m * n * k)
     linear_bias_cuda.launches += 1
+    _common.note_launch("linear_bias_cuda", x2, w)
     linear_bias_cuda.route_launches[route] += 1
     linear_bias_cuda.last_plan = {"route": route, "tile_n": tile_n,
                                   "split": split, "k_split": k_split,

@@ -61,6 +61,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import (check_kernel_device,
                                         sm_count as _sm_count)
 
@@ -360,6 +361,7 @@ def _launch_fwd(plan, x2, weight, bias, y, mean, rstd, eps, rms):
         raise RuntimeError(f"LayerNorm forward kernel launch failed (plan "
                            f"{tuple(plan)}): CUDA error {err}")
     norm_fwd_cuda.launches += 1
+    _common.note_launch("norm_fwd_cuda", x2)
 
 
 def norm_fwd_cuda(x2, weight, bias, eps, rms):
@@ -415,6 +417,7 @@ def _launch(plan, g2, x2, mean, rstd, weight, dx, dwdb, rms):
         raise RuntimeError(f"LayerNorm backward kernel launch failed "
                            f"(plan {tuple(plan)}): CUDA error {err}")
     norm_bwd_cuda.launches += 1
+    _common.note_launch("norm_bwd_cuda", g2, x2)
 
 
 def norm_bwd_cuda(g2, x2, mean, rstd, weight, rms):

@@ -41,6 +41,7 @@ from typing import Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import check_kernel_device
 
 # triton.language, bound by `_jit` at the first launch: the
@@ -195,6 +196,7 @@ def adam_flat_triton(p, m, v, g, scalars, eps, weight_decay, adam_w_mode):
         WD_MODE=0 if weight_decay == 0.0 else (2 if adam_w_mode else 1),
         BLOCK=_BLOCK, num_warps=8)
     adam_flat_triton.launches += 1
+    _common.note_launch("adam_flat_triton", p, m, v, g)
     return p, m, v
 
 
@@ -333,6 +335,7 @@ def adam_flat_seg_triton(p, m, v, g, scalars, eps, adam_w_mode, seg, wdt,
             ADAM_W=bool(adam_w_mode), ROWS=_ROWS, LANES=_LANES, num_warps=8,
             enable_fp_fusion=False)
     adam_flat_seg_triton.launches += 1
+    _common.note_launch("adam_flat_seg_triton", p, m, v, g)
     return p, m, v
 
 
@@ -744,6 +747,7 @@ def lamb_phase1_triton(m, v, g, p, scalars, eps, weight_decay):
     _check_scalars("lamb phase 1", scalars, 8)
     out = _launch_phase1(m, v, g, p, scalars, eps, weight_decay)
     lamb_phase1_triton.launches += 1
+    _common.note_launch("lamb_phase1_triton", m, v, g, p)
     return out
 
 
@@ -760,6 +764,7 @@ def lamb_phase1_seg_triton(m, v, g, p, scalars, eps, seg, wdt):
         raise ValueError("lamb phase 1 needs an int32 tensor id per row")
     out = _launch_phase1(m, v, g, p, scalars, eps, 0.0, seg, wdt)
     lamb_phase1_seg_triton.launches += 1
+    _common.note_launch("lamb_phase1_seg_triton", m, v, g, p)
     return out
 
 
@@ -780,6 +785,7 @@ def lamb_phase2_seg_triton(p, u, seg, ratio_table, lr):
             p, u, seg, ratio_table, lr, n, ROWS=_ROWS, LANES=_LANES,
             num_warps=4, enable_fp_fusion=False)
     lamb_phase2_seg_triton.launches += 1
+    _common.note_launch("lamb_phase2_seg_triton", p, u)
     return p
 
 
@@ -807,6 +813,7 @@ def rows_sumsq_seg_triton(x, spec, row_offset=0, padded_total=None):
         _jit(_sumsq_segments_kernel)[(n_seg,)](
             part, tabs["item_ptr"], out, BLOCK=1024, num_warps=4)
     rows_sumsq_seg_triton.launches += 1
+    _common.note_launch("rows_sumsq_seg_triton", x)
     return out
 
 
@@ -1063,6 +1070,7 @@ def sgd_flat_triton(p, buf, g, scalars, momentum, dampening, nesterov,
             WD_AFTER=bool(wd_after_momentum), FIRST_RUN=bool(first_run),
             BLOCK=_BLOCK, num_warps=8, enable_fp_fusion=False)
     sgd_flat_triton.launches += 1
+    _common.note_launch("sgd_flat_triton", p, buf, g)
     return p, buf
 
 
@@ -1166,6 +1174,7 @@ def adagrad_flat_triton(p, h, g, lr, eps, weight_decay, adagrad_w_mode):
             W_MODE=bool(adagrad_w_mode), BLOCK=_BLOCK, num_warps=8,
             enable_fp_fusion=False)
     adagrad_flat_triton.launches += 1
+    _common.note_launch("adagrad_flat_triton", p, h, g)
     return p, h
 
 
@@ -1242,6 +1251,7 @@ def lamb_phase2_flat_triton(p, u, r, lr):
             p, u, r, lr, n, BLOCK=_BLOCK, num_warps=8,
             enable_fp_fusion=False)
     lamb_phase2_flat_triton.launches += 1
+    _common.note_launch("lamb_phase2_flat_triton", p, u, r)
     return p
 
 
@@ -1395,6 +1405,7 @@ def elementwise_triton(kernel, arrays, n_out):
             *ptrs, *cs, n, BODY=_EW_BODIES[kernel.body], N_IN=len(arrays),
             N_OUT=n_out, BLOCK=_BLOCK, num_warps=8, enable_fp_fusion=False)
     elementwise_triton.launches += 1
+    _common.note_launch("elementwise_triton", *arrays)
     return list(arrays[:n_out])
 
 

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import check_kernel_device, row_block
 
 # triton.language, bound by `_jit` at the first launch: the kernels
@@ -350,6 +351,7 @@ def softmax_fwd_triton(x, mask, scale, causal):
     `softmax_fwd_triton.launches` counts launches."""
     y, _ = _launch_fwd(x, mask, scale, causal)
     softmax_fwd_triton.launches += 1
+    _common.note_launch("softmax_fwd_triton", x)
     return y
 
 
@@ -404,6 +406,7 @@ def softmax_bwd_triton(g, y, scale):
             dx.stride(0), float(scale), ROWS=rows, BLOCK=block,
             ONE_BLOCK=one, num_warps=num_warps)
     softmax_bwd_triton.launches += 1
+    _common.note_launch("softmax_bwd_triton", g, y)
     return dx.reshape(shape)
 
 

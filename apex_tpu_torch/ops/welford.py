@@ -43,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import (check_kernel_device,
                                         sm_count as _sm_count)
 from apex_tpu_torch.parallel import mesh as M
@@ -161,6 +162,7 @@ def _launch(plan, x2, s, q):
         raise RuntimeError(f"channel sums kernel launch failed (plan "
                            f"{tuple(plan)}): CUDA error {err}")
     channel_sums_cuda.launches += 1
+    _common.note_launch("channel_sums_cuda", x2)
 
 
 def channel_sums_cuda(x2):

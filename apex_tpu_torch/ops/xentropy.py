@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.ops import _common
 from apex_tpu_torch.ops._common import check_kernel_device
 
 # triton.language, bound by `_jit` at the first launch: the kernels are
@@ -178,6 +179,7 @@ def xent_fwd_triton(x2, labels, smoothing):
             x2, labels, loss, lse, x2.stride(0), v, float(smoothing),
             BLOCK=_FWD_BLOCK, SMOOTH=bool(smoothing), num_warps=4)
     xent_fwd_triton.launches += 1
+    _common.note_launch("xent_fwd_triton", x2, labels)
     return loss, lse
 
 
@@ -199,6 +201,7 @@ def xent_bwd_triton(g, x2, labels, lse, smoothing):
             float(smoothing), BLOCK=_BWD_BLOCK, SMOOTH=bool(smoothing),
             num_warps=4)
     xent_bwd_triton.launches += 1
+    _common.note_launch("xent_bwd_triton", g, x2, labels, lse)
     return dx
 
 

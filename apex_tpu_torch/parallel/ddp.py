@@ -54,8 +54,8 @@ import torch
 
 from apex_tpu_torch import amp as amp_lib
 from apex_tpu_torch.amp.policy import is_norm_path
-from apex_tpu_torch.ops._common import (TapContext, resolve_device,
-                                        tap_context)
+from apex_tpu_torch.ops._common import (TapContext, device_step,
+                                        resolve_device, tap_context)
 from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
 from apex_tpu_torch.optimizers import flat as F
 from apex_tpu_torch.parallel import mesh as M
@@ -225,9 +225,13 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     loss[, aux])`.  The optimizer (FusedSGD, FusedAdam, FusedLAMB, ... or
     a ZeRO optimizer, `DistributedFusedAdam` / `DistributedFusedLAMB`,
     detected by its `full_leaves` and `shard_layout`) updates its flat
-    buffers in place.  With num_microbatches > 1 the aux is the stacked
-    per-microbatch auxes (has_aux) or the model state threaded through
-    the microbatches (with_state).  `axis_name` (the JAX package's: "dp",
+    buffers in place, and with with_state the step writes the new model
+    state into the `model_state` it was given and returns that tree, so
+    no second copy of either outlives the step (`step.donate_argnums`
+    names both; the JAX package donates the optimizer state only).  With
+    num_microbatches > 1 the aux is the stacked per-microbatch auxes
+    (has_aux) or the model state threaded through the microbatches
+    (with_state).  `axis_name` (the JAX package's: "dp",
     or ("dp", "ep") for an expert-parallel model) names the group the
     grads and the loss scaler's overflow flag are averaged or OR-ed
     over; None is `mesh.data_parallel_group()`, which is that group at
@@ -295,6 +299,7 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     m = num_microbatches
     main_grads = _MainGrads()
 
+    @device_step
     def local_step(opt_state, scaler_state, model_state, batch, *extras):
         ex = list(extras)
         metrics_state = ex.pop(0) if metrics_cfg is not None else None
@@ -431,7 +436,7 @@ def make_train_step(loss_fn: Callable, optimizer, *,
                 opt_state, g_sync, inv_scale=inv, found_inf=found_inf)
         outs = (new_opt_state, new_scaler)
         if with_state:
-            outs += (aux,)
+            outs += (_write_model_state(model_state, aux),)
         outs += (loss,)
         if has_aux and not with_state:
             outs += (aux,)
@@ -463,7 +468,8 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     step.tap_names = lambda: tap_holder["names"]
     # the observatory's labels (monitor.analyze_step / comms_report): the
     # arguments' names for the budget table, the state the step updates
-    # in place (the optimizer's flat buffers), the mesh's axes
+    # in place (the optimizer's flat buffers, the model state), the
+    # mesh's axes
     names = ["opt_state", "scaler_state"]
     if with_state:
         names.append("model_state")
@@ -473,9 +479,26 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     if timing_on:
         names.append("local_timing")
     step.arg_names = tuple(names)
-    step.donate_argnums = (0,)
+    step.donate_argnums = (0, 2) if with_state else (0,)
     step.mesh_axis_names, step.mesh_axis_sizes = M.mesh_axes()
     return step
+
+
+def _write_model_state(model_state, new):
+    """Write the step's new model state into the tensors of the
+    `model_state` it was given (the step donates it) and return that
+    tree; a step given no model state returns the new one."""
+    if model_state is None:
+        return new
+    old, upd = (F.tree_leaves_with_paths(t) for t in (model_state, new))
+    if [p for p, _ in old] != [p for p, _ in upd]:
+        raise ValueError(
+            "the loss function's new model state has the leaves "
+            f"{[p for p, _ in upd]}, the model_state given to the step "
+            f"{[p for p, _ in old]}: the step writes one into the other")
+    with torch.no_grad():
+        torch._foreach_copy_([x for _, x in old], [x for _, x in upd])
+    return model_state
 
 
 def _pre_step_metrics(cfg, g_sync, inv, opt_state, sharded):

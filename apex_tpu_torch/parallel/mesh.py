@@ -565,10 +565,10 @@ def group_rank(group) -> int:
 # Every collective of the port goes through the wrappers below.  While
 # the monitor observes them (`monitor.comms`' inventory recorder, or a
 # `monitor.ProfileCapture` window that names each collective's range in
-# the trace) `_OBSERVER` is its `issue(kind, operands, outputs, group,
-# async_op, run)`, which numbers the collective, runs `run()` and
-# returns what it returns; otherwise it is None and a wrapper pays that
-# one check.
+# the trace, or a linter's program record) `_OBSERVER` is its
+# `issue(kind, operands, outputs, group, async_op, run, **info)`, which
+# numbers the collective, runs `run()` and returns what it returns;
+# otherwise it is None and a wrapper pays that one check.
 
 _OBSERVER = None
 
@@ -582,10 +582,14 @@ def set_collective_observer(observer):
     return prev
 
 
-def _issue(kind, operands, outputs, group, async_op, run):
+def _issue(kind, operands, outputs, group, async_op, run, **info):
+    """`run()` the collective, through the observer when one is set;
+    `info` tells it more (`op`: an all-reduce's reduction, `pairs`: an
+    exchange's (destination, source) ranks)."""
     if _OBSERVER is None:
         return run()
-    return _OBSERVER.issue(kind, operands, outputs, group, async_op, run)
+    return _OBSERVER.issue(kind, operands, outputs, group, async_op, run,
+                           **info)
 
 
 def _all_reduce(x, op, group, async_op):
@@ -606,7 +610,7 @@ def all_reduce(x, op: str = "sum", group=None, async_op: bool = False):
     if group is None:
         return None if async_op else x
     return _issue("all-reduce", (x,), (x,), group, async_op,
-                  lambda: _all_reduce(x, op, group, async_op))
+                  lambda: _all_reduce(x, op, group, async_op), op=op)
 
 
 def reduce_scatter(out, inp, group=None, async_op: bool = False):
@@ -688,7 +692,8 @@ def exchange(sends, group):
         return dist.batch_isend_irecv(ops)
 
     return _issue("collective-permute", tuple(s[0] for s in sends),
-                  tuple(s[2] for s in sends), group, True, run)
+                  tuple(s[2] for s in sends), group, True, run,
+                  pairs=tuple((s[1], s[3]) for s in sends))
 
 
 # --- the mesh as the monitor names it ----------------------------------------

@@ -47,6 +47,7 @@ import warnings
 
 import torch
 
+from apex_tpu_torch.ops._common import loop_iteration
 from apex_tpu_torch.parallel import mesh as M
 from apex_tpu_torch.parallel.collectives import ring_hop
 
@@ -144,15 +145,16 @@ def _ring_fwd(x, w, group, chunks):
     for k in range(p):
         src = (r + k) % p
         nxt, works = [], []
-        for j in range(chunks):
-            if k + 1 < p:
-                # the hop feeding step k + 1, issued before this GEMM
-                buf, wk = _ring_hop(held[j], group)
-                nxt.append(buf)
-                works += wk
-            lo = src * s + j * sc
-            torch.matmul(held[j], w, out=out[lo:lo + sc])
-        _wait(works)
+        with loop_iteration("ring", k):
+            for j in range(chunks):
+                if k + 1 < p:
+                    # the hop feeding step k + 1, issued before this GEMM
+                    buf, wk = _ring_hop(held[j], group)
+                    nxt.append(buf)
+                    works += wk
+                lo = src * s + j * sc
+                torch.matmul(held[j], w, out=out[lo:lo + sc])
+            _wait(works)
         if nxt:
             held = nxt
     return out
@@ -188,10 +190,11 @@ class _RingGatherMatmul(torch.autograd.Function):
         dx = x.new_empty(x.shape)
         works = []
         for j in range(chunks):
-            z = torch.matmul(gv[:, j].reshape((p * sc,) + tuple(g.shape[1:])),
-                             w.t())
-            wk = M.reduce_scatter(dx[j * sc:(j + 1) * sc].view(-1),
-                                  z.view(-1), group, async_op=True)
+            with loop_iteration("chunk", j):
+                z = torch.matmul(
+                    gv[:, j].reshape((p * sc,) + tuple(g.shape[1:])), w.t())
+                wk = M.reduce_scatter(dx[j * sc:(j + 1) * sc].view(-1),
+                                      z.view(-1), group, async_op=True)
             if wk is not None:
                 works.append(wk)
         # dw: the ring over x again; each rank's g is the full cotangent
@@ -202,14 +205,15 @@ class _RingGatherMatmul(torch.autograd.Function):
         for k in range(p):
             src = (r + k) % p
             nxt, hops = [], []
-            for j in range(chunks):
-                if k + 1 < p:
-                    buf, wk = _ring_hop(held[j], group)
-                    nxt.append(buf)
-                    hops += wk
-                lo = src * s + j * sc
-                dw += _flat_wgrad(held[j], g[lo:lo + sc])
-            _wait(hops)
+            with loop_iteration("ring", k):
+                for j in range(chunks):
+                    if k + 1 < p:
+                        buf, wk = _ring_hop(held[j], group)
+                        nxt.append(buf)
+                        hops += wk
+                    lo = src * s + j * sc
+                    dw += _flat_wgrad(held[j], g[lo:lo + sc])
+                _wait(hops)
             if nxt:
                 held = nxt
         _wait(works)
@@ -243,11 +247,12 @@ class _MatmulReduceScatter(torch.autograd.Function):
         out = x.new_empty(_out_shape(x, w, so))
         works = []
         for j in range(chunks):
-            xj = xv[:, j * soc:(j + 1) * soc].reshape(
-                (p * soc,) + tuple(x.shape[1:]))
-            z = torch.matmul(xj, w)
-            wk = M.reduce_scatter(out[j * soc:(j + 1) * soc].view(-1),
-                                  z.view(-1), group, async_op=True)
+            with loop_iteration("chunk", j):
+                xj = xv[:, j * soc:(j + 1) * soc].reshape(
+                    (p * soc,) + tuple(x.shape[1:]))
+                z = torch.matmul(xj, w)
+                wk = M.reduce_scatter(out[j * soc:(j + 1) * soc].view(-1),
+                                      z.view(-1), group, async_op=True)
             if wk is not None:
                 works.append(wk)
         _wait(works)
@@ -274,11 +279,13 @@ class _MatmulReduceScatter(torch.autograd.Function):
                               async_op=True)
             return G, [wk] if wk is not None else []
 
-        nxt = gather(0)
+        with loop_iteration("chunk", 0):
+            nxt = gather(0)
         for j in range(chunks):
             G, works = nxt
             if j + 1 < chunks:
-                nxt = gather(j + 1)       # in flight under chunk j's GEMMs
+                with loop_iteration("chunk", j + 1):
+                    nxt = gather(j + 1)   # in flight under chunk j's GEMMs
             _wait(works)
             dxv[:, j * soc:(j + 1) * soc] = torch.matmul(G, w.t())
             dw += _flat_wgrad(xv[:, j * soc:(j + 1) * soc], G)
@@ -308,9 +315,10 @@ class _MatmulAllReduce(torch.autograd.Function):
         out = x.new_empty(_out_shape(x, w, s))
         works = []
         for j in range(chunks):
-            yj = out[j * sc:(j + 1) * sc]
-            torch.matmul(x[j * sc:(j + 1) * sc], w, out=yj)
-            wk = M.all_reduce(yj, "sum", group, async_op=True)
+            with loop_iteration("chunk", j):
+                yj = out[j * sc:(j + 1) * sc]
+                torch.matmul(x[j * sc:(j + 1) * sc], w, out=yj)
+                wk = M.all_reduce(yj, "sum", group, async_op=True)
             if wk is not None:
                 works.append(wk)
         _wait(works)
@@ -353,9 +361,10 @@ class _CopyMatmul(torch.autograd.Function):
         dx = x.new_empty(x.shape)
         works = []
         for j in range(chunks):
-            dxj = dx[j * sc:(j + 1) * sc]
-            torch.matmul(g[j * sc:(j + 1) * sc], w.t(), out=dxj)
-            wk = M.all_reduce(dxj, "sum", group, async_op=True)
+            with loop_iteration("chunk", j):
+                dxj = dx[j * sc:(j + 1) * sc]
+                torch.matmul(g[j * sc:(j + 1) * sc], w.t(), out=dxj)
+                wk = M.all_reduce(dxj, "sum", group, async_op=True)
             if wk is not None:
                 works.append(wk)
         dw = _local_wgrad(x, g, w)        # under the last all-reduce

@@ -67,7 +67,9 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.checkpoint import chaos as _chaos
 from apex_tpu_torch.monitor.compile import RecompileSentry
-from apex_tpu_torch.ops._common import resolve_device, strict_matmul_numerics
+from apex_tpu_torch.ops._common import (device_step, fp32_class,
+                                        resolve_device,
+                                        strict_matmul_numerics)
 from apex_tpu_torch.ops.flash_decode import flash_decode
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.serve.kv_cache import (TRASH_PAGE, KVCacheConfig,
@@ -353,7 +355,8 @@ class DecodeEngine:
         w = params["embed"]["weight"]
         if self._logits_out_dtype and h.dtype != torch.float32:
             return torch.mm(h, w.t(), out_dtype=torch.float32)
-        return torch.mm(h.float(), w.float().t())
+        with fp32_class("lm_head"):
+            return torch.mm(h.float(), w.float().t())
 
     def _write_layer(self, kv, layer, pos_flat, k_new, v_new):
         """Scatter one layer's new K/V rows into the paged pool IN PLACE.
@@ -371,6 +374,7 @@ class DecodeEngine:
     # decode step (fixed shapes forever)
     # ------------------------------------------------------------------
 
+    @device_step
     def _decode_fn(self, params, kv, state):
         c, s = self.model_cfg, self.serve_cfg
         cfg = self.kv_config
@@ -443,6 +447,7 @@ class DecodeEngine:
     # prefill (padded to max_prompt_len)
     # ------------------------------------------------------------------
 
+    @device_step
     def _prefill_fn(self, params, kv, state, slot: int, tokens,
                     length: int, req_max_new: int):
         """Run one prompt (tokens: (max_prompt_len,) padded ids on the
@@ -476,12 +481,15 @@ class DecodeEngine:
             qkv = _dot(h, bp["qkv"]["weight"], bp["qkv"]["bias"])
             q, k_new, v_new = self._split_qkv(qkv)   # (P, nh, d)
             self._write_layer(kv, i, pos_flat, k_new, v_new)
-            st = torch.einsum("qnd,knd->nqk", q.float(),
-                              k_new.float()) * scale
-            st = torch.where(mask, _NEG_INF, st)
-            p = torch.softmax(st, dim=-1)
-            ctx = torch.einsum("nqk,knd->qnd", p,
-                               v_new.float()).to(c.dtype)
+            # the prefill's dense attention is fp32 by design (the JAX
+            # engine's numerics)
+            with fp32_class("prefill_attention"):
+                st = torch.einsum("qnd,knd->nqk", q.float(),
+                                  k_new.float()) * scale
+                st = torch.where(mask, _NEG_INF, st)
+                p = torch.softmax(st, dim=-1)
+                ctx = torch.einsum("nqk,knd->qnd", p,
+                                   v_new.float()).to(c.dtype)
             ctx = ctx.reshape(P, c.hidden)
             x = x + _dot(ctx, bp["proj"]["weight"], bp["proj"]["bias"])
             x = x + self._mlp(bp, x)

@@ -64,6 +64,7 @@ from typing import Callable, Optional
 
 import torch
 
+from apex_tpu_torch.ops._common import loop_iteration
 from apex_tpu_torch.parallel import mesh as M
 from apex_tpu_torch.parallel.collectives import (
     reduce_from_tensor_model_parallel_region as _bcast_from_last)
@@ -168,9 +169,10 @@ class _Clocks:
         for t in range(self.clocks):
             if build and self.window and t % self.window == 0:
                 self.carries[t] = xs
-            ys = self.clock(t, xs, self.graphs, out)
-            if t < self.clocks - 1:
-                xs = self.hop(ys)
+            with loop_iteration("clock", t):
+                ys = self.clock(t, xs, self.graphs, out)
+                if t < self.clocks - 1:
+                    xs = self.hop(ys)
         return out
 
     # ------------------------------ backward ------------------------------
@@ -227,19 +229,22 @@ class _Clocks:
                     if self.need_mb and self.stage == 0 else None)
         dxs = [None] * self.chunks
         if not self.window:
-            for t in reversed(range(self.clocks)):
-                dxs = self.back_clock(t, dxs, self.graphs, dout, acc)
+            for i, t in enumerate(reversed(range(self.clocks))):
+                with loop_iteration("back_clock", i):
+                    dxs = self.back_clock(t, dxs, self.graphs, dout, acc)
         else:
             starts = sorted(self.carries)
             for a in reversed(starts):
                 b = min(a + self.window, self.clocks)
                 graphs, xs = {}, self.carries.pop(a)
                 for t in range(a, b):
-                    ys = self.clock(t, xs, graphs)
-                    if t < b - 1:
-                        xs = self.hop(ys)
-                for t in reversed(range(a, b)):
-                    dxs = self.back_clock(t, dxs, graphs, dout, acc)
+                    with loop_iteration("clock", t - a):
+                        ys = self.clock(t, xs, graphs)
+                        if t < b - 1:
+                            xs = self.hop(ys)
+                for i, t in enumerate(reversed(range(a, b))):
+                    with loop_iteration("back_clock", i):
+                        dxs = self.back_clock(t, dxs, graphs, dout, acc)
         dleaves = []
         for i, leaf in enumerate(self.leaves):
             if not self.need_p[i]:

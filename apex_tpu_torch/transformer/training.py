@@ -32,7 +32,7 @@ from typing import Callable, Optional
 
 import torch
 
-from apex_tpu_torch.ops._common import resolve_device
+from apex_tpu_torch.ops._common import device_step, resolve_device
 from apex_tpu_torch.ops.optimizer_kernels import FLAT_TILE
 from apex_tpu_torch.optimizers import flat as F
 from apex_tpu_torch.parallel import mesh as M
@@ -103,6 +103,7 @@ def make_tp_dp_train_step(model, optimizer, *,
                                        1)) > 1
     specs = model.partition_specs() if pp_partial_grads else None
 
+    @device_step
     def step(opt_state, tokens, labels):
         spec = optimizer.spec
         if spec is None:

@@ -176,7 +176,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  (`bench.py:338-391`): seed-0 weights, batch 256 of
                  224x224x3 seeded images, amp O1, the mean fp32 cross
                  entropy, FusedSGD(0.1, 0.9, 1e-4), `make_train_step(
-                 with_state=True)`, cuDNN's algorithm search on; two
+                 with_state=True)` (the running statistics updated in
+                 place: the step donates them, as phase 24 lints it),
+                 cuDNN's algorithm search on; two
                  warm-up and five timed steps on one batch; the loss is
                  finite and falls, no step overflows, the launch counters
                  prove every step ran 53 channel sums, one cross-entropy
@@ -597,7 +599,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  mesh.broadcast on a one-rank NCCL group, seen by the
                  comms inventory; the host runtime built with g++, its
                  outputs the CPU's bits.
- 24. table       the kernels' times on the card (CUDA events) beside
+ 24. slice 27    the linter and the checkpoints of a state cut over tp
+                 or pp.  (a) `lint.flagships.lint_target` at full width
+                 over the GPT-350M step (phase 5's), the BERT-Large
+                 FusedLAMB step (phase 6's), the ResNet-50 O1 step
+                 (phase 7's), the serving engine's decode and prefill
+                 steps (phase 3's engine) and the MoE-GPT ZeRO-2 step
+                 (phase 18's): each clean against the committed empty
+                 allowlist, its seconds, the ops, collectives and kernel
+                 launches its record holds, those launches by kernel
+                 held to the phase's launches a step.  (b) every rule's
+                 seeded program (`lint.seeds`, a one-rank NCCL world for
+                 the collective ones) fires its rule on the card.  (c)
+                 save, kill and resume through `CheckpointManager`'s
+                 gather over the mesh's (pp, tp) group (one-rank NCCL tp
+                 and pp groups; across ranks the path is held on the
+                 CPU only, the box having one card): BERT-Large (phase
+                 6's step) and GPT-350M (phase 5's) through
+                 make_tp_dp_train_step; the restored state and the first
+                 replayed loss bit for bit, the later losses within
+                 RESUME_RUN_TO_RUN x a second run's spread, the gathers
+                 in the comms inventory, ckpt_blocking_s and ckpt_save_s
+                 beside phase 19's.
+ 25. table       the kernels' times on the card (CUDA events) beside
                  their bounds, their plain versions and one library
                  call computing the same function; the softmax forward
                  also at the BERT step's own mask (no padding) and with
@@ -623,7 +647,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
                  20's, 21's, 22's, 23's and 24's legs (the backward rows'
                  fp32 launches apart), the four unpacked flash kernels'
                  bias launches and bias times (phase 22), each kernel's
-                 launches in phase 23's examples,
+                 launches in phase 23's examples and in phase 24's lint
+                 records and resume runs,
                  and the backward kernels with fp32 outputs at the
                  ring's chunk shapes beside their bf16 launches and
                  both bounds.
@@ -2708,7 +2733,8 @@ def resnet_setup(torch, batch, seed=0, larc=False, opt_level="O1"):
     params, dynamic loss scale from 2^16), the mean of the fp32 cross
     entropy, FusedSGD(0.1, 0.9, 1e-4) over the fp32 flat buffer (inside
     LARC(trust_coefficient=0.02, clip=True) with `larc`) and
-    `make_train_step(with_state=True)`; a batch of `batch` 224x224x3
+    `make_train_step(with_state=True)` (which writes the new running
+    statistics into `mstate`); a batch of `batch` 224x224x3
     N(0, 1) images and uniform labels over 1000 classes, each from its
     own seeded generator.  `opt_level="O2"` (slice 17, apex's
     `main_amp.py --opt-level O2`): `amp.initialize(params, "O2")` makes
@@ -9771,6 +9797,313 @@ def add_slice26_columns(rows, slice26):
             row["launches_slice26"] = col
 
 
+# ------------------ slice 27: the linter, checkpoints cut over tp or pp -------
+
+LINT_TARGETS = ("gpt", "bert", "resnet", "serve", "moe")
+# the rules phase 24 (b) must see fire on the card (every seed runs)
+CARD_RULES = ("DP101", "DP104", "CL201", "CL205", "DN301", "HS401")
+
+
+def launch_rows(fa, ln, ok, xe, wf, fd):
+    """{launcher name: kernel table row name} of every counted kernel."""
+    rows = {fn.__name__: name for name, fn in
+            list(training_kernels(fa, ln, ok).items())
+            + list(resnet_kernels(xe, wf, ok).items())}
+    rows[fd.flash_decode_cuda.__name__] = "flash_decode"
+    return rows
+
+
+def phase_per_step(target, phases, num_layers=24):
+    """{program: {row: launches a step}} of the phase that ran the same
+    step: 5 (gpt), 6 (bert), 7 (resnet), 3 (serve: a decode step launches
+    flash-decode once a layer and 2L + 1 LayerNorms, a prefill the
+    LayerNorms) and 18 (moe)."""
+    if target == "serve":
+        n_ln = 2 * num_layers + 1
+        return {"serve.decode": {"flash_decode": num_layers,
+                                 "layer_norm_fwd": n_ln},
+                "serve.prefill": {"layer_norm_fwd": n_ln}}
+    return {target: {k: v for k, v in
+                     phases[target]["launches_per_step"].items() if v}}
+
+
+def lint_flagships_leg(torch, rows, phases):
+    """Phase 24 (a): each flagship linted at full width, clean against
+    the committed allowlist; the record's launches held to the phase's."""
+    from apex_tpu_torch import lint
+    from apex_tpu_torch.lint import __main__ as cli
+    from apex_tpu_torch.lint import flagships
+    from apex_tpu_torch.parallel import mesh
+
+    allowlist = lint.load_allowlist(cli.ALLOWLIST)
+    check(allowlist == [], f"the committed allowlist is not empty: "
+          f"{allowlist}")
+    out = {}
+    for target in LINT_TARGETS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep, counts = flagships.lint_target(target, allowlist=allowlist)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mesh.destroy_model_parallel()
+        check(rep.ok, f"lint {target}:\n{lint.render_findings(rep)}")
+        want = phase_per_step(target, phases)
+        line = {"seconds": secs, "programs": {}}
+        for prog, c in counts.items():
+            got = {rows.get(k, k): n for k, n in c["kernels"].items()}
+            for row, n in want[prog].items():
+                check(got.get(row, 0) == n,
+                      f"lint {prog}: the record holds {got.get(row, 0)} "
+                      f"{row} launches, the phase {n} a step")
+            line["programs"][prog] = {
+                "ops": c["ops"], "collectives": c["collectives"],
+                "kernel_launches": c["kernel_launches"], "launches": got,
+                "phase_per_step": want[prog]}
+        log(f"slice 27 (a) lint {target}: clean, {secs:.1f}s, "
+            + json.dumps(line["programs"]))
+        out[target] = line
+        torch.cuda.empty_cache()
+    return out
+
+
+def seeds_leg(torch):
+    """Phase 24 (b): every rule's seeded program on the card."""
+    from apex_tpu_torch.lint import seeds
+
+    fired = {}
+    for rule in seeds.SEEDS:
+        got = seeds.fire(rule, "cuda")
+        fired[rule] = [f.location for f in got]
+    check(all(fired[r] for r in CARD_RULES),
+          f"seeded rules that did not fire on the card: "
+          f"{[r for r in CARD_RULES if not fired[r]]}")
+    check(all(fired.values()), f"seeded rules that did not fire: "
+          f"{[r for r, v in fired.items() if not v]}")
+    log("slice 27 (b) seeded rules fired on the card " + json.dumps(fired))
+    return fired
+
+
+def tp_gpt(torch):
+    """(c)'s GPT: phase 5's GPT-350M step through make_tp_dp_train_step
+    (FusedAdam(lr=1e-4, master bf16), batch 12 x 1024).  Returns (fresh,
+    batch, per_step)."""
+    from apex_tpu_torch.models import gpt as gpt_mod
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    model = gpt_mod.gpt_350m(vocab_size=50304, seq_len=1024, dropout=0.0,
+                             dtype=bf16, logits_dtype=bf16,
+                             use_flash_attention=True)
+
+    def fresh():
+        opt = FusedAdam(lr=1e-4, master_dtype=bf16)
+        state = init_sharded_optimizer(opt, model, model.init(seed=0))
+        step = make_tp_dp_train_step(model, opt)
+        return opt, state, lambda st, b: step(st, *b)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, 50304, (12, 1024), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    return fresh, (tokens, torch.roll(tokens, -1, dims=1)), MONITOR_PER_STEP
+
+
+def tp_bert(torch, per_step):
+    """(c)'s BERT: phase 6's BERT-Large FusedLAMB step through
+    make_tp_dp_train_step (phase 19 (a)'s)."""
+    from apex_tpu_torch.models import bert as bert_mod
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.transformer.pipeline_parallel import (
+        get_params_for_weight_decay_optimization)
+    from apex_tpu_torch.transformer.training import (
+        init_sharded_optimizer, make_tp_dp_train_step)
+
+    bf16 = torch.bfloat16
+    cfg = bert_mod.BertConfig(seq_len=BERT_SEQ, dtype=bf16,
+                              use_flash_attention=True)
+    model = bert_mod.Bert(cfg)
+
+    def fresh():
+        params = model.init(seed=0)
+        opt = FusedLAMB(
+            lr=1e-4, weight_decay=0.01, master_dtype=bf16,
+            wd_mask=get_params_for_weight_decay_optimization(params))
+        state = init_sharded_optimizer(opt, model, params)
+        step = make_tp_dp_train_step(
+            model, opt, loss_fn=lambda p, t, lab: model.loss(
+                p, t, lab[0], lab[1], lab[2]))
+        return opt, state, lambda st, b: step(st, *b)
+
+    return fresh, bert_data(torch, cfg, BERT_BATCH), per_step
+
+
+def tp_resume_leg(torch, fa, ln, ok, what, model, tmp, steps=6, at=3,
+                  kill_at=5):
+    """Phase 24 (c) for one model: phase 19 (c)'s save, kill and resume
+    gate through the tp path.  A baseline of `steps` steps commits at
+    step `at` (its save gathering every field but `step` over the (pp,
+    tp) group: the comms inventory must show one all-gather a field) and
+    a save at `kill_at` killed by the `ckpt.mid_shards` fail point; a
+    second run gives the run-to-run spread; a fresh optimizer restores
+    step `at` (bit for bit the committed state) and replays the rest:
+    the first replayed loss bit for bit the baseline's, the later losses
+    within RESUME_RUN_TO_RUN x the spread."""
+    from apex_tpu_torch.checkpoint import (CheckpointManager, chaos,
+                                           latest_committed_step)
+    from apex_tpu_torch.monitor.comms import inventory as inv
+
+    fresh, batch, per_step = model
+
+    def run(mgr_dir=None):
+        opt, state, step = fresh()
+        mgr = (CheckpointManager(mgr_dir, opt, every_n_steps=at, keep=4)
+               if mgr_dir else None)
+        losses, committed, gathers, st = [], None, None, None
+        reset_kernel_counts(fa, ln, ok)
+        for i in range(1, steps + 1):
+            state, loss = step(state, batch)
+            losses.append(loss)
+            if mgr is not None and i == at:
+                rec = inv.InventoryRecorder()
+                with inv.recording(rec):
+                    check(mgr.maybe_save(i, state), f"{what}: no save")
+                mgr.wait()
+                st = mgr.stats()
+                gathers = [e["kind"] for e in rec.entries]
+                committed = {f: getattr(state, f).clone()
+                             for f in state._fields}
+            if mgr is not None and i == kill_at:
+                with chaos.preempt_at("ckpt.mid_shards"):
+                    mgr.save(i, state)
+                    try:
+                        mgr.wait()
+                        killed = False
+                    except chaos.SimulatedPreemption:
+                        killed = True
+                check(killed and latest_committed_step(mgr_dir) == at,
+                      f"{what}: the save at step {kill_at} was not killed "
+                      f"cleanly (latest {latest_committed_step(mgr_dir)})")
+        torch.cuda.synchronize()
+        counts = kernel_counts(fa, ln, ok)
+        for name, n in per_step.items():
+            check(counts[name] == n * steps, f"{what} resume {name}: "
+                  f"{counts[name]} launches in {steps} steps, want {n} a "
+                  "step")
+        out = (losses, committed, counts, gathers, st, len(state._fields))
+        del opt, state, step, mgr
+        return out
+
+    base, committed, counts, gathers, st, n_fields = run(tmp)
+    check(gathers == ["all-gather"] * (n_fields - 1),
+          f"{what}: the save issued {gathers}, want one all-gather for "
+          f"each of the {n_fields - 1} fields but step")
+    second = run()[0]
+    opt, _, step = fresh()
+    t0 = time.perf_counter()
+    restored, _, manifest = CheckpointManager(tmp, opt).restore()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(manifest["step"] == at and all(
+        torch.equal(getattr(restored, f), committed[f])
+        for f in restored._fields),
+        f"{what}: the restored state is not the committed one bit for bit")
+    replay, state = [], restored
+    for _ in range(at + 1, steps + 1):
+        state, loss = step(state, batch)
+        replay.append(loss)
+    torch.cuda.synchronize()
+    check(torch.equal(replay[0], base[at]),
+          f"{what}: the first replayed loss {float(replay[0])!r} is not the "
+          f"baseline's step-{at + 1} loss {float(base[at])!r} bit for bit")
+
+    def diff(xs, ys):
+        return max(abs(float(x) - float(y)) for x, y in zip(xs, ys))
+
+    line = {"steps": steps, "committed_at": at, "killed_at": kill_at,
+            "losses_baseline": [float(x) for x in base],
+            "losses_second_run": [float(x) for x in second],
+            "losses_replayed": [float(x) for x in replay],
+            "restored_state_bit_for_bit": True,
+            "first_replayed_loss_bit_for_bit": True,
+            "loss_diff_replayed": diff(replay[1:], base[at + 1:]),
+            "loss_diff_run_to_run": diff(second[at:], base[at:]),
+            "save_collectives": gathers,
+            "ckpt_blocking_s": st["ckpt_blocking_s"],
+            "ckpt_save_s": st["ckpt_save_s"], "ckpt_bytes": st["ckpt_bytes"],
+            "restore_s": restore_s, "launches": counts,
+            "launches_per_step": per_step}
+    check(line["loss_diff_replayed"]
+          <= RESUME_RUN_TO_RUN * line["loss_diff_run_to_run"],
+          f"{what}: the replayed losses are further from the baseline than "
+          f"{RESUME_RUN_TO_RUN}x a second run's: {line}")
+    del state, restored, replay, committed, opt, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def slice27_phase(torch, fa, ln, ok, xe, wf, fd, smi, phases, ckpt19):
+    """Phase 24 (module docstring): (a) and (b), then (c) on one-rank
+    NCCL tp and pp groups; the checkpoints under a temporary directory
+    removed after."""
+    import torch.distributed as dist
+    from apex_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    out = {"lint": lint_flagships_leg(torch, launch_rows(fa, ln, ok, xe, wf,
+                                                         fd), phases)}
+    t1 = time.perf_counter()
+    out["seeds"] = seeds_leg(torch)
+    t2 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_tp_")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh.initialize_model_parallel(tensor_model_parallel_size=1,
+                                       pipeline_model_parallel_size=1)
+        groups = {a: mesh.group_of(a) for a in ("tp", "pp", ("pp", "tp"))}
+        check(all(g is not None and dist.get_backend(g) == "nccl"
+                  and dist.get_world_size(g) == 1 for g in groups.values()),
+              "slice 27: the tp and pp groups are not one-rank NCCL groups")
+        for what, model in (("bert", tp_bert(torch,
+                                            phases["bert"]
+                                            ["launches_per_step"])),
+                            ("gpt", tp_gpt(torch))):
+            line = tp_resume_leg(torch, fa, ln, ok, f"slice 27 {what}",
+                                 model, os.path.join(tmp, what))
+            line["phase19_ckpt_blocking_s"] = ckpt19["ckpt_blocking_s"]
+            line["phase19_ckpt_save_s"] = ckpt19["ckpt_save_s"]
+            line["scope"] = ("one card: the (pp, tp) gather runs over "
+                             "one-rank NCCL groups; across ranks item 56 "
+                             "is held on the CPU (gloo worlds against the "
+                             "JAX package)")
+            log(f"slice 27 (c) {what} resume " + json.dumps(line))
+            out[f"resume_{what}"] = line
+    finally:
+        mesh.destroy_model_parallel()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 24 {time.perf_counter() - t0:.1f}s ((a) {t1 - t0:.1f}s, (b) "
+        f"{t2 - t1:.1f}s; {smi})")
+    return out
+
+
+def add_slice27_columns(rows, slice27):
+    """The kernel table's slice-27 column: on each row, its launches in
+    phase 24 (a)'s lint records (one step each) and in (c)'s resume
+    baselines."""
+    runs = {f"lint {prog}": p["launches"]
+            for line in slice27["lint"].values()
+            for prog, p in line["programs"].items()}
+    runs.update({f"resume {what} baseline": slice27[f"resume_{what}"][
+        "launches"] for what in ("bert", "gpt")})
+    for row in rows:
+        col = {what: got[row["name"]] for what, got in runs.items()
+               if got.get(row["name"])}
+        if col:
+            row["launches_slice27"] = col
+
+
 def rate0_bits(root):
     """`python3 chip_smoke.py --rate0-bits ROOT`: digests of the flash
     kernels' outputs at dropout rate 0 from the checkout at ROOT (its
@@ -10517,7 +10850,14 @@ def run_phases():
     slice26 = slice26_phase(torch, fa, ln, ok, xe, wf, fd, smi)
     torch.cuda.empty_cache()
 
-    # ---- 24. kernel table --------------------------------------------
+    # ---- 24. slice 27: the linter, checkpoints cut over tp or pp ------
+    slice27 = slice27_phase(torch, fa, ln, ok, xe, wf, fd, smi, {
+        "gpt": train, "bert": bert, "resnet": resnet,
+        "serve": engine_line, "moe": slice21["bench"]},
+        slice22["ckpt"])
+    torch.cuda.empty_cache()
+
+    # ---- 25. kernel table --------------------------------------------
     q, k, v, tbl, lens = fd_main
     sc = 1.0 / math.sqrt(q.shape[3])
     # a cold cache: read 64 MiB (more than the 50 MB L2) before each
@@ -10634,6 +10974,7 @@ def run_phases():
     add_slice24_columns(table["kernels"], slice24)
     add_slice25_columns(table["kernels"], slice25)
     add_slice26_columns(table["kernels"], slice26)
+    add_slice27_columns(table["kernels"], slice27)
     check(all(r[key] is None and key == "library_ms"
               or math.isfinite(r[key]) for r in table["kernels"]
               for key in ("ms", "plain_ms", "bound_ms", "library_ms")),

@@ -471,19 +471,3 @@ def test_fault_cases_give_the_jax_outcome(case, tmp_path):
     got = case("port", tmp_path / "port")
     want = case("jax", tmp_path / "jax")
     assert got == want
-
-
-def test_manager_refuses_a_tp_sharded_state(tmp_path, monkeypatch):
-    """A state cut over tp (or pp) ranks is refused by name: the format
-    records dp shards of one flat state."""
-    from apex_tpu_torch.parallel import mesh as M
-
-    opt = FusedAdam(lr=1e-2)
-    state = opt.init({"w": torch.ones(8)})
-    monkeypatch.setattr(M, "group_of", lambda axis: axis)
-    monkeypatch.setattr(M, "group_size",
-                        lambda g: 2 if g == M.TP_AXIS else 1)
-    mgr = PC.CheckpointManager(str(tmp_path), opt, async_write=False)
-    with pytest.raises(PC.CheckpointError, match="2 'tp' ranks"):
-        mgr.save(1, state)
-    assert mgr.last_committed_step is None

@@ -212,9 +212,12 @@ def test_budget_table_renders_as_jax(i):
 
 
 def test_lint_is_not_ported_and_comms_attaches():
+    """lint=True attaches the linter's verdict on the audited run, and
+    comms=True the comms report."""
     _, _, state, step, batch = _gpt()
-    with pytest.raises(NotImplementedError, match="item 26"):
-        monitor.analyze_step(step, (state, None, batch), lint=True)
+    rep = monitor.analyze_step(step, (state, None, batch), lint=True)
+    assert rep.lint == {"ok": True, "findings": []}
+    assert "lint: clean" in monitor.render_budget_table(rep)
     rep = monitor.analyze_step(step, (state, None, batch), comms=True)
     monitor.comms.validate_comms_report(rep.comms)
     assert rep.comms["collectives"] == []          # a world of one

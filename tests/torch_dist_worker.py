@@ -1,7 +1,8 @@
 """One rank of the port's multi-rank CPU tests (tests/test_torch_ddp.py,
 tests/test_torch_zero.py, tests/test_torch_fp16.py, the tensor- and
 pipeline-parallel files, tests/test_torch_bert_tp.py,
-tests/test_torch_checkpoint_sharded.py, tests/test_torch_trace.py,
+tests/test_torch_checkpoint_sharded.py,
+tests/test_torch_checkpoint_tp.py, tests/test_torch_trace.py,
 tests/test_torch_comms.py, tests/test_torch_contrib.py and
 tests/test_torch_transformer_misc.py).
 
@@ -1158,6 +1159,87 @@ def scn_ckpt(d, rank, world):
             mgr.save(step, state)
         # rank 0's writer commits behind the file barrier
         dist.barrier()
+    return out
+
+
+def seeded_moments(n, seed):
+    """The global (m, v) of a checkpoint case: seeded numpy (the JAX side
+    of tests/test_torch_checkpoint_tp.py draws the same)."""
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(n) * 1e-3).astype(np.float32),
+            (rng.rand(n) * 1e-6).astype(np.float32))
+
+
+def scn_ckpt_tp(d, rank, world):
+    """Checkpoints of states cut over tp or pp, one mesh a case
+    (d["cases"]): the rank's row of the global state (its own sharded
+    init's params at step 1, the rows of the seeded moments), saved at
+    JAX_STEP; one make_tp_dp_train_step step, saved; a fresh optimizer
+    restores that save, and the run and the resumed run each take one
+    more step."""
+    from apex_tpu_torch.checkpoint import CheckpointManager
+    from apex_tpu_torch.models.gpt import (GPT, GPTConfig, GPTPipelined,
+                                           params_from_jax)
+    from apex_tpu_torch.transformer import training
+
+    def rows(state):
+        return {f: n(getattr(state, f)).copy() for f in state._fields}
+
+    out = {}
+    for case in d["cases"]:
+        tp, pp = case["tp"], case["pp"]
+        _pp(pp, tp)
+        cfg = GPTConfig(**d["cfg"])
+        model = GPTPipelined(cfg, 2, pp) if pp > 1 else GPT(cfg)
+
+        def fresh():
+            opt = FusedAdam(lr=1e-3)
+            state = training.init_sharded_optimizer(
+                opt, model, params_from_jax(case["params"], device="cpu"))
+            return opt, state
+
+        opt, state = fresh()
+        row = (mesh.get_pipeline_model_parallel_rank() * tp
+               + mesh.get_tensor_model_parallel_rank())
+        per = state.params.numel()
+        m, v = (a[row * per:(row + 1) * per]
+                for a in seeded_moments(tp * pp * per, case["seed"]))
+        state.step.fill_(1)
+        state.exp_avg.copy_(t(m))
+        state.exp_avg_sq.copy_(t(v))
+        res = {"row": row, "saved": rows(state)}
+        with CheckpointManager(case["same_dir"], opt,
+                               every_n_steps=1) as mgr:
+            res["multihost"] = mgr.multihost
+            mgr.save(d["step"], state)
+        dist.barrier()       # rank 0 commits behind the file barrier
+        step = training.make_tp_dp_train_step(model, opt, device="cpu")
+        dpw, dpr = (mesh.get_data_parallel_world_size(),
+                    mesh.get_data_parallel_rank())
+
+        def batch(tokens):
+            return (t(local(tokens, dpr, dpw)),
+                    t(local(np.roll(tokens, -1, axis=1), dpr, dpw)))
+
+        state, _ = step(state, *batch(d["tokens"][0]))
+        with CheckpointManager(case["next_dir"], opt) as mgr:
+            mgr.save(d["step"] + 1, state)
+        dist.barrier()
+        res["stepped"] = rows(state)
+        opt2, _ = fresh()
+        back, _, m2 = CheckpointManager(case["next_dir"],
+                                        opt2).restore(device="cpu")
+        res["resumed_step"] = m2["step"]
+        res["resumed_bit_for_bit"] = all(
+            torch.equal(getattr(back, f), getattr(state, f))
+            for f in state._fields)
+        step2 = training.make_tp_dp_train_step(model, opt2, device="cpu")
+        _, res["next_loss"] = step(state, *batch(d["tokens"][1]))
+        _, res["resumed_next_loss"] = step2(back, *batch(d["tokens"][1]))
+        res["next_loss"] = n(res["next_loss"])
+        res["resumed_next_loss"] = n(res["resumed_next_loss"])
+        out[case["name"]] = res
+    _restore()
     return out
 
 
